@@ -1,0 +1,133 @@
+"""Build the hand-written CUDA kernels of ``csrc/`` and call them via ctypes.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
+library of its own with a plain C interface: one ``ctt_<name>`` entry point
+that launches on the stream it is given and returns ``cudaGetLastError()``.
+No PyTorch header is included, so a build takes seconds. Libraries are built
+at first use, all sources at once, into ``build/torch_kernels/`` at the root
+of the checkout; the file name carries a hash of the sources and flags, so
+an edit rebuilds.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import time
+
+import torch
+
+SOURCES = ("random_u32", "delivery_edges", "top_active", "append_entries")
+
+CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "build" / \
+    "torch_kernels"
+
+FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+         "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P, _U, _I, _L = ctypes.c_void_p, ctypes.c_uint32, ctypes.c_int, \
+    ctypes.c_longlong
+
+# Argument types of each ctt_<name>, without the trailing stream pointer.
+SIGNATURES = {
+    # seed, stream, (ctx, c0, c1) x (ptr, scalar, batch stride), out, B, M
+    "random_u32": (_P, _U, _P, _U, _L, _P, _U, _L, _P, _U, _L, _P, _I, _L),
+    # seed, round, ids, out, B, A, N, drop_cut, part_cut, ids_are_src
+    "delivery_edges": (_P, _U, _P, _P, _I, _I, _I, _U, _U, _I),
+    # mask, term, partial scratch, out, B, N, A, blocks per sweep
+    "top_active": (_P, _P, _P, _P, _I, _I, _I, _I),
+    # log_term, log_val, log_len, commit, kstar, has_l, s_next, s_len,
+    # s_commit, s_logt, s_logv, apply, log_len_out, commit_out, B, N, A, L
+    "append_entries": (_P,) * 14 + (_I, _I, _I, _I),
+}
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
+        return os.path.join(CUDA_HOME, "bin", "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def library_path(name: str) -> pathlib.Path:
+    h = hashlib.sha256(" ".join(FLAGS).encode())
+    for src in (CSRC / "rng.cuh", CSRC / f"{name}.cu"):
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names=SOURCES) -> dict[str, float]:
+    """Compile every library in ``names`` that is not built yet, one nvcc
+    process per source, all started together. Returns the seconds each
+    build took (0.0 when it was already built) and raises with the
+    compiler's output if any build fails. Each compiler log is kept next
+    to its library as ``<library>.log``."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs, seconds = {}, {}
+    for name in names:
+        out = library_path(name)
+        seconds[name] = 0.0
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *FLAGS, "-I", str(CSRC), "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out, time.perf_counter())
+    failed = []
+    for name, (proc, tmp, out, t0) in procs.items():
+        log, _ = proc.communicate()
+        seconds[name] = time.perf_counter() - t0
+        out.with_suffix(".log").write_text(log)
+        if proc.returncode != 0:
+            failed.append(f"{name} (exit {proc.returncode}):\n{log}")
+            continue
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return seconds
+
+
+@functools.cache
+def _entry(name: str):
+    build()  # all sources at once: the first launch builds them in parallel
+    fn = getattr(ctypes.CDLL(str(library_path(name))), f"ctt_{name}")
+    fn.argtypes = [*SIGNATURES[name], _P]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def launch(name: str, *args) -> None:
+    """Launch ``ctt_<name>`` on the current CUDA stream; raise on the error
+    ``cudaGetLastError()`` reports right after the launch."""
+    err = _entry(name)(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch "
+                           f"(cudaError_t {err})")
+
+
+def check(t: torch.Tensor, dtype: torch.dtype, device: torch.device,
+          shape: tuple | None = None) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor on the CUDA
+    ``device`` (of ``shape`` when given) — what a kernel's pointer
+    arithmetic assumes."""
+    if t.device.type != "cuda":
+        raise ValueError(f"the CUDA kernels take CUDA tensors, got {t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"expected {dtype}, got {t.dtype}")
+    if t.device != device:
+        raise ValueError(f"expected a tensor on {device}, got {t.device}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"expected shape {tuple(shape)}, got "
+                         f"{tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError("kernel inputs must be contiguous")

@@ -1,0 +1,110 @@
+"""The run configuration of the port: the capped-Raft slice of ``Config``.
+
+A slim copy of ``consensus_tpu/core/config.py``: the same field names,
+defaults and u32 cutoffs for what the capped-Raft path reads. The knobs of
+the JAX package that this port does not implement yet are fields too, and
+setting one off its default raises ``ValueError``; the port never ignores a
+setting silently.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+from .rng import prob_threshold_u32
+
+# Knobs of consensus_tpu's Config that the port does not implement yet,
+# with the default each must keep.
+UNSUPPORTED = {
+    "crash_prob": 0.0, "recover_prob": 0.0, "max_crashed": 0,
+    "max_delay_rounds": 0,
+    "attack": "none", "attack_rate": 1.0, "attack_target": 0,
+    "net_model": "flat", "n_aggregators": 0,
+    "n_byzantine": 0, "byz_mode": "silent",
+    "desync_rate": 0.0,
+    "telemetry_window": 0,
+    "scan_chunk": 0, "sweep_chunk": 0,
+    "mesh_shape": (),
+}
+
+# The top-A kernel keeps a sorted list of A keys per thread in registers.
+MAX_ACTIVE = 16
+# lead_match / lead_next are uint8 (L + 1 <= 255), as the JAX package
+# stores them at these capacities; PyTorch has no uint16 arithmetic for the
+# wider ones.
+MAX_LOG_CAPACITY = 254
+
+
+@dataclass(frozen=True)
+class Config:
+    protocol: str = "raft"
+
+    n_nodes: int = 5
+    n_rounds: int = 64
+    n_sweeps: int = 1
+    seed: int = 0
+
+    log_capacity: int = 128
+    max_entries: int = 100
+
+    t_min: int = 3
+    t_max: int = 8
+    max_active: int = 0
+
+    drop_rate: float = 0.0
+    partition_rate: float = 0.0
+    churn_rate: float = 0.0
+
+    crash_prob: float = 0.0
+    recover_prob: float = 0.0
+    max_crashed: int = 0
+    max_delay_rounds: int = 0
+    attack: str = "none"
+    attack_rate: float = 1.0
+    attack_target: int = 0
+    net_model: str = "flat"
+    n_aggregators: int = 0
+    n_byzantine: int = 0
+    byz_mode: str = "silent"
+    desync_rate: float = 0.0
+    telemetry_window: int = 0
+    scan_chunk: int = 0
+    sweep_chunk: int = 0
+    mesh_shape: tuple[int, ...] = ()
+
+    def __post_init__(self) -> None:
+        if self.protocol != "raft":
+            raise ValueError(f"protocol {self.protocol!r} is not ported yet "
+                             "(the port runs raft only)")
+        if min(self.n_nodes, self.n_rounds, self.n_sweeps,
+               self.log_capacity) < 1:
+            raise ValueError("n_nodes, n_rounds, n_sweeps, log_capacity "
+                             "must be >= 1")
+        if self.t_max <= self.t_min:
+            raise ValueError("t_max must exceed t_min")
+        if self.max_active == 0:
+            raise ValueError("max_active = 0 selects the dense raft engine, "
+                             "which is not ported yet")
+        if not 1 <= self.max_active <= min(MAX_ACTIVE, self.n_nodes):
+            raise ValueError(f"max_active must be in [1, min({MAX_ACTIVE}, "
+                             "n_nodes)]")
+        if self.log_capacity > MAX_LOG_CAPACITY:
+            raise ValueError(f"log_capacity must be <= {MAX_LOG_CAPACITY} "
+                             "(uint8 replication bookkeeping)")
+        if self.n_nodes >= 2**31 - 1:
+            raise ValueError("n_nodes must fit int32 ids")
+        off = [k for k, d in UNSUPPORTED.items() if getattr(self, k) != d]
+        if off:
+            raise ValueError(f"{', '.join(off)}: not supported by the port "
+                             "yet; it would be silently ignored")
+
+    @property
+    def drop_cutoff(self) -> int:
+        return prob_threshold_u32(self.drop_rate)
+
+    @property
+    def partition_cutoff(self) -> int:
+        return prob_threshold_u32(self.partition_rate)
+
+    @property
+    def churn_cutoff(self) -> int:
+        return prob_threshold_u32(self.churn_rate)

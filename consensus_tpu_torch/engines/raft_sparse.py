@@ -1,0 +1,419 @@
+"""Large-population Raft under the SPEC §3b active-sender cap, in PyTorch.
+
+The port of ``consensus_tpu/engines/raft_sparse.py`` on its flat path (no
+crash, attack, byzantine, switch or telemetry gates). Per round only the
+top-A candidates and the top-A leaders by (term desc, id asc) send, and
+leader replication state lives in A tracked slots of [A, N] rows, so a round
+is O(A*N) plus one pass over the rows of the [N, L] logs that a heartbeat
+reaches. Sweeps are a leading batch axis B on every tensor.
+
+Two functions here are wrappers of hand-written CUDA kernels, each beside
+its plain PyTorch version, which CPU tensors run:
+
+* :func:`top_active` — kernel KC (``csrc/top_active.cu``);
+* :func:`append_entries` — kernel KD (``csrc/append_entries.cu``).
+
+The [B, N, L] logs are updated in place (P3a's one-slot append and P3c's
+suffix copy), where the JAX round returns new arrays: a round's state
+replaces its input state.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..core import rng
+from ..core.config import MAX_ACTIVE, Config
+from ..ops.adversary import bitcast_i32, churn, delivery_edges, draw
+from .raft import (NONE, ROLE_C, ROLE_F, ROLE_L, draw_timeout, last_term,
+                   match_dtype)
+
+I32_MIN = -2**31
+# Plain top-A key of an unmasked node; above every masked key.
+_KEY_NONE = 2**63 - 1
+
+
+class RaftSparseState(NamedTuple):
+    seed: torch.Tensor        # [B] uint32
+    term: torch.Tensor        # [B, N] i32
+    role: torch.Tensor        # [B, N] i32
+    voted_for: torch.Tensor   # [B, N] i32
+    log_term: torch.Tensor    # [B, N, L] i32
+    log_val: torch.Tensor     # [B, N, L] i32
+    log_len: torch.Tensor     # [B, N] i32
+    commit: torch.Tensor      # [B, N] i32
+    timer: torch.Tensor       # [B, N] i32
+    timeout: torch.Tensor     # [B, N] i32
+    lead_id: torch.Tensor     # [B, A] i32, NONE when the slot is empty
+    lead_match: torch.Tensor  # [B, A, N] uint8
+    lead_next: torch.Tensor   # [B, A, N] uint8
+    down: torch.Tensor        # [B, N] bool (SPEC §6c; all False here)
+
+
+def raft_sparse_init(cfg: Config, seeds: torch.Tensor) -> RaftSparseState:
+    """Fresh state for each sweep seed in ``seeds`` ([B] uint32)."""
+    N, L, A = cfg.n_nodes, cfg.log_capacity, cfg.max_active
+    B, dev = seeds.shape[0], seeds.device
+    idx = torch.arange(N, dtype=torch.int32, device=dev)
+    z = torch.zeros((B, N), dtype=torch.int32, device=dev)
+    mdt = match_dtype(L)
+    return RaftSparseState(
+        seed=seeds, term=z, role=z.clone(),
+        voted_for=torch.full((B, N), NONE, dtype=torch.int32, device=dev),
+        log_term=torch.zeros((B, N, L), dtype=torch.int32, device=dev),
+        log_val=torch.zeros((B, N, L), dtype=torch.int32, device=dev),
+        log_len=z.clone(), commit=z.clone(), timer=z.clone(),
+        timeout=draw_timeout(seeds, cfg.t_min, cfg.t_max, 0, idx),
+        lead_id=torch.full((B, A), NONE, dtype=torch.int32, device=dev),
+        lead_match=torch.zeros((B, A, N), dtype=mdt, device=dev),
+        lead_next=torch.ones((B, A, N), dtype=mdt, device=dev),
+        down=torch.zeros((B, N), dtype=torch.bool, device=dev),
+    )
+
+
+# --- KC: top-A active senders -------------------------------------------------
+
+def top_active_plain(mask, term, A: int) -> torch.Tensor:
+    """Plain version of KC: the ids of the top-A ``mask`` nodes of each
+    sweep by (term desc, id asc), NONE-padded; [B, A] i32. The keys are
+    unique, so A rounds of "take the least key" equal the JAX package's
+    two-key ``lax.sort``."""
+    N = mask.shape[1]
+    idx = torch.arange(N, dtype=torch.int64, device=mask.device)
+    hi = (2**31 - 1) - term.to(torch.int64)          # in [0, 2**32)
+    key = torch.where(mask, hi * 2**31 + idx, _KEY_NONE)
+    ids = []
+    for _ in range(A):
+        k = key.argmin(1, keepdim=True)
+        ids.append(torch.where(key.gather(1, k) != _KEY_NONE, k, NONE))
+        key = key.scatter(1, k, _KEY_NONE)
+    return torch.cat(ids, 1).to(torch.int32)
+
+
+def top_active(mask, term, A: int) -> torch.Tensor:
+    """Kernel KC: same arguments and result as :func:`top_active_plain`,
+    which it runs for CPU tensors; for CUDA tensors it launches
+    ``csrc/top_active.cu`` (per-block partial top-A, then one merge block
+    per sweep)."""
+    if mask.device.type == "cpu":
+        return top_active_plain(mask, term, A)
+    from .. import _build
+    B, N = mask.shape
+    if not 1 <= A <= MAX_ACTIVE:
+        raise ValueError(f"top_active takes 1 <= A <= {MAX_ACTIVE}")
+    _build.check(mask, torch.bool, mask.device, (B, N))
+    _build.check(term, torch.int32, mask.device, (B, N))
+    blocks = max(1, min(64, -(-N // 4096)))
+    partial = torch.empty((B, blocks, A), dtype=torch.int64,
+                          device=mask.device)
+    out = torch.empty((B, A), dtype=torch.int32, device=mask.device)
+    _build.launch("top_active", mask.data_ptr(), term.data_ptr(),
+                  partial.data_ptr(), out.data_ptr(), B, N, A, blocks)
+    top_active.launches += 1
+    return out
+
+
+top_active.launches = 0
+
+
+# --- KD: P3c AppendEntries apply ------------------------------------------------
+
+def append_entries_plain(log_term, log_val, log_len, commit, kstar, has_l,
+                         s_next, s_len, s_commit, s_logt, s_logv):
+    """Plain version of KD, SPEC §3 P3c at each follower j of each sweep:
+    with k = kstar[j] its chosen leader slot (used where has_l[j]), check
+    that the follower's log matches the leader's at prev = s_next[k, j] - 1,
+    and where it does, copy the leader's entries [prev, s_len[k]) into the
+    follower's row, set its log length to s_len[k] and let its commit follow
+    min(s_commit[k], new length). ``log_term``/``log_val`` ([B, N, L]) are
+    updated in place; returns (apply [B, N] bool, new log_len, new commit).
+    """
+    B, N, L = log_term.shape
+    k = kstar.to(torch.int64)
+    bi = torch.arange(B, device=k.device)[:, None]
+    prev = s_next.gather(1, k[:, None, :])[:, 0].to(torch.int32) - 1
+    l_len = s_len.gather(1, k)
+    l_commit = s_commit.gather(1, k)
+    kprev = (prev - 1).clamp(0, L - 1).to(torch.int64)
+    prev_term_l = torch.where(prev > 0, s_logt[bi, k, kprev], 0)
+    own_at_prev = torch.where((prev > 0) & (prev <= log_len),
+                              log_term.gather(2, kprev[..., None])[..., 0], 0)
+    ok = (prev == 0) | ((prev <= log_len) & (own_at_prev == prev_term_l))
+    apply_ = has_l & ok
+    kar = torch.arange(L, dtype=torch.int32, device=k.device)
+    copy = apply_[..., None] & (kar >= prev[..., None]) \
+        & (kar < l_len[..., None])
+    log_term.copy_(torch.where(copy, s_logt[bi, k], log_term))
+    log_val.copy_(torch.where(copy, s_logv[bi, k], log_val))
+    new_len = torch.where(apply_, l_len, log_len)
+    new_commit = torch.where(
+        apply_, torch.maximum(commit, torch.minimum(l_commit, new_len)),
+        commit)
+    return apply_, new_len, new_commit
+
+
+def append_entries(log_term, log_val, log_len, commit, kstar, has_l,
+                   s_next, s_len, s_commit, s_logt, s_logv):
+    """Kernel KD: same arguments, in-place log update and result as
+    :func:`append_entries_plain`, which it runs for CPU tensors; for CUDA
+    tensors it launches ``csrc/append_entries.cu`` (a lane per follower,
+    then the warp copies each follower's range; only copied words are
+    written)."""
+    if log_term.device.type == "cpu":
+        return append_entries_plain(log_term, log_val, log_len, commit, kstar,
+                                    has_l, s_next, s_len, s_commit, s_logt,
+                                    s_logv)
+    from .. import _build
+    B, N, L = log_term.shape
+    A = s_len.shape[1]
+    dev = log_term.device
+    for t, dt, shape in ((log_term, torch.int32, (B, N, L)),
+                         (log_val, torch.int32, (B, N, L)),
+                         (log_len, torch.int32, (B, N)),
+                         (commit, torch.int32, (B, N)),
+                         (kstar, torch.int32, (B, N)),
+                         (has_l, torch.bool, (B, N)),
+                         (s_next, torch.uint8, (B, A, N)),
+                         (s_len, torch.int32, (B, A)),
+                         (s_commit, torch.int32, (B, A)),
+                         (s_logt, torch.int32, (B, A, L)),
+                         (s_logv, torch.int32, (B, A, L))):
+        _build.check(t, dt, dev, shape)
+    apply_ = torch.empty((B, N), dtype=torch.bool, device=dev)
+    new_len = torch.empty_like(log_len)
+    new_commit = torch.empty_like(commit)
+    _build.launch("append_entries", *(t.data_ptr() for t in (
+        log_term, log_val, log_len, commit, kstar, has_l, s_next, s_len,
+        s_commit, s_logt, s_logv, apply_, new_len, new_commit)), B, N, A, L)
+    append_entries.launches += 1
+    return apply_, new_len, new_commit
+
+
+append_entries.launches = 0
+
+
+# --- the round ----------------------------------------------------------------
+
+def _scatter_max(x, ids, vals, on):
+    """``x.at[ids].max(vals)`` where ``on``, no write elsewhere: the JAX
+    round's ``mode="drop"`` scatter at index N. Off lanes carry I32_MIN,
+    which leaves any i32 unchanged, so duplicates among them are harmless."""
+    return x.scatter_reduce(1, ids.to(torch.int64),
+                            torch.where(on, vals, I32_MIN), "amax")
+
+
+def raft_sparse_round(cfg: Config, st: RaftSparseState, r: int
+                      ) -> RaftSparseState:
+    """One SPEC §3 round under the §3b cap, phase by phase as
+    ``consensus_tpu/engines/raft_sparse.py`` ``raft_sparse_round`` with
+    ``telem=False``. Updates ``st.log_term``/``st.log_val`` in place."""
+    B, N = st.term.shape
+    L, A = cfg.log_capacity, cfg.max_active
+    E = min(cfg.max_entries, L)
+    majority = N // 2 + 1
+    mdt = match_dtype(L)
+    dev = st.term.device
+    seed = st.seed
+    idx = torch.arange(N, dtype=torch.int32, device=dev)
+    bi = torch.arange(B, device=dev)[:, None]
+    slots = torch.arange(A, dtype=torch.int32, device=dev)
+
+    def dedge(ids, ids_are_src):
+        return delivery_edges(seed, r, ids, N, cfg.drop_cutoff,
+                              cfg.partition_cutoff, ids_are_src)
+
+    def bump(cond, new_term, term, role, voted_for, timeout):
+        """Adopt a higher term: follower, no vote, and the timeout redrawn
+        under the new term."""
+        term = torch.where(cond, new_term, term)
+        return (term, torch.where(cond, ROLE_F, role),
+                torch.where(cond, NONE, voted_for),
+                torch.where(cond, draw_timeout(seed, cfg.t_min, cfg.t_max,
+                                               term, idx), timeout))
+
+    term, role, voted_for = st.term, st.role, st.voted_for
+    log_term, log_val, log_len = st.log_term, st.log_val, st.log_len
+    commit, timer, timeout = st.commit, st.timer, st.timeout
+    lead_id, lead_match, lead_next = st.lead_id, st.lead_match, st.lead_next
+
+    # ---- P0 churn.
+    stepdown = churn(seed, r, cfg.churn_cutoff)[:, None] & (role == ROLE_L)
+    role = torch.where(stepdown, ROLE_F, role)
+    timer = torch.where(stepdown, 0, timer)
+    reset = stepdown
+
+    # ---- P1 candidacy.
+    cand_new = (role != ROLE_L) & (timer >= timeout)
+    term = term + cand_new.to(torch.int32)
+    role = torch.where(cand_new, ROLE_C, role)
+    voted_for = torch.where(cand_new, idx, voted_for)
+    timer = torch.where(cand_new, 0, timer)
+    reset = reset | cand_new
+    timeout = torch.where(
+        cand_new, draw_timeout(seed, cfg.t_min, cfg.t_max, term, idx),
+        timeout)
+
+    # ---- P2 election over the active candidate set (SPEC §3b).
+    cand_ids = top_active(role == ROLE_C, term, A)              # [B, A]
+    cvalid = cand_ids >= 0
+    cid = cand_ids.clamp(0, N - 1).to(torch.int64)
+    req_term = torch.where(cvalid, term.gather(1, cid), 0)
+    req_lidx = log_len.gather(1, cid)
+    own_lterm = last_term(log_term, log_len)                    # [B, N]
+    req_lterm = own_lterm.gather(1, cid)
+    del_cj = dedge(cand_ids, True)                              # [B, A, N]
+
+    # P2a term catch-up.
+    t_in = torch.where(del_cj, req_term[:, :, None], 0).amax(1)
+    term, role, voted_for, timeout = bump(t_in > term, t_in, term, role,
+                                          voted_for, timeout)
+
+    # P2b grants.
+    up_to_date = (req_lterm[:, :, None] > own_lterm[:, None, :]) | (
+        (req_lterm[:, :, None] == own_lterm[:, None, :])
+        & (req_lidx[:, :, None] >= log_len[:, None, :]))
+    elig = del_cj & (req_term[:, :, None] == term[:, None, :]) & up_to_date
+    vf_elig = ((cand_ids[:, :, None] == voted_for[:, None, :]) & elig).any(1)
+    first_elig = torch.where(elig, cid.to(torch.int32)[:, :, None],
+                             N).amin(1)
+    grant = torch.where(
+        vf_elig, voted_for,
+        torch.where((voted_for == NONE) & (first_elig < N), first_elig, NONE))
+    granted = grant >= 0
+    voted_for = torch.where(granted, grant, voted_for)
+    timer = torch.where(granted, 0, timer)
+    reset = reset | granted
+
+    # P2c tally per active candidate; winners become leaders.
+    del_jc = dedge(cand_ids, False)                             # [B, N, A]
+    resp = (grant[:, :, None] == cand_ids[:, None, :]) & del_jc
+    votes = 1 + resp.sum(1, dtype=torch.int32)                  # [B, A]
+    win = cvalid & (role.gather(1, cid) == ROLE_C) & (votes >= majority)
+    won = torch.zeros((B, N), dtype=torch.int32, device=dev).scatter_reduce(
+        1, cid, win.to(torch.int32), "amax").bool()
+    role = torch.where(won, ROLE_L, role)
+    timer = torch.where(won, 0, timer)
+    reset = reset | won
+
+    # ---- Tracked-leader slot lifecycle (SPEC §3b).
+    new_ids = top_active(role == ROLE_L, term, A)               # [B, A]
+    same = new_ids[:, :, None] == torch.where(
+        lead_id >= 0, lead_id, N + 1)[:, None, :]               # [B, A, A]
+    carried = same.any(2) & (new_ids >= 0)
+    src_slot = same.to(torch.uint8).argmax(2)
+    nid = new_ids.clamp(0, N - 1).to(torch.int64)
+    nlen = log_len.gather(1, nid)                               # [B, A]
+    init_match = torch.where(idx == nid[:, :, None], nlen[:, :, None],
+                             0).to(mdt)
+    init_next = (nlen + 1).to(mdt)[:, :, None].expand(B, A, N)
+    lead_match = torch.where(carried[:, :, None], lead_match[bi, src_slot],
+                             init_match)
+    lead_next = torch.where(carried[:, :, None], lead_next[bi, src_slot],
+                            init_next)
+    lead_id = new_ids
+    lvalid = lead_id >= 0
+    lid = lead_id.clamp(0, N - 1).to(torch.int64)
+
+    # ---- P3a propose (every leader, tracked or not: local append only).
+    # The one-slot append is a scatter into the logs, in place.
+    lead = role == ROLE_L
+    can_prop = lead & (log_len < E)
+    prop_val = bitcast_i32(draw(seed, rng.STREAM_VALUE, r, 0, idx))
+    pos = log_len.clamp(max=L - 1).to(torch.int64)[..., None]
+    log_term.scatter_(2, pos, torch.where(can_prop, term,
+                                          log_term.gather(2, pos)[..., 0]
+                                          )[..., None])
+    log_val.scatter_(2, pos, torch.where(can_prop, prop_val,
+                                         log_val.gather(2, pos)[..., 0]
+                                         )[..., None])
+    log_len = log_len + can_prop.to(torch.int32)
+    # Tracked leaders' self-match follows their own append: one entry per
+    # slot row, at the leader's own column.
+    self_on = (lvalid & can_prop.gather(1, lid))[:, :, None]
+    lead_match = lead_match.scatter(
+        2, lid[:, :, None], torch.where(
+            self_on, log_len.gather(1, lid).to(mdt)[:, :, None],
+            lead_match.gather(2, lid[:, :, None])))
+
+    # ---- P3b snapshot tracked-sender state.
+    was_lead_k = lvalid & lead.gather(1, lid)
+    s_term, s_len = term.gather(1, lid), log_len.gather(1, lid)
+    s_commit = commit.gather(1, lid)
+    s_next = lead_next
+    s_logt, s_logv = log_term[bi, lid], log_val[bi, lid]       # [B, A, L]
+
+    # ---- P3c receivers.
+    hb_ids = torch.where(was_lead_k, lead_id, NONE)
+    del_lj = dedge(hb_ids, True)                                # [B, A, N]
+    t_in2 = torch.where(del_lj, s_term[:, :, None], 0).amax(1)
+    term, role, voted_for, timeout = bump(t_in2 > term, t_in2, term, role,
+                                          voted_for, timeout)
+
+    valid = del_lj & (s_term[:, :, None] == term[:, None, :])  # [B, A, N]
+    lcand = torch.where(valid, lid.to(torch.int32)[:, :, None], N)
+    has_l = lcand.amin(1) < N
+    kstar = lcand.argmin(1).to(torch.int32)                    # [B, N] slot
+
+    timer = torch.where(has_l, 0, timer)
+    reset = reset | has_l
+    role = torch.where(has_l & (role == ROLE_C), ROLE_F, role)
+
+    apply_, log_len, commit = append_entries(
+        log_term, log_val, log_len, commit, kstar, has_l, s_next, s_len,
+        s_commit, s_logt, s_logv)
+    ack_slot = torch.where(has_l, kstar, A)
+    ack_match = torch.where(apply_, log_len, 0)
+    ack_term = term
+
+    # ---- P3d tracked leaders process acks.
+    still_lead_k = was_lead_k & (role.gather(1, lid) == ROLE_L)
+    del_jl = dedge(hb_ids, False)                               # [B, N, A]
+    ackm = (ack_slot[:, :, None] == slots) & del_jl             # [B, N, A]
+    t_in3 = torch.where(ackm, ack_term[:, :, None], 0).amax(1)  # [B, A]
+    bump3_k = still_lead_k & (t_in3 > term.gather(1, lid))
+    new_t = _scatter_max(term, lid, t_in3, bump3_k)
+    term, role, voted_for, timeout = bump(new_t > term, new_t, term, role,
+                                          voted_for, timeout)
+    proc = (still_lead_k & ~bump3_k)[:, :, None]                # [B, A, 1]
+
+    succ = (ackm & apply_[:, :, None]).transpose(1, 2)          # [B, A, N]
+    fail = (ackm & ~apply_[:, :, None]).transpose(1, 2)
+    lead_match = torch.where(
+        proc & succ, torch.maximum(lead_match, ack_match[:, None, :].to(mdt)),
+        lead_match)
+    lead_next = torch.where(
+        proc & succ, lead_match + 1,
+        torch.where(proc & fail, (lead_next - 1).clamp_min(1), lead_next))
+
+    # ---- P3e commit advance: the majority-th largest match of each tracked
+    # row, by the same fixed-depth binary search over [0, E] as JAX.
+    lo = torch.zeros((B, A), dtype=torch.int32, device=dev)
+    hi = torch.full((B, A), E + 1, dtype=torch.int32, device=dev)
+    for _ in range((E + 1).bit_length()):
+        mid = (lo + hi) // 2
+        cnt = (lead_match >= mid[:, :, None]).sum(2, dtype=torch.int32)
+        ok = cnt >= majority
+        lo = torch.where(ok, mid, lo)
+        hi = torch.where(ok, hi, mid)
+    med = lo
+    kmed = (med - 1).clamp(0, L - 1).to(torch.int64)
+    term_at_med = log_term[bi, lid, kmed]                       # post-P3c
+    term_l = term.gather(1, lid)
+    adv = proc[:, :, 0] & (med > commit.gather(1, lid)) & (med > 0) \
+        & (term_at_med == term_l)
+    commit = _scatter_max(commit, lid, med, adv)
+
+    # ---- P4 timers.
+    timer = torch.where(role == ROLE_L, 0,
+                        torch.where(reset, timer, timer + 1))
+
+    return RaftSparseState(seed, term, role, voted_for, log_term, log_val,
+                           log_len, commit, timer, timeout, lead_id,
+                           lead_match, lead_next, st.down)
+
+
+def extract(st: RaftSparseState) -> dict[str, torch.Tensor]:
+    """The leaves the decided-log digest and the tests read."""
+    return {"commit": st.commit, "log_term": st.log_term,
+            "log_val": st.log_val, "term": st.term, "role": st.role}

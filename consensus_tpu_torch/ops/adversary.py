@@ -1,0 +1,88 @@
+"""Adversary draws of the capped-Raft path, and kernel KB.
+
+The counterparts of ``consensus_tpu/ops/adversary.py``'s ``draw``,
+``cutoff``, ``bitcast_i32``, ``churn`` and ``delivery_edges`` (with
+``max_delay = 0``). Every decision is a pure counter function of (seed,
+round, ids), so an edge's delivery here equals the JAX package's entry for
+the same absolute (round, src, dst) ids.
+
+:func:`delivery_edges` is the wrapper of the hand-written CUDA kernel KB
+(``csrc/delivery_edges.cu``); on CPU tensors it runs
+:func:`delivery_edges_plain`.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..core import rng
+
+
+def draw(seed, stream: int, ctx, c0, c1) -> torch.Tensor:
+    """Device-side Threefry draw over sweeps; see :func:`rng.random_u32`."""
+    return rng.random_u32(seed, stream, ctx, c0, c1)
+
+
+def cutoff(cut: int) -> int:
+    """u32 probability cutoff (draw < cutoff <=> the event fires)."""
+    return int(cut)
+
+
+def bitcast_i32(x: torch.Tensor) -> torch.Tensor:
+    """Reinterpret u32 draws (int64 in [0, 2**32)) as i32 payload values."""
+    return torch.where(x >= 2**31, x - 2**32, x).to(torch.int32)
+
+
+def churn(seed, r: int, churn_cut: int) -> torch.Tensor:
+    """SPEC §2: [B] bool, True where the round's leader-churn event fires."""
+    return draw(seed, rng.STREAM_CHURN, r, 0, 0)[:, 0] < cutoff(churn_cut)
+
+
+def delivery_edges_plain(seed, r: int, ids, n: int, drop_cut: int,
+                         part_cut: int, ids_are_src: bool) -> torch.Tensor:
+    """Plain version of KB: the SPEC §2 delivery mask between the [B, A]
+    ids and all ``n`` node ids: [B, A, n] (ids send) when ``ids_are_src``,
+    else [B, n, A] (ids receive). Negative ids are masked-out lanes and
+    give False."""
+    nodes = torch.arange(n, dtype=torch.int32, device=ids.device)[None, :]
+    if ids_are_src:
+        src, dst = ids[:, :, None], nodes[:, None, :]
+    else:
+        src, dst = nodes[:, :, None], ids[:, None, :]
+    valid = (src >= 0) & (dst >= 0)
+    usrc, udst = rng.as_u32(src), rng.as_u32(dst)
+    useed = rng.as_u32(seed)[:, None, None]
+    open_drop = rng.delivery_u32_plain(useed, r, usrc, udst) >= drop_cut
+    part_active = rng.random_u32_plain(seed, rng.STREAM_PARTITION, r, 0, 0) \
+        < part_cut                                           # [B, 1]
+    side_s = rng.threefry2x32_plain(useed ^ rng.STREAM_PARTITION, r, 1,
+                                    usrc) & 1
+    side_d = rng.threefry2x32_plain(useed ^ rng.STREAM_PARTITION, r, 1,
+                                    udst) & 1
+    same_side = side_s == side_d
+    off_diag = usrc != udst
+    return valid & open_drop & (same_side | ~part_active[:, :, None]) \
+        & off_diag
+
+
+def delivery_edges(seed, r: int, ids, n: int, drop_cut: int, part_cut: int,
+                   ids_are_src: bool) -> torch.Tensor:
+    """Kernel KB: same arguments and result as :func:`delivery_edges_plain`,
+    which it runs for CPU tensors; for CUDA tensors it launches
+    ``csrc/delivery_edges.cu``."""
+    if ids.device.type == "cpu":
+        return delivery_edges_plain(seed, r, ids, n, drop_cut, part_cut,
+                                    ids_are_src)
+    from .. import _build
+    B, A = ids.shape
+    _build.check(ids, torch.int32, ids.device)
+    _build.check(seed, torch.uint32, ids.device, (B,))
+    shape = (B, A, n) if ids_are_src else (B, n, A)
+    out = torch.empty(shape, dtype=torch.bool, device=ids.device)
+    _build.launch("delivery_edges", seed.data_ptr(), int(r) & 0xFFFFFFFF,
+                  ids.data_ptr(), out.data_ptr(), B, A, n, int(drop_cut),
+                  int(part_cut), int(ids_are_src))
+    delivery_edges.launches += 1
+    return out
+
+
+delivery_edges.launches = 0

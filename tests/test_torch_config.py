@@ -1,0 +1,78 @@
+"""The port's Config and entry points refuse what they do not support.
+
+Every knob of the JAX package's Config that the port does not implement yet
+raises when set off its default, and the entry points raise without a GPU
+unless the caller asks for the CPU.
+"""
+import dataclasses
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from consensus_tpu_torch import Config  # noqa: E402
+from consensus_tpu_torch.core import config as tconfig  # noqa: E402
+from consensus_tpu_torch.network import runner, simulator  # noqa: E402
+
+OK = dict(protocol="raft", n_nodes=9, n_rounds=4, max_active=2)
+
+OFF_DEFAULT = {
+    "crash_prob": 0.1, "recover_prob": 0.1, "max_crashed": 1,
+    "max_delay_rounds": 2, "attack": "elect", "attack_rate": 0.5,
+    "attack_target": 1, "net_model": "switch", "n_aggregators": 2,
+    "n_byzantine": 1, "byz_mode": "equivocate", "desync_rate": 0.1,
+    "telemetry_window": 8, "scan_chunk": 4, "sweep_chunk": 1,
+    "mesh_shape": (2,),
+}
+
+
+def test_every_unsupported_knob_is_listed():
+    assert set(OFF_DEFAULT) == set(tconfig.UNSUPPORTED)
+    fields = {f.name for f in dataclasses.fields(Config)}
+    assert set(tconfig.UNSUPPORTED) <= fields
+
+
+@pytest.mark.parametrize("knob", sorted(OFF_DEFAULT))
+def test_unsupported_knob_raises(knob):
+    with pytest.raises(ValueError, match=knob):
+        Config(**{**OK, knob: OFF_DEFAULT[knob]})
+
+
+@pytest.mark.parametrize("bad", [
+    dict(max_active=0),                 # the dense engine
+    dict(max_active=17),
+    dict(max_active=10),                # more than n_nodes
+    dict(protocol="pbft"),
+    dict(log_capacity=255),
+    dict(t_min=5, t_max=5),
+    dict(n_rounds=0),
+])
+def test_out_of_range_settings_raise(bad):
+    with pytest.raises(ValueError):
+        Config(**{**OK, **bad})
+
+
+def test_knobs_of_other_protocols_are_not_fields():
+    with pytest.raises(TypeError):
+        Config(**OK, view_timeout=4)
+
+
+def test_cutoffs_match_the_reference():
+    from consensus_tpu import Config as JConfig
+    kw = dict(OK, drop_rate=0.01, partition_rate=0.3, churn_rate=0.001)
+    j, t = JConfig(**kw), Config(**kw)
+    assert (t.drop_cutoff, t.partition_cutoff, t.churn_cutoff) == \
+        (j.drop_cutoff, j.partition_cutoff, j.churn_cutoff)
+
+
+def test_entry_points_raise_without_a_gpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = Config(**OK)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        simulator.run(cfg)
+    with pytest.raises(RuntimeError):
+        runner.run_device(cfg)
+    with pytest.raises(RuntimeError):
+        runner.run_device(cfg, device="cuda")
+    res = simulator.run(cfg, device="cpu")
+    assert len(res.digest) == 64 and res.counts.shape == (1, 9)
