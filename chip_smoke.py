@@ -8,18 +8,22 @@ Phases, each printing one JSON line:
 1. device   — a CUDA device is present; the card's name and power limit as
               ``nvidia-smi`` reports them.
 2. build    — nvcc builds every kernel of ``consensus_tpu_torch/csrc``.
-3. kernels  — each hand-written kernel (KA-KD) against its plain PyTorch
+3. kernels  — each hand-written kernel (KA-KH) against its plain PyTorch
               version on the card, at the flagship shapes (B = 8 sweeps,
-              N = 100 000 nodes, A = 8, L = 128) plus edge inputs. Tolerance:
-              none, the results are integers and must be equal. Times are
-              device time per call (torch.profiler kernel durations).
+              N = 100 000 nodes, A = 8, L = 128) plus edge inputs; the round's
+              phase kernels KE-KH also on the flagship's own inputs of round
+              20. Tolerance: none, the results are integers and must be
+              equal. Times are device time per call (torch.profiler kernel
+              durations).
 4. flagship — ``simulator.run`` of raft-100k (benchmarks/run_benchmarks.py
               CONFIGS["raft-100k"], seed 6): the decided-log digest must be
               the committed anchor, and every kernel must have launched.
 5. bench    — bench.py's flagship shape (seed 42, max_entries 112):
               node-round-steps per second; something must commit.
 6. profile  — one more flagship run under torch.profiler: device time by
-              kernel, and the device's busy share of an unprofiled run.
+              kernel, launches a round, the PyTorch ops still on the round's
+              device timeline, and the device's busy share of an unprofiled
+              run.
 
 Then the card's name and power limit, one ``{"kernels": [...]}`` line, and
 last ``{"ok": true, "device": {...}}``. Any failure, or no GPU, exits
@@ -27,6 +31,7 @@ non-zero without that last line.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -240,11 +245,342 @@ def check_append_entries(dev, gen):
         bound=bound(nbytes, 30 * B * N), library_ms=None)
 
 
+# --- phase 3, continued: the round's phase kernels KE-KH ----------------------
+
+PHASES = ("candidacy", "elect", "slots", "acks_commit")
+
+
+def flagship_config(**kw):
+    from consensus_tpu_torch.core.config import Config
+    return Config(**{**dict(protocol="raft", n_nodes=N, n_rounds=64,
+                            n_sweeps=B, log_capacity=L, max_entries=100,
+                            max_active=A, seed=6, drop_rate=0.01,
+                            churn_rate=0.001), **kw})
+
+
+def clone_args(args):
+    return tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                 for a in args)
+
+
+@contextlib.contextmanager
+def standing_in(names, make):
+    """Replace each wrapper ``names`` of the round's module by
+    ``make(name, wrapper)`` while the block runs. A wrapper counts its
+    launches on the module attribute it is called by, so each stand-in
+    carries a ``launches`` of its own."""
+    from consensus_tpu_torch.engines import raft_sparse as rs
+    originals = {name: getattr(rs, name) for name in names}
+    try:
+        for name, fn in originals.items():
+            stand_in = make(name, fn)
+            stand_in.launches = 0
+            setattr(rs, name, stand_in)
+        yield
+    finally:
+        for name, fn in originals.items():
+            setattr(rs, name, fn)
+
+
+def capture_phase_inputs(cfg, r: int, device="cuda") -> dict:
+    """The arguments each phase wrapper (KE-KH) receives in round ``r`` of
+    ``cfg``'s run on ``device``, cloned as they arrive."""
+    from consensus_tpu_torch.engines import raft_sparse as rs
+    from consensus_tpu_torch.network import runner
+    st = runner.advance(cfg, runner.init(cfg, runner.make_seeds(cfg),
+                                         device), 0, r)
+    got = {}
+
+    def recorder(name, fn):
+        def record(*args):
+            got[name] = clone_args(args)
+            return fn(*args)
+        return record
+    with standing_in(PHASES, recorder):
+        rs.raft_sparse_round(cfg, st, r)
+    require(set(got) == set(PHASES), f"round {r} skipped a phase")
+    return got
+
+
+def run_pair(name: str, args) -> list:
+    """The kernel and its plain version on separate clones of ``args``:
+    pairs of their results and of every tensor argument afterwards, which
+    covers the in-place updates and that nothing else was written."""
+    from consensus_tpu_torch.engines import raft_sparse as rs
+    ka, pa = clone_args(args), clone_args(args)
+    got = getattr(rs, name)(*ka)
+    want = getattr(rs, name + "_plain")(*pa)
+    pairs = list(zip(got or (), want or ()))
+    return pairs + [(k, p) for k, p in zip(ka, pa)
+                    if isinstance(k, torch.Tensor)]
+
+
+def edge_phase_inputs(dev, gen) -> dict:
+    """Built inputs on which the phases' rare paths fire: {name: [args]}."""
+    from consensus_tpu_torch.core import rng
+    from consensus_tpu_torch.engines import raft_sparse as rs
+    from consensus_tpu_torch.ops import adversary
+
+    def ri(lo, hi, shape, dtype=torch.int32):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev,
+                             dtype=dtype)
+
+    def coin(p, shape):
+        return torch.rand(shape, generator=gen, device=dev) < p
+
+    seeds = torch.arange(11, 11 + B, dtype=torch.int64,
+                         device=dev).to(torch.uint32)
+    out = {name: [] for name in PHASES}
+
+    # KE: every node timed out (so far more than A candidates), churn at
+    # 0.5 so that some sweeps step their leaders down, terms at the i32
+    # edge, empty and full logs.
+    cfg = flagship_config(churn_rate=0.5, t_min=1, t_max=3)
+    term, role = ri(0, 50, (B, N)), ri(0, 3, (B, N))
+    term[0, :4] = torch.tensor([2**31 - 1, 0, -1, 5], dtype=torch.int32)
+    log_len = ri(0, L + 1, (B, N))
+    log_len[:, :100], log_len[:, 100:200] = 0, L
+    ke = (cfg, seeds, 20, term, role, ri(-1, N, (B, N)), ri(3, 10, (B, N)),
+          ri(1, 3, (B, N)), ri(0, 50, (B, N, L)), log_len)
+    out["candidacy"].append(ke)
+
+    # KF on KE's result: more than A candidates compete.
+    (term, role, vf, timer, timeout, reset, own_lterm,
+     cand) = rs.candidacy_plain(*ke)
+    require(int(cand.sum(1).min()) > A, "edge inputs: too few candidates")
+    cand_ids = rs.top_active_plain(cand, term, A)
+    del_cj, del_jc = (adversary.delivery_edges_plain(
+        seeds, 20, cand_ids, N, rng.prob_threshold_u32(0.01), 0, src)
+        for src in (True, False))
+    out["elect"].append((cfg, seeds, cand_ids, del_cj, del_jc, term, role,
+                         vf, timer, timeout, reset, log_len, own_lterm))
+
+    # KF at the majority: candidate 5 gets the grants of every node but
+    # its rival 9; K of them are delivered, so that 1 + K is the majority
+    # in even sweeps and one short of it in odd ones. N even and odd.
+    for n in (N, N - 1):
+        cfg_n = flagship_config(n_nodes=n)
+        maj = n // 2 + 1
+        cand_ids = torch.full((B, A), -1, dtype=torch.int32, device=dev)
+        cand_ids[:, 0], cand_ids[:, 1] = 5, 9
+        role = torch.zeros((B, n), dtype=torch.int32, device=dev)
+        role[:, 5] = role[:, 9] = 1
+        vf = torch.full((B, n), -1, dtype=torch.int32, device=dev)
+        vf[:, 5], vf[:, 9] = 5, 9
+        del_cj = torch.zeros((B, A, n), dtype=torch.bool, device=dev)
+        del_cj[:, 0] = True
+        del_cj[:, 0, 5] = False
+        del_jc = torch.zeros((B, n, A), dtype=torch.bool, device=dev)
+        for b in range(B):
+            k = maj - 1 if b % 2 == 0 else maj - 2
+            del_jc[b, 10:10 + k, 0] = True
+        z = torch.zeros((B, n), dtype=torch.int32, device=dev)
+        out["elect"].append((cfg_n, seeds, cand_ids, del_cj, del_jc,
+                             z + 7, role, vf, z.clone(), z + 1,
+                             torch.zeros((B, n), dtype=torch.bool,
+                                         device=dev), z.clone(), z.clone()))
+
+    # KG: old and new tracked ids drawn from a small pool, so that slots
+    # are carried from other slot indices, dropped and started; empty
+    # slots; leaders at log length E (no self-match) and below.
+    cfg = flagship_config()
+    E = min(cfg.max_entries, L)
+    old = torch.stack([torch.randperm(16, generator=gen, device=dev)[:A]
+                       for _ in range(2 * B)]).to(torch.int32)
+    lead_id, new_ids = old[:B].clone(), old[B:].clone()
+    lead_id[coin(0.25, (B, A))] = -1
+    new_ids[coin(0.25, (B, A))] = -1
+    role, log_len = ri(0, 2, (B, N)), ri(0, L + 1, (B, N))
+    role[:, :16] = 2
+    log_len[:, :4], log_len[:, 4:8] = E, E - 1
+    out["slots"].append((cfg, new_ids, lead_id, ri(0, 256, (B, A, N),
+                                                   torch.uint8),
+                         ri(0, 256, (B, A, N), torch.uint8), role, log_len))
+
+    # KH: tiny terms so that acked terms bump leaders (bump3); a third of
+    # the leaders' log entries of their own term; match rows with values
+    # above E; next at 0 and 1 under failed acks. Sweep 0 acks no slot 0
+    # or 2, whose rows sit exactly at the majority (60) and one short.
+    lead_id = torch.stack([torch.randperm(N, generator=gen, device=dev)[:A]
+                           for _ in range(B)]).to(torch.int32)
+    lead_id[1:][coin(0.1, (B - 1, A))] = -1
+    role = ri(0, 3, (B, N))
+    role.scatter_(1, lead_id.clamp(min=0).to(torch.int64),
+                  torch.full((B, A), 2, dtype=torch.int32, device=dev))
+    kstar = ri(0, A, (B, N))
+    kstar[0] = torch.where(coin(0.5, (N,)), 1, 3)
+    lead_match = ri(0, 256, (B, A, N), torch.uint8)
+    lead_match[1:, :4] = ri(90, 140, (B - 1, 4, N), torch.uint8)
+    maj = N // 2 + 1
+    lead_match[0, 0], lead_match[0, 2] = 59, 59
+    lead_match[0, 0, :maj] = lead_match[0, 2, :maj - 1] = 60
+    lead_next = ri(0, 256, (B, A, N), torch.uint8)
+    lead_next[:, 4:] = ri(0, 3, (B, A - 4, N), torch.uint8)
+    term, log_term = ri(0, 4, (B, N)), ri(0, 4, (B, N, L))
+    lid = lead_id.clamp(min=0).to(torch.int64)
+    log_term[0, lid[0, 0], 59] = term[0, lid[0, 0]]
+    log_term[0, lid[0, 2], 58:60] = term[0, lid[0, 2]]
+    commit = ri(0, 50, (B, N))
+    commit[0, lid[0, 0]] = commit[0, lid[0, 2]] = 0
+    kh = (seeds, lead_id, coin(0.9, (B, A)) & (lead_id >= 0),
+          coin(0.9, (B, N, A)),
+          coin(0.8, (B, N)), kstar, coin(0.7, (B, N)), ri(0, L + 1, (B, N)),
+          log_term, term, role, ri(-1, N, (B, N)), ri(1, 9, (B, N)), commit,
+          lead_match, lead_next)
+    kh[2][0, [0, 2]] = True
+    for max_entries in (100, L):
+        out["acks_commit"].append((flagship_config(max_entries=max_entries),
+                                   *kh))
+    return out
+
+
+def acks_work(args) -> tuple[int, int]:
+    """(processing slots, acks they take) of KH's arguments ``args``: the
+    rows of [N] match bytes it must read, and the (slot, node) pairs whose
+    next byte it must read and whose two bytes it must write."""
+    (_, _, lead_id, was_lead_k, del_jl, has_l, kstar, _, _, _, term, role,
+     *_rest) = args
+    n = term.shape[1]
+    lid = lead_id.clamp(0, n - 1).to(torch.int64)
+    ackm = (torch.where(has_l, kstar, A)[:, :, None]
+            == torch.arange(A, device=term.device)) & del_jl
+    t_in3 = torch.where(ackm, term[:, :, None], 0).amax(1)
+    proc = was_lead_k & (role.gather(1, lid) == 2) \
+        & ~(t_in3 > term.gather(1, lid))
+    return int(proc.sum()), int((ackm & proc[:, None, :]).sum())
+
+
+def check_phases(dev, gen, cfg) -> list[dict]:
+    """KE-KH against their plain versions on round 20 of the flagship and
+    on the built edge inputs; times on the flagship's inputs."""
+    from consensus_tpu_torch.engines import raft_sparse as rs
+    real = capture_phase_inputs(cfg, 20)
+    edges = edge_phase_inputs(dev, gen)
+    rows = []
+    for name in PHASES:
+        err = max(max_abs_err(run_pair(name, args))
+                  for args in [real[name], *edges[name]])
+        args = real[name]
+        ka, pa = clone_args(args), clone_args(args)
+        fn, plain = getattr(rs, name), getattr(rs, name + "_plain")
+        row = dict(name=name, route="cuda",
+                   source=f"consensus_tpu_torch/csrc/{name}.cu",
+                   max_abs_err=err,
+                   ms=device_ms(lambda: fn(*ka)),
+                   plain_ms=device_ms(lambda: plain(*pa)), library_ms=None)
+        nodes = B * N
+        if name == "candidacy":
+            moved = int(rs.candidacy_plain(*args)[5].sum())
+            row.update(replaces="consensus_tpu/engines/raft_sparse.py:236 "
+                                "raft_sparse_round P0-P1",
+                       bound=bound(54 * nodes, 20 * nodes
+                                   + THREEFRY_OPS * moved))
+        elif name == "elect":
+            row.update(replaces="consensus_tpu/engines/raft_sparse.py:255 "
+                                "raft_sparse_round P2",
+                       bound=bound((66 + 2 * (A - 8)) * nodes,
+                                   12 * A * nodes))
+        elif name == "slots":
+            new_ids, lead_id = args[1], args[2]
+            carried = int(((new_ids[:, :, None] == lead_id[:, None, :])
+                           & (new_ids >= 0)[:, :, None]).any(2).sum())
+            row.update(replaces="consensus_tpu/engines/raft_sparse.py:354 "
+                                "raft_sparse_round slot lifecycle",
+                       bound=bound(2 * B * A * N + 2 * carried * N,
+                                   4 * B * A * N))
+        else:
+            rows_, acks = acks_work(args)
+            lead_match = args[15]
+            rank = N - (N // 2 + 1) + 1
+            row.update(replaces="consensus_tpu/engines/raft_sparse.py:441 "
+                                "raft_sparse_round P3d-P3e",
+                       bound=bound(15 * nodes + rows_ * N + 3 * acks,
+                                   6 * nodes + 8 * rows_ * N),
+                       library_ms=device_ms(lambda: torch.kthvalue(
+                           lead_match, rank, dim=2)))
+        rows.append(row)
+    return rows
+
+
 # Kernel names of the hand-written kernels, as the profiler reports them.
 HAND_KERNELS = {"random_u32": ("random_u32_kernel",),
                 "delivery_edges": ("edges_src_kernel", "edges_dst_kernel"),
                 "top_active": ("top_partial_kernel", "top_merge_kernel"),
-                "append_entries": ("append_entries_kernel",)}
+                "append_entries": ("append_entries_kernel",),
+                "candidacy": ("candidacy_kernel",),
+                "elect": ("elect_nodes_kernel", "elect_winners_kernel"),
+                "slots": ("slots_kernel",),
+                "acks_commit": ("ack_term_kernel", "slot_bump_kernel",
+                                "match_next_kernel", "commit_kernel")}
+
+
+# The kernel wrappers the round calls. The round's code between two of them
+# (a gap) lies in one phase; the plain-torch glue lives only in the phases
+# marked "glue".
+MARKED = ("candidacy", "top_active", "delivery_edges", "elect", "slots",
+          "append_entries", "acks_commit")
+GAPS = {(None, "candidacy"): "init",
+        ("candidacy", "top_active"): "P2",
+        ("top_active", "delivery_edges"): "P2",
+        ("delivery_edges", "delivery_edges"): "P2",
+        ("delivery_edges", "elect"): "P2",
+        ("elect", "top_active"): "leader mask (glue)",
+        ("top_active", "slots"): "slot lifecycle",
+        ("slots", "delivery_edges"): "P3a-P3b (glue)",
+        ("delivery_edges", "append_entries"): "P3c (glue)",
+        ("append_entries", "delivery_edges"): "P3c-P3d",
+        ("delivery_edges", "acks_commit"): "P3d-P3e",
+        ("acks_commit", "candidacy"): "P4 (glue)",
+        ("acks_commit", None): "P4 (glue)"}
+# Phases that must run no plain PyTorch op on the card.
+KERNEL_ONLY = ("P2", "slot lifecycle", "P3c-P3d", "P3d-P3e")
+
+
+def plain_ops_by_phase(cfg, device="cuda") -> dict:
+    """One run of ``cfg`` under torch.profiler with each kernel wrapper of
+    the round in a named range: {place: {aten op: ms}} for every aten op
+    that took time on the device (on the CPU: host time), where place is
+    "in <wrapper>" or the phase of the round's code between two wrappers,
+    found by the host order of the calls."""
+    import bisect
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from consensus_tpu_torch.network import runner
+    on_cpu = torch.device(device).type == "cpu"
+
+    def marked(name, fn):
+        def call(*args):
+            with record_function(f"wrapper::{name}"):
+                return fn(*args)
+        return call
+    with standing_in(MARKED, marked), profile(
+            activities=[ProfilerActivity.CPU] if on_cpu else
+            [ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        runner.run_device(cfg, device)
+    events = prof.events()
+    # Host ranges only: the profiler also puts each range on the device
+    # timeline, where it spans the kernels' later execution.
+    marks = sorted((e.time_range.start, e.time_range.end, e.name[9:])
+                   for e in events if e.name.startswith("wrapper::")
+                   and e.device_type == DeviceType.CPU)
+    starts = [m[0] for m in marks]
+    out: dict = {}
+    for e in events:
+        t = e.self_cpu_time_total if on_cpu else e.self_device_time_total
+        if not e.name.startswith("aten::") or t <= 0:
+            continue
+        i = bisect.bisect_right(starts, e.time_range.start) - 1
+        if i >= 0 and e.time_range.start < marks[i][1]:
+            place = "in " + marks[i][2]
+        else:
+            key = (marks[i][2] if i >= 0 else None,
+                   marks[i + 1][2] if i + 1 < len(marks) else None)
+            place = GAPS.get(key, f"{key[0]} -> {key[1]}")
+        ops = out.setdefault(place, {})
+        ops[e.name] = ops.get(e.name, 0.0) + t / 1e3
+    return out
 
 
 def profile_run(cfg) -> dict:
@@ -271,11 +607,14 @@ def profile_run(cfg) -> dict:
                   for e in prof.key_averages()
                   if e.key.startswith("aten::")
                   and e.self_device_time_total > 0), reverse=True)
+    hand_ms = sum(hand.values())
     return dict(wall_ms=wall_ms, device_ms=busy_ms,
                 busy_share=busy_ms / wall_ms, device_launches=len(device),
-                hand_kernel_ms=hand,
+                launches_per_round=len(device) / cfg.n_rounds,
+                hand_kernel_ms=hand, hand_share=hand_ms / busy_ms,
                 plain_op_ms=sum(t for t, _ in ops),
-                plain_op_top=[[k, t] for t, k in ops[:10]])
+                plain_ops=[[k, t] for t, k in ops],
+                plain_ops_by_phase=plain_ops_by_phase(cfg))
 
 
 def main() -> int:
@@ -284,7 +623,6 @@ def main() -> int:
         return 1
     from consensus_tpu_torch import _build
     from consensus_tpu_torch.core import rng
-    from consensus_tpu_torch.core.config import Config
     from consensus_tpu_torch.engines import raft_sparse as rs
     from consensus_tpu_torch.network import simulator
     from consensus_tpu_torch.ops import adversary
@@ -311,9 +649,12 @@ def main() -> int:
     wrappers = {"random_u32": rng.random_u32,
                 "delivery_edges": adversary.delivery_edges,
                 "top_active": rs.top_active,
-                "append_entries": rs.append_entries}
+                "append_entries": rs.append_entries,
+                **{name: getattr(rs, name) for name in PHASES}}
+    cfg = flagship_config()
     kernels = [check_random_u32(dev, gen), check_delivery_edges(dev, gen),
-               check_top_active(dev, gen), check_append_entries(dev, gen)]
+               check_top_active(dev, gen), check_append_entries(dev, gen),
+               *check_phases(dev, gen, cfg)]
     torch.cuda.synchronize()
     for k in kernels:
         k["bound_ms"], k["bound_by"] = k.pop("bound")
@@ -322,9 +663,6 @@ def main() -> int:
                 f"{k['name']} disagrees with its plain version")
 
     # 4. flagship: the main path, counted from zero.
-    cfg = Config(protocol="raft", n_nodes=N, n_rounds=64, n_sweeps=B,
-                 log_capacity=L, max_entries=100, max_active=A, seed=6,
-                 drop_rate=0.01, churn_rate=0.001)
     for w in wrappers.values():
         w.launches = 0
     res = simulator.run(cfg)
@@ -343,17 +681,18 @@ def main() -> int:
         k["launches"] = launches[k["name"]]
 
     # 5. bench.py's shape.
-    bench = simulator.run(Config(
-        protocol="raft", n_nodes=N, n_rounds=64, n_sweeps=B, log_capacity=L,
-        max_entries=L - 16, max_active=A, seed=42, drop_rate=0.01,
-        churn_rate=0.001))
+    bench = simulator.run(flagship_config(max_entries=L - 16, seed=42))
     emit("bench", steps_per_sec=bench.steps_per_sec, wall_s=bench.wall_s,
          max_commit=int(bench.counts.max()), digest=bench.digest, card=card,
          power=smi)
     require(int(bench.counts.max()) > 0, "bench shape committed nothing")
 
     # 6. where the flagship's device time goes.
-    emit("profile", card=card, power=smi, **profile_run(cfg))
+    prof = profile_run(cfg)
+    emit("profile", card=card, power=smi, **prof)
+    for place, found in prof["plain_ops_by_phase"].items():
+        require(not (place.startswith("in ") or place in KERNEL_ONLY),
+                f"plain PyTorch ops on the device in {place}: {found}")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

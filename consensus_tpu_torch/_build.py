@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library of its own with a plain C interface: one ``ctt_<name>`` entry point
-that launches on the stream it is given and returns ``cudaGetLastError()``.
+that launches its kernels in order on the stream it is given (zeroing its
+scratch there first, where it has any) and returns ``cudaGetLastError()``.
 No PyTorch header is included, so a build takes seconds. Libraries are built
 at first use, all sources at once, into ``build/torch_kernels/`` at the root
 of the checkout; the file name carries a hash of the sources and flags, so
@@ -21,7 +22,8 @@ import time
 
 import torch
 
-SOURCES = ("random_u32", "delivery_edges", "top_active", "append_entries")
+SOURCES = ("random_u32", "delivery_edges", "top_active", "append_entries",
+           "candidacy", "elect", "slots", "acks_commit")
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "build" / \
@@ -44,6 +46,22 @@ SIGNATURES = {
     # log_term, log_val, log_len, commit, kstar, has_l, s_next, s_len,
     # s_commit, s_logt, s_logv, apply, log_len_out, commit_out, B, N, A, L
     "append_entries": (_P,) * 14 + (_I, _I, _I, _I),
+    # seed, round, churn_cut, t_min, t_span; term, role, voted_for, timer,
+    # timeout, log_term, log_len; term, role, voted_for, timer, timeout,
+    # reset, own_lterm, cand_mask outputs; B, N, L
+    "candidacy": (_P, _U, _U, _I, _U) + (_P,) * 15 + (_I, _I, _I),
+    # seed, t_min, t_span; cand_ids, del_cj, del_jc, term, role, voted_for,
+    # timer, timeout, reset, log_len, own_lterm; term, role, voted_for,
+    # timer, timeout, reset outputs, votes scratch; B, N, A
+    "elect": (_P, _I, _U) + (_P,) * 18 + (_I, _I, _I),
+    # new_ids, lead_id, lead_match, lead_next, role, log_len, lead_match
+    # and lead_next outputs; B, N, A, E
+    "slots": (_P,) * 8 + (_I, _I, _I, _I),
+    # seed, t_min, t_span; lead_id, was_lead_k, del_jl, has_l, kstar,
+    # apply, log_len, log_term; term, role, voted_for, timeout, commit,
+    # lead_match, lead_next (in place); t_in3, proc, hist scratch;
+    # B, N, A, L, E
+    "acks_commit": (_P, _I, _U) + (_P,) * 18 + (_I,) * 5,
 }
 
 

@@ -1,0 +1,104 @@
+// Kernel KE: SPEC §3 P0 churn step-down and P1 candidacy at every node of
+// each sweep, plus the two per-node inputs of the election that follows.
+//
+// Replaces: consensus_tpu/engines/raft_sparse.py raft_sparse_round P0-P1
+// (lines 236-253): the churn draw, step-down, candidacy with the timeout
+// redrawn under the new term (engines/raft.py _draw_timeout), and the last
+// log term of every node (_last_term, line 285), which P2b reads from the
+// logs as they enter the round. It also writes the role == candidate mask
+// that kernel KC ranks, so that mask costs no launch of its own.
+//
+// Bound: bytes. Per node it reads six i32 words (term, role, voted_for,
+// timer, timeout, log_len) and one word of its log row, and writes five
+// i32 words, the last log term and two flags: 54 bytes, 43 MB at the
+// flagship shape (B = 8, N = 100 000), about 13 us at 3.35 TB/s. The
+// Threefry draws (~119 integer operations each) run only for the round's
+// new candidates and, once a sweep per thread, for leaders under churn.
+// Design: a thread per node on a 2-D grid (node, sweep); every value stays
+// in registers and the outputs are fresh buffers, so no thread reads what
+// another writes.
+#include <cuda_runtime.h>
+
+#include "rng.cuh"
+
+namespace {
+
+constexpr int THREADS = 256;
+constexpr int32_t ROLE_F = 0, ROLE_C = 1, ROLE_L = 2;
+
+__global__ void __launch_bounds__(THREADS)
+candidacy_kernel(const uint32_t* __restrict__ seed, uint32_t r,
+                 uint32_t churn_cut, int32_t t_min, uint32_t t_span,
+                 const int32_t* __restrict__ term,
+                 const int32_t* __restrict__ role,
+                 const int32_t* __restrict__ voted_for,
+                 const int32_t* __restrict__ timer,
+                 const int32_t* __restrict__ timeout,
+                 const int32_t* __restrict__ log_term,
+                 const int32_t* __restrict__ log_len,
+                 int32_t* __restrict__ term_out,
+                 int32_t* __restrict__ role_out,
+                 int32_t* __restrict__ vf_out,
+                 int32_t* __restrict__ timer_out,
+                 int32_t* __restrict__ timeout_out,
+                 bool* __restrict__ reset_out,
+                 int32_t* __restrict__ own_lterm_out,
+                 bool* __restrict__ cand_out, int N, int L) {
+  const int j = blockIdx.x * THREADS + threadIdx.x;
+  if (j >= N) return;
+  const int b = blockIdx.y;
+  const long long row = static_cast<long long>(b) * N + j;
+  const uint32_t sd = seed[b];
+  int32_t tm = term[row], rl = role[row], vf = voted_for[row];
+  int32_t tmr = timer[row], to = timeout[row];
+  bool reset = false;
+  // P0: the sweep's churn event steps its leaders down.
+  if (rl == ROLE_L && churn_cut != 0u &&
+      ctt::random_u32(sd, ctt::STREAM_CHURN, r, 0u, 0u) < churn_cut) {
+    rl = ROLE_F;
+    tmr = 0;
+    reset = true;
+  }
+  // P1: a timed-out non-leader stands for the next term.
+  if (rl != ROLE_L && tmr >= to) {
+    tm = static_cast<int32_t>(static_cast<uint32_t>(tm) + 1u);
+    rl = ROLE_C;
+    vf = j;
+    tmr = 0;
+    reset = true;
+    to = ctt::draw_timeout(sd, tm, j, t_min, t_span);
+  }
+  const int32_t len = log_len[row];
+  const int k = min(max(len - 1, 0), L - 1);
+  own_lterm_out[row] = len > 0 ? log_term[row * L + k] : 0;
+  term_out[row] = tm;
+  role_out[row] = rl;
+  vf_out[row] = vf;
+  timer_out[row] = tmr;
+  timeout_out[row] = to;
+  reset_out[row] = reset;
+  cand_out[row] = rl == ROLE_C;
+}
+
+}  // namespace
+
+extern "C" int ctt_candidacy(const uint32_t* seed, uint32_t r,
+                             uint32_t churn_cut, int32_t t_min,
+                             uint32_t t_span, const int32_t* term,
+                             const int32_t* role, const int32_t* voted_for,
+                             const int32_t* timer, const int32_t* timeout,
+                             const int32_t* log_term, const int32_t* log_len,
+                             int32_t* term_out, int32_t* role_out,
+                             int32_t* vf_out, int32_t* timer_out,
+                             int32_t* timeout_out, bool* reset_out,
+                             int32_t* own_lterm_out, bool* cand_out, int B,
+                             int N, int L, cudaStream_t st) {
+  if (t_span == 0u) return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0 || N == 0) return 0;
+  const dim3 grid((N + THREADS - 1) / THREADS, B);
+  candidacy_kernel<<<grid, THREADS, 0, st>>>(
+      seed, r, churn_cut, t_min, t_span, term, role, voted_for, timer,
+      timeout, log_term, log_len, term_out, role_out, vf_out, timer_out,
+      timeout_out, reset_out, own_lterm_out, cand_out, N, L);
+  return static_cast<int>(cudaGetLastError());
+}

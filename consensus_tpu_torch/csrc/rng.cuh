@@ -11,6 +11,8 @@
 namespace ctt {
 
 constexpr uint32_t STREAM_DELIVER = 0x9E3779B1u;
+constexpr uint32_t STREAM_TIMEOUT = 0x85EBCA77u;
+constexpr uint32_t STREAM_CHURN = 0xC2B2AE3Du;
 constexpr uint32_t STREAM_PARTITION = 0x27D4EB2Fu;
 
 __device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
@@ -44,6 +46,18 @@ __device__ __forceinline__ uint32_t random_u32(uint32_t seed, uint32_t stream,
                                                uint32_t ctx, uint32_t c0,
                                                uint32_t c1) {
   return threefry2x32_y0(seed ^ stream, ctx, c0, c1);
+}
+
+// Election timeout of node `node` under `term` (engines/raft.py
+// draw_timeout): t_min + threefry(seed ^ TIMEOUT, term, 0, node) mod t_span,
+// wrapped to int32 as the plain version's cast does.
+__device__ __forceinline__ int32_t draw_timeout(uint32_t seed, int32_t term,
+                                                int32_t node, int32_t t_min,
+                                                uint32_t t_span) {
+  const uint32_t d = random_u32(seed, STREAM_TIMEOUT,
+                                static_cast<uint32_t>(term), 0u,
+                                static_cast<uint32_t>(node));
+  return static_cast<int32_t>(static_cast<uint32_t>(t_min) + d % t_span);
 }
 
 __device__ __forceinline__ uint32_t mix_absorb(uint32_t h, uint32_t c) {

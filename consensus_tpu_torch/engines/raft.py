@@ -9,16 +9,18 @@ from __future__ import annotations
 import torch
 
 from ..core import rng
-from ..ops.adversary import draw
 
 ROLE_F, ROLE_C, ROLE_L = 0, 1, 2
 NONE = -1
 
 
-def draw_timeout(seed, t_min: int, t_max: int, term, idx) -> torch.Tensor:
+def draw_timeout(seed, t_min: int, t_max: int, term, idx,
+                 u32=rng.random_u32) -> torch.Tensor:
     """[B, N] election timeouts: t_min + threefry(TIMEOUT, term, node) mod
-    (t_max - t_min), one draw per node keyed by its current ``term``."""
-    d = draw(seed, rng.STREAM_TIMEOUT, term, 0, idx)
+    (t_max - t_min), one draw per node keyed by its current ``term``.
+    ``u32`` draws the words: kernel KA, or ``rng.random_u32_plain`` in the
+    plain versions of the kernels that draw timeouts inline."""
+    d = u32(seed, rng.STREAM_TIMEOUT, term, 0, idx)
     return (t_min + d % (t_max - t_min)).to(torch.int32)
 
 

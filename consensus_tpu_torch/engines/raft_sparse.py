@@ -7,11 +7,23 @@ leader replication state lives in A tracked slots of [A, N] rows, so a round
 is O(A*N) plus one pass over the rows of the [N, L] logs that a heartbeat
 reaches. Sweeps are a leading batch axis B on every tensor.
 
-Two functions here are wrappers of hand-written CUDA kernels, each beside
-its plain PyTorch version, which CPU tensors run:
+Six functions here are wrappers of hand-written CUDA kernels, each beside
+its plain PyTorch version (``<name>_plain``), which CPU tensors run:
 
-* :func:`top_active` — kernel KC (``csrc/top_active.cu``);
-* :func:`append_entries` — kernel KD (``csrc/append_entries.cu``).
+* :func:`candidacy` — kernel KE (``csrc/candidacy.cu``): P0 churn, P1
+  candidacy;
+* :func:`top_active` — kernel KC (``csrc/top_active.cu``): the top-A
+  candidates and tracked leaders;
+* :func:`elect` — kernel KF (``csrc/elect.cu``): P2 term catch-up, grants,
+  tally and winners;
+* :func:`slots` — kernel KG (``csrc/slots.cu``): the tracked-leader slot
+  lifecycle with P3a's self-match;
+* :func:`append_entries` — kernel KD (``csrc/append_entries.cu``): P3c;
+* :func:`acks_commit` — kernel KH (``csrc/acks_commit.cu``): P3d acks and
+  P3e majority commit.
+
+The round's delivery masks come from kernel KB (``ops/adversary.py``) and
+its remaining Threefry draws from kernel KA (``core/rng.py``).
 
 The [B, N, L] logs are updated in place (P3a's one-slot append and P3c's
 suffix copy), where the JAX round returns new arrays: a round's state
@@ -70,6 +82,45 @@ def raft_sparse_init(cfg: Config, seeds: torch.Tensor) -> RaftSparseState:
         lead_next=torch.ones((B, A, N), dtype=mdt, device=dev),
         down=torch.zeros((B, N), dtype=torch.bool, device=dev),
     )
+
+
+# --- shared by the wrappers and the round --------------------------------------
+
+def _bump(cfg: Config, seed, cond, new_term, term, role, voted_for, timeout,
+          u32=rng.random_u32):
+    """Adopt a higher term where ``cond``: follower, no vote, and the
+    timeout redrawn under the new term (drawn by ``u32``)."""
+    idx = torch.arange(term.shape[1], dtype=torch.int32, device=term.device)
+    term = torch.where(cond, new_term, term)
+    return (term, torch.where(cond, ROLE_F, role),
+            torch.where(cond, NONE, voted_for),
+            torch.where(cond, draw_timeout(seed, cfg.t_min, cfg.t_max, term,
+                                           idx, u32), timeout))
+
+
+def _scatter_max(x, ids, vals, on):
+    """``x.at[ids].max(vals)`` where ``on``, no write elsewhere: the JAX
+    round's ``mode="drop"`` scatter at index N. Off lanes carry I32_MIN,
+    which leaves any i32 unchanged, so duplicates among them are harmless."""
+    return x.scatter_reduce(1, ids.to(torch.int64),
+                            torch.where(on, vals, I32_MIN), "amax")
+
+
+def _timeout_span(cfg: Config) -> int:
+    """t_max - t_min, the modulus of the inline timeout draws."""
+    span = cfg.t_max - cfg.t_min
+    if not 0 < span < 2**32 or not -2**31 <= cfg.t_min < 2**31:
+        raise ValueError("the kernels take int32 t_min and 0 < t_max - t_min "
+                         "< 2**32")
+    return span
+
+
+def _check_all(dev, *specs) -> None:
+    """Raise unless each (tensor, dtype, shape) of ``specs`` is what a
+    kernel takes on the CUDA device ``dev`` (:func:`_build.check`)."""
+    from .. import _build
+    for t, dt, shape in specs:
+        _build.check(t, dt, dev, shape)
 
 
 # --- KC: top-A active senders -------------------------------------------------
@@ -168,18 +219,14 @@ def append_entries(log_term, log_val, log_len, commit, kstar, has_l,
     B, N, L = log_term.shape
     A = s_len.shape[1]
     dev = log_term.device
-    for t, dt, shape in ((log_term, torch.int32, (B, N, L)),
-                         (log_val, torch.int32, (B, N, L)),
-                         (log_len, torch.int32, (B, N)),
-                         (commit, torch.int32, (B, N)),
-                         (kstar, torch.int32, (B, N)),
-                         (has_l, torch.bool, (B, N)),
-                         (s_next, torch.uint8, (B, A, N)),
-                         (s_len, torch.int32, (B, A)),
-                         (s_commit, torch.int32, (B, A)),
-                         (s_logt, torch.int32, (B, A, L)),
-                         (s_logv, torch.int32, (B, A, L))):
-        _build.check(t, dt, dev, shape)
+    _check_all(dev, (log_term, torch.int32, (B, N, L)),
+               (log_val, torch.int32, (B, N, L)),
+               (log_len, torch.int32, (B, N)), (commit, torch.int32, (B, N)),
+               (kstar, torch.int32, (B, N)), (has_l, torch.bool, (B, N)),
+               (s_next, torch.uint8, (B, A, N)), (s_len, torch.int32, (B, A)),
+               (s_commit, torch.int32, (B, A)),
+               (s_logt, torch.int32, (B, A, L)),
+               (s_logv, torch.int32, (B, A, L)))
     apply_ = torch.empty((B, N), dtype=torch.bool, device=dev)
     new_len = torch.empty_like(log_len)
     new_commit = torch.empty_like(commit)
@@ -193,57 +240,24 @@ def append_entries(log_term, log_val, log_len, commit, kstar, has_l,
 append_entries.launches = 0
 
 
-# --- the round ----------------------------------------------------------------
+# --- KE: P0 churn and P1 candidacy ---------------------------------------------
 
-def _scatter_max(x, ids, vals, on):
-    """``x.at[ids].max(vals)`` where ``on``, no write elsewhere: the JAX
-    round's ``mode="drop"`` scatter at index N. Off lanes carry I32_MIN,
-    which leaves any i32 unchanged, so duplicates among them are harmless."""
-    return x.scatter_reduce(1, ids.to(torch.int64),
-                            torch.where(on, vals, I32_MIN), "amax")
-
-
-def raft_sparse_round(cfg: Config, st: RaftSparseState, r: int
-                      ) -> RaftSparseState:
-    """One SPEC §3 round under the §3b cap, phase by phase as
-    ``consensus_tpu/engines/raft_sparse.py`` ``raft_sparse_round`` with
-    ``telem=False``. Updates ``st.log_term``/``st.log_val`` in place."""
-    B, N = st.term.shape
-    L, A = cfg.log_capacity, cfg.max_active
-    E = min(cfg.max_entries, L)
-    majority = N // 2 + 1
-    mdt = match_dtype(L)
-    dev = st.term.device
-    seed = st.seed
-    idx = torch.arange(N, dtype=torch.int32, device=dev)
-    bi = torch.arange(B, device=dev)[:, None]
-    slots = torch.arange(A, dtype=torch.int32, device=dev)
-
-    def dedge(ids, ids_are_src):
-        return delivery_edges(seed, r, ids, N, cfg.drop_cutoff,
-                              cfg.partition_cutoff, ids_are_src)
-
-    def bump(cond, new_term, term, role, voted_for, timeout):
-        """Adopt a higher term: follower, no vote, and the timeout redrawn
-        under the new term."""
-        term = torch.where(cond, new_term, term)
-        return (term, torch.where(cond, ROLE_F, role),
-                torch.where(cond, NONE, voted_for),
-                torch.where(cond, draw_timeout(seed, cfg.t_min, cfg.t_max,
-                                               term, idx), timeout))
-
-    term, role, voted_for = st.term, st.role, st.voted_for
-    log_term, log_val, log_len = st.log_term, st.log_val, st.log_len
-    commit, timer, timeout = st.commit, st.timer, st.timeout
-    lead_id, lead_match, lead_next = st.lead_id, st.lead_match, st.lead_next
-
-    # ---- P0 churn.
-    stepdown = churn(seed, r, cfg.churn_cutoff)[:, None] & (role == ROLE_L)
+def candidacy_plain(cfg: Config, seed, r: int, term, role, voted_for, timer,
+                    timeout, log_term, log_len):
+    """Plain version of KE, SPEC §3 P0-P1 at every node of each sweep: the
+    round's churn event steps leaders down; every non-leader whose timer
+    reached its timeout becomes a candidate of the next term, votes for
+    itself and redraws its timeout. Also returns each node's last log term
+    (the P2b input, from the logs as they enter the round) and the
+    candidate mask. Updates nothing in place; returns new (term, role,
+    voted_for, timer, timeout, reset, own_lterm, cand_mask), all [B, N]."""
+    u32 = rng.random_u32_plain
+    idx = torch.arange(term.shape[1], dtype=torch.int32, device=term.device)
+    stepdown = churn(seed, r, cfg.churn_cutoff, u32)[:, None] \
+        & (role == ROLE_L)
     role = torch.where(stepdown, ROLE_F, role)
     timer = torch.where(stepdown, 0, timer)
     reset = stepdown
-
-    # ---- P1 candidacy.
     cand_new = (role != ROLE_L) & (timer >= timeout)
     term = term + cand_new.to(torch.int32)
     role = torch.where(cand_new, ROLE_C, role)
@@ -251,23 +265,71 @@ def raft_sparse_round(cfg: Config, st: RaftSparseState, r: int
     timer = torch.where(cand_new, 0, timer)
     reset = reset | cand_new
     timeout = torch.where(
-        cand_new, draw_timeout(seed, cfg.t_min, cfg.t_max, term, idx),
+        cand_new, draw_timeout(seed, cfg.t_min, cfg.t_max, term, idx, u32),
         timeout)
+    own_lterm = last_term(log_term, log_len)
+    return (term, role, voted_for, timer, timeout, reset, own_lterm,
+            role == ROLE_C)
 
-    # ---- P2 election over the active candidate set (SPEC §3b).
-    cand_ids = top_active(role == ROLE_C, term, A)              # [B, A]
+
+def candidacy(cfg: Config, seed, r: int, term, role, voted_for, timer,
+              timeout, log_term, log_len):
+    """Kernel KE: same arguments and result as :func:`candidacy_plain`,
+    which it runs for CPU tensors; for CUDA tensors it launches
+    ``csrc/candidacy.cu`` (a thread per node, the churn and timeout
+    Threefry draws inline). Updates nothing in place."""
+    if term.device.type == "cpu":
+        return candidacy_plain(cfg, seed, r, term, role, voted_for, timer,
+                               timeout, log_term, log_len)
+    from .. import _build
+    B, N, L = log_term.shape
+    dev = term.device
+    _check_all(dev, (seed, torch.uint32, (B,)),
+               *((t, torch.int32, (B, N)) for t in (
+                   term, role, voted_for, timer, timeout, log_len)),
+               (log_term, torch.int32, (B, N, L)))
+    out = [torch.empty_like(term) for _ in range(5)]
+    reset = torch.empty((B, N), dtype=torch.bool, device=dev)
+    own_lterm = torch.empty_like(term)
+    cand = torch.empty((B, N), dtype=torch.bool, device=dev)
+    _build.launch("candidacy", seed.data_ptr(), int(r) & 0xFFFFFFFF,
+                  cfg.churn_cutoff, cfg.t_min, _timeout_span(cfg),
+                  *(t.data_ptr() for t in (
+                      term, role, voted_for, timer, timeout, log_term,
+                      log_len, *out, reset, own_lterm, cand)), B, N, L)
+    candidacy.launches += 1
+    return (*out, reset, own_lterm, cand)
+
+
+candidacy.launches = 0
+
+
+# --- KF: P2 election -------------------------------------------------------------
+
+def elect_plain(cfg: Config, seed, cand_ids, del_cj, del_jc, term, role,
+                voted_for, timer, timeout, reset, log_len, own_lterm):
+    """Plain version of KF, SPEC §3 P2 over the sweep's active candidates
+    ``cand_ids`` ([B, A], NONE-padded) with their request masks ``del_cj``
+    ([B, A, N]) and response masks ``del_jc`` ([B, N, A]): P2a term
+    catch-up, P2b grants (re-grant to ``voted_for`` if eligible, else the
+    lowest eligible candidate id), P2c the tally; winners become leaders.
+    The candidates' request fields are read from ``term``, ``log_len`` and
+    ``own_lterm`` as they enter. Updates nothing in place; returns new
+    (term, role, voted_for, timer, timeout, reset)."""
+    u32 = rng.random_u32_plain
+    N = term.shape[1]
+    majority = N // 2 + 1
     cvalid = cand_ids >= 0
     cid = cand_ids.clamp(0, N - 1).to(torch.int64)
     req_term = torch.where(cvalid, term.gather(1, cid), 0)
     req_lidx = log_len.gather(1, cid)
-    own_lterm = last_term(log_term, log_len)                    # [B, N]
     req_lterm = own_lterm.gather(1, cid)
-    del_cj = dedge(cand_ids, True)                              # [B, A, N]
 
     # P2a term catch-up.
     t_in = torch.where(del_cj, req_term[:, :, None], 0).amax(1)
-    term, role, voted_for, timeout = bump(t_in > term, t_in, term, role,
-                                          voted_for, timeout)
+    term, role, voted_for, timeout = _bump(cfg, seed, t_in > term, t_in,
+                                           term, role, voted_for, timeout,
+                                           u32)
 
     # P2b grants.
     up_to_date = (req_lterm[:, :, None] > own_lterm[:, None, :]) | (
@@ -286,18 +348,75 @@ def raft_sparse_round(cfg: Config, st: RaftSparseState, r: int
     reset = reset | granted
 
     # P2c tally per active candidate; winners become leaders.
-    del_jc = dedge(cand_ids, False)                             # [B, N, A]
     resp = (grant[:, :, None] == cand_ids[:, None, :]) & del_jc
     votes = 1 + resp.sum(1, dtype=torch.int32)                  # [B, A]
     win = cvalid & (role.gather(1, cid) == ROLE_C) & (votes >= majority)
-    won = torch.zeros((B, N), dtype=torch.int32, device=dev).scatter_reduce(
+    won = torch.zeros_like(term).scatter_reduce(
         1, cid, win.to(torch.int32), "amax").bool()
     role = torch.where(won, ROLE_L, role)
     timer = torch.where(won, 0, timer)
     reset = reset | won
+    return term, role, voted_for, timer, timeout, reset
 
-    # ---- Tracked-leader slot lifecycle (SPEC §3b).
-    new_ids = top_active(role == ROLE_L, term, A)               # [B, A]
+
+def elect(cfg: Config, seed, cand_ids, del_cj, del_jc, term, role, voted_for,
+          timer, timeout, reset, log_len, own_lterm):
+    """Kernel KF: same arguments and result as :func:`elect_plain`, which it
+    runs for CPU tensors; for CUDA tensors it launches ``csrc/elect.cu``
+    (a thread per node with the candidates' fields in shared memory and
+    block-partial vote counts, then a [B, A] winner epilogue). Updates
+    nothing in place."""
+    if term.device.type == "cpu":
+        return elect_plain(cfg, seed, cand_ids, del_cj, del_jc, term, role,
+                           voted_for, timer, timeout, reset, log_len,
+                           own_lterm)
+    from .. import _build
+    B, N = term.shape
+    A = cand_ids.shape[1]
+    dev = term.device
+    if not 1 <= A <= MAX_ACTIVE:
+        raise ValueError(f"elect takes 1 <= A <= {MAX_ACTIVE}")
+    _check_all(dev, (seed, torch.uint32, (B,)),
+               (cand_ids, torch.int32, (B, A)),
+               (del_cj, torch.bool, (B, A, N)),
+               (del_jc, torch.bool, (B, N, A)),
+               *((t, torch.int32, (B, N)) for t in (
+                   term, role, voted_for, timer, timeout, log_len,
+                   own_lterm)),
+               (reset, torch.bool, (B, N)))
+    out = [torch.empty_like(term) for _ in range(5)]
+    reset_out = torch.empty_like(reset)
+    votes = torch.empty((B, A), dtype=torch.int32, device=dev)
+    _build.launch("elect", seed.data_ptr(), cfg.t_min, _timeout_span(cfg),
+                  *(t.data_ptr() for t in (
+                      cand_ids, del_cj, del_jc, term, role, voted_for, timer,
+                      timeout, reset, log_len, own_lterm, *out, reset_out,
+                      votes)), B, N, A)
+    elect.launches += 1
+    return (*out, reset_out)
+
+
+elect.launches = 0
+
+
+# --- KG: tracked-leader slot lifecycle ------------------------------------------
+
+def slots_plain(cfg: Config, new_ids, lead_id, lead_match, lead_next, role,
+                log_len):
+    """Plain version of KG, the SPEC §3b slot lifecycle: slot a of the new
+    tracked set ``new_ids`` ([B, A]) carries the [N] match/next rows of the
+    old slot that tracked the same leader, or starts fresh rows (match 0
+    but the leader's own log length at its own column, next = length + 1).
+    Then P3a's self-match: a tracked leader that will append this round
+    (``role`` leader, ``log_len`` below E, both as P3a reads them) matches
+    itself at its new length. Updates nothing in place; returns new
+    (lead_match, lead_next), [B, A, N] u8."""
+    B, A = new_ids.shape
+    N = role.shape[1]
+    E = min(cfg.max_entries, cfg.log_capacity)
+    mdt = lead_match.dtype
+    idx = torch.arange(N, dtype=torch.int32, device=role.device)
+    bi = torch.arange(B, device=role.device)[:, None]
     same = new_ids[:, :, None] == torch.where(
         lead_id >= 0, lead_id, N + 1)[:, None, :]               # [B, A, A]
     carried = same.any(2) & (new_ids >= 0)
@@ -311,13 +430,214 @@ def raft_sparse_round(cfg: Config, st: RaftSparseState, r: int
                              init_match)
     lead_next = torch.where(carried[:, :, None], lead_next[bi, src_slot],
                             init_next)
-    lead_id = new_ids
-    lvalid = lead_id >= 0
+    # P3a's self-match: one entry per slot row, at the leader's own column.
+    can_prop = (role == ROLE_L) & (log_len < E)
+    self_on = ((new_ids >= 0) & can_prop.gather(1, nid))[:, :, None]
+    lead_match = lead_match.scatter(
+        2, nid[:, :, None], torch.where(
+            self_on, (nlen + 1).to(mdt)[:, :, None],
+            lead_match.gather(2, nid[:, :, None])))
+    return lead_match, lead_next
+
+
+def slots(cfg: Config, new_ids, lead_id, lead_match, lead_next, role,
+          log_len):
+    """Kernel KG: same arguments and result as :func:`slots_plain`, which
+    it runs for CPU tensors; for CUDA tensors it launches ``csrc/slots.cu``
+    (a thread per (slot, node) byte; the slot match is found once per
+    block). Writes fresh rows, since carrying permutes them; updates
+    nothing in place."""
+    if role.device.type == "cpu":
+        return slots_plain(cfg, new_ids, lead_id, lead_match, lead_next,
+                           role, log_len)
+    from .. import _build
+    B, A = new_ids.shape
+    N = role.shape[1]
+    dev = role.device
+    if not 1 <= A <= MAX_ACTIVE:
+        raise ValueError(f"slots takes 1 <= A <= {MAX_ACTIVE}")
+    _check_all(dev, (new_ids, torch.int32, (B, A)),
+               (lead_id, torch.int32, (B, A)),
+               (lead_match, torch.uint8, (B, A, N)),
+               (lead_next, torch.uint8, (B, A, N)),
+               (role, torch.int32, (B, N)), (log_len, torch.int32, (B, N)))
+    match_out = torch.empty_like(lead_match)
+    next_out = torch.empty_like(lead_next)
+    _build.launch("slots", *(t.data_ptr() for t in (
+        new_ids, lead_id, lead_match, lead_next, role, log_len, match_out,
+        next_out)), B, N, A, min(cfg.max_entries, cfg.log_capacity))
+    slots.launches += 1
+    return match_out, next_out
+
+
+slots.launches = 0
+
+
+# --- KH: P3d acks and P3e majority commit ---------------------------------------
+
+def commit_median_plain(lead_match, majority: int, E: int) -> torch.Tensor:
+    """The majority-th largest value of each [N] row of ``lead_match``,
+    capped at E: the largest m in [0, E] that at least ``majority`` entries
+    reach, by the same fixed-depth binary search over [0, E + 1) as the
+    JAX round. [B, A] i32."""
+    B, A, _ = lead_match.shape
+    lo = torch.zeros((B, A), dtype=torch.int32, device=lead_match.device)
+    hi = torch.full((B, A), E + 1, dtype=torch.int32,
+                    device=lead_match.device)
+    for _ in range((E + 1).bit_length()):
+        mid = (lo + hi) // 2
+        cnt = (lead_match >= mid[:, :, None]).sum(2, dtype=torch.int32)
+        ok = cnt >= majority
+        lo = torch.where(ok, mid, lo)
+        hi = torch.where(ok, hi, mid)
+    return lo
+
+
+def acks_commit_plain(cfg: Config, seed, lead_id, was_lead_k, del_jl, has_l,
+                      kstar, apply_, log_len, log_term, term, role, voted_for,
+                      timeout, commit, lead_match, lead_next) -> None:
+    """Plain version of KH, SPEC §3 P3d-P3e for each tracked slot that sent
+    heartbeats (``was_lead_k``, [B, A]) and still leads: follower j acks
+    slot ``kstar[j]`` where ``has_l[j]`` and ``del_jl[j, kstar[j]]``, with
+    its term and (where ``apply_``) its new ``log_len``. A higher acked
+    term bumps the leader; otherwise its match/next rows follow the acks
+    (u8 arithmetic, as JAX), and its commit advances to the majority-th
+    largest match when that entry is of its own term. ``log_term`` is the
+    post-P3c log. Updates ``term``, ``role``, ``voted_for``, ``timeout``,
+    ``commit``, ``lead_match`` and ``lead_next`` in place."""
+    u32 = rng.random_u32_plain
+    B, N = term.shape
+    A = lead_id.shape[1]
+    E = min(cfg.max_entries, cfg.log_capacity)
+    majority = N // 2 + 1
+    mdt = lead_match.dtype
+    bi = torch.arange(B, device=term.device)[:, None]
+    slot_ids = torch.arange(A, dtype=torch.int32, device=term.device)
     lid = lead_id.clamp(0, N - 1).to(torch.int64)
+    ack_slot = torch.where(has_l, kstar, A)
+    ack_match = torch.where(apply_, log_len, 0)
+
+    # ---- P3d tracked leaders process acks.
+    still_lead_k = was_lead_k & (role.gather(1, lid) == ROLE_L)
+    ackm = (ack_slot[:, :, None] == slot_ids) & del_jl          # [B, N, A]
+    t_in3 = torch.where(ackm, term[:, :, None], 0).amax(1)      # [B, A]
+    bump3_k = still_lead_k & (t_in3 > term.gather(1, lid))
+    new_t = _scatter_max(term, lid, t_in3, bump3_k)
+    new = _bump(cfg, seed, new_t > term, new_t, term, role, voted_for,
+                timeout, u32)
+    for t, v in zip((term, role, voted_for, timeout), new):
+        t.copy_(v)
+    proc = (still_lead_k & ~bump3_k)[:, :, None]                # [B, A, 1]
+
+    succ = (ackm & apply_[:, :, None]).transpose(1, 2)          # [B, A, N]
+    fail = (ackm & ~apply_[:, :, None]).transpose(1, 2)
+    lead_match.copy_(torch.where(
+        proc & succ, torch.maximum(lead_match, ack_match[:, None, :].to(mdt)),
+        lead_match))
+    lead_next.copy_(torch.where(
+        proc & succ, lead_match + 1,
+        torch.where(proc & fail, (lead_next - 1).clamp_min(1), lead_next)))
+
+    # ---- P3e commit advance.
+    med = commit_median_plain(lead_match, majority, E)
+    kmed = (med - 1).clamp(0, cfg.log_capacity - 1).to(torch.int64)
+    term_at_med = log_term[bi, lid, kmed]                       # post-P3c
+    adv = proc[:, :, 0] & (med > commit.gather(1, lid)) & (med > 0) \
+        & (term_at_med == term.gather(1, lid))
+    commit.copy_(_scatter_max(commit, lid, med, adv))
+
+
+def acks_commit(cfg: Config, seed, lead_id, was_lead_k, del_jl, has_l, kstar,
+                apply_, log_len, log_term, term, role, voted_for, timeout,
+                commit, lead_match, lead_next) -> None:
+    """Kernel KH: same arguments and in-place updates as
+    :func:`acks_commit_plain`, which it runs for CPU tensors; for CUDA
+    tensors it launches ``csrc/acks_commit.cu`` (block-partial ack-term
+    maxima, a [B, A] bump epilogue, the match/next update with a per-row
+    256-bin histogram of the new matches, and a [B, A] commit epilogue
+    reading the majority-th largest match off the histogram). The tracked
+    ids ``lead_id`` of slots with ``was_lead_k`` must be distinct, as
+    kernel KC gives them."""
+    if term.device.type == "cpu":
+        return acks_commit_plain(cfg, seed, lead_id, was_lead_k, del_jl,
+                                 has_l, kstar, apply_, log_len, log_term,
+                                 term, role, voted_for, timeout, commit,
+                                 lead_match, lead_next)
+    from .. import _build
+    B, N, L = log_term.shape
+    A = lead_id.shape[1]
+    dev = term.device
+    if not 1 <= A <= MAX_ACTIVE:
+        raise ValueError(f"acks_commit takes 1 <= A <= {MAX_ACTIVE}")
+    _check_all(dev, (seed, torch.uint32, (B,)),
+               (lead_id, torch.int32, (B, A)),
+               (was_lead_k, torch.bool, (B, A)),
+               (del_jl, torch.bool, (B, N, A)),
+               (has_l, torch.bool, (B, N)), (apply_, torch.bool, (B, N)),
+               *((t, torch.int32, (B, N)) for t in (
+                   kstar, log_len, term, role, voted_for, timeout, commit)),
+               (log_term, torch.int32, (B, N, L)),
+               (lead_match, torch.uint8, (B, A, N)),
+               (lead_next, torch.uint8, (B, A, N)))
+    t_in3 = torch.empty((B, A), dtype=torch.int32, device=dev)
+    proc = torch.empty((B, A), dtype=torch.int32, device=dev)
+    hist = torch.empty((B, A, 256), dtype=torch.int32, device=dev)
+    _build.launch("acks_commit", seed.data_ptr(), cfg.t_min,
+                  _timeout_span(cfg), *(t.data_ptr() for t in (
+                      lead_id, was_lead_k, del_jl, has_l, kstar, apply_,
+                      log_len, log_term, term, role, voted_for, timeout,
+                      commit, lead_match, lead_next, t_in3, proc, hist)),
+                  B, N, A, L, min(cfg.max_entries, L))
+    acks_commit.launches += 1
+
+
+acks_commit.launches = 0
+
+
+# --- the round ----------------------------------------------------------------
+
+def raft_sparse_round(cfg: Config, st: RaftSparseState, r: int
+                      ) -> RaftSparseState:
+    """One SPEC §3 round under the §3b cap, phase by phase as
+    ``consensus_tpu/engines/raft_sparse.py`` ``raft_sparse_round`` with
+    ``telem=False``. Updates ``st.log_term``/``st.log_val`` in place."""
+    B, N = st.term.shape
+    L, A = cfg.log_capacity, cfg.max_active
+    E = min(cfg.max_entries, L)
+    dev = st.term.device
+    seed = st.seed
+
+    def dedge(ids, ids_are_src):
+        return delivery_edges(seed, r, ids, N, cfg.drop_cutoff,
+                              cfg.partition_cutoff, ids_are_src)
+
+    log_term, log_val, log_len = st.log_term, st.log_val, st.log_len
+    commit = st.commit
+
+    # ---- P0 churn, P1 candidacy (KE).
+    (term, role, voted_for, timer, timeout, reset, own_lterm,
+     cand_mask) = candidacy(cfg, seed, r, st.term, st.role, st.voted_for,
+                            st.timer, st.timeout, log_term, log_len)
+
+    # ---- P2 election over the active candidate set (SPEC §3b; KC, KB, KF).
+    cand_ids = top_active(cand_mask, term, A)                   # [B, A]
+    del_cj = dedge(cand_ids, True)                              # [B, A, N]
+    del_jc = dedge(cand_ids, False)                             # [B, N, A]
+    term, role, voted_for, timer, timeout, reset = elect(
+        cfg, seed, cand_ids, del_cj, del_jc, term, role, voted_for, timer,
+        timeout, reset, log_len, own_lterm)
+
+    # ---- The leader mask, read by KC and by P3a.
+    lead = role == ROLE_L
+
+    # ---- Tracked-leader slot lifecycle, with P3a's self-match (KC, KG).
+    lead_id = top_active(lead, term, A)                         # [B, A]
+    lead_match, lead_next = slots(cfg, lead_id, st.lead_id, st.lead_match,
+                                  st.lead_next, role, log_len)
 
     # ---- P3a propose (every leader, tracked or not: local append only).
     # The one-slot append is a scatter into the logs, in place.
-    lead = role == ROLE_L
+    idx = torch.arange(N, dtype=torch.int32, device=dev)
     can_prop = lead & (log_len < E)
     prop_val = bitcast_i32(draw(seed, rng.STREAM_VALUE, r, 0, idx))
     pos = log_len.clamp(max=L - 1).to(torch.int64)[..., None]
@@ -328,27 +648,22 @@ def raft_sparse_round(cfg: Config, st: RaftSparseState, r: int
                                          log_val.gather(2, pos)[..., 0]
                                          )[..., None])
     log_len = log_len + can_prop.to(torch.int32)
-    # Tracked leaders' self-match follows their own append: one entry per
-    # slot row, at the leader's own column.
-    self_on = (lvalid & can_prop.gather(1, lid))[:, :, None]
-    lead_match = lead_match.scatter(
-        2, lid[:, :, None], torch.where(
-            self_on, log_len.gather(1, lid).to(mdt)[:, :, None],
-            lead_match.gather(2, lid[:, :, None])))
 
     # ---- P3b snapshot tracked-sender state.
-    was_lead_k = lvalid & lead.gather(1, lid)
+    bi = torch.arange(B, device=dev)[:, None]
+    lid = lead_id.clamp(0, N - 1).to(torch.int64)
+    was_lead_k = (lead_id >= 0) & lead.gather(1, lid)
     s_term, s_len = term.gather(1, lid), log_len.gather(1, lid)
     s_commit = commit.gather(1, lid)
     s_next = lead_next
     s_logt, s_logv = log_term[bi, lid], log_val[bi, lid]       # [B, A, L]
 
-    # ---- P3c receivers.
+    # ---- P3c receivers (KB, KD).
     hb_ids = torch.where(was_lead_k, lead_id, NONE)
     del_lj = dedge(hb_ids, True)                                # [B, A, N]
     t_in2 = torch.where(del_lj, s_term[:, :, None], 0).amax(1)
-    term, role, voted_for, timeout = bump(t_in2 > term, t_in2, term, role,
-                                          voted_for, timeout)
+    term, role, voted_for, timeout = _bump(cfg, seed, t_in2 > term, t_in2,
+                                           term, role, voted_for, timeout)
 
     valid = del_lj & (s_term[:, :, None] == term[:, None, :])  # [B, A, N]
     lcand = torch.where(valid, lid.to(torch.int32)[:, :, None], N)
@@ -362,47 +677,12 @@ def raft_sparse_round(cfg: Config, st: RaftSparseState, r: int
     apply_, log_len, commit = append_entries(
         log_term, log_val, log_len, commit, kstar, has_l, s_next, s_len,
         s_commit, s_logt, s_logv)
-    ack_slot = torch.where(has_l, kstar, A)
-    ack_match = torch.where(apply_, log_len, 0)
-    ack_term = term
 
-    # ---- P3d tracked leaders process acks.
-    still_lead_k = was_lead_k & (role.gather(1, lid) == ROLE_L)
+    # ---- P3d acks and P3e commit advance (KB, KH), in place.
     del_jl = dedge(hb_ids, False)                               # [B, N, A]
-    ackm = (ack_slot[:, :, None] == slots) & del_jl             # [B, N, A]
-    t_in3 = torch.where(ackm, ack_term[:, :, None], 0).amax(1)  # [B, A]
-    bump3_k = still_lead_k & (t_in3 > term.gather(1, lid))
-    new_t = _scatter_max(term, lid, t_in3, bump3_k)
-    term, role, voted_for, timeout = bump(new_t > term, new_t, term, role,
-                                          voted_for, timeout)
-    proc = (still_lead_k & ~bump3_k)[:, :, None]                # [B, A, 1]
-
-    succ = (ackm & apply_[:, :, None]).transpose(1, 2)          # [B, A, N]
-    fail = (ackm & ~apply_[:, :, None]).transpose(1, 2)
-    lead_match = torch.where(
-        proc & succ, torch.maximum(lead_match, ack_match[:, None, :].to(mdt)),
-        lead_match)
-    lead_next = torch.where(
-        proc & succ, lead_match + 1,
-        torch.where(proc & fail, (lead_next - 1).clamp_min(1), lead_next))
-
-    # ---- P3e commit advance: the majority-th largest match of each tracked
-    # row, by the same fixed-depth binary search over [0, E] as JAX.
-    lo = torch.zeros((B, A), dtype=torch.int32, device=dev)
-    hi = torch.full((B, A), E + 1, dtype=torch.int32, device=dev)
-    for _ in range((E + 1).bit_length()):
-        mid = (lo + hi) // 2
-        cnt = (lead_match >= mid[:, :, None]).sum(2, dtype=torch.int32)
-        ok = cnt >= majority
-        lo = torch.where(ok, mid, lo)
-        hi = torch.where(ok, hi, mid)
-    med = lo
-    kmed = (med - 1).clamp(0, L - 1).to(torch.int64)
-    term_at_med = log_term[bi, lid, kmed]                       # post-P3c
-    term_l = term.gather(1, lid)
-    adv = proc[:, :, 0] & (med > commit.gather(1, lid)) & (med > 0) \
-        & (term_at_med == term_l)
-    commit = _scatter_max(commit, lid, med, adv)
+    acks_commit(cfg, seed, lead_id, was_lead_k, del_jl, has_l, kstar, apply_,
+                log_len, log_term, term, role, voted_for, timeout, commit,
+                lead_match, lead_next)
 
     # ---- P4 timers.
     timer = torch.where(role == ROLE_L, 0,

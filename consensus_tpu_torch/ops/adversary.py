@@ -32,9 +32,11 @@ def bitcast_i32(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 2**31, x - 2**32, x).to(torch.int32)
 
 
-def churn(seed, r: int, churn_cut: int) -> torch.Tensor:
-    """SPEC §2: [B] bool, True where the round's leader-churn event fires."""
-    return draw(seed, rng.STREAM_CHURN, r, 0, 0)[:, 0] < cutoff(churn_cut)
+def churn(seed, r: int, churn_cut: int, u32=rng.random_u32) -> torch.Tensor:
+    """SPEC §2: [B] bool, True where the round's leader-churn event fires.
+    ``u32`` draws the words (kernel KA unless a plain version says
+    otherwise)."""
+    return u32(seed, rng.STREAM_CHURN, r, 0, 0)[:, 0] < cutoff(churn_cut)
 
 
 def delivery_edges_plain(seed, r: int, ids, n: int, drop_cut: int,

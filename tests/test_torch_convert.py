@@ -73,3 +73,77 @@ def test_from_numpy_rejects_a_wrong_dtype(jax_steps):
     with pytest.raises(TypeError):
         convert.state_from_numpy({**before,
                                   "term": before["term"].astype(np.int64)})
+
+
+# A config on which the phase kernels' rarer paths fire: more than A
+# candidates (the cap binds), and two leaders tracked at once, so that the
+# slot lifecycle carries a row from another slot index (max_entries 8:
+# full logs leave a lagging candidate up to date, and it can win while the
+# old leader still leads).
+EDGE_CASES = {
+    "edge-paths": dict(protocol="raft", n_nodes=256, n_rounds=40,
+                       n_sweeps=2, log_capacity=32, max_entries=8,
+                       max_active=4, seed=21, t_min=3, t_max=8,
+                       drop_rate=0.2, churn_rate=0.02),
+}
+
+
+def _jax_every_round(kw) -> list:
+    """Leaves of the JAX carry before round 0 and after every round."""
+    jcfg = JConfig(**kw)
+    eng = jsim.engine_def(jcfg)
+    carry = jrunner._init_jit(jcfg, eng, jnp.asarray(jrunner.make_seeds(jcfg)))
+    out = [_leaves(carry)]
+    for k in range(kw["n_rounds"]):
+        carry = jrunner._chunk_jit(jcfg, eng, 1, carry, jnp.int32(k))
+        out.append(_leaves(carry))
+    return out
+
+
+@pytest.mark.parametrize("case", list(EDGE_CASES))
+def test_every_round_from_jax_state_on_edge_paths(case, monkeypatch):
+    kw = EDGE_CASES[case]
+    cfg, A = Config(**kw), kw["max_active"]
+    seen = {"cap": 0, "carried_other": 0, "bump3": 0}
+    candidacy, slots, acks_commit = trs.candidacy, trs.slots, trs.acks_commit
+
+    def count_candidates(*args):
+        out = candidacy(*args)
+        seen["cap"] += int((out[7].sum(1) > A).sum())
+        return out
+
+    def count_carried(*args):
+        new_ids, lead_id = args[1], args[2]
+        same = (new_ids[:, :, None] == lead_id[:, None, :]) \
+            & (new_ids >= 0)[:, :, None] & ~torch.eye(A, dtype=torch.bool)
+        seen["carried_other"] += int(same.sum())
+        return slots(*args)
+
+    def count_bump3(*args):
+        (_, _, lead_id, was_lead_k, del_jl, has_l, kstar, _, _, _, term,
+         role, *_rest) = args
+        lid = lead_id.clamp(0, term.shape[1] - 1).to(torch.int64)
+        ackm = (torch.where(has_l, kstar, A)[:, :, None]
+                == torch.arange(A)) & del_jl
+        t_in3 = torch.where(ackm, term[:, :, None], 0).amax(1)
+        seen["bump3"] += int((was_lead_k & (role.gather(1, lid) == 2)
+                              & (t_in3 > term.gather(1, lid))).sum())
+        return acks_commit(*args)
+
+    monkeypatch.setattr(trs, "candidacy", count_candidates)
+    monkeypatch.setattr(trs, "slots", count_carried)
+    monkeypatch.setattr(trs, "acks_commit", count_bump3)
+    states = _jax_every_round(kw)
+    for k in range(kw["n_rounds"]):
+        got = convert.state_to_numpy(trs.raft_sparse_round(
+            cfg, convert.state_from_numpy(states[k]), k))
+        for name, want in states[k + 1].items():
+            assert got[name].dtype == want.dtype, (k, name)
+            assert np.array_equal(got[name], want), (k, name)
+    assert states[-1]["commit"].max() > 0
+    assert seen["cap"] > 0 and seen["carried_other"] > 0
+    # A follower acks only the slot whose snapshot term equals its own, and
+    # a leader's term only rises after its snapshot, so on this flat path
+    # no acked term exceeds the leader's: bump3 stays dark (kernel KH's
+    # bump is held to its plain version on built inputs instead).
+    assert seen["bump3"] == 0
