@@ -5,25 +5,35 @@
 
 Phases, each printing one JSON line:
 
-1. device   — a CUDA device is present; the card's name and power limit as
-              ``nvidia-smi`` reports them.
-2. build    — nvcc builds every kernel of ``consensus_tpu_torch/csrc``.
-3. kernels  — each hand-written kernel (KA-KH) against its plain PyTorch
-              version on the card, at the flagship shapes (B = 8 sweeps,
-              N = 100 000 nodes, A = 8, L = 128) plus edge inputs; the round's
-              phase kernels KE-KH also on the flagship's own inputs of round
-              20. Tolerance: none, the results are integers and must be
-              equal. Times are device time per call (torch.profiler kernel
-              durations).
-4. flagship — ``simulator.run`` of raft-100k (benchmarks/run_benchmarks.py
-              CONFIGS["raft-100k"], seed 6): the decided-log digest must be
-              the committed anchor, and every kernel must have launched.
-5. bench    — bench.py's flagship shape (seed 42, max_entries 112):
-              node-round-steps per second; something must commit.
-6. profile  — one more flagship run under torch.profiler: device time by
-              kernel, launches a round, the PyTorch ops still on the round's
-              device timeline, and the device's busy share of an unprofiled
-              run.
+1. device    — a CUDA device is present; the card's name and power limit as
+               ``nvidia-smi`` reports them.
+2. build     — nvcc builds every kernel of ``consensus_tpu_torch/csrc``.
+3. kernels   — each hand-written kernel (KA-KK) against its plain PyTorch
+               version on the card, at the flagship shapes (B = 8 sweeps,
+               N = 100 000 nodes, A = 8, L = 128) on random and built edge
+               inputs; the round's phase kernels (KD-KK) also on the
+               flagship's own inputs of round 20. Tolerance: none, the
+               results are integers and must be equal. Times are device
+               time per call (torch.profiler kernel durations).
+4. flagship  — ``simulator.run`` of raft-100k (benchmarks/run_benchmarks.py
+               CONFIGS["raft-100k"], seed 6), replayed as one CUDA graph: the
+               decided-log digest must be the committed anchor, and every
+               kernel of the path must have launched (KK must not: telemetry
+               is off). Seed 7 then replays the same graph (no new capture)
+               and must equal the eager loop; seed 6 again the anchor.
+5. telemetry — raft-100k with telemetry and a flight recorder of 8-round
+               windows: the same digest, all ten kernels launched, windows
+               that sum to the totals, one election wait a leader election,
+               graph replay and eager loop equal; and the same run at
+               N = 10 000, whose counters and recorder must equal an anchor
+               made by the JAX package.
+6. bench     — bench.py's flagship shape (seed 42, max_entries 112):
+               node-round-steps per second; something must commit.
+7. profile   — the flagship's graph replay under torch.profiler: device busy
+               share, launches a round, device time by kernel, graph memory;
+               and an eager run with each kernel wrapper in a named range,
+               which must show no PyTorch compute op in any phase of the
+               round.
 
 Then the card's name and power limit, one ``{"kernels": [...]}`` line, and
 last ``{"ok": true, "device": {...}}``. Any failure, or no GPU, exits
@@ -32,16 +42,21 @@ non-zero without that last line.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import hashlib
 import json
+import os
 import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 FLAGSHIP_DIGEST = \
     "0e9cc1ddc8b04d96240cdeb5f19877bbd3aad2b23883a585fa1e1c78a961ca5b"
 B, N, A, L = 8, 100_000, 8, 128
+WINDOW = 8                      # the telemetry phase's flight-recorder window
 
 # Peak rates of one H100 SXM (NVIDIA data sheet): HBM3 bandwidth, and the
 # 67 TFLOP/s float32 rate outside the tensor cores, which counts a fused
@@ -50,6 +65,7 @@ B, N, A, L = 8, 100_000, 8, 128
 # operations (each add, xor, shift or multiply one operation).
 HBM_BYTES_PER_S = 3.35e12
 OPS_PER_S = 33.5e12
+L2_BYTES = 50 * 2**20
 THREEFRY_OPS = 119     # 20 x (add, 3-op rotate, xor) + key schedule
 EDGE_OPS = 23          # one mixer absorb (11) + fmix (8) + 4 tests an edge
 
@@ -67,24 +83,85 @@ def require(cond: bool, what: str) -> None:
         raise SmokeError(what)
 
 
-def device_ms(fn, reps: int = 20, warm: int = 3) -> float:
-    """Mean device time of one call of ``fn``: the summed durations of the
-    kernels it launched, from torch.profiler. (CUDA events around calls
-    this short would time the host's launch cost, not the device.)"""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    for _ in range(warm):
-        fn()
+def device_ms(fn, args, reps: int = 20, warm: int = 3) -> float:
+    """Mean device time of one call of ``fn(*args)``: the summed durations
+    of the kernels it launched, from torch.profiler. (CUDA events around
+    calls this short would time the host's launch cost, not the device.)
+    The calls rotate over clones of ``args`` that together exceed the L2
+    cache twice over, so that no call finds its inputs left in L2 by the
+    call before it. The profiler records from its second step on: it can
+    miss the first launches of its first."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    size = sum(a.nbytes for a in args if isinstance(a, torch.Tensor))
+    copies = [clone_args(args)
+              for _ in range(min(16, max(2, -(-2 * L2_BYTES // size))))]
+    for i in range(warm):
+        fn(*copies[i % len(copies)])
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA)
-    require(us > 0, "the profiler saw no device activity")
-    return us / 1e3 / reps
+
+    def session():
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+            fn(*copies[0])
+            torch.cuda.synchronize()
+            prof.step()
+            for i in range(reps):
+                fn(*copies[i % len(copies)])
+            torch.cuda.synchronize()
+        return prof
+    _, device = profiled(session, getattr(fn, "__name__", "a kernel"))
+    return sum(e.time_range.elapsed_us() for e in device) / 1e3 / reps
+
+
+PROFILER_SESSIONS = 8
+REDONE: list[str] = []          # the profiled work whose session was redone
+
+
+def profiled(session, what: str, graph: bool = False) -> tuple:
+    """``session()``'s profiler and its device operations. CUPTI now and
+    then delivers a session's device records only in part, or not at all,
+    so a session counts only when it is complete: when it holds a device
+    operation for each kernel launch, memset and copy that the host made in
+    it; for a graph replay, which the host launches as one call, when it
+    holds as many device operations as the session before. Otherwise the
+    session is run again, up to PROFILER_SESSIONS times, and then this
+    fails."""
+    from torch.autograd import DeviceType
+    counts = []
+    for _ in range(PROFILER_SESSIONS):
+        prof = session()
+        device = device_events(prof)
+        calls = sum(1 for e in prof.events()
+                    if e.device_type == DeviceType.CPU
+                    and any(c in e.name for c in RUNTIME_CALLS))
+        counts.append((len(device), calls))
+        if graph:
+            complete = len(counts) > 1 and counts[-1][0] == counts[-2][0] > 0
+        else:
+            complete = 0 < len(device) == calls
+        if complete:
+            if len(counts) > 1 + graph:
+                REDONE.append(what)
+                print(f"chip_smoke: profiling {what}: (device operations, "
+                      f"runtime calls) by session: {counts}",
+                      file=sys.stderr, flush=True)
+            return prof, device
+    raise SmokeError(f"the profiler recorded the device operations of "
+                     f"{what} in part only: (device operations, runtime "
+                     f"calls) by session {counts}")
+
+
+# The CUDA runtime calls that put one operation each on the device.
+RUNTIME_CALLS = ("Launch", "Memset", "Memcpy")
+
+
+def device_events(prof) -> list:
+    """The profiled device operations (kernels, memsets, copies), without
+    the ranges that the profiler's steps and the script's named wrapper
+    ranges also put on the device timeline."""
+    from torch.autograd import DeviceType
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and not e.name.startswith(("ProfilerStep", "wrapper::"))]
 
 
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
@@ -122,21 +199,22 @@ def check_random_u32(dev, gen):
                          dtype=torch.int32)
     term[0, :4] = torch.tensor([-1, 0, 2**31 - 1, -2**31], dtype=torch.int32)
     idx = torch.arange(N, dtype=torch.int32, device=dev)
-    cases = [(rng.STREAM_TIMEOUT, term, 0, idx),        # _draw_timeout
-             (rng.STREAM_VALUE, 63, 0, idx),            # P3a values
+    cases = [(rng.STREAM_TIMEOUT, 0, 0, idx),           # init's timeouts
+             (rng.STREAM_TIMEOUT, term, 0, idx),        # _draw_timeout
+             (rng.STREAM_VALUE, 63, 0, idx),
              (rng.STREAM_VALUE, 0xFFFFFFFF, 7, term),
-             (rng.STREAM_CHURN, 5, 0, 0)]               # P0 churn
+             (rng.STREAM_CHURN, 5, 0, 0)]
     err = max_abs_err((rng.random_u32(seeds, *c), rng.random_u32_plain(
         seeds, *c)) for c in cases)
-    call = cases[0]
-    nbytes = 4 * B + 4 * B * N + 4 * N + 8 * B * N
+    call = cases[0]                     # the one call on the main path
+    nbytes = 4 * B + 4 * N + 8 * B * N
     return dict(
         name="random_u32", route="cuda",
         source="consensus_tpu_torch/csrc/random_u32.cu",
         replaces="consensus_tpu/core/rng.py:232 random_u32_jnp",
         max_abs_err=err,
-        ms=device_ms(lambda: rng.random_u32(seeds, *call)),
-        plain_ms=device_ms(lambda: rng.random_u32_plain(seeds, *call)),
+        ms=device_ms(rng.random_u32, (seeds, *call)),
+        plain_ms=device_ms(rng.random_u32_plain, (seeds, *call)),
         bound=bound(nbytes, THREEFRY_OPS * B * N), library_ms=None)
 
 
@@ -165,8 +243,8 @@ def check_delivery_edges(dev, gen):
         source="consensus_tpu_torch/csrc/delivery_edges.cu",
         replaces="consensus_tpu/ops/adversary.py:178 delivery_edges",
         max_abs_err=err,
-        ms=device_ms(lambda: adversary.delivery_edges(*call)),
-        plain_ms=device_ms(lambda: adversary.delivery_edges_plain(*call)),
+        ms=device_ms(adversary.delivery_edges, call),
+        plain_ms=device_ms(adversary.delivery_edges_plain, call),
         bound=bound(B * A * N + 4 * B * A + 4 * B, EDGE_OPS * B * A * N),
         library_ms=None)
 
@@ -193,61 +271,34 @@ def check_top_active(dev, gen):
         source="consensus_tpu_torch/csrc/top_active.cu",
         replaces="consensus_tpu/engines/raft_sparse.py:144 _top_active",
         max_abs_err=err,
-        ms=device_ms(lambda: rs.top_active(sparse, term, A)),
-        plain_ms=device_ms(lambda: rs.top_active_plain(sparse, term, A)),
+        ms=device_ms(rs.top_active, (sparse, term, A)),
+        plain_ms=device_ms(rs.top_active_plain, (sparse, term, A)),
         bound=bound(B * N * 5 + 4 * B * A, 4 * B * N),
-        library_ms=device_ms(lambda: torch.topk(key, A, dim=1, largest=False)))
+        library_ms=device_ms(
+            lambda k: torch.topk(k, A, dim=1, largest=False), (key,)))
 
 
-def check_append_entries(dev, gen):
-    from consensus_tpu_torch.engines import raft_sparse as rs
-
-    def ri(lo, hi, shape, dtype=torch.int32):
-        return torch.randint(lo, hi, shape, generator=gen, device=dev,
-                             dtype=dtype)
-
-    # Terms from a small alphabet, so that log-match checks pass often.
-    log_term, log_val = ri(0, 3, (B, N, L)), ri(-2**31, 2**31 - 1, (B, N, L))
-    log_len, commit = ri(0, L + 1, (B, N)), ri(0, 20, (B, N))
-    kstar, has_l = ri(0, A, (B, N)), ri(0, 2, (B, N)).bool()
-    s_next = ri(1, L + 2, (B, A, N), torch.uint8)
-    s_len, s_commit = ri(0, L + 1, (B, A)), ri(0, L + 1, (B, A))
-    s_logt, s_logv = ri(0, 3, (B, A, L)), ri(-2**31, 2**31 - 1, (B, A, L))
-    s_next[:, 0, :1000] = 1                      # prev = 0
-    s_len[:, 0] = L                              # full-log copies
-    s_next[:, 1, :1000] = 255                    # prev past any log
-    inputs = (log_len, commit, kstar, has_l, s_next, s_len, s_commit,
-              s_logt, s_logv)
-    kt, kv = log_term.clone(), log_val.clone()
-    pt, pv = log_term.clone(), log_val.clone()
-    got = rs.append_entries(kt, kv, *inputs)
-    want = rs.append_entries_plain(pt, pv, *inputs)
-    err = max_abs_err(list(zip(got, want)) + [(kt, pt), (kv, pv)])
-    # Bytes this input needs: per follower its slot, flag, length and commit
-    # and three outputs; per reached follower one next byte and one own log
-    # word; the leader tables once; 8 bytes per copied (term, value) pair.
-    applied = want[0]
-    k = kstar.to(torch.int64)
-    prev = s_next.gather(1, k[:, None, :])[:, 0].to(torch.int64) - 1
-    l_len = s_len.gather(1, k).to(torch.int64)
-    copied = torch.where(applied, (l_len - prev.clamp(min=0)).clamp(min=0),
-                         0).sum()
-    nbytes = (B * N * 22 + int(has_l.sum()) * 5 + B * A * (L * 8 + 8)
-              + 8 * int(copied))
-    return dict(
-        name="append_entries", route="cuda",
-        source="consensus_tpu_torch/csrc/append_entries.cu",
-        replaces="consensus_tpu/engines/raft_sparse.py:415 raft_sparse_round "
-                 "P3c",
-        max_abs_err=err,
-        ms=device_ms(lambda: rs.append_entries(kt, kv, *inputs)),
-        plain_ms=device_ms(lambda: rs.append_entries_plain(pt, pv, *inputs)),
-        bound=bound(nbytes, 30 * B * N), library_ms=None)
 
 
-# --- phase 3, continued: the round's phase kernels KE-KH ----------------------
+# --- phase 3, continued: the round's phase kernels KD-KK ----------------------
 
-PHASES = ("candidacy", "elect", "slots", "acks_commit")
+PHASES = ("candidacy", "elect", "slots", "propose", "append_entries",
+          "acks_commit", "telemetry")
+REPLACES = {"candidacy": "consensus_tpu/engines/raft_sparse.py:236 "
+                        "raft_sparse_round P0-P1",
+           "elect": "consensus_tpu/engines/raft_sparse.py:255 "
+                    "raft_sparse_round P2",
+           "slots": "consensus_tpu/engines/raft_sparse.py:354 "
+                    "raft_sparse_round slot lifecycle",
+           "propose": "consensus_tpu/engines/raft_sparse.py:377 "
+                      "raft_sparse_round P3a-P3b",
+           "append_entries": "consensus_tpu/engines/raft_sparse.py:398 "
+                             "raft_sparse_round P3c",
+           "acks_commit": "consensus_tpu/engines/raft_sparse.py:441 "
+                          "raft_sparse_round P3d-P4",
+           "telemetry": "consensus_tpu/engines/raft_sparse.py:503 "
+                        "raft_sparse_round telemetry and flight tail, "
+                        "consensus_tpu/ops/flight.py:29 bucket_counts"}
 
 
 def flagship_config(**kw):
@@ -283,12 +334,15 @@ def standing_in(names, make):
 
 
 def capture_phase_inputs(cfg, r: int, device="cuda") -> dict:
-    """The arguments each phase wrapper (KE-KH) receives in round ``r`` of
-    ``cfg``'s run on ``device``, cloned as they arrive."""
+    """The arguments each phase wrapper (KD-KK) receives in round ``r`` of
+    ``cfg``'s run on ``device`` (with its telemetry on), cloned as they
+    arrive."""
     from consensus_tpu_torch.engines import raft_sparse as rs
     from consensus_tpu_torch.network import runner
+    telem, flight = runner.accumulators(cfg, device)
     st = runner.advance(cfg, runner.init(cfg, runner.make_seeds(cfg),
-                                         device), 0, r)
+                                         device), 0, r, telem=telem,
+                        flight=flight)
     got = {}
 
     def recorder(name, fn):
@@ -297,7 +351,7 @@ def capture_phase_inputs(cfg, r: int, device="cuda") -> dict:
             return fn(*args)
         return record
     with standing_in(PHASES, recorder):
-        rs.raft_sparse_round(cfg, st, r)
+        rs.raft_sparse_round(cfg, st, r, telem=telem, flight=flight)
     require(set(got) == set(PHASES), f"round {r} skipped a phase")
     return got
 
@@ -316,9 +370,11 @@ def run_pair(name: str, args) -> list:
 
 
 def edge_phase_inputs(dev, gen) -> dict:
-    """Built inputs on which the phases' rare paths fire: {name: [args]}."""
+    """Random and built inputs on which the phases' rare paths fire:
+    {name: [args]}."""
     from consensus_tpu_torch.core import rng
     from consensus_tpu_torch.engines import raft_sparse as rs
+    from consensus_tpu_torch.network import runner
     from consensus_tpu_torch.ops import adversary
 
     def ri(lo, hi, shape, dtype=torch.int32):
@@ -327,6 +383,12 @@ def edge_phase_inputs(dev, gen) -> dict:
 
     def coin(p, shape):
         return torch.rand(shape, generator=gen, device=dev) < p
+
+    def distinct_ids(n, empty):
+        ids = torch.stack([torch.randperm(n, generator=gen, device=dev)[:A]
+                           for _ in range(B)]).to(torch.int32)
+        ids[coin(empty, (B, A))] = -1
+        return ids
 
     seeds = torch.arange(11, 11 + B, dtype=torch.int64,
                          device=dev).to(torch.uint32)
@@ -397,6 +459,49 @@ def edge_phase_inputs(dev, gen) -> dict:
                                                    torch.uint8),
                          ri(0, 256, (B, A, N), torch.uint8), role, log_len))
 
+    # KI: a third of the nodes lead; leaders at log length E (no append)
+    # and at L - 1 (the last slot, when E = L), tracked among others that
+    # do not lead; empty slots. E = 100 and E = L.
+    lead = coin(0.3, (B, N))
+    lead[:, :200] = True
+    for max_entries in (100, L):
+        cfg = flagship_config(max_entries=max_entries)
+        log_len = ri(0, L + 1, (B, N))
+        log_len[:, :100] = min(max_entries, L)
+        log_len[:, 100:200] = L - 1
+        lead_id = distinct_ids(400, 0.2)
+        out["propose"].append((cfg, seeds, 20, lead, ri(0, 50, (B, N)),
+                               ri(0, 50, (B, N, L)),
+                               ri(-2**31, 2**31 - 1, (B, N, L)), log_len,
+                               ri(0, 50, (B, N)), lead_id))
+
+    # KD: heartbeats from half the slots, snapshot terms and follower terms
+    # from a small alphabet, so that bumps, ties between slots, candidates
+    # stepping down with and without a bump all fire; log terms from a
+    # small alphabet, so that log-match checks pass often; prev = 0,
+    # full-log copies, prev past any log.
+    cfg = flagship_config()
+    lead_id = distinct_ids(N, 0.1)
+    s_term, term = ri(0, 4, (B, A)), ri(0, 4, (B, N))
+    role = ri(0, 3, (B, N))
+    s_next = ri(1, L + 2, (B, A, N), torch.uint8)
+    s_len = ri(0, L + 1, (B, A))
+    s_next[:, 0, :1000] = 1                      # prev = 0
+    s_len[:, 0] = L                              # full-log copies
+    s_next[:, 1, :1000] = 255                    # prev past any log
+    kd = (cfg, seeds, coin(0.5, (B, A, N)), lead_id, s_term, term, role,
+          ri(-1, N, (B, N)), ri(0, 9, (B, N)), ri(3, 10, (B, N)),
+          coin(0.3, (B, N)), ri(0, 3, (B, N, L)),
+          ri(-2**31, 2**31 - 1, (B, N, L)), ri(0, L + 1, (B, N)),
+          ri(0, 20, (B, N)), s_next, s_len, ri(0, L + 1, (B, A)),
+          ri(0, 3, (B, A, L)), ri(-2**31, 2**31 - 1, (B, A, L)))
+    got = rs.append_entries_plain(*clone_args(kd))
+    both = (role == 1) & (got[0] > term) & got[7]
+    require(int(both.sum()) > 0 and int(((role == 1) & (got[0] == term)
+                                         & got[7]).sum()) > 0,
+            "edge inputs: no candidate stepped down with and without a bump")
+    out["append_entries"].append(kd)
+
     # KH: tiny terms so that acked terms bump leaders (bump3); a third of
     # the leaders' log entries of their own term; match rows with values
     # above E; next at 0 and 1 under failed acks. Sweep 0 acks no slot 0
@@ -422,24 +527,60 @@ def edge_phase_inputs(dev, gen) -> dict:
     log_term[0, lid[0, 2], 58:60] = term[0, lid[0, 2]]
     commit = ri(0, 50, (B, N))
     commit[0, lid[0, 0]] = commit[0, lid[0, 2]] = 0
+    timer = ri(-3, 2**31 - 1, (B, N))
+    timer[:, :10] = 2**31 - 1                   # P4's add wraps
     kh = (seeds, lead_id, coin(0.9, (B, A)) & (lead_id >= 0),
           coin(0.9, (B, N, A)),
           coin(0.8, (B, N)), kstar, coin(0.7, (B, N)), ri(0, L + 1, (B, N)),
           log_term, term, role, ri(-1, N, (B, N)), ri(1, 9, (B, N)), commit,
-          lead_match, lead_next)
+          lead_match, lead_next, timer, coin(0.5, (B, N)))
     kh[2][0, [0, 2]] = True
     for max_entries in (100, L):
         out["acks_commit"].append((flagship_config(max_entries=max_entries),
                                    *kh))
+
+    # KK: 20 rounds in windows of 6, so that round 19 adds into the
+    # ragged last window; winners whose wait is <= 0, at 2^14 - 1, 2^14
+    # and past it (and one that wraps); leaders whose lag is <= 0 or
+    # >= 2^14; down nodes. Accumulators start nonzero. Round 0, and the
+    # recorder off.
+    cfg = flagship_config(n_rounds=20, telemetry_window=6)
+    cand_ids = distinct_ids(64, 0.2)
+    win = coin(0.6, (B, A))
+    timer_in = ri(-5, 40, (B, N))
+    timer_in[:, :8] = torch.tensor([-6, -1, 0, 2**14 - 2, 2**14 - 1, 2**14,
+                                    2**20, 2**31 - 1], dtype=torch.int32)
+    cand_ids[:, :3] = torch.randint(0, 8, (B, 3), generator=gen, device=dev,
+                                    dtype=torch.int32)
+    log_len = ri(0, 2**16, (B, N))
+    commit_in = ri(0, 100, (B, N))
+    t, (w, lat) = runner.accumulators(cfg, dev)
+    t += ri(0, 1000, t.shape)
+    w += ri(0, 1000, w.shape)
+    lat += ri(0, 1000, lat.shape)
+    kk = (cand_ids, win, timer_in, coin(0.5, (B, N)), coin(0.5, (B, N)),
+          commit_in, commit_in + ri(0, 3, (B, N)), ri(0, 3, (B, N)),
+          log_len, coin(0.1, (B, N)))
+    for r, acc in ((19, (t, w, lat)), (0, (t, w, lat)), (19, (t,))):
+        out["telemetry"].append((cfg, r, *kk, *acc))
     return out
 
 
-def acks_work(args) -> tuple[int, int]:
-    """(processing slots, acks they take) of KH's arguments ``args``: the
-    rows of [N] match bytes it must read, and the (slot, node) pairs whose
-    next byte it must read and whose two bytes it must write."""
-    (_, _, lead_id, was_lead_k, del_jl, has_l, kstar, _, _, _, term, role,
-     *_rest) = args
+def acks_work(args) -> dict:
+    """What KH must touch on its arguments ``args``: ``has_l`` and
+    ``delivered``, the nodes that ack a slot and those whose ack was
+    delivered (P3d reads their slot and the mask byte, and the term of the
+    delivered); ``rows``, the processing slots, whose [N] match bytes it
+    reads; ``acks`` and ``applied``, the delivered acks to a processing slot
+    and those of them applied (each reads its apply flag, an applied one
+    the new log length and writes match and next, another reads and
+    writes next); ``leaders`` and ``counting``, after the bump, the leaders
+    (P4 writes their timer) and the other nodes whose timer counts up (P4
+    reads and writes it)."""
+    from consensus_tpu_torch.engines import raft_sparse as rs
+    (_, _, lead_id, was_lead_k, del_jl, has_l, kstar, apply_, _, _, term,
+     role, *_rest) = args
+    reset = args[18]
     n = term.shape[1]
     lid = lead_id.clamp(0, n - 1).to(torch.int64)
     ackm = (torch.where(has_l, kstar, A)[:, :, None]
@@ -447,12 +588,78 @@ def acks_work(args) -> tuple[int, int]:
     t_in3 = torch.where(ackm, term[:, :, None], 0).amax(1)
     proc = was_lead_k & (role.gather(1, lid) == 2) \
         & ~(t_in3 > term.gather(1, lid))
-    return int(proc.sum()), int((ackm & proc[:, None, :]).sum())
+    acks = ackm & proc[:, None, :]
+    after = clone_args(args)
+    rs.acks_commit_plain(*after)
+    lead = after[11] == 2
+    return dict(has_l=int(has_l.sum()), delivered=int(ackm.sum()),
+                rows=int(proc.sum()), acks=int(acks.sum()),
+                applied=int((acks & apply_[:, :, None]).sum()),
+                leaders=int(lead.sum()), counting=int((~lead & ~reset).sum()))
+
+
+def phase_bound(name: str, args) -> tuple[float, str]:
+    """The least time of phase ``name``'s work on ``args`` (flagship
+    shapes): the bytes it must move and the 32-bit operations it must do
+    for these inputs."""
+    from consensus_tpu_torch.engines import raft_sparse as rs
+    nodes = B * N
+    if name == "candidacy":
+        moved = int(rs.candidacy_plain(*clone_args(args))[5].sum())
+        return bound(54 * nodes, 20 * nodes + THREEFRY_OPS * moved)
+    if name == "elect":
+        return bound((67 + 2 * (A - 8)) * nodes, 12 * A * nodes)
+    if name == "slots":
+        new_ids, lead_id = args[1], args[2]
+        carried = int(((new_ids[:, :, None] == lead_id[:, None, :])
+                       & (new_ids >= 0)[:, :, None]).any(2).sum())
+        return bound(2 * B * A * N + 2 * carried * N, 4 * B * A * N)
+    if name == "propose":
+        cfg, lead, log_len = args[0], args[3], args[7]
+        app = int((lead & (log_len < min(cfg.max_entries, L))).sum())
+        return bound(9 * nodes + 12 * app + B * A * (16 * L + 20),
+                     4 * nodes + THREEFRY_OPS * app)
+    if name == "append_entries":
+        term = args[5]
+        got = rs.append_entries_plain(*clone_args(args))
+        new_term, kstar, has_l, applied = got[0], got[6], got[7], got[8]
+        s_next, s_len = args[15], args[16]
+        k = kstar.to(torch.int64)
+        prev = s_next.gather(1, k[:, None, :])[:, 0].to(torch.int64) - 1
+        l_len = s_len.gather(1, k).to(torch.int64)
+        copied = torch.where(applied, (l_len - prev.clamp(min=0))
+                             .clamp(min=0), 0).sum()
+        bumped = int((new_term > term).sum())
+        return bound(nodes * (A + 29 + 35) + 5 * int(has_l.sum())
+                     + B * A * (8 * L + 12) + 8 * int(copied),
+                     (4 * A + 30) * nodes + THREEFRY_OPS * bumped)
+    if name == "acks_commit":
+        # P3d-P3e as acks_work counts them; P4 reads every role, the reset
+        # flag of each node that does not lead, and the timers it changes.
+        k = acks_work(args)
+        followers = nodes - k["leaders"]
+        p3 = (nodes + 5 * k["has_l"] + 4 * k["delivered"] + k["rows"] * N
+              + 3 * k["acks"] + 4 * k["applied"])
+        p4 = 4 * nodes + followers + 8 * k["counting"] + 4 * k["leaders"]
+        return bound(p3 + p4, 9 * nodes + 8 * k["rows"] * N)
+    # KK reads every apply flag and both commits, has_l where not applied,
+    # the winner flags; with the recorder also every role, the down flag
+    # of each leader and the log length of each live one, and each
+    # winner's id and round-entry timer.
+    (_, _, _, win, _, _, apply_, _, _, role, _, down) = args[:12]
+    n_apply = int(apply_.sum())
+    nbytes = 9 * nodes + (nodes - n_apply) + B * A
+    if len(args) == 15:                         # w and lat given
+        lead = role == 2
+        nbytes += (4 * nodes + int(lead.sum()) + 4 * int((lead & ~down).sum())
+                   + 8 * int(win.sum()))
+    return bound(nbytes, 10 * nodes)
 
 
 def check_phases(dev, gen, cfg) -> list[dict]:
-    """KE-KH against their plain versions on round 20 of the flagship and
-    on the built edge inputs; times on the flagship's inputs."""
+    """KD-KK against their plain versions on round 20 of the flagship (with
+    its telemetry on) and on the random and built edge inputs; times and
+    bounds on the flagship's inputs."""
     from consensus_tpu_torch.engines import raft_sparse as rs
     real = capture_phase_inputs(cfg, 20)
     edges = edge_phase_inputs(dev, gen)
@@ -461,104 +668,93 @@ def check_phases(dev, gen, cfg) -> list[dict]:
         err = max(max_abs_err(run_pair(name, args))
                   for args in [real[name], *edges[name]])
         args = real[name]
-        ka, pa = clone_args(args), clone_args(args)
         fn, plain = getattr(rs, name), getattr(rs, name + "_plain")
-        row = dict(name=name, route="cuda",
-                   source=f"consensus_tpu_torch/csrc/{name}.cu",
-                   max_abs_err=err,
-                   ms=device_ms(lambda: fn(*ka)),
-                   plain_ms=device_ms(lambda: plain(*pa)), library_ms=None)
-        nodes = B * N
-        if name == "candidacy":
-            moved = int(rs.candidacy_plain(*args)[5].sum())
-            row.update(replaces="consensus_tpu/engines/raft_sparse.py:236 "
-                                "raft_sparse_round P0-P1",
-                       bound=bound(54 * nodes, 20 * nodes
-                                   + THREEFRY_OPS * moved))
-        elif name == "elect":
-            row.update(replaces="consensus_tpu/engines/raft_sparse.py:255 "
-                                "raft_sparse_round P2",
-                       bound=bound((66 + 2 * (A - 8)) * nodes,
-                                   12 * A * nodes))
-        elif name == "slots":
-            new_ids, lead_id = args[1], args[2]
-            carried = int(((new_ids[:, :, None] == lead_id[:, None, :])
-                           & (new_ids >= 0)[:, :, None]).any(2).sum())
-            row.update(replaces="consensus_tpu/engines/raft_sparse.py:354 "
-                                "raft_sparse_round slot lifecycle",
-                       bound=bound(2 * B * A * N + 2 * carried * N,
-                                   4 * B * A * N))
-        else:
-            rows_, acks = acks_work(args)
-            lead_match = args[15]
+        library = None
+        if name == "acks_commit":
             rank = N - (N // 2 + 1) + 1
-            row.update(replaces="consensus_tpu/engines/raft_sparse.py:441 "
-                                "raft_sparse_round P3d-P3e",
-                       bound=bound(15 * nodes + rows_ * N + 3 * acks,
-                                   6 * nodes + 8 * rows_ * N),
-                       library_ms=device_ms(lambda: torch.kthvalue(
-                           lead_match, rank, dim=2)))
-        rows.append(row)
+            library = device_ms(lambda m: torch.kthvalue(m, rank, dim=2),
+                                (args[15],))
+        rows.append(dict(name=name, route="cuda",
+                         source=f"consensus_tpu_torch/csrc/{name}.cu",
+                         replaces=REPLACES[name], max_abs_err=err,
+                         ms=device_ms(fn, args),
+                         plain_ms=device_ms(plain, args),
+                         bound=phase_bound(name, args), library_ms=library))
     return rows
 
 
-# Kernel names of the hand-written kernels, as the profiler reports them.
-HAND_KERNELS = {"random_u32": ("random_u32_kernel",),
-                "delivery_edges": ("edges_src_kernel", "edges_dst_kernel"),
-                "top_active": ("top_partial_kernel", "top_merge_kernel"),
-                "append_entries": ("append_entries_kernel",),
-                "candidacy": ("candidacy_kernel",),
-                "elect": ("elect_nodes_kernel", "elect_winners_kernel"),
-                "slots": ("slots_kernel",),
-                "acks_commit": ("ack_term_kernel", "slot_bump_kernel",
-                                "match_next_kernel", "commit_kernel")}
+def hand_kernels() -> dict[str, tuple[str, ...]]:
+    """The ``__global__`` kernels of each source in ``_build.SOURCES``, by
+    wrapper name: the names the profiler reports for them."""
+    import re
+
+    from consensus_tpu_torch import _build
+    pattern = re.compile(
+        r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(")
+    return {name: tuple(pattern.findall(
+        (_build.CSRC / f"{name}.cu").read_text())) for name in _build.SOURCES}
 
 
-# The kernel wrappers the round calls. The round's code between two of them
-# (a gap) lies in one phase; the plain-torch glue lives only in the phases
-# marked "glue".
-MARKED = ("candidacy", "top_active", "delivery_edges", "elect", "slots",
-          "append_entries", "acks_commit")
+# The round's code between two kernel wrappers (a gap) lies in one phase;
+# none may run a PyTorch compute op on the card (only the zeroing fill_ of
+# fresh tensors is allowed), and only "init", before the first round, may
+# run any.
 GAPS = {(None, "candidacy"): "init",
         ("candidacy", "top_active"): "P2",
         ("top_active", "delivery_edges"): "P2",
         ("delivery_edges", "delivery_edges"): "P2",
         ("delivery_edges", "elect"): "P2",
-        ("elect", "top_active"): "leader mask (glue)",
+        ("elect", "top_active"): "leader mask",
         ("top_active", "slots"): "slot lifecycle",
-        ("slots", "delivery_edges"): "P3a-P3b (glue)",
-        ("delivery_edges", "append_entries"): "P3c (glue)",
+        ("slots", "propose"): "P3a-P3b",
+        ("propose", "delivery_edges"): "P3a-P3b",
+        ("delivery_edges", "append_entries"): "P3c",
         ("append_entries", "delivery_edges"): "P3c-P3d",
-        ("delivery_edges", "acks_commit"): "P3d-P3e",
-        ("acks_commit", "candidacy"): "P4 (glue)",
-        ("acks_commit", None): "P4 (glue)"}
-# Phases that must run no plain PyTorch op on the card.
-KERNEL_ONLY = ("P2", "slot lifecycle", "P3c-P3d", "P3d-P3e")
+        ("delivery_edges", "acks_commit"): "P3d-P4",
+        ("acks_commit", "telemetry"): "telemetry",
+        ("telemetry", "candidacy"): "between rounds",
+        ("acks_commit", "candidacy"): "between rounds",
+        ("telemetry", None): "after the last round",
+        ("acks_commit", None): "after the last round"}
+ZEROING = ("aten::fill_", "aten::zero_")
 
 
-def plain_ops_by_phase(cfg, device="cuda") -> dict:
-    """One run of ``cfg`` under torch.profiler with each kernel wrapper of
-    the round in a named range: {place: {aten op: ms}} for every aten op
-    that took time on the device (on the CPU: host time), where place is
-    "in <wrapper>" or the phase of the round's code between two wrappers,
-    found by the host order of the calls."""
+def plain_ops_by_phase(cfg, device="cuda", telemetry=False) -> dict:
+    """One eager run of ``cfg`` under torch.profiler with each kernel
+    wrapper of the round in a named range: {place: {aten op: ms}} for every
+    aten op that took time on the device (on the CPU: host time), where
+    place is "in <wrapper>" or the phase of the round's code between two
+    wrappers, found by the host order of the calls."""
     import bisect
 
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import (ProfilerActivity, profile, record_function,
+                                schedule)
 
     from consensus_tpu_torch.network import runner
     on_cpu = torch.device(device).type == "cpu"
+    # Every wrapper but KA's, which the round calls only through init.
+    marked_names = [name for _, name in runner.KERNELS
+                    if name != "random_u32"]
 
     def marked(name, fn):
         def call(*args):
             with record_function(f"wrapper::{name}"):
                 return fn(*args)
         return call
-    with standing_in(MARKED, marked), profile(
-            activities=[ProfilerActivity.CPU] if on_cpu else
-            [ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        runner.run_device(cfg, device)
+
+    def session():
+        with standing_in(marked_names, marked), profile(
+                activities=[ProfilerActivity.CPU] if on_cpu else
+                [ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+            # The profiler records from its second step on.
+            runner.run_device(cfg, device, telemetry=telemetry, graph=False)
+            prof.step()
+            runner.run_device(cfg, device, telemetry=telemetry, graph=False)
+        return prof
+    # Without device records every place would look free of compute ops.
+    prof = session() if on_cpu else profiled(session, "the eager run")[0]
     events = prof.events()
     # Host ranges only: the profiler also puts each range on the device
     # timeline, where it spans the kernels' later execution.
@@ -583,49 +779,182 @@ def plain_ops_by_phase(cfg, device="cuda") -> dict:
     return out
 
 
-def profile_run(cfg) -> dict:
-    """Device time of one flagship run, from torch.profiler: by hand kernel,
-    by the PyTorch op that launched the rest, and as a share of the wall
-    time of the same run unprofiled."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def profile_replay(cfg) -> dict:
+    """The flagship's graph replay: wall time of one replay up to the
+    device's end (host clock, best of five), and one more replay under
+    torch.profiler (after a warm-up step of the profiler, which misses the
+    first launches of its first step): its device time by hand kernel, its
+    device operations, and its busy share, device time over the same
+    replay's wall."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     from consensus_tpu_torch.network import runner
-    t0 = time.perf_counter()
-    runner.run_device(cfg)
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    runner.run_device(cfg)                      # the graph is captured
+    walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
         runner.run_device(cfg)
-    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    require(device, "the profiler saw no device activity")
+        walls.append((time.perf_counter() - t0) * 1e3)
+    profiled_walls = []
+
+    def session():
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+            runner.run_device(cfg)
+            prof.step()                         # the recorded step begins
+            t0 = time.perf_counter()
+            runner.run_device(cfg)
+            profiled_walls.append((time.perf_counter() - t0) * 1e3)
+        return prof
+    _, device = profiled(session, "the replay", graph=True)
+    profiled_ms = profiled_walls[-1]
     busy_ms = sum(e.time_range.elapsed_us() for e in device) / 1e3
     hand = {k: sum(e.time_range.elapsed_us() for e in device
                    if any(p in e.name for p in pats)) / 1e3
-            for k, pats in HAND_KERNELS.items()}
-    ops = sorted(((e.self_device_time_total / 1e3, e.key)
-                  for e in prof.key_averages()
-                  if e.key.startswith("aten::")
-                  and e.self_device_time_total > 0), reverse=True)
-    hand_ms = sum(hand.values())
-    return dict(wall_ms=wall_ms, device_ms=busy_ms,
-                busy_share=busy_ms / wall_ms, device_launches=len(device),
+            for k, pats in hand_kernels().items()}
+    return dict(replay_wall_ms=walls, profiled_wall_ms=profiled_ms,
+                device_ms=busy_ms, busy_share=busy_ms / profiled_ms,
+                device_launches=len(device),
                 launches_per_round=len(device) / cfg.n_rounds,
-                hand_kernel_ms=hand, hand_share=hand_ms / busy_ms,
-                plain_op_ms=sum(t for t, _ in ops),
-                plain_ops=[[k, t] for t, k in ops],
-                plain_ops_by_phase=plain_ops_by_phase(cfg))
+                hand_kernel_ms=hand,
+                hand_share=sum(hand.values()) / busy_ms)
+
+
+def memory_use(run) -> dict:
+    """``run()``'s result, and the device memory its first call of a config
+    takes: the peak above what was allocated before (the eager warm-up
+    round, the capture, the replays), and what stays allocated after it
+    (the cached graph's pool: its state and outputs). The graphs cached
+    before are dropped first."""
+    from consensus_tpu_torch.network import runner
+    runner.clear_graphs()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    result = run()
+    return dict(result=result,
+                peak_bytes=torch.cuda.max_memory_allocated() - before,
+                graph_bytes=torch.cuda.memory_allocated() - before,
+                max_memory_allocated=torch.cuda.max_memory_allocated())
+
+
+def check_seed_sharing(cfg) -> None:
+    """Phase 4, continued: a run of ``cfg`` with another seed replays the
+    captured graph with its own seeds and equals the eager loop's run;
+    ``cfg``'s own seed then gives the flagship digest again."""
+    from consensus_tpu_torch.core import serialize
+    from consensus_tpu_torch.network import runner, simulator
+    other = dataclasses.replace(cfg, seed=cfg.seed + 1)
+    captured = runner.captures
+    replayed = simulator.run(other).digest
+    eager = serialize.digest(simulator.decided_payload(
+        other, runner.run(other, graph=False))[3])
+    again = simulator.run(cfg).digest
+    emit("seed_sharing", seed=other.seed, digest=replayed,
+         eager_digest=eager, new_captures=runner.captures - captured,
+         flagship_digest_again=again)
+    require(runner.captures == captured,
+            "a run with another seed captured a graph of its own")
+    require(replayed == eager and replayed != FLAGSHIP_DIGEST,
+            "the replay with another seed disagrees with the eager loop")
+    require(again == FLAGSHIP_DIGEST,
+            "the flagship seed after another seed changed its digest")
+
+
+# --- phase 5: telemetry --------------------------------------------------------
+
+# The telemetry phase's anchor: the counters and flight recorder of
+# raft-100k cut to N = 10 000 (the full shape is not run on a CPU), with
+# telemetry and 8-round windows, made from the JAX package on the CPU by
+#
+#   JAX_PLATFORMS=cpu python3 - <<'EOF'
+#   import json, chip_smoke
+#   from consensus_tpu import Config
+#   from consensus_tpu.network import simulator
+#   res = simulator.run(Config(**chip_smoke.ANCHOR_CONFIG), warmup=False,
+#                       telemetry=True)
+#   print(json.dumps([res.digest, res.extras["telemetry"]["totals"],
+#                     chip_smoke.flight_digest(res.extras["flight"])]))
+#   EOF
+ANCHOR_CONFIG = dict(protocol="raft", n_nodes=10_000, n_rounds=64,
+                     n_sweeps=B, log_capacity=L, max_entries=100,
+                     max_active=A, seed=6, drop_rate=0.01, churn_rate=0.001,
+                     telemetry_window=WINDOW)
+ANCHOR_DIGEST = \
+    "0703855a0d71caeff1dd9aa885f98374ccb29cb7c9ec5011ac40659ccdca7073"
+ANCHOR_TOTALS = {"leader_elections": 10, "append_accepted": 4771215,
+                 "append_rejected": 222, "entries_committed": 4739189,
+                 "attack_rounds": 0, "crashes": 0, "recoveries": 0,
+                 "nodes_down": 0, "agg_down_rounds": 0, "stale_serves": 0,
+                 "poisoned_serves": 0}
+ANCHOR_FLIGHT = \
+    "7d7a2d69d8455a34313b22e0423c75366a97a26ec56a3c27b15b761c10f676d8"
+
+
+def flight_digest(flight) -> str:
+    """SHA-256 of a flight recorder's window and latency arrays, by name,
+    as little-endian int64 in the dicts' order."""
+    h = hashlib.sha256()
+    for part in ("windows", "latency"):
+        for name, a in flight[part].items():
+            h.update(name.encode())
+            h.update(np.ascontiguousarray(a, dtype="<i8").tobytes())
+    return h.hexdigest()
+
+
+def check_telemetry(card: str, smi: str) -> int:
+    """Phase 5. Returns kernel KK's launches in the telemetry run."""
+    from consensus_tpu_torch.core.config import Config
+    from consensus_tpu_torch.network import runner, simulator
+    cfg = flagship_config(telemetry_window=WINDOW)
+    for mod, name in runner.KERNELS:
+        getattr(mod, name).launches = 0
+    res = simulator.run(cfg, telemetry=True)
+    launches = runner.launch_counts()
+    tel, fl = res.extras["telemetry"], res.extras["flight"]
+    per = tel["per_sweep"]
+    windows_sum = all(np.array_equal(fl["windows"][k].sum(1), per[k])
+                      for k in per)
+    waits = np.array_equal(fl["latency"]["election_wait_rounds"].sum(1),
+                           per["leader_elections"])
+    # The eager loop on the same config, against the graph's replay.
+    eager = runner.run_device(cfg, telemetry=True, graph=False)
+    eager_stats = runner.telemetry_stats(cfg, eager)
+    same = flight_digest(eager_stats["flight"]) == flight_digest(fl) and all(
+        np.array_equal(eager_stats["telemetry"][k], per[k]) for k in per)
+    anchor = simulator.run(Config(**ANCHOR_CONFIG), telemetry=True)
+    anchor_flight = flight_digest(anchor.extras["flight"])
+    anchor_totals = anchor.extras["telemetry"]["totals"]
+    emit("telemetry", digest=res.digest, totals=tel["totals"],
+         flight_sha256=flight_digest(fl), windows_sum_to_totals=windows_sum,
+         waits_equal_elections=waits, graph_equals_eager=same,
+         launches=launches, steps_per_sec=res.steps_per_sec,
+         wall_s=res.wall_s, anchor_digest=anchor.digest,
+         anchor_totals=anchor_totals, anchor_flight_sha256=anchor_flight,
+         card=card, power=smi)
+    require(res.digest == FLAGSHIP_DIGEST,
+            f"telemetry changed the digest: {res.digest}")
+    require(windows_sum, "the windows do not sum to the totals")
+    require(waits, "election waits and leader elections disagree")
+    require(same, "graph replay and eager loop disagree")
+    for name, n in launches.items():
+        require(n > 0, f"kernel {name} was not launched with telemetry on")
+    require(anchor.digest == ANCHOR_DIGEST and anchor_totals == ANCHOR_TOTALS
+            and anchor_flight == ANCHOR_FLIGHT,
+            "the N = 10 000 telemetry run disagrees with its JAX anchor")
+    return launches["telemetry"]
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    # Keep CUPTI set up between profiler sessions: tearing it down and
+    # setting it up again, with CUDA graphs in the process, loses device
+    # records (PyTorch sets the same for its own CUDA-graph profiling).
+    os.environ["TEARDOWN_CUPTI"] = "0"
     from consensus_tpu_torch import _build
-    from consensus_tpu_torch.core import rng
-    from consensus_tpu_torch.engines import raft_sparse as rs
-    from consensus_tpu_torch.network import simulator
-    from consensus_tpu_torch.ops import adversary
+    from consensus_tpu_torch.network import runner, simulator
 
     # 1. device
     card = torch.cuda.get_device_name(0)
@@ -646,53 +975,62 @@ def main() -> int:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(6)
-    wrappers = {"random_u32": rng.random_u32,
-                "delivery_edges": adversary.delivery_edges,
-                "top_active": rs.top_active,
-                "append_entries": rs.append_entries,
-                **{name: getattr(rs, name) for name in PHASES}}
     cfg = flagship_config()
     kernels = [check_random_u32(dev, gen), check_delivery_edges(dev, gen),
-               check_top_active(dev, gen), check_append_entries(dev, gen),
-               *check_phases(dev, gen, cfg)]
+               check_top_active(dev, gen),
+               *check_phases(dev, gen, flagship_config(
+                   telemetry_window=WINDOW))]
     torch.cuda.synchronize()
+    require(sorted(k["name"] for k in kernels) == sorted(_build.SOURCES),
+            "phase 3 does not check every kernel of csrc")
     for k in kernels:
         k["bound_ms"], k["bound_by"] = k.pop("bound")
         emit("kernel", **k)
         require(k["max_abs_err"] == 0.0,
                 f"{k['name']} disagrees with its plain version")
 
-    # 4. flagship: the main path, counted from zero.
-    for w in wrappers.values():
-        w.launches = 0
-    res = simulator.run(cfg)
-    launches = {name: w.launches for name, w in wrappers.items()}
+    # 4. flagship: the main path, counted from zero, replayed as a graph.
+    for mod, name in runner.KERNELS:
+        getattr(mod, name).launches = 0
+    memory = memory_use(lambda: simulator.run(cfg))
+    res = memory.pop("result")
+    launches = runner.launch_counts()
     require(res.counts.shape == (B, N) and res.rec_a.shape == (B, N, L),
             "decided logs of the wrong shape")
     emit("flagship", digest=res.digest, digest_ok=res.digest == FLAGSHIP_DIGEST,
          steps_per_sec=res.steps_per_sec, wall_s=res.wall_s,
-         max_commit=int(res.counts.max()), launches=launches, card=card,
-         power=smi)
+         max_commit=int(res.counts.max()), launches=launches, **memory,
+         card=card, power=smi)
     require(res.digest == FLAGSHIP_DIGEST,
             f"flagship digest {res.digest} != {FLAGSHIP_DIGEST}")
     for name, n in launches.items():
-        require(n > 0, f"kernel {name} was not launched on the main path")
+        require((n > 0) == (name != "telemetry"),
+                f"kernel {name}: {n} launches on the main path")
+    check_seed_sharing(cfg)
+
+    # 5. telemetry and the flight recorder.
+    launches["telemetry"] = check_telemetry(card, smi)
     for k in kernels:
         k["launches"] = launches[k["name"]]
 
-    # 5. bench.py's shape.
-    bench = simulator.run(flagship_config(max_entries=L - 16, seed=42))
+    # 6. bench.py's shape.
+    bench_cfg = flagship_config(max_entries=L - 16, seed=42)
+    memory = memory_use(lambda: simulator.run(bench_cfg))
+    bench = memory.pop("result")
     emit("bench", steps_per_sec=bench.steps_per_sec, wall_s=bench.wall_s,
-         max_commit=int(bench.counts.max()), digest=bench.digest, card=card,
-         power=smi)
+         max_commit=int(bench.counts.max()), digest=bench.digest, **memory,
+         **profile_replay(bench_cfg), card=card, power=smi)
     require(int(bench.counts.max()) > 0, "bench shape committed nothing")
 
-    # 6. where the flagship's device time goes.
-    prof = profile_run(cfg)
-    emit("profile", card=card, power=smi, **prof)
-    for place, found in prof["plain_ops_by_phase"].items():
-        require(not (place.startswith("in ") or place in KERNEL_ONLY),
-                f"plain PyTorch ops on the device in {place}: {found}")
+    # 7. where the flagship's device time goes, and what runs in each phase.
+    prof = profile_replay(cfg)
+    by_phase = plain_ops_by_phase(flagship_config(telemetry_window=WINDOW),
+                                  telemetry=True)
+    emit("profile", card=card, power=smi, **prof,
+         plain_ops_by_phase=by_phase, profiler_sessions_redone=REDONE)
+    for place, found in by_phase.items():
+        require(place == "init" or set(found) <= set(ZEROING),
+                f"PyTorch compute ops on the device in {place}: {found}")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

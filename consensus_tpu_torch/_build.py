@@ -23,7 +23,8 @@ import time
 import torch
 
 SOURCES = ("random_u32", "delivery_edges", "top_active", "append_entries",
-           "candidacy", "elect", "slots", "acks_commit")
+           "candidacy", "elect", "slots", "acks_commit", "propose",
+           "telemetry")
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "build" / \
@@ -43,25 +44,36 @@ SIGNATURES = {
     "delivery_edges": (_P, _U, _P, _P, _I, _I, _I, _U, _U, _I),
     # mask, term, partial scratch, out, B, N, A, blocks per sweep
     "top_active": (_P, _P, _P, _P, _I, _I, _I, _I),
-    # log_term, log_val, log_len, commit, kstar, has_l, s_next, s_len,
-    # s_commit, s_logt, s_logv, apply, log_len_out, commit_out, B, N, A, L
-    "append_entries": (_P,) * 14 + (_I, _I, _I, _I),
+    # seed, t_min, t_span; del_lj, lead_id, s_term, term, role, voted_for,
+    # timer, timeout, reset, log_term, log_val (in place), log_len, commit,
+    # s_next, s_len, s_commit, s_logt, s_logv; term, role, voted_for,
+    # timer, timeout, reset, kstar, has_l, apply, log_len, commit outputs;
+    # B, N, A, L
+    "append_entries": (_P, _I, _U) + (_P,) * 29 + (_I,) * 4,
     # seed, round, churn_cut, t_min, t_span; term, role, voted_for, timer,
     # timeout, log_term, log_len; term, role, voted_for, timer, timeout,
     # reset, own_lterm, cand_mask outputs; B, N, L
     "candidacy": (_P, _U, _U, _I, _U) + (_P,) * 15 + (_I, _I, _I),
     # seed, t_min, t_span; cand_ids, del_cj, del_jc, term, role, voted_for,
     # timer, timeout, reset, log_len, own_lterm; term, role, voted_for,
-    # timer, timeout, reset outputs, votes scratch; B, N, A
-    "elect": (_P, _I, _U) + (_P,) * 18 + (_I, _I, _I),
+    # timer, timeout, reset, lead, win outputs, votes scratch; B, N, A
+    "elect": (_P, _I, _U) + (_P,) * 20 + (_I, _I, _I),
     # new_ids, lead_id, lead_match, lead_next, role, log_len, lead_match
     # and lead_next outputs; B, N, A, E
     "slots": (_P,) * 8 + (_I, _I, _I, _I),
     # seed, t_min, t_span; lead_id, was_lead_k, del_jl, has_l, kstar,
     # apply, log_len, log_term; term, role, voted_for, timeout, commit,
-    # lead_match, lead_next (in place); t_in3, proc, hist scratch;
-    # B, N, A, L, E
-    "acks_commit": (_P, _I, _U) + (_P,) * 18 + (_I,) * 5,
+    # lead_match, lead_next, timer (in place), reset; t_in3, proc, hist
+    # scratch; B, N, A, L, E
+    "acks_commit": (_P, _I, _U) + (_P,) * 20 + (_I,) * 5,
+    # seed, round, lead, term, log_term, log_val (in place), log_len,
+    # commit, lead_id; log_len, was_lead_k, hb_ids, s_term, s_len,
+    # s_commit, s_logt, s_logv outputs; B, N, A, L, E
+    "propose": (_P, _U) + (_P,) * 15 + (_I,) * 5,
+    # cand_ids, win, timer at round entry, has_l, apply, commit at round
+    # entry, commit, role, log_len, down; t, w, lat accumulators (w and
+    # lat null with the recorder off); B, N, A, K, window, n_windows
+    "telemetry": (_P,) * 13 + (_I,) * 6,
 }
 
 

@@ -4,7 +4,8 @@ The simulator has no weights; its state plays their part. A batched JAX
 carry of the capped engine (``RaftSparseState`` with [B, ...] leaves, as
 ``numpy`` arrays) becomes the port's :class:`RaftSparseState` and back, with
 every dtype kept: uint32 seed, int32 protocol state, uint8 match/next and
-bool down.
+bool down. The scan's telemetry accumulators (``telem``, ``win``, ``lat``
+of ``_chunk_jit``, int32) carry across the same way.
 """
 from __future__ import annotations
 
@@ -34,3 +35,30 @@ def state_to_numpy(st: RaftSparseState) -> dict[str, np.ndarray]:
     """A dict of batched numpy leaves, in the JAX carry's dtypes."""
     return {name: getattr(st, name).cpu().numpy()
             for name in RaftSparseState._fields}
+
+
+def accumulators_from_numpy(telem, win=None, lat=None, device="cpu"):
+    """The port's accumulators from the JAX scan's int32 ``telem`` [B, K]
+    and, for the flight recorder, ``win`` [B, n_windows, K] and ``lat``
+    [B, H, N_BUCKETS]: returns ``(telem, flight)`` as
+    :func:`raft_sparse_round` takes them (``flight`` None without
+    ``win``)."""
+    out = []
+    for name, a in (("telem", telem), ("win", win), ("lat", lat)):
+        if a is None:
+            out.append(None)
+            continue
+        a = np.ascontiguousarray(a)
+        if a.dtype != np.int32:
+            raise TypeError(f"{name}: expected int32, got {a.dtype}")
+        out.append(torch.from_numpy(a.copy()).to(device))
+    if (out[1] is None) != (out[2] is None):
+        raise ValueError("the flight recorder takes win and lat together")
+    return out[0], None if out[1] is None else (out[1], out[2])
+
+
+def accumulators_to_numpy(telem, flight=None) -> tuple:
+    """``(telem, win, lat)`` as numpy int32 arrays (None where absent)."""
+    win, lat = flight if flight is not None else (None, None)
+    return tuple(None if t is None else t.cpu().numpy()
+                 for t in (telem, win, lat))

@@ -21,7 +21,6 @@ UNSUPPORTED = {
     "net_model": "flat", "n_aggregators": 0,
     "n_byzantine": 0, "byz_mode": "silent",
     "desync_rate": 0.0,
-    "telemetry_window": 0,
     "scan_chunk": 0, "sweep_chunk": 0,
     "mesh_shape": (),
 }
@@ -90,6 +89,9 @@ class Config:
         if self.log_capacity > MAX_LOG_CAPACITY:
             raise ValueError(f"log_capacity must be <= {MAX_LOG_CAPACITY} "
                              "(uint8 replication bookkeeping)")
+        if self.telemetry_window < 0:
+            raise ValueError("telemetry_window must be >= 0 (0 = flight "
+                             "recorder off)")
         if self.n_nodes >= 2**31 - 1:
             raise ValueError("n_nodes must fit int32 ids")
         off = [k for k, d in UNSUPPORTED.items() if getattr(self, k) != d]

@@ -1,21 +1,28 @@
 // Kernel KH: SPEC §3 P3d, the tracked leaders' processing of their
-// followers' acks, and P3e, the majority commit, updating the round's state
-// in place.
+// followers' acks, P3e, the majority commit, and P4, the timers, updating
+// the round's state in place.
 //
 // Replaces: consensus_tpu/engines/raft_sparse.py raft_sparse_round P3d
 // (lines 441-468: the ack-term maximum per slot, the leader's term bump,
 // the u8 match/next update) and P3e (lines 470-489: the majority-th largest
 // match of each tracked row by a fixed-depth binary search over [0, E],
 // which makes log2(E) + 1 count passes over the [A, N] rows, then the
-// commit advance when that entry is of the leader's term).
+// commit advance when that entry is of the leader's term) and P4 (line
+// 492: leaders hold their timer at 0, other nodes count it up unless the
+// round reset it).
 //
-// Bound: bytes. Per node it reads its ack flag, slot, term, apply flag and
-// new log length and one byte of the ack mask (15 bytes); per (processing
-// slot, node) it reads the match byte, and per ack it also reads the next
-// byte and writes both. At the flagship shape (B = 8, A = 8, N = 100 000)
-// with every slot processing that is at most 12 MB + 6.4 MB + acks, about
-// 6 us at 3.35 TB/s. The binary search's passes become one histogram.
-// Design: four launches on the stream.
+// Bound: bytes. Per node it reads its ack flag; per acking node its slot
+// and one byte of the ack mask, and per delivered ack the node's term;
+// per (processing slot, node) the match byte; per ack to a processing
+// slot the apply flag, and either the new log length and a write of match
+// and next, or a read and a write of next. At the flagship shape (B = 8,
+// A = 8, N = 100 000) with every slot processing and every node acking,
+// that is at most 12 MB + 6.4 MB + acks, about 6 us at 3.35 TB/s. The
+// binary search's passes become one histogram. P4 reads every role, the
+// reset flag of each node that does not lead, and reads and writes the
+// timers that count (not reset) and writes the leaders': 5 to 13 bytes a
+// node.
+// Design: five launches on the stream.
 //  1. A thread per node: the slot it acks, if the ack was delivered, takes
 //     the node's term into a block-partial maximum in shared memory, then
 //     one global atomicMax per (block, slot).
@@ -32,6 +39,7 @@
 //     (entries >= m, values above E included) reaches the majority; that is
 //     what the binary search over [0, E + 1) returns. Then the commit
 //     advance, against the post-P3c log and the post-bump term.
+//  5. A thread per node: P4, after launch 2 has settled every role.
 #include <cuda_runtime.h>
 
 #include "rng.cuh"
@@ -184,6 +192,20 @@ __global__ void commit_kernel(const int32_t* __restrict__ lead_id,
     commit[row] = med;
 }
 
+// Launch 5. Grid (ceil(B * N / THREADS)).
+__global__ void __launch_bounds__(THREADS)
+timers_kernel(const int32_t* __restrict__ role,
+              const bool* __restrict__ reset, int32_t* __restrict__ timer,
+              long long rows) {
+  const long long row =
+      static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
+  if (row >= rows) return;
+  if (role[row] == ROLE_L)
+    timer[row] = 0;
+  else if (!reset[row])  // wraps as the plain version's i32 add
+    timer[row] = static_cast<int32_t>(static_cast<uint32_t>(timer[row]) + 1u);
+}
+
 }  // namespace
 
 extern "C" int ctt_acks_commit(
@@ -192,8 +214,9 @@ extern "C" int ctt_acks_commit(
     const bool* has_l, const int32_t* kstar, const bool* apply_,
     const int32_t* log_len, const int32_t* log_term, int32_t* term,
     int32_t* role, int32_t* voted_for, int32_t* timeout, int32_t* commit,
-    uint8_t* lead_match, uint8_t* lead_next, int* t_in3, int* proc,
-    unsigned* hist, int B, int N, int A, int L, int E, cudaStream_t st) {
+    uint8_t* lead_match, uint8_t* lead_next, int32_t* timer,
+    const bool* reset, int* t_in3, int* proc, unsigned* hist, int B, int N,
+    int A, int L, int E, cudaStream_t st) {
   if (A < 1 || A > MAXA || t_span == 0u || E < 0 || E >= BINS)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || N == 0) return 0;
@@ -217,5 +240,9 @@ extern "C" int ctt_acks_commit(
   if ((err = static_cast<int>(cudaGetLastError())) != 0) return err;
   commit_kernel<<<small, 128, 0, st>>>(lead_id, proc, hist, log_term, term,
                                        commit, B, N, A, L, E);
+  if ((err = static_cast<int>(cudaGetLastError())) != 0) return err;
+  const long long rows = static_cast<long long>(B) * N;
+  timers_kernel<<<static_cast<unsigned>((rows + THREADS - 1) / THREADS),
+                  THREADS, 0, st>>>(role, reset, timer, rows);
   return static_cast<int>(cudaGetLastError());
 }

@@ -7,11 +7,14 @@
 // term), P2b grants (re-grant to voted_for if eligible, else the least
 // eligible candidate id), P2c the tally of delivered grants per candidate
 // and the winners' promotion to leader. The request and response masks
-// [B, A, N] and [B, N, A] come from kernel KB.
+// [B, A, N] and [B, N, A] come from kernel KB. It also writes the
+// role == leader mask that kernel KC ranks and kernel KI reads (the JAX
+// round's `lead`, line 378) and the [B, A] winner flags that kernel KK
+// counts (`win`, line 348), so neither costs a launch of its own.
 //
 // Bound: bytes. Per node it reads seven i32 words, one flag and A bytes of
-// each mask, and writes five i32 words and one flag: 66 bytes at A = 8,
-// 53 MB at the flagship shape (B = 8, N = 100 000), about 16 us at
+// each mask, and writes five i32 words and two flags: 67 bytes at A = 8,
+// 54 MB at the flagship shape (B = 8, N = 100 000), about 16 us at
 // 3.35 TB/s. The vote tally is one shared-memory atomic per granting node
 // and at most A global atomics per block.
 // Design: two launches. Launch 1, a thread per node on a (node, sweep)
@@ -22,7 +25,7 @@
 // blocks already bump terms. Integer atomics make the tally independent of
 // order. Launch 2, a thread per (sweep, candidate): a valid candidate that
 // is still a candidate after P2a (read from the outputs) and holds a
-// majority becomes leader.
+// majority becomes leader; every slot writes its winner flag.
 #include <cuda_runtime.h>
 
 #include "rng.cuh"
@@ -51,7 +54,8 @@ elect_nodes_kernel(const uint32_t* __restrict__ seed, int32_t t_min,
                    int32_t* __restrict__ vf_out,
                    int32_t* __restrict__ timer_out,
                    int32_t* __restrict__ timeout_out,
-                   bool* __restrict__ reset_out, int* __restrict__ votes,
+                   bool* __restrict__ reset_out,
+                   bool* __restrict__ lead_out, int* __restrict__ votes,
                    int N, int A) {
   __shared__ int32_t s_id[MAXA], s_cid[MAXA], s_rterm[MAXA], s_rlidx[MAXA],
       s_rlterm[MAXA];
@@ -123,6 +127,7 @@ elect_nodes_kernel(const uint32_t* __restrict__ seed, int32_t t_min,
     timer_out[row] = tmr;
     timeout_out[row] = to;
     reset_out[row] = rs;
+    lead_out[row] = rl == ROLE_L;
   }
   __syncthreads();
   if (threadIdx.x < A && s_votes[threadIdx.x] != 0)
@@ -135,19 +140,26 @@ __global__ void elect_winners_kernel(const int32_t* __restrict__ cand_ids,
                                      const int* __restrict__ votes,
                                      int32_t* __restrict__ role_out,
                                      int32_t* __restrict__ timer_out,
-                                     bool* __restrict__ reset_out, int B,
-                                     int N, int A) {
+                                     bool* __restrict__ reset_out,
+                                     bool* __restrict__ lead_out,
+                                     bool* __restrict__ win, int B, int N,
+                                     int A) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= B * A) return;
   const int32_t id = cand_ids[i];
-  if (id < 0) return;
-  const int majority = N / 2 + 1;
-  const long long row = static_cast<long long>(i / A) * N + min(id, N - 1);
-  if (role_out[row] == ROLE_C && 1 + votes[i] >= majority) {
-    role_out[row] = ROLE_L;
-    timer_out[row] = 0;
-    reset_out[row] = true;
+  bool won = false;
+  if (id >= 0) {
+    const int majority = N / 2 + 1;
+    const long long row = static_cast<long long>(i / A) * N + min(id, N - 1);
+    if (role_out[row] == ROLE_C && 1 + votes[i] >= majority) {
+      role_out[row] = ROLE_L;
+      timer_out[row] = 0;
+      reset_out[row] = true;
+      lead_out[row] = true;
+      won = true;
+    }
   }
+  win[i] = won;
 }
 
 }  // namespace
@@ -161,8 +173,8 @@ extern "C" int ctt_elect(const uint32_t* seed, int32_t t_min, uint32_t t_span,
                          const int32_t* own_lterm, int32_t* term_out,
                          int32_t* role_out, int32_t* vf_out,
                          int32_t* timer_out, int32_t* timeout_out,
-                         bool* reset_out, int* votes, int B, int N, int A,
-                         cudaStream_t st) {
+                         bool* reset_out, bool* lead_out, bool* win,
+                         int* votes, int B, int N, int A, cudaStream_t st) {
   if (A < 1 || A > MAXA || t_span == 0u)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || N == 0) return 0;
@@ -173,10 +185,11 @@ extern "C" int ctt_elect(const uint32_t* seed, int32_t t_min, uint32_t t_span,
   elect_nodes_kernel<<<grid, THREADS, 0, st>>>(
       seed, t_min, t_span, cand_ids, del_cj, del_jc, term, role, voted_for,
       timer, timeout, reset, log_len, own_lterm, term_out, role_out, vf_out,
-      timer_out, timeout_out, reset_out, votes, N, A);
+      timer_out, timeout_out, reset_out, lead_out, votes, N, A);
   err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
   elect_winners_kernel<<<(B * A + 127) / 128, 128, 0, st>>>(
-      cand_ids, votes, role_out, timer_out, reset_out, B, N, A);
+      cand_ids, votes, role_out, timer_out, reset_out, lead_out, win, B, N,
+      A);
   return static_cast<int>(cudaGetLastError());
 }

@@ -13,6 +13,19 @@ from ..core import rng
 ROLE_F, ROLE_C, ROLE_L = 0, 1, 2
 NONE = -1
 
+# The capped engine's telemetry counters, in order: a copy of
+# consensus_tpu/engines/raft.py RAFT_TELEMETRY with its tails
+# ops/adversary.py CRASH_TELEMETRY and ops/aggregate.py AGG_TELEMETRY
+# (zeros here: the port rejects the crash and switch gates).
+RAFT_TELEMETRY = ("leader_elections", "append_accepted", "append_rejected",
+                  "entries_committed", "attack_rounds",
+                  "crashes", "recoveries", "nodes_down",
+                  "agg_down_rounds", "stale_serves", "poisoned_serves")
+# The flight recorder's latency histograms (engines/raft.py RAFT_LATENCY):
+# each winner's round-entry timer + 1, and each live leader's
+# log_len - commit, per round.
+RAFT_LATENCY = ("election_wait_rounds", "commit_lag_rounds")
+
 
 def draw_timeout(seed, t_min: int, t_max: int, term, idx,
                  u32=rng.random_u32) -> torch.Tensor:

@@ -1,13 +1,14 @@
 """Large-population Raft under the SPEC §3b active-sender cap, in PyTorch.
 
 The port of ``consensus_tpu/engines/raft_sparse.py`` on its flat path (no
-crash, attack, byzantine, switch or telemetry gates). Per round only the
-top-A candidates and the top-A leaders by (term desc, id asc) send, and
-leader replication state lives in A tracked slots of [A, N] rows, so a round
-is O(A*N) plus one pass over the rows of the [N, L] logs that a heartbeat
-reaches. Sweeps are a leading batch axis B on every tensor.
+crash, attack, byzantine or switch gates), with its telemetry and flight
+recorder. Per round only the top-A candidates and the top-A leaders by
+(term desc, id asc) send, and leader replication state lives in A tracked
+slots of [A, N] rows, so a round is O(A*N) plus one pass over the rows of
+the [N, L] logs that a heartbeat reaches. Sweeps are a leading batch axis B
+on every tensor.
 
-Six functions here are wrappers of hand-written CUDA kernels, each beside
+Eight functions here are wrappers of hand-written CUDA kernels, each beside
 its plain PyTorch version (``<name>_plain``), which CPU tensors run:
 
 * :func:`candidacy` — kernel KE (``csrc/candidacy.cu``): P0 churn, P1
@@ -15,15 +16,21 @@ its plain PyTorch version (``<name>_plain``), which CPU tensors run:
 * :func:`top_active` — kernel KC (``csrc/top_active.cu``): the top-A
   candidates and tracked leaders;
 * :func:`elect` — kernel KF (``csrc/elect.cu``): P2 term catch-up, grants,
-  tally and winners;
+  tally and winners, and the leader mask;
 * :func:`slots` — kernel KG (``csrc/slots.cu``): the tracked-leader slot
   lifecycle with P3a's self-match;
-* :func:`append_entries` — kernel KD (``csrc/append_entries.cu``): P3c;
-* :func:`acks_commit` — kernel KH (``csrc/acks_commit.cu``): P3d acks and
-  P3e majority commit.
+* :func:`propose` — kernel KI (``csrc/propose.cu``): P3a's append and P3b's
+  snapshot;
+* :func:`append_entries` — kernel KD (``csrc/append_entries.cu``): P3c, the
+  receivers and the apply;
+* :func:`acks_commit` — kernel KH (``csrc/acks_commit.cu``): P3d acks, P3e
+  majority commit and P4 timers;
+* :func:`telemetry` — kernel KK (``csrc/telemetry.cu``): the round's
+  counters and latency histograms, added into the run's accumulators.
 
-The round's delivery masks come from kernel KB (``ops/adversary.py``) and
-its remaining Threefry draws from kernel KA (``core/rng.py``).
+The round's delivery masks come from kernel KB (``ops/adversary.py``); on
+the card the round runs nothing but these launches. Kernel KA
+(``core/rng.py``) draws the initial timeouts.
 
 The [B, N, L] logs are updated in place (P3a's one-slot append and P3c's
 suffix copy), where the JAX round returns new arrays: a round's state
@@ -37,10 +44,13 @@ import torch
 
 from ..core import rng
 from ..core.config import MAX_ACTIVE, Config
-from ..ops.adversary import bitcast_i32, churn, delivery_edges, draw
-from .raft import (NONE, ROLE_C, ROLE_F, ROLE_L, draw_timeout, last_term,
-                   match_dtype)
+from ..ops.adversary import bitcast_i32, churn, delivery_edges
+from ..ops.flight import N_BUCKETS, bucket_counts_plain
+from .raft import (NONE, RAFT_TELEMETRY, ROLE_C, ROLE_F, ROLE_L, draw_timeout,
+                   last_term, match_dtype)
 
+# The engine's name, as the JAX package's EngineDef names it.
+NAME = "raft-sparse"
 I32_MIN = -2**31
 # Plain top-A key of an unmasked node; above every masked key.
 _KEY_NONE = 2**63 - 1
@@ -86,16 +96,16 @@ def raft_sparse_init(cfg: Config, seeds: torch.Tensor) -> RaftSparseState:
 
 # --- shared by the wrappers and the round --------------------------------------
 
-def _bump(cfg: Config, seed, cond, new_term, term, role, voted_for, timeout,
-          u32=rng.random_u32):
+def _bump(cfg: Config, seed, cond, new_term, term, role, voted_for, timeout):
     """Adopt a higher term where ``cond``: follower, no vote, and the
-    timeout redrawn under the new term (drawn by ``u32``)."""
+    timeout redrawn under the new term (the plain versions' draw)."""
     idx = torch.arange(term.shape[1], dtype=torch.int32, device=term.device)
     term = torch.where(cond, new_term, term)
     return (term, torch.where(cond, ROLE_F, role),
             torch.where(cond, NONE, voted_for),
             torch.where(cond, draw_timeout(seed, cfg.t_min, cfg.t_max, term,
-                                           idx, u32), timeout))
+                                           idx, rng.random_u32_plain),
+                        timeout))
 
 
 def _scatter_max(x, ids, vals, on):
@@ -168,19 +178,43 @@ def top_active(mask, term, A: int) -> torch.Tensor:
 top_active.launches = 0
 
 
-# --- KD: P3c AppendEntries apply ------------------------------------------------
+# --- KD: P3c receivers and AppendEntries apply ---------------------------------
 
-def append_entries_plain(log_term, log_val, log_len, commit, kstar, has_l,
-                         s_next, s_len, s_commit, s_logt, s_logv):
-    """Plain version of KD, SPEC §3 P3c at each follower j of each sweep:
-    with k = kstar[j] its chosen leader slot (used where has_l[j]), check
-    that the follower's log matches the leader's at prev = s_next[k, j] - 1,
-    and where it does, copy the leader's entries [prev, s_len[k]) into the
-    follower's row, set its log length to s_len[k] and let its commit follow
-    min(s_commit[k], new length). ``log_term``/``log_val`` ([B, N, L]) are
-    updated in place; returns (apply [B, N] bool, new log_len, new commit).
-    """
+def append_entries_plain(cfg: Config, seed, del_lj, lead_id, s_term, term,
+                         role, voted_for, timer, timeout, reset, log_term,
+                         log_val, log_len, commit, s_next, s_len, s_commit,
+                         s_logt, s_logv):
+    """Plain version of KD, SPEC §3 P3c at each follower j of each sweep.
+
+    The receiver side: ``t_in2``, the highest snapshot term ``s_term[k]``
+    among the heartbeats ``del_lj[k, j]`` delivered to j, bumps j (follower,
+    no vote, timeout redrawn under the new term); of the delivered slots of
+    j's term, ``kstar[j]`` is the one with the least leader id and
+    ``has_l[j]`` says there is one; a follower that heard a leader resets
+    its timer, and a candidate steps down. Then the apply: with k = kstar[j]
+    (used where has_l[j]), check that the follower's log matches the
+    leader's at prev = s_next[k, j] - 1, and where it does, copy the
+    leader's entries [prev, s_len[k]) into the follower's row, set its log
+    length to s_len[k] and let its commit follow min(s_commit[k], new
+    length). ``log_term``/``log_val`` ([B, N, L]) are updated in place;
+    returns new (term, role, voted_for, timer, timeout, reset, kstar,
+    has_l, apply, log_len, commit), all [B, N]."""
     B, N, L = log_term.shape
+
+    # The receivers.
+    t_in2 = torch.where(del_lj, s_term[:, :, None], 0).amax(1)
+    term, role, voted_for, timeout = _bump(cfg, seed, t_in2 > term, t_in2,
+                                           term, role, voted_for, timeout)
+    valid = del_lj & (s_term[:, :, None] == term[:, None, :])  # [B, A, N]
+    lid = lead_id.clamp(0, N - 1)
+    lcand = torch.where(valid, lid[:, :, None], N)
+    has_l = lcand.amin(1) < N
+    kstar = lcand.argmin(1).to(torch.int32)                    # [B, N] slot
+    timer = torch.where(has_l, 0, timer)
+    reset = reset | has_l
+    role = torch.where(has_l & (role == ROLE_C), ROLE_F, role)
+
+    # The apply.
     k = kstar.to(torch.int64)
     bi = torch.arange(B, device=k.device)[:, None]
     prev = s_next.gather(1, k[:, None, :])[:, 0].to(torch.int32) - 1
@@ -201,40 +235,55 @@ def append_entries_plain(log_term, log_val, log_len, commit, kstar, has_l,
     new_commit = torch.where(
         apply_, torch.maximum(commit, torch.minimum(l_commit, new_len)),
         commit)
-    return apply_, new_len, new_commit
+    return (term, role, voted_for, timer, timeout, reset, kstar, has_l,
+            apply_, new_len, new_commit)
 
 
-def append_entries(log_term, log_val, log_len, commit, kstar, has_l,
-                   s_next, s_len, s_commit, s_logt, s_logv):
+def append_entries(cfg: Config, seed, del_lj, lead_id, s_term, term, role,
+                   voted_for, timer, timeout, reset, log_term, log_val,
+                   log_len, commit, s_next, s_len, s_commit, s_logt, s_logv):
     """Kernel KD: same arguments, in-place log update and result as
     :func:`append_entries_plain`, which it runs for CPU tensors; for CUDA
-    tensors it launches ``csrc/append_entries.cu`` (a lane per follower,
-    then the warp copies each follower's range; only copied words are
-    written)."""
-    if log_term.device.type == "cpu":
-        return append_entries_plain(log_term, log_val, log_len, commit, kstar,
-                                    has_l, s_next, s_len, s_commit, s_logt,
-                                    s_logv)
+    tensors it launches ``csrc/append_entries.cu`` (a lane per follower
+    runs the receiver side and the apply's scalars, then the warp copies
+    each follower's range; only copied words are written)."""
+    if term.device.type == "cpu":
+        return append_entries_plain(cfg, seed, del_lj, lead_id, s_term, term,
+                                    role, voted_for, timer, timeout, reset,
+                                    log_term, log_val, log_len, commit,
+                                    s_next, s_len, s_commit, s_logt, s_logv)
     from .. import _build
     B, N, L = log_term.shape
     A = s_len.shape[1]
-    dev = log_term.device
-    _check_all(dev, (log_term, torch.int32, (B, N, L)),
+    dev = term.device
+    _check_all(dev, (seed, torch.uint32, (B,)),
+               (del_lj, torch.bool, (B, A, N)),
+               (lead_id, torch.int32, (B, A)), (s_term, torch.int32, (B, A)),
+               *((t, torch.int32, (B, N)) for t in (
+                   term, role, voted_for, timer, timeout, log_len, commit)),
+               (reset, torch.bool, (B, N)),
+               (log_term, torch.int32, (B, N, L)),
                (log_val, torch.int32, (B, N, L)),
-               (log_len, torch.int32, (B, N)), (commit, torch.int32, (B, N)),
-               (kstar, torch.int32, (B, N)), (has_l, torch.bool, (B, N)),
                (s_next, torch.uint8, (B, A, N)), (s_len, torch.int32, (B, A)),
                (s_commit, torch.int32, (B, A)),
                (s_logt, torch.int32, (B, A, L)),
                (s_logv, torch.int32, (B, A, L)))
-    apply_ = torch.empty((B, N), dtype=torch.bool, device=dev)
+    out = [torch.empty_like(term) for _ in range(5)]
+    reset_out = torch.empty_like(reset)
+    kstar = torch.empty_like(term)
+    has_l = torch.empty_like(reset)
+    apply_ = torch.empty_like(reset)
     new_len = torch.empty_like(log_len)
     new_commit = torch.empty_like(commit)
-    _build.launch("append_entries", *(t.data_ptr() for t in (
-        log_term, log_val, log_len, commit, kstar, has_l, s_next, s_len,
-        s_commit, s_logt, s_logv, apply_, new_len, new_commit)), B, N, A, L)
+    _build.launch("append_entries", seed.data_ptr(), cfg.t_min,
+                  _timeout_span(cfg), *(t.data_ptr() for t in (
+                      del_lj, lead_id, s_term, term, role, voted_for, timer,
+                      timeout, reset, log_term, log_val, log_len, commit,
+                      s_next, s_len, s_commit, s_logt, s_logv, *out,
+                      reset_out, kstar, has_l, apply_, new_len, new_commit)),
+                  B, N, A, L)
     append_entries.launches += 1
-    return apply_, new_len, new_commit
+    return (*out, reset_out, kstar, has_l, apply_, new_len, new_commit)
 
 
 append_entries.launches = 0
@@ -315,8 +364,9 @@ def elect_plain(cfg: Config, seed, cand_ids, del_cj, del_jc, term, role,
     lowest eligible candidate id), P2c the tally; winners become leaders.
     The candidates' request fields are read from ``term``, ``log_len`` and
     ``own_lterm`` as they enter. Updates nothing in place; returns new
-    (term, role, voted_for, timer, timeout, reset)."""
-    u32 = rng.random_u32_plain
+    (term, role, voted_for, timer, timeout, reset), the leader mask
+    ``role == ROLE_L`` (all [B, N]) and the winner flags ``win`` ([B, A]
+    bool)."""
     N = term.shape[1]
     majority = N // 2 + 1
     cvalid = cand_ids >= 0
@@ -328,8 +378,7 @@ def elect_plain(cfg: Config, seed, cand_ids, del_cj, del_jc, term, role,
     # P2a term catch-up.
     t_in = torch.where(del_cj, req_term[:, :, None], 0).amax(1)
     term, role, voted_for, timeout = _bump(cfg, seed, t_in > term, t_in,
-                                           term, role, voted_for, timeout,
-                                           u32)
+                                           term, role, voted_for, timeout)
 
     # P2b grants.
     up_to_date = (req_lterm[:, :, None] > own_lterm[:, None, :]) | (
@@ -356,7 +405,7 @@ def elect_plain(cfg: Config, seed, cand_ids, del_cj, del_jc, term, role,
     role = torch.where(won, ROLE_L, role)
     timer = torch.where(won, 0, timer)
     reset = reset | won
-    return term, role, voted_for, timer, timeout, reset
+    return term, role, voted_for, timer, timeout, reset, role == ROLE_L, win
 
 
 def elect(cfg: Config, seed, cand_ids, del_cj, del_jc, term, role, voted_for,
@@ -364,8 +413,8 @@ def elect(cfg: Config, seed, cand_ids, del_cj, del_jc, term, role, voted_for,
     """Kernel KF: same arguments and result as :func:`elect_plain`, which it
     runs for CPU tensors; for CUDA tensors it launches ``csrc/elect.cu``
     (a thread per node with the candidates' fields in shared memory and
-    block-partial vote counts, then a [B, A] winner epilogue). Updates
-    nothing in place."""
+    block-partial vote counts, then a [B, A] winner epilogue that also
+    completes the leader mask). Updates nothing in place."""
     if term.device.type == "cpu":
         return elect_plain(cfg, seed, cand_ids, del_cj, del_jc, term, role,
                            voted_for, timer, timeout, reset, log_len,
@@ -386,14 +435,16 @@ def elect(cfg: Config, seed, cand_ids, del_cj, del_jc, term, role, voted_for,
                (reset, torch.bool, (B, N)))
     out = [torch.empty_like(term) for _ in range(5)]
     reset_out = torch.empty_like(reset)
+    lead = torch.empty_like(reset)
+    win = torch.empty((B, A), dtype=torch.bool, device=dev)
     votes = torch.empty((B, A), dtype=torch.int32, device=dev)
     _build.launch("elect", seed.data_ptr(), cfg.t_min, _timeout_span(cfg),
                   *(t.data_ptr() for t in (
                       cand_ids, del_cj, del_jc, term, role, voted_for, timer,
                       timeout, reset, log_len, own_lterm, *out, reset_out,
-                      votes)), B, N, A)
+                      lead, win, votes)), B, N, A)
     elect.launches += 1
-    return (*out, reset_out)
+    return (*out, reset_out, lead, win)
 
 
 elect.launches = 0
@@ -473,7 +524,7 @@ def slots(cfg: Config, new_ids, lead_id, lead_match, lead_next, role,
 slots.launches = 0
 
 
-# --- KH: P3d acks and P3e majority commit ---------------------------------------
+# --- KH: P3d acks, P3e majority commit, P4 timers -------------------------------
 
 def commit_median_plain(lead_match, majority: int, E: int) -> torch.Tensor:
     """The majority-th largest value of each [N] row of ``lead_match``,
@@ -495,17 +546,19 @@ def commit_median_plain(lead_match, majority: int, E: int) -> torch.Tensor:
 
 def acks_commit_plain(cfg: Config, seed, lead_id, was_lead_k, del_jl, has_l,
                       kstar, apply_, log_len, log_term, term, role, voted_for,
-                      timeout, commit, lead_match, lead_next) -> None:
-    """Plain version of KH, SPEC §3 P3d-P3e for each tracked slot that sent
+                      timeout, commit, lead_match, lead_next, timer,
+                      reset) -> None:
+    """Plain version of KH, SPEC §3 P3d-P4 for each tracked slot that sent
     heartbeats (``was_lead_k``, [B, A]) and still leads: follower j acks
     slot ``kstar[j]`` where ``has_l[j]`` and ``del_jl[j, kstar[j]]``, with
     its term and (where ``apply_``) its new ``log_len``. A higher acked
     term bumps the leader; otherwise its match/next rows follow the acks
     (u8 arithmetic, as JAX), and its commit advances to the majority-th
     largest match when that entry is of its own term. ``log_term`` is the
-    post-P3c log. Updates ``term``, ``role``, ``voted_for``, ``timeout``,
-    ``commit``, ``lead_match`` and ``lead_next`` in place."""
-    u32 = rng.random_u32_plain
+    post-P3c log. Then P4: leaders hold ``timer`` at 0, and every other
+    node counts it up unless ``reset`` says the round reset it. Updates
+    ``term``, ``role``, ``voted_for``, ``timeout``, ``commit``,
+    ``lead_match``, ``lead_next`` and ``timer`` in place."""
     B, N = term.shape
     A = lead_id.shape[1]
     E = min(cfg.max_entries, cfg.log_capacity)
@@ -524,7 +577,7 @@ def acks_commit_plain(cfg: Config, seed, lead_id, was_lead_k, del_jl, has_l,
     bump3_k = still_lead_k & (t_in3 > term.gather(1, lid))
     new_t = _scatter_max(term, lid, t_in3, bump3_k)
     new = _bump(cfg, seed, new_t > term, new_t, term, role, voted_for,
-                timeout, u32)
+                timeout)
     for t, v in zip((term, role, voted_for, timeout), new):
         t.copy_(v)
     proc = (still_lead_k & ~bump3_k)[:, :, None]                # [B, A, 1]
@@ -546,23 +599,28 @@ def acks_commit_plain(cfg: Config, seed, lead_id, was_lead_k, del_jl, has_l,
         & (term_at_med == term.gather(1, lid))
     commit.copy_(_scatter_max(commit, lid, med, adv))
 
+    # ---- P4 timers, on the roles the bump above settled.
+    timer.copy_(torch.where(role == ROLE_L, 0,
+                            torch.where(reset, timer, timer + 1)))
+
 
 def acks_commit(cfg: Config, seed, lead_id, was_lead_k, del_jl, has_l, kstar,
                 apply_, log_len, log_term, term, role, voted_for, timeout,
-                commit, lead_match, lead_next) -> None:
+                commit, lead_match, lead_next, timer, reset) -> None:
     """Kernel KH: same arguments and in-place updates as
     :func:`acks_commit_plain`, which it runs for CPU tensors; for CUDA
     tensors it launches ``csrc/acks_commit.cu`` (block-partial ack-term
     maxima, a [B, A] bump epilogue, the match/next update with a per-row
-    256-bin histogram of the new matches, and a [B, A] commit epilogue
-    reading the majority-th largest match off the histogram). The tracked
+    256-bin histogram of the new matches, a [B, A] commit epilogue
+    reading the majority-th largest match off the histogram, and a thread
+    per node for the timers). The tracked
     ids ``lead_id`` of slots with ``was_lead_k`` must be distinct, as
     kernel KC gives them."""
     if term.device.type == "cpu":
         return acks_commit_plain(cfg, seed, lead_id, was_lead_k, del_jl,
                                  has_l, kstar, apply_, log_len, log_term,
                                  term, role, voted_for, timeout, commit,
-                                 lead_match, lead_next)
+                                 lead_match, lead_next, timer, reset)
     from .. import _build
     B, N, L = log_term.shape
     A = lead_id.shape[1]
@@ -575,10 +633,12 @@ def acks_commit(cfg: Config, seed, lead_id, was_lead_k, del_jl, has_l, kstar,
                (del_jl, torch.bool, (B, N, A)),
                (has_l, torch.bool, (B, N)), (apply_, torch.bool, (B, N)),
                *((t, torch.int32, (B, N)) for t in (
-                   kstar, log_len, term, role, voted_for, timeout, commit)),
+                   kstar, log_len, term, role, voted_for, timeout, commit,
+                   timer)),
                (log_term, torch.int32, (B, N, L)),
                (lead_match, torch.uint8, (B, A, N)),
-               (lead_next, torch.uint8, (B, A, N)))
+               (lead_next, torch.uint8, (B, A, N)),
+               (reset, torch.bool, (B, N)))
     t_in3 = torch.empty((B, A), dtype=torch.int32, device=dev)
     proc = torch.empty((B, A), dtype=torch.int32, device=dev)
     hist = torch.empty((B, A, 256), dtype=torch.int32, device=dev)
@@ -586,7 +646,8 @@ def acks_commit(cfg: Config, seed, lead_id, was_lead_k, del_jl, has_l, kstar,
                   _timeout_span(cfg), *(t.data_ptr() for t in (
                       lead_id, was_lead_k, del_jl, has_l, kstar, apply_,
                       log_len, log_term, term, role, voted_for, timeout,
-                      commit, lead_match, lead_next, t_in3, proc, hist)),
+                      commit, lead_match, lead_next, timer, reset, t_in3,
+                      proc, hist)),
                   B, N, A, L, min(cfg.max_entries, L))
     acks_commit.launches += 1
 
@@ -594,52 +655,28 @@ def acks_commit(cfg: Config, seed, lead_id, was_lead_k, del_jl, has_l, kstar,
 acks_commit.launches = 0
 
 
-# --- the round ----------------------------------------------------------------
+# --- KI: P3a propose and P3b snapshot -------------------------------------------
 
-def raft_sparse_round(cfg: Config, st: RaftSparseState, r: int
-                      ) -> RaftSparseState:
-    """One SPEC §3 round under the §3b cap, phase by phase as
-    ``consensus_tpu/engines/raft_sparse.py`` ``raft_sparse_round`` with
-    ``telem=False``. Updates ``st.log_term``/``st.log_val`` in place."""
-    B, N = st.term.shape
-    L, A = cfg.log_capacity, cfg.max_active
+def propose_plain(cfg: Config, seed, r: int, lead, term, log_term, log_val,
+                  log_len, commit, lead_id):
+    """Plain version of KI, SPEC §3 P3a-P3b. P3a: every leader (``lead``,
+    tracked or not) whose log holds fewer than E entries writes (term,
+    value) at its log length, the value a Threefry draw of STREAM_VALUE
+    keyed by (round, node), and grows its log by one. P3b: per tracked slot
+    of ``lead_id`` ([B, A]), whether it still leads (``was_lead_k``), the
+    heartbeat sender id (``hb_ids``: the leader's id, or NONE), and its
+    term, new length, commit and post-append log rows. ``log_term`` /
+    ``log_val`` ([B, N, L]) are updated in place; returns (log_len [B, N],
+    was_lead_k, hb_ids, s_term, s_len, s_commit [B, A], s_logt, s_logv
+    [B, A, L])."""
+    B, N, L = log_term.shape
     E = min(cfg.max_entries, L)
-    dev = st.term.device
-    seed = st.seed
-
-    def dedge(ids, ids_are_src):
-        return delivery_edges(seed, r, ids, N, cfg.drop_cutoff,
-                              cfg.partition_cutoff, ids_are_src)
-
-    log_term, log_val, log_len = st.log_term, st.log_val, st.log_len
-    commit = st.commit
-
-    # ---- P0 churn, P1 candidacy (KE).
-    (term, role, voted_for, timer, timeout, reset, own_lterm,
-     cand_mask) = candidacy(cfg, seed, r, st.term, st.role, st.voted_for,
-                            st.timer, st.timeout, log_term, log_len)
-
-    # ---- P2 election over the active candidate set (SPEC §3b; KC, KB, KF).
-    cand_ids = top_active(cand_mask, term, A)                   # [B, A]
-    del_cj = dedge(cand_ids, True)                              # [B, A, N]
-    del_jc = dedge(cand_ids, False)                             # [B, N, A]
-    term, role, voted_for, timer, timeout, reset = elect(
-        cfg, seed, cand_ids, del_cj, del_jc, term, role, voted_for, timer,
-        timeout, reset, log_len, own_lterm)
-
-    # ---- The leader mask, read by KC and by P3a.
-    lead = role == ROLE_L
-
-    # ---- Tracked-leader slot lifecycle, with P3a's self-match (KC, KG).
-    lead_id = top_active(lead, term, A)                         # [B, A]
-    lead_match, lead_next = slots(cfg, lead_id, st.lead_id, st.lead_match,
-                                  st.lead_next, role, log_len)
-
-    # ---- P3a propose (every leader, tracked or not: local append only).
-    # The one-slot append is a scatter into the logs, in place.
+    dev = term.device
     idx = torch.arange(N, dtype=torch.int32, device=dev)
+    # P3a: the one-slot append is a scatter into the logs, in place.
     can_prop = lead & (log_len < E)
-    prop_val = bitcast_i32(draw(seed, rng.STREAM_VALUE, r, 0, idx))
+    prop_val = bitcast_i32(rng.random_u32_plain(seed, rng.STREAM_VALUE, r, 0,
+                                                idx))
     pos = log_len.clamp(max=L - 1).to(torch.int64)[..., None]
     log_term.scatter_(2, pos, torch.where(can_prop, term,
                                           log_term.gather(2, pos)[..., 0]
@@ -648,45 +685,199 @@ def raft_sparse_round(cfg: Config, st: RaftSparseState, r: int
                                          log_val.gather(2, pos)[..., 0]
                                          )[..., None])
     log_len = log_len + can_prop.to(torch.int32)
-
-    # ---- P3b snapshot tracked-sender state.
+    # P3b: the tracked senders' snapshot.
     bi = torch.arange(B, device=dev)[:, None]
     lid = lead_id.clamp(0, N - 1).to(torch.int64)
     was_lead_k = (lead_id >= 0) & lead.gather(1, lid)
-    s_term, s_len = term.gather(1, lid), log_len.gather(1, lid)
-    s_commit = commit.gather(1, lid)
-    s_next = lead_next
-    s_logt, s_logv = log_term[bi, lid], log_val[bi, lid]       # [B, A, L]
-
-    # ---- P3c receivers (KB, KD).
     hb_ids = torch.where(was_lead_k, lead_id, NONE)
+    return (log_len, was_lead_k, hb_ids, term.gather(1, lid),
+            log_len.gather(1, lid), commit.gather(1, lid), log_term[bi, lid],
+            log_val[bi, lid])
+
+
+def propose(cfg: Config, seed, r: int, lead, term, log_term, log_val,
+            log_len, commit, lead_id):
+    """Kernel KI: same arguments, in-place log update and result as
+    :func:`propose_plain`, which it runs for CPU tensors; for CUDA tensors
+    it launches ``csrc/propose.cu`` (a thread per node appends with the
+    value drawn inline, then a block per slot snapshots the leader's row
+    after the append)."""
+    if term.device.type == "cpu":
+        return propose_plain(cfg, seed, r, lead, term, log_term, log_val,
+                             log_len, commit, lead_id)
+    from .. import _build
+    B, N, L = log_term.shape
+    A = lead_id.shape[1]
+    dev = term.device
+    _check_all(dev, (seed, torch.uint32, (B,)), (lead, torch.bool, (B, N)),
+               *((t, torch.int32, (B, N)) for t in (term, log_len, commit)),
+               (log_term, torch.int32, (B, N, L)),
+               (log_val, torch.int32, (B, N, L)),
+               (lead_id, torch.int32, (B, A)))
+    new_len = torch.empty_like(log_len)
+    was_lead_k = torch.empty((B, A), dtype=torch.bool, device=dev)
+    small = [torch.empty((B, A), dtype=torch.int32, device=dev)
+             for _ in range(4)]                 # hb_ids, s_term, s_len, s_commit
+    rows = [torch.empty((B, A, L), dtype=torch.int32, device=dev)
+            for _ in range(2)]                  # s_logt, s_logv
+    _build.launch("propose", seed.data_ptr(), int(r) & 0xFFFFFFFF,
+                  *(t.data_ptr() for t in (
+                      lead, term, log_term, log_val, log_len, commit, lead_id,
+                      new_len, was_lead_k, *small, *rows)),
+                  B, N, A, L, min(cfg.max_entries, L))
+    propose.launches += 1
+    return (new_len, was_lead_k, *small, *rows)
+
+
+propose.launches = 0
+
+
+# --- KK: telemetry and flight recorder -------------------------------------------
+
+def telemetry_plain(cfg: Config, r: int, cand_ids, win, timer_in, has_l,
+                    apply_, commit_in, commit, role, log_len, down, t,
+                    w=None, lat=None) -> None:
+    """Plain version of KK: the round's RAFT_TELEMETRY counters, per sweep,
+    added into the [B, K] i32 accumulator ``t`` and, with the flight
+    recorder (``w`` [B, n_windows, K] and ``lat`` [B, 2, N_BUCKETS], both
+    or neither), into the window ``r // cfg.telemetry_window`` of ``w``,
+    and the round's RAFT_LATENCY histograms into ``lat``: the round-entry
+    ``timer_in`` + 1 of each winner of ``win`` (candidate slots of
+    ``cand_ids``), and ``log_len - commit`` of each leader not ``down``.
+    The counters: winners, ``apply_``, ``has_l & ~apply_``, the sum of
+    ``commit - commit_in``, and zeros for the attack, crash and
+    aggregation gates the port rejects. Updates ``t``, ``w`` and ``lat``
+    in place."""
+    N = timer_in.shape[1]
+    vec = torch.zeros_like(t)
+    vec[:, 0] = win.sum(1, dtype=torch.int32)
+    vec[:, 1] = apply_.sum(1, dtype=torch.int32)
+    vec[:, 2] = (has_l & ~apply_).sum(1, dtype=torch.int32)
+    vec[:, 3] = (commit - commit_in).sum(1, dtype=torch.int32)
+    t += vec
+    if w is None:
+        return
+    w[:, r // cfg.telemetry_window] += vec
+    cid = cand_ids.clamp(0, N - 1).to(torch.int64)
+    lat[:, 0] += bucket_counts_plain(timer_in.gather(1, cid) + 1, win)
+    lat[:, 1] += bucket_counts_plain(log_len - commit,
+                                     (role == ROLE_L) & ~down)
+
+
+def telemetry(cfg: Config, r: int, cand_ids, win, timer_in, has_l, apply_,
+              commit_in, commit, role, log_len, down, t, w=None,
+              lat=None) -> None:
+    """Kernel KK: same arguments and in-place updates as
+    :func:`telemetry_plain`, which it runs for CPU tensors; for CUDA
+    tensors it launches ``csrc/telemetry.cu`` (a thread per node, warp and
+    block partial counts, then integer atomics into the accumulators)."""
+    if (w is None) != (lat is None):
+        raise ValueError("the flight recorder takes w and lat together")
+    if w is not None and cfg.telemetry_window < 1:
+        raise ValueError("the flight recorder needs telemetry_window > 0")
+    if t.device.type == "cpu":
+        return telemetry_plain(cfg, r, cand_ids, win, timer_in, has_l,
+                               apply_, commit_in, commit, role, log_len, down,
+                               t, w, lat)
+    from .. import _build
+    B, N = timer_in.shape
+    A = cand_ids.shape[1]
+    K = len(RAFT_TELEMETRY)
+    dev = t.device
+    _check_all(dev, (cand_ids, torch.int32, (B, A)), (win, torch.bool, (B, A)),
+               *((x, torch.int32, (B, N)) for x in (
+                   timer_in, commit_in, commit, role, log_len)),
+               *((x, torch.bool, (B, N)) for x in (has_l, apply_, down)),
+               (t, torch.int32, (B, K)))
+    window = n_windows = 0
+    if w is not None:
+        n_windows = w.shape[1]
+        window = r // cfg.telemetry_window
+        _check_all(dev, (w, torch.int32, (B, n_windows, K)),
+                   (lat, torch.int32, (B, 2, N_BUCKETS)))
+        if not 0 <= window < n_windows:
+            raise ValueError(f"round {r} lies past the {n_windows} windows")
+    _build.launch("telemetry", *(x.data_ptr() for x in (
+        cand_ids, win, timer_in, has_l, apply_, commit_in, commit, role,
+        log_len, down, t)), *(None if x is None else x.data_ptr()
+                              for x in (w, lat)),
+        B, N, A, K, window, n_windows)
+    telemetry.launches += 1
+
+
+telemetry.launches = 0
+
+
+# --- the round ----------------------------------------------------------------
+
+def raft_sparse_round(cfg: Config, st: RaftSparseState, r: int, *,
+                      telem=None, flight=None) -> RaftSparseState:
+    """One SPEC §3 round under the §3b cap, phase by phase as
+    ``consensus_tpu/engines/raft_sparse.py`` ``raft_sparse_round``: a
+    sequence of kernel launches and nothing else. Updates
+    ``st.log_term``/``st.log_val`` in place.
+
+    ``telem`` ([B, K] i32, the run's counter totals) switches on the
+    round's telemetry, as the JAX round's ``telem=True``, and ``flight``
+    (the window ring and latency buckets, a pair of [B, n_windows, K] and
+    [B, 2, N_BUCKETS] i32) its flight recorder, as ``flight=True``; kernel
+    KK adds the round's counters into them in place."""
+    B, N = st.term.shape
+    A = cfg.max_active
+    seed = st.seed
+    if flight is not None and telem is None:
+        raise ValueError("the flight recorder rides the telemetry "
+                         "accumulator: pass telem with flight")
+
+    def dedge(ids, ids_are_src):
+        return delivery_edges(seed, r, ids, N, cfg.drop_cutoff,
+                              cfg.partition_cutoff, ids_are_src)
+
+    log_term, log_val = st.log_term, st.log_val
+
+    # ---- P0 churn, P1 candidacy (KE).
+    (term, role, voted_for, timer, timeout, reset, own_lterm,
+     cand_mask) = candidacy(cfg, seed, r, st.term, st.role, st.voted_for,
+                            st.timer, st.timeout, log_term, st.log_len)
+
+    # ---- P2 election over the active candidate set (SPEC §3b; KC, KB, KF),
+    # with the leader mask that KC and KI read.
+    cand_ids = top_active(cand_mask, term, A)                   # [B, A]
+    del_cj = dedge(cand_ids, True)                              # [B, A, N]
+    del_jc = dedge(cand_ids, False)                             # [B, N, A]
+    term, role, voted_for, timer, timeout, reset, lead, win = elect(
+        cfg, seed, cand_ids, del_cj, del_jc, term, role, voted_for, timer,
+        timeout, reset, st.log_len, own_lterm)
+
+    # ---- Tracked-leader slot lifecycle, with P3a's self-match (KC, KG).
+    lead_id = top_active(lead, term, A)                         # [B, A]
+    lead_match, lead_next = slots(cfg, lead_id, st.lead_id, st.lead_match,
+                                  st.lead_next, role, st.log_len)
+
+    # ---- P3a propose (every leader: local append), P3b snapshot (KI).
+    (log_len, was_lead_k, hb_ids, s_term, s_len, s_commit, s_logt,
+     s_logv) = propose(cfg, seed, r, lead, term, log_term, log_val,
+                       st.log_len, st.commit, lead_id)
+
+    # ---- P3c receivers and apply (KB, KD).
     del_lj = dedge(hb_ids, True)                                # [B, A, N]
-    t_in2 = torch.where(del_lj, s_term[:, :, None], 0).amax(1)
-    term, role, voted_for, timeout = _bump(cfg, seed, t_in2 > term, t_in2,
-                                           term, role, voted_for, timeout)
+    (term, role, voted_for, timer, timeout, reset, kstar, has_l, apply_,
+     log_len, commit) = append_entries(
+        cfg, seed, del_lj, lead_id, s_term, term, role, voted_for, timer,
+        timeout, reset, log_term, log_val, log_len, st.commit, lead_next,
+        s_len, s_commit, s_logt, s_logv)
 
-    valid = del_lj & (s_term[:, :, None] == term[:, None, :])  # [B, A, N]
-    lcand = torch.where(valid, lid.to(torch.int32)[:, :, None], N)
-    has_l = lcand.amin(1) < N
-    kstar = lcand.argmin(1).to(torch.int32)                    # [B, N] slot
-
-    timer = torch.where(has_l, 0, timer)
-    reset = reset | has_l
-    role = torch.where(has_l & (role == ROLE_C), ROLE_F, role)
-
-    apply_, log_len, commit = append_entries(
-        log_term, log_val, log_len, commit, kstar, has_l, s_next, s_len,
-        s_commit, s_logt, s_logv)
-
-    # ---- P3d acks and P3e commit advance (KB, KH), in place.
+    # ---- P3d acks, P3e commit advance, P4 timers (KB, KH), in place.
     del_jl = dedge(hb_ids, False)                               # [B, N, A]
     acks_commit(cfg, seed, lead_id, was_lead_k, del_jl, has_l, kstar, apply_,
                 log_len, log_term, term, role, voted_for, timeout, commit,
-                lead_match, lead_next)
+                lead_match, lead_next, timer, reset)
 
-    # ---- P4 timers.
-    timer = torch.where(role == ROLE_L, 0,
-                        torch.where(reset, timer, timer + 1))
+    # ---- Telemetry and flight recorder (KK).
+    if telem is not None:
+        telemetry(cfg, r, cand_ids, win, st.timer, has_l, apply_, st.commit,
+                  commit, role, log_len, st.down, telem,
+                  *(flight if flight is not None else (None, None)))
 
     return RaftSparseState(seed, term, role, voted_for, log_term, log_val,
                            log_len, commit, timer, timeout, lead_id,

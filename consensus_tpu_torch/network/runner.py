@@ -1,18 +1,56 @@
 """The batched round loop: the port of ``consensus_tpu/network/runner.py``'s
-plain path (``make_seeds``, ``_init_jit``, the scan of ``_chunk_jit`` and
-``run_device``).
+plain path (``make_seeds``, ``_init_jit``, the scan of ``_chunk_jit`` with
+``_chunk_body``'s telemetry accumulators, ``run``).
 
-Sweeps are the leading batch axis of every state tensor, and a Python loop
-over rounds takes the place of ``lax.scan``. Entry points run on ``cuda``
+Sweeps are the leading batch axis of every state tensor. On the CPU a
+Python loop over rounds takes the place of ``lax.scan``. On ``cuda`` the
+whole run (init from a seed tensor, the ``n_rounds`` rounds and the
+accumulators) is captured once as one CUDA graph and then replayed: the
+counterpart of JAX's compile-then-execute of one scan. The eager loop stays
+available on the card as ``graph=False``. Entry points run on ``cuda``
 unless the caller passes ``device="cpu"``; without a GPU they raise.
 """
 from __future__ import annotations
 
+import collections
+import dataclasses
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
+from .. import _build
+from ..core import rng
 from ..core.config import Config
 from ..engines import raft_sparse
+from ..engines.raft import RAFT_LATENCY, RAFT_TELEMETRY
+from ..ops import adversary
+from ..ops.flight import BUCKET_LO, N_BUCKETS
+
+# The kernel wrappers the run launches, one for each source that
+# ``_build.SOURCES`` lists, as (module, attribute): launches are counted on
+# the attribute, so a stand-in put there counts its own.
+_WRAPPER_MODULES = {"random_u32": rng, "delivery_edges": adversary}
+KERNELS = tuple((_WRAPPER_MODULES.get(name, raft_sparse), name)
+                for name in _build.SOURCES)
+
+
+def launch_counts() -> dict[str, int]:
+    """Each kernel wrapper's launch count, by wrapper name."""
+    return {name: getattr(mod, name).launches for mod, name in KERNELS}
+
+
+def _add_launches(counts: dict[str, int]) -> None:
+    for mod, name in KERNELS:
+        getattr(mod, name).launches += counts[name]
+
+
+class RunOutput(NamedTuple):
+    """A run's final state and accumulators (None where switched off)."""
+    state: raft_sparse.RaftSparseState
+    telem: torch.Tensor | None   # [B, K] i32 counter totals
+    win: torch.Tensor | None     # [B, n_windows, K] i32 window ring
+    lat: torch.Tensor | None     # [B, H, N_BUCKETS] i32 latency buckets
 
 
 def resolve_device(device=None) -> torch.device:
@@ -31,6 +69,12 @@ def make_seeds(cfg: Config) -> np.ndarray:
             & np.uint64(0xFFFFFFFF)).astype(np.uint32)
 
 
+def n_windows(cfg: Config) -> int:
+    """Window count of the flight recorder's ring:
+    ceil(n_rounds / telemetry_window)."""
+    return -(-cfg.n_rounds // cfg.telemetry_window)
+
+
 def init(cfg: Config, seeds: np.ndarray, device) -> raft_sparse.RaftSparseState:
     """A fresh batched state, one sweep per seed."""
     return raft_sparse.raft_sparse_init(
@@ -38,18 +82,182 @@ def init(cfg: Config, seeds: np.ndarray, device) -> raft_sparse.RaftSparseState:
 
 
 def advance(cfg: Config, st: raft_sparse.RaftSparseState, r0: int,
-            n_rounds: int) -> raft_sparse.RaftSparseState:
-    """Rounds r0 .. r0 + n_rounds - 1 of every sweep."""
+            n_rounds: int, *, telem=None,
+            flight=None) -> raft_sparse.RaftSparseState:
+    """Rounds r0 .. r0 + n_rounds - 1 of every sweep, adding into the
+    accumulators ``telem`` and ``flight`` where given (see
+    :func:`raft_sparse.raft_sparse_round`)."""
     for r in range(r0, r0 + n_rounds):
-        st = raft_sparse.raft_sparse_round(cfg, st, r)
+        st = raft_sparse.raft_sparse_round(cfg, st, r, telem=telem,
+                                           flight=flight)
     return st
 
 
-def run_device(cfg: Config, device=None) -> raft_sparse.RaftSparseState:
+def accumulators(cfg: Config, device) -> tuple:
+    """Zeroed telemetry accumulators of ``cfg``'s run, as the round takes
+    them: ``(telem [B, K], flight)``, where ``flight`` is the window ring
+    and latency buckets ``([B, n_windows, K], [B, H, N_BUCKETS])``, or
+    None when ``cfg.telemetry_window`` is 0. All int32."""
+    z = dict(dtype=torch.int32, device=device)
+    B, K = cfg.n_sweeps, len(RAFT_TELEMETRY)
+    flight = None
+    if cfg.telemetry_window > 0:
+        flight = (torch.zeros((B, n_windows(cfg), K), **z),
+                  torch.zeros((B, len(RAFT_LATENCY), N_BUCKETS), **z))
+    return torch.zeros((B, K), **z), flight
+
+
+def _rounds(cfg: Config, seeds: torch.Tensor, n_rounds: int,
+            telemetry: bool) -> RunOutput:
+    """Init from the [B] u32 ``seeds`` tensor, zeroed accumulators, then
+    rounds 0 .. n_rounds - 1: everything on the device, nothing from the
+    host, so that it can be captured as a graph."""
+    telem, flight = (accumulators(cfg, seeds.device) if telemetry
+                     else (None, None))
+    st = advance(cfg, raft_sparse.raft_sparse_init(cfg, seeds), 0, n_rounds,
+                 telem=telem, flight=flight)
+    return RunOutput(st, telem, *(flight or (None, None)))
+
+
+class _Captured(NamedTuple):
+    graph: torch.cuda.CUDAGraph
+    seeds: torch.Tensor          # the graph's static input
+    out: RunOutput               # the graph's static outputs
+    launches: dict[str, int]     # kernel launches of one replay
+
+
+# The most recently captured runs, by :func:`_graph_key`, oldest first.
+# Each holds its run's state (at the flagship shape about 0.9 GB), so only
+# GRAPH_CACHE_SIZE are kept.
+GRAPH_CACHE_SIZE = 1
+_GRAPHS: collections.OrderedDict[tuple, _Captured] = collections.OrderedDict()
+# Graphs captured in this process.
+captures = 0
+
+
+def _graph_key(cfg: Config, dev: torch.device, telemetry: bool) -> tuple:
+    """The cache key of ``cfg``'s captured run. The seed is left out: it
+    reaches the graph only through its static seed tensor, which is set
+    before each replay, so runs that differ only in their seed share one
+    capture."""
+    return dataclasses.replace(cfg, seed=0), dev, telemetry
+
+
+def clear_graphs() -> None:
+    """Drop every cached graph and, once the caller holds none of their
+    outputs, the device memory they keep."""
+    _GRAPHS.clear()
+
+
+def _capture(cfg: Config, dev: torch.device, telemetry: bool) -> _Captured:
+    """Capture ``cfg``'s whole run on ``dev`` as one CUDA graph. One eager
+    round first builds and loads every kernel, so that nothing is loaded
+    and no host data is copied while the stream is captured. A capture
+    records no launch on the device, so the counts its wrappers took are
+    taken back and added at each replay instead. A failed capture
+    raises."""
+    global captures
+    seeds = torch.from_numpy(make_seeds(cfg)).to(dev)
+    _rounds(cfg, seeds, 1, telemetry)
+    torch.cuda.synchronize(dev)
+    before = launch_counts()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = _rounds(cfg, seeds, cfg.n_rounds, telemetry)
+    recorded = {k: v - before[k] for k, v in launch_counts().items()}
+    _add_launches({k: -v for k, v in recorded.items()})
+    captures += 1
+    return _Captured(graph, seeds, out, recorded)
+
+
+def run_device(cfg: Config, device=None, *, telemetry: bool = False,
+               graph: bool | None = None) -> RunOutput:
     """Run ``cfg.n_rounds`` rounds from a fresh state and return the final
-    state on the device, after the device has finished."""
+    state and accumulators on the device, after the device has finished.
+
+    ``telemetry`` accumulates the counters (and, with
+    ``cfg.telemetry_window > 0``, the flight recorder). ``graph`` (default:
+    on ``cuda``, and only there) replays the run as one CUDA graph,
+    captured at the first call for this (cfg but its seed, device,
+    telemetry) and kept until a run of another configuration is captured;
+    the returned tensors are then the graph's static outputs, which the
+    next replay of the same configuration, with any seed, overwrites: copy
+    them before that.
+    ``graph=False`` runs the rounds eagerly, one launch at a time."""
     dev = resolve_device(device)
-    st = advance(cfg, init(cfg, make_seeds(cfg), dev), 0, cfg.n_rounds)
+    if cfg.telemetry_window > 0 and not telemetry:
+        raise ValueError(
+            "telemetry_window > 0 without telemetry=True: the window ring "
+            "is the telemetry counter series, windowed")
+    if graph is None:
+        graph = dev.type == "cuda"
+    if not graph:
+        out = _rounds(cfg, torch.from_numpy(make_seeds(cfg)).to(dev),
+                      cfg.n_rounds, telemetry)
+    elif dev.type != "cuda":
+        raise ValueError("graph=True replays a CUDA graph: it needs a cuda "
+                         "device")
+    else:
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        key = _graph_key(cfg, dev, telemetry)
+        with torch.cuda.device(dev):
+            if key not in _GRAPHS:
+                while len(_GRAPHS) >= GRAPH_CACHE_SIZE:
+                    _GRAPHS.popitem(last=False)
+                _GRAPHS[key] = _capture(cfg, dev, telemetry)
+            _GRAPHS.move_to_end(key)
+            cap = _GRAPHS[key]
+            cap.seeds.copy_(torch.from_numpy(make_seeds(cfg)))
+            cap.graph.replay()
+        _add_launches(cap.launches)
+        out = cap.out
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
-    return st
+    return out
+
+
+def telemetry_stats(cfg: Config, out: RunOutput) -> dict:
+    """The ``stats["telemetry"]`` and ``stats["flight"]`` dicts of the JAX
+    package's ``run`` (keys, shapes and int64 values), from a run's
+    accumulators; empty where they were off."""
+    stats: dict = {}
+    if out.telem is not None:
+        tarr = out.telem.cpu().numpy().astype(np.int64)
+        stats["telemetry"] = {name: tarr[:, k]
+                              for k, name in enumerate(RAFT_TELEMETRY)}
+    if out.win is not None:
+        warr = out.win.cpu().numpy().astype(np.int64)
+        larr = out.lat.cpu().numpy().astype(np.int64)
+        stats["flight"] = {
+            "window_rounds": cfg.telemetry_window,
+            "n_windows": n_windows(cfg),
+            "n_rounds": cfg.n_rounds,
+            "bucket_lo": list(BUCKET_LO),
+            "windows": {name: warr[:, :, k]
+                        for k, name in enumerate(RAFT_TELEMETRY)},
+            "latency": {name: larr[:, h, :]
+                        for h, name in enumerate(RAFT_LATENCY)},
+        }
+    return stats
+
+
+def run(cfg: Config, device=None, *, telemetry: bool = False,
+        stats: dict | None = None,
+        graph: bool | None = None) -> dict[str, np.ndarray]:
+    """Run ``cfg.n_rounds`` rounds (:func:`run_device`) and return the
+    extract dict as numpy arrays, as the JAX package's ``run`` does. With a
+    ``stats`` dict, fill ``start_round`` and ``executed_rounds``, and with
+    ``telemetry`` the per-sweep counters (``stats["telemetry"]``) and,
+    with ``cfg.telemetry_window > 0``, the flight recorder
+    (``stats["flight"]``)."""
+    if telemetry and stats is None:
+        raise ValueError("telemetry=True needs a stats dict to receive "
+                         "the counters (stats['telemetry'])")
+    out = run_device(cfg, device, telemetry=telemetry, graph=graph)
+    result = {k: v.cpu().numpy()
+              for k, v in raft_sparse.extract(out.state).items()}
+    if stats is not None:
+        stats.update(start_round=0, executed_rounds=cfg.n_rounds,
+                     **telemetry_stats(cfg, out))
+    return result

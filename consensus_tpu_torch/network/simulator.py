@@ -4,9 +4,11 @@ for raft under the §3b cap.
     result = run(Config(protocol="raft", max_active=8, ...))
     result.digest          # SHA-256 of the canonical decided-log bytes
     result.steps_per_sec   # node-round-steps per second of the timed run
+    run(cfg, telemetry=True).extras["telemetry"]["totals"]
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from dataclasses import dataclass
 
@@ -28,6 +30,9 @@ class RunResult:
     counts: np.ndarray      # [B, N]
     rec_a: np.ndarray       # [B, N, L]
     rec_b: np.ndarray
+    # "telemetry" (names, per_sweep, totals) and "flight" (the recorder's
+    # windows and latency buckets) of a run with telemetry=True.
+    extras: dict = dataclasses.field(default_factory=dict)
 
     @property
     def steps_per_sec(self) -> float:
@@ -50,19 +55,35 @@ def decided_payload(cfg: Config, out: dict):
     return counts, rec_a, rec_b, payload
 
 
-def run(cfg: Config, device=None) -> RunResult:
+def run(cfg: Config, device=None, telemetry: bool = False) -> RunResult:
     """Run a config on ``device`` (``cuda`` unless the caller says ``cpu``).
-    The run is made once untimed first, so that ``wall_s`` excludes kernel
-    builds and first-call costs."""
+    The run is made once untimed first (on ``cuda`` that builds the
+    kernels and captures the run's graph), so that ``wall_s`` is one
+    replay up to the device's end. ``telemetry=True`` fills
+    ``extras["telemetry"]`` and, with ``cfg.telemetry_window > 0``,
+    ``extras["flight"]``, as the JAX package's ``run`` does."""
     dev = runner.resolve_device(device)
-    runner.run_device(cfg, device=dev)
+    runner.run_device(cfg, dev, telemetry=telemetry)
     t0 = time.perf_counter()
-    st = runner.run_device(cfg, device=dev)
+    out = runner.run_device(cfg, dev, telemetry=telemetry)
     wall = time.perf_counter() - t0
-    out = {k: v.cpu().numpy() for k, v in engine_def(cfg).extract(st).items()}
-    counts, rec_a, rec_b, payload = decided_payload(cfg, out)
+    # Copied at once: on cuda these are the graph's outputs, which the next
+    # replay overwrites.
+    host = {k: v.cpu().numpy()
+            for k, v in engine_def(cfg).extract(out.state).items()}
+    stats = runner.telemetry_stats(cfg, out)
+    counts, rec_a, rec_b, payload = decided_payload(cfg, host)
+    extras = {}
+    if "telemetry" in stats:
+        tstats = stats["telemetry"]
+        extras["telemetry"] = {
+            "names": list(tstats),
+            "per_sweep": dict(tstats),
+            "totals": {k: int(v.sum()) for k, v in tstats.items()}}
+    if "flight" in stats:
+        extras["flight"] = {"engine": engine_def(cfg).NAME, **stats["flight"]}
     return RunResult(config=cfg, payload=payload,
                      digest=serialize.digest(payload), wall_s=wall,
                      node_round_steps=cfg.n_sweeps * cfg.n_nodes
                      * cfg.n_rounds,
-                     counts=counts, rec_a=rec_a, rec_b=rec_b)
+                     counts=counts, rec_a=rec_a, rec_b=rec_b, extras=extras)

@@ -21,7 +21,7 @@ OFF_DEFAULT = {
     "max_delay_rounds": 2, "attack": "elect", "attack_rate": 0.5,
     "attack_target": 1, "net_model": "switch", "n_aggregators": 2,
     "n_byzantine": 1, "byz_mode": "equivocate", "desync_rate": 0.1,
-    "telemetry_window": 8, "scan_chunk": 4, "sweep_chunk": 1,
+    "scan_chunk": 4, "sweep_chunk": 1,
     "mesh_shape": (2,),
 }
 
@@ -46,6 +46,7 @@ def test_unsupported_knob_raises(knob):
     dict(log_capacity=255),
     dict(t_min=5, t_max=5),
     dict(n_rounds=0),
+    dict(telemetry_window=-1),
 ])
 def test_out_of_range_settings_raise(bad):
     with pytest.raises(ValueError):
@@ -76,3 +77,34 @@ def test_entry_points_raise_without_a_gpu(monkeypatch):
         runner.run_device(cfg, device="cuda")
     res = simulator.run(cfg, device="cpu")
     assert len(res.digest) == 64 and res.counts.shape == (1, 9)
+
+
+def test_graph_replay_needs_cuda():
+    with pytest.raises(ValueError, match="cuda"):
+        runner.run_device(Config(**OK), device="cpu", graph=True)
+
+
+def test_telemetry_window_is_supported():
+    cfg = Config(**OK, telemetry_window=3)
+    res = simulator.run(cfg, device="cpu", telemetry=True)
+    flight = res.extras["flight"]
+    assert flight["n_windows"] == 2 and flight["engine"] == "raft-sparse"
+    assert flight["windows"]["leader_elections"].shape == (1, 2)
+
+
+def test_graph_key_leaves_out_only_the_seed():
+    cfg, dev = Config(**OK), torch.device("cuda", 0)
+    key = runner._graph_key(cfg, dev, False)
+    assert runner._graph_key(dataclasses.replace(cfg, seed=7), dev,
+                             False) == key
+    assert runner._graph_key(dataclasses.replace(cfg, n_nodes=11), dev,
+                             False) != key
+    assert runner._graph_key(cfg, dev, True) != key
+
+
+def test_every_kernel_source_has_a_counted_wrapper():
+    from consensus_tpu_torch import _build
+    assert [name for _, name in runner.KERNELS] == list(_build.SOURCES)
+    for mod, name in runner.KERNELS:
+        assert isinstance(getattr(mod, name).launches, int)
+        assert callable(getattr(mod, name + "_plain"))

@@ -3,7 +3,8 @@
 The same Config runs through ``consensus_tpu.network.runner.run`` (JAX on
 the CPU) and through ``consensus_tpu_torch`` on the CPU (the kernels' plain
 versions): every extracted leaf and the decided-log digest must be equal,
-tolerance 0.
+tolerance 0. The round is a sequence of kernel-wrapper calls and nothing
+else, with kernel KK's only when telemetry is on.
 """
 import numpy as np
 import pytest
@@ -65,3 +66,36 @@ def test_run_front_door_matches_jax_digest():
     assert got.payload == want.payload
     assert got.node_round_steps == want.node_round_steps
     assert got.steps_per_sec > 0
+
+
+ROUND_WRAPPERS = {"candidacy": 1, "top_active": 2, "delivery_edges": 4,
+                  "elect": 1, "slots": 1, "propose": 1, "append_entries": 1,
+                  "acks_commit": 1, "telemetry": 1}
+
+
+@pytest.mark.parametrize("telemetry", [False, True])
+def test_round_calls_each_wrapper_its_times(telemetry, monkeypatch):
+    from consensus_tpu_torch.ops import adversary
+    kw = {**BASE, **CASES["cap4-n257"], "n_rounds": 6}
+    cfg = Config(**kw, telemetry_window=4 if telemetry else 0)
+    st = runner.init(cfg, runner.make_seeds(cfg), "cpu")
+    calls = dict.fromkeys(ROUND_WRAPPERS, 0)
+
+    def counting(mod, name):
+        fn = getattr(mod, name)
+
+        def call(*args):
+            calls[name] += 1
+            return fn(*args)
+        monkeypatch.setattr(mod, name, call)
+    for name in ROUND_WRAPPERS:
+        counting(adversary if name == "delivery_edges" else trs, name)
+    # The round takes delivery_edges from its own module's namespace.
+    monkeypatch.setattr(trs, "delivery_edges", adversary.delivery_edges)
+    telem, flight = runner.accumulators(cfg, "cpu") if telemetry \
+        else (None, None)
+    for r in range(cfg.n_rounds):
+        st = trs.raft_sparse_round(cfg, st, r, telem=telem, flight=flight)
+    want = {k: v * cfg.n_rounds for k, v in ROUND_WRAPPERS.items()}
+    want["telemetry"] *= telemetry
+    assert calls == want
