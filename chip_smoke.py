@@ -8,32 +8,44 @@ Phases, each printing one JSON line:
 1. device    — a CUDA device is present; the card's name and power limit as
                ``nvidia-smi`` reports them.
 2. build     — nvcc builds every kernel of ``consensus_tpu_torch/csrc``.
-3. kernels   — each hand-written kernel (KA-KK) against its plain PyTorch
-               version on the card, at the flagship shapes (B = 8 sweeps,
-               N = 100 000 nodes, A = 8, L = 128) on random and built edge
-               inputs; the round's phase kernels (KD-KK) also on the
-               flagship's own inputs of round 20. Tolerance: none, the
-               results are integers and must be equal. Times are device
-               time per call (torch.profiler kernel durations).
+3. kernels   — each hand-written kernel against its plain PyTorch version
+               on the card. KA-KK (the capped engine) at the flagship shapes
+               (B = 8 sweeps, N = 100 000 nodes, A = 8, L = 128) on random
+               and built edge inputs, the round's phase kernels (KD-KK) also
+               on the flagship's own inputs of round 20. KL-KO (the dense
+               engine) on rounds 3 (the first election) and 20 or 100 (a
+               leader in every sweep) of raft-1kx1k and raft-5node, on
+               rounds of hostile runs, on random states and on built ones
+               (a re-grant, two leaders of different terms in one P3c).
+               Tolerance: none, the results are integers and must be
+               equal. Times are device time per call (torch.profiler
+               kernel durations).
 4. flagship  — ``simulator.run`` of raft-100k (benchmarks/run_benchmarks.py
                CONFIGS["raft-100k"], seed 6), replayed as one CUDA graph: the
                decided-log digest must be the committed anchor, and every
-               kernel of the path must have launched (KK must not: telemetry
-               is off). Seed 7 then replays the same graph (no new capture)
-               and must equal the eager loop; seed 6 again the anchor.
+               kernel of the capped path must have launched (KK must not:
+               telemetry is off; nor KL-KO). Seed 7 then replays the same
+               graph (no new capture) and must equal the eager loop; seed 6
+               again the anchor.
 5. telemetry — raft-100k with telemetry and a flight recorder of 8-round
-               windows: the same digest, all ten kernels launched, windows
-               that sum to the totals, one election wait a leader election,
-               graph replay and eager loop equal; and the same run at
+               windows: the same digest, KA-KK launched, windows that sum
+               to the totals, one election wait a leader election, graph
+               replay and eager loop equal; and the same run at
                N = 10 000, whose counters and recorder must equal an anchor
                made by the JAX package.
-6. bench     — bench.py's flagship shape (seed 42, max_entries 112):
+6. dense     — ``simulator.run`` of BASELINE configs raft-5node and
+               raft-1kx1k (CONFIGS["raft-5node"], ["raft-1kx1k"]), each
+               replayed as one CUDA graph: the committed digests, KA and
+               KL-KO launched and no other kernel, steps per second, busy
+               share and graph memory; seed 3 of raft-1kx1k replays the
+               same graph and must equal the eager loop.
+7. bench     — bench.py's flagship shape (seed 42, max_entries 112):
                node-round-steps per second; something must commit.
-7. profile   — the flagship's graph replay under torch.profiler: device busy
+8. profile   — the flagship's graph replay under torch.profiler: device busy
                share, launches a round, device time by kernel, graph memory;
-               and an eager run with each kernel wrapper in a named range,
-               which must show no PyTorch compute op in any phase of the
-               round.
+               and an eager capped run and an eager dense run with each
+               kernel wrapper in a named range, which must show no PyTorch
+               compute op in any phase of the round.
 
 Then the card's name and power limit, one ``{"kernels": [...]}`` line, and
 last ``{"ok": true, "device": {...}}``. Any failure, or no GPU, exits
@@ -46,6 +58,7 @@ import dataclasses
 import hashlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -104,7 +117,7 @@ def device_ms(fn, args, reps: int = 20, warm: int = 3) -> float:
                      schedule=schedule(wait=0, warmup=1, active=1)) as prof:
             fn(*copies[0])
             torch.cuda.synchronize()
-            prof.step()
+            recorded_step(prof)
             for i in range(reps):
                 fn(*copies[i % len(copies)])
             torch.cuda.synchronize()
@@ -115,6 +128,19 @@ def device_ms(fn, args, reps: int = 20, warm: int = 3) -> float:
 
 PROFILER_SESSIONS = 8
 REDONE: list[str] = []          # the profiled work whose session was redone
+# The profiler opens its recording window at a step, on the host's clock. A
+# short kernel launched right after the step can map, from the device's
+# clock, to a start before the window and be dropped: on the H100 the first
+# of 20 torch.kthvalue launches (4 us each) went missing in 8 sessions of 8.
+# Recorded work starts this long after the step.
+STEP_SETTLE_S = 0.01
+
+
+def recorded_step(prof) -> None:
+    """Step ``prof`` into its recorded step, and wait for its window to be
+    open before the caller launches the work to record."""
+    prof.step()
+    time.sleep(STEP_SETTLE_S)
 
 
 def profiled(session, what: str, graph: bool = False) -> tuple:
@@ -315,22 +341,32 @@ def clone_args(args):
 
 
 @contextlib.contextmanager
-def standing_in(names, make):
-    """Replace each wrapper ``names`` of the round's module by
+def standing_in(module, names, make):
+    """Replace each wrapper ``names`` of the round's ``module`` by
     ``make(name, wrapper)`` while the block runs. A wrapper counts its
     launches on the module attribute it is called by, so each stand-in
     carries a ``launches`` of its own."""
-    from consensus_tpu_torch.engines import raft_sparse as rs
-    originals = {name: getattr(rs, name) for name in names}
+    originals = {name: getattr(module, name) for name in names}
     try:
         for name, fn in originals.items():
             stand_in = make(name, fn)
             stand_in.launches = 0
-            setattr(rs, name, stand_in)
+            setattr(module, name, stand_in)
         yield
     finally:
         for name, fn in originals.items():
-            setattr(rs, name, fn)
+            setattr(module, name, fn)
+
+
+def recording(got: dict):
+    """A ``make`` for :func:`standing_in` whose stand-ins put a clone of
+    their arguments into ``got`` by wrapper name and call the wrapper."""
+    def recorder(name, fn):
+        def record(*args):
+            got[name] = clone_args(args)
+            return fn(*args)
+        return record
+    return recorder
 
 
 def capture_phase_inputs(cfg, r: int, device="cuda") -> dict:
@@ -344,26 +380,28 @@ def capture_phase_inputs(cfg, r: int, device="cuda") -> dict:
                                          device), 0, r, telem=telem,
                         flight=flight)
     got = {}
-
-    def recorder(name, fn):
-        def record(*args):
-            got[name] = clone_args(args)
-            return fn(*args)
-        return record
-    with standing_in(PHASES, recorder):
+    with standing_in(rs, PHASES, recording(got)):
         rs.raft_sparse_round(cfg, st, r, telem=telem, flight=flight)
     require(set(got) == set(PHASES), f"round {r} skipped a phase")
     return got
+
+
+def kernel_module(name: str):
+    """The module that defines wrapper ``name`` and its plain version."""
+    from consensus_tpu_torch.network import runner
+    return {n: mod for mod, n in runner.KERNELS}[name]
 
 
 def run_pair(name: str, args) -> list:
     """The kernel and its plain version on separate clones of ``args``:
     pairs of their results and of every tensor argument afterwards, which
     covers the in-place updates and that nothing else was written."""
-    from consensus_tpu_torch.engines import raft_sparse as rs
+    mod = kernel_module(name)
     ka, pa = clone_args(args), clone_args(args)
-    got = getattr(rs, name)(*ka)
-    want = getattr(rs, name + "_plain")(*pa)
+    got = getattr(mod, name)(*ka)
+    want = getattr(mod, name + "_plain")(*pa)
+    if isinstance(got, torch.Tensor):
+        got, want = (got,), (want,)
     pairs = list(zip(got or (), want or ()))
     return pairs + [(k, p) for k, p in zip(ka, pa)
                     if isinstance(k, torch.Tensor)]
@@ -683,16 +721,297 @@ def check_phases(dev, gen, cfg) -> list[dict]:
     return rows
 
 
+# --- phase 3, continued: the dense round's kernels KL-KO ---------------------
+
+DENSE = ("delivery", "dense_elect", "dense_append", "dense_acks_commit")
+DENSE_REPLACES = {
+    "delivery": "consensus_tpu/ops/adversary.py:61 delivery",
+    "dense_elect": "consensus_tpu/engines/raft.py:301 raft_round P0-P2",
+    "dense_append": "consensus_tpu/engines/raft.py:422 raft_round P3a-P3c",
+    "dense_acks_commit": "consensus_tpu/engines/raft.py:480 raft_round "
+                         "P3d-P4"}
+# BASELINE configs 1 and 2 (benchmarks/run_benchmarks.py CONFIGS) and
+# their committed digests (benchmarks/parts/<name>.json).
+DENSE_CONFIGS = {
+    "raft-5node": dict(n_nodes=5, n_rounds=160, n_sweeps=512, seed=1),
+    "raft-1kx1k": dict(n_nodes=1024, n_rounds=1024, n_sweeps=8, seed=2)}
+DENSE_DIGESTS = {
+    "raft-5node":
+        "51007288213f9b78e1e4fd2f3601105ff97f12210a2a0a3382a059e2b703940b",
+    "raft-1kx1k":
+        "8748ac4fce3ad51b006d1d6542aa853f6d2f25839915ead9327bf7ca948f3308"}
+# The rounds phase 3 records of each: the first election (every sweep's
+# nodes of timeout 3 stand at once), and a round with a leader in every
+# sweep. The kernels are timed on raft-1kx1k's second.
+DENSE_ROUNDS = {"raft-5node": (3, 100), "raft-1kx1k": (3, 20)}
+
+
+def dense_config(name: str, **kw):
+    from consensus_tpu_torch.core.config import Config
+    return Config(**{**dict(protocol="raft", log_capacity=L, max_entries=100,
+                            drop_rate=0.01, churn_rate=0.001),
+                     **DENSE_CONFIGS[name], **kw})
+
+
+def capture_dense_inputs(cfg, rounds, device="cuda") -> dict:
+    """{r: {wrapper: arguments}}: what each wrapper of the dense round
+    (KL-KO) receives in each round r of ``rounds`` of ``cfg``'s eager run
+    on ``device``, cloned as it arrives."""
+    from consensus_tpu_torch.engines import raft
+    from consensus_tpu_torch.network import runner
+    st = runner.init(cfg, runner.make_seeds(cfg), device)
+    out, r0 = {}, 0
+    for r in sorted(rounds):
+        st = runner.advance(cfg, st, r0, r - r0)
+        got = out[r] = {}
+        with standing_in(raft, DENSE, recording(got)):
+            st = raft.raft_round(cfg, st, r)
+        require(set(got) == set(DENSE), f"round {r} skipped a phase")
+        r0 = r + 1
+    return out
+
+
+def dense_edge_inputs(dev, gen) -> dict:
+    """Inputs on which the dense kernels' rare paths fire: {name: [args]}.
+    KL: seeds and rounds at the u32 edges, partitions never, always and in
+    some sweeps, N = 1024, 1000, 5, 3 and 1. KM-KO: the rounds of hostile
+    runs (drops 0.3, partitions 0.4, churn 0.1, timeouts 1-3) at N = 64
+    and 999, and random states over small alphabets, with two built
+    sweeps: a re-grant in KM, and in KN two leaders of different terms,
+    the older one bumped by the newer while a follower of its own term
+    copies its row."""
+    from consensus_tpu_torch.core import rng
+    from consensus_tpu_torch.engines import raft
+    out = {name: [] for name in DENSE}
+
+    def ri(lo, hi, shape, dtype=torch.int32):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev,
+                             dtype=dtype)
+
+    def coin(p, shape):
+        return torch.rand(shape, generator=gen, device=dev) < p
+
+    seeds = torch.tensor([0, 0xFFFFFFFF, 1, 2, 3, 4, 5, 0x80000000],
+                         dtype=torch.uint32, device=dev)
+    half = rng.prob_threshold_u32(0.5)
+    active = rng.random_u32_plain(seeds, rng.STREAM_PARTITION, 7, 0, 0) < half
+    require(0 < int(active.sum()) < B, "edge inputs: no sweep whose "
+            "partition is active and one whose is not")
+    for n in (1024, 1000, 5, 3, 1):
+        for r, drop, part in ((0, 0.01, 0.0), (0xFFFFFFFF, 0.3, 1.0),
+                              (7, 0.3, 0.5), (7, 0.0, 0.5)):
+            out["delivery"].append((seeds, r, n, rng.prob_threshold_u32(drop),
+                                    rng.prob_threshold_u32(part)))
+
+    for n in (64, 999):
+        cfg = dense_config("raft-1kx1k", n_nodes=n, n_sweeps=B, seed=5,
+                           t_min=1, t_max=4, drop_rate=0.3,
+                           partition_rate=0.4, churn_rate=0.1)
+        for got in capture_dense_inputs(cfg, (2, 5, 9, 17, 30),
+                                        dev).values():
+            for name in DENSE[1:]:
+                out[name].append(got[name])
+
+    n = 1024
+    cfg = dense_config("raft-1kx1k")
+    seeds = torch.arange(11, 11 + B, dtype=torch.int64,
+                         device=dev).to(torch.uint32)
+    logt, logv = ri(0, 4, (B, n, L)), ri(-2**31, 2**31 - 1, (B, n, L))
+    term, role, vf = ri(0, 4, (B, n)), ri(0, 3, (B, n)), ri(-1, n, (B, n))
+    timer, timeout = ri(0, 9, (B, n)), ri(1, 9, (B, n))
+    log_len, commit = ri(0, L + 1, (B, n)), ri(0, 50, (B, n))
+    match, nxt = ri(0, 256, (B, n, n), torch.uint8), \
+        ri(0, 256, (B, n, n), torch.uint8)
+    deliver, reset = coin(0.5, (B, n, n)), coin(0.3, (B, n))
+
+    # KM. Sweep 0: node 10 voted for candidate 7 and hears it and the
+    # lower candidate 3, both eligible: it grants 7 again.
+    t0 = (term, role, vf, timer, timeout)
+    term, role, vf, timer, timeout = (t.clone() for t in t0)
+    deliver_m = deliver.clone()
+    for node, (tm, rl, v) in {3: (5, 1, 3), 7: (5, 1, 7),
+                              10: (5, 0, 7)}.items():
+        term[0, node], role[0, node], vf[0, node] = tm, rl, v
+        timer[0, node], timeout[0, node] = 0, 9
+    log_len[0, (3, 7)], log_len[0, 10] = L, 0
+    deliver_m[0, :, 10] = False
+    deliver_m[0, (3, 7), 10] = True
+    km = (cfg, seeds, 20, deliver_m, term, role, vf, timer, timeout, logt,
+          log_len, match, nxt)
+    got = raft.dense_elect_plain(*clone_args(km))
+    require(int(got[2][0, 10]) == 7, "edge inputs: no re-grant")
+    out["dense_elect"].append(km)
+    term, role, vf, timer, timeout = t0
+
+    # KN. Sweep 0: leader 5 (term 3) hears leader 9 (term 4), bumps and
+    # copies its log from 0; follower 20 (term 3) hears only leader 5 and
+    # copies 5's log from 0: as it was after P3a, not as 9 left it.
+    term, role = term.clone(), role.clone()
+    log_len, nxt, deliver_n = log_len.clone(), nxt.clone(), deliver.clone()
+    role[0][role[0] == 2] = 0
+    term[0, (5, 9, 20)] = torch.tensor([3, 4, 3], dtype=torch.int32,
+                                       device=dev)
+    role[0, (5, 9, 20)] = torch.tensor([2, 2, 0], dtype=torch.int32,
+                                       device=dev)
+    log_len[0, (5, 9)] = 60
+    nxt[0, 9, 5], nxt[0, 5, 20] = 1, 1
+    deliver_n[0, :, (5, 20)] = False
+    deliver_n[0, 9, 5], deliver_n[0, 5, 20] = True, True
+    kn = (cfg, seeds, 20, deliver_n, term, role, vf, timer, timeout, reset,
+          logt, logv, log_len, commit, match, nxt)
+    after = clone_args(kn)
+    got = raft.dense_append_plain(*after)
+    require(int(got[9][0, 5]) == 9 and int(got[9][0, 20]) == 5
+            and bool(got[10][0, 5]) and bool(got[10][0, 20])
+            and torch.equal(after[10][0, 20, :60], logt[0, 5, :60])
+            and int(after[10][0, 20, 60]) == 3
+            and not torch.equal(after[10][0, 5, :60], logt[0, 5, :60]),
+            "edge inputs: no two leaders of different terms in one P3c")
+    require(int(((got[9] >= 0) & ~got[10]).sum()) > 0,
+            "edge inputs: no P3c reject")
+    out["dense_append"].append(kn)
+
+    # KO on random acks: bump3, decrements, matches above E.
+    ko = (cfg, seeds, deliver, coin(0.3, (B, n)), ri(-1, n, (B, n)),
+          coin(0.5, (B, n)), ri(0, L + 1, (B, n)), logt, term, role, vf,
+          timeout, commit, match, nxt, timer, reset)
+    after = clone_args(ko)
+    raft.dense_acks_commit_plain(*after)
+    require(int((after[14] < nxt).sum()) > 0, "edge inputs: no decrement")
+    require(int((ko[3] & (role == 2) & (after[9] == 0)).sum()) > 0,
+            "edge inputs: no bump3")
+    out["dense_acks_commit"].append(ko)
+    return out
+
+
+def dense_ack_work(args) -> dict:
+    """What KO must touch on its arguments: ``acks`` (nodes that ack),
+    ``delivered`` (their delivered acks), the processing leaders
+    ``proc`` ([B, N] bool), the delivered acks ``proc_acks`` to a
+    processing leader, and ``bumped``, the leaders an acked term bumps."""
+    (_, _, deliver, was_leader, ack_to, _, _, _, term, role, *_rest) = args
+    n = term.shape[1]
+    idx = torch.arange(n, device=term.device)
+    ackm = (ack_to[:, :, None] == idx) & deliver                # [B, j, l]
+    t_in3 = torch.where(ackm, term[:, :, None], 0).amax(1)
+    still = was_leader & (role == 2)
+    bumped = still & (t_in3 > term)
+    proc = still & ~bumped
+    return dict(acks=int((ack_to >= 0).sum()), delivered=int(ackm.sum()),
+                proc=proc, proc_acks=int((ackm & proc[:, None, :]).sum()),
+                bumped=int(bumped.sum()))
+
+
+def dense_bound(name: str, args) -> tuple[float, str]:
+    """The least time of dense kernel ``name``'s work on ``args``: the
+    bytes it must move and the 32-bit operations it must do for these
+    inputs (see each source's note)."""
+    from consensus_tpu_torch.core import rng
+    from consensus_tpu_torch.engines import raft
+    if name == "delivery":
+        seed, r, n, _, part = args
+        b = seed.shape[0]
+        active = int((rng.random_u32_plain(seed, rng.STREAM_PARTITION, r, 0,
+                                           0) < part).sum())
+        draws = b + active * n if part else 0
+        return bound(b * n * n + 4 * b,
+                     EDGE_OPS * b * n * n + THREEFRY_OPS * draws)
+    if name == "dense_elect":
+        (_, _, _, _, term, role, vf, timer, timeout, *_rest) = args
+        b, n = term.shape
+        got = raft.dense_elect_plain(*clone_args(args))
+        new = (role != 2) & (timer >= timeout)
+        cand = (role == 1) | new
+        pairs = int(cand.sum()) * n             # request bytes
+        idx = torch.arange(n, device=term.device)
+        granted = int(((got[2] >= 0) & (got[2] != idx) & got[5]).sum())
+        won = int((cand & (got[1] == 2)).sum())
+        bumped = int((got[0] > term + new.to(torch.int32)).sum())
+        return bound(49 * b * n + pairs + granted + 2 * n * won,
+                     20 * b * n + 10 * pairs
+                     + THREEFRY_OPS * (int(new.sum()) + bumped))
+    if name == "dense_append":
+        (cfg, _, _, _, term, role, _, _, _, _, _, _, log_len, _, _,
+         nxt) = args
+        b, n = term.shape
+        got = raft.dense_append_plain(*clone_args(args))
+        lead = role == 2
+        app = int((lead & (log_len < min(cfg.max_entries, L))).sum())
+        pairs = int(lead.sum()) * n             # heartbeat bytes
+        has_l, applied = got[9] >= 0, got[10]
+        ls = got[9].clamp(min=0).to(torch.int64)
+        prev = nxt.gather(1, ls[:, None, :])[:, 0].to(torch.int64) - 1
+        copied = int(torch.where(applied, (got[6] - prev.clamp(min=0))
+                                 .clamp(min=0), 0).sum())
+        bumped = int((got[0] > term).sum())
+        return bound(70 * b * n + pairs + 9 * int(has_l.sum()) + 9 * app
+                     + 16 * copied,
+                     30 * b * n + 8 * pairs + THREEFRY_OPS * (app + bumped))
+    work = dense_ack_work(args)
+    b, n = args[8].shape
+    rows = int(work["proc"].sum())
+    return bound(18 * b * n + work["delivered"] + 7 * work["proc_acks"]
+                 + n * rows,
+                 10 * b * n + 8 * n * rows + THREEFRY_OPS * work["bumped"])
+
+
+def check_dense_kernels(dev, gen) -> list[dict]:
+    """KL-KO against their plain versions on the rounds DENSE_ROUNDS of
+    raft-1kx1k and raft-5node and on the edge inputs; times and bounds on
+    raft-1kx1k's round with a leader in every sweep."""
+    from consensus_tpu_torch.engines import raft
+    real = {}
+    for name, rounds in DENSE_ROUNDS.items():
+        for r, got in capture_dense_inputs(dense_config(name),
+                                           rounds).items():
+            real[name, r] = got
+    for name, (first, later) in DENSE_ROUNDS.items():
+        won = raft.dense_elect_plain(*clone_args(
+            real[name, first]["dense_elect"]))[1] == 2
+        require(bool(won.any()), f"{name} round {first}: no election")
+        lead = real[name, later]["dense_append"][5] == 2
+        require(bool(lead.any(1).all()),
+                f"{name} round {later}: a sweep without a leader")
+    edges = dense_edge_inputs(dev, gen)
+    timed = real["raft-1kx1k", DENSE_ROUNDS["raft-1kx1k"][1]]
+    rows = []
+    for name in DENSE:
+        err = max(max_abs_err(run_pair(name, args)) for args in
+                  [got[name] for got in real.values()] + edges[name])
+        args, mod = timed[name], kernel_module(name)
+        library = None
+        if name == "dense_acks_commit":
+            # One torch.kthvalue over the processing leaders' match rows.
+            match, n = args[13], args[8].shape[1]
+            leader_rows = match[dense_ack_work(args)["proc"]]
+            library = device_ms(
+                lambda m: torch.kthvalue(m, n - (n // 2 + 1) + 1, dim=1),
+                (leader_rows,))
+        rows.append(dict(name=name, route="cuda",
+                         source=f"consensus_tpu_torch/csrc/{name}.cu",
+                         replaces=DENSE_REPLACES[name], max_abs_err=err,
+                         ms=device_ms(getattr(mod, name), args),
+                         plain_ms=device_ms(getattr(mod, name + "_plain"),
+                                            args),
+                         bound=dense_bound(name, args), library_ms=library))
+    return rows
+
+
 def hand_kernels() -> dict[str, tuple[str, ...]]:
     """The ``__global__`` kernels of each source in ``_build.SOURCES``, by
-    wrapper name: the names the profiler reports for them."""
-    import re
-
+    wrapper name: the names the profiler reports for them. Names are unique
+    across the sources (the profiler names a kernel by its function)."""
     from consensus_tpu_torch import _build
     pattern = re.compile(
         r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(")
     return {name: tuple(pattern.findall(
         (_build.CSRC / f"{name}.cu").read_text())) for name in _build.SOURCES}
+
+
+def is_kernel(name: str, function: str) -> bool:
+    """Whether the profiler's kernel ``name`` (demangled, or mangled) is
+    the ``__global__`` ``function``, and not one whose name ends in it."""
+    return re.search(rf"(?:^|[^A-Za-z_]){function}[(<EI]", name) is not None
 
 
 # The round's code between two kernel wrappers (a gap) lies in one phase;
@@ -715,7 +1034,14 @@ GAPS = {(None, "candidacy"): "init",
         ("telemetry", "candidacy"): "between rounds",
         ("acks_commit", "candidacy"): "between rounds",
         ("telemetry", None): "after the last round",
-        ("acks_commit", None): "after the last round"}
+        ("acks_commit", None): "after the last round",
+        # The dense round.
+        (None, "delivery"): "init",
+        ("delivery", "dense_elect"): "P0-P2",
+        ("dense_elect", "dense_append"): "P3a-P3c",
+        ("dense_append", "dense_acks_commit"): "P3d-P4",
+        ("dense_acks_commit", "delivery"): "between rounds",
+        ("dense_acks_commit", None): "after the last round"}
 ZEROING = ("aten::fill_", "aten::zero_")
 
 
@@ -731,11 +1057,16 @@ def plain_ops_by_phase(cfg, device="cuda", telemetry=False) -> dict:
     from torch.profiler import (ProfilerActivity, profile, record_function,
                                 schedule)
 
+    from consensus_tpu_torch.engines import raft
+    from consensus_tpu_torch.engines import raft_sparse as rs
     from consensus_tpu_torch.network import runner
     on_cpu = torch.device(device).type == "cpu"
-    # Every wrapper but KA's, which the round calls only through init.
-    marked_names = [name for _, name in runner.KERNELS
-                    if name != "random_u32"]
+    # The wrappers the engine's round calls (KA's only through init).
+    if runner.engine(cfg) is runner.DENSE:
+        module, marked_names = raft, list(DENSE)
+    else:
+        module, marked_names = rs, [name for _, name in runner.KERNELS
+                                    if name not in DENSE + ("random_u32",)]
 
     def marked(name, fn):
         def call(*args):
@@ -744,13 +1075,13 @@ def plain_ops_by_phase(cfg, device="cuda", telemetry=False) -> dict:
         return call
 
     def session():
-        with standing_in(marked_names, marked), profile(
+        with standing_in(module, marked_names, marked), profile(
                 activities=[ProfilerActivity.CPU] if on_cpu else
                 [ProfilerActivity.CPU, ProfilerActivity.CUDA],
                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
             # The profiler records from its second step on.
             runner.run_device(cfg, device, telemetry=telemetry, graph=False)
-            prof.step()
+            recorded_step(prof)
             runner.run_device(cfg, device, telemetry=telemetry, graph=False)
         return prof
     # Without device records every place would look free of compute ops.
@@ -785,7 +1116,9 @@ def profile_replay(cfg) -> dict:
     torch.profiler (after a warm-up step of the profiler, which misses the
     first launches of its first step): its device time by hand kernel, its
     device operations, and its busy share, device time over the same
-    replay's wall."""
+    replay's wall. The profiler slows the host's side of a replay by a
+    cost per device operation, so ``unprofiled_busy_share`` also divides
+    that device time by the best unprofiled replay's wall."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     from consensus_tpu_torch.network import runner
@@ -801,7 +1134,7 @@ def profile_replay(cfg) -> dict:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                      schedule=schedule(wait=0, warmup=1, active=1)) as prof:
             runner.run_device(cfg)
-            prof.step()                         # the recorded step begins
+            recorded_step(prof)
             t0 = time.perf_counter()
             runner.run_device(cfg)
             profiled_walls.append((time.perf_counter() - t0) * 1e3)
@@ -810,10 +1143,11 @@ def profile_replay(cfg) -> dict:
     profiled_ms = profiled_walls[-1]
     busy_ms = sum(e.time_range.elapsed_us() for e in device) / 1e3
     hand = {k: sum(e.time_range.elapsed_us() for e in device
-                   if any(p in e.name for p in pats)) / 1e3
-            for k, pats in hand_kernels().items()}
+                   if any(is_kernel(e.name, f) for f in fns)) / 1e3
+            for k, fns in hand_kernels().items()}
     return dict(replay_wall_ms=walls, profiled_wall_ms=profiled_ms,
                 device_ms=busy_ms, busy_share=busy_ms / profiled_ms,
+                unprofiled_busy_share=busy_ms / min(walls),
                 device_launches=len(device),
                 launches_per_round=len(device) / cfg.n_rounds,
                 hand_kernel_ms=hand,
@@ -838,10 +1172,10 @@ def memory_use(run) -> dict:
                 max_memory_allocated=torch.cuda.max_memory_allocated())
 
 
-def check_seed_sharing(cfg) -> None:
-    """Phase 4, continued: a run of ``cfg`` with another seed replays the
-    captured graph with its own seeds and equals the eager loop's run;
-    ``cfg``'s own seed then gives the flagship digest again."""
+def check_seed_sharing(cfg, anchor: str) -> None:
+    """A run of ``cfg`` with another seed replays the captured graph with
+    its own seeds and equals the eager loop's run; ``cfg``'s own seed then
+    gives its digest ``anchor`` again."""
     from consensus_tpu_torch.core import serialize
     from consensus_tpu_torch.network import runner, simulator
     other = dataclasses.replace(cfg, seed=cfg.seed + 1)
@@ -850,15 +1184,15 @@ def check_seed_sharing(cfg) -> None:
     eager = serialize.digest(simulator.decided_payload(
         other, runner.run(other, graph=False))[3])
     again = simulator.run(cfg).digest
-    emit("seed_sharing", seed=other.seed, digest=replayed,
-         eager_digest=eager, new_captures=runner.captures - captured,
-         flagship_digest_again=again)
+    emit("seed_sharing", n_nodes=cfg.n_nodes, seed=other.seed,
+         digest=replayed, eager_digest=eager,
+         new_captures=runner.captures - captured, anchor_digest_again=again)
     require(runner.captures == captured,
             "a run with another seed captured a graph of its own")
-    require(replayed == eager and replayed != FLAGSHIP_DIGEST,
+    require(replayed == eager and replayed != anchor,
             "the replay with another seed disagrees with the eager loop")
-    require(again == FLAGSHIP_DIGEST,
-            "the flagship seed after another seed changed its digest")
+    require(again == anchor,
+            "the anchor's seed after another seed changed its digest")
 
 
 # --- phase 5: telemetry --------------------------------------------------------
@@ -938,11 +1272,48 @@ def check_telemetry(card: str, smi: str) -> int:
     require(waits, "election waits and leader elections disagree")
     require(same, "graph replay and eager loop disagree")
     for name, n in launches.items():
-        require(n > 0, f"kernel {name} was not launched with telemetry on")
+        require((n > 0) == (name not in DENSE),
+                f"kernel {name}: {n} launches on the telemetry path")
     require(anchor.digest == ANCHOR_DIGEST and anchor_totals == ANCHOR_TOTALS
             and anchor_flight == ANCHOR_FLIGHT,
             "the N = 10 000 telemetry run disagrees with its JAX anchor")
     return launches["telemetry"]
+
+
+def check_dense_path(card: str, smi: str) -> dict[str, int]:
+    """Phase 6: the dense engine's main path, raft-5node and raft-1kx1k
+    through ``simulator.run``, each replayed as one CUDA graph, with every
+    launch count set to 0 just before and read just after. Their digests
+    must be the committed anchors, KA and KL-KO must have launched and no
+    other kernel. Then the replay under the profiler, and another seed of
+    raft-1kx1k on the same graph against the eager loop. Returns the
+    launches of both runs."""
+    from consensus_tpu_torch.network import runner, simulator
+    total = dict.fromkeys(runner.launch_counts(), 0)
+    for name in DENSE_CONFIGS:
+        cfg = dense_config(name)
+        for mod, kernel in runner.KERNELS:
+            getattr(mod, kernel).launches = 0
+        memory = memory_use(lambda: simulator.run(cfg))
+        res = memory.pop("result")
+        launches = runner.launch_counts()
+        require(res.counts.shape == (cfg.n_sweeps, cfg.n_nodes)
+                and res.rec_a.shape == (cfg.n_sweeps, cfg.n_nodes, L),
+                "decided logs of the wrong shape")
+        emit("dense", config=name, digest=res.digest,
+             digest_ok=res.digest == DENSE_DIGESTS[name],
+             steps_per_sec=res.steps_per_sec, wall_s=res.wall_s,
+             max_commit=int(res.counts.max()), launches=launches, **memory,
+             **profile_replay(cfg), card=card, power=smi)
+        require(res.digest == DENSE_DIGESTS[name],
+                f"{name} digest {res.digest} != {DENSE_DIGESTS[name]}")
+        for kernel, n in launches.items():
+            require((n > 0) == (kernel in DENSE + ("random_u32",)),
+                    f"kernel {kernel}: {n} launches on the {name} path")
+            total[kernel] += n
+    cfg = dense_config("raft-1kx1k")
+    check_seed_sharing(cfg, DENSE_DIGESTS["raft-1kx1k"])
+    return total
 
 
 def main() -> int:
@@ -979,7 +1350,8 @@ def main() -> int:
     kernels = [check_random_u32(dev, gen), check_delivery_edges(dev, gen),
                check_top_active(dev, gen),
                *check_phases(dev, gen, flagship_config(
-                   telemetry_window=WINDOW))]
+                   telemetry_window=WINDOW)),
+               *check_dense_kernels(dev, gen)]
     torch.cuda.synchronize()
     require(sorted(k["name"] for k in kernels) == sorted(_build.SOURCES),
             "phase 3 does not check every kernel of csrc")
@@ -1004,16 +1376,20 @@ def main() -> int:
     require(res.digest == FLAGSHIP_DIGEST,
             f"flagship digest {res.digest} != {FLAGSHIP_DIGEST}")
     for name, n in launches.items():
-        require((n > 0) == (name != "telemetry"),
+        require((n > 0) == (name not in DENSE + ("telemetry",)),
                 f"kernel {name}: {n} launches on the main path")
-    check_seed_sharing(cfg)
+    check_seed_sharing(cfg, FLAGSHIP_DIGEST)
 
     # 5. telemetry and the flight recorder.
     launches["telemetry"] = check_telemetry(card, smi)
+
+    # 6. the dense engine: BASELINE configs raft-5node and raft-1kx1k.
+    dense = check_dense_path(card, smi)
+    launches.update({name: dense[name] for name in DENSE})
     for k in kernels:
         k["launches"] = launches[k["name"]]
 
-    # 6. bench.py's shape.
+    # 7. bench.py's shape.
     bench_cfg = flagship_config(max_entries=L - 16, seed=42)
     memory = memory_use(lambda: simulator.run(bench_cfg))
     bench = memory.pop("result")
@@ -1022,13 +1398,17 @@ def main() -> int:
          **profile_replay(bench_cfg), card=card, power=smi)
     require(int(bench.counts.max()) > 0, "bench shape committed nothing")
 
-    # 7. where the flagship's device time goes, and what runs in each phase.
+    # 8. where the flagship's device time goes, and what runs in each phase
+    # of an eager capped round and an eager dense round.
     prof = profile_replay(cfg)
     by_phase = plain_ops_by_phase(flagship_config(telemetry_window=WINDOW),
                                   telemetry=True)
+    dense_by_phase = plain_ops_by_phase(dense_config("raft-1kx1k",
+                                                     n_rounds=16))
     emit("profile", card=card, power=smi, **prof,
-         plain_ops_by_phase=by_phase, profiler_sessions_redone=REDONE)
-    for place, found in by_phase.items():
+         plain_ops_by_phase=by_phase, dense_plain_ops_by_phase=dense_by_phase,
+         profiler_sessions_redone=REDONE)
+    for place, found in [*by_phase.items(), *dense_by_phase.items()]:
         require(place == "init" or set(found) <= set(ZEROING),
                 f"PyTorch compute ops on the device in {place}: {found}")
 

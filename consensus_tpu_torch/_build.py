@@ -24,7 +24,8 @@ import torch
 
 SOURCES = ("random_u32", "delivery_edges", "top_active", "append_entries",
            "candidacy", "elect", "slots", "acks_commit", "propose",
-           "telemetry")
+           "telemetry", "delivery", "dense_elect", "dense_append",
+           "dense_acks_commit")
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "build" / \
@@ -74,6 +75,23 @@ SIGNATURES = {
     # entry, commit, role, log_len, down; t, w, lat accumulators (w and
     # lat null with the recorder off); B, N, A, K, window, n_windows
     "telemetry": (_P,) * 13 + (_I,) * 6,
+    # seed, round, out, side scratch, B, N, drop_cut, part_cut
+    "delivery": (_P, _U, _P, _P, _I, _I, _U, _U),
+    # seed, round, churn_cut, t_min, t_span; deliver, term, role,
+    # voted_for, timer, timeout, log_term, log_len, match_idx and next_idx
+    # (in place); term, role, voted_for, timer, timeout, reset outputs,
+    # scratch; B, N, L
+    "dense_elect": (_P, _U, _U, _I, _U) + (_P,) * 17 + (_I,) * 3,
+    # seed, round, t_min, t_span; deliver, term, role, voted_for, timer,
+    # timeout, reset, log_term, log_val (in place), log_len, commit,
+    # match_idx (in place), next_idx; term, role, voted_for, timer,
+    # timeout, reset, log_len, commit, was_leader, ack_to, ack_ok,
+    # ack_match outputs; scratch, row scratch; B, N, L, E
+    "dense_append": (_P, _U, _I, _U) + (_P,) * 27 + (_I,) * 4,
+    # seed, t_min, t_span; deliver, was_leader, ack_to, ack_ok, ack_match,
+    # log_term; term, role, voted_for, timeout, commit, match_idx,
+    # next_idx, timer (in place), reset; scratch; B, N, L, E
+    "dense_acks_commit": (_P, _I, _U) + (_P,) * 16 + (_I,) * 4,
 }
 
 

@@ -1,40 +1,46 @@
 """Carry state across between the JAX package and the port.
 
 The simulator has no weights; its state plays their part. A batched JAX
-carry of the capped engine (``RaftSparseState`` with [B, ...] leaves, as
-``numpy`` arrays) becomes the port's :class:`RaftSparseState` and back, with
-every dtype kept: uint32 seed, int32 protocol state, uint8 match/next and
-bool down. The scan's telemetry accumulators (``telem``, ``win``, ``lat``
-of ``_chunk_jit``, int32) carry across the same way.
+carry (``numpy`` arrays with [B, ...] leaves) of the dense engine
+(``RaftState``) or of the capped one (``RaftSparseState``) becomes the
+port's :class:`RaftState` or :class:`RaftSparseState`, told apart by their
+leaves, and back, with every dtype kept: uint32 seed, int32 protocol
+state, uint8 match/next (``match_idx`` / ``next_idx``, ``lead_match`` /
+``lead_next``) and bool down. The scan's telemetry accumulators
+(``telem``, ``win``, ``lat`` of ``_chunk_jit``, int32) carry across the
+same way.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from .engines.raft import RaftState
 from .engines.raft_sparse import RaftSparseState
 
 DTYPES = {"seed": np.uint32, "lead_match": np.uint8, "lead_next": np.uint8,
-          "down": np.bool_}
+          "match_idx": np.uint8, "next_idx": np.uint8, "down": np.bool_}
 
 
-def state_from_numpy(leaves: dict, device="cpu") -> RaftSparseState:
-    """The port's state from a dict of batched numpy leaves."""
+def state_from_numpy(leaves: dict,
+                     device="cpu") -> RaftState | RaftSparseState:
+    """The port's state from a dict of batched numpy leaves: the dense
+    engine's when they hold ``match_idx``, else the capped engine's."""
+    kind = RaftState if "match_idx" in leaves else RaftSparseState
     out = {}
-    for name in RaftSparseState._fields:
+    for name in kind._fields:
         a = np.ascontiguousarray(leaves[name])
         want = DTYPES.get(name, np.int32)
         if a.dtype != want:
             raise TypeError(f"{name}: expected {np.dtype(want)}, got "
                             f"{a.dtype}")
         out[name] = torch.from_numpy(a.copy()).to(device)
-    return RaftSparseState(**out)
+    return kind(**out)
 
 
-def state_to_numpy(st: RaftSparseState) -> dict[str, np.ndarray]:
+def state_to_numpy(st: RaftState | RaftSparseState) -> dict[str, np.ndarray]:
     """A dict of batched numpy leaves, in the JAX carry's dtypes."""
-    return {name: getattr(st, name).cpu().numpy()
-            for name in RaftSparseState._fields}
+    return {name: getattr(st, name).cpu().numpy() for name in st._fields}
 
 
 def accumulators_from_numpy(telem, win=None, lat=None, device="cpu"):

@@ -1,10 +1,12 @@
-"""The run configuration of the port: the capped-Raft slice of ``Config``.
+"""The run configuration of the port: the Raft slice of ``Config``.
 
 A slim copy of ``consensus_tpu/core/config.py``: the same field names,
-defaults and u32 cutoffs for what the capped-Raft path reads. The knobs of
-the JAX package that this port does not implement yet are fields too, and
-setting one off its default raises ``ValueError``; the port never ignores a
-setting silently.
+defaults and u32 cutoffs for what the Raft engines read. As in the JAX
+package, ``max_active = 0`` selects the dense engine (``engines/raft.py``)
+and ``max_active > 0`` the §3b capped one (``engines/raft_sparse.py``).
+The knobs of the JAX package that this port does not implement yet are
+fields too, and setting one off its default raises ``ValueError``; the
+port never ignores a setting silently.
 """
 from __future__ import annotations
 
@@ -27,9 +29,10 @@ UNSUPPORTED = {
 
 # The top-A kernel keeps a sorted list of A keys per thread in registers.
 MAX_ACTIVE = 16
-# lead_match / lead_next are uint8 (L + 1 <= 255), as the JAX package
-# stores them at these capacities; PyTorch has no uint16 arithmetic for the
-# wider ones.
+# The replication bookkeeping (the capped engine's lead_match / lead_next,
+# the dense engine's match_idx / next_idx) is uint8 (L + 1 <= 255), as the
+# JAX package stores it at these capacities; PyTorch has no uint16
+# arithmetic for the wider ones.
 MAX_LOG_CAPACITY = 254
 
 
@@ -80,12 +83,10 @@ class Config:
                              "must be >= 1")
         if self.t_max <= self.t_min:
             raise ValueError("t_max must exceed t_min")
-        if self.max_active == 0:
-            raise ValueError("max_active = 0 selects the dense raft engine, "
-                             "which is not ported yet")
-        if not 1 <= self.max_active <= min(MAX_ACTIVE, self.n_nodes):
-            raise ValueError(f"max_active must be in [1, min({MAX_ACTIVE}, "
-                             "n_nodes)]")
+        if self.max_active != 0 and \
+                not 1 <= self.max_active <= min(MAX_ACTIVE, self.n_nodes):
+            raise ValueError(f"max_active must be 0 (the dense engine) or in "
+                             f"[1, min({MAX_ACTIVE}, n_nodes)]")
         if self.log_capacity > MAX_LOG_CAPACITY:
             raise ValueError(f"log_capacity must be <= {MAX_LOG_CAPACITY} "
                              "(uint8 replication bookkeeping)")

@@ -1,0 +1,109 @@
+// Kernel KL: the SPEC §2 delivery mask of one round over all N nodes of each
+// sweep, [B, N, N] bool, for the dense Raft engine.
+//
+// Replaces: consensus_tpu/ops/adversary.py delivery (lines 61-86, with
+// max_delay = 0), with the delivery mixer of core/rng.py delivery_u32_jnp
+// (K2) inside it, as engines/raft.py raft_round calls it once a round.
+//
+// Edge i -> j of round r is delivered when i != j, the mixer draw
+// fmix(absorb(absorb(absorb(seed ^ DELIVER, r), i), j)) is not below
+// drop_cut, and, in a round whose partition is active (a Threefry draw
+// below part_cut), both ends drew the same side.
+//
+// Bound: operations. The output is B * N * N bytes (8.4 MB at raft-1kx1k,
+// B = 8, N = 1024: 2.5 us at 3.35 TB/s); each edge takes one mixer absorb
+// and the finaliser, about 23 integer operations once the (seed, r) and
+// per-row absorbs are hoisted (5.8 us at 33.5e12 operations a second).
+// Design: with a partition (part_cut != 0), launch 1 draws each node's
+// side once, a thread per node, writing 0 for every node of a sweep whose
+// partition is not active this round, so that launch 2 reads one byte per
+// end instead of three Threefry draws an edge. Launch 2: a block per
+// (sweep, sender row) and column chunk; each thread hoists the row's
+// absorbs and writes four consecutive edges, as one 32-bit store when rows
+// are 4-byte aligned (N % 4 == 0). A small N (raft-5node: N = 5) gets
+// blocks of one warp.
+#include <cuda_runtime.h>
+
+#include "rng.cuh"
+
+namespace {
+
+constexpr int VEC = 4;
+
+// Launch 1. A thread per (sweep, node).
+__global__ void delivery_side_kernel(const uint32_t* __restrict__ seed,
+                                     uint32_t r, uint32_t part_cut,
+                                     uint8_t* __restrict__ side,
+                                     int N, long long rows) {
+  const long long row =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (row >= rows) return;
+  const int b = static_cast<int>(row / N);
+  const uint32_t node =
+      static_cast<uint32_t>(row - static_cast<long long>(b) * N);
+  const uint32_t sd = seed[b];
+  const bool active =
+      ctt::random_u32(sd, ctt::STREAM_PARTITION, r, 0u, 0u) < part_cut;
+  side[row] = active
+      ? static_cast<uint8_t>(
+            ctt::random_u32(sd, ctt::STREAM_PARTITION, r, 1u, node) & 1u)
+      : 0;
+}
+
+// Launch 2. Grid (B * N rows, ceil(N / (VEC * blockDim.x))).
+__global__ void delivery_kernel(const uint32_t* __restrict__ seed,
+                                uint32_t r, const uint8_t* __restrict__ side,
+                                unsigned char* __restrict__ out, int N,
+                                uint32_t drop_cut) {
+  const long long row = blockIdx.x;  // b * N + i
+  const int b = static_cast<int>(row / N);
+  const int i = static_cast<int>(row - static_cast<long long>(b) * N);
+  const int j0 = (blockIdx.y * blockDim.x + threadIdx.x) * VEC;
+  if (j0 >= N) return;
+  const uint32_t h = ctt::mix_absorb(
+      ctt::mix_absorb(seed[b] ^ ctt::STREAM_DELIVER, r),
+      static_cast<uint32_t>(i));
+  const uint8_t side_i = side ? side[row] : 0;
+  const uint8_t* side_b = side ? side + static_cast<long long>(b) * N : side;
+  uint32_t word = 0u;
+  for (int v = 0; v < VEC; ++v) {
+    const int j = j0 + v;
+    if (j >= N) break;
+    const bool ok = j != i &&
+        ctt::mix_fin(ctt::mix_absorb(h, static_cast<uint32_t>(j))) >=
+            drop_cut &&
+        (!side || side_b[j] == side_i);
+    word |= static_cast<uint32_t>(ok) << (8 * v);
+  }
+  unsigned char* o = out + row * N + j0;
+  if ((N & (VEC - 1)) == 0) {
+    *reinterpret_cast<uint32_t*>(o) = word;
+  } else {
+    for (int v = 0; v < VEC && j0 + v < N; ++v)
+      o[v] = static_cast<unsigned char>((word >> (8 * v)) & 0xFFu);
+  }
+}
+
+}  // namespace
+
+extern "C" int ctt_delivery(const uint32_t* seed, uint32_t r,
+                            unsigned char* out, uint8_t* side, int B, int N,
+                            uint32_t drop_cut, uint32_t part_cut,
+                            cudaStream_t st) {
+  if (B == 0 || N == 0) return 0;
+  const long long rows = static_cast<long long>(B) * N;
+  if (part_cut != 0u) {
+    delivery_side_kernel<<<static_cast<unsigned>((rows + 255) / 256), 256, 0,
+                           st>>>(seed, r, part_cut, side, N, rows);
+    const int err = static_cast<int>(cudaGetLastError());
+    if (err != 0) return err;
+  } else {
+    side = nullptr;
+  }
+  const int quads = (N + VEC - 1) / VEC;
+  const int threads = quads >= 256 ? 256 : ((quads + 31) / 32) * 32;
+  const dim3 grid(static_cast<unsigned>(rows),
+                  static_cast<unsigned>((quads + threads - 1) / threads));
+  delivery_kernel<<<grid, threads, 0, st>>>(seed, r, side, out, N, drop_cut);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,269 @@
+// Kernel KM: SPEC §3 P0 churn, P1 candidacy and P2 election of the dense
+// Raft round at every node of each sweep, with the winners' fresh
+// replication rows.
+//
+// Replaces: consensus_tpu/engines/raft.py raft_round (K14) lines 301-420 on
+// its flat path: the P0 churn step-down, P1 candidacy with the timeout
+// redrawn under the new term (_draw_timeout, K10), P2a term catch-up (the
+// highest term among the requests deliver[c, j] delivered to j), P2b
+// grants (re-grant to voted_for if that candidate is eligible at j, else
+// the least eligible candidate id if j has not voted), P2c the tally of
+// grants delivered back on deliver[j, c], and the winners' promotion with
+// their match_idx rows reset to 0 but their own log length at their own
+// column and their next_idx rows to that length + 1.
+//
+// Bound: bytes. Per node it reads six i32 words and its last log word and
+// writes five i32 words and a flag (49 bytes); per (candidate, receiver)
+// pair one mask byte (the request), per granting node one more (the
+// response); per winner two [N] byte rows written. At raft-1kx1k (B = 8,
+// N = 1024) with one candidate a sweep that is about 0.5 MB, well under a
+// microsecond at 3.35 TB/s: the kernel is set by its launches' latency.
+// Design: three launches on the stream.
+//  1. A thread per node runs P0-P1 in registers, writes its post-P1 state
+//     and its last log term, and appends itself, if a candidate, to its
+//     sweep's candidate table (id, term, log length, last log term: one
+//     16-byte entry; the order the atomic gives does not matter, since P2
+//     takes a maximum, a minimum and a membership test over it).
+//  2. A thread per receiver j walks its sweep's table once, reading the
+//     request bytes deliver[c, j] (consecutive j: coalesced). It keeps the
+//     highest delivered term and, among the delivered up-to-date
+//     candidates of that term, the least id and whether voted_for is one
+//     of them; a candidate is eligible exactly when its term is the
+//     receiver's term after the catch-up, so one pass decides P2a and P2b.
+//     A delivered grant is one atomic add to the candidate's tally.
+//  3. A block per sweep checks its candidates (still a candidate after
+//     P2a, and 1 + tally >= N / 2 + 1), promotes the winners and writes
+//     their two rows with the whole block.
+#include <climits>
+
+#include <cuda_runtime.h>
+
+#include "rng.cuh"
+
+namespace {
+
+constexpr int THREADS = 256;
+constexpr int32_t ROLE_F = 0, ROLE_C = 1, ROLE_L = 2, NONE = -1;
+
+// Launch 1. A thread per (sweep, node), flattened.
+__global__ void __launch_bounds__(THREADS)
+dense_candidacy_kernel(const uint32_t* __restrict__ seed, uint32_t r,
+                       uint32_t churn_cut, int32_t t_min, uint32_t t_span,
+                       const int32_t* __restrict__ term,
+                       const int32_t* __restrict__ role,
+                       const int32_t* __restrict__ voted_for,
+                       const int32_t* __restrict__ timer,
+                       const int32_t* __restrict__ timeout,
+                       const int32_t* __restrict__ log_term,
+                       const int32_t* __restrict__ log_len,
+                       int32_t* __restrict__ term_out,
+                       int32_t* __restrict__ role_out,
+                       int32_t* __restrict__ vf_out,
+                       int32_t* __restrict__ timer_out,
+                       int32_t* __restrict__ timeout_out,
+                       bool* __restrict__ reset_out, int4* __restrict__ cands,
+                       int* __restrict__ n_cand, int32_t* __restrict__ lterm,
+                       int N, int L, long long rows) {
+  const long long row =
+      static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
+  if (row >= rows) return;
+  const int b = static_cast<int>(row / N);
+  const int j = static_cast<int>(row - static_cast<long long>(b) * N);
+  const uint32_t sd = seed[b];
+  int32_t tm = term[row], rl = role[row], vf = voted_for[row];
+  int32_t tmr = timer[row], to = timeout[row];
+  bool reset = false;
+  // P0: the sweep's churn event steps its leaders down.
+  if (rl == ROLE_L && churn_cut != 0u &&
+      ctt::random_u32(sd, ctt::STREAM_CHURN, r, 0u, 0u) < churn_cut) {
+    rl = ROLE_F;
+    tmr = 0;
+    reset = true;
+  }
+  // P1: a timed-out non-leader stands for the next term.
+  if (rl != ROLE_L && tmr >= to) {
+    tm = static_cast<int32_t>(static_cast<uint32_t>(tm) + 1u);
+    rl = ROLE_C;
+    vf = j;
+    tmr = 0;
+    reset = true;
+    to = ctt::draw_timeout(sd, tm, j, t_min, t_span);
+  }
+  const int32_t len = log_len[row];
+  const int k = min(max(len - 1, 0), L - 1);
+  const int32_t lt = len > 0 ? log_term[row * L + k] : 0;
+  term_out[row] = tm;
+  role_out[row] = rl;
+  vf_out[row] = vf;
+  timer_out[row] = tmr;
+  timeout_out[row] = to;
+  reset_out[row] = reset;
+  lterm[row] = lt;
+  if (rl == ROLE_C) {
+    const int q = atomicAdd(&n_cand[b], 1);
+    cands[static_cast<long long>(b) * N + q] = make_int4(j, tm, len, lt);
+  }
+}
+
+// Launch 2. A thread per (sweep, receiver), flattened.
+__global__ void __launch_bounds__(THREADS)
+dense_grants_kernel(const uint32_t* __restrict__ seed, int32_t t_min,
+                    uint32_t t_span, const bool* __restrict__ deliver,
+                    const int32_t* __restrict__ log_len,
+                    const int4* __restrict__ cands,
+                    const int* __restrict__ n_cand,
+                    const int32_t* __restrict__ lterm,
+                    int32_t* __restrict__ term_out,
+                    int32_t* __restrict__ role_out,
+                    int32_t* __restrict__ vf_out,
+                    int32_t* __restrict__ timer_out,
+                    int32_t* __restrict__ timeout_out,
+                    bool* __restrict__ reset_out, int* __restrict__ votes,
+                    int N, long long rows) {
+  const long long row =
+      static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
+  if (row >= rows) return;
+  const int b = static_cast<int>(row / N);
+  const int j = static_cast<int>(row - static_cast<long long>(b) * N);
+  const long long nodes = static_cast<long long>(b) * N;
+  const int4* table = cands + nodes;
+  const int nc = n_cand[b];
+  int32_t tm = term_out[row], vf = vf_out[row];
+  const int32_t ol = lterm[row], ll = log_len[row];
+  // One pass: the highest delivered request term `top`, and over the
+  // delivered up-to-date candidates of term `top`, the least id and
+  // whether voted_for is among them.
+  bool any = false, vf_elig = false;
+  int32_t top = INT_MIN, first = N;
+  for (int q = 0; q < nc; ++q) {
+    const int4 c = table[q];  // id, term, log length, last log term
+    if (!deliver[(nodes + c.x) * N + j]) continue;
+    if (!any || c.y > top) {
+      any = true;
+      top = c.y;
+      vf_elig = false;
+      first = N;
+    }
+    if (c.y == top && (c.w > ol || (c.w == ol && c.z >= ll))) {
+      vf_elig |= c.x == vf;
+      first = min(first, c.x);
+    }
+  }
+  // P2a: catch up to the highest delivered request term (0 when none).
+  const int32_t t_in = any ? max(top, 0) : 0;
+  int32_t rl = role_out[row], tmr = timer_out[row], to = timeout_out[row];
+  if (t_in > tm) {
+    tm = t_in;
+    rl = ROLE_F;
+    vf = NONE;
+    to = ctt::draw_timeout(seed[b], tm, j, t_min, t_span);
+  }
+  // P2b: the candidates of term `top` are eligible iff that is j's term.
+  if (!any || top != tm) {
+    vf_elig = false;
+    first = N;
+  }
+  const int32_t grant =
+      (vf >= 0 && vf_elig) ? vf : (vf == NONE && first < N ? first : NONE);
+  bool rs = reset_out[row];
+  if (grant >= 0) {
+    vf = grant;
+    tmr = 0;
+    rs = true;
+    // P2c: the grant travels back on deliver[j, grant].
+    if (deliver[row * N + grant]) atomicAdd(&votes[nodes + grant], 1);
+  }
+  term_out[row] = tm;
+  role_out[row] = rl;
+  vf_out[row] = vf;
+  timer_out[row] = tmr;
+  timeout_out[row] = to;
+  reset_out[row] = rs;
+}
+
+// Launch 3. A block per sweep.
+__global__ void __launch_bounds__(THREADS)
+dense_winners_kernel(const int32_t* __restrict__ log_len,
+                     const int4* __restrict__ cands,
+                     const int* __restrict__ n_cand,
+                     const int* __restrict__ votes,
+                     int32_t* __restrict__ role_out,
+                     int32_t* __restrict__ timer_out,
+                     bool* __restrict__ reset_out,
+                     uint8_t* __restrict__ match_idx,
+                     uint8_t* __restrict__ next_idx, int N) {
+  __shared__ int s_n;
+  __shared__ int s_won[THREADS];
+  const int b = blockIdx.x;
+  const long long nodes = static_cast<long long>(b) * N;
+  const int nc = n_cand[b];
+  const int majority = N / 2 + 1;
+  for (int base = 0; base < nc; base += THREADS) {  // uniform in the block
+    if (threadIdx.x == 0) s_n = 0;
+    __syncthreads();
+    const int q = base + threadIdx.x;
+    if (q < nc) {
+      const int c = cands[nodes + q].x;
+      const long long row = nodes + c;
+      if (role_out[row] == ROLE_C && 1 + votes[row] >= majority) {
+        role_out[row] = ROLE_L;
+        timer_out[row] = 0;
+        reset_out[row] = true;
+        s_won[atomicAdd(&s_n, 1)] = c;
+      }
+    }
+    __syncthreads();
+    for (int w = 0; w < s_n; ++w) {
+      const int c = s_won[w];
+      const long long row = nodes + c;
+      const int32_t len = log_len[row];
+      uint8_t* m = match_idx + row * N;
+      uint8_t* n = next_idx + row * N;
+      for (int k = threadIdx.x; k < N; k += THREADS) {
+        m[k] = k == c ? static_cast<uint8_t>(len) : 0;
+        n[k] = static_cast<uint8_t>(len + 1);
+      }
+    }
+    __syncthreads();
+  }
+}
+
+}  // namespace
+
+extern "C" int ctt_dense_elect(
+    const uint32_t* seed, uint32_t r, uint32_t churn_cut, int32_t t_min,
+    uint32_t t_span, const bool* deliver, const int32_t* term,
+    const int32_t* role, const int32_t* voted_for, const int32_t* timer,
+    const int32_t* timeout, const int32_t* log_term, const int32_t* log_len,
+    uint8_t* match_idx, uint8_t* next_idx, int32_t* term_out,
+    int32_t* role_out, int32_t* vf_out, int32_t* timer_out,
+    int32_t* timeout_out, bool* reset_out, int32_t* scratch, int B, int N,
+    int L, cudaStream_t st) {
+  if (t_span == 0u) return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0 || N == 0) return 0;
+  const long long rows = static_cast<long long>(B) * N;
+  // Scratch: the candidate tables [B, N] int4 first (16-byte aligned),
+  // then the counts [B] and tallies [B, N] (zeroed here), then the last
+  // log terms [B, N].
+  int4* cands = reinterpret_cast<int4*>(scratch);
+  int* n_cand = scratch + 4 * rows;
+  int* votes = n_cand + B;
+  int32_t* lterm = votes + rows;
+  int err = static_cast<int>(
+      cudaMemsetAsync(n_cand, 0, sizeof(int) * (B + rows), st));
+  if (err != 0) return err;
+  const unsigned blocks = static_cast<unsigned>((rows + THREADS - 1) / THREADS);
+  dense_candidacy_kernel<<<blocks, THREADS, 0, st>>>(
+      seed, r, churn_cut, t_min, t_span, term, role, voted_for, timer,
+      timeout, log_term, log_len, term_out, role_out, vf_out, timer_out,
+      timeout_out, reset_out, cands, n_cand, lterm, N, L, rows);
+  if ((err = static_cast<int>(cudaGetLastError())) != 0) return err;
+  dense_grants_kernel<<<blocks, THREADS, 0, st>>>(
+      seed, t_min, t_span, deliver, log_len, cands, n_cand, lterm, term_out,
+      role_out, vf_out, timer_out, timeout_out, reset_out, votes, N, rows);
+  if ((err = static_cast<int>(cudaGetLastError())) != 0) return err;
+  dense_winners_kernel<<<B, THREADS, 0, st>>>(log_len, cands, n_cand, votes,
+                                              role_out, timer_out, reset_out,
+                                              match_idx, next_idx, N);
+  return static_cast<int>(cudaGetLastError());
+}

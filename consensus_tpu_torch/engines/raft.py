@@ -1,17 +1,48 @@
-"""Raft helpers shared with the capped engine (``consensus_tpu/engines/raft.py``).
+"""Dense Raft in PyTorch, and the helpers it shares with the capped engine.
 
-The JAX package's ``_pick1`` / ``_pick_row`` one-hot reductions exist only to
-keep gathers off the TPU's serial gather unit; here they are plain indexing
-(``gather``) at the call sites, with the same values.
+The port of ``consensus_tpu/engines/raft.py`` on its flat path (no crash,
+attack, byzantine or switch gates, no telemetry): SPEC §3 over every node
+at once, with the [N, N] ``match_idx`` / ``next_idx`` replication state
+and the full [N, N] delivery mask of each round. Sweeps are a leading
+batch axis B on every tensor. ``Config(max_active=0)`` selects it.
+
+Four functions are wrappers of hand-written CUDA kernels, each beside its
+plain PyTorch version (``<name>_plain``), which CPU tensors run:
+
+* ``ops/adversary.py`` :func:`~consensus_tpu_torch.ops.adversary.delivery`
+  — kernel KL (``csrc/delivery.cu``): the round's [B, N, N] mask;
+* :func:`dense_elect` — kernel KM (``csrc/dense_elect.cu``): P0 churn, P1
+  candidacy, P2 term catch-up, grants, tally and winners, whose
+  ``match_idx`` / ``next_idx`` rows it resets;
+* :func:`dense_append` — kernel KN (``csrc/dense_append.cu``): P3a
+  propose, P3b snapshot, P3c receivers and the apply;
+* :func:`dense_acks_commit` — kernel KO (``csrc/dense_acks_commit.cu``):
+  P3d acks, P3e majority commit and P4 timers.
+
+On the card the round runs nothing but these launches; kernel KA
+(``core/rng.py``) draws the initial timeouts. The logs and the
+replication state are updated in place, where the JAX round returns new
+arrays: a round's state replaces its input state.
+
+The JAX package's ``_pick1`` / ``_pick_row`` one-hot reductions exist only
+to keep gathers off the TPU's serial gather unit; here they are plain
+indexing (``gather``), with the same values.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
 from ..core import rng
+from ..core.config import Config
+from ..ops.adversary import bitcast_i32, churn, delivery
 
 ROLE_F, ROLE_C, ROLE_L = 0, 1, 2
 NONE = -1
+
+# The engine's name, as the JAX package's EngineDef names it.
+NAME = "raft"
 
 # The capped engine's telemetry counters, in order: a copy of
 # consensus_tpu/engines/raft.py RAFT_TELEMETRY with its tails
@@ -51,3 +82,482 @@ def last_term(log_term, log_len) -> torch.Tensor:
     k = (log_len - 1).clamp(0, L - 1).to(torch.int64)
     picked = log_term.gather(-1, k[..., None])[..., 0]
     return torch.where(log_len > 0, picked, 0)
+
+
+def bump(cfg: Config, seed, cond, new_term, term, role, voted_for, timeout):
+    """Adopt a higher term where ``cond``: follower, no vote, and the
+    timeout redrawn under the new term (the plain versions' draw)."""
+    idx = torch.arange(term.shape[1], dtype=torch.int32, device=term.device)
+    term = torch.where(cond, new_term, term)
+    return (term, torch.where(cond, ROLE_F, role),
+            torch.where(cond, NONE, voted_for),
+            torch.where(cond, draw_timeout(seed, cfg.t_min, cfg.t_max, term,
+                                           idx, rng.random_u32_plain),
+                        timeout))
+
+
+def commit_median_plain(match, majority: int, E: int) -> torch.Tensor:
+    """The majority-th largest value of each [N] row of the u8 ``match``
+    ([B, R, N]), capped at E: the largest m in [0, E] that at least
+    ``majority`` entries reach, by the same fixed-depth binary search over
+    [0, E + 1) as the JAX round. [B, R] i32."""
+    B, R, _ = match.shape
+    lo = torch.zeros((B, R), dtype=torch.int32, device=match.device)
+    hi = torch.full((B, R), E + 1, dtype=torch.int32, device=match.device)
+    for _ in range((E + 1).bit_length()):
+        mid = (lo + hi) // 2
+        cnt = (match >= mid[:, :, None]).sum(2, dtype=torch.int32)
+        ok = cnt >= majority
+        lo = torch.where(ok, mid, lo)
+        hi = torch.where(ok, hi, mid)
+    return lo
+
+
+def timeout_span(cfg: Config) -> int:
+    """t_max - t_min, the modulus of the inline timeout draws."""
+    span = cfg.t_max - cfg.t_min
+    if not 0 < span < 2**32 or not -2**31 <= cfg.t_min < 2**31:
+        raise ValueError("the kernels take int32 t_min and 0 < t_max - t_min "
+                         "< 2**32")
+    return span
+
+
+def check_all(dev, *specs) -> None:
+    """Raise unless each (tensor, dtype, shape) of ``specs`` is what a
+    kernel takes on the CUDA device ``dev`` (:func:`_build.check`)."""
+    from .. import _build
+    for t, dt, shape in specs:
+        _build.check(t, dt, dev, shape)
+
+
+# --- the dense engine --------------------------------------------------------
+
+class RaftState(NamedTuple):
+    seed: torch.Tensor       # [B] uint32
+    term: torch.Tensor       # [B, N] i32
+    role: torch.Tensor       # [B, N] i32
+    voted_for: torch.Tensor  # [B, N] i32
+    log_term: torch.Tensor   # [B, N, L] i32
+    log_val: torch.Tensor    # [B, N, L] i32
+    log_len: torch.Tensor    # [B, N] i32
+    commit: torch.Tensor     # [B, N] i32
+    timer: torch.Tensor      # [B, N] i32
+    timeout: torch.Tensor    # [B, N] i32
+    match_idx: torch.Tensor  # [B, N, N] uint8, match_idx[b, l, j]
+    next_idx: torch.Tensor   # [B, N, N] uint8
+    down: torch.Tensor       # [B, N] bool (SPEC §6c; all False here)
+
+
+def raft_init(cfg: Config, seeds: torch.Tensor) -> RaftState:
+    """Fresh state for each sweep seed in ``seeds`` ([B] uint32)."""
+    N, L = cfg.n_nodes, cfg.log_capacity
+    B, dev = seeds.shape[0], seeds.device
+    idx = torch.arange(N, dtype=torch.int32, device=dev)
+    z = torch.zeros((B, N), dtype=torch.int32, device=dev)
+    mdt = match_dtype(L)
+    return RaftState(
+        seed=seeds, term=z, role=z.clone(),
+        voted_for=torch.full((B, N), NONE, dtype=torch.int32, device=dev),
+        log_term=torch.zeros((B, N, L), dtype=torch.int32, device=dev),
+        log_val=torch.zeros((B, N, L), dtype=torch.int32, device=dev),
+        log_len=z.clone(), commit=z.clone(), timer=z.clone(),
+        timeout=draw_timeout(seeds, cfg.t_min, cfg.t_max, 0, idx),
+        match_idx=torch.zeros((B, N, N), dtype=mdt, device=dev),
+        next_idx=torch.ones((B, N, N), dtype=mdt, device=dev),
+        down=torch.zeros((B, N), dtype=torch.bool, device=dev),
+    )
+
+
+# --- KM: P0 churn, P1 candidacy, P2 election ---------------------------------
+
+def dense_elect_plain(cfg: Config, seed, r: int, deliver, term, role,
+                      voted_for, timer, timeout, log_term, log_len, match_idx,
+                      next_idx):
+    """Plain version of KM, SPEC §3 P0-P2 at every node of each sweep.
+
+    P0: the round's churn event steps leaders down. P1: every non-leader
+    whose timer reached its timeout stands for the next term, votes for
+    itself and redraws its timeout. P2 over the requests of every
+    candidate c (its post-P1 term, log length and last log term): P2a, the
+    highest term among the requests ``deliver[c, j]`` delivered to j bumps
+    j; P2b, j re-grants to ``voted_for`` if that candidate is eligible at
+    j, else grants the least eligible candidate id if it has not voted;
+    P2c, candidate c counts 1 + the grants ``deliver[j, c]`` delivered to
+    it, and a candidate holding a majority becomes leader with fresh
+    ``match_idx`` (0 but its own log length at its own column) and
+    ``next_idx`` (its log length + 1) rows. ``match_idx`` / ``next_idx``
+    ([B, N, N] u8) are updated in place; returns new (term, role,
+    voted_for, timer, timeout, reset), all [B, N]."""
+    u32 = rng.random_u32_plain
+    N = term.shape[1]
+    idx = torch.arange(N, dtype=torch.int32, device=term.device)
+    mdt = match_idx.dtype
+
+    # ---- P0 churn, P1 candidacy.
+    stepdown = churn(seed, r, cfg.churn_cutoff, u32)[:, None] \
+        & (role == ROLE_L)
+    role = torch.where(stepdown, ROLE_F, role)
+    timer = torch.where(stepdown, 0, timer)
+    reset = stepdown
+    cand_new = (role != ROLE_L) & (timer >= timeout)
+    term = term + cand_new.to(torch.int32)
+    role = torch.where(cand_new, ROLE_C, role)
+    voted_for = torch.where(cand_new, idx, voted_for)
+    timer = torch.where(cand_new, 0, timer)
+    reset = reset | cand_new
+    timeout = torch.where(
+        cand_new, draw_timeout(seed, cfg.t_min, cfg.t_max, term, idx, u32),
+        timeout)
+
+    # ---- P2 election over the post-P1 requests; [B, c, j] below.
+    was_cand = role == ROLE_C
+    req_term, req_lidx = term, log_len
+    req_lterm = last_term(log_term, log_len)
+    sent = was_cand[:, :, None] & deliver
+    t_in = torch.where(sent, req_term[:, :, None], 0).amax(1)
+    term, role, voted_for, timeout = bump(cfg, seed, t_in > term, t_in,
+                                          term, role, voted_for, timeout)
+    up_to_date = (req_lterm[:, :, None] > req_lterm[:, None, :]) | (
+        (req_lterm[:, :, None] == req_lterm[:, None, :])
+        & (req_lidx[:, :, None] >= log_len[:, None, :]))
+    elig = sent & (req_term[:, :, None] == term[:, None, :]) & up_to_date
+    vf_safe = voted_for.clamp(0, N - 1).to(torch.int64)
+    vf_elig = (voted_for >= 0) & elig.gather(1, vf_safe[:, None, :])[:, 0]
+    first_elig = torch.where(elig, idx[:, None], N).amin(1)
+    grant = torch.where(
+        vf_elig, voted_for,
+        torch.where((voted_for == NONE) & (first_elig < N), first_elig, NONE))
+    granted = grant >= 0
+    voted_for = torch.where(granted, grant, voted_for)
+    timer = torch.where(granted, 0, timer)
+    reset = reset | granted
+    resp = (grant[:, :, None] == idx) & deliver                 # [B, j, c]
+    votes = 1 + resp.sum(1, dtype=torch.int32)
+    win = (role == ROLE_C) & (votes >= N // 2 + 1)
+    role = torch.where(win, ROLE_L, role)
+    timer = torch.where(win, 0, timer)
+    reset = reset | win
+    eye = torch.eye(N, dtype=torch.bool, device=term.device)
+    w = win[:, :, None]
+    match_idx.copy_(torch.where(
+        w, torch.where(eye, log_len[:, :, None], 0), match_idx).to(mdt))
+    next_idx.copy_(torch.where(w, log_len[:, :, None] + 1,
+                               next_idx).to(mdt))
+    return term, role, voted_for, timer, timeout, reset
+
+
+def dense_elect(cfg: Config, seed, r: int, deliver, term, role, voted_for,
+                timer, timeout, log_term, log_len, match_idx, next_idx):
+    """Kernel KM: same arguments, in-place update and result as
+    :func:`dense_elect_plain`, which it runs for CPU tensors; for CUDA
+    tensors it launches ``csrc/dense_elect.cu`` (a thread per node for
+    P0-P1 that lists the sweep's candidates, a thread per receiver that
+    walks that list for P2a-P2b and adds its delivered grant to the
+    tally, then a block per sweep for the winners and their rows)."""
+    if term.device.type == "cpu":
+        return dense_elect_plain(cfg, seed, r, deliver, term, role,
+                                 voted_for, timer, timeout, log_term, log_len,
+                                 match_idx, next_idx)
+    from .. import _build
+    B, N, L = log_term.shape
+    dev = term.device
+    check_all(dev, (seed, torch.uint32, (B,)),
+              (deliver, torch.bool, (B, N, N)),
+              *((t, torch.int32, (B, N)) for t in (
+                  term, role, voted_for, timer, timeout, log_len)),
+              (log_term, torch.int32, (B, N, L)),
+              (match_idx, torch.uint8, (B, N, N)),
+              (next_idx, torch.uint8, (B, N, N)))
+    out = [torch.empty_like(term) for _ in range(5)]
+    reset = torch.empty((B, N), dtype=torch.bool, device=dev)
+    # Candidate count and tally (zeroed by the kernel), the candidates'
+    # request table (4 words each) and each node's last log term.
+    scratch = torch.empty(B * (1 + 6 * N), dtype=torch.int32, device=dev)
+    _build.launch("dense_elect", seed.data_ptr(), int(r) & 0xFFFFFFFF,
+                  cfg.churn_cutoff, cfg.t_min, timeout_span(cfg),
+                  *(t.data_ptr() for t in (
+                      deliver, term, role, voted_for, timer, timeout,
+                      log_term, log_len, match_idx, next_idx, *out, reset,
+                      scratch)), B, N, L)
+    dense_elect.launches += 1
+    return (*out, reset)
+
+
+dense_elect.launches = 0
+
+
+# --- KN: P3a propose, P3b snapshot, P3c receivers ----------------------------
+
+def dense_append_plain(cfg: Config, seed, r: int, deliver, term, role,
+                       voted_for, timer, timeout, reset, log_term, log_val,
+                       log_len, commit, match_idx, next_idx):
+    """Plain version of KN, SPEC §3 P3a-P3c at every node of each sweep.
+
+    P3a: every leader whose log holds fewer than E entries writes (term,
+    value) at its log length, the value a Threefry draw of STREAM_VALUE
+    keyed by (round, node), grows its log by one and matches itself there.
+    P3b: the leaders' term, length, commit and log rows as they stand now
+    are what P3c reads of them, whatever P3c then does to the leaders
+    themselves. P3c at receiver j: the highest snapshot term among the
+    heartbeats ``deliver[l, j]`` bumps j; of the delivered leaders of j's
+    term, the least id ``ls`` is j's leader (``has_l``); j resets its timer
+    and a candidate steps down; then the log-match check at prev =
+    ``next_idx[ls, j]`` - 1, and where it holds, the copy of the leader's
+    entries [prev, its length), the leader's length and the commit
+    following min(leader's commit, new length). ``log_term`` /
+    ``log_val`` and the diagonal of ``match_idx`` are updated in place;
+    returns new (term, role, voted_for, timer, timeout, reset, log_len,
+    commit), the sender flags ``was_leader`` and the acks ``ack_to``
+    (``ls`` or NONE), ``ack_ok`` (applied) and ``ack_match`` (the new
+    length where applied, else 0), all [B, N]."""
+    B, N, L = log_term.shape
+    E = min(cfg.max_entries, L)
+    dev = term.device
+    idx = torch.arange(N, dtype=torch.int32, device=dev)
+
+    # ---- P3a propose: the one-slot append, in place.
+    lead = role == ROLE_L
+    can_prop = lead & (log_len < E)
+    prop_val = bitcast_i32(rng.random_u32_plain(seed, rng.STREAM_VALUE, r, 0,
+                                                idx))
+    pos = log_len.clamp(max=L - 1).to(torch.int64)[..., None]
+    for log, val in ((log_term, term), (log_val, prop_val)):
+        kept = log.gather(2, pos)[..., 0]
+        log.scatter_(2, pos, torch.where(can_prop, val, kept)[..., None])
+    log_len = log_len + can_prop.to(torch.int32)
+    diag = match_idx.diagonal(dim1=1, dim2=2)
+    diag.copy_(torch.where(can_prop, log_len.to(match_idx.dtype), diag))
+
+    # ---- P3b snapshot (next_idx is not written before P3d).
+    was_leader = lead
+    s_term, s_len, s_commit = term, log_len, commit
+    s_logt, s_logv = log_term.clone(), log_val.clone()
+
+    # ---- P3c receivers; [B, l, j] below.
+    sent = was_leader[:, :, None] & deliver
+    t_in2 = torch.where(sent, s_term[:, :, None], 0).amax(1)
+    term, role, voted_for, timeout = bump(cfg, seed, t_in2 > term, t_in2,
+                                          term, role, voted_for, timeout)
+    valid = sent & (s_term[:, :, None] == term[:, None, :])
+    lstar = torch.where(valid, idx[:, None], N).amin(1)
+    has_l = lstar < N
+    ls = lstar.clamp(0, N - 1).to(torch.int64)
+    timer = torch.where(has_l, 0, timer)
+    reset = reset | has_l
+    role = torch.where(has_l & (role == ROLE_C), ROLE_F, role)
+
+    bi = torch.arange(B, device=dev)[:, None]
+    prev = next_idx.gather(1, ls[:, None, :])[:, 0].to(torch.int32) - 1
+    lrow_t, lrow_v = s_logt[bi, ls], s_logv[bi, ls]             # [B, N, L]
+    kprev = (prev - 1).clamp(0, L - 1).to(torch.int64)[..., None]
+    prev_term_l = torch.where(prev > 0, lrow_t.gather(2, kprev)[..., 0], 0)
+    own_at_prev = torch.where((prev > 0) & (prev <= log_len),
+                              log_term.gather(2, kprev)[..., 0], 0)
+    ok = (prev == 0) | ((prev <= log_len) & (own_at_prev == prev_term_l))
+    apply_ = has_l & ok
+    l_len = s_len.gather(1, ls)
+    kar = torch.arange(L, dtype=torch.int32, device=dev)
+    copy = apply_[..., None] & (kar >= prev[..., None]) \
+        & (kar < l_len[..., None])
+    log_term.copy_(torch.where(copy, lrow_t, log_term))
+    log_val.copy_(torch.where(copy, lrow_v, log_val))
+    new_len = torch.where(apply_, l_len, log_len)
+    commit = torch.where(
+        apply_, torch.maximum(commit, torch.minimum(s_commit.gather(1, ls),
+                                                    new_len)), commit)
+    ack_to = torch.where(has_l, ls.to(torch.int32), NONE)
+    ack_match = torch.where(apply_, l_len, 0)
+    return (term, role, voted_for, timer, timeout, reset, new_len, commit,
+            was_leader, ack_to, apply_, ack_match)
+
+
+def dense_append(cfg: Config, seed, r: int, deliver, term, role, voted_for,
+                 timer, timeout, reset, log_term, log_val, log_len, commit,
+                 match_idx, next_idx):
+    """Kernel KN: same arguments, in-place updates and result as
+    :func:`dense_append_plain`, which it runs for CPU tensors; for CUDA
+    tensors it launches ``csrc/dense_append.cu`` (a thread per node
+    appends and lists the sweep's leaders with their scalars, a block per
+    sweep copies the leaders' rows aside, then a lane per receiver walks
+    the list and applies, the warp copying long ranges)."""
+    if term.device.type == "cpu":
+        return dense_append_plain(cfg, seed, r, deliver, term, role,
+                                  voted_for, timer, timeout, reset, log_term,
+                                  log_val, log_len, commit, match_idx,
+                                  next_idx)
+    from .. import _build
+    B, N, L = log_term.shape
+    dev = term.device
+    check_all(dev, (seed, torch.uint32, (B,)),
+              (deliver, torch.bool, (B, N, N)),
+              *((t, torch.int32, (B, N)) for t in (
+                  term, role, voted_for, timer, timeout, log_len, commit)),
+              (reset, torch.bool, (B, N)),
+              (log_term, torch.int32, (B, N, L)),
+              (log_val, torch.int32, (B, N, L)),
+              (match_idx, torch.uint8, (B, N, N)),
+              (next_idx, torch.uint8, (B, N, N)))
+    out = [torch.empty_like(term) for _ in range(5)]
+    reset_out = torch.empty_like(reset)
+    new_len, new_commit = torch.empty_like(log_len), torch.empty_like(commit)
+    was_leader = torch.empty_like(reset)
+    ack_to, ack_ok = torch.empty_like(term), torch.empty_like(reset)
+    ack_match = torch.empty_like(term)
+    # Leader count (zeroed by the kernel) and the leaders' table (4 words
+    # each), then the leaders' two log rows, by place in the table.
+    scratch = torch.empty(B * (1 + 4 * N), dtype=torch.int32, device=dev)
+    rows = torch.empty((2, B, N, L), dtype=torch.int32, device=dev)
+    _build.launch("dense_append", seed.data_ptr(), int(r) & 0xFFFFFFFF,
+                  cfg.t_min, timeout_span(cfg), *(t.data_ptr() for t in (
+                      deliver, term, role, voted_for, timer, timeout, reset,
+                      log_term, log_val, log_len, commit, match_idx, next_idx,
+                      *out, reset_out, new_len, new_commit, was_leader,
+                      ack_to, ack_ok, ack_match, scratch, rows)),
+                  B, N, L, min(cfg.max_entries, L))
+    dense_append.launches += 1
+    return (*out, reset_out, new_len, new_commit, was_leader, ack_to, ack_ok,
+            ack_match)
+
+
+dense_append.launches = 0
+
+
+# --- KO: P3d acks, P3e majority commit, P4 timers ----------------------------
+
+def dense_acks_commit_plain(cfg: Config, seed, deliver, was_leader, ack_to,
+                            ack_ok, ack_match, log_term, term, role,
+                            voted_for, timeout, commit, match_idx, next_idx,
+                            timer, reset) -> None:
+    """Plain version of KO, SPEC §3 P3d-P4 at every node of each sweep.
+
+    P3d: node j's ack to ``ack_to[j]`` travels on ``deliver[j, l]``. A
+    sender of P3b that still leads takes the highest acked term; a higher
+    one than its own bumps it, otherwise it processes its acks: a success
+    raises ``match_idx[l, j]`` to ``ack_match[j]`` and sets ``next_idx[l,
+    j]`` one past it, a failure steps ``next_idx[l, j]`` back, not below 1
+    (u8 arithmetic, as JAX). P3e: a processing leader's commit advances to
+    the majority-th largest entry of its ``match_idx`` row (at most E)
+    where its post-P3c log holds an entry of its own term there. P4:
+    leaders hold ``timer`` at 0, and every other node counts it up unless
+    ``reset`` says the round reset it. Updates ``term``, ``role``,
+    ``voted_for``, ``timeout``, ``commit``, ``match_idx``, ``next_idx`` and
+    ``timer`` in place."""
+    N = term.shape[1]
+    L = log_term.shape[2]
+    E = min(cfg.max_entries, L)
+    mdt = match_idx.dtype
+    idx = torch.arange(N, dtype=torch.int32, device=term.device)
+
+    # ---- P3d leaders process acks; ackm is [B, j, l].
+    still_lead = was_leader & (role == ROLE_L)
+    ackm = (ack_to[:, :, None] == idx) & deliver
+    t_in3 = torch.where(ackm, term[:, :, None], 0).amax(1)
+    bump3 = still_lead & (t_in3 > term)
+    new = bump(cfg, seed, bump3, t_in3, term, role, voted_for, timeout)
+    for t, v in zip((term, role, voted_for, timeout), new):
+        t.copy_(v)
+    proc = (still_lead & ~bump3)[:, :, None]
+    succ = (ackm & ack_ok[:, :, None]).transpose(1, 2)          # [B, l, j]
+    fail = (ackm & ~ack_ok[:, :, None]).transpose(1, 2)
+    match_idx.copy_(torch.where(
+        proc & succ, torch.maximum(match_idx, ack_match[:, None, :].to(mdt)),
+        match_idx))
+    next_idx.copy_(torch.where(
+        proc & succ, match_idx + 1,
+        torch.where(proc & fail, (next_idx - 1).clamp_min(1), next_idx)))
+
+    # ---- P3e commit advance.
+    med = commit_median_plain(match_idx, N // 2 + 1, E)
+    kmed = (med - 1).clamp(0, L - 1).to(torch.int64)
+    term_at_med = log_term.gather(2, kmed[..., None])[..., 0]
+    adv = proc[:, :, 0] & (med > commit) & (med > 0) & (term_at_med == term)
+    commit.copy_(torch.where(adv, med, commit))
+
+    # ---- P4 timers, on the roles the bump above settled.
+    timer.copy_(torch.where(role == ROLE_L, 0,
+                            torch.where(reset, timer, timer + 1)))
+
+
+def dense_acks_commit(cfg: Config, seed, deliver, was_leader, ack_to, ack_ok,
+                      ack_match, log_term, term, role, voted_for, timeout,
+                      commit, match_idx, next_idx, timer, reset) -> None:
+    """Kernel KO: same arguments and in-place updates as
+    :func:`dense_acks_commit_plain`, which it runs for CPU tensors; for
+    CUDA tensors it launches ``csrc/dense_acks_commit.cu`` (a thread per
+    node takes its delivered ack's term into its leader's maximum, a
+    thread per leader bumps or lists it as processing, a thread per node
+    applies its ack to its leader's row and counts its timer, then a block
+    per sweep reads each processing leader's median off a 256-bin
+    histogram of its row)."""
+    if term.device.type == "cpu":
+        return dense_acks_commit_plain(cfg, seed, deliver, was_leader,
+                                       ack_to, ack_ok, ack_match, log_term,
+                                       term, role, voted_for, timeout, commit,
+                                       match_idx, next_idx, timer, reset)
+    from .. import _build
+    B, N, L = log_term.shape
+    dev = term.device
+    E = min(cfg.max_entries, L)
+    check_all(dev, (seed, torch.uint32, (B,)),
+              (deliver, torch.bool, (B, N, N)),
+              *((t, torch.bool, (B, N)) for t in (was_leader, ack_ok, reset)),
+              *((t, torch.int32, (B, N)) for t in (
+                  ack_to, ack_match, term, role, voted_for, timeout, commit,
+                  timer)),
+              (log_term, torch.int32, (B, N, L)),
+              (match_idx, torch.uint8, (B, N, N)),
+              (next_idx, torch.uint8, (B, N, N)))
+    # Ack-term maxima and processing-leader count (zeroed by the kernel),
+    # the processing flags and the processing leaders' list.
+    scratch = torch.empty(B * (1 + 3 * N), dtype=torch.int32, device=dev)
+    _build.launch("dense_acks_commit", seed.data_ptr(), cfg.t_min,
+                  timeout_span(cfg), *(t.data_ptr() for t in (
+                      deliver, was_leader, ack_to, ack_ok, ack_match,
+                      log_term, term, role, voted_for, timeout, commit,
+                      match_idx, next_idx, timer, reset, scratch)),
+                  B, N, L, E)
+    dense_acks_commit.launches += 1
+
+
+dense_acks_commit.launches = 0
+
+
+# --- the round ---------------------------------------------------------------
+
+def raft_round(cfg: Config, st: RaftState, r: int) -> RaftState:
+    """One SPEC §3 round of the dense engine, phase by phase as
+    ``consensus_tpu/engines/raft.py`` ``raft_round``: a sequence of kernel
+    launches and nothing else. Updates ``st.log_term``, ``st.log_val``,
+    ``st.match_idx`` and ``st.next_idx`` in place."""
+    N = st.term.shape[1]
+    seed = st.seed
+    log_term, log_val = st.log_term, st.log_val
+    match_idx, next_idx = st.match_idx, st.next_idx
+
+    # ---- The round's delivery mask (KL).
+    deliver = delivery(seed, r, N, cfg.drop_cutoff, cfg.partition_cutoff)
+
+    # ---- P0 churn, P1 candidacy, P2 election (KM).
+    term, role, voted_for, timer, timeout, reset = dense_elect(
+        cfg, seed, r, deliver, st.term, st.role, st.voted_for, st.timer,
+        st.timeout, log_term, st.log_len, match_idx, next_idx)
+
+    # ---- P3a propose, P3b snapshot, P3c receivers and apply (KN).
+    (term, role, voted_for, timer, timeout, reset, log_len, commit,
+     was_leader, ack_to, ack_ok, ack_match) = dense_append(
+        cfg, seed, r, deliver, term, role, voted_for, timer, timeout, reset,
+        log_term, log_val, st.log_len, st.commit, match_idx, next_idx)
+
+    # ---- P3d acks, P3e commit advance, P4 timers (KO), in place.
+    dense_acks_commit(cfg, seed, deliver, was_leader, ack_to, ack_ok,
+                      ack_match, log_term, term, role, voted_for, timeout,
+                      commit, match_idx, next_idx, timer, reset)
+
+    return RaftState(seed, term, role, voted_for, log_term, log_val, log_len,
+                     commit, timer, timeout, match_idx, next_idx, st.down)
+
+
+def extract(st: RaftState) -> dict[str, torch.Tensor]:
+    """The leaves the decided-log digest and the tests read."""
+    return {"commit": st.commit, "log_term": st.log_term,
+            "log_val": st.log_val, "term": st.term, "role": st.role}

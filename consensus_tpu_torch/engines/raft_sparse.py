@@ -46,8 +46,9 @@ from ..core import rng
 from ..core.config import MAX_ACTIVE, Config
 from ..ops.adversary import bitcast_i32, churn, delivery_edges
 from ..ops.flight import N_BUCKETS, bucket_counts_plain
-from .raft import (NONE, RAFT_TELEMETRY, ROLE_C, ROLE_F, ROLE_L, draw_timeout,
-                   last_term, match_dtype)
+from .raft import (NONE, RAFT_TELEMETRY, ROLE_C, ROLE_F, ROLE_L, bump,
+                   check_all, commit_median_plain, draw_timeout, last_term,
+                   match_dtype, timeout_span)
 
 # The engine's name, as the JAX package's EngineDef names it.
 NAME = "raft-sparse"
@@ -94,43 +95,12 @@ def raft_sparse_init(cfg: Config, seeds: torch.Tensor) -> RaftSparseState:
     )
 
 
-# --- shared by the wrappers and the round --------------------------------------
-
-def _bump(cfg: Config, seed, cond, new_term, term, role, voted_for, timeout):
-    """Adopt a higher term where ``cond``: follower, no vote, and the
-    timeout redrawn under the new term (the plain versions' draw)."""
-    idx = torch.arange(term.shape[1], dtype=torch.int32, device=term.device)
-    term = torch.where(cond, new_term, term)
-    return (term, torch.where(cond, ROLE_F, role),
-            torch.where(cond, NONE, voted_for),
-            torch.where(cond, draw_timeout(seed, cfg.t_min, cfg.t_max, term,
-                                           idx, rng.random_u32_plain),
-                        timeout))
-
-
 def _scatter_max(x, ids, vals, on):
     """``x.at[ids].max(vals)`` where ``on``, no write elsewhere: the JAX
     round's ``mode="drop"`` scatter at index N. Off lanes carry I32_MIN,
     which leaves any i32 unchanged, so duplicates among them are harmless."""
     return x.scatter_reduce(1, ids.to(torch.int64),
                             torch.where(on, vals, I32_MIN), "amax")
-
-
-def _timeout_span(cfg: Config) -> int:
-    """t_max - t_min, the modulus of the inline timeout draws."""
-    span = cfg.t_max - cfg.t_min
-    if not 0 < span < 2**32 or not -2**31 <= cfg.t_min < 2**31:
-        raise ValueError("the kernels take int32 t_min and 0 < t_max - t_min "
-                         "< 2**32")
-    return span
-
-
-def _check_all(dev, *specs) -> None:
-    """Raise unless each (tensor, dtype, shape) of ``specs`` is what a
-    kernel takes on the CUDA device ``dev`` (:func:`_build.check`)."""
-    from .. import _build
-    for t, dt, shape in specs:
-        _build.check(t, dt, dev, shape)
 
 
 # --- KC: top-A active senders -------------------------------------------------
@@ -203,8 +173,8 @@ def append_entries_plain(cfg: Config, seed, del_lj, lead_id, s_term, term,
 
     # The receivers.
     t_in2 = torch.where(del_lj, s_term[:, :, None], 0).amax(1)
-    term, role, voted_for, timeout = _bump(cfg, seed, t_in2 > term, t_in2,
-                                           term, role, voted_for, timeout)
+    term, role, voted_for, timeout = bump(cfg, seed, t_in2 > term, t_in2,
+                                          term, role, voted_for, timeout)
     valid = del_lj & (s_term[:, :, None] == term[:, None, :])  # [B, A, N]
     lid = lead_id.clamp(0, N - 1)
     lcand = torch.where(valid, lid[:, :, None], N)
@@ -256,18 +226,18 @@ def append_entries(cfg: Config, seed, del_lj, lead_id, s_term, term, role,
     B, N, L = log_term.shape
     A = s_len.shape[1]
     dev = term.device
-    _check_all(dev, (seed, torch.uint32, (B,)),
-               (del_lj, torch.bool, (B, A, N)),
-               (lead_id, torch.int32, (B, A)), (s_term, torch.int32, (B, A)),
-               *((t, torch.int32, (B, N)) for t in (
-                   term, role, voted_for, timer, timeout, log_len, commit)),
-               (reset, torch.bool, (B, N)),
-               (log_term, torch.int32, (B, N, L)),
-               (log_val, torch.int32, (B, N, L)),
-               (s_next, torch.uint8, (B, A, N)), (s_len, torch.int32, (B, A)),
-               (s_commit, torch.int32, (B, A)),
-               (s_logt, torch.int32, (B, A, L)),
-               (s_logv, torch.int32, (B, A, L)))
+    check_all(dev, (seed, torch.uint32, (B,)),
+              (del_lj, torch.bool, (B, A, N)),
+              (lead_id, torch.int32, (B, A)), (s_term, torch.int32, (B, A)),
+              *((t, torch.int32, (B, N)) for t in (
+                  term, role, voted_for, timer, timeout, log_len, commit)),
+              (reset, torch.bool, (B, N)),
+              (log_term, torch.int32, (B, N, L)),
+              (log_val, torch.int32, (B, N, L)),
+              (s_next, torch.uint8, (B, A, N)), (s_len, torch.int32, (B, A)),
+              (s_commit, torch.int32, (B, A)),
+              (s_logt, torch.int32, (B, A, L)),
+              (s_logv, torch.int32, (B, A, L)))
     out = [torch.empty_like(term) for _ in range(5)]
     reset_out = torch.empty_like(reset)
     kstar = torch.empty_like(term)
@@ -276,7 +246,7 @@ def append_entries(cfg: Config, seed, del_lj, lead_id, s_term, term, role,
     new_len = torch.empty_like(log_len)
     new_commit = torch.empty_like(commit)
     _build.launch("append_entries", seed.data_ptr(), cfg.t_min,
-                  _timeout_span(cfg), *(t.data_ptr() for t in (
+                  timeout_span(cfg), *(t.data_ptr() for t in (
                       del_lj, lead_id, s_term, term, role, voted_for, timer,
                       timeout, reset, log_term, log_val, log_len, commit,
                       s_next, s_len, s_commit, s_logt, s_logv, *out,
@@ -333,16 +303,16 @@ def candidacy(cfg: Config, seed, r: int, term, role, voted_for, timer,
     from .. import _build
     B, N, L = log_term.shape
     dev = term.device
-    _check_all(dev, (seed, torch.uint32, (B,)),
-               *((t, torch.int32, (B, N)) for t in (
-                   term, role, voted_for, timer, timeout, log_len)),
-               (log_term, torch.int32, (B, N, L)))
+    check_all(dev, (seed, torch.uint32, (B,)),
+              *((t, torch.int32, (B, N)) for t in (
+                  term, role, voted_for, timer, timeout, log_len)),
+              (log_term, torch.int32, (B, N, L)))
     out = [torch.empty_like(term) for _ in range(5)]
     reset = torch.empty((B, N), dtype=torch.bool, device=dev)
     own_lterm = torch.empty_like(term)
     cand = torch.empty((B, N), dtype=torch.bool, device=dev)
     _build.launch("candidacy", seed.data_ptr(), int(r) & 0xFFFFFFFF,
-                  cfg.churn_cutoff, cfg.t_min, _timeout_span(cfg),
+                  cfg.churn_cutoff, cfg.t_min, timeout_span(cfg),
                   *(t.data_ptr() for t in (
                       term, role, voted_for, timer, timeout, log_term,
                       log_len, *out, reset, own_lterm, cand)), B, N, L)
@@ -377,8 +347,8 @@ def elect_plain(cfg: Config, seed, cand_ids, del_cj, del_jc, term, role,
 
     # P2a term catch-up.
     t_in = torch.where(del_cj, req_term[:, :, None], 0).amax(1)
-    term, role, voted_for, timeout = _bump(cfg, seed, t_in > term, t_in,
-                                           term, role, voted_for, timeout)
+    term, role, voted_for, timeout = bump(cfg, seed, t_in > term, t_in,
+                                          term, role, voted_for, timeout)
 
     # P2b grants.
     up_to_date = (req_lterm[:, :, None] > own_lterm[:, None, :]) | (
@@ -425,20 +395,20 @@ def elect(cfg: Config, seed, cand_ids, del_cj, del_jc, term, role, voted_for,
     dev = term.device
     if not 1 <= A <= MAX_ACTIVE:
         raise ValueError(f"elect takes 1 <= A <= {MAX_ACTIVE}")
-    _check_all(dev, (seed, torch.uint32, (B,)),
-               (cand_ids, torch.int32, (B, A)),
-               (del_cj, torch.bool, (B, A, N)),
-               (del_jc, torch.bool, (B, N, A)),
-               *((t, torch.int32, (B, N)) for t in (
-                   term, role, voted_for, timer, timeout, log_len,
-                   own_lterm)),
-               (reset, torch.bool, (B, N)))
+    check_all(dev, (seed, torch.uint32, (B,)),
+              (cand_ids, torch.int32, (B, A)),
+              (del_cj, torch.bool, (B, A, N)),
+              (del_jc, torch.bool, (B, N, A)),
+              *((t, torch.int32, (B, N)) for t in (
+                  term, role, voted_for, timer, timeout, log_len,
+                  own_lterm)),
+              (reset, torch.bool, (B, N)))
     out = [torch.empty_like(term) for _ in range(5)]
     reset_out = torch.empty_like(reset)
     lead = torch.empty_like(reset)
     win = torch.empty((B, A), dtype=torch.bool, device=dev)
     votes = torch.empty((B, A), dtype=torch.int32, device=dev)
-    _build.launch("elect", seed.data_ptr(), cfg.t_min, _timeout_span(cfg),
+    _build.launch("elect", seed.data_ptr(), cfg.t_min, timeout_span(cfg),
                   *(t.data_ptr() for t in (
                       cand_ids, del_cj, del_jc, term, role, voted_for, timer,
                       timeout, reset, log_len, own_lterm, *out, reset_out,
@@ -507,11 +477,11 @@ def slots(cfg: Config, new_ids, lead_id, lead_match, lead_next, role,
     dev = role.device
     if not 1 <= A <= MAX_ACTIVE:
         raise ValueError(f"slots takes 1 <= A <= {MAX_ACTIVE}")
-    _check_all(dev, (new_ids, torch.int32, (B, A)),
-               (lead_id, torch.int32, (B, A)),
-               (lead_match, torch.uint8, (B, A, N)),
-               (lead_next, torch.uint8, (B, A, N)),
-               (role, torch.int32, (B, N)), (log_len, torch.int32, (B, N)))
+    check_all(dev, (new_ids, torch.int32, (B, A)),
+              (lead_id, torch.int32, (B, A)),
+              (lead_match, torch.uint8, (B, A, N)),
+              (lead_next, torch.uint8, (B, A, N)),
+              (role, torch.int32, (B, N)), (log_len, torch.int32, (B, N)))
     match_out = torch.empty_like(lead_match)
     next_out = torch.empty_like(lead_next)
     _build.launch("slots", *(t.data_ptr() for t in (
@@ -525,24 +495,6 @@ slots.launches = 0
 
 
 # --- KH: P3d acks, P3e majority commit, P4 timers -------------------------------
-
-def commit_median_plain(lead_match, majority: int, E: int) -> torch.Tensor:
-    """The majority-th largest value of each [N] row of ``lead_match``,
-    capped at E: the largest m in [0, E] that at least ``majority`` entries
-    reach, by the same fixed-depth binary search over [0, E + 1) as the
-    JAX round. [B, A] i32."""
-    B, A, _ = lead_match.shape
-    lo = torch.zeros((B, A), dtype=torch.int32, device=lead_match.device)
-    hi = torch.full((B, A), E + 1, dtype=torch.int32,
-                    device=lead_match.device)
-    for _ in range((E + 1).bit_length()):
-        mid = (lo + hi) // 2
-        cnt = (lead_match >= mid[:, :, None]).sum(2, dtype=torch.int32)
-        ok = cnt >= majority
-        lo = torch.where(ok, mid, lo)
-        hi = torch.where(ok, hi, mid)
-    return lo
-
 
 def acks_commit_plain(cfg: Config, seed, lead_id, was_lead_k, del_jl, has_l,
                       kstar, apply_, log_len, log_term, term, role, voted_for,
@@ -576,8 +528,8 @@ def acks_commit_plain(cfg: Config, seed, lead_id, was_lead_k, del_jl, has_l,
     t_in3 = torch.where(ackm, term[:, :, None], 0).amax(1)      # [B, A]
     bump3_k = still_lead_k & (t_in3 > term.gather(1, lid))
     new_t = _scatter_max(term, lid, t_in3, bump3_k)
-    new = _bump(cfg, seed, new_t > term, new_t, term, role, voted_for,
-                timeout)
+    new = bump(cfg, seed, new_t > term, new_t, term, role, voted_for,
+               timeout)
     for t, v in zip((term, role, voted_for, timeout), new):
         t.copy_(v)
     proc = (still_lead_k & ~bump3_k)[:, :, None]                # [B, A, 1]
@@ -627,23 +579,23 @@ def acks_commit(cfg: Config, seed, lead_id, was_lead_k, del_jl, has_l, kstar,
     dev = term.device
     if not 1 <= A <= MAX_ACTIVE:
         raise ValueError(f"acks_commit takes 1 <= A <= {MAX_ACTIVE}")
-    _check_all(dev, (seed, torch.uint32, (B,)),
-               (lead_id, torch.int32, (B, A)),
-               (was_lead_k, torch.bool, (B, A)),
-               (del_jl, torch.bool, (B, N, A)),
-               (has_l, torch.bool, (B, N)), (apply_, torch.bool, (B, N)),
-               *((t, torch.int32, (B, N)) for t in (
-                   kstar, log_len, term, role, voted_for, timeout, commit,
-                   timer)),
-               (log_term, torch.int32, (B, N, L)),
-               (lead_match, torch.uint8, (B, A, N)),
-               (lead_next, torch.uint8, (B, A, N)),
-               (reset, torch.bool, (B, N)))
+    check_all(dev, (seed, torch.uint32, (B,)),
+              (lead_id, torch.int32, (B, A)),
+              (was_lead_k, torch.bool, (B, A)),
+              (del_jl, torch.bool, (B, N, A)),
+              (has_l, torch.bool, (B, N)), (apply_, torch.bool, (B, N)),
+              *((t, torch.int32, (B, N)) for t in (
+                  kstar, log_len, term, role, voted_for, timeout, commit,
+                  timer)),
+              (log_term, torch.int32, (B, N, L)),
+              (lead_match, torch.uint8, (B, A, N)),
+              (lead_next, torch.uint8, (B, A, N)),
+              (reset, torch.bool, (B, N)))
     t_in3 = torch.empty((B, A), dtype=torch.int32, device=dev)
     proc = torch.empty((B, A), dtype=torch.int32, device=dev)
     hist = torch.empty((B, A, 256), dtype=torch.int32, device=dev)
     _build.launch("acks_commit", seed.data_ptr(), cfg.t_min,
-                  _timeout_span(cfg), *(t.data_ptr() for t in (
+                  timeout_span(cfg), *(t.data_ptr() for t in (
                       lead_id, was_lead_k, del_jl, has_l, kstar, apply_,
                       log_len, log_term, term, role, voted_for, timeout,
                       commit, lead_match, lead_next, timer, reset, t_in3,
@@ -709,11 +661,11 @@ def propose(cfg: Config, seed, r: int, lead, term, log_term, log_val,
     B, N, L = log_term.shape
     A = lead_id.shape[1]
     dev = term.device
-    _check_all(dev, (seed, torch.uint32, (B,)), (lead, torch.bool, (B, N)),
-               *((t, torch.int32, (B, N)) for t in (term, log_len, commit)),
-               (log_term, torch.int32, (B, N, L)),
-               (log_val, torch.int32, (B, N, L)),
-               (lead_id, torch.int32, (B, A)))
+    check_all(dev, (seed, torch.uint32, (B,)), (lead, torch.bool, (B, N)),
+              *((t, torch.int32, (B, N)) for t in (term, log_len, commit)),
+              (log_term, torch.int32, (B, N, L)),
+              (log_val, torch.int32, (B, N, L)),
+              (lead_id, torch.int32, (B, A)))
     new_len = torch.empty_like(log_len)
     was_lead_k = torch.empty((B, A), dtype=torch.bool, device=dev)
     small = [torch.empty((B, A), dtype=torch.int32, device=dev)
@@ -784,17 +736,17 @@ def telemetry(cfg: Config, r: int, cand_ids, win, timer_in, has_l, apply_,
     A = cand_ids.shape[1]
     K = len(RAFT_TELEMETRY)
     dev = t.device
-    _check_all(dev, (cand_ids, torch.int32, (B, A)), (win, torch.bool, (B, A)),
-               *((x, torch.int32, (B, N)) for x in (
-                   timer_in, commit_in, commit, role, log_len)),
-               *((x, torch.bool, (B, N)) for x in (has_l, apply_, down)),
-               (t, torch.int32, (B, K)))
+    check_all(dev, (cand_ids, torch.int32, (B, A)), (win, torch.bool, (B, A)),
+              *((x, torch.int32, (B, N)) for x in (
+                  timer_in, commit_in, commit, role, log_len)),
+              *((x, torch.bool, (B, N)) for x in (has_l, apply_, down)),
+              (t, torch.int32, (B, K)))
     window = n_windows = 0
     if w is not None:
         n_windows = w.shape[1]
         window = r // cfg.telemetry_window
-        _check_all(dev, (w, torch.int32, (B, n_windows, K)),
-                   (lat, torch.int32, (B, 2, N_BUCKETS)))
+        check_all(dev, (w, torch.int32, (B, n_windows, K)),
+                  (lat, torch.int32, (B, 2, N_BUCKETS)))
         if not 0 <= window < n_windows:
             raise ValueError(f"round {r} lies past the {n_windows} windows")
     _build.launch("telemetry", *(x.data_ptr() for x in (

@@ -1,6 +1,7 @@
 """The batched round loop: the port of ``consensus_tpu/network/runner.py``'s
-plain path (``make_seeds``, ``_init_jit``, the scan of ``_chunk_jit`` with
-``_chunk_body``'s telemetry accumulators, ``run``).
+plain path (``EngineDef``, ``make_seeds``, ``_init_jit``, the scan of
+``_chunk_jit`` with ``_chunk_body``'s telemetry accumulators, ``run``), for
+the dense and the capped Raft engine alike.
 
 Sweeps are the leading batch axis of every state tensor. On the CPU a
 Python loop over rounds takes the place of ``lax.scan``. On ``cuda`` the
@@ -14,7 +15,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -22,17 +23,45 @@ import torch
 from .. import _build
 from ..core import rng
 from ..core.config import Config
-from ..engines import raft_sparse
+from ..engines import raft, raft_sparse
 from ..engines.raft import RAFT_LATENCY, RAFT_TELEMETRY
 from ..ops import adversary
 from ..ops.flight import BUCKET_LO, N_BUCKETS
 
-# The kernel wrappers the run launches, one for each source that
+# The kernel wrappers the runs launch, one for each source that
 # ``_build.SOURCES`` lists, as (module, attribute): launches are counted on
 # the attribute, so a stand-in put there counts its own.
-_WRAPPER_MODULES = {"random_u32": rng, "delivery_edges": adversary}
+_WRAPPER_MODULES = {"random_u32": rng, "delivery_edges": adversary,
+                    "delivery": adversary, "dense_elect": raft,
+                    "dense_append": raft, "dense_acks_commit": raft}
 KERNELS = tuple((_WRAPPER_MODULES.get(name, raft_sparse), name)
                 for name in _build.SOURCES)
+
+
+class Engine(NamedTuple):
+    """A Raft engine as the runner sees it, after the JAX package's
+    ``EngineDef``: ``init(cfg, seeds)`` gives the batched state,
+    ``round(cfg, st, r, **accumulators)`` the next one (the accumulators
+    only where ``telemetry``), and ``extract(st)`` the leaves the digest
+    reads."""
+    name: str
+    init: Callable
+    round: Callable
+    extract: Callable
+    telemetry: bool
+
+
+DENSE = Engine(raft.NAME, raft.raft_init, raft.raft_round, raft.extract,
+               telemetry=False)
+CAPPED = Engine(raft_sparse.NAME, raft_sparse.raft_sparse_init,
+                raft_sparse.raft_sparse_round, raft_sparse.extract,
+                telemetry=True)
+
+
+def engine(cfg: Config) -> Engine:
+    """The engine ``cfg`` selects: dense at ``max_active = 0``, else the
+    §3b capped one (``consensus_tpu/network/simulator.py`` engine_def)."""
+    return DENSE if cfg.max_active == 0 else CAPPED
 
 
 def launch_counts() -> dict[str, int]:
@@ -47,7 +76,7 @@ def _add_launches(counts: dict[str, int]) -> None:
 
 class RunOutput(NamedTuple):
     """A run's final state and accumulators (None where switched off)."""
-    state: raft_sparse.RaftSparseState
+    state: raft.RaftState | raft_sparse.RaftSparseState
     telem: torch.Tensor | None   # [B, K] i32 counter totals
     win: torch.Tensor | None     # [B, n_windows, K] i32 window ring
     lat: torch.Tensor | None     # [B, H, N_BUCKETS] i32 latency buckets
@@ -75,21 +104,21 @@ def n_windows(cfg: Config) -> int:
     return -(-cfg.n_rounds // cfg.telemetry_window)
 
 
-def init(cfg: Config, seeds: np.ndarray, device) -> raft_sparse.RaftSparseState:
-    """A fresh batched state, one sweep per seed."""
-    return raft_sparse.raft_sparse_init(
+def init(cfg: Config, seeds: np.ndarray, device):
+    """A fresh batched state of ``cfg``'s engine, one sweep per seed."""
+    return engine(cfg).init(
         cfg, torch.from_numpy(np.asarray(seeds, np.uint32)).to(device))
 
 
-def advance(cfg: Config, st: raft_sparse.RaftSparseState, r0: int,
-            n_rounds: int, *, telem=None,
-            flight=None) -> raft_sparse.RaftSparseState:
-    """Rounds r0 .. r0 + n_rounds - 1 of every sweep, adding into the
-    accumulators ``telem`` and ``flight`` where given (see
+def advance(cfg: Config, st, r0: int, n_rounds: int, *, telem=None,
+            flight=None):
+    """Rounds r0 .. r0 + n_rounds - 1 of every sweep of ``cfg``'s engine,
+    adding into the accumulators ``telem`` and ``flight`` where given (see
     :func:`raft_sparse.raft_sparse_round`)."""
+    eng = engine(cfg)
+    acc = {} if telem is None else dict(telem=telem, flight=flight)
     for r in range(r0, r0 + n_rounds):
-        st = raft_sparse.raft_sparse_round(cfg, st, r, telem=telem,
-                                           flight=flight)
+        st = eng.round(cfg, st, r, **acc)
     return st
 
 
@@ -114,7 +143,7 @@ def _rounds(cfg: Config, seeds: torch.Tensor, n_rounds: int,
     host, so that it can be captured as a graph."""
     telem, flight = (accumulators(cfg, seeds.device) if telemetry
                      else (None, None))
-    st = advance(cfg, raft_sparse.raft_sparse_init(cfg, seeds), 0, n_rounds,
+    st = advance(cfg, engine(cfg).init(cfg, seeds), 0, n_rounds,
                  telem=telem, flight=flight)
     return RunOutput(st, telem, *(flight or (None, None)))
 
@@ -176,7 +205,8 @@ def run_device(cfg: Config, device=None, *, telemetry: bool = False,
     state and accumulators on the device, after the device has finished.
 
     ``telemetry`` accumulates the counters (and, with
-    ``cfg.telemetry_window > 0``, the flight recorder). ``graph`` (default:
+    ``cfg.telemetry_window > 0``, the flight recorder); the capped engine
+    has them, the dense one raises. ``graph`` (default:
     on ``cuda``, and only there) replays the run as one CUDA graph,
     captured at the first call for this (cfg but its seed, device,
     telemetry) and kept until a run of another configuration is captured;
@@ -185,6 +215,10 @@ def run_device(cfg: Config, device=None, *, telemetry: bool = False,
     them before that.
     ``graph=False`` runs the rounds eagerly, one launch at a time."""
     dev = resolve_device(device)
+    if telemetry and not engine(cfg).telemetry:
+        raise ValueError("telemetry on the dense raft engine (max_active = "
+                         "0) is not ported yet: consensus_tpu/engines/raft.py "
+                         "raft_round's counter and flight tail")
     if cfg.telemetry_window > 0 and not telemetry:
         raise ValueError(
             "telemetry_window > 0 without telemetry=True: the window ring "
@@ -256,7 +290,7 @@ def run(cfg: Config, device=None, *, telemetry: bool = False,
                          "the counters (stats['telemetry'])")
     out = run_device(cfg, device, telemetry=telemetry, graph=graph)
     result = {k: v.cpu().numpy()
-              for k, v in raft_sparse.extract(out.state).items()}
+              for k, v in engine(cfg).extract(out.state).items()}
     if stats is not None:
         stats.update(start_round=0, executed_rounds=cfg.n_rounds,
                      **telemetry_stats(cfg, out))

@@ -1,5 +1,5 @@
 """The simulator's front door: the port of ``consensus_tpu/network/simulator.py``
-for raft under the §3b cap.
+for raft, dense (``max_active = 0``) or under the §3b cap.
 
     result = run(Config(protocol="raft", max_active=8, ...))
     result.digest          # SHA-256 of the canonical decided-log bytes
@@ -16,7 +16,6 @@ import numpy as np
 
 from ..core import serialize
 from ..core.config import Config
-from ..engines import raft_sparse
 from . import runner
 
 
@@ -39,10 +38,10 @@ class RunResult:
         return self.node_round_steps / self.wall_s if self.wall_s > 0 else 0.0
 
 
-def engine_def(cfg: Config):
-    """The engine module a config resolves to: the port has only the §3b
-    capped raft engine (Config rejects everything else)."""
-    return raft_sparse
+def engine_def(cfg: Config) -> runner.Engine:
+    """The engine a config resolves to: dense raft at ``max_active = 0``,
+    else the §3b capped one (Config rejects other protocols)."""
+    return runner.engine(cfg)
 
 
 def decided_payload(cfg: Config, out: dict):
@@ -81,7 +80,7 @@ def run(cfg: Config, device=None, telemetry: bool = False) -> RunResult:
             "per_sweep": dict(tstats),
             "totals": {k: int(v.sum()) for k, v in tstats.items()}}
     if "flight" in stats:
-        extras["flight"] = {"engine": engine_def(cfg).NAME, **stats["flight"]}
+        extras["flight"] = {"engine": engine_def(cfg).name, **stats["flight"]}
     return RunResult(config=cfg, payload=payload,
                      digest=serialize.digest(payload), wall_s=wall,
                      node_round_steps=cfg.n_sweeps * cfg.n_nodes

@@ -1,14 +1,16 @@
-"""Adversary draws of the capped-Raft path, and kernel KB.
+"""Adversary draws of the Raft engines, and kernels KB and KL.
 
 The counterparts of ``consensus_tpu/ops/adversary.py``'s ``draw``,
-``cutoff``, ``bitcast_i32``, ``churn`` and ``delivery_edges`` (with
-``max_delay = 0``). Every decision is a pure counter function of (seed,
-round, ids), so an edge's delivery here equals the JAX package's entry for
-the same absolute (round, src, dst) ids.
+``cutoff``, ``bitcast_i32``, ``churn``, ``delivery_edges`` and ``delivery``
+(with ``max_delay = 0``). Every decision is a pure counter function of
+(seed, round, ids), so an edge's delivery here equals the JAX package's
+entry for the same absolute (round, src, dst) ids.
 
 :func:`delivery_edges` is the wrapper of the hand-written CUDA kernel KB
-(``csrc/delivery_edges.cu``); on CPU tensors it runs
-:func:`delivery_edges_plain`.
+(``csrc/delivery_edges.cu``), the capped engine's masks between a few ids
+and all nodes; :func:`delivery` that of kernel KL (``csrc/delivery.cu``),
+the dense engine's full [N, N] mask. On CPU tensors they run
+:func:`delivery_edges_plain` and :func:`delivery_plain`.
 """
 from __future__ import annotations
 
@@ -88,3 +90,47 @@ def delivery_edges(seed, r: int, ids, n: int, drop_cut: int, part_cut: int,
 
 
 delivery_edges.launches = 0
+
+
+def delivery_plain(seed, r: int, n: int, drop_cut: int,
+                   part_cut: int) -> torch.Tensor:
+    """Plain version of KL: the SPEC §2 delivery mask of round ``r`` over
+    all ``n`` nodes of each sweep of ``seed`` ([B] uint32): [B, n, n] bool,
+    [b, i, j] True iff a message i -> j is delivered. The edge draw, the
+    round's bipartition and the empty diagonal of the JAX package's
+    ``delivery``, built from the same mixer and Threefry draws as
+    :func:`delivery_edges_plain`."""
+    ids = torch.arange(n, dtype=torch.int64, device=seed.device)
+    useed = rng.as_u32(seed)[:, None, None]
+    open_drop = rng.delivery_u32_plain(useed, r, ids[:, None],
+                                       ids[None, :]) >= drop_cut
+    part_active = rng.random_u32_plain(seed, rng.STREAM_PARTITION, r, 0, 0) \
+        < part_cut                                           # [B, 1]
+    side = rng.threefry2x32_plain(useed[:, 0] ^ rng.STREAM_PARTITION, r, 1,
+                                  ids) & 1                   # [B, n]
+    same_side = side[:, :, None] == side[:, None, :]
+    off_diag = ids[:, None] != ids[None, :]
+    return open_drop & (same_side | ~part_active[:, :, None]) & off_diag
+
+
+def delivery(seed, r: int, n: int, drop_cut: int,
+             part_cut: int) -> torch.Tensor:
+    """Kernel KL: same arguments and result as :func:`delivery_plain`,
+    which it runs for CPU tensors; for CUDA tensors it launches
+    ``csrc/delivery.cu`` (with a partition, a thread per node first draws
+    its side; then a thread per four edges of a row)."""
+    if seed.device.type == "cpu":
+        return delivery_plain(seed, r, n, drop_cut, part_cut)
+    from .. import _build
+    B = seed.shape[0]
+    _build.check(seed, torch.uint32, seed.device, (B,))
+    out = torch.empty((B, n, n), dtype=torch.bool, device=seed.device)
+    side = torch.empty((B, n), dtype=torch.uint8, device=seed.device)
+    _build.launch("delivery", seed.data_ptr(), int(r) & 0xFFFFFFFF,
+                  out.data_ptr(), side.data_ptr(), B, n, int(drop_cut),
+                  int(part_cut))
+    delivery.launches += 1
+    return out
+
+
+delivery.launches = 0

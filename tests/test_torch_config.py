@@ -1,8 +1,9 @@
 """The port's Config and entry points refuse what they do not support.
 
 Every knob of the JAX package's Config that the port does not implement yet
-raises when set off its default, and the entry points raise without a GPU
-unless the caller asks for the CPU.
+raises when set off its default, on the dense engine as on the capped one,
+telemetry on the dense engine raises, and the entry points raise without a
+GPU unless the caller asks for the CPU.
 """
 import dataclasses
 
@@ -38,8 +39,36 @@ def test_unsupported_knob_raises(knob):
         Config(**{**OK, knob: OFF_DEFAULT[knob]})
 
 
+@pytest.mark.parametrize("knob", sorted(OFF_DEFAULT))
+def test_unsupported_knob_raises_on_the_dense_engine(knob):
+    with pytest.raises(ValueError, match=knob):
+        Config(**{**OK, "max_active": 0, knob: OFF_DEFAULT[knob]})
+
+
+def test_max_active_zero_selects_the_dense_engine():
+    from consensus_tpu import Config as JConfig
+    from consensus_tpu.network import simulator as jsim
+    kw = {**OK, "max_active": 0}
+    assert simulator.engine_def(Config(**kw)) is runner.DENSE
+    assert simulator.engine_def(Config(**OK)) is runner.CAPPED
+    assert runner.DENSE.name == jsim.engine_def(JConfig(**kw)).name
+    st = runner.init(Config(**kw), runner.make_seeds(Config(**kw)), "cpu")
+    assert st.match_idx.shape == (1, 9, 9)
+
+
+def test_telemetry_on_the_dense_engine_raises():
+    cfg = Config(**{**OK, "max_active": 0})
+    for call in (lambda: simulator.run(cfg, device="cpu", telemetry=True),
+                 lambda: runner.run(cfg, "cpu", telemetry=True, stats={})):
+        with pytest.raises(ValueError, match="dense"):
+            call()
+    windowed = Config(**{**OK, "max_active": 0, "telemetry_window": 2})
+    with pytest.raises(ValueError, match="dense"):
+        simulator.run(windowed, device="cpu", telemetry=True)
+
+
 @pytest.mark.parametrize("bad", [
-    dict(max_active=0),                 # the dense engine
+    dict(max_active=-1),                # neither dense (0) nor capped
     dict(max_active=17),
     dict(max_active=10),                # more than n_nodes
     dict(protocol="pbft"),
@@ -105,6 +134,8 @@ def test_graph_key_leaves_out_only_the_seed():
 def test_every_kernel_source_has_a_counted_wrapper():
     from consensus_tpu_torch import _build
     assert [name for _, name in runner.KERNELS] == list(_build.SOURCES)
+    assert {"delivery", "dense_elect", "dense_append",
+            "dense_acks_commit"} <= set(_build.SOURCES)
     for mod, name in runner.KERNELS:
         assert isinstance(getattr(mod, name).launches, int)
         assert callable(getattr(mod, name + "_plain"))
