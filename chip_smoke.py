@@ -16,7 +16,13 @@ Phases, each printing one JSON line:
                engine) on rounds 3 (the first election) and 20 or 100 (a
                leader in every sweep) of raft-1kx1k and raft-5node, on
                rounds of hostile runs, on random states and on built ones
-               (a re-grant, two leaders of different terms in one P3c).
+               (a re-grant, two leaders of different terms in one P3c); KP
+               (its telemetry) on raft-1kx1k's rounds 3 and 20 and on edge
+               inputs. KQ-KS (dense PBFT) on rounds 3 and 20 of the
+               fs = 1..128 ladder (B = 128 lanes of 385 nodes, 32 slots)
+               and of standalone pbft-f128, on a hostile ladder's rounds,
+               random states and built ones (a primary taking its own
+               fresh slot, an adoption another receiver must not read).
                Tolerance: none, the results are integers and must be
                equal. Times are device time per call (torch.profiler
                kernel durations).
@@ -24,7 +30,7 @@ Phases, each printing one JSON line:
                CONFIGS["raft-100k"], seed 6), replayed as one CUDA graph: the
                decided-log digest must be the committed anchor, and every
                kernel of the capped path must have launched (KK must not:
-               telemetry is off; nor KL-KO). Seed 7 then replays the same
+               telemetry is off; nor KL-KS). Seed 7 then replays the same
                graph (no new capture) and must equal the eager loop; seed 6
                again the anchor.
 5. telemetry — raft-100k with telemetry and a flight recorder of 8-round
@@ -38,14 +44,31 @@ Phases, each printing one JSON line:
                replayed as one CUDA graph: the committed digests, KA and
                KL-KO launched and no other kernel, steps per second, busy
                share and graph memory; seed 3 of raft-1kx1k replays the
-               same graph and must equal the eager loop.
+               same graph and must equal the eager loop. Then both with
+               telemetry and 8-round windows: the same digests, KA and
+               KL-KP launched, windows that sum to the totals,
+               raft-5node's counters and recorder equal to an anchor made
+               by the JAX package, raft-1kx1k's replay equal to its eager
+               loop.
 7. bench     — bench.py's flagship shape (seed 42, max_entries 112):
                node-round-steps per second; something must commit.
 8. profile   — the flagship's graph replay under torch.profiler: device busy
                share, launches a round, device time by kernel, graph memory;
-               and an eager capped run and an eager dense run with each
-               kernel wrapper in a named range, which must show no PyTorch
-               compute op in any phase of the round.
+               and an eager capped run, an eager dense run with telemetry
+               and an eager fs = 1..128 ladder, with each kernel wrapper in
+               a named range, which must show no PyTorch compute op in any
+               phase of the round.
+9. pbft      — ``simulator.run`` of BASELINE config 3's standalone rows
+               pbft-f1 ... pbft-f128 and the fs = 1..128 ladder in one run
+               (``engines/pbft_sweep.py`` pbft_fsweep_timed), each replayed
+               as one CUDA graph: the oracle digests of
+               benchmarks/RESULTS.json and the ladder's
+               ``a1148caa…c0f3fa``, KL and KQ-KS launched and no other
+               kernel; the ladder's real node-round-steps per second,
+               busy share, device operations a round and graph memory; a
+               ladder with every lane's seed shifted replays the same graph
+               and must equal the eager loop, and the base seeds then give
+               the anchor again.
 
 Then the card's name and power limit, one ``{"kernels": [...]}`` line, and
 last ``{"ok": true, "device": {...}}``. Any failure, or no GPU, exits
@@ -117,10 +140,10 @@ def device_ms(fn, args, reps: int = 20, warm: int = 3) -> float:
                      schedule=schedule(wait=0, warmup=1, active=1)) as prof:
             fn(*copies[0])
             torch.cuda.synchronize()
-            recorded_step(prof)
-            for i in range(reps):
-                fn(*copies[i % len(copies)])
-            torch.cuda.synchronize()
+            with recorded_step(prof):
+                for i in range(reps):
+                    fn(*copies[i % len(copies)])
+                torch.cuda.synchronize()
         return prof
     _, device = profiled(session, getattr(fn, "__name__", "a kernel"))
     return sum(e.time_range.elapsed_us() for e in device) / 1e3 / reps
@@ -128,19 +151,34 @@ def device_ms(fn, args, reps: int = 20, warm: int = 3) -> float:
 
 PROFILER_SESSIONS = 8
 REDONE: list[str] = []          # the profiled work whose session was redone
-# The profiler opens its recording window at a step, on the host's clock. A
-# short kernel launched right after the step can map, from the device's
-# clock, to a start before the window and be dropped: on the H100 the first
-# of 20 torch.kthvalue launches (4 us each) went missing in 8 sessions of 8.
-# Recorded work starts this long after the step.
+# The profiler can drop the first device operations of its recorded step:
+# on the H100 the first of 20 torch.kthvalue launches (4 us each) went
+# missing in 8 sessions of 8 with no wait after the step, and with a 10 ms
+# and then a 100 ms wait the first one or two kernels of a session (up to
+# 2.1 ms each) still went missing in every session of later runs, whatever
+# the wait. So each recorded step starts with a lead-in: a wait, a spin
+# kernel of its own, a synchronize and a wait, before the range MEASURED
+# opens; only the device operations and runtime calls that start inside
+# that range are counted and timed.
 STEP_SETTLE_S = 0.01
+LEAD_IN_CYCLES = 50_000_000     # about 25 ms of spinning at 1.98 GHz
+MEASURED = "chip_smoke::measured"
 
 
-def recorded_step(prof) -> None:
-    """Step ``prof`` into its recorded step, and wait for its window to be
-    open before the caller launches the work to record."""
+@contextlib.contextmanager
+def recorded_step(prof, lead_in: bool = True):
+    """Step ``prof`` into its recorded step, run the lead-in (on the card),
+    and run the block inside the range MEASURED, whose work is what
+    :func:`device_events` and :func:`profiled` count."""
+    from torch.profiler import record_function
     prof.step()
     time.sleep(STEP_SETTLE_S)
+    if lead_in:
+        torch.cuda._sleep(LEAD_IN_CYCLES)
+        torch.cuda.synchronize()
+        time.sleep(STEP_SETTLE_S)
+    with record_function(MEASURED):
+        yield
 
 
 def profiled(session, what: str, graph: bool = False) -> tuple:
@@ -157,8 +195,10 @@ def profiled(session, what: str, graph: bool = False) -> tuple:
     for _ in range(PROFILER_SESSIONS):
         prof = session()
         device = device_events(prof)
+        mark = measured_start(prof)
         calls = sum(1 for e in prof.events()
                     if e.device_type == DeviceType.CPU
+                    and e.time_range.start >= mark
                     and any(c in e.name for c in RUNTIME_CALLS))
         counts.append((len(device), calls))
         if graph:
@@ -181,13 +221,27 @@ def profiled(session, what: str, graph: bool = False) -> tuple:
 RUNTIME_CALLS = ("Launch", "Memset", "Memcpy")
 
 
-def device_events(prof) -> list:
-    """The profiled device operations (kernels, memsets, copies), without
-    the ranges that the profiler's steps and the script's named wrapper
-    ranges also put on the device timeline."""
+def measured_start(prof) -> float:
+    """The start of the range MEASURED (:func:`recorded_step`) on the
+    profiler's host clock."""
     from torch.autograd import DeviceType
+    starts = [e.time_range.start for e in prof.events()
+              if e.name == MEASURED and e.device_type == DeviceType.CPU]
+    require(len(starts) == 1, "a profiled session without one measured "
+            "range")
+    return starts[0]
+
+
+def device_events(prof) -> list:
+    """The profiled device operations (kernels, memsets, copies) that start
+    in the range MEASURED, without the ranges that the profiler's steps and
+    the script's named ranges also put on the device timeline."""
+    from torch.autograd import DeviceType
+    mark = measured_start(prof)
     return [e for e in prof.events() if e.device_type == DeviceType.CUDA
-            and not e.name.startswith(("ProfilerStep", "wrapper::"))]
+            and e.time_range.start >= mark
+            and not e.name.startswith(("ProfilerStep", "wrapper::",
+                                       "chip_smoke::"))]
 
 
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
@@ -997,6 +1051,384 @@ def check_dense_kernels(dev, gen) -> list[dict]:
     return rows
 
 
+# --- phase 3, continued: the dense PBFT round's kernels KQ-KS, and KP --------
+
+PBFT = ("pbft_view_preprepare", "pbft_tally", "pbft_decide")
+# The kernels that no run of the capped engine launches.
+NOT_CAPPED = DENSE + ("dense_telemetry",) + PBFT
+PBFT_REPLACES = {
+    "pbft_view_preprepare": "consensus_tpu/engines/pbft.py:209 pbft_round "
+                            "P0-P3, consensus_tpu/engines/pbft.py:72 "
+                            "_vth_select, consensus_tpu/engines/"
+                            "pbft_sweep.py:184 pbft_round_padded P0-P3",
+    "pbft_tally": "consensus_tpu/engines/pbft.py:308 pbft_round P4-P5, "
+                  "consensus_tpu/engines/pbft_sweep.py:251 "
+                  "pbft_round_padded P4-P5",
+    "pbft_decide": "consensus_tpu/engines/pbft.py:344 pbft_round P6-P7, "
+                   "consensus_tpu/engines/pbft_sweep.py:270 "
+                   "pbft_round_padded P6-P7",
+    "dense_telemetry": "consensus_tpu/engines/raft.py:539 raft_round "
+                       "telemetry and flight tail"}
+# BASELINE config 3 (benchmarks/run_benchmarks.py bench_pbft_fsweep and
+# bench_pbft_oracle_ladder): 32 rounds, 32 slots, seed 3, drop 0.01, churn
+# 0.001. The standalone rows' digests are benchmarks/RESULTS.json rows
+# pbft-f1 ... pbft-f128 (the C++ oracle), the ladder's its row
+# pbft-fsweep-one-program (fs = 1..128 in one program).
+PBFT_ADV = dict(protocol="pbft", n_rounds=32, log_capacity=32, seed=3,
+                drop_rate=0.01, churn_rate=0.001)
+PBFT_DIGESTS = {
+    1: "6574526de45414f6c577319247c8118850dd686b193f4b4725ebca27e3b1e1e1",
+    2: "11f8b5c1cce786e7e28b96184c9fa3ecd0cb62c37cf94a5840daccb3da053474",
+    4: "2419aad15ed59da3b203f37ad0e89d4e57aba647169296bfd22f29ef0ea7e559",
+    8: "59faa4a6a2dda220984f47cfb077154ae170089b648ef9c12d39f4bfefb932f3",
+    16: "2f6a05d573c85e6673c6adc8d2f207959dcb7ba985689579200c4963cf402a37",
+    32: "17039179044a8d613082551e69436d1651e7cdefbe55968be11d963cabb0be76",
+    64: "344b221526d80a31460524750da2009ab52bc36618bd13b6fd97b95265fae73c",
+    128: "6c763cb1ffab1cbdd82f763bc73732ed00db7b03d523824de7d1f46d1cd3a252"}
+LADDER = tuple(range(1, 129))
+LADDER_DIGEST = \
+    "a1148caa9408b84f05c0728251c9bb95dd7ceaee59f5700db7a39c3aa6c0f3fa"
+# The rounds phase 3 records: an early one and one in the steady state.
+# The kernels are timed on the ladder's second.
+PBFT_ROUNDS = (3, 20)
+# tests/test_pbft_sweep.py BASE's knobs (with its 24 rounds, 8 slots and
+# seed 7): drops, partitions, churn and, once the slots are all committed,
+# timeouts.
+HOSTILE = dict(drop_rate=0.15, partition_rate=0.05, churn_rate=0.05)
+
+
+def pbft_config(f: int, **kw):
+    from consensus_tpu_torch.core.config import Config
+    return Config(**{**PBFT_ADV, "f": f, "n_nodes": 3 * f + 1, **kw})
+
+
+def ladder_config(fs=None, **kw):
+    """The padded config of the f-ladder ``fs`` (default LADDER) on
+    BASELINE config 3's knobs (changed by ``kw``)."""
+    from consensus_tpu_torch.engines import pbft_sweep
+    return pbft_sweep._fsweep_static(pbft_config(1, **kw),
+                                     LADDER if fs is None else fs)[1]
+
+
+def capture_pbft_inputs(cfg, rounds, rungs=None, device="cuda") -> dict:
+    """{r: {wrapper: arguments}}: what each wrapper of the PBFT round
+    (KQ-KS) receives in each round r of ``rounds`` of ``cfg``'s eager run
+    (a ladder with ``rungs``) on ``device``, cloned as it arrives."""
+    from consensus_tpu_torch.engines import pbft
+    from consensus_tpu_torch.network import runner
+    lanes = runner.device_lanes(cfg, rungs, device)
+    st = pbft.pbft_init(cfg, lanes.pop("seed"))
+    out, r0 = {}, 0
+    for r in sorted(rounds):
+        st = runner.advance(cfg, st, r0, r - r0, lanes=lanes)
+        got = out[r] = {}
+        with standing_in(pbft, PBFT, recording(got)):
+            st = pbft.pbft_round(cfg, st, r, **lanes)
+        require(set(got) == set(PBFT), f"round {r} skipped a phase")
+        r0 = r + 1
+    return out
+
+
+def catch_ups(args) -> int:
+    """The nodes that KQ's P1 moves on its arguments: their view passed
+    the churn step with their timer short of the timeout (P2 moves a view
+    only from a timer at the timeout)."""
+    from consensus_tpu_torch.engines import pbft
+    (cfg, seed, r, _, _, _, view, timer, *_rest) = args
+    ch = pbft.churn(seed, r, cfg.churn_cutoff)[:, None]
+    out = pbft.pbft_view_preprepare_plain(*clone_args(args))
+    return int(((out[0] > view + ch.to(torch.int32))
+                & (torch.where(ch, 0, timer) < cfg.view_timeout)).sum())
+
+
+def pbft_edge_inputs(dev, gen) -> dict:
+    """Inputs on which KQ-KS's rare paths fire: {name: [args]}. The
+    rounds of a hostile ladder (fs = 1..32, BASE's drops, partitions and
+    churn; its views stay equal, as in the JAX package, whose view-sync
+    counters read 0 on such runs); random states over small alphabets on
+    lanes of 49 padded nodes and 40 slots (two slot tiles, a ragged one),
+    where views differ and catch-ups fire, and re-proposals meet prepared
+    slots; and two
+    built states: a primary that takes its own fresh slot while the
+    others read its row, and a slot that node 1 adopts from node 5 while
+    node 4, to which 1 (and not 5) is delivered, must not adopt from 1."""
+    from consensus_tpu_torch.engines import pbft
+    from consensus_tpu_torch.network import runner
+    out = {name: [] for name in PBFT}
+
+    def ri(lo, hi, shape, dtype=torch.int32):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev,
+                             dtype=dtype)
+
+    def coin(p, shape):
+        return torch.rand(shape, generator=gen, device=dev) < p
+
+    fs = tuple(range(1, 33))
+    cfg = ladder_config(fs, n_rounds=24, log_capacity=8, seed=7, **HOSTILE)
+    for got in capture_pbft_inputs(cfg, (2, 5, 9, 17, 23), fs,
+                                   dev).values():
+        for name in PBFT:
+            out[name].append(got[name])
+
+    # Random states: lanes of 4..49 real nodes, views and values from
+    # small alphabets.
+    B, N, S = 16, 49, 40
+    cfg = pbft_config(16, log_capacity=S, view_timeout=4, drop_rate=0.3,
+                      partition_rate=0.3)
+    seeds = torch.arange(21, 21 + B, dtype=torch.int64,
+                         device=dev).to(torch.uint32)
+    f = ri(1, 17, (B,))
+    n_real = 3 * f + 1
+    view = ri(0, 6, (B, N))
+    pp_seen = coin(0.6, (B, N, S))
+    pp_view = torch.where(pp_seen, torch.minimum(ri(0, 6, (B, N, S)),
+                                                 view[:, :, None]), 0)
+    pp_val = ri(0, 3, (B, N, S))
+    prepared = pp_seen & coin(0.5, (B, N, S))
+    committed = prepared & coin(0.4, (B, N, S))
+    dval = torch.where(committed, pp_val, ri(0, 3, (B, N, S)))
+    deliver = pbft.delivery(seeds, 7, N, cfg.drop_cutoff,
+                            cfg.partition_cutoff)
+    kq = (cfg, seeds, 7, deliver, n_real, f, view, ri(0, 9, (B, N)),
+          pp_seen, pp_view, pp_val, prepared, committed)
+    free = pbft.pbft_view_preprepare_plain(
+        *kq[:11], torch.zeros_like(prepared), committed)
+    got = pbft.pbft_view_preprepare_plain(*clone_args(kq))
+    require(int((free[5] != got[5]).sum()) > 0,
+            "edge inputs: no re-proposal refused for a prepared slot")
+    require(catch_ups(kq) > 0, "edge inputs: no catch-up")
+    out["pbft_view_preprepare"].append(kq)
+    out["pbft_tally"].append((deliver, n_real, f, got[3], got[5], prepared,
+                              committed, dval))
+    out["pbft_decide"].append((deliver, n_real, committed, dval,
+                               committed & coin(0.5, (B, N, S)),
+                               ri(0, 9, (B, N)), coin(0.3, (B, N))))
+
+    # Built: primary 3 of view 3 has seen slots 0 and 1; every receiver,
+    # itself included, takes 0, 1 and its fresh slot 2, and none slot 3.
+    B, N, S = 2, 7, 8
+    cfg = pbft_config(2, log_capacity=S, view_timeout=50, drop_rate=0.0,
+                      churn_rate=0.0)
+    z = torch.zeros((B, N, S), dtype=torch.int32, device=dev)
+    seen = torch.zeros((B, N, S), dtype=torch.bool, device=dev)
+    seen[:, 3, :2] = True
+    deliver = ~torch.eye(N, dtype=torch.bool, device=dev).expand(B, N, N)
+    lanes = torch.full((B,), N, dtype=torch.int32, device=dev)
+    kq = (cfg, seeds[:B], 5, deliver.contiguous(), lanes, lanes * 0 + 2,
+          torch.full((B, N), 3, dtype=torch.int32, device=dev),
+          torch.zeros((B, N), dtype=torch.int32, device=dev), seen, z,
+          ri(0, 3, (B, N, S)), torch.zeros_like(seen), torch.zeros_like(seen))
+    got = pbft.pbft_view_preprepare_plain(*clone_args(kq))
+    require(bool(got[3][:, :, :3].all()) and not bool(got[3][:, :, 3:].any()),
+            "edge inputs: the primary's fresh slot was not slot 2 for all")
+    out["pbft_view_preprepare"].append(kq)
+
+    # Built: node 5 committed every slot and is delivered to node 1 only;
+    # node 1 is delivered to node 4. Node 1 adopts; node 4 does not.
+    deliver = torch.zeros((B, N, N), dtype=torch.bool, device=dev)
+    deliver[:, 5, 1] = deliver[:, 1, 4] = True
+    committed = torch.zeros((B, N, S), dtype=torch.bool, device=dev)
+    committed[:, 5] = True
+    dval = ri(-2**31, 2**31 - 1, (B, N, S))
+    ks = (deliver, lanes, committed, dval, torch.zeros_like(committed),
+          ri(0, 9, (B, N)), coin(0.5, (B, N)))
+    got = pbft.pbft_decide_plain(*clone_args(ks))
+    require(bool(got[0][:, 1].all()) and not bool(got[0][:, 4].any())
+            and torch.equal(got[1][:, 1], dval[:, 5]),
+            "edge inputs: no adoption, or an adoption read the same round")
+    out["pbft_decide"].append(ks)
+    return out
+
+
+def capture_dense_telemetry_inputs(cfg, rounds, device="cuda") -> list:
+    """The arguments KP receives in each round of ``rounds`` of ``cfg``'s
+    eager run with telemetry and its flight recorder, cloned."""
+    from consensus_tpu_torch.engines import raft
+    from consensus_tpu_torch.network import runner
+    telem, flight = runner.accumulators(cfg, device)
+    st = runner.init(cfg, runner.make_seeds(cfg), device)
+    out, r0 = [], 0
+    for r in sorted(rounds):
+        st = runner.advance(cfg, st, r0, r - r0, telem=telem, flight=flight)
+        got = {}
+        with standing_in(raft, ("dense_telemetry",), recording(got)):
+            st = raft.raft_round(cfg, st, r, telem=telem, flight=flight)
+        out.append(got["dense_telemetry"])
+        r0 = r + 1
+    return out
+
+
+def dense_telemetry_edge_inputs(dev, gen) -> list:
+    """KP on random flags, winners whose wait is <= 0, at the bucket
+    edges and past them (and one that wraps), leaders whose lag is <= 0
+    or >= 2^14, down nodes; accumulators that start nonzero; rounds 19
+    (the ragged last window of 6) and 0, and the recorder off."""
+    from consensus_tpu_torch.network import runner
+    n = 1000
+    cfg = dense_config("raft-1kx1k", n_nodes=n, n_rounds=20,
+                       telemetry_window=6)
+
+    def ri(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    def coin(p, shape):
+        return torch.rand(shape, generator=gen, device=dev) < p
+
+    timer_in = ri(-5, 40, (B, n))
+    timer_in[:, :8] = torch.tensor([-6, -1, 0, 2**14 - 2, 2**14 - 1, 2**14,
+                                    2**20, 2**31 - 1], dtype=torch.int32)
+    win = coin(0.05, (B, n))
+    win[:, :8] = True
+    commit_in = ri(0, 100, (B, n))
+    t, (w, lat) = runner.accumulators(cfg, dev)
+    t += ri(0, 1000, t.shape)
+    w += ri(0, 1000, w.shape)
+    lat += ri(0, 1000, lat.shape)
+    kp = (win, timer_in, ri(-1, n, (B, n)), coin(0.5, (B, n)), commit_in,
+          commit_in + ri(0, 3, (B, n)), ri(0, 3, (B, n)), ri(0, 2**16, (B, n)),
+          coin(0.1, (B, n)))
+    return [(cfg, r, *kp, *acc) for r, acc in ((19, (t, w, lat)),
+                                               (0, (t, w, lat)), (19, (t,)))]
+
+
+def order_walk(args) -> torch.Tensor:
+    """[B, N]: how many senders KQ's P1 walks for each receiver on its
+    arguments: in order of the post-P0 views (descending, ties by id) up
+    to the (f+1)-th that counts (itself, or a real sender delivered to
+    it), or all N."""
+    from consensus_tpu_torch.engines import pbft
+    (cfg, seed, r, deliver, n_real, f, view, *_rest) = args
+    b, n = view.shape
+    ch = pbft.churn(seed, r, cfg.churn_cutoff)[:, None]
+    order = torch.sort(view + ch.to(torch.int32), dim=1, descending=True,
+                       stable=True).indices
+    eye = torch.eye(n, dtype=torch.bool, device=view.device)
+    counted = (pbft.real_delivery(deliver, n_real) | eye).gather(
+        1, order[:, :, None].expand(b, n, n))
+    below = (counted.cumsum(1) < (f + 1)[:, None, None]).sum(1)
+    return (below + 1).clamp(max=n)
+
+
+def pbft_bound(name: str, args) -> tuple[float, str]:
+    """The least time of kernel ``name``'s work (KP-KS) on ``args``: the
+    bytes it must move and the 32-bit operations it must do for these
+    inputs (see each source's note)."""
+    from consensus_tpu_torch.engines import pbft, raft
+    if name == "dense_telemetry":
+        (_, _, win, _, _, ack_ok, _, _, role, _, down, *acc) = args
+        nodes = win.numel()
+        nbytes = 10 * nodes + 4 * (nodes - int(ack_ok.sum()))
+        if len(acc) == 3:                       # w and lat given
+            lead = role == raft.ROLE_L
+            nbytes += (4 * nodes + int(lead.sum())
+                       + 4 * int((lead & ~down).sum()) + 4 * int(win.sum()))
+        return bound(nbytes, 10 * nodes)
+    if name == "pbft_view_preprepare":
+        pp_seen = args[8]
+        nodes, pairs = pp_seen.shape[0] * pp_seen.shape[1], pp_seen.numel()
+        walked = int(order_walk(args).sum())
+        got = pbft.pbft_view_preprepare_plain(*clone_args(args))
+        draws = int((got[3] & ~pp_seen).any(2).sum())
+        return bound(17 * nodes + walked + 19 * pairs,
+                     4 * walked + 10 * pairs + THREEFRY_OPS * draws)
+    if name == "pbft_tally":
+        (deliver, n_real, f, pp_seen, pp_val, prepared, committed,
+         dval) = args
+        b, n, s = pp_seen.shape
+        prep4 = pbft.pbft_tally_plain(*clone_args(args))[0]
+        real = pbft.real_nodes(n_real, n)[:, :, None]
+        waiting = ((pp_seen & ~prepared & real).sum((1, 2))
+                   + (prep4 & ~committed & real).sum((1, 2)))
+        triples = int((waiting.to(torch.int64)
+                       * n_real.to(torch.int64)).sum())
+        edges = int((n_real.to(torch.int64) ** 2).sum())
+        return bound(edges + 17 * pp_seen.numel(), 3 * triples)
+    (deliver, n_real, committed, dval, committed_start, timer, reset) = args
+    b, n, s = committed.shape
+    # The senders each undecided (receiver, slot) walks: to its decider,
+    # or all real senders.
+    sent = (pbft.real_delivery(deliver, n_real)[..., None]
+            & committed[:, :, None, :]).to(torch.uint8)   # [B, i, j, s]
+    found = sent.amax(1).bool()
+    first = sent.argmax(1)
+    real = pbft.real_nodes(n_real, n)[:, :, None]
+    search = real & ~committed
+    walked = torch.where(found, first + 1,
+                         n_real.to(torch.int64)[:, None, None])
+    walked = torch.where(search, walked, 0)
+    # Bytes: every tensor once. The walks re-read committed and dval,
+    # already counted, and a receiver's delivery column down to its
+    # farthest walk, each byte once.
+    cols = int(walked.amax(2).sum())
+    return bound(11 * committed.numel() + 9 * b * n + cols,
+                 2 * int(walked.sum()))
+
+
+def kthvalue_yardstick(args):
+    """P1's statistic for KQ's arguments as one ``torch.kthvalue`` call:
+    the [B, N, N] view matrix (delivered real senders' views, -1 else, own
+    view on the diagonal) with f_max - f[b] rows of INT32_MAX appended to
+    lane b, whose N-th smallest entry of each column is then the
+    (f[b]+1)-th largest of the matrix's. Returns (fn, its input)."""
+    from consensus_tpu_torch.engines import pbft
+    (_, _, _, deliver, n_real, f, view, *_rest) = args
+    b, n = view.shape
+    eye = torch.eye(n, dtype=torch.bool, device=view.device)
+    w = torch.where(pbft.real_delivery(deliver, n_real), view[:, :, None],
+                    -1)
+    w = torch.where(eye, view[:, None, :], w)
+    f_max = int(f.max())
+    pad = torch.arange(f_max, device=view.device)[None, :] \
+        >= (f_max - f)[:, None]                 # [B, f_max]
+    top = torch.where(pad, -1, 2**31 - 1).to(torch.int32)
+    w = torch.cat([w, top[:, :, None].expand(b, f_max, n)], 1)
+    return (lambda m: torch.kthvalue(m, n, dim=1)), (w.contiguous(),)
+
+
+def check_pbft_kernels(dev, gen) -> list[dict]:
+    """KQ-KS against their plain versions on rounds PBFT_ROUNDS of the
+    fs = 1..128 ladder and of standalone pbft-f128 and on the edge inputs;
+    KP on raft-1kx1k's rounds 3 and 20 with telemetry and on its edge
+    inputs. Times and bounds on the ladder's round 20 and raft-1kx1k's
+    round 20."""
+    from consensus_tpu_torch.engines import pbft, raft
+    real = list(capture_pbft_inputs(ladder_config(), PBFT_ROUNDS,
+                                    LADDER).values())
+    timed = real[-1]
+    real += capture_pbft_inputs(pbft_config(128), PBFT_ROUNDS).values()
+    edges = pbft_edge_inputs(dev, gen)
+    rows = []
+    for name in PBFT:
+        err = max(max_abs_err(run_pair(name, args)) for args in
+                  [got[name] for got in real] + edges[name])
+        args = timed[name]
+        library = None
+        if name == "pbft_view_preprepare":
+            library = device_ms(*kthvalue_yardstick(args))
+        rows.append(dict(name=name, route="cuda",
+                         source=f"consensus_tpu_torch/csrc/{name}.cu",
+                         replaces=PBFT_REPLACES[name], max_abs_err=err,
+                         ms=device_ms(getattr(pbft, name), args),
+                         plain_ms=device_ms(getattr(pbft, name + "_plain"),
+                                            args),
+                         bound=pbft_bound(name, args), library_ms=library))
+    kp = capture_dense_telemetry_inputs(
+        dense_config("raft-1kx1k", telemetry_window=WINDOW),
+        DENSE_ROUNDS["raft-1kx1k"])
+    err = max(max_abs_err(run_pair("dense_telemetry", args))
+              for args in kp + dense_telemetry_edge_inputs(dev, gen))
+    rows.append(dict(name="dense_telemetry", route="cuda",
+                     source="consensus_tpu_torch/csrc/dense_telemetry.cu",
+                     replaces=PBFT_REPLACES["dense_telemetry"],
+                     max_abs_err=err,
+                     ms=device_ms(raft.dense_telemetry, kp[-1]),
+                     plain_ms=device_ms(raft.dense_telemetry_plain, kp[-1]),
+                     bound=pbft_bound("dense_telemetry", kp[-1]),
+                     library_ms=None))
+    return rows
+
+
 def hand_kernels() -> dict[str, tuple[str, ...]]:
     """The ``__global__`` kernels of each source in ``_build.SOURCES``, by
     wrapper name: the names the profiler reports for them. Names are unique
@@ -1041,11 +1473,21 @@ GAPS = {(None, "candidacy"): "init",
         ("dense_elect", "dense_append"): "P3a-P3c",
         ("dense_append", "dense_acks_commit"): "P3d-P4",
         ("dense_acks_commit", "delivery"): "between rounds",
-        ("dense_acks_commit", None): "after the last round"}
+        ("dense_acks_commit", None): "after the last round",
+        ("dense_acks_commit", "dense_telemetry"): "telemetry",
+        ("dense_telemetry", "delivery"): "between rounds",
+        ("dense_telemetry", None): "after the last round",
+        # The PBFT round.
+        ("delivery", "pbft_view_preprepare"): "P0-P3",
+        ("pbft_view_preprepare", "pbft_tally"): "P4-P5",
+        ("pbft_tally", "pbft_decide"): "P6-P7",
+        ("pbft_decide", "delivery"): "between rounds",
+        ("pbft_decide", None): "after the last round"}
 ZEROING = ("aten::fill_", "aten::zero_")
 
 
-def plain_ops_by_phase(cfg, device="cuda", telemetry=False) -> dict:
+def plain_ops_by_phase(cfg, device="cuda", telemetry=False,
+                       rungs=None) -> dict:
     """One eager run of ``cfg`` under torch.profiler with each kernel
     wrapper of the round in a named range: {place: {aten op: ms}} for every
     aten op that took time on the device (on the CPU: host time), where
@@ -1057,16 +1499,20 @@ def plain_ops_by_phase(cfg, device="cuda", telemetry=False) -> dict:
     from torch.profiler import (ProfilerActivity, profile, record_function,
                                 schedule)
 
-    from consensus_tpu_torch.engines import raft
+    from consensus_tpu_torch.engines import pbft, raft
     from consensus_tpu_torch.engines import raft_sparse as rs
     from consensus_tpu_torch.network import runner
     on_cpu = torch.device(device).type == "cpu"
     # The wrappers the engine's round calls (KA's only through init).
-    if runner.engine(cfg) is runner.DENSE:
-        module, marked_names = raft, list(DENSE)
+    eng = runner.engine(cfg)
+    if eng is runner.PBFT:
+        module, marked_names = pbft, ["delivery", *PBFT]
+    elif eng is runner.DENSE:
+        module, marked_names = raft, [*DENSE, "dense_telemetry"]
     else:
-        module, marked_names = rs, [name for _, name in runner.KERNELS
-                                    if name not in DENSE + ("random_u32",)]
+        module, marked_names = rs, [
+            name for mod, name in runner.KERNELS
+            if mod is rs or name == "delivery_edges"]
 
     def marked(name, fn):
         def call(*args):
@@ -1080,9 +1526,11 @@ def plain_ops_by_phase(cfg, device="cuda", telemetry=False) -> dict:
                 [ProfilerActivity.CPU, ProfilerActivity.CUDA],
                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
             # The profiler records from its second step on.
-            runner.run_device(cfg, device, telemetry=telemetry, graph=False)
-            recorded_step(prof)
-            runner.run_device(cfg, device, telemetry=telemetry, graph=False)
+            runner.run_device(cfg, device, telemetry=telemetry, graph=False,
+                              rungs=rungs)
+            with recorded_step(prof, lead_in=not on_cpu):
+                runner.run_device(cfg, device, telemetry=telemetry,
+                                  graph=False, rungs=rungs)
         return prof
     # Without device records every place would look free of compute ops.
     prof = session() if on_cpu else profiled(session, "the eager run")[0]
@@ -1110,47 +1558,60 @@ def plain_ops_by_phase(cfg, device="cuda", telemetry=False) -> dict:
     return out
 
 
-def profile_replay(cfg) -> dict:
+def profile_replay(cfg, rungs=None, telemetry=False) -> dict:
     """The flagship's graph replay: wall time of one replay up to the
     device's end (host clock, best of five), and one more replay under
     torch.profiler (after a warm-up step of the profiler, which misses the
-    first launches of its first step): its device time by hand kernel, its
-    device operations, and its busy share, device time over the same
-    replay's wall. The profiler slows the host's side of a replay by a
-    cost per device operation, so ``unprofiled_busy_share`` also divides
-    that device time by the best unprofiled replay's wall."""
+    first launches of its first step): its device time by hand kernel and
+    of every other device operation by name (count, ms), its device
+    operations, and its busy share, device time over the same replay's
+    wall. The profiler slows the host's side of a replay by a cost per
+    device operation, so ``unprofiled_busy_share`` also divides that
+    device time by the best unprofiled replay's wall."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     from consensus_tpu_torch.network import runner
-    runner.run_device(cfg)                      # the graph is captured
+
+    def replay():
+        runner.run_device(cfg, rungs=rungs, telemetry=telemetry)
+    replay()                                    # the graph is captured
     walls = []
     for _ in range(5):
         t0 = time.perf_counter()
-        runner.run_device(cfg)
+        replay()
         walls.append((time.perf_counter() - t0) * 1e3)
     profiled_walls = []
 
     def session():
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                      schedule=schedule(wait=0, warmup=1, active=1)) as prof:
-            runner.run_device(cfg)
-            recorded_step(prof)
-            t0 = time.perf_counter()
-            runner.run_device(cfg)
-            profiled_walls.append((time.perf_counter() - t0) * 1e3)
+            replay()
+            with recorded_step(prof):
+                t0 = time.perf_counter()
+                replay()
+                profiled_walls.append((time.perf_counter() - t0) * 1e3)
         return prof
     _, device = profiled(session, "the replay", graph=True)
     profiled_ms = profiled_walls[-1]
     busy_ms = sum(e.time_range.elapsed_us() for e in device) / 1e3
-    hand = {k: sum(e.time_range.elapsed_us() for e in device
-                   if any(is_kernel(e.name, f) for f in fns)) / 1e3
-            for k, fns in hand_kernels().items()}
+    kernels = hand_kernels()
+    hand = dict.fromkeys(kernels, 0.0)
+    other: dict = {}
+    for e in device:
+        ms = e.time_range.elapsed_us() / 1e3
+        k = next((k for k, fns in kernels.items()
+                  if any(is_kernel(e.name, f) for f in fns)), None)
+        if k is not None:
+            hand[k] += ms
+        else:
+            n, t = other.get(e.name, (0, 0.0))
+            other[e.name] = (n + 1, t + ms)
     return dict(replay_wall_ms=walls, profiled_wall_ms=profiled_ms,
                 device_ms=busy_ms, busy_share=busy_ms / profiled_ms,
                 unprofiled_busy_share=busy_ms / min(walls),
                 device_launches=len(device),
                 launches_per_round=len(device) / cfg.n_rounds,
-                hand_kernel_ms=hand,
+                hand_kernel_ms=hand, other_ops=other,
                 hand_share=sum(hand.values()) / busy_ms)
 
 
@@ -1272,7 +1733,7 @@ def check_telemetry(card: str, smi: str) -> int:
     require(waits, "election waits and leader elections disagree")
     require(same, "graph replay and eager loop disagree")
     for name, n in launches.items():
-        require((n > 0) == (name not in DENSE),
+        require((n > 0) == (name not in NOT_CAPPED),
                 f"kernel {name}: {n} launches on the telemetry path")
     require(anchor.digest == ANCHOR_DIGEST and anchor_totals == ANCHOR_TOTALS
             and anchor_flight == ANCHOR_FLIGHT,
@@ -1316,6 +1777,162 @@ def check_dense_path(card: str, smi: str) -> dict[str, int]:
     return total
 
 
+# --- phase 6, continued: the dense engine's telemetry ------------------------
+
+# raft-5node's telemetry anchor: its counters and flight recorder with
+# 8-round windows, made from the JAX package on the CPU by
+#
+#   JAX_PLATFORMS=cpu python3 - <<'EOF'
+#   import json, chip_smoke
+#   from consensus_tpu import Config
+#   from consensus_tpu.network import simulator
+#   cfg = {**chip_smoke.DENSE_CONFIGS["raft-5node"], "protocol": "raft",
+#          "log_capacity": 128, "max_entries": 100, "drop_rate": 0.01,
+#          "churn_rate": 0.001, "telemetry_window": chip_smoke.WINDOW}
+#   res = simulator.run(Config(**cfg), warmup=False, telemetry=True)
+#   print(json.dumps([res.digest, res.extras["telemetry"]["totals"],
+#                     chip_smoke.flight_digest(res.extras["flight"])]))
+#   EOF
+DENSE_TELEMETRY_TOTALS = {
+    "leader_elections": 592, "append_accepted": 316184,
+    "append_rejected": 2, "entries_committed": 255996, "attack_rounds": 0,
+    "crashes": 0, "recoveries": 0, "nodes_down": 0, "agg_down_rounds": 0,
+    "stale_serves": 0, "poisoned_serves": 0}
+DENSE_TELEMETRY_FLIGHT = \
+    "39b3d26f20b923bee5e9451d281877769652c11d5ec556e520f7037197157273"
+
+
+def check_dense_telemetry(card: str, smi: str) -> int:
+    """Phase 6, telemetry: raft-5node and raft-1kx1k with telemetry and
+    8-round windows, replayed as graphs, with every launch count set to 0
+    just before and read just after. The digests must not move, KA and
+    KL-KP must have launched and no other kernel, the windows must sum to
+    the totals, raft-5node's counters and recorder must equal their JAX
+    anchor, and raft-1kx1k's graph replay must equal its eager loop.
+    Then each config's replay under the profiler without and with
+    telemetry, alternated (without, with, with, without), so that the
+    cost of telemetry is read within one process. Returns KP's
+    launches."""
+    from consensus_tpu_torch.network import runner, simulator
+    for mod, name in runner.KERNELS:
+        getattr(mod, name).launches = 0
+    res = {name: simulator.run(dense_config(name, telemetry_window=WINDOW),
+                               telemetry=True) for name in DENSE_CONFIGS}
+    launches = runner.launch_counts()
+    prof = {name: [profile_replay(
+        dense_config(name, telemetry_window=WINDOW if on else 0),
+        telemetry=on) for on in (False, True, True, False)]
+        for name in DENSE_CONFIGS}
+    cfg = dense_config("raft-1kx1k", telemetry_window=WINDOW)
+    eager = runner.telemetry_stats(cfg, runner.run_device(
+        cfg, telemetry=True, graph=False))
+    fl = res["raft-1kx1k"].extras["flight"]
+    per = res["raft-1kx1k"].extras["telemetry"]["per_sweep"]
+    same = flight_digest(eager["flight"]) == flight_digest(fl) and all(
+        np.array_equal(eager["telemetry"][k], per[k]) for k in per)
+    sums = all(np.array_equal(r.extras["flight"]["windows"][k].sum(1), v)
+               for r in res.values()
+               for k, v in r.extras["telemetry"]["per_sweep"].items())
+    anchor = res["raft-5node"].extras
+    emit("dense_telemetry",
+         **{name: dict(digest=r.digest, totals=r.extras["telemetry"]
+                       ["totals"], flight_sha256=flight_digest(
+                           r.extras["flight"]),
+                       steps_per_sec=r.steps_per_sec, wall_s=r.wall_s,
+                       profiles_without_with_with_without=prof[name])
+            for name, r in res.items()},
+         windows_sum_to_totals=sums, graph_equals_eager=same,
+         launches=launches, card=card, power=smi)
+    for name, r in res.items():
+        require(r.digest == DENSE_DIGESTS[name],
+                f"telemetry changed {name}'s digest: {r.digest}")
+    require(sums, "the windows do not sum to the totals")
+    require(same, "raft-1kx1k: graph replay and eager loop disagree")
+    require(anchor["telemetry"]["totals"] == DENSE_TELEMETRY_TOTALS
+            and flight_digest(anchor["flight"]) == DENSE_TELEMETRY_FLIGHT,
+            "raft-5node's telemetry disagrees with its JAX anchor")
+    for kernel, n in launches.items():
+        require((n > 0) == (kernel in DENSE + ("random_u32",
+                                               "dense_telemetry")),
+                f"kernel {kernel}: {n} launches on the dense telemetry path")
+    return launches["dense_telemetry"]
+
+
+# --- phase 9: dense PBFT and the f-ladder --------------------------------------
+
+def check_pbft_path(card: str, smi: str) -> dict[str, int]:
+    """Phase 9: ``simulator.run`` of the standalone rows pbft-f1 ...
+    pbft-f128 and the fs = 1..128 ladder (``pbft_fsweep_timed``), each
+    replayed as one CUDA graph, with every launch count set to 0 just
+    before and read just after: the oracle digests and the ladder's
+    anchor, KL and KQ-KS launched and no other kernel. Then the ladder's
+    replay under the profiler, and a replay with every lane's seed shifted
+    against the eager loop. Returns the launches."""
+    from consensus_tpu_torch.core import serialize
+    from consensus_tpu_torch.engines import pbft_sweep
+    from consensus_tpu_torch.network import runner, simulator
+    for mod, name in runner.KERNELS:
+        getattr(mod, name).launches = 0
+    rows = {}
+    for f, want in PBFT_DIGESTS.items():
+        cfg = pbft_config(f)
+        res = simulator.run(cfg)
+        require(res.counts.shape == (1, cfg.n_nodes)
+                and int(res.counts.max()) > 0,
+                f"pbft-f{f}: decided logs of the wrong shape, or empty")
+        rows[f"pbft-f{f}"] = dict(digest=res.digest,
+                                  digest_ok=res.digest == want,
+                                  steps_per_sec=res.steps_per_sec,
+                                  wall_s=res.wall_s,
+                                  max_committed=int(res.counts.max()))
+    base = pbft_config(1)
+    memory = memory_use(lambda: pbft_sweep.pbft_fsweep_timed(
+        base, LADDER, repeats=5))
+    out, compile_s, best, real_steps = memory.pop("result")
+    launches = runner.launch_counts()
+    digest = serialize.digest(pbft_sweep.fsweep_payload(out))
+    cfg_pad = ladder_config()
+    padded_steps = cfg_pad.n_sweeps * cfg_pad.n_nodes * cfg_pad.n_rounds
+    emit("pbft", standalone=rows, ladder=dict(
+        digest=digest, digest_ok=digest == LADDER_DIGEST,
+        real_steps=real_steps, padded_steps=padded_steps, wall_s=best,
+        real_steps_per_sec=real_steps / best, first_run_s=compile_s,
+        rungs_committed=sum(bool(o["committed"].any()) for o in out),
+        **memory), launches=launches, card=card, power=smi)
+    for name, row in rows.items():
+        require(row["digest_ok"], f"{name} digest {row['digest']}")
+    require(digest == LADDER_DIGEST, f"the ladder's digest {digest} != "
+            f"{LADDER_DIGEST}")
+    for kernel, n in launches.items():
+        require((n > 0) == (kernel in ("delivery",) + PBFT),
+                f"kernel {kernel}: {n} launches on the pbft path")
+    prof = profile_replay(cfg_pad, rungs=LADDER)
+    emit("pbft_profile", config="fs = 1..128 ladder", card=card, power=smi,
+         **prof)
+
+    # Another seed on the same graph, against the eager loop; then the
+    # base seeds again.
+    captured = runner.captures
+    other = dataclasses.replace(base, seed=base.seed + len(LADDER))
+    replayed = serialize.digest(pbft_sweep.fsweep_payload(
+        pbft_sweep.pbft_fsweep_run(other, LADDER)))
+    eager = serialize.digest(pbft_sweep.fsweep_payload(
+        pbft_sweep.pbft_fsweep_run(other, LADDER, graph=False)))
+    again = serialize.digest(pbft_sweep.fsweep_payload(
+        pbft_sweep.pbft_fsweep_run(base, LADDER)))
+    emit("seed_sharing", config="fs = 1..128 ladder", seed=other.seed,
+         digest=replayed, eager_digest=eager,
+         new_captures=runner.captures - captured, anchor_digest_again=again)
+    require(runner.captures == captured,
+            "a ladder with another seed captured a graph of its own")
+    require(replayed == eager and replayed != LADDER_DIGEST,
+            "the ladder's replay with another seed disagrees with the "
+            "eager loop")
+    require(again == LADDER_DIGEST,
+            "the ladder's base seeds after another seed changed its digest")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1351,7 +1968,7 @@ def main() -> int:
                check_top_active(dev, gen),
                *check_phases(dev, gen, flagship_config(
                    telemetry_window=WINDOW)),
-               *check_dense_kernels(dev, gen)]
+               *check_dense_kernels(dev, gen), *check_pbft_kernels(dev, gen)]
     torch.cuda.synchronize()
     require(sorted(k["name"] for k in kernels) == sorted(_build.SOURCES),
             "phase 3 does not check every kernel of csrc")
@@ -1376,7 +1993,7 @@ def main() -> int:
     require(res.digest == FLAGSHIP_DIGEST,
             f"flagship digest {res.digest} != {FLAGSHIP_DIGEST}")
     for name, n in launches.items():
-        require((n > 0) == (name not in DENSE + ("telemetry",)),
+        require((n > 0) == (name not in NOT_CAPPED + ("telemetry",)),
                 f"kernel {name}: {n} launches on the main path")
     check_seed_sharing(cfg, FLAGSHIP_DIGEST)
 
@@ -1386,8 +2003,7 @@ def main() -> int:
     # 6. the dense engine: BASELINE configs raft-5node and raft-1kx1k.
     dense = check_dense_path(card, smi)
     launches.update({name: dense[name] for name in DENSE})
-    for k in kernels:
-        k["launches"] = launches[k["name"]]
+    launches["dense_telemetry"] = check_dense_telemetry(card, smi)
 
     # 7. bench.py's shape.
     bench_cfg = flagship_config(max_entries=L - 16, seed=42)
@@ -1403,14 +2019,26 @@ def main() -> int:
     prof = profile_replay(cfg)
     by_phase = plain_ops_by_phase(flagship_config(telemetry_window=WINDOW),
                                   telemetry=True)
-    dense_by_phase = plain_ops_by_phase(dense_config("raft-1kx1k",
-                                                     n_rounds=16))
+    dense_by_phase = plain_ops_by_phase(
+        dense_config("raft-1kx1k", n_rounds=16, telemetry_window=WINDOW),
+        telemetry=True)
+    pbft_by_phase = plain_ops_by_phase(ladder_config(n_rounds=8),
+                                       rungs=LADDER)
     emit("profile", card=card, power=smi, **prof,
          plain_ops_by_phase=by_phase, dense_plain_ops_by_phase=dense_by_phase,
+         pbft_plain_ops_by_phase=pbft_by_phase,
          profiler_sessions_redone=REDONE)
-    for place, found in [*by_phase.items(), *dense_by_phase.items()]:
+    for place, found in [*by_phase.items(), *dense_by_phase.items(),
+                         *pbft_by_phase.items()]:
         require(place == "init" or set(found) <= set(ZEROING),
                 f"PyTorch compute ops on the device in {place}: {found}")
+
+    # 9. dense PBFT: the standalone rows and the f-ladder.
+    pbft_launches = check_pbft_path(card, smi)
+    launches["delivery"] += pbft_launches["delivery"]
+    launches.update({name: pbft_launches[name] for name in PBFT})
+    for k in kernels:
+        k["launches"] = launches[k["name"]]
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -25,7 +25,8 @@ import torch
 SOURCES = ("random_u32", "delivery_edges", "top_active", "append_entries",
            "candidacy", "elect", "slots", "acks_commit", "propose",
            "telemetry", "delivery", "dense_elect", "dense_append",
-           "dense_acks_commit")
+           "dense_acks_commit", "dense_telemetry", "pbft_view_preprepare",
+           "pbft_tally", "pbft_decide")
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "build" / \
@@ -80,8 +81,8 @@ SIGNATURES = {
     # seed, round, churn_cut, t_min, t_span; deliver, term, role,
     # voted_for, timer, timeout, log_term, log_len, match_idx and next_idx
     # (in place); term, role, voted_for, timer, timeout, reset outputs,
-    # scratch; B, N, L
-    "dense_elect": (_P, _U, _U, _I, _U) + (_P,) * 17 + (_I,) * 3,
+    # winner flags (null without telemetry), scratch; B, N, L
+    "dense_elect": (_P, _U, _U, _I, _U) + (_P,) * 18 + (_I,) * 3,
     # seed, round, t_min, t_span; deliver, term, role, voted_for, timer,
     # timeout, reset, log_term, log_val (in place), log_len, commit,
     # match_idx (in place), next_idx; term, role, voted_for, timer,
@@ -92,6 +93,20 @@ SIGNATURES = {
     # log_term; term, role, voted_for, timeout, commit, match_idx,
     # next_idx, timer (in place), reset; scratch; B, N, L, E
     "dense_acks_commit": (_P, _I, _U) + (_P,) * 16 + (_I,) * 4,
+    # win, timer at round entry, ack_to, ack_ok, commit at round entry,
+    # commit, role, log_len, down; t, w, lat accumulators (w and lat null
+    # with the recorder off); B, N, K, window, n_windows
+    "dense_telemetry": (_P,) * 12 + (_I,) * 5,
+    # seed, round, churn_cut, view_timeout, vmax; deliver, n_real, f, view,
+    # timer, pp_seen, pp_view, pp_val, prepared, committed; view, timer,
+    # reset, pp_seen, pp_view, pp_val outputs, order scratch; B, N, S
+    "pbft_view_preprepare": (_P, _U, _U, _I, _I) + (_P,) * 17 + (_I,) * 3,
+    # deliver, n_real, f, pp_seen, pp_val, prepared, committed, dval;
+    # prepared, committed, dval outputs; B, N, S
+    "pbft_tally": (_P,) * 11 + (_I,) * 3,
+    # deliver, n_real, committed, dval, committed at round entry, timer,
+    # reset; committed, dval, timer outputs; B, N, S
+    "pbft_decide": (_P,) * 10 + (_I,) * 3,
 }
 
 

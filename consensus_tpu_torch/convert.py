@@ -1,12 +1,14 @@
 """Carry state across between the JAX package and the port.
 
 The simulator has no weights; its state plays their part. A batched JAX
-carry (``numpy`` arrays with [B, ...] leaves) of the dense engine
-(``RaftState``) or of the capped one (``RaftSparseState``) becomes the
-port's :class:`RaftState` or :class:`RaftSparseState`, told apart by their
+carry (``numpy`` arrays with [B, ...] leaves) of the dense Raft engine
+(``RaftState``), of the capped one (``RaftSparseState``) or of the PBFT
+engine (``PbftState``) becomes the port's :class:`RaftState`,
+:class:`RaftSparseState` or :class:`PbftState`, told apart by their
 leaves, and back, with every dtype kept: uint32 seed, int32 protocol
 state, uint8 match/next (``match_idx`` / ``next_idx``, ``lead_match`` /
-``lead_next``) and bool down. The scan's telemetry accumulators
+``lead_next``), bool down and PBFT's bool slot flags (``pp_seen``,
+``prepared``, ``committed``). The scan's telemetry accumulators
 (``telem``, ``win``, ``lat`` of ``_chunk_jit``, int32) carry across the
 same way.
 """
@@ -15,18 +17,22 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .engines.pbft import PbftState
 from .engines.raft import RaftState
 from .engines.raft_sparse import RaftSparseState
 
 DTYPES = {"seed": np.uint32, "lead_match": np.uint8, "lead_next": np.uint8,
-          "match_idx": np.uint8, "next_idx": np.uint8, "down": np.bool_}
+          "match_idx": np.uint8, "next_idx": np.uint8, "down": np.bool_,
+          "pp_seen": np.bool_, "prepared": np.bool_, "committed": np.bool_}
 
 
 def state_from_numpy(leaves: dict,
-                     device="cpu") -> RaftState | RaftSparseState:
-    """The port's state from a dict of batched numpy leaves: the dense
-    engine's when they hold ``match_idx``, else the capped engine's."""
-    kind = RaftState if "match_idx" in leaves else RaftSparseState
+                     device="cpu") -> RaftState | RaftSparseState | PbftState:
+    """The port's state from a dict of batched numpy leaves: the PBFT
+    engine's when they hold ``pp_seen``, the dense Raft engine's when they
+    hold ``match_idx``, else the capped engine's."""
+    kind = (PbftState if "pp_seen" in leaves
+            else RaftState if "match_idx" in leaves else RaftSparseState)
     out = {}
     for name in kind._fields:
         a = np.ascontiguousarray(leaves[name])
@@ -38,7 +44,8 @@ def state_from_numpy(leaves: dict,
     return kind(**out)
 
 
-def state_to_numpy(st: RaftState | RaftSparseState) -> dict[str, np.ndarray]:
+def state_to_numpy(
+        st: RaftState | RaftSparseState | PbftState) -> dict[str, np.ndarray]:
     """A dict of batched numpy leaves, in the JAX carry's dtypes."""
     return {name: getattr(st, name).cpu().numpy() for name in st._fields}
 

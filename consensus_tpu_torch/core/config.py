@@ -1,9 +1,11 @@
-"""The run configuration of the port: the Raft slice of ``Config``.
+"""The run configuration of the port: the Raft and PBFT slice of ``Config``.
 
 A slim copy of ``consensus_tpu/core/config.py``: the same field names,
-defaults and u32 cutoffs for what the Raft engines read. As in the JAX
-package, ``max_active = 0`` selects the dense engine (``engines/raft.py``)
-and ``max_active > 0`` the §3b capped one (``engines/raft_sparse.py``).
+defaults and u32 cutoffs for what the Raft and dense PBFT engines read. As
+in the JAX package, a raft config with ``max_active = 0`` selects the dense
+engine (``engines/raft.py``) and ``max_active > 0`` the §3b capped one
+(``engines/raft_sparse.py``); ``protocol="pbft"`` selects the dense SPEC §6
+engine (``engines/pbft.py``), whose population is ``n_nodes = 3f + 1``.
 The knobs of the JAX package that this port does not implement yet are
 fields too, and setting one off its default raises ``ValueError``; the
 port never ignores a setting silently.
@@ -27,12 +29,18 @@ UNSUPPORTED = {
     "mesh_shape": (),
 }
 
-# The top-A kernel keeps a sorted list of A keys per thread in registers.
+# The protocols the port runs (the JAX package also has paxos, dpos and
+# hotstuff).
+PROTOCOLS = ("raft", "pbft")
+
+# Raft only. The top-A kernel keeps a sorted list of A keys per thread in
+# registers.
 MAX_ACTIVE = 16
-# The replication bookkeeping (the capped engine's lead_match / lead_next,
-# the dense engine's match_idx / next_idx) is uint8 (L + 1 <= 255), as the
-# JAX package stores it at these capacities; PyTorch has no uint16
-# arithmetic for the wider ones.
+# Raft only. The replication bookkeeping (the capped engine's lead_match /
+# lead_next, the dense engine's match_idx / next_idx) is uint8 (L + 1 <=
+# 255), as the JAX package stores it at these capacities; PyTorch has no
+# uint16 arithmetic for the wider ones. PBFT's state is int32 and bool and
+# takes any slot count.
 MAX_LOG_CAPACITY = 254
 
 
@@ -51,6 +59,11 @@ class Config:
     t_min: int = 3
     t_max: int = 8
     max_active: int = 0
+
+    # PBFT.
+    f: int = 1                   # byzantine tolerance; n_nodes = 3f+1
+    view_timeout: int = 8        # rounds without progress before view change
+    fault_model: str = "edge"    # "edge" (SPEC §6) | "bcast" (§6b)
 
     drop_rate: float = 0.0
     partition_rate: float = 0.0
@@ -74,22 +87,42 @@ class Config:
     mesh_shape: tuple[int, ...] = ()
 
     def __post_init__(self) -> None:
-        if self.protocol != "raft":
+        if self.protocol not in PROTOCOLS:
             raise ValueError(f"protocol {self.protocol!r} is not ported yet "
-                             "(the port runs raft only)")
+                             f"(the port runs {' and '.join(PROTOCOLS)})")
         if min(self.n_nodes, self.n_rounds, self.n_sweeps,
                self.log_capacity) < 1:
             raise ValueError("n_nodes, n_rounds, n_sweeps, log_capacity "
                              "must be >= 1")
+        if self.protocol == "pbft":
+            expect = 3 * self.f + 1
+            if self.n_nodes != expect:
+                raise ValueError(
+                    f"{self.protocol} requires n_nodes == 3f+1 == "
+                    f"{expect}, got {self.n_nodes}")
+        if self.fault_model not in ("edge", "bcast"):
+            raise ValueError(f"unknown fault_model {self.fault_model!r}")
+        if self.fault_model == "bcast":
+            if self.protocol != "pbft":
+                raise ValueError(
+                    "fault_model='bcast' (SPEC §6b) is a pbft model; other "
+                    "protocols would silently ignore it")
+            raise ValueError("fault_model='bcast' (the SPEC §6b engine, "
+                             "consensus_tpu/engines/pbft_bcast.py) is not "
+                             "ported yet")
         if self.t_max <= self.t_min:
             raise ValueError("t_max must exceed t_min")
-        if self.max_active != 0 and \
-                not 1 <= self.max_active <= min(MAX_ACTIVE, self.n_nodes):
-            raise ValueError(f"max_active must be 0 (the dense engine) or in "
-                             f"[1, min({MAX_ACTIVE}, n_nodes)]")
-        if self.log_capacity > MAX_LOG_CAPACITY:
-            raise ValueError(f"log_capacity must be <= {MAX_LOG_CAPACITY} "
-                             "(uint8 replication bookkeeping)")
+        if not 0 <= self.max_active <= self.n_nodes:
+            raise ValueError("max_active must be in [0, n_nodes] (0 = dense "
+                             "engine)")
+        if self.protocol == "raft":
+            if self.max_active > MAX_ACTIVE:
+                raise ValueError(f"max_active must be 0 (the dense engine) "
+                                 f"or in [1, min({MAX_ACTIVE}, n_nodes)]")
+            if self.log_capacity > MAX_LOG_CAPACITY:
+                raise ValueError(f"log_capacity must be <= "
+                                 f"{MAX_LOG_CAPACITY} (uint8 replication "
+                                 "bookkeeping)")
         if self.telemetry_window < 0:
             raise ValueError("telemetry_window must be >= 0 (0 = flight "
                              "recorder off)")

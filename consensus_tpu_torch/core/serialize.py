@@ -1,14 +1,15 @@
 """Canonical decided-log serialization — the byte-equivalence contract.
 
-A copy of ``serialize_decided`` and ``digest`` from
+A copy of ``serialize_decided``, ``pack_sparse`` and ``digest`` from
 ``consensus_tpu/core/serialize.py`` (numpy only); the layout is::
 
     header:  magic "CTPU" | version u8=1 | protocol u8 | n_sweeps u32 | n_nodes u32
     body:    for sweep b, for node n (row-major, little-endian):
                count u32, then count x record { a u32, b u32 }
 
-For raft a record is (term, value) of a committed entry, in log order. i32
-fields are packed as their u32 two's-complement bit patterns.
+For raft a record is (term, value) of a committed entry, in log order; for
+pbft (slot, value) of a committed slot, slots ascending (:func:`pack_sparse`).
+i32 fields are packed as their u32 two's-complement bit patterns.
 """
 from __future__ import annotations
 
@@ -64,6 +65,31 @@ def serialize_decided(protocol: str, counts: np.ndarray,
         rec[1::2] = rec_b.reshape(R, L)[rows, k].astype(np.uint32)
         out[~is_count] = rec
     return header + out.tobytes()
+
+
+def pack_sparse(mask: np.ndarray, vals: np.ndarray):
+    """Turn dense decided arrays [B, N, S] into (counts, slots, vals) with
+    slots ascending: the canonical order of pbft records. One
+    ``np.nonzero``, whose row-major order is the canonical order; the
+    position of each hit within its (sweep, node) row is its global rank
+    minus its row's exclusive prefix count."""
+    mask = np.asarray(mask, dtype=bool)
+    vals = np.asarray(vals)
+    B, N, S = mask.shape
+    counts = mask.sum(axis=2).astype(np.uint32)
+    L = int(counts.max()) if counts.size else 0
+    slots = np.zeros((B, N, max(L, 1)), dtype=np.uint32)
+    out_vals = np.zeros((B, N, max(L, 1)), dtype=np.uint32)
+
+    ib, inode, islot = np.nonzero(mask)
+    if ib.size:
+        c_flat = counts.reshape(B * N).astype(np.int64)
+        offsets = np.concatenate(([0], np.cumsum(c_flat)[:-1]))
+        row = ib * N + inode
+        pos = np.arange(ib.size, dtype=np.int64) - offsets[row]
+        slots[ib, inode, pos] = islot
+        out_vals[ib, inode, pos] = vals[ib, inode, islot]
+    return counts, slots, out_vals
 
 
 def digest(data: bytes) -> str:

@@ -10,7 +10,9 @@
 // the least eligible candidate id if j has not voted), P2c the tally of
 // grants delivered back on deliver[j, c], and the winners' promotion with
 // their match_idx rows reset to 0 but their own log length at their own
-// column and their next_idx rows to that length + 1.
+// column and their next_idx rows to that length + 1. When the round runs
+// with telemetry it also writes each node's winner flag, which the
+// telemetry tail (raft.py lines 539-559, kernel KP) counts.
 //
 // Bound: bytes. Per node it reads six i32 words and its last log word and
 // writes five i32 words and a flag (49 bytes); per (candidate, receiver)
@@ -34,6 +36,8 @@
 //  3. A block per sweep checks its candidates (still a candidate after
 //     P2a, and 1 + tally >= N / 2 + 1), promotes the winners and writes
 //     their two rows with the whole block.
+// The winner flags (only with telemetry: a null pointer otherwise) are
+// cleared by launch 1 and set by launch 3.
 #include <climits>
 
 #include <cuda_runtime.h>
@@ -61,7 +65,8 @@ dense_candidacy_kernel(const uint32_t* __restrict__ seed, uint32_t r,
                        int32_t* __restrict__ vf_out,
                        int32_t* __restrict__ timer_out,
                        int32_t* __restrict__ timeout_out,
-                       bool* __restrict__ reset_out, int4* __restrict__ cands,
+                       bool* __restrict__ reset_out,
+                       bool* __restrict__ win_out, int4* __restrict__ cands,
                        int* __restrict__ n_cand, int32_t* __restrict__ lterm,
                        int N, int L, long long rows) {
   const long long row =
@@ -98,6 +103,7 @@ dense_candidacy_kernel(const uint32_t* __restrict__ seed, uint32_t r,
   timer_out[row] = tmr;
   timeout_out[row] = to;
   reset_out[row] = reset;
+  if (win_out != nullptr) win_out[row] = false;
   lterm[row] = lt;
   if (rl == ROLE_C) {
     const int q = atomicAdd(&n_cand[b], 1);
@@ -190,6 +196,7 @@ dense_winners_kernel(const int32_t* __restrict__ log_len,
                      int32_t* __restrict__ role_out,
                      int32_t* __restrict__ timer_out,
                      bool* __restrict__ reset_out,
+                     bool* __restrict__ win_out,
                      uint8_t* __restrict__ match_idx,
                      uint8_t* __restrict__ next_idx, int N) {
   __shared__ int s_n;
@@ -209,6 +216,7 @@ dense_winners_kernel(const int32_t* __restrict__ log_len,
         role_out[row] = ROLE_L;
         timer_out[row] = 0;
         reset_out[row] = true;
+        if (win_out != nullptr) win_out[row] = true;
         s_won[atomicAdd(&s_n, 1)] = c;
       }
     }
@@ -237,8 +245,8 @@ extern "C" int ctt_dense_elect(
     const int32_t* timeout, const int32_t* log_term, const int32_t* log_len,
     uint8_t* match_idx, uint8_t* next_idx, int32_t* term_out,
     int32_t* role_out, int32_t* vf_out, int32_t* timer_out,
-    int32_t* timeout_out, bool* reset_out, int32_t* scratch, int B, int N,
-    int L, cudaStream_t st) {
+    int32_t* timeout_out, bool* reset_out, bool* win_out, int32_t* scratch,
+    int B, int N, int L, cudaStream_t st) {
   if (t_span == 0u) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || N == 0) return 0;
   const long long rows = static_cast<long long>(B) * N;
@@ -256,7 +264,7 @@ extern "C" int ctt_dense_elect(
   dense_candidacy_kernel<<<blocks, THREADS, 0, st>>>(
       seed, r, churn_cut, t_min, t_span, term, role, voted_for, timer,
       timeout, log_term, log_len, term_out, role_out, vf_out, timer_out,
-      timeout_out, reset_out, cands, n_cand, lterm, N, L, rows);
+      timeout_out, reset_out, win_out, cands, n_cand, lterm, N, L, rows);
   if ((err = static_cast<int>(cudaGetLastError())) != 0) return err;
   dense_grants_kernel<<<blocks, THREADS, 0, st>>>(
       seed, t_min, t_span, deliver, log_len, cands, n_cand, lterm, term_out,
@@ -264,6 +272,7 @@ extern "C" int ctt_dense_elect(
   if ((err = static_cast<int>(cudaGetLastError())) != 0) return err;
   dense_winners_kernel<<<B, THREADS, 0, st>>>(log_len, cands, n_cand, votes,
                                               role_out, timer_out, reset_out,
-                                              match_idx, next_idx, N);
+                                              win_out, match_idx, next_idx,
+                                              N);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,0 +1,249 @@
+// Kernel KQ: SPEC §6 P0 churn, P1 the f+1 view catch-up, P2 timeouts and
+// P3 pre-prepare of the dense PBFT round at every node of each lane, with
+// the lane's population n_real and tolerance f read per lane.
+//
+// Replaces: consensus_tpu/engines/pbft.py pbft_round (K16) lines 209-261 on
+// its flat path, with _vth_select (lines 72-93), and the same phases of
+// consensus_tpu/engines/pbft_sweep.py pbft_round_padded (K17) lines
+// 184-237: P0 the churn event moves every view up by one; P1 node j takes
+// the (f+1)-th largest of {view[i] : i real, delivered to j} and its own
+// view, undelivered senders counting as -1, the result clamped to
+// [-1, 2 n_rounds + 2] as the binary search over that range gives it; P2 a
+// node whose timer reached view_timeout moves to the next view; P3 the
+// primary view mod n_real of a receiver's view offers its seen and
+// uncommitted slots and its first unseen slot (a fresh value, Threefry
+// keyed by its view and the slot), and the receiver takes each offer into
+// a slot it has not seen in this view unless it prepared another value
+// there. A node i is real when i < n_real of its lane; a padded node
+// sends nothing, receives nothing and is never a primary.
+//
+// Bound: bytes. Each node reads its view and timer and writes them and
+// its reset flag (17 bytes); P1 reads one delivery byte a sender it walks
+// (at most N a receiver, f + 1 when the top views are delivered); P3 reads
+// and writes each slot of each node (pp_seen, pp_view, pp_val, prepared:
+// 10 bytes in, 9 out) and the primary's row (cached: a lane's receivers
+// share their primary). At the f-ladder (B = 128, N = 385, S = 32) that
+// is about 30 MB a round, 9 us at 3.35 TB/s.
+// Design: three launches on the stream.
+//  1. A thread per node ranks its post-P0 view within its lane (view
+//     descending, ties by id) by counting over the lane's views, and
+//     writes itself at that rank into the lane's order. P0 adds the same
+//     value to every view of a lane, but the rank is taken on the post-P0
+//     views as they wrap in int32, so that it holds for any input.
+//  2. A thread per receiver j runs P0, then walks its lane's order: a
+//     sender counts when it is j or a real sender delivered to j
+//     (deliver[i, j], consecutive j: coalesced); the (f+1)-th that counts
+//     gives the statistic, and the walk stops there. Then P1's catch-up
+//     and P2; the post-P2 view, timer and reset are written.
+//  3. A warp per receiver, a lane per slot, runs P3. The primary's row is
+//     read from the inputs and every receiver writes fresh outputs, so a
+//     primary that takes its own offer (it is delivered to itself) changes
+//     nothing that another receiver reads. The primary's first unseen
+//     slot comes from one ballot a 32-slot chunk.
+#include <climits>
+
+#include <cuda_runtime.h>
+
+#include "rng.cuh"
+
+namespace {
+
+constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
+constexpr unsigned FULL = 0xFFFFFFFFu;
+
+__device__ __forceinline__ int32_t wrap_add(int32_t a, int32_t b) {
+  return static_cast<int32_t>(static_cast<uint32_t>(a) +
+                              static_cast<uint32_t>(b));
+}
+
+// The round's churn event of a lane, as 0 or 1 (the P0 view step).
+__device__ __forceinline__ int32_t churn_step(uint32_t sd, uint32_t r,
+                                              uint32_t churn_cut) {
+  return churn_cut != 0u &&
+         ctt::random_u32(sd, ctt::STREAM_CHURN, r, 0u, 0u) < churn_cut;
+}
+
+// Launch 1. A thread per (lane, node), flattened.
+__global__ void __launch_bounds__(THREADS)
+pbft_rank_kernel(const uint32_t* __restrict__ seed, uint32_t r,
+                 uint32_t churn_cut, const int32_t* __restrict__ view,
+                 int32_t* __restrict__ order, int N, long long rows) {
+  const long long row =
+      static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
+  if (row >= rows) return;
+  const int b = static_cast<int>(row / N);
+  const int i = static_cast<int>(row - static_cast<long long>(b) * N);
+  const int32_t c = churn_step(seed[b], r, churn_cut);
+  const int32_t* v = view + static_cast<long long>(b) * N;
+  const int32_t vi = wrap_add(v[i], c);
+  int rank = 0;
+  for (int k = 0; k < N; ++k) {
+    const int32_t vk = wrap_add(v[k], c);
+    rank += vk > vi || (vk == vi && k < i);
+  }
+  order[static_cast<long long>(b) * N + rank] = i;
+}
+
+// Launch 2. A thread per (lane, receiver), flattened.
+__global__ void __launch_bounds__(THREADS)
+pbft_catchup_kernel(const uint32_t* __restrict__ seed, uint32_t r,
+                    uint32_t churn_cut, int32_t view_timeout, int32_t vmax,
+                    const bool* __restrict__ deliver,
+                    const int32_t* __restrict__ n_real,
+                    const int32_t* __restrict__ f,
+                    const int32_t* __restrict__ view,
+                    const int32_t* __restrict__ timer,
+                    const int32_t* __restrict__ order,
+                    int32_t* __restrict__ view_out,
+                    int32_t* __restrict__ timer_out,
+                    bool* __restrict__ reset_out, int N, long long rows) {
+  const long long row =
+      static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
+  if (row >= rows) return;
+  const int b = static_cast<int>(row / N);
+  const int j = static_cast<int>(row - static_cast<long long>(b) * N);
+  const long long nodes = static_cast<long long>(b) * N;
+  // P0 churn.
+  const int32_t c = churn_step(seed[b], r, churn_cut);
+  int32_t v = wrap_add(view[row], c);
+  int32_t t = c ? 0 : timer[row];
+  bool reset = c != 0;
+  // P1: the (f+1)-th largest of the counted views; -1 when fewer count
+  // (the undelivered senders' -1 entries fill the column), and the top of
+  // the search range when f + 1 <= 0 asks for nothing.
+  const int n = n_real[b];
+  const int need = f[b] + 1;
+  int32_t vth = vmax;
+  if (need > 0) {
+    vth = -1;
+    int count = 0;
+    const int32_t* ord = order + nodes;
+    for (int q = 0; q < N; ++q) {
+      const int i = ord[q];
+      const bool counted =
+          i == j || (i < n && j < n && deliver[(nodes + i) * N + j]);
+      if (counted && ++count == need) {
+        vth = min(max(wrap_add(view[nodes + i], c), -1), vmax);
+        break;
+      }
+    }
+  }
+  if (vth > v) {
+    v = vth;
+    t = 0;
+    reset = true;
+  }
+  // P2 timeout.
+  if (t >= view_timeout) {
+    v = wrap_add(v, 1);
+    t = 0;
+    reset = true;
+  }
+  view_out[row] = v;
+  timer_out[row] = t;
+  reset_out[row] = reset;
+}
+
+// Launch 3. A warp per (lane, receiver), flattened; a thread per slot.
+__global__ void __launch_bounds__(THREADS)
+pbft_preprepare_kernel(const uint32_t* __restrict__ seed,
+                       const bool* __restrict__ deliver,
+                       const int32_t* __restrict__ n_real,
+                       const int32_t* __restrict__ view,
+                       const bool* __restrict__ pp_seen,
+                       const int32_t* __restrict__ pp_view,
+                       const int32_t* __restrict__ pp_val,
+                       const bool* __restrict__ prepared,
+                       const bool* __restrict__ committed,
+                       bool* __restrict__ seen_out,
+                       int32_t* __restrict__ pview_out,
+                       int32_t* __restrict__ pval_out, int N, int S,
+                       long long rows) {
+  const long long row = static_cast<long long>(blockIdx.x) * WARPS +
+                        threadIdx.x / 32;
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;  // uniform in the warp
+  const int b = static_cast<int>(row / N);
+  const int j = static_cast<int>(row - static_cast<long long>(b) * N);
+  const long long nodes = static_cast<long long>(b) * N;
+  const int n = n_real[b];
+  const int32_t v = view[row];
+  int p = v % n;  // the floor modulo of the JAX package's %
+  if (p < 0) p += n;
+  const long long prow = nodes + p;
+  const int32_t vp = view[prow];
+  // The primary's offer reaches j: delivered or j itself, in j's view. A
+  // primary in j's view maps that view to itself, so it leads.
+  const bool ok =
+      j < n && vp == v && (p == j || deliver[prow * N + j]);
+  // The primary's first unseen slot (S when it has seen them all).
+  int fresh = S;
+  if (ok) {
+    for (int s0 = 0; s0 < S; s0 += 32) {
+      const int s = s0 + lane;
+      const unsigned m =
+          __ballot_sync(FULL, s < S && !pp_seen[prow * S + s]);
+      if (m) {
+        fresh = s0 + __ffs(m) - 1;
+        break;
+      }
+    }
+  }
+  const uint32_t sd = seed[b];
+  for (int s = lane; s < S; s += 32) {
+    const long long js = row * S + s;
+    bool seen = pp_seen[js];
+    int32_t pv = pp_view[js], val = pp_val[js];
+    if (ok) {
+      const long long ps = prow * S + s;
+      const bool pseen = pp_seen[ps];
+      if ((pseen && !committed[ps]) || s == fresh) {
+        const int32_t mval =
+            pseen ? pp_val[ps]
+                  : static_cast<int32_t>(ctt::random_u32(
+                        sd, ctt::STREAM_VALUE, static_cast<uint32_t>(vp),
+                        2u, static_cast<uint32_t>(s)));
+        if ((!seen || pv < v) && (!prepared[js] || mval == val)) {
+          seen = true;
+          pv = v;
+          val = mval;
+        }
+      }
+    }
+    seen_out[js] = seen;
+    pview_out[js] = pv;
+    pval_out[js] = val;
+  }
+}
+
+}  // namespace
+
+// order is scratch: [B, N] int32.
+extern "C" int ctt_pbft_view_preprepare(
+    const uint32_t* seed, uint32_t r, uint32_t churn_cut,
+    int32_t view_timeout, int32_t vmax, const bool* deliver,
+    const int32_t* n_real, const int32_t* f, const int32_t* view,
+    const int32_t* timer, const bool* pp_seen, const int32_t* pp_view,
+    const int32_t* pp_val, const bool* prepared, const bool* committed,
+    int32_t* view_out, int32_t* timer_out, bool* reset_out, bool* seen_out,
+    int32_t* pview_out, int32_t* pval_out, int32_t* order, int B, int N,
+    int S, cudaStream_t st) {
+  if (B == 0 || N == 0) return 0;
+  const long long rows = static_cast<long long>(B) * N;
+  const unsigned blocks = static_cast<unsigned>((rows + THREADS - 1) / THREADS);
+  pbft_rank_kernel<<<blocks, THREADS, 0, st>>>(seed, r, churn_cut, view,
+                                               order, N, rows);
+  int err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  pbft_catchup_kernel<<<blocks, THREADS, 0, st>>>(
+      seed, r, churn_cut, view_timeout, vmax, deliver, n_real, f, view,
+      timer, order, view_out, timer_out, reset_out, N, rows);
+  if ((err = static_cast<int>(cudaGetLastError())) != 0) return err;
+  const unsigned warp_blocks =
+      static_cast<unsigned>((rows + WARPS - 1) / WARPS);
+  pbft_preprepare_kernel<<<warp_blocks, THREADS, 0, st>>>(
+      seed, deliver, n_real, view_out, pp_seen, pp_view, pp_val, prepared,
+      committed, seen_out, pview_out, pval_out, N, S, rows);
+  return static_cast<int>(cudaGetLastError());
+}

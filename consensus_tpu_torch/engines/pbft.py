@@ -1,0 +1,398 @@
+"""Dense PBFT in PyTorch: SPEC §6 with pairwise tallies over every node.
+
+The port of ``consensus_tpu/engines/pbft.py`` on its flat path (no crash,
+byzantine, switch or desync gates, no telemetry) and, through the same
+functions, of ``consensus_tpu/engines/pbft_sweep.py``'s
+``pbft_round_padded``: every phase takes the per-lane population
+``n_real`` and tolerance ``f`` ([B] int32 tensors). Node ``i`` of lane
+``b`` is real (and honest) when ``i < n_real[b]``; padded nodes neither
+send nor receive, never lead and never decide, and the quorum is
+``2 f[b] + 1`` and the primary ``view mod n_real[b]``. A standalone run is
+the case ``n_real = n_nodes``, ``f = cfg.f`` on every lane, so one set of
+kernels serves the standalone engine and the f-ladder, and they cannot
+drift apart. Sweeps (lanes) are a leading batch axis B on every tensor.
+
+Three functions are wrappers of hand-written CUDA kernels, each beside its
+plain PyTorch version (``<name>_plain``), which CPU tensors run; the
+round's delivery mask is kernel KL (``ops/adversary.py``
+:func:`~consensus_tpu_torch.ops.adversary.delivery`), as in dense Raft:
+
+* :func:`pbft_view_preprepare` — kernel KQ (``csrc/pbft_view_preprepare.cu``):
+  P0 churn, P1 the f+1 view catch-up, P2 timeouts and P3 pre-prepare;
+* :func:`pbft_tally` — kernel KR (``csrc/pbft_tally.cu``): P4 the prepare
+  tally and P5 the commit tally;
+* :func:`pbft_decide` — kernel KS (``csrc/pbft_decide.cu``): P6 the
+  min-id decide gossip and P7 the timers.
+
+On the card the round runs nothing but these launches. No input is
+changed: each phase writes fresh tensors, and the round returns a new
+state. The JAX package's ``_adopt_val`` is a one-hot reduction that only
+keeps a gather off the TPU; here it is plain indexing, with the same
+values.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..core import rng
+from ..core.config import Config
+from ..ops.adversary import bitcast_i32, churn, delivery
+from .raft import check_all
+
+# The engine's name, as the JAX package's EngineDef names it.
+NAME = "pbft"
+
+
+class PbftState(NamedTuple):
+    seed: torch.Tensor       # [B] uint32
+    view: torch.Tensor       # [B, N] i32
+    timer: torch.Tensor      # [B, N] i32
+    pp_seen: torch.Tensor    # [B, N, S] bool
+    pp_view: torch.Tensor    # [B, N, S] i32
+    pp_val: torch.Tensor     # [B, N, S] i32
+    prepared: torch.Tensor   # [B, N, S] bool
+    committed: torch.Tensor  # [B, N, S] bool
+    dval: torch.Tensor       # [B, N, S] i32
+    down: torch.Tensor       # [B, N] bool (SPEC §6c; all False here)
+
+
+def pbft_init(cfg: Config, seeds: torch.Tensor) -> PbftState:
+    """Fresh state for each sweep seed in ``seeds`` ([B] uint32): zeros."""
+    N, S = cfg.n_nodes, cfg.log_capacity
+    B, dev = seeds.shape[0], seeds.device
+
+    def zeros(shape, dtype=torch.int32):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+    return PbftState(
+        seed=seeds, view=zeros((B, N)), timer=zeros((B, N)),
+        pp_seen=zeros((B, N, S), torch.bool), pp_view=zeros((B, N, S)),
+        pp_val=zeros((B, N, S)), prepared=zeros((B, N, S), torch.bool),
+        committed=zeros((B, N, S), torch.bool), dval=zeros((B, N, S)),
+        down=zeros((B, N), torch.bool))
+
+
+def view_bound(cfg: Config) -> int:
+    """The top of P1's value range, 2 n_rounds + 2, as the JAX round passes
+    it to ``_vth_select``: a view grows at most twice a round (churn and a
+    timeout), so the statistic never reaches it."""
+    return 2 * cfg.n_rounds + 2
+
+
+def real_nodes(n_real, N: int) -> torch.Tensor:
+    """[B, N] bool: node i of lane b is real (and honest) iff i <
+    n_real[b]."""
+    idx = torch.arange(N, dtype=torch.int32, device=n_real.device)
+    return idx < n_real[:, None]
+
+
+def real_delivery(deliver, n_real) -> torch.Tensor:
+    """The round's mask with every edge from or to a padded node cut, as
+    ``pbft_round_padded`` masks it: [B, N, N] bool."""
+    real = real_nodes(n_real, deliver.shape[1])
+    return deliver & real[:, :, None] & real[:, None, :]
+
+
+def vth_select_plain(w, f, vmax: int) -> torch.Tensor:
+    """The JAX package's ``_vth_select`` per lane: the (f[b]+1)-th largest
+    of each column of ``w`` ([B, N, M] ints in [-1, vmax]), the largest v
+    with |{i : w[b, i, j] >= v}| >= f[b] + 1, by the same fixed-depth
+    binary search over t = v + 1 in [0, vmax + 2). [B, M] int32."""
+    B, _, M = w.shape
+    w1 = w + 1
+    lo = torch.zeros((B, M), dtype=torch.int32, device=w.device)
+    hi = torch.full((B, M), vmax + 2, dtype=torch.int32, device=w.device)
+    need = (f + 1)[:, None]
+    for _ in range(int(vmax + 1).bit_length()):
+        mid = (lo + hi) // 2
+        cnt = (w1 >= mid[:, None, :]).sum(1, dtype=torch.int32)
+        ok = cnt >= need
+        lo = torch.where(ok, mid, lo)
+        hi = torch.where(ok, hi, mid)
+    return lo - 1
+
+
+def fresh_values(seed, view, S: int) -> torch.Tensor:
+    """[B, N, S] proposal values: the i32 bit pattern of the Threefry draw
+    (seed ^ STREAM_VALUE, ctx = each node's view, c0 = 2, c1 = slot)."""
+    k0 = (rng.as_u32(seed) ^ rng.STREAM_VALUE)[:, None, None]
+    k1 = rng.as_u32(view)[:, :, None]
+    slots = torch.arange(S, dtype=torch.int64, device=view.device)
+    shape = (*view.shape, S)
+    d = rng.threefry2x32_plain(k0.expand(shape), k1.expand(shape),
+                               torch.full(shape, 2, dtype=torch.int64,
+                                          device=view.device),
+                               slots.expand(shape))
+    return bitcast_i32(d)
+
+
+def _lane_specs(deliver, n_real, f):
+    B, N, _ = deliver.shape
+    return [(deliver, torch.bool, (B, N, N)), (n_real, torch.int32, (B,)),
+            (f, torch.int32, (B,))]
+
+
+# --- KQ: P0 churn, P1 catch-up, P2 timeout, P3 pre-prepare -------------------
+
+def pbft_view_preprepare_plain(cfg: Config, seed, r: int, deliver, n_real, f,
+                               view, timer, pp_seen, pp_view, pp_val,
+                               prepared, committed):
+    """Plain version of KQ, SPEC §6 P0-P3 at every node of each lane.
+
+    P0: the round's churn event moves every view up by one. P1: node j
+    takes the (f+1)-th largest of its own view and the views of the real
+    senders delivered to it (undelivered ones count as -1), where that is
+    above its view. P2: a node whose timer reached ``view_timeout`` moves
+    to the next view. A moved node's timer is 0 and its ``reset`` set.
+    P3: the primary of view v is node v mod n_real, where its own view is
+    v; it offers each slot it has seen and not committed (its value
+    again) and its first unseen slot (a fresh value drawn from its view).
+    Receiver j takes the offer of its primary, delivered or itself, when
+    the primary's view is j's view, into each slot it has not seen in
+    this view, unless it prepared another value there. Returns new
+    (view, timer, reset, pp_seen, pp_view, pp_val)."""
+    B, N, S = pp_seen.shape
+    dev = view.device
+    idx = torch.arange(N, dtype=torch.int32, device=dev)
+    real = real_nodes(n_real, N)
+    d_h = real_delivery(deliver, n_real)
+    eye = torch.eye(N, dtype=torch.bool, device=dev)
+
+    # ---- P0 churn.
+    ch = churn(seed, r, cfg.churn_cutoff, rng.random_u32_plain)[:, None]
+    view = view + ch.to(torch.int32)
+    timer = torch.where(ch, 0, timer)
+    reset = ch.expand(B, N)
+
+    # ---- P1 catch-up: own view and the delivered real senders' views.
+    w = torch.where(d_h, view[:, :, None], -1)
+    w = torch.where(eye, view[:, None, :], w)
+    vth = vth_select_plain(w, f, view_bound(cfg))
+    catch = vth > view
+    view = torch.where(catch, vth, view)
+    timer = torch.where(catch, 0, timer)
+    reset = reset | catch
+
+    # ---- P2 timeout.
+    to = timer >= cfg.view_timeout
+    view = view + to.to(torch.int32)
+    timer = torch.where(to, 0, timer)
+    reset = reset | to
+
+    # ---- P3 pre-prepare.
+    sarange = torch.arange(S, dtype=torch.int32, device=dev)
+    prim = view.remainder(n_real[:, None]).to(torch.int64)     # [B, N]
+    is_primary = real & (prim == idx)
+    fresh = torch.where(~pp_seen, sarange, S).amin(2)
+    fresh_hot = sarange == fresh[:, :, None]
+    ppb = is_primary[:, :, None] & ((pp_seen & ~committed) | fresh_hot)
+    msg_val = torch.where(pp_seen, pp_val, fresh_values(seed, view, S))
+    del_self = d_h | eye
+    prim_ok = (del_self.gather(1, prim[:, None, :])[:, 0]
+               & (view.gather(1, prim) == view) & real)
+    prim_s = prim[:, :, None].expand(B, N, S)
+    pm_b, pm_val = ppb.gather(1, prim_s), msg_val.gather(1, prim_s)
+    accept = (prim_ok[:, :, None] & pm_b
+              & (~pp_seen | (pp_view < view[:, :, None]))
+              & (~prepared | (pm_val == pp_val)))
+    return (view, timer, reset, pp_seen | accept,
+            torch.where(accept, view[:, :, None], pp_view),
+            torch.where(accept, pm_val, pp_val))
+
+
+def pbft_view_preprepare(cfg: Config, seed, r: int, deliver, n_real, f, view,
+                         timer, pp_seen, pp_view, pp_val, prepared,
+                         committed):
+    """Kernel KQ: same arguments and result as
+    :func:`pbft_view_preprepare_plain`, which it runs for CPU tensors; for
+    CUDA tensors it launches ``csrc/pbft_view_preprepare.cu`` (a thread per
+    node ranks its view within its lane, a thread per receiver walks its
+    lane's senders in that order for P1 and runs P2, then a warp per
+    receiver runs P3 over its slots, reading its primary's row as it stood
+    before P3)."""
+    if view.device.type == "cpu":
+        return pbft_view_preprepare_plain(cfg, seed, r, deliver, n_real, f,
+                                          view, timer, pp_seen, pp_view,
+                                          pp_val, prepared, committed)
+    from .. import _build
+    B, N, S = pp_seen.shape
+    dev = view.device
+    check_all(dev, (seed, torch.uint32, (B,)),
+              *_lane_specs(deliver, n_real, f),
+              *((t, torch.int32, (B, N)) for t in (view, timer)),
+              *((t, torch.bool, (B, N, S)) for t in (pp_seen, prepared,
+                                                      committed)),
+              *((t, torch.int32, (B, N, S)) for t in (pp_view, pp_val)))
+    view_out, timer_out = torch.empty_like(view), torch.empty_like(timer)
+    reset = torch.empty((B, N), dtype=torch.bool, device=dev)
+    seen_out, pview_out = torch.empty_like(pp_seen), torch.empty_like(pp_view)
+    pval_out = torch.empty_like(pp_val)
+    order = torch.empty((B, N), dtype=torch.int32, device=dev)
+    _build.launch("pbft_view_preprepare", seed.data_ptr(),
+                  int(r) & 0xFFFFFFFF, cfg.churn_cutoff, cfg.view_timeout,
+                  view_bound(cfg), *(t.data_ptr() for t in (
+                      deliver, n_real, f, view, timer, pp_seen, pp_view,
+                      pp_val, prepared, committed, view_out, timer_out, reset,
+                      seen_out, pview_out, pval_out, order)), B, N, S)
+    pbft_view_preprepare.launches += 1
+    return view_out, timer_out, reset, seen_out, pview_out, pval_out
+
+
+pbft_view_preprepare.launches = 0
+
+
+# --- KR: P4 prepare tally, P5 commit tally -----------------------------------
+
+def pbft_tally_plain(deliver, n_real, f, pp_seen, pp_val, prepared,
+                     committed, dval):
+    """Plain version of KR, SPEC §6 P4-P5 at every (node, slot) of each
+    lane. P4: slot s of node j is prepared once 2f + 1 real senders i,
+    delivered to j or j itself, have seen s with j's value. P5: it is
+    committed, with that value as its decided value, once 2f + 1 such
+    senders have prepared s with j's value (their prepared flags after
+    P4). Materialises the [B, N, N, S] value match. Returns new
+    (prepared, committed, dval)."""
+    N = deliver.shape[1]
+    eye = torch.eye(N, dtype=torch.bool, device=deliver.device)
+    real = real_nodes(n_real, N)
+    d_self_h = ((real_delivery(deliver, n_real) | eye)
+                & real[:, :, None])[..., None]                  # [B, i, j, 1]
+    val_eq = pp_val[:, :, None, :] == pp_val[:, None, :, :]     # [B, i, j, s]
+    q = (2 * f + 1)[:, None, None]
+    pcount = (d_self_h & pp_seen[:, :, None, :] & val_eq).sum(
+        1, dtype=torch.int32)
+    prepared = prepared | (pp_seen & (pcount >= q))
+    ccount = (d_self_h & prepared[:, :, None, :] & val_eq).sum(
+        1, dtype=torch.int32)
+    commit_now = prepared & (ccount >= q) & ~committed
+    return (prepared, committed | commit_now,
+            torch.where(commit_now, pp_val, dval))
+
+
+def pbft_tally(deliver, n_real, f, pp_seen, pp_val, prepared, committed,
+               dval):
+    """Kernel KR: same arguments and result as :func:`pbft_tally_plain`,
+    which it runs for CPU tensors; for CUDA tensors it launches
+    ``csrc/pbft_tally.cu`` twice, P4 then P5 (a block per 8 receivers and
+    32 slots counts over the lane's real senders, staged 32 at a time in
+    shared memory, wherever the slot's flag still waits on a quorum)."""
+    if deliver.device.type == "cpu":
+        return pbft_tally_plain(deliver, n_real, f, pp_seen, pp_val,
+                                prepared, committed, dval)
+    from .. import _build
+    B, N, S = pp_seen.shape
+    dev = deliver.device
+    check_all(dev, *_lane_specs(deliver, n_real, f),
+              *((t, torch.bool, (B, N, S)) for t in (pp_seen, prepared,
+                                                      committed)),
+              *((t, torch.int32, (B, N, S)) for t in (pp_val, dval)))
+    prep_out, com_out = torch.empty_like(prepared), torch.empty_like(committed)
+    dval_out = torch.empty_like(dval)
+    _build.launch("pbft_tally", *(t.data_ptr() for t in (
+        deliver, n_real, f, pp_seen, pp_val, prepared, committed, dval,
+        prep_out, com_out, dval_out)), B, N, S)
+    pbft_tally.launches += 1
+    return prep_out, com_out, dval_out
+
+
+pbft_tally.launches = 0
+
+
+# --- KS: P6 decide gossip, P7 timers -----------------------------------------
+
+def pbft_decide_plain(deliver, n_real, committed, dval, committed_start,
+                      timer, reset):
+    """Plain version of KS, SPEC §6 P6-P7 at every node of each lane. P6:
+    a slot that node j has not committed adopts the decided value of the
+    least-id real sender delivered to j that has committed it (as P5 left
+    them; an adoption is not seen by another receiver this round). P7: a
+    node that committed a slot this round (``committed_start`` is the
+    round's entry) sets its timer to 0; another whose ``reset`` is set
+    keeps it; the rest count it up. Returns new (committed, dval,
+    timer)."""
+    N = deliver.shape[1]
+    idx = torch.arange(N, dtype=torch.int32, device=deliver.device)
+    dec_b = committed & real_nodes(n_real, N)[:, :, None]
+    sent = real_delivery(deliver, n_real)[..., None] & dec_b[:, :, None, :]
+    imin = torch.where(sent, idx[None, :, None, None], N).amin(1)
+    adopt = (imin < N) & ~committed
+    dval = torch.where(adopt, dval.gather(1, imin.clamp(max=N - 1)
+                                          .to(torch.int64)), dval)
+    committed = committed | adopt
+    new_commit = (committed & ~committed_start).any(2)
+    timer = torch.where(reset | new_commit, torch.where(new_commit, 0, timer),
+                        timer + 1)
+    return committed, dval, timer
+
+
+def pbft_decide(deliver, n_real, committed, dval, committed_start, timer,
+                reset):
+    """Kernel KS: same arguments and result as :func:`pbft_decide_plain`,
+    which it runs for CPU tensors; for CUDA tensors it launches
+    ``csrc/pbft_decide.cu`` (a warp per receiver, a lane per slot, walks
+    the real senders in id order to the first delivered decider, and
+    writes fresh tensors, so that no adoption is read the same round)."""
+    if deliver.device.type == "cpu":
+        return pbft_decide_plain(deliver, n_real, committed, dval,
+                                 committed_start, timer, reset)
+    from .. import _build
+    B, N, S = committed.shape
+    dev = deliver.device
+    check_all(dev, (deliver, torch.bool, (B, N, N)),
+              (n_real, torch.int32, (B,)),
+              *((t, torch.bool, (B, N, S)) for t in (committed,
+                                                      committed_start)),
+              (dval, torch.int32, (B, N, S)), (timer, torch.int32, (B, N)),
+              (reset, torch.bool, (B, N)))
+    com_out, dval_out = torch.empty_like(committed), torch.empty_like(dval)
+    timer_out = torch.empty_like(timer)
+    _build.launch("pbft_decide", *(t.data_ptr() for t in (
+        deliver, n_real, committed, dval, committed_start, timer, reset,
+        com_out, dval_out, timer_out)), B, N, S)
+    pbft_decide.launches += 1
+    return com_out, dval_out, timer_out
+
+
+pbft_decide.launches = 0
+
+
+# --- the round ---------------------------------------------------------------
+
+def pbft_round(cfg: Config, st: PbftState, r: int, n_real,
+               f) -> PbftState:
+    """One SPEC §6 round with per-lane ``n_real`` and ``f`` ([B] int32),
+    phase by phase as ``consensus_tpu/engines/pbft_sweep.py``
+    ``pbft_round_padded``, and so, with ``n_real = cfg.n_nodes`` and ``f =
+    cfg.f`` on every lane, as ``consensus_tpu/engines/pbft.py``
+    ``pbft_round`` (``network/runner.py`` :func:`lane_inputs` gives both):
+    a sequence of kernel launches and nothing else."""
+    N = cfg.n_nodes
+    seed = st.seed
+
+    # ---- The round's delivery mask (KL).
+    deliver = delivery(seed, r, N, cfg.drop_cutoff, cfg.partition_cutoff)
+
+    # ---- P0 churn, P1 catch-up, P2 timeout, P3 pre-prepare (KQ).
+    view, timer, reset, pp_seen, pp_view, pp_val = pbft_view_preprepare(
+        cfg, seed, r, deliver, n_real, f, st.view, st.timer, st.pp_seen,
+        st.pp_view, st.pp_val, st.prepared, st.committed)
+
+    # ---- P4 prepare tally, P5 commit tally (KR).
+    prepared, committed, dval = pbft_tally(deliver, n_real, f, pp_seen,
+                                           pp_val, st.prepared, st.committed,
+                                           st.dval)
+
+    # ---- P6 decide gossip, P7 timers (KS).
+    committed, dval, timer = pbft_decide(deliver, n_real, committed, dval,
+                                         st.committed, timer, reset)
+
+    return PbftState(seed, view, timer, pp_seen, pp_view, pp_val, prepared,
+                     committed, dval, st.down)
+
+
+def extract(st: PbftState) -> dict[str, torch.Tensor]:
+    """The leaves the decided-log digest and the tests read."""
+    return {"committed": st.committed, "dval": st.dval, "view": st.view,
+            "prepared": st.prepared, "pp_val": st.pp_val,
+            "pp_seen": st.pp_seen}

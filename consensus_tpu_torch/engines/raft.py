@@ -1,12 +1,13 @@
 """Dense Raft in PyTorch, and the helpers it shares with the capped engine.
 
 The port of ``consensus_tpu/engines/raft.py`` on its flat path (no crash,
-attack, byzantine or switch gates, no telemetry): SPEC §3 over every node
-at once, with the [N, N] ``match_idx`` / ``next_idx`` replication state
-and the full [N, N] delivery mask of each round. Sweeps are a leading
-batch axis B on every tensor. ``Config(max_active=0)`` selects it.
+attack, byzantine or switch gates), with its telemetry and flight
+recorder: SPEC §3 over every node at once, with the [N, N] ``match_idx`` /
+``next_idx`` replication state and the full [N, N] delivery mask of each
+round. Sweeps are a leading batch axis B on every tensor.
+``Config(max_active=0)`` selects it.
 
-Four functions are wrappers of hand-written CUDA kernels, each beside its
+Five functions are wrappers of hand-written CUDA kernels, each beside its
 plain PyTorch version (``<name>_plain``), which CPU tensors run:
 
 * ``ops/adversary.py`` :func:`~consensus_tpu_torch.ops.adversary.delivery`
@@ -17,7 +18,9 @@ plain PyTorch version (``<name>_plain``), which CPU tensors run:
 * :func:`dense_append` — kernel KN (``csrc/dense_append.cu``): P3a
   propose, P3b snapshot, P3c receivers and the apply;
 * :func:`dense_acks_commit` — kernel KO (``csrc/dense_acks_commit.cu``):
-  P3d acks, P3e majority commit and P4 timers.
+  P3d acks, P3e majority commit and P4 timers;
+* :func:`dense_telemetry` — kernel KP (``csrc/dense_telemetry.cu``): the
+  round's counters, window ring and latency buckets, with telemetry on.
 
 On the card the round runs nothing but these launches; kernel KA
 (``core/rng.py``) draws the initial timeouts. The logs and the
@@ -37,6 +40,7 @@ import torch
 from ..core import rng
 from ..core.config import Config
 from ..ops.adversary import bitcast_i32, churn, delivery
+from ..ops.flight import N_BUCKETS, bucket_counts_plain
 
 ROLE_F, ROLE_C, ROLE_L = 0, 1, 2
 NONE = -1
@@ -44,7 +48,7 @@ NONE = -1
 # The engine's name, as the JAX package's EngineDef names it.
 NAME = "raft"
 
-# The capped engine's telemetry counters, in order: a copy of
+# The Raft engines' telemetry counters, in order: a copy of
 # consensus_tpu/engines/raft.py RAFT_TELEMETRY with its tails
 # ops/adversary.py CRASH_TELEMETRY and ops/aggregate.py AGG_TELEMETRY
 # (zeros here: the port rejects the crash and switch gates).
@@ -172,7 +176,7 @@ def raft_init(cfg: Config, seeds: torch.Tensor) -> RaftState:
 
 def dense_elect_plain(cfg: Config, seed, r: int, deliver, term, role,
                       voted_for, timer, timeout, log_term, log_len, match_idx,
-                      next_idx):
+                      next_idx, want_win: bool = False):
     """Plain version of KM, SPEC §3 P0-P2 at every node of each sweep.
 
     P0: the round's churn event steps leaders down. P1: every non-leader
@@ -187,7 +191,8 @@ def dense_elect_plain(cfg: Config, seed, r: int, deliver, term, role,
     ``match_idx`` (0 but its own log length at its own column) and
     ``next_idx`` (its log length + 1) rows. ``match_idx`` / ``next_idx``
     ([B, N, N] u8) are updated in place; returns new (term, role,
-    voted_for, timer, timeout, reset), all [B, N]."""
+    voted_for, timer, timeout, reset), all [B, N], and with ``want_win``
+    also the winners ([B, N] bool), which the telemetry counts."""
     u32 = rng.random_u32_plain
     N = term.shape[1]
     idx = torch.arange(N, dtype=torch.int32, device=term.device)
@@ -243,21 +248,25 @@ def dense_elect_plain(cfg: Config, seed, r: int, deliver, term, role,
         w, torch.where(eye, log_len[:, :, None], 0), match_idx).to(mdt))
     next_idx.copy_(torch.where(w, log_len[:, :, None] + 1,
                                next_idx).to(mdt))
+    if want_win:
+        return term, role, voted_for, timer, timeout, reset, win
     return term, role, voted_for, timer, timeout, reset
 
 
 def dense_elect(cfg: Config, seed, r: int, deliver, term, role, voted_for,
-                timer, timeout, log_term, log_len, match_idx, next_idx):
+                timer, timeout, log_term, log_len, match_idx, next_idx,
+                want_win: bool = False):
     """Kernel KM: same arguments, in-place update and result as
     :func:`dense_elect_plain`, which it runs for CPU tensors; for CUDA
     tensors it launches ``csrc/dense_elect.cu`` (a thread per node for
     P0-P1 that lists the sweep's candidates, a thread per receiver that
     walks that list for P2a-P2b and adds its delivered grant to the
-    tally, then a block per sweep for the winners and their rows)."""
+    tally, then a block per sweep for the winners and their rows; the
+    winner flags only with ``want_win``)."""
     if term.device.type == "cpu":
         return dense_elect_plain(cfg, seed, r, deliver, term, role,
                                  voted_for, timer, timeout, log_term, log_len,
-                                 match_idx, next_idx)
+                                 match_idx, next_idx, want_win)
     from .. import _build
     B, N, L = log_term.shape
     dev = term.device
@@ -270,6 +279,7 @@ def dense_elect(cfg: Config, seed, r: int, deliver, term, role, voted_for,
               (next_idx, torch.uint8, (B, N, N)))
     out = [torch.empty_like(term) for _ in range(5)]
     reset = torch.empty((B, N), dtype=torch.bool, device=dev)
+    win = torch.empty_like(reset) if want_win else None
     # Candidate count and tally (zeroed by the kernel), the candidates'
     # request table (4 words each) and each node's last log term.
     scratch = torch.empty(B * (1 + 6 * N), dtype=torch.int32, device=dev)
@@ -277,10 +287,11 @@ def dense_elect(cfg: Config, seed, r: int, deliver, term, role, voted_for,
                   cfg.churn_cutoff, cfg.t_min, timeout_span(cfg),
                   *(t.data_ptr() for t in (
                       deliver, term, role, voted_for, timer, timeout,
-                      log_term, log_len, match_idx, next_idx, *out, reset,
-                      scratch)), B, N, L)
+                      log_term, log_len, match_idx, next_idx, *out, reset)),
+                  None if win is None else win.data_ptr(), scratch.data_ptr(),
+                  B, N, L)
     dense_elect.launches += 1
-    return (*out, reset)
+    return (*out, reset) if win is None else (*out, reset, win)
 
 
 dense_elect.launches = 0
@@ -522,25 +533,109 @@ def dense_acks_commit(cfg: Config, seed, deliver, was_leader, ack_to, ack_ok,
 dense_acks_commit.launches = 0
 
 
+# --- KP: telemetry and flight recorder --------------------------------------
+
+def dense_telemetry_plain(cfg: Config, r: int, win, timer_in, ack_to, ack_ok,
+                          commit_in, commit, role, log_len, down, t, w=None,
+                          lat=None) -> None:
+    """Plain version of KP: the round's RAFT_TELEMETRY counters, per sweep,
+    added into the [B, K] i32 accumulator ``t`` and, with the flight
+    recorder (``w`` [B, n_windows, K] and ``lat`` [B, 2, N_BUCKETS], both
+    or neither), into the window ``r // cfg.telemetry_window`` of ``w``,
+    and the round's RAFT_LATENCY histograms into ``lat``: the round-entry
+    ``timer_in`` + 1 of each winner of ``win``, and ``log_len - commit`` of
+    each leader not ``down``. The counters: winners, ``ack_ok`` (the
+    applied appends), a leader heard (``ack_to >= 0``) and not applied,
+    the sum of ``commit - commit_in``, and zeros for the attack, crash and
+    aggregation gates the port rejects. Updates ``t``, ``w`` and ``lat``
+    in place."""
+    vec = torch.zeros_like(t)
+    vec[:, 0] = win.sum(1, dtype=torch.int32)
+    vec[:, 1] = ack_ok.sum(1, dtype=torch.int32)
+    vec[:, 2] = ((ack_to >= 0) & ~ack_ok).sum(1, dtype=torch.int32)
+    vec[:, 3] = (commit - commit_in).sum(1, dtype=torch.int32)
+    t += vec
+    if w is None:
+        return
+    w[:, r // cfg.telemetry_window] += vec
+    lat[:, 0] += bucket_counts_plain(timer_in + 1, win)
+    lat[:, 1] += bucket_counts_plain(log_len - commit,
+                                     (role == ROLE_L) & ~down)
+
+
+def dense_telemetry(cfg: Config, r: int, win, timer_in, ack_to, ack_ok,
+                    commit_in, commit, role, log_len, down, t, w=None,
+                    lat=None) -> None:
+    """Kernel KP: same arguments and in-place updates as
+    :func:`dense_telemetry_plain`, which it runs for CPU tensors; for CUDA
+    tensors it launches ``csrc/dense_telemetry.cu`` (a thread per node,
+    warp and block partial counts, then integer atomics into the
+    accumulators)."""
+    if (w is None) != (lat is None):
+        raise ValueError("the flight recorder takes w and lat together")
+    if w is not None and cfg.telemetry_window < 1:
+        raise ValueError("the flight recorder needs telemetry_window > 0")
+    if t.device.type == "cpu":
+        return dense_telemetry_plain(cfg, r, win, timer_in, ack_to, ack_ok,
+                                     commit_in, commit, role, log_len, down,
+                                     t, w, lat)
+    from .. import _build
+    B, N = timer_in.shape
+    K = len(RAFT_TELEMETRY)
+    dev = t.device
+    check_all(dev, *((x, torch.bool, (B, N)) for x in (win, ack_ok, down)),
+              *((x, torch.int32, (B, N)) for x in (
+                  timer_in, ack_to, commit_in, commit, role, log_len)),
+              (t, torch.int32, (B, K)))
+    window = n_windows = 0
+    if w is not None:
+        n_windows = w.shape[1]
+        window = r // cfg.telemetry_window
+        check_all(dev, (w, torch.int32, (B, n_windows, K)),
+                  (lat, torch.int32, (B, 2, N_BUCKETS)))
+        if not 0 <= window < n_windows:
+            raise ValueError(f"round {r} lies past the {n_windows} windows")
+    _build.launch("dense_telemetry", *(x.data_ptr() for x in (
+        win, timer_in, ack_to, ack_ok, commit_in, commit, role, log_len,
+        down, t)), *(None if x is None else x.data_ptr() for x in (w, lat)),
+        B, N, K, window, n_windows)
+    dense_telemetry.launches += 1
+
+
+dense_telemetry.launches = 0
+
+
 # --- the round ---------------------------------------------------------------
 
-def raft_round(cfg: Config, st: RaftState, r: int) -> RaftState:
+def raft_round(cfg: Config, st: RaftState, r: int, *, telem=None,
+               flight=None) -> RaftState:
     """One SPEC §3 round of the dense engine, phase by phase as
     ``consensus_tpu/engines/raft.py`` ``raft_round``: a sequence of kernel
     launches and nothing else. Updates ``st.log_term``, ``st.log_val``,
-    ``st.match_idx`` and ``st.next_idx`` in place."""
+    ``st.match_idx`` and ``st.next_idx`` in place.
+
+    ``telem`` ([B, K] i32, the run's counter totals) switches on the
+    round's telemetry, as the JAX round's ``telem=True``, and ``flight``
+    (the window ring and latency buckets, a pair of [B, n_windows, K] and
+    [B, 2, N_BUCKETS] i32) its flight recorder, as ``flight=True``; kernel
+    KP adds the round's counters into them in place."""
     N = st.term.shape[1]
     seed = st.seed
     log_term, log_val = st.log_term, st.log_val
     match_idx, next_idx = st.match_idx, st.next_idx
+    if flight is not None and telem is None:
+        raise ValueError("the flight recorder rides the telemetry "
+                         "accumulator: pass telem with flight")
 
     # ---- The round's delivery mask (KL).
     deliver = delivery(seed, r, N, cfg.drop_cutoff, cfg.partition_cutoff)
 
-    # ---- P0 churn, P1 candidacy, P2 election (KM).
-    term, role, voted_for, timer, timeout, reset = dense_elect(
+    # ---- P0 churn, P1 candidacy, P2 election (KM), with the winners when
+    # the telemetry counts them.
+    term, role, voted_for, timer, timeout, reset, *win = dense_elect(
         cfg, seed, r, deliver, st.term, st.role, st.voted_for, st.timer,
-        st.timeout, log_term, st.log_len, match_idx, next_idx)
+        st.timeout, log_term, st.log_len, match_idx, next_idx,
+        telem is not None)
 
     # ---- P3a propose, P3b snapshot, P3c receivers and apply (KN).
     (term, role, voted_for, timer, timeout, reset, log_len, commit,
@@ -552,6 +647,13 @@ def raft_round(cfg: Config, st: RaftState, r: int) -> RaftState:
     dense_acks_commit(cfg, seed, deliver, was_leader, ack_to, ack_ok,
                       ack_match, log_term, term, role, voted_for, timeout,
                       commit, match_idx, next_idx, timer, reset)
+
+    # ---- Telemetry and flight recorder (KP). KN's acks are its apply and
+    # reject flags: ack_ok is the apply, ack_to >= 0 a leader heard.
+    if telem is not None:
+        dense_telemetry(cfg, r, win[0], st.timer, ack_to, ack_ok, st.commit,
+                        commit, role, log_len, st.down, telem,
+                        *(flight if flight is not None else (None, None)))
 
     return RaftState(seed, term, role, voted_for, log_term, log_val, log_len,
                      commit, timer, timeout, match_idx, next_idx, st.down)

@@ -1,15 +1,20 @@
 """The batched round loop: the port of ``consensus_tpu/network/runner.py``'s
 plain path (``EngineDef``, ``make_seeds``, ``_init_jit``, the scan of
 ``_chunk_jit`` with ``_chunk_body``'s telemetry accumulators, ``run``), for
-the dense and the capped Raft engine alike.
+the dense and the capped Raft engine and the dense PBFT engine alike, and
+of ``consensus_tpu/engines/pbft_sweep.py``'s ``_fsweep_jit``: a PBFT
+f-ladder is one run whose lanes carry their own population and tolerance.
 
-Sweeps are the leading batch axis of every state tensor. On the CPU a
-Python loop over rounds takes the place of ``lax.scan``. On ``cuda`` the
-whole run (init from a seed tensor, the ``n_rounds`` rounds and the
-accumulators) is captured once as one CUDA graph and then replayed: the
-counterpart of JAX's compile-then-execute of one scan. The eager loop stays
-available on the card as ``graph=False``. Entry points run on ``cuda``
-unless the caller passes ``device="cpu"``; without a GPU they raise.
+Sweeps (lanes) are the leading batch axis of every state tensor. A run's
+per-lane inputs are its seeds and, for PBFT, each lane's ``n_real`` and
+``f`` (:func:`lane_inputs`). On the CPU a Python loop over rounds takes
+the place of ``lax.scan``. On ``cuda`` the whole run (init from the seed
+tensor, the ``n_rounds`` rounds and the accumulators) is captured once as
+one CUDA graph and then replayed after the lane inputs are copied into the
+graph's static input tensors: the counterpart of JAX's compile-then-execute
+of one scan. The eager loop stays available on the card as ``graph=False``.
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
+without a GPU they raise.
 """
 from __future__ import annotations
 
@@ -23,7 +28,7 @@ import torch
 from .. import _build
 from ..core import rng
 from ..core.config import Config
-from ..engines import raft, raft_sparse
+from ..engines import pbft, pbft_sweep, raft, raft_sparse
 from ..engines.raft import RAFT_LATENCY, RAFT_TELEMETRY
 from ..ops import adversary
 from ..ops.flight import BUCKET_LO, N_BUCKETS
@@ -33,17 +38,19 @@ from ..ops.flight import BUCKET_LO, N_BUCKETS
 # the attribute, so a stand-in put there counts its own.
 _WRAPPER_MODULES = {"random_u32": rng, "delivery_edges": adversary,
                     "delivery": adversary, "dense_elect": raft,
-                    "dense_append": raft, "dense_acks_commit": raft}
+                    "dense_append": raft, "dense_acks_commit": raft,
+                    "dense_telemetry": raft, "pbft_view_preprepare": pbft,
+                    "pbft_tally": pbft, "pbft_decide": pbft}
 KERNELS = tuple((_WRAPPER_MODULES.get(name, raft_sparse), name)
                 for name in _build.SOURCES)
 
 
 class Engine(NamedTuple):
-    """A Raft engine as the runner sees it, after the JAX package's
+    """An engine as the runner sees it, after the JAX package's
     ``EngineDef``: ``init(cfg, seeds)`` gives the batched state,
-    ``round(cfg, st, r, **accumulators)`` the next one (the accumulators
-    only where ``telemetry``), and ``extract(st)`` the leaves the digest
-    reads."""
+    ``round(cfg, st, r, **lanes, **accumulators)`` the next one (the lane
+    inputs but the seeds, and the accumulators only where ``telemetry``),
+    and ``extract(st)`` the leaves the digest reads."""
     name: str
     init: Callable
     round: Callable
@@ -52,15 +59,20 @@ class Engine(NamedTuple):
 
 
 DENSE = Engine(raft.NAME, raft.raft_init, raft.raft_round, raft.extract,
-               telemetry=False)
+               telemetry=True)
 CAPPED = Engine(raft_sparse.NAME, raft_sparse.raft_sparse_init,
                 raft_sparse.raft_sparse_round, raft_sparse.extract,
                 telemetry=True)
+PBFT = Engine(pbft.NAME, pbft.pbft_init, pbft.pbft_round, pbft.extract,
+              telemetry=False)
 
 
 def engine(cfg: Config) -> Engine:
-    """The engine ``cfg`` selects: dense at ``max_active = 0``, else the
-    §3b capped one (``consensus_tpu/network/simulator.py`` engine_def)."""
+    """The engine ``cfg`` selects (``consensus_tpu/network/simulator.py``
+    engine_def): by protocol, then, for raft, dense at ``max_active = 0``,
+    else the §3b capped one."""
+    if cfg.protocol == "pbft":
+        return PBFT
     return DENSE if cfg.max_active == 0 else CAPPED
 
 
@@ -98,6 +110,22 @@ def make_seeds(cfg: Config) -> np.ndarray:
             & np.uint64(0xFFFFFFFF)).astype(np.uint32)
 
 
+def lane_inputs(cfg: Config, rungs=None) -> dict[str, np.ndarray]:
+    """A run's per-lane inputs as numpy arrays: ``seed`` ([B] u32) and, for
+    PBFT, ``n_real`` and ``f`` ([B] i32). ``rungs`` (PBFT only) makes the
+    run an f-ladder (``engines/pbft_sweep.py`` :func:`ladder_lanes`: rung
+    k, sweep j); without it every lane is ``cfg``'s own population."""
+    if cfg.protocol != "pbft":
+        if rungs is not None:
+            raise ValueError("an f-ladder (rungs) is a pbft run")
+        return {"seed": make_seeds(cfg)}
+    if rungs is not None:
+        return pbft_sweep.ladder_lanes(cfg, rungs)
+    full = np.full(cfg.n_sweeps, 1, np.int32)
+    return {"seed": make_seeds(cfg), "n_real": full * cfg.n_nodes,
+            "f": full * cfg.f}
+
+
 def n_windows(cfg: Config) -> int:
     """Window count of the flight recorder's ring:
     ceil(n_rounds / telemetry_window)."""
@@ -110,13 +138,22 @@ def init(cfg: Config, seeds: np.ndarray, device):
         cfg, torch.from_numpy(np.asarray(seeds, np.uint32)).to(device))
 
 
+def device_lanes(cfg: Config, rungs, device) -> dict[str, torch.Tensor]:
+    """:func:`lane_inputs` as tensors on ``device``."""
+    return {k: torch.from_numpy(v).to(device)
+            for k, v in lane_inputs(cfg, rungs).items()}
+
+
 def advance(cfg: Config, st, r0: int, n_rounds: int, *, telem=None,
-            flight=None):
+            flight=None, lanes=None):
     """Rounds r0 .. r0 + n_rounds - 1 of every sweep of ``cfg``'s engine,
     adding into the accumulators ``telem`` and ``flight`` where given (see
-    :func:`raft_sparse.raft_sparse_round`)."""
+    :func:`raft_sparse.raft_sparse_round`). ``lanes`` holds the round's
+    per-lane tensors but the seeds: PBFT's ``n_real`` and ``f``
+    (:func:`device_lanes`)."""
     eng = engine(cfg)
     acc = {} if telem is None else dict(telem=telem, flight=flight)
+    acc.update(lanes or {})
     for r in range(r0, r0 + n_rounds):
         st = eng.round(cfg, st, r, **acc)
     return st
@@ -136,21 +173,24 @@ def accumulators(cfg: Config, device) -> tuple:
     return torch.zeros((B, K), **z), flight
 
 
-def _rounds(cfg: Config, seeds: torch.Tensor, n_rounds: int,
+def _rounds(cfg: Config, lanes: dict[str, torch.Tensor], n_rounds: int,
             telemetry: bool) -> RunOutput:
-    """Init from the [B] u32 ``seeds`` tensor, zeroed accumulators, then
-    rounds 0 .. n_rounds - 1: everything on the device, nothing from the
-    host, so that it can be captured as a graph."""
+    """Init from the [B] u32 ``lanes["seed"]`` tensor, zeroed
+    accumulators, then rounds 0 .. n_rounds - 1 with the other lane
+    tensors: everything on the device, nothing from the host, so that it
+    can be captured as a graph."""
+    seeds = lanes["seed"]
     telem, flight = (accumulators(cfg, seeds.device) if telemetry
                      else (None, None))
     st = advance(cfg, engine(cfg).init(cfg, seeds), 0, n_rounds,
-                 telem=telem, flight=flight)
+                 telem=telem, flight=flight,
+                 lanes={k: v for k, v in lanes.items() if k != "seed"})
     return RunOutput(st, telem, *(flight or (None, None)))
 
 
 class _Captured(NamedTuple):
     graph: torch.cuda.CUDAGraph
-    seeds: torch.Tensor          # the graph's static input
+    lanes: dict[str, torch.Tensor]  # the graph's static inputs
     out: RunOutput               # the graph's static outputs
     launches: dict[str, int]     # kernel launches of one replay
 
@@ -164,12 +204,14 @@ _GRAPHS: collections.OrderedDict[tuple, _Captured] = collections.OrderedDict()
 captures = 0
 
 
-def _graph_key(cfg: Config, dev: torch.device, telemetry: bool) -> tuple:
-    """The cache key of ``cfg``'s captured run. The seed is left out: it
-    reaches the graph only through its static seed tensor, which is set
-    before each replay, so runs that differ only in their seed share one
-    capture."""
-    return dataclasses.replace(cfg, seed=0), dev, telemetry
+def _graph_key(cfg: Config, dev: torch.device, telemetry: bool,
+               rungs=None) -> tuple:
+    """The cache key of ``cfg``'s captured run, with a PBFT ladder's rung
+    list. The seed is left out: it reaches the graph only through its
+    static seed tensor, which is set before each replay, so runs that
+    differ only in their seed share one capture."""
+    return (dataclasses.replace(cfg, seed=0), dev, telemetry,
+            None if rungs is None else tuple(int(f) for f in rungs))
 
 
 def clear_graphs() -> None:
@@ -178,7 +220,8 @@ def clear_graphs() -> None:
     _GRAPHS.clear()
 
 
-def _capture(cfg: Config, dev: torch.device, telemetry: bool) -> _Captured:
+def _capture(cfg: Config, dev: torch.device, telemetry: bool,
+             rungs) -> _Captured:
     """Capture ``cfg``'s whole run on ``dev`` as one CUDA graph. One eager
     round first builds and loads every kernel, so that nothing is loaded
     and no host data is copied while the stream is captured. A capture
@@ -186,39 +229,39 @@ def _capture(cfg: Config, dev: torch.device, telemetry: bool) -> _Captured:
     taken back and added at each replay instead. A failed capture
     raises."""
     global captures
-    seeds = torch.from_numpy(make_seeds(cfg)).to(dev)
-    _rounds(cfg, seeds, 1, telemetry)
+    lanes = device_lanes(cfg, rungs, dev)
+    _rounds(cfg, lanes, 1, telemetry)
     torch.cuda.synchronize(dev)
     before = launch_counts()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        out = _rounds(cfg, seeds, cfg.n_rounds, telemetry)
+        out = _rounds(cfg, lanes, cfg.n_rounds, telemetry)
     recorded = {k: v - before[k] for k, v in launch_counts().items()}
     _add_launches({k: -v for k, v in recorded.items()})
     captures += 1
-    return _Captured(graph, seeds, out, recorded)
+    return _Captured(graph, lanes, out, recorded)
 
 
 def run_device(cfg: Config, device=None, *, telemetry: bool = False,
-               graph: bool | None = None) -> RunOutput:
+               graph: bool | None = None, rungs=None) -> RunOutput:
     """Run ``cfg.n_rounds`` rounds from a fresh state and return the final
     state and accumulators on the device, after the device has finished.
 
     ``telemetry`` accumulates the counters (and, with
-    ``cfg.telemetry_window > 0``, the flight recorder); the capped engine
-    has them, the dense one raises. ``graph`` (default:
-    on ``cuda``, and only there) replays the run as one CUDA graph,
-    captured at the first call for this (cfg but its seed, device,
-    telemetry) and kept until a run of another configuration is captured;
-    the returned tensors are then the graph's static outputs, which the
-    next replay of the same configuration, with any seed, overwrites: copy
-    them before that.
+    ``cfg.telemetry_window > 0``, the flight recorder); both Raft engines
+    have them, the PBFT engine raises. ``rungs`` runs a PBFT f-ladder
+    (:func:`lane_inputs`). ``graph`` (default: on ``cuda``, and only
+    there) replays the run as one CUDA graph, captured at the first call
+    for this (cfg but its seed, device, telemetry, rungs) and kept until a
+    run of another configuration is captured; the returned tensors are
+    then the graph's static outputs, which the next replay of the same
+    configuration, with any seed, overwrites: copy them before that.
     ``graph=False`` runs the rounds eagerly, one launch at a time."""
     dev = resolve_device(device)
     if telemetry and not engine(cfg).telemetry:
-        raise ValueError("telemetry on the dense raft engine (max_active = "
-                         "0) is not ported yet: consensus_tpu/engines/raft.py "
-                         "raft_round's counter and flight tail")
+        raise ValueError(f"telemetry on the {engine(cfg).name} engine is "
+                         "not ported yet: consensus_tpu/engines/pbft.py "
+                         "pbft_round's counter and flight tail")
     if cfg.telemetry_window > 0 and not telemetry:
         raise ValueError(
             "telemetry_window > 0 without telemetry=True: the window ring "
@@ -226,23 +269,24 @@ def run_device(cfg: Config, device=None, *, telemetry: bool = False,
     if graph is None:
         graph = dev.type == "cuda"
     if not graph:
-        out = _rounds(cfg, torch.from_numpy(make_seeds(cfg)).to(dev),
-                      cfg.n_rounds, telemetry)
+        out = _rounds(cfg, device_lanes(cfg, rungs, dev), cfg.n_rounds,
+                      telemetry)
     elif dev.type != "cuda":
         raise ValueError("graph=True replays a CUDA graph: it needs a cuda "
                          "device")
     else:
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
-        key = _graph_key(cfg, dev, telemetry)
+        key = _graph_key(cfg, dev, telemetry, rungs)
         with torch.cuda.device(dev):
             if key not in _GRAPHS:
                 while len(_GRAPHS) >= GRAPH_CACHE_SIZE:
                     _GRAPHS.popitem(last=False)
-                _GRAPHS[key] = _capture(cfg, dev, telemetry)
+                _GRAPHS[key] = _capture(cfg, dev, telemetry, rungs)
             _GRAPHS.move_to_end(key)
             cap = _GRAPHS[key]
-            cap.seeds.copy_(torch.from_numpy(make_seeds(cfg)))
+            for name, a in lane_inputs(cfg, rungs).items():
+                cap.lanes[name].copy_(torch.from_numpy(a))
             cap.graph.replay()
         _add_launches(cap.launches)
         out = cap.out

@@ -1,7 +1,8 @@
 """The simulator's front door: the port of ``consensus_tpu/network/simulator.py``
-for raft, dense (``max_active = 0``) or under the §3b cap.
+for raft, dense (``max_active = 0``) or under the §3b cap, and dense pbft.
 
     result = run(Config(protocol="raft", max_active=8, ...))
+    run(Config(protocol="pbft", f=8, n_nodes=25, ...))
     result.digest          # SHA-256 of the canonical decided-log bytes
     result.steps_per_sec   # node-round-steps per second of the timed run
     run(cfg, telemetry=True).extras["telemetry"]["totals"]
@@ -39,17 +40,24 @@ class RunResult:
 
 
 def engine_def(cfg: Config) -> runner.Engine:
-    """The engine a config resolves to: dense raft at ``max_active = 0``,
-    else the §3b capped one (Config rejects other protocols)."""
+    """The engine a config resolves to: pbft's (the dense SPEC §6 engine;
+    Config rejects the §6b one), dense raft at ``max_active = 0``, else
+    the §3b capped one (Config rejects other protocols)."""
     return runner.engine(cfg)
 
 
 def decided_payload(cfg: Config, out: dict):
     """Canonical packing of an extract dict: for raft the records are
-    (log_term[k], log_val[k]) for k < commit. Returns (counts, rec_a, rec_b,
+    (log_term[k], log_val[k]) for k < commit, for pbft (slot, dval) of each
+    committed slot, slots ascending. Returns (counts, rec_a, rec_b,
     payload)."""
-    counts = np.asarray(out["commit"])
-    rec_a, rec_b = np.asarray(out["log_term"]), np.asarray(out["log_val"])
+    if cfg.protocol == "pbft":
+        counts, rec_a, rec_b = serialize.pack_sparse(
+            np.asarray(out["committed"]).astype(bool),
+            np.asarray(out["dval"]))
+    else:
+        counts = np.asarray(out["commit"])
+        rec_a, rec_b = np.asarray(out["log_term"]), np.asarray(out["log_val"])
     payload = serialize.serialize_decided(cfg.protocol, counts, rec_a, rec_b)
     return counts, rec_a, rec_b, payload
 

@@ -2,8 +2,8 @@
 
 Every knob of the JAX package's Config that the port does not implement yet
 raises when set off its default, on the dense engine as on the capped one,
-telemetry on the dense engine raises, and the entry points raise without a
-GPU unless the caller asks for the CPU.
+telemetry on the dense PBFT engine raises, and the entry points raise
+without a GPU unless the caller asks for the CPU.
 """
 import dataclasses
 
@@ -56,26 +56,80 @@ def test_max_active_zero_selects_the_dense_engine():
     assert st.match_idx.shape == (1, 9, 9)
 
 
+PBFT_OK = dict(protocol="pbft", f=2, n_nodes=7, n_rounds=4, log_capacity=8)
+
+
 def test_telemetry_on_the_dense_engine_raises():
-    cfg = Config(**{**OK, "max_active": 0})
+    """The dense PBFT engine has no telemetry yet (the dense Raft engine's
+    is ported: tests/test_torch_telemetry.py)."""
+    cfg = Config(**PBFT_OK)
     for call in (lambda: simulator.run(cfg, device="cpu", telemetry=True),
                  lambda: runner.run(cfg, "cpu", telemetry=True, stats={})):
-        with pytest.raises(ValueError, match="dense"):
+        with pytest.raises(ValueError, match="pbft"):
             call()
-    windowed = Config(**{**OK, "max_active": 0, "telemetry_window": 2})
-    with pytest.raises(ValueError, match="dense"):
+    windowed = Config(**{**PBFT_OK, "telemetry_window": 2})
+    with pytest.raises(ValueError, match="pbft"):
         simulator.run(windowed, device="cpu", telemetry=True)
+
+
+@pytest.mark.parametrize("knob", sorted(OFF_DEFAULT))
+def test_unsupported_knob_raises_on_the_pbft_engine(knob):
+    with pytest.raises(ValueError, match=knob):
+        Config(**{**PBFT_OK, knob: OFF_DEFAULT[knob]})
+
+
+def test_pbft_selects_its_engine_whatever_max_active():
+    from consensus_tpu import Config as JConfig
+    from consensus_tpu.network import simulator as jsim
+    for max_active in (0, 3):
+        kw = {**PBFT_OK, "max_active": max_active}
+        assert simulator.engine_def(Config(**kw)) is runner.PBFT
+        assert runner.PBFT.name == jsim.engine_def(JConfig(**kw)).name
+
+
+@pytest.mark.parametrize("kw", [
+    dict(n_nodes=8),                        # not 3f + 1
+    dict(f=3),
+    dict(fault_model="bcast"),              # §6b: not ported yet
+    dict(fault_model="wire"),
+    dict(max_active=8),                     # more than n_nodes
+])
+def test_pbft_settings_that_raise(kw):
+    with pytest.raises(ValueError):
+        Config(**{**PBFT_OK, **kw})
+
+
+def test_pbft_rejections_match_jax():
+    from consensus_tpu import Config as JConfig
+    for kw in (dict(n_nodes=8), dict(f=3)):
+        with pytest.raises(ValueError) as want:
+            JConfig(**{**PBFT_OK, **kw})
+        with pytest.raises(ValueError) as got:
+            Config(**{**PBFT_OK, **kw})
+        assert str(got.value) == str(want.value)
+    with pytest.raises(ValueError, match="pbft model"):
+        Config(**{**OK, "fault_model": "bcast"})
+
+
+def test_pbft_takes_any_slot_count():
+    """The raft-only limits stay raft-only: PBFT's state is int32 and bool
+    and its kernels take any slot count and max_active up to n_nodes."""
+    cfg = Config(**{**PBFT_OK, "log_capacity": 300, "max_active": 7})
+    assert cfg.log_capacity == 300
+    with pytest.raises(ValueError):
+        Config(**{**OK, "log_capacity": 300})
 
 
 @pytest.mark.parametrize("bad", [
     dict(max_active=-1),                # neither dense (0) nor capped
     dict(max_active=17),
     dict(max_active=10),                # more than n_nodes
-    dict(protocol="pbft"),
+    dict(protocol="paxos"),
     dict(log_capacity=255),
     dict(t_min=5, t_max=5),
     dict(n_rounds=0),
     dict(telemetry_window=-1),
+    dict(protocol="pbft", f=2),         # n_nodes 9 is not 3f + 1
 ])
 def test_out_of_range_settings_raise(bad):
     with pytest.raises(ValueError):
@@ -84,7 +138,7 @@ def test_out_of_range_settings_raise(bad):
 
 def test_knobs_of_other_protocols_are_not_fields():
     with pytest.raises(TypeError):
-        Config(**OK, view_timeout=4)
+        Config(**OK, n_proposers=2)
 
 
 def test_cutoffs_match_the_reference():
@@ -129,13 +183,22 @@ def test_graph_key_leaves_out_only_the_seed():
     assert runner._graph_key(dataclasses.replace(cfg, n_nodes=11), dev,
                              False) != key
     assert runner._graph_key(cfg, dev, True) != key
+    # A ladder's key holds its rung list; ladders that differ only in
+    # their seed share one graph.
+    pad = Config(protocol="pbft", f=4, n_nodes=13, n_sweeps=3)
+    ladder = runner._graph_key(pad, dev, False, [1, 2, 4])
+    assert runner._graph_key(dataclasses.replace(pad, seed=9), dev, False,
+                             (1, 2, 4)) == ladder
+    assert runner._graph_key(pad, dev, False, [1, 3, 4]) != ladder
+    assert runner._graph_key(pad, dev, False) != ladder
 
 
 def test_every_kernel_source_has_a_counted_wrapper():
     from consensus_tpu_torch import _build
     assert [name for _, name in runner.KERNELS] == list(_build.SOURCES)
-    assert {"delivery", "dense_elect", "dense_append",
-            "dense_acks_commit"} <= set(_build.SOURCES)
+    assert {"delivery", "dense_elect", "dense_append", "dense_acks_commit",
+            "dense_telemetry", "pbft_view_preprepare", "pbft_tally",
+            "pbft_decide"} <= set(_build.SOURCES)
     for mod, name in runner.KERNELS:
         assert isinstance(getattr(mod, name).launches, int)
         assert callable(getattr(mod, name + "_plain"))

@@ -1,11 +1,12 @@
-"""The port's telemetry and flight recorder (kernel KK's plain version, the
-runner's accumulators) against the JAX package's, on the CPU.
+"""The port's telemetry and flight recorder (kernels KK's and KP's plain
+versions, the runner's accumulators) against the JAX package's, on the CPU.
 
 The same Config runs through ``consensus_tpu.network.runner.run`` with
-``telemetry=True`` and through ``consensus_tpu_torch``'s: the per-sweep
-counters, the window ring (W = 6 over 20 rounds, so the last window is
-ragged) and the latency buckets must be equal, bit for bit, and so must
-the decided-log digest with telemetry on and off.
+``telemetry=True`` and through ``consensus_tpu_torch``'s, on the capped
+engine and on the dense one (``max_active = 0``, N = 5 to 300): the
+per-sweep counters, the window ring (W = 6 over 20 rounds, so the last
+window is ragged) and the latency buckets must be equal, bit for bit, and
+so must the decided-log digest with telemetry on and off.
 """
 import numpy as np
 import pytest
@@ -20,6 +21,7 @@ from consensus_tpu.network import simulator as jsim  # noqa: E402
 from consensus_tpu.ops import flight as jflight  # noqa: E402
 from consensus_tpu_torch import Config  # noqa: E402
 from consensus_tpu_torch import convert  # noqa: E402
+from consensus_tpu_torch.engines import raft as trd  # noqa: E402
 from consensus_tpu_torch.engines import raft_sparse as trs  # noqa: E402
 from consensus_tpu_torch.network import runner, simulator  # noqa: E402
 from consensus_tpu_torch.ops import flight as tflight  # noqa: E402
@@ -28,7 +30,10 @@ BASE = dict(protocol="raft", n_rounds=20, n_sweeps=2, log_capacity=32,
             max_entries=24, drop_rate=0.1, partition_rate=0.1,
             churn_rate=0.05, t_min=2, t_max=6, telemetry_window=6)
 CASES = {"cap4-n1500": dict(n_nodes=1500, max_active=4, seed=7),
-         "cap8-n1024": dict(n_nodes=1024, max_active=8, seed=3)}
+         "cap8-n1024": dict(n_nodes=1024, max_active=8, seed=3),
+         "dense-n5": dict(n_nodes=5, max_active=0, seed=17),
+         "dense-n64": dict(n_nodes=64, max_active=0, seed=3),
+         "dense-n300": dict(n_nodes=300, max_active=0, seed=5)}
 
 
 @pytest.fixture(scope="module")
@@ -175,3 +180,123 @@ def test_names_match_jax():
     assert traft.RAFT_LATENCY == jraft.RAFT_LATENCY
     assert trs.NAME == jsim.engine_def(JConfig(
         protocol="raft", n_nodes=9, max_active=2)).name
+
+
+# --- the dense engine (kernel KP) ---------------------------------------------
+
+@pytest.mark.parametrize("case", ["dense-n5", "dense-n300"])
+def test_dense_digest_does_not_move_with_telemetry(jax_runs, case):
+    kw = {**BASE, **CASES[case]}
+    got = simulator.run(Config(**kw), device="cpu", telemetry=True)
+    assert got.digest == jax_runs[case].digest
+    assert got.extras["flight"]["engine"] == "raft"
+    cfg_off = Config(**{**kw, "telemetry_window": 0})
+    off = runner.run(cfg_off, device="cpu")
+    assert simulator.decided_payload(cfg_off, off)[3] == got.payload
+    # Telemetry without the flight recorder.
+    stats: dict = {}
+    runner.run(cfg_off, device="cpu", telemetry=True, stats=stats)
+    _assert_same(stats["telemetry"],
+                 jax_runs[case].extras["telemetry"]["per_sweep"])
+    assert "flight" not in stats
+
+
+@pytest.fixture(scope="module")
+def jax_dense_rounds():
+    """The JAX dense carry and accumulators before each of the first 14
+    rounds of the N = 64 case, as numpy, stepped one round a call."""
+    kw = {**BASE, **CASES["dense-n64"]}
+    jcfg = JConfig(**kw)
+    eng = jsim.engine_def(jcfg)
+    B, K = kw["n_sweeps"], len(eng.telemetry_names)
+    carry = jrunner._init_jit(jcfg, eng, jnp.asarray(jrunner.make_seeds(jcfg)))
+    acc = (jnp.zeros((B, K), jnp.int32),
+           jnp.zeros((B, runner.n_windows(Config(**kw)), K), jnp.int32),
+           jnp.zeros((B, 2, jflight.N_BUCKETS), jnp.int32))
+    out = []
+    for r in range(14):
+        out.append(({n: np.array(v) for n, v in carry._asdict().items()},
+                    [np.array(a) for a in acc]))
+        carry, *acc = jrunner._chunk_jit(jcfg, eng, 1, carry, jnp.int32(r),
+                                         *acc)
+    out.append(({n: np.array(v) for n, v in carry._asdict().items()},
+                [np.array(a) for a in acc]))
+    return out
+
+
+# Rounds 6 and 13 each elect a leader and reject appends in sweep 0.
+@pytest.mark.parametrize("k", [6, 13])
+def test_dense_round_from_jax_carry_with_accumulators(jax_dense_rounds, k):
+    cfg = Config(**BASE, **CASES["dense-n64"])
+    (before, acc_before), (after, acc_after) = (jax_dense_rounds[k],
+                                                jax_dense_rounds[k + 1])
+    st = convert.state_from_numpy(before)
+    telem, flight = convert.accumulators_from_numpy(*acc_before)
+    got = convert.state_to_numpy(trd.raft_round(cfg, st, k, telem=telem,
+                                                flight=flight))
+    for name, want in after.items():
+        assert np.array_equal(got[name], want), name
+    for g, w in zip(convert.accumulators_to_numpy(telem, flight), acc_after):
+        assert g.dtype == np.int32 and np.array_equal(g, w)
+    assert ((acc_after[0] - acc_before[0])[0, :3] > 0).all()
+
+
+def test_dense_telemetry_wrapper_on_cpu_equals_plain_and_raises_off_it():
+    """KP's wrapper runs its plain version on CPU tensors and raises on
+    others; KM gives the winner flags only when asked."""
+    kw = {**BASE, **CASES["dense-n64"]}
+    cfg = Config(**kw)
+    telem, flight = runner.accumulators(cfg, "cpu")
+    st = runner.advance(cfg, runner.init(cfg, runner.make_seeds(cfg), "cpu"),
+                        0, 6, telem=telem, flight=flight)
+    got, original = {}, trd.dense_telemetry
+
+    def record(*args):
+        got["args"] = tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                            for a in args)
+        return original(*args)
+    record.launches = 0
+    trd.dense_telemetry = record
+    try:
+        trd.raft_round(cfg, st, 6, telem=telem, flight=flight)
+    finally:
+        trd.dense_telemetry = original
+    args = got["args"]
+    ka = tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args)
+    pa = tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args)
+    trd.dense_telemetry(*ka)
+    trd.dense_telemetry_plain(*pa)
+    for k, p in zip(ka, pa):
+        if isinstance(k, torch.Tensor):
+            assert torch.equal(k, p)
+    assert not torch.equal(ka[-3], args[-3])        # the totals moved
+    with pytest.raises(ValueError, match="CUDA"):
+        trd.dense_telemetry(*(a.to("meta") if isinstance(a, torch.Tensor)
+                              else a for a in args))
+    with pytest.raises(ValueError, match="together"):
+        trd.dense_telemetry(*args[:-1], None)
+
+
+def test_dense_elect_gives_winners_only_when_asked():
+    kw = {**BASE, **CASES["dense-n64"]}
+    cfg = Config(**kw)
+    # Round 6 elects a leader in sweep 0.
+    st = runner.advance(cfg, runner.init(cfg, runner.make_seeds(cfg), "cpu"),
+                        0, 6)
+    deliver = trd.delivery(st.seed, 6, 64, cfg.drop_cutoff,
+                           cfg.partition_cutoff)
+    args = (cfg, st.seed, 6, deliver, st.term, st.role, st.voted_for,
+            st.timer, st.timeout, st.log_term, st.log_len)
+    plain = trd.dense_elect(*args, st.match_idx.clone(), st.next_idx.clone())
+    with_win = trd.dense_elect(*args, st.match_idx.clone(),
+                               st.next_idx.clone(), True)
+    assert len(plain) == 6 and len(with_win) == 7
+    for a, b in zip(plain, with_win):
+        assert torch.equal(a, b)
+    win, lead = with_win[6], with_win[1] == trd.ROLE_L
+    assert win.dtype == torch.bool and win.any()
+    # A winner leads; a node that leads now and did not at the round's
+    # entry won.
+    assert not (win & ~lead).any()
+    assert torch.equal(win & (st.role != trd.ROLE_L),
+                       lead & (st.role != trd.ROLE_L))
