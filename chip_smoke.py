@@ -23,6 +23,13 @@ Phases, each printing one JSON line:
                and of standalone pbft-f128, on a hostile ladder's rounds,
                random states and built ones (a primary taking its own
                fresh slot, an adoption another receiver must not read).
+               KT-KV (the §6b broadcast PBFT round) on rounds 3 and 20 of
+               pbft-100k-bcast (B = 8, N = 100 000, S = 16) and of the
+               full-width bcast ladder, on rounds of a partitioned hostile
+               bcast ladder and run and of the config-3 bcast ladder, on
+               random states (views past P1's range, f = 1 lanes: m = 2),
+               on tallies whose quorums sit at the threshold on either
+               side, and at N = 1.
                Tolerance: none, the results are integers and must be
                equal. Times are device time per call (torch.profiler
                kernel durations).
@@ -55,20 +62,33 @@ Phases, each printing one JSON line:
 8. profile   — the flagship's graph replay under torch.profiler: device busy
                share, launches a round, device time by kernel, graph memory;
                and an eager capped run, an eager dense run with telemetry
-               and an eager fs = 1..128 ladder, with each kernel wrapper in
-               a named range, which must show no PyTorch compute op in any
-               phase of the round.
+               and an eager fs = 1..128 ladder and an eager
+               pbft-100k-bcast run, with each kernel wrapper in a named
+               range, which must show no PyTorch compute op in any phase
+               of the round.
 9. pbft      — ``simulator.run`` of BASELINE config 3's standalone rows
                pbft-f1 ... pbft-f128 and the fs = 1..128 ladder in one run
                (``engines/pbft_sweep.py`` pbft_fsweep_timed), each replayed
                as one CUDA graph: the oracle digests of
                benchmarks/RESULTS.json and the ladder's
-               ``a1148caa…c0f3fa``, KL and KQ-KS launched and no other
-               kernel; the ladder's real node-round-steps per second,
+               ``a1148caa…c0f3fa``, KL and KQ-KS launched in each run
+               (counted from 0) and no other kernel; the ladder's real node-round-steps per second,
                busy share, device operations a round and graph memory; a
                ladder with every lane's seed shifted replays the same graph
                and must equal the eager loop, and the base seeds then give
                the anchor again.
+10. bcast    — ``simulator.run`` of pbft-100k-bcast (CONFIGS
+               ["pbft-100k-bcast"], seed 7), BASELINE config 3's fs = 1..128
+               ladder with ``fault_model="bcast"`` and the full-width bcast
+               ladder fs = (8333, 16666, 33333) at pbft-100k-bcast's knobs,
+               each replayed as one CUDA graph, and a partitioned hostile
+               bcast ladder fs = 1..32 (whose digest the dense round does
+               not give): the anchor ``6c6395aa…f6a47b`` and the ladders'
+               JAX-made anchors, KT-KV launched in each run (counted from
+               0) and no other kernel; steps per second, busy share, device
+               operations a round and graph memory; another seed on the
+               flagship's graph and a shifted ladder against the eager
+               loop; each full-width rung against its standalone run.
 
 Then the card's name and power limit, one ``{"kernels": [...]}`` line, and
 last ``{"ok": true, "device": {...}}``. Any failure, or no GPU, exits
@@ -1055,7 +1075,8 @@ def check_dense_kernels(dev, gen) -> list[dict]:
 
 PBFT = ("pbft_view_preprepare", "pbft_tally", "pbft_decide")
 # The kernels that no run of the capped engine launches.
-NOT_CAPPED = DENSE + ("dense_telemetry",) + PBFT
+NOT_CAPPED = DENSE + ("dense_telemetry",) + PBFT + (
+    "bcast_view_preprepare", "bcast_tally", "bcast_decide")
 PBFT_REPLACES = {
     "pbft_view_preprepare": "consensus_tpu/engines/pbft.py:209 pbft_round "
                             "P0-P3, consensus_tpu/engines/pbft.py:72 "
@@ -1129,14 +1150,15 @@ def capture_pbft_inputs(cfg, rounds, rungs=None, device="cuda") -> dict:
     return out
 
 
-def catch_ups(args) -> int:
-    """The nodes that KQ's P1 moves on its arguments: their view passed
-    the churn step with their timer short of the timeout (P2 moves a view
-    only from a timer at the timeout)."""
+def catch_ups(plain, args, view, timer) -> int:
+    """The nodes that P1 moves when ``plain`` (KQ's or KT's plain version)
+    runs on ``args``, whose round's views and timers are ``view`` and
+    ``timer``: their view passed the churn step with their timer short of
+    the timeout (P2 moves a view only from a timer at the timeout)."""
     from consensus_tpu_torch.engines import pbft
-    (cfg, seed, r, _, _, _, view, timer, *_rest) = args
+    cfg, seed, r = args[:3]
     ch = pbft.churn(seed, r, cfg.churn_cutoff)[:, None]
-    out = pbft.pbft_view_preprepare_plain(*clone_args(args))
+    out = plain(*clone_args(args))
     return int(((out[0] > view + ch.to(torch.int32))
                 & (torch.where(ch, 0, timer) < cfg.view_timeout)).sum())
 
@@ -1196,7 +1218,8 @@ def pbft_edge_inputs(dev, gen) -> dict:
     got = pbft.pbft_view_preprepare_plain(*clone_args(kq))
     require(int((free[5] != got[5]).sum()) > 0,
             "edge inputs: no re-proposal refused for a prepared slot")
-    require(catch_ups(kq) > 0, "edge inputs: no catch-up")
+    require(catch_ups(pbft.pbft_view_preprepare_plain, kq, kq[6], kq[7]) > 0,
+            "edge inputs: no catch-up")
     out["pbft_view_preprepare"].append(kq)
     out["pbft_tally"].append((deliver, n_real, f, got[3], got[5], prepared,
                               committed, dval))
@@ -1429,6 +1452,319 @@ def check_pbft_kernels(dev, gen) -> list[dict]:
     return rows
 
 
+# --- phase 3, continued: the §6b broadcast PBFT round's kernels KT-KV ---------
+
+BCAST = ("bcast_view_preprepare", "bcast_tally", "bcast_decide")
+BCAST_REPLACES = {
+    "bcast_view_preprepare": "consensus_tpu/engines/pbft_bcast.py:360 "
+                             "pbft_bcast_round P0-P3, consensus_tpu/engines/"
+                             "pbft_bcast.py:108 _kth_largest, consensus_tpu/"
+                             "engines/pbft_sweep.py:289 "
+                             "pbft_bcast_round_padded P0-P3",
+    "bcast_tally": "consensus_tpu/engines/pbft_bcast.py:233 "
+                   "_aggregate_tallies (:147 _SortedRuns, :197 _top_runs, "
+                   ":221 _table_count), consensus_tpu/engines/"
+                   "pbft_sweep.py:452 pbft_bcast_round_padded P4-P5",
+    "bcast_decide": "consensus_tpu/engines/pbft_bcast.py:630 "
+                    "pbft_bcast_round P6-P7, consensus_tpu/engines/"
+                    "pbft_sweep.py:460 pbft_bcast_round_padded P6-P7"}
+# pbft-100k-bcast (benchmarks/run_benchmarks.py CONFIGS): N = 100 000, f =
+# 33 333, 64 rounds, 8 sweeps, 16 slots, seed 7, drop 0.01, churn 0.001.
+# Its anchor is the benchmarks/RESULTS.json row (the JAX package and the
+# C++ oracle).
+BCAST_FLAGSHIP = dict(protocol="pbft", fault_model="bcast", f=33_333,
+                      n_nodes=100_000, n_rounds=64, n_sweeps=8,
+                      log_capacity=16, seed=7, drop_rate=0.01,
+                      churn_rate=0.001)
+BCAST_DIGEST = \
+    "6c6395aa5c0d35c528edbab6912298e8f44fcf5457e4b712b8cad8702bf6a47b"
+# The three bcast ladders' anchors, made by the JAX package on the CPU:
+#
+#   JAX_PLATFORMS=cpu python3 - <<'EOF'
+#   from consensus_tpu import Config
+#   from consensus_tpu.core import serialize
+#   from consensus_tpu.engines import pbft_sweep
+#   adv = dict(protocol="pbft", fault_model="bcast", f=1, n_nodes=4)
+#   calm = dict(drop_rate=0.01, churn_rate=0.001)
+#   hostile = dict(drop_rate=0.15, partition_rate=0.05, churn_rate=0.05)
+#   for kw, fs in ((dict(n_rounds=32, log_capacity=32, seed=3, **calm),
+#                   range(1, 129)),
+#                  (dict(n_rounds=64, log_capacity=16, seed=7, **calm),
+#                   (8333, 16666, 33333)),
+#                  (dict(n_rounds=24, log_capacity=8, seed=7, **hostile),
+#                   range(1, 33))):
+#       out = pbft_sweep.pbft_fsweep_run(Config(**adv, **kw), fs)
+#       print(serialize.digest(pbft_sweep.fsweep_payload(out)),
+#             [serialize.digest(p) for p in pbft_sweep.rung_payloads(out)])
+#   EOF
+#
+# tests/test_torch_pbft_bcast.py test_bcast_ladder_anchor_is_jax makes the
+# first and the third again with the JAX package and holds them to these.
+# BASELINE config 3's knobs under fault_model="bcast", fs = 1..128. At
+# these calm knobs the dense round gives the same digest (LADDER_DIGEST):
+# under both fault models every rung commits every slot with the same
+# values, so this anchor tells the §6b round from no round that commits
+# everything.
+BCAST_LADDER_DIGEST = \
+    "a1148caa9408b84f05c0728251c9bb95dd7ceaee59f5700db7a39c3aa6c0f3fa"
+# The partitioned hostile bcast ladder (tests/test_pbft_sweep.py BASE's
+# knobs under fault_model="bcast"), fs = 1..32, whose digest tells the §6b
+# round from the dense one (which gives 304de041…e81aa9d there).
+HOSTILE_BCAST_FS = tuple(range(1, 33))
+HOSTILE_BCAST_DIGEST = \
+    "a45946363daae5d61503e5309ceacc09495787725ed70bf54bbf220b231a23d2"
+# The full-width ladder (tools/hlocheck/registry.py FSWEEP_BCAST_FS: N_pad
+# = 100 000, 16 slots, 64 rounds, seed 7, one sweep a rung) and its rungs.
+WIDE_RUNGS = (8333, 16666, 33333)
+WIDE_DIGEST = \
+    "ddbc5fe6c5827da2bdf8d47ce2fc3816d981fb52bb69980cae26e9176085d313"
+WIDE_RUNG_DIGESTS = (
+    "6a8da635f939ef0f5a2cc5b149f82d7aad01f45461206f29ae60dfc41e19f6e0",
+    "2e2af0cf255368f89d8c7cf1c8c5d2be9719a4645aaa55ec3e214d392d6a1752",
+    "181f27e424739806cefc92b80a8d96130df2ac96e45ab50895c0fdd36d82956f")
+# The rounds phase 3 records: an early one and one in the steady state.
+# The kernels are timed on the flagship's second.
+BCAST_ROUNDS = (3, 20)
+
+
+def bcast_config(**kw):
+    """pbft-100k-bcast, changed by ``kw``."""
+    from consensus_tpu_torch.core.config import Config
+    return Config(**{**BCAST_FLAGSHIP, **kw})
+
+
+def wide_base(**kw):
+    """The full-width ladder's base config: pbft-100k-bcast's knobs, one
+    sweep a rung (``f`` and ``n_nodes`` are the ladder's)."""
+    return bcast_config(**{"f": 1, "n_nodes": 4, "n_sweeps": 1, **kw})
+
+
+def wide_config():
+    """The padded config of the full-width ladder WIDE_RUNGS."""
+    from consensus_tpu_torch.engines import pbft_sweep
+    return pbft_sweep._fsweep_static(wide_base(), WIDE_RUNGS)[1]
+
+
+def capture_bcast_inputs(cfg, rounds, rungs=None, device="cuda") -> dict:
+    """{r: {wrapper: arguments}}: what each wrapper of the §6b round
+    (KT-KV) receives in each round r of ``rounds`` of ``cfg``'s eager run
+    (a ladder with ``rungs``) on ``device``, cloned as it arrives."""
+    from consensus_tpu_torch.engines import pbft
+    from consensus_tpu_torch.engines import pbft_bcast as pb
+    from consensus_tpu_torch.network import runner
+    lanes = runner.device_lanes(cfg, rungs, device)
+    st = pbft.pbft_init(cfg, lanes.pop("seed"))
+    m = pb.table_cap(cfg, rungs)
+    out, r0 = {}, 0
+    for r in sorted(rounds):
+        st = runner.advance(cfg, st, r0, r - r0, lanes=lanes, rungs=rungs)
+        got = out[r] = {}
+        with standing_in(pb, BCAST, recording(got)):
+            st = pb.pbft_bcast_round(cfg, st, r, m=m, **lanes)
+        require(set(got) == set(BCAST), f"round {r} skipped a phase")
+        r0 = r + 1
+    return out
+
+
+def bcast_edge_inputs(dev, gen) -> dict:
+    """Inputs on which KT-KV's rare paths fire: {name: [args]}. The
+    rounds of a partitioned hostile bcast ladder (fs = 1..32, BASE's
+    drops, partitions and churn) and of a standalone hostile run at f = 1;
+    the rounds of BASELINE config 3's bcast ladder; random states on
+    lanes of up to 97 padded nodes and 40 slots (a ragged last warp),
+    f = 1 lanes among them (m = 2), views past the search's top and below
+    0, where catch-ups fire; tally inputs where one value of each (lane,
+    slot) has 2f - 1 to 2f + 1 senders of a side, the sides unbalanced so
+    that either side can reach a quorum; and N = 1 (f = 0)."""
+    from consensus_tpu_torch.engines import pbft_bcast as pb
+    out = {name: [] for name in BCAST}
+
+    def ri(lo, hi, shape, dtype=torch.int32):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev,
+                             dtype=dtype)
+
+    def coin(p, shape):
+        return torch.rand(shape, generator=gen, device=dev) < p
+
+    fs = tuple(range(1, 33))
+    sides = 0
+    for cfg, rungs, rounds in (
+            (ladder_config(fs, fault_model="bcast", n_rounds=24,
+                           log_capacity=8, seed=7, **HOSTILE), fs,
+             (2, 5, 9, 17, 23)),
+            (pbft_config(1, fault_model="bcast", n_rounds=24,
+                         log_capacity=8, seed=7, n_sweeps=8, **HOSTILE),
+             None, (2, 9, 17, 23)),
+            (ladder_config(fault_model="bcast"), LADDER, BCAST_ROUNDS)):
+        for got in capture_bcast_inputs(cfg, rounds, rungs, dev).values():
+            sides += int((got["bcast_tally"][3] & 2).bool().sum())
+            for name in BCAST:
+                out[name].append(got[name])
+    require(sides > 0, "edge inputs: no partition was active")
+
+    # Random states: lanes of 1..97 real nodes (f = 0..32, f = 1 on two).
+    B, N, S = 16, 97, 40
+    cfg = pbft_config(32, fault_model="bcast", log_capacity=S,
+                      view_timeout=4, drop_rate=0.2, partition_rate=0.6)
+    vmax = 2 * cfg.n_rounds + 2
+    seeds = torch.arange(21, 21 + B, dtype=torch.int64,
+                         device=dev).to(torch.uint32)
+    f = ri(0, 33, (B,))
+    f[:2] = 1
+    n_real = 3 * f + 1
+    view = ri(-2, vmax + 9, (B, N))
+    view[:, : N // 2] = ri(0, 4, (B, N // 2))
+    pp_seen = coin(0.6, (B, N, S))
+    pp_view = torch.where(pp_seen, torch.minimum(ri(-1, vmax, (B, N, S)),
+                                                 view[:, :, None]), 0)
+    pp_val = ri(0, 3, (B, N, S))
+    prepared = (pp_seen | coin(0.05, (B, N, S))) & coin(0.5, (B, N, S))
+    committed = prepared & coin(0.4, (B, N, S))
+    dval = torch.where(committed, pp_val, ri(0, 3, (B, N, S)))
+    kt = (cfg, seeds, 7, n_real, f, view, ri(0, 9, (B, N)), pp_seen,
+          pp_view, pp_val, prepared, committed)
+    require(catch_ups(pb.bcast_view_preprepare_plain, kt, kt[5], kt[6]) > 0,
+            "edge inputs: no catch-up")
+    got = pb.bcast_view_preprepare_plain(*clone_args(kt))
+    out["bcast_view_preprepare"].append(kt)
+    out["bcast_tally"].append((2, n_real, f, got[6], got[3], got[5],
+                               prepared, committed, dval))
+    out["bcast_decide"].append((got[6], committed, dval,
+                                committed & coin(0.5, (B, N, S)),
+                                ri(0, 9, (B, N)), coin(0.3, (B, N))))
+
+    # Tallies at the threshold: lanes of f = 1..8 whose senders lie 95:5
+    # on side 0 or on side 1 by lane; in each (lane, slot) value 7 for
+    # exactly 2f - 1, 2f or 2f + 1 senders of the larger side and value 7
+    # or 8 for every other node; every real node has seen every slot.
+    f = ri(1, 9, (B,))
+    f[:2] = 1
+    n_real = 3 * f + 1
+    idx = torch.arange(N, device=dev)
+    real = idx[None, :] < n_real[:, None]
+    hb = real & coin(0.95, (B, N))
+    big = (torch.arange(B, device=dev) % 2).bool()            # its side
+    side = coin(0.95, (B, N)) == big[:, None]
+    bits = (hb.to(torch.uint8) | (side.to(torch.uint8) << 1)).contiguous()
+    counted = (hb & (side == big[:, None]))[:, :, None].expand(B, N, S)
+    rank = torch.rand((B, N, S), generator=gen, device=dev).masked_fill(
+        ~counted, 2.0).argsort(1).argsort(1)
+    k = (2 * f - 1)[:, None] + ri(0, 3, (B, S))               # [B, S]
+    pp_val = torch.where(counted, torch.where(rank < k[:, None, :], 7, 8),
+                         7 + ri(0, 2, (B, N, S))).to(torch.int32)
+    pp_seen = real[:, :, None].expand(B, N, S).contiguous()
+    prepared = pp_seen & coin(0.3, (B, N, S))
+    committed = prepared & coin(0.2, (B, N, S))
+    ku = (2, n_real, f, bits, pp_seen, pp_val, prepared, committed,
+          ri(0, 9, (B, N, S)))
+    hit = pb.bcast_tally_plain(*clone_args(ku))[0] & ~prepared
+    missed = pp_seen & ~prepared & ~hit & (pp_val == 7)
+    require(bool(hit.any()) and bool(missed.any()),
+            "edge inputs: no prepare at the threshold, or no miss")
+    out["bcast_tally"].append(ku)
+
+    # N = 1: f = 0, the single node is its own quorum.
+    cfg1 = pbft_config(0, fault_model="bcast", log_capacity=8)
+    z = torch.zeros((4, 1), dtype=torch.int32, device=dev)
+    one = torch.ones((4,), dtype=torch.int32, device=dev)
+    seen1 = coin(0.5, (4, 1, 8))
+    kt1 = (cfg1, seeds[:4], 3, one, one * 0, ri(0, 5, (4, 1)), z, seen1,
+           torch.zeros((4, 1, 8), dtype=torch.int32, device=dev),
+           ri(0, 3, (4, 1, 8)), seen1 & coin(0.5, (4, 1, 8)),
+           torch.zeros((4, 1, 8), dtype=torch.bool, device=dev))
+    out["bcast_view_preprepare"].append(kt1)
+    got = pb.bcast_view_preprepare_plain(*clone_args(kt1))
+    out["bcast_tally"].append((1, one, one * 0, got[6], got[3], got[5],
+                               kt1[10], kt1[11], ri(0, 3, (4, 1, 8))))
+    return out
+
+
+def bcast_bound(name: str, args) -> tuple[float, str]:
+    """The least time of kernel ``name``'s work (KT-KV) on ``args``: the
+    bytes it must move and the 32-bit operations it must do for these
+    inputs (see each source's note)."""
+    from consensus_tpu_torch.core import rng
+    from consensus_tpu_torch.engines import pbft_bcast as pb
+    if name == "bcast_view_preprepare":
+        (cfg, seed, r, n_real, f, view, timer, pp_seen, pp_view, pp_val,
+         prepared, committed) = args
+        b, n, s = pp_seen.shape
+        got = pb.bcast_view_preprepare_plain(*clone_args(args))
+        prim = got[0].remainder(n_real[:, None]).to(torch.int64)
+        rows = sum(int(torch.unique(p).numel()) for p in prim)
+        accept = (got[3] != pp_seen) | (got[4] != pp_view) | \
+            (got[5] != pp_val)
+        seen_prim = pp_seen.gather(1, prim[:, :, None].expand(b, n, s))
+        draws = int((accept & ~seen_prim).sum())
+        active = int((rng.random_u32_plain(seed, rng.STREAM_PARTITION, r, 0,
+                                           0) < cfg.partition_cutoff).sum())
+        return bound(18 * b * n + 19 * b * n * s + rows * s,
+                     EDGE_OPS * b * n + THREEFRY_OPS * (active * n + draws))
+    if name == "bcast_tally":
+        bits, pp_seen = args[3], args[4]
+        return bound(bits.numel() + 17 * pp_seen.numel(), 0)
+    bits, committed = args[0], args[1]
+    return bound(10 * bits.numel() + 11 * committed.numel(), 0)
+
+
+def bcast_yardsticks(args_kt, args_kv):
+    """One PyTorch call a kernel where one computes the same function, on
+    the timed inputs: ``torch.kthvalue`` for KT's statistic (the (f+1)-th
+    largest sender view + 1 of each lane and side: the (N - f)-th smallest
+    of a [B, 2, N] matrix of them, 0 for the rest), and ``torch.amin`` for
+    KV's decider rows (the least id of each (lane, side, slot), over a [B,
+    2, N, S] matrix of committed senders' ids, N for the rest). Returns
+    ((fn, args), (fn, args))."""
+    from consensus_tpu_torch.engines import pbft_bcast as pb
+    (cfg, seed, r, n_real, f, view, *_rest) = args_kt
+    b, n = view.shape
+    require(bool((f == f[0]).all()), "the yardstick takes one f a run")
+    bits = pb.node_bits(cfg, seed, r, n_real)
+    hb, side = pb.hb_side(bits)
+    ch = pb.churn(seed, r, cfg.churn_cutoff)[:, None].to(torch.int32)
+    w = torch.stack([torch.where(hb & (side == k), view + ch + 1, 0)
+                     for k in (0, 1)], 1).contiguous()
+    kth = (lambda m: torch.kthvalue(m, n - int(f[0]), dim=2)), (w,)
+    (bits, committed, *_rest) = args_kv
+    hb, side = pb.hb_side(bits)
+    idx = torch.arange(n, dtype=torch.int32, device=view.device)
+    src = torch.stack([torch.where(
+        (hb & (side == k))[:, :, None] & committed, idx[:, None], n)
+        for k in (0, 1)], 1).contiguous()
+    amin = (lambda m: torch.amin(m, dim=2)), (src,)
+    return kth, amin
+
+
+def check_bcast_kernels(dev, gen) -> list[dict]:
+    """KT-KV against their plain versions on rounds BCAST_ROUNDS of
+    pbft-100k-bcast and of the full-width ladder, and on the edge inputs.
+    Times and bounds on the flagship's round 20."""
+    from consensus_tpu_torch.engines import pbft_bcast as pb
+    real = list(capture_bcast_inputs(bcast_config(), BCAST_ROUNDS).values())
+    timed = real[-1]
+    real += capture_bcast_inputs(wide_config(), BCAST_ROUNDS,
+                                 WIDE_RUNGS).values()
+    edges = bcast_edge_inputs(dev, gen)
+    kth, amin = bcast_yardsticks(timed["bcast_view_preprepare"],
+                                 timed["bcast_decide"])
+    library = {"bcast_view_preprepare": kth, "bcast_decide": amin}
+    rows = []
+    for name in BCAST:
+        err = max(max_abs_err(run_pair(name, args)) for args in
+                  [got[name] for got in real] + edges[name])
+        args = timed[name]
+        lib = library.get(name)
+        rows.append(dict(name=name, route="cuda",
+                         source=f"consensus_tpu_torch/csrc/{name}.cu",
+                         replaces=BCAST_REPLACES[name], max_abs_err=err,
+                         ms=device_ms(getattr(pb, name), args),
+                         plain_ms=device_ms(getattr(pb, name + "_plain"),
+                                            args),
+                         bound=bcast_bound(name, args),
+                         library_ms=None if lib is None else device_ms(*lib)))
+    return rows
+
+
 def hand_kernels() -> dict[str, tuple[str, ...]]:
     """The ``__global__`` kernels of each source in ``_build.SOURCES``, by
     wrapper name: the names the profiler reports for them. Names are unique
@@ -1482,7 +1818,13 @@ GAPS = {(None, "candidacy"): "init",
         ("pbft_view_preprepare", "pbft_tally"): "P4-P5",
         ("pbft_tally", "pbft_decide"): "P6-P7",
         ("pbft_decide", "delivery"): "between rounds",
-        ("pbft_decide", None): "after the last round"}
+        ("pbft_decide", None): "after the last round",
+        # The §6b broadcast round.
+        (None, "bcast_view_preprepare"): "init",
+        ("bcast_view_preprepare", "bcast_tally"): "P4-P5",
+        ("bcast_tally", "bcast_decide"): "P6-P7",
+        ("bcast_decide", "bcast_view_preprepare"): "between rounds",
+        ("bcast_decide", None): "after the last round"}
 ZEROING = ("aten::fill_", "aten::zero_")
 
 
@@ -1500,12 +1842,15 @@ def plain_ops_by_phase(cfg, device="cuda", telemetry=False,
                                 schedule)
 
     from consensus_tpu_torch.engines import pbft, raft
+    from consensus_tpu_torch.engines import pbft_bcast as pb
     from consensus_tpu_torch.engines import raft_sparse as rs
     from consensus_tpu_torch.network import runner
     on_cpu = torch.device(device).type == "cpu"
     # The wrappers the engine's round calls (KA's only through init).
     eng = runner.engine(cfg)
-    if eng is runner.PBFT:
+    if eng is runner.PBFT_BCAST:
+        module, marked_names = pb, list(BCAST)
+    elif eng is runner.PBFT:
         module, marked_names = pbft, ["delivery", *PBFT]
     elif eng is runner.DENSE:
         module, marked_names = raft, [*DENSE, "dense_telemetry"]
@@ -1562,8 +1907,9 @@ def profile_replay(cfg, rungs=None, telemetry=False) -> dict:
     """The flagship's graph replay: wall time of one replay up to the
     device's end (host clock, best of five), and one more replay under
     torch.profiler (after a warm-up step of the profiler, which misses the
-    first launches of its first step): its device time by hand kernel and
-    of every other device operation by name (count, ms), its device
+    first launches of its first step): its device time by hand kernel, by
+    ``__global__`` function (count, ms) and of every other device
+    operation by name (count, ms), its device
     operations, and its busy share, device time over the same replay's
     wall. The profiler slows the host's side of a replay by a cost per
     device operation, so ``unprofiled_busy_share`` also divides that
@@ -1596,13 +1942,16 @@ def profile_replay(cfg, rungs=None, telemetry=False) -> dict:
     busy_ms = sum(e.time_range.elapsed_us() for e in device) / 1e3
     kernels = hand_kernels()
     hand = dict.fromkeys(kernels, 0.0)
+    by_function: dict = {}
     other: dict = {}
     for e in device:
         ms = e.time_range.elapsed_us() / 1e3
-        k = next((k for k, fns in kernels.items()
-                  if any(is_kernel(e.name, f) for f in fns)), None)
+        k, fn = next(((k, f) for k, fns in kernels.items() for f in fns
+                      if is_kernel(e.name, f)), (None, None))
         if k is not None:
             hand[k] += ms
+            n, t = by_function.get(fn, (0, 0.0))
+            by_function[fn] = (n + 1, t + ms)
         else:
             n, t = other.get(e.name, (0, 0.0))
             other[e.name] = (n + 1, t + ms)
@@ -1611,8 +1960,8 @@ def profile_replay(cfg, rungs=None, telemetry=False) -> dict:
                 unprofiled_busy_share=busy_ms / min(walls),
                 device_launches=len(device),
                 launches_per_round=len(device) / cfg.n_rounds,
-                hand_kernel_ms=hand, other_ops=other,
-                hand_share=sum(hand.values()) / busy_ms)
+                hand_kernel_ms=hand, hand_function_ms=by_function,
+                other_ops=other, hand_share=sum(hand.values()) / busy_ms)
 
 
 def memory_use(run) -> dict:
@@ -1631,6 +1980,23 @@ def memory_use(run) -> dict:
                 peak_bytes=torch.cuda.max_memory_allocated() - before,
                 graph_bytes=torch.cuda.memory_allocated() - before,
                 max_memory_allocated=torch.cuda.max_memory_allocated())
+
+
+def counted(run) -> tuple:
+    """``run()``'s result and the launch counts of that run alone: every
+    count is set to 0 just before it and read just after."""
+    from consensus_tpu_torch.network import runner
+    for mod, name in runner.KERNELS:
+        getattr(mod, name).launches = 0
+    result = run()
+    return result, runner.launch_counts()
+
+
+def require_launched(launches: dict[str, int], kernels, path: str) -> None:
+    """Fails unless exactly the kernels ``kernels`` launched on ``path``."""
+    for kernel, n in launches.items():
+        require((n > 0) == (kernel in kernels),
+                f"kernel {kernel}: {n} launches on {path}")
 
 
 def check_seed_sharing(cfg, anchor: str) -> None:
@@ -1864,19 +2230,18 @@ def check_pbft_path(card: str, smi: str) -> dict[str, int]:
     """Phase 9: ``simulator.run`` of the standalone rows pbft-f1 ...
     pbft-f128 and the fs = 1..128 ladder (``pbft_fsweep_timed``), each
     replayed as one CUDA graph, with every launch count set to 0 just
-    before and read just after: the oracle digests and the ladder's
-    anchor, KL and KQ-KS launched and no other kernel. Then the ladder's
-    replay under the profiler, and a replay with every lane's seed shifted
-    against the eager loop. Returns the launches."""
+    before each run and read just after it: the oracle digests and the
+    ladder's anchor, KL and KQ-KS launched in each run and no other
+    kernel. Then the ladder's replay under the profiler, and a replay with
+    every lane's seed shifted against the eager loop. Returns the
+    ladder's launches."""
     from consensus_tpu_torch.core import serialize
     from consensus_tpu_torch.engines import pbft_sweep
     from consensus_tpu_torch.network import runner, simulator
-    for mod, name in runner.KERNELS:
-        getattr(mod, name).launches = 0
     rows = {}
     for f, want in PBFT_DIGESTS.items():
         cfg = pbft_config(f)
-        res = simulator.run(cfg)
+        res, row_launches = counted(lambda: simulator.run(cfg))
         require(res.counts.shape == (1, cfg.n_nodes)
                 and int(res.counts.max()) > 0,
                 f"pbft-f{f}: decided logs of the wrong shape, or empty")
@@ -1884,12 +2249,12 @@ def check_pbft_path(card: str, smi: str) -> dict[str, int]:
                                   digest_ok=res.digest == want,
                                   steps_per_sec=res.steps_per_sec,
                                   wall_s=res.wall_s,
-                                  max_committed=int(res.counts.max()))
+                                  max_committed=int(res.counts.max()),
+                                  launches=row_launches)
     base = pbft_config(1)
-    memory = memory_use(lambda: pbft_sweep.pbft_fsweep_timed(
-        base, LADDER, repeats=5))
+    memory, launches = counted(lambda: memory_use(
+        lambda: pbft_sweep.pbft_fsweep_timed(base, LADDER, repeats=5)))
     out, compile_s, best, real_steps = memory.pop("result")
-    launches = runner.launch_counts()
     digest = serialize.digest(pbft_sweep.fsweep_payload(out))
     cfg_pad = ladder_config()
     padded_steps = cfg_pad.n_sweeps * cfg_pad.n_nodes * cfg_pad.n_rounds
@@ -1901,11 +2266,10 @@ def check_pbft_path(card: str, smi: str) -> dict[str, int]:
         **memory), launches=launches, card=card, power=smi)
     for name, row in rows.items():
         require(row["digest_ok"], f"{name} digest {row['digest']}")
+        require_launched(row["launches"], ("delivery",) + PBFT, name)
     require(digest == LADDER_DIGEST, f"the ladder's digest {digest} != "
             f"{LADDER_DIGEST}")
-    for kernel, n in launches.items():
-        require((n > 0) == (kernel in ("delivery",) + PBFT),
-                f"kernel {kernel}: {n} launches on the pbft path")
+    require_launched(launches, ("delivery",) + PBFT, "the fs = 1..128 ladder")
     prof = profile_replay(cfg_pad, rungs=LADDER)
     emit("pbft_profile", config="fs = 1..128 ladder", card=card, power=smi,
          **prof)
@@ -1930,6 +2294,123 @@ def check_pbft_path(card: str, smi: str) -> dict[str, int]:
             "eager loop")
     require(again == LADDER_DIGEST,
             "the ladder's base seeds after another seed changed its digest")
+    return launches
+
+
+# --- phase 10: the §6b broadcast engine and its ladders -----------------------
+
+def check_bcast_path(card: str, smi: str) -> dict[str, int]:
+    """Phase 10: ``simulator.run`` of pbft-100k-bcast, BASELINE config 3's
+    fs = 1..128 ladder under the bcast fault model
+    (``pbft_fsweep_timed``), the full-width ladder WIDE_RUNGS
+    (``pbft_fsweep_timed``) and the hostile ladder HOSTILE_BCAST_FS
+    (``pbft_fsweep_run``), each replayed as one CUDA graph, with every
+    launch count set to 0 just before each run and read just after it:
+    their anchors, KT-KV launched in each run and no other kernel. Then
+    the flagship's replay under the profiler and another seed on its graph
+    against the eager loop; each full-width rung against the standalone
+    run of its f and seed; and the config-3 ladder with every lane's seed
+    shifted against the eager loop. Returns pbft-100k-bcast's launches."""
+    from consensus_tpu_torch.core import serialize
+    from consensus_tpu_torch.engines import pbft_sweep
+    from consensus_tpu_torch.network import runner, simulator
+    cfg = bcast_config()
+    memory, launches = counted(lambda: memory_use(
+        lambda: simulator.run(cfg)))
+    res = memory.pop("result")
+    require(res.counts.shape == (cfg.n_sweeps, cfg.n_nodes)
+            and int(res.counts.max()) > 0,
+            "pbft-100k-bcast: decided logs of the wrong shape, or empty")
+    base = pbft_config(1, fault_model="bcast")
+    ladder_memory, ladder_launches = counted(lambda: memory_use(
+        lambda: pbft_sweep.pbft_fsweep_timed(base, LADDER, repeats=5)))
+    out, compile_s, best, real_steps = ladder_memory.pop("result")
+    ladder_digest = serialize.digest(pbft_sweep.fsweep_payload(out))
+    wide_memory, wide_launches = counted(lambda: memory_use(
+        lambda: pbft_sweep.pbft_fsweep_timed(wide_base(), WIDE_RUNGS,
+                                             repeats=3)))
+    wide, wide_first_s, wide_best, wide_steps = wide_memory.pop("result")
+    hostile_base = pbft_config(1, fault_model="bcast", n_rounds=24,
+                               log_capacity=8, seed=7, **HOSTILE)
+    hostile, hostile_launches = counted(lambda: pbft_sweep.pbft_fsweep_run(
+        hostile_base, HOSTILE_BCAST_FS))
+    hostile_digest = serialize.digest(pbft_sweep.fsweep_payload(hostile))
+    wide_digest = serialize.digest(pbft_sweep.fsweep_payload(wide))
+    wide_rungs = [serialize.digest(p)
+                  for p in pbft_sweep.rung_payloads(wide)]
+    emit("bcast", digest=res.digest, digest_ok=res.digest == BCAST_DIGEST,
+         steps_per_sec=res.steps_per_sec, wall_s=res.wall_s,
+         max_committed=int(res.counts.max()), **memory,
+         ladder=dict(digest=ladder_digest,
+                     digest_ok=ladder_digest == BCAST_LADDER_DIGEST,
+                     real_steps=real_steps, wall_s=best,
+                     real_steps_per_sec=real_steps / best,
+                     first_run_s=compile_s, launches=ladder_launches,
+                     **ladder_memory),
+         wide_ladder=dict(digest=wide_digest,
+                          digest_ok=wide_digest == WIDE_DIGEST,
+                          rung_digests=wide_rungs, real_steps=wide_steps,
+                          wall_s=wide_best,
+                          real_steps_per_sec=wide_steps / wide_best,
+                          first_run_s=wide_first_s,
+                          launches=wide_launches, **wide_memory),
+         hostile_ladder=dict(digest=hostile_digest,
+                             digest_ok=hostile_digest == HOSTILE_BCAST_DIGEST,
+                             launches=hostile_launches),
+         launches=launches, card=card, power=smi)
+    require(res.digest == BCAST_DIGEST,
+            f"pbft-100k-bcast digest {res.digest} != {BCAST_DIGEST}")
+    require(ladder_digest == BCAST_LADDER_DIGEST,
+            f"the bcast ladder's digest {ladder_digest} != "
+            f"{BCAST_LADDER_DIGEST}")
+    require(wide_digest == WIDE_DIGEST
+            and tuple(wide_rungs) == WIDE_RUNG_DIGESTS,
+            f"the full-width ladder's digests {wide_digest} {wide_rungs}")
+    require(hostile_digest == HOSTILE_BCAST_DIGEST,
+            f"the hostile bcast ladder's digest {hostile_digest} != "
+            f"{HOSTILE_BCAST_DIGEST}")
+    require_launched(launches, BCAST, "pbft-100k-bcast")
+    require_launched(ladder_launches, BCAST, "the config-3 bcast ladder")
+    require_launched(wide_launches, BCAST, "the full-width bcast ladder")
+    require_launched(hostile_launches, BCAST, "the hostile bcast ladder")
+    emit("bcast_profile", config="pbft-100k-bcast", card=card, power=smi,
+         **profile_replay(cfg))
+    check_seed_sharing(cfg, BCAST_DIGEST)
+
+    # Each full-width rung against its standalone run (f = fs[k], seed
+    # 7 + k, one sweep).
+    for k, f in enumerate(WIDE_RUNGS):
+        alone = simulator.run(wide_base(f=f, n_nodes=3 * f + 1,
+                                        seed=7 + k))
+        emit("wide_rung", f=f, digest=alone.digest,
+             rung_digest=wide_rungs[k], steps_per_sec=alone.steps_per_sec)
+        require(alone.payload == pbft_sweep.rung_payloads(wide)[k],
+                f"the full-width rung f = {f} differs from its standalone "
+                "run")
+
+    # The config-3 bcast ladder with every lane's seed shifted, on the same
+    # graph (captured again: the cache keeps the latest), against the
+    # eager loop; then the base seeds again.
+    pbft_sweep.pbft_fsweep_run(base, LADDER)
+    captured = runner.captures
+    other = dataclasses.replace(base, seed=base.seed + len(LADDER))
+    replayed = serialize.digest(pbft_sweep.fsweep_payload(
+        pbft_sweep.pbft_fsweep_run(other, LADDER)))
+    eager = serialize.digest(pbft_sweep.fsweep_payload(
+        pbft_sweep.pbft_fsweep_run(other, LADDER, graph=False)))
+    again = serialize.digest(pbft_sweep.fsweep_payload(
+        pbft_sweep.pbft_fsweep_run(base, LADDER)))
+    emit("seed_sharing", config="fs = 1..128 bcast ladder", seed=other.seed,
+         digest=replayed, eager_digest=eager,
+         new_captures=runner.captures - captured, anchor_digest_again=again)
+    require(runner.captures == captured,
+            "a bcast ladder with another seed captured a graph of its own")
+    require(replayed == eager and replayed != BCAST_LADDER_DIGEST,
+            "the bcast ladder's replay with another seed disagrees with the "
+            "eager loop")
+    require(again == BCAST_LADDER_DIGEST,
+            "the bcast ladder's base seeds after another seed changed its "
+            "digest")
     return launches
 
 
@@ -1968,7 +2449,8 @@ def main() -> int:
                check_top_active(dev, gen),
                *check_phases(dev, gen, flagship_config(
                    telemetry_window=WINDOW)),
-               *check_dense_kernels(dev, gen), *check_pbft_kernels(dev, gen)]
+               *check_dense_kernels(dev, gen), *check_pbft_kernels(dev, gen),
+               *check_bcast_kernels(dev, gen)]
     torch.cuda.synchronize()
     require(sorted(k["name"] for k in kernels) == sorted(_build.SOURCES),
             "phase 3 does not check every kernel of csrc")
@@ -2024,12 +2506,14 @@ def main() -> int:
         telemetry=True)
     pbft_by_phase = plain_ops_by_phase(ladder_config(n_rounds=8),
                                        rungs=LADDER)
+    bcast_by_phase = plain_ops_by_phase(bcast_config(n_rounds=4))
     emit("profile", card=card, power=smi, **prof,
          plain_ops_by_phase=by_phase, dense_plain_ops_by_phase=dense_by_phase,
          pbft_plain_ops_by_phase=pbft_by_phase,
+         bcast_plain_ops_by_phase=bcast_by_phase,
          profiler_sessions_redone=REDONE)
     for place, found in [*by_phase.items(), *dense_by_phase.items(),
-                         *pbft_by_phase.items()]:
+                         *pbft_by_phase.items(), *bcast_by_phase.items()]:
         require(place == "init" or set(found) <= set(ZEROING),
                 f"PyTorch compute ops on the device in {place}: {found}")
 
@@ -2037,6 +2521,10 @@ def main() -> int:
     pbft_launches = check_pbft_path(card, smi)
     launches["delivery"] += pbft_launches["delivery"]
     launches.update({name: pbft_launches[name] for name in PBFT})
+
+    # 10. the §6b broadcast engine: pbft-100k-bcast and two bcast ladders.
+    bcast_launches = check_bcast_path(card, smi)
+    launches.update({name: bcast_launches[name] for name in BCAST})
     for k in kernels:
         k["launches"] = launches[k["name"]]
 

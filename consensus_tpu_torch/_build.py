@@ -26,7 +26,8 @@ SOURCES = ("random_u32", "delivery_edges", "top_active", "append_entries",
            "candidacy", "elect", "slots", "acks_commit", "propose",
            "telemetry", "delivery", "dense_elect", "dense_append",
            "dense_acks_commit", "dense_telemetry", "pbft_view_preprepare",
-           "pbft_tally", "pbft_decide")
+           "pbft_tally", "pbft_decide", "bcast_view_preprepare",
+           "bcast_tally", "bcast_decide")
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "build" / \
@@ -107,6 +108,18 @@ SIGNATURES = {
     # deliver, n_real, committed, dval, committed at round entry, timer,
     # reset; committed, dval, timer outputs; B, N, S
     "pbft_decide": (_P,) * 10 + (_I,) * 3,
+    # seed, round, churn_cut, drop_cut, part_cut, view_timeout, vmax;
+    # n_real, f, view, timer, pp_seen, pp_view, pp_val, prepared,
+    # committed; view, timer, reset, pp_seen, pp_view, pp_val, node bits
+    # outputs, histogram and first-unseen-slot scratch; B, N, S
+    "bcast_view_preprepare": (_P, _U, _U, _U, _U, _I, _I) + (_P,) * 18
+    + (_I,) * 3,
+    # n_real, f, node bits, pp_seen, pp_val, prepared, committed, dval;
+    # prepared, committed, dval outputs, scratch; scratch words; m, B, N, S
+    "bcast_tally": (_P,) * 12 + (_L,) + (_I,) * 4,
+    # node bits, committed, dval, committed at round entry, timer, reset;
+    # committed, dval, timer outputs, minima scratch; B, N, S
+    "bcast_decide": (_P,) * 10 + (_I,) * 3,
 }
 
 

@@ -5,7 +5,9 @@ defaults and u32 cutoffs for what the Raft and dense PBFT engines read. As
 in the JAX package, a raft config with ``max_active = 0`` selects the dense
 engine (``engines/raft.py``) and ``max_active > 0`` the §3b capped one
 (``engines/raft_sparse.py``); ``protocol="pbft"`` selects the dense SPEC §6
-engine (``engines/pbft.py``), whose population is ``n_nodes = 3f + 1``.
+engine (``engines/pbft.py``), or with ``fault_model="bcast"`` the SPEC §6b
+broadcast engine (``engines/pbft_bcast.py``), whose population is
+``n_nodes = 3f + 1``.
 The knobs of the JAX package that this port does not implement yet are
 fields too, and setting one off its default raises ``ValueError``; the
 port never ignores a setting silently.
@@ -102,14 +104,10 @@ class Config:
                     f"{expect}, got {self.n_nodes}")
         if self.fault_model not in ("edge", "bcast"):
             raise ValueError(f"unknown fault_model {self.fault_model!r}")
-        if self.fault_model == "bcast":
-            if self.protocol != "pbft":
-                raise ValueError(
-                    "fault_model='bcast' (SPEC §6b) is a pbft model; other "
-                    "protocols would silently ignore it")
-            raise ValueError("fault_model='bcast' (the SPEC §6b engine, "
-                             "consensus_tpu/engines/pbft_bcast.py) is not "
-                             "ported yet")
+        if self.fault_model == "bcast" and self.protocol != "pbft":
+            raise ValueError(
+                "fault_model='bcast' (SPEC §6b) is a pbft model; other "
+                "protocols would silently ignore it")
         if self.t_max <= self.t_min:
             raise ValueError("t_max must exceed t_min")
         if not 0 <= self.max_active <= self.n_nodes:
@@ -144,3 +142,9 @@ class Config:
     @property
     def churn_cutoff(self) -> int:
         return prob_threshold_u32(self.churn_rate)
+
+    @property
+    def no_partition(self) -> bool:
+        """No round's partition can be active: the §6b engine's tallies
+        then need one aggregate a slot, not one a side."""
+        return self.partition_cutoff == 0

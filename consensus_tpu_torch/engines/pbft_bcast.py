@@ -1,0 +1,484 @@
+"""PBFT under the broadcast-atomic fault model (SPEC §6b) in PyTorch.
+
+The port of ``consensus_tpu/engines/pbft_bcast.py`` on its flat path (no
+crash, delay, byzantine, switch or desync gates, no telemetry) and,
+through the same functions, of ``consensus_tpu/engines/pbft_sweep.py``'s
+``pbft_bcast_round_padded``. Under §6b a sender's round broadcast is
+dropped whole (one delivery draw keyed (i, i)), so what a receiver hears
+depends only on its partition side, and every tally collapses to one
+aggregate per (lane, slot, side): no [N, N] tensor exists, and the engine
+runs at N = 100 000.
+
+As in ``engines/pbft.py``, every phase takes the per-lane population
+``n_real`` and tolerance ``f`` ([B] int32): node ``i`` of lane ``b`` is
+real (and honest) when ``i < n_real[b]``, the quorum is ``2 f[b] + 1``,
+P1's ranks are ``f[b] + 1`` and ``f[b]``, and the primary is ``view mod
+n_real[b]``. A standalone run is the case ``n_real = n_nodes``, ``f =
+cfg.f`` on every lane, so the standalone engine and the f-ladder share
+one set of kernels.
+
+The round's per-node facts travel as one byte a node (:func:`node_bits`):
+bit 0 is ``honest & bcast`` (a real node whose broadcast goes out this
+round), bit 1 its side, the drawn partition side while the round's
+partition is active and 0 otherwise. A node counts towards, and reads, the
+aggregate of its own side only: with the partition active that is the
+JAX package's ``side_ok``, and without it both of the JAX package's
+per-side aggregates are the same, so one serves everyone.
+
+Three functions are wrappers of hand-written CUDA kernels, each beside its
+plain PyTorch version (``<name>_plain``), which CPU tensors run:
+
+* :func:`bcast_view_preprepare` — kernel KT
+  (``csrc/bcast_view_preprepare.cu``): the node bits, P0 churn, P1 the
+  per-side order statistics and catch-up, P2 timeouts, P3 pre-prepare;
+* :func:`bcast_tally` — kernel KU (``csrc/bcast_tally.cu``): P4 the
+  prepare quorum and P5 the commit quorum, counted per (slot, side);
+* :func:`bcast_decide` — kernel KV (``csrc/bcast_decide.cu``): P6 the
+  min-id decide gossip per (slot, side) and P7 the timers.
+
+The plain versions follow the JAX package's algorithms (P1 by a binary
+search on the view range, P4-P5 by one sort and top-``m`` run tables);
+the kernels compute the same functions without a sort (see each source).
+No input is changed: each phase writes fresh tensors.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..core import rng
+from ..core.config import Config
+from ..ops.adversary import churn
+from .pbft import PbftState, fresh_values, real_nodes, view_bound
+from .raft import check_all
+
+# The engine's name, as the JAX package's EngineDef names it.
+NAME = "pbft-bcast"
+
+I32_MAX = 2**31 - 1
+I32_MIN = -2**31
+# The widest top-m table kernel KU keeps (as csrc/bcast_tally.cu MAX_M):
+# m is 1 or 2 without byzantine nodes (:func:`table_width`).
+MAX_M = 2
+# Nodes a block of KU's and KV's passes covers (as csrc/bcast_tally.cu
+# CHUNK), which sizes KU's per-block summaries.
+CHUNK = 1024
+
+
+def table_width(n_nodes: int, f: int) -> int:
+    """The JAX package's ``_table_width`` without byzantine nodes: how many
+    values of one (slot, side) can reach a quorum threshold. A value that
+    passes any node's check has at least Tmin = 2f same-value senders
+    among at most ``n_nodes``, so at most ``n_nodes // Tmin`` values
+    qualify; 1 at f >= 2 and 2 at f = 1."""
+    return max(1, min(n_nodes, n_nodes // max(1, 2 * f)))
+
+
+def table_cap(cfg: Config, rungs=None) -> int:
+    """The table width ``m`` a run's tallies use: ``cfg``'s own, or, for an
+    f-ladder (``rungs``), the widest of its rungs', as the JAX package's
+    ``_fsweep_static`` takes ``m_cap``."""
+    if rungs is None:
+        return table_width(cfg.n_nodes, cfg.f)
+    return max(table_width(3 * int(f) + 1, int(f)) for f in rungs)
+
+
+def node_bits(cfg: Config, seed, r: int, n_real) -> torch.Tensor:
+    """[B, N] uint8, each node's byte of round ``r``: bit 0 set for a real
+    node whose broadcast goes out (the delivery draw keyed (i, i) at or
+    above the drop cutoff), bit 1 its partition side (the Threefry draw
+    (r, 1, i) & 1) in a round whose partition is active, else 0."""
+    N = cfg.n_nodes
+    idx = torch.arange(N, dtype=torch.int64, device=seed.device)
+    useed = rng.as_u32(seed)[:, None]
+    bc = rng.delivery_u32_plain(useed, r, idx, idx) >= cfg.drop_cutoff
+    bits = (bc & real_nodes(n_real, N)).to(torch.uint8)
+    if not cfg.no_partition:
+        active = rng.random_u32_plain(seed, rng.STREAM_PARTITION, r, 0, 0) \
+            < cfg.partition_cutoff                              # [B, 1]
+        side = rng.threefry2x32_plain(useed ^ rng.STREAM_PARTITION, r, 1,
+                                      idx) & 1
+        bits |= ((side == 1) & active).to(torch.uint8) << 1
+    return bits
+
+
+def hb_side(bits):
+    """(honest & bcast as bool, side as int64) of a node byte tensor
+    (:func:`node_bits`)."""
+    return (bits & 1).bool(), ((bits >> 1) & 1).to(torch.int64)
+
+
+def kth_largest_plain(w1, ks, vmax: int) -> torch.Tensor:
+    """The JAX package's ``_kth_largest``, batched: for each row of ``w1``
+    ([..., C, N] int32, entry + 1 for members, 0 for pads), the largest v
+    with |{j : w1[..., c, j] >= v + 1}| >= ks[..., c], by the same
+    fixed-depth binary search on [0, vmax + 2). [..., C] int32 in [-1,
+    vmax]: -1 when fewer than k entries, vmax when k <= 0."""
+    lo = torch.zeros(w1.shape[:-1], dtype=torch.int32, device=w1.device)
+    hi = torch.full_like(lo, vmax + 2)
+    for _ in range(int(vmax + 1).bit_length()):
+        mid = (lo + hi) // 2
+        ok = (w1 >= mid[..., None]).sum(-1, dtype=torch.int32) >= ks
+        lo = torch.where(ok, mid, lo)
+        hi = torch.where(ok, hi, mid)
+    return lo - 1
+
+
+def _gather_nodes(x, idx):
+    """x[b, idx[b, n], ...] for [B, N, ...] ``x`` and [B, M] ``idx``."""
+    return x[torch.arange(x.shape[0], device=x.device)[:, None], idx]
+
+
+# --- KT: node bits, P0 churn, P1 catch-up, P2 timeout, P3 pre-prepare --------
+
+def bcast_view_preprepare_plain(cfg: Config, seed, r: int, n_real, f, view,
+                                timer, pp_seen, pp_view, pp_val, prepared,
+                                committed):
+    """Plain version of KT, SPEC §6b P0-P3 at every node of each lane.
+
+    P0: the round's churn event moves every view up by one. P1: the
+    senders are the nodes of bit 0 (:func:`node_bits`); per side, a1 and
+    a2 are the (f+1)-th and f-th largest sender view (a2 the int32 maximum
+    at f = 0); a sender takes a1, another node clip(view, a1, a2), where
+    that is above its view. P2: a node whose timer reached
+    ``view_timeout`` moves to the next view. A moved node's timer is 0 and
+    its ``reset`` set. P3: the primary of view v is node v mod n_real; it
+    offers each slot it has seen and not committed and its first unseen
+    slot (a fresh value drawn from its view); receiver j takes the offer
+    when the primary is j or a sender of j's side, in j's view, into each
+    slot it has not seen in this view, unless it prepared another value
+    there. Returns new (view, timer, reset, pp_seen, pp_view, pp_val) and
+    the node bits."""
+    B, N, S = pp_seen.shape
+    dev = view.device
+    idx = torch.arange(N, dtype=torch.int64, device=dev)
+    real = real_nodes(n_real, N)
+    bits = node_bits(cfg, seed, r, n_real)
+    hb, side = hb_side(bits)
+
+    # ---- P0 churn.
+    ch = churn(seed, r, cfg.churn_cutoff, rng.random_u32_plain)[:, None]
+    view = view + ch.to(torch.int32)
+    timer = torch.where(ch, 0, timer)
+    reset = ch.expand(B, N)
+
+    # ---- P1 catch-up: per-side order statistics of the senders' views.
+    vplus = view + 1
+    cols = torch.stack([torch.where(hb & (side == s), vplus, 0)
+                        for s in (0, 1)], 1)                  # [B, 2, N]
+    ks = torch.stack([f + 1, f + 1, f, f], 1)                 # [B, 4]
+    stat = kth_largest_plain(torch.cat([cols, cols], 1), ks,
+                             view_bound(cfg))                 # [B, 4]
+    a1 = stat[:, 0:2].gather(1, side)
+    a2 = torch.where((f >= 1)[:, None], stat[:, 2:4], I32_MAX).gather(1, side)
+    vth = torch.where(hb, a1, torch.clamp(view, a1, a2))
+    catch = vth > view
+    view = torch.where(catch, vth, view)
+    timer = torch.where(catch, 0, timer)
+    reset = reset | catch
+
+    # ---- P2 timeout.
+    to = timer >= cfg.view_timeout
+    view = view + to.to(torch.int32)
+    timer = torch.where(to, 0, timer)
+    reset = reset | to
+
+    # ---- P3 pre-prepare.
+    sarange = torch.arange(S, dtype=torch.int32, device=dev)
+    prim = view.remainder(n_real[:, None]).to(torch.int64)     # [B, N]
+    is_primary = real & (prim == idx)
+    fresh = torch.where(~pp_seen, sarange, S).amin(2)
+    fresh_hot = sarange == fresh[:, :, None]
+    ppb = is_primary[:, :, None] & ((pp_seen & ~committed) | fresh_hot)
+    msg_val = torch.where(pp_seen, pp_val, fresh_values(seed, view, S))
+    prim_del = (prim == idx) | (hb.gather(1, prim)
+                                & (side.gather(1, prim) == side))
+    prim_ok = prim_del & (view.gather(1, prim) == view) & real
+    prim_s = prim[:, :, None].expand(B, N, S)
+    pm_b, pm_val = ppb.gather(1, prim_s), msg_val.gather(1, prim_s)
+    accept = (prim_ok[:, :, None] & pm_b
+              & (~pp_seen | (pp_view < view[:, :, None]))
+              & (~prepared | (pm_val == pp_val)))
+    return (view, timer, reset, pp_seen | accept,
+            torch.where(accept, view[:, :, None], pp_view),
+            torch.where(accept, pm_val, pp_val), bits)
+
+
+def bcast_view_preprepare(cfg: Config, seed, r: int, n_real, f, view, timer,
+                          pp_seen, pp_view, pp_val, prepared, committed):
+    """Kernel KT: same arguments and result as
+    :func:`bcast_view_preprepare_plain`, which it runs for CPU tensors; for
+    CUDA tensors it launches ``csrc/bcast_view_preprepare.cu`` (a thread
+    per node draws its bits and adds its view to its lane's per-side
+    histogram; a thread per receiver reads its side's two statistics off
+    the histogram's suffix sums for P1 and runs P2; a thread per (receiver,
+    slot) runs P3, reading the rows as they stood before P3)."""
+    if view.device.type == "cpu":
+        return bcast_view_preprepare_plain(cfg, seed, r, n_real, f, view,
+                                           timer, pp_seen, pp_view, pp_val,
+                                           prepared, committed)
+    from .. import _build
+    B, N, S = pp_seen.shape
+    dev = view.device
+    check_all(dev, (seed, torch.uint32, (B,)), (n_real, torch.int32, (B,)),
+              (f, torch.int32, (B,)),
+              *((t, torch.int32, (B, N)) for t in (view, timer)),
+              *((t, torch.bool, (B, N, S)) for t in (pp_seen, prepared,
+                                                      committed)),
+              *((t, torch.int32, (B, N, S)) for t in (pp_view, pp_val)))
+    vmax = view_bound(cfg)
+    view_out, timer_out = torch.empty_like(view), torch.empty_like(timer)
+    reset = torch.empty((B, N), dtype=torch.bool, device=dev)
+    seen_out, pview_out = torch.empty_like(pp_seen), torch.empty_like(pp_view)
+    pval_out = torch.empty_like(pp_val)
+    bits = torch.empty((B, N), dtype=torch.uint8, device=dev)
+    hist = torch.empty((B, 2, vmax + 2), dtype=torch.int32, device=dev)
+    fresh = torch.empty((B, N), dtype=torch.int32, device=dev)
+    _build.launch("bcast_view_preprepare", seed.data_ptr(),
+                  int(r) & 0xFFFFFFFF, cfg.churn_cutoff, cfg.drop_cutoff,
+                  cfg.partition_cutoff, cfg.view_timeout, vmax,
+                  *(t.data_ptr() for t in (
+                      n_real, f, view, timer, pp_seen, pp_view, pp_val,
+                      prepared, committed, view_out, timer_out, reset,
+                      seen_out, pview_out, pval_out, bits, hist, fresh)),
+                  B, N, S)
+    bcast_view_preprepare.launches += 1
+    return view_out, timer_out, reset, seen_out, pview_out, pval_out, bits
+
+
+bcast_view_preprepare.launches = 0
+
+
+# --- KU: P4 prepare tally, P5 commit tally -----------------------------------
+
+def aggregate_tallies_plain(pp_val, pp_seen, prepared, committed, honest,
+                            bcast, Q, m: int, side):
+    """The JAX package's ``_aggregate_tallies`` on its flat path, batched
+    over lanes: ``pp_val`` [B, N, S] int32; ``pp_seen``, ``prepared``,
+    ``committed`` [B, N, S] bool; ``honest``, ``bcast`` [B, N] bool; ``Q``
+    [B] the quorum; ``m`` the table width; ``side`` [B, N] int64 the side
+    whose aggregate each node counts towards and reads (all 0 where the
+    partition is off: one aggregate, the JAX package's ``side=None``).
+
+    One sort of each (lane, slot) column of values; per (slot, side) the
+    top-``m`` equal-value runs by count of honest broadcasting senders
+    (those with ``relevant``: ``pp_seen`` for P4, the post-P4 prepared
+    flags for P5); each node's count is its value's table entry (0 when
+    absent), plus one for itself when it is honest, relevant and did not
+    broadcast. Returns (prep_hit, prepared2, commit_now, c5)."""
+    B, N, S = pp_val.shape
+    sv, perm = torch.sort(pp_val.transpose(1, 2), dim=2, stable=True)
+    brk = sv[:, :, 1:] != sv[:, :, :-1]
+    one = torch.ones((B, S, 1), dtype=torch.bool, device=sv.device)
+    newrun = torch.cat([one, brk], 2)
+    endrun = torch.cat([brk, one], 2)
+
+    def to_sorted(x):
+        """[B, N, S] or [B, N] per node → [B, S, N] in sorted order."""
+        if x.dim() == 2:
+            x = x[:, :, None].expand(B, N, S)
+        return x.transpose(1, 2).gather(2, perm)
+
+    def run_counts(valid):
+        flags = valid.to(torch.int32)
+        s = flags.cumsum(2, dtype=torch.int32)
+        ex_start = torch.where(newrun, s - flags, -1).cummax(2).values
+        return s - ex_start
+
+    def top_runs(end_counts):
+        active = endrun
+        tvs, tcs = [], []
+        for _ in range(m):
+            cur = torch.where(active, end_counts, -1)
+            tc = cur.amax(2, keepdim=True)                        # [B, S, 1]
+            hit = (cur == tc) & (tc >= 0)
+            tv = torch.where(hit, sv, I32_MIN).amax(2, keepdim=True)
+            active = active & ~((sv == tv) & (tc >= 0))
+            tvs.append(tv)
+            tcs.append(tc)
+        return torch.cat(tvs, 2), torch.cat(tcs, 2)              # [B, S, m]
+
+    def table_count(vals, tv, tc):
+        match = (vals[..., None] == tv) & (tc >= 0)
+        return torch.where(match, tc, 0).sum(-1, dtype=torch.int32)
+
+    hb_s = to_sorted(honest & bcast)
+    side_s = to_sorted(side)
+
+    def tables_for(relevant_s):
+        return [top_runs(run_counts(hb_s & relevant_s & (side_s == b)))
+                for b in (0, 1)]
+
+    def counts_sorted(tables):
+        got = [table_count(sv, tv[:, :, None, :], tc[:, :, None, :])
+               for tv, tc in tables]
+        return torch.where(side_s == 1, got[1], got[0])
+
+    def counts_nodes(tables):
+        tv = torch.stack([t[0] for t in tables], 1)               # [B, 2, S, m]
+        tc = torch.stack([t[1] for t in tables], 1)
+        return table_count(pp_val, _gather_nodes(tv, side),
+                           _gather_nodes(tc, side))
+
+    q = Q[:, None, None]
+    selfish = (honest & ~bcast)[:, :, None]
+    t4 = tables_for(to_sorted(pp_seen))
+    c4 = counts_nodes(t4) + (selfish & pp_seen).to(torch.int32)
+    prep_hit = pp_seen & (c4 >= q)
+    prepared2 = prepared | prep_hit
+    seen_s, selfish_s = to_sorted(pp_seen), to_sorted(honest & ~bcast)
+    c4_s = counts_sorted(t4) + (selfish_s & seen_s).to(torch.int32)
+    prepared2_s = to_sorted(prepared) | (seen_s & (c4_s >= q))
+    t5 = tables_for(prepared2_s)
+    c5 = counts_nodes(t5) + (selfish & prepared2).to(torch.int32)
+    commit_now = prepared2 & (c5 >= q) & ~committed
+    return prep_hit, prepared2, commit_now, c5
+
+
+def bcast_tally_plain(m: int, n_real, f, bits, pp_seen, pp_val, prepared,
+                      committed, dval):
+    """Plain version of KU, SPEC §6b P4-P5 at every (node, slot) of each
+    lane: :func:`aggregate_tallies_plain` with the quorum 2f + 1, the
+    senders and sides of the node bits and table width ``m``. Slot s of
+    node j is prepared once 2f + 1 of the senders of j's side that have
+    seen s with j's value, and j itself where it sent nothing, agree; it
+    is committed, with that value decided, once 2f + 1 such senders have
+    prepared it. Returns new (prepared, committed, dval)."""
+    hb, side = hb_side(bits)
+    honest = real_nodes(n_real, bits.shape[1])
+    _, prepared2, commit_now, _ = aggregate_tallies_plain(
+        pp_val, pp_seen, prepared, committed, honest, hb, 2 * f + 1, m,
+        side)
+    return (prepared2, committed | commit_now,
+            torch.where(commit_now, pp_val, dval))
+
+
+def tally_scratch_ints(B: int, N: int, S: int) -> int:
+    """int32 words of KU's scratch (csrc/bcast_tally.cu): per-block
+    summaries, two phases' candidate tables and exact counts, and the
+    per-(lane, slot group) block counters."""
+    nblk = -(-N // CHUNK)
+    groups = -(-S // 256)
+    table = B * S * 2 * MAX_M
+    return 2 * nblk * table + 2 * 3 * table + 2 * B * groups
+
+
+def bcast_tally(m: int, n_real, f, bits, pp_seen, pp_val, prepared,
+                committed, dval):
+    """Kernel KU: same arguments and result as :func:`bcast_tally_plain`,
+    which it runs for CPU tensors; for CUDA tensors it launches
+    ``csrc/bcast_tally.cu`` (per phase: a Misra-Gries summary of ``m``
+    counters a (slot, side) from each block of senders, merged by the
+    lane's last block into at most m candidates, an exact recount of the
+    candidates, and a lookup of each node's value)."""
+    if bits.device.type == "cpu":
+        return bcast_tally_plain(m, n_real, f, bits, pp_seen, pp_val,
+                                 prepared, committed, dval)
+    from .. import _build
+    B, N, S = pp_seen.shape
+    dev = bits.device
+    if not 1 <= m <= MAX_M:
+        raise ValueError(f"table width m={m} is outside [1, {MAX_M}]")
+    check_all(dev, (n_real, torch.int32, (B,)), (f, torch.int32, (B,)),
+              (bits, torch.uint8, (B, N)),
+              *((t, torch.bool, (B, N, S)) for t in (pp_seen, prepared,
+                                                      committed)),
+              *((t, torch.int32, (B, N, S)) for t in (pp_val, dval)))
+    prep_out, com_out = torch.empty_like(prepared), torch.empty_like(committed)
+    dval_out = torch.empty_like(dval)
+    words = tally_scratch_ints(B, N, S)
+    scratch = torch.empty(words, dtype=torch.int32, device=dev)
+    _build.launch("bcast_tally", *(t.data_ptr() for t in (
+        n_real, f, bits, pp_seen, pp_val, prepared, committed, dval,
+        prep_out, com_out, dval_out, scratch)), words, m, B, N, S)
+    bcast_tally.launches += 1
+    return prep_out, com_out, dval_out
+
+
+bcast_tally.launches = 0
+
+
+# --- KV: P6 decide gossip, P7 timers -----------------------------------------
+
+def bcast_decide_plain(bits, committed, dval, committed_start, timer, reset):
+    """Plain version of KV, SPEC §6b P6-P7 at every node of each lane. P6:
+    per (slot, side), the least-id sender that has committed the slot (as
+    P5 left it) is the decider; a node that has not committed the slot
+    adopts its side's decider's decided value. P7: a node that committed
+    a slot this round (``committed_start`` is the round's entry) sets its
+    timer to 0; another whose ``reset`` is set keeps it; the rest count it
+    up. Returns new (committed, dval, timer)."""
+    B, N, S = committed.shape
+    hb, side = hb_side(bits)
+    idx = torch.arange(N, dtype=torch.int32, device=bits.device)
+    dec = hb[:, :, None] & committed
+    rows = torch.stack([torch.where(dec & (side == b)[:, :, None],
+                                    idx[:, None], N).amin(1)
+                        for b in (0, 1)], 1)                  # [B, 2, S]
+    imin = _gather_nodes(rows, side)                          # [B, N, S]
+    adopt = (imin < N) & ~committed
+    val_rows = dval.gather(1, rows.clamp(max=N - 1).to(torch.int64))
+    dval = torch.where(adopt, _gather_nodes(val_rows, side), dval)
+    committed = committed | adopt
+    new_commit = (committed & ~committed_start).any(2)
+    timer = torch.where(reset | new_commit, torch.where(new_commit, 0, timer),
+                        timer + 1)
+    return committed, dval, timer
+
+
+def bcast_decide(bits, committed, dval, committed_start, timer, reset):
+    """Kernel KV: same arguments and result as :func:`bcast_decide_plain`,
+    which it runs for CPU tensors; for CUDA tensors it launches
+    ``csrc/bcast_decide.cu`` (the deciders' least ids per (slot, side) by a
+    block minimum and one atomicMin a block, then a thread per node adopts
+    and runs P7, writing fresh tensors)."""
+    if bits.device.type == "cpu":
+        return bcast_decide_plain(bits, committed, dval, committed_start,
+                                  timer, reset)
+    from .. import _build
+    B, N, S = committed.shape
+    dev = bits.device
+    check_all(dev, (bits, torch.uint8, (B, N)),
+              *((t, torch.bool, (B, N, S)) for t in (committed,
+                                                      committed_start)),
+              (dval, torch.int32, (B, N, S)), (timer, torch.int32, (B, N)),
+              (reset, torch.bool, (B, N)))
+    com_out, dval_out = torch.empty_like(committed), torch.empty_like(dval)
+    timer_out = torch.empty_like(timer)
+    imin = torch.empty((B, 2, S), dtype=torch.int32, device=dev)
+    _build.launch("bcast_decide", *(t.data_ptr() for t in (
+        bits, committed, dval, committed_start, timer, reset, com_out,
+        dval_out, timer_out, imin)), B, N, S)
+    bcast_decide.launches += 1
+    return com_out, dval_out, timer_out
+
+
+bcast_decide.launches = 0
+
+
+# --- the round ---------------------------------------------------------------
+
+def pbft_bcast_round(cfg: Config, st: PbftState, r: int, n_real, f,
+                     m: int) -> PbftState:
+    """One SPEC §6b round with per-lane ``n_real`` and ``f`` ([B] int32)
+    and table width ``m`` (:func:`table_cap`), phase by phase as
+    ``consensus_tpu/engines/pbft_sweep.py`` ``pbft_bcast_round_padded``,
+    and so, with ``n_real = cfg.n_nodes`` and ``f = cfg.f`` on every
+    lane, as ``consensus_tpu/engines/pbft_bcast.py`` ``pbft_bcast_round``
+    on its flat path: three kernel launches and nothing else."""
+    # ---- Node bits, P0 churn, P1 catch-up, P2 timeout, P3 (KT).
+    view, timer, reset, pp_seen, pp_view, pp_val, bits = \
+        bcast_view_preprepare(cfg, st.seed, r, n_real, f, st.view, st.timer,
+                              st.pp_seen, st.pp_view, st.pp_val,
+                              st.prepared, st.committed)
+
+    # ---- P4 prepare tally, P5 commit tally (KU).
+    prepared, committed, dval = bcast_tally(m, n_real, f, bits, pp_seen,
+                                            pp_val, st.prepared,
+                                            st.committed, st.dval)
+
+    # ---- P6 decide gossip, P7 timers (KV).
+    committed, dval, timer = bcast_decide(bits, committed, dval,
+                                          st.committed, timer, reset)
+
+    return PbftState(st.seed, view, timer, pp_seen, pp_view, pp_val, prepared,
+                     committed, dval, st.down)

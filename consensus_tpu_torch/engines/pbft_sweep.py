@@ -1,15 +1,18 @@
 """The PBFT f-ladder: a whole ladder of tolerances f as one run.
 
-The port of the dense half of ``consensus_tpu/engines/pbft_sweep.py``
-(``_fsweep_static``, the lane layout of ``_fsweep_device``,
-``_fsweep_slice``, ``rung_payloads``, ``fsweep_payload``,
-``pbft_fsweep_run`` and ``pbft_fsweep_timed``). Every lane is padded to
-N_pad = 3 max(fs) + 1 nodes and carries its own ``n_real = 3f + 1`` and
-``f``, which the round's kernels read per lane (``engines/pbft.py``): one
-run, and on the card one captured CUDA graph, serves the whole ladder.
-Every draw is keyed by absolute ids, never by N, so the real nodes of a
-padded lane see exactly what a standalone 3f+1 run sees, and padded nodes
-neither send nor receive.
+The port of ``consensus_tpu/engines/pbft_sweep.py`` (``_fsweep_static``,
+the lane layout of ``_fsweep_device``, ``_fsweep_slice``,
+``rung_payloads``, ``fsweep_payload``, ``pbft_fsweep_run`` and
+``pbft_fsweep_timed``) for both fault models: ``fault_model="edge"`` runs
+the dense SPEC §6 round (``engines/pbft.py``) and ``fault_model="bcast"``
+the §6b broadcast round (``engines/pbft_bcast.py``, its tallies as wide as
+the widest rung needs: ``m_cap``). Every lane is padded to N_pad =
+3 max(fs) + 1 nodes and carries its own ``n_real = 3f + 1`` and ``f``,
+which the round's kernels read per lane: one run, and on the card one
+captured CUDA graph, serves the whole ladder. Every draw is keyed by
+absolute ids, never by N, so the real nodes of a padded lane see exactly
+what a standalone 3f+1 run sees, and padded nodes neither send nor
+receive.
 
 Lane (rung k, sweep j) seeds at lo32(seed + k + j): the seed vector of a
 standalone ``f = fs[k], seed = seed + k`` run with ``cfg.n_sweeps`` sweeps,
@@ -31,9 +34,11 @@ from ..core.config import Config
 def _fsweep_static(cfg: Config, fs):
     """Validate a ladder request and derive its padded config: one lane
     per (rung, sweep), ``n_nodes`` the padded size, ``f`` the largest
-    rung. Returns ``(fs, cfg_pad)``. The crash, byzantine and switch gates
-    that the JAX package checks here cannot be set on the port's Config,
-    nor can the §6b ``bcast`` fault model."""
+    rung. Returns ``(fs, cfg_pad)``; the JAX package's third value, the
+    §6b tallies' ``m_cap``, is
+    :func:`~consensus_tpu_torch.engines.pbft_bcast.table_cap` of the two,
+    which the runner takes. The crash, byzantine and switch gates that the
+    JAX package checks here cannot be set on the port's Config."""
     fs = [int(f) for f in fs]
     if not fs or min(fs) < 1:
         raise ValueError(f"f-sweep rungs must be >= 1, got {fs!r}")

@@ -1,9 +1,10 @@
 """The batched round loop: the port of ``consensus_tpu/network/runner.py``'s
 plain path (``EngineDef``, ``make_seeds``, ``_init_jit``, the scan of
 ``_chunk_jit`` with ``_chunk_body``'s telemetry accumulators, ``run``), for
-the dense and the capped Raft engine and the dense PBFT engine alike, and
-of ``consensus_tpu/engines/pbft_sweep.py``'s ``_fsweep_jit``: a PBFT
-f-ladder is one run whose lanes carry their own population and tolerance.
+the dense and the capped Raft engine and the dense and the §6b broadcast
+PBFT engine alike, and of ``consensus_tpu/engines/pbft_sweep.py``'s
+``_fsweep_jit``: a PBFT f-ladder is one run whose lanes carry their own
+population and tolerance.
 
 Sweeps (lanes) are the leading batch axis of every state tensor. A run's
 per-lane inputs are its seeds and, for PBFT, each lane's ``n_real`` and
@@ -28,7 +29,7 @@ import torch
 from .. import _build
 from ..core import rng
 from ..core.config import Config
-from ..engines import pbft, pbft_sweep, raft, raft_sparse
+from ..engines import pbft, pbft_bcast, pbft_sweep, raft, raft_sparse
 from ..engines.raft import RAFT_LATENCY, RAFT_TELEMETRY
 from ..ops import adversary
 from ..ops.flight import BUCKET_LO, N_BUCKETS
@@ -40,7 +41,9 @@ _WRAPPER_MODULES = {"random_u32": rng, "delivery_edges": adversary,
                     "delivery": adversary, "dense_elect": raft,
                     "dense_append": raft, "dense_acks_commit": raft,
                     "dense_telemetry": raft, "pbft_view_preprepare": pbft,
-                    "pbft_tally": pbft, "pbft_decide": pbft}
+                    "pbft_tally": pbft, "pbft_decide": pbft,
+                    "bcast_view_preprepare": pbft_bcast,
+                    "bcast_tally": pbft_bcast, "bcast_decide": pbft_bcast}
 KERNELS = tuple((_WRAPPER_MODULES.get(name, raft_sparse), name)
                 for name in _build.SOURCES)
 
@@ -48,14 +51,17 @@ KERNELS = tuple((_WRAPPER_MODULES.get(name, raft_sparse), name)
 class Engine(NamedTuple):
     """An engine as the runner sees it, after the JAX package's
     ``EngineDef``: ``init(cfg, seeds)`` gives the batched state,
-    ``round(cfg, st, r, **lanes, **accumulators)`` the next one (the lane
-    inputs but the seeds, and the accumulators only where ``telemetry``),
-    and ``extract(st)`` the leaves the digest reads."""
+    ``round(cfg, st, r, **lanes, **accumulators, **statics)`` the next one
+    (the lane inputs but the seeds, the accumulators only where
+    ``telemetry``, and ``statics(cfg, rungs)``: the run's fixed arguments
+    of the round, where the engine has any), and ``extract(st)`` the
+    leaves the digest reads."""
     name: str
     init: Callable
     round: Callable
     extract: Callable
     telemetry: bool
+    statics: Callable | None = None
 
 
 DENSE = Engine(raft.NAME, raft.raft_init, raft.raft_round, raft.extract,
@@ -65,14 +71,22 @@ CAPPED = Engine(raft_sparse.NAME, raft_sparse.raft_sparse_init,
                 telemetry=True)
 PBFT = Engine(pbft.NAME, pbft.pbft_init, pbft.pbft_round, pbft.extract,
               telemetry=False)
+# The §6b round takes its tallies' table width m (the widest rung's on a
+# ladder).
+PBFT_BCAST = Engine(pbft_bcast.NAME, pbft.pbft_init,
+                    pbft_bcast.pbft_bcast_round, pbft.extract,
+                    telemetry=False,
+                    statics=lambda cfg, rungs: {
+                        "m": pbft_bcast.table_cap(cfg, rungs)})
 
 
 def engine(cfg: Config) -> Engine:
     """The engine ``cfg`` selects (``consensus_tpu/network/simulator.py``
-    engine_def): by protocol, then, for raft, dense at ``max_active = 0``,
-    else the §3b capped one."""
+    engine_def): by protocol, then, for pbft, by fault model (the §6b
+    broadcast engine at ``fault_model="bcast"``), for raft dense at
+    ``max_active = 0``, else the §3b capped one."""
     if cfg.protocol == "pbft":
-        return PBFT
+        return PBFT_BCAST if cfg.fault_model == "bcast" else PBFT
     return DENSE if cfg.max_active == 0 else CAPPED
 
 
@@ -145,15 +159,18 @@ def device_lanes(cfg: Config, rungs, device) -> dict[str, torch.Tensor]:
 
 
 def advance(cfg: Config, st, r0: int, n_rounds: int, *, telem=None,
-            flight=None, lanes=None):
+            flight=None, lanes=None, rungs=None):
     """Rounds r0 .. r0 + n_rounds - 1 of every sweep of ``cfg``'s engine,
     adding into the accumulators ``telem`` and ``flight`` where given (see
     :func:`raft_sparse.raft_sparse_round`). ``lanes`` holds the round's
     per-lane tensors but the seeds: PBFT's ``n_real`` and ``f``
-    (:func:`device_lanes`)."""
+    (:func:`device_lanes`); ``rungs`` is a ladder's rung list, which the
+    §6b engine's table width reads."""
     eng = engine(cfg)
     acc = {} if telem is None else dict(telem=telem, flight=flight)
     acc.update(lanes or {})
+    if eng.statics is not None:
+        acc.update(eng.statics(cfg, rungs))
     for r in range(r0, r0 + n_rounds):
         st = eng.round(cfg, st, r, **acc)
     return st
@@ -174,7 +191,7 @@ def accumulators(cfg: Config, device) -> tuple:
 
 
 def _rounds(cfg: Config, lanes: dict[str, torch.Tensor], n_rounds: int,
-            telemetry: bool) -> RunOutput:
+            telemetry: bool, rungs=None) -> RunOutput:
     """Init from the [B] u32 ``lanes["seed"]`` tensor, zeroed
     accumulators, then rounds 0 .. n_rounds - 1 with the other lane
     tensors: everything on the device, nothing from the host, so that it
@@ -184,7 +201,8 @@ def _rounds(cfg: Config, lanes: dict[str, torch.Tensor], n_rounds: int,
                      else (None, None))
     st = advance(cfg, engine(cfg).init(cfg, seeds), 0, n_rounds,
                  telem=telem, flight=flight,
-                 lanes={k: v for k, v in lanes.items() if k != "seed"})
+                 lanes={k: v for k, v in lanes.items() if k != "seed"},
+                 rungs=rungs)
     return RunOutput(st, telem, *(flight or (None, None)))
 
 
@@ -230,12 +248,12 @@ def _capture(cfg: Config, dev: torch.device, telemetry: bool,
     raises."""
     global captures
     lanes = device_lanes(cfg, rungs, dev)
-    _rounds(cfg, lanes, 1, telemetry)
+    _rounds(cfg, lanes, 1, telemetry, rungs)
     torch.cuda.synchronize(dev)
     before = launch_counts()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        out = _rounds(cfg, lanes, cfg.n_rounds, telemetry)
+        out = _rounds(cfg, lanes, cfg.n_rounds, telemetry, rungs)
     recorded = {k: v - before[k] for k, v in launch_counts().items()}
     _add_launches({k: -v for k, v in recorded.items()})
     captures += 1
@@ -249,7 +267,7 @@ def run_device(cfg: Config, device=None, *, telemetry: bool = False,
 
     ``telemetry`` accumulates the counters (and, with
     ``cfg.telemetry_window > 0``, the flight recorder); both Raft engines
-    have them, the PBFT engine raises. ``rungs`` runs a PBFT f-ladder
+    have them, both PBFT engines raise. ``rungs`` runs a PBFT f-ladder
     (:func:`lane_inputs`). ``graph`` (default: on ``cuda``, and only
     there) replays the run as one CUDA graph, captured at the first call
     for this (cfg but its seed, device, telemetry, rungs) and kept until a
@@ -261,7 +279,8 @@ def run_device(cfg: Config, device=None, *, telemetry: bool = False,
     if telemetry and not engine(cfg).telemetry:
         raise ValueError(f"telemetry on the {engine(cfg).name} engine is "
                          "not ported yet: consensus_tpu/engines/pbft.py "
-                         "pbft_round's counter and flight tail")
+                         "pbft_round's and pbft_bcast.py pbft_bcast_round's "
+                         "counter and flight tail")
     if cfg.telemetry_window > 0 and not telemetry:
         raise ValueError(
             "telemetry_window > 0 without telemetry=True: the window ring "
@@ -270,7 +289,7 @@ def run_device(cfg: Config, device=None, *, telemetry: bool = False,
         graph = dev.type == "cuda"
     if not graph:
         out = _rounds(cfg, device_lanes(cfg, rungs, dev), cfg.n_rounds,
-                      telemetry)
+                      telemetry, rungs)
     elif dev.type != "cuda":
         raise ValueError("graph=True replays a CUDA graph: it needs a cuda "
                          "device")

@@ -1,8 +1,11 @@
 """The simulator's front door: the port of ``consensus_tpu/network/simulator.py``
-for raft, dense (``max_active = 0``) or under the §3b cap, and dense pbft.
+for raft, dense (``max_active = 0``) or under the §3b cap, and pbft, dense
+(SPEC §6) or under the §6b broadcast fault model.
 
     result = run(Config(protocol="raft", max_active=8, ...))
     run(Config(protocol="pbft", f=8, n_nodes=25, ...))
+    run(Config(protocol="pbft", fault_model="bcast", f=33_333,
+               n_nodes=100_000, ...))
     result.digest          # SHA-256 of the canonical decided-log bytes
     result.steps_per_sec   # node-round-steps per second of the timed run
     run(cfg, telemetry=True).extras["telemetry"]["totals"]
@@ -40,9 +43,10 @@ class RunResult:
 
 
 def engine_def(cfg: Config) -> runner.Engine:
-    """The engine a config resolves to: pbft's (the dense SPEC §6 engine;
-    Config rejects the §6b one), dense raft at ``max_active = 0``, else
-    the §3b capped one (Config rejects other protocols)."""
+    """The engine a config resolves to: for pbft the §6b broadcast engine
+    at ``fault_model="bcast"``, else the dense SPEC §6 one; dense raft at
+    ``max_active = 0``, else the §3b capped one (Config rejects other
+    protocols)."""
     return runner.engine(cfg)
 
 

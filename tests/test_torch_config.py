@@ -90,13 +90,24 @@ def test_pbft_selects_its_engine_whatever_max_active():
 @pytest.mark.parametrize("kw", [
     dict(n_nodes=8),                        # not 3f + 1
     dict(f=3),
-    dict(fault_model="bcast"),              # §6b: not ported yet
+    dict(fault_model="bcast", n_nodes=8),   # §6b: n_nodes 3f + 1 too
     dict(fault_model="wire"),
     dict(max_active=8),                     # more than n_nodes
 ])
 def test_pbft_settings_that_raise(kw):
     with pytest.raises(ValueError):
         Config(**{**PBFT_OK, **kw})
+
+
+def test_bcast_selects_its_engine():
+    """fault_model="bcast" is accepted for pbft and selects the §6b engine,
+    named as the JAX package names it."""
+    from consensus_tpu import Config as JConfig
+    from consensus_tpu.network import simulator as jsim
+    kw = {**PBFT_OK, "fault_model": "bcast"}
+    eng = simulator.engine_def(Config(**kw))
+    assert eng is runner.PBFT_BCAST
+    assert eng.name == jsim.engine_def(JConfig(**kw)).name == "pbft-bcast"
 
 
 def test_pbft_rejections_match_jax():

@@ -36,6 +36,7 @@ from consensus_tpu_torch import Config  # noqa: E402
 from consensus_tpu_torch import convert  # noqa: E402
 from consensus_tpu_torch.core import serialize  # noqa: E402
 from consensus_tpu_torch.engines import pbft as tpbft  # noqa: E402
+from consensus_tpu_torch.engines import pbft_bcast as tpbft_bcast  # noqa: E402
 from consensus_tpu_torch.engines import pbft_sweep as tsweep  # noqa: E402
 from consensus_tpu_torch.network import runner, simulator  # noqa: E402
 
@@ -404,9 +405,18 @@ def test_fsweep_static_rejections_match_jax(fs):
     assert str(got.value) == str(want.value)
 
 
-def test_bcast_ladder_is_refused():
-    with pytest.raises(ValueError, match="bcast"):
-        Config(**pbft_kw(1, fault_model="bcast"))
+def test_bcast_ladder_static_gives_jax_m_cap():
+    """A §6b ladder is accepted, and the tallies' table width of its
+    padded config and rungs is JAX's m_cap: the widest rung's (2 with
+    f = 1 among the rungs, else 1)."""
+    for fs in ([1, 2, 4], [2, 4], [8333, 16666, 33333]):
+        kw = pbft_kw(1, fault_model="bcast")
+        got = tsweep._fsweep_static(Config(**kw), fs)
+        want = jsweep._fsweep_static(JConfig(**kw), fs)
+        assert tpbft_bcast.table_cap(got[1], got[0]) == want[2] == \
+            (2 if 1 in fs else 1)
+        assert (got[1].n_nodes, got[1].f, got[1].fault_model) == \
+            (want[1].n_nodes, want[1].f, "bcast")
 
 
 def test_ladder_timed_counts_real_steps():
