@@ -29,7 +29,18 @@ Phases, each printing one JSON line:
                bcast ladder and run and of the config-3 bcast ladder, on
                random states (views past P1's range, f = 1 lanes: m = 2),
                on tallies whose quorums sit at the threshold on either
-               side, and at N = 1.
+               side, and at N = 1. KW-KX (DPoS) on dpos-100k's init and
+               rounds 0, 31, 32 (an epoch change) and 200 (chains near
+               full), on the hostile DPoS run's seeds and rounds (uint16
+               chains, full from round 128), on zero tallies tied across
+               candidates, one candidate, C = 70 000, 72 000 (lane,
+               epoch) pairs, and random states with int32 chain_p and
+               full chains. KY-KZ (Paxos) on
+               paxos-10kx10k's rounds 0, 1 and 15, on the hostile Paxos
+               run's rounds, on random states whose accepted ballots tie
+               across acceptors on slots every proposer contends for, and
+               at S = 60 000 (more slots than a row block's shared memory
+               holds), and on 70 000 lanes at N = 7, S = 16.
                Tolerance: none, the results are integers and must be
                equal. Times are device time per call (torch.profiler
                kernel durations).
@@ -62,10 +73,11 @@ Phases, each printing one JSON line:
 8. profile   — the flagship's graph replay under torch.profiler: device busy
                share, launches a round, device time by kernel, graph memory;
                and an eager capped run, an eager dense run with telemetry
-               and an eager fs = 1..128 ladder and an eager
-               pbft-100k-bcast run, with each kernel wrapper in a named
-               range, which must show no PyTorch compute op in any phase
-               of the round.
+               and an eager fs = 1..128 ladder, an eager
+               pbft-100k-bcast run, an eager dpos-100k run and an eager
+               paxos-10kx10k run cut to 4 rounds, with each kernel wrapper
+               in a named range, which must show no PyTorch compute op in
+               any phase of the round.
 9. pbft      — ``simulator.run`` of BASELINE config 3's standalone rows
                pbft-f1 ... pbft-f128 and the fs = 1..128 ladder in one run
                (``engines/pbft_sweep.py`` pbft_fsweep_timed), each replayed
@@ -89,10 +101,34 @@ Phases, each printing one JSON line:
                operations a round and graph memory; another seed on the
                flagship's graph and a shifted ladder against the eager
                loop; each full-width rung against its standalone run.
+11. dpos     — ``simulator.run`` of dpos-100k (CONFIGS["dpos-100k"], BASELINE
+               config 5) and of a hostile DPoS run (V = 20 000, C = 300,
+               K = 21, 300 rounds, 128-slot chains, drop 0.2, partition
+               0.1, churn 0.05, 3 sweeps), each replayed as one CUDA graph:
+               the anchor ``bc791cf4…6fd1a5`` and the hostile run's
+               JAX-made one, ``extras["lib"]`` equal to the JAX package's
+               (a SHA-256 of its bytes), KW and KX launched in each run
+               (counted from 0) and no other kernel; steps per second,
+               busy share, device operations a round and graph memory;
+               another seed on the graph against the eager loop.
+12. paxos    — ``simulator.run`` of paxos-10kx10k (CONFIGS["paxos-10kx10k"],
+               BASELINE config 4) and of a hostile Paxos run (N = S =
+               1 000, 300 proposers, drop 0.1, partition 0.2, churn 0.05,
+               32 rounds, 2 sweeps), each replayed as one CUDA graph: the
+               anchor ``4d64c217…2b41fa`` and the hostile run's JAX-made
+               one, KL, KY and KZ launched in each run (counted from 0) and
+               no other kernel; steps per second, busy share, device
+               operations a round, the graph's peak and kept memory;
+               another seed on the graph against the eager loop.
 
 Then the card's name and power limit, one ``{"kernels": [...]}`` line, and
-last ``{"ok": true, "device": {...}}``. Any failure, or no GPU, exits
-non-zero without that last line.
+last ``{"ok": true, "device": {...}}``. The kernels line takes each
+kernel's launches from one path's own run, counted from 0: KA-KJ from
+raft-100k's, KK from raft-100k's with telemetry, KL-KO from raft-1kx1k's,
+KP from raft-1kx1k's with telemetry, KQ-KS from the dense ladder's, KT-KV
+from pbft-100k-bcast's, KW-KX from dpos-100k's and KY-KZ from
+paxos-10kx10k's; the other runs' counts are in their phases' lines. Any
+failure, or no GPU, exits non-zero without that last line.
 """
 from __future__ import annotations
 
@@ -289,7 +325,7 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-# --- phase 3: each kernel against its plain version ---------------------------
+# --- phase 3: each kernel against its plain version --------------------------
 
 def check_random_u32(dev, gen):
     from consensus_tpu_torch.core import rng
@@ -380,7 +416,7 @@ def check_top_active(dev, gen):
 
 
 
-# --- phase 3, continued: the round's phase kernels KD-KK ----------------------
+# --- phase 3, continued: the round's phase kernels KD-KK ---------------------
 
 PHASES = ("candidacy", "elect", "slots", "propose", "append_entries",
           "acks_commit", "telemetry")
@@ -1076,7 +1112,8 @@ def check_dense_kernels(dev, gen) -> list[dict]:
 PBFT = ("pbft_view_preprepare", "pbft_tally", "pbft_decide")
 # The kernels that no run of the capped engine launches.
 NOT_CAPPED = DENSE + ("dense_telemetry",) + PBFT + (
-    "bcast_view_preprepare", "bcast_tally", "bcast_decide")
+    "bcast_view_preprepare", "bcast_tally", "bcast_decide", "dpos_schedule",
+    "dpos_round", "paxos_promise", "paxos_accept_learn")
 PBFT_REPLACES = {
     "pbft_view_preprepare": "consensus_tpu/engines/pbft.py:209 pbft_round "
                             "P0-P3, consensus_tpu/engines/pbft.py:72 "
@@ -1452,7 +1489,7 @@ def check_pbft_kernels(dev, gen) -> list[dict]:
     return rows
 
 
-# --- phase 3, continued: the §6b broadcast PBFT round's kernels KT-KV ---------
+# --- phase 3, continued: the §6b broadcast PBFT round's kernels KT-KV --------
 
 BCAST = ("bcast_view_preprepare", "bcast_tally", "bcast_decide")
 BCAST_REPLACES = {
@@ -1765,6 +1802,329 @@ def check_bcast_kernels(dev, gen) -> list[dict]:
     return rows
 
 
+# --- phase 3, continued: the DPoS and Paxos rounds' kernels KW-KZ ------------
+
+DPOS = ("dpos_schedule", "dpos_round")
+PAXOS = ("paxos_promise", "paxos_accept_learn")
+# dpos-100k and paxos-10kx10k (benchmarks/run_benchmarks.py CONFIGS, BASELINE
+# configs 5 and 4), and their anchors: the benchmarks/RESULTS.json rows, on
+# which the JAX package and the C++ oracle agree.
+DPOS_FLAGSHIP = dict(protocol="dpos", n_nodes=100_000, n_rounds=256,
+                     n_sweeps=1, log_capacity=256, n_candidates=1024,
+                     n_producers=21, epoch_len=32, seed=5, drop_rate=0.01,
+                     churn_rate=0.001)
+DPOS_DIGEST = \
+    "bc791cf44cc16bfab72ab7f013847dcc0073519d35e4f685a2ad6885946fd1a5"
+PAXOS_FLAGSHIP = dict(protocol="paxos", n_nodes=10_000, n_rounds=16,
+                      n_sweeps=1, log_capacity=10_000, seed=4,
+                      drop_rate=0.01, churn_rate=0.001)
+PAXOS_DIGEST = \
+    "4d64c2179c317a36b5330e5da3fe95842afbdde0a7af25714aedc6f27a2b41fa"
+# The hostile runs and their anchors, made by the JAX package on the CPU:
+#
+#   JAX_PLATFORMS=cpu python3 - <<'EOF'
+#   from consensus_tpu import Config
+#   from consensus_tpu.network import simulator
+#   for kw in (DPOS_HOSTILE, PAXOS_HOSTILE):   # as below
+#       print(simulator.run(Config(**kw), warmup=False).digest)
+#   EOF
+#
+# tests/test_torch_dpos.py and tests/test_torch_paxos.py make them again.
+# The DPoS run crosses into uint16 on both chain fields (300 rounds, 300
+# candidates), fills every chain (128 slots) and partitions.
+DPOS_HOSTILE = dict(protocol="dpos", n_nodes=20_000, n_candidates=300,
+                    n_producers=21, epoch_len=16, n_rounds=300,
+                    log_capacity=128, drop_rate=0.2, partition_rate=0.1,
+                    churn_rate=0.05, n_sweeps=3, seed=5)
+DPOS_HOSTILE_DIGEST = \
+    "48f252feabb55aaa46ae894c881f8368a4cd4196e4be5409e31c977f29a9eb36"
+PAXOS_HOSTILE = dict(protocol="paxos", n_nodes=1000, log_capacity=1000,
+                     n_proposers=300, drop_rate=0.1, partition_rate=0.2,
+                     churn_rate=0.05, n_rounds=32, n_sweeps=2, seed=4)
+PAXOS_HOSTILE_DIGEST = \
+    "8da7243eedc331d9c79dcf3873a46e901c7e700e03b53c170c87d29e3e07293a"
+
+
+# LIB of dpos-100k's chains (simulator.run's extras["lib"], [1, 100 000]
+# int64): the SHA-256 of its little-endian bytes as the JAX package gives
+# it on the CPU (min 228, max 240, sum 23 744 989):
+#
+#   JAX_PLATFORMS=cpu python3 - <<'EOF'
+#   import hashlib, numpy as np
+#   from consensus_tpu import Config
+#   from consensus_tpu.network import simulator
+#   res = simulator.run(Config(**DPOS_FLAGSHIP), warmup=False)  # as above
+#   lib = np.asarray(res.extras["lib"], "<i8")
+#   print(hashlib.sha256(lib.tobytes()).hexdigest())
+#   EOF
+DPOS_LIB_SHA256 = \
+    "5b53a3780e65512aa99fa0b04ed51193756ed4248f4436824ad5a6a686a17c07"
+DPOS_REPLACES = {
+    "dpos_schedule": "consensus_tpu/engines/dpos.py:53 dpos_schedule",
+    "dpos_round": "consensus_tpu/engines/dpos.py:117 dpos_round, "
+                  "consensus_tpu/engines/dpos.py:73 _producer_delivery"}
+PAXOS_REPLACES = {
+    "paxos_promise": "consensus_tpu/engines/paxos.py:93 paxos_round "
+                     "phases 1-2 (lines 93-180)",
+    "paxos_accept_learn": "consensus_tpu/engines/paxos.py:93 paxos_round "
+                          "phases 3-6 (lines 182-250)"}
+# The rounds phase 3 records: dpos-100k's first, the last of its first
+# epoch, the first of the second, and one whose chains are near full (the
+# kernels are timed on it); paxos-10kx10k's first two and its last (timed).
+DPOS_ROUNDS = (0, 31, 32, 200)
+PAXOS_ROUNDS = (0, 1, 15)
+
+
+def protocol_config(base: dict, **kw):
+    """The config ``base`` (a dict of Config fields), changed by ``kw``."""
+    from consensus_tpu_torch.core.config import Config
+    return Config(**{**base, **kw})
+
+
+def capture_round_inputs(cfg, rounds, names, device="cuda") -> dict:
+    """{r: {wrapper: arguments}}: what each wrapper ``names`` of ``cfg``'s
+    engine round receives in each round r of ``rounds`` of its eager run on
+    ``device``, cloned as it arrives."""
+    from consensus_tpu_torch.network import runner
+    eng = runner.engine(cfg)
+    module = kernel_module(names[0])
+    st = eng.init(cfg, runner.device_lanes(cfg, None, device)["seed"])
+    out, r0 = {}, 0
+    for r in sorted(rounds):
+        st = runner.advance(cfg, st, r0, r - r0)
+        got = out[r] = {}
+        with standing_in(module, names, recording(got)):
+            st = eng.round(cfg, st, r)
+        require(set(got) == set(names), f"round {r} skipped a phase")
+        r0 = r + 1
+    return out
+
+
+def schedule_args(cfg, device="cuda"):
+    from consensus_tpu_torch.network import runner
+    return (cfg, runner.device_lanes(cfg, None, device)["seed"])
+
+
+def dpos_edge_inputs(dev, gen) -> dict:
+    """Inputs on which KW's and KX's rare paths fire: {name: [args]}. KW
+    on the hostile run's seeds, on V = C = 20 with K = C (candidates
+    without a vote, zero tallies tied), on one candidate, and on C =
+    70 000 (K = 5), and on 9 000 lanes of 8 epochs each (72 000 (lane,
+    epoch) pairs, past the 65 535 blocks of a grid's y or z); KX on rounds of the hostile run (partitions, churn,
+    uint16 chains, every chain full from round 128 on) and on random
+    states of int32 chain_p (C = 70 000), a third of the chains full."""
+    from consensus_tpu_torch.engines import dpos
+    hostile = protocol_config(DPOS_HOSTILE)
+    wide = protocol_config(DPOS_FLAGSHIP, n_nodes=70_000,
+                           n_candidates=70_000, n_producers=5, n_rounds=40,
+                           log_capacity=8, partition_rate=0.5, n_sweeps=2)
+    out = {"dpos_schedule": [schedule_args(c, dev) for c in (
+        hostile, wide,
+        protocol_config(DPOS_HOSTILE, n_nodes=20, n_candidates=20,
+                        n_producers=20),
+        protocol_config(DPOS_HOSTILE, n_nodes=1, n_candidates=1,
+                        n_producers=1),
+        protocol_config(DPOS_HOSTILE, n_nodes=6, n_candidates=4,
+                        n_producers=2, epoch_len=1, n_rounds=8,
+                        n_sweeps=9_000))]}
+    zero = dpos.dpos_schedule_plain(*out["dpos_schedule"][2])[1]
+    require(bool((zero == 0).sum(2).ge(2).any()),
+            "edge inputs: no zero tallies tied")
+    kx = [got["dpos_round"] for got in capture_round_inputs(
+        hostile, (5, 150, 299), ("dpos_round",), dev).values()]
+    require(bool((kx[-1][6] == hostile.log_capacity).all()),
+            "edge inputs: the hostile run's chains are not full")
+    B, V, L = wide.n_sweeps, wide.n_nodes, wide.log_capacity
+    producers, _ = dpos.dpos_schedule_plain(*schedule_args(wide, dev))
+    chain_len = torch.randint(0, L + 1, (B, V), generator=gen, device=dev,
+                              dtype=torch.int32)
+    chain_len[:, ::3] = L
+    for r in (0, 21, 39):
+        kx.append((wide, torch.arange(9, 9 + B, device=dev).to(torch.uint32),
+                   r, producers,
+                   torch.randint(0, 40, (B, V, L), generator=gen,
+                                 device=dev).to(torch.uint8),
+                   torch.randint(0, V, (B, V, L), generator=gen, device=dev,
+                                 dtype=torch.int32), chain_len.clone()))
+    out["dpos_round"] = kx
+    return out
+
+
+def paxos_state(gen, dev, B, N, S, r):
+    """A random batched PaxosState on ``dev``: accepted ballots from a small
+    set (ties across acceptors), promises around round r's ballots (some
+    outbid them), half the slots learned."""
+    from consensus_tpu_torch.engines import paxos
+
+    def ri(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev,
+                             dtype=torch.int32)
+    hi = (r + 1) * N + 1
+    pick = torch.tensor([0, 3, 5, hi], dtype=torch.int32, device=dev)
+    return paxos.PaxosState(
+        torch.arange(70, 70 + B, device=dev).to(torch.uint32),
+        ri(0, hi, (B, N, S)), pick[ri(0, 4, (B, N, S)).long()],
+        ri(-3, 3, (B, N, S)), ri(-9, 9, (B, N, S)),
+        torch.rand((B, N, S), generator=gen, device=dev) < 0.5,
+        torch.zeros((B, N), dtype=torch.bool, device=dev))
+
+
+def paxos_round_args(cfg, st, r) -> dict:
+    """The arguments KY and KZ receive in round r from state ``st`` (KZ's
+    from KY's plain version)."""
+    from consensus_tpu_torch.engines import paxos
+    from consensus_tpu_torch.ops import adversary
+    deliver = adversary.delivery_plain(st.seed, r, cfg.n_nodes,
+                                       cfg.drop_cutoff, cfg.partition_cutoff)
+    ky = (cfg, st.seed, r, deliver, st.promised, st.acc_bal)
+    np_, n_prom, best_bal, best_a, prep = paxos.paxos_promise_plain(
+        *clone_args(ky))
+    return {"paxos_promise": ky, "paxos_accept_learn": (
+        cfg, st.seed, r, deliver, prep, np_, n_prom, best_bal, best_a,
+        st.acc_bal, st.acc_val, st.learned_val, st.learned_mask)}
+
+
+def paxos_edge_inputs(dev, gen) -> dict:
+    """Inputs on which KY's and KZ's rare paths fire: {name: [args]}.
+    Rounds of the hostile run (n_proposers 300 of 1 000, drops, partitions,
+    churn); random states whose accepted ballots tie across acceptors, on
+    two or three slots that every proposer contends for; and rounds of a
+    run with S = 60 000 slots, more than a row block's shared memory holds
+    (its per-slot values then live in its output rows); and random states
+    of 70 000 lanes at N = 7, S = 16, past the 65 535 blocks of a grid's y
+    or z."""
+    out = {name: [] for name in PAXOS}
+    for cfg, rounds in ((protocol_config(PAXOS_HOSTILE), (2, 17, 31)),
+                        (protocol_config(PAXOS_FLAGSHIP, n_nodes=48,
+                                         log_capacity=60_000, drop_rate=0.1,
+                                         n_rounds=8, n_sweeps=2), (0, 3, 7))):
+        for got in capture_round_inputs(cfg, rounds, PAXOS, dev).values():
+            for name in PAXOS:
+                out[name].append(got[name])
+    ties = 0
+    for kw in (dict(n_nodes=300, log_capacity=3, drop_rate=0.1),
+               dict(n_nodes=257, log_capacity=2, n_proposers=100,
+                    partition_rate=0.5, churn_rate=0.0)):
+        cfg = protocol_config(PAXOS_FLAGSHIP, **kw)
+        for r in (0, 4):
+            args = paxos_round_args(cfg, paxos_state(
+                gen, dev, 2, cfg.n_nodes, cfg.log_capacity, r), r)
+            ties += int((args["paxos_accept_learn"][7] > 0).sum())
+            for name in PAXOS:
+                out[name].append(args[name])
+    require(ties > 0, "edge inputs: no promise carried an accepted ballot")
+    lanes = protocol_config(PAXOS_FLAGSHIP, n_nodes=7, log_capacity=16,
+                            drop_rate=0.1, n_sweeps=70_000)
+    for r in (0, 3):
+        args = paxos_round_args(lanes, paxos_state(
+            gen, dev, lanes.n_sweeps, lanes.n_nodes, lanes.log_capacity, r), r)
+        for name in PAXOS:
+            out[name].append(args[name])
+    return out
+
+
+def dpos_bound(name: str, args) -> tuple[float, str]:
+    """The least time of kernel ``name``'s work (KW, KX) on ``args``: the
+    bytes it must move and the 32-bit operations it must do for these
+    inputs (see each source's note)."""
+    import math
+
+    from consensus_tpu_torch.core import rng
+    from consensus_tpu_torch.engines import dpos
+    if name == "dpos_schedule":
+        cfg, seeds = args
+        b, e = seeds.shape[0], dpos.n_epochs(cfg)
+        c = cfg.n_candidates
+        # A draw for each validator's stake, a draw and an add for each
+        # (epoch, validator)'s vote, and the sort's comparisons.
+        return bound(4 * b + 4 * b * e * (c + cfg.n_producers),
+                     b * cfg.n_nodes * THREEFRY_OPS
+                     + b * e * cfg.n_nodes * (THREEFRY_OPS + 1)
+                     + b * e * c * max(1, math.ceil(math.log2(c))))
+    cfg, seed, r, producers, chain_r, chain_p, chain_len = args
+    b, v = chain_len.shape
+    appended = int((dpos.dpos_round_plain(*clone_args(args))[2]
+                    - chain_len).sum())
+    active = int((rng.random_u32_plain(seed, rng.STREAM_PARTITION, r, 0, 0)
+                  < cfg.partition_cutoff).sum())
+    return bound(8 * b * v + appended * (chain_r.element_size()
+                                         + chain_p.element_size()),
+                 EDGE_OPS * b * v + THREEFRY_OPS * (2 * b + active * (v + 1)))
+
+
+def paxos_bound(name: str, args) -> tuple[float, str]:
+    """The least time of kernel ``name``'s work (KY, KZ) on ``args``: the
+    bytes each tensor must move once (see each source's note) and about
+    eight 32-bit operations an (acceptor, proposer) pair."""
+    if name == "paxos_promise":
+        deliver, promised = args[3], args[4]
+        b, n, s = promised.shape
+        return bound(2 * deliver.numel() + 12 * b * n * s + 12 * b * n,
+                     8 * deliver.numel() + 2 * THREEFRY_OPS * b * n)
+    deliver, new_promised = args[3], args[5]
+    b, n, s = new_promised.shape
+    return bound(2 * deliver.numel() + 34 * b * n * s + 12 * b * n,
+                 8 * deliver.numel() + 2 * THREEFRY_OPS * b * n)
+
+
+def segment_max_yardstick(args):
+    """One PyTorch call of the segment maximum KY's phase 1 and KZ's phase
+    4 take: ``torch.scatter_reduce(amax)`` of a [B, N, P] matrix of
+    delivered proposers' ballots by their slots into [B, N, S]. Returns
+    (fn, args)."""
+    from consensus_tpu_torch.engines import paxos
+    cfg, seed, r, deliver, promised, _ = args
+    b, n, s = promised.shape
+    is_prop, slot_p, ballot, _ = paxos.proposals(cfg, seed, r, n, s)
+    vals = torch.where(is_prop[:, None, :] & deliver.transpose(1, 2),
+                       ballot[:, None, :], 0).contiguous()
+    idx = slot_p[:, None, :].expand(b, n, n).contiguous()
+    out = torch.zeros((b, n, s), dtype=torch.int32, device=promised.device)
+    return (lambda o, i, v: o.scatter_reduce(2, i, v, "amax",
+                                             include_self=True)), \
+        (out, idx, vals)
+
+
+def check_dpos_paxos_kernels(dev, gen) -> list[dict]:
+    """KW-KZ against their plain versions on dpos-100k's init and rounds
+    DPOS_ROUNDS, on paxos-10kx10k's rounds PAXOS_ROUNDS, and on the edge
+    inputs. Times and bounds on dpos-100k's init and round 200 and on
+    paxos-10kx10k's round 15."""
+    from consensus_tpu_torch.engines import dpos, paxos
+    dcfg = protocol_config(DPOS_FLAGSHIP)
+    init = schedule_args(dcfg, dev)
+    drounds = capture_round_inputs(dcfg, DPOS_ROUNDS, ("dpos_round",), dev)
+    real = {"dpos_schedule": [init],
+            "dpos_round": [got["dpos_round"] for got in drounds.values()]}
+    timed = {"dpos_schedule": init, "dpos_round": drounds[200]["dpos_round"]}
+    prounds = capture_round_inputs(protocol_config(PAXOS_FLAGSHIP),
+                                   PAXOS_ROUNDS, PAXOS, dev)
+    for name in PAXOS:
+        real[name] = [got[name] for got in prounds.values()]
+        timed[name] = prounds[15][name]
+    edges = {**dpos_edge_inputs(dev, gen), **paxos_edge_inputs(dev, gen)}
+    tallies = dpos.dpos_schedule_plain(*init)[1]
+    argsort = device_ms(lambda t: torch.argsort(t, dim=2, stable=True),
+                        (tallies,))
+    segmax = device_ms(*segment_max_yardstick(timed["paxos_promise"]))
+    rows = []
+    for name in DPOS + PAXOS:
+        mod = dpos if name in DPOS else paxos
+        err = max(max_abs_err(run_pair(name, args))
+                  for args in real[name] + edges[name])
+        args = timed[name]
+        rows.append(dict(
+            name=name, route="cuda",
+            source=f"consensus_tpu_torch/csrc/{name}.cu",
+            replaces={**DPOS_REPLACES, **PAXOS_REPLACES}[name],
+            max_abs_err=err, ms=device_ms(getattr(mod, name), args),
+            plain_ms=device_ms(getattr(mod, name + "_plain"), args),
+            bound=(dpos_bound if name in DPOS else paxos_bound)(name, args),
+            library_ms={"dpos_schedule": argsort, "dpos_round": None}.get(
+                name, segmax)))
+    return rows
+
+
 def hand_kernels() -> dict[str, tuple[str, ...]]:
     """The ``__global__`` kernels of each source in ``_build.SOURCES``, by
     wrapper name: the names the profiler reports for them. Names are unique
@@ -1824,7 +2184,17 @@ GAPS = {(None, "candidacy"): "init",
         ("bcast_view_preprepare", "bcast_tally"): "P4-P5",
         ("bcast_tally", "bcast_decide"): "P6-P7",
         ("bcast_decide", "bcast_view_preprepare"): "between rounds",
-        ("bcast_decide", None): "after the last round"}
+        ("bcast_decide", None): "after the last round",
+        # The DPoS round (KW runs at init).
+        (None, "dpos_schedule"): "init",
+        ("dpos_schedule", "dpos_round"): "init",
+        ("dpos_round", "dpos_round"): "between rounds",
+        ("dpos_round", None): "after the last round",
+        # The Paxos round.
+        ("delivery", "paxos_promise"): "phases 1-2",
+        ("paxos_promise", "paxos_accept_learn"): "phases 3-6",
+        ("paxos_accept_learn", "delivery"): "between rounds",
+        ("paxos_accept_learn", None): "after the last round"}
 ZEROING = ("aten::fill_", "aten::zero_")
 
 
@@ -1841,14 +2211,19 @@ def plain_ops_by_phase(cfg, device="cuda", telemetry=False,
     from torch.profiler import (ProfilerActivity, profile, record_function,
                                 schedule)
 
-    from consensus_tpu_torch.engines import pbft, raft
+    from consensus_tpu_torch.engines import dpos, paxos, pbft, raft
     from consensus_tpu_torch.engines import pbft_bcast as pb
     from consensus_tpu_torch.engines import raft_sparse as rs
     from consensus_tpu_torch.network import runner
     on_cpu = torch.device(device).type == "cpu"
-    # The wrappers the engine's round calls (KA's only through init).
+    # The wrappers the engine's round calls (KA's only through init; KW's
+    # only in DPoS's init).
     eng = runner.engine(cfg)
-    if eng is runner.PBFT_BCAST:
+    if eng is runner.DPOS:
+        module, marked_names = dpos, list(DPOS)
+    elif eng is runner.PAXOS:
+        module, marked_names = paxos, ["delivery", *PAXOS]
+    elif eng is runner.PBFT_BCAST:
         module, marked_names = pb, list(BCAST)
     elif eng is runner.PBFT:
         module, marked_names = pbft, ["delivery", *PBFT]
@@ -2022,7 +2397,7 @@ def check_seed_sharing(cfg, anchor: str) -> None:
             "the anchor's seed after another seed changed its digest")
 
 
-# --- phase 5: telemetry --------------------------------------------------------
+# --- phase 5: telemetry ------------------------------------------------------
 
 # The telemetry phase's anchor: the counters and flight recorder of
 # raft-100k cut to N = 10 000 (the full shape is not run on a CPU), with
@@ -2113,10 +2488,10 @@ def check_dense_path(card: str, smi: str) -> dict[str, int]:
     launch count set to 0 just before and read just after. Their digests
     must be the committed anchors, KA and KL-KO must have launched and no
     other kernel. Then the replay under the profiler, and another seed of
-    raft-1kx1k on the same graph against the eager loop. Returns the
-    launches of both runs."""
+    raft-1kx1k on the same graph against the eager loop. Returns
+    raft-1kx1k's launches."""
     from consensus_tpu_torch.network import runner, simulator
-    total = dict.fromkeys(runner.launch_counts(), 0)
+    own = {}
     for name in DENSE_CONFIGS:
         cfg = dense_config(name)
         for mod, kernel in runner.KERNELS:
@@ -2137,10 +2512,10 @@ def check_dense_path(card: str, smi: str) -> dict[str, int]:
         for kernel, n in launches.items():
             require((n > 0) == (kernel in DENSE + ("random_u32",)),
                     f"kernel {kernel}: {n} launches on the {name} path")
-            total[kernel] += n
+        own[name] = launches
     cfg = dense_config("raft-1kx1k")
     check_seed_sharing(cfg, DENSE_DIGESTS["raft-1kx1k"])
-    return total
+    return own["raft-1kx1k"]
 
 
 # --- phase 6, continued: the dense engine's telemetry ------------------------
@@ -2171,20 +2546,20 @@ DENSE_TELEMETRY_FLIGHT = \
 def check_dense_telemetry(card: str, smi: str) -> int:
     """Phase 6, telemetry: raft-5node and raft-1kx1k with telemetry and
     8-round windows, replayed as graphs, with every launch count set to 0
-    just before and read just after. The digests must not move, KA and
+    just before each and read just after it. The digests must not move, KA and
     KL-KP must have launched and no other kernel, the windows must sum to
     the totals, raft-5node's counters and recorder must equal their JAX
     anchor, and raft-1kx1k's graph replay must equal its eager loop.
     Then each config's replay under the profiler without and with
     telemetry, alternated (without, with, with, without), so that the
     cost of telemetry is read within one process. Returns KP's
-    launches."""
+    launches in raft-1kx1k's run."""
     from consensus_tpu_torch.network import runner, simulator
-    for mod, name in runner.KERNELS:
-        getattr(mod, name).launches = 0
-    res = {name: simulator.run(dense_config(name, telemetry_window=WINDOW),
-                               telemetry=True) for name in DENSE_CONFIGS}
-    launches = runner.launch_counts()
+    res, counts = {}, {}
+    for name in DENSE_CONFIGS:
+        cfg = dense_config(name, telemetry_window=WINDOW)
+        res[name], counts[name] = counted(
+            lambda: simulator.run(cfg, telemetry=True))
     prof = {name: [profile_replay(
         dense_config(name, telemetry_window=WINDOW if on else 0),
         telemetry=on) for on in (False, True, True, False)]
@@ -2205,10 +2580,11 @@ def check_dense_telemetry(card: str, smi: str) -> int:
                        ["totals"], flight_sha256=flight_digest(
                            r.extras["flight"]),
                        steps_per_sec=r.steps_per_sec, wall_s=r.wall_s,
+                       launches=counts[name],
                        profiles_without_with_with_without=prof[name])
             for name, r in res.items()},
          windows_sum_to_totals=sums, graph_equals_eager=same,
-         launches=launches, card=card, power=smi)
+         card=card, power=smi)
     for name, r in res.items():
         require(r.digest == DENSE_DIGESTS[name],
                 f"telemetry changed {name}'s digest: {r.digest}")
@@ -2217,14 +2593,14 @@ def check_dense_telemetry(card: str, smi: str) -> int:
     require(anchor["telemetry"]["totals"] == DENSE_TELEMETRY_TOTALS
             and flight_digest(anchor["flight"]) == DENSE_TELEMETRY_FLIGHT,
             "raft-5node's telemetry disagrees with its JAX anchor")
-    for kernel, n in launches.items():
-        require((n > 0) == (kernel in DENSE + ("random_u32",
-                                               "dense_telemetry")),
-                f"kernel {kernel}: {n} launches on the dense telemetry path")
-    return launches["dense_telemetry"]
+    for name in DENSE_CONFIGS:
+        require_launched(counts[name],
+                         DENSE + ("random_u32", "dense_telemetry"),
+                         f"{name}'s telemetry path")
+    return counts["raft-1kx1k"]["dense_telemetry"]
 
 
-# --- phase 9: dense PBFT and the f-ladder --------------------------------------
+# --- phase 9: dense PBFT and the f-ladder ------------------------------------
 
 def check_pbft_path(card: str, smi: str) -> dict[str, int]:
     """Phase 9: ``simulator.run`` of the standalone rows pbft-f1 ...
@@ -2297,7 +2673,7 @@ def check_pbft_path(card: str, smi: str) -> dict[str, int]:
     return launches
 
 
-# --- phase 10: the §6b broadcast engine and its ladders -----------------------
+# --- phase 10: the §6b broadcast engine and its ladders ----------------------
 
 def check_bcast_path(card: str, smi: str) -> dict[str, int]:
     """Phase 10: ``simulator.run`` of pbft-100k-bcast, BASELINE config 3's
@@ -2414,6 +2790,101 @@ def check_bcast_path(card: str, smi: str) -> dict[str, int]:
     return launches
 
 
+# --- phase 11: DPoS ----------------------------------------------------------
+
+def check_dpos_path(card: str, smi: str) -> dict[str, int]:
+    """Phase 11: ``simulator.run`` of dpos-100k (BASELINE config 5) and of
+    the hostile run DPOS_HOSTILE, each replayed as one CUDA graph, with
+    every launch count set to 0 just before each run and read just after
+    it: their anchors, dpos-100k's last-irreversible indices against the
+    JAX package's, KW and KX launched in each run and no other kernel. Then
+    dpos-100k's replay under the profiler, and another seed on its graph
+    against the eager loop. Returns dpos-100k's launches."""
+    from consensus_tpu_torch.network import simulator
+    cfg = protocol_config(DPOS_FLAGSHIP)
+    memory, launches = counted(lambda: memory_use(
+        lambda: simulator.run(cfg)))
+    res = memory.pop("result")
+    lib = res.extras["lib"]
+    lib_sha = hashlib.sha256(
+        np.ascontiguousarray(lib, dtype="<i8").tobytes()).hexdigest()
+    hostile_cfg = protocol_config(DPOS_HOSTILE)
+    hostile, hostile_launches = counted(lambda: simulator.run(hostile_cfg))
+    emit("dpos", digest=res.digest, digest_ok=res.digest == DPOS_DIGEST,
+         steps_per_sec=res.steps_per_sec, wall_s=res.wall_s,
+         max_chain=int(res.counts.max()), min_chain=int(res.counts.min()),
+         lib_sha256=lib_sha, lib_ok=lib_sha == DPOS_LIB_SHA256,
+         lib_min=int(lib.min()), lib_max=int(lib.max()), **memory,
+         hostile=dict(digest=hostile.digest,
+                      digest_ok=hostile.digest == DPOS_HOSTILE_DIGEST,
+                      steps_per_sec=hostile.steps_per_sec,
+                      wall_s=hostile.wall_s, launches=hostile_launches),
+         launches=launches, card=card, power=smi)
+    require(res.counts.shape == (1, cfg.n_nodes)
+            and res.rec_a.shape == (1, cfg.n_nodes, cfg.log_capacity)
+            and int(res.counts.min()) > 0,
+            "dpos-100k: chains of the wrong shape, or empty")
+    require(res.digest == DPOS_DIGEST,
+            f"dpos-100k digest {res.digest} != {DPOS_DIGEST}")
+    require(lib_sha == DPOS_LIB_SHA256,
+            f"dpos-100k's lib {lib_sha} != the JAX package's "
+            f"{DPOS_LIB_SHA256}")
+    require(hostile.digest == DPOS_HOSTILE_DIGEST,
+            f"the hostile DPoS run's digest {hostile.digest} != "
+            f"{DPOS_HOSTILE_DIGEST}")
+    require_launched(launches, DPOS, "dpos-100k")
+    require_launched(hostile_launches, DPOS, "the hostile DPoS run")
+    emit("dpos_profile", config="dpos-100k", card=card, power=smi,
+         **profile_replay(cfg))
+    check_seed_sharing(cfg, DPOS_DIGEST)
+    return launches
+
+
+# --- phase 12: Paxos ---------------------------------------------------------
+
+def check_paxos_path(card: str, smi: str) -> dict[str, int]:
+    """Phase 12: ``simulator.run`` of paxos-10kx10k (BASELINE config 4) and
+    of the hostile run PAXOS_HOSTILE, each replayed as one CUDA graph, with
+    every launch count set to 0 just before each run and read just after
+    it: their anchors, KL, KY and KZ launched in each run and no other
+    kernel, the graph's peak and kept memory. Then paxos-10kx10k's replay
+    under the profiler, and another seed on its graph against the eager
+    loop. Returns paxos-10kx10k's launches."""
+    from consensus_tpu_torch.network import simulator
+    cfg = protocol_config(PAXOS_FLAGSHIP)
+    memory, launches = counted(lambda: memory_use(
+        lambda: simulator.run(cfg)))
+    res = memory.pop("result")
+    hostile_cfg = protocol_config(PAXOS_HOSTILE)
+    hostile, hostile_launches = counted(lambda: simulator.run(hostile_cfg))
+    # The carry: four int32 grids and a bool one, the down flags, the seed.
+    state_bytes = cfg.n_sweeps * (cfg.n_nodes * (17 * cfg.log_capacity + 1)
+                                  + 4)
+    emit("paxos", digest=res.digest, digest_ok=res.digest == PAXOS_DIGEST,
+         steps_per_sec=res.steps_per_sec, wall_s=res.wall_s,
+         max_learned=int(res.counts.max()), min_learned=int(res.counts.min()),
+         state_bytes=state_bytes, **memory,
+         hostile=dict(digest=hostile.digest,
+                      digest_ok=hostile.digest == PAXOS_HOSTILE_DIGEST,
+                      steps_per_sec=hostile.steps_per_sec,
+                      wall_s=hostile.wall_s, launches=hostile_launches),
+         launches=launches, card=card, power=smi)
+    require(res.counts.shape == (1, cfg.n_nodes) and int(res.counts.max()) > 0,
+            "paxos-10kx10k: learned logs of the wrong shape, or empty")
+    require(res.digest == PAXOS_DIGEST,
+            f"paxos-10kx10k digest {res.digest} != {PAXOS_DIGEST}")
+    require(hostile.digest == PAXOS_HOSTILE_DIGEST,
+            f"the hostile Paxos run's digest {hostile.digest} != "
+            f"{PAXOS_HOSTILE_DIGEST}")
+    require_launched(launches, ("delivery",) + PAXOS, "paxos-10kx10k")
+    require_launched(hostile_launches, ("delivery",) + PAXOS,
+                     "the hostile Paxos run")
+    emit("paxos_profile", config="paxos-10kx10k", card=card, power=smi,
+         **profile_replay(cfg))
+    check_seed_sharing(cfg, PAXOS_DIGEST)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2450,7 +2921,8 @@ def main() -> int:
                *check_phases(dev, gen, flagship_config(
                    telemetry_window=WINDOW)),
                *check_dense_kernels(dev, gen), *check_pbft_kernels(dev, gen),
-               *check_bcast_kernels(dev, gen)]
+               *check_bcast_kernels(dev, gen),
+               *check_dpos_paxos_kernels(dev, gen)]
     torch.cuda.synchronize()
     require(sorted(k["name"] for k in kernels) == sorted(_build.SOURCES),
             "phase 3 does not check every kernel of csrc")
@@ -2507,24 +2979,37 @@ def main() -> int:
     pbft_by_phase = plain_ops_by_phase(ladder_config(n_rounds=8),
                                        rungs=LADDER)
     bcast_by_phase = plain_ops_by_phase(bcast_config(n_rounds=4))
+    dpos_by_phase = plain_ops_by_phase(protocol_config(DPOS_FLAGSHIP))
+    paxos_by_phase = plain_ops_by_phase(protocol_config(PAXOS_FLAGSHIP,
+                                                        n_rounds=4))
     emit("profile", card=card, power=smi, **prof,
          plain_ops_by_phase=by_phase, dense_plain_ops_by_phase=dense_by_phase,
          pbft_plain_ops_by_phase=pbft_by_phase,
          bcast_plain_ops_by_phase=bcast_by_phase,
+         dpos_plain_ops_by_phase=dpos_by_phase,
+         paxos_plain_ops_by_phase=paxos_by_phase,
          profiler_sessions_redone=REDONE)
     for place, found in [*by_phase.items(), *dense_by_phase.items(),
-                         *pbft_by_phase.items(), *bcast_by_phase.items()]:
+                         *pbft_by_phase.items(), *bcast_by_phase.items(),
+                         *dpos_by_phase.items(), *paxos_by_phase.items()]:
         require(place == "init" or set(found) <= set(ZEROING),
                 f"PyTorch compute ops on the device in {place}: {found}")
 
     # 9. dense PBFT: the standalone rows and the f-ladder.
     pbft_launches = check_pbft_path(card, smi)
-    launches["delivery"] += pbft_launches["delivery"]
     launches.update({name: pbft_launches[name] for name in PBFT})
 
     # 10. the §6b broadcast engine: pbft-100k-bcast and two bcast ladders.
     bcast_launches = check_bcast_path(card, smi)
     launches.update({name: bcast_launches[name] for name in BCAST})
+
+    # 11. DPoS: dpos-100k and a hostile run.
+    dpos_launches = check_dpos_path(card, smi)
+    launches.update({name: dpos_launches[name] for name in DPOS})
+
+    # 12. Paxos: paxos-10kx10k and a hostile run.
+    paxos_launches = check_paxos_path(card, smi)
+    launches.update({name: paxos_launches[name] for name in PAXOS})
     for k in kernels:
         k["launches"] = launches[k["name"]]
 

@@ -27,7 +27,8 @@ SOURCES = ("random_u32", "delivery_edges", "top_active", "append_entries",
            "telemetry", "delivery", "dense_elect", "dense_append",
            "dense_acks_commit", "dense_telemetry", "pbft_view_preprepare",
            "pbft_tally", "pbft_decide", "bcast_view_preprepare",
-           "bcast_tally", "bcast_decide")
+           "bcast_tally", "bcast_decide", "dpos_schedule", "dpos_round",
+           "paxos_promise", "paxos_accept_learn")
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "build" / \
@@ -120,6 +121,22 @@ SIGNATURES = {
     # node bits, committed, dval, committed at round entry, timer, reset;
     # committed, dval, timer outputs, minima scratch; B, N, S
     "bcast_decide": (_P,) * 10 + (_I,) * 3,
+    # seeds; producers, tallies outputs; B, E, V, C, K
+    "dpos_schedule": (_P,) * 3 + (_I,) * 5,
+    # seed, round, producers; chain_r, chain_p, chain_len (in place);
+    # chain_r and chain_p element sizes, the round's producer index within
+    # a lane's list and the list's length (E * K), drop_cut, part_cut,
+    # churn_cut; B, V, L
+    "dpos_round": (_P, _U) + (_P,) * 4 + (_I,) * 4 + (_U,) * 3 + (_I,) * 3,
+    # seed, round; deliver, promised, acc_bal; new_promised, n_prom,
+    # best_bal, best_a, prep_del outputs, proposal and key scratch; P,
+    # churn_cut, B, N, S
+    "paxos_promise": (_P, _U) + (_P,) * 10 + (_I, _U, _I, _I, _I),
+    # seed, round; deliver, prep_del, new_promised, n_prom, best_bal,
+    # best_a, acc_bal, acc_val, learned_val, learned_mask; promised,
+    # acc_bal, acc_val, learned_val, learned_mask outputs, proposal, count
+    # and bit scratch; P, churn_cut, B, N, S
+    "paxos_accept_learn": (_P, _U) + (_P,) * 18 + (_I, _U, _I, _I, _I),
 }
 
 
@@ -135,7 +152,7 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> pathlib.Path:
     h = hashlib.sha256(" ".join(FLAGS).encode())
-    for src in (CSRC / "rng.cuh", CSRC / f"{name}.cu"):
+    for src in (*sorted(CSRC.glob("*.cuh")), CSRC / f"{name}.cu"):
         h.update(src.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

@@ -2,52 +2,86 @@
 
 The simulator has no weights; its state plays their part. A batched JAX
 carry (``numpy`` arrays with [B, ...] leaves) of the dense Raft engine
-(``RaftState``), of the capped one (``RaftSparseState``) or of the PBFT
-engine (``PbftState``) becomes the port's :class:`RaftState`,
-:class:`RaftSparseState` or :class:`PbftState`, told apart by their
-leaves, and back, with every dtype kept: uint32 seed, int32 protocol
-state, uint8 match/next (``match_idx`` / ``next_idx``, ``lead_match`` /
-``lead_next``), bool down and PBFT's bool slot flags (``pp_seen``,
-``prepared``, ``committed``). The scan's telemetry accumulators
-(``telem``, ``win``, ``lat`` of ``_chunk_jit``, int32) carry across the
-same way.
+(``RaftState``), of the capped one (``RaftSparseState``), of the PBFT
+engine (``PbftState``), of the Paxos engine (``PaxosState``) or of the DPoS
+engine becomes the port's :class:`RaftState`, :class:`RaftSparseState`,
+:class:`PbftState`, :class:`PaxosState` or :class:`DposState`, told apart
+by their leaves, and back, with every dtype kept: uint32 seed, int32
+protocol state, uint8 match/next (``match_idx`` / ``next_idx``,
+``lead_match`` / ``lead_next``), bool down, PBFT's bool slot flags
+(``pp_seen``, ``prepared``, ``committed``), Paxos's bool ``learned_mask``
+and the DPoS chains' uint8, uint16 or int32 storage. The JAX DPoS carry is
+the tuple ``(producers, DposState)``; its leaves here are those of the
+``DposState`` with ``producers`` among them (:func:`dpos_leaves`,
+:func:`dpos_carry`). The scan's telemetry accumulators (``telem``,
+``win``, ``lat`` of ``_chunk_jit``, int32) carry across the same way.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from .engines.dpos import DposState
+from .engines.paxos import PaxosState
 from .engines.pbft import PbftState
 from .engines.raft import RaftState
 from .engines.raft_sparse import RaftSparseState
 
+State = RaftState | RaftSparseState | PbftState | PaxosState | DposState
+
 DTYPES = {"seed": np.uint32, "lead_match": np.uint8, "lead_next": np.uint8,
           "match_idx": np.uint8, "next_idx": np.uint8, "down": np.bool_,
-          "pp_seen": np.bool_, "prepared": np.bool_, "committed": np.bool_}
+          "pp_seen": np.bool_, "prepared": np.bool_, "committed": np.bool_,
+          "learned_mask": np.bool_}
+# The DPoS chains' storage (consensus_tpu/engines/raft.py _store_dtype).
+CHAIN_DTYPES = (np.uint8, np.uint16, np.int32)
 
 
-def state_from_numpy(leaves: dict,
-                     device="cpu") -> RaftState | RaftSparseState | PbftState:
-    """The port's state from a dict of batched numpy leaves: the PBFT
-    engine's when they hold ``pp_seen``, the dense Raft engine's when they
-    hold ``match_idx``, else the capped engine's."""
-    kind = (PbftState if "pp_seen" in leaves
-            else RaftState if "match_idx" in leaves else RaftSparseState)
+def _kind(leaves: dict) -> type:
+    """The state whose leaves ``leaves`` are: PBFT's when they hold
+    ``pp_seen``, Paxos's with ``learned_mask``, DPoS's with ``chain_r``,
+    the dense Raft engine's with ``match_idx``, else the capped one's."""
+    for leaf, kind in (("pp_seen", PbftState), ("learned_mask", PaxosState),
+                       ("chain_r", DposState), ("match_idx", RaftState)):
+        if leaf in leaves:
+            return kind
+    return RaftSparseState
+
+
+def state_from_numpy(leaves: dict, device="cpu") -> State:
+    """The port's state from a dict of batched numpy leaves (see
+    :func:`_kind`)."""
+    kind = _kind(leaves)
     out = {}
     for name in kind._fields:
         a = np.ascontiguousarray(leaves[name])
-        want = DTYPES.get(name, np.int32)
-        if a.dtype != want:
-            raise TypeError(f"{name}: expected {np.dtype(want)}, got "
-                            f"{a.dtype}")
+        want = (CHAIN_DTYPES if name in ("chain_r", "chain_p")
+                else (DTYPES.get(name, np.int32),))
+        if a.dtype not in want:
+            raise TypeError(f"{name}: expected "
+                            f"{' or '.join(str(np.dtype(w)) for w in want)}"
+                            f", got {a.dtype}")
         out[name] = torch.from_numpy(a.copy()).to(device)
     return kind(**out)
 
 
-def state_to_numpy(
-        st: RaftState | RaftSparseState | PbftState) -> dict[str, np.ndarray]:
+def state_to_numpy(st: State) -> dict[str, np.ndarray]:
     """A dict of batched numpy leaves, in the JAX carry's dtypes."""
     return {name: getattr(st, name).cpu().numpy() for name in st._fields}
+
+
+def dpos_leaves(producers, st_leaves: dict) -> dict:
+    """The leaves :func:`state_from_numpy` takes for the JAX DPoS carry
+    ``(producers, DposState)``: the state's leaves with ``producers``
+    ([B, E, K] int32) among them."""
+    return {**st_leaves, "producers": producers}
+
+
+def dpos_carry(leaves: dict) -> tuple:
+    """The JAX DPoS carry's parts ``(producers, DposState leaves)`` from
+    the leaves of a port's :class:`DposState` (:func:`state_to_numpy`)."""
+    rest = {k: v for k, v in leaves.items() if k != "producers"}
+    return leaves["producers"], rest
 
 
 def accumulators_from_numpy(telem, win=None, lat=None, device="cpu"):

@@ -1,13 +1,17 @@
-"""The run configuration of the port: the Raft and PBFT slice of ``Config``.
+"""The run configuration of the port: the Raft, PBFT, Paxos and DPoS slice
+of ``Config``.
 
 A slim copy of ``consensus_tpu/core/config.py``: the same field names,
-defaults and u32 cutoffs for what the Raft and dense PBFT engines read. As
+defaults and u32 cutoffs for what the Raft, PBFT, Paxos and DPoS engines
+read. As
 in the JAX package, a raft config with ``max_active = 0`` selects the dense
 engine (``engines/raft.py``) and ``max_active > 0`` the §3b capped one
 (``engines/raft_sparse.py``); ``protocol="pbft"`` selects the dense SPEC §6
 engine (``engines/pbft.py``), or with ``fault_model="bcast"`` the SPEC §6b
 broadcast engine (``engines/pbft_bcast.py``), whose population is
-``n_nodes = 3f + 1``.
+``n_nodes = 3f + 1``; ``protocol="paxos"`` the SPEC §5 multi-decree Paxos
+engine (``engines/paxos.py``) and ``protocol="dpos"`` the SPEC §7 DPoS
+engine (``engines/dpos.py``).
 The knobs of the JAX package that this port does not implement yet are
 fields too, and setting one off its default raises ``ValueError``; the
 port never ignores a setting silently.
@@ -27,13 +31,13 @@ UNSUPPORTED = {
     "net_model": "flat", "n_aggregators": 0,
     "n_byzantine": 0, "byz_mode": "silent",
     "desync_rate": 0.0,
+    "miss_rate": 0.0, "suppress_rate": 0.0, "suppress_window": 16,
     "scan_chunk": 0, "sweep_chunk": 0,
     "mesh_shape": (),
 }
 
-# The protocols the port runs (the JAX package also has paxos, dpos and
-# hotstuff).
-PROTOCOLS = ("raft", "pbft")
+# The protocols the port runs (the JAX package also has hotstuff).
+PROTOCOLS = ("raft", "pbft", "paxos", "dpos")
 
 # Raft only. The top-A kernel keeps a sorted list of A keys per thread in
 # registers.
@@ -41,8 +45,9 @@ MAX_ACTIVE = 16
 # Raft only. The replication bookkeeping (the capped engine's lead_match /
 # lead_next, the dense engine's match_idx / next_idx) is uint8 (L + 1 <=
 # 255), as the JAX package stores it at these capacities; PyTorch has no
-# uint16 arithmetic for the wider ones. PBFT's state is int32 and bool and
-# takes any slot count.
+# uint16 arithmetic for the wider ones. The state of PBFT and Paxos is int32
+# and bool, and DPoS stores its chains as the JAX package does; they take
+# any slot count.
 MAX_LOG_CAPACITY = 254
 
 
@@ -67,6 +72,14 @@ class Config:
     view_timeout: int = 8        # rounds without progress before view change
     fault_model: str = "edge"    # "edge" (SPEC §6) | "bcast" (§6b)
 
+    # Paxos.
+    n_proposers: int = 0         # 0 ⇒ all nodes propose
+
+    # DPoS.
+    n_candidates: int = 16
+    n_producers: int = 4         # K active producers per epoch
+    epoch_len: int = 16          # rounds per epoch
+
     drop_rate: float = 0.0
     partition_rate: float = 0.0
     churn_rate: float = 0.0
@@ -83,6 +96,9 @@ class Config:
     n_byzantine: int = 0
     byz_mode: str = "silent"
     desync_rate: float = 0.0
+    miss_rate: float = 0.0
+    suppress_rate: float = 0.0
+    suppress_window: int = 16
     telemetry_window: int = 0
     scan_chunk: int = 0
     sweep_chunk: int = 0
@@ -91,7 +107,7 @@ class Config:
     def __post_init__(self) -> None:
         if self.protocol not in PROTOCOLS:
             raise ValueError(f"protocol {self.protocol!r} is not ported yet "
-                             f"(the port runs {' and '.join(PROTOCOLS)})")
+                             f"(the port runs {', '.join(PROTOCOLS)})")
         if min(self.n_nodes, self.n_rounds, self.n_sweeps,
                self.log_capacity) < 1:
             raise ValueError("n_nodes, n_rounds, n_sweeps, log_capacity "
@@ -124,6 +140,17 @@ class Config:
         if self.telemetry_window < 0:
             raise ValueError("telemetry_window must be >= 0 (0 = flight "
                              "recorder off)")
+        if self.protocol == "dpos":
+            # The JAX package's check and message: candidates are a subset
+            # of the validators and producers a subset of the candidates.
+            if not (1 <= self.n_producers <= self.n_candidates
+                    <= self.n_nodes):
+                raise ValueError(
+                    "dpos requires 1 <= n_producers <= n_candidates "
+                    f"<= n_nodes, got K={self.n_producers} "
+                    f"C={self.n_candidates} V={self.n_nodes}")
+            if self.epoch_len < 1:
+                raise ValueError("epoch_len must be >= 1")
         if self.n_nodes >= 2**31 - 1:
             raise ValueError("n_nodes must fit int32 ids")
         off = [k for k, d in UNSUPPORTED.items() if getattr(self, k) != d]

@@ -1,0 +1,95 @@
+// Kernel KX: one SPEC §7 DPoS round at every validator of each lane: the
+// round's producer sends its block, and every validator it reaches appends
+// (round, producer) to its chain, in place.
+//
+// Replaces: consensus_tpu/engines/dpos.py dpos_round (K20, lines 117-180) on
+// its flat path, with _producer_delivery (lines 73-92) fused in. Round r's
+// producer p is producers[r // epoch_len][(r mod epoch_len) mod K], read on
+// the device (the host passes the index). Validator v != p receives the
+// block when the delivery mixer's draw of edge p -> v is not below
+// drop_cut and, in a round whose partition is active, v drew p's side; p
+// always has it. Unless the round's churn event fires, a receiver whose
+// chain is not full writes (r, p) at chain_len[v] and counts it.
+//
+// Bound: bytes, counting each tensor once: each validator reads and writes
+// its chain length (8 bytes) and writes one chain slot where it appends
+// (chain_r's and chain_p's element sizes: 3 bytes at dpos-100k), 1.1 MB at
+// V = 100 000, 0.33 us at 3.35 TB/s; the function's draws are one mixer
+// chain a validator (23 operations) and a few Threefry draws a lane, 0.07
+// us at 33.5e12 a second. At that size one launch is dominated by its
+// fixed cost (6.2 us in dpos-100k's replay, PERF.md §5).
+// Design: one launch, a thread per (lane, validator): the producer's id and
+// the lane's churn and partition draws are computed by every thread (a few
+// Threefry draws, cheaper than a second launch), the chain slot is written
+// at the element size the host passes (uint8, uint16 or int32 storage).
+#include <cuda_runtime.h>
+
+#include "rng.cuh"
+
+namespace {
+
+constexpr int THREADS = 256;
+
+__device__ __forceinline__ void store(void* base, int size, long long i,
+                                      uint32_t x) {
+  if (size == 1) {
+    static_cast<uint8_t*>(base)[i] = static_cast<uint8_t>(x);
+  } else if (size == 2) {
+    static_cast<uint16_t*>(base)[i] = static_cast<uint16_t>(x);
+  } else {
+    static_cast<int32_t*>(base)[i] = static_cast<int32_t>(x);
+  }
+}
+
+// A thread per (lane, validator), flattened.
+__global__ void __launch_bounds__(THREADS)
+dpos_round_kernel(const uint32_t* __restrict__ seed, uint32_t r,
+                  const int32_t* __restrict__ producers, void* chain_r,
+                  void* chain_p, int32_t* __restrict__ chain_len, int r_size,
+                  int p_size, int p_index, int list_len, uint32_t drop_cut,
+                  uint32_t part_cut, uint32_t churn_cut, int V, int L,
+                  long long rows) {
+  const long long row =
+      static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
+  if (row >= rows) return;
+  const int b = static_cast<int>(row / V);
+  const uint32_t v =
+      static_cast<uint32_t>(row - static_cast<long long>(b) * V);
+  const uint32_t sd = seed[b];
+  if (ctt::random_u32(sd, ctt::STREAM_CHURN, r, 0u, 0u) < churn_cut) return;
+  const int32_t len = chain_len[row];
+  if (len >= L) return;
+  const uint32_t p = static_cast<uint32_t>(
+      producers[static_cast<long long>(b) * list_len + p_index]);
+  if (v != p) {
+    const uint32_t h = ctt::mix_absorb(
+        ctt::mix_absorb(ctt::mix_absorb(sd ^ ctt::STREAM_DELIVER, r), p), v);
+    if (ctt::mix_fin(h) < drop_cut) return;
+    if (ctt::random_u32(sd, ctt::STREAM_PARTITION, r, 0u, 0u) < part_cut &&
+        ((ctt::random_u32(sd, ctt::STREAM_PARTITION, r, 1u, v) ^
+          ctt::random_u32(sd, ctt::STREAM_PARTITION, r, 1u, p)) & 1u))
+      return;
+  }
+  const long long slot = row * L + len;
+  store(chain_r, r_size, slot, r);
+  store(chain_p, p_size, slot, p);
+  chain_len[row] = len + 1;
+}
+
+}  // namespace
+
+extern "C" int ctt_dpos_round(const uint32_t* seed, uint32_t r,
+                              const int32_t* producers, void* chain_r,
+                              void* chain_p, int32_t* chain_len, int r_size,
+                              int p_size, int p_index, int list_len,
+                              uint32_t drop_cut, uint32_t part_cut,
+                              uint32_t churn_cut, int B, int V, int L,
+                              cudaStream_t st) {
+  const long long rows = static_cast<long long>(B) * V;
+  if (rows == 0) return 0;
+  dpos_round_kernel<<<static_cast<unsigned>((rows + THREADS - 1) / THREADS),
+                      THREADS, 0, st>>>(
+      seed, r, producers, chain_r, chain_p, chain_len, r_size, p_size,
+      p_index, list_len, drop_cut, part_cut, churn_cut, V, L, rows);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,222 @@
+// Kernel KY: SPEC §5 Paxos phases 1-2 of one round at every (acceptor,
+// proposer) pair of each lane: the prepares' per-slot maximum at each
+// acceptor, the promises, their count and the highest accepted ballot they
+// carry.
+//
+// Replaces: consensus_tpu/engines/paxos.py paxos_round (K19) lines 93-180 on
+// its flat path (no crash, no switch). prep_del[a, p] = deliver[p, a] and
+// resp_del[a, p] = deliver[a, p]. Phase 1: new_promised[a, s] =
+// max(promised[a, s], the largest ballot, at least 0, of a proposer on slot
+// s whose prepare reached a). Phase 2: a promises p when p proposes, both
+// flights are delivered, p's ballot > promised[a, slot_p] and == new_
+// promised[a, slot_p]; n_prom[p] counts them; best_bal[p] = max over every
+// acceptor of (its acc_bal[a, slot_p] where it promised, else 0), and
+// best_a[p] the lowest acceptor holding it (jnp.argmax's first maximum).
+//
+// Bound: bytes, counting each tensor once: the mask read and its
+// transpose written (2 bytes a pair), promised and acc_bal read and
+// new_promised written (12 bytes a (row, slot)), and the per-proposer
+// outputs (12 bytes a proposer). At paxos-10kx10k (B = 1, N = S = 10 000)
+// that is 2e8 + 1.2e9 bytes, 1.4 GB, 0.418 ms at 3.35 TB/s. This kernel's
+// phase-2 tiles also gather promised, new_promised and acc_bal at each
+// proposer's slot, one 32-byte sector a pair that L2 serves, which is
+// not counted (PERF.md §6).
+// Design: launch 1, a thread per proposer draws its slot and ballot once
+// into scratch. Launch 2 writes the mask's transpose through 32 x 32 tiles
+// in shared memory, so that every later read of either orientation is a
+// row read. Launch 3, a block per acceptor row takes the row's per-slot
+// prepare maxima with shared-memory atomics (in the output row itself when
+// S slots do not fit in shared memory) and writes new_promised. Launch 4,
+// a block per 256 proposers and TILE_ROWS acceptors: each thread walks its
+// proposer down the tile's rows, counts promises and keeps the best
+// (acc_bal, -a) as one 64-bit key, then merges both with one atomicAdd and
+// one atomicMax per tile (the packed key gives the lowest acceptor among
+// equal ballots in any order). Launch 5 unpacks the keys. Launches 2 and 4
+// put (tile, lane) into gridDim.x, so any number of lanes launches.
+#include <cuda_runtime.h>
+
+#include "paxos.cuh"
+
+namespace {
+
+using ctt::THREADS;
+
+__device__ __forceinline__ unsigned long long pack(int32_t bal, int a) {
+  return (static_cast<unsigned long long>(static_cast<uint32_t>(bal) ^
+                                          0x80000000u)
+          << 32) |
+         static_cast<unsigned long long>(0xFFFFFFFFu -
+                                         static_cast<uint32_t>(a));
+}
+
+// Launch 1. A thread per (lane, proposer).
+__global__ void __launch_bounds__(THREADS)
+paxos_propose_kernel(const uint32_t* __restrict__ seed, uint32_t r,
+                     int32_t* __restrict__ props, int P, uint32_t churn_cut,
+                     int N, int S, long long rows) {
+  const long long row =
+      static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
+  if (row >= rows) return;
+  const int b = static_cast<int>(row / N);
+  const int p = static_cast<int>(row - static_cast<long long>(b) * N);
+  const ctt::Proposal pr = ctt::proposal(seed[b], r, p, P, churn_cut, N, S);
+  int32_t* lane = props + static_cast<long long>(b) * 4 * N;
+  lane[ctt::PROP_SLOT * N + p] = pr.slot;
+  lane[ctt::PROP_BALLOT * N + p] = pr.ballot;
+  lane[ctt::PROP_FLAG * N + p] = pr.is_prop;
+  lane[ctt::PROP_VALUE * N + p] = pr.v_own;
+}
+
+// Launch 2. A block of 32 x 8 per (column tile, row tile, lane), flattened
+// in that order.
+__global__ void paxos_transpose_kernel(const uint8_t* __restrict__ in,
+                                       uint8_t* __restrict__ out, int N,
+                                       int tiles) {
+  __shared__ uint8_t tile[32][33];
+  const long long t = blockIdx.x / tiles;
+  const int tx = static_cast<int>(blockIdx.x - t * tiles);
+  const long long b = t / tiles;
+  const int ty = static_cast<int>(t - b * tiles);
+  const long long base = b * N * N;
+  const int x = tx * 32 + threadIdx.x;
+  for (int k = threadIdx.y; k < 32; k += 8) {
+    const int y = ty * 32 + k;
+    if (x < N && y < N)
+      tile[k][threadIdx.x] = in[base + static_cast<long long>(y) * N + x];
+  }
+  __syncthreads();
+  const int ox = ty * 32 + threadIdx.x;
+  for (int k = threadIdx.y; k < 32; k += 8) {
+    const int oy = tx * 32 + k;
+    if (ox < N && oy < N)
+      out[base + static_cast<long long>(oy) * N + ox] = tile[threadIdx.x][k];
+  }
+}
+
+// Launch 3. A block per (lane, acceptor row).
+__global__ void __launch_bounds__(THREADS)
+paxos_prepare_kernel(const uint8_t* __restrict__ prep_del,
+                     const int32_t* __restrict__ props,
+                     const int32_t* __restrict__ promised,
+                     int32_t* __restrict__ new_promised, int n_prop, int N,
+                     int S, bool in_smem) {
+  extern __shared__ int32_t smem[];
+  const long long row = blockIdx.x;
+  const int b = static_cast<int>(row / N);
+  const int32_t* lane = props + static_cast<long long>(b) * 4 * N;
+  const long long cell = row * S;
+  int32_t* pm = in_smem ? smem : new_promised + cell;
+  for (int s = threadIdx.x; s < S; s += THREADS) pm[s] = 0;
+  __syncthreads();
+  const uint8_t* dt = prep_del + row * N;
+  for (int p = threadIdx.x; p < n_prop; p += THREADS) {
+    if (lane[ctt::PROP_FLAG * N + p] && dt[p])
+      atomicMax(pm + lane[ctt::PROP_SLOT * N + p],
+                lane[ctt::PROP_BALLOT * N + p]);
+  }
+  __syncthreads();
+  for (int s = threadIdx.x; s < S; s += THREADS)
+    new_promised[cell + s] = max(promised[cell + s], pm[s]);
+}
+
+// Launch 4. A block per (proposer chunk, acceptor tile, lane), flattened
+// in that order.
+__global__ void __launch_bounds__(THREADS)
+paxos_promise_tile_kernel(const uint8_t* __restrict__ deliver,
+                          const uint8_t* __restrict__ prep_del,
+                          const int32_t* __restrict__ props,
+                          const int32_t* __restrict__ promised,
+                          const int32_t* __restrict__ new_promised,
+                          const int32_t* __restrict__ acc_bal,
+                          int32_t* __restrict__ n_prom,
+                          unsigned long long* __restrict__ keys, int N,
+                          int S) {
+  const ctt::TileBlock tb = ctt::tile_block(N);
+  const int p = tb.p;
+  if (p >= N) return;
+  const int b = tb.b;
+  const int32_t* lane = props + static_cast<long long>(b) * 4 * N;
+  const bool is_prop = lane[ctt::PROP_FLAG * N + p];
+  const int32_t slot = lane[ctt::PROP_SLOT * N + p];
+  const int32_t ballot = lane[ctt::PROP_BALLOT * N + p];
+  const int a0 = tb.a0;
+  const int a1 = min(a0 + ctt::TILE_ROWS, N);
+  int count = 0;
+  unsigned long long best = 0ull;
+  for (int a = a0; a < a1; ++a) {
+    const long long row = static_cast<long long>(b) * N + a;
+    int32_t rep = 0;
+    if (is_prop && prep_del[row * N + p] && deliver[row * N + p]) {
+      const long long c = row * S + slot;
+      if (ballot > promised[c] && ballot == new_promised[c]) {
+        ++count;
+        rep = acc_bal[c];
+      }
+    }
+    const unsigned long long key = pack(rep, a);
+    best = key > best ? key : best;
+  }
+  const long long i = static_cast<long long>(b) * N + p;
+  if (count) atomicAdd(n_prom + i, count);
+  atomicMax(keys + i, best);
+}
+
+// Launch 5. A thread per (lane, proposer).
+__global__ void __launch_bounds__(THREADS)
+paxos_unpack_kernel(const unsigned long long* __restrict__ keys,
+                    int32_t* __restrict__ best_bal,
+                    int32_t* __restrict__ best_a, long long rows) {
+  const long long i =
+      static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
+  if (i >= rows) return;
+  const unsigned long long key = keys[i];
+  best_bal[i] = static_cast<int32_t>(static_cast<uint32_t>(key >> 32) ^
+                                     0x80000000u);
+  best_a[i] = static_cast<int32_t>(0xFFFFFFFFu -
+                                   static_cast<uint32_t>(key & 0xFFFFFFFFull));
+}
+
+}  // namespace
+
+extern "C" int ctt_paxos_promise(
+    const uint32_t* seed, uint32_t r, const uint8_t* deliver,
+    const int32_t* promised, const int32_t* acc_bal, int32_t* new_promised,
+    int32_t* n_prom, int32_t* best_bal, int32_t* best_a, uint8_t* prep_del,
+    int32_t* props, unsigned long long* keys, int P, uint32_t churn_cut,
+    int B, int N, int S, cudaStream_t st) {
+  if (B == 0 || N == 0) return 0;
+  static bool configured = false;
+  if (!configured) {
+    const int err = static_cast<int>(cudaFuncSetAttribute(
+        paxos_prepare_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        ctt::ROW_SMEM_MAX));
+    if (err != 0) return err;
+    configured = true;
+  }
+  const long long rows = static_cast<long long>(B) * N;
+  int err = static_cast<int>(
+      cudaMemsetAsync(n_prom, 0, rows * sizeof(int32_t), st));
+  if (err == 0)
+    err = static_cast<int>(
+        cudaMemsetAsync(keys, 0, rows * sizeof(unsigned long long), st));
+  if (err != 0) return err;
+  const unsigned row_blocks = static_cast<unsigned>((rows + THREADS - 1) /
+                                                    THREADS);
+  paxos_propose_kernel<<<row_blocks, THREADS, 0, st>>>(seed, r, props, P,
+                                                        churn_cut, N, S, rows);
+  const int tiles = (N + 31) / 32;
+  paxos_transpose_kernel<<<static_cast<unsigned>(static_cast<long long>(tiles) *
+                                                 tiles * B),
+                           dim3(32, 8), 0, st>>>(deliver, prep_del, N, tiles);
+  const bool in_smem =
+      static_cast<long long>(S) * sizeof(int32_t) <= ctt::ROW_SMEM_MAX;
+  paxos_prepare_kernel<<<static_cast<unsigned>(rows), THREADS,
+                         in_smem ? S * sizeof(int32_t) : 0, st>>>(
+      prep_del, props, promised, new_promised, P < N ? P : N, N, S, in_smem);
+  paxos_promise_tile_kernel<<<ctt::tile_blocks(B, N), THREADS, 0, st>>>(
+      deliver, prep_del, props, promised, new_promised, acc_bal, n_prom, keys,
+      N, S);
+  paxos_unpack_kernel<<<row_blocks, THREADS, 0, st>>>(keys, best_bal, best_a,
+                                                       rows);
+  return static_cast<int>(cudaGetLastError());
+}

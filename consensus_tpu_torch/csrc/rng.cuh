@@ -14,6 +14,8 @@ constexpr uint32_t STREAM_DELIVER = 0x9E3779B1u;
 constexpr uint32_t STREAM_TIMEOUT = 0x85EBCA77u;
 constexpr uint32_t STREAM_CHURN = 0xC2B2AE3Du;
 constexpr uint32_t STREAM_PARTITION = 0x27D4EB2Fu;
+constexpr uint32_t STREAM_STAKE = 0x165667B1u;
+constexpr uint32_t STREAM_VOTE = 0xD3A2646Cu;
 constexpr uint32_t STREAM_VALUE = 0xFD7046C5u;
 
 __device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {

@@ -1,0 +1,291 @@
+"""DPoS in PyTorch: SPEC §7, a stake-weighted producer schedule and one
+block a round.
+
+The port of ``consensus_tpu/engines/dpos.py`` on its flat path (no crash,
+slot-miss or suppression gates, no telemetry). Each epoch's producers are
+the top K candidates of a stake-weighted vote tally over every validator,
+computed once from the seed at init; round r's producer is entry
+``(r mod epoch_len) mod K`` of epoch ``r // epoch_len``'s list, and every
+validator that its block reaches appends (r, producer) to its chain. No
+[V, V] mask exists: a round draws the producer's V edges only. Sweeps
+(lanes) are a leading batch axis B on every tensor.
+
+Two functions are wrappers of hand-written CUDA kernels, each beside its
+plain PyTorch version (``<name>_plain``), which CPU tensors run:
+
+* :func:`dpos_schedule` — kernel KW (``csrc/dpos_schedule.cu``): stakes,
+  votes, the [B, E, C] tallies and the [B, E, K] producers, at init;
+* :func:`dpos_round` — kernel KX (``csrc/dpos_round.cu``): one round's
+  delivery from the producer and the chain appends.
+
+On the card a run is KW once and KX once a round, and nothing else. The
+chains are updated in place, where the JAX round returns new arrays: a
+round's state replaces its input state. They are stored as the JAX
+package stores them, ``chain_r`` in the narrowest unsigned type that holds
+``n_rounds - 1`` and ``chain_p`` in the narrowest that holds
+``n_candidates - 1`` (uint8, uint16 or int32).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..core import rng
+from ..core.config import Config
+from ..ops.adversary import bitcast_i32
+from .raft import check_all
+
+# The engine's name, as the JAX package's EngineDef names it.
+NAME = "dpos"
+
+
+class DposState(NamedTuple):
+    seed: torch.Tensor       # [B] uint32
+    producers: torch.Tensor  # [B, E, K] i32: each epoch's producer list
+    chain_r: torch.Tensor    # [B, V, L] store_dtype(n_rounds - 1): rounds
+    chain_p: torch.Tensor    # [B, V, L] store_dtype(n_candidates - 1)
+    chain_len: torch.Tensor  # [B, V] i32
+    down: torch.Tensor       # [B, V] bool (SPEC §6c; all False here)
+
+
+def store_dtype(vmax: int) -> torch.dtype:
+    """The narrowest unsigned storage of values in [0, vmax], as
+    ``consensus_tpu/engines/raft.py`` ``_store_dtype`` picks it (int32
+    past uint16)."""
+    if vmax <= 0xFF:
+        return torch.uint8
+    return torch.uint16 if vmax <= 0xFFFF else torch.int32
+
+
+def n_epochs(cfg: Config) -> int:
+    """E = ceil(n_rounds / epoch_len): the epochs a run reaches."""
+    return -(-cfg.n_rounds // cfg.epoch_len)
+
+
+# --- KW: the epoch schedule --------------------------------------------------
+
+def dpos_schedule_plain(cfg: Config, seeds) -> tuple:
+    """Plain version of KW, SPEC §7's schedule for each seed of ``seeds``
+    ([B] uint32). Validator v's stake is ``draw(STAKE, 0, 0, v) mod 1000 +
+    1``; in epoch e it votes for candidate ``draw(VOTE, e, 0, v) mod C``;
+    ``tallies[b, e, c]`` is the int32 (wrapping) sum of the stakes voting
+    for c, and ``producers[b, e]`` the first K candidates of a stable
+    ascending sort of the wrapped negated tallies: most stake first, ties
+    to the lower id. Returns (producers [B, E, K], tallies [B, E, C]),
+    int32."""
+    V, C, K, E = cfg.n_nodes, cfg.n_candidates, cfg.n_producers, \
+        n_epochs(cfg)
+    B, dev = seeds.shape[0], seeds.device
+    v = torch.arange(V, dtype=torch.int64, device=dev)
+    stake = rng.random_u32_plain(seeds, rng.STREAM_STAKE, 0, 0, v) % 1000 + 1
+    e = torch.arange(E, dtype=torch.int64, device=dev)
+    k0 = (rng.as_u32(seeds) ^ rng.STREAM_VOTE)[:, None, None]
+    shape = (B, E, V)
+    vote = rng.threefry2x32_plain(k0.expand(shape), e[None, :, None].expand(
+        shape), torch.zeros(shape, dtype=torch.int64, device=dev),
+        v.expand(shape)) % C
+    tallies = torch.zeros((B, E, C), dtype=torch.int64, device=dev)
+    tallies.scatter_add_(2, vote, stake[:, None, :].expand(shape))
+    tallies = bitcast_i32(rng.as_u32(tallies))
+    return top_producers_plain(tallies, K), tallies
+
+
+def top_producers_plain(tallies, K: int) -> torch.Tensor:
+    """The first K candidates of a stable ascending sort of each epoch's
+    wrapped negated int32 ``tallies`` ([..., C]), as the JAX package's
+    ``jnp.argsort(-tally, stable=True)[:K]``: most stake first, ties to
+    the lower id. [..., K] int32."""
+    order = torch.argsort(bitcast_i32(rng.as_u32(-tallies.to(torch.int64))),
+                          dim=-1, stable=True)
+    return order[..., :K].to(torch.int32).contiguous()
+
+
+def dpos_schedule(cfg: Config, seeds) -> tuple:
+    """Kernel KW: same arguments and result as :func:`dpos_schedule_plain`,
+    which it runs for CPU tensors; for CUDA tensors it launches
+    ``csrc/dpos_schedule.cu`` (a thread per (lane, validator) draws its
+    stake once and adds it into its vote's tally of every epoch with an
+    integer atomic, then a
+    thread per (lane, epoch, candidate) counts the candidates ranked before
+    it and, when that rank is below K, writes its id there)."""
+    if seeds.device.type == "cpu":
+        return dpos_schedule_plain(cfg, seeds)
+    from .. import _build
+    B, dev = seeds.shape[0], seeds.device
+    V, C, K, E = cfg.n_nodes, cfg.n_candidates, cfg.n_producers, \
+        n_epochs(cfg)
+    _build.check(seeds, torch.uint32, dev, (B,))
+    producers = torch.empty((B, E, K), dtype=torch.int32, device=dev)
+    tallies = torch.empty((B, E, C), dtype=torch.int32, device=dev)
+    _build.launch("dpos_schedule", seeds.data_ptr(), producers.data_ptr(),
+                  tallies.data_ptr(), B, E, V, C, K)
+    dpos_schedule.launches += 1
+    return producers, tallies
+
+
+dpos_schedule.launches = 0
+
+
+# --- KX: the round -----------------------------------------------------------
+
+def round_producer(cfg: Config, producers, r: int) -> torch.Tensor:
+    """[B] int32: round r's producer of each lane, entry
+    ``(r mod epoch_len) mod K`` of epoch ``r // epoch_len``'s list (read
+    on the device)."""
+    e, t = divmod(int(r), cfg.epoch_len)
+    return producers[:, e, t % cfg.n_producers]
+
+
+def dpos_round_plain(cfg: Config, seed, r: int, producers, chain_r, chain_p,
+                     chain_len):
+    """Plain version of KX, one SPEC §7 round at every validator v of each
+    lane, in place. The round's producer p (:func:`round_producer`) sends
+    its block: it reaches v != p when the delivery mixer's draw of the edge
+    p -> v is not below the drop cutoff and, in a round whose partition is
+    active, v drew p's side; p itself always has it. Unless the round's
+    churn event fires, a reached validator whose chain is not full writes
+    (r, p) at index ``chain_len[v]`` and counts it. Returns (chain_r,
+    chain_p, chain_len), the tensors it was given."""
+    V, L = chain_len.shape[1], chain_r.shape[2]
+    dev = chain_len.device
+    useed = rng.as_u32(seed)[:, None]
+    v = torch.arange(V, dtype=torch.int64, device=dev)[None, :]
+    p = round_producer(cfg, producers, r).to(torch.int64)[:, None]   # [B, 1]
+    open_drop = rng.delivery_u32_plain(useed, r, p, v) >= cfg.drop_cutoff
+    part_active = rng.random_u32_plain(seed, rng.STREAM_PARTITION, r, 0, 0) \
+        < cfg.partition_cutoff                                       # [B, 1]
+    side_v = rng.threefry2x32_plain(useed ^ rng.STREAM_PARTITION, r, 1,
+                                    v.expand(useed.shape[0], V)) & 1
+    side_p = rng.threefry2x32_plain(useed ^ rng.STREAM_PARTITION, r, 1,
+                                    p) & 1
+    ok = open_drop & ((side_v == side_p) | ~part_active) & (v != p)
+    churn = rng.random_u32_plain(seed, rng.STREAM_CHURN, r, 0, 0) \
+        < cfg.churn_cutoff                                           # [B, 1]
+    append = (ok | (v == p)) & ~churn & (chain_len < L)
+    hot = (torch.arange(L, dtype=torch.int32, device=dev)
+           == chain_len[:, :, None]) & append[:, :, None]
+    chain_r.copy_(torch.where(hot, int(r), chain_r.to(torch.int32)))
+    chain_p.copy_(torch.where(hot, p[:, :, None].to(torch.int32),
+                              chain_p.to(torch.int32)))
+    chain_len.add_(append.to(torch.int32))
+    return chain_r, chain_p, chain_len
+
+
+def dpos_round(cfg: Config, seed, r: int, producers, chain_r, chain_p,
+               chain_len):
+    """Kernel KX: same arguments and result as :func:`dpos_round_plain`,
+    which it runs for CPU tensors; for CUDA tensors it launches
+    ``csrc/dpos_round.cu`` (a thread per (lane, validator) reads its
+    lane's producer, draws the edge, and appends in place)."""
+    if chain_len.device.type == "cpu":
+        return dpos_round_plain(cfg, seed, r, producers, chain_r, chain_p,
+                                chain_len)
+    from .. import _build
+    B, V, L = chain_r.shape
+    if not 0 <= int(r) < cfg.n_rounds:
+        raise ValueError(f"round {r} is outside the run's rounds 0.."
+                         f"{cfg.n_rounds - 1}")
+    check_all(chain_len.device, (seed, torch.uint32, (B,)),
+              (producers, torch.int32, (B, n_epochs(cfg), cfg.n_producers)),
+              (chain_r, store_dtype(cfg.n_rounds - 1), (B, V, L)),
+              (chain_p, store_dtype(cfg.n_candidates - 1), (B, V, L)),
+              (chain_len, torch.int32, (B, V)))
+    e, t = divmod(int(r), cfg.epoch_len)
+    _build.launch("dpos_round", seed.data_ptr(), int(r) & 0xFFFFFFFF,
+                  producers.data_ptr(), chain_r.data_ptr(),
+                  chain_p.data_ptr(), chain_len.data_ptr(),
+                  chain_r.element_size(), chain_p.element_size(),
+                  e * cfg.n_producers + t % cfg.n_producers,
+                  n_epochs(cfg) * cfg.n_producers, cfg.drop_cutoff,
+                  cfg.partition_cutoff, cfg.churn_cutoff, B, V, L)
+    dpos_round.launches += 1
+    return chain_r, chain_p, chain_len
+
+
+dpos_round.launches = 0
+
+
+# --- the engine --------------------------------------------------------------
+
+def dpos_init(cfg: Config, seeds: torch.Tensor) -> DposState:
+    """Fresh state for each sweep seed in ``seeds`` ([B] uint32): the
+    epoch schedule (KW, ``dpos_make_carry``'s ``dpos_schedule``) and empty
+    chains."""
+    V, L = cfg.n_nodes, cfg.log_capacity
+    B, dev = seeds.shape[0], seeds.device
+    producers, _ = dpos_schedule(cfg, seeds)
+    return DposState(
+        seed=seeds, producers=producers,
+        chain_r=torch.zeros((B, V, L), dtype=store_dtype(cfg.n_rounds - 1),
+                            device=dev),
+        chain_p=torch.zeros((B, V, L),
+                            dtype=store_dtype(cfg.n_candidates - 1),
+                            device=dev),
+        chain_len=torch.zeros((B, V), dtype=torch.int32, device=dev),
+        down=torch.zeros((B, V), dtype=torch.bool, device=dev))
+
+
+def dpos_step(cfg: Config, st: DposState, r: int) -> DposState:
+    """One SPEC §7 round, as ``consensus_tpu/engines/dpos.py``
+    ``dpos_round`` on its flat path: one launch of KX, which updates the
+    chains in place."""
+    chain_r, chain_p, chain_len = dpos_round(cfg, st.seed, r, st.producers,
+                                             st.chain_r, st.chain_p,
+                                             st.chain_len)
+    return st._replace(chain_r=chain_r, chain_p=chain_p, chain_len=chain_len)
+
+
+def extract(st: DposState) -> dict[str, torch.Tensor]:
+    """The leaves the decided-log digest and the tests read (the JAX
+    package's ``_dpos_extract``): the chains as int32."""
+    return {"chain_r": st.chain_r.to(torch.int32),
+            "chain_p": st.chain_p.to(torch.int32),
+            "chain_len": st.chain_len}
+
+
+def lib_index(chain_p, chain_len, n_candidates: int, n_producers: int):
+    """SPEC §7 last-irreversible block, on the host: a copy of
+    ``consensus_tpu/engines/dpos.py`` ``lib_index``. The largest local
+    index k such that the blocks after k were produced by at least T =
+    floor(2K/3) + 1 distinct candidates (-1 if none), vectorised over
+    leading batch axes: chain_p [..., L], chain_len [...] -> lib [...]
+    int64. Closed form: (the T-th largest of each candidate's last
+    occurrence index) - 1, clamped to -1."""
+    chain_p = np.asarray(chain_p)
+    chain_len = np.asarray(chain_len)
+    T = (2 * n_producers) // 3 + 1
+    lead = chain_p.shape[:-1]
+    L = chain_p.shape[-1]
+    if T > n_candidates:
+        return np.full(lead, -1, np.int64)
+    # A stable argsort groups each candidate's occurrences into a run with
+    # k ascending, so the end of each run is its last occurrence; slots
+    # past chain_len sort into a sentinel run after every candidate.
+    B = int(np.prod(lead, dtype=np.int64)) if lead else 1
+    k_idx = np.arange(L, dtype=np.int64)
+    valid = k_idx < chain_len.reshape(B, 1)
+    p = np.where(valid, chain_p.reshape(B, L), n_candidates)
+    order = np.argsort(p, axis=-1, kind="stable")
+    p_sorted = np.take_along_axis(p, order, axis=-1)
+    run_end = np.ones((B, L), dtype=bool)
+    run_end[:, :-1] = p_sorted[:, 1:] != p_sorted[:, :-1]
+    rows, ends = np.nonzero(run_end)
+    lo = np.full((B, n_candidates + 1), -1, np.int64)
+    lo[rows, p_sorted[rows, ends]] = order[rows, ends]
+    last_occ = lo[:, :n_candidates].reshape(lead + (n_candidates,))
+    lt = np.partition(last_occ, n_candidates - T,
+                      axis=-1)[..., n_candidates - T]
+    return np.maximum(lt - 1, -1)
+
+
+def dpos_run(cfg: Config, device=None, **kw) -> dict[str, np.ndarray]:
+    """``network/runner.py`` :func:`run` of a DPoS config, plus ``lib``,
+    the SPEC §7 last-irreversible index of every chain (host numpy,
+    leading sweep axis)."""
+    from ..network import runner
+    out = runner.run(cfg, device, **kw)
+    out["lib"] = lib_index(out["chain_p"], out["chain_len"],
+                           cfg.n_candidates, cfg.n_producers)
+    return out

@@ -1,10 +1,10 @@
 """The batched round loop: the port of ``consensus_tpu/network/runner.py``'s
 plain path (``EngineDef``, ``make_seeds``, ``_init_jit``, the scan of
 ``_chunk_jit`` with ``_chunk_body``'s telemetry accumulators, ``run``), for
-the dense and the capped Raft engine and the dense and the §6b broadcast
-PBFT engine alike, and of ``consensus_tpu/engines/pbft_sweep.py``'s
-``_fsweep_jit``: a PBFT f-ladder is one run whose lanes carry their own
-population and tolerance.
+the dense and the capped Raft engine, the dense and the §6b broadcast
+PBFT engine, the Paxos and the DPoS engine alike, and of
+``consensus_tpu/engines/pbft_sweep.py``'s ``_fsweep_jit``: a PBFT f-ladder
+is one run whose lanes carry their own population and tolerance.
 
 Sweeps (lanes) are the leading batch axis of every state tensor. A run's
 per-lane inputs are its seeds and, for PBFT, each lane's ``n_real`` and
@@ -29,7 +29,8 @@ import torch
 from .. import _build
 from ..core import rng
 from ..core.config import Config
-from ..engines import pbft, pbft_bcast, pbft_sweep, raft, raft_sparse
+from ..engines import (dpos, paxos, pbft, pbft_bcast, pbft_sweep, raft,
+                       raft_sparse)
 from ..engines.raft import RAFT_LATENCY, RAFT_TELEMETRY
 from ..ops import adversary
 from ..ops.flight import BUCKET_LO, N_BUCKETS
@@ -43,7 +44,9 @@ _WRAPPER_MODULES = {"random_u32": rng, "delivery_edges": adversary,
                     "dense_telemetry": raft, "pbft_view_preprepare": pbft,
                     "pbft_tally": pbft, "pbft_decide": pbft,
                     "bcast_view_preprepare": pbft_bcast,
-                    "bcast_tally": pbft_bcast, "bcast_decide": pbft_bcast}
+                    "bcast_tally": pbft_bcast, "bcast_decide": pbft_bcast,
+                    "dpos_schedule": dpos, "dpos_round": dpos,
+                    "paxos_promise": paxos, "paxos_accept_learn": paxos}
 KERNELS = tuple((_WRAPPER_MODULES.get(name, raft_sparse), name)
                 for name in _build.SOURCES)
 
@@ -78,6 +81,10 @@ PBFT_BCAST = Engine(pbft_bcast.NAME, pbft.pbft_init,
                     telemetry=False,
                     statics=lambda cfg, rungs: {
                         "m": pbft_bcast.table_cap(cfg, rungs)})
+PAXOS = Engine(paxos.NAME, paxos.paxos_init, paxos.paxos_round,
+               paxos.extract, telemetry=False)
+DPOS = Engine(dpos.NAME, dpos.dpos_init, dpos.dpos_step, dpos.extract,
+              telemetry=False)
 
 
 def engine(cfg: Config) -> Engine:
@@ -85,6 +92,10 @@ def engine(cfg: Config) -> Engine:
     engine_def): by protocol, then, for pbft, by fault model (the §6b
     broadcast engine at ``fault_model="bcast"``), for raft dense at
     ``max_active = 0``, else the §3b capped one."""
+    if cfg.protocol == "paxos":
+        return PAXOS
+    if cfg.protocol == "dpos":
+        return DPOS
     if cfg.protocol == "pbft":
         return PBFT_BCAST if cfg.fault_model == "bcast" else PBFT
     return DENSE if cfg.max_active == 0 else CAPPED
@@ -267,20 +278,22 @@ def run_device(cfg: Config, device=None, *, telemetry: bool = False,
 
     ``telemetry`` accumulates the counters (and, with
     ``cfg.telemetry_window > 0``, the flight recorder); both Raft engines
-    have them, both PBFT engines raise. ``rungs`` runs a PBFT f-ladder
-    (:func:`lane_inputs`). ``graph`` (default: on ``cuda``, and only
-    there) replays the run as one CUDA graph, captured at the first call
-    for this (cfg but its seed, device, telemetry, rungs) and kept until a
-    run of another configuration is captured; the returned tensors are
-    then the graph's static outputs, which the next replay of the same
-    configuration, with any seed, overwrites: copy them before that.
+    have them; both PBFT engines, Paxos and DPoS raise. ``rungs`` runs a
+    PBFT f-ladder (:func:`lane_inputs`). ``graph`` (default: on ``cuda``,
+    and only there) replays the run as one CUDA graph, captured at the
+    first call for this (cfg but its seed, device, telemetry, rungs) and
+    kept until a run of another configuration is captured; the returned
+    tensors are then the graph's static outputs, which the next replay of
+    the same configuration, with any seed, overwrites: copy them before
+    that.
     ``graph=False`` runs the rounds eagerly, one launch at a time."""
     dev = resolve_device(device)
     if telemetry and not engine(cfg).telemetry:
         raise ValueError(f"telemetry on the {engine(cfg).name} engine is "
                          "not ported yet: consensus_tpu/engines/pbft.py "
-                         "pbft_round's and pbft_bcast.py pbft_bcast_round's "
-                         "counter and flight tail")
+                         "pbft_round's, pbft_bcast.py pbft_bcast_round's, "
+                         "paxos.py paxos_round's and dpos.py dpos_round's "
+                         "counter and flight tails")
     if cfg.telemetry_window > 0 and not telemetry:
         raise ValueError(
             "telemetry_window > 0 without telemetry=True: the window ring "

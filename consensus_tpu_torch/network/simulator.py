@@ -1,13 +1,17 @@
 """The simulator's front door: the port of ``consensus_tpu/network/simulator.py``
-for raft, dense (``max_active = 0``) or under the §3b cap, and pbft, dense
-(SPEC §6) or under the §6b broadcast fault model.
+for raft, dense (``max_active = 0``) or under the §3b cap, pbft, dense
+(SPEC §6) or under the §6b broadcast fault model, paxos (SPEC §5) and dpos
+(SPEC §7).
 
     result = run(Config(protocol="raft", max_active=8, ...))
     run(Config(protocol="pbft", f=8, n_nodes=25, ...))
     run(Config(protocol="pbft", fault_model="bcast", f=33_333,
                n_nodes=100_000, ...))
+    run(Config(protocol="paxos", n_nodes=10_000, log_capacity=10_000, ...))
+    run(Config(protocol="dpos", n_nodes=100_000, n_candidates=1024, ...))
     result.digest          # SHA-256 of the canonical decided-log bytes
     result.steps_per_sec   # node-round-steps per second of the timed run
+    result.extras["lib"]   # dpos: the SPEC §7 last-irreversible index
     run(cfg, telemetry=True).extras["telemetry"]["totals"]
 """
 from __future__ import annotations
@@ -20,6 +24,7 @@ import numpy as np
 
 from ..core import serialize
 from ..core.config import Config
+from ..engines import dpos
 from . import runner
 
 
@@ -34,7 +39,8 @@ class RunResult:
     rec_a: np.ndarray       # [B, N, L]
     rec_b: np.ndarray
     # "telemetry" (names, per_sweep, totals) and "flight" (the recorder's
-    # windows and latency buckets) of a run with telemetry=True.
+    # windows and latency buckets) of a run with telemetry=True; for dpos
+    # "lib", the last-irreversible index of each chain ([B, V] int64).
     extras: dict = dataclasses.field(default_factory=dict)
 
     @property
@@ -45,20 +51,28 @@ class RunResult:
 def engine_def(cfg: Config) -> runner.Engine:
     """The engine a config resolves to: for pbft the §6b broadcast engine
     at ``fault_model="bcast"``, else the dense SPEC §6 one; dense raft at
-    ``max_active = 0``, else the §3b capped one (Config rejects other
-    protocols)."""
+    ``max_active = 0``, else the §3b capped one; paxos's and dpos's own
+    (Config rejects other protocols)."""
     return runner.engine(cfg)
 
 
 def decided_payload(cfg: Config, out: dict):
     """Canonical packing of an extract dict: for raft the records are
     (log_term[k], log_val[k]) for k < commit, for pbft (slot, dval) of each
-    committed slot, slots ascending. Returns (counts, rec_a, rec_b,
-    payload)."""
+    committed slot and for paxos (slot, learned_val) of each learned slot,
+    slots ascending, for dpos (chain_r[k], chain_p[k]) for k < chain_len.
+    Returns (counts, rec_a, rec_b, payload)."""
     if cfg.protocol == "pbft":
         counts, rec_a, rec_b = serialize.pack_sparse(
             np.asarray(out["committed"]).astype(bool),
             np.asarray(out["dval"]))
+    elif cfg.protocol == "paxos":
+        counts, rec_a, rec_b = serialize.pack_sparse(
+            np.asarray(out["learned_mask"]).astype(bool),
+            np.asarray(out["learned_val"]))
+    elif cfg.protocol == "dpos":
+        counts = np.asarray(out["chain_len"])
+        rec_a, rec_b = np.asarray(out["chain_r"]), np.asarray(out["chain_p"])
     else:
         counts = np.asarray(out["commit"])
         rec_a, rec_b = np.asarray(out["log_term"]), np.asarray(out["log_val"])
@@ -72,7 +86,8 @@ def run(cfg: Config, device=None, telemetry: bool = False) -> RunResult:
     kernels and captures the run's graph), so that ``wall_s`` is one
     replay up to the device's end. ``telemetry=True`` fills
     ``extras["telemetry"]`` and, with ``cfg.telemetry_window > 0``,
-    ``extras["flight"]``, as the JAX package's ``run`` does."""
+    ``extras["flight"]``, as the JAX package's ``run`` does; a dpos run
+    fills ``extras["lib"]``."""
     dev = runner.resolve_device(device)
     runner.run_device(cfg, dev, telemetry=telemetry)
     t0 = time.perf_counter()
@@ -93,6 +108,11 @@ def run(cfg: Config, device=None, telemetry: bool = False) -> RunResult:
             "totals": {k: int(v.sum()) for k, v in tstats.items()}}
     if "flight" in stats:
         extras["flight"] = {"engine": engine_def(cfg).name, **stats["flight"]}
+    if cfg.protocol == "dpos":
+        # The decided records are the chains (counts = chain_len, rec_b =
+        # chain_p), as the JAX package derives lib from them.
+        extras["lib"] = dpos.lib_index(rec_b, counts, cfg.n_candidates,
+                                       cfg.n_producers)
     return RunResult(config=cfg, payload=payload,
                      digest=serialize.digest(payload), wall_s=wall,
                      node_round_steps=cfg.n_sweeps * cfg.n_nodes

@@ -1,9 +1,10 @@
 """The port's Config and entry points refuse what they do not support.
 
 Every knob of the JAX package's Config that the port does not implement yet
-raises when set off its default, on the dense engine as on the capped one,
-telemetry on the dense PBFT engine raises, and the entry points raise
-without a GPU unless the caller asks for the CPU.
+raises when set off its default, on the dense engine as on the capped one
+and on the Paxos and DPoS engines, telemetry on the dense PBFT, Paxos and
+DPoS engines raises, and the entry points raise without a GPU unless the
+caller asks for the CPU.
 """
 import dataclasses
 
@@ -22,6 +23,7 @@ OFF_DEFAULT = {
     "max_delay_rounds": 2, "attack": "elect", "attack_rate": 0.5,
     "attack_target": 1, "net_model": "switch", "n_aggregators": 2,
     "n_byzantine": 1, "byz_mode": "equivocate", "desync_rate": 0.1,
+    "miss_rate": 0.1, "suppress_rate": 0.1, "suppress_window": 8,
     "scan_chunk": 4, "sweep_chunk": 1,
     "mesh_shape": (2,),
 }
@@ -135,7 +137,7 @@ def test_pbft_takes_any_slot_count():
     dict(max_active=-1),                # neither dense (0) nor capped
     dict(max_active=17),
     dict(max_active=10),                # more than n_nodes
-    dict(protocol="paxos"),
+    dict(protocol="hotstuff"),
     dict(log_capacity=255),
     dict(t_min=5, t_max=5),
     dict(n_rounds=0),
@@ -149,7 +151,7 @@ def test_out_of_range_settings_raise(bad):
 
 def test_knobs_of_other_protocols_are_not_fields():
     with pytest.raises(TypeError):
-        Config(**OK, n_proposers=2)
+        Config(**OK, max_skew_rounds=2)
 
 
 def test_cutoffs_match_the_reference():
@@ -213,3 +215,56 @@ def test_every_kernel_source_has_a_counted_wrapper():
     for mod, name in runner.KERNELS:
         assert isinstance(getattr(mod, name).launches, int)
         assert callable(getattr(mod, name + "_plain"))
+
+
+# --- Paxos and DPoS ----------------------------------------------------------
+
+PAXOS_OK = dict(protocol="paxos", n_nodes=7, n_rounds=4, log_capacity=300)
+DPOS_OK = dict(protocol="dpos", n_nodes=50, n_rounds=300, log_capacity=8)
+
+
+def test_paxos_and_dpos_defaults_match_jax():
+    from consensus_tpu import Config as JConfig
+    names = ("n_proposers", "n_candidates", "n_producers", "epoch_len",
+             "miss_rate", "suppress_rate", "suppress_window")
+    got, want = Config(**DPOS_OK), JConfig(**DPOS_OK)
+    assert {k: getattr(got, k) for k in names} == \
+        {k: getattr(want, k) for k in names}
+    assert (got.n_proposers, got.n_candidates, got.n_producers,
+            got.epoch_len, got.suppress_window) == (0, 16, 4, 16, 16)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(n_candidates=60),                  # more candidates than nodes
+    dict(n_producers=17),                   # more producers than candidates
+    dict(n_producers=0),
+    dict(epoch_len=0)])
+def test_dpos_rejections_match_jax(kw):
+    from consensus_tpu import Config as JConfig
+    with pytest.raises(ValueError) as want:
+        JConfig(**{**DPOS_OK, **kw})
+    with pytest.raises(ValueError) as got:
+        Config(**{**DPOS_OK, **kw})
+    assert str(got.value) == str(want.value)
+
+
+@pytest.mark.parametrize("base", [PAXOS_OK, DPOS_OK], ids=["paxos", "dpos"])
+@pytest.mark.parametrize("knob", sorted(OFF_DEFAULT))
+def test_unsupported_knob_raises_on_paxos_and_dpos(base, knob):
+    with pytest.raises(ValueError, match=knob):
+        Config(**{**base, knob: OFF_DEFAULT[knob]})
+
+
+@pytest.mark.parametrize("kw", [PAXOS_OK, DPOS_OK], ids=["paxos", "dpos"])
+def test_paxos_and_dpos_select_their_engines(kw):
+    """Each selects its engine, named as the JAX package names it, takes
+    any slot count, and raises on telemetry."""
+    from consensus_tpu import Config as JConfig
+    from consensus_tpu.network import simulator as jsim
+    cfg = Config(**kw)
+    eng = simulator.engine_def(cfg)
+    assert eng is {"paxos": runner.PAXOS, "dpos": runner.DPOS}[cfg.protocol]
+    assert eng.name == jsim.engine_def(JConfig(**kw)).name
+    with pytest.raises(ValueError, match=cfg.protocol):
+        simulator.run(cfg, device="cpu", telemetry=True)
+    assert runner.lane_inputs(cfg).keys() == {"seed"}

@@ -1,7 +1,9 @@
 """State carried across by consensus_tpu_torch/convert.py.
 
 The JAX carry after k rounds becomes the port's state; both implementations
-then step one round, and every leaf must be equal (tolerance 0).
+then step one round, and every leaf must be equal (tolerance 0). DPoS and
+Paxos states round-trip with the JAX package's dtypes, the DPoS chains in
+each of their uint8, uint16 and int32 storages.
 """
 import numpy as np
 import pytest
@@ -17,6 +19,8 @@ from consensus_tpu.network import simulator as jsim  # noqa: E402
 from consensus_tpu_torch import Config  # noqa: E402
 from consensus_tpu_torch import convert  # noqa: E402
 from consensus_tpu_torch.engines import raft_sparse as trs  # noqa: E402
+from consensus_tpu_torch.engines.dpos import DposState  # noqa: E402
+from consensus_tpu_torch.engines.paxos import PaxosState  # noqa: E402
 
 KW = dict(protocol="raft", n_nodes=300, n_rounds=40, n_sweeps=2,
           log_capacity=32, max_entries=24, max_active=6, seed=21, t_min=2,
@@ -147,3 +151,47 @@ def test_every_round_from_jax_state_on_edge_paths(case, monkeypatch):
     # no acked term exceeds the leader's: bump3 stays dark (kernel KH's
     # bump is held to its plain version on built inputs instead).
     assert seen["bump3"] == 0
+
+
+# --- DPoS and Paxos carries --------------------------------------------------
+
+@pytest.mark.parametrize("rdt,pdt", [(np.uint8, np.uint8),
+                                     (np.uint16, np.uint16),
+                                     (np.uint8, np.int32)])
+def test_chain_dtypes_roundtrip(rdt, pdt):
+    g = np.random.default_rng(0)
+    leaves = {"seed": np.arange(2, dtype=np.uint32),
+              "producers": g.integers(0, 9, (2, 3, 4)).astype(np.int32),
+              "chain_r": g.integers(0, 200, (2, 5, 6)).astype(rdt),
+              "chain_p": g.integers(0, 200, (2, 5, 6)).astype(pdt),
+              "chain_len": g.integers(0, 7, (2, 5)).astype(np.int32),
+              "down": np.zeros((2, 5), bool)}
+    back = convert.state_to_numpy(convert.state_from_numpy(leaves))
+    for name, a in leaves.items():
+        assert back[name].dtype == a.dtype and np.array_equal(back[name], a)
+    st = convert.state_from_numpy(leaves)
+    assert isinstance(st, DposState)
+    producers, rest = convert.dpos_carry(back)
+    assert np.array_equal(producers, leaves["producers"])
+    assert set(rest) == set(leaves) - {"producers"}
+
+
+def test_paxos_state_roundtrips_with_jax_dtypes():
+    from consensus_tpu.engines.paxos import paxos_init
+    jst = paxos_init(JConfig(protocol="paxos", n_nodes=6, log_capacity=4),
+                     np.uint32(3))
+    leaves = {k: np.stack([np.asarray(v)] * 2) for k, v in
+              jst._asdict().items()}
+    leaves["acc_val"] = leaves["acc_val"] - 7
+    leaves["learned_mask"][0, 1, 2] = True
+    st = convert.state_from_numpy(leaves)
+    assert isinstance(st, PaxosState)
+    assert st.learned_mask.dtype == torch.bool
+    assert st.seed.dtype == torch.uint32
+    back = convert.state_to_numpy(st)
+    for name, a in leaves.items():
+        assert back[name].dtype == a.dtype and np.array_equal(back[name], a)
+    with pytest.raises(TypeError):
+        convert.state_from_numpy(
+            {**leaves,
+             "learned_mask": leaves["learned_mask"].astype(np.uint8)})
