@@ -40,7 +40,17 @@ Phases, each printing one JSON line:
                run's rounds, on random states whose accepted ballots tie
                across acceptors on slots every proposer contends for, and
                at S = 60 000 (more slots than a row block's shared memory
-               holds), and on 70 000 lanes at N = 7, S = 16.
+               holds), and on 70 000 lanes at N = 7, S = 16. KAA-KAC (the
+               telemetry of dense and §6b PBFT, DPoS and Paxos) on rounds
+               3 and 20 of pbft-f128, pbft-100k-bcast and dpos-100k (and
+               its round 200), rounds 1 and 15 of paxos-10kx10k and rounds
+               of the hostile dense PBFT, DPoS and Paxos runs, all with
+               telemetry and 8-round windows, and on random states (views
+               that differ across nodes, some past P1's range, catch-ups,
+               down nodes and an all-down lane, lanes with n_real < N,
+               strided and misaligned inputs), with and without the
+               recorder; KQ, KT, KX, KY and KZ also with their optional
+               outputs set, on those rounds and on their edge inputs.
                Tolerance: none, the results are integers and must be
                equal. Times are device time per call (torch.profiler
                kernel durations).
@@ -75,9 +85,10 @@ Phases, each printing one JSON line:
                and an eager capped run, an eager dense run with telemetry
                and an eager fs = 1..128 ladder, an eager
                pbft-100k-bcast run, an eager dpos-100k run and an eager
-               paxos-10kx10k run cut to 4 rounds, with each kernel wrapper
-               in a named range, which must show no PyTorch compute op in
-               any phase of the round.
+               paxos-10kx10k run cut to 4 rounds, and the same four (and
+               pbft-f128) with telemetry and 8-round windows, with each
+               kernel wrapper in a named range, which must show no PyTorch
+               compute op in any phase of the round.
 9. pbft      — ``simulator.run`` of BASELINE config 3's standalone rows
                pbft-f1 ... pbft-f128 and the fs = 1..128 ladder in one run
                (``engines/pbft_sweep.py`` pbft_fsweep_timed), each replayed
@@ -120,14 +131,28 @@ Phases, each printing one JSON line:
                no other kernel; steps per second, busy share, device
                operations a round, the graph's peak and kept memory;
                another seed on the graph against the eager loop.
+13. telemetry_bft — ``simulator.run`` with telemetry and 8-round windows of
+               pbft-f128, pbft-100k-bcast, dpos-100k and paxos-10kx10k at
+               full shape and of the hostile dense PBFT, DPoS and Paxos
+               runs, each replayed as one CUDA graph: the telemetry-off
+               digests, counter totals and flight recorders equal to
+               JAX-made anchors, windows that sum to the totals, replay
+               equal to the eager loop, the engine's kernels and its
+               telemetry kernel (KAA-KAC) launched (counted from 0) and no
+               other; each flagship's replay profiled without and with
+               telemetry; the counters prepare_missed, commit_missed,
+               commits_adopted, view_changes, nacks, churn_slots and
+               missed_appends each counted by some run.
 
 Then the card's name and power limit, one ``{"kernels": [...]}`` line, and
 last ``{"ok": true, "device": {...}}``. The kernels line takes each
 kernel's launches from one path's own run, counted from 0: KA-KJ from
 raft-100k's, KK from raft-100k's with telemetry, KL-KO from raft-1kx1k's,
 KP from raft-1kx1k's with telemetry, KQ-KS from the dense ladder's, KT-KV
-from pbft-100k-bcast's, KW-KX from dpos-100k's and KY-KZ from
-paxos-10kx10k's; the other runs' counts are in their phases' lines. Any
+from pbft-100k-bcast's, KW-KX from dpos-100k's, KY-KZ from
+paxos-10kx10k's, and KAA, KAB and KAC from pbft-100k-bcast's, dpos-100k's
+and paxos-10kx10k's with telemetry; the other runs' counts are in their
+phases' lines. Any
 failure, or no GPU, exits non-zero without that last line.
 """
 from __future__ import annotations
@@ -1113,7 +1138,8 @@ PBFT = ("pbft_view_preprepare", "pbft_tally", "pbft_decide")
 # The kernels that no run of the capped engine launches.
 NOT_CAPPED = DENSE + ("dense_telemetry",) + PBFT + (
     "bcast_view_preprepare", "bcast_tally", "bcast_decide", "dpos_schedule",
-    "dpos_round", "paxos_promise", "paxos_accept_learn")
+    "dpos_round", "paxos_promise", "paxos_accept_learn", "pbft_telemetry",
+    "dpos_telemetry", "paxos_telemetry")
 PBFT_REPLACES = {
     "pbft_view_preprepare": "consensus_tpu/engines/pbft.py:209 pbft_round "
                             "P0-P3, consensus_tpu/engines/pbft.py:72 "
@@ -1461,7 +1487,8 @@ def check_pbft_kernels(dev, gen) -> list[dict]:
     rows = []
     for name in PBFT:
         err = max(max_abs_err(run_pair(name, args)) for args in
-                  [got[name] for got in real] + edges[name])
+                  [got[name] for got in real] + edges[name]
+                  + flagged(name, edges[name]))
         args = timed[name]
         library = None
         if name == "pbft_view_preprepare":
@@ -1788,7 +1815,8 @@ def check_bcast_kernels(dev, gen) -> list[dict]:
     rows = []
     for name in BCAST:
         err = max(max_abs_err(run_pair(name, args)) for args in
-                  [got[name] for got in real] + edges[name])
+                  [got[name] for got in real] + edges[name]
+                  + flagged(name, edges[name]))
         args = timed[name]
         lib = library.get(name)
         rows.append(dict(name=name, route="cuda",
@@ -2111,7 +2139,8 @@ def check_dpos_paxos_kernels(dev, gen) -> list[dict]:
     for name in DPOS + PAXOS:
         mod = dpos if name in DPOS else paxos
         err = max(max_abs_err(run_pair(name, args))
-                  for args in real[name] + edges[name])
+                  for args in real[name] + edges[name]
+                  + flagged(name, edges[name]))
         args = timed[name]
         rows.append(dict(
             name=name, route="cuda",
@@ -2123,6 +2152,214 @@ def check_dpos_paxos_kernels(dev, gen) -> list[dict]:
             library_ms={"dpos_schedule": argsort, "dpos_round": None}.get(
                 name, segmax)))
     return rows
+
+
+# --- phase 3, continued: the telemetry kernels KAA-KAC -----------------------
+
+TELEMETRY = ("pbft_telemetry", "dpos_telemetry", "paxos_telemetry")
+TELEMETRY_REPLACES = {
+    "pbft_telemetry": "consensus_tpu/engines/pbft.py:377 pbft_round "
+                      "telemetry and flight tail, consensus_tpu/engines/"
+                      "pbft_bcast.py:687 pbft_bcast_round telemetry and "
+                      "flight tail, consensus_tpu/ops/viewsync.py:56 "
+                      "sync_counts",
+    "dpos_telemetry": "consensus_tpu/engines/dpos.py:183 dpos_round "
+                      "telemetry and flight tail",
+    "paxos_telemetry": "consensus_tpu/engines/paxos.py:253 paxos_round "
+                       "telemetry and flight tail"}
+# What phase 3 records in a round with telemetry, by engine name: its
+# telemetry kernel, and the kernels whose optional outputs it reads (KQ's
+# and KT's catch-up flags, KX's append count, KY's pair count, KZ's
+# accepted responses and decided flags).
+TELEMETRY_RECORDS = {
+    "pbft": ("pbft_view_preprepare", "pbft_telemetry"),
+    "pbft-bcast": ("bcast_view_preprepare", "pbft_telemetry"),
+    "dpos": ("dpos_round", "dpos_telemetry"),
+    "paxos": ("paxos_promise", "paxos_accept_learn", "paxos_telemetry")}
+# The wrappers whose optional outputs the telemetry asks for, and the
+# place of the flag argument that asks (their last positional one).
+FLAGGED = {"pbft_view_preprepare": 13, "bcast_view_preprepare": 12,
+           "dpos_round": 7, "paxos_promise": 6, "paxos_accept_learn": 13}
+# The hostile dense PBFT run (tests/test_pbft_sweep.py BASE's knobs at f =
+# 8, four sweeps): quorums missed, adoptions and timeouts.
+PBFT_HOSTILE = dict(PBFT_ADV, f=8, n_nodes=25, n_rounds=24, log_capacity=8,
+                    seed=7, n_sweeps=4, **HOSTILE)
+
+
+def capture_telemetry_inputs(cfg, rounds, device="cuda") -> dict:
+    """{r: {wrapper: arguments}}: what the wrappers TELEMETRY_RECORDS of
+    ``cfg``'s engine receive in each round r of ``rounds`` of its eager
+    run with telemetry and the flight recorder on ``device``, cloned as
+    they arrive (the accumulators as they stood before the round)."""
+    from consensus_tpu_torch.network import runner
+    eng = runner.engine(cfg)
+    names = TELEMETRY_RECORDS[eng.name]
+    lanes = runner.device_lanes(cfg, None, device)
+    st = eng.init(cfg, lanes.pop("seed"))
+    telem, flight = runner.accumulators(cfg, device)
+    statics = eng.statics(cfg, None) if eng.statics else {}
+    out, r0 = {}, 0
+    for r in sorted(rounds):
+        st = runner.advance(cfg, st, r0, r - r0, telem=telem, flight=flight,
+                            lanes=lanes)
+        got = out[r] = {}
+        with contextlib.ExitStack() as stack:
+            for name in names:
+                stack.enter_context(standing_in(kernel_module(name), (name,),
+                                                recording(got)))
+            st = eng.round(cfg, st, r, telem=telem, flight=flight, **lanes,
+                           **statics)
+        require(set(got) == set(names), f"round {r} skipped a phase")
+        r0 = r + 1
+    return out
+
+
+def telemetry_edge_inputs(dev, gen) -> dict:
+    """Random inputs of KAA-KAC, with and without the flight recorder:
+    {name: [args]}. KAA on views that differ across nodes, some far past
+    P1's range and two at the ends of int32, catch-up flags, down nodes
+    (one lane all down: an empty mask), lanes with n_real < N, entry
+    timers past the last bucket, rounds whose slot ages reach it, and N
+    from 1 to 1 000 (one to four blocks a lane); KAB on random chain
+    lengths, append counts and producer lists at rounds 0, 5 and 11 with
+    churn in some lanes, V = 3 000; KAC on random counts, a decided row
+    that is a strided view, and masks whose lane size is not a multiple
+    of 16 bytes, is one, and lies one byte off 16-byte alignment."""
+    from consensus_tpu_torch.core.config import Config
+    from consensus_tpu_torch.engines import dpos, paxos, pbft
+
+    def ints(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev,
+                             dtype=torch.int64).to(torch.int32)
+
+    def flags(p, shape):
+        return torch.rand(shape, generator=gen, device=dev) < p
+
+    def accumulators(B, K, n_windows, n_hists):
+        return (ints(0, 99, (B, K)), ints(0, 99, (B, n_windows, K)),
+                ints(0, 99, (B, n_hists, 16)))
+
+    out = {name: [] for name in TELEMETRY}
+    for B, N, S, r, vhi in ((5, 300, 16, 20, 8), (3, 1000, 32, 20_000, 2**20),
+                            (2, 1, 4, 3, 5)):
+        cfg = pbft_config(1, telemetry_window=WINDOW)
+        n_real = ints(1, N + 1, (B,))
+        n_real[0] = N
+        view = ints(0, vhi, (B, N))
+        if N > 1:
+            view[1, :2] = torch.tensor([-2**31, 2**31 - 1], device=dev)
+        down = flags(0.2, (B, N))
+        down[-1] = True
+        t, w, lat = accumulators(B, len(pbft.PBFT_TELEMETRY),
+                                 r // WINDOW + 2, 2)
+        args = (cfg, r, n_real, ints(0, vhi, (B, N)), ints(0, 2**15, (B, N)),
+                view, flags(0.3, (B, N)), down,
+                *(flags(0.5, (B, N, S)) for _ in range(6)), t)
+        out["pbft_telemetry"] += [args, (*args, w, lat)]
+    V = 3000
+    cfg = Config(protocol="dpos", n_nodes=V, n_candidates=50, n_producers=5,
+                 epoch_len=4, n_rounds=12, churn_rate=0.5,
+                 telemetry_window=WINDOW)
+    for B, r in ((4, 0), (4, 5), (6, 11)):
+        seed = torch.from_numpy(np.arange(9, 9 + B, dtype=np.uint32)).to(dev)
+        t, w, lat = accumulators(B, len(dpos.DPOS_TELEMETRY), 2, 1)
+        args = (cfg, r, seed, ints(0, 50, (B, dpos.n_epochs(cfg), 5)),
+                ints(0, 257, (B, V)), ints(0, V + 1, (B,)), t)
+        out["dpos_telemetry"] += [args, (*args, w, lat)]
+    for B, N, S, offset in ((3, 70, 33, 0), (2, 64, 64, 0), (2, 64, 64, 1)):
+        cfg = Config(protocol="paxos", n_nodes=N, log_capacity=S,
+                     n_rounds=40, telemetry_window=WINDOW)
+        n_prom = ints(0, N, (B, N))
+        masks = [flags(0.5, (B * N * S + offset,))[offset:].view(B, N, S)
+                 for _ in range(2)]
+        t, w, lat = accumulators(B, len(paxos.PAXOS_TELEMETRY), 6, 1)
+        args = (cfg, 37, n_prom, n_prom + ints(0, 5, (B, N)),
+                ints(0, N, (B, N)), ints(0, 2, (B, 4, N))[:, 2], *masks, t)
+        out["paxos_telemetry"] += [args, (*args, w, lat)]
+    return out
+
+
+def flagged(name: str, edges) -> list:
+    """Wrapper ``name``'s edge inputs ``edges`` again with the flag that
+    asks for its optional outputs, where it has one (FLAGGED), else
+    none."""
+    if name not in FLAGGED:
+        return []
+    return [(*args[:FLAGGED[name]], True) for args in edges]
+
+
+def telemetry_bound(name: str, args) -> tuple[float, str]:
+    """The least time of kernel ``name``'s work (KAA-KAC) on ``args``: the
+    bytes it must read once (see each source's note) and about one 32-bit
+    operation a byte."""
+    if name == "pbft_telemetry":
+        b, n, s = args[8].shape
+        nbytes = 6 * b * n * s + 14 * b * n + 4 * b
+    elif name == "dpos_telemetry":
+        b, v = args[4].shape
+        nbytes = 4 * b * v + 8 * b
+    else:
+        b, n, s = args[7].shape
+        nbytes = 2 * b * n * s + 16 * b * n
+    return bound(nbytes, nbytes)
+
+
+def check_telemetry_kernels(dev, gen) -> tuple[list[dict], dict]:
+    """KAA-KAC against their plain versions on rounds 3 and 20 of
+    pbft-f128, pbft-100k-bcast and dpos-100k (and its round 200),
+    rounds 1 and 15 of paxos-10kx10k, rounds of the hostile dense PBFT,
+    DPoS and Paxos runs, all with telemetry and the flight recorder, and
+    on the edge inputs; KQ, KT, KX, KY and KZ on the same rounds (their
+    optional outputs set) and on their own edge inputs with the flag that
+    sets them. Times and bounds of KAA on pbft-100k-bcast's round 20, KAB
+    on dpos-100k's round 200, KAC on paxos-10kx10k's round 15. Returns
+    the rows and {flagged wrapper: max_abs_err} of those rounds (the
+    flagged edge inputs are in the wrappers' own rows)."""
+    from consensus_tpu_torch.engines import dpos, paxos, pbft
+    # (config, rounds, the round whose telemetry kernel is timed)
+    runs = [(pbft_config(128, telemetry_window=WINDOW), (3, 20), None),
+            (bcast_config(telemetry_window=WINDOW), (3, 20), 20),
+            (protocol_config(DPOS_FLAGSHIP, telemetry_window=WINDOW),
+             (3, 20, 200), 200),
+            (protocol_config(PAXOS_FLAGSHIP, telemetry_window=WINDOW),
+             (1, 15), 15),
+            (protocol_config(PBFT_HOSTILE, telemetry_window=WINDOW), (5, 17),
+             None),
+            (protocol_config(DPOS_HOSTILE, telemetry_window=WINDOW),
+             (31, 250), None),
+            (protocol_config(PAXOS_HOSTILE, telemetry_window=WINDOW),
+             (2, 20), None)]
+    flag_err = dict.fromkeys(FLAGGED, 0.0)
+    real: dict = {name: [] for name in TELEMETRY}
+    timed = {}
+    for cfg, rounds, timed_round in runs:
+        got = capture_telemetry_inputs(cfg, rounds, dev)
+        for r, calls in got.items():
+            for name, args in calls.items():
+                if name in FLAGGED:
+                    flag_err[name] = max(flag_err[name],
+                                         max_abs_err(run_pair(name, args)))
+                    continue
+                real[name].append(args)
+                if r == timed_round:
+                    timed[name] = args
+        del got
+    edges = telemetry_edge_inputs(dev, gen)
+    mods = {"pbft_telemetry": pbft, "dpos_telemetry": dpos,
+            "paxos_telemetry": paxos}
+    rows = []
+    for name in TELEMETRY:
+        err = max(max_abs_err(run_pair(name, args))
+                  for args in real[name] + edges[name])
+        args = timed[name]
+        rows.append(dict(
+            name=name, route="cuda",
+            source=f"consensus_tpu_torch/csrc/{name}.cu",
+            replaces=TELEMETRY_REPLACES[name], max_abs_err=err,
+            ms=device_ms(getattr(mods[name], name), args),
+            plain_ms=device_ms(getattr(mods[name], name + "_plain"), args),
+            bound=telemetry_bound(name, args), library_ms=None))
+    return rows, flag_err
 
 
 def hand_kernels() -> dict[str, tuple[str, ...]]:
@@ -2179,22 +2416,33 @@ GAPS = {(None, "candidacy"): "init",
         ("pbft_tally", "pbft_decide"): "P6-P7",
         ("pbft_decide", "delivery"): "between rounds",
         ("pbft_decide", None): "after the last round",
+        ("pbft_decide", "pbft_telemetry"): "telemetry",
+        ("pbft_telemetry", "delivery"): "between rounds",
+        ("pbft_telemetry", None): "after the last round",
         # The §6b broadcast round.
         (None, "bcast_view_preprepare"): "init",
         ("bcast_view_preprepare", "bcast_tally"): "P4-P5",
         ("bcast_tally", "bcast_decide"): "P6-P7",
         ("bcast_decide", "bcast_view_preprepare"): "between rounds",
         ("bcast_decide", None): "after the last round",
+        ("bcast_decide", "pbft_telemetry"): "telemetry",
+        ("pbft_telemetry", "bcast_view_preprepare"): "between rounds",
         # The DPoS round (KW runs at init).
         (None, "dpos_schedule"): "init",
         ("dpos_schedule", "dpos_round"): "init",
         ("dpos_round", "dpos_round"): "between rounds",
         ("dpos_round", None): "after the last round",
+        ("dpos_round", "dpos_telemetry"): "telemetry",
+        ("dpos_telemetry", "dpos_round"): "between rounds",
+        ("dpos_telemetry", None): "after the last round",
         # The Paxos round.
         ("delivery", "paxos_promise"): "phases 1-2",
         ("paxos_promise", "paxos_accept_learn"): "phases 3-6",
         ("paxos_accept_learn", "delivery"): "between rounds",
-        ("paxos_accept_learn", None): "after the last round"}
+        ("paxos_accept_learn", None): "after the last round",
+        ("paxos_accept_learn", "paxos_telemetry"): "telemetry",
+        ("paxos_telemetry", "delivery"): "between rounds",
+        ("paxos_telemetry", None): "after the last round"}
 ZEROING = ("aten::fill_", "aten::zero_")
 
 
@@ -2216,23 +2464,23 @@ def plain_ops_by_phase(cfg, device="cuda", telemetry=False,
     from consensus_tpu_torch.engines import raft_sparse as rs
     from consensus_tpu_torch.network import runner
     on_cpu = torch.device(device).type == "cpu"
-    # The wrappers the engine's round calls (KA's only through init; KW's
-    # only in DPoS's init).
+    # The wrappers the engine's round calls, by the module it calls them
+    # through (KA's only through init; KW's only in DPoS's init; the §6b
+    # round calls KAA through the dense PBFT engine's module).
     eng = runner.engine(cfg)
     if eng is runner.DPOS:
-        module, marked_names = dpos, list(DPOS)
+        marks = [(dpos, [*DPOS, "dpos_telemetry"])]
     elif eng is runner.PAXOS:
-        module, marked_names = paxos, ["delivery", *PAXOS]
+        marks = [(paxos, ["delivery", *PAXOS, "paxos_telemetry"])]
     elif eng is runner.PBFT_BCAST:
-        module, marked_names = pb, list(BCAST)
+        marks = [(pb, list(BCAST)), (pbft, ["pbft_telemetry"])]
     elif eng is runner.PBFT:
-        module, marked_names = pbft, ["delivery", *PBFT]
+        marks = [(pbft, ["delivery", *PBFT, "pbft_telemetry"])]
     elif eng is runner.DENSE:
-        module, marked_names = raft, [*DENSE, "dense_telemetry"]
+        marks = [(raft, [*DENSE, "dense_telemetry"])]
     else:
-        module, marked_names = rs, [
-            name for mod, name in runner.KERNELS
-            if mod is rs or name == "delivery_edges"]
+        marks = [(rs, [name for mod, name in runner.KERNELS
+                       if mod is rs or name == "delivery_edges"])]
 
     def marked(name, fn):
         def call(*args):
@@ -2241,10 +2489,13 @@ def plain_ops_by_phase(cfg, device="cuda", telemetry=False,
         return call
 
     def session():
-        with standing_in(module, marked_names, marked), profile(
+        with contextlib.ExitStack() as stack:
+            for module, names in marks:
+                stack.enter_context(standing_in(module, names, marked))
+            prof = stack.enter_context(profile(
                 activities=[ProfilerActivity.CPU] if on_cpu else
                 [ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+                schedule=schedule(wait=0, warmup=1, active=1)))
             # The profiler records from its second step on.
             runner.run_device(cfg, device, telemetry=telemetry, graph=False,
                               rungs=rungs)
@@ -2885,6 +3136,147 @@ def check_paxos_path(card: str, smi: str) -> dict[str, int]:
     return launches
 
 
+# --- phase 13: telemetry on dense and §6b PBFT, DPoS and Paxos --------------
+
+# Phase 13's runs, each with telemetry and 8-round windows: (config, the
+# digest it must keep, its nonzero counter totals, the SHA-256 of its
+# flight recorder (flight_digest)). The flagships are BASELINE config 3's
+# largest standalone row and configs pbft-100k-bcast, 5 and 4 at full
+# shape; then the hostile runs. Their digests are the telemetry-off
+# anchors above (the hostile dense PBFT run's is JAX-made); every counter
+# not listed is 0. The totals and recorders were made from the JAX
+# package on the CPU (pbft-100k-bcast took 172 s, paxos-10kx10k 207 s on
+# eight cores) by
+#
+#   JAX_PLATFORMS=cpu python3 - <<'EOF'
+#   import chip_smoke
+#   from consensus_tpu import Config
+#   from consensus_tpu.network import simulator
+#   for name, (kw, *_) in chip_smoke.BFT_TELEMETRY.items():
+#       res = simulator.run(Config(**kw, telemetry_window=chip_smoke.WINDOW),
+#                           warmup=False, telemetry=True)
+#       print(name, res.digest, {k: v for k, v in
+#                                res.extras["telemetry"]["totals"].items()
+#                                if v}, chip_smoke.flight_digest(
+#                                    res.extras["flight"]))
+#   EOF
+BFT_TELEMETRY = {
+    "pbft-f128": (
+        dict(PBFT_ADV, f=128, n_nodes=385), PBFT_DIGESTS[128],
+        {"prepare_quorums": 12187, "commit_quorums": 12187,
+         "commits_adopted": 133},
+        "ffcd8aa056ac535b4bdc03a4eaa9137d8ab066b4702a25b29b6930da8dda24d9"),
+    "pbft-100k-bcast": (
+        BCAST_FLAGSHIP, BCAST_DIGEST,
+        {"prepare_quorums": 12800000, "prepare_missed": 1,
+         "commit_quorums": 12800000, "view_changes": 4000000},
+        "fdb9f58a15df4fbe8eb69f09aaa638cb18dc3ad7b59623b607c300a15603d9f9"),
+    "dpos-100k": (
+        DPOS_FLAGSHIP, DPOS_DIGEST,
+        {"blocks_appended": 25344989, "missed_appends": 255011,
+         "producer_rotations": 255},
+        "560464cac708e665661a66f44a86090950032d0323f181346b4444bfc986b69e"),
+    "paxos-10kx10k": (
+        PAXOS_FLAGSHIP, PAXOS_DIGEST,
+        {"promises": 994044637, "nacks": 573960115, "accepts": 989843283,
+         "proposals_decided": 101004, "values_learned": 99999998},
+        "e462384dfb5373cfb4e56c9535257ac7571e2a5588dc6787b9ebb293d1105072"),
+    "pbft-hostile": (
+        PBFT_HOSTILE,
+        "5466fdc11f31297d1f42fd380ff698b7fb4a7af7874ff41f370d8594e7d56291",
+        {"prepare_quorums": 733, "prepare_missed": 302,
+         "commit_quorums": 588, "commit_missed": 247,
+         "commits_adopted": 212, "view_changes": 275},
+        "ba035eb18126ad4357ad7dfb534ff78d7b9c991c755e44499a8c1126bd98e02b"),
+    "dpos-hostile": (
+        DPOS_HOSTILE, DPOS_HOSTILE_DIGEST,
+        {"blocks_appended": 7680000, "missed_appends": 10320000,
+         "producer_rotations": 896, "churn_slots": 47},
+        "77fb80d4e46f75e2d358507c08f1591c817ec3f9854f47bb42f6252fa522cd2a"),
+    "paxos-hostile": (
+        PAXOS_HOSTILE, PAXOS_HOSTILE_DIGEST,
+        {"promises": 12568384, "nacks": 1632861, "accepts": 11160421,
+         "proposals_decided": 13794, "values_learned": 1999061},
+        "680196000275343dfdc4bcd9a6c9e5fb2089e8ca5621fcc4a13dbf228aba136e"),
+}
+# The flagships, whose replays phase 13 times with telemetry off and on.
+BFT_FLAGSHIPS = ("pbft-f128", "pbft-100k-bcast", "dpos-100k",
+                 "paxos-10kx10k")
+# Counters that some run of phase 13 must count (not 0 in all of them).
+MUST_COUNT = ("prepare_missed", "commit_missed", "commits_adopted",
+              "view_changes", "nacks", "churn_slots", "missed_appends")
+# The kernels a telemetry run of each engine launches, by engine name.
+TELEMETRY_PATHS = {"pbft": ("delivery",) + PBFT + ("pbft_telemetry",),
+                   "pbft-bcast": BCAST + ("pbft_telemetry",),
+                   "dpos": DPOS + ("dpos_telemetry",),
+                   "paxos": ("delivery",) + PAXOS + ("paxos_telemetry",)}
+
+
+def check_bft_telemetry(card: str, smi: str) -> dict[str, int]:
+    """Phase 13: ``simulator.run`` with telemetry and 8-round windows of
+    each run of BFT_TELEMETRY, replayed as one CUDA graph, with every
+    launch count set to 0 just before and read just after: its digest (the
+    telemetry-off anchor), counter totals and flight recorder (the JAX
+    anchors), windows that sum to the totals, the graph replay equal to
+    the eager loop, the engine's kernels and its telemetry kernel launched
+    and no other. Each flagship's replay under the profiler without and
+    with telemetry, alternated (without, with, with, without). Some run
+    must count each of MUST_COUNT. Returns the telemetry kernels'
+    launches, each from its engine's flagship run (KAA from
+    pbft-100k-bcast's)."""
+    from consensus_tpu_torch.network import runner, simulator
+    rows = {}
+    for name, (kw, digest, nonzero, flight) in BFT_TELEMETRY.items():
+        cfg = protocol_config(kw, telemetry_window=WINDOW)
+        eng = runner.engine(cfg)
+        res, launches = counted(lambda: simulator.run(cfg, telemetry=True))
+        tel, fl = res.extras["telemetry"], res.extras["flight"]
+        per = tel["per_sweep"]
+        eager = runner.telemetry_stats(cfg, runner.run_device(
+            cfg, telemetry=True, graph=False))
+        want = {k: nonzero.get(k, 0) for k in eng.telemetry_names}
+        rows[name] = row = dict(
+            digest=res.digest, digest_ok=res.digest == digest,
+            totals=tel["totals"], totals_ok=tel["totals"] == want,
+            flight_sha256=flight_digest(fl),
+            flight_ok=flight_digest(fl) == flight,
+            windows_sum_to_totals=all(
+                np.array_equal(fl["windows"][k].sum(1), v)
+                for k, v in per.items()),
+            graph_equals_eager=flight_digest(eager["flight"]) ==
+            flight_digest(fl) and all(np.array_equal(eager["telemetry"][k],
+                                                     per[k]) for k in per),
+            steps_per_sec=res.steps_per_sec, wall_s=res.wall_s,
+            launches=launches)
+        if name in BFT_FLAGSHIPS:
+            row["profiles_without_with_with_without"] = [
+                profile_replay(protocol_config(
+                    kw, telemetry_window=WINDOW if on else 0), telemetry=on)
+                for on in (False, True, True, False)]
+            runner.clear_graphs()
+        require_launched(launches, TELEMETRY_PATHS[eng.name],
+                         f"{name} with telemetry")
+    counted_by = {k: [name for name, row in rows.items()
+                      if row["totals"].get(k)] for k in
+                  {k for row in rows.values() for k in row["totals"]}}
+    emit("telemetry_bft", runs=rows, counted_by=counted_by,
+         view_spread_counted=bool(counted_by["view_spread_max"]),
+         sync_msgs_counted=bool(counted_by["sync_msgs_delivered"]),
+         card=card, power=smi)
+    for name, row in rows.items():
+        for check in ("digest_ok", "totals_ok", "flight_ok",
+                      "windows_sum_to_totals", "graph_equals_eager"):
+            require(row[check], f"{name} with telemetry: {check} fails")
+    for k in MUST_COUNT:
+        require(counted_by[k], f"no run of phase 13 counts {k}")
+    return {"pbft_telemetry": rows["pbft-100k-bcast"]["launches"]
+            ["pbft_telemetry"],
+            "dpos_telemetry": rows["dpos-100k"]["launches"]
+            ["dpos_telemetry"],
+            "paxos_telemetry": rows["paxos-10kx10k"]["launches"]
+            ["paxos_telemetry"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2916,16 +3308,23 @@ def main() -> int:
     gen = torch.Generator(device=dev)
     gen.manual_seed(6)
     cfg = flagship_config()
+    telemetry_rows, flag_err = check_telemetry_kernels(dev, gen)
     kernels = [check_random_u32(dev, gen), check_delivery_edges(dev, gen),
                check_top_active(dev, gen),
                *check_phases(dev, gen, flagship_config(
                    telemetry_window=WINDOW)),
                *check_dense_kernels(dev, gen), *check_pbft_kernels(dev, gen),
                *check_bcast_kernels(dev, gen),
-               *check_dpos_paxos_kernels(dev, gen)]
+               *check_dpos_paxos_kernels(dev, gen), *telemetry_rows]
     torch.cuda.synchronize()
     require(sorted(k["name"] for k in kernels) == sorted(_build.SOURCES),
             "phase 3 does not check every kernel of csrc")
+    # KQ, KT, KX, KY and KZ with their optional outputs, on the telemetry
+    # runs' rounds.
+    emit("kernel_flags", max_abs_err=flag_err)
+    for k in kernels:
+        if k["name"] in flag_err:
+            k["max_abs_err"] = max(k["max_abs_err"], flag_err[k["name"]])
     for k in kernels:
         k["bound_ms"], k["bound_by"] = k.pop("bound")
         emit("kernel", **k)
@@ -2982,16 +3381,29 @@ def main() -> int:
     dpos_by_phase = plain_ops_by_phase(protocol_config(DPOS_FLAGSHIP))
     paxos_by_phase = plain_ops_by_phase(protocol_config(PAXOS_FLAGSHIP,
                                                         n_rounds=4))
+    # The same engines with telemetry and the flight recorder (KAA-KAC).
+    telemetry_by_phase = {
+        name: plain_ops_by_phase(cfg, telemetry=True) for name, cfg in (
+            ("pbft-f128", pbft_config(128, telemetry_window=WINDOW)),
+            ("pbft-100k-bcast", bcast_config(n_rounds=4,
+                                             telemetry_window=WINDOW)),
+            ("dpos-100k", protocol_config(DPOS_FLAGSHIP,
+                                          telemetry_window=WINDOW)),
+            ("paxos-10kx10k", protocol_config(
+                PAXOS_FLAGSHIP, n_rounds=4, telemetry_window=WINDOW)))}
     emit("profile", card=card, power=smi, **prof,
          plain_ops_by_phase=by_phase, dense_plain_ops_by_phase=dense_by_phase,
          pbft_plain_ops_by_phase=pbft_by_phase,
          bcast_plain_ops_by_phase=bcast_by_phase,
          dpos_plain_ops_by_phase=dpos_by_phase,
          paxos_plain_ops_by_phase=paxos_by_phase,
+         telemetry_plain_ops_by_phase=telemetry_by_phase,
          profiler_sessions_redone=REDONE)
     for place, found in [*by_phase.items(), *dense_by_phase.items(),
                          *pbft_by_phase.items(), *bcast_by_phase.items(),
-                         *dpos_by_phase.items(), *paxos_by_phase.items()]:
+                         *dpos_by_phase.items(), *paxos_by_phase.items(),
+                         *(item for ops in telemetry_by_phase.values()
+                           for item in ops.items())]:
         require(place == "init" or set(found) <= set(ZEROING),
                 f"PyTorch compute ops on the device in {place}: {found}")
 
@@ -3010,6 +3422,9 @@ def main() -> int:
     # 12. Paxos: paxos-10kx10k and a hostile run.
     paxos_launches = check_paxos_path(card, smi)
     launches.update({name: paxos_launches[name] for name in PAXOS})
+
+    # 13. Telemetry on dense and §6b PBFT, DPoS and Paxos.
+    launches.update(check_bft_telemetry(card, smi))
     for k in kernels:
         k["launches"] = launches[k["name"]]
 

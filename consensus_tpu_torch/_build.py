@@ -28,7 +28,8 @@ SOURCES = ("random_u32", "delivery_edges", "top_active", "append_entries",
            "dense_acks_commit", "dense_telemetry", "pbft_view_preprepare",
            "pbft_tally", "pbft_decide", "bcast_view_preprepare",
            "bcast_tally", "bcast_decide", "dpos_schedule", "dpos_round",
-           "paxos_promise", "paxos_accept_learn")
+           "paxos_promise", "paxos_accept_learn", "pbft_telemetry",
+           "dpos_telemetry", "paxos_telemetry")
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "build" / \
@@ -101,8 +102,9 @@ SIGNATURES = {
     "dense_telemetry": (_P,) * 12 + (_I,) * 5,
     # seed, round, churn_cut, view_timeout, vmax; deliver, n_real, f, view,
     # timer, pp_seen, pp_view, pp_val, prepared, committed; view, timer,
-    # reset, pp_seen, pp_view, pp_val outputs, order scratch; B, N, S
-    "pbft_view_preprepare": (_P, _U, _U, _I, _I) + (_P,) * 17 + (_I,) * 3,
+    # reset, pp_seen, pp_view, pp_val outputs, catch-up flags (null
+    # without telemetry), order scratch; B, N, S
+    "pbft_view_preprepare": (_P, _U, _U, _I, _I) + (_P,) * 18 + (_I,) * 3,
     # deliver, n_real, f, pp_seen, pp_val, prepared, committed, dval;
     # prepared, committed, dval outputs; B, N, S
     "pbft_tally": (_P,) * 11 + (_I,) * 3,
@@ -112,8 +114,9 @@ SIGNATURES = {
     # seed, round, churn_cut, drop_cut, part_cut, view_timeout, vmax;
     # n_real, f, view, timer, pp_seen, pp_view, pp_val, prepared,
     # committed; view, timer, reset, pp_seen, pp_view, pp_val, node bits
-    # outputs, histogram and first-unseen-slot scratch; B, N, S
-    "bcast_view_preprepare": (_P, _U, _U, _U, _U, _I, _I) + (_P,) * 18
+    # outputs, histogram and first-unseen-slot scratch, catch-up flags
+    # (null without telemetry); B, N, S
+    "bcast_view_preprepare": (_P, _U, _U, _U, _U, _I, _I) + (_P,) * 19
     + (_I,) * 3,
     # n_real, f, node bits, pp_seen, pp_val, prepared, committed, dval;
     # prepared, committed, dval outputs, scratch; scratch words; m, B, N, S
@@ -123,20 +126,35 @@ SIGNATURES = {
     "bcast_decide": (_P,) * 10 + (_I,) * 3,
     # seeds; producers, tallies outputs; B, E, V, C, K
     "dpos_schedule": (_P,) * 3 + (_I,) * 5,
-    # seed, round, producers; chain_r, chain_p, chain_len (in place);
-    # chain_r and chain_p element sizes, the round's producer index within
-    # a lane's list and the list's length (E * K), drop_cut, part_cut,
-    # churn_cut; B, V, L
-    "dpos_round": (_P, _U) + (_P,) * 4 + (_I,) * 4 + (_U,) * 3 + (_I,) * 3,
+    # seed, round, producers; chain_r, chain_p, chain_len (in place),
+    # append counts (null without telemetry); chain_r and chain_p element
+    # sizes, the round's producer index within a lane's list and the
+    # list's length (E * K), drop_cut, part_cut, churn_cut; B, V, L
+    "dpos_round": (_P, _U) + (_P,) * 5 + (_I,) * 4 + (_U,) * 3 + (_I,) * 3,
     # seed, round; deliver, promised, acc_bal; new_promised, n_prom,
-    # best_bal, best_a, prep_del outputs, proposal and key scratch; P,
-    # churn_cut, B, N, S
-    "paxos_promise": (_P, _U) + (_P,) * 10 + (_I, _U, _I, _I, _I),
+    # best_bal, best_a, prep_del outputs, pair counts (null without
+    # telemetry), proposal and key scratch; P, churn_cut, B, N, S
+    "paxos_promise": (_P, _U) + (_P,) * 11 + (_I, _U, _I, _I, _I),
     # seed, round; deliver, prep_del, new_promised, n_prom, best_bal,
     # best_a, acc_bal, acc_val, learned_val, learned_mask; promised,
     # acc_bal, acc_val, learned_val, learned_mask outputs, proposal, count
     # and bit scratch; P, churn_cut, B, N, S
     "paxos_accept_learn": (_P, _U) + (_P,) * 18 + (_I, _U, _I, _I, _I),
+    # n_real; view and timer at round entry, view, catch-up flags, down;
+    # pp_seen, prepared at entry, prepared, committed at entry, committed
+    # after the tally, committed; t, w, lat accumulators (w and lat null
+    # with the recorder off), span scratch; round, B, N, S, K, window,
+    # n_windows
+    "pbft_telemetry": (_P,) * 16 + (_I,) * 7,
+    # seed, round; producers, chain_len, KX's append counts; t, w, lat
+    # accumulators (w and lat null with the recorder off), span scratch;
+    # the round's and the round before's producer indexes, the list's
+    # length, churn_cut; B, V, K, window, n_windows
+    "dpos_telemetry": (_P, _U) + (_P,) * 7 + (_I,) * 3 + (_U,) + (_I,) * 5,
+    # n_prom, n_pair, n_acc, decided; learned_mask at entry and after; t,
+    # w, lat accumulators (w and lat null with the recorder off); decided's
+    # lane stride; round, B, N, S, K, window, n_windows
+    "paxos_telemetry": (_P,) * 9 + (_L,) + (_I,) * 7,
 }
 
 

@@ -40,7 +40,9 @@
 //     four warps of its block find first off the histogram's suffix sums
 //     (a warp-wide scan from the top bin down: the largest t whose suffix
 //     count reaches the rank is the binary search's answer), runs P1 and
-//     P2, and notes its first unseen slot for P3.
+//     P2, and notes its first unseen slot for P3; where the caller passes
+//     catch_out, it writes whether P1 moved its view (the flags the
+//     telemetry counts as sync_msgs_delivered).
 //  3. A thread per four (receiver, slot) entries runs P3, reading the
 //     primary's row and first unseen slot as they stood before P3, and
 //     writes fresh outputs, so no receiver reads another's update.
@@ -136,8 +138,9 @@ bcast_catchup_kernel(const uint32_t* __restrict__ seed, uint32_t r,
                      int32_t* __restrict__ view_out,
                      int32_t* __restrict__ timer_out,
                      bool* __restrict__ reset_out,
-                     int32_t* __restrict__ fresh_out, int N, int S,
-                     int nb, int tiles) {
+                     int32_t* __restrict__ fresh_out,
+                     bool* __restrict__ catch_out, int N, int S, int nb,
+                     int tiles) {
   __shared__ int32_t stat[4];  // a1 side 0, a1 side 1, a2 side 0, a2 side 1
   const int b = blockIdx.x / tiles;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -183,7 +186,8 @@ bcast_catchup_kernel(const uint32_t* __restrict__ seed, uint32_t r,
   const int side = (bj >> 1) & 1;
   const int32_t a1 = stat[side], a2 = stat[2 + side];
   const int32_t vth = (bj & 1) ? a1 : min(max(v, a1), a2);
-  if (vth > v) {
+  const bool caught = vth > v;
+  if (caught) {
     v = vth;
     t = 0;
     reset = true;
@@ -197,6 +201,7 @@ bcast_catchup_kernel(const uint32_t* __restrict__ seed, uint32_t r,
   view_out[row] = v;
   timer_out[row] = t;
   reset_out[row] = reset;
+  if (catch_out != nullptr) catch_out[row] = caught;
   // The first unseen slot, read by P3 where this node is the primary.
   int fresh = S;
   for (int s = 0; s < S; ++s) {
@@ -278,7 +283,8 @@ bcast_preprepare_kernel(const uint32_t* __restrict__ seed,
 }  // namespace
 
 // hist is scratch, [B, 2, vmax + 2] int32, zeroed here; fresh is scratch,
-// [B, N] int32.
+// [B, N] int32; catch_out, [B, N] bool, is null where the caller does not
+// ask for P1's catch-up flags.
 extern "C" int ctt_bcast_view_preprepare(
     const uint32_t* seed, uint32_t r, uint32_t churn_cut, uint32_t drop_cut,
     uint32_t part_cut, int32_t view_timeout, int32_t vmax,
@@ -287,7 +293,7 @@ extern "C" int ctt_bcast_view_preprepare(
     const int32_t* pp_val, const bool* prepared, const bool* committed,
     int32_t* view_out, int32_t* timer_out, bool* reset_out, bool* seen_out,
     int32_t* pview_out, int32_t* pval_out, uint8_t* bits_out, int* hist,
-    int32_t* fresh, int B, int N, int S, cudaStream_t st) {
+    int32_t* fresh, bool* catch_out, int B, int N, int S, cudaStream_t st) {
   if (B == 0 || N == 0) return 0;
   if (vmax < 0) return static_cast<int>(cudaErrorInvalidValue);
   const int nb = vmax + 2;
@@ -306,7 +312,8 @@ extern "C" int ctt_bcast_view_preprepare(
   if ((err = static_cast<int>(cudaGetLastError())) != 0) return err;
   bcast_catchup_kernel<<<static_cast<unsigned>(blocks), THREADS, 0, st>>>(
       seed, r, churn_cut, view_timeout, f, view, timer, pp_seen, bits_out,
-      hist, view_out, timer_out, reset_out, fresh, N, S, nb, tiles);
+      hist, view_out, timer_out, reset_out, fresh, catch_out, N, S, nb,
+      tiles);
   if ((err = static_cast<int>(cudaGetLastError())) != 0) return err;
   const long long per_lane = static_cast<long long>(N) * S;
   if (per_lane == 0) return 0;

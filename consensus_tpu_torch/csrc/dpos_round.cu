@@ -22,6 +22,11 @@
 // the lane's churn and partition draws are computed by every thread (a few
 // Threefry draws, cheaper than a second launch), the chain slot is written
 // at the element size the host passes (uint8, uint16 or int32 storage).
+// Where the caller passes n_app (the telemetry's blocks_appended, [B]
+// int32, zeroed here), the round's appends are counted too: after an append
+// no tensor holds the chain lengths of the round's entry, so the count is
+// taken here, by a ballot a warp and shared atomics a block (a block spans
+// at most two lanes when V >= 256), then one global atomic a lane a block.
 #include <cuda_runtime.h>
 
 #include "rng.cuh"
@@ -41,55 +46,97 @@ __device__ __forceinline__ void store(void* base, int size, long long i,
   }
 }
 
-// A thread per (lane, validator), flattened.
-__global__ void __launch_bounds__(THREADS)
-dpos_round_kernel(const uint32_t* __restrict__ seed, uint32_t r,
-                  const int32_t* __restrict__ producers, void* chain_r,
-                  void* chain_p, int32_t* __restrict__ chain_len, int r_size,
-                  int p_size, int p_index, int list_len, uint32_t drop_cut,
-                  uint32_t part_cut, uint32_t churn_cut, int V, int L,
-                  long long rows) {
-  const long long row =
-      static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
-  if (row >= rows) return;
-  const int b = static_cast<int>(row / V);
-  const uint32_t v =
-      static_cast<uint32_t>(row - static_cast<long long>(b) * V);
+// Validator v of lane b's round: appends (r, p) where the block reaches it,
+// and says whether it did.
+__device__ __forceinline__ bool append(
+    const uint32_t* __restrict__ seed, uint32_t r,
+    const int32_t* __restrict__ producers, void* chain_r, void* chain_p,
+    int32_t* __restrict__ chain_len, int r_size, int p_size, int p_index,
+    int list_len, uint32_t drop_cut, uint32_t part_cut, uint32_t churn_cut,
+    int L, int b, uint32_t v, long long row) {
   const uint32_t sd = seed[b];
-  if (ctt::random_u32(sd, ctt::STREAM_CHURN, r, 0u, 0u) < churn_cut) return;
+  if (ctt::random_u32(sd, ctt::STREAM_CHURN, r, 0u, 0u) < churn_cut)
+    return false;
   const int32_t len = chain_len[row];
-  if (len >= L) return;
+  if (len >= L) return false;
   const uint32_t p = static_cast<uint32_t>(
       producers[static_cast<long long>(b) * list_len + p_index]);
   if (v != p) {
     const uint32_t h = ctt::mix_absorb(
         ctt::mix_absorb(ctt::mix_absorb(sd ^ ctt::STREAM_DELIVER, r), p), v);
-    if (ctt::mix_fin(h) < drop_cut) return;
+    if (ctt::mix_fin(h) < drop_cut) return false;
     if (ctt::random_u32(sd, ctt::STREAM_PARTITION, r, 0u, 0u) < part_cut &&
         ((ctt::random_u32(sd, ctt::STREAM_PARTITION, r, 1u, v) ^
           ctt::random_u32(sd, ctt::STREAM_PARTITION, r, 1u, p)) & 1u))
-      return;
+      return false;
   }
   const long long slot = row * L + len;
   store(chain_r, r_size, slot, r);
   store(chain_p, p_size, slot, p);
   chain_len[row] = len + 1;
+  return true;
+}
+
+// A thread per (lane, validator), flattened.
+__global__ void __launch_bounds__(THREADS)
+dpos_round_kernel(const uint32_t* __restrict__ seed, uint32_t r,
+                  const int32_t* __restrict__ producers, void* chain_r,
+                  void* chain_p, int32_t* __restrict__ chain_len,
+                  int32_t* __restrict__ n_app, int r_size, int p_size,
+                  int p_index, int list_len, uint32_t drop_cut,
+                  uint32_t part_cut, uint32_t churn_cut, int V, int L,
+                  long long rows) {
+  __shared__ int s_app[2];
+  const long long row =
+      static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
+  int b = -1;
+  bool did = false;
+  if (row < rows) {
+    b = static_cast<int>(row / V);
+    did = append(seed, r, producers, chain_r, chain_p, chain_len, r_size,
+                 p_size, p_index, list_len, drop_cut, part_cut, churn_cut, L,
+                 b, static_cast<uint32_t>(row - static_cast<long long>(b) * V),
+                 row);
+  }
+  if (n_app == nullptr) return;
+  // The appends a lane, for the telemetry.
+  const int b0 = static_cast<int>(static_cast<long long>(blockIdx.x) *
+                                  THREADS / V);
+  if (threadIdx.x < 2) s_app[threadIdx.x] = 0;
+  __syncthreads();
+  const unsigned peers = __match_any_sync(0xFFFFFFFFu, b);
+  const int count = __popc(__ballot_sync(0xFFFFFFFFu, did) & peers);
+  if (count && (threadIdx.x & 31) == __ffs(peers) - 1) {
+    if (b - b0 < 2)
+      atomicAdd(&s_app[b - b0], count);
+    else
+      atomicAdd(n_app + b, count);
+  }
+  __syncthreads();
+  if (threadIdx.x < 2 && s_app[threadIdx.x])
+    atomicAdd(n_app + b0 + threadIdx.x, s_app[threadIdx.x]);
 }
 
 }  // namespace
 
+// n_app is null where the caller does not count the appends.
 extern "C" int ctt_dpos_round(const uint32_t* seed, uint32_t r,
                               const int32_t* producers, void* chain_r,
-                              void* chain_p, int32_t* chain_len, int r_size,
-                              int p_size, int p_index, int list_len,
-                              uint32_t drop_cut, uint32_t part_cut,
-                              uint32_t churn_cut, int B, int V, int L,
-                              cudaStream_t st) {
+                              void* chain_p, int32_t* chain_len,
+                              int32_t* n_app, int r_size, int p_size,
+                              int p_index, int list_len, uint32_t drop_cut,
+                              uint32_t part_cut, uint32_t churn_cut, int B,
+                              int V, int L, cudaStream_t st) {
+  if (n_app != nullptr && B > 0) {
+    const int err = static_cast<int>(
+        cudaMemsetAsync(n_app, 0, sizeof(int32_t) * B, st));
+    if (err != 0) return err;
+  }
   const long long rows = static_cast<long long>(B) * V;
   if (rows == 0) return 0;
   dpos_round_kernel<<<static_cast<unsigned>((rows + THREADS - 1) / THREADS),
                       THREADS, 0, st>>>(
-      seed, r, producers, chain_r, chain_p, chain_len, r_size, p_size,
+      seed, r, producers, chain_r, chain_p, chain_len, n_app, r_size, p_size,
       p_index, list_len, drop_cut, part_cut, churn_cut, V, L, rows);
   return static_cast<int>(cudaGetLastError());
 }

@@ -32,7 +32,11 @@
 // (acc_bal, -a) as one 64-bit key, then merges both with one atomicAdd and
 // one atomicMax per tile (the packed key gives the lowest acceptor among
 // equal ballots in any order). Launch 5 unpacks the keys. Launches 2 and 4
-// put (tile, lane) into gridDim.x, so any number of lanes launches.
+// put (tile, lane) into gridDim.x, so any number of lanes launches. Where
+// the caller passes n_pair ([B, N] int32, zeroed here; the telemetry's
+// nacks are n_pair - n_prom), launch 4 also counts, for each proposing p,
+// the acceptors with both of p's flights delivered (prep_del[a, p] and
+// deliver[a, p], the mask's diagonal as KL gives it), merged like n_prom.
 #include <cuda_runtime.h>
 
 #include "paxos.cuh"
@@ -129,6 +133,7 @@ paxos_promise_tile_kernel(const uint8_t* __restrict__ deliver,
                           const int32_t* __restrict__ new_promised,
                           const int32_t* __restrict__ acc_bal,
                           int32_t* __restrict__ n_prom,
+                          int32_t* __restrict__ n_pair,
                           unsigned long long* __restrict__ keys, int N,
                           int S) {
   const ctt::TileBlock tb = ctt::tile_block(N);
@@ -141,12 +146,13 @@ paxos_promise_tile_kernel(const uint8_t* __restrict__ deliver,
   const int32_t ballot = lane[ctt::PROP_BALLOT * N + p];
   const int a0 = tb.a0;
   const int a1 = min(a0 + ctt::TILE_ROWS, N);
-  int count = 0;
+  int count = 0, pairs = 0;
   unsigned long long best = 0ull;
   for (int a = a0; a < a1; ++a) {
     const long long row = static_cast<long long>(b) * N + a;
     int32_t rep = 0;
     if (is_prop && prep_del[row * N + p] && deliver[row * N + p]) {
+      ++pairs;
       const long long c = row * S + slot;
       if (ballot > promised[c] && ballot == new_promised[c]) {
         ++count;
@@ -158,6 +164,7 @@ paxos_promise_tile_kernel(const uint8_t* __restrict__ deliver,
   }
   const long long i = static_cast<long long>(b) * N + p;
   if (count) atomicAdd(n_prom + i, count);
+  if (n_pair != nullptr && pairs) atomicAdd(n_pair + i, pairs);
   atomicMax(keys + i, best);
 }
 
@@ -182,8 +189,8 @@ extern "C" int ctt_paxos_promise(
     const uint32_t* seed, uint32_t r, const uint8_t* deliver,
     const int32_t* promised, const int32_t* acc_bal, int32_t* new_promised,
     int32_t* n_prom, int32_t* best_bal, int32_t* best_a, uint8_t* prep_del,
-    int32_t* props, unsigned long long* keys, int P, uint32_t churn_cut,
-    int B, int N, int S, cudaStream_t st) {
+    int32_t* n_pair, int32_t* props, unsigned long long* keys, int P,
+    uint32_t churn_cut, int B, int N, int S, cudaStream_t st) {
   if (B == 0 || N == 0) return 0;
   static bool configured = false;
   if (!configured) {
@@ -199,6 +206,9 @@ extern "C" int ctt_paxos_promise(
   if (err == 0)
     err = static_cast<int>(
         cudaMemsetAsync(keys, 0, rows * sizeof(unsigned long long), st));
+  if (err == 0 && n_pair != nullptr)
+    err = static_cast<int>(
+        cudaMemsetAsync(n_pair, 0, rows * sizeof(int32_t), st));
   if (err != 0) return err;
   const unsigned row_blocks = static_cast<unsigned>((rows + THREADS - 1) /
                                                     THREADS);
@@ -214,8 +224,8 @@ extern "C" int ctt_paxos_promise(
                          in_smem ? S * sizeof(int32_t) : 0, st>>>(
       prep_del, props, promised, new_promised, P < N ? P : N, N, S, in_smem);
   paxos_promise_tile_kernel<<<ctt::tile_blocks(B, N), THREADS, 0, st>>>(
-      deliver, prep_del, props, promised, new_promised, acc_bal, n_prom, keys,
-      N, S);
+      deliver, prep_del, props, promised, new_promised, acc_bal, n_prom,
+      n_pair, keys, N, S);
   paxos_unpack_kernel<<<row_blocks, THREADS, 0, st>>>(keys, best_bal, best_a,
                                                        rows);
   return static_cast<int>(cudaGetLastError());

@@ -34,7 +34,9 @@
 //     sender counts when it is j or a real sender delivered to j
 //     (deliver[i, j], consecutive j: coalesced); the (f+1)-th that counts
 //     gives the statistic, and the walk stops there. Then P1's catch-up
-//     and P2; the post-P2 view, timer and reset are written.
+//     and P2; the post-P2 view, timer and reset are written and, where
+//     the caller passes catch_out, whether P1 moved the view (the flags
+//     the telemetry counts as sync_msgs_delivered).
 //  3. A warp per receiver, a lane per slot, runs P3. The primary's row is
 //     read from the inputs and every receiver writes fresh outputs, so a
 //     primary that takes its own offer (it is delivered to itself) changes
@@ -97,7 +99,8 @@ pbft_catchup_kernel(const uint32_t* __restrict__ seed, uint32_t r,
                     const int32_t* __restrict__ order,
                     int32_t* __restrict__ view_out,
                     int32_t* __restrict__ timer_out,
-                    bool* __restrict__ reset_out, int N, long long rows) {
+                    bool* __restrict__ reset_out,
+                    bool* __restrict__ catch_out, int N, long long rows) {
   const long long row =
       static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
   if (row >= rows) return;
@@ -129,7 +132,8 @@ pbft_catchup_kernel(const uint32_t* __restrict__ seed, uint32_t r,
       }
     }
   }
-  if (vth > v) {
+  const bool caught = vth > v;
+  if (caught) {
     v = vth;
     t = 0;
     reset = true;
@@ -143,6 +147,7 @@ pbft_catchup_kernel(const uint32_t* __restrict__ seed, uint32_t r,
   view_out[row] = v;
   timer_out[row] = t;
   reset_out[row] = reset;
+  if (catch_out != nullptr) catch_out[row] = caught;
 }
 
 // Launch 3. A warp per (lane, receiver), flattened; a thread per slot.
@@ -219,7 +224,8 @@ pbft_preprepare_kernel(const uint32_t* __restrict__ seed,
 
 }  // namespace
 
-// order is scratch: [B, N] int32.
+// order is scratch: [B, N] int32; catch_out, [B, N] bool, is null where
+// the caller does not ask for P1's catch-up flags.
 extern "C" int ctt_pbft_view_preprepare(
     const uint32_t* seed, uint32_t r, uint32_t churn_cut,
     int32_t view_timeout, int32_t vmax, const bool* deliver,
@@ -227,8 +233,8 @@ extern "C" int ctt_pbft_view_preprepare(
     const int32_t* timer, const bool* pp_seen, const int32_t* pp_view,
     const int32_t* pp_val, const bool* prepared, const bool* committed,
     int32_t* view_out, int32_t* timer_out, bool* reset_out, bool* seen_out,
-    int32_t* pview_out, int32_t* pval_out, int32_t* order, int B, int N,
-    int S, cudaStream_t st) {
+    int32_t* pview_out, int32_t* pval_out, bool* catch_out, int32_t* order,
+    int B, int N, int S, cudaStream_t st) {
   if (B == 0 || N == 0) return 0;
   const long long rows = static_cast<long long>(B) * N;
   const unsigned blocks = static_cast<unsigned>((rows + THREADS - 1) / THREADS);
@@ -238,7 +244,7 @@ extern "C" int ctt_pbft_view_preprepare(
   if (err != 0) return err;
   pbft_catchup_kernel<<<blocks, THREADS, 0, st>>>(
       seed, r, churn_cut, view_timeout, vmax, deliver, n_real, f, view,
-      timer, order, view_out, timer_out, reset_out, N, rows);
+      timer, order, view_out, timer_out, reset_out, catch_out, N, rows);
   if ((err = static_cast<int>(cudaGetLastError())) != 0) return err;
   const unsigned warp_blocks =
       static_cast<unsigned>((rows + WARPS - 1) / WARPS);

@@ -2,23 +2,28 @@
 block a round.
 
 The port of ``consensus_tpu/engines/dpos.py`` on its flat path (no crash,
-slot-miss or suppression gates, no telemetry). Each epoch's producers are
-the top K candidates of a stake-weighted vote tally over every validator,
-computed once from the seed at init; round r's producer is entry
-``(r mod epoch_len) mod K`` of epoch ``r // epoch_len``'s list, and every
-validator that its block reaches appends (r, producer) to its chain. No
-[V, V] mask exists: a round draws the producer's V edges only. Sweeps
-(lanes) are a leading batch axis B on every tensor.
+slot-miss or suppression gates), with its telemetry and flight recorder.
+Each epoch's producers are the top K candidates of a stake-weighted vote
+tally over every validator, computed once from the seed at init; round
+r's producer is entry ``(r mod epoch_len) mod K`` of epoch
+``r // epoch_len``'s list, and every validator that its block reaches
+appends (r, producer) to its chain. No [V, V] mask exists: a round draws
+the producer's V edges only. Sweeps (lanes) are a leading batch axis B on
+every tensor.
 
-Two functions are wrappers of hand-written CUDA kernels, each beside its
-plain PyTorch version (``<name>_plain``), which CPU tensors run:
+Three functions are wrappers of hand-written CUDA kernels, each beside
+its plain PyTorch version (``<name>_plain``), which CPU tensors run:
 
 * :func:`dpos_schedule` — kernel KW (``csrc/dpos_schedule.cu``): stakes,
   votes, the [B, E, C] tallies and the [B, E, K] producers, at init;
 * :func:`dpos_round` — kernel KX (``csrc/dpos_round.cu``): one round's
-  delivery from the producer and the chain appends.
+  delivery from the producer and the chain appends (and, for the
+  telemetry, their count);
+* :func:`dpos_telemetry` — kernel KAB (``csrc/dpos_telemetry.cu``): the
+  round's DPOS_TELEMETRY counters and DPOS_LATENCY histogram.
 
-On the card a run is KW once and KX once a round, and nothing else. The
+On the card a run is KW once and KX once a round (and KAB once a round
+with telemetry), and nothing else. The
 chains are updated in place, where the JAX round returns new arrays: a
 round's state replaces its input state. They are stored as the JAX
 package stores them, ``chain_r`` in the narrowest unsigned type that holds
@@ -34,11 +39,25 @@ import torch
 
 from ..core import rng
 from ..core.config import Config
-from ..ops.adversary import bitcast_i32
+from ..ops.adversary import CRASH_TELEMETRY, bitcast_i32
+from ..ops.flight import (add_plain, bucket_counts_plain, check_recorder,
+                          window_of)
 from .raft import check_all
 
 # The engine's name, as the JAX package's EngineDef names it.
 NAME = "dpos"
+
+# The DPoS engine's telemetry counters, in order: a copy of
+# consensus_tpu/engines/dpos.py DPOS_TELEMETRY (lines 100-106): the
+# round's chain extensions, the validators not extended, whether the
+# producer changed from the round before, whether churn skipped the slot,
+# the §A.1 and §A.4 skipped slots and the crash tail (zeros here).
+DPOS_TELEMETRY = ("blocks_appended", "missed_appends", "producer_rotations",
+                  "churn_slots", "missed_slots", "suppressed_slots") \
+    + CRASH_TELEMETRY
+# The flight recorder's latency histogram (engines/dpos.py DPOS_LATENCY,
+# line 114): one observation a round, max(chain_len) - min(chain_len).
+DPOS_LATENCY = ("chain_lag_rounds",)
 
 
 class DposState(NamedTuple):
@@ -130,16 +149,22 @@ dpos_schedule.launches = 0
 
 # --- KX: the round -----------------------------------------------------------
 
-def round_producer(cfg: Config, producers, r: int) -> torch.Tensor:
-    """[B] int32: round r's producer of each lane, entry
-    ``(r mod epoch_len) mod K`` of epoch ``r // epoch_len``'s list (read
-    on the device)."""
+def producer_index(cfg: Config, r: int) -> int:
+    """Round r's entry in a lane's [E * K] producer list: entry
+    ``(r mod epoch_len) mod K`` of epoch ``r // epoch_len``'s list."""
     e, t = divmod(int(r), cfg.epoch_len)
-    return producers[:, e, t % cfg.n_producers]
+    return e * cfg.n_producers + t % cfg.n_producers
+
+
+def round_producer(cfg: Config, producers, r: int) -> torch.Tensor:
+    """[B] int32: round r's producer of each lane (:func:`producer_index`;
+    read on the device)."""
+    return producers.reshape(producers.shape[0], -1)[
+        :, producer_index(cfg, r)]
 
 
 def dpos_round_plain(cfg: Config, seed, r: int, producers, chain_r, chain_p,
-                     chain_len):
+                     chain_len, count: bool = False):
     """Plain version of KX, one SPEC §7 round at every validator v of each
     lane, in place. The round's producer p (:func:`round_producer`) sends
     its block: it reaches v != p when the delivery mixer's draw of the edge
@@ -147,7 +172,8 @@ def dpos_round_plain(cfg: Config, seed, r: int, producers, chain_r, chain_p,
     active, v drew p's side; p itself always has it. Unless the round's
     churn event fires, a reached validator whose chain is not full writes
     (r, p) at index ``chain_len[v]`` and counts it. Returns (chain_r,
-    chain_p, chain_len), the tensors it was given."""
+    chain_p, chain_len), the tensors it was given, and with ``count`` the
+    [B] int32 number of the round's appends in each lane."""
     V, L = chain_len.shape[1], chain_r.shape[2]
     dev = chain_len.device
     useed = rng.as_u32(seed)[:, None]
@@ -170,18 +196,21 @@ def dpos_round_plain(cfg: Config, seed, r: int, producers, chain_r, chain_p,
     chain_p.copy_(torch.where(hot, p[:, :, None].to(torch.int32),
                               chain_p.to(torch.int32)))
     chain_len.add_(append.to(torch.int32))
+    if count:
+        return chain_r, chain_p, chain_len, append.sum(1, dtype=torch.int32)
     return chain_r, chain_p, chain_len
 
 
 def dpos_round(cfg: Config, seed, r: int, producers, chain_r, chain_p,
-               chain_len):
+               chain_len, count: bool = False):
     """Kernel KX: same arguments and result as :func:`dpos_round_plain`,
     which it runs for CPU tensors; for CUDA tensors it launches
     ``csrc/dpos_round.cu`` (a thread per (lane, validator) reads its
-    lane's producer, draws the edge, and appends in place)."""
+    lane's producer, draws the edge, and appends in place; with ``count``
+    a ballot a warp and an atomic a block and lane count the appends)."""
     if chain_len.device.type == "cpu":
         return dpos_round_plain(cfg, seed, r, producers, chain_r, chain_p,
-                                chain_len)
+                                chain_len, count)
     from .. import _build
     B, V, L = chain_r.shape
     if not 0 <= int(r) < cfg.n_rounds:
@@ -192,19 +221,88 @@ def dpos_round(cfg: Config, seed, r: int, producers, chain_r, chain_p,
               (chain_r, store_dtype(cfg.n_rounds - 1), (B, V, L)),
               (chain_p, store_dtype(cfg.n_candidates - 1), (B, V, L)),
               (chain_len, torch.int32, (B, V)))
-    e, t = divmod(int(r), cfg.epoch_len)
+    n_app = torch.empty(B, dtype=torch.int32, device=chain_len.device) \
+        if count else None
     _build.launch("dpos_round", seed.data_ptr(), int(r) & 0xFFFFFFFF,
                   producers.data_ptr(), chain_r.data_ptr(),
                   chain_p.data_ptr(), chain_len.data_ptr(),
+                  None if n_app is None else n_app.data_ptr(),
                   chain_r.element_size(), chain_p.element_size(),
-                  e * cfg.n_producers + t % cfg.n_producers,
-                  n_epochs(cfg) * cfg.n_producers, cfg.drop_cutoff,
-                  cfg.partition_cutoff, cfg.churn_cutoff, B, V, L)
+                  producer_index(cfg, r), n_epochs(cfg) * cfg.n_producers,
+                  cfg.drop_cutoff, cfg.partition_cutoff, cfg.churn_cutoff,
+                  B, V, L)
     dpos_round.launches += 1
+    if count:
+        return chain_r, chain_p, chain_len, n_app
     return chain_r, chain_p, chain_len
 
 
 dpos_round.launches = 0
+
+
+# --- KAB: the telemetry tail --------------------------------------------------
+
+def dpos_telemetry_plain(cfg: Config, r: int, seed, producers, chain_len,
+                         n_app, t, w=None, lat=None) -> None:
+    """Plain version of KAB: the round's DPOS_TELEMETRY counters, per lane,
+    added into the [B, K] int32 accumulator ``t`` and, with the flight
+    recorder (``w`` [B, n_windows, K] and ``lat`` [B, 1, N_BUCKETS], both
+    or neither), into window ``r // cfg.telemetry_window`` of ``w``, and
+    the round's DPOS_LATENCY observation into ``lat``, as
+    ``consensus_tpu/engines/dpos.py`` dpos_round's tail (lines 183-198)
+    on its flat path: ``n_app`` ([B] int32, KX's count) appends, V minus
+    them missed, a rotation where round r > 0's producer is not round r -
+    1's, the round's churn event, zeros for the gates the port rejects;
+    the lag max - min of ``chain_len`` after the append. Updates ``t``,
+    ``w`` and ``lat`` in place."""
+    check_recorder(cfg, w, lat)
+    V = chain_len.shape[1]
+    rotated = (round_producer(cfg, producers, r)
+               != round_producer(cfg, producers, max(int(r) - 1, 0))) \
+        & (int(r) > 0)
+    churn = rng.random_u32_plain(seed, rng.STREAM_CHURN, r, 0, 0)[:, 0] \
+        < cfg.churn_cutoff
+    vec = torch.zeros_like(t)
+    vec[:, :4] = torch.stack([n_app, V - n_app, rotated.to(torch.int32),
+                              churn.to(torch.int32)], 1)
+    hists = ()
+    if w is not None:
+        lag = (chain_len.amax(1) - chain_len.amin(1))[:, None]
+        hists = (bucket_counts_plain(lag, torch.ones_like(lag, dtype=bool)),)
+    add_plain(cfg, r, vec, t, w, lat, hists)
+
+
+def dpos_telemetry(cfg: Config, r: int, seed, producers, chain_len, n_app,
+                   t, w=None, lat=None) -> None:
+    """Kernel KAB: same arguments and in-place updates as
+    :func:`dpos_telemetry_plain`, which it runs for CPU tensors; for CUDA
+    tensors it launches ``csrc/dpos_telemetry.cu`` (a block per 1 024
+    validators of a lane takes its lengths' max and min; the lane's last
+    block adds the counters and the bucket)."""
+    check_recorder(cfg, w, lat)
+    if t.device.type == "cpu":
+        return dpos_telemetry_plain(cfg, r, seed, producers, chain_len, n_app,
+                                    t, w, lat)
+    from .. import _build
+    B, V = chain_len.shape
+    dev = t.device
+    check_all(dev, (seed, torch.uint32, (B,)),
+              (producers, torch.int32, (B, n_epochs(cfg), cfg.n_producers)),
+              (chain_len, torch.int32, (B, V)), (n_app, torch.int32, (B,)),
+              (t, torch.int32, (B, len(DPOS_TELEMETRY))))
+    window, n_windows = window_of(cfg, r, t, w, lat, len(DPOS_LATENCY))
+    span = torch.empty((B, 4), dtype=torch.int32, device=dev)
+    _build.launch("dpos_telemetry", seed.data_ptr(), int(r) & 0xFFFFFFFF,
+                  *(x.data_ptr() for x in (producers, chain_len, n_app, t)),
+                  *(None if x is None else x.data_ptr() for x in (w, lat)),
+                  span.data_ptr(), producer_index(cfg, r),
+                  producer_index(cfg, max(int(r) - 1, 0)),
+                  n_epochs(cfg) * cfg.n_producers, cfg.churn_cutoff, B, V,
+                  t.shape[1], window, n_windows)
+    dpos_telemetry.launches += 1
+
+
+dpos_telemetry.launches = 0
 
 
 # --- the engine --------------------------------------------------------------
@@ -227,13 +325,29 @@ def dpos_init(cfg: Config, seeds: torch.Tensor) -> DposState:
         down=torch.zeros((B, V), dtype=torch.bool, device=dev))
 
 
-def dpos_step(cfg: Config, st: DposState, r: int) -> DposState:
+def dpos_step(cfg: Config, st: DposState, r: int, *, telem=None,
+              flight=None) -> DposState:
     """One SPEC §7 round, as ``consensus_tpu/engines/dpos.py``
     ``dpos_round`` on its flat path: one launch of KX, which updates the
-    chains in place."""
-    chain_r, chain_p, chain_len = dpos_round(cfg, st.seed, r, st.producers,
-                                             st.chain_r, st.chain_p,
-                                             st.chain_len)
+    chains in place.
+
+    ``telem`` ([B, K] i32, the run's counter totals) switches on the
+    round's telemetry and ``flight`` (the window ring and latency buckets,
+    a pair of [B, n_windows, K] and [B, 1, N_BUCKETS] i32) its flight
+    recorder, as the JAX round's ``telem=True`` and ``flight=True``: KX
+    then also counts the round's appends, and kernel KAB adds the round's
+    counters into the accumulators in place."""
+    if flight is not None and telem is None:
+        raise ValueError("the flight recorder rides the telemetry "
+                         "accumulator: pass telem with flight")
+    on = () if telem is None else (True,)
+    chain_r, chain_p, chain_len, *n_app = dpos_round(
+        cfg, st.seed, r, st.producers, st.chain_r, st.chain_p, st.chain_len,
+        *on)
+    if telem is not None:
+        dpos_telemetry(cfg, r, st.seed, st.producers, chain_len, n_app[0],
+                       telem, *(flight if flight is not None
+                                else (None, None)))
     return st._replace(chain_r=chain_r, chain_p=chain_p, chain_len=chain_len)
 
 

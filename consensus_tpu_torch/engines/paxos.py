@@ -2,14 +2,14 @@
 grid.
 
 The port of ``consensus_tpu/engines/paxos.py`` on its flat path (no crash
-or switch gates, no telemetry). In round r each of the first P =
-``n_proposers or n_nodes`` nodes proposes ballot r·N + p + 1 on one slot it
-draws; prepares, promises, accepts, accepted responses and the decide
-broadcast all ride the round's [N, N] delivery mask. Sweeps (lanes) are a
-leading batch axis B on every tensor.
+or switch gates), with its telemetry and flight recorder. In round r each
+of the first P = ``n_proposers or n_nodes`` nodes proposes ballot
+r·N + p + 1 on one slot it draws; prepares, promises, accepts, accepted
+responses and the decide broadcast all ride the round's [N, N] delivery
+mask. Sweeps (lanes) are a leading batch axis B on every tensor.
 
-Two functions are wrappers of hand-written CUDA kernels, each beside its
-plain PyTorch version (``<name>_plain``), which CPU tensors run; the
+Three functions are wrappers of hand-written CUDA kernels, each beside
+its plain PyTorch version (``<name>_plain``), which CPU tensors run; the
 round's delivery mask is kernel KL (``ops/adversary.py``
 :func:`~consensus_tpu_torch.ops.adversary.delivery`), as in dense Raft and
 PBFT:
@@ -20,7 +20,10 @@ PBFT:
 * :func:`paxos_accept_learn` — kernel KZ (``csrc/paxos_accept_learn.cu``):
   phase 3, each proposer's gate and value, phase 4, the accepts, phase 5,
   the accepted responses and decisions, and phase 6, the decide broadcast
-  and learning.
+  and learning;
+* :func:`paxos_telemetry` — kernel KAC (``csrc/paxos_telemetry.cu``): the
+  round's PAXOS_TELEMETRY counters and PAXOS_LATENCY histogram, from
+  counts that KY and KZ return with telemetry on.
 
 On the card the round runs nothing but these launches, and no [B, N, N]
 tensor of ints: the [N, N] work is done inside the kernels. No input is
@@ -37,11 +40,28 @@ import torch
 
 from ..core import rng
 from ..core.config import Config
-from ..ops.adversary import bitcast_i32, delivery
+from ..ops.adversary import (AGG_TELEMETRY, CRASH_TELEMETRY, bitcast_i32,
+                             delivery)
+from ..ops.flight import (add_plain, bucket_counts_plain, check_recorder,
+                          window_of)
 from .raft import check_all
 
 # The engine's name, as the JAX package's EngineDef names it.
 NAME = "paxos"
+
+# The Paxos engine's telemetry counters, in order: a copy of
+# consensus_tpu/engines/paxos.py PAXOS_TELEMETRY (lines 74-81): delivered
+# promises, delivered prepares outbid (both flights delivered, no
+# promise), delivered accepted responses, proposers that decided, (node,
+# slot)s newly learned; then the crash and aggregation tails (zeros here).
+PAXOS_TELEMETRY = ("promises", "nacks", "accepts", "proposals_decided",
+                   "values_learned") + CRASH_TELEMETRY + AGG_TELEMETRY
+# The flight recorder's latency histogram (engines/paxos.py PAXOS_LATENCY,
+# line 90): r + 1 at each (node, slot) newly learned in round r.
+PAXOS_LATENCY = ("rounds_to_learn",)
+# KZ's per-proposer scratch row that holds the decided flags after its
+# launch 4 (csrc/paxos.cuh PROP_FLAG).
+PROP_FLAG = 2
 
 I32_MIN = -2**31
 
@@ -108,7 +128,7 @@ def _seg(values, slot_p, S: int, reduce: str, fill: int) -> torch.Tensor:
 # --- KY: phases 1-2 ----------------------------------------------------------
 
 def paxos_promise_plain(cfg: Config, seed, r: int, deliver, promised,
-                        acc_bal):
+                        acc_bal, want_pairs: bool = False):
     """Plain version of KY, SPEC §5 phases 1-2 of round r at every acceptor
     a and proposer p of each lane. ``prep_del[a, p]`` is ``deliver[p,
     a]``: p's prepare (and later accept) reached a; ``deliver[a, p]`` is
@@ -121,7 +141,9 @@ def paxos_promise_plain(cfg: Config, seed, r: int, deliver, promised,
     a promising acceptor (0 standing for every other acceptor) and
     ``best_a[p]`` the lowest acceptor that holds it. Returns
     (new_promised [B, N, S], n_prom, best_bal, best_a [B, N], prep_del
-    [B, N, N]): int32, and prep_del bool."""
+    [B, N, N]): int32, and prep_del bool; with ``want_pairs`` also
+    ``n_pair`` [B, N] int32, for each proposing p the acceptors with both
+    flights delivered (the telemetry's nacks are ``n_pair - n_prom``)."""
     N, S = deliver.shape[1], promised.shape[2]
     is_prop, slot_p, ballot, _ = proposals(cfg, seed, r, N, S)
     prep_del = deliver.transpose(1, 2).contiguous()
@@ -138,19 +160,25 @@ def paxos_promise_plain(cfg: Config, seed, r: int, deliver, promised,
     a_idx = torch.arange(N, dtype=torch.int32, device=deliver.device)
     best_a = torch.where(rep_bal == best_bal[:, None, :], a_idx[:, None],
                          N).amin(1)
-    return new_promised, n_prom, best_bal, best_a, prep_del
+    out = (new_promised, n_prom, best_bal, best_a, prep_del)
+    if want_pairs:
+        return (*out, (sent & deliver).sum(1, dtype=torch.int32))
+    return out
 
 
-def paxos_promise(cfg: Config, seed, r: int, deliver, promised, acc_bal):
+def paxos_promise(cfg: Config, seed, r: int, deliver, promised, acc_bal,
+                  want_pairs: bool = False):
     """Kernel KY: same arguments and result as
     :func:`paxos_promise_plain`, which it runs for CPU tensors; for CUDA
     tensors it launches ``csrc/paxos_promise.cu`` (each proposer's ballot
     and slot once; the mask's transpose; a block per acceptor row builds
     its prepares' slot maxima in shared memory; tiles of acceptor rows
     count the promises and keep the best accepted ballot per proposer,
-    merged across tiles by integer atomics on packed keys)."""
+    merged across tiles by integer atomics on packed keys; the pair counts
+    only with ``want_pairs``, merged like the promises)."""
     if deliver.device.type == "cpu":
-        return paxos_promise_plain(cfg, seed, r, deliver, promised, acc_bal)
+        return paxos_promise_plain(cfg, seed, r, deliver, promised, acc_bal,
+                                   want_pairs)
     from .. import _build
     B, N, S = promised.shape
     dev = deliver.device
@@ -161,15 +189,19 @@ def paxos_promise(cfg: Config, seed, r: int, deliver, promised, acc_bal):
     n_prom, best_bal, best_a = (torch.empty((B, N), dtype=torch.int32,
                                             device=dev) for _ in range(3))
     prep_del = torch.empty_like(deliver)
+    n_pair = torch.empty_like(n_prom) if want_pairs else None
     props = torch.empty((B, 4, N), dtype=torch.int32, device=dev)
     keys = torch.empty((B, N), dtype=torch.int64, device=dev)
     _build.launch("paxos_promise", seed.data_ptr(), int(r) & 0xFFFFFFFF,
                   *(t.data_ptr() for t in (
                       deliver, promised, acc_bal, new_promised, n_prom,
-                      best_bal, best_a, prep_del, props, keys)),
+                      best_bal, best_a, prep_del)),
+                  None if n_pair is None else n_pair.data_ptr(),
+                  props.data_ptr(), keys.data_ptr(),
                   cfg.n_proposers or N, cfg.churn_cutoff, B, N, S)
     paxos_promise.launches += 1
-    return new_promised, n_prom, best_bal, best_a, prep_del
+    out = (new_promised, n_prom, best_bal, best_a, prep_del)
+    return (*out, n_pair) if want_pairs else out
 
 
 paxos_promise.launches = 0
@@ -179,7 +211,8 @@ paxos_promise.launches = 0
 
 def paxos_accept_learn_plain(cfg: Config, seed, r: int, deliver, prep_del,
                              new_promised, n_prom, best_bal, best_a,
-                             acc_bal, acc_val, learned_val, learned_mask):
+                             acc_bal, acc_val, learned_val, learned_mask,
+                             want_counts: bool = False):
     """Plain version of KZ, SPEC §5 phases 3-6 of round r. Phase 3: p
     proceeds when it proposes and holds a majority (N // 2 + 1) of
     promises; its value is ``acc_val[best_a, slot_p]`` when ``best_bal >
@@ -193,7 +226,9 @@ def paxos_accept_learn_plain(cfg: Config, seed, r: int, deliver, prep_del,
     learns slot s, where it has not, from the lowest-id decider on s whose
     decide reached it (itself included); ``learned_mask`` marks every slot
     such a decider reached. Returns (promised, acc_bal, acc_val,
-    learned_val [B, N, S] int32, learned_mask [B, N, S] bool)."""
+    learned_val [B, N, S] int32, learned_mask [B, N, S] bool) and, with
+    ``want_counts``, phase 5's ``n_acc`` (the delivered accepted responses
+    of each proposer) and decided flags (0 or 1), both [B, N] int32."""
     N, S = deliver.shape[1], new_promised.shape[2]
     majority = N // 2 + 1
     dev = deliver.device
@@ -227,13 +262,17 @@ def paxos_accept_learn_plain(cfg: Config, seed, r: int, deliver, prep_del,
     learn_now = found & ~learned_mask
     lv_in = v_chosen.gather(1, pmin.clamp(max=N - 1).to(torch.int64)
                             .reshape(pmin.shape[0], -1)).reshape(pmin.shape)
-    return (promised2, acc_bal2, acc_val2,
-            torch.where(learn_now, lv_in, learned_val), learned_mask | found)
+    out = (promised2, acc_bal2, acc_val2,
+           torch.where(learn_now, lv_in, learned_val), learned_mask | found)
+    if want_counts:
+        return (*out, n_acc, decided.to(torch.int32))
+    return out
 
 
 def paxos_accept_learn(cfg: Config, seed, r: int, deliver, prep_del,
                        new_promised, n_prom, best_bal, best_a, acc_bal,
-                       acc_val, learned_val, learned_mask):
+                       acc_val, learned_val, learned_mask,
+                       want_counts: bool = False):
     """Kernel KZ: same arguments and result as
     :func:`paxos_accept_learn_plain`, which it runs for CPU tensors; for
     CUDA tensors it launches ``csrc/paxos_accept_learn.cu`` (each
@@ -241,12 +280,15 @@ def paxos_accept_learn(cfg: Config, seed, r: int, deliver, prep_del,
     accepts' slot maxima and winners in shared memory and writes the
     row's new state and a bit per delivered accepted response; tiles of
     rows count those bits per proposer; a block per receiver row takes
-    the lowest decider of each slot and learns)."""
+    the lowest decider of each slot and learns). With ``want_counts`` it
+    also returns its count of accepted responses and its decided flags,
+    which it keeps in a row of its proposer scratch (a strided view)."""
     if deliver.device.type == "cpu":
         return paxos_accept_learn_plain(cfg, seed, r, deliver, prep_del,
                                         new_promised, n_prom, best_bal,
                                         best_a, acc_bal, acc_val,
-                                        learned_val, learned_mask)
+                                        learned_val, learned_mask,
+                                        want_counts)
     from .. import _build
     B, N, S = new_promised.shape
     dev = deliver.device
@@ -270,33 +312,122 @@ def paxos_accept_learn(cfg: Config, seed, r: int, deliver, prep_del,
                       learned_mask2, props, n_acc, bits)),
                   cfg.n_proposers or N, cfg.churn_cutoff, B, N, S)
     paxos_accept_learn.launches += 1
-    return promised2, acc_bal2, acc_val2, learned_val2, learned_mask2
+    out = (promised2, acc_bal2, acc_val2, learned_val2, learned_mask2)
+    return (*out, n_acc, props[:, PROP_FLAG]) if want_counts else out
 
 
 paxos_accept_learn.launches = 0
 
 
+# --- KAC: the telemetry tail --------------------------------------------------
+
+def paxos_telemetry_plain(cfg: Config, r: int, n_prom, n_pair, n_acc,
+                          decided, learned_in, learned, t, w=None,
+                          lat=None) -> None:
+    """Plain version of KAC: the round's PAXOS_TELEMETRY counters, per
+    lane, added into the [B, K] int32 accumulator ``t`` and, with the
+    flight recorder (``w`` [B, n_windows, K] and ``lat`` [B, 1,
+    N_BUCKETS], both or neither), into window ``r // cfg.telemetry_window``
+    of ``w``, and the round's PAXOS_LATENCY histogram into ``lat``, as
+    ``consensus_tpu/engines/paxos.py`` paxos_round's tail (lines 253-264)
+    on its flat path: the sums of KY's ``n_prom``, of ``n_pair - n_prom``
+    and of KZ's ``n_acc`` and ``decided`` ([B, N] int32), and the (node,
+    slot)s of ``learned`` not in ``learned_in`` ([B, N, S] bool), each
+    observed at r + 1; zeros for the gates the port rejects. Updates
+    ``t``, ``w`` and ``lat`` in place."""
+    check_recorder(cfg, w, lat)
+    B = learned.shape[0]
+    learn_now = (learned & ~learned_in).reshape(B, -1)
+    vec = torch.zeros_like(t)
+    vec[:, :5] = torch.stack([
+        n_prom.sum(1, dtype=torch.int32),
+        (n_pair - n_prom).sum(1, dtype=torch.int32),
+        n_acc.sum(1, dtype=torch.int32),
+        (decided != 0).sum(1, dtype=torch.int32),
+        learn_now.sum(1, dtype=torch.int32)], 1)
+    hists = ()
+    if w is not None:
+        hists = (bucket_counts_plain(torch.full_like(learn_now, r + 1,
+                                                     dtype=torch.int32),
+                                     learn_now),)
+    add_plain(cfg, r, vec, t, w, lat, hists)
+
+
+def paxos_telemetry(cfg: Config, r: int, n_prom, n_pair, n_acc, decided,
+                    learned_in, learned, t, w=None, lat=None) -> None:
+    """Kernel KAC: same arguments and in-place updates as
+    :func:`paxos_telemetry_plain`, which it runs for CPU tensors; for CUDA
+    tensors it launches ``csrc/paxos_telemetry.cu`` (a block per 16 KB of
+    a lane's masks, 16-byte loads, block sums and one integer atomic a
+    block and counter). ``decided`` may be a view with a lane stride (KZ's
+    flag row); its nodes must be adjacent."""
+    check_recorder(cfg, w, lat)
+    if t.device.type == "cpu":
+        return paxos_telemetry_plain(cfg, r, n_prom, n_pair, n_acc, decided,
+                                     learned_in, learned, t, w, lat)
+    from .. import _build
+    B, N, S = learned.shape
+    dev = t.device
+    check_all(dev, *((x, torch.int32, (B, N)) for x in (n_prom, n_pair,
+                                                         n_acc)),
+              *((x, torch.bool, (B, N, S)) for x in (learned_in, learned)),
+              (t, torch.int32, (B, len(PAXOS_TELEMETRY))))
+    if (decided.device != dev or decided.dtype != torch.int32
+            or tuple(decided.shape) != (B, N) or decided.stride(1) != 1):
+        raise ValueError("decided must be a [B, N] int32 tensor on "
+                         f"{dev} with adjacent nodes")
+    window, n_windows = window_of(cfg, r, t, w, lat, len(PAXOS_LATENCY))
+    _build.launch("paxos_telemetry", *(x.data_ptr() for x in (
+        n_prom, n_pair, n_acc, decided, learned_in, learned, t)),
+        *(None if x is None else x.data_ptr() for x in (w, lat)),
+        decided.stride(0), int(r), B, N, S, t.shape[1], window, n_windows)
+    paxos_telemetry.launches += 1
+
+
+paxos_telemetry.launches = 0
+
+
 # --- the round ---------------------------------------------------------------
 
-def paxos_round(cfg: Config, st: PaxosState, r: int) -> PaxosState:
+def paxos_round(cfg: Config, st: PaxosState, r: int, *, telem=None,
+                flight=None) -> PaxosState:
     """One SPEC §5 round, as ``consensus_tpu/engines/paxos.py``
     ``paxos_round`` on its flat path: a sequence of kernel launches and
-    nothing else."""
+    nothing else.
+
+    ``telem`` ([B, K] i32, the run's counter totals) switches on the
+    round's telemetry and ``flight`` (the window ring and latency buckets,
+    a pair of [B, n_windows, K] and [B, 1, N_BUCKETS] i32) its flight
+    recorder, as the JAX round's ``telem=True`` and ``flight=True``: KY
+    and KZ then also return their counts, and kernel KAC adds the round's
+    counters into the accumulators in place."""
     N = cfg.n_nodes
     seed = st.seed
+    # The flag that asks KY and KZ for their counts, passed only with
+    # telemetry: without it the calls are those of a round without.
+    on = () if telem is None else (True,)
+    if flight is not None and telem is None:
+        raise ValueError("the flight recorder rides the telemetry "
+                         "accumulator: pass telem with flight")
 
     # ---- The round's delivery mask (KL).
     deliver = delivery(seed, r, N, cfg.drop_cutoff, cfg.partition_cutoff)
 
     # ---- Phases 1-2: prepares and promises (KY).
-    new_promised, n_prom, best_bal, best_a, prep_del = paxos_promise(
-        cfg, seed, r, deliver, st.promised, st.acc_bal)
+    new_promised, n_prom, best_bal, best_a, prep_del, *pairs = paxos_promise(
+        cfg, seed, r, deliver, st.promised, st.acc_bal, *on)
 
     # ---- Phases 3-6: gate and value, accepts, decisions, learning (KZ).
-    promised, acc_bal, acc_val, learned_val, learned_mask = \
+    promised, acc_bal, acc_val, learned_val, learned_mask, *counts = \
         paxos_accept_learn(cfg, seed, r, deliver, prep_del, new_promised,
                            n_prom, best_bal, best_a, st.acc_bal, st.acc_val,
-                           st.learned_val, st.learned_mask)
+                           st.learned_val, st.learned_mask, *on)
+
+    # ---- Telemetry and flight recorder (KAC).
+    if telem is not None:
+        paxos_telemetry(cfg, r, n_prom, pairs[0], *counts, st.learned_mask,
+                        learned_mask, telem,
+                        *(flight if flight is not None else (None, None)))
     return PaxosState(seed, promised, acc_bal, acc_val, learned_val,
                       learned_mask, st.down)
 

@@ -1,9 +1,10 @@
 """Dense PBFT in PyTorch: SPEC §6 with pairwise tallies over every node.
 
 The port of ``consensus_tpu/engines/pbft.py`` on its flat path (no crash,
-byzantine, switch or desync gates, no telemetry) and, through the same
-functions, of ``consensus_tpu/engines/pbft_sweep.py``'s
-``pbft_round_padded``: every phase takes the per-lane population
+byzantine, switch or desync gates), with its telemetry and flight
+recorder, and, through the same functions, of
+``consensus_tpu/engines/pbft_sweep.py``'s ``pbft_round_padded`` (which
+has no telemetry): every phase takes the per-lane population
 ``n_real`` and tolerance ``f`` ([B] int32 tensors). Node ``i`` of lane
 ``b`` is real (and honest) when ``i < n_real[b]``; padded nodes neither
 send nor receive, never lead and never decide, and the quorum is
@@ -12,7 +13,7 @@ the case ``n_real = n_nodes``, ``f = cfg.f`` on every lane, so one set of
 kernels serves the standalone engine and the f-ladder, and they cannot
 drift apart. Sweeps (lanes) are a leading batch axis B on every tensor.
 
-Three functions are wrappers of hand-written CUDA kernels, each beside its
+Four functions are wrappers of hand-written CUDA kernels, each beside its
 plain PyTorch version (``<name>_plain``), which CPU tensors run; the
 round's delivery mask is kernel KL (``ops/adversary.py``
 :func:`~consensus_tpu_torch.ops.adversary.delivery`), as in dense Raft:
@@ -22,7 +23,10 @@ round's delivery mask is kernel KL (``ops/adversary.py``
 * :func:`pbft_tally` — kernel KR (``csrc/pbft_tally.cu``): P4 the prepare
   tally and P5 the commit tally;
 * :func:`pbft_decide` — kernel KS (``csrc/pbft_decide.cu``): P6 the
-  min-id decide gossip and P7 the timers.
+  min-id decide gossip and P7 the timers;
+* :func:`pbft_telemetry` — kernel KAA (``csrc/pbft_telemetry.cu``): the
+  round's PBFT_TELEMETRY counters and PBFT_LATENCY histograms, with
+  telemetry on; the §6b engine (``engines/pbft_bcast.py``) runs it too.
 
 On the card the round runs nothing but these launches. No input is
 changed: each phase writes fresh tensors, and the round returns a new
@@ -38,11 +42,29 @@ import torch
 
 from ..core import rng
 from ..core.config import Config
-from ..ops.adversary import bitcast_i32, churn, delivery
+from ..ops.adversary import (AGG_TELEMETRY, CRASH_TELEMETRY,
+                             SAFETY_TELEMETRY, bitcast_i32, churn, delivery)
+from ..ops.flight import (add_plain, bucket_counts_plain, check_recorder,
+                          window_of)
+from ..ops.viewsync import SYNC_TELEMETRY, sync_counts_plain
 from .raft import check_all
 
 # The engine's name, as the JAX package's EngineDef names it.
 NAME = "pbft"
+
+# The PBFT engines' telemetry counters, in order: a copy of
+# consensus_tpu/engines/pbft.py PBFT_TELEMETRY (lines 122-133): (node,
+# slot)s newly prepared, seen and not prepared, committed by their own
+# tally, prepared and not committed, committed by the decide gossip, and
+# the sum of each node's view advance; then the crash, aggregation and
+# safety tails (zeros here) and the SPEC §B desync tail.
+PBFT_TELEMETRY = ("prepare_quorums", "prepare_missed", "commit_quorums",
+                  "commit_missed", "commits_adopted", "view_changes") \
+    + CRASH_TELEMETRY + AGG_TELEMETRY + SAFETY_TELEMETRY + SYNC_TELEMETRY
+# The flight recorder's latency histograms (engines/pbft.py PBFT_LATENCY,
+# line 145): the entry timer + 1 of each node whose view moved, and r - s
+# of each (node, slot) committed in round r.
+PBFT_LATENCY = ("view_change_wait_rounds", "slot_commit_rounds")
 
 
 class PbftState(NamedTuple):
@@ -137,7 +159,7 @@ def _lane_specs(deliver, n_real, f):
 
 def pbft_view_preprepare_plain(cfg: Config, seed, r: int, deliver, n_real, f,
                                view, timer, pp_seen, pp_view, pp_val,
-                               prepared, committed):
+                               prepared, committed, want_catch: bool = False):
     """Plain version of KQ, SPEC §6 P0-P3 at every node of each lane.
 
     P0: the round's churn event moves every view up by one. P1: node j
@@ -151,7 +173,8 @@ def pbft_view_preprepare_plain(cfg: Config, seed, r: int, deliver, n_real, f,
     Receiver j takes the offer of its primary, delivered or itself, when
     the primary's view is j's view, into each slot it has not seen in
     this view, unless it prepared another value there. Returns new
-    (view, timer, reset, pp_seen, pp_view, pp_val)."""
+    (view, timer, reset, pp_seen, pp_view, pp_val) and, with
+    ``want_catch``, the [B, N] bool flags of the nodes P1 moved."""
     B, N, S = pp_seen.shape
     dev = view.device
     idx = torch.arange(N, dtype=torch.int32, device=dev)
@@ -196,25 +219,27 @@ def pbft_view_preprepare_plain(cfg: Config, seed, r: int, deliver, n_real, f,
     accept = (prim_ok[:, :, None] & pm_b
               & (~pp_seen | (pp_view < view[:, :, None]))
               & (~prepared | (pm_val == pp_val)))
-    return (view, timer, reset, pp_seen | accept,
-            torch.where(accept, view[:, :, None], pp_view),
-            torch.where(accept, pm_val, pp_val))
+    out = (view, timer, reset, pp_seen | accept,
+           torch.where(accept, view[:, :, None], pp_view),
+           torch.where(accept, pm_val, pp_val))
+    return (*out, catch) if want_catch else out
 
 
 def pbft_view_preprepare(cfg: Config, seed, r: int, deliver, n_real, f, view,
                          timer, pp_seen, pp_view, pp_val, prepared,
-                         committed):
+                         committed, want_catch: bool = False):
     """Kernel KQ: same arguments and result as
     :func:`pbft_view_preprepare_plain`, which it runs for CPU tensors; for
     CUDA tensors it launches ``csrc/pbft_view_preprepare.cu`` (a thread per
     node ranks its view within its lane, a thread per receiver walks its
     lane's senders in that order for P1 and runs P2, then a warp per
     receiver runs P3 over its slots, reading its primary's row as it stood
-    before P3)."""
+    before P3; P1's flags only with ``want_catch``)."""
     if view.device.type == "cpu":
         return pbft_view_preprepare_plain(cfg, seed, r, deliver, n_real, f,
                                           view, timer, pp_seen, pp_view,
-                                          pp_val, prepared, committed)
+                                          pp_val, prepared, committed,
+                                          want_catch)
     from .. import _build
     B, N, S = pp_seen.shape
     dev = view.device
@@ -228,15 +253,19 @@ def pbft_view_preprepare(cfg: Config, seed, r: int, deliver, n_real, f, view,
     reset = torch.empty((B, N), dtype=torch.bool, device=dev)
     seen_out, pview_out = torch.empty_like(pp_seen), torch.empty_like(pp_view)
     pval_out = torch.empty_like(pp_val)
+    catch = torch.empty_like(reset) if want_catch else None
     order = torch.empty((B, N), dtype=torch.int32, device=dev)
     _build.launch("pbft_view_preprepare", seed.data_ptr(),
                   int(r) & 0xFFFFFFFF, cfg.churn_cutoff, cfg.view_timeout,
                   view_bound(cfg), *(t.data_ptr() for t in (
                       deliver, n_real, f, view, timer, pp_seen, pp_view,
                       pp_val, prepared, committed, view_out, timer_out, reset,
-                      seen_out, pview_out, pval_out, order)), B, N, S)
+                      seen_out, pview_out, pval_out)),
+                  None if catch is None else catch.data_ptr(),
+                  order.data_ptr(), B, N, S)
     pbft_view_preprepare.launches += 1
-    return view_out, timer_out, reset, seen_out, pview_out, pval_out
+    out = (view_out, timer_out, reset, seen_out, pview_out, pval_out)
+    return (*out, catch) if want_catch else out
 
 
 pbft_view_preprepare.launches = 0
@@ -357,35 +386,135 @@ def pbft_decide(deliver, n_real, committed, dval, committed_start, timer,
 pbft_decide.launches = 0
 
 
+# --- KAA: the telemetry tail -------------------------------------------------
+
+def pbft_telemetry_plain(cfg: Config, r: int, n_real, view_in, timer_in, view,
+                         catch, down, pp_seen, prepared_in, prepared,
+                         committed_in, committed_tally, committed, t, w=None,
+                         lat=None) -> None:
+    """Plain version of KAA: the round's PBFT_TELEMETRY counters, per lane,
+    added into the [B, K] int32 accumulator ``t`` and, with the flight
+    recorder (``w`` [B, n_windows, K] and ``lat`` [B, 2, N_BUCKETS], both
+    or neither), into window ``r // cfg.telemetry_window`` of ``w``, and
+    the round's PBFT_LATENCY histograms into ``lat``, as
+    ``consensus_tpu/engines/pbft.py`` pbft_round's tail (lines 377-422)
+    and ``pbft_bcast.py`` pbft_bcast_round's (lines 687-728) on their flat
+    paths. Its terms are read off the round's tensors: ``view_in``,
+    ``timer_in``, ``prepared_in``, ``committed_in`` and ``down`` at round
+    entry, the catch-up flags ``catch`` and ``pp_seen`` after P3,
+    ``prepared`` and ``committed_tally`` after P5, ``view`` and
+    ``committed`` at the round's end. The SPEC §B tail is taken over the
+    lane's real live nodes (i < ``n_real``, not ``down``); the crash,
+    aggregation and safety tails stay 0. Updates ``t``, ``w`` and ``lat``
+    in place."""
+    B, N, S = pp_seen.shape
+    check_recorder(cfg, w, lat)
+
+    def cnt(m):
+        return m.sum((1, 2), dtype=torch.int32)
+    sync = sync_counts_plain(view, real_nodes(n_real, N) & ~down, catch)
+    vec = torch.zeros_like(t)
+    vec[:, :6] = torch.stack([
+        cnt(prepared & ~prepared_in), cnt(pp_seen & ~prepared),
+        cnt(committed_tally & ~committed_in),
+        cnt(prepared & ~committed_tally), cnt(committed & ~committed_tally),
+        (view - view_in).clamp(min=0).sum(1, dtype=torch.int32)], 1)
+    vec[:, -3:] = sync
+    hists = ()
+    if w is not None:
+        age = r - torch.arange(S, dtype=torch.int32, device=t.device)
+        hists = (bucket_counts_plain(timer_in + 1, view > view_in),
+                 bucket_counts_plain(age.expand(B, N, S).reshape(B, -1),
+                                     (committed & ~committed_in).reshape(
+                                         B, -1)))
+    add_plain(cfg, r, vec, t, w, lat, hists)
+
+
+def pbft_telemetry(cfg: Config, r: int, n_real, view_in, timer_in, view,
+                   catch, down, pp_seen, prepared_in, prepared, committed_in,
+                   committed_tally, committed, t, w=None, lat=None) -> None:
+    """Kernel KAA: same arguments and in-place updates as
+    :func:`pbft_telemetry_plain`, which it runs for CPU tensors; for CUDA
+    tensors it launches ``csrc/pbft_telemetry.cu`` (a block per 256 nodes
+    of a lane: block sums and one integer atomic a block and counter; the
+    lane's view spread by its last block)."""
+    check_recorder(cfg, w, lat)
+    if t.device.type == "cpu":
+        return pbft_telemetry_plain(cfg, r, n_real, view_in, timer_in, view,
+                                    catch, down, pp_seen, prepared_in,
+                                    prepared, committed_in, committed_tally,
+                                    committed, t, w, lat)
+    from .. import _build
+    B, N, S = pp_seen.shape
+    dev = t.device
+    check_all(dev, (n_real, torch.int32, (B,)),
+              *((x, torch.int32, (B, N)) for x in (view_in, timer_in, view)),
+              *((x, torch.bool, (B, N)) for x in (catch, down)),
+              *((x, torch.bool, (B, N, S)) for x in (
+                  pp_seen, prepared_in, prepared, committed_in,
+                  committed_tally, committed)),
+              (t, torch.int32, (B, len(PBFT_TELEMETRY))))
+    window, n_windows = window_of(cfg, r, t, w, lat, len(PBFT_LATENCY))
+    span = torch.empty((B, 4), dtype=torch.int32, device=dev)
+    _build.launch("pbft_telemetry", *(x.data_ptr() for x in (
+        n_real, view_in, timer_in, view, catch, down, pp_seen, prepared_in,
+        prepared, committed_in, committed_tally, committed, t)),
+        *(None if x is None else x.data_ptr() for x in (w, lat)),
+        span.data_ptr(), int(r), B, N, S, t.shape[1], window, n_windows)
+    pbft_telemetry.launches += 1
+
+
+pbft_telemetry.launches = 0
+
+
 # --- the round ---------------------------------------------------------------
 
-def pbft_round(cfg: Config, st: PbftState, r: int, n_real,
-               f) -> PbftState:
+def pbft_round(cfg: Config, st: PbftState, r: int, n_real, f, *, telem=None,
+               flight=None) -> PbftState:
     """One SPEC §6 round with per-lane ``n_real`` and ``f`` ([B] int32),
     phase by phase as ``consensus_tpu/engines/pbft_sweep.py``
     ``pbft_round_padded``, and so, with ``n_real = cfg.n_nodes`` and ``f =
     cfg.f`` on every lane, as ``consensus_tpu/engines/pbft.py``
     ``pbft_round`` (``network/runner.py`` :func:`lane_inputs` gives both):
-    a sequence of kernel launches and nothing else."""
+    a sequence of kernel launches and nothing else.
+
+    ``telem`` ([B, K] i32, the run's counter totals) switches on the
+    round's telemetry, as the JAX round's ``telem=True``, and ``flight``
+    (the window ring and latency buckets, a pair of [B, n_windows, K] and
+    [B, 2, N_BUCKETS] i32) its flight recorder, as ``flight=True``; KQ
+    then also gives P1's catch-up flags, and kernel KAA adds the round's
+    counters into the accumulators in place."""
     N = cfg.n_nodes
     seed = st.seed
+    if flight is not None and telem is None:
+        raise ValueError("the flight recorder rides the telemetry "
+                         "accumulator: pass telem with flight")
 
     # ---- The round's delivery mask (KL).
     deliver = delivery(seed, r, N, cfg.drop_cutoff, cfg.partition_cutoff)
 
-    # ---- P0 churn, P1 catch-up, P2 timeout, P3 pre-prepare (KQ).
-    view, timer, reset, pp_seen, pp_view, pp_val = pbft_view_preprepare(
-        cfg, seed, r, deliver, n_real, f, st.view, st.timer, st.pp_seen,
-        st.pp_view, st.pp_val, st.prepared, st.committed)
+    # ---- P0 churn, P1 catch-up, P2 timeout, P3 pre-prepare (KQ), with
+    # P1's flags when the telemetry counts them.
+    on = () if telem is None else (True,)
+    view, timer, reset, pp_seen, pp_view, pp_val, *catch = \
+        pbft_view_preprepare(cfg, seed, r, deliver, n_real, f, st.view,
+                             st.timer, st.pp_seen, st.pp_view, st.pp_val,
+                             st.prepared, st.committed, *on)
 
     # ---- P4 prepare tally, P5 commit tally (KR).
-    prepared, committed, dval = pbft_tally(deliver, n_real, f, pp_seen,
-                                           pp_val, st.prepared, st.committed,
-                                           st.dval)
+    prepared, tallied, dval = pbft_tally(deliver, n_real, f, pp_seen, pp_val,
+                                         st.prepared, st.committed, st.dval)
 
     # ---- P6 decide gossip, P7 timers (KS).
-    committed, dval, timer = pbft_decide(deliver, n_real, committed, dval,
+    committed, dval, timer = pbft_decide(deliver, n_real, tallied, dval,
                                          st.committed, timer, reset)
+
+    # ---- Telemetry and flight recorder (KAA).
+    if telem is not None:
+        pbft_telemetry(cfg, r, n_real, st.view, st.timer, view, catch[0],
+                       st.down, pp_seen, st.prepared, prepared, st.committed,
+                       tallied, committed, telem,
+                       *(flight if flight is not None else (None, None)))
 
     return PbftState(seed, view, timer, pp_seen, pp_view, pp_val, prepared,
                      committed, dval, st.down)

@@ -1,9 +1,12 @@
 """PBFT under the broadcast-atomic fault model (SPEC §6b) in PyTorch.
 
 The port of ``consensus_tpu/engines/pbft_bcast.py`` on its flat path (no
-crash, delay, byzantine, switch or desync gates, no telemetry) and,
-through the same functions, of ``consensus_tpu/engines/pbft_sweep.py``'s
-``pbft_bcast_round_padded``. Under §6b a sender's round broadcast is
+crash, delay, byzantine, switch or desync gates), with its telemetry and
+flight recorder (kernel KAA, ``engines/pbft.py``
+:func:`~consensus_tpu_torch.engines.pbft.pbft_telemetry`, as the dense
+engine's), and, through the same functions, of
+``consensus_tpu/engines/pbft_sweep.py``'s ``pbft_bcast_round_padded``
+(which has no telemetry). Under §6b a sender's round broadcast is
 dropped whole (one delivery draw keyed (i, i)), so what a receiver hears
 depends only on its partition side, and every tally collapses to one
 aggregate per (lane, slot, side): no [N, N] tensor exists, and the engine
@@ -48,6 +51,7 @@ import torch
 from ..core import rng
 from ..core.config import Config
 from ..ops.adversary import churn
+from . import pbft
 from .pbft import PbftState, fresh_values, real_nodes, view_bound
 from .raft import check_all
 
@@ -132,7 +136,7 @@ def _gather_nodes(x, idx):
 
 def bcast_view_preprepare_plain(cfg: Config, seed, r: int, n_real, f, view,
                                 timer, pp_seen, pp_view, pp_val, prepared,
-                                committed):
+                                committed, want_catch: bool = False):
     """Plain version of KT, SPEC §6b P0-P3 at every node of each lane.
 
     P0: the round's churn event moves every view up by one. P1: the
@@ -146,8 +150,9 @@ def bcast_view_preprepare_plain(cfg: Config, seed, r: int, n_real, f, view,
     slot (a fresh value drawn from its view); receiver j takes the offer
     when the primary is j or a sender of j's side, in j's view, into each
     slot it has not seen in this view, unless it prepared another value
-    there. Returns new (view, timer, reset, pp_seen, pp_view, pp_val) and
-    the node bits."""
+    there. Returns new (view, timer, reset, pp_seen, pp_view, pp_val), the
+    node bits and, with ``want_catch``, the [B, N] bool flags of the nodes
+    P1 moved."""
     B, N, S = pp_seen.shape
     dev = view.device
     idx = torch.arange(N, dtype=torch.int64, device=dev)
@@ -198,24 +203,27 @@ def bcast_view_preprepare_plain(cfg: Config, seed, r: int, n_real, f, view,
     accept = (prim_ok[:, :, None] & pm_b
               & (~pp_seen | (pp_view < view[:, :, None]))
               & (~prepared | (pm_val == pp_val)))
-    return (view, timer, reset, pp_seen | accept,
-            torch.where(accept, view[:, :, None], pp_view),
-            torch.where(accept, pm_val, pp_val), bits)
+    out = (view, timer, reset, pp_seen | accept,
+           torch.where(accept, view[:, :, None], pp_view),
+           torch.where(accept, pm_val, pp_val), bits)
+    return (*out, catch) if want_catch else out
 
 
 def bcast_view_preprepare(cfg: Config, seed, r: int, n_real, f, view, timer,
-                          pp_seen, pp_view, pp_val, prepared, committed):
+                          pp_seen, pp_view, pp_val, prepared, committed,
+                          want_catch: bool = False):
     """Kernel KT: same arguments and result as
     :func:`bcast_view_preprepare_plain`, which it runs for CPU tensors; for
     CUDA tensors it launches ``csrc/bcast_view_preprepare.cu`` (a thread
     per node draws its bits and adds its view to its lane's per-side
     histogram; a thread per receiver reads its side's two statistics off
     the histogram's suffix sums for P1 and runs P2; a thread per (receiver,
-    slot) runs P3, reading the rows as they stood before P3)."""
+    slot) runs P3, reading the rows as they stood before P3; P1's flags
+    only with ``want_catch``)."""
     if view.device.type == "cpu":
         return bcast_view_preprepare_plain(cfg, seed, r, n_real, f, view,
                                            timer, pp_seen, pp_view, pp_val,
-                                           prepared, committed)
+                                           prepared, committed, want_catch)
     from .. import _build
     B, N, S = pp_seen.shape
     dev = view.device
@@ -233,6 +241,7 @@ def bcast_view_preprepare(cfg: Config, seed, r: int, n_real, f, view, timer,
     bits = torch.empty((B, N), dtype=torch.uint8, device=dev)
     hist = torch.empty((B, 2, vmax + 2), dtype=torch.int32, device=dev)
     fresh = torch.empty((B, N), dtype=torch.int32, device=dev)
+    catch = torch.empty_like(reset) if want_catch else None
     _build.launch("bcast_view_preprepare", seed.data_ptr(),
                   int(r) & 0xFFFFFFFF, cfg.churn_cutoff, cfg.drop_cutoff,
                   cfg.partition_cutoff, cfg.view_timeout, vmax,
@@ -240,9 +249,10 @@ def bcast_view_preprepare(cfg: Config, seed, r: int, n_real, f, view, timer,
                       n_real, f, view, timer, pp_seen, pp_view, pp_val,
                       prepared, committed, view_out, timer_out, reset,
                       seen_out, pview_out, pval_out, bits, hist, fresh)),
-                  B, N, S)
+                  None if catch is None else catch.data_ptr(), B, N, S)
     bcast_view_preprepare.launches += 1
-    return view_out, timer_out, reset, seen_out, pview_out, pval_out, bits
+    out = (view_out, timer_out, reset, seen_out, pview_out, pval_out, bits)
+    return (*out, catch) if want_catch else out
 
 
 bcast_view_preprepare.launches = 0
@@ -458,27 +468,42 @@ bcast_decide.launches = 0
 # --- the round ---------------------------------------------------------------
 
 def pbft_bcast_round(cfg: Config, st: PbftState, r: int, n_real, f,
-                     m: int) -> PbftState:
+                     m: int, *, telem=None, flight=None) -> PbftState:
     """One SPEC §6b round with per-lane ``n_real`` and ``f`` ([B] int32)
     and table width ``m`` (:func:`table_cap`), phase by phase as
     ``consensus_tpu/engines/pbft_sweep.py`` ``pbft_bcast_round_padded``,
     and so, with ``n_real = cfg.n_nodes`` and ``f = cfg.f`` on every
     lane, as ``consensus_tpu/engines/pbft_bcast.py`` ``pbft_bcast_round``
-    on its flat path: three kernel launches and nothing else."""
-    # ---- Node bits, P0 churn, P1 catch-up, P2 timeout, P3 (KT).
-    view, timer, reset, pp_seen, pp_view, pp_val, bits = \
+    on its flat path: three kernel launches and nothing else, and with
+    ``telem`` (and ``flight``, as ``engines/pbft.py`` :func:`pbft_round`
+    takes them) a fourth, kernel KAA, which adds the round's counters."""
+    if flight is not None and telem is None:
+        raise ValueError("the flight recorder rides the telemetry "
+                         "accumulator: pass telem with flight")
+    # ---- Node bits, P0 churn, P1 catch-up, P2 timeout, P3 (KT), with P1's
+    # flags when the telemetry counts them.
+    on = () if telem is None else (True,)
+    view, timer, reset, pp_seen, pp_view, pp_val, bits, *catch = \
         bcast_view_preprepare(cfg, st.seed, r, n_real, f, st.view, st.timer,
                               st.pp_seen, st.pp_view, st.pp_val,
-                              st.prepared, st.committed)
+                              st.prepared, st.committed, *on)
 
     # ---- P4 prepare tally, P5 commit tally (KU).
-    prepared, committed, dval = bcast_tally(m, n_real, f, bits, pp_seen,
-                                            pp_val, st.prepared,
-                                            st.committed, st.dval)
+    prepared, tallied, dval = bcast_tally(m, n_real, f, bits, pp_seen,
+                                          pp_val, st.prepared, st.committed,
+                                          st.dval)
 
     # ---- P6 decide gossip, P7 timers (KV).
-    committed, dval, timer = bcast_decide(bits, committed, dval,
-                                          st.committed, timer, reset)
+    committed, dval, timer = bcast_decide(bits, tallied, dval, st.committed,
+                                          timer, reset)
+
+    # ---- Telemetry and flight recorder (KAA, the dense engine's; called
+    # through its module, so that a stand-in put there sees the call).
+    if telem is not None:
+        pbft.pbft_telemetry(cfg, r, n_real, st.view, st.timer, view,
+                            catch[0], st.down, pp_seen, st.prepared, prepared,
+                            st.committed, tallied, committed, telem,
+                            *(flight if flight is not None else (None, None)))
 
     return PbftState(st.seed, view, timer, pp_seen, pp_view, pp_val, prepared,
                      committed, dval, st.down)

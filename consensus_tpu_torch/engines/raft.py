@@ -39,8 +39,10 @@ import torch
 
 from ..core import rng
 from ..core.config import Config
-from ..ops.adversary import bitcast_i32, churn, delivery
-from ..ops.flight import N_BUCKETS, bucket_counts_plain
+from ..ops.adversary import (AGG_TELEMETRY, CRASH_TELEMETRY,
+                             bitcast_i32, churn, delivery)
+from ..ops.flight import (add_plain, bucket_counts_plain, check_recorder,
+                          window_of)
 
 ROLE_F, ROLE_C, ROLE_L = 0, 1, 2
 NONE = -1
@@ -50,12 +52,11 @@ NAME = "raft"
 
 # The Raft engines' telemetry counters, in order: a copy of
 # consensus_tpu/engines/raft.py RAFT_TELEMETRY with its tails
-# ops/adversary.py CRASH_TELEMETRY and ops/aggregate.py AGG_TELEMETRY
-# (zeros here: the port rejects the crash and switch gates).
+# CRASH_TELEMETRY and AGG_TELEMETRY (zeros here: the port rejects the
+# crash and switch gates).
 RAFT_TELEMETRY = ("leader_elections", "append_accepted", "append_rejected",
-                  "entries_committed", "attack_rounds",
-                  "crashes", "recoveries", "nodes_down",
-                  "agg_down_rounds", "stale_serves", "poisoned_serves")
+                  "entries_committed", "attack_rounds") + CRASH_TELEMETRY \
+    + AGG_TELEMETRY
 # The flight recorder's latency histograms (engines/raft.py RAFT_LATENCY):
 # each winner's round-entry timer + 1, and each live leader's
 # log_len - commit, per round.
@@ -554,13 +555,12 @@ def dense_telemetry_plain(cfg: Config, r: int, win, timer_in, ack_to, ack_ok,
     vec[:, 1] = ack_ok.sum(1, dtype=torch.int32)
     vec[:, 2] = ((ack_to >= 0) & ~ack_ok).sum(1, dtype=torch.int32)
     vec[:, 3] = (commit - commit_in).sum(1, dtype=torch.int32)
-    t += vec
-    if w is None:
-        return
-    w[:, r // cfg.telemetry_window] += vec
-    lat[:, 0] += bucket_counts_plain(timer_in + 1, win)
-    lat[:, 1] += bucket_counts_plain(log_len - commit,
-                                     (role == ROLE_L) & ~down)
+    hists = ()
+    if w is not None:
+        hists = (bucket_counts_plain(timer_in + 1, win),
+                 bucket_counts_plain(log_len - commit,
+                                     (role == ROLE_L) & ~down))
+    add_plain(cfg, r, vec, t, w, lat, hists)
 
 
 def dense_telemetry(cfg: Config, r: int, win, timer_in, ack_to, ack_ok,
@@ -571,10 +571,7 @@ def dense_telemetry(cfg: Config, r: int, win, timer_in, ack_to, ack_ok,
     tensors it launches ``csrc/dense_telemetry.cu`` (a thread per node,
     warp and block partial counts, then integer atomics into the
     accumulators)."""
-    if (w is None) != (lat is None):
-        raise ValueError("the flight recorder takes w and lat together")
-    if w is not None and cfg.telemetry_window < 1:
-        raise ValueError("the flight recorder needs telemetry_window > 0")
+    check_recorder(cfg, w, lat)
     if t.device.type == "cpu":
         return dense_telemetry_plain(cfg, r, win, timer_in, ack_to, ack_ok,
                                      commit_in, commit, role, log_len, down,
@@ -587,14 +584,7 @@ def dense_telemetry(cfg: Config, r: int, win, timer_in, ack_to, ack_ok,
               *((x, torch.int32, (B, N)) for x in (
                   timer_in, ack_to, commit_in, commit, role, log_len)),
               (t, torch.int32, (B, K)))
-    window = n_windows = 0
-    if w is not None:
-        n_windows = w.shape[1]
-        window = r // cfg.telemetry_window
-        check_all(dev, (w, torch.int32, (B, n_windows, K)),
-                  (lat, torch.int32, (B, 2, N_BUCKETS)))
-        if not 0 <= window < n_windows:
-            raise ValueError(f"round {r} lies past the {n_windows} windows")
+    window, n_windows = window_of(cfg, r, t, w, lat, len(RAFT_LATENCY))
     _build.launch("dense_telemetry", *(x.data_ptr() for x in (
         win, timer_in, ack_to, ack_ok, commit_in, commit, role, log_len,
         down, t)), *(None if x is None else x.data_ptr() for x in (w, lat)),

@@ -45,10 +45,11 @@ import torch
 from ..core import rng
 from ..core.config import MAX_ACTIVE, Config
 from ..ops.adversary import bitcast_i32, churn, delivery_edges
-from ..ops.flight import N_BUCKETS, bucket_counts_plain
-from .raft import (NONE, RAFT_TELEMETRY, ROLE_C, ROLE_F, ROLE_L, bump,
-                   check_all, commit_median_plain, draw_timeout, last_term,
-                   match_dtype, timeout_span)
+from ..ops.flight import (add_plain, bucket_counts_plain, check_recorder,
+                          window_of)
+from .raft import (NONE, RAFT_LATENCY, RAFT_TELEMETRY, ROLE_C, ROLE_F, ROLE_L,
+                   bump, check_all, commit_median_plain, draw_timeout,
+                   last_term, match_dtype, timeout_span)
 
 # The engine's name, as the JAX package's EngineDef names it.
 NAME = "raft-sparse"
@@ -706,14 +707,13 @@ def telemetry_plain(cfg: Config, r: int, cand_ids, win, timer_in, has_l,
     vec[:, 1] = apply_.sum(1, dtype=torch.int32)
     vec[:, 2] = (has_l & ~apply_).sum(1, dtype=torch.int32)
     vec[:, 3] = (commit - commit_in).sum(1, dtype=torch.int32)
-    t += vec
-    if w is None:
-        return
-    w[:, r // cfg.telemetry_window] += vec
-    cid = cand_ids.clamp(0, N - 1).to(torch.int64)
-    lat[:, 0] += bucket_counts_plain(timer_in.gather(1, cid) + 1, win)
-    lat[:, 1] += bucket_counts_plain(log_len - commit,
-                                     (role == ROLE_L) & ~down)
+    hists = ()
+    if w is not None:
+        cid = cand_ids.clamp(0, N - 1).to(torch.int64)
+        hists = (bucket_counts_plain(timer_in.gather(1, cid) + 1, win),
+                 bucket_counts_plain(log_len - commit,
+                                     (role == ROLE_L) & ~down))
+    add_plain(cfg, r, vec, t, w, lat, hists)
 
 
 def telemetry(cfg: Config, r: int, cand_ids, win, timer_in, has_l, apply_,
@@ -723,10 +723,7 @@ def telemetry(cfg: Config, r: int, cand_ids, win, timer_in, has_l, apply_,
     :func:`telemetry_plain`, which it runs for CPU tensors; for CUDA
     tensors it launches ``csrc/telemetry.cu`` (a thread per node, warp and
     block partial counts, then integer atomics into the accumulators)."""
-    if (w is None) != (lat is None):
-        raise ValueError("the flight recorder takes w and lat together")
-    if w is not None and cfg.telemetry_window < 1:
-        raise ValueError("the flight recorder needs telemetry_window > 0")
+    check_recorder(cfg, w, lat)
     if t.device.type == "cpu":
         return telemetry_plain(cfg, r, cand_ids, win, timer_in, has_l,
                                apply_, commit_in, commit, role, log_len, down,
@@ -741,14 +738,7 @@ def telemetry(cfg: Config, r: int, cand_ids, win, timer_in, has_l, apply_,
                   timer_in, commit_in, commit, role, log_len)),
               *((x, torch.bool, (B, N)) for x in (has_l, apply_, down)),
               (t, torch.int32, (B, K)))
-    window = n_windows = 0
-    if w is not None:
-        n_windows = w.shape[1]
-        window = r // cfg.telemetry_window
-        check_all(dev, (w, torch.int32, (B, n_windows, K)),
-                  (lat, torch.int32, (B, 2, N_BUCKETS)))
-        if not 0 <= window < n_windows:
-            raise ValueError(f"round {r} lies past the {n_windows} windows")
+    window, n_windows = window_of(cfg, r, t, w, lat, len(RAFT_LATENCY))
     _build.launch("telemetry", *(x.data_ptr() for x in (
         cand_ids, win, timer_in, has_l, apply_, commit_in, commit, role,
         log_len, down, t)), *(None if x is None else x.data_ptr()

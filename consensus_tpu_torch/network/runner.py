@@ -46,7 +46,9 @@ _WRAPPER_MODULES = {"random_u32": rng, "delivery_edges": adversary,
                     "bcast_view_preprepare": pbft_bcast,
                     "bcast_tally": pbft_bcast, "bcast_decide": pbft_bcast,
                     "dpos_schedule": dpos, "dpos_round": dpos,
-                    "paxos_promise": paxos, "paxos_accept_learn": paxos}
+                    "paxos_promise": paxos, "paxos_accept_learn": paxos,
+                    "pbft_telemetry": pbft, "dpos_telemetry": dpos,
+                    "paxos_telemetry": paxos}
 KERNELS = tuple((_WRAPPER_MODULES.get(name, raft_sparse), name)
                 for name in _build.SOURCES)
 
@@ -55,36 +57,39 @@ class Engine(NamedTuple):
     """An engine as the runner sees it, after the JAX package's
     ``EngineDef``: ``init(cfg, seeds)`` gives the batched state,
     ``round(cfg, st, r, **lanes, **accumulators, **statics)`` the next one
-    (the lane inputs but the seeds, the accumulators only where
-    ``telemetry``, and ``statics(cfg, rungs)``: the run's fixed arguments
-    of the round, where the engine has any), and ``extract(st)`` the
-    leaves the digest reads."""
+    (the lane inputs but the seeds, the accumulators only with telemetry,
+    and ``statics(cfg, rungs)``: the run's fixed arguments of the round,
+    where the engine has any), and ``extract(st)`` the leaves the digest
+    reads. ``telemetry_names`` name the counters of the telemetry vector
+    and ``latency_names`` the flight recorder's histograms; every engine
+    of the port has them."""
     name: str
     init: Callable
     round: Callable
     extract: Callable
-    telemetry: bool
+    telemetry_names: tuple[str, ...]
+    latency_names: tuple[str, ...]
     statics: Callable | None = None
 
 
 DENSE = Engine(raft.NAME, raft.raft_init, raft.raft_round, raft.extract,
-               telemetry=True)
+               RAFT_TELEMETRY, RAFT_LATENCY)
 CAPPED = Engine(raft_sparse.NAME, raft_sparse.raft_sparse_init,
                 raft_sparse.raft_sparse_round, raft_sparse.extract,
-                telemetry=True)
+                RAFT_TELEMETRY, RAFT_LATENCY)
 PBFT = Engine(pbft.NAME, pbft.pbft_init, pbft.pbft_round, pbft.extract,
-              telemetry=False)
+              pbft.PBFT_TELEMETRY, pbft.PBFT_LATENCY)
 # The §6b round takes its tallies' table width m (the widest rung's on a
 # ladder).
 PBFT_BCAST = Engine(pbft_bcast.NAME, pbft.pbft_init,
                     pbft_bcast.pbft_bcast_round, pbft.extract,
-                    telemetry=False,
+                    pbft.PBFT_TELEMETRY, pbft.PBFT_LATENCY,
                     statics=lambda cfg, rungs: {
                         "m": pbft_bcast.table_cap(cfg, rungs)})
 PAXOS = Engine(paxos.NAME, paxos.paxos_init, paxos.paxos_round,
-               paxos.extract, telemetry=False)
+               paxos.extract, paxos.PAXOS_TELEMETRY, paxos.PAXOS_LATENCY)
 DPOS = Engine(dpos.NAME, dpos.dpos_init, dpos.dpos_step, dpos.extract,
-              telemetry=False)
+              dpos.DPOS_TELEMETRY, dpos.DPOS_LATENCY)
 
 
 def engine(cfg: Config) -> Engine:
@@ -191,13 +196,15 @@ def accumulators(cfg: Config, device) -> tuple:
     """Zeroed telemetry accumulators of ``cfg``'s run, as the round takes
     them: ``(telem [B, K], flight)``, where ``flight`` is the window ring
     and latency buckets ``([B, n_windows, K], [B, H, N_BUCKETS])``, or
-    None when ``cfg.telemetry_window`` is 0. All int32."""
+    None when ``cfg.telemetry_window`` is 0. All int32; K and H are the
+    counts of the engine's telemetry and latency names."""
+    eng = engine(cfg)
     z = dict(dtype=torch.int32, device=device)
-    B, K = cfg.n_sweeps, len(RAFT_TELEMETRY)
+    B, K = cfg.n_sweeps, len(eng.telemetry_names)
     flight = None
     if cfg.telemetry_window > 0:
         flight = (torch.zeros((B, n_windows(cfg), K), **z),
-                  torch.zeros((B, len(RAFT_LATENCY), N_BUCKETS), **z))
+                  torch.zeros((B, len(eng.latency_names), N_BUCKETS), **z))
     return torch.zeros((B, K), **z), flight
 
 
@@ -277,9 +284,10 @@ def run_device(cfg: Config, device=None, *, telemetry: bool = False,
     state and accumulators on the device, after the device has finished.
 
     ``telemetry`` accumulates the counters (and, with
-    ``cfg.telemetry_window > 0``, the flight recorder); both Raft engines
-    have them; both PBFT engines, Paxos and DPoS raise. ``rungs`` runs a
-    PBFT f-ladder (:func:`lane_inputs`). ``graph`` (default: on ``cuda``,
+    ``cfg.telemetry_window > 0``, the flight recorder), on every engine
+    but a PBFT f-ladder, which has none in the JAX package either (its
+    CLI rejects a window on one). ``rungs`` runs a PBFT f-ladder
+    (:func:`lane_inputs`). ``graph`` (default: on ``cuda``,
     and only there) replays the run as one CUDA graph, captured at the
     first call for this (cfg but its seed, device, telemetry, rungs) and
     kept until a run of another configuration is captured; the returned
@@ -288,12 +296,11 @@ def run_device(cfg: Config, device=None, *, telemetry: bool = False,
     that.
     ``graph=False`` runs the rounds eagerly, one launch at a time."""
     dev = resolve_device(device)
-    if telemetry and not engine(cfg).telemetry:
-        raise ValueError(f"telemetry on the {engine(cfg).name} engine is "
-                         "not ported yet: consensus_tpu/engines/pbft.py "
-                         "pbft_round's, pbft_bcast.py pbft_bcast_round's, "
-                         "paxos.py paxos_round's and dpos.py dpos_round's "
-                         "counter and flight tails")
+    if telemetry and not engine(cfg).telemetry_names:
+        raise ValueError(f"the {engine(cfg).name} engine has no telemetry")
+    if telemetry and rungs is not None:
+        raise ValueError("an f-ladder (rungs) has no telemetry: run each "
+                         "rung's config on its own")
     if cfg.telemetry_window > 0 and not telemetry:
         raise ValueError(
             "telemetry_window > 0 without telemetry=True: the window ring "
@@ -332,10 +339,11 @@ def telemetry_stats(cfg: Config, out: RunOutput) -> dict:
     package's ``run`` (keys, shapes and int64 values), from a run's
     accumulators; empty where they were off."""
     stats: dict = {}
+    eng = engine(cfg)
     if out.telem is not None:
         tarr = out.telem.cpu().numpy().astype(np.int64)
         stats["telemetry"] = {name: tarr[:, k]
-                              for k, name in enumerate(RAFT_TELEMETRY)}
+                              for k, name in enumerate(eng.telemetry_names)}
     if out.win is not None:
         warr = out.win.cpu().numpy().astype(np.int64)
         larr = out.lat.cpu().numpy().astype(np.int64)
@@ -345,9 +353,9 @@ def telemetry_stats(cfg: Config, out: RunOutput) -> dict:
             "n_rounds": cfg.n_rounds,
             "bucket_lo": list(BUCKET_LO),
             "windows": {name: warr[:, :, k]
-                        for k, name in enumerate(RAFT_TELEMETRY)},
+                        for k, name in enumerate(eng.telemetry_names)},
             "latency": {name: larr[:, h, :]
-                        for h, name in enumerate(RAFT_LATENCY)},
+                        for h, name in enumerate(eng.latency_names)},
         }
     return stats
 

@@ -34,6 +34,20 @@ def bitcast_i32(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 2**31, x - 2**32, x).to(torch.int32)
 
 
+# The zero tails of every engine's counter vector, copies of the JAX
+# package's names: the §6c crash-recover adversary's
+# (consensus_tpu/ops/adversary.py:96-98 CRASH_TELEMETRY), the §9 switch
+# layer's (consensus_tpu/ops/aggregate.py:58-60 AGG_TELEMETRY) and the
+# §7c safety invariants' of the BFT engines
+# (consensus_tpu/ops/adversary.py:161-163 SAFETY_TELEMETRY). The port
+# rejects the gates that make them count, so they stay 0, as the JAX
+# package's crash_counts(), agg_counts() and safety_counts() give them
+# on the flat path.
+CRASH_TELEMETRY = ("crashes", "recoveries", "nodes_down")
+AGG_TELEMETRY = ("agg_down_rounds", "stale_serves", "poisoned_serves")
+SAFETY_TELEMETRY = ("forked_qc", "conflict_commits", "safety_violations")
+
+
 def churn(seed, r: int, churn_cut: int, u32=rng.random_u32) -> torch.Tensor:
     """SPEC §2: [B] bool, True where the round's leader-churn event fires.
     ``u32`` draws the words (kernel KA unless a plain version says

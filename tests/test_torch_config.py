@@ -2,9 +2,9 @@
 
 Every knob of the JAX package's Config that the port does not implement yet
 raises when set off its default, on the dense engine as on the capped one
-and on the Paxos and DPoS engines, telemetry on the dense PBFT, Paxos and
-DPoS engines raises, and the entry points raise without a GPU unless the
-caller asks for the CPU.
+and on the Paxos and DPoS engines, telemetry on a PBFT f-ladder raises (as
+the JAX package's ladder has none), and the entry points raise without a
+GPU unless the caller asks for the CPU.
 """
 import dataclasses
 
@@ -62,16 +62,16 @@ PBFT_OK = dict(protocol="pbft", f=2, n_nodes=7, n_rounds=4, log_capacity=8)
 
 
 def test_telemetry_on_the_dense_engine_raises():
-    """The dense PBFT engine has no telemetry yet (the dense Raft engine's
-    is ported: tests/test_torch_telemetry.py)."""
+    """Telemetry on the dense PBFT engine raises on an f-ladder, with or
+    without a window: the JAX package's ladder has no counter tail. A
+    standalone run has it (tests/test_torch_telemetry_bft.py)."""
     cfg = Config(**PBFT_OK)
-    for call in (lambda: simulator.run(cfg, device="cpu", telemetry=True),
-                 lambda: runner.run(cfg, "cpu", telemetry=True, stats={})):
-        with pytest.raises(ValueError, match="pbft"):
-            call()
     windowed = Config(**{**PBFT_OK, "telemetry_window": 2})
-    with pytest.raises(ValueError, match="pbft"):
-        simulator.run(windowed, device="cpu", telemetry=True)
+    for c in (cfg, windowed):
+        with pytest.raises(ValueError, match="f-ladder"):
+            runner.run_device(c, "cpu", telemetry=True, rungs=[1, 2])
+    res = simulator.run(windowed, device="cpu", telemetry=True)
+    assert res.extras["telemetry"]["names"][0] == "prepare_quorums"
 
 
 @pytest.mark.parametrize("knob", sorted(OFF_DEFAULT))
@@ -258,13 +258,13 @@ def test_unsupported_knob_raises_on_paxos_and_dpos(base, knob):
 @pytest.mark.parametrize("kw", [PAXOS_OK, DPOS_OK], ids=["paxos", "dpos"])
 def test_paxos_and_dpos_select_their_engines(kw):
     """Each selects its engine, named as the JAX package names it, takes
-    any slot count, and raises on telemetry."""
+    any slot count, and runs with telemetry."""
     from consensus_tpu import Config as JConfig
     from consensus_tpu.network import simulator as jsim
     cfg = Config(**kw)
     eng = simulator.engine_def(cfg)
     assert eng is {"paxos": runner.PAXOS, "dpos": runner.DPOS}[cfg.protocol]
     assert eng.name == jsim.engine_def(JConfig(**kw)).name
-    with pytest.raises(ValueError, match=cfg.protocol):
-        simulator.run(cfg, device="cpu", telemetry=True)
+    res = simulator.run(cfg, device="cpu", telemetry=True)
+    assert res.extras["telemetry"]["names"] == list(eng.telemetry_names)
     assert runner.lane_inputs(cfg).keys() == {"seed"}

@@ -695,11 +695,15 @@ def test_engine_record_and_names_match_jax():
 
 
 def test_telemetry_on_the_bcast_engine_raises():
+    """Telemetry on the §6b engine raises on an f-ladder, as the JAX
+    package's ladder has none; a standalone run has it
+    (tests/test_torch_telemetry_bft.py)."""
     cfg = Config(**bcast_kw(1))
-    for call in (lambda: simulator.run(cfg, device="cpu", telemetry=True),
-                 lambda: runner.run(cfg, "cpu", telemetry=True, stats={})):
-        with pytest.raises(ValueError, match="pbft-bcast"):
-            call()
+    with pytest.raises(ValueError, match="f-ladder"):
+        runner.run_device(cfg, "cpu", telemetry=True, rungs=FS)
+    stats: dict = {}
+    runner.run(cfg, "cpu", telemetry=True, stats=stats)
+    assert stats["telemetry"]["prepare_quorums"].sum() > 0
 
 
 def test_bcast_entry_points_default_to_cuda():
