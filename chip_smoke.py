@@ -51,6 +51,19 @@ Phases, each printing one JSON line:
                strided and misaligned inputs), with and without the
                recorder; KQ, KT, KX, KY and KZ also with their optional
                outputs set, on those rounds and on their edge inputs.
+               KAD-KAF (the HotStuff round) on rounds 0, 3 and 20 of
+               hotstuff-100k (B = 8, N = 100 000, S = 64; round 20 also
+               with telemetry and 8-round windows), of hotstuff-1k and of
+               the hostile HotStuff run (with telemetry; a full chain from
+               about round 40), and on random states (ties on the highest
+               view, several proposers at different views, views on and
+               above V*, a full chain, no proposer, timers at the timeout,
+               int32 view extremes, N = 7 and 3 001), KAF without
+               telemetry, with the counters and with the recorder, with
+               strided and misaligned inputs; KAG on hotstuff-100k's and
+               the hostile run's end states, on an equivocating JAX carry
+               with forks (tests/hotstuff_fork_carry.npz), random fork
+               tables and S = 5 000.
                Tolerance: none, the results are integers and must be
                equal. Times are device time per call (torch.profiler
                kernel durations).
@@ -85,8 +98,9 @@ Phases, each printing one JSON line:
                and an eager capped run, an eager dense run with telemetry
                and an eager fs = 1..128 ladder, an eager
                pbft-100k-bcast run, an eager dpos-100k run and an eager
-               paxos-10kx10k run cut to 4 rounds, and the same four (and
-               pbft-f128) with telemetry and 8-round windows, with each
+               paxos-10kx10k run cut to 4 rounds and an eager
+               hotstuff-100k run, and the same five (and pbft-f128) with
+               telemetry and 8-round windows, with each
                kernel wrapper in a named range, which must show no PyTorch
                compute op in any phase of the round.
 9. pbft      — ``simulator.run`` of BASELINE config 3's standalone rows
@@ -139,10 +153,25 @@ Phases, each printing one JSON line:
                JAX-made anchors, windows that sum to the totals, replay
                equal to the eager loop, the engine's kernels and its
                telemetry kernel (KAA-KAC) launched (counted from 0) and no
-               other; each flagship's replay profiled without and with
-               telemetry; the counters prepare_missed, commit_missed,
-               commits_adopted, view_changes, nacks, churn_slots and
-               missed_appends each counted by some run.
+               other; the same for hotstuff-100k and the hostile HotStuff
+               run (KAD-KAF, whose KAF adds the telemetry, and KAG); each
+               flagship's replay profiled without and with telemetry; the
+               counters prepare_missed, commit_missed, commits_adopted,
+               view_changes, nacks, churn_slots and missed_appends each
+               counted by some run, and view_spread_max, desync_rounds and
+               sync_msgs_delivered by some HotStuff run.
+14. hotstuff — ``simulator.run`` of hotstuff-100k (CONFIGS["hotstuff-100k"]),
+               hotstuff-1k (tools/hlocheck/registry.py HOTSTUFF_1K) and a
+               hostile HotStuff run (N = 301, drop 0.15, partition 0.1,
+               churn 0.05, view timeout 4, a 32-height chain that fills),
+               each replayed as one CUDA graph: the anchors on which the
+               JAX package and the C++ oracle agree, the eager loop's
+               digest equal, KAD-KAF launched once a round and KAG once
+               (counted from 0) and no other kernel; steps per second,
+               replay wall, busy share and graph memory; three device
+               operations a round of hotstuff-100k's replay, telemetry
+               off and on; another seed on its graph against the eager
+               loop.
 
 Then the card's name and power limit, one ``{"kernels": [...]}`` line, and
 last ``{"ok": true, "device": {...}}``. The kernels line takes each
@@ -150,9 +179,9 @@ kernel's launches from one path's own run, counted from 0: KA-KJ from
 raft-100k's, KK from raft-100k's with telemetry, KL-KO from raft-1kx1k's,
 KP from raft-1kx1k's with telemetry, KQ-KS from the dense ladder's, KT-KV
 from pbft-100k-bcast's, KW-KX from dpos-100k's, KY-KZ from
-paxos-10kx10k's, and KAA, KAB and KAC from pbft-100k-bcast's, dpos-100k's
-and paxos-10kx10k's with telemetry; the other runs' counts are in their
-phases' lines. Any
+paxos-10kx10k's, KAA, KAB and KAC from pbft-100k-bcast's, dpos-100k's and
+paxos-10kx10k's with telemetry, and KAD-KAG from hotstuff-100k's; the other
+runs' counts are in their phases' lines. Any
 failure, or no GPU, exits non-zero without that last line.
 """
 from __future__ import annotations
@@ -200,36 +229,54 @@ def require(cond: bool, what: str) -> None:
         raise SmokeError(what)
 
 
-def device_ms(fn, args, reps: int = 20, warm: int = 3) -> float:
+def device_ms(fn, args, reps: int = 20, warm: int = 3,
+              fresh: bool = False) -> float:
     """Mean device time of one call of ``fn(*args)``: the summed durations
     of the kernels it launched, from torch.profiler. (CUDA events around
     calls this short would time the host's launch cost, not the device.)
     The calls rotate over clones of ``args`` that together exceed the L2
     cache twice over, so that no call finds its inputs left in L2 by the
     call before it. The profiler records from its second step on: it can
-    miss the first launches of its first."""
+    miss the first launches of its first.
+
+    ``fresh`` is for a wrapper that launches one kernel a call and updates
+    its inputs in place, so that a second call on the same inputs would do
+    other work: every call of every session gets a clone of its own, all
+    made before the first session; the mean is over the kernel records a
+    session holds, which may lack MAX_LOST of its launches (on the H100
+    late in a run of this script, single launches of KAD or KAE went
+    unrecorded in every session, one of 20 each time, while the same
+    sessions in a process of their own recorded all 20)."""
     from torch.profiler import ProfilerActivity, profile, schedule
     size = sum(a.nbytes for a in args if isinstance(a, torch.Tensor))
-    copies = [clone_args(args)
-              for _ in range(min(16, max(2, -(-2 * L2_BYTES // size))))]
+    n_copies = min(16, max(2, -(-2 * L2_BYTES // size)))
+    copies = [clone_args(args) for _ in range(n_copies)]
     for i in range(warm):
         fn(*copies[i % len(copies)])
+    pools = iter([[clone_args(args) for _ in range(reps + 1)]
+                  for _ in range(PROFILER_SESSIONS)] if fresh else [])
     torch.cuda.synchronize()
 
     def session():
+        calls = next(pools) if fresh else copies
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                      schedule=schedule(wait=0, warmup=1, active=1)) as prof:
-            fn(*copies[0])
+            fn(*calls[-1])
             torch.cuda.synchronize()
             with recorded_step(prof):
                 for i in range(reps):
-                    fn(*copies[i % len(copies)])
+                    fn(*calls[i % len(calls)])
                 torch.cuda.synchronize()
         return prof
-    _, device = profiled(session, getattr(fn, "__name__", "a kernel"))
-    return sum(e.time_range.elapsed_us() for e in device) / 1e3 / reps
+    _, device = profiled(session, getattr(fn, "__name__", "a kernel"),
+                         lost=MAX_LOST if fresh else 0)
+    return sum(e.time_range.elapsed_us() for e in device) / 1e3 / (
+        len(device) if fresh else reps)
 
 
+# The launches of single-launch calls whose records a session may lack
+# (device_ms with fresh).
+MAX_LOST = 2
 PROFILER_SESSIONS = 8
 REDONE: list[str] = []          # the profiled work whose session was redone
 # The profiler can drop the first device operations of its recorded step:
@@ -239,8 +286,9 @@ REDONE: list[str] = []          # the profiled work whose session was redone
 # 2.1 ms each) still went missing in every session of later runs, whatever
 # the wait. So each recorded step starts with a lead-in: a wait, a spin
 # kernel of its own, a synchronize and a wait, before the range MEASURED
-# opens; only the device operations and runtime calls that start inside
-# that range are counted and timed.
+# opens; the runtime calls that start inside that range are counted, and
+# the step's device operations but the spin kernel are counted and timed
+# (device_events).
 STEP_SETTLE_S = 0.01
 LEAD_IN_CYCLES = 50_000_000     # about 25 ms of spinning at 1.98 GHz
 MEASURED = "chip_smoke::measured"
@@ -262,15 +310,17 @@ def recorded_step(prof, lead_in: bool = True):
         yield
 
 
-def profiled(session, what: str, graph: bool = False) -> tuple:
+def profiled(session, what: str, graph: bool = False,
+             lost: int = 0) -> tuple:
     """``session()``'s profiler and its device operations. CUPTI now and
     then delivers a session's device records only in part, or not at all,
     so a session counts only when it is complete: when it holds a device
     operation for each kernel launch, memset and copy that the host made in
-    it; for a graph replay, which the host launches as one call, when it
-    holds as many device operations as the session before. Otherwise the
-    session is run again, up to PROFILER_SESSIONS times, and then this
-    fails."""
+    it (or for all but ``lost`` of them, where the caller averages over the
+    records it got); for a graph replay, which the host launches as one
+    call, when it holds as many device operations as the session before.
+    Otherwise the session is run again, up to PROFILER_SESSIONS times, and
+    then this fails."""
     from torch.autograd import DeviceType
     counts = []
     for _ in range(PROFILER_SESSIONS):
@@ -285,8 +335,11 @@ def profiled(session, what: str, graph: bool = False) -> tuple:
         if graph:
             complete = len(counts) > 1 and counts[-1][0] == counts[-2][0] > 0
         else:
-            complete = 0 < len(device) == calls
+            complete = 0 < len(device) <= calls <= len(device) + lost
         if complete:
+            if len(device) < calls:
+                REDONE.append(f"{what}: {calls - len(device)} of {calls} "
+                              "launches unrecorded")
             if len(counts) > 1 + graph:
                 REDONE.append(what)
                 print(f"chip_smoke: profiling {what}: (device operations, "
@@ -313,14 +366,25 @@ def measured_start(prof) -> float:
     return starts[0]
 
 
+# The lead-in's spin kernel (torch.cuda._sleep), as the profiler names it.
+SPIN_KERNEL = "spin_kernel"
+
+
 def device_events(prof) -> list:
-    """The profiled device operations (kernels, memsets, copies) that start
-    in the range MEASURED, without the ranges that the profiler's steps and
-    the script's named ranges also put on the device timeline."""
+    """The profiled device operations (kernels, memsets, copies) of the
+    recorded step but the lead-in's spin kernel, without the ranges that
+    the profiler's steps and the script's named ranges also put on the
+    device timeline. Every recorded step synchronizes before it and
+    starts with the lead-in (:func:`recorded_step`), so its device
+    operations are the lead-in's and the measured work's, told apart by
+    name and not by time: the profiler maps device times onto the host
+    clock, and on the H100 that mapping moved by up to 4 ms within a
+    session (20 launches made inside the range MEASURED were mapped
+    before it), so that a time mark dropped records of work that was
+    done."""
     from torch.autograd import DeviceType
-    mark = measured_start(prof)
     return [e for e in prof.events() if e.device_type == DeviceType.CUDA
-            and e.time_range.start >= mark
+            and SPIN_KERNEL not in e.name
             and not e.name.startswith(("ProfilerStep", "wrapper::",
                                        "chip_smoke::"))]
 
@@ -1139,7 +1203,8 @@ PBFT = ("pbft_view_preprepare", "pbft_tally", "pbft_decide")
 NOT_CAPPED = DENSE + ("dense_telemetry",) + PBFT + (
     "bcast_view_preprepare", "bcast_tally", "bcast_decide", "dpos_schedule",
     "dpos_round", "paxos_promise", "paxos_accept_learn", "pbft_telemetry",
-    "dpos_telemetry", "paxos_telemetry")
+    "dpos_telemetry", "paxos_telemetry", "hotstuff_propose", "hotstuff_vote",
+    "hotstuff_learn", "hotstuff_extract")
 PBFT_REPLACES = {
     "pbft_view_preprepare": "consensus_tpu/engines/pbft.py:209 pbft_round "
                             "P0-P3, consensus_tpu/engines/pbft.py:72 "
@@ -2362,6 +2427,337 @@ def check_telemetry_kernels(dev, gen) -> tuple[list[dict], dict]:
     return rows, flag_err
 
 
+# --- phase 3, continued: the HotStuff round's kernels KAD-KAG ----------------
+
+HOTSTUFF = ("hotstuff_propose", "hotstuff_vote", "hotstuff_learn")
+HOTSTUFF_ALL = HOTSTUFF + ("hotstuff_extract",)
+# hotstuff-100k (benchmarks/run_benchmarks.py CONFIGS) and hotstuff-1k
+# (tools/hlocheck/registry.py HOTSTUFF_1K), and a hostile run: N = 301, f =
+# 100, drops, partitions and churn, a 4-round view timeout, and a 32-height
+# chain that fills (then nobody proposes and views move by timeouts only).
+# No digest of theirs was committed before; the anchors were made by the
+# JAX package on the CPU and by the C++ oracle (engine="cpu"), which agree:
+#
+#   JAX_PLATFORMS=cpu python3 - <<'EOF'
+#   import dataclasses, chip_smoke
+#   from consensus_tpu import Config
+#   from consensus_tpu.network import simulator
+#   for kw in (chip_smoke.HOTSTUFF_FLAGSHIP, chip_smoke.HOTSTUFF_1K,
+#              chip_smoke.HOTSTUFF_HOSTILE):
+#       cfg = Config(**kw)
+#       print(simulator.run(cfg, warmup=False).digest, simulator.run(
+#           dataclasses.replace(cfg, engine="cpu"), warmup=False).digest)
+#   EOF
+#
+# (about 10 s each for hotstuff-100k on a CPU). tests/test_torch_hotstuff.py
+# makes the hostile anchor again.
+HOTSTUFF_FLAGSHIP = dict(protocol="hotstuff", f=33_333, n_nodes=100_000,
+                         n_rounds=64, n_sweeps=8, log_capacity=64, seed=8,
+                         drop_rate=0.01, churn_rate=0.001)
+HOTSTUFF_DIGEST = \
+    "5bcc22a0d6392871185ce0fe9a3a4f8b58821aa8b36f9c19f3b02354c96eda16"
+HOTSTUFF_1K = dict(protocol="hotstuff", f=341, n_nodes=1024, n_rounds=32,
+                   n_sweeps=2, log_capacity=32, seed=9, drop_rate=0.01,
+                   churn_rate=0.001)
+HOTSTUFF_1K_DIGEST = \
+    "0fe6093935dfe2ed0fe40bc844ceb67406e1288c430f2eb972be8b445f26bad2"
+HOTSTUFF_HOSTILE = dict(protocol="hotstuff", f=100, n_nodes=301,
+                        n_rounds=96, n_sweeps=3, log_capacity=32, seed=7,
+                        drop_rate=0.15, partition_rate=0.1, churn_rate=0.05,
+                        view_timeout=4)
+HOTSTUFF_HOSTILE_DIGEST = \
+    "1a8874ec0a9ea273c9f78d87b6c0b1c770eedbc9a9b4ab3c0cc98361305f7ec3"
+HOTSTUFF_REPLACES = {
+    "hotstuff_propose": "consensus_tpu/engines/hotstuff.py:195 "
+                        "hotstuff_round P0-P2 (lines 232-299)",
+    "hotstuff_vote": "consensus_tpu/engines/hotstuff.py:195 hotstuff_round "
+                     "P2-P4 (lines 300-433)",
+    "hotstuff_learn": "consensus_tpu/engines/hotstuff.py:195 hotstuff_round "
+                      "P6-P7 and telemetry and flight tail (lines 456-519), "
+                      "consensus_tpu/ops/viewsync.py:56 sync_counts",
+    "hotstuff_extract": "consensus_tpu/engines/hotstuff.py:183 _block_val, "
+                        "consensus_tpu/engines/hotstuff.py:544 _extract"}
+# An equivocating JAX carry with forks (fnum 1 and 6), made by the JAX
+# package (tests/test_torch_hotstuff.py reads it too), with its JAX
+# extraction: committed and dval.
+HOTSTUFF_FORK_CARRY = os.path.join(os.path.dirname(os.path.abspath(
+    __file__)), "tests", "hotstuff_fork_carry.npz")
+# The rounds phase 3 records: early ones, one in the steady state (the
+# kernels are timed on hotstuff-100k's), and the hostile run's with a full
+# chain.
+HOTSTUFF_ROUNDS = (0, 3, 20)
+HOTSTUFF_HOSTILE_ROUNDS = (5, 40, 95)
+
+
+def capture_hotstuff_inputs(cfg, rounds, telemetry, device="cuda") -> dict:
+    """{r: {wrapper: arguments}}: what KAD, KAE and KAF receive in each
+    round r of ``rounds`` of ``cfg``'s eager run on ``device`` (with
+    ``telemetry``, the accumulators and, at ``cfg.telemetry_window > 0``,
+    the recorder, as they stood before the round), cloned as they
+    arrive."""
+    from consensus_tpu_torch.engines import hotstuff
+    from consensus_tpu_torch.network import runner
+    st = hotstuff.hotstuff_init(cfg, runner.device_lanes(cfg, None,
+                                                         device)["seed"])
+    telem, flight = runner.accumulators(cfg, device) if telemetry \
+        else (None, None)
+    out, r0 = {}, 0
+    for r in sorted(rounds):
+        st = runner.advance(cfg, st, r0, r - r0, telem=telem, flight=flight)
+        got = out[r] = {}
+        with standing_in(hotstuff, HOTSTUFF, recording(got)):
+            st = hotstuff.hotstuff_round(cfg, st, r, telem=telem,
+                                         flight=flight)
+        require(set(got) == set(HOTSTUFF), f"round {r} skipped a phase")
+        r0 = r + 1
+    return out
+
+
+def extract_args(st) -> tuple:
+    """KAG's arguments from a HotStuff state."""
+    return (st.seed, st.chain_v, st.chain_vid, st.clen, st.fvec, st.ftab_v,
+            st.ftab_h, st.fnum)
+
+
+def hotstuff_round_args(cfg, st, r, accumulators=()) -> dict:
+    """The arguments KAD, KAE and KAF receive in round r from state ``st``,
+    each from the plain version of the phase before; ``accumulators`` are
+    KAF's optional (t,) or (t, w, lat)."""
+    from consensus_tpu_torch.engines import hotstuff
+    kad = (cfg, st.seed, r, st.view, st.b1_h, st.lane)
+    lane = st.lane.clone()
+    view1, adv = hotstuff.hotstuff_propose_plain(*kad[:5], lane)
+    regs = (st.b1_v, st.b1_h, st.b2_v, st.b2_h, st.b3_v, st.b3_h,
+            st.gcommit)
+    kae = (cfg, st.seed, r, view1, lane.clone(), *regs, st.chain_v)
+    out = hotstuff.hotstuff_vote_plain(*clone_args(kae[:4]), lane, *regs,
+                                       st.chain_v.clone())
+    kaf = (cfg, r, view1, out[0], adv, st.timer, st.clen, lane, st.gcommit,
+           out[2], out[7], *accumulators)
+    return {"hotstuff_propose": kad, "hotstuff_vote": kae,
+            "hotstuff_learn": kaf}
+
+
+def hotstuff_state(gen, dev, cfg, B, r, case):
+    """A random batched HotStuff state of ``cfg``'s N nodes and S heights
+    on ``dev``, in round r: views in a small range, so that the highest
+    view is tied, several nodes propose at different views and some views
+    sit on V* and some above it; timers at view_timeout - 1 and around it;
+    prefixes below, at and above the commit. ``case`` "full" sets b1_h to
+    S - 1 or S (no room: nobody proposes, L = 0), "extremes" puts int32's
+    ends among the views (V* + 1 wraps) and makes a lane all negative (no
+    gossiper, no proposal)."""
+    from consensus_tpu_torch.engines import hotstuff
+    N, S = cfg.n_nodes, cfg.log_capacity
+
+    def ints(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev,
+                             dtype=torch.int64).to(torch.int32)
+    view = ints(r, r + 6, (B, N))
+    view[:, ::5] = r + 5
+    if case == "extremes":
+        view[0, :3] = torch.tensor([2**31 - 1, -2**31, -7], device=dev)
+        view[1, 1] = 2**31 - 1
+        view[2] = -3 - ints(0, 4, (N,))
+    b1_h = ints(-1, S - 1, (B,))
+    if case == "full":
+        b1_h[:] = S - 1
+        b1_h[0] = S
+    gcommit = (b1_h - ints(0, 4, (B,))).clamp(min=0)
+    clen = torch.minimum(ints(0, S, (B, N)), gcommit[:, None] + 1)
+    clen[:, ::3] = gcommit[:, None]
+    s = torch.arange(S, dtype=torch.int32, device=dev)
+    b1_v = ints(0, r + 3, (B,))
+    timer = ints(0, cfg.view_timeout + 2, (B, N))
+    timer[:, ::4] = cfg.view_timeout - 1
+    none = torch.full((B, hotstuff.FORK_TABLE), -1, dtype=torch.int32,
+                      device=dev)
+    zeros = torch.zeros((B, N), dtype=torch.int32, device=dev)
+    return hotstuff.HotstuffState(
+        seed=torch.arange(50, 50 + B, device=dev).to(torch.uint32),
+        b1_v=b1_v, b1_h=b1_h, b2_v=b1_v - 1, b2_h=b1_h - 1,
+        b3_v=b1_v - ints(2, 4, (B,)), b3_h=b1_h - 2, gcommit=gcommit,
+        chain_v=torch.where(s <= b1_h[:, None], s + r // 2, -1),
+        chain_vid=torch.zeros((B, S), dtype=torch.int32, device=dev),
+        fvec=zeros, ftab_v=none, ftab_h=none.clone(),
+        fnum=torch.zeros((B,), dtype=torch.int32, device=dev), view=view,
+        timer=timer, clen=clen, down=zeros.to(torch.bool),
+        lane=hotstuff.lane_at_rest(view))
+
+
+def strided(x):
+    """``x`` as a strided view (every other element of a wider tensor)."""
+    wide = torch.empty((*x.shape[:-1], 2 * x.shape[-1]), dtype=x.dtype,
+                       device=x.device)
+    wide[..., ::2] = x
+    return wide[..., ::2]
+
+
+def misaligned(x):
+    """``x`` as a contiguous view one element past its storage's start."""
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = flat[1:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+def hotstuff_edge_inputs(dev, gen) -> dict:
+    """Inputs on which KAD-KAG's rare paths fire: {name: [args]}. The
+    hostile run's rounds (partitions, churn, views apart, a full chain
+    from about round 40), with telemetry and the recorder; random states
+    (hotstuff_state: ties, several proposers, the view <= V* boundary, a
+    full chain, L = 0, timers at view_timeout - 1, int32 view extremes) at
+    N = 7 and N = 3 001 (twelve blocks a lane), KAF with no telemetry, with
+    the counters only and with the recorder, and with strided and
+    misaligned inputs; KAG on the hostile run's end, the JAX equivocating
+    carry with forks, random fork tables (fnum up to 9, heights repeated)
+    and S = 5 000 heights (two height tiles a block)."""
+    from consensus_tpu_torch import convert
+    from consensus_tpu_torch.core.config import Config
+    from consensus_tpu_torch.engines import hotstuff
+    from consensus_tpu_torch.network import runner
+    out = {name: [] for name in HOTSTUFF_ALL}
+    hostile = protocol_config(HOTSTUFF_HOSTILE, telemetry_window=WINDOW)
+    for got in capture_hotstuff_inputs(hostile, HOTSTUFF_HOSTILE_ROUNDS,
+                                       True, dev).values():
+        for name in HOTSTUFF:
+            out[name].append(got[name])
+    K = len(hotstuff.HOTSTUFF_TELEMETRY)
+    for kw in (dict(f=2, n_nodes=7, drop_rate=0.3, partition_rate=0.5,
+                    view_timeout=3),
+               dict(f=1000, n_nodes=3001, drop_rate=0.05,
+                    partition_rate=0.3, churn_rate=0.2)):
+        cfg = Config(protocol="hotstuff", log_capacity=12, n_rounds=40,
+                     telemetry_window=WINDOW, **kw)
+        for r, case in ((0, "spread"), (7, "full"), (30, "extremes")):
+            B = 6
+            st = hotstuff_state(gen, dev, cfg, B, r, case)
+            acc = (torch.randint(0, 99, (B, K), generator=gen, device=dev,
+                                 dtype=torch.int32),
+                   torch.randint(0, 99, (B, 6, K), generator=gen, device=dev,
+                                 dtype=torch.int32),
+                   torch.randint(0, 99, (B, 2, 16), generator=gen,
+                                 device=dev, dtype=torch.int32))
+            for tail in ((), acc[:1], acc):
+                args = hotstuff_round_args(cfg, st, r, tail)
+                for name in HOTSTUFF:
+                    out[name].append(args[name])
+            kad = list(args["hotstuff_propose"])
+            kad[3] = strided(kad[3])
+            out["hotstuff_propose"].append(tuple(kad))
+            kaf = list(args["hotstuff_learn"])
+            kaf[2], kaf[3], kaf[5] = (misaligned(kaf[2]), misaligned(kaf[3]),
+                                      strided(kaf[5]))
+            out["hotstuff_learn"].append(tuple(kaf))
+    # KAG.
+    st = runner.run_device(protocol_config(HOTSTUFF_HOSTILE), dev,
+                           graph=False)
+    out["hotstuff_extract"].append(extract_args(st.state))
+    fork = dict(np.load(HOTSTUFF_FORK_CARRY))
+    for k in ("jax_committed", "jax_dval"):
+        fork.pop(k)
+    out["hotstuff_extract"].append(extract_args(convert.state_from_numpy(
+        fork, dev)))
+    for B, N, S in ((5, 300, 40), (2, 3, 5000)):
+        seed = torch.arange(60, 60 + B, device=dev).to(torch.uint32)
+        chain_v = torch.randint(-1, 50, (B, S), generator=gen, device=dev,
+                                dtype=torch.int32)
+        chain_vid = torch.randint(0, 2, (B, S), generator=gen, device=dev,
+                                  dtype=torch.int32)
+        clen = torch.randint(0, S + 1, (B, N), generator=gen, device=dev,
+                             dtype=torch.int32)
+        fvec = torch.randint(0, 256, (B, N), generator=gen, device=dev,
+                             dtype=torch.int32)
+        ftab_v = torch.randint(-1, 60, (B, 8), generator=gen, device=dev,
+                               dtype=torch.int32)
+        ftab_h = torch.randint(-1, min(S, 12), (B, 8), generator=gen,
+                               device=dev, dtype=torch.int32)
+        ftab_h[:, 3] = ftab_h[:, 1]
+        fnum = torch.randint(-1, 10, (B,), generator=gen, device=dev,
+                             dtype=torch.int32)
+        out["hotstuff_extract"].append((seed, chain_v, chain_vid, clen,
+                                        fvec, ftab_v, ftab_h, fnum))
+    return out
+
+
+def hotstuff_bound(name: str, args) -> tuple[float, str]:
+    """The least time of kernel ``name``'s work (KAD-KAG) on ``args``: the
+    bytes each tensor must move once and the 32-bit operations these
+    inputs need (see each source's note): KAD's gossip draw only for the
+    nodes behind the highest view, KAE's proposal and vote draws only for
+    the nodes at or below V*, the partition sides only in lanes whose
+    partition is active."""
+    from consensus_tpu_torch.core import rng
+    from consensus_tpu_torch.engines import hotstuff
+    if name == "hotstuff_extract":
+        seed, chain_v, _, clen = args[:4]
+        b, n = clen.shape
+        s = chain_v.shape[1]
+        return bound(5 * b * n * s + 4 * b * n + 8 * b * s,
+                     b * n * s + THREEFRY_OPS * b * s)
+    cfg = args[0]
+    if name == "hotstuff_learn":
+        view1 = args[2]
+        b, n = view1.shape
+        return bound(26 * b * n + 64 * b, 20 * b * n)
+    seed, r = args[1], args[2]
+    part = int((rng.random_u32_plain(seed, rng.STREAM_PARTITION, r, 0, 0)
+                < cfg.partition_cutoff).sum())
+    if name == "hotstuff_propose":
+        view, lane = args[3], args[5]
+        b, n = view.shape
+        behind = int((view < (lane[:, hotstuff.TOP] >> 32)[:, None]).sum())
+        return bound(9 * b * n + 72 * b,
+                     EDGE_OPS * behind + THREEFRY_OPS * (3 * b + part * n))
+    view1, lane = args[3], args[4]
+    b, n = view1.shape
+    eligible = int((view1 <= lane[:, hotstuff.VMAX][:, None]).sum())
+    return bound(5 * b * n + 100 * b,
+                 2 * EDGE_OPS * eligible + THREEFRY_OPS * (2 * b + part * n))
+
+
+def check_hotstuff_kernels(dev, gen) -> list[dict]:
+    """KAD-KAG against their plain versions on hotstuff-100k's rounds
+    HOTSTUFF_ROUNDS (telemetry off, and round 20 again with telemetry and
+    the recorder), hotstuff-1k's, the hostile run's and the edge inputs,
+    KAG on hotstuff-100k's end state. Times and bounds of KAD-KAF on
+    hotstuff-100k's round 20 as its main path calls them (telemetry off;
+    KAF also with the recorder, ``ms_telemetry``), KAG on its end state."""
+    from consensus_tpu_torch.engines import hotstuff
+    from consensus_tpu_torch.network import runner
+    flag = protocol_config(HOTSTUFF_FLAGSHIP)
+    rounds = capture_hotstuff_inputs(flag, HOTSTUFF_ROUNDS, False, dev)
+    with_telem = capture_hotstuff_inputs(
+        protocol_config(HOTSTUFF_FLAGSHIP, telemetry_window=WINDOW), (20,),
+        True, dev)[20]
+    small = capture_hotstuff_inputs(protocol_config(HOTSTUFF_1K), (0, 17, 31),
+                                    False, dev)
+    real = {name: [got[name] for got in (*rounds.values(), with_telem,
+                                         *small.values())]
+            for name in HOTSTUFF}
+    end = runner.run_device(flag, dev, graph=False).state
+    real["hotstuff_extract"] = [extract_args(end)]
+    timed = {**rounds[20], "hotstuff_extract": extract_args(end)}
+    edges = hotstuff_edge_inputs(dev, gen)
+    rows = []
+    for name in HOTSTUFF_ALL:
+        err = max(max_abs_err(run_pair(name, args))
+                  for args in real[name] + edges[name])
+        args = timed[name]
+        row = dict(
+            name=name, route="cuda",
+            source=f"consensus_tpu_torch/csrc/{name}.cu",
+            replaces=HOTSTUFF_REPLACES[name], max_abs_err=err,
+            ms=device_ms(getattr(hotstuff, name), args, fresh=True),
+            plain_ms=device_ms(getattr(hotstuff, name + "_plain"), args),
+            bound=hotstuff_bound(name, args), library_ms=None)
+        if name == "hotstuff_learn":
+            row["ms_telemetry"] = device_ms(hotstuff.hotstuff_learn,
+                                            with_telem[name], fresh=True)
+        rows.append(row)
+    return rows
+
+
 def hand_kernels() -> dict[str, tuple[str, ...]]:
     """The ``__global__`` kernels of each source in ``_build.SOURCES``, by
     wrapper name: the names the profiler reports for them. Names are unique
@@ -2442,7 +2838,13 @@ GAPS = {(None, "candidacy"): "init",
         ("paxos_accept_learn", None): "after the last round",
         ("paxos_accept_learn", "paxos_telemetry"): "telemetry",
         ("paxos_telemetry", "delivery"): "between rounds",
-        ("paxos_telemetry", None): "after the last round"}
+        ("paxos_telemetry", None): "after the last round",
+        # The HotStuff round (telemetry rides KAF).
+        (None, "hotstuff_propose"): "init",
+        ("hotstuff_propose", "hotstuff_vote"): "P2-P3",
+        ("hotstuff_vote", "hotstuff_learn"): "P4-P6",
+        ("hotstuff_learn", "hotstuff_propose"): "between rounds",
+        ("hotstuff_learn", None): "after the last round"}
 ZEROING = ("aten::fill_", "aten::zero_")
 
 
@@ -2459,7 +2861,8 @@ def plain_ops_by_phase(cfg, device="cuda", telemetry=False,
     from torch.profiler import (ProfilerActivity, profile, record_function,
                                 schedule)
 
-    from consensus_tpu_torch.engines import dpos, paxos, pbft, raft
+    from consensus_tpu_torch.engines import (dpos, hotstuff, paxos, pbft,
+                                             raft)
     from consensus_tpu_torch.engines import pbft_bcast as pb
     from consensus_tpu_torch.engines import raft_sparse as rs
     from consensus_tpu_torch.network import runner
@@ -2468,7 +2871,9 @@ def plain_ops_by_phase(cfg, device="cuda", telemetry=False,
     # through (KA's only through init; KW's only in DPoS's init; the §6b
     # round calls KAA through the dense PBFT engine's module).
     eng = runner.engine(cfg)
-    if eng is runner.DPOS:
+    if eng is runner.HOTSTUFF:
+        marks = [(hotstuff, list(HOTSTUFF))]
+    elif eng is runner.DPOS:
         marks = [(dpos, [*DPOS, "dpos_telemetry"])]
     elif eng is runner.PAXOS:
         marks = [(paxos, ["delivery", *PAXOS, "paxos_telemetry"])]
@@ -3160,6 +3565,24 @@ def check_paxos_path(card: str, smi: str) -> dict[str, int]:
 #                                if v}, chip_smoke.flight_digest(
 #                                    res.extras["flight"]))
 #   EOF
+# The HotStuff runs' counters (nonzero totals) and recorders, made the same
+# way: hotstuff-100k with drops and churn and the hostile run, whose honest
+# views move apart (view_spread_max, desync_rounds and sync_msgs_delivered
+# count).
+HOTSTUFF_100K_TOTALS = {
+    "qc_formed": 512, "blocks_committed": 496, "commits_learned": 48791852,
+    "proposals_delivered": 50687707, "votes_counted": 50180605,
+    "view_spread_max": 552, "desync_rounds": 512,
+    "sync_msgs_delivered": 499181}
+HOTSTUFF_100K_FLIGHT = \
+    "b0ff7ed6693e70ece9e099160b4794b955c093ddbd79fa5a0d1fc43ec50ceccd"
+HOTSTUFF_HOSTILE_TOTALS = {
+    "qc_formed": 96, "blocks_committed": 90, "commits_learned": 26038,
+    "view_changes": 11074, "proposals_delivered": 26179,
+    "votes_counted": 22267, "view_spread_max": 214, "desync_rounds": 164,
+    "sync_msgs_delivered": 5126}
+HOTSTUFF_HOSTILE_FLIGHT = \
+    "4580868f398cac4104a4e3ed0281146165c8d0bef797835373de87961a8c82d2"
 BFT_TELEMETRY = {
     "pbft-f128": (
         dict(PBFT_ADV, f=128, n_nodes=385), PBFT_DIGESTS[128],
@@ -3198,18 +3621,29 @@ BFT_TELEMETRY = {
         {"promises": 12568384, "nacks": 1632861, "accepts": 11160421,
          "proposals_decided": 13794, "values_learned": 1999061},
         "680196000275343dfdc4bcd9a6c9e5fb2089e8ca5621fcc4a13dbf228aba136e"),
+    "hotstuff-100k": (
+        HOTSTUFF_FLAGSHIP, HOTSTUFF_DIGEST, HOTSTUFF_100K_TOTALS,
+        HOTSTUFF_100K_FLIGHT),
+    "hotstuff-hostile": (
+        HOTSTUFF_HOSTILE, HOTSTUFF_HOSTILE_DIGEST, HOTSTUFF_HOSTILE_TOTALS,
+        HOTSTUFF_HOSTILE_FLIGHT),
 }
 # The flagships, whose replays phase 13 times with telemetry off and on.
 BFT_FLAGSHIPS = ("pbft-f128", "pbft-100k-bcast", "dpos-100k",
-                 "paxos-10kx10k")
+                 "paxos-10kx10k", "hotstuff-100k")
 # Counters that some run of phase 13 must count (not 0 in all of them).
 MUST_COUNT = ("prepare_missed", "commit_missed", "commits_adopted",
               "view_changes", "nacks", "churn_slots", "missed_appends")
+# The SPEC §B counters that some HotStuff run of phase 13 must count: the
+# first real runs in which the honest views move apart.
+HOTSTUFF_MUST_COUNT = ("view_spread_max", "desync_rounds",
+                       "sync_msgs_delivered")
 # The kernels a telemetry run of each engine launches, by engine name.
 TELEMETRY_PATHS = {"pbft": ("delivery",) + PBFT + ("pbft_telemetry",),
                    "pbft-bcast": BCAST + ("pbft_telemetry",),
                    "dpos": DPOS + ("dpos_telemetry",),
-                   "paxos": ("delivery",) + PAXOS + ("paxos_telemetry",)}
+                   "paxos": ("delivery",) + PAXOS + ("paxos_telemetry",),
+                   "hotstuff": HOTSTUFF_ALL}
 
 
 def check_bft_telemetry(card: str, smi: str) -> dict[str, int]:
@@ -3262,6 +3696,7 @@ def check_bft_telemetry(card: str, smi: str) -> dict[str, int]:
     emit("telemetry_bft", runs=rows, counted_by=counted_by,
          view_spread_counted=bool(counted_by["view_spread_max"]),
          sync_msgs_counted=bool(counted_by["sync_msgs_delivered"]),
+         desync_counted=bool(counted_by["desync_rounds"]),
          card=card, power=smi)
     for name, row in rows.items():
         for check in ("digest_ok", "totals_ok", "flight_ok",
@@ -3269,12 +3704,105 @@ def check_bft_telemetry(card: str, smi: str) -> dict[str, int]:
             require(row[check], f"{name} with telemetry: {check} fails")
     for k in MUST_COUNT:
         require(counted_by[k], f"no run of phase 13 counts {k}")
+    for k in HOTSTUFF_MUST_COUNT:
+        require(any(name.startswith("hotstuff") for name in counted_by[k]),
+                f"no HotStuff run of phase 13 counts {k}")
     return {"pbft_telemetry": rows["pbft-100k-bcast"]["launches"]
             ["pbft_telemetry"],
             "dpos_telemetry": rows["dpos-100k"]["launches"]
             ["dpos_telemetry"],
             "paxos_telemetry": rows["paxos-10kx10k"]["launches"]
             ["paxos_telemetry"]}
+
+
+# --- phase 14: HotStuff ------------------------------------------------------
+
+def replay_ops_per_round(cfg, telemetry=False) -> dict:
+    """The device operations a round of ``cfg``'s graph replay takes: the
+    difference between the replays of ``cfg`` and of ``cfg`` with half its
+    rounds (init's operations cancel), over the rounds between; and each
+    replay's hand kernels by ``__global__`` function (count, ms)."""
+    half = dataclasses.replace(cfg, n_rounds=cfg.n_rounds // 2)
+    full, part = (profile_replay(c, telemetry=telemetry) for c in (cfg, half))
+    return dict(
+        ops_per_round=(full["device_launches"] - part["device_launches"])
+        / (cfg.n_rounds - half.n_rounds),
+        full=full, half_rounds=dict(
+            device_launches=part["device_launches"],
+            hand_function_ms=part["hand_function_ms"],
+            other_ops=part["other_ops"]))
+
+
+def check_hotstuff_path(card: str, smi: str) -> dict[str, int]:
+    """Phase 14: ``simulator.run`` of hotstuff-100k, hotstuff-1k and the
+    hostile run HOTSTUFF_HOSTILE, each replayed as one CUDA graph, with
+    every launch count set to 0 just before each run and read just after
+    it: their JAX and oracle anchors, the eager loop's digest equal to the
+    replay's, KAD-KAF launched an equal number of times, KAG once (the
+    extraction, after the replay) and no other kernel; steps per second,
+    replay wall, busy share and the graph's memory; another seed on
+    hotstuff-100k's graph against the eager loop. Then hotstuff-100k's
+    replay without and with telemetry against its half-length replay:
+    three device operations a round, each a KAD, KAE or KAF launch (no
+    memset, no PyTorch op). Returns hotstuff-100k's launches."""
+    from consensus_tpu_torch.core import serialize
+    from consensus_tpu_torch.network import runner, simulator
+    runs = {"hotstuff-100k": (HOTSTUFF_FLAGSHIP, HOTSTUFF_DIGEST),
+            "hotstuff-1k": (HOTSTUFF_1K, HOTSTUFF_1K_DIGEST),
+            "hotstuff-hostile": (HOTSTUFF_HOSTILE, HOTSTUFF_HOSTILE_DIGEST)}
+    rows = {}
+    for name, (kw, digest) in runs.items():
+        cfg = protocol_config(kw)
+        memory, launches = counted(lambda: memory_use(
+            lambda: simulator.run(cfg)))
+        res = memory.pop("result")
+        eager = serialize.digest(simulator.decided_payload(
+            cfg, runner.run(cfg, graph=False))[3])
+        prof = profile_replay(cfg)
+        rows[name] = dict(
+            digest=res.digest, digest_ok=res.digest == digest,
+            eager_digest=eager, steps_per_sec=res.steps_per_sec,
+            wall_s=res.wall_s, min_clen=int(res.counts.min()),
+            max_clen=int(res.counts.max()), launches=launches, **memory,
+            replay_wall_ms=prof["replay_wall_ms"],
+            busy_share=prof["busy_share"],
+            unprofiled_busy_share=prof["unprofiled_busy_share"],
+            device_launches=prof["device_launches"],
+            hand_function_ms=prof["hand_function_ms"],
+            other_ops=prof["other_ops"])
+        require(res.counts.shape == (cfg.n_sweeps, cfg.n_nodes)
+                and int(res.counts.max()) > 0,
+                f"{name}: decided logs of the wrong shape, or empty")
+        require(res.digest == digest, f"{name} digest {res.digest} != "
+                f"{digest}")
+        require(eager == digest, f"{name}: the eager loop's digest {eager}")
+        require_launched(launches, HOTSTUFF_ALL, name)
+        require(launches["hotstuff_extract"] == 1
+                and len({launches[k] for k in HOTSTUFF}) == 1,
+                f"{name}: launches {launches}")
+        for fn in ("hotstuff_propose_kernel", "hotstuff_vote_kernel",
+                   "hotstuff_learn_kernel"):
+            require(prof["hand_function_ms"].get(fn, (0,))[0]
+                    == cfg.n_rounds, f"{name}: {fn} launched "
+                    f"{prof['hand_function_ms'].get(fn)} times in a replay")
+        if name == "hotstuff-100k":
+            # Its graph is the cached one now.
+            check_seed_sharing(cfg, digest)
+    per_round = {on: replay_ops_per_round(
+        protocol_config(HOTSTUFF_FLAGSHIP,
+                        telemetry_window=WINDOW if on else 0), telemetry=on)
+        for on in (False, True)}
+    runner.clear_graphs()
+    emit("hotstuff", runs=rows,
+         ops_per_round=per_round[False]["ops_per_round"],
+         ops_per_round_telemetry=per_round[True]["ops_per_round"],
+         replays={"off": per_round[False], "on": per_round[True]},
+         card=card, power=smi)
+    for on, got in per_round.items():
+        require(got["ops_per_round"] == 3,
+                f"hotstuff-100k (telemetry {on}): {got['ops_per_round']} "
+                "device operations a round")
+    return rows["hotstuff-100k"]["launches"]
 
 
 def main() -> int:
@@ -3315,7 +3843,8 @@ def main() -> int:
                    telemetry_window=WINDOW)),
                *check_dense_kernels(dev, gen), *check_pbft_kernels(dev, gen),
                *check_bcast_kernels(dev, gen),
-               *check_dpos_paxos_kernels(dev, gen), *telemetry_rows]
+               *check_dpos_paxos_kernels(dev, gen), *telemetry_rows,
+               *check_hotstuff_kernels(dev, gen)]
     torch.cuda.synchronize()
     require(sorted(k["name"] for k in kernels) == sorted(_build.SOURCES),
             "phase 3 does not check every kernel of csrc")
@@ -3381,6 +3910,8 @@ def main() -> int:
     dpos_by_phase = plain_ops_by_phase(protocol_config(DPOS_FLAGSHIP))
     paxos_by_phase = plain_ops_by_phase(protocol_config(PAXOS_FLAGSHIP,
                                                         n_rounds=4))
+    hotstuff_by_phase = plain_ops_by_phase(protocol_config(
+        HOTSTUFF_FLAGSHIP))
     # The same engines with telemetry and the flight recorder (KAA-KAC).
     telemetry_by_phase = {
         name: plain_ops_by_phase(cfg, telemetry=True) for name, cfg in (
@@ -3390,18 +3921,22 @@ def main() -> int:
             ("dpos-100k", protocol_config(DPOS_FLAGSHIP,
                                           telemetry_window=WINDOW)),
             ("paxos-10kx10k", protocol_config(
-                PAXOS_FLAGSHIP, n_rounds=4, telemetry_window=WINDOW)))}
+                PAXOS_FLAGSHIP, n_rounds=4, telemetry_window=WINDOW)),
+            ("hotstuff-100k", protocol_config(HOTSTUFF_FLAGSHIP,
+                                              telemetry_window=WINDOW)))}
     emit("profile", card=card, power=smi, **prof,
          plain_ops_by_phase=by_phase, dense_plain_ops_by_phase=dense_by_phase,
          pbft_plain_ops_by_phase=pbft_by_phase,
          bcast_plain_ops_by_phase=bcast_by_phase,
          dpos_plain_ops_by_phase=dpos_by_phase,
          paxos_plain_ops_by_phase=paxos_by_phase,
+         hotstuff_plain_ops_by_phase=hotstuff_by_phase,
          telemetry_plain_ops_by_phase=telemetry_by_phase,
          profiler_sessions_redone=REDONE)
     for place, found in [*by_phase.items(), *dense_by_phase.items(),
                          *pbft_by_phase.items(), *bcast_by_phase.items(),
                          *dpos_by_phase.items(), *paxos_by_phase.items(),
+                         *hotstuff_by_phase.items(),
                          *(item for ops in telemetry_by_phase.values()
                            for item in ops.items())]:
         require(place == "init" or set(found) <= set(ZEROING),
@@ -3423,8 +3958,12 @@ def main() -> int:
     paxos_launches = check_paxos_path(card, smi)
     launches.update({name: paxos_launches[name] for name in PAXOS})
 
-    # 13. Telemetry on dense and §6b PBFT, DPoS and Paxos.
+    # 13. Telemetry on dense and §6b PBFT, DPoS, Paxos and HotStuff.
     launches.update(check_bft_telemetry(card, smi))
+
+    # 14. HotStuff: hotstuff-100k, hotstuff-1k and a hostile run.
+    hotstuff_launches = check_hotstuff_path(card, smi)
+    launches.update({name: hotstuff_launches[name] for name in HOTSTUFF_ALL})
     for k in kernels:
         k["launches"] = launches[k["name"]]
 

@@ -29,7 +29,8 @@ SOURCES = ("random_u32", "delivery_edges", "top_active", "append_entries",
            "pbft_tally", "pbft_decide", "bcast_view_preprepare",
            "bcast_tally", "bcast_decide", "dpos_schedule", "dpos_round",
            "paxos_promise", "paxos_accept_learn", "pbft_telemetry",
-           "dpos_telemetry", "paxos_telemetry")
+           "dpos_telemetry", "paxos_telemetry", "hotstuff_propose",
+           "hotstuff_vote", "hotstuff_learn", "hotstuff_extract")
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "build" / \
@@ -155,6 +156,22 @@ SIGNATURES = {
     # w, lat accumulators (w and lat null with the recorder off); decided's
     # lane stride; round, B, N, S, K, window, n_windows
     "paxos_telemetry": (_P,) * 9 + (_L,) + (_I,) * 7,
+    # seed, round; view, b1_h, lane words (in place); view after P1,
+    # catch-up flags outputs; drop_cut, part_cut, churn_cut; B, N, S
+    "hotstuff_propose": (_P, _U) + (_P,) * 5 + (_U,) * 3 + (_I,) * 3,
+    # seed, round; view after P1, lane words (in place), b1_v, b1_h, b2_v,
+    # b2_h, b3_v, b3_h, gcommit, chain_v (in place); delivery flags, [7, B]
+    # registers outputs; drop_cut, part_cut; Q, B, N, S
+    "hotstuff_vote": (_P, _U) + (_P,) * 12 + (_U,) * 2 + (_I,) * 4,
+    # view after P1, delivery flags, catch-up flags, timer, clen, lane
+    # words (in place), gcommit at round entry, b1_h and gcommit after P4;
+    # [3, B, N] view, timer, clen output; t, w, lat accumulators (null
+    # without telemetry; w and lat null without the recorder); Q,
+    # view_timeout, B, N, window, n_windows
+    "hotstuff_learn": (_P,) * 13 + (_I,) * 6,
+    # seed, chain_v, chain_vid, clen, fvec, ftab_v, ftab_h, fnum; committed,
+    # dval outputs; B, N, S
+    "hotstuff_extract": (_P,) * 10 + (_I,) * 3,
 }
 
 

@@ -3,17 +3,21 @@
 The simulator has no weights; its state plays their part. A batched JAX
 carry (``numpy`` arrays with [B, ...] leaves) of the dense Raft engine
 (``RaftState``), of the capped one (``RaftSparseState``), of the PBFT
-engine (``PbftState``), of the Paxos engine (``PaxosState``) or of the DPoS
-engine becomes the port's :class:`RaftState`, :class:`RaftSparseState`,
-:class:`PbftState`, :class:`PaxosState` or :class:`DposState`, told apart
-by their leaves, and back, with every dtype kept: uint32 seed, int32
+engine (``PbftState``), of the Paxos engine (``PaxosState``), of the DPoS
+engine or of the HotStuff engine (``HotstuffState``) becomes the port's
+:class:`RaftState`, :class:`RaftSparseState`, :class:`PbftState`,
+:class:`PaxosState`, :class:`DposState` or :class:`HotstuffState`, told
+apart by their leaves, and back, with every dtype kept: uint32 seed, int32
 protocol state, uint8 match/next (``match_idx`` / ``next_idx``,
 ``lead_match`` / ``lead_next``), bool down, PBFT's bool slot flags
 (``pp_seen``, ``prepared``, ``committed``), Paxos's bool ``learned_mask``
 and the DPoS chains' uint8, uint16 or int32 storage. The JAX DPoS carry is
 the tuple ``(producers, DposState)``; its leaves here are those of the
 ``DposState`` with ``producers`` among them (:func:`dpos_leaves`,
-:func:`dpos_carry`). The scan's telemetry accumulators (``telem``,
+:func:`dpos_carry`). The port's HotStuff state has one leaf more than the
+JAX carry, ``lane`` (the kernels' words between launches): it is made from
+the views (``engines/hotstuff.py`` :func:`lane_at_rest`) when the leaves
+lack it, and left out on the way back; the HotStuff registers stay [B]. The scan's telemetry accumulators (``telem``,
 ``win``, ``lat`` of ``_chunk_jit``, int32) carry across the same way.
 """
 from __future__ import annotations
@@ -22,17 +26,19 @@ import numpy as np
 import torch
 
 from .engines.dpos import DposState
+from .engines.hotstuff import JAX_LEAVES, HotstuffState, lane_at_rest
 from .engines.paxos import PaxosState
 from .engines.pbft import PbftState
 from .engines.raft import RaftState
 from .engines.raft_sparse import RaftSparseState
 
-State = RaftState | RaftSparseState | PbftState | PaxosState | DposState
+State = (RaftState | RaftSparseState | PbftState | PaxosState | DposState
+         | HotstuffState)
 
 DTYPES = {"seed": np.uint32, "lead_match": np.uint8, "lead_next": np.uint8,
           "match_idx": np.uint8, "next_idx": np.uint8, "down": np.bool_,
           "pp_seen": np.bool_, "prepared": np.bool_, "committed": np.bool_,
-          "learned_mask": np.bool_}
+          "learned_mask": np.bool_, "lane": np.int64}
 # The DPoS chains' storage (consensus_tpu/engines/raft.py _store_dtype).
 CHAIN_DTYPES = (np.uint8, np.uint16, np.int32)
 
@@ -40,9 +46,11 @@ CHAIN_DTYPES = (np.uint8, np.uint16, np.int32)
 def _kind(leaves: dict) -> type:
     """The state whose leaves ``leaves`` are: PBFT's when they hold
     ``pp_seen``, Paxos's with ``learned_mask``, DPoS's with ``chain_r``,
-    the dense Raft engine's with ``match_idx``, else the capped one's."""
+    HotStuff's with ``b1_v``, the dense Raft engine's with ``match_idx``,
+    else the capped one's."""
     for leaf, kind in (("pp_seen", PbftState), ("learned_mask", PaxosState),
-                       ("chain_r", DposState), ("match_idx", RaftState)):
+                       ("chain_r", DposState), ("b1_v", HotstuffState),
+                       ("match_idx", RaftState)):
         if leaf in leaves:
             return kind
     return RaftSparseState
@@ -52,6 +60,9 @@ def state_from_numpy(leaves: dict, device="cpu") -> State:
     """The port's state from a dict of batched numpy leaves (see
     :func:`_kind`)."""
     kind = _kind(leaves)
+    if kind is HotstuffState and "lane" not in leaves:
+        leaves = {**leaves, "lane": lane_at_rest(torch.from_numpy(
+            np.ascontiguousarray(leaves["view"]))).numpy()}
     out = {}
     for name in kind._fields:
         a = np.ascontiguousarray(leaves[name])
@@ -66,8 +77,10 @@ def state_from_numpy(leaves: dict, device="cpu") -> State:
 
 
 def state_to_numpy(st: State) -> dict[str, np.ndarray]:
-    """A dict of batched numpy leaves, in the JAX carry's dtypes."""
-    return {name: getattr(st, name).cpu().numpy() for name in st._fields}
+    """A dict of batched numpy leaves, in the JAX carry's dtypes: the JAX
+    carry's leaves (without HotStuff's ``lane``)."""
+    names = JAX_LEAVES if isinstance(st, HotstuffState) else st._fields
+    return {name: getattr(st, name).cpu().numpy() for name in names}
 
 
 def dpos_leaves(producers, st_leaves: dict) -> dict:

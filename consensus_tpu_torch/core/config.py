@@ -1,20 +1,24 @@
-"""The run configuration of the port: the Raft, PBFT, Paxos and DPoS slice
-of ``Config``.
+"""The run configuration of the port: ``Config`` for all seven engines of
+the JAX package, on their flat paths.
 
 A slim copy of ``consensus_tpu/core/config.py``: the same field names,
-defaults and u32 cutoffs for what the Raft, PBFT, Paxos and DPoS engines
-read. As
+defaults and u32 cutoffs for what the Raft, PBFT, Paxos, DPoS and HotStuff
+engines read. As
 in the JAX package, a raft config with ``max_active = 0`` selects the dense
 engine (``engines/raft.py``) and ``max_active > 0`` the §3b capped one
 (``engines/raft_sparse.py``); ``protocol="pbft"`` selects the dense SPEC §6
 engine (``engines/pbft.py``), or with ``fault_model="bcast"`` the SPEC §6b
 broadcast engine (``engines/pbft_bcast.py``), whose population is
 ``n_nodes = 3f + 1``; ``protocol="paxos"`` the SPEC §5 multi-decree Paxos
-engine (``engines/paxos.py``) and ``protocol="dpos"`` the SPEC §7 DPoS
-engine (``engines/dpos.py``).
+engine (``engines/paxos.py``), ``protocol="dpos"`` the SPEC §7 DPoS
+engine (``engines/dpos.py``) and ``protocol="hotstuff"`` the SPEC §7b
+chained HotStuff engine (``engines/hotstuff.py``), whose population is
+``n_nodes = 3f + 1`` too.
 The knobs of the JAX package that this port does not implement yet are
 fields too, and setting one off its default raises ``ValueError``; the
-port never ignores a setting silently.
+port never ignores a setting silently. For HotStuff those are its gates:
+crash-recover, delayed retransmission, view desync, byzantine nodes (silent
+or equivocating) and the switch network.
 """
 from __future__ import annotations
 
@@ -36,8 +40,8 @@ UNSUPPORTED = {
     "mesh_shape": (),
 }
 
-# The protocols the port runs (the JAX package also has hotstuff).
-PROTOCOLS = ("raft", "pbft", "paxos", "dpos")
+# The protocols the port runs: every protocol of the JAX package.
+PROTOCOLS = ("raft", "pbft", "paxos", "dpos", "hotstuff")
 
 # Raft only. The top-A kernel keeps a sorted list of A keys per thread in
 # registers.
@@ -45,8 +49,8 @@ MAX_ACTIVE = 16
 # Raft only. The replication bookkeeping (the capped engine's lead_match /
 # lead_next, the dense engine's match_idx / next_idx) is uint8 (L + 1 <=
 # 255), as the JAX package stores it at these capacities; PyTorch has no
-# uint16 arithmetic for the wider ones. The state of PBFT and Paxos is int32
-# and bool, and DPoS stores its chains as the JAX package does; they take
+# uint16 arithmetic for the wider ones. The state of PBFT, Paxos and
+# HotStuff is int32 and bool, and DPoS stores its chains as the JAX package does; they take
 # any slot count.
 MAX_LOG_CAPACITY = 254
 
@@ -67,7 +71,7 @@ class Config:
     t_max: int = 8
     max_active: int = 0
 
-    # PBFT.
+    # PBFT and HotStuff.
     f: int = 1                   # byzantine tolerance; n_nodes = 3f+1
     view_timeout: int = 8        # rounds without progress before view change
     fault_model: str = "edge"    # "edge" (SPEC §6) | "bcast" (§6b)
@@ -112,7 +116,7 @@ class Config:
                self.log_capacity) < 1:
             raise ValueError("n_nodes, n_rounds, n_sweeps, log_capacity "
                              "must be >= 1")
-        if self.protocol == "pbft":
+        if self.protocol in ("pbft", "hotstuff"):
             expect = 3 * self.f + 1
             if self.n_nodes != expect:
                 raise ValueError(

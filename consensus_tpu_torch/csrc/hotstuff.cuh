@@ -1,0 +1,122 @@
+// What the HotStuff round's kernels (KAD hotstuff_propose, KAE hotstuff_vote,
+// KAF hotstuff_learn) share: the words of the state's `lane` leaf, which
+// carry each lane-wide step of the round across a launch, and the SPEC §2
+// broadcast-row delivery test.
+//
+// lane is [B, LANE_WORDS] int64 (engines/hotstuff.py), and each word has one
+// writer pattern a round, ordered by the launches (KAD, then KAE, then KAF):
+//   TOP        P1's key of the views at round entry, (view << 32) |
+//              (N - 1 - id) at its largest: KAD reads it; KAE's last block
+//              of the lane empties it (INT64_MIN); KAF's blocks atomicMax
+//              the new views' keys into it for the next round.
+//   VMAX       KAD's atomicMax of the proposers' views (V*); at rest -1.
+//   VOTES      KAE's atomicAdd of the delivered votes; at rest 0.
+//   DONE_VOTE  KAE's finished blocks of the lane; at rest 0.
+//   VSTAR      V*, written by KAE's last block for KAF.
+//   COUNTED    the vote count, written by KAE's last block for KAF.
+//   VMIN       KAF's atomicMin of the new views (telemetry); at rest
+//              INT64_MAX.
+//   DONE_LEARN KAF's finished blocks of the lane (telemetry); at rest 0.
+// A kernel that accumulates into a word leaves it at rest after the last
+// block of its lane has read it, so a round needs no memset: the "fresh
+// outputs against in-round hazards" rule holds because no block reads a word
+// that another block of the same launch writes, except through the atomics
+// and the last-block-done count (__threadfence before and after).
+#pragma once
+
+#include <cstdint>
+
+#include "rng.cuh"
+
+namespace hs {
+
+constexpr int TOP = 0;
+constexpr int VMAX = 1;
+constexpr int VOTES = 2;
+constexpr int DONE_VOTE = 3;
+constexpr int VSTAR = 4;
+constexpr int COUNTED = 5;
+constexpr int VMIN = 6;
+constexpr int DONE_LEARN = 7;
+constexpr int LANE_WORDS = 8;
+
+constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
+constexpr unsigned FULL = 0xFFFFFFFFu;
+constexpr long long I64_MIN = -0x7FFFFFFFFFFFFFFFll - 1;
+constexpr long long I64_MAX = 0x7FFFFFFFFFFFFFFFll;
+
+// int32 arithmetic that wraps, as the JAX package's does.
+__device__ __forceinline__ int32_t add_i32(int32_t a, int32_t b) {
+  return static_cast<int32_t>(static_cast<uint32_t>(a) +
+                              static_cast<uint32_t>(b));
+}
+
+__device__ __forceinline__ int32_t sub_i32(int32_t a, int32_t b) {
+  return static_cast<int32_t>(static_cast<uint32_t>(a) -
+                              static_cast<uint32_t>(b));
+}
+
+// v mod n with the sign of n (jnp's and PyTorch's %), for n >= 1.
+__device__ __forceinline__ int32_t floor_mod(int32_t v, int32_t n) {
+  const int32_t m = v % n;
+  return m < 0 ? m + n : m;
+}
+
+// P1's key of node `id`'s view: the largest key is the highest view, and
+// among equal views the lowest id.
+__device__ __forceinline__ long long view_key(int32_t view, int id, int n) {
+  return static_cast<long long>(
+      (static_cast<unsigned long long>(static_cast<long long>(view)) << 32) |
+      static_cast<uint32_t>(n - 1 - id));
+}
+
+// A lane's broadcast row from node `src` in round r: the mixer state after
+// absorbing (seed ^ STREAM_DELIVER, r, src), the round's partition event
+// and src's side. The gossip row (P1) and the proposal row (P2) from one
+// sender draw the same words: the model's per-(round, edge) link state.
+struct Row {
+  uint32_t h;      // mix_absorb(mix_absorb(seed ^ DELIVER, r), src)
+  bool part;       // the round's partition is active
+  uint32_t side;   // src's side, where part
+};
+
+__device__ __forceinline__ Row row_from(uint32_t seed, uint32_t r,
+                                        uint32_t src, uint32_t part_cut) {
+  Row row;
+  row.h = ctt::mix_absorb(ctt::mix_absorb(seed ^ ctt::STREAM_DELIVER, r), src);
+  // An exact shortcut: without a partition cutoff no round's partition
+  // is active, and the side draws are never read.
+  row.part = part_cut != 0u &&
+             ctt::random_u32(seed, ctt::STREAM_PARTITION, r, 0u, 0u) < part_cut;
+  row.side = row.part
+                 ? ctt::random_u32(seed, ctt::STREAM_PARTITION, r, 1u, src) & 1u
+                 : 0u;
+  return row;
+}
+
+// Whether row `row` reaches node j: the mixer's draw of edge (src, j) is not
+// below drop_cut and, where the partition is active, j drew src's side.
+__device__ __forceinline__ bool row_open(const Row& row, uint32_t seed,
+                                         uint32_t r, uint32_t j,
+                                         uint32_t drop_cut) {
+  if (ctt::mix_fin(ctt::mix_absorb(row.h, j)) < drop_cut) return false;
+  return !row.part ||
+         (ctt::random_u32(seed, ctt::STREAM_PARTITION, r, 1u, j) & 1u) ==
+             row.side;
+}
+
+__device__ __forceinline__ int warp_sum(int v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(FULL, v, o);
+  return v;
+}
+
+__device__ __forceinline__ long long warp_max64(long long v) {
+  for (int o = 16; o > 0; o >>= 1) {
+    const long long u = __shfl_down_sync(FULL, v, o);
+    v = u > v ? u : v;
+  }
+  return v;
+}
+
+}  // namespace hs

@@ -1,0 +1,230 @@
+// Kernel KAF: the last step of a chained HotStuff round (SPEC §7b): P6's
+// learning and QC notify, P7's per-node pacemaker, the next round's P1
+// extremes and, with telemetry, the round's counters and flight recorder.
+//
+// Replaces: consensus_tpu/engines/hotstuff.py hotstuff_round (K18, lines
+// 456-480) on its flat path, and with telemetry its tail (lines 485-519)
+// with consensus_tpu/ops/viewsync.py sync_counts (K22) and ops/flight.py
+// bucket_counts. With the round's V* and vote count (the lane's VSTAR and
+// COUNTED words, from kernel KAE's last block; the QC formed when V* >= 0
+// and the count reached Q = 2f + 1): a receiver of the proposal enters V* +
+// 1 on a QC, else V*, and grows its committed prefix to the OLD gcommit
+// (line 464: the commit as of proposal time, while KAE wrote the new one to
+// a fresh output); a node with neither a proposal nor a P1 catch-up whose
+// timer + 1 reaches view_timeout moves to the next view; the timer restarts
+// on progress or timeout. Each node's key of its new view (hotstuff.cuh
+// view_key) goes into the lane's TOP word by atomicMax, which KAE emptied:
+// P1 of the next round reads it, so the round stays at three launches.
+// Counters, in HOTSTUFF_TELEMETRY order: qc_formed, blocks_committed (new
+// gcommit - old), commits_learned (the sum of the prefixes' growth, int32
+// wrapping), view_changes (the timeouts), proposals_delivered, votes_counted,
+// then the crash, aggregation and safety tails, which stay 0 (the port
+// rejects those gates), and the SPEC §B tail: view_spread_max (max - min of
+// the new views, int32 wrapping; every node is honest and live),
+// desync_rounds (spread > 0) and sync_msgs_delivered (the P1 catch-ups).
+// Histograms: view_change_wait_rounds (timer + 1 of each node whose view
+// moved: a QC learned, a catch-up or a timeout) and chain_commit_lag_rounds
+// (one observation a round, new b1_h + 1 - new gcommit), bucketed as
+// bucket_counts does (bucket 0 holds values <= 0, bucket i in 1..14 holds
+// [2^(i-1), 2^i), bucket 15 values >= 2^14).
+//
+// Bound: bytes. Each node reads its view after P1, timer and prefix (12
+// bytes) and two flags (2 bytes) and writes its view, timer and prefix (12
+// bytes): 20.8 MB at hotstuff-100k (B = 8, N = 100 000), 6.2 us at 3.35
+// TB/s; about 20 integer operations a node. With telemetry add nothing but
+// the accumulators' few words.
+// Design: a thread per (lane, node), the (lane, tile) pairs flattened into
+// gridDim.x; the lane's V*, QC and old gcommit read once a block into shared
+// memory. The next round's P1 key is a warp shuffle maximum, the warps'
+// maxima merged by thread 0 and one 64-bit atomicMax a block. With the
+// optional accumulators (t, and w and lat for the recorder: null pointers
+// when off, so the telemetry costs nothing then) the counters are warp
+// sums, one shared atomic a warp and one global atomic a block and counter;
+// the wait histogram is warp-aggregated (__match_any_sync) into shared
+// bins; the new views' minimum goes into VMIN by one 64-bit atomicMin a
+// block; then the block counts itself done in DONE_LEARN, and the lane's
+// last block (KAA's last-block-done pattern, pbft_telemetry.cu) adds the
+// lane's counters (QC, commit, votes, spread, desync) and the lag bucket,
+// and leaves VMIN and DONE_LEARN at rest. So telemetry adds no launch and no
+// memset to the round.
+#include <cuda_runtime.h>
+
+#include "hotstuff.cuh"
+
+namespace {
+
+constexpr int BUCKETS = 16;
+constexpr int HISTS = 2;
+// HOTSTUFF_TELEMETRY's indexes (view_changes and proposals_delivered are 3
+// and 4, after C_LEARNED).
+constexpr int C_QC = 0, C_COMMITTED = 1, C_LEARNED = 2, C_VOTES = 5,
+              C_SPREAD = 15, C_DESYNC = 16, C_SYNC = 17, K = 18;
+// The block's sums: commits_learned, view_changes, proposals_delivered (the
+// counters from C_LEARNED on, in order) and sync_msgs_delivered.
+constexpr int SUMS = 4;
+
+__device__ __forceinline__ int sum_index(int k) {
+  return k < SUMS - 1 ? C_LEARNED + k : C_SYNC;
+}
+
+__device__ __forceinline__ int lat_bucket(int32_t v) {
+  if (v <= 0) return 0;
+  return min(32 - __clz(v), BUCKETS - 1);
+}
+
+__device__ __forceinline__ void add(int* tb, int* wb, int k, int v) {
+  if (v == 0) return;
+  atomicAdd(tb + k, v);
+  if (wb != nullptr) atomicAdd(wb + k, v);
+}
+
+__global__ void __launch_bounds__(hs::THREADS)
+hotstuff_learn_kernel(const int32_t* __restrict__ view1,
+                      const bool* __restrict__ pdel,
+                      const bool* __restrict__ adv,
+                      const int32_t* __restrict__ timer,
+                      const int32_t* __restrict__ clen,
+                      long long* __restrict__ lane,
+                      const int32_t* __restrict__ gcommit,
+                      const int32_t* __restrict__ b1_h_new,
+                      const int32_t* __restrict__ gcommit_new,
+                      int32_t* __restrict__ out, int* __restrict__ t,
+                      int* __restrict__ w, int* __restrict__ lat, int Q,
+                      int view_timeout, int B, int N, int window,
+                      int n_windows, int tiles) {
+  __shared__ int32_t s_vstar, s_gold;
+  __shared__ bool s_qc;
+  __shared__ long long s_key[hs::WARPS];
+  __shared__ int32_t s_min[hs::WARPS];
+  __shared__ int s_sum[SUMS];
+  __shared__ int s_hist[BUCKETS];
+  const int b = blockIdx.x / tiles;
+  const int tile = blockIdx.x - b * tiles;
+  const int warp = threadIdx.x >> 5, lane_id = threadIdx.x & 31;
+  const bool telem = t != nullptr;
+  long long* lw = lane + static_cast<long long>(b) * hs::LANE_WORDS;
+  if (threadIdx.x == 0) {
+    s_vstar = static_cast<int32_t>(lw[hs::VSTAR]);
+    s_qc = s_vstar >= 0 && lw[hs::COUNTED] >= Q;
+    s_gold = gcommit[b];
+  }
+  if (threadIdx.x < SUMS) s_sum[threadIdx.x] = 0;
+  if (threadIdx.x < BUCKETS) s_hist[threadIdx.x] = 0;
+  __syncthreads();
+  const long long plane = static_cast<long long>(B) * N;
+  const int i = tile * hs::THREADS + static_cast<int>(threadIdx.x);
+  long long key = hs::I64_MIN;
+  int32_t vmin = 0x7FFFFFFF;
+  int sums[SUMS] = {0, 0, 0, 0};
+  int bin = -1;
+  if (i < N) {
+    const long long row = static_cast<long long>(b) * N + i;
+    const bool pd = pdel[row], ad = adv[row];
+    const int32_t tm = timer[row], cl = clen[row];
+    int32_t v = view1[row];
+    if (pd) v = s_qc ? hs::add_i32(s_vstar, 1) : s_vstar;
+    const int32_t cl2 = pd ? max(cl, s_gold) : cl;
+    const bool progress = pd || ad;
+    const int32_t tick = hs::add_i32(tm, 1);
+    const bool to = !progress && tick >= view_timeout;
+    v = hs::add_i32(v, to);
+    out[row] = v;
+    out[plane + row] = progress || to ? 0 : tick;
+    out[2 * plane + row] = cl2;
+    key = hs::view_key(v, i, N);
+    vmin = v;
+    sums[0] = hs::sub_i32(cl2, cl);
+    sums[1] = to;
+    sums[2] = pd;
+    sums[3] = ad;
+    if (lat != nullptr && ((pd && s_qc) || ad || to)) bin = lat_bucket(tick);
+  }
+  key = hs::warp_max64(key);
+  if (lane_id == 0) s_key[warp] = key;
+  if (telem) {
+    for (int k = 0; k < SUMS; ++k) {
+      const int v = hs::warp_sum(sums[k]);
+      if (lane_id == 0 && v) atomicAdd(&s_sum[k], v);
+    }
+    vmin = __reduce_min_sync(hs::FULL, vmin);
+    if (lane_id == 0) s_min[warp] = vmin;
+    if (lat != nullptr) {
+      const unsigned peers = __match_any_sync(hs::FULL, bin);
+      if (bin >= 0 && lane_id == __ffs(peers) - 1)
+        atomicAdd(&s_hist[bin], __popc(peers));
+    }
+  }
+  __syncthreads();
+  int* tb = telem ? t + static_cast<long long>(b) * K : nullptr;
+  int* wb = w == nullptr ? nullptr
+                         : w + (static_cast<long long>(b) * n_windows +
+                                window) * K;
+  if (telem && threadIdx.x < SUMS) add(tb, wb, sum_index(threadIdx.x),
+                                       s_sum[threadIdx.x]);
+  if (lat != nullptr && threadIdx.x < BUCKETS && s_hist[threadIdx.x])
+    atomicAdd(&lat[static_cast<long long>(b) * HISTS * BUCKETS +
+                   threadIdx.x],
+              s_hist[threadIdx.x]);
+  if (threadIdx.x != 0) return;
+  long long bkey = s_key[0];
+  for (int k = 1; k < hs::WARPS; ++k) bkey = max(bkey, s_key[k]);
+  atomicMax(lw + hs::TOP, bkey);
+  if (!telem) return;
+  int32_t bmin = s_min[0];
+  for (int k = 1; k < hs::WARPS; ++k) bmin = min(bmin, s_min[k]);
+  atomicMin(lw + hs::VMIN, static_cast<long long>(bmin));
+  unsigned long long* uw = reinterpret_cast<unsigned long long*>(lw);
+  __threadfence();
+  if (atomicAdd(uw + hs::DONE_LEARN, 1ull) !=
+      static_cast<unsigned long long>(tiles - 1))
+    return;
+  __threadfence();
+  // The lane's last block: the lane's counters, the spread and the lag.
+  const int32_t vmax =
+      static_cast<int32_t>(atomicMax(lw + hs::TOP, hs::I64_MIN) >> 32);
+  const int32_t lo =
+      static_cast<int32_t>(atomicMin(lw + hs::VMIN, hs::I64_MAX));
+  const int32_t spread = hs::sub_i32(vmax, lo);
+  const int32_t gnew = gcommit_new[b];
+  add(tb, wb, C_QC, s_qc);
+  add(tb, wb, C_COMMITTED, hs::sub_i32(gnew, s_gold));
+  add(tb, wb, C_VOTES, static_cast<int32_t>(lw[hs::COUNTED]));
+  add(tb, wb, C_SPREAD, spread);
+  add(tb, wb, C_DESYNC, spread > 0);
+  if (lat != nullptr)
+    atomicAdd(&lat[static_cast<long long>(b) * HISTS * BUCKETS + BUCKETS +
+                   lat_bucket(hs::sub_i32(hs::add_i32(b1_h_new[b], 1),
+                                          gnew))],
+              1);
+  lw[hs::VMIN] = hs::I64_MAX;
+  lw[hs::DONE_LEARN] = 0;
+}
+
+}  // namespace
+
+// out is [3, B, N] int32: the new view, timer and clen. lane is the state's
+// [B, 8] int64 lane words (hotstuff.cuh): TOP emptied by KAE and, with
+// telemetry, VMIN and DONE_LEARN at rest. t ([B, 18]), w ([B, n_windows, 18])
+// and lat ([B, 2, 16]) are the int32 accumulators, t null without telemetry,
+// w and lat null without the flight recorder (then window and n_windows are
+// unused).
+extern "C" int ctt_hotstuff_learn(
+    const int32_t* view1, const bool* pdel, const bool* adv,
+    const int32_t* timer, const int32_t* clen, long long* lane,
+    const int32_t* gcommit, const int32_t* b1_h_new,
+    const int32_t* gcommit_new, int32_t* out, int* t, int* w, int* lat,
+    int Q, int view_timeout, int B, int N, int window, int n_windows,
+    cudaStream_t st) {
+  if ((w == nullptr) != (lat == nullptr) || (t == nullptr && w != nullptr) ||
+      (w != nullptr && (window < 0 || window >= n_windows)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0 || N == 0) return 0;
+  const int tiles = (N + hs::THREADS - 1) / hs::THREADS;
+  const long long blocks = static_cast<long long>(tiles) * B;
+  if (blocks > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
+  hotstuff_learn_kernel<<<static_cast<unsigned>(blocks), hs::THREADS, 0,
+                          st>>>(view1, pdel, adv, timer, clen, lane, gcommit,
+                                b1_h_new, gcommit_new, out, t, w, lat, Q,
+                                view_timeout, B, N, window, n_windows, tiles);
+  return static_cast<int>(cudaGetLastError());
+}

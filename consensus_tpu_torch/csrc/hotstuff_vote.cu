@@ -1,0 +1,158 @@
+// Kernel KAE: the second and third lane-wide steps of a chained HotStuff
+// round (SPEC §7b): the proposal's delivery, the vote count at the leader,
+// and, in each lane's last block, the QC, the chain shift and the 3-chain
+// commit.
+//
+// Replaces: consensus_tpu/engines/hotstuff.py hotstuff_round (K18, lines
+// 300-433) on its flat path. V* is the lane's VMAX word, which kernel KAD
+// reduced; with V* >= 0 its leader is L = V* mod N, else L = 0 and nothing is
+// delivered. Node j receives the proposal (pdel) when j == L or L's row
+// reaches j (the same mixer words as P1's gossip row when M == L), and its
+// view after P1 is not above V*. Its vote reaches L when j == L or the
+// mixer's draw of the REVERSE edge (j, L) is not below drop_cut (given pdel
+// the partition test of that edge is the same predicate, so it is not
+// drawn). The QC forms when the lane's delivered votes reach Q = 2f + 1.
+// Then b1 <- (V*, h_next), b2 <- old b1, b3 <- old b2, chain_v[h_next] <-
+// V*, and where the NEW b3, b2, b1 sit in consecutive views the global
+// commit becomes max(old gcommit, new b3_h + 1) (lines 423-433).
+// Old against new: the registers are written to fresh outputs, so kernel
+// KAF still reads the OLD gcommit that P6 grows the prefixes to (line 464).
+//
+// Bound: bytes. Each node reads its view after P1 (4 bytes) and writes its
+// delivery flag (1 byte): 4 MB at hotstuff-100k (B = 8, N = 100 000), 1.2
+// us at 3.35 TB/s; the draws are two mixer absorbs and fmixes a node (about
+// 38 operations), 0.9 us at 33.5e12 a second. The launch's fixed cost sets
+// its time.
+// Design: a thread per (lane, node), the (lane, tile) pairs flattened into
+// gridDim.x. Thread 0 of a block computes the lane's V*, L, L's row and the
+// mixer state of the reverse edges' prefix once into shared memory. The
+// votes are counted by a ballot a warp, a shared atomic a warp and one
+// global 64-bit atomicAdd a block into the lane's VOTES word; then the
+// block counts itself done in DONE_VOTE (KAA's last-block-done pattern,
+// pbft_telemetry.cu). The lane's last block reads the count, forms the QC,
+// writes the registers, chain_v[h_next] (in place: no other block of the
+// round reads chain_v) and the round's V* and count for KAF, and leaves
+// VMAX, VOTES and DONE_VOTE at rest and TOP empty for KAF's reduction: every
+// other block of the lane has read VMAX before it counted itself done.
+#include <cuda_runtime.h>
+
+#include "hotstuff.cuh"
+
+namespace {
+
+// The registers, in their order in the inputs and the [7, B] output.
+enum { B1_V, B1_H, B2_V, B2_H, B3_V, B3_H, GCOMMIT, REGS };
+
+struct Regs {
+  const int32_t* in[REGS];
+};
+
+__global__ void __launch_bounds__(hs::THREADS)
+hotstuff_vote_kernel(const uint32_t* __restrict__ seed, uint32_t r,
+                     const int32_t* __restrict__ view1,
+                     long long* __restrict__ lane, Regs regs,
+                     int32_t* __restrict__ chain_v, bool* __restrict__ pdel,
+                     int32_t* __restrict__ regs_out, uint32_t drop_cut,
+                     uint32_t part_cut, int Q, int B, int N, int S,
+                     int tiles) {
+  __shared__ hs::Row s_row;
+  __shared__ uint32_t s_h0;
+  __shared__ int32_t s_vstar;
+  __shared__ int s_l;
+  __shared__ int s_votes;
+  const int b = blockIdx.x / tiles;
+  const int tile = blockIdx.x - b * tiles;
+  const uint32_t sd = seed[b];
+  long long* lw = lane + static_cast<long long>(b) * hs::LANE_WORDS;
+  if (threadIdx.x == 0) {
+    const int32_t vstar = static_cast<int32_t>(lw[hs::VMAX]);
+    s_vstar = vstar;
+    s_l = vstar >= 0 ? vstar % N : 0;
+    s_row = hs::row_from(sd, r, static_cast<uint32_t>(s_l), part_cut);
+    s_h0 = ctt::mix_absorb(sd ^ ctt::STREAM_DELIVER, r);
+    s_votes = 0;
+  }
+  __syncthreads();
+  const int i = tile * hs::THREADS + static_cast<int>(threadIdx.x);
+  bool voted = false;
+  if (i < N) {
+    const long long row = static_cast<long long>(b) * N + i;
+    const int32_t vstar = s_vstar;
+    const bool is_l = i == s_l;
+    const bool got =
+        vstar >= 0 && view1[row] <= vstar &&
+        (is_l || hs::row_open(s_row, sd, r, static_cast<uint32_t>(i),
+                              drop_cut));
+    pdel[row] = got;
+    voted = got && (is_l ||
+                    ctt::mix_fin(ctt::mix_absorb(
+                        ctt::mix_absorb(s_h0, static_cast<uint32_t>(i)),
+                        static_cast<uint32_t>(s_l))) >= drop_cut);
+  }
+  const int warp_votes = __popc(__ballot_sync(hs::FULL, voted));
+  if ((threadIdx.x & 31) == 0 && warp_votes) atomicAdd(&s_votes, warp_votes);
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+  unsigned long long* uw = reinterpret_cast<unsigned long long*>(lw);
+  if (s_votes)
+    atomicAdd(uw + hs::VOTES, static_cast<unsigned long long>(s_votes));
+  __threadfence();
+  if (atomicAdd(uw + hs::DONE_VOTE, 1ull) !=
+      static_cast<unsigned long long>(tiles - 1))
+    return;
+  __threadfence();
+  // The lane's last block: P3's QC and P4.
+  const long long votes =
+      static_cast<long long>(atomicAdd(uw + hs::VOTES, 0ull));
+  const int32_t vstar = s_vstar;
+  const bool qc = vstar >= 0 && votes >= Q;
+  int32_t reg[REGS];
+  for (int k = 0; k < REGS; ++k) reg[k] = regs.in[k][b];
+  const int32_t h_next = hs::add_i32(reg[B1_H], 1);
+  if (qc) {
+    reg[B3_V] = reg[B2_V];
+    reg[B3_H] = reg[B2_H];
+    reg[B2_V] = reg[B1_V];
+    reg[B2_H] = reg[B1_H];
+    reg[B1_V] = vstar;
+    reg[B1_H] = h_next;
+    if (h_next >= 0 && h_next < S)
+      chain_v[static_cast<long long>(b) * S + h_next] = vstar;
+    const bool consec = reg[B3_V] >= 0 &&
+                        reg[B1_V] == hs::add_i32(reg[B2_V], 1) &&
+                        reg[B2_V] == hs::add_i32(reg[B3_V], 1);
+    if (consec) reg[GCOMMIT] = max(reg[GCOMMIT], hs::add_i32(reg[B3_H], 1));
+  }
+  for (int k = 0; k < REGS; ++k)
+    regs_out[static_cast<long long>(k) * B + b] = reg[k];
+  lw[hs::VSTAR] = vstar;
+  lw[hs::COUNTED] = votes;
+  lw[hs::VMAX] = -1;
+  lw[hs::VOTES] = 0;
+  lw[hs::DONE_VOTE] = 0;
+  lw[hs::TOP] = hs::I64_MIN;
+}
+
+}  // namespace
+
+// regs are the seven [B] int32 registers at round entry (b1_v, b1_h, b2_v,
+// b2_h, b3_v, b3_h, gcommit), regs_out their [7, B] values after P4. lane is
+// the state's [B, 8] int64 lane words (hotstuff.cuh): VOTES and DONE_VOTE at
+// rest.
+extern "C" int ctt_hotstuff_vote(
+    const uint32_t* seed, uint32_t r, const int32_t* view1, long long* lane,
+    const int32_t* b1_v, const int32_t* b1_h, const int32_t* b2_v,
+    const int32_t* b2_h, const int32_t* b3_v, const int32_t* b3_h,
+    const int32_t* gcommit, int32_t* chain_v, bool* pdel, int32_t* regs_out,
+    uint32_t drop_cut, uint32_t part_cut, int Q, int B, int N, int S,
+    cudaStream_t st) {
+  if (B == 0 || N == 0) return 0;
+  const int tiles = (N + hs::THREADS - 1) / hs::THREADS;
+  const long long blocks = static_cast<long long>(tiles) * B;
+  if (blocks > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
+  Regs regs = {{b1_v, b1_h, b2_v, b2_h, b3_v, b3_h, gcommit}};
+  hotstuff_vote_kernel<<<static_cast<unsigned>(blocks), hs::THREADS, 0, st>>>(
+      seed, r, view1, lane, regs, chain_v, pdel, regs_out, drop_cut, part_cut,
+      Q, B, N, S, tiles);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,548 @@
+"""Chained HotStuff in PyTorch: SPEC §7b, the linear-communication BFT
+engine.
+
+The port of ``consensus_tpu/engines/hotstuff.py`` on its flat path (no
+crash, delay, desync, byzantine or switch gates), with its telemetry and
+flight recorder. Every node keeps its own pacemaker (view, timer) and
+committed prefix; the QC chain (b1, b2, b3), the certified-view map and
+the global commit are per sweep. A round is three lane-wide steps in a
+row: P1's highest-view gossip needs the highest view and the lowest id
+holding it, P2's proposal the highest proposing view V* after P1, and the
+QC of P3 the vote count at V*'s leader; P4's chain shift, P6's learning
+and P7's pacemaker follow from the QC. Sweeps (lanes) are a leading batch
+axis B on every tensor.
+
+Four functions are wrappers of hand-written CUDA kernels, each beside its
+plain PyTorch version (``<name>_plain``), which CPU tensors run:
+
+* :func:`hotstuff_propose` — kernel KAD (``csrc/hotstuff_propose.cu``):
+  P0's churn and partition draws, P1's gossip and P2's proposers, whose
+  highest view it reduces into the lane word VMAX;
+* :func:`hotstuff_vote` — kernel KAE (``csrc/hotstuff_vote.cu``): P2's
+  delivery, P3's vote count and, in each lane's last block, P4's chain
+  shift, 3-chain commit and certified view;
+* :func:`hotstuff_learn` — kernel KAF (``csrc/hotstuff_learn.cu``): P6's
+  learning, P7's pacemaker, the next round's P1 extremes and, with
+  telemetry, the round's HOTSTUFF_TELEMETRY counters and HOTSTUFF_LATENCY
+  histograms;
+* :func:`hotstuff_extract` — kernel KAG (``csrc/hotstuff_extract.cu``):
+  the decided logs (``committed``, ``dval``) from the carry, once a run.
+
+On the card a round is KAD, KAE and KAF and nothing else: no memset and
+no PyTorch op. The lane-wide steps cross launches through ``lane``, a
+[B, LANE_WORDS] int64 leaf the JAX carry does not have: P1's extremes of
+the views at round entry, which KAF of the round before reduces
+(:func:`p1_key`), and the kernels' accumulators, which each kernel leaves
+at rest for the next (:func:`lane_at_rest`). ``chain_v`` and ``lane`` are
+updated in place; every other tensor a round writes is fresh, so no block
+reads what another block of its launch writes.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..core import rng
+from ..core.config import Config
+from ..ops.adversary import (AGG_TELEMETRY, CRASH_TELEMETRY, SAFETY_TELEMETRY,
+                             bitcast_i32)
+from ..ops.flight import (add_plain, bucket_counts_plain, check_recorder,
+                          window_of)
+from ..ops.viewsync import SYNC_TELEMETRY, sync_counts_plain
+from .raft import check_all
+
+# The engine's name, as the JAX package's EngineDef names it.
+NAME = "hotstuff"
+
+# SPEC §7c fork-certificate table depth (consensus_tpu/engines/hotstuff.py
+# FORK_TABLE, line 87): flat runs record no fork, but the carry and the
+# extraction keep the table.
+FORK_TABLE = 8
+
+# The engine's telemetry counters, in order: a copy of
+# consensus_tpu/engines/hotstuff.py HOTSTUFF_TELEMETRY (lines 158-169):
+# rounds forming a QC, the global commit's advance, the per-node committed
+# prefixes' advance, per-node timeout view changes, proposal receivers,
+# votes the leader counted; then the crash, aggregation and safety tails
+# (zeros here) and the SPEC §B view-sync tail.
+HOTSTUFF_TELEMETRY = ("qc_formed", "blocks_committed", "commits_learned",
+                      "view_changes", "proposals_delivered",
+                      "votes_counted") + CRASH_TELEMETRY + AGG_TELEMETRY \
+    + SAFETY_TELEMETRY + SYNC_TELEMETRY
+# The flight recorder's latency histograms (engines/hotstuff.py
+# HOTSTUFF_LATENCY, line 180): timer + 1 at each node whose view advanced,
+# and one observation a round of the pipeline depth b1_h + 1 - gcommit.
+HOTSTUFF_LATENCY = ("view_change_wait_rounds", "chain_commit_lag_rounds")
+
+# The words of ``lane``, a lane's int64 words between launches, and what
+# each holds between rounds ("at rest"):
+TOP = 0         # P1's key of the views at round entry (see p1_key)
+VMAX = 1        # KAD's max of the proposers' views; at rest -1
+VOTES = 2       # KAE's vote count; at rest 0
+DONE_VOTE = 3   # KAE's finished blocks; at rest 0
+VSTAR = 4       # the round's V*, which KAE's last block writes for KAF
+COUNTED = 5     # the round's vote count, likewise
+VMIN = 6        # KAF's min of the end-of-round views; at rest I64_MAX
+DONE_LEARN = 7  # KAF's finished blocks (with telemetry); at rest 0
+LANE_WORDS = 8
+I64_MIN = -2**63
+I64_MAX = 2**63 - 1
+# The JAX carry's leaves, in its order (consensus_tpu/engines/hotstuff.py
+# HotstuffState, lines 90-108).
+JAX_LEAVES = ("seed", "b1_v", "b1_h", "b2_v", "b2_h", "b3_v", "b3_h",
+              "gcommit", "chain_v", "chain_vid", "fvec", "ftab_v", "ftab_h",
+              "fnum", "view", "timer", "clen", "down")
+
+
+class HotstuffState(NamedTuple):
+    seed: torch.Tensor       # [B] uint32
+    b1_v: torch.Tensor       # [B] i32: newest QC's view (-1 = none)
+    b1_h: torch.Tensor       # [B] i32: newest QC's height (-1 = none)
+    b2_v: torch.Tensor       # [B] i32: parent QC (the locked block)
+    b2_h: torch.Tensor       # [B] i32
+    b3_v: torch.Tensor       # [B] i32: grandparent QC
+    b3_h: torch.Tensor       # [B] i32
+    gcommit: torch.Tensor    # [B] i32: globally committed chain length
+    chain_v: torch.Tensor    # [B, S] i32: view certifying height s (-1)
+    chain_vid: torch.Tensor  # [B, S] i32: §7c value-id at height s
+    fvec: torch.Tensor       # [B, N] i32: §7c fork bits (0 here)
+    ftab_v: torch.Tensor     # [B, FORK_TABLE] i32: fork entry view
+    ftab_h: torch.Tensor     # [B, FORK_TABLE] i32: fork entry height
+    fnum: torch.Tensor       # [B] i32: fork entries recorded
+    view: torch.Tensor       # [B, N] i32: node i's own pacemaker view
+    timer: torch.Tensor      # [B, N] i32: rounds since i saw progress
+    clen: torch.Tensor       # [B, N] i32: committed length i learned
+    down: torch.Tensor       # [B, N] bool (SPEC §6c; all False here)
+    lane: torch.Tensor       # [B, LANE_WORDS] int64: the port's own
+
+
+def _wrap(x) -> torch.Tensor:
+    """Integer values wrapped to int32, as int32 arithmetic wraps."""
+    return bitcast_i32(rng.as_u32(x))
+
+
+def p1_key(view) -> torch.Tensor:
+    """[B] int64: the largest ``(view << 32) | (N - 1 - id)`` over a lane's
+    nodes ([B, N] int32 ``view``), whose high word is the highest view and
+    low word N - 1 minus the lowest id holding it: P1's gossiper (lines
+    267-268 of the JAX round, every node honest and live)."""
+    N = view.shape[1]
+    low = N - 1 - torch.arange(N, dtype=torch.int64, device=view.device)
+    return ((view.to(torch.int64) << 32) | low).amax(1)
+
+
+def lane_at_rest(view) -> torch.Tensor:
+    """The ``lane`` words of a state whose views are ``view`` ([B, N]
+    int32), at a round's start: P1's key and every accumulator at rest."""
+    lane = torch.zeros((view.shape[0], LANE_WORDS), dtype=torch.int64,
+                       device=view.device)
+    lane[:, TOP] = p1_key(view)
+    lane[:, VMAX] = -1
+    lane[:, VSTAR] = -1
+    lane[:, VMIN] = I64_MAX
+    return lane
+
+
+def _open_from(cfg: Config, seed, r: int, src, N: int) -> torch.Tensor:
+    """[B, N] bool: SPEC §2 openness of the round's broadcast row from the
+    [B] node ids ``src`` to every node, on absolute edge keys: the
+    delivery mixer's draw of (src, j) is not below the drop cutoff and, in
+    a round whose partition is active, j drew src's side (the JAX round's
+    ``_bcast_open``, lines 243-256). Rows from one sender draw the same
+    words, whichever phase sends them."""
+    useed = rng.as_u32(seed)[:, None]
+    j = torch.arange(N, dtype=torch.int64, device=seed.device)
+    s = src.to(torch.int64)[:, None]
+    ok = rng.delivery_u32_plain(useed, r, s, j) >= cfg.drop_cutoff
+    part = rng.random_u32_plain(seed, rng.STREAM_PARTITION, r, 0, 0) \
+        < cfg.partition_cutoff                                   # [B, 1]
+    side = rng.threefry2x32_plain(useed ^ rng.STREAM_PARTITION, r, 1, j) & 1
+    side_s = rng.threefry2x32_plain(useed ^ rng.STREAM_PARTITION, r, 1, s) & 1
+    return ok & ((side == side_s) | ~part)
+
+
+# --- KAD: P0-P2 ----------------------------------------------------------------
+
+def hotstuff_propose_plain(cfg: Config, seed, r: int, view, b1_h, lane):
+    """Plain version of KAD, the JAX round's lines 232-299 on its flat
+    path. P1: the gossiper M and its view vM are read off ``lane[:,
+    TOP]``; a node j != M whose row from M is open (:func:`_open_from`)
+    and whose view is below vM >= 0 catches up to vM. P2: node i proposes
+    when its view after P1 elects it (view mod N == i, floor modulo),
+    the round's churn event does not fire and the log has room (b1_h + 1
+    < S). The largest proposing view above -1 is merged into ``lane[:,
+    VMAX]`` (in place). Returns (view after P1 [B, N] int32, P1's
+    catch-up flags ``adv`` [B, N] bool)."""
+    N, S = view.shape[1], cfg.log_capacity
+    idx = torch.arange(N, dtype=torch.int64, device=view.device)
+    top = lane[:, TOP]
+    vM = (top >> 32).to(torch.int32)[:, None]
+    M = (N - 1 - (top & 0xFFFFFFFF))[:, None]
+    gdel = (vM >= 0) & (idx != M) & _open_from(cfg, seed, r,
+                                                M[:, 0].clamp(0, N - 1), N)
+    adv = gdel & (view < vM)
+    view1 = torch.where(adv, vM, view)
+    churn = rng.random_u32_plain(seed, rng.STREAM_CHURN, r, 0, 0) \
+        < cfg.churn_cutoff                                       # [B, 1]
+    prop = (view1 % N == idx) & ~churn & (_wrap(b1_h.to(torch.int64) + 1)
+                                          < S)[:, None]
+    cand = torch.where(prop, view1, -1).amax(1).to(torch.int64)
+    lane[:, VMAX] = torch.where(cand > -1,
+                                torch.maximum(lane[:, VMAX], cand),
+                                lane[:, VMAX])
+    return view1, adv
+
+
+def hotstuff_propose(cfg: Config, seed, r: int, view, b1_h, lane):
+    """Kernel KAD: same arguments, result and in-place update as
+    :func:`hotstuff_propose_plain`, which it runs for CPU tensors; for
+    CUDA tensors it launches ``csrc/hotstuff_propose.cu`` (a thread per
+    (lane, node); a warp's largest proposing view goes into VMAX with one
+    atomic)."""
+    if view.device.type == "cpu":
+        return hotstuff_propose_plain(cfg, seed, r, view, b1_h, lane)
+    from .. import _build
+    B, N = view.shape
+    dev = view.device
+    view, b1_h = view.contiguous(), b1_h.contiguous()
+    check_all(dev, (seed, torch.uint32, (B,)), (view, torch.int32, (B, N)),
+              (b1_h, torch.int32, (B,)),
+              (lane, torch.int64, (B, LANE_WORDS)))
+    view1 = torch.empty((B, N), dtype=torch.int32, device=dev)
+    adv = torch.empty((B, N), dtype=torch.bool, device=dev)
+    _build.launch("hotstuff_propose", seed.data_ptr(), int(r) & 0xFFFFFFFF,
+                  view.data_ptr(), b1_h.data_ptr(), lane.data_ptr(),
+                  view1.data_ptr(), adv.data_ptr(), cfg.drop_cutoff,
+                  cfg.partition_cutoff, cfg.churn_cutoff, B, N,
+                  cfg.log_capacity)
+    hotstuff_propose.launches += 1
+    return view1, adv
+
+
+hotstuff_propose.launches = 0
+
+
+# --- KAE: P2's delivery, P3, P4 ------------------------------------------------
+
+def hotstuff_vote_plain(cfg: Config, seed, r: int, view1, lane, b1_v, b1_h,
+                        b2_v, b2_h, b3_v, b3_h, gcommit, chain_v):
+    """Plain version of KAE, the JAX round's lines 300-433 on its flat
+    path. V* is ``lane[:, VMAX]``; when V* >= 0 its leader L = V* mod N
+    broadcasts, else L = 0 and nobody hears a proposal. Node j receives it
+    (``pdel``) when j == L or L's row to j is open, and its view after P1
+    is not above V*; a receiver's vote reaches L when j == L or the
+    mixer's draw of edge (j, L) is not below the drop cutoff. The QC forms
+    when the lane's votes, added to ``lane[:, VOTES]``, reach Q = 2f + 1;
+    then b1, b2, b3 shift, ``chain_v[h_next]`` takes V* (in place), and
+    with three consecutive views the global commit becomes max(gcommit,
+    b3_h + 1) of the NEW b3. ``lane`` leaves at rest (in place): VSTAR
+    and COUNTED hold the round's V* and vote count for KAF, TOP is
+    emptied for KAF's reduction. Returns (pdel [B, N] bool, then b1_v,
+    b1_h, b2_v, b2_h, b3_v, b3_h, gcommit after P4, fresh [B] int32)."""
+    N, S, Q = view1.shape[1], cfg.log_capacity, 2 * cfg.f + 1
+    dev = view1.device
+    idx = torch.arange(N, dtype=torch.int64, device=dev)
+    vstar = lane[:, VMAX].to(torch.int32)
+    exists = vstar >= 0
+    L = torch.where(exists, vstar % N, 0).to(torch.int64)
+    is_l = idx == L[:, None]
+    useed = rng.as_u32(seed)[:, None]
+    open_p = _open_from(cfg, seed, r, L, N)
+    open_v = rng.delivery_u32_plain(useed, r, idx, L[:, None]) \
+        >= cfg.drop_cutoff
+    pdel = exists[:, None] & (is_l | open_p) & (view1 <= vstar[:, None])
+    cnt = lane[:, VOTES] + (pdel & (is_l | open_v)).sum(1)
+    qc = exists & (cnt >= Q)
+    h_next = _wrap(b1_h.to(torch.int64) + 1)
+    nb1_v, nb1_h = torch.where(qc, vstar, b1_v), torch.where(qc, h_next, b1_h)
+    nb2_v, nb2_h = torch.where(qc, b1_v, b2_v), torch.where(qc, b1_h, b2_h)
+    nb3_v, nb3_h = torch.where(qc, b2_v, b3_v), torch.where(qc, b2_h, b3_h)
+    hot = (torch.arange(S, dtype=torch.int32, device=dev) == h_next[:, None]) \
+        & qc[:, None]
+    chain_v.copy_(torch.where(hot, vstar[:, None], chain_v))
+    consec = (nb3_v >= 0) & (nb1_v == _wrap(nb2_v.to(torch.int64) + 1)) \
+        & (nb2_v == _wrap(nb3_v.to(torch.int64) + 1))
+    ngc = torch.where(qc & consec, torch.maximum(
+        gcommit, _wrap(nb3_h.to(torch.int64) + 1)), gcommit)
+    lane[:, VSTAR] = vstar.to(torch.int64)
+    lane[:, COUNTED] = cnt
+    lane[:, VMAX] = -1
+    lane[:, VOTES] = 0
+    lane[:, DONE_VOTE] = 0
+    lane[:, TOP] = I64_MIN
+    return pdel, nb1_v, nb1_h, nb2_v, nb2_h, nb3_v, nb3_h, ngc
+
+
+def hotstuff_vote(cfg: Config, seed, r: int, view1, lane, b1_v, b1_h, b2_v,
+                  b2_h, b3_v, b3_h, gcommit, chain_v):
+    """Kernel KAE: same arguments, results and in-place updates as
+    :func:`hotstuff_vote_plain`, which it runs for CPU tensors; for CUDA
+    tensors it launches ``csrc/hotstuff_vote.cu`` (a thread per (lane,
+    node); votes counted by a ballot a warp, a shared atomic a warp and a
+    global one a block; the lane's last block does P4)."""
+    if view1.device.type == "cpu":
+        return hotstuff_vote_plain(cfg, seed, r, view1, lane, b1_v, b1_h,
+                                   b2_v, b2_h, b3_v, b3_h, gcommit, chain_v)
+    from .. import _build
+    B, N = view1.shape
+    S = cfg.log_capacity
+    dev = view1.device
+    view1 = view1.contiguous()
+    regs = [x.contiguous() for x in (b1_v, b1_h, b2_v, b2_h, b3_v, b3_h,
+                                     gcommit)]
+    check_all(dev, (seed, torch.uint32, (B,)), (view1, torch.int32, (B, N)),
+              (lane, torch.int64, (B, LANE_WORDS)),
+              *((x, torch.int32, (B,)) for x in regs),
+              (chain_v, torch.int32, (B, S)))
+    pdel = torch.empty((B, N), dtype=torch.bool, device=dev)
+    new = torch.empty((7, B), dtype=torch.int32, device=dev)
+    _build.launch("hotstuff_vote", seed.data_ptr(), int(r) & 0xFFFFFFFF,
+                  view1.data_ptr(), lane.data_ptr(),
+                  *(x.data_ptr() for x in regs), chain_v.data_ptr(),
+                  pdel.data_ptr(), new.data_ptr(), cfg.drop_cutoff,
+                  cfg.partition_cutoff, 2 * cfg.f + 1, B, N, S)
+    hotstuff_vote.launches += 1
+    return (pdel, *new.unbind(0))
+
+
+hotstuff_vote.launches = 0
+
+
+# --- KAF: P6, P7 and the telemetry tail ----------------------------------------
+
+def hotstuff_learn_plain(cfg: Config, r: int, view1, pdel, adv, timer, clen,
+                         lane, gcommit, b1_h_new, gcommit_new, t=None,
+                         w=None, lat=None):
+    """Plain version of KAF, the JAX round's lines 456-480 on its flat
+    path and, with the accumulator ``t`` ([B, K] int32), its telemetry
+    tail (lines 485-519). With the round's V* and vote count from ``lane``
+    (the QC forms when V* >= 0 and the count reaches 2f + 1): a receiver
+    enters V* + 1 on a QC, else V*, and grows its committed prefix to the
+    OLD ``gcommit`` (the commit as of proposal time); a node with neither
+    a proposal nor a catch-up whose timer + 1 reaches view_timeout moves
+    to the next view, and the timer restarts on progress or timeout.
+    ``lane[:, TOP]`` takes the max with :func:`p1_key` of the new views
+    (in place). With ``t``, the round's counters are added into ``t`` and,
+    with the flight recorder (``w`` [B, n_windows, K] and ``lat`` [B, 2,
+    N_BUCKETS], both or neither), into window ``r // cfg.telemetry_window``
+    of ``w``, and the two histograms into ``lat``: the blocks committed
+    are ``gcommit_new - gcommit``, the pipeline depth ``b1_h_new + 1 -
+    gcommit_new``. Returns (view, timer, clen), fresh [B, N] int32."""
+    check_recorder(cfg, w, lat)
+    Q = 2 * cfg.f + 1
+    vstar = lane[:, VSTAR].to(torch.int32)
+    cnt = lane[:, COUNTED]
+    qc = (vstar >= 0) & (cnt >= Q)
+    vnext = torch.where(qc, _wrap(vstar.to(torch.int64) + 1), vstar)
+    view2 = torch.where(pdel, vnext[:, None], view1)
+    clen2 = torch.where(pdel, torch.maximum(clen, gcommit[:, None]), clen)
+    progress = pdel | adv
+    tick = _wrap(timer.to(torch.int64) + 1)
+    to = ~progress & (tick >= cfg.view_timeout)
+    view3 = _wrap(view2.to(torch.int64) + to.to(torch.int64))
+    timer2 = torch.where(progress | to, 0, tick)
+    lane[:, TOP] = torch.maximum(lane[:, TOP], p1_key(view3))
+    if t is None:
+        return view3, timer2, clen2
+    B = view1.shape[0]
+    sync = sync_counts_plain(view3, torch.ones_like(pdel), adv)
+    vec = torch.zeros_like(t)
+    vec[:, :6] = torch.stack([
+        qc.to(torch.int32), _wrap(gcommit_new.to(torch.int64) - gcommit),
+        _wrap((clen2.to(torch.int64) - clen).sum(1)),
+        to.sum(1, dtype=torch.int32), pdel.sum(1, dtype=torch.int32),
+        _wrap(cnt)], 1)
+    vec[:, -len(SYNC_TELEMETRY):] = sync
+    hists = ()
+    if w is not None:
+        advn = (pdel & qc[:, None]) | adv | to
+        lag = _wrap(b1_h_new.to(torch.int64) + 1 - gcommit_new)[:, None]
+        hists = (bucket_counts_plain(tick, advn),
+                 bucket_counts_plain(lag, torch.ones((B, 1), dtype=torch.bool,
+                                                     device=lag.device)))
+    add_plain(cfg, r, vec, t, w, lat, hists)
+    return view3, timer2, clen2
+
+
+def hotstuff_learn(cfg: Config, r: int, view1, pdel, adv, timer, clen, lane,
+                   gcommit, b1_h_new, gcommit_new, t=None, w=None,
+                   lat=None):
+    """Kernel KAF: same arguments, results and in-place updates as
+    :func:`hotstuff_learn_plain`, which it runs for CPU tensors; for CUDA
+    tensors it launches ``csrc/hotstuff_learn.cu`` (a thread per (lane,
+    node); the next round's P1 key by warp shuffles and one atomic a
+    block; with telemetry, counters by warp sums and one atomic a block
+    and counter, and the lane's last block adds the lane's counters, the
+    view spread and the pipeline depth). Without ``t`` the kernel gets
+    null accumulator pointers and does no telemetry work."""
+    check_recorder(cfg, w, lat)
+    if t is None and w is not None:
+        raise ValueError("the flight recorder rides the telemetry "
+                         "accumulator: pass t with w and lat")
+    if view1.device.type == "cpu":
+        return hotstuff_learn_plain(cfg, r, view1, pdel, adv, timer, clen,
+                                    lane, gcommit, b1_h_new, gcommit_new, t,
+                                    w, lat)
+    from .. import _build
+    B, N = view1.shape
+    dev = view1.device
+    view1, pdel, adv, timer, clen = (x.contiguous() for x in (
+        view1, pdel, adv, timer, clen))
+    regs = [x.contiguous() for x in (gcommit, b1_h_new, gcommit_new)]
+    check_all(dev, *((x, torch.int32, (B, N)) for x in (view1, timer, clen)),
+              *((x, torch.bool, (B, N)) for x in (pdel, adv)),
+              (lane, torch.int64, (B, LANE_WORDS)),
+              *((x, torch.int32, (B,)) for x in regs))
+    window = n_windows = 0
+    if t is not None:
+        window, n_windows = window_of(cfg, r, t, w, lat, len(HOTSTUFF_LATENCY))
+        if t.shape[1] != len(HOTSTUFF_TELEMETRY):
+            raise ValueError(f"t has {t.shape[1]} counters, the engine "
+                             f"{len(HOTSTUFF_TELEMETRY)}")
+    out = torch.empty((3, B, N), dtype=torch.int32, device=dev)
+    _build.launch("hotstuff_learn", *(x.data_ptr() for x in (
+        view1, pdel, adv, timer, clen, lane, *regs, out)),
+        *(None if x is None else x.data_ptr() for x in (t, w, lat)),
+        2 * cfg.f + 1, cfg.view_timeout, B, N, window, n_windows)
+    hotstuff_learn.launches += 1
+    return tuple(out.unbind(0))
+
+
+hotstuff_learn.launches = 0
+
+
+# --- KAG: the decided logs -----------------------------------------------------
+
+def block_val_plain(seed, view, slot, sub: int = 5) -> torch.Tensor:
+    """SPEC §7b block value at (certifying view, height): ``bitcast_i32(
+    draw(STREAM_VALUE, view, sub, height))`` on int tensors that
+    broadcast (the JAX package's ``_block_val``, lines 183-192); sub 6 is
+    an equivocating leader's second variant."""
+    k0 = rng.as_u32(seed) ^ rng.STREAM_VALUE
+    return bitcast_i32(rng.threefry2x32_plain(k0, rng.as_u32(view), sub,
+                                              rng.as_u32(slot)))
+
+
+def hotstuff_extract_plain(seed, chain_v, chain_vid, clen, fvec, ftab_v,
+                           ftab_h, fnum):
+    """Plain version of KAG, the JAX package's ``_extract`` (lines
+    544-569): node i of a lane committed heights [0, clen[i]); the value
+    at height s is the block value of (chain_v[s], s), variant 6 where
+    chain_vid[s] == 1, else 5; then for each fork entry k < fnum, in
+    order, a committed node holding bit k of ``fvec`` has the variant-6
+    value of (ftab_v[k], ftab_h[k]) at height ftab_h[k]. Returns
+    (committed [B, N, S] bool, dval [B, N, S] int32)."""
+    S = chain_v.shape[-1]
+    s = torch.arange(S, dtype=torch.int64, device=chain_v.device)
+    committed = s[None, None, :] < clen[..., None]
+    v0 = block_val_plain(seed[:, None], chain_v, s[None, :], 5)
+    v1 = block_val_plain(seed[:, None], chain_v, s[None, :], 6)
+    base = torch.where(chain_vid == 1, v1, v0)
+    dval = torch.where(committed, base[:, None, :], 0)
+    for k in range(FORK_TABLE):
+        hh = ftab_h[:, k].to(torch.int64)
+        alt = block_val_plain(seed, ftab_v[:, k], hh, 6)
+        hit = (((fvec >> k) & 1).to(torch.bool)[..., None]
+               & (s == hh[:, None, None]) & (k < fnum)[:, None, None]
+               & committed)
+        dval = torch.where(hit, alt[:, None, None], dval)
+    return committed, dval
+
+
+def hotstuff_extract(seed, chain_v, chain_vid, clen, fvec, ftab_v, ftab_h,
+                     fnum):
+    """Kernel KAG: same arguments and results as
+    :func:`hotstuff_extract_plain`, which it runs for CPU tensors; for
+    CUDA tensors it launches ``csrc/hotstuff_extract.cu`` (a block per
+    tile of a lane's rows and slots: the tile's block values once into
+    shared memory, then a thread per (node, slot))."""
+    if clen.device.type == "cpu":
+        return hotstuff_extract_plain(seed, chain_v, chain_vid, clen, fvec,
+                                      ftab_v, ftab_h, fnum)
+    from .. import _build
+    B, N = clen.shape
+    S = chain_v.shape[1]
+    dev = clen.device
+    args = [x.contiguous() for x in (chain_v, chain_vid, clen, fvec, ftab_v,
+                                     ftab_h, fnum)]
+    check_all(dev, (seed, torch.uint32, (B,)),
+              *((x, torch.int32, (B, S)) for x in args[:2]),
+              *((x, torch.int32, (B, N)) for x in args[2:4]),
+              *((x, torch.int32, (B, FORK_TABLE)) for x in args[4:6]),
+              (args[6], torch.int32, (B,)))
+    committed = torch.empty((B, N, S), dtype=torch.bool, device=dev)
+    dval = torch.empty((B, N, S), dtype=torch.int32, device=dev)
+    _build.launch("hotstuff_extract", seed.data_ptr(),
+                  *(x.data_ptr() for x in args), committed.data_ptr(),
+                  dval.data_ptr(), B, N, S)
+    hotstuff_extract.launches += 1
+    return committed, dval
+
+
+hotstuff_extract.launches = 0
+
+
+# --- the engine ----------------------------------------------------------------
+
+def hotstuff_init(cfg: Config, seeds: torch.Tensor) -> HotstuffState:
+    """Fresh state for each sweep seed in ``seeds`` ([B] uint32), as
+    ``hotstuff_init`` (lines 522-533): no QC, an empty chain, every view,
+    timer and prefix 0; and ``lane`` at rest."""
+    N, S = cfg.n_nodes, cfg.log_capacity
+    B, dev = seeds.shape[0], seeds.device
+    i32 = dict(dtype=torch.int32, device=dev)
+    none = torch.full((B,), -1, **i32)
+    view = torch.zeros((B, N), **i32)
+    return HotstuffState(
+        seed=seeds, b1_v=none, b1_h=none.clone(), b2_v=none.clone(),
+        b2_h=none.clone(), b3_v=none.clone(), b3_h=none.clone(),
+        gcommit=torch.zeros((B,), **i32),
+        chain_v=torch.full((B, S), -1, **i32),
+        chain_vid=torch.zeros((B, S), **i32), fvec=torch.zeros((B, N), **i32),
+        ftab_v=torch.full((B, FORK_TABLE), -1, **i32),
+        ftab_h=torch.full((B, FORK_TABLE), -1, **i32),
+        fnum=torch.zeros((B,), **i32), view=view,
+        timer=torch.zeros((B, N), **i32), clen=torch.zeros((B, N), **i32),
+        down=torch.zeros((B, N), dtype=torch.bool, device=dev),
+        lane=lane_at_rest(view))
+
+
+def hotstuff_round(cfg: Config, st: HotstuffState, r: int, *, telem=None,
+                   flight=None) -> HotstuffState:
+    """One SPEC §7b round, as ``consensus_tpu/engines/hotstuff.py``
+    ``hotstuff_round`` on its flat path: KAD, KAE and KAF, and nothing
+    else. ``chain_v`` and ``lane`` are updated in place, so the round
+    consumes ``st``.
+
+    ``telem`` ([B, K] i32, the run's counter totals) switches on the
+    round's telemetry and ``flight`` (the window ring and latency buckets,
+    a pair of [B, n_windows, K] and [B, 2, N_BUCKETS] i32) its flight
+    recorder, as the JAX round's ``telem=True`` and ``flight=True``: KAF
+    then adds the round's counters into the accumulators in place."""
+    if flight is not None and telem is None:
+        raise ValueError("the flight recorder rides the telemetry "
+                         "accumulator: pass telem with flight")
+    view1, adv = hotstuff_propose(cfg, st.seed, r, st.view, st.b1_h, st.lane)
+    pdel, b1_v, b1_h, b2_v, b2_h, b3_v, b3_h, gcommit = hotstuff_vote(
+        cfg, st.seed, r, view1, st.lane, st.b1_v, st.b1_h, st.b2_v, st.b2_h,
+        st.b3_v, st.b3_h, st.gcommit, st.chain_v)
+    view, timer, clen = hotstuff_learn(
+        cfg, r, view1, pdel, adv, st.timer, st.clen, st.lane, st.gcommit,
+        b1_h, gcommit, telem, *(flight if flight is not None
+                                else (None, None)))
+    return st._replace(b1_v=b1_v, b1_h=b1_h, b2_v=b2_v, b2_h=b2_h,
+                       b3_v=b3_v, b3_h=b3_h, gcommit=gcommit, view=view,
+                       timer=timer, clen=clen)
+
+
+def extract(st: HotstuffState) -> dict[str, torch.Tensor]:
+    """The leaves the decided-log digest and the tests read (the JAX
+    package's ``_extract``): the decided logs from KAG and the carry's
+    clen, gcommit, chain_v, view, fvec and fnum."""
+    committed, dval = hotstuff_extract(st.seed, st.chain_v, st.chain_vid,
+                                       st.clen, st.fvec, st.ftab_v, st.ftab_h,
+                                       st.fnum)
+    return {"committed": committed, "dval": dval, "clen": st.clen,
+            "gcommit": st.gcommit, "chain_v": st.chain_v, "view": st.view,
+            "fvec": st.fvec, "fnum": st.fnum}

@@ -2,7 +2,7 @@
 plain path (``EngineDef``, ``make_seeds``, ``_init_jit``, the scan of
 ``_chunk_jit`` with ``_chunk_body``'s telemetry accumulators, ``run``), for
 the dense and the capped Raft engine, the dense and the §6b broadcast
-PBFT engine, the Paxos and the DPoS engine alike, and of
+PBFT engine, the Paxos, the DPoS and the HotStuff engine alike, and of
 ``consensus_tpu/engines/pbft_sweep.py``'s ``_fsweep_jit``: a PBFT f-ladder
 is one run whose lanes carry their own population and tolerance.
 
@@ -29,8 +29,8 @@ import torch
 from .. import _build
 from ..core import rng
 from ..core.config import Config
-from ..engines import (dpos, paxos, pbft, pbft_bcast, pbft_sweep, raft,
-                       raft_sparse)
+from ..engines import (dpos, hotstuff, paxos, pbft, pbft_bcast, pbft_sweep,
+                       raft, raft_sparse)
 from ..engines.raft import RAFT_LATENCY, RAFT_TELEMETRY
 from ..ops import adversary
 from ..ops.flight import BUCKET_LO, N_BUCKETS
@@ -48,7 +48,9 @@ _WRAPPER_MODULES = {"random_u32": rng, "delivery_edges": adversary,
                     "dpos_schedule": dpos, "dpos_round": dpos,
                     "paxos_promise": paxos, "paxos_accept_learn": paxos,
                     "pbft_telemetry": pbft, "dpos_telemetry": dpos,
-                    "paxos_telemetry": paxos}
+                    "paxos_telemetry": paxos, "hotstuff_propose": hotstuff,
+                    "hotstuff_vote": hotstuff, "hotstuff_learn": hotstuff,
+                    "hotstuff_extract": hotstuff}
 KERNELS = tuple((_WRAPPER_MODULES.get(name, raft_sparse), name)
                 for name in _build.SOURCES)
 
@@ -90,17 +92,23 @@ PAXOS = Engine(paxos.NAME, paxos.paxos_init, paxos.paxos_round,
                paxos.extract, paxos.PAXOS_TELEMETRY, paxos.PAXOS_LATENCY)
 DPOS = Engine(dpos.NAME, dpos.dpos_init, dpos.dpos_step, dpos.extract,
               dpos.DPOS_TELEMETRY, dpos.DPOS_LATENCY)
+HOTSTUFF = Engine(hotstuff.NAME, hotstuff.hotstuff_init,
+                  hotstuff.hotstuff_round, hotstuff.extract,
+                  hotstuff.HOTSTUFF_TELEMETRY, hotstuff.HOTSTUFF_LATENCY)
 
 
 def engine(cfg: Config) -> Engine:
     """The engine ``cfg`` selects (``consensus_tpu/network/simulator.py``
-    engine_def): by protocol, then, for pbft, by fault model (the §6b
+    engine_def): by protocol (paxos, dpos, hotstuff), then, for pbft, by
+    fault model (the §6b
     broadcast engine at ``fault_model="bcast"``), for raft dense at
     ``max_active = 0``, else the §3b capped one."""
     if cfg.protocol == "paxos":
         return PAXOS
     if cfg.protocol == "dpos":
         return DPOS
+    if cfg.protocol == "hotstuff":
+        return HOTSTUFF
     if cfg.protocol == "pbft":
         return PBFT_BCAST if cfg.fault_model == "bcast" else PBFT
     return DENSE if cfg.max_active == 0 else CAPPED
@@ -118,7 +126,8 @@ def _add_launches(counts: dict[str, int]) -> None:
 
 class RunOutput(NamedTuple):
     """A run's final state and accumulators (None where switched off)."""
-    state: raft.RaftState | raft_sparse.RaftSparseState
+    state: (raft.RaftState | raft_sparse.RaftSparseState | pbft.PbftState
+            | paxos.PaxosState | dpos.DposState | hotstuff.HotstuffState)
     telem: torch.Tensor | None   # [B, K] i32 counter totals
     win: torch.Tensor | None     # [B, n_windows, K] i32 window ring
     lat: torch.Tensor | None     # [B, H, N_BUCKETS] i32 latency buckets

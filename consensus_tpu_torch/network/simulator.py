@@ -1,7 +1,8 @@
 """The simulator's front door: the port of ``consensus_tpu/network/simulator.py``
 for raft, dense (``max_active = 0``) or under the §3b cap, pbft, dense
-(SPEC §6) or under the §6b broadcast fault model, paxos (SPEC §5) and dpos
-(SPEC §7).
+(SPEC §6) or under the §6b broadcast fault model, paxos (SPEC §5), dpos
+(SPEC §7) and hotstuff (SPEC §7b): every protocol of the JAX package, on
+its flat path.
 
     result = run(Config(protocol="raft", max_active=8, ...))
     run(Config(protocol="pbft", f=8, n_nodes=25, ...))
@@ -9,6 +10,7 @@ for raft, dense (``max_active = 0``) or under the §3b cap, pbft, dense
                n_nodes=100_000, ...))
     run(Config(protocol="paxos", n_nodes=10_000, log_capacity=10_000, ...))
     run(Config(protocol="dpos", n_nodes=100_000, n_candidates=1024, ...))
+    run(Config(protocol="hotstuff", f=33_333, n_nodes=100_000, ...))
     result.digest          # SHA-256 of the canonical decided-log bytes
     result.steps_per_sec   # node-round-steps per second of the timed run
     result.extras["lib"]   # dpos: the SPEC §7 last-irreversible index
@@ -51,18 +53,18 @@ class RunResult:
 def engine_def(cfg: Config) -> runner.Engine:
     """The engine a config resolves to: for pbft the §6b broadcast engine
     at ``fault_model="bcast"``, else the dense SPEC §6 one; dense raft at
-    ``max_active = 0``, else the §3b capped one; paxos's and dpos's own
-    (Config rejects other protocols)."""
+    ``max_active = 0``, else the §3b capped one; paxos's, dpos's and
+    hotstuff's own."""
     return runner.engine(cfg)
 
 
 def decided_payload(cfg: Config, out: dict):
     """Canonical packing of an extract dict: for raft the records are
     (log_term[k], log_val[k]) for k < commit, for pbft (slot, dval) of each
-    committed slot and for paxos (slot, learned_val) of each learned slot,
-    slots ascending, for dpos (chain_r[k], chain_p[k]) for k < chain_len.
+    committed slot (hotstuff: of each committed height), for paxos (slot,
+    learned_val) of each learned slot, slots ascending, for dpos (chain_r[k], chain_p[k]) for k < chain_len.
     Returns (counts, rec_a, rec_b, payload)."""
-    if cfg.protocol == "pbft":
+    if cfg.protocol in ("pbft", "hotstuff"):
         counts, rec_a, rec_b = serialize.pack_sparse(
             np.asarray(out["committed"]).astype(bool),
             np.asarray(out["dval"]))
@@ -81,7 +83,8 @@ def decided_payload(cfg: Config, out: dict):
 
 
 def run(cfg: Config, device=None, telemetry: bool = False) -> RunResult:
-    """Run a config on ``device`` (``cuda`` unless the caller says ``cpu``).
+    """Run a config of any protocol (raft, pbft, paxos, dpos, hotstuff) on
+    ``device`` (``cuda`` unless the caller says ``cpu``).
     The run is made once untimed first (on ``cuda`` that builds the
     kernels and captures the run's graph), so that ``wall_s`` is one
     replay up to the device's end. ``telemetry=True`` fills

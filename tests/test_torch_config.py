@@ -137,7 +137,7 @@ def test_pbft_takes_any_slot_count():
     dict(max_active=-1),                # neither dense (0) nor capped
     dict(max_active=17),
     dict(max_active=10),                # more than n_nodes
-    dict(protocol="hotstuff"),
+    dict(protocol="hotstuff", f=2),     # n_nodes 9 is not 3f + 1
     dict(log_capacity=255),
     dict(t_min=5, t_max=5),
     dict(n_rounds=0),
@@ -147,6 +147,33 @@ def test_pbft_takes_any_slot_count():
 def test_out_of_range_settings_raise(bad):
     with pytest.raises(ValueError):
         Config(**{**OK, **bad})
+
+
+HOTSTUFF_OK = dict(protocol="hotstuff", f=2, n_nodes=7, n_rounds=4,
+                   view_timeout=4)
+# Each gate of the JAX HotStuff engine (consensus_tpu/engines/hotstuff.py
+# lines 204-230, 326-392, 435-454), which the port's flat path does not run.
+HOTSTUFF_GATES = {
+    "crash": dict(crash_prob=0.1), "recover": dict(recover_prob=0.3),
+    "max-crashed": dict(max_crashed=2), "delay": dict(max_delay_rounds=2),
+    "desync": dict(desync_rate=0.1), "byz-silent": dict(n_byzantine=1),
+    "byz-equivocate": dict(n_byzantine=1, byz_mode="equivocate"),
+    "switch": dict(net_model="switch", n_aggregators=2),
+}
+
+
+def test_hotstuff_is_a_protocol_of_the_port():
+    cfg = Config(**HOTSTUFF_OK)
+    assert cfg.protocol in tconfig.PROTOCOLS
+    assert runner.engine(cfg) is runner.HOTSTUFF
+    with pytest.raises(ValueError, match="3f\\+1"):
+        Config(**{**HOTSTUFF_OK, "n_nodes": 8})
+
+
+@pytest.mark.parametrize("gate", list(HOTSTUFF_GATES))
+def test_hotstuff_gates_raise(gate):
+    with pytest.raises(ValueError, match="not supported by the port"):
+        Config(**{**HOTSTUFF_OK, **HOTSTUFF_GATES[gate]})
 
 
 def test_knobs_of_other_protocols_are_not_fields():

@@ -195,3 +195,29 @@ def test_paxos_state_roundtrips_with_jax_dtypes():
         convert.state_from_numpy(
             {**leaves,
              "learned_mask": leaves["learned_mask"].astype(np.uint8)})
+
+
+def test_hotstuff_state_roundtrips_with_jax_dtypes():
+    """A JAX HotStuff carry (the fork carry: fork table, value-ids and
+    fork bits set) converts to the port's state, with its [B] registers
+    and the ``lane`` words made from the views, and back with every leaf
+    and dtype of the JAX carry and nothing else."""
+    import pathlib
+
+    from consensus_tpu.engines.hotstuff import HotstuffState as JHotstuff
+    from consensus_tpu_torch.engines import hotstuff
+    data = np.load(pathlib.Path(__file__).resolve().parent
+                   / "hotstuff_fork_carry.npz")
+    leaves = {k: data[k] for k in JHotstuff._fields}
+    st = convert.state_from_numpy(leaves)
+    assert isinstance(st, hotstuff.HotstuffState)
+    assert st.seed.dtype == torch.uint32 and st.down.dtype == torch.bool
+    assert st.b1_v.shape == st.gcommit.shape == st.fnum.shape == (2,)
+    assert torch.equal(st.lane, hotstuff.lane_at_rest(st.view))
+    back = convert.state_to_numpy(st)
+    assert list(back) == list(JHotstuff._fields)
+    for name, a in leaves.items():
+        assert back[name].dtype == a.dtype and np.array_equal(back[name], a)
+    with pytest.raises(TypeError):
+        convert.state_from_numpy({**leaves,
+                                  "clen": leaves["clen"].astype(np.int64)})
