@@ -172,6 +172,28 @@ Phases, each printing one JSON line:
                operations a round of hotstuff-100k's replay, telemetry
                off and on; another seed on its graph against the eager
                loop.
+15. delay    — SPEC §A.2 delayed retransmission (``max_delay_rounds``).
+               KB, KL, KT, KX, KAD and KAE (each with ctt::delayed_open
+               inline) against their plain versions with delays of 1, 8
+               and 16 rounds on rounds 0, 3, 7 and 20 of the storm runs
+               below at full width (KL also on the storm ladder's and
+               paxos-10kx10k's rounds, KT on the full-width storm
+               ladder's), on runs of N = 1 and 7, at drop 0.55 and 0.99,
+               and KB and KL on random inputs; each one's time and bound
+               on its storm run's round 20 (D = 8) and on the same inputs
+               at D = 0. Then ``simulator.run`` of raft-100k, raft-1kx1k,
+               pbft-f128, pbft-100k-bcast, dpos-100k, paxos-10kx10k and
+               hotstuff-100k with delay-storm's overrides (drop 0.55,
+               D = 8), raft-100k at its drop 0.01 with D = 16, and the
+               fs = 1..128 and full-width bcast ladders with the same
+               overrides, each replayed as one CUDA graph: their JAX-made
+               anchors (the C++ oracle agrees on the standalone ones) from
+               the replay and the eager loop, dpos-100k's LIB, only the
+               engine's kernels launched (counted from 0), steps per
+               second, replay wall and busy share; and pbft-f128,
+               pbft-100k-bcast, dpos-100k and hotstuff-100k's storm runs
+               with telemetry and 8-round windows against JAX-made
+               counter and recorder anchors.
 
 Then the card's name and power limit, one ``{"kernels": [...]}`` line, and
 last ``{"ok": true, "device": {...}}``. The kernels line takes each
@@ -242,11 +264,16 @@ def device_ms(fn, args, reps: int = 20, warm: int = 3,
     ``fresh`` is for a wrapper that launches one kernel a call and updates
     its inputs in place, so that a second call on the same inputs would do
     other work: every call of every session gets a clone of its own, all
-    made before the first session; the mean is over the kernel records a
-    session holds, which may lack MAX_LOST of its launches (on the H100
-    late in a run of this script, single launches of KAD or KAE went
-    unrecorded in every session, one of 20 each time, while the same
-    sessions in a process of their own recorded all 20)."""
+    made before the first session. A session may lack MAX_LOST of the
+    device operations it launched (on the H100 late in a run of this
+    script, single launches of KAD or KAE went unrecorded in every
+    session, one of 20 each time, while the same sessions in a process of
+    their own recorded all 20; in another run one of KS's 20, in all eight
+    sessions); its recorded time is then scaled by the operations launched
+    over those recorded. Where every session lacks more (3 of KAE's 20 in
+    all eight sessions of one run), the call is timed by CUDA events
+    instead: :func:`graph_ms` for a kernel wrapper, :func:`event_ms` for
+    anything else, named in REDONE."""
     from torch.profiler import ProfilerActivity, profile, schedule
     size = sum(a.nbytes for a in args if isinstance(a, torch.Tensor))
     n_copies = min(16, max(2, -(-2 * L2_BYTES // size)))
@@ -268,14 +295,76 @@ def device_ms(fn, args, reps: int = 20, warm: int = 3,
                     fn(*calls[i % len(calls)])
                 torch.cuda.synchronize()
         return prof
-    _, device = profiled(session, getattr(fn, "__name__", "a kernel"),
-                         lost=MAX_LOST if fresh else 0)
-    return sum(e.time_range.elapsed_us() for e in device) / 1e3 / (
-        len(device) if fresh else reps)
+    name = getattr(fn, "__name__", "a kernel")
+    try:
+        _, device, launched = profiled(session, name, lost=MAX_LOST)
+    except SmokeError as err:
+        # Every session lacked more records than MAX_LOST: CUDA events.
+        from consensus_tpu_torch import _build
+        wrapper = name in _build.SOURCES
+        REDONE.append(f"{name}: timed by CUDA events "
+                      f"({'graph' if wrapper else 'eager'}) after: {err}")
+        print(f"chip_smoke: {REDONE[-1]}", file=sys.stderr, flush=True)
+        return graph_ms(fn, args, reps) if wrapper else event_ms(fn, args)
+    return sum(e.time_range.elapsed_us() for e in device) / 1e3 \
+        * launched / len(device) / reps
 
 
-# The launches of single-launch calls whose records a session may lack
-# (device_ms with fresh).
+def graph_ms(fn, args, reps: int = 20) -> float:
+    """Device time of one call of ``fn(*args)``: CUDA events around one
+    replay of a CUDA graph of ``reps`` calls, each on a clone of its own
+    that is restored from ``args`` before each replay (KX, KAD and KAE
+    update inputs in place) and then pushed out of L2; best of three.
+    Phase 15 times its kernels so, and :func:`device_ms` where the
+    profiler fails: late in this script it lost 14 of a session's 80
+    records of KT, in every session, and 4-5 of 20 single launches of KX,
+    KAD and KAE. A call's time includes the graph's gaps between its
+    launches (about a microsecond each)."""
+    originals = [clone_args(args) for _ in range(reps)]
+    calls = [clone_args(a) for a in originals]
+    fn(*clone_args(args))
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for a in calls:
+            fn(*a)
+    flush = torch.empty(2 * L2_BYTES // 4, dtype=torch.int32, device=next(
+        a.device for a in args if isinstance(a, torch.Tensor)))
+    best = float("inf")
+    for _ in range(3):
+        for a, o in zip(calls, originals):
+            for t, u in zip(a, o):
+                if isinstance(t, torch.Tensor):
+                    t.copy_(u)
+        flush.fill_(0)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end) / reps)
+    return best
+
+
+def event_ms(fn, args, reps: int = 5) -> float:
+    """Time of one call of ``fn(*args)`` launched eagerly, each on a clone
+    of its own: CUDA events around ``reps`` calls, their host launches
+    included (the plain versions' time in phase 15, and :func:`device_ms`'s
+    where the profiler fails on a function that is not a kernel
+    wrapper)."""
+    calls = [clone_args(args) for _ in range(reps + 1)]
+    fn(*calls.pop())
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+    start.record()
+    for a in calls:
+        fn(*a)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+# The device operations whose records a session of device_ms may lack.
 MAX_LOST = 2
 PROFILER_SESSIONS = 8
 REDONE: list[str] = []          # the profiled work whose session was redone
@@ -312,7 +401,8 @@ def recorded_step(prof, lead_in: bool = True):
 
 def profiled(session, what: str, graph: bool = False,
              lost: int = 0) -> tuple:
-    """``session()``'s profiler and its device operations. CUPTI now and
+    """``session()``'s profiler, its device operations and the runtime
+    calls that launched device operations in it. CUPTI now and
     then delivers a session's device records only in part, or not at all,
     so a session counts only when it is complete: when it holds a device
     operation for each kernel launch, memset and copy that the host made in
@@ -345,7 +435,7 @@ def profiled(session, what: str, graph: bool = False,
                 print(f"chip_smoke: profiling {what}: (device operations, "
                       f"runtime calls) by session: {counts}",
                       file=sys.stderr, flush=True)
-            return prof, device
+            return prof, device, calls
     raise SmokeError(f"the profiler recorded the device operations of "
                      f"{what} in part only: (device operations, runtime "
                      f"calls) by session {counts}")
@@ -1108,7 +1198,7 @@ def dense_bound(name: str, args) -> tuple[float, str]:
     from consensus_tpu_torch.core import rng
     from consensus_tpu_torch.engines import raft
     if name == "delivery":
-        seed, r, n, _, part = args
+        seed, r, n, _, part = args[:5]
         b = seed.shape[0]
         active = int((rng.random_u32_plain(seed, rng.STREAM_PARTITION, r, 0,
                                            0) < part).sum())
@@ -2968,7 +3058,7 @@ def profile_replay(cfg, rungs=None, telemetry=False) -> dict:
                 replay()
                 profiled_walls.append((time.perf_counter() - t0) * 1e3)
         return prof
-    _, device = profiled(session, "the replay", graph=True)
+    _, device, _ = profiled(session, "the replay", graph=True)
     profiled_ms = profiled_walls[-1]
     busy_ms = sum(e.time_range.elapsed_us() for e in device) / 1e3
     kernels = hand_kernels()
@@ -3805,6 +3895,486 @@ def check_hotstuff_path(card: str, smi: str) -> dict[str, int]:
     return rows["hotstuff-100k"]["launches"]
 
 
+# --- phase 15: SPEC §A.2 delayed retransmission -----------------------------
+
+# The six kernels that draw delivery, each with ctt::delayed_open (K13
+# delayed_open, csrc/rng.cuh) inline.
+DELAY = ("delivery_edges", "delivery", "bcast_view_preprepare", "dpos_round",
+         "hotstuff_propose", "hotstuff_vote")
+# consensus_tpu/scenarios/__init__.py delay-storm's overrides.
+STORM = dict(drop_rate=0.55, max_delay_rounds=8)
+DELAYS = (1, 8, 16)
+# Rounds 0, 3 and 7 lie under D = 8 and 16 (the r >= d guard), 20 above.
+DELAY_ROUNDS = (0, 3, 7, 20)
+# The storm runs: (config maker, its overrides, anchor): each flagship at
+# its own shape with delay-storm's overrides, and raft-100k at its own drop
+# 0.01 with the deepest delay, D = 16. The anchors were made by the JAX
+# package on the CPU and again by the C++ oracle (engine="cpu"), which
+# agrees on each:
+#
+#   JAX_PLATFORMS=cpu python3 - <<'EOF'
+#   import dataclasses, chip_smoke
+#   from consensus_tpu import Config
+#   from consensus_tpu.network import simulator
+#   for name, (make, kw, _) in chip_smoke.STORM_RUNS.items():
+#       cfg = Config(**dataclasses.asdict(make(**kw)))
+#       print(name, simulator.run(cfg, warmup=False).digest,
+#             simulator.run(dataclasses.replace(cfg, engine="cpu"),
+#                           warmup=False).digest)
+#   EOF
+#
+# (the JAX runs took 3-180 s each on eight cores: raft-1kx1k 180 s,
+# pbft-100k-bcast 162 s, paxos-10kx10k 237 s). At these knobs
+# dense and §6b PBFT still commit every slot with the values they commit
+# without the delay, so pbft-f128's, pbft-100k-bcast's and the full-width
+# bcast ladder's digests are their flat anchors again; their telemetry
+# (STORM_TELEMETRY) tells the storm from the flat run.
+STORM_RUNS = {
+    "raft-100k": (
+        flagship_config, STORM,
+        "f4ab9cbe5c1ace8cccbcc30bbfb6e4593a05dcaebcf23893944df8950cbdc1d9"),
+    "raft-100k-d16": (
+        flagship_config, dict(max_delay_rounds=16),
+        "6937cffb484ee7afdf696a57b84657bea53cbd2c7b0836b398036c09887462c2"),
+    "raft-1kx1k": (
+        lambda **kw: dense_config("raft-1kx1k", **kw), STORM,
+        "1819fb537edbe769ebd9c562f592fc09df6b0b8e69a3b57175179e88ecdd127d"),
+    "pbft-f128": (lambda **kw: pbft_config(128, **kw), STORM,
+                  PBFT_DIGESTS[128]),
+    "pbft-100k-bcast": (bcast_config, STORM, BCAST_DIGEST),
+    "dpos-100k": (
+        lambda **kw: protocol_config(DPOS_FLAGSHIP, **kw), STORM,
+        "7c4e297c60928b692184ebc83bc9518e97c2fd3ad3325facadcfa0811f6b338a"),
+    "paxos-10kx10k": (
+        lambda **kw: protocol_config(PAXOS_FLAGSHIP, **kw), STORM,
+        "82a70f7fd62a821db706954586af0de609ef928fd1daa292ff427b900b4b3df0"),
+    "hotstuff-100k": (
+        lambda **kw: protocol_config(HOTSTUFF_FLAGSHIP, **kw), STORM,
+        "102aa51e2a79fef405d5afb95a79c2004f23eab7d5ae5615a02db2a082b8803f"),
+}
+# dpos-100k's LIB under the storm (extras["lib"], hashed as
+# DPOS_LIB_SHA256 is).
+DPOS_STORM_LIB_SHA256 = \
+    "9939e545ca0c8a156e6818c6e63a22d0c88a40f5dc9b87b7229b451368bc3fa7"
+# The ladders with STORM added to their knobs, (base config, rungs,
+# anchor), made by the JAX package as the bcast ladders' anchors above.
+STORM_LADDERS = {
+    "dense-ladder": (
+        lambda: pbft_config(1, **STORM), LADDER,
+        "346494e7698190ed1cebfecb4a6d1c2d2394f412e682a6c803d7ac016b939b2f"),
+    "wide-bcast-ladder": (lambda: wide_base(**STORM), WIDE_RUNGS,
+                          WIDE_DIGEST),
+}
+# Storm runs again with telemetry and 8-round windows: (nonzero counter
+# totals, flight_digest), made by the JAX package on the CPU as
+# BFT_TELEMETRY's were.
+STORM_TELEMETRY = {
+    "pbft-f128": (
+        {"prepare_quorums": 11621, "prepare_missed": 1950,
+         "commit_quorums": 11620, "commit_missed": 353,
+         "commits_adopted": 700},
+        "5e139176c6b6af85431b338d106fed99a4139352a0d1dcb36cfcd8a1e12eaff3"),
+    "pbft-100k-bcast": (
+        {"prepare_quorums": 12800000, "prepare_missed": 1200031,
+         "commit_quorums": 12800000, "view_changes": 4000000},
+        "7f7820fe8e589f6c687375707ca3bbc32aa151baf7fab3e1b7620c36b71cd907"),
+    "dpos-100k": (
+        {"blocks_appended": 23996919, "missed_appends": 1603081,
+         "producer_rotations": 255},
+        "43712437fffdeaf7d2ac9c6cb8076b24194f267f4e5204ca4a479e1cdc79ed72"),
+    "hotstuff-100k": (
+        {"qc_formed": 478, "blocks_committed": 462,
+         "commits_learned": 45351919, "proposals_delivered": 46890619,
+         "votes_counted": 43472148, "view_spread_max": 994,
+         "desync_rounds": 480, "sync_msgs_delivered": 2680569},
+        "248255bd5c53472229c67742f3b84e94394ad72b5838b8374162b02509e9c584"),
+}
+# The runs of N = 1 and 7 on which phase 15 also holds each kernel.
+DELAY_SMALL = {
+    "delivery_edges": [dict(protocol="raft", n_nodes=n, max_active=a,
+                            log_capacity=16, max_entries=12, n_sweeps=3)
+                       for n, a in ((1, 1), (7, 4))],
+    "delivery": [dict(protocol="raft", n_nodes=n, log_capacity=16,
+                      max_entries=12, n_sweeps=3) for n in (1, 7)],
+    "bcast_view_preprepare": [dict(protocol="pbft", fault_model="bcast",
+                                   f=f, n_nodes=3 * f + 1, log_capacity=8,
+                                   n_sweeps=3) for f in (0, 2)],
+    "dpos_round": [dict(protocol="dpos", n_nodes=n, n_candidates=c,
+                        n_producers=k, epoch_len=4, log_capacity=32,
+                        n_sweeps=3) for n, c, k in ((1, 1, 1), (7, 5, 3))],
+    "hotstuff_propose": [dict(protocol="hotstuff", f=f, n_nodes=3 * f + 1,
+                              log_capacity=32, view_timeout=4, n_sweeps=3)
+                         for f in (0, 2)]}
+DELAY_SMALL["hotstuff_vote"] = DELAY_SMALL["hotstuff_propose"]
+
+
+def path_kernels(engine_name: str) -> tuple[str, ...]:
+    """The kernels a run of the engine ``engine_name`` launches (without
+    telemetry)."""
+    from consensus_tpu_torch import _build
+    if engine_name == "raft-sparse":
+        return tuple(k for k in _build.SOURCES
+                     if k not in NOT_CAPPED + ("telemetry",))
+    return {"raft": ("random_u32",) + DENSE, "pbft": ("delivery",) + PBFT,
+            "pbft-bcast": BCAST, "dpos": DPOS,
+            "paxos": ("delivery",) + PAXOS,
+            "hotstuff": HOTSTUFF_ALL}[engine_name]
+
+
+def storm_configs() -> dict:
+    """The storm runs' configs, by name."""
+    return {name: make(**kw) for name, (make, kw, _) in STORM_RUNS.items()}
+
+
+def capture_calls(cfg, rounds, name, rungs=None, device="cuda") -> dict:
+    """{r: [arguments]}: every call of wrapper ``name`` in each round r of
+    ``rounds`` of ``cfg``'s eager run (a ladder with ``rungs``) on
+    ``device``, cloned as it arrives (the capped round calls KB four
+    times)."""
+    from consensus_tpu_torch.network import runner
+    eng = runner.engine(cfg)
+    module = sys.modules[eng.round.__module__]
+    lanes = runner.device_lanes(cfg, rungs, device)
+    st = eng.init(cfg, lanes.pop("seed"))
+    statics = eng.statics(cfg, rungs) if eng.statics else {}
+    out, r0 = {}, 0
+    for r in sorted(rounds):
+        st = runner.advance(cfg, st, r0, r - r0, lanes=lanes, rungs=rungs)
+        calls = out[r] = []
+
+        def recorder(_, fn, calls=calls):
+            def record(*args):
+                calls.append(clone_args(args))
+                return fn(*args)
+            return record
+        with standing_in(module, (name,), recorder):
+            st = eng.round(cfg, st, r, **lanes, **statics)
+        require(bool(calls), f"round {r} of {eng.name} did not call {name}")
+        r0 = r + 1
+    return out
+
+
+def with_delay(name: str, args, delay: int, drop: float | None = None):
+    """``args`` of wrapper ``name`` with the delay ``delay`` and, where
+    given, the drop rate ``drop``: KB and KL take both as arguments, the
+    others through their Config."""
+    from consensus_tpu_torch.core import rng
+    if name in ("delivery_edges", "delivery"):
+        at_drop, at_delay = (4, 7) if name == "delivery_edges" else (3, 5)
+        out = list(args) + [0] * (at_delay + 1 - len(args))
+        out[at_delay] = delay
+        if drop is not None:
+            out[at_drop] = rng.prob_threshold_u32(drop)
+        return tuple(out)
+    kw = {"max_delay_rounds": delay}
+    if drop is not None:
+        kw["drop_rate"] = drop
+    return (dataclasses.replace(args[0], **kw), *args[1:])
+
+
+def loop_draws(useed, r: int, i, j, need, drop: int, delay: int) -> int:
+    """The mixer draws ctt::delayed_open makes on the edges i -> j where
+    ``need`` holds (those whose round draw the kernel makes): where the
+    round's draw dropped, one draw at q = r - d for each d until one opens,
+    and the retransmission draw where that one dropped too."""
+    from consensus_tpu_torch.core import rng
+    alive = need & (rng.delivery_u32_plain(useed, r, i, j) < drop)
+    draws = 0
+    for d in range(1, min(delay, r) + 1):
+        q = r - d
+        draws += int(alive.sum())
+        lost = alive & (rng.delivery_u32_plain(useed, q, i, j) < drop)
+        draws += int(lost.sum())
+        alive = alive & ~(lost & (rng.delay_u32_plain(useed, q, d, i, j)
+                                  >= drop))
+    return draws
+
+
+def delay_draws(name: str, args) -> int:
+    """The draws of kernel ``name``'s delay loop on ``args``, on the edges
+    whose round draw the kernel makes (see each source's note)."""
+    from consensus_tpu_torch.core import rng
+    from consensus_tpu_torch.engines import dpos, hotstuff
+    seed, r = (args[0], args[1]) if name in ("delivery_edges", "delivery") \
+        else (args[1], args[2])
+    dev = seed.device
+    if name == "delivery":
+        n, drop, delay = args[2], args[3], args[5]
+        i = torch.arange(n, device=dev)[:, None]
+        j = torch.arange(n, device=dev)[None, :]
+        return loop_draws(rng.as_u32(seed)[:, None, None], r, i, j,
+                          (i != j)[None], drop, delay)
+    if name == "delivery_edges":
+        ids, n, drop, src, delay = args[2], args[3], args[4], args[6], args[7]
+        nodes = torch.arange(n, device=dev)
+        ids = ids.to(torch.int64)
+        i, j = (ids[:, :, None], nodes[None, None, :]) if src else \
+            (nodes[None, :, None], ids[:, None, :])
+        need = ((ids[:, :, None] if src else ids[:, None, :]) >= 0) & (i != j)
+        return loop_draws(rng.as_u32(seed)[:, None, None], r,
+                          rng.as_u32(i), rng.as_u32(j), need, drop, delay)
+    cfg = args[0]
+    drop, delay = cfg.drop_cutoff, cfg.max_delay_rounds
+    useed = rng.as_u32(seed)[:, None]
+    if name == "bcast_view_preprepare":
+        n_real, n = args[3], args[5].shape[1]
+        idx = torch.arange(n, device=dev)[None, :]
+        return loop_draws(useed, r, idx, idx, idx < n_real[:, None], drop,
+                          delay)
+    if name == "dpos_round":
+        producers, chain_r, chain_len = args[3], args[4], args[6]
+        v = torch.arange(chain_len.shape[1], device=dev)[None, :]
+        p = dpos.round_producer(cfg, producers, r).to(torch.int64)[:, None]
+        churn = rng.random_u32_plain(seed, rng.STREAM_CHURN, r, 0, 0) \
+            < cfg.churn_cutoff                                   # [B, 1]
+        need = (v != p) & (chain_len < chain_r.shape[2]) & ~churn
+        return loop_draws(useed, r, p, v, need, drop, delay)
+    n = args[3].shape[1]
+    idx = torch.arange(n, device=dev)[None, :]
+    if name == "hotstuff_propose":
+        view, top = args[3], args[5][:, hotstuff.TOP]
+        vm = (top >> 32)[:, None]
+        m = (n - 1 - (top & 0xFFFFFFFF))[:, None]
+        return loop_draws(useed, r, m.clamp(0, n - 1), idx,
+                          (vm >= 0) & (idx != m) & (view < vm), drop, delay)
+    view1, vstar = args[3], args[4][:, hotstuff.VMAX][:, None]
+    ell = torch.where(vstar >= 0, vstar % n, 0)
+    pdel = hotstuff.hotstuff_vote_plain(*clone_args(args))[0]
+    return loop_draws(useed, r, ell, idx,
+                      (vstar >= 0) & (view1 <= vstar) & (idx != ell), drop,
+                      delay) \
+        + loop_draws(useed, r, idx, ell, pdel & (idx != ell), drop, delay)
+
+
+def flat_work(name: str, args) -> tuple[float, float]:
+    """(bytes, 32-bit operations) that kernel ``name``'s bound without the
+    delay counts on ``args``: phase 3's bound function of the kernel
+    (KB's as check_delivery_edges counts it), with ``bound`` swapped for
+    the pair while it runs."""
+    global bound
+    if name == "delivery_edges":
+        b, a = args[2].shape
+        n = args[3]
+        return b * a * n + 4 * b * a + 4 * b, EDGE_OPS * b * a * n
+    fn = {"delivery": dense_bound, "bcast_view_preprepare": bcast_bound,
+          "dpos_round": dpos_bound, "hotstuff_propose": hotstuff_bound,
+          "hotstuff_vote": hotstuff_bound}[name]
+    saved = bound
+    bound = lambda nbytes, ops: (nbytes, ops)   # noqa: E731
+    try:
+        return fn(name, args)
+    finally:
+        bound = saved
+
+
+def delay_bound(name: str, args) -> tuple[float, str]:
+    """The least time of kernel ``name``'s work on ``args``: the bytes and
+    operations of its bound without the delay, plus EDGE_OPS for each draw
+    of the delay loop that these inputs need (:func:`delay_draws`)."""
+    nbytes, ops = flat_work(name, args)
+    return bound(nbytes, ops + EDGE_OPS * delay_draws(name, args))
+
+
+def random_delivery_args(name: str, dev, gen) -> list:
+    """KB's or KL's arguments on random seeds and ids (negative ones
+    included) at N = 1, 7 and 1 000, rounds under and over the delays
+    (one near 2**32), drop 0.55 and 0.99 and a partition every other
+    round, at every delay of DELAYS."""
+    from consensus_tpu_torch.core import rng
+    out = []
+    for n in (1, 7, 1000):
+        seeds = torch.randint(0, 2**32, (3,), generator=gen, device=dev,
+                              dtype=torch.int64).to(torch.uint32)
+        ids = torch.randint(-1, n, (3, 4), generator=gen, device=dev,
+                            dtype=torch.int32)
+        for r in (0, 5, 20, 0xFFFFFFF0):
+            part = rng.prob_threshold_u32(0.5)
+            for drop in (0.55, 0.99):
+                cut = rng.prob_threshold_u32(drop)
+                for delay in DELAYS:
+                    if name == "delivery":
+                        out.append((seeds, r, n, cut, part, delay))
+                    else:
+                        out += [(seeds, r, ids, n, cut, part, src, delay)
+                                for src in (True, False)]
+    return out
+
+
+def check_delay_kernels(dev, gen, names=DELAY):
+    """Phase 15's kernels ``names``, a row each as it is done: KB, KL, KT,
+    KX, KAD and KAE against their plain versions with the delay at 1, 8
+    and 16, on rounds DELAY_ROUNDS of the full-width storm runs (KB:
+    raft-100k; KL: raft-1kx1k and pbft-f128, round 20 of the storm's
+    fs = 1..128 ladder, paxos-10kx10k's round 7 at D = 8 only; KT:
+    pbft-100k-bcast, round 20 of the storm's full-width ladder; KX:
+    dpos-100k; KAD and KAE: hotstuff-100k), on round 20 of each also at
+    drop 0.55 and 0.99, on the N = 1 and 7 runs DELAY_SMALL at their own
+    drop, 0.55 and 0.99, and KB and KL on random inputs
+    (:func:`random_delivery_args`). Then each kernel's device time, its
+    plain version's and its bound on its storm run's round 20 (D = 8),
+    and the kernel's time and bound on the same inputs at D = 0."""
+    from consensus_tpu_torch.engines import pbft_sweep
+    storm = storm_configs()
+    ladder = pbft_sweep._fsweep_static(STORM_LADDERS["dense-ladder"][0](),
+                                       LADDER)[1]
+    wide = pbft_sweep._fsweep_static(
+        STORM_LADDERS["wide-bcast-ladder"][0](), WIDE_RUNGS)[1]
+    # (config, rungs, rounds, delays) of each kernel's full-width runs;
+    # the first is the one timed.
+    full = {
+        "delivery_edges": [(storm["raft-100k"], None, DELAY_ROUNDS, DELAYS)],
+        "delivery": [(storm["raft-1kx1k"], None, DELAY_ROUNDS, DELAYS),
+                     (storm["pbft-f128"], None, DELAY_ROUNDS, DELAYS),
+                     (ladder, LADDER, (20,), DELAYS),
+                     (storm["paxos-10kx10k"], None, (7,), (8,))],
+        "bcast_view_preprepare": [
+            (storm["pbft-100k-bcast"], None, DELAY_ROUNDS, DELAYS),
+            (wide, WIDE_RUNGS, (20,), DELAYS)],
+        "dpos_round": [(storm["dpos-100k"], None, DELAY_ROUNDS, DELAYS)],
+        "hotstuff_propose": [(storm["hotstuff-100k"], None, DELAY_ROUNDS,
+                              DELAYS)],
+        "hotstuff_vote": [(storm["hotstuff-100k"], None, DELAY_ROUNDS,
+                           DELAYS)]}
+    for name in names:
+        small = [(protocol_config(kw, n_rounds=24, seed=11, **STORM), None,
+                  DELAY_ROUNDS, DELAYS) for kw in DELAY_SMALL[name]]
+        err, cases, timed = 0.0, 0, None
+        for k, (cfg, rungs, rounds, delays) in enumerate(full[name] + small):
+            got = capture_calls(cfg, rounds, name, rungs, dev)
+            if k == 0:
+                # The round's call with the most delay work (KB's four
+                # differ: ids of -1 draw nothing).
+                timed = max(got[20], key=lambda a: delay_draws(name, a))
+            for r, calls in got.items():
+                # Every run here is at the storm's drop 0.55.
+                drops = (None, 0.99) if r == 20 or cfg.n_nodes <= 7 \
+                    else (None,)
+                for args in calls:
+                    for delay in delays:
+                        for drop in drops:
+                            err = max(err, max_abs_err(run_pair(
+                                name, with_delay(name, args, delay, drop))))
+                            cases += 1
+        if name in ("delivery_edges", "delivery"):
+            for args in random_delivery_args(name, dev, gen):
+                err = max(err, max_abs_err(run_pair(name, args)))
+                cases += 1
+        mod = kernel_module(name)
+        flat = with_delay(name, timed, 0)
+        yield dict(
+            name=name, cases=cases, max_abs_err=err,
+            timed_on=f"{full[name][0][0].protocol} storm round 20, D = 8",
+            ms=graph_ms(getattr(mod, name), timed),
+            plain_ms=event_ms(getattr(mod, name + "_plain"), timed),
+            loop_draws=delay_draws(name, timed),
+            bound=delay_bound(name, timed),
+            ms_delay_0=graph_ms(getattr(mod, name), flat),
+            bound_delay_0=delay_bound(name, flat))
+
+
+def check_storm_runs(card: str, smi: str) -> None:
+    """Phase 15's runs: ``simulator.run`` of each storm run STORM_RUNS and
+    ``pbft_fsweep_timed`` of each ladder STORM_LADDERS, replayed as one
+    CUDA graph, with every launch count set to 0 just before each run and
+    read just after it: its anchor from the replay and from the eager
+    loop, its engine's kernels launched and no other (dpos-100k: its LIB
+    against the JAX package's); steps per second, replay wall and busy
+    share. Then STORM_TELEMETRY's runs with telemetry and 8-round windows:
+    counter totals and recorder equal to their JAX anchors and to the
+    eager loop's, the engine's telemetry kernel launched too."""
+    from consensus_tpu_torch.core import serialize
+    from consensus_tpu_torch.engines import pbft_sweep
+    from consensus_tpu_torch.network import runner, simulator
+    rows = {}
+    for name, cfg in storm_configs().items():
+        digest = STORM_RUNS[name][2]
+        memory, launches = counted(lambda: memory_use(
+            lambda: simulator.run(cfg)))
+        res = memory.pop("result")
+        eager = serialize.digest(simulator.decided_payload(
+            cfg, runner.run(cfg, graph=False))[3])
+        prof = profile_replay(cfg)
+        rows[name] = row = dict(
+            digest=res.digest, digest_ok=res.digest == digest,
+            eager_digest=eager, steps_per_sec=res.steps_per_sec,
+            wall_s=res.wall_s, launches=launches, **memory,
+            replay_wall_ms=prof["replay_wall_ms"],
+            busy_share=prof["busy_share"],
+            unprofiled_busy_share=prof["unprofiled_busy_share"],
+            device_ms=prof["device_ms"],
+            device_launches=prof["device_launches"],
+            hand_kernel_ms={k: v for k, v in prof["hand_kernel_ms"].items()
+                            if v})
+        if cfg.protocol == "dpos":
+            row["lib_sha256"] = hashlib.sha256(np.ascontiguousarray(
+                res.extras["lib"], dtype="<i8").tobytes()).hexdigest()
+            require(row["lib_sha256"] == DPOS_STORM_LIB_SHA256,
+                    f"{name}: LIB {row['lib_sha256']}")
+        require(int(res.counts.max()) > 0, f"{name}: empty decided logs")
+        require(res.digest == digest, f"{name} digest {res.digest} != "
+                f"{digest}")
+        require(eager == digest, f"{name}: the eager loop's digest {eager}")
+        require_launched(launches, path_kernels(runner.engine(cfg).name),
+                         name)
+        runner.clear_graphs()
+    for name, (make, rungs, digest) in STORM_LADDERS.items():
+        base = make()
+        memory, launches = counted(lambda: memory_use(
+            lambda: pbft_sweep.pbft_fsweep_timed(base, rungs, repeats=3)))
+        out, first_s, best, real_steps = memory.pop("result")
+        got = serialize.digest(pbft_sweep.fsweep_payload(out))
+        eager = serialize.digest(pbft_sweep.fsweep_payload(
+            pbft_sweep.pbft_fsweep_run(base, rungs, graph=False)))
+        cfg_pad = pbft_sweep._fsweep_static(base, rungs)[1]
+        prof = profile_replay(cfg_pad, rungs=rungs)
+        rows[name] = dict(
+            digest=got, digest_ok=got == digest, eager_digest=eager,
+            real_steps=real_steps, wall_s=best,
+            real_steps_per_sec=real_steps / best, first_run_s=first_s,
+            launches=launches, **memory,
+            replay_wall_ms=prof["replay_wall_ms"],
+            busy_share=prof["busy_share"],
+            unprofiled_busy_share=prof["unprofiled_busy_share"],
+            device_ms=prof["device_ms"],
+            device_launches=prof["device_launches"])
+        require(got == digest and eager == digest,
+                f"{name}: digests {got} (replay), {eager} (eager) != "
+                f"{digest}")
+        require_launched(launches, path_kernels(runner.engine(cfg_pad).name),
+                         name)
+        runner.clear_graphs()
+    telemetry = {}
+    for name, (nonzero, flight) in STORM_TELEMETRY.items():
+        make, kw, digest = STORM_RUNS[name]
+        cfg = make(**kw, telemetry_window=WINDOW)
+        eng = runner.engine(cfg)
+        res, launches = counted(lambda: simulator.run(cfg, telemetry=True))
+        tel, fl = res.extras["telemetry"], res.extras["flight"]
+        eager = runner.telemetry_stats(cfg, runner.run_device(
+            cfg, telemetry=True, graph=False))
+        want = {k: nonzero.get(k, 0) for k in eng.telemetry_names}
+        telemetry[name] = row = dict(
+            digest=res.digest, digest_ok=res.digest == digest,
+            totals=tel["totals"], totals_ok=tel["totals"] == want,
+            flight_sha256=flight_digest(fl),
+            flight_ok=flight_digest(fl) == flight,
+            graph_equals_eager=flight_digest(eager["flight"]) ==
+            flight_digest(fl) and all(
+                np.array_equal(eager["telemetry"][k], v)
+                for k, v in tel["per_sweep"].items()),
+            steps_per_sec=res.steps_per_sec, wall_s=res.wall_s,
+            launches=launches)
+        for check in ("digest_ok", "totals_ok", "flight_ok",
+                      "graph_equals_eager"):
+            require(row[check], f"{name} storm with telemetry: {check} "
+                    "fails")
+        require_launched(launches, TELEMETRY_PATHS[eng.name],
+                         f"{name} storm with telemetry")
+        runner.clear_graphs()
+    emit("delay", runs=rows, telemetry=telemetry,
+         profiler_sessions_redone=REDONE, card=card, power=smi)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3964,6 +4534,16 @@ def main() -> int:
     # 14. HotStuff: hotstuff-100k, hotstuff-1k and a hostile run.
     hotstuff_launches = check_hotstuff_path(card, smi)
     launches.update({name: hotstuff_launches[name] for name in HOTSTUFF_ALL})
+
+    # 15. SPEC §A.2 delayed retransmission: the six kernels that draw
+    # delivery against their plain versions, then the storm runs.
+    for k in check_delay_kernels(dev, gen):
+        k["bound_ms"], k["bound_by"] = k.pop("bound")
+        k["bound_delay_0_ms"], k["bound_delay_0_by"] = k.pop("bound_delay_0")
+        emit("delay_kernel", **k, card=card, power=smi)
+        require(k["max_abs_err"] == 0.0,
+                f"{k['name']} with a delay disagrees with its plain version")
+    check_storm_runs(card, smi)
     for k in kernels:
         k["launches"] = launches[k["name"]]
 

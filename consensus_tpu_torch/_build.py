@@ -46,8 +46,9 @@ _P, _U, _I, _L = ctypes.c_void_p, ctypes.c_uint32, ctypes.c_int, \
 SIGNATURES = {
     # seed, stream, (ctx, c0, c1) x (ptr, scalar, batch stride), out, B, M
     "random_u32": (_P, _U, _P, _U, _L, _P, _U, _L, _P, _U, _L, _P, _I, _L),
-    # seed, round, ids, out, B, A, N, drop_cut, part_cut, ids_are_src
-    "delivery_edges": (_P, _U, _P, _P, _I, _I, _I, _U, _U, _I),
+    # seed, round, ids, out, B, A, N, drop_cut, part_cut, ids_are_src,
+    # max_delay
+    "delivery_edges": (_P, _U, _P, _P, _I, _I, _I, _U, _U, _I, _U),
     # mask, term, partial scratch, out, B, N, A, blocks per sweep
     "top_active": (_P, _P, _P, _P, _I, _I, _I, _I),
     # seed, t_min, t_span; del_lj, lead_id, s_term, term, role, voted_for,
@@ -80,8 +81,8 @@ SIGNATURES = {
     # entry, commit, role, log_len, down; t, w, lat accumulators (w and
     # lat null with the recorder off); B, N, A, K, window, n_windows
     "telemetry": (_P,) * 13 + (_I,) * 6,
-    # seed, round, out, side scratch, B, N, drop_cut, part_cut
-    "delivery": (_P, _U, _P, _P, _I, _I, _U, _U),
+    # seed, round, out, side scratch, B, N, drop_cut, part_cut, max_delay
+    "delivery": (_P, _U, _P, _P, _I, _I, _U, _U, _U),
     # seed, round, churn_cut, t_min, t_span; deliver, term, role,
     # voted_for, timer, timeout, log_term, log_len, match_idx and next_idx
     # (in place); term, role, voted_for, timer, timeout, reset outputs,
@@ -112,12 +113,12 @@ SIGNATURES = {
     # deliver, n_real, committed, dval, committed at round entry, timer,
     # reset; committed, dval, timer outputs; B, N, S
     "pbft_decide": (_P,) * 10 + (_I,) * 3,
-    # seed, round, churn_cut, drop_cut, part_cut, view_timeout, vmax;
-    # n_real, f, view, timer, pp_seen, pp_view, pp_val, prepared,
+    # seed, round, churn_cut, drop_cut, part_cut, max_delay, view_timeout,
+    # vmax; n_real, f, view, timer, pp_seen, pp_view, pp_val, prepared,
     # committed; view, timer, reset, pp_seen, pp_view, pp_val, node bits
     # outputs, histogram and first-unseen-slot scratch, catch-up flags
     # (null without telemetry); B, N, S
-    "bcast_view_preprepare": (_P, _U, _U, _U, _U, _I, _I) + (_P,) * 19
+    "bcast_view_preprepare": (_P, _U, _U, _U, _U, _U, _I, _I) + (_P,) * 19
     + (_I,) * 3,
     # n_real, f, node bits, pp_seen, pp_val, prepared, committed, dval;
     # prepared, committed, dval outputs, scratch; scratch words; m, B, N, S
@@ -130,8 +131,9 @@ SIGNATURES = {
     # seed, round, producers; chain_r, chain_p, chain_len (in place),
     # append counts (null without telemetry); chain_r and chain_p element
     # sizes, the round's producer index within a lane's list and the
-    # list's length (E * K), drop_cut, part_cut, churn_cut; B, V, L
-    "dpos_round": (_P, _U) + (_P,) * 5 + (_I,) * 4 + (_U,) * 3 + (_I,) * 3,
+    # list's length (E * K), drop_cut, part_cut, churn_cut, max_delay; B, V,
+    # L
+    "dpos_round": (_P, _U) + (_P,) * 5 + (_I,) * 4 + (_U,) * 4 + (_I,) * 3,
     # seed, round; deliver, promised, acc_bal; new_promised, n_prom,
     # best_bal, best_a, prep_del outputs, pair counts (null without
     # telemetry), proposal and key scratch; P, churn_cut, B, N, S
@@ -157,12 +159,13 @@ SIGNATURES = {
     # lane stride; round, B, N, S, K, window, n_windows
     "paxos_telemetry": (_P,) * 9 + (_L,) + (_I,) * 7,
     # seed, round; view, b1_h, lane words (in place); view after P1,
-    # catch-up flags outputs; drop_cut, part_cut, churn_cut; B, N, S
-    "hotstuff_propose": (_P, _U) + (_P,) * 5 + (_U,) * 3 + (_I,) * 3,
+    # catch-up flags outputs; drop_cut, part_cut, churn_cut, max_delay; B,
+    # N, S
+    "hotstuff_propose": (_P, _U) + (_P,) * 5 + (_U,) * 4 + (_I,) * 3,
     # seed, round; view after P1, lane words (in place), b1_v, b1_h, b2_v,
     # b2_h, b3_v, b3_h, gcommit, chain_v (in place); delivery flags, [7, B]
-    # registers outputs; drop_cut, part_cut; Q, B, N, S
-    "hotstuff_vote": (_P, _U) + (_P,) * 12 + (_U,) * 2 + (_I,) * 4,
+    # registers outputs; drop_cut, part_cut, max_delay; Q, B, N, S
+    "hotstuff_vote": (_P, _U) + (_P,) * 12 + (_U,) * 3 + (_I,) * 4,
     # view after P1, delivery flags, catch-up flags, timer, clen, lane
     # words (in place), gcommit at round entry, b1_h and gcommit after P4;
     # [3, B, N] view, timer, clen output; t, w, lat accumulators (null

@@ -14,11 +14,13 @@ engine (``engines/paxos.py``), ``protocol="dpos"`` the SPEC §7 DPoS
 engine (``engines/dpos.py``) and ``protocol="hotstuff"`` the SPEC §7b
 chained HotStuff engine (``engines/hotstuff.py``), whose population is
 ``n_nodes = 3f + 1`` too.
-The knobs of the JAX package that this port does not implement yet are
-fields too, and setting one off its default raises ``ValueError``; the
-port never ignores a setting silently. For HotStuff those are its gates:
-crash-recover, delayed retransmission, view desync, byzantine nodes (silent
-or equivocating) and the switch network.
+The SPEC §A.2 delayed retransmission (``max_delay_rounds`` in [0, 16])
+runs on every engine and both f-ladders. The other knobs of the JAX package
+that this port does not implement yet are fields too, and setting one off
+its default raises ``ValueError``, also beside a delay; the port never
+ignores a setting silently. For HotStuff those are its other gates:
+crash-recover, view desync, byzantine nodes (silent or equivocating) and
+the switch network.
 """
 from __future__ import annotations
 
@@ -30,7 +32,6 @@ from .rng import prob_threshold_u32
 # with the default each must keep.
 UNSUPPORTED = {
     "crash_prob": 0.0, "recover_prob": 0.0, "max_crashed": 0,
-    "max_delay_rounds": 0,
     "attack": "none", "attack_rate": 1.0, "attack_target": 0,
     "net_model": "flat", "n_aggregators": 0,
     "n_byzantine": 0, "byz_mode": "silent",
@@ -42,6 +43,10 @@ UNSUPPORTED = {
 
 # The protocols the port runs: every protocol of the JAX package.
 PROTOCOLS = ("raft", "pbft", "paxos", "dpos", "hotstuff")
+
+# SPEC §A.2: the most rounds a dropped flight may be retransmitted late
+# (consensus_tpu/core/config.py:224-227).
+MAX_DELAY_ROUNDS = 16
 
 # Raft only. The top-A kernel keeps a sorted list of A keys per thread in
 # registers.
@@ -155,6 +160,11 @@ class Config:
                     f"C={self.n_candidates} V={self.n_nodes}")
             if self.epoch_len < 1:
                 raise ValueError("epoch_len must be >= 1")
+        if not 0 <= self.max_delay_rounds <= MAX_DELAY_ROUNDS:
+            raise ValueError(
+                "max_delay_rounds must be in [0, 16] (SPEC §A.2: the "
+                "delayed-open check is a D-deep static loop per edge; "
+                "0 = off)")
         if self.n_nodes >= 2**31 - 1:
             raise ValueError("n_nodes must fit int32 ids")
         off = [k for k, d in UNSUPPORTED.items() if getattr(self, k) != d]

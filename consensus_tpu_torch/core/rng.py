@@ -2,9 +2,9 @@
 
 A copy of what the capped-Raft path needs from ``consensus_tpu/core/rng.py``
 (the stream constants and ``prob_threshold_u32``) and plain PyTorch versions
-of its Threefry-2x32 and SPEC §2 delivery-mixer draws. Every random decision
-is a pure function of (seed, stream, ctx, c0, c1), so the port reproduces
-the JAX package's draws bit for bit.
+of its Threefry-2x32, SPEC §2 delivery-mixer and SPEC §A.2 retransmission
+draws. Every random decision is a pure function of (seed, stream, ctx, c0,
+c1), so the port reproduces the JAX package's draws bit for bit.
 
 PyTorch has no wrapping ``uint32`` arithmetic (``+``, shifts and ``%`` are
 missing for ``torch.uint32``), so the plain versions below compute in int64
@@ -114,6 +114,15 @@ def mix_fin_plain(h):
 def delivery_u32_plain(seed, r, i, j):
     """SPEC §2 delivery draw on int64 tensors of u32 values (broadcasts)."""
     h = mix_absorb_plain(seed ^ STREAM_DELIVER, r)
+    return mix_fin_plain(mix_absorb_plain(mix_absorb_plain(h, i), j))
+
+
+def delay_u32_plain(seed, q, d, i, j):
+    """SPEC §A.2 retransmission draw on int64 tensors of u32 values
+    (broadcasts): the delivery mixer keyed ``seed ^ STREAM_DELAY``,
+    absorbing (q, d, i, j), the origin round, the delay and the edge
+    (``consensus_tpu/core/rng.py:329-347`` ``delay_u32_np``)."""
+    h = mix_absorb_plain(mix_absorb_plain(seed ^ STREAM_DELAY, q), d)
     return mix_fin_plain(mix_absorb_plain(mix_absorb_plain(h, i), j))
 
 

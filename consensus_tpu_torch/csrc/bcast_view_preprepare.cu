@@ -9,9 +9,15 @@
 // pbft_bcast_round_padded (K17) lines 313-437. A node i of lane b is real
 // when i < n_real[b]; it is a sender when it is real and the delivery
 // mixer draw keyed (r, i, i) is at or above drop_cut (its broadcast goes
-// out whole, SPEC §6b); its side is the Threefry draw (r, 1, i) & 1 in a
-// round whose partition is active (a Threefry draw below part_cut), else
-// 0. Each node's byte (bit 0 sender, bit 1 side) is written for KU and KV.
+// out whole, SPEC §6b), or, with max_delay > 0, a broadcast it sent in one
+// of the last max_delay rounds and lost arrives now (SPEC §A.2 on the same
+// self-edge key: pbft_bcast.py lines 381-386, pbft_sweep.py lines 316-321,
+// K13 delayed_open as ctt::delayed_open, drawn only where the round's own
+// draw dropped, for real nodes, in launch 1's DELAY instance, which the
+// launch picks when max_delay > 0); its side is the Threefry draw (r, 1, i)
+// & 1 in a round whose partition is active (a Threefry draw below
+// part_cut), else 0. Each node's byte (bit 0 sender, bit 1 side) is
+// written for KU and KV.
 // P0: the churn event moves every view up by one. P1: per side, a1 and a2
 // are the (f+1)-th and f-th largest post-P0 sender view of the side, as
 // the JAX package's binary search over [0, vmax + 2) on view + 1 gives
@@ -75,10 +81,12 @@ __device__ __forceinline__ int32_t churn_step(uint32_t sd, uint32_t r,
 // Launches 1 and 2 run on B * tiles blocks, tiles = ceil(N / THREADS):
 // block x is lane x / tiles, nodes THREADS (x mod tiles) on, so the lane
 // count has no grid limit of its own; nb = vmax + 2 bins a side.
+template <bool DELAY>
 __global__ void __launch_bounds__(THREADS)
 bcast_senders_kernel(const uint32_t* __restrict__ seed, uint32_t r,
                      uint32_t churn_cut, uint32_t drop_cut,
-                     uint32_t part_cut, const int32_t* __restrict__ n_real,
+                     uint32_t part_cut, uint32_t max_delay,
+                     const int32_t* __restrict__ n_real,
                      const int32_t* __restrict__ view,
                      uint8_t* __restrict__ bits_out, int* __restrict__ hist,
                      int N, int nb, bool smem, int tiles) {
@@ -99,7 +107,9 @@ bcast_senders_kernel(const uint32_t* __restrict__ seed, uint32_t r,
         ctt::mix_fin(ctt::mix_absorb(
             ctt::mix_absorb(
                 ctt::mix_absorb(sd ^ ctt::STREAM_DELIVER, r), ui),
-            ui)) >= drop_cut;
+            ui)) >= drop_cut ||
+        (DELAY && i < n_real[b] &&
+         ctt::delayed_open(sd, r, ui, ui, drop_cut, max_delay));
     const bool hb = bc && i < n_real[b];
     uint32_t side = 0u;
     if (part_cut != 0u &&
@@ -287,7 +297,7 @@ bcast_preprepare_kernel(const uint32_t* __restrict__ seed,
 // ask for P1's catch-up flags.
 extern "C" int ctt_bcast_view_preprepare(
     const uint32_t* seed, uint32_t r, uint32_t churn_cut, uint32_t drop_cut,
-    uint32_t part_cut, int32_t view_timeout, int32_t vmax,
+    uint32_t part_cut, uint32_t max_delay, int32_t view_timeout, int32_t vmax,
     const int32_t* n_real, const int32_t* f, const int32_t* view,
     const int32_t* timer, const bool* pp_seen, const int32_t* pp_view,
     const int32_t* pp_val, const bool* prepared, const bool* committed,
@@ -305,10 +315,11 @@ extern "C" int ctt_bcast_view_preprepare(
   const int tiles = (N + THREADS - 1) / THREADS;
   const long long blocks = static_cast<long long>(tiles) * B;
   if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  bcast_senders_kernel<<<static_cast<unsigned>(blocks), THREADS,
-                         smem ? hist_bytes : 0, st>>>(
-      seed, r, churn_cut, drop_cut, part_cut, n_real, view, bits_out, hist, N,
-      nb, smem, tiles);
+  const auto senders = max_delay != 0u ? bcast_senders_kernel<true>
+                                        : bcast_senders_kernel<false>;
+  senders<<<static_cast<unsigned>(blocks), THREADS, smem ? hist_bytes : 0,
+            st>>>(seed, r, churn_cut, drop_cut, part_cut, max_delay, n_real,
+                  view, bits_out, hist, N, nb, smem, tiles);
   if ((err = static_cast<int>(cudaGetLastError())) != 0) return err;
   bcast_catchup_kernel<<<static_cast<unsigned>(blocks), THREADS, 0, st>>>(
       seed, r, churn_cut, view_timeout, f, view, timer, pp_seen, bits_out,

@@ -1,13 +1,17 @@
 // Kernel KL: the SPEC §2 delivery mask of one round over all N nodes of each
 // sweep, [B, N, N] bool, for the dense Raft engine.
 //
-// Replaces: consensus_tpu/ops/adversary.py delivery (lines 61-86, with
-// max_delay = 0), with the delivery mixer of core/rng.py delivery_u32_jnp
-// (K2) inside it, as engines/raft.py raft_round calls it once a round.
+// Replaces: consensus_tpu/ops/adversary.py delivery (lines 61-86), with the
+// delivery mixer of core/rng.py delivery_u32_jnp (K2) and the SPEC §A.2 term
+// delayed_open (K13, ctt::delayed_open in rng.cuh) inside it, as
+// engines/raft.py raft_round, engines/pbft.py, engines/paxos.py and the
+// dense f-ladder call it once a round.
 //
 // Edge i -> j of round r is delivered when i != j, the mixer draw
 // fmix(absorb(absorb(absorb(seed ^ DELIVER, r), i), j)) is not below
-// drop_cut, and, in a round whose partition is active (a Threefry draw
+// drop_cut or (max_delay > 0) a flight dropped on the edge in one of the
+// last max_delay rounds arrives now (evaluated only where the round's own
+// draw dropped), and, in a round whose partition is active (a Threefry draw
 // below part_cut), both ends drew the same side.
 //
 // Bound: operations. The output is B * N * N bytes (8.4 MB at raft-1kx1k,
@@ -20,7 +24,9 @@
 // end instead of three Threefry draws an edge. Launch 2: a block per
 // (sweep, sender row) and column chunk; each thread hoists the row's
 // absorbs and writes four consecutive edges, as one 32-bit store when rows
-// are 4-byte aligned (N % 4 == 0). A small N (raft-5node: N = 5) gets
+// are 4-byte aligned (N % 4 == 0). Its DELAY instance, which the launch
+// picks when max_delay > 0, adds the delay term; the other is launch 2 as
+// it was before the delay existed. A small N (raft-5node: N = 5) gets
 // blocks of one warp.
 #include <cuda_runtime.h>
 
@@ -51,18 +57,19 @@ __global__ void delivery_side_kernel(const uint32_t* __restrict__ seed,
 }
 
 // Launch 2. Grid (B * N rows, ceil(N / (VEC * blockDim.x))).
+template <bool DELAY>
 __global__ void delivery_kernel(const uint32_t* __restrict__ seed,
                                 uint32_t r, const uint8_t* __restrict__ side,
                                 unsigned char* __restrict__ out, int N,
-                                uint32_t drop_cut) {
+                                uint32_t drop_cut, uint32_t max_delay) {
   const long long row = blockIdx.x;  // b * N + i
   const int b = static_cast<int>(row / N);
   const int i = static_cast<int>(row - static_cast<long long>(b) * N);
   const int j0 = (blockIdx.y * blockDim.x + threadIdx.x) * VEC;
   if (j0 >= N) return;
+  const uint32_t sd = seed[b];
   const uint32_t h = ctt::mix_absorb(
-      ctt::mix_absorb(seed[b] ^ ctt::STREAM_DELIVER, r),
-      static_cast<uint32_t>(i));
+      ctt::mix_absorb(sd ^ ctt::STREAM_DELIVER, r), static_cast<uint32_t>(i));
   const uint8_t side_i = side ? side[row] : 0;
   const uint8_t* side_b = side ? side + static_cast<long long>(b) * N : side;
   uint32_t word = 0u;
@@ -70,8 +77,11 @@ __global__ void delivery_kernel(const uint32_t* __restrict__ seed,
     const int j = j0 + v;
     if (j >= N) break;
     const bool ok = j != i &&
-        ctt::mix_fin(ctt::mix_absorb(h, static_cast<uint32_t>(j))) >=
-            drop_cut &&
+        (ctt::mix_fin(ctt::mix_absorb(h, static_cast<uint32_t>(j))) >=
+             drop_cut ||
+         (DELAY && ctt::delayed_open(sd, r, static_cast<uint32_t>(i),
+                                     static_cast<uint32_t>(j), drop_cut,
+                                     max_delay))) &&
         (!side || side_b[j] == side_i);
     word |= static_cast<uint32_t>(ok) << (8 * v);
   }
@@ -89,7 +99,7 @@ __global__ void delivery_kernel(const uint32_t* __restrict__ seed,
 extern "C" int ctt_delivery(const uint32_t* seed, uint32_t r,
                             unsigned char* out, uint8_t* side, int B, int N,
                             uint32_t drop_cut, uint32_t part_cut,
-                            cudaStream_t st) {
+                            uint32_t max_delay, cudaStream_t st) {
   if (B == 0 || N == 0) return 0;
   const long long rows = static_cast<long long>(B) * N;
   if (part_cut != 0u) {
@@ -104,6 +114,9 @@ extern "C" int ctt_delivery(const uint32_t* seed, uint32_t r,
   const int threads = quads >= 256 ? 256 : ((quads + 31) / 32) * 32;
   const dim3 grid(static_cast<unsigned>(rows),
                   static_cast<unsigned>((quads + threads - 1) / threads));
-  delivery_kernel<<<grid, threads, 0, st>>>(seed, r, side, out, N, drop_cut);
+  const auto kernel =
+      max_delay != 0u ? delivery_kernel<true> : delivery_kernel<false>;
+  kernel<<<grid, threads, 0, st>>>(seed, r, side, out, N, drop_cut,
+                                   max_delay);
   return static_cast<int>(cudaGetLastError());
 }

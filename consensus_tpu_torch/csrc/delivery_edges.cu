@@ -1,15 +1,19 @@
 // Kernel KB: the SPEC §2 delivery mask between A sender (or receiver) ids and
 // all N node ids of each sweep, in one pass.
 //
-// Replaces: consensus_tpu/ops/adversary.py delivery_edges (max_delay = 0),
-// with the delivery mixer of core/rng.py delivery_u32_jnp inside it, as
-// engines/raft_sparse.py calls it four times a round: requests [A, N],
-// responses [N, A], heartbeats [A, N] and acks [N, A].
+// Replaces: consensus_tpu/ops/adversary.py delivery_edges, with the delivery
+// mixer of core/rng.py delivery_u32_jnp and the SPEC §A.2 term delayed_open
+// (K13, ctt::delayed_open in rng.cuh) inside it, as engines/raft_sparse.py
+// calls it four times a round: requests [A, N], responses [N, A], heartbeats
+// [A, N] and acks [N, A].
 //
 // An edge (s, d) of round r is delivered when both ids are >= 0, s != d, the
 // mixer draw fmix(absorb(absorb(absorb(seed ^ DELIVER, r), s), d)) is not
-// below drop_cut, and, in a round whose partition is active (a Threefry draw
-// below part_cut), both ends drew the same side.
+// below drop_cut or (max_delay > 0) a flight dropped on the edge in one of
+// the last max_delay rounds arrives now, and, in a round whose partition is
+// active (a Threefry draw below part_cut), both ends drew the same side. The
+// delay term is evaluated only where the round's own draw dropped, in the
+// kernels' DELAY instances, which the launch picks when max_delay > 0.
 //
 // Bound: the [B, A, N] bool output (6.4 MB at the flagship shape) against
 // ~20 integer operations an edge once the (seed, r) and per-row absorbs are
@@ -38,11 +42,12 @@ __device__ __forceinline__ bool same_side(uint32_t seed, uint32_t r,
 }
 
 // out[b, a, j]: ids[b, a] sends to node j. Grid (ceil(N / 256), B * A).
+template <bool DELAY>
 __global__ void edges_src_kernel(const uint32_t* __restrict__ seed,
                                  uint32_t r, const int32_t* __restrict__ ids,
                                  unsigned char* __restrict__ out, int A,
                                  int N, uint32_t drop_cut,
-                                 uint32_t part_cut) {
+                                 uint32_t part_cut, uint32_t max_delay) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= N) return;
   const int row = blockIdx.y;  // b * A + a
@@ -55,18 +60,20 @@ __global__ void edges_src_kernel(const uint32_t* __restrict__ seed,
   if (ok) {
     const uint32_t h = ctt::mix_absorb(
         ctt::mix_absorb(sd ^ ctt::STREAM_DELIVER, r), s);
-    ok = ctt::mix_fin(ctt::mix_absorb(h, d)) >= drop_cut &&
+    ok = (ctt::mix_fin(ctt::mix_absorb(h, d)) >= drop_cut ||
+          (DELAY && ctt::delayed_open(sd, r, s, d, drop_cut, max_delay))) &&
          same_side(sd, r, part_cut, s, d);
   }
   out[static_cast<long long>(row) * N + j] = ok;
 }
 
 // out[b, j, a]: node j sends to ids[b, a]. Grid (ceil(N / 256), B).
+template <bool DELAY>
 __global__ void edges_dst_kernel(const uint32_t* __restrict__ seed,
                                  uint32_t r, const int32_t* __restrict__ ids,
                                  unsigned char* __restrict__ out, int A,
                                  int N, uint32_t drop_cut,
-                                 uint32_t part_cut) {
+                                 uint32_t part_cut, uint32_t max_delay) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= N) return;
   const int b = blockIdx.y;
@@ -79,7 +86,9 @@ __global__ void edges_dst_kernel(const uint32_t* __restrict__ seed,
     const int32_t id = ids[b * A + a];
     const uint32_t d = static_cast<uint32_t>(id);
     o[a] = id >= 0 && s != d &&
-           ctt::mix_fin(ctt::mix_absorb(h, d)) >= drop_cut &&
+           (ctt::mix_fin(ctt::mix_absorb(h, d)) >= drop_cut ||
+            (DELAY &&
+             ctt::delayed_open(sd, r, s, d, drop_cut, max_delay))) &&
            same_side(sd, r, part_cut, s, d);
   }
 }
@@ -90,16 +99,21 @@ extern "C" int ctt_delivery_edges(const uint32_t* seed, uint32_t r,
                                   const int32_t* ids, unsigned char* out,
                                   int B, int A, int N, uint32_t drop_cut,
                                   uint32_t part_cut, int ids_are_src,
-                                  cudaStream_t st) {
+                                  uint32_t max_delay, cudaStream_t st) {
   if (B == 0 || A == 0 || N == 0) return 0;
   const int threads = 256;
   const unsigned gx = (N + threads - 1) / threads;
+  const bool delay = max_delay != 0u;
   if (ids_are_src) {
-    edges_src_kernel<<<dim3(gx, B * A), threads, 0, st>>>(
-        seed, r, ids, out, A, N, drop_cut, part_cut);
+    const auto kernel =
+        delay ? edges_src_kernel<true> : edges_src_kernel<false>;
+    kernel<<<dim3(gx, B * A), threads, 0, st>>>(
+        seed, r, ids, out, A, N, drop_cut, part_cut, max_delay);
   } else {
-    edges_dst_kernel<<<dim3(gx, B), threads, 0, st>>>(
-        seed, r, ids, out, A, N, drop_cut, part_cut);
+    const auto kernel =
+        delay ? edges_dst_kernel<true> : edges_dst_kernel<false>;
+    kernel<<<dim3(gx, B), threads, 0, st>>>(seed, r, ids, out, A, N,
+                                            drop_cut, part_cut, max_delay);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -7,9 +7,13 @@
 // producer p is producers[r // epoch_len][(r mod epoch_len) mod K], read on
 // the device (the host passes the index). Validator v != p receives the
 // block when the delivery mixer's draw of edge p -> v is not below
-// drop_cut and, in a round whose partition is active, v drew p's side; p
-// always has it. Unless the round's churn event fires, a receiver whose
-// chain is not full writes (r, p) at chain_len[v] and counts it.
+// drop_cut or (max_delay > 0) a block p sent v in one of the last
+// max_delay rounds and lost arrives now (SPEC §A.2, dpos.py lines 83-86:
+// K13 delayed_open as ctt::delayed_open, drawn only where the round's own
+// draw dropped, in the kernel's DELAY instance, which the launch picks when
+// max_delay > 0), and, in a round whose partition is active, v drew p's
+// side; p always has it. Unless the round's churn event fires, a receiver
+// whose chain is not full writes (r, p) at chain_len[v] and counts it.
 //
 // Bound: bytes, counting each tensor once: each validator reads and writes
 // its chain length (8 bytes) and writes one chain slot where it appends
@@ -48,12 +52,13 @@ __device__ __forceinline__ void store(void* base, int size, long long i,
 
 // Validator v of lane b's round: appends (r, p) where the block reaches it,
 // and says whether it did.
+template <bool DELAY>
 __device__ __forceinline__ bool append(
     const uint32_t* __restrict__ seed, uint32_t r,
     const int32_t* __restrict__ producers, void* chain_r, void* chain_p,
     int32_t* __restrict__ chain_len, int r_size, int p_size, int p_index,
     int list_len, uint32_t drop_cut, uint32_t part_cut, uint32_t churn_cut,
-    int L, int b, uint32_t v, long long row) {
+    uint32_t max_delay, int L, int b, uint32_t v, long long row) {
   const uint32_t sd = seed[b];
   if (ctt::random_u32(sd, ctt::STREAM_CHURN, r, 0u, 0u) < churn_cut)
     return false;
@@ -64,7 +69,9 @@ __device__ __forceinline__ bool append(
   if (v != p) {
     const uint32_t h = ctt::mix_absorb(
         ctt::mix_absorb(ctt::mix_absorb(sd ^ ctt::STREAM_DELIVER, r), p), v);
-    if (ctt::mix_fin(h) < drop_cut) return false;
+    if (ctt::mix_fin(h) < drop_cut &&
+        !(DELAY && ctt::delayed_open(sd, r, p, v, drop_cut, max_delay)))
+      return false;
     if (ctt::random_u32(sd, ctt::STREAM_PARTITION, r, 0u, 0u) < part_cut &&
         ((ctt::random_u32(sd, ctt::STREAM_PARTITION, r, 1u, v) ^
           ctt::random_u32(sd, ctt::STREAM_PARTITION, r, 1u, p)) & 1u))
@@ -78,14 +85,15 @@ __device__ __forceinline__ bool append(
 }
 
 // A thread per (lane, validator), flattened.
+template <bool DELAY>
 __global__ void __launch_bounds__(THREADS)
 dpos_round_kernel(const uint32_t* __restrict__ seed, uint32_t r,
                   const int32_t* __restrict__ producers, void* chain_r,
                   void* chain_p, int32_t* __restrict__ chain_len,
                   int32_t* __restrict__ n_app, int r_size, int p_size,
                   int p_index, int list_len, uint32_t drop_cut,
-                  uint32_t part_cut, uint32_t churn_cut, int V, int L,
-                  long long rows) {
+                  uint32_t part_cut, uint32_t churn_cut, uint32_t max_delay,
+                  int V, int L, long long rows) {
   __shared__ int s_app[2];
   const long long row =
       static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
@@ -93,10 +101,10 @@ dpos_round_kernel(const uint32_t* __restrict__ seed, uint32_t r,
   bool did = false;
   if (row < rows) {
     b = static_cast<int>(row / V);
-    did = append(seed, r, producers, chain_r, chain_p, chain_len, r_size,
-                 p_size, p_index, list_len, drop_cut, part_cut, churn_cut, L,
-                 b, static_cast<uint32_t>(row - static_cast<long long>(b) * V),
-                 row);
+    did = append<DELAY>(
+        seed, r, producers, chain_r, chain_p, chain_len, r_size, p_size,
+        p_index, list_len, drop_cut, part_cut, churn_cut, max_delay, L, b,
+        static_cast<uint32_t>(row - static_cast<long long>(b) * V), row);
   }
   if (n_app == nullptr) return;
   // The appends a lane, for the telemetry.
@@ -125,8 +133,9 @@ extern "C" int ctt_dpos_round(const uint32_t* seed, uint32_t r,
                               void* chain_p, int32_t* chain_len,
                               int32_t* n_app, int r_size, int p_size,
                               int p_index, int list_len, uint32_t drop_cut,
-                              uint32_t part_cut, uint32_t churn_cut, int B,
-                              int V, int L, cudaStream_t st) {
+                              uint32_t part_cut, uint32_t churn_cut,
+                              uint32_t max_delay, int B, int V, int L,
+                              cudaStream_t st) {
   if (n_app != nullptr && B > 0) {
     const int err = static_cast<int>(
         cudaMemsetAsync(n_app, 0, sizeof(int32_t) * B, st));
@@ -134,9 +143,11 @@ extern "C" int ctt_dpos_round(const uint32_t* seed, uint32_t r,
   }
   const long long rows = static_cast<long long>(B) * V;
   if (rows == 0) return 0;
-  dpos_round_kernel<<<static_cast<unsigned>((rows + THREADS - 1) / THREADS),
-                      THREADS, 0, st>>>(
-      seed, r, producers, chain_r, chain_p, chain_len, n_app, r_size, p_size,
-      p_index, list_len, drop_cut, part_cut, churn_cut, V, L, rows);
+  const auto kernel =
+      max_delay != 0u ? dpos_round_kernel<true> : dpos_round_kernel<false>;
+  kernel<<<static_cast<unsigned>((rows + THREADS - 1) / THREADS), THREADS, 0,
+           st>>>(seed, r, producers, chain_r, chain_p, chain_len, n_app,
+                 r_size, p_size, p_index, list_len, drop_cut, part_cut,
+                 churn_cut, max_delay, V, L, rows);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,7 +1,7 @@
 // What the HotStuff round's kernels (KAD hotstuff_propose, KAE hotstuff_vote,
 // KAF hotstuff_learn) share: the words of the state's `lane` leaf, which
 // carry each lane-wide step of the round across a launch, and the SPEC §2
-// broadcast-row delivery test.
+// broadcast-row delivery test with its SPEC §A.2 retransmissions.
 //
 // lane is [B, LANE_WORDS] int64 (engines/hotstuff.py), and each word has one
 // writer pattern a round, ordered by the launches (KAD, then KAE, then KAF):
@@ -74,8 +74,10 @@ __device__ __forceinline__ long long view_key(int32_t view, int id, int n) {
 // A lane's broadcast row from node `src` in round r: the mixer state after
 // absorbing (seed ^ STREAM_DELIVER, r, src), the round's partition event
 // and src's side. The gossip row (P1) and the proposal row (P2) from one
-// sender draw the same words: the model's per-(round, edge) link state.
+// sender draw the same words: the model's per-(round, edge) link state,
+// delayed retransmissions included.
 struct Row {
+  uint32_t src;    // the sender
   uint32_t h;      // mix_absorb(mix_absorb(seed ^ DELIVER, r), src)
   bool part;       // the round's partition is active
   uint32_t side;   // src's side, where part
@@ -84,6 +86,7 @@ struct Row {
 __device__ __forceinline__ Row row_from(uint32_t seed, uint32_t r,
                                         uint32_t src, uint32_t part_cut) {
   Row row;
+  row.src = src;
   row.h = ctt::mix_absorb(ctt::mix_absorb(seed ^ ctt::STREAM_DELIVER, r), src);
   // An exact shortcut: without a partition cutoff no round's partition
   // is active, and the side draws are never read.
@@ -96,11 +99,20 @@ __device__ __forceinline__ Row row_from(uint32_t seed, uint32_t r,
 }
 
 // Whether row `row` reaches node j: the mixer's draw of edge (src, j) is not
-// below drop_cut and, where the partition is active, j drew src's side.
+// below drop_cut, or (max_delay > 0) a flight lost on that edge in one of
+// the last max_delay rounds arrives now (K13 delayed_open, drawn only where
+// the round's own draw dropped; its prefix (seed ^ DELAY, q, d) differs from
+// the row's, so nothing of the row's hoist is reused; only in the DELAY
+// instances of KAD and KAE, which their launches pick when max_delay > 0),
+// and, where the partition is active, j drew src's side.
+template <bool DELAY>
 __device__ __forceinline__ bool row_open(const Row& row, uint32_t seed,
                                          uint32_t r, uint32_t j,
-                                         uint32_t drop_cut) {
-  if (ctt::mix_fin(ctt::mix_absorb(row.h, j)) < drop_cut) return false;
+                                         uint32_t drop_cut,
+                                         uint32_t max_delay) {
+  if (ctt::mix_fin(ctt::mix_absorb(row.h, j)) < drop_cut &&
+      !(DELAY && ctt::delayed_open(seed, r, row.src, j, drop_cut, max_delay)))
+    return false;
   return !row.part ||
          (ctt::random_u32(seed, ctt::STREAM_PARTITION, r, 1u, j) & 1u) ==
              row.side;

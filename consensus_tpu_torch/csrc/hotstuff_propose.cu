@@ -8,13 +8,15 @@
 // KAF of the round before reduced from every node's final view (hotstuff.cuh;
 // hotstuff_init and convert.py set it for a state given from outside). Node
 // j != M hears it when vM >= 0 and M's row reaches j (the delivery mixer on
-// absolute edge keys, and the partition side where the round's partition is
-// active); a node behind vM catches up to it (adv). P2: node i proposes when
-// its view after P1 elects it (view mod N == i, floor modulo, int32 views
-// of either sign), the round's churn event does not fire and the chain has
-// room (b1_h + 1 < S: a full chain has no proposer). V* is the largest
-// proposing view; only views above -1 are merged into the lane's VMAX word
-// (at rest -1), so VMAX ends as the JAX round's max(where(prop, view, -1)).
+// absolute edge keys with the SPEC §A.2 retransmissions of the last
+// max_delay rounds, lines 243-256, and the partition side where the round's
+// partition is active); a node behind vM catches up to it (adv). P2: node i
+// proposes when its view after P1 elects it (view mod N == i, floor modulo,
+// int32 views of either sign), the round's churn event does not fire and the
+// chain has room (b1_h + 1 < S: a full chain has no proposer). V* is the
+// largest proposing view; only views above -1 are merged into the lane's
+// VMAX word (at rest -1), so VMAX ends as the JAX round's max(where(prop,
+// view, -1)).
 //
 // Bound: bytes. Each node reads its view (4 bytes) and writes its view after
 // P1 and its catch-up flag (5 bytes): 7.2 MB at hotstuff-100k (B = 8, N =
@@ -37,6 +39,7 @@
 
 namespace {
 
+template <bool DELAY>
 __global__ void __launch_bounds__(hs::THREADS)
 hotstuff_propose_kernel(const uint32_t* __restrict__ seed, uint32_t r,
                         const int32_t* __restrict__ view,
@@ -44,7 +47,8 @@ hotstuff_propose_kernel(const uint32_t* __restrict__ seed, uint32_t r,
                         long long* __restrict__ lane,
                         int32_t* __restrict__ view1, bool* __restrict__ adv,
                         uint32_t drop_cut, uint32_t part_cut,
-                        uint32_t churn_cut, int N, int S, int tiles) {
+                        uint32_t churn_cut, uint32_t max_delay, int N, int S,
+                        int tiles) {
   __shared__ hs::Row s_row;
   __shared__ int32_t s_vm;
   __shared__ int s_m;
@@ -71,8 +75,9 @@ hotstuff_propose_kernel(const uint32_t* __restrict__ seed, uint32_t r,
     const int32_t v = view[row];
     const int32_t vm = s_vm;
     const bool caught = vm >= 0 && i != s_m && v < vm &&
-                        hs::row_open(s_row, sd, r, static_cast<uint32_t>(i),
-                                     drop_cut);
+                        hs::row_open<DELAY>(s_row, sd, r,
+                                            static_cast<uint32_t>(i), drop_cut,
+                                            max_delay);
     const int32_t v1 = caught ? vm : v;
     view1[row] = v1;
     adv[row] = caught;
@@ -91,13 +96,16 @@ extern "C" int ctt_hotstuff_propose(const uint32_t* seed, uint32_t r,
                                     long long* lane, int32_t* view1,
                                     bool* adv, uint32_t drop_cut,
                                     uint32_t part_cut, uint32_t churn_cut,
-                                    int B, int N, int S, cudaStream_t st) {
+                                    uint32_t max_delay, int B, int N, int S,
+                                    cudaStream_t st) {
   if (B == 0 || N == 0) return 0;
   const int tiles = (N + hs::THREADS - 1) / hs::THREADS;
   const long long blocks = static_cast<long long>(tiles) * B;
   if (blocks > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
-  hotstuff_propose_kernel<<<static_cast<unsigned>(blocks), hs::THREADS, 0,
-                            st>>>(seed, r, view, b1_h, lane, view1, adv,
-                                  drop_cut, part_cut, churn_cut, N, S, tiles);
+  const auto kernel = max_delay != 0u ? hotstuff_propose_kernel<true>
+                                       : hotstuff_propose_kernel<false>;
+  kernel<<<static_cast<unsigned>(blocks), hs::THREADS, 0, st>>>(
+      seed, r, view, b1_h, lane, view1, adv, drop_cut, part_cut, churn_cut,
+      max_delay, N, S, tiles);
   return static_cast<int>(cudaGetLastError());
 }

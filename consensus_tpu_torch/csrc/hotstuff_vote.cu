@@ -7,14 +7,18 @@
 // 300-433) on its flat path. V* is the lane's VMAX word, which kernel KAD
 // reduced; with V* >= 0 its leader is L = V* mod N, else L = 0 and nothing is
 // delivered. Node j receives the proposal (pdel) when j == L or L's row
-// reaches j (the same mixer words as P1's gossip row when M == L), and its
-// view after P1 is not above V*. Its vote reaches L when j == L or the
-// mixer's draw of the REVERSE edge (j, L) is not below drop_cut (given pdel
-// the partition test of that edge is the same predicate, so it is not
-// drawn). The QC forms when the lane's delivered votes reach Q = 2f + 1.
-// Then b1 <- (V*, h_next), b2 <- old b1, b3 <- old b2, chain_v[h_next] <-
-// V*, and where the NEW b3, b2, b1 sit in consecutive views the global
-// commit becomes max(old gcommit, new b3_h + 1) (lines 423-433).
+// reaches j (the same mixer words as P1's gossip row when M == L, delayed
+// retransmissions included), and its view after P1 is not above V*. Its vote
+// reaches L when j == L or the mixer's draw of the REVERSE edge (j, L) is
+// not below drop_cut, or (max_delay > 0) a vote lost on (j, L) in one of the
+// last max_delay rounds arrives now (SPEC §A.2, lines 303-309: K13
+// delayed_open as ctt::delayed_open, drawn only where the round's own draw
+// dropped; given pdel the partition test of that edge is the same
+// predicate, so it is not drawn). The QC forms when the lane's delivered
+// votes reach Q = 2f + 1. Then b1 <- (V*, h_next), b2 <- old b1, b3 <- old
+// b2, chain_v[h_next] <- V*, and where the NEW b3, b2, b1 sit in consecutive
+// views the global commit becomes max(old gcommit, new b3_h + 1) (lines
+// 423-433).
 // Old against new: the registers are written to fresh outputs, so kernel
 // KAF still reads the OLD gcommit that P6 grows the prefixes to (line 464).
 //
@@ -47,14 +51,15 @@ struct Regs {
   const int32_t* in[REGS];
 };
 
+template <bool DELAY>
 __global__ void __launch_bounds__(hs::THREADS)
 hotstuff_vote_kernel(const uint32_t* __restrict__ seed, uint32_t r,
                      const int32_t* __restrict__ view1,
                      long long* __restrict__ lane, Regs regs,
                      int32_t* __restrict__ chain_v, bool* __restrict__ pdel,
                      int32_t* __restrict__ regs_out, uint32_t drop_cut,
-                     uint32_t part_cut, int Q, int B, int N, int S,
-                     int tiles) {
+                     uint32_t part_cut, uint32_t max_delay, int Q, int B,
+                     int N, int S, int tiles) {
   __shared__ hs::Row s_row;
   __shared__ uint32_t s_h0;
   __shared__ int32_t s_vstar;
@@ -81,13 +86,17 @@ hotstuff_vote_kernel(const uint32_t* __restrict__ seed, uint32_t r,
     const bool is_l = i == s_l;
     const bool got =
         vstar >= 0 && view1[row] <= vstar &&
-        (is_l || hs::row_open(s_row, sd, r, static_cast<uint32_t>(i),
-                              drop_cut));
+        (is_l || hs::row_open<DELAY>(s_row, sd, r, static_cast<uint32_t>(i),
+                                     drop_cut, max_delay));
     pdel[row] = got;
     voted = got && (is_l ||
                     ctt::mix_fin(ctt::mix_absorb(
                         ctt::mix_absorb(s_h0, static_cast<uint32_t>(i)),
-                        static_cast<uint32_t>(s_l))) >= drop_cut);
+                        static_cast<uint32_t>(s_l))) >= drop_cut ||
+                    (DELAY &&
+                     ctt::delayed_open(sd, r, static_cast<uint32_t>(i),
+                                       static_cast<uint32_t>(s_l), drop_cut,
+                                       max_delay)));
   }
   const int warp_votes = __popc(__ballot_sync(hs::FULL, voted));
   if ((threadIdx.x & 31) == 0 && warp_votes) atomicAdd(&s_votes, warp_votes);
@@ -144,15 +153,17 @@ extern "C" int ctt_hotstuff_vote(
     const int32_t* b1_v, const int32_t* b1_h, const int32_t* b2_v,
     const int32_t* b2_h, const int32_t* b3_v, const int32_t* b3_h,
     const int32_t* gcommit, int32_t* chain_v, bool* pdel, int32_t* regs_out,
-    uint32_t drop_cut, uint32_t part_cut, int Q, int B, int N, int S,
-    cudaStream_t st) {
+    uint32_t drop_cut, uint32_t part_cut, uint32_t max_delay, int Q, int B,
+    int N, int S, cudaStream_t st) {
   if (B == 0 || N == 0) return 0;
   const int tiles = (N + hs::THREADS - 1) / hs::THREADS;
   const long long blocks = static_cast<long long>(tiles) * B;
   if (blocks > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
   Regs regs = {{b1_v, b1_h, b2_v, b2_h, b3_v, b3_h, gcommit}};
-  hotstuff_vote_kernel<<<static_cast<unsigned>(blocks), hs::THREADS, 0, st>>>(
+  const auto kernel = max_delay != 0u ? hotstuff_vote_kernel<true>
+                                       : hotstuff_vote_kernel<false>;
+  kernel<<<static_cast<unsigned>(blocks), hs::THREADS, 0, st>>>(
       seed, r, view1, lane, regs, chain_v, pdel, regs_out, drop_cut, part_cut,
-      Q, B, N, S, tiles);
+      max_delay, Q, B, N, S, tiles);
   return static_cast<int>(cudaGetLastError());
 }

@@ -2,7 +2,9 @@
 // kernels of this directory: Threefry-2x32 with 20 rounds (the JAX package's
 // consensus_tpu/core/rng.py threefry2x32_jnp / random_u32_jnp) and the
 // SPEC §2 murmur-style delivery mixer (mix_absorb_jnp / mix_fin_jnp /
-// delivery_u32_jnp). All arithmetic is uint32 and wraps, which is the whole
+// delivery_u32_jnp), with the SPEC §A.2 retransmission draw (delay_u32_jnp)
+// and the delayed-retransmission term of consensus_tpu/ops/adversary.py
+// (delayed_open, K13). All arithmetic is uint32 and wraps, which is the whole
 // contract: the draws equal the JAX package's bit for bit.
 #pragma once
 
@@ -17,6 +19,7 @@ constexpr uint32_t STREAM_PARTITION = 0x27D4EB2Fu;
 constexpr uint32_t STREAM_STAKE = 0x165667B1u;
 constexpr uint32_t STREAM_VOTE = 0xD3A2646Cu;
 constexpr uint32_t STREAM_VALUE = 0xFD7046C5u;
+constexpr uint32_t STREAM_DELAY = 0x2545F491u;
 
 __device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
   return (x << r) | (x >> (32 - r));
@@ -76,6 +79,45 @@ __device__ __forceinline__ uint32_t mix_fin(uint32_t h) {
   h ^= h >> 13;
   h *= 0xC2B2AE35u;
   return h ^ (h >> 16);
+}
+
+// The SPEC §2 delivery draw of edge i -> j in round r.
+__device__ __forceinline__ uint32_t delivery_u32(uint32_t seed, uint32_t r,
+                                                 uint32_t i, uint32_t j) {
+  return mix_fin(mix_absorb(
+      mix_absorb(mix_absorb(seed ^ STREAM_DELIVER, r), i), j));
+}
+
+// The SPEC §A.2 retransmission draw of the flight sent on edge i -> j in
+// round q and delayed by d rounds (consensus_tpu/core/rng.py delay_u32_jnp).
+__device__ __forceinline__ uint32_t delay_u32(uint32_t seed, uint32_t q,
+                                              uint32_t d, uint32_t i,
+                                              uint32_t j) {
+  return mix_fin(mix_absorb(
+      mix_absorb(mix_absorb(mix_absorb(seed ^ STREAM_DELAY, q), d), i), j));
+}
+
+// K13 delayed_open (consensus_tpu/ops/adversary.py:38-57; the oracle's
+// cpp/threefry.h:101-111): whether a flight dropped on edge i -> j at some
+// round q = r - d, d in 1..max_delay, arrives at round r: the base draw at q
+// dropped it and its retransmission draw survives the same cutoff. Rounds
+// d > r do not exist, so q never wraps. Exact and short: the retransmission
+// is drawn only where the base draw at q dropped, and the loop ends at the
+// first d that opens. Callers evaluate it only where the base draw at r
+// dropped, and only in the instance of their kernel compiled for a delay
+// (a template flag DELAY, chosen at launch from max_delay != 0): the
+// instance without one is the kernel as it was before the delay existed.
+__device__ __forceinline__ bool delayed_open(uint32_t seed, uint32_t r,
+                                             uint32_t i, uint32_t j,
+                                             uint32_t drop_cut,
+                                             uint32_t max_delay) {
+  for (uint32_t d = 1; d <= max_delay && d <= r; ++d) {
+    const uint32_t q = r - d;
+    if (delivery_u32(seed, q, i, j) < drop_cut &&
+        delay_u32(seed, q, d, i, j) >= drop_cut)
+      return true;
+  }
+  return false;
 }
 
 }  // namespace ctt

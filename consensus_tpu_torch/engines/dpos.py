@@ -2,7 +2,8 @@
 block a round.
 
 The port of ``consensus_tpu/engines/dpos.py`` on its flat path (no crash,
-slot-miss or suppression gates), with its telemetry and flight recorder.
+slot-miss or suppression gates; with the SPEC §A.2 delayed retransmission
+on the producer's edges), with its telemetry and flight recorder.
 Each epoch's producers are the top K candidates of a stake-weighted vote
 tally over every validator, computed once from the seed at init; round
 r's producer is entry ``(r mod epoch_len) mod K`` of epoch
@@ -39,7 +40,7 @@ import torch
 
 from ..core import rng
 from ..core.config import Config
-from ..ops.adversary import CRASH_TELEMETRY, bitcast_i32
+from ..ops.adversary import CRASH_TELEMETRY, bitcast_i32, open_drop_plain
 from ..ops.flight import (add_plain, bucket_counts_plain, check_recorder,
                           window_of)
 from .raft import check_all
@@ -168,7 +169,9 @@ def dpos_round_plain(cfg: Config, seed, r: int, producers, chain_r, chain_p,
     """Plain version of KX, one SPEC §7 round at every validator v of each
     lane, in place. The round's producer p (:func:`round_producer`) sends
     its block: it reaches v != p when the delivery mixer's draw of the edge
-    p -> v is not below the drop cutoff and, in a round whose partition is
+    p -> v is not below the drop cutoff, or a block lost on that edge in one
+    of the last ``max_delay_rounds`` rounds arrives now (SPEC §A.2, the
+    JAX ``_producer_delivery``), and, in a round whose partition is
     active, v drew p's side; p itself always has it. Unless the round's
     churn event fires, a reached validator whose chain is not full writes
     (r, p) at index ``chain_len[v]`` and counts it. Returns (chain_r,
@@ -179,7 +182,8 @@ def dpos_round_plain(cfg: Config, seed, r: int, producers, chain_r, chain_p,
     useed = rng.as_u32(seed)[:, None]
     v = torch.arange(V, dtype=torch.int64, device=dev)[None, :]
     p = round_producer(cfg, producers, r).to(torch.int64)[:, None]   # [B, 1]
-    open_drop = rng.delivery_u32_plain(useed, r, p, v) >= cfg.drop_cutoff
+    open_drop = open_drop_plain(useed, r, p, v, cfg.drop_cutoff,
+                                cfg.max_delay_rounds)
     part_active = rng.random_u32_plain(seed, rng.STREAM_PARTITION, r, 0, 0) \
         < cfg.partition_cutoff                                       # [B, 1]
     side_v = rng.threefry2x32_plain(useed ^ rng.STREAM_PARTITION, r, 1,
@@ -230,7 +234,7 @@ def dpos_round(cfg: Config, seed, r: int, producers, chain_r, chain_p,
                   chain_r.element_size(), chain_p.element_size(),
                   producer_index(cfg, r), n_epochs(cfg) * cfg.n_producers,
                   cfg.drop_cutoff, cfg.partition_cutoff, cfg.churn_cutoff,
-                  B, V, L)
+                  cfg.max_delay_rounds, B, V, L)
     dpos_round.launches += 1
     if count:
         return chain_r, chain_p, chain_len, n_app

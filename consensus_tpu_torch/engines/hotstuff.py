@@ -2,7 +2,8 @@
 engine.
 
 The port of ``consensus_tpu/engines/hotstuff.py`` on its flat path (no
-crash, delay, desync, byzantine or switch gates), with its telemetry and
+crash, desync, byzantine or switch gates; with the SPEC §A.2 delayed
+retransmission on the broadcast rows and the votes), with its telemetry and
 flight recorder. Every node keeps its own pacemaker (view, timer) and
 committed prefix; the QC chain (b1, b2, b3), the certified-view map and
 the global commit are per sweep. A round is three lane-wide steps in a
@@ -46,7 +47,7 @@ import torch
 from ..core import rng
 from ..core.config import Config
 from ..ops.adversary import (AGG_TELEMETRY, CRASH_TELEMETRY, SAFETY_TELEMETRY,
-                             bitcast_i32)
+                             bitcast_i32, open_drop_plain)
 from ..ops.flight import (add_plain, bucket_counts_plain, check_recorder,
                           window_of)
 from ..ops.viewsync import SYNC_TELEMETRY, sync_counts_plain
@@ -147,14 +148,16 @@ def lane_at_rest(view) -> torch.Tensor:
 def _open_from(cfg: Config, seed, r: int, src, N: int) -> torch.Tensor:
     """[B, N] bool: SPEC §2 openness of the round's broadcast row from the
     [B] node ids ``src`` to every node, on absolute edge keys: the
-    delivery mixer's draw of (src, j) is not below the drop cutoff and, in
-    a round whose partition is active, j drew src's side (the JAX round's
-    ``_bcast_open``, lines 243-256). Rows from one sender draw the same
-    words, whichever phase sends them."""
+    delivery mixer's draw of (src, j) is not below the drop cutoff, or a
+    flight lost on (src, j) in one of the last ``max_delay_rounds`` rounds
+    arrives now (SPEC §A.2), and, in a round whose partition is active, j
+    drew src's side (the JAX round's ``_bcast_open``, lines 243-256). Rows
+    from one sender draw the same words, whichever phase sends them."""
     useed = rng.as_u32(seed)[:, None]
     j = torch.arange(N, dtype=torch.int64, device=seed.device)
     s = src.to(torch.int64)[:, None]
-    ok = rng.delivery_u32_plain(useed, r, s, j) >= cfg.drop_cutoff
+    ok = open_drop_plain(useed, r, s, j, cfg.drop_cutoff,
+                         cfg.max_delay_rounds)
     part = rng.random_u32_plain(seed, rng.STREAM_PARTITION, r, 0, 0) \
         < cfg.partition_cutoff                                   # [B, 1]
     side = rng.threefry2x32_plain(useed ^ rng.STREAM_PARTITION, r, 1, j) & 1
@@ -214,8 +217,8 @@ def hotstuff_propose(cfg: Config, seed, r: int, view, b1_h, lane):
     _build.launch("hotstuff_propose", seed.data_ptr(), int(r) & 0xFFFFFFFF,
                   view.data_ptr(), b1_h.data_ptr(), lane.data_ptr(),
                   view1.data_ptr(), adv.data_ptr(), cfg.drop_cutoff,
-                  cfg.partition_cutoff, cfg.churn_cutoff, B, N,
-                  cfg.log_capacity)
+                  cfg.partition_cutoff, cfg.churn_cutoff,
+                  cfg.max_delay_rounds, B, N, cfg.log_capacity)
     hotstuff_propose.launches += 1
     return view1, adv
 
@@ -232,7 +235,9 @@ def hotstuff_vote_plain(cfg: Config, seed, r: int, view1, lane, b1_v, b1_h,
     broadcasts, else L = 0 and nobody hears a proposal. Node j receives it
     (``pdel``) when j == L or L's row to j is open, and its view after P1
     is not above V*; a receiver's vote reaches L when j == L or the
-    mixer's draw of edge (j, L) is not below the drop cutoff. The QC forms
+    mixer's draw of edge (j, L) is not below the drop cutoff or a vote lost
+    on (j, L) in one of the last ``max_delay_rounds`` rounds arrives now
+    (SPEC §A.2, the JAX round's lines 303-309). The QC forms
     when the lane's votes, added to ``lane[:, VOTES]``, reach Q = 2f + 1;
     then b1, b2, b3 shift, ``chain_v[h_next]`` takes V* (in place), and
     with three consecutive views the global commit becomes max(gcommit,
@@ -249,8 +254,8 @@ def hotstuff_vote_plain(cfg: Config, seed, r: int, view1, lane, b1_v, b1_h,
     is_l = idx == L[:, None]
     useed = rng.as_u32(seed)[:, None]
     open_p = _open_from(cfg, seed, r, L, N)
-    open_v = rng.delivery_u32_plain(useed, r, idx, L[:, None]) \
-        >= cfg.drop_cutoff
+    open_v = open_drop_plain(useed, r, idx, L[:, None], cfg.drop_cutoff,
+                             cfg.max_delay_rounds)
     pdel = exists[:, None] & (is_l | open_p) & (view1 <= vstar[:, None])
     cnt = lane[:, VOTES] + (pdel & (is_l | open_v)).sum(1)
     qc = exists & (cnt >= Q)
@@ -301,7 +306,8 @@ def hotstuff_vote(cfg: Config, seed, r: int, view1, lane, b1_v, b1_h, b2_v,
                   view1.data_ptr(), lane.data_ptr(),
                   *(x.data_ptr() for x in regs), chain_v.data_ptr(),
                   pdel.data_ptr(), new.data_ptr(), cfg.drop_cutoff,
-                  cfg.partition_cutoff, 2 * cfg.f + 1, B, N, S)
+                  cfg.partition_cutoff, cfg.max_delay_rounds, 2 * cfg.f + 1,
+                  B, N, S)
     hotstuff_vote.launches += 1
     return (pdel, *new.unbind(0))
 

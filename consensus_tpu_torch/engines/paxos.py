@@ -411,7 +411,8 @@ def paxos_round(cfg: Config, st: PaxosState, r: int, *, telem=None,
                          "accumulator: pass telem with flight")
 
     # ---- The round's delivery mask (KL).
-    deliver = delivery(seed, r, N, cfg.drop_cutoff, cfg.partition_cutoff)
+    deliver = delivery(seed, r, N, cfg.drop_cutoff, cfg.partition_cutoff,
+                       cfg.max_delay_rounds)
 
     # ---- Phases 1-2: prepares and promises (KY).
     new_promised, n_prom, best_bal, best_a, prep_del, *pairs = paxos_promise(

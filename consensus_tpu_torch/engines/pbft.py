@@ -491,7 +491,8 @@ def pbft_round(cfg: Config, st: PbftState, r: int, n_real, f, *, telem=None,
                          "accumulator: pass telem with flight")
 
     # ---- The round's delivery mask (KL).
-    deliver = delivery(seed, r, N, cfg.drop_cutoff, cfg.partition_cutoff)
+    deliver = delivery(seed, r, N, cfg.drop_cutoff, cfg.partition_cutoff,
+                       cfg.max_delay_rounds)
 
     # ---- P0 churn, P1 catch-up, P2 timeout, P3 pre-prepare (KQ), with
     # P1's flags when the telemetry counts them.

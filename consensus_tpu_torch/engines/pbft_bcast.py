@@ -1,7 +1,8 @@
 """PBFT under the broadcast-atomic fault model (SPEC §6b) in PyTorch.
 
 The port of ``consensus_tpu/engines/pbft_bcast.py`` on its flat path (no
-crash, delay, byzantine, switch or desync gates), with its telemetry and
+crash, byzantine, switch or desync gates; with the SPEC §A.2 delayed
+retransmission on the per-sender broadcast key), with its telemetry and
 flight recorder (kernel KAA, ``engines/pbft.py``
 :func:`~consensus_tpu_torch.engines.pbft.pbft_telemetry`, as the dense
 engine's), and, through the same functions, of
@@ -50,7 +51,7 @@ import torch
 
 from ..core import rng
 from ..core.config import Config
-from ..ops.adversary import churn
+from ..ops.adversary import churn, open_drop_plain
 from . import pbft
 from .pbft import PbftState, fresh_values, real_nodes, view_bound
 from .raft import check_all
@@ -89,12 +90,16 @@ def table_cap(cfg: Config, rungs=None) -> int:
 def node_bits(cfg: Config, seed, r: int, n_real) -> torch.Tensor:
     """[B, N] uint8, each node's byte of round ``r``: bit 0 set for a real
     node whose broadcast goes out (the delivery draw keyed (i, i) at or
-    above the drop cutoff), bit 1 its partition side (the Threefry draw
-    (r, 1, i) & 1) in a round whose partition is active, else 0."""
+    above the drop cutoff, or a broadcast dropped in one of the last
+    ``max_delay_rounds`` rounds retransmitted now: SPEC §A.2 on the same
+    self-edge key, JAX ``pbft_bcast.py:381-386``), bit 1 its partition
+    side (the Threefry draw (r, 1, i) & 1) in a round whose partition is
+    active, else 0."""
     N = cfg.n_nodes
     idx = torch.arange(N, dtype=torch.int64, device=seed.device)
     useed = rng.as_u32(seed)[:, None]
-    bc = rng.delivery_u32_plain(useed, r, idx, idx) >= cfg.drop_cutoff
+    bc = open_drop_plain(useed, r, idx, idx, cfg.drop_cutoff,
+                         cfg.max_delay_rounds)
     bits = (bc & real_nodes(n_real, N)).to(torch.uint8)
     if not cfg.no_partition:
         active = rng.random_u32_plain(seed, rng.STREAM_PARTITION, r, 0, 0) \
@@ -244,7 +249,8 @@ def bcast_view_preprepare(cfg: Config, seed, r: int, n_real, f, view, timer,
     catch = torch.empty_like(reset) if want_catch else None
     _build.launch("bcast_view_preprepare", seed.data_ptr(),
                   int(r) & 0xFFFFFFFF, cfg.churn_cutoff, cfg.drop_cutoff,
-                  cfg.partition_cutoff, cfg.view_timeout, vmax,
+                  cfg.partition_cutoff, cfg.max_delay_rounds,
+                  cfg.view_timeout, vmax,
                   *(t.data_ptr() for t in (
                       n_real, f, view, timer, pp_seen, pp_view, pp_val,
                       prepared, committed, view_out, timer_out, reset,

@@ -618,7 +618,8 @@ def raft_round(cfg: Config, st: RaftState, r: int, *, telem=None,
                          "accumulator: pass telem with flight")
 
     # ---- The round's delivery mask (KL).
-    deliver = delivery(seed, r, N, cfg.drop_cutoff, cfg.partition_cutoff)
+    deliver = delivery(seed, r, N, cfg.drop_cutoff, cfg.partition_cutoff,
+                       cfg.max_delay_rounds)
 
     # ---- P0 churn, P1 candidacy, P2 election (KM), with the winners when
     # the telemetry counts them.

@@ -773,7 +773,8 @@ def raft_sparse_round(cfg: Config, st: RaftSparseState, r: int, *,
 
     def dedge(ids, ids_are_src):
         return delivery_edges(seed, r, ids, N, cfg.drop_cutoff,
-                              cfg.partition_cutoff, ids_are_src)
+                              cfg.partition_cutoff, ids_are_src,
+                              cfg.max_delay_rounds)
 
     log_term, log_val = st.log_term, st.log_val
 

@@ -2,7 +2,8 @@
 
 Every knob of the JAX package's Config that the port does not implement yet
 raises when set off its default, on the dense engine as on the capped one
-and on the Paxos and DPoS engines, telemetry on a PBFT f-ladder raises (as
+and on the Paxos and DPoS engines, alone and beside a SPEC §A.2 delay
+(which the port runs, in [0, 16]); telemetry on a PBFT f-ladder raises (as
 the JAX package's ladder has none), and the entry points raise without a
 GPU unless the caller asks for the CPU.
 """
@@ -11,6 +12,7 @@ import dataclasses
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401  (bounds torch's CPU threads)
 
 from consensus_tpu_torch import Config  # noqa: E402
 from consensus_tpu_torch.core import config as tconfig  # noqa: E402
@@ -20,7 +22,7 @@ OK = dict(protocol="raft", n_nodes=9, n_rounds=4, max_active=2)
 
 OFF_DEFAULT = {
     "crash_prob": 0.1, "recover_prob": 0.1, "max_crashed": 1,
-    "max_delay_rounds": 2, "attack": "elect", "attack_rate": 0.5,
+    "attack": "elect", "attack_rate": 0.5,
     "attack_target": 1, "net_model": "switch", "n_aggregators": 2,
     "n_byzantine": 1, "byz_mode": "equivocate", "desync_rate": 0.1,
     "miss_rate": 0.1, "suppress_rate": 0.1, "suppress_window": 8,
@@ -143,19 +145,40 @@ def test_pbft_takes_any_slot_count():
     dict(n_rounds=0),
     dict(telemetry_window=-1),
     dict(protocol="pbft", f=2),         # n_nodes 9 is not 3f + 1
+    dict(max_delay_rounds=17),          # SPEC §A.2: at most 16
+    dict(max_delay_rounds=-1),
 ])
 def test_out_of_range_settings_raise(bad):
     with pytest.raises(ValueError):
         Config(**{**OK, **bad})
 
 
+@pytest.mark.parametrize("delay", [17, -1])
+def test_max_delay_out_of_range_raises_with_the_jax_message(delay):
+    from consensus_tpu import Config as JConfig
+    with pytest.raises(ValueError) as want:
+        JConfig(**{**OK, "max_delay_rounds": delay})
+    with pytest.raises(ValueError) as got:
+        Config(**{**OK, "max_delay_rounds": delay})
+    assert str(got.value) == str(want.value)
+
+
+@pytest.mark.parametrize("knob", sorted(OFF_DEFAULT))
+def test_unsupported_knob_raises_beside_a_delay(knob):
+    """A delay, which the port runs, lets no other gate through."""
+    Config(**{**OK, "max_delay_rounds": 16})
+    with pytest.raises(ValueError, match=knob):
+        Config(**{**OK, "max_delay_rounds": 2, knob: OFF_DEFAULT[knob]})
+
+
 HOTSTUFF_OK = dict(protocol="hotstuff", f=2, n_nodes=7, n_rounds=4,
                    view_timeout=4)
 # Each gate of the JAX HotStuff engine (consensus_tpu/engines/hotstuff.py
-# lines 204-230, 326-392, 435-454), which the port's flat path does not run.
+# lines 204-230, 326-392, 435-454) that the port does not run yet; the SPEC
+# §A.2 delay (lines 243-256, 303-309) it runs.
 HOTSTUFF_GATES = {
     "crash": dict(crash_prob=0.1), "recover": dict(recover_prob=0.3),
-    "max-crashed": dict(max_crashed=2), "delay": dict(max_delay_rounds=2),
+    "max-crashed": dict(max_crashed=2),
     "desync": dict(desync_rate=0.1), "byz-silent": dict(n_byzantine=1),
     "byz-equivocate": dict(n_byzantine=1, byz_mode="equivocate"),
     "switch": dict(net_model="switch", n_aggregators=2),
@@ -174,6 +197,14 @@ def test_hotstuff_is_a_protocol_of_the_port():
 def test_hotstuff_gates_raise(gate):
     with pytest.raises(ValueError, match="not supported by the port"):
         Config(**{**HOTSTUFF_OK, **HOTSTUFF_GATES[gate]})
+
+
+@pytest.mark.parametrize("gate", list(HOTSTUFF_GATES))
+def test_hotstuff_gates_raise_beside_a_delay(gate):
+    Config(**{**HOTSTUFF_OK, "max_delay_rounds": 8})
+    with pytest.raises(ValueError, match="not supported by the port"):
+        Config(**{**HOTSTUFF_OK, "max_delay_rounds": 8,
+                  **HOTSTUFF_GATES[gate]})
 
 
 def test_knobs_of_other_protocols_are_not_fields():

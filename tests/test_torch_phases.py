@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401  (bounds torch's CPU threads)
 
 from consensus_tpu_torch import Config  # noqa: E402
 from consensus_tpu_torch.engines import raft_sparse as trs  # noqa: E402

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401  (bounds torch's CPU threads)
 
 from consensus_tpu import Config as JConfig  # noqa: E402
 from consensus_tpu.network import runner as jrunner  # noqa: E402

@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401  (bounds torch's CPU threads)
 
 from consensus_tpu.core import rng as jrng  # noqa: E402
 from consensus_tpu_torch.core import rng  # noqa: E402

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch_threads  # noqa: E402,F401  (bounds torch's CPU threads)
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
