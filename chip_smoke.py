@@ -194,6 +194,34 @@ Phases, each printing one JSON line:
                pbft-100k-bcast, dpos-100k and hotstuff-100k's storm runs
                with telemetry and 8-round windows against JAX-made
                counter and recorder anchors.
+16. crash    — SPEC §6c crash-recover on the six engines that run it.
+               KAH (``csrc/crash_transition.cu``, the round's transition
+               and crash tail) against its plain version on random down
+               masks at N = 1, 7 and 100 000 (B = 8), max_crashed 0, 1, 3
+               and N, cutoffs (0.12, 0.35) and (0.99, 0.99), rounds 0, 3
+               and 20, with the totals and window ring; then every kernel
+               call of round 20 (paxos-10kx10k: 15) of each flagship's
+               crash run (raft-100k, raft-1kx1k, pbft-f128,
+               pbft-100k-bcast, paxos-10kx10k, dpos-100k; uncapped with
+               telemetry and 8-round windows, and capped) against its plain
+               version, KAI (``csrc/freeze_down.cu``, the PBFT freeze) on
+               its leaves; each kernel's time on the uncapped round, the
+               CRASH instances also through their flat instance on the
+               same inputs, its plain version's time and its bound. Then
+               ``simulator.run`` of each flagship under
+               crash-churn-under-partition's overrides (crash 0.12,
+               recover 0.35, max_crashed 2, partition 0.25, churn 0.05,
+               drop 0.05: the cap binds) and under tests/test_crash.py's
+               CRASH (crash 0.15, recover 0.3, no cap), and raft-100k with
+               that crash and max_delay_rounds = 6, each replayed as one
+               CUDA graph: the JAX-made anchors from the replay and the
+               eager loop, the engine's kernels, KAH and (PBFT) KAI
+               launched and no other (counted from 0), steps per second,
+               replay wall, busy share and KAH's share; and the uncapped
+               runs of raft-100k, pbft-100k-bcast, paxos-10kx10k and
+               dpos-100k with telemetry and 8-round windows against
+               JAX-made counter (crash tail included) and recorder
+               anchors, replay against eager loop.
 
 Then the card's name and power limit, one ``{"kernels": [...]}`` line, and
 last ``{"ok": true, "device": {...}}``. The kernels line takes each
@@ -202,7 +230,8 @@ raft-100k's, KK from raft-100k's with telemetry, KL-KO from raft-1kx1k's,
 KP from raft-1kx1k's with telemetry, KQ-KS from the dense ladder's, KT-KV
 from pbft-100k-bcast's, KW-KX from dpos-100k's, KY-KZ from
 paxos-10kx10k's, KAA, KAB and KAC from pbft-100k-bcast's, dpos-100k's and
-paxos-10kx10k's with telemetry, and KAD-KAG from hotstuff-100k's; the other
+paxos-10kx10k's with telemetry, KAD-KAG from hotstuff-100k's, and KAH and
+KAI from raft-100k's and pbft-100k-bcast's uncapped crash runs; the other
 runs' counts are in their phases' lines. Any
 failure, or no GPU, exits non-zero without that last line.
 """
@@ -333,9 +362,8 @@ def graph_ms(fn, args, reps: int = 20) -> float:
     best = float("inf")
     for _ in range(3):
         for a, o in zip(calls, originals):
-            for t, u in zip(a, o):
-                if isinstance(t, torch.Tensor):
-                    t.copy_(u)
+            for t, u in zip(tensors_of(a), tensors_of(o)):
+                t.copy_(u)
         flush.fill_(0)
         start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
         start.record()
@@ -625,8 +653,24 @@ def flagship_config(**kw):
 
 
 def clone_args(args):
-    return tuple(a.clone() if isinstance(a, torch.Tensor) else a
-                 for a in args)
+    """``args`` with every tensor cloned, also inside lists and tuples (KAI
+    takes its leaves as a list of (dst, src, reset) tuples)."""
+    def clone(a):
+        if isinstance(a, torch.Tensor):
+            return a.clone()
+        if type(a) in (list, tuple):
+            return type(a)(clone(x) for x in a)
+        return a
+    return tuple(clone(a) for a in args)
+
+
+def tensors_of(args):
+    """The tensors of ``args``, also inside lists and tuples, in order."""
+    for a in args:
+        if isinstance(a, torch.Tensor):
+            yield a
+        elif type(a) in (list, tuple):
+            yield from tensors_of(a)
 
 
 @contextlib.contextmanager
@@ -692,8 +736,7 @@ def run_pair(name: str, args) -> list:
     if isinstance(got, torch.Tensor):
         got, want = (got,), (want,)
     pairs = list(zip(got or (), want or ()))
-    return pairs + [(k, p) for k, p in zip(ka, pa)
-                    if isinstance(k, torch.Tensor)]
+    return pairs + list(zip(tensors_of(ka), tensors_of(pa)))
 
 
 def edge_phase_inputs(dev, gen) -> dict:
@@ -1289,12 +1332,13 @@ def check_dense_kernels(dev, gen) -> list[dict]:
 # --- phase 3, continued: the dense PBFT round's kernels KQ-KS, and KP --------
 
 PBFT = ("pbft_view_preprepare", "pbft_tally", "pbft_decide")
-# The kernels that no run of the capped engine launches.
+# The kernels that no flat run of the capped engine launches (KAH runs only
+# under SPEC §6c, KAI only in a PBFT round under it).
 NOT_CAPPED = DENSE + ("dense_telemetry",) + PBFT + (
     "bcast_view_preprepare", "bcast_tally", "bcast_decide", "dpos_schedule",
     "dpos_round", "paxos_promise", "paxos_accept_learn", "pbft_telemetry",
     "dpos_telemetry", "paxos_telemetry", "hotstuff_propose", "hotstuff_vote",
-    "hotstuff_learn", "hotstuff_extract")
+    "hotstuff_learn", "hotstuff_extract", "crash_transition", "freeze_down")
 PBFT_REPLACES = {
     "pbft_view_preprepare": "consensus_tpu/engines/pbft.py:209 pbft_round "
                             "P0-P3, consensus_tpu/engines/pbft.py:72 "
@@ -4147,17 +4191,26 @@ def delay_draws(name: str, args) -> int:
 
 
 def flat_work(name: str, args) -> tuple[float, float]:
-    """(bytes, 32-bit operations) that kernel ``name``'s bound without the
-    delay counts on ``args``: phase 3's bound function of the kernel
-    (KB's as check_delivery_edges counts it), with ``bound`` swapped for
-    the pair while it runs."""
+    """(bytes, 32-bit operations) that kernel ``name``'s bound on its flat
+    arguments ``args`` counts: phase 3's bound function of the kernel (KB's
+    and KC's as check_delivery_edges and check_top_active count them),
+    with ``bound`` swapped for the pair while it runs."""
     global bound
     if name == "delivery_edges":
         b, a = args[2].shape
         n = args[3]
         return b * a * n + 4 * b * a + 4 * b, EDGE_OPS * b * a * n
-    fn = {"delivery": dense_bound, "bcast_view_preprepare": bcast_bound,
-          "dpos_round": dpos_bound, "hotstuff_propose": hotstuff_bound,
+    if name == "top_active":
+        b, n = args[0].shape
+        return b * n * 5 + 4 * b * args[2], 4 * b * n
+    fn = {**dict.fromkeys(PHASES, phase_bound),
+          **dict.fromkeys(DENSE, dense_bound),
+          "dense_telemetry": pbft_bound, **dict.fromkeys(PBFT, pbft_bound),
+          **dict.fromkeys(BCAST, bcast_bound),
+          **dict.fromkeys(DPOS, dpos_bound),
+          **dict.fromkeys(PAXOS, paxos_bound),
+          **dict.fromkeys(TELEMETRY, telemetry_bound),
+          "hotstuff_propose": hotstuff_bound,
           "hotstuff_vote": hotstuff_bound}[name]
     saved = bound
     bound = lambda nbytes, ops: (nbytes, ops)   # noqa: E731
@@ -4375,6 +4428,428 @@ def check_storm_runs(card: str, smi: str) -> None:
          profiler_sessions_redone=REDONE, card=card, power=smi)
 
 
+# --- phase 16: SPEC §6c crash-recover ----------------------------------------
+
+# consensus_tpu/scenarios/__init__.py crash-churn-under-partition's overrides
+# (lines 216-218): at N = 100 000 the cap of 2 binds nearly every round.
+CHURN_PARTITION = dict(crash_prob=0.12, recover_prob=0.35, max_crashed=2,
+                       partition_rate=0.25, churn_rate=0.05, drop_rate=0.05)
+# tests/test_crash.py's CRASH (line 32), no cap, over each flagship's own
+# drop and churn: about a third of the nodes are down, which loads the
+# freeze.
+CRASH = dict(crash_prob=0.15, recover_prob=0.3)
+# The six flagships of the engines that run §6c, at their own shapes.
+CRASH_FLAGSHIPS = {
+    "raft-100k": flagship_config,
+    "raft-1kx1k": lambda **kw: dense_config("raft-1kx1k", **kw),
+    "pbft-f128": lambda **kw: pbft_config(128, **kw),
+    "pbft-100k-bcast": bcast_config,
+    "paxos-10kx10k": lambda **kw: protocol_config(PAXOS_FLAGSHIP, **kw),
+    "dpos-100k": lambda **kw: protocol_config(DPOS_FLAGSHIP, **kw),
+}
+CRASH_SETTINGS = {"capped": CHURN_PARTITION, "uncapped": CRASH,
+                  "composed": dict(CRASH, max_delay_rounds=6)}
+# The crash runs' anchors, made by the JAX package on the CPU and again by
+# the C++ oracle (engine="cpu"), which agrees on each:
+#
+#   JAX_PLATFORMS=cpu python3 - <<'EOF'
+#   import dataclasses, chip_smoke
+#   from consensus_tpu import Config
+#   from consensus_tpu.network import simulator
+#   for key in chip_smoke.CRASH_RUNS:
+#       cfg = Config(**dataclasses.asdict(chip_smoke.crash_config(key)))
+#       print(key, simulator.run(cfg, warmup=False).digest,
+#             simulator.run(dataclasses.replace(cfg, engine="cpu"),
+#                           warmup=False).digest)
+#   EOF
+#
+# (the JAX runs took 2.5-524 s each on eight cores: raft-1kx1k capped
+# 524 s, paxos-10kx10k uncapped 389 s; nothing cut). "composed" is
+# raft-100k with the uncapped crash and max_delay_rounds = 6, as
+# chained-commit-stall composes a crash with a delay.
+CRASH_RUNS = {
+    "raft-100k/capped":
+        "1c628d861580d94c3fff8b95ad25bddd60ca7baebefc32a8d590c43b39dd8f03",
+    "raft-100k/uncapped":
+        "9cb5a3412169891321f5794db88a2805b4861a52ac9d36f13adef7f13875a346",
+    "raft-100k/composed":
+        "9fe2192dbc06dd922e54221eef2b8ceb9008bab3ad48f46388ff6648f944c00a",
+    "raft-1kx1k/capped":
+        "75bb923135ff35b31068c9684effc0979c61c7fb2576fea51c952ff5ed8151a5",
+    "raft-1kx1k/uncapped":
+        "dc56c01682c1d4d5aa257e83648e582d41d5618bf6f569ef4031b6d5facc3a15",
+    "pbft-f128/capped":
+        "0a5e5c1646063c5bd1b6bda99f73d28075aebcc98e017735f53a90903c37e683",
+    "pbft-f128/uncapped":
+        "186525cde1e28f8ae11f0e99679744c7e902594f8c294f8b7192b3e72022261c",
+    "pbft-100k-bcast/capped":
+        "7616e77c118d61375c12910024b9e237f5725ab6ba1fe78fd1c0e4c5bd155dd2",
+    "pbft-100k-bcast/uncapped":
+        "396a17add49b3e125d31a13d052f2a58582c86c755ed599c2ad46b256a516317",
+    "paxos-10kx10k/capped":
+        "60640d8d8e47668f8f15544271e7926a2467826ebf8408ad11256a5749635268",
+    "paxos-10kx10k/uncapped":
+        "9b6be8f77b6a953aaf4278d35124130703f6b8cc5879f32d772cd8631a2c6205",
+    "dpos-100k/capped":
+        "2328d9899e2836506c64e808a1f6b03a14471efe2a163cc4e49cf5488ddabfb7",
+    "dpos-100k/uncapped":
+        "66d7a0664014aec4af2122a84153c5a065db42aecd8b65b0b8dfe96413c1db48",
+}
+# dpos-100k's LIB under each crash setting (extras["lib"], hashed as
+# DPOS_LIB_SHA256 is), made by the JAX package with the anchors above.
+CRASH_DPOS_LIB_SHA256 = {
+    "dpos-100k/capped":
+        "e049d8deac20334e86661468a6fd81becbb2fa9fa55835f9b3795d8315930b2e",
+    "dpos-100k/uncapped":
+        "6c72cae9e005e0449c9861b5205b3c0221d05cb66ca5a8df29e615c7230e227c"}
+# The uncapped runs again with telemetry and 8-round windows: (nonzero
+# counter totals, flight_digest), made by the JAX package on the CPU as
+# BFT_TELEMETRY's were.
+CRASH_TELEMETRY = {
+    "raft-100k": (
+        {"leader_elections": 62, "append_accepted": 11796319,
+         "append_rejected": 6852141, "entries_committed": 13327116,
+         "crashes": 5765336, "recoveries": 5468659, "nodes_down": 18527198},
+        "329dfead2f46de86bf708cd9971abccc0c68386c93c9517a0a2c7639e7e52a18"),
+    "pbft-100k-bcast": (
+        {"prepare_quorums": 1864956, "prepare_missed": 500261660,
+         "commit_quorums": 1864956, "commits_adopted": 635044,
+         "view_changes": 1474388, "crashes": 5764054, "recoveries": 5466661,
+         "nodes_down": 18528074, "view_spread_max": 1435,
+         "desync_rounds": 419},
+        "b8efefe5d93f04bfc52f16960f7a86f6d32454f07a1ecbcd5e7c80dfe3c14f50"),
+    "paxos-10kx10k": (
+        {"promises": 509685233, "nacks": 191065747, "accepts": 508123449,
+         "proposals_decided": 77458, "values_learned": 98704795,
+         "crashes": 18678, "recoveries": 15009, "nodes_down": 53455},
+        "231de5fcfd04b99b18162501b9bf76e891e791d6f754ee37504f8690f7b5e7b9"),
+    "dpos-100k": (
+        {"blocks_appended": 9636590, "missed_appends": 15963410,
+         "producer_rotations": 255, "crashes": 2854639, "recoveries": 2817675,
+         "nodes_down": 9429871},
+        "f3d548d7894fee53e4a089536dbe7436e33fad262e7537c928301c54ad88924c"),
+}
+# The round of each crash run whose kernel calls phase 16 holds against the
+# plain versions and times (paxos-10kx10k has 16 rounds: its last).
+CRASH_ROUND = {"paxos-10kx10k": 15}
+# The kernels with a CRASH instance; each takes what picks it (the round's
+# flag word, or a crash mode) as its last positional argument.
+CRASH_INSTANCES = ("delivery_edges", "candidacy", "elect", "acks_commit",
+                   "delivery", "dense_elect", "dense_append",
+                   "dense_acks_commit", "pbft_view_preprepare",
+                   "bcast_view_preprepare", "bcast_tally", "bcast_decide",
+                   "pbft_telemetry", "dpos_round", "paxos_promise")
+CRASH_OWN = ("crash_transition", "freeze_down")
+CRASH_REPLACES = {
+    "crash_transition": "consensus_tpu/ops/adversary.py:101 "
+                        "crash_transition, :143 crash_counts",
+    "freeze_down": "consensus_tpu/ops/adversary.py:133 freeze_down"}
+
+
+def crash_config(key: str, **kw):
+    """The crash run ``key`` ("<flagship>/<setting>"), changed by ``kw``."""
+    name, setting = key.split("/")
+    return CRASH_FLAGSHIPS[name](**CRASH_SETTINGS[setting], **kw)
+
+
+def crash_path(engine_name: str, telemetry: bool = False):
+    """The kernels a crash run of the engine launches: its flat path's
+    (with telemetry, its telemetry path's), KAH, and KAI where the engine
+    freezes by a launch of its own."""
+    raft_tail = {"raft-sparse": ("telemetry",), "raft": ("dense_telemetry",)}
+    if telemetry and engine_name in raft_tail:
+        base = path_kernels(engine_name) + raft_tail[engine_name]
+    elif telemetry:
+        base = TELEMETRY_PATHS[engine_name]
+    else:
+        base = path_kernels(engine_name)
+    freeze = ("freeze_down",) if engine_name in ("pbft", "pbft-bcast") \
+        else ()
+    return base + ("crash_transition",) + freeze
+
+
+@contextlib.contextmanager
+def recording_everywhere(got):
+    """Every kernel wrapper, in every module of the port that holds it,
+    replaced by a stand-in that appends a clone of its arguments to
+    ``got[name]`` and calls it (the §6c wrappers are called from several
+    modules)."""
+    from consensus_tpu_torch.network import runner
+    wrappers = {name: getattr(mod, name) for mod, name in runner.KERNELS}
+    swapped = []
+    for mod_name, mod in list(sys.modules.items()):
+        if not mod_name.startswith("consensus_tpu_torch"):
+            continue
+        for name, fn in wrappers.items():
+            if getattr(mod, name, None) is fn:
+                def record(*args, fn=fn, name=name):
+                    got.setdefault(name, []).append(clone_args(args))
+                    return fn(*args)
+                record.launches = 0
+                setattr(mod, name, record)
+                swapped.append((mod, name, fn))
+    try:
+        yield
+    finally:
+        for mod, name, fn in swapped:
+            setattr(mod, name, fn)
+
+
+def capture_round_calls(cfg, r: int, telemetry: bool, device="cuda"):
+    """{wrapper: [arguments]}: every kernel call of round ``r`` of
+    ``cfg``'s eager run on ``device``, with telemetry and the recorder
+    where asked, cloned as it arrives."""
+    from consensus_tpu_torch.network import runner
+    eng = runner.engine(cfg)
+    lanes = runner.device_lanes(cfg, None, device)
+    seeds = lanes.pop("seed")
+    telem, flight = (runner.accumulators(cfg, device) if telemetry
+                     else (None, None))
+    st = runner.advance(cfg, eng.init(cfg, seeds), 0, r, telem=telem,
+                        flight=flight, lanes=lanes)
+    acc = {} if telem is None else dict(telem=telem, flight=flight)
+    statics = eng.statics(cfg, None) if eng.statics else {}
+    got: dict = {}
+    with recording_everywhere(got):
+        eng.round(cfg, st, r, **lanes, **acc, **statics)
+    return got
+
+
+# The CRASH instances picked by a crash argument, and its flat value; the
+# others are picked by the round's flag word (None on the flat path).
+CRASH_MODES = {"bcast_tally": False, "bcast_decide": False,
+               "pbft_telemetry": 0}
+
+
+def flat_instance(name: str, args):
+    """``args`` of CRASH-instance kernel ``name`` with its last positional
+    argument, which picks the instance, set to the flat path's value."""
+    return (*args[:-1], CRASH_MODES.get(name))
+
+
+def crash_kernel_bound(name: str, args) -> tuple[float, str]:
+    """The least time of kernel ``name``'s work on crash-run ``args``:
+    for KAH the three [B, N] byte rows and the Threefry draws these masks
+    need, for KAI the flag bytes and each down node's rows read and
+    written once, for any other kernel its flat bound on the same inputs
+    plus one flag byte a node where its CRASH instance reads the flags."""
+    from consensus_tpu_torch.ops import adversary
+    if name == "crash_transition":
+        seed, down = args[0], args[2]
+        b, n = down.shape
+        draws = int(down.sum()) + int((~down).sum())
+        return bound(3 * b * n + 4 * b, THREEFRY_OPS * draws + 8 * b * n)
+    if name == "freeze_down":
+        flags, leaves = args
+        dn = int(((flags & adversary.CRASH_DOWN) != 0).sum())
+        row = sum(d[0, 0].numel() * d.element_size() for d, _, _ in leaves)
+        return bound(flags.numel() + 2 * dn * row, flags.numel())
+    flat = flat_instance(name, args) if name in CRASH_MODES else args[:-1] \
+        if name in CRASH_INSTANCES else args
+    # The bound functions that unpack a flat call without its options.
+    flat = flat[:{"bcast_view_preprepare": 12, "dpos_round": 7}.get(
+        name, len(flat))]
+    nbytes, ops = flat_work(name, flat)
+    flags = args[-1]
+    if isinstance(flags, torch.Tensor):
+        nbytes += flags.numel()
+    return bound(nbytes, ops)
+
+
+def reps_for(args) -> int:
+    """Calls a timing of ``args`` makes (each on clones of its own): 20,
+    fewer where that would take more than 8 GB (paxos-10kx10k's rows)."""
+    size = sum(t.nbytes for t in tensors_of(args))
+    return max(2, min(20, (8 << 30) // (2 * max(size, 1))))
+
+
+def random_crash_args(dev, gen) -> list:
+    """KAH's arguments on random down masks at N = 1, 7 and 100 000 (B =
+    8), max_crashed 0, 1, 3 and N, cutoffs (0.12, 0.35) and (0.99, 0.99),
+    rounds 0, 3 and 20, with the totals and the window ring."""
+    from consensus_tpu_torch.core import rng
+    out = []
+    for n in (1, 7, N):
+        seeds = torch.randint(0, 2**32, (B,), generator=gen, device=dev,
+                              dtype=torch.int64).to(torch.uint32)
+        for cap in sorted({0, 1, 3, n}):
+            for crash, rec in ((0.12, 0.35), (0.99, 0.99)):
+                for r in (0, 3, 20):
+                    down = torch.rand((B, n), generator=gen, device=dev) \
+                        < 0.3
+                    t = torch.randint(0, 9, (B, 11), generator=gen,
+                                      device=dev, dtype=torch.int32)
+                    w = torch.randint(0, 9, (B, 3, 11), generator=gen,
+                                      device=dev, dtype=torch.int32)
+                    out.append((seeds, r, down,
+                                rng.prob_threshold_u32(crash),
+                                rng.prob_threshold_u32(rec), cap, t, w, 5,
+                                2))
+    return out
+
+
+def check_crash_kernels(dev, gen):
+    """Phase 16's kernel rows. KAH against its plain version on random
+    masks (:func:`random_crash_args`); then, for each flagship, every
+    kernel call of round 20 (paxos-10kx10k: 15) of its uncapped crash run
+    with telemetry and 8-round windows and of its capped one without,
+    against the plain versions (KAI's on its leaves), each kernel timed
+    on the uncapped call (the largest where a round calls it more than
+    once), the CRASH instances also through their flat instance on the
+    same inputs, with the plain version's time and the bound. Yields the
+    rows of KAH and KAI first (with the phase-3 keys) and then one row a
+    (flagship, kernel)."""
+    random_args = random_crash_args(dev, gen)
+    err = max(max_abs_err(run_pair("crash_transition", a))
+              for a in random_args)
+    cases = {"crash_transition": len(random_args), "freeze_down": 0}
+    timed: dict = {}
+    errs = {"crash_transition": err, "freeze_down": 0.0}
+    rows = []
+    for flag, make in CRASH_FLAGSHIPS.items():
+        r = CRASH_ROUND.get(flag, 20)
+        for setting, telemetry in (("uncapped", True), ("capped", False)):
+            kw = dict(telemetry_window=WINDOW) if telemetry else {}
+            cfg = crash_config(f"{flag}/{setting}", **kw)
+            calls = capture_round_calls(cfg, r, telemetry, dev)
+            for name, arg_list in calls.items():
+                for args in arg_list:
+                    e = max_abs_err(run_pair(name, args))
+                    if name in errs:
+                        errs[name] = max(errs[name], e)
+                        cases[name] += 1
+                    require(e == 0.0, f"{name} on {flag}/{setting} round "
+                            f"{r} disagrees with its plain version")
+                if not telemetry:
+                    continue
+                # The call timed: the one with the most work.
+                args = max(arg_list, key=lambda a: crash_kernel_bound(
+                    name, a)[0])
+                if name in CRASH_OWN:
+                    if name not in timed or crash_kernel_bound(
+                            name, args)[0] > crash_kernel_bound(
+                                name, timed[name][1])[0]:
+                        timed[name] = (flag, args)
+                    continue
+                mod = kernel_module(name)
+                reps = reps_for(args)
+                row = dict(flagship=flag, name=name, round=r,
+                           calls_a_round=len(arg_list),
+                           crash_instance=name in CRASH_INSTANCES,
+                           ms=graph_ms(getattr(mod, name), args, reps),
+                           plain_ms=event_ms(getattr(mod, name + "_plain"),
+                                             args, min(5, reps)),
+                           bound=crash_kernel_bound(name, args))
+                if name in CRASH_INSTANCES:
+                    flat = flat_instance(name, args)
+                    row["flat_instance_ms"] = graph_ms(getattr(mod, name),
+                                                       flat, reps)
+                rows.append(row)
+    from consensus_tpu_torch.ops import adversary
+    for name in CRASH_OWN:
+        flag, args = timed[name]
+        ms = graph_ms(getattr(adversary, name), args)
+        plain = event_ms(getattr(adversary, name + "_plain"), args)
+        yield dict(name=name, route="cuda",
+                   source=f"consensus_tpu_torch/csrc/{name}.cu",
+                   replaces=CRASH_REPLACES[name], max_abs_err=errs[name],
+                   cases=cases[name], timed_on=f"{flag} uncapped crash "
+                   f"round {CRASH_ROUND.get(flag, 20)}", ms=ms,
+                   plain_ms=plain, bound=crash_kernel_bound(name, args),
+                   library_ms=None)
+    # KAH's cap instance, on raft-100k's capped round 20.
+    capped = capture_round_calls(crash_config("raft-100k/capped"), 20, False,
+                                 dev)["crash_transition"][0]
+    yield dict(name="crash_transition (cap instance)", flagship="raft-100k",
+               capped=True, ms=graph_ms(adversary.crash_transition, capped),
+               plain_ms=event_ms(adversary.crash_transition_plain, capped),
+               bound=crash_kernel_bound("crash_transition", capped))
+    yield from rows
+
+
+def check_crash_runs(card: str, smi: str) -> dict[str, int]:
+    """Phase 16's runs: ``simulator.run`` of each crash run CRASH_RUNS,
+    replayed as one CUDA graph, with every launch count set to 0 just
+    before each run and read just after it: its anchor from the replay and
+    from the eager loop, its engine's kernels, KAH and (PBFT) KAI launched
+    and no other; steps per second, replay wall, busy share and KAH's
+    share of the device time. Then CRASH_TELEMETRY's runs with telemetry
+    and 8-round windows: counters (crash tail included) and recorder equal
+    to their JAX anchors and to the eager loop's. Returns KAH's and KAI's
+    launches in raft-100k's and pbft-100k-bcast's uncapped runs."""
+    from consensus_tpu_torch.core import serialize
+    from consensus_tpu_torch.network import runner, simulator
+    rows, own = {}, {}
+    for key, digest in CRASH_RUNS.items():
+        cfg = crash_config(key)
+        memory, launches = counted(lambda: memory_use(
+            lambda: simulator.run(cfg)))
+        res = memory.pop("result")
+        eager = serialize.digest(simulator.decided_payload(
+            cfg, runner.run(cfg, graph=False))[3])
+        prof = profile_replay(cfg)
+        rows[key] = dict(
+            digest=res.digest, digest_ok=res.digest == digest,
+            eager_digest=eager, steps_per_sec=res.steps_per_sec,
+            wall_s=res.wall_s, launches=launches, **memory,
+            replay_wall_ms=prof["replay_wall_ms"],
+            busy_share=prof["busy_share"],
+            unprofiled_busy_share=prof["unprofiled_busy_share"],
+            device_ms=prof["device_ms"],
+            device_launches=prof["device_launches"],
+            crash_transition_share=prof["hand_kernel_ms"]["crash_transition"]
+            / prof["device_ms"],
+            hand_kernel_ms={k: v for k, v in prof["hand_kernel_ms"].items()
+                            if v})
+        if key in CRASH_DPOS_LIB_SHA256:
+            rows[key]["lib_sha256"] = hashlib.sha256(np.ascontiguousarray(
+                res.extras["lib"], dtype="<i8").tobytes()).hexdigest()
+            require(rows[key]["lib_sha256"] == CRASH_DPOS_LIB_SHA256[key],
+                    f"{key}: LIB {rows[key]['lib_sha256']}")
+        emit("crash_run", run=key, **rows[key], card=card, power=smi)
+        require(int(res.counts.max()) > 0, f"{key}: empty decided logs")
+        require(res.digest == digest, f"{key} digest {res.digest} != "
+                f"{digest}")
+        require(eager == digest, f"{key}: the eager loop's digest {eager}")
+        require_launched(launches, crash_path(runner.engine(cfg).name), key)
+        if key in ("raft-100k/uncapped", "pbft-100k-bcast/uncapped"):
+            own[key.split("/")[0]] = launches
+        runner.clear_graphs()
+    for name, (nonzero, flight) in CRASH_TELEMETRY.items():
+        cfg = crash_config(f"{name}/uncapped", telemetry_window=WINDOW)
+        eng = runner.engine(cfg)
+        res, launches = counted(lambda: simulator.run(cfg, telemetry=True))
+        tel, fl = res.extras["telemetry"], res.extras["flight"]
+        eager = runner.telemetry_stats(cfg, runner.run_device(
+            cfg, telemetry=True, graph=False))
+        want = {k: nonzero.get(k, 0) for k in eng.telemetry_names}
+        row = dict(
+            digest=res.digest,
+            digest_ok=res.digest == CRASH_RUNS[f"{name}/uncapped"],
+            totals=tel["totals"], totals_ok=tel["totals"] == want,
+            flight_sha256=flight_digest(fl),
+            flight_ok=flight_digest(fl) == flight,
+            graph_equals_eager=flight_digest(eager["flight"]) ==
+            flight_digest(fl) and all(
+                np.array_equal(eager["telemetry"][k], v)
+                for k, v in tel["per_sweep"].items()),
+            steps_per_sec=res.steps_per_sec, wall_s=res.wall_s,
+            launches=launches)
+        emit("crash_telemetry", run=name, **row, card=card, power=smi)
+        for check in ("digest_ok", "totals_ok", "flight_ok",
+                      "graph_equals_eager"):
+            require(row[check], f"{name} crash with telemetry: {check} "
+                    "fails")
+        require(min(tel["totals"][k] for k in ("crashes", "recoveries",
+                                                "nodes_down")) > 0,
+                f"{name}: the crash tail counted nothing")
+        require_launched(launches, crash_path(eng.name, telemetry=True),
+                         f"{name} crash with telemetry")
+        runner.clear_graphs()
+    return {"crash_transition": own["raft-100k"]["crash_transition"],
+            "freeze_down": own["pbft-100k-bcast"]["freeze_down"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4416,7 +4891,9 @@ def main() -> int:
                *check_dpos_paxos_kernels(dev, gen), *telemetry_rows,
                *check_hotstuff_kernels(dev, gen)]
     torch.cuda.synchronize()
-    require(sorted(k["name"] for k in kernels) == sorted(_build.SOURCES),
+    # The §6c kernels (KAH, KAI) are phase 16's.
+    require(sorted(k["name"] for k in kernels)
+            == sorted(set(_build.SOURCES) - set(CRASH_OWN)),
             "phase 3 does not check every kernel of csrc")
     # KQ, KT, KX, KY and KZ with their optional outputs, on the telemetry
     # runs' rounds.
@@ -4544,6 +5021,20 @@ def main() -> int:
         require(k["max_abs_err"] == 0.0,
                 f"{k['name']} with a delay disagrees with its plain version")
     check_storm_runs(card, smi)
+
+    # 16. SPEC §6c crash-recover: KAH, KAI and the round-20 calls of every
+    # kernel of the six engines' crash runs against their plain versions,
+    # then the crash runs.
+    for k in check_crash_kernels(dev, gen):
+        k["bound_ms"], k["bound_by"] = k.pop("bound")
+        if k["name"] in CRASH_OWN:
+            kernels.append(k)
+            require(k["max_abs_err"] == 0.0,
+                    f"{k['name']} disagrees with its plain version")
+        emit("crash_kernel", **k, card=card, power=smi)
+    launches.update(check_crash_runs(card, smi))
+    require(sorted(k["name"] for k in kernels) == sorted(_build.SOURCES),
+            "phases 3 and 16 do not check every kernel of csrc")
     for k in kernels:
         k["launches"] = launches[k["name"]]
 

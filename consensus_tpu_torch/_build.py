@@ -30,7 +30,8 @@ SOURCES = ("random_u32", "delivery_edges", "top_active", "append_entries",
            "bcast_tally", "bcast_decide", "dpos_schedule", "dpos_round",
            "paxos_promise", "paxos_accept_learn", "pbft_telemetry",
            "dpos_telemetry", "paxos_telemetry", "hotstuff_propose",
-           "hotstuff_vote", "hotstuff_learn", "hotstuff_extract")
+           "hotstuff_vote", "hotstuff_learn", "hotstuff_extract",
+           "crash_transition", "freeze_down")
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "build" / \
@@ -47,8 +48,8 @@ SIGNATURES = {
     # seed, stream, (ctx, c0, c1) x (ptr, scalar, batch stride), out, B, M
     "random_u32": (_P, _U, _P, _U, _L, _P, _U, _L, _P, _U, _L, _P, _I, _L),
     # seed, round, ids, out, B, A, N, drop_cut, part_cut, ids_are_src,
-    # max_delay
-    "delivery_edges": (_P, _U, _P, _P, _I, _I, _I, _U, _U, _I, _U),
+    # max_delay, §6c flags (null on the flat path)
+    "delivery_edges": (_P, _U, _P, _P, _I, _I, _I, _U, _U, _I, _U, _P),
     # mask, term, partial scratch, out, B, N, A, blocks per sweep
     "top_active": (_P, _P, _P, _P, _I, _I, _I, _I),
     # seed, t_min, t_span; del_lj, lead_id, s_term, term, role, voted_for,
@@ -59,20 +60,22 @@ SIGNATURES = {
     "append_entries": (_P, _I, _U) + (_P,) * 29 + (_I,) * 4,
     # seed, round, churn_cut, t_min, t_span; term, role, voted_for, timer,
     # timeout, log_term, log_len; term, role, voted_for, timer, timeout,
-    # reset, own_lterm, cand_mask outputs; B, N, L
-    "candidacy": (_P, _U, _U, _I, _U) + (_P,) * 15 + (_I, _I, _I),
+    # reset, own_lterm, cand_mask outputs; §6c flags (null on the flat
+    # path); B, N, L
+    "candidacy": (_P, _U, _U, _I, _U) + (_P,) * 16 + (_I, _I, _I),
     # seed, t_min, t_span; cand_ids, del_cj, del_jc, term, role, voted_for,
     # timer, timeout, reset, log_len, own_lterm; term, role, voted_for,
-    # timer, timeout, reset, lead, win outputs, votes scratch; B, N, A
-    "elect": (_P, _I, _U) + (_P,) * 20 + (_I, _I, _I),
+    # timer, timeout, reset, lead, win outputs, votes scratch; §6c flags
+    # (null on the flat path); B, N, A
+    "elect": (_P, _I, _U) + (_P,) * 21 + (_I, _I, _I),
     # new_ids, lead_id, lead_match, lead_next, role, log_len, lead_match
     # and lead_next outputs; B, N, A, E
     "slots": (_P,) * 8 + (_I, _I, _I, _I),
     # seed, t_min, t_span; lead_id, was_lead_k, del_jl, has_l, kstar,
     # apply, log_len, log_term; term, role, voted_for, timeout, commit,
     # lead_match, lead_next, timer (in place), reset; t_in3, proc, hist
-    # scratch; B, N, A, L, E
-    "acks_commit": (_P, _I, _U) + (_P,) * 20 + (_I,) * 5,
+    # scratch; §6c flags (null on the flat path); B, N, A, L, E
+    "acks_commit": (_P, _I, _U) + (_P,) * 21 + (_I,) * 5,
     # seed, round, lead, term, log_term, log_val (in place), log_len,
     # commit, lead_id; log_len, was_lead_k, hb_ids, s_term, s_len,
     # s_commit, s_logt, s_logv outputs; B, N, A, L, E
@@ -81,23 +84,27 @@ SIGNATURES = {
     # entry, commit, role, log_len, down; t, w, lat accumulators (w and
     # lat null with the recorder off); B, N, A, K, window, n_windows
     "telemetry": (_P,) * 13 + (_I,) * 6,
-    # seed, round, out, side scratch, B, N, drop_cut, part_cut, max_delay
-    "delivery": (_P, _U, _P, _P, _I, _I, _U, _U, _U),
+    # seed, round, out, side scratch, B, N, drop_cut, part_cut, max_delay,
+    # §6c flags (null on the flat path)
+    "delivery": (_P, _U, _P, _P, _I, _I, _U, _U, _U, _P),
     # seed, round, churn_cut, t_min, t_span; deliver, term, role,
     # voted_for, timer, timeout, log_term, log_len, match_idx and next_idx
     # (in place); term, role, voted_for, timer, timeout, reset outputs,
-    # winner flags (null without telemetry), scratch; B, N, L
-    "dense_elect": (_P, _U, _U, _I, _U) + (_P,) * 18 + (_I,) * 3,
+    # winner flags (null without telemetry), scratch; §6c flags (null on
+    # the flat path); B, N, L
+    "dense_elect": (_P, _U, _U, _I, _U) + (_P,) * 19 + (_I,) * 3,
     # seed, round, t_min, t_span; deliver, term, role, voted_for, timer,
     # timeout, reset, log_term, log_val (in place), log_len, commit,
     # match_idx (in place), next_idx; term, role, voted_for, timer,
     # timeout, reset, log_len, commit, was_leader, ack_to, ack_ok,
-    # ack_match outputs; scratch, row scratch; B, N, L, E
-    "dense_append": (_P, _U, _I, _U) + (_P,) * 27 + (_I,) * 4,
+    # ack_match outputs; scratch, row scratch; §6c flags (null on the flat
+    # path); B, N, L, E
+    "dense_append": (_P, _U, _I, _U) + (_P,) * 28 + (_I,) * 4,
     # seed, t_min, t_span; deliver, was_leader, ack_to, ack_ok, ack_match,
     # log_term; term, role, voted_for, timeout, commit, match_idx,
-    # next_idx, timer (in place), reset; scratch; B, N, L, E
-    "dense_acks_commit": (_P, _I, _U) + (_P,) * 16 + (_I,) * 4,
+    # next_idx, timer (in place), reset; scratch; §6c flags (null on the
+    # flat path); B, N, L, E
+    "dense_acks_commit": (_P, _I, _U) + (_P,) * 17 + (_I,) * 4,
     # win, timer at round entry, ack_to, ack_ok, commit at round entry,
     # commit, role, log_len, down; t, w, lat accumulators (w and lat null
     # with the recorder off); B, N, K, window, n_windows
@@ -105,8 +112,9 @@ SIGNATURES = {
     # seed, round, churn_cut, view_timeout, vmax; deliver, n_real, f, view,
     # timer, pp_seen, pp_view, pp_val, prepared, committed; view, timer,
     # reset, pp_seen, pp_view, pp_val outputs, catch-up flags (null
-    # without telemetry), order scratch; B, N, S
-    "pbft_view_preprepare": (_P, _U, _U, _I, _I) + (_P,) * 18 + (_I,) * 3,
+    # without telemetry), order scratch; §6c flags (null on the flat path);
+    # B, N, S
+    "pbft_view_preprepare": (_P, _U, _U, _I, _I) + (_P,) * 19 + (_I,) * 3,
     # deliver, n_real, f, pp_seen, pp_val, prepared, committed, dval;
     # prepared, committed, dval outputs; B, N, S
     "pbft_tally": (_P,) * 11 + (_I,) * 3,
@@ -117,27 +125,31 @@ SIGNATURES = {
     # vmax; n_real, f, view, timer, pp_seen, pp_view, pp_val, prepared,
     # committed; view, timer, reset, pp_seen, pp_view, pp_val, node bits
     # outputs, histogram and first-unseen-slot scratch, catch-up flags
-    # (null without telemetry); B, N, S
-    "bcast_view_preprepare": (_P, _U, _U, _U, _U, _U, _I, _I) + (_P,) * 19
+    # (null without telemetry); §6c flags (null on the flat path); B, N, S
+    "bcast_view_preprepare": (_P, _U, _U, _U, _U, _U, _I, _I) + (_P,) * 20
     + (_I,) * 3,
     # n_real, f, node bits, pp_seen, pp_val, prepared, committed, dval;
-    # prepared, committed, dval outputs, scratch; scratch words; m, B, N, S
-    "bcast_tally": (_P,) * 12 + (_L,) + (_I,) * 4,
+    # prepared, committed, dval outputs, scratch; scratch words; m, B, N,
+    # S, §6c (bit 2 of the node bits read)
+    "bcast_tally": (_P,) * 12 + (_L,) + (_I,) * 5,
     # node bits, committed, dval, committed at round entry, timer, reset;
-    # committed, dval, timer outputs, minima scratch; B, N, S
-    "bcast_decide": (_P,) * 10 + (_I,) * 3,
+    # committed, dval, timer outputs, minima scratch; B, N, S, §6c (bit 2
+    # of the node bits read)
+    "bcast_decide": (_P,) * 10 + (_I,) * 4,
     # seeds; producers, tallies outputs; B, E, V, C, K
     "dpos_schedule": (_P,) * 3 + (_I,) * 5,
     # seed, round, producers; chain_r, chain_p, chain_len (in place),
     # append counts (null without telemetry); chain_r and chain_p element
     # sizes, the round's producer index within a lane's list and the
-    # list's length (E * K), drop_cut, part_cut, churn_cut, max_delay; B, V,
-    # L
-    "dpos_round": (_P, _U) + (_P,) * 5 + (_I,) * 4 + (_U,) * 4 + (_I,) * 3,
+    # list's length (E * K), drop_cut, part_cut, churn_cut, max_delay;
+    # §6c flags (null on the flat path); B, V, L
+    "dpos_round": (_P, _U) + (_P,) * 5 + (_I,) * 4 + (_U,) * 4 + (_P,)
+    + (_I,) * 3,
     # seed, round; deliver, promised, acc_bal; new_promised, n_prom,
     # best_bal, best_a, prep_del outputs, pair counts (null without
-    # telemetry), proposal and key scratch; P, churn_cut, B, N, S
-    "paxos_promise": (_P, _U) + (_P,) * 11 + (_I, _U, _I, _I, _I),
+    # telemetry), proposal and key scratch; §6c flags (null on the flat
+    # path); P, churn_cut, B, N, S
+    "paxos_promise": (_P, _U) + (_P,) * 12 + (_I, _U, _I, _I, _I),
     # seed, round; deliver, prep_del, new_promised, n_prom, best_bal,
     # best_a, acc_bal, acc_val, learned_val, learned_mask; promised,
     # acc_bal, acc_val, learned_val, learned_mask outputs, proposal, count
@@ -148,7 +160,8 @@ SIGNATURES = {
     # after the tally, committed; t, w, lat accumulators (w and lat null
     # with the recorder off), span scratch; round, B, N, S, K, window,
     # n_windows
-    "pbft_telemetry": (_P,) * 16 + (_I,) * 7,
+    # n_windows, §6c mode (engines/pbft.py CRASH_VIEWS, CRASH_COMMITS)
+    "pbft_telemetry": (_P,) * 16 + (_I,) * 8,
     # seed, round; producers, chain_len, KX's append counts; t, w, lat
     # accumulators (w and lat null with the recorder off), span scratch;
     # the round's and the round before's producer indexes, the list's
@@ -175,6 +188,15 @@ SIGNATURES = {
     # seed, chain_v, chain_vid, clen, fvec, ftab_v, ftab_h, fnum; committed,
     # dval outputs; B, N, S
     "hotstuff_extract": (_P,) * 10 + (_I,) * 3,
+    # seed, round, down; down and flags outputs; crash_cut, recover_cut,
+    # max_crashed; t, w accumulators (null without telemetry; w null
+    # without the recorder); tile-count scratch (null without a cap); B,
+    # N, K, the crash tail's column, window, n_windows
+    "crash_transition": (_P, _U, _P, _P, _P, _U, _U, _I, _P, _P, _P)
+    + (_I,) * 6,
+    # flags; eight (dst, src) leaf pointers (null past the last leaf);
+    # eight row sizes in bytes; the reset-where-recovered bits; B, N
+    "freeze_down": (_P,) * 17 + (_I,) * 8 + (_U, _I, _I),
 }
 
 

@@ -15,12 +15,16 @@ engine (``engines/dpos.py``) and ``protocol="hotstuff"`` the SPEC §7b
 chained HotStuff engine (``engines/hotstuff.py``), whose population is
 ``n_nodes = 3f + 1`` too.
 The SPEC §A.2 delayed retransmission (``max_delay_rounds`` in [0, 16])
-runs on every engine and both f-ladders. The other knobs of the JAX package
-that this port does not implement yet are fields too, and setting one off
-its default raises ``ValueError``, also beside a delay; the port never
-ignores a setting silently. For HotStuff those are its other gates:
-crash-recover, view desync, byzantine nodes (silent or equivocating) and
-the switch network.
+runs on every engine and both f-ladders. The SPEC §6c crash-recover
+adversary (``crash_prob``, ``recover_prob``, ``max_crashed`` in [0,
+n_nodes]) runs on both Raft engines, both PBFT engines, Paxos and DPoS; it
+raises on HotStuff, and a PBFT f-ladder with ``crash_prob > 0`` raises in
+``pbft_sweep.pbft_fsweep_run`` as in the JAX package. The other knobs of
+the JAX package that this port does not implement yet are fields too, and
+setting one off its default raises ``ValueError``, also beside a delay or
+a crash; the port never ignores a setting silently. For HotStuff those are
+its other gates: crash-recover, view desync, byzantine nodes (silent or
+equivocating) and the switch network.
 """
 from __future__ import annotations
 
@@ -31,7 +35,6 @@ from .rng import prob_threshold_u32
 # Knobs of consensus_tpu's Config that the port does not implement yet,
 # with the default each must keep.
 UNSUPPORTED = {
-    "crash_prob": 0.0, "recover_prob": 0.0, "max_crashed": 0,
     "attack": "none", "attack_rate": 1.0, "attack_target": 0,
     "net_model": "flat", "n_aggregators": 0,
     "n_byzantine": 0, "byz_mode": "silent",
@@ -40,6 +43,10 @@ UNSUPPORTED = {
     "scan_chunk": 0, "sweep_chunk": 0,
     "mesh_shape": (),
 }
+
+# The SPEC §6c crash-recover knobs and their defaults: supported on every
+# engine but HotStuff, which still rejects them.
+CRASH_KNOBS = {"crash_prob": 0.0, "recover_prob": 0.0, "max_crashed": 0}
 
 # The protocols the port runs: every protocol of the JAX package.
 PROTOCOLS = ("raft", "pbft", "paxos", "dpos", "hotstuff")
@@ -167,7 +174,15 @@ class Config:
                 "0 = off)")
         if self.n_nodes >= 2**31 - 1:
             raise ValueError("n_nodes must fit int32 ids")
-        off = [k for k, d in UNSUPPORTED.items() if getattr(self, k) != d]
+        # The JAX package's check and message
+        # (consensus_tpu/core/config.py:216-218).
+        if self.max_crashed < 0 or self.max_crashed > self.n_nodes:
+            raise ValueError("max_crashed must be in [0, n_nodes] "
+                             "(0 = no cap on simultaneous crashes)")
+        gates = dict(UNSUPPORTED)
+        if self.protocol == "hotstuff":
+            gates.update(CRASH_KNOBS)
+        off = [k for k, d in gates.items() if getattr(self, k) != d]
         if off:
             raise ValueError(f"{', '.join(off)}: not supported by the port "
                              "yet; it would be silently ignored")
@@ -183,6 +198,21 @@ class Config:
     @property
     def churn_cutoff(self) -> int:
         return prob_threshold_u32(self.churn_rate)
+
+    @property
+    def crash_cutoff(self) -> int:
+        return prob_threshold_u32(self.crash_prob)
+
+    @property
+    def recover_cutoff(self) -> int:
+        return prob_threshold_u32(self.recover_prob)
+
+    @property
+    def crash_on(self) -> bool:
+        """SPEC §6c runs only where a crash can fire: with ``crash_prob =
+        0`` the round is the flat one, whatever ``recover_prob`` and
+        ``max_crashed`` say (consensus_tpu/core/config.py:433-434)."""
+        return self.crash_cutoff > 0
 
     @property
     def no_partition(self) -> bool:

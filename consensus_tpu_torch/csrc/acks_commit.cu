@@ -39,9 +39,15 @@
 //     (entries >= m, values above E included) reaches the majority; that is
 //     what the binary search over [0, E + 1) returns. Then the commit
 //     advance, against the post-P3c log and the post-bump term.
-//  5. A thread per node: P4, after launch 2 has settled every role.
+//  5. A thread per node: P4, after launch 2 has settled every role. Its
+//     CRASH instance (SPEC §6c, picked when the round's flag word of kernel
+//     KAH is given) leaves the timer of a node down at the round's end as
+//     it is (the freeze, raft_sparse.py:494-501); launches 1-4 need no
+//     change, since KB cut every ack to or from a down node and the tracked
+//     leaders are up.
 #include <cuda_runtime.h>
 
+#include "crash.cuh"
 #include "rng.cuh"
 
 namespace {
@@ -193,13 +199,15 @@ __global__ void commit_kernel(const int32_t* __restrict__ lead_id,
 }
 
 // Launch 5. Grid (ceil(B * N / THREADS)).
+template <bool CRASH>
 __global__ void __launch_bounds__(THREADS)
 timers_kernel(const int32_t* __restrict__ role,
               const bool* __restrict__ reset, int32_t* __restrict__ timer,
-              long long rows) {
+              const unsigned char* __restrict__ flags, long long rows) {
   const long long row =
       static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
   if (row >= rows) return;
+  if (CRASH && (flags[row] & ctt::CRASH_DOWN)) return;
   if (role[row] == ROLE_L)
     timer[row] = 0;
   else if (!reset[row])  // wraps as the plain version's i32 add
@@ -215,8 +223,9 @@ extern "C" int ctt_acks_commit(
     const int32_t* log_len, const int32_t* log_term, int32_t* term,
     int32_t* role, int32_t* voted_for, int32_t* timeout, int32_t* commit,
     uint8_t* lead_match, uint8_t* lead_next, int32_t* timer,
-    const bool* reset, int* t_in3, int* proc, unsigned* hist, int B, int N,
-    int A, int L, int E, cudaStream_t st) {
+    const bool* reset, int* t_in3, int* proc, unsigned* hist,
+    const unsigned char* flags, int B, int N, int A, int L, int E,
+    cudaStream_t st) {
   if (A < 1 || A > MAXA || t_span == 0u || E < 0 || E >= BINS)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || N == 0) return 0;
@@ -242,7 +251,9 @@ extern "C" int ctt_acks_commit(
                                        commit, B, N, A, L, E);
   if ((err = static_cast<int>(cudaGetLastError())) != 0) return err;
   const long long rows = static_cast<long long>(B) * N;
-  timers_kernel<<<static_cast<unsigned>((rows + THREADS - 1) / THREADS),
-                  THREADS, 0, st>>>(role, reset, timer, rows);
+  const auto timers = flags != nullptr ? timers_kernel<true>
+                                       : timers_kernel<false>;
+  timers<<<static_cast<unsigned>((rows + THREADS - 1) / THREADS), THREADS, 0,
+           st>>>(role, reset, timer, flags, rows);
   return static_cast<int>(cudaGetLastError());
 }

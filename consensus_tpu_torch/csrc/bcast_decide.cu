@@ -32,6 +32,10 @@
 //     decider's value (a few rows a lane, cached), writes fresh outputs,
 //     so no adoption is read the same round, and runs P7 off a ballot of
 //     the group.
+// Its CRASH instance (SPEC §6c, picked by the launch's `crash` argument)
+// keeps a node of bit 2 (down at the round's end) from adopting
+// (pbft_bcast.py:663-664); such a node is no decider either, since KT
+// cleared its bit 0.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -88,6 +92,7 @@ decide_min_kernel(const uint8_t* __restrict__ bits,
 // threads per node: G is the least power of two >= S, at most 32, so a
 // warp holds 32 / G nodes and a group's threads read consecutive slots; a
 // thread takes slots sl, sl + G, ... of PER_THREAD nodes in turn.
+template <bool CRASH>
 __global__ void __launch_bounds__(THREADS)
 decide_adopt_kernel(const uint8_t* __restrict__ bits,
                     const bool* __restrict__ committed,
@@ -145,7 +150,7 @@ decide_adopt_kernel(const uint8_t* __restrict__ bits,
           d = dval[e];
           start = committed_start[e];
         }
-        if (!cc) {
+        if (!cc && !(CRASH && (bj[u] & 4))) {
           const int i = low[s];
           if (i < N) {
             cc = true;
@@ -177,7 +182,7 @@ extern "C" int ctt_bcast_decide(const uint8_t* bits, const bool* committed,
                                 const int32_t* timer, const bool* reset,
                                 bool* com_out, int32_t* dval_out,
                                 int32_t* timer_out, int* imin, int B, int N,
-                                int S, cudaStream_t st) {
+                                int S, int crash, cudaStream_t st) {
   if (B == 0 || N == 0) return 0;
   int err = 0;
   if (S > 0) {
@@ -201,7 +206,9 @@ extern "C" int ctt_bcast_decide(const uint8_t* bits, const bool* committed,
   const long long tile = static_cast<long long>(THREADS) * PER_THREAD;
   const long long tiles = (threads + tile - 1) / tile;
   if (tiles * B > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
-  decide_adopt_kernel<<<static_cast<unsigned>(tiles * B), THREADS, 0, st>>>(
+  const auto adopt =
+      crash ? decide_adopt_kernel<true> : decide_adopt_kernel<false>;
+  adopt<<<static_cast<unsigned>(tiles * B), THREADS, 0, st>>>(
       bits, committed, dval, committed_start, timer, reset, imin, com_out,
       dval_out, timer_out, N, S, log_g, static_cast<int>(tiles));
   return static_cast<int>(cudaGetLastError());

@@ -52,6 +52,12 @@
 //     post-P4 prepared flags of the same entries.
 //  4. P5 recount.
 //  5. P5 lookup: committed and decided values written.
+// Its CRASH instance (SPEC §6c, picked by the launch's `crash` argument)
+// keeps a node of bit 2 (down at the round's end, set by KT) from
+// preparing in launch 3 (pbft_bcast.py:331-335). Its commits are counted
+// as the round's tally reaches them, which the telemetry's commit_missed
+// reads; kernel KAA leaves them out of the quorums it counts and the
+// freeze (kernel KAI) drops them from the state.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -331,7 +337,7 @@ __device__ __forceinline__ int lookup(const Summary<M> (&tb)[2], int side,
 
 // Launches 1 and 3. LOOKUP4: fold P4's lookup in first (launch 3), else
 // the relevant flags are pp_seen (launch 1).
-template <int M, bool LOOKUP4>
+template <int M, bool LOOKUP4, bool CRASH>
 __global__ void __launch_bounds__(THREADS)
 tally_candidates_kernel(const int32_t* __restrict__ n_real,
                         const int32_t* __restrict__ f,
@@ -374,7 +380,7 @@ tally_candidates_kernel(const int32_t* __restrict__ n_real,
         if (LOOKUP4 && iu < pl.i1) {
           const int cnt = lookup(tb, side, xu[u]) +
                           (iu < n && !(bi & 1) && rel);
-          rel = prep[u] || (rel && cnt >= q4);
+          rel = prep[u] || (rel && cnt >= q4 && !(CRASH && (bi & 4)));
           prep_out[(nodes + iu) * S + pl.s] = rel;
         }
         if ((bi & 1) && rel) mg_insert(mine[side], xu[u]);
@@ -500,7 +506,7 @@ tally_commit_kernel(const int32_t* __restrict__ n_real,
   }
 }
 
-template <int M>
+template <int M, bool CRASH>
 int launch_all(const int32_t* n_real, const int32_t* f, const uint8_t* bits,
                const bool* pp_seen, const int32_t* pp_val,
                const bool* prepared, const bool* committed,
@@ -508,13 +514,13 @@ int launch_all(const int32_t* n_real, const int32_t* f, const uint8_t* bits,
                int32_t* dval_out, const Scratch& sc, dim3 grid, int B, int N,
                int S, cudaStream_t st) {
   int err;
-  tally_candidates_kernel<M, false><<<grid, THREADS, 0, st>>>(
+  tally_candidates_kernel<M, false, false><<<grid, THREADS, 0, st>>>(
       n_real, f, bits, pp_seen, pp_val, prepared, prep_out, sc, B, N, S);
   if ((err = static_cast<int>(cudaGetLastError())) != 0) return err;
   tally_recount_kernel<M><<<grid, THREADS, 0, st>>>(bits, pp_seen, pp_val,
                                                     sc, 0, B, N, S);
   if ((err = static_cast<int>(cudaGetLastError())) != 0) return err;
-  tally_candidates_kernel<M, true><<<grid, THREADS, 0, st>>>(
+  tally_candidates_kernel<M, true, CRASH><<<grid, THREADS, 0, st>>>(
       n_real, f, bits, pp_seen, pp_val, prepared, prep_out, sc, B, N, S);
   if ((err = static_cast<int>(cudaGetLastError())) != 0) return err;
   tally_recount_kernel<M><<<grid, THREADS, 0, st>>>(bits, prep_out, pp_val,
@@ -538,7 +544,7 @@ extern "C" int ctt_bcast_tally(const int32_t* n_real, const int32_t* f,
                                bool* prep_out, bool* com_out,
                                int32_t* dval_out, int* scratch,
                                long long words, int m, int B, int N, int S,
-                               cudaStream_t st) {
+                               int crash, cudaStream_t st) {
   if (B == 0 || N == 0 || S == 0) return 0;
   if (m < 1 || m > MAX_M) return static_cast<int>(cudaErrorInvalidValue);
   const int nblk = (N + CHUNK - 1) / CHUNK;
@@ -562,11 +568,8 @@ extern "C" int ctt_bcast_tally(const int32_t* n_real, const int32_t* f,
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(static_cast<unsigned>(nblk * B), 1u,
                   static_cast<unsigned>(groups));
-  if (m == 1)
-    return launch_all<1>(n_real, f, bits, pp_seen, pp_val, prepared,
-                         committed, dval, prep_out, com_out, dval_out, sc,
-                         grid, B, N, S, st);
-  return launch_all<2>(n_real, f, bits, pp_seen, pp_val, prepared,
-                       committed, dval, prep_out, com_out, dval_out, sc, grid,
-                       B, N, S, st);
+  const auto all = m == 1 ? (crash ? launch_all<1, true> : launch_all<1, false>)
+                          : (crash ? launch_all<2, true> : launch_all<2, false>);
+  return all(n_real, f, bits, pp_seen, pp_val, prepared, committed, dval,
+             prep_out, com_out, dval_out, sc, grid, B, N, S, st);
 }

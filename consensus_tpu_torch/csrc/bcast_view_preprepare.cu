@@ -52,10 +52,18 @@
 //  3. A thread per four (receiver, slot) entries runs P3, reading the
 //     primary's row and first unseen slot as they stood before P3, and
 //     writes fresh outputs, so no receiver reads another's update.
+// Its CRASH instances (SPEC §6c, picked when the round's flag word of kernel
+// KAH is given): launches 1 and 2 read the view and timer of a node
+// recovered this round as 0 (pbft_bcast.py:438-445), and launch 1 writes
+// a node down at the round's end with bit 0 clear (its broadcast is
+// dropped, line 402) and bit 2 set, which kernels KU and KV read. A down
+// receiver's round is otherwise the JAX round's (the freeze comes last,
+// kernel KAI), which the telemetry counts.
 #include <climits>
 
 #include <cuda_runtime.h>
 
+#include "crash.cuh"
 #include "rng.cuh"
 
 namespace {
@@ -71,6 +79,15 @@ __device__ __forceinline__ int32_t wrap_add(int32_t a, int32_t b) {
                               static_cast<uint32_t>(b));
 }
 
+// A node's view or timer as the round takes it: 0 where the node recovered
+// this round (CRASH instances only).
+template <bool CRASH>
+__device__ __forceinline__ int32_t entry(const int32_t* __restrict__ x,
+                                         const unsigned char* __restrict__ fl,
+                                         long long at) {
+  return CRASH && (fl[at] & ctt::CRASH_REC) ? 0 : x[at];
+}
+
 // The round's churn event of a lane, as 0 or 1 (the P0 view step).
 __device__ __forceinline__ int32_t churn_step(uint32_t sd, uint32_t r,
                                               uint32_t churn_cut) {
@@ -81,7 +98,7 @@ __device__ __forceinline__ int32_t churn_step(uint32_t sd, uint32_t r,
 // Launches 1 and 2 run on B * tiles blocks, tiles = ceil(N / THREADS):
 // block x is lane x / tiles, nodes THREADS (x mod tiles) on, so the lane
 // count has no grid limit of its own; nb = vmax + 2 bins a side.
-template <bool DELAY>
+template <bool DELAY, bool CRASH>
 __global__ void __launch_bounds__(THREADS)
 bcast_senders_kernel(const uint32_t* __restrict__ seed, uint32_t r,
                      uint32_t churn_cut, uint32_t drop_cut,
@@ -89,7 +106,8 @@ bcast_senders_kernel(const uint32_t* __restrict__ seed, uint32_t r,
                      const int32_t* __restrict__ n_real,
                      const int32_t* __restrict__ view,
                      uint8_t* __restrict__ bits_out, int* __restrict__ hist,
-                     int N, int nb, bool smem, int tiles) {
+                     const unsigned char* __restrict__ flags, int N, int nb,
+                     bool smem, int tiles) {
   extern __shared__ int sh[];
   const int b = blockIdx.x / tiles;
   const int i = (blockIdx.x - b * tiles) * THREADS + threadIdx.x;
@@ -110,16 +128,17 @@ bcast_senders_kernel(const uint32_t* __restrict__ seed, uint32_t r,
             ui)) >= drop_cut ||
         (DELAY && i < n_real[b] &&
          ctt::delayed_open(sd, r, ui, ui, drop_cut, max_delay));
-    const bool hb = bc && i < n_real[b];
+    const long long row = static_cast<long long>(b) * N + i;
+    const bool down = CRASH && (flags[row] & ctt::CRASH_DOWN);
+    const bool hb = bc && i < n_real[b] && !down;
     uint32_t side = 0u;
     if (part_cut != 0u &&
         ctt::random_u32(sd, ctt::STREAM_PARTITION, r, 0u, 0u) < part_cut)
       side = ctt::random_u32(sd, ctt::STREAM_PARTITION, r, 1u, ui) & 1u;
-    const long long row = static_cast<long long>(b) * N + i;
-    bits_out[row] = static_cast<uint8_t>(hb | (side << 1));
+    bits_out[row] = static_cast<uint8_t>(hb | (side << 1) | (down << 2));
     if (hb) {
-      const int32_t vplus =
-          wrap_add(view[row], churn_step(sd, r, churn_cut) + 1);
+      const int32_t vplus = wrap_add(entry<CRASH>(view, flags, row),
+                                     churn_step(sd, r, churn_cut) + 1);
       if (vplus >= 1)
         key = static_cast<int>(side) * nb + min(vplus, nb - 1);
     }
@@ -136,6 +155,7 @@ bcast_senders_kernel(const uint32_t* __restrict__ seed, uint32_t r,
 }
 
 // Launch 2.
+template <bool CRASH>
 __global__ void __launch_bounds__(THREADS)
 bcast_catchup_kernel(const uint32_t* __restrict__ seed, uint32_t r,
                      uint32_t churn_cut, int32_t view_timeout,
@@ -149,8 +169,9 @@ bcast_catchup_kernel(const uint32_t* __restrict__ seed, uint32_t r,
                      int32_t* __restrict__ timer_out,
                      bool* __restrict__ reset_out,
                      int32_t* __restrict__ fresh_out,
-                     bool* __restrict__ catch_out, int N, int S, int nb,
-                     int tiles) {
+                     bool* __restrict__ catch_out,
+                     const unsigned char* __restrict__ flags, int N, int S,
+                     int nb, int tiles) {
   __shared__ int32_t stat[4];  // a1 side 0, a1 side 1, a2 side 0, a2 side 1
   const int b = blockIdx.x / tiles;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -188,8 +209,8 @@ bcast_catchup_kernel(const uint32_t* __restrict__ seed, uint32_t r,
   const long long row = static_cast<long long>(b) * N + j;
   // P0 churn.
   const int32_t c = churn_step(seed[b], r, churn_cut);
-  int32_t v = wrap_add(view[row], c);
-  int32_t t = c ? 0 : timer[row];
+  int32_t v = wrap_add(entry<CRASH>(view, flags, row), c);
+  int32_t t = c ? 0 : entry<CRASH>(timer, flags, row);
   bool reset = c != 0;
   // P1 catch-up.
   const uint8_t bj = bits[row];
@@ -303,7 +324,8 @@ extern "C" int ctt_bcast_view_preprepare(
     const int32_t* pp_val, const bool* prepared, const bool* committed,
     int32_t* view_out, int32_t* timer_out, bool* reset_out, bool* seen_out,
     int32_t* pview_out, int32_t* pval_out, uint8_t* bits_out, int* hist,
-    int32_t* fresh, bool* catch_out, int B, int N, int S, cudaStream_t st) {
+    int32_t* fresh, bool* catch_out, const unsigned char* flags, int B, int N,
+    int S, cudaStream_t st) {
   if (B == 0 || N == 0) return 0;
   if (vmax < 0) return static_cast<int>(cudaErrorInvalidValue);
   const int nb = vmax + 2;
@@ -315,15 +337,21 @@ extern "C" int ctt_bcast_view_preprepare(
   const int tiles = (N + THREADS - 1) / THREADS;
   const long long blocks = static_cast<long long>(tiles) * B;
   if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  const auto senders = max_delay != 0u ? bcast_senders_kernel<true>
-                                        : bcast_senders_kernel<false>;
+  const bool delay = max_delay != 0u, crash = flags != nullptr;
+  const auto senders =
+      crash ? (delay ? bcast_senders_kernel<true, true>
+                     : bcast_senders_kernel<false, true>)
+            : (delay ? bcast_senders_kernel<true, false>
+                     : bcast_senders_kernel<false, false>);
   senders<<<static_cast<unsigned>(blocks), THREADS, smem ? hist_bytes : 0,
             st>>>(seed, r, churn_cut, drop_cut, part_cut, max_delay, n_real,
-                  view, bits_out, hist, N, nb, smem, tiles);
+                  view, bits_out, hist, flags, N, nb, smem, tiles);
   if ((err = static_cast<int>(cudaGetLastError())) != 0) return err;
-  bcast_catchup_kernel<<<static_cast<unsigned>(blocks), THREADS, 0, st>>>(
+  const auto catchup =
+      crash ? bcast_catchup_kernel<true> : bcast_catchup_kernel<false>;
+  catchup<<<static_cast<unsigned>(blocks), THREADS, 0, st>>>(
       seed, r, churn_cut, view_timeout, f, view, timer, pp_seen, bits_out,
-      hist, view_out, timer_out, reset_out, fresh, catch_out, N, S, nb,
+      hist, view_out, timer_out, reset_out, fresh, catch_out, flags, N, S, nb,
       tiles);
   if ((err = static_cast<int>(cudaGetLastError())) != 0) return err;
   const long long per_lane = static_cast<long long>(N) * S;

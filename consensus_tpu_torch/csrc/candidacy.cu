@@ -16,9 +16,14 @@
 // new candidates and, once a sweep per thread, for leaders under churn.
 // Design: a thread per node on a 2-D grid (node, sweep); every value stays
 // in registers and the outputs are fresh buffers, so no thread reads what
-// another writes.
+// another writes. Its CRASH instance (SPEC §6c, picked when the round's
+// flag word of kernel KAH is given) first resets a node recovered this
+// round to a follower with its timer at 0 (raft_sparse.py:213-215), then
+// writes a node down at the round's end back at that post-reset state and
+// out of the candidate mask (lines 219-220, 259-260, 494-501).
 #include <cuda_runtime.h>
 
+#include "crash.cuh"
 #include "rng.cuh"
 
 namespace {
@@ -26,6 +31,7 @@ namespace {
 constexpr int THREADS = 256;
 constexpr int32_t ROLE_F = 0, ROLE_C = 1, ROLE_L = 2;
 
+template <bool CRASH>
 __global__ void __launch_bounds__(THREADS)
 candidacy_kernel(const uint32_t* __restrict__ seed, uint32_t r,
                  uint32_t churn_cut, int32_t t_min, uint32_t t_span,
@@ -43,7 +49,8 @@ candidacy_kernel(const uint32_t* __restrict__ seed, uint32_t r,
                  int32_t* __restrict__ timeout_out,
                  bool* __restrict__ reset_out,
                  int32_t* __restrict__ own_lterm_out,
-                 bool* __restrict__ cand_out, int N, int L) {
+                 bool* __restrict__ cand_out,
+                 const unsigned char* __restrict__ flags, int N, int L) {
   const int j = blockIdx.x * THREADS + threadIdx.x;
   if (j >= N) return;
   const int b = blockIdx.y;
@@ -51,6 +58,16 @@ candidacy_kernel(const uint32_t* __restrict__ seed, uint32_t r,
   const uint32_t sd = seed[b];
   int32_t tm = term[row], rl = role[row], vf = voted_for[row];
   int32_t tmr = timer[row], to = timeout[row];
+  bool down = false;
+  if (CRASH) {
+    const unsigned char fl = flags[row];
+    if (fl & ctt::CRASH_REC) {
+      rl = ROLE_F;
+      tmr = 0;
+    }
+    down = (fl & ctt::CRASH_DOWN) != 0;
+  }
+  const int32_t f_tm = tm, f_rl = rl, f_vf = vf, f_tmr = tmr, f_to = to;
   bool reset = false;
   // P0: the sweep's churn event steps its leaders down.
   if (rl == ROLE_L && churn_cut != 0u &&
@@ -71,13 +88,16 @@ candidacy_kernel(const uint32_t* __restrict__ seed, uint32_t r,
   const int32_t len = log_len[row];
   const int k = min(max(len - 1, 0), L - 1);
   own_lterm_out[row] = len > 0 ? log_term[row * L + k] : 0;
+  if (CRASH && down) {
+    tm = f_tm, rl = f_rl, vf = f_vf, tmr = f_tmr, to = f_to;
+  }
   term_out[row] = tm;
   role_out[row] = rl;
   vf_out[row] = vf;
   timer_out[row] = tmr;
   timeout_out[row] = to;
   reset_out[row] = reset;
-  cand_out[row] = rl == ROLE_C;
+  cand_out[row] = rl == ROLE_C && !down;
 }
 
 }  // namespace
@@ -91,14 +111,17 @@ extern "C" int ctt_candidacy(const uint32_t* seed, uint32_t r,
                              int32_t* term_out, int32_t* role_out,
                              int32_t* vf_out, int32_t* timer_out,
                              int32_t* timeout_out, bool* reset_out,
-                             int32_t* own_lterm_out, bool* cand_out, int B,
-                             int N, int L, cudaStream_t st) {
+                             int32_t* own_lterm_out, bool* cand_out,
+                             const unsigned char* flags, int B, int N, int L,
+                             cudaStream_t st) {
   if (t_span == 0u) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || N == 0) return 0;
   const dim3 grid((N + THREADS - 1) / THREADS, B);
-  candidacy_kernel<<<grid, THREADS, 0, st>>>(
+  const auto kernel = flags != nullptr ? candidacy_kernel<true>
+                                       : candidacy_kernel<false>;
+  kernel<<<grid, THREADS, 0, st>>>(
       seed, r, churn_cut, t_min, t_span, term, role, voted_for, timer,
       timeout, log_term, log_len, term_out, role_out, vf_out, timer_out,
-      timeout_out, reset_out, own_lterm_out, cand_out, N, L);
+      timeout_out, reset_out, own_lterm_out, cand_out, flags, N, L);
   return static_cast<int>(cudaGetLastError());
 }

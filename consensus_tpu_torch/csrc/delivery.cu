@@ -27,9 +27,13 @@
 // are 4-byte aligned (N % 4 == 0). Its DELAY instance, which the launch
 // picks when max_delay > 0, adds the delay term; the other is launch 2 as
 // it was before the delay existed. A small N (raft-5node: N = 5) gets
-// blocks of one warp.
+// blocks of one warp. Its CRASH instances, which the launch picks when the
+// round's SPEC §6c flag word of kernel KAH is given, cut every edge with an
+// end down at the round's end (the dense engines' deliver & up[:, None] &
+// up[None, :]); a down sender's row is all zeros.
 #include <cuda_runtime.h>
 
+#include "crash.cuh"
 #include "rng.cuh"
 
 namespace {
@@ -57,11 +61,12 @@ __global__ void delivery_side_kernel(const uint32_t* __restrict__ seed,
 }
 
 // Launch 2. Grid (B * N rows, ceil(N / (VEC * blockDim.x))).
-template <bool DELAY>
+template <bool DELAY, bool CRASH>
 __global__ void delivery_kernel(const uint32_t* __restrict__ seed,
                                 uint32_t r, const uint8_t* __restrict__ side,
                                 unsigned char* __restrict__ out, int N,
-                                uint32_t drop_cut, uint32_t max_delay) {
+                                uint32_t drop_cut, uint32_t max_delay,
+                                const unsigned char* __restrict__ flags) {
   const long long row = blockIdx.x;  // b * N + i
   const int b = static_cast<int>(row / N);
   const int i = static_cast<int>(row - static_cast<long long>(b) * N);
@@ -72,11 +77,13 @@ __global__ void delivery_kernel(const uint32_t* __restrict__ seed,
       ctt::mix_absorb(sd ^ ctt::STREAM_DELIVER, r), static_cast<uint32_t>(i));
   const uint8_t side_i = side ? side[row] : 0;
   const uint8_t* side_b = side ? side + static_cast<long long>(b) * N : side;
+  const bool row_up = !CRASH || !ctt::crash_down(flags, b, N, i);
   uint32_t word = 0u;
   for (int v = 0; v < VEC; ++v) {
     const int j = j0 + v;
     if (j >= N) break;
-    const bool ok = j != i &&
+    const bool ok = j != i && row_up &&
+        (!CRASH || !ctt::crash_down(flags, b, N, j)) &&
         (ctt::mix_fin(ctt::mix_absorb(h, static_cast<uint32_t>(j))) >=
              drop_cut ||
          (DELAY && ctt::delayed_open(sd, r, static_cast<uint32_t>(i),
@@ -99,7 +106,8 @@ __global__ void delivery_kernel(const uint32_t* __restrict__ seed,
 extern "C" int ctt_delivery(const uint32_t* seed, uint32_t r,
                             unsigned char* out, uint8_t* side, int B, int N,
                             uint32_t drop_cut, uint32_t part_cut,
-                            uint32_t max_delay, cudaStream_t st) {
+                            uint32_t max_delay, const unsigned char* flags,
+                            cudaStream_t st) {
   if (B == 0 || N == 0) return 0;
   const long long rows = static_cast<long long>(B) * N;
   if (part_cut != 0u) {
@@ -114,9 +122,13 @@ extern "C" int ctt_delivery(const uint32_t* seed, uint32_t r,
   const int threads = quads >= 256 ? 256 : ((quads + 31) / 32) * 32;
   const dim3 grid(static_cast<unsigned>(rows),
                   static_cast<unsigned>((quads + threads - 1) / threads));
+  const bool delay = max_delay != 0u;
   const auto kernel =
-      max_delay != 0u ? delivery_kernel<true> : delivery_kernel<false>;
+      flags != nullptr
+          ? (delay ? delivery_kernel<true, true> : delivery_kernel<false, true>)
+          : (delay ? delivery_kernel<true, false>
+                   : delivery_kernel<false, false>);
   kernel<<<grid, threads, 0, st>>>(seed, r, side, out, N, drop_cut,
-                                   max_delay);
+                                   max_delay, flags);
   return static_cast<int>(cudaGetLastError());
 }

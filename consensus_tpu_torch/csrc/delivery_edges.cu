@@ -14,6 +14,9 @@
 // active (a Threefry draw below part_cut), both ends drew the same side. The
 // delay term is evaluated only where the round's own draw dropped, in the
 // kernels' DELAY instances, which the launch picks when max_delay > 0.
+// Under SPEC §6c (the CRASH instances, picked when the round's flag word of
+// kernel KAH is given) an edge with an end down at the round's end is not
+// delivered (consensus_tpu/engines/raft_sparse.py:192-195).
 //
 // Bound: the [B, A, N] bool output (6.4 MB at the flagship shape) against
 // ~20 integer operations an edge once the (seed, r) and per-row absorbs are
@@ -24,6 +27,7 @@
 // skipped entirely when part_cut is 0, as on the flagship path.
 #include <cuda_runtime.h>
 
+#include "crash.cuh"
 #include "rng.cuh"
 
 namespace {
@@ -42,12 +46,13 @@ __device__ __forceinline__ bool same_side(uint32_t seed, uint32_t r,
 }
 
 // out[b, a, j]: ids[b, a] sends to node j. Grid (ceil(N / 256), B * A).
-template <bool DELAY>
+template <bool DELAY, bool CRASH>
 __global__ void edges_src_kernel(const uint32_t* __restrict__ seed,
                                  uint32_t r, const int32_t* __restrict__ ids,
                                  unsigned char* __restrict__ out, int A,
                                  int N, uint32_t drop_cut,
-                                 uint32_t part_cut, uint32_t max_delay) {
+                                 uint32_t part_cut, uint32_t max_delay,
+                                 const unsigned char* __restrict__ flags) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= N) return;
   const int row = blockIdx.y;  // b * A + a
@@ -57,6 +62,8 @@ __global__ void edges_src_kernel(const uint32_t* __restrict__ seed,
   const uint32_t s = static_cast<uint32_t>(id);
   const uint32_t d = static_cast<uint32_t>(j);
   bool ok = id >= 0 && s != d;
+  if (CRASH && ok)
+    ok = !ctt::crash_down(flags, b, N, id) && !ctt::crash_down(flags, b, N, j);
   if (ok) {
     const uint32_t h = ctt::mix_absorb(
         ctt::mix_absorb(sd ^ ctt::STREAM_DELIVER, r), s);
@@ -68,15 +75,17 @@ __global__ void edges_src_kernel(const uint32_t* __restrict__ seed,
 }
 
 // out[b, j, a]: node j sends to ids[b, a]. Grid (ceil(N / 256), B).
-template <bool DELAY>
+template <bool DELAY, bool CRASH>
 __global__ void edges_dst_kernel(const uint32_t* __restrict__ seed,
                                  uint32_t r, const int32_t* __restrict__ ids,
                                  unsigned char* __restrict__ out, int A,
                                  int N, uint32_t drop_cut,
-                                 uint32_t part_cut, uint32_t max_delay) {
+                                 uint32_t part_cut, uint32_t max_delay,
+                                 const unsigned char* __restrict__ flags) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= N) return;
   const int b = blockIdx.y;
+  const bool src_up = !CRASH || !ctt::crash_down(flags, b, N, j);
   const uint32_t sd = seed[b];
   const uint32_t s = static_cast<uint32_t>(j);
   const uint32_t h = ctt::mix_absorb(
@@ -85,7 +94,8 @@ __global__ void edges_dst_kernel(const uint32_t* __restrict__ seed,
   for (int a = 0; a < A; ++a) {
     const int32_t id = ids[b * A + a];
     const uint32_t d = static_cast<uint32_t>(id);
-    o[a] = id >= 0 && s != d &&
+    o[a] = id >= 0 && s != d && src_up &&
+           (!CRASH || !ctt::crash_down(flags, b, N, id)) &&
            (ctt::mix_fin(ctt::mix_absorb(h, d)) >= drop_cut ||
             (DELAY &&
              ctt::delayed_open(sd, r, s, d, drop_cut, max_delay))) &&
@@ -99,21 +109,30 @@ extern "C" int ctt_delivery_edges(const uint32_t* seed, uint32_t r,
                                   const int32_t* ids, unsigned char* out,
                                   int B, int A, int N, uint32_t drop_cut,
                                   uint32_t part_cut, int ids_are_src,
-                                  uint32_t max_delay, cudaStream_t st) {
+                                  uint32_t max_delay,
+                                  const unsigned char* flags,
+                                  cudaStream_t st) {
   if (B == 0 || A == 0 || N == 0) return 0;
   const int threads = 256;
   const unsigned gx = (N + threads - 1) / threads;
-  const bool delay = max_delay != 0u;
+  const bool delay = max_delay != 0u, crash = flags != nullptr;
   if (ids_are_src) {
     const auto kernel =
-        delay ? edges_src_kernel<true> : edges_src_kernel<false>;
+        crash ? (delay ? edges_src_kernel<true, true>
+                       : edges_src_kernel<false, true>)
+              : (delay ? edges_src_kernel<true, false>
+                       : edges_src_kernel<false, false>);
     kernel<<<dim3(gx, B * A), threads, 0, st>>>(
-        seed, r, ids, out, A, N, drop_cut, part_cut, max_delay);
+        seed, r, ids, out, A, N, drop_cut, part_cut, max_delay, flags);
   } else {
     const auto kernel =
-        delay ? edges_dst_kernel<true> : edges_dst_kernel<false>;
+        crash ? (delay ? edges_dst_kernel<true, true>
+                       : edges_dst_kernel<false, true>)
+              : (delay ? edges_dst_kernel<true, false>
+                       : edges_dst_kernel<false, false>);
     kernel<<<dim3(gx, B), threads, 0, st>>>(seed, r, ids, out, A, N,
-                                            drop_cut, part_cut, max_delay);
+                                            drop_cut, part_cut, max_delay,
+                                            flags);
   }
   return static_cast<int>(cudaGetLastError());
 }

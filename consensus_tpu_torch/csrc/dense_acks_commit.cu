@@ -34,8 +34,13 @@
 //     of the leader's match row in shared memory, its suffix sums, and the
 //     largest m <= E whose suffix count reaches the majority, which is
 //     what the binary search returns; then the commit advance.
+// Its CRASH instance (SPEC §6c, picked when the round's flag word of kernel
+// KAH is given) changes launch 3 only: a node down at the round's end keeps
+// its timer (the freeze, raft.py:527-536). KL cut every ack to or from a
+// down node and KN listed no down leader, so nothing else reaches it.
 #include <cuda_runtime.h>
 
+#include "crash.cuh"
 #include "rng.cuh"
 
 namespace {
@@ -92,6 +97,7 @@ dense_bump_kernel(const uint32_t* __restrict__ seed, int32_t t_min,
 }
 
 // Launch 3. A thread per (sweep, node), flattened.
+template <bool CRASH>
 __global__ void __launch_bounds__(THREADS)
 dense_match_timer_kernel(const bool* __restrict__ deliver,
                          const int32_t* __restrict__ ack_to,
@@ -102,7 +108,9 @@ dense_match_timer_kernel(const bool* __restrict__ deliver,
                          const bool* __restrict__ reset,
                          uint8_t* __restrict__ match_idx,
                          uint8_t* __restrict__ next_idx,
-                         int32_t* __restrict__ timer, int N, long long rows) {
+                         int32_t* __restrict__ timer,
+                         const unsigned char* __restrict__ flags, int N,
+                         long long rows) {
   const long long row =
       static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
   if (row >= rows) return;
@@ -122,6 +130,7 @@ dense_match_timer_kernel(const bool* __restrict__ deliver,
     }
   }
   // P4.
+  if (CRASH && (flags[row] & ctt::CRASH_DOWN)) return;
   if (role[row] == ROLE_L)
     timer[row] = 0;
   else if (!reset[row])  // wraps as the plain version's i32 add
@@ -183,8 +192,8 @@ extern "C" int ctt_dense_acks_commit(
     const bool* ack_ok, const int32_t* ack_match, const int32_t* log_term,
     int32_t* term, int32_t* role, int32_t* voted_for, int32_t* timeout,
     int32_t* commit, uint8_t* match_idx, uint8_t* next_idx, int32_t* timer,
-    const bool* reset, int32_t* scratch, int B, int N, int L, int E,
-    cudaStream_t st) {
+    const bool* reset, int32_t* scratch, const unsigned char* flags, int B,
+    int N, int L, int E, cudaStream_t st) {
   if (t_span == 0u || E < 0 || E >= BINS || E > L)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || N == 0) return 0;
@@ -206,9 +215,11 @@ extern "C" int ctt_dense_acks_commit(
       seed, t_min, t_span, was_leader, t_in3, term, role, voted_for, timeout,
       proc, n_proc, proc_list, N, rows);
   if ((err = static_cast<int>(cudaGetLastError())) != 0) return err;
-  dense_match_timer_kernel<<<blocks, THREADS, 0, st>>>(
+  const auto match_timer = flags != nullptr ? dense_match_timer_kernel<true>
+                                            : dense_match_timer_kernel<false>;
+  match_timer<<<blocks, THREADS, 0, st>>>(
       deliver, ack_to, ack_ok, ack_match, proc, role, reset, match_idx,
-      next_idx, timer, N, rows);
+      next_idx, timer, flags, N, rows);
   if ((err = static_cast<int>(cudaGetLastError())) != 0) return err;
   dense_commit_kernel<<<B, BINS, 0, st>>>(n_proc, proc_list, match_idx,
                                           log_term, term, commit, N, L, E);

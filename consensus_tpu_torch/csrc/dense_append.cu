@@ -44,10 +44,16 @@
 //     the apply's scalars; a short copy range is copied by its own lane,
 //     and the warp copies each long one (a follower catching up) 32 words
 //     at a time, as kernel KD does.
+// Its CRASH instance (SPEC §6c, picked when the round's flag word of kernel
+// KAH is given) changes launch 1 only: a leader down at the round's end
+// neither appends nor is listed (its log and rows stay frozen, and KL cut
+// its heartbeats); launch 3 then leaves a down node as it is, since KL cut
+// every heartbeat to it.
 #include <climits>
 
 #include <cuda_runtime.h>
 
+#include "crash.cuh"
 #include "rng.cuh"
 
 namespace {
@@ -58,6 +64,7 @@ constexpr int32_t ROLE_F = 0, ROLE_C = 1, ROLE_L = 2, NONE = -1;
 constexpr int LANE_COPY = 4;
 
 // Launch 1. A thread per (sweep, node), flattened.
+template <bool CRASH>
 __global__ void __launch_bounds__(THREADS)
 dense_propose_kernel(const uint32_t* __restrict__ seed, uint32_t r,
                      const int32_t* __restrict__ term,
@@ -69,14 +76,16 @@ dense_propose_kernel(const uint32_t* __restrict__ seed, uint32_t r,
                      uint8_t* __restrict__ match_idx,
                      int32_t* __restrict__ len_out,
                      bool* __restrict__ was_leader, int4* __restrict__ leaders,
-                     int* __restrict__ n_lead, int N, int L, int E,
-                     long long rows) {
+                     int* __restrict__ n_lead,
+                     const unsigned char* __restrict__ flags, int N, int L,
+                     int E, long long rows) {
   const long long row =
       static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
   if (row >= rows) return;
   const int b = static_cast<int>(row / N);
   const int i = static_cast<int>(row - static_cast<long long>(b) * N);
-  const bool lead = role[row] == ROLE_L;
+  const bool lead = role[row] == ROLE_L &&
+                    !(CRASH && (flags[row] & ctt::CRASH_DOWN));
   const int32_t tm = term[row];
   int32_t len = log_len[row];
   if (lead && len < E) {
@@ -264,8 +273,8 @@ extern "C" int ctt_dense_append(
     int32_t* vf_out, int32_t* timer_out, int32_t* timeout_out,
     bool* reset_out, int32_t* len_out, int32_t* commit_out,
     bool* was_leader, int32_t* ack_to, bool* ack_ok, int32_t* ack_match,
-    int32_t* scratch, int32_t* snap, int B, int N, int L, int E,
-    cudaStream_t st) {
+    int32_t* scratch, int32_t* snap, const unsigned char* flags, int B,
+    int N, int L, int E, cudaStream_t st) {
   if (t_span == 0u || E > L) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || N == 0) return 0;
   const long long rows = static_cast<long long>(B) * N;
@@ -279,9 +288,11 @@ extern "C" int ctt_dense_append(
   int err = static_cast<int>(cudaMemsetAsync(n_lead, 0, sizeof(int) * B, st));
   if (err != 0) return err;
   const unsigned blocks = static_cast<unsigned>((rows + THREADS - 1) / THREADS);
-  dense_propose_kernel<<<blocks, THREADS, 0, st>>>(
+  const auto propose = flags != nullptr ? dense_propose_kernel<true>
+                                        : dense_propose_kernel<false>;
+  propose<<<blocks, THREADS, 0, st>>>(
       seed, r, term, role, log_term, log_val, log_len, commit, match_idx,
-      len_out, was_leader, leaders, n_lead, N, L, E, rows);
+      len_out, was_leader, leaders, n_lead, flags, N, L, E, rows);
   if ((err = static_cast<int>(cudaGetLastError())) != 0) return err;
   dense_snapshot_kernel<<<B, THREADS, 0, st>>>(log_term, log_val, leaders,
                                                n_lead, snap_t, snap_v, N, L);

@@ -38,10 +38,26 @@
 //     their two rows with the whole block.
 // The winner flags (only with telemetry: a null pointer otherwise) are
 // cleared by launch 1 and set by launch 3.
+// Its CRASH instances (SPEC §6c, picked when the round's flag word of kernel
+// KAH is given; raft.py:267-290, 527-536): launch 1 first resets a node
+// recovered this round to a follower with its timer at 0, runs P0-P1 as
+// before, but writes a node down at the round's end back at its post-reset
+// state. A down candidate's requests are never
+// delivered (KL cut them) and its tally is 1 < N / 2 + 1 for N > 1, so it
+// is listed only at N = 1, where the JAX round's in-round tally makes it a
+// winner (the telemetry counts it): a down node whose frozen timer has run
+// out stands again every round, and listing it would lengthen every
+// receiver's walk. Launch 2 then leaves a down node as it is, since KL
+// cut every request to it. Launch 3 first writes the recovered nodes' two
+// rows to 0 and 1 with the whole block (the rest of their volatile reset;
+// no launch reads the rows before, and a winner's rows, written after,
+// win), then sets a listed down candidate's winner flag and touches
+// neither its state nor its rows.
 #include <climits>
 
 #include <cuda_runtime.h>
 
+#include "crash.cuh"
 #include "rng.cuh"
 
 namespace {
@@ -50,6 +66,7 @@ constexpr int THREADS = 256;
 constexpr int32_t ROLE_F = 0, ROLE_C = 1, ROLE_L = 2, NONE = -1;
 
 // Launch 1. A thread per (sweep, node), flattened.
+template <bool CRASH>
 __global__ void __launch_bounds__(THREADS)
 dense_candidacy_kernel(const uint32_t* __restrict__ seed, uint32_t r,
                        uint32_t churn_cut, int32_t t_min, uint32_t t_span,
@@ -68,7 +85,8 @@ dense_candidacy_kernel(const uint32_t* __restrict__ seed, uint32_t r,
                        bool* __restrict__ reset_out,
                        bool* __restrict__ win_out, int4* __restrict__ cands,
                        int* __restrict__ n_cand, int32_t* __restrict__ lterm,
-                       int N, int L, long long rows) {
+                       const unsigned char* __restrict__ flags, int N, int L,
+                       long long rows) {
   const long long row =
       static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
   if (row >= rows) return;
@@ -77,6 +95,16 @@ dense_candidacy_kernel(const uint32_t* __restrict__ seed, uint32_t r,
   const uint32_t sd = seed[b];
   int32_t tm = term[row], rl = role[row], vf = voted_for[row];
   int32_t tmr = timer[row], to = timeout[row];
+  bool down = false;
+  if (CRASH) {
+    const unsigned char fl = flags[row];
+    if (fl & ctt::CRASH_REC) {
+      rl = ROLE_F;
+      tmr = 0;
+    }
+    down = (fl & ctt::CRASH_DOWN) != 0;
+  }
+  const int32_t f_tm = tm, f_rl = rl, f_vf = vf, f_tmr = tmr, f_to = to;
   bool reset = false;
   // P0: the sweep's churn event steps its leaders down.
   if (rl == ROLE_L && churn_cut != 0u &&
@@ -97,6 +125,13 @@ dense_candidacy_kernel(const uint32_t* __restrict__ seed, uint32_t r,
   const int32_t len = log_len[row];
   const int k = min(max(len - 1, 0), L - 1);
   const int32_t lt = len > 0 ? log_term[row * L + k] : 0;
+  if (rl == ROLE_C && !(CRASH && down && N > 1)) {
+    const int q = atomicAdd(&n_cand[b], 1);
+    cands[static_cast<long long>(b) * N + q] = make_int4(j, tm, len, lt);
+  }
+  if (CRASH && down) {
+    tm = f_tm, rl = f_rl, vf = f_vf, tmr = f_tmr, to = f_to;
+  }
   term_out[row] = tm;
   role_out[row] = rl;
   vf_out[row] = vf;
@@ -105,10 +140,6 @@ dense_candidacy_kernel(const uint32_t* __restrict__ seed, uint32_t r,
   reset_out[row] = reset;
   if (win_out != nullptr) win_out[row] = false;
   lterm[row] = lt;
-  if (rl == ROLE_C) {
-    const int q = atomicAdd(&n_cand[b], 1);
-    cands[static_cast<long long>(b) * N + q] = make_int4(j, tm, len, lt);
-  }
 }
 
 // Launch 2. A thread per (sweep, receiver), flattened.
@@ -188,6 +219,7 @@ dense_grants_kernel(const uint32_t* __restrict__ seed, int32_t t_min,
 }
 
 // Launch 3. A block per sweep.
+template <bool CRASH>
 __global__ void __launch_bounds__(THREADS)
 dense_winners_kernel(const int32_t* __restrict__ log_len,
                      const int4* __restrict__ cands,
@@ -198,13 +230,33 @@ dense_winners_kernel(const int32_t* __restrict__ log_len,
                      bool* __restrict__ reset_out,
                      bool* __restrict__ win_out,
                      uint8_t* __restrict__ match_idx,
-                     uint8_t* __restrict__ next_idx, int N) {
+                     uint8_t* __restrict__ next_idx,
+                     const unsigned char* __restrict__ flags, int N) {
   __shared__ int s_n;
   __shared__ int s_won[THREADS];
   const int b = blockIdx.x;
   const long long nodes = static_cast<long long>(b) * N;
   const int nc = n_cand[b];
   const int majority = N / 2 + 1;
+  if (CRASH) {
+    // The recovered nodes' rows, a block-wide write each.
+    for (int base = 0; base < N; base += THREADS) {  // uniform in the block
+      if (threadIdx.x == 0) s_n = 0;
+      __syncthreads();
+      const int j = base + threadIdx.x;
+      if (j < N && (flags[nodes + j] & ctt::CRASH_REC))
+        s_won[atomicAdd(&s_n, 1)] = j;
+      __syncthreads();
+      for (int q = 0; q < s_n; ++q) {
+        const long long row = nodes + s_won[q];
+        for (int k = threadIdx.x; k < N; k += THREADS) {
+          match_idx[row * N + k] = 0;
+          next_idx[row * N + k] = 1;
+        }
+      }
+      __syncthreads();
+    }
+  }
   for (int base = 0; base < nc; base += THREADS) {  // uniform in the block
     if (threadIdx.x == 0) s_n = 0;
     __syncthreads();
@@ -212,7 +264,11 @@ dense_winners_kernel(const int32_t* __restrict__ log_len,
     if (q < nc) {
       const int c = cands[nodes + q].x;
       const long long row = nodes + c;
-      if (role_out[row] == ROLE_C && 1 + votes[row] >= majority) {
+      if (CRASH && (flags[row] & ctt::CRASH_DOWN)) {
+        // Its in-round role is still candidate: KL cut every request.
+        if (win_out != nullptr && 1 + votes[row] >= majority)
+          win_out[row] = true;
+      } else if (role_out[row] == ROLE_C && 1 + votes[row] >= majority) {
         role_out[row] = ROLE_L;
         timer_out[row] = 0;
         reset_out[row] = true;
@@ -246,7 +302,7 @@ extern "C" int ctt_dense_elect(
     uint8_t* match_idx, uint8_t* next_idx, int32_t* term_out,
     int32_t* role_out, int32_t* vf_out, int32_t* timer_out,
     int32_t* timeout_out, bool* reset_out, bool* win_out, int32_t* scratch,
-    int B, int N, int L, cudaStream_t st) {
+    const unsigned char* flags, int B, int N, int L, cudaStream_t st) {
   if (t_span == 0u) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || N == 0) return 0;
   const long long rows = static_cast<long long>(B) * N;
@@ -261,18 +317,23 @@ extern "C" int ctt_dense_elect(
       cudaMemsetAsync(n_cand, 0, sizeof(int) * (B + rows), st));
   if (err != 0) return err;
   const unsigned blocks = static_cast<unsigned>((rows + THREADS - 1) / THREADS);
-  dense_candidacy_kernel<<<blocks, THREADS, 0, st>>>(
+  const bool crash = flags != nullptr;
+  const auto candidacy = crash ? dense_candidacy_kernel<true>
+                               : dense_candidacy_kernel<false>;
+  candidacy<<<blocks, THREADS, 0, st>>>(
       seed, r, churn_cut, t_min, t_span, term, role, voted_for, timer,
       timeout, log_term, log_len, term_out, role_out, vf_out, timer_out,
-      timeout_out, reset_out, win_out, cands, n_cand, lterm, N, L, rows);
+      timeout_out, reset_out, win_out, cands, n_cand, lterm, flags, N, L,
+      rows);
   if ((err = static_cast<int>(cudaGetLastError())) != 0) return err;
   dense_grants_kernel<<<blocks, THREADS, 0, st>>>(
       seed, t_min, t_span, deliver, log_len, cands, n_cand, lterm, term_out,
       role_out, vf_out, timer_out, timeout_out, reset_out, votes, N, rows);
   if ((err = static_cast<int>(cudaGetLastError())) != 0) return err;
-  dense_winners_kernel<<<B, THREADS, 0, st>>>(log_len, cands, n_cand, votes,
-                                              role_out, timer_out, reset_out,
-                                              win_out, match_idx, next_idx,
-                                              N);
+  const auto winners = crash ? dense_winners_kernel<true>
+                             : dense_winners_kernel<false>;
+  winners<<<B, THREADS, 0, st>>>(log_len, cands, n_cand, votes, role_out,
+                                 timer_out, reset_out, win_out, match_idx,
+                                 next_idx, flags, N);
   return static_cast<int>(cudaGetLastError());
 }

@@ -31,8 +31,12 @@
 // no tensor holds the chain lengths of the round's entry, so the count is
 // taken here, by a ballot a warp and shared atomics a block (a block spans
 // at most two lanes when V >= 256), then one global atomic a lane a block.
+// Its CRASH instances (SPEC §6c, picked when the round's flag word of kernel
+// KAH is given) append nothing at a validator down at the round's end, nor
+// anywhere in a lane whose round producer is down (dpos.py:171-172).
 #include <cuda_runtime.h>
 
+#include "crash.cuh"
 #include "rng.cuh"
 
 namespace {
@@ -52,13 +56,14 @@ __device__ __forceinline__ void store(void* base, int size, long long i,
 
 // Validator v of lane b's round: appends (r, p) where the block reaches it,
 // and says whether it did.
-template <bool DELAY>
+template <bool DELAY, bool CRASH>
 __device__ __forceinline__ bool append(
     const uint32_t* __restrict__ seed, uint32_t r,
     const int32_t* __restrict__ producers, void* chain_r, void* chain_p,
     int32_t* __restrict__ chain_len, int r_size, int p_size, int p_index,
     int list_len, uint32_t drop_cut, uint32_t part_cut, uint32_t churn_cut,
-    uint32_t max_delay, int L, int b, uint32_t v, long long row) {
+    uint32_t max_delay, const unsigned char* __restrict__ flags, int V,
+    int L, int b, uint32_t v, long long row) {
   const uint32_t sd = seed[b];
   if (ctt::random_u32(sd, ctt::STREAM_CHURN, r, 0u, 0u) < churn_cut)
     return false;
@@ -66,6 +71,9 @@ __device__ __forceinline__ bool append(
   if (len >= L) return false;
   const uint32_t p = static_cast<uint32_t>(
       producers[static_cast<long long>(b) * list_len + p_index]);
+  if (CRASH && (ctt::crash_down(flags, b, V, static_cast<int>(v)) ||
+                ctt::crash_down(flags, b, V, static_cast<int>(p))))
+    return false;
   if (v != p) {
     const uint32_t h = ctt::mix_absorb(
         ctt::mix_absorb(ctt::mix_absorb(sd ^ ctt::STREAM_DELIVER, r), p), v);
@@ -85,7 +93,7 @@ __device__ __forceinline__ bool append(
 }
 
 // A thread per (lane, validator), flattened.
-template <bool DELAY>
+template <bool DELAY, bool CRASH>
 __global__ void __launch_bounds__(THREADS)
 dpos_round_kernel(const uint32_t* __restrict__ seed, uint32_t r,
                   const int32_t* __restrict__ producers, void* chain_r,
@@ -93,7 +101,8 @@ dpos_round_kernel(const uint32_t* __restrict__ seed, uint32_t r,
                   int32_t* __restrict__ n_app, int r_size, int p_size,
                   int p_index, int list_len, uint32_t drop_cut,
                   uint32_t part_cut, uint32_t churn_cut, uint32_t max_delay,
-                  int V, int L, long long rows) {
+                  const unsigned char* __restrict__ flags, int V, int L,
+                  long long rows) {
   __shared__ int s_app[2];
   const long long row =
       static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
@@ -101,10 +110,11 @@ dpos_round_kernel(const uint32_t* __restrict__ seed, uint32_t r,
   bool did = false;
   if (row < rows) {
     b = static_cast<int>(row / V);
-    did = append<DELAY>(
+    did = append<DELAY, CRASH>(
         seed, r, producers, chain_r, chain_p, chain_len, r_size, p_size,
-        p_index, list_len, drop_cut, part_cut, churn_cut, max_delay, L, b,
-        static_cast<uint32_t>(row - static_cast<long long>(b) * V), row);
+        p_index, list_len, drop_cut, part_cut, churn_cut, max_delay, flags,
+        V, L, b, static_cast<uint32_t>(row - static_cast<long long>(b) * V),
+        row);
   }
   if (n_app == nullptr) return;
   // The appends a lane, for the telemetry.
@@ -134,8 +144,8 @@ extern "C" int ctt_dpos_round(const uint32_t* seed, uint32_t r,
                               int32_t* n_app, int r_size, int p_size,
                               int p_index, int list_len, uint32_t drop_cut,
                               uint32_t part_cut, uint32_t churn_cut,
-                              uint32_t max_delay, int B, int V, int L,
-                              cudaStream_t st) {
+                              uint32_t max_delay, const unsigned char* flags,
+                              int B, int V, int L, cudaStream_t st) {
   if (n_app != nullptr && B > 0) {
     const int err = static_cast<int>(
         cudaMemsetAsync(n_app, 0, sizeof(int32_t) * B, st));
@@ -143,11 +153,16 @@ extern "C" int ctt_dpos_round(const uint32_t* seed, uint32_t r,
   }
   const long long rows = static_cast<long long>(B) * V;
   if (rows == 0) return 0;
+  const bool delay = max_delay != 0u;
   const auto kernel =
-      max_delay != 0u ? dpos_round_kernel<true> : dpos_round_kernel<false>;
+      flags != nullptr
+          ? (delay ? dpos_round_kernel<true, true>
+                   : dpos_round_kernel<false, true>)
+          : (delay ? dpos_round_kernel<true, false>
+                   : dpos_round_kernel<false, false>);
   kernel<<<static_cast<unsigned>((rows + THREADS - 1) / THREADS), THREADS, 0,
            st>>>(seed, r, producers, chain_r, chain_p, chain_len, n_app,
                  r_size, p_size, p_index, list_len, drop_cut, part_cut,
-                 churn_cut, max_delay, V, L, rows);
+                 churn_cut, max_delay, flags, V, L, rows);
   return static_cast<int>(cudaGetLastError());
 }

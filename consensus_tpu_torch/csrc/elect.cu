@@ -25,9 +25,16 @@
 // blocks already bump terms. Integer atomics make the tally independent of
 // order. Launch 2, a thread per (sweep, candidate): a valid candidate that
 // is still a candidate after P2a (read from the outputs) and holds a
-// majority becomes leader; every slot writes its winner flag.
+// majority becomes leader; every slot writes its winner flag. Its CRASH
+// instance (SPEC §6c, picked when the round's flag word of kernel KAH is
+// given) leaves the nodes down at the round's end out of the leader mask
+// (raft_sparse.py:359-360): KC then never tracks them and KI appends
+// nothing to their logs. A down node's state passes through unchanged,
+// since KB cut every request and response it would see or send, and the
+// candidates (KC's, from KE's mask) are up.
 #include <cuda_runtime.h>
 
+#include "crash.cuh"
 #include "rng.cuh"
 
 namespace {
@@ -36,6 +43,7 @@ constexpr int THREADS = 256;
 constexpr int MAXA = 16;
 constexpr int32_t ROLE_F = 0, ROLE_C = 1, ROLE_L = 2, NONE = -1;
 
+template <bool CRASH>
 __global__ void __launch_bounds__(THREADS)
 elect_nodes_kernel(const uint32_t* __restrict__ seed, int32_t t_min,
                    uint32_t t_span, const int32_t* __restrict__ cand_ids,
@@ -56,7 +64,7 @@ elect_nodes_kernel(const uint32_t* __restrict__ seed, int32_t t_min,
                    int32_t* __restrict__ timeout_out,
                    bool* __restrict__ reset_out,
                    bool* __restrict__ lead_out, int* __restrict__ votes,
-                   int N, int A) {
+                   const unsigned char* __restrict__ flags, int N, int A) {
   __shared__ int32_t s_id[MAXA], s_cid[MAXA], s_rterm[MAXA], s_rlidx[MAXA],
       s_rlterm[MAXA];
   __shared__ int s_votes[MAXA];
@@ -127,7 +135,8 @@ elect_nodes_kernel(const uint32_t* __restrict__ seed, int32_t t_min,
     timer_out[row] = tmr;
     timeout_out[row] = to;
     reset_out[row] = rs;
-    lead_out[row] = rl == ROLE_L;
+    lead_out[row] = rl == ROLE_L &&
+                    !(CRASH && (flags[row] & ctt::CRASH_DOWN));
   }
   __syncthreads();
   if (threadIdx.x < A && s_votes[threadIdx.x] != 0)
@@ -174,7 +183,8 @@ extern "C" int ctt_elect(const uint32_t* seed, int32_t t_min, uint32_t t_span,
                          int32_t* role_out, int32_t* vf_out,
                          int32_t* timer_out, int32_t* timeout_out,
                          bool* reset_out, bool* lead_out, bool* win,
-                         int* votes, int B, int N, int A, cudaStream_t st) {
+                         int* votes, const unsigned char* flags, int B, int N,
+                         int A, cudaStream_t st) {
   if (A < 1 || A > MAXA || t_span == 0u)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || N == 0) return 0;
@@ -182,10 +192,12 @@ extern "C" int ctt_elect(const uint32_t* seed, int32_t t_min, uint32_t t_span,
       cudaMemsetAsync(votes, 0, sizeof(int) * B * A, st));
   if (err != 0) return err;
   const dim3 grid((N + THREADS - 1) / THREADS, B);
-  elect_nodes_kernel<<<grid, THREADS, 0, st>>>(
+  const auto nodes = flags != nullptr ? elect_nodes_kernel<true>
+                                      : elect_nodes_kernel<false>;
+  nodes<<<grid, THREADS, 0, st>>>(
       seed, t_min, t_span, cand_ids, del_cj, del_jc, term, role, voted_for,
       timer, timeout, reset, log_len, own_lterm, term_out, role_out, vf_out,
-      timer_out, timeout_out, reset_out, lead_out, votes, N, A);
+      timer_out, timeout_out, reset_out, lead_out, votes, flags, N, A);
   err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
   elect_winners_kernel<<<(B * A + 127) / 128, 128, 0, st>>>(

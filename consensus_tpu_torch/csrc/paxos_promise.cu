@@ -37,8 +37,13 @@
 // nacks are n_pair - n_prom), launch 4 also counts, for each proposing p,
 // the acceptors with both of p's flights delivered (prep_del[a, p] and
 // deliver[a, p], the mask's diagonal as KL gives it), merged like n_prom.
+// Its CRASH instances (SPEC §6c, picked when the round's flag word of kernel
+// KAH is given) read the promised row of an acceptor recovered this round
+// as 0 in launches 3 and 4 (its volatile reset, paxos.py:118-122); KL has
+// already cut every flight of a down node.
 #include <cuda_runtime.h>
 
+#include "crash.cuh"
 #include "paxos.cuh"
 
 namespace {
@@ -98,12 +103,14 @@ __global__ void paxos_transpose_kernel(const uint8_t* __restrict__ in,
 }
 
 // Launch 3. A block per (lane, acceptor row).
+template <bool CRASH>
 __global__ void __launch_bounds__(THREADS)
 paxos_prepare_kernel(const uint8_t* __restrict__ prep_del,
                      const int32_t* __restrict__ props,
                      const int32_t* __restrict__ promised,
-                     int32_t* __restrict__ new_promised, int n_prop, int N,
-                     int S, bool in_smem) {
+                     int32_t* __restrict__ new_promised,
+                     const unsigned char* __restrict__ flags, int n_prop,
+                     int N, int S, bool in_smem) {
   extern __shared__ int32_t smem[];
   const long long row = blockIdx.x;
   const int b = static_cast<int>(row / N);
@@ -119,12 +126,14 @@ paxos_prepare_kernel(const uint8_t* __restrict__ prep_del,
                 lane[ctt::PROP_BALLOT * N + p]);
   }
   __syncthreads();
+  const bool rec = CRASH && (flags[row] & ctt::CRASH_REC);
   for (int s = threadIdx.x; s < S; s += THREADS)
-    new_promised[cell + s] = max(promised[cell + s], pm[s]);
+    new_promised[cell + s] = rec ? pm[s] : max(promised[cell + s], pm[s]);
 }
 
 // Launch 4. A block per (proposer chunk, acceptor tile, lane), flattened
 // in that order.
+template <bool CRASH>
 __global__ void __launch_bounds__(THREADS)
 paxos_promise_tile_kernel(const uint8_t* __restrict__ deliver,
                           const uint8_t* __restrict__ prep_del,
@@ -134,7 +143,8 @@ paxos_promise_tile_kernel(const uint8_t* __restrict__ deliver,
                           const int32_t* __restrict__ acc_bal,
                           int32_t* __restrict__ n_prom,
                           int32_t* __restrict__ n_pair,
-                          unsigned long long* __restrict__ keys, int N,
+                          unsigned long long* __restrict__ keys,
+                          const unsigned char* __restrict__ flags, int N,
                           int S) {
   const ctt::TileBlock tb = ctt::tile_block(N);
   const int p = tb.p;
@@ -154,7 +164,9 @@ paxos_promise_tile_kernel(const uint8_t* __restrict__ deliver,
     if (is_prop && prep_del[row * N + p] && deliver[row * N + p]) {
       ++pairs;
       const long long c = row * S + slot;
-      if (ballot > promised[c] && ballot == new_promised[c]) {
+      const int32_t held =
+          CRASH && (flags[row] & ctt::CRASH_REC) ? 0 : promised[c];
+      if (ballot > held && ballot == new_promised[c]) {
         ++count;
         rep = acc_bal[c];
       }
@@ -189,17 +201,23 @@ extern "C" int ctt_paxos_promise(
     const uint32_t* seed, uint32_t r, const uint8_t* deliver,
     const int32_t* promised, const int32_t* acc_bal, int32_t* new_promised,
     int32_t* n_prom, int32_t* best_bal, int32_t* best_a, uint8_t* prep_del,
-    int32_t* n_pair, int32_t* props, unsigned long long* keys, int P,
-    uint32_t churn_cut, int B, int N, int S, cudaStream_t st) {
+    int32_t* n_pair, int32_t* props, unsigned long long* keys,
+    const unsigned char* flags, int P, uint32_t churn_cut, int B, int N,
+    int S, cudaStream_t st) {
   if (B == 0 || N == 0) return 0;
   static bool configured = false;
   if (!configured) {
-    const int err = static_cast<int>(cudaFuncSetAttribute(
-        paxos_prepare_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        ctt::ROW_SMEM_MAX));
+    int err = static_cast<int>(cudaFuncSetAttribute(
+        paxos_prepare_kernel<false>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, ctt::ROW_SMEM_MAX));
+    if (err == 0)
+      err = static_cast<int>(cudaFuncSetAttribute(
+          paxos_prepare_kernel<true>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, ctt::ROW_SMEM_MAX));
     if (err != 0) return err;
     configured = true;
   }
+  const bool crash = flags != nullptr;
   const long long rows = static_cast<long long>(B) * N;
   int err = static_cast<int>(
       cudaMemsetAsync(n_prom, 0, rows * sizeof(int32_t), st));
@@ -220,12 +238,17 @@ extern "C" int ctt_paxos_promise(
                            dim3(32, 8), 0, st>>>(deliver, prep_del, N, tiles);
   const bool in_smem =
       static_cast<long long>(S) * sizeof(int32_t) <= ctt::ROW_SMEM_MAX;
-  paxos_prepare_kernel<<<static_cast<unsigned>(rows), THREADS,
-                         in_smem ? S * sizeof(int32_t) : 0, st>>>(
-      prep_del, props, promised, new_promised, P < N ? P : N, N, S, in_smem);
-  paxos_promise_tile_kernel<<<ctt::tile_blocks(B, N), THREADS, 0, st>>>(
+  const auto prepare =
+      crash ? paxos_prepare_kernel<true> : paxos_prepare_kernel<false>;
+  prepare<<<static_cast<unsigned>(rows), THREADS,
+            in_smem ? S * sizeof(int32_t) : 0, st>>>(
+      prep_del, props, promised, new_promised, flags, P < N ? P : N, N, S,
+      in_smem);
+  const auto promise = crash ? paxos_promise_tile_kernel<true>
+                             : paxos_promise_tile_kernel<false>;
+  promise<<<ctt::tile_blocks(B, N), THREADS, 0, st>>>(
       deliver, prep_del, props, promised, new_promised, acc_bal, n_prom,
-      n_pair, keys, N, S);
+      n_pair, keys, flags, N, S);
   paxos_unpack_kernel<<<row_blocks, THREADS, 0, st>>>(keys, best_bal, best_a,
                                                        rows);
   return static_cast<int>(cudaGetLastError());

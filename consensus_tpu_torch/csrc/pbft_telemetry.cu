@@ -38,6 +38,14 @@
 // lane's scratch with atomicMax, fences, and counts itself done; the last
 // block of the lane reads the lane's extremes and adds the spread and
 // desync_rounds. So telemetry adds one kernel and one memset a round.
+// Its CRASH instance (SPEC §6c, picked by a nonzero `crash` mode of
+// engines/pbft.py): the round's tensors are read before the freeze, and
+// `down` is the mask at the round's end, so a down node's view terms
+// (view_changes, its view-change wait) are left out, its view being frozen
+// (pbft.py:368-373); with mode bit CRASH_COMMITS (the §6b round, whose
+// commits a down node never takes, pbft_bcast.py:355-356) its
+// commit_quorums and slot commit latencies are too. The crash tail itself
+// is kernel KAH's.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -75,6 +83,7 @@ __device__ __forceinline__ uint32_t order_key(int32_t v) {
   return static_cast<uint32_t>(v) ^ 0x80000000u;
 }
 
+template <bool CRASH>
 __global__ void __launch_bounds__(THREADS)
 pbft_telemetry_kernel(const int32_t* __restrict__ n_real,
                       const int32_t* __restrict__ view_in,
@@ -91,7 +100,7 @@ pbft_telemetry_kernel(const int32_t* __restrict__ n_real,
                       int* __restrict__ t, int* __restrict__ w,
                       int* __restrict__ lat, unsigned* __restrict__ span,
                       int r, int N, int S, int K, int window, int n_windows,
-                      int tiles) {
+                      int tiles, bool commits) {
   __shared__ int s_sum[SUMS];
   __shared__ int s_hist[HISTS][BUCKETS];
   __shared__ unsigned s_span[3];
@@ -117,9 +126,10 @@ pbft_telemetry_kernel(const int32_t* __restrict__ n_real,
     const int32_t v = view[row], v0 = view_in[row];
     const int32_t d = static_cast<int32_t>(static_cast<uint32_t>(v) -
                                            static_cast<uint32_t>(v0));
-    sums[C_VIEW] = d > 0 ? d : 0;
+    const bool frozen = CRASH && down[row];
+    sums[C_VIEW] = d > 0 && !frozen ? d : 0;
     sums[6] = caught[row];
-    if (flight && v > v0)
+    if (flight && v > v0 && !frozen)
       atomicAdd(&s_hist[0][lat_bucket(static_cast<int32_t>(
                     static_cast<uint32_t>(timer_in[row]) + 1u))],
                 1);
@@ -139,12 +149,13 @@ pbft_telemetry_kernel(const int32_t* __restrict__ n_real,
     if (e < e1) {
       const bool p = prepared[e], ct = committed_tally[e], c = committed[e];
       const bool cin = committed_in[e];
+      const bool kept = !(CRASH && commits && down[e / S]);
       sums[0] += p && !prepared_in[e];
       sums[1] += pp_seen[e] && !p;
-      sums[2] += ct && !cin;
+      sums[2] += ct && !cin && kept;
       sums[3] += p && !ct;
       sums[4] += c && !ct;
-      if (flight && c && !cin)
+      if (flight && c && !cin && kept)
         key = lat_bucket(r - static_cast<int>(e % S));
     }
     if (flight) {
@@ -226,7 +237,8 @@ extern "C" int ctt_pbft_telemetry(
     const bool* pp_seen, const bool* prepared_in, const bool* prepared,
     const bool* committed_in, const bool* committed_tally,
     const bool* committed, int* t, int* w, int* lat, unsigned* span, int r,
-    int B, int N, int S, int K, int window, int n_windows, cudaStream_t st) {
+    int B, int N, int S, int K, int window, int n_windows, int crash,
+    cudaStream_t st) {
   if (K < K_MIN || (w == nullptr) != (lat == nullptr) ||
       (w != nullptr && (window < 0 || window >= n_windows)))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -237,9 +249,11 @@ extern "C" int ctt_pbft_telemetry(
   const int tiles = (N + THREADS - 1) / THREADS;
   const long long blocks = static_cast<long long>(tiles) * B;
   if (blocks > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
-  pbft_telemetry_kernel<<<static_cast<unsigned>(blocks), THREADS, 0, st>>>(
+  const auto kernel = crash != 0 ? pbft_telemetry_kernel<true>
+                                  : pbft_telemetry_kernel<false>;
+  kernel<<<static_cast<unsigned>(blocks), THREADS, 0, st>>>(
       n_real, view_in, timer_in, view, caught, down, pp_seen, prepared_in,
       prepared, committed_in, committed_tally, committed, t, w, lat, span, r,
-      N, S, K, window, n_windows, tiles);
+      N, S, K, window, n_windows, tiles, (crash & 2) != 0);
   return static_cast<int>(cudaGetLastError());
 }

@@ -42,10 +42,16 @@
 //     primary that takes its own offer (it is delivered to itself) changes
 //     nothing that another receiver reads. The primary's first unseen
 //     slot comes from one ballot a 32-slot chunk.
+// Its CRASH instances (SPEC §6c, picked when the round's flag word of kernel
+// KAH is given) read the view and timer of a node recovered this round as 0
+// in launches 1 and 2 (its volatile reset, pbft.py:189-196); the rest is
+// the round as it was, down nodes included (KL cut their edges; the freeze
+// comes last in the round, kernel KAI).
 #include <climits>
 
 #include <cuda_runtime.h>
 
+#include "crash.cuh"
 #include "rng.cuh"
 
 namespace {
@@ -59,6 +65,15 @@ __device__ __forceinline__ int32_t wrap_add(int32_t a, int32_t b) {
                               static_cast<uint32_t>(b));
 }
 
+// A node's view or timer as the round takes it: 0 where the node recovered
+// this round (CRASH instances only).
+template <bool CRASH>
+__device__ __forceinline__ int32_t entry(const int32_t* __restrict__ x,
+                                         const unsigned char* __restrict__ fl,
+                                         long long at) {
+  return CRASH && (fl[at] & ctt::CRASH_REC) ? 0 : x[at];
+}
+
 // The round's churn event of a lane, as 0 or 1 (the P0 view step).
 __device__ __forceinline__ int32_t churn_step(uint32_t sd, uint32_t r,
                                               uint32_t churn_cut) {
@@ -67,27 +82,31 @@ __device__ __forceinline__ int32_t churn_step(uint32_t sd, uint32_t r,
 }
 
 // Launch 1. A thread per (lane, node), flattened.
+template <bool CRASH>
 __global__ void __launch_bounds__(THREADS)
 pbft_rank_kernel(const uint32_t* __restrict__ seed, uint32_t r,
                  uint32_t churn_cut, const int32_t* __restrict__ view,
-                 int32_t* __restrict__ order, int N, long long rows) {
+                 int32_t* __restrict__ order,
+                 const unsigned char* __restrict__ flags, int N,
+                 long long rows) {
   const long long row =
       static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
   if (row >= rows) return;
   const int b = static_cast<int>(row / N);
   const int i = static_cast<int>(row - static_cast<long long>(b) * N);
   const int32_t c = churn_step(seed[b], r, churn_cut);
-  const int32_t* v = view + static_cast<long long>(b) * N;
-  const int32_t vi = wrap_add(v[i], c);
+  const long long nodes = static_cast<long long>(b) * N;
+  const int32_t vi = wrap_add(entry<CRASH>(view, flags, nodes + i), c);
   int rank = 0;
   for (int k = 0; k < N; ++k) {
-    const int32_t vk = wrap_add(v[k], c);
+    const int32_t vk = wrap_add(entry<CRASH>(view, flags, nodes + k), c);
     rank += vk > vi || (vk == vi && k < i);
   }
   order[static_cast<long long>(b) * N + rank] = i;
 }
 
 // Launch 2. A thread per (lane, receiver), flattened.
+template <bool CRASH>
 __global__ void __launch_bounds__(THREADS)
 pbft_catchup_kernel(const uint32_t* __restrict__ seed, uint32_t r,
                     uint32_t churn_cut, int32_t view_timeout, int32_t vmax,
@@ -100,7 +119,9 @@ pbft_catchup_kernel(const uint32_t* __restrict__ seed, uint32_t r,
                     int32_t* __restrict__ view_out,
                     int32_t* __restrict__ timer_out,
                     bool* __restrict__ reset_out,
-                    bool* __restrict__ catch_out, int N, long long rows) {
+                    bool* __restrict__ catch_out,
+                    const unsigned char* __restrict__ flags, int N,
+                    long long rows) {
   const long long row =
       static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
   if (row >= rows) return;
@@ -109,8 +130,8 @@ pbft_catchup_kernel(const uint32_t* __restrict__ seed, uint32_t r,
   const long long nodes = static_cast<long long>(b) * N;
   // P0 churn.
   const int32_t c = churn_step(seed[b], r, churn_cut);
-  int32_t v = wrap_add(view[row], c);
-  int32_t t = c ? 0 : timer[row];
+  int32_t v = wrap_add(entry<CRASH>(view, flags, row), c);
+  int32_t t = c ? 0 : entry<CRASH>(timer, flags, row);
   bool reset = c != 0;
   // P1: the (f+1)-th largest of the counted views; -1 when fewer count
   // (the undelivered senders' -1 entries fill the column), and the top of
@@ -127,7 +148,8 @@ pbft_catchup_kernel(const uint32_t* __restrict__ seed, uint32_t r,
       const bool counted =
           i == j || (i < n && j < n && deliver[(nodes + i) * N + j]);
       if (counted && ++count == need) {
-        vth = min(max(wrap_add(view[nodes + i], c), -1), vmax);
+        vth = min(max(wrap_add(entry<CRASH>(view, flags, nodes + i), c), -1),
+                  vmax);
         break;
       }
     }
@@ -234,17 +256,22 @@ extern "C" int ctt_pbft_view_preprepare(
     const int32_t* pp_val, const bool* prepared, const bool* committed,
     int32_t* view_out, int32_t* timer_out, bool* reset_out, bool* seen_out,
     int32_t* pview_out, int32_t* pval_out, bool* catch_out, int32_t* order,
-    int B, int N, int S, cudaStream_t st) {
+    const unsigned char* flags, int B, int N, int S, cudaStream_t st) {
   if (B == 0 || N == 0) return 0;
   const long long rows = static_cast<long long>(B) * N;
   const unsigned blocks = static_cast<unsigned>((rows + THREADS - 1) / THREADS);
-  pbft_rank_kernel<<<blocks, THREADS, 0, st>>>(seed, r, churn_cut, view,
-                                               order, N, rows);
+  const bool crash = flags != nullptr;
+  const auto rank = crash ? pbft_rank_kernel<true> : pbft_rank_kernel<false>;
+  rank<<<blocks, THREADS, 0, st>>>(seed, r, churn_cut, view, order, flags, N,
+                                   rows);
   int err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
-  pbft_catchup_kernel<<<blocks, THREADS, 0, st>>>(
+  const auto catchup =
+      crash ? pbft_catchup_kernel<true> : pbft_catchup_kernel<false>;
+  catchup<<<blocks, THREADS, 0, st>>>(
       seed, r, churn_cut, view_timeout, vmax, deliver, n_real, f, view,
-      timer, order, view_out, timer_out, reset_out, catch_out, N, rows);
+      timer, order, view_out, timer_out, reset_out, catch_out, flags, N,
+      rows);
   if ((err = static_cast<int>(cudaGetLastError())) != 0) return err;
   const unsigned warp_blocks =
       static_cast<unsigned>((rows + WARPS - 1) / WARPS);

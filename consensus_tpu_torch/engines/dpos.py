@@ -1,9 +1,10 @@
 """DPoS in PyTorch: SPEC §7, a stake-weighted producer schedule and one
 block a round.
 
-The port of ``consensus_tpu/engines/dpos.py`` on its flat path (no crash,
+The port of ``consensus_tpu/engines/dpos.py`` on its flat path (no
 slot-miss or suppression gates; with the SPEC §A.2 delayed retransmission
-on the producer's edges), with its telemetry and flight recorder.
+on the producer's edges and the SPEC §6c crash-recover adversary), with
+its telemetry and flight recorder.
 Each epoch's producers are the top K candidates of a stake-weighted vote
 tally over every validator, computed once from the seed at init; round
 r's producer is entry ``(r mod epoch_len) mod K`` of epoch
@@ -24,7 +25,11 @@ its plain PyTorch version (``<name>_plain``), which CPU tensors run:
   round's DPOS_TELEMETRY counters and DPOS_LATENCY histogram.
 
 On the card a run is KW once and KX once a round (and KAB once a round
-with telemetry), and nothing else. The
+with telemetry), and nothing else; with ``crash_prob > 0`` kernel KAH
+(``ops/adversary.py`` ``crash_transition``) comes first in each round,
+and KX's CRASH instance appends nothing at a down validator and nothing
+at all in a round whose producer is down (``consensus_tpu/engines/
+dpos.py:171-172``). DPoS has no volatile state: no reset, no freeze. The
 chains are updated in place, where the JAX round returns new arrays: a
 round's state replaces its input state. They are stored as the JAX
 package stores them, ``chain_r`` in the narrowest unsigned type that holds
@@ -40,7 +45,8 @@ import torch
 
 from ..core import rng
 from ..core.config import Config
-from ..ops.adversary import CRASH_TELEMETRY, bitcast_i32, open_drop_plain
+from ..ops.adversary import (CRASH_DOWN, CRASH_TELEMETRY, bitcast_i32,
+                             crash_step, open_drop_plain)
 from ..ops.flight import (add_plain, bucket_counts_plain, check_recorder,
                           window_of)
 from .raft import check_all
@@ -67,7 +73,7 @@ class DposState(NamedTuple):
     chain_r: torch.Tensor    # [B, V, L] store_dtype(n_rounds - 1): rounds
     chain_p: torch.Tensor    # [B, V, L] store_dtype(n_candidates - 1)
     chain_len: torch.Tensor  # [B, V] i32
-    down: torch.Tensor       # [B, V] bool (SPEC §6c; all False here)
+    down: torch.Tensor       # [B, V] bool (SPEC §6c: down at round end)
 
 
 def store_dtype(vmax: int) -> torch.dtype:
@@ -165,7 +171,7 @@ def round_producer(cfg: Config, producers, r: int) -> torch.Tensor:
 
 
 def dpos_round_plain(cfg: Config, seed, r: int, producers, chain_r, chain_p,
-                     chain_len, count: bool = False):
+                     chain_len, count: bool = False, flags=None):
     """Plain version of KX, one SPEC §7 round at every validator v of each
     lane, in place. The round's producer p (:func:`round_producer`) sends
     its block: it reaches v != p when the delivery mixer's draw of the edge
@@ -176,7 +182,10 @@ def dpos_round_plain(cfg: Config, seed, r: int, producers, chain_r, chain_p,
     churn event fires, a reached validator whose chain is not full writes
     (r, p) at index ``chain_len[v]`` and counts it. Returns (chain_r,
     chain_p, chain_len), the tensors it was given, and with ``count`` the
-    [B] int32 number of the round's appends in each lane."""
+    [B] int32 number of the round's appends in each lane. With the round's
+    SPEC §6c ``flags`` ([B, V] uint8, KAH), a validator down at the
+    round's end appends nothing, nor does any in a round whose producer is
+    down."""
     V, L = chain_len.shape[1], chain_r.shape[2]
     dev = chain_len.device
     useed = rng.as_u32(seed)[:, None]
@@ -194,6 +203,9 @@ def dpos_round_plain(cfg: Config, seed, r: int, producers, chain_r, chain_p,
     churn = rng.random_u32_plain(seed, rng.STREAM_CHURN, r, 0, 0) \
         < cfg.churn_cutoff                                           # [B, 1]
     append = (ok | (v == p)) & ~churn & (chain_len < L)
+    if flags is not None:
+        down = (flags & CRASH_DOWN) != 0
+        append = append & ~down & ~down.gather(1, p)
     hot = (torch.arange(L, dtype=torch.int32, device=dev)
            == chain_len[:, :, None]) & append[:, :, None]
     chain_r.copy_(torch.where(hot, int(r), chain_r.to(torch.int32)))
@@ -206,15 +218,16 @@ def dpos_round_plain(cfg: Config, seed, r: int, producers, chain_r, chain_p,
 
 
 def dpos_round(cfg: Config, seed, r: int, producers, chain_r, chain_p,
-               chain_len, count: bool = False):
+               chain_len, count: bool = False, flags=None):
     """Kernel KX: same arguments and result as :func:`dpos_round_plain`,
     which it runs for CPU tensors; for CUDA tensors it launches
     ``csrc/dpos_round.cu`` (a thread per (lane, validator) reads its
     lane's producer, draws the edge, and appends in place; with ``count``
-    a ballot a warp and an atomic a block and lane count the appends)."""
+    a ballot a warp and an atomic a block and lane count the appends; its
+    CRASH instance with ``flags``)."""
     if chain_len.device.type == "cpu":
         return dpos_round_plain(cfg, seed, r, producers, chain_r, chain_p,
-                                chain_len, count)
+                                chain_len, count, flags)
     from .. import _build
     B, V, L = chain_r.shape
     if not 0 <= int(r) < cfg.n_rounds:
@@ -224,7 +237,8 @@ def dpos_round(cfg: Config, seed, r: int, producers, chain_r, chain_p,
               (producers, torch.int32, (B, n_epochs(cfg), cfg.n_producers)),
               (chain_r, store_dtype(cfg.n_rounds - 1), (B, V, L)),
               (chain_p, store_dtype(cfg.n_candidates - 1), (B, V, L)),
-              (chain_len, torch.int32, (B, V)))
+              (chain_len, torch.int32, (B, V)),
+              *(() if flags is None else ((flags, torch.uint8, (B, V)),)))
     n_app = torch.empty(B, dtype=torch.int32, device=chain_len.device) \
         if count else None
     _build.launch("dpos_round", seed.data_ptr(), int(r) & 0xFFFFFFFF,
@@ -234,7 +248,8 @@ def dpos_round(cfg: Config, seed, r: int, producers, chain_r, chain_p,
                   chain_r.element_size(), chain_p.element_size(),
                   producer_index(cfg, r), n_epochs(cfg) * cfg.n_producers,
                   cfg.drop_cutoff, cfg.partition_cutoff, cfg.churn_cutoff,
-                  cfg.max_delay_rounds, B, V, L)
+                  cfg.max_delay_rounds,
+                  None if flags is None else flags.data_ptr(), B, V, L)
     dpos_round.launches += 1
     if count:
         return chain_r, chain_p, chain_len, n_app
@@ -332,8 +347,8 @@ def dpos_init(cfg: Config, seeds: torch.Tensor) -> DposState:
 def dpos_step(cfg: Config, st: DposState, r: int, *, telem=None,
               flight=None) -> DposState:
     """One SPEC §7 round, as ``consensus_tpu/engines/dpos.py``
-    ``dpos_round`` on its flat path: one launch of KX, which updates the
-    chains in place.
+    ``dpos_round``: one launch of KX, which updates the chains in place,
+    after KAH with ``cfg.crash_on`` (SPEC §6c).
 
     ``telem`` ([B, K] i32, the run's counter totals) switches on the
     round's telemetry and ``flight`` (the window ring and latency buckets,
@@ -345,6 +360,12 @@ def dpos_step(cfg: Config, st: DposState, r: int, *, telem=None,
         raise ValueError("the flight recorder rides the telemetry "
                          "accumulator: pass telem with flight")
     on = () if telem is None else (True,)
+    down = st.down
+    if cfg.crash_on:
+        # SPEC §6c crash transition (KAH), read by KX's CRASH instance.
+        down, flags = crash_step(cfg, st.seed, r, st.down, DPOS_TELEMETRY,
+                                 telem, flight)
+        on = (telem is not None, flags)
     chain_r, chain_p, chain_len, *n_app = dpos_round(
         cfg, st.seed, r, st.producers, st.chain_r, st.chain_p, st.chain_len,
         *on)
@@ -352,7 +373,8 @@ def dpos_step(cfg: Config, st: DposState, r: int, *, telem=None,
         dpos_telemetry(cfg, r, st.seed, st.producers, chain_len, n_app[0],
                        telem, *(flight if flight is not None
                                 else (None, None)))
-    return st._replace(chain_r=chain_r, chain_p=chain_p, chain_len=chain_len)
+    return st._replace(chain_r=chain_r, chain_p=chain_p, chain_len=chain_len,
+                       down=down)
 
 
 def extract(st: DposState) -> dict[str, torch.Tensor]:

@@ -1,8 +1,9 @@
 """Multi-decree Paxos in PyTorch: SPEC §5 over an [acceptor, slot] ballot
 grid.
 
-The port of ``consensus_tpu/engines/paxos.py`` on its flat path (no crash
-or switch gates), with its telemetry and flight recorder. In round r each
+The port of ``consensus_tpu/engines/paxos.py`` on its flat path and under
+the SPEC §A.2 delay and the SPEC §6c crash-recover adversary (no switch
+gate), with its telemetry and flight recorder. In round r each
 of the first P = ``n_proposers or n_nodes`` nodes proposes ballot
 r·N + p + 1 on one slot it draws; prepares, promises, accepts, accepted
 responses and the decide broadcast all ride the round's [N, N] delivery
@@ -26,7 +27,14 @@ PBFT:
   counts that KY and KZ return with telemetry on.
 
 On the card the round runs nothing but these launches, and no [B, N, N]
-tensor of ints: the [N, N] work is done inside the kernels. No input is
+tensor of ints: the [N, N] work is done inside the kernels. With
+``crash_prob > 0`` the round starts with kernel KAH (``ops/adversary.py``
+``crash_transition``): KL cuts a down node's edges and KY's CRASH instance
+reads a recovered acceptor's promises as 0 (its volatile reset). A down
+node then neither promises, accepts, decides nor learns, since every
+flight to or from it is cut and a proposer needs delivered promises, so
+its state leaves KY and KZ as it entered: the JAX round's freeze
+(``paxos.py:241-248``) holds without a write. No input is
 changed: each phase writes fresh tensors, and the round returns a new
 state. The JAX package's equality-mask reductions (phase 4's winning value,
 phase 6's learned value) only keep gathers off the TPU; here they are
@@ -40,8 +48,8 @@ import torch
 
 from ..core import rng
 from ..core.config import Config
-from ..ops.adversary import (AGG_TELEMETRY, CRASH_TELEMETRY, bitcast_i32,
-                             delivery)
+from ..ops.adversary import (AGG_TELEMETRY, CRASH_REC, CRASH_TELEMETRY,
+                             bitcast_i32, crash_step, delivery)
 from ..ops.flight import (add_plain, bucket_counts_plain, check_recorder,
                           window_of)
 from .raft import check_all
@@ -73,7 +81,7 @@ class PaxosState(NamedTuple):
     acc_val: torch.Tensor       # [B, N, S] i32
     learned_val: torch.Tensor   # [B, N, S] i32
     learned_mask: torch.Tensor  # [B, N, S] bool
-    down: torch.Tensor          # [B, N] bool (SPEC §6c; all False here)
+    down: torch.Tensor          # [B, N] bool (SPEC §6c: down at round end)
 
 
 def paxos_init(cfg: Config, seeds: torch.Tensor) -> PaxosState:
@@ -128,7 +136,7 @@ def _seg(values, slot_p, S: int, reduce: str, fill: int) -> torch.Tensor:
 # --- KY: phases 1-2 ----------------------------------------------------------
 
 def paxos_promise_plain(cfg: Config, seed, r: int, deliver, promised,
-                        acc_bal, want_pairs: bool = False):
+                        acc_bal, want_pairs: bool = False, flags=None):
     """Plain version of KY, SPEC §5 phases 1-2 of round r at every acceptor
     a and proposer p of each lane. ``prep_del[a, p]`` is ``deliver[p,
     a]``: p's prepare (and later accept) reached a; ``deliver[a, p]`` is
@@ -143,8 +151,14 @@ def paxos_promise_plain(cfg: Config, seed, r: int, deliver, promised,
     (new_promised [B, N, S], n_prom, best_bal, best_a [B, N], prep_del
     [B, N, N]): int32, and prep_del bool; with ``want_pairs`` also
     ``n_pair`` [B, N] int32, for each proposing p the acceptors with both
-    flights delivered (the telemetry's nacks are ``n_pair - n_prom``)."""
+    flights delivered (the telemetry's nacks are ``n_pair - n_prom``).
+    With the round's SPEC §6c ``flags`` ([B, N] uint8, KAH), a recovered
+    acceptor's ``promised`` row is read as 0 (``consensus_tpu/engines/
+    paxos.py:118-122``)."""
     N, S = deliver.shape[1], promised.shape[2]
+    if flags is not None:
+        promised = torch.where(((flags & CRASH_REC) != 0)[:, :, None], 0,
+                               promised)
     is_prop, slot_p, ballot, _ = proposals(cfg, seed, r, N, S)
     prep_del = deliver.transpose(1, 2).contiguous()
     sent = is_prop[:, None, :] & prep_del                        # [B, A, P]
@@ -167,7 +181,7 @@ def paxos_promise_plain(cfg: Config, seed, r: int, deliver, promised,
 
 
 def paxos_promise(cfg: Config, seed, r: int, deliver, promised, acc_bal,
-                  want_pairs: bool = False):
+                  want_pairs: bool = False, flags=None):
     """Kernel KY: same arguments and result as
     :func:`paxos_promise_plain`, which it runs for CPU tensors; for CUDA
     tensors it launches ``csrc/paxos_promise.cu`` (each proposer's ballot
@@ -175,16 +189,18 @@ def paxos_promise(cfg: Config, seed, r: int, deliver, promised, acc_bal,
     its prepares' slot maxima in shared memory; tiles of acceptor rows
     count the promises and keep the best accepted ballot per proposer,
     merged across tiles by integer atomics on packed keys; the pair counts
-    only with ``want_pairs``, merged like the promises)."""
+    only with ``want_pairs``, merged like the promises; its CRASH
+    instance with ``flags``)."""
     if deliver.device.type == "cpu":
         return paxos_promise_plain(cfg, seed, r, deliver, promised, acc_bal,
-                                   want_pairs)
+                                   want_pairs, flags)
     from .. import _build
     B, N, S = promised.shape
     dev = deliver.device
     check_all(dev, (seed, torch.uint32, (B,)),
               (deliver, torch.bool, (B, N, N)),
-              *((t, torch.int32, (B, N, S)) for t in (promised, acc_bal)))
+              *((t, torch.int32, (B, N, S)) for t in (promised, acc_bal)),
+              *(() if flags is None else ((flags, torch.uint8, (B, N)),)))
     new_promised = torch.empty_like(promised)
     n_prom, best_bal, best_a = (torch.empty((B, N), dtype=torch.int32,
                                             device=dev) for _ in range(3))
@@ -198,6 +214,7 @@ def paxos_promise(cfg: Config, seed, r: int, deliver, promised, acc_bal,
                       best_bal, best_a, prep_del)),
                   None if n_pair is None else n_pair.data_ptr(),
                   props.data_ptr(), keys.data_ptr(),
+                  None if flags is None else flags.data_ptr(),
                   cfg.n_proposers or N, cfg.churn_cutoff, B, N, S)
     paxos_promise.launches += 1
     out = (new_promised, n_prom, best_bal, best_a, prep_del)
@@ -410,11 +427,20 @@ def paxos_round(cfg: Config, st: PaxosState, r: int, *, telem=None,
         raise ValueError("the flight recorder rides the telemetry "
                          "accumulator: pass telem with flight")
 
+    # ---- SPEC §6c crash transition (KAH).
+    down, flags = st.down, None
+    if cfg.crash_on:
+        down, flags = crash_step(cfg, seed, r, st.down, PAXOS_TELEMETRY,
+                                 telem, flight)
+
     # ---- The round's delivery mask (KL).
     deliver = delivery(seed, r, N, cfg.drop_cutoff, cfg.partition_cutoff,
-                       cfg.max_delay_rounds)
+                       cfg.max_delay_rounds,
+                       *(() if flags is None else (flags,)))
 
-    # ---- Phases 1-2: prepares and promises (KY).
+    # ---- Phases 1-2: prepares and promises (KY), after the §6c reset.
+    if flags is not None:
+        on = (telem is not None, flags)
     new_promised, n_prom, best_bal, best_a, prep_del, *pairs = paxos_promise(
         cfg, seed, r, deliver, st.promised, st.acc_bal, *on)
 
@@ -422,7 +448,7 @@ def paxos_round(cfg: Config, st: PaxosState, r: int, *, telem=None,
     promised, acc_bal, acc_val, learned_val, learned_mask, *counts = \
         paxos_accept_learn(cfg, seed, r, deliver, prep_del, new_promised,
                            n_prom, best_bal, best_a, st.acc_bal, st.acc_val,
-                           st.learned_val, st.learned_mask, *on)
+                           st.learned_val, st.learned_mask, *on[:1])
 
     # ---- Telemetry and flight recorder (KAC).
     if telem is not None:
@@ -430,7 +456,7 @@ def paxos_round(cfg: Config, st: PaxosState, r: int, *, telem=None,
                         learned_mask, telem,
                         *(flight if flight is not None else (None, None)))
     return PaxosState(seed, promised, acc_bal, acc_val, learned_val,
-                      learned_mask, st.down)
+                      learned_mask, down)
 
 
 def extract(st: PaxosState) -> dict[str, torch.Tensor]:

@@ -1,6 +1,7 @@
 """Dense PBFT in PyTorch: SPEC §6 with pairwise tallies over every node.
 
-The port of ``consensus_tpu/engines/pbft.py`` on its flat path (no crash,
+The port of ``consensus_tpu/engines/pbft.py`` on its flat path and under
+the SPEC §A.2 delay and the SPEC §6c crash-recover adversary (no
 byzantine, switch or desync gates), with its telemetry and flight
 recorder, and, through the same functions, of
 ``consensus_tpu/engines/pbft_sweep.py``'s ``pbft_round_padded`` (which
@@ -30,7 +31,14 @@ round's delivery mask is kernel KL (``ops/adversary.py``
 
 On the card the round runs nothing but these launches. No input is
 changed: each phase writes fresh tensors, and the round returns a new
-state. The JAX package's ``_adopt_val`` is a one-hot reduction that only
+state. With ``crash_prob > 0`` the round starts with kernel KAH
+(``ops/adversary.py`` ``crash_transition``): KL cuts a down node's edges,
+KQ's CRASH instance resets a recovered node's view and timer, and every
+node's round is then the JAX round's, down nodes included, since the
+telemetry counts their in-round slots (a down primary still pre-prepares
+to itself). So the freeze comes last, after KAA: kernel KAI
+(``ops/adversary.py`` ``freeze_down``) gives every down node's leaves
+back their post-reset values. The JAX package's ``_adopt_val`` is a one-hot reduction that only
 keeps a gather off the TPU; here it is plain indexing, with the same
 values.
 """
@@ -42,8 +50,9 @@ import torch
 
 from ..core import rng
 from ..core.config import Config
-from ..ops.adversary import (AGG_TELEMETRY, CRASH_TELEMETRY,
-                             SAFETY_TELEMETRY, bitcast_i32, churn, delivery)
+from ..ops.adversary import (AGG_TELEMETRY, CRASH_REC, CRASH_TELEMETRY,
+                             SAFETY_TELEMETRY, bitcast_i32, churn, crash_step,
+                             delivery, freeze_down)
 from ..ops.flight import (add_plain, bucket_counts_plain, check_recorder,
                           window_of)
 from ..ops.viewsync import SYNC_TELEMETRY, sync_counts_plain
@@ -77,7 +86,14 @@ class PbftState(NamedTuple):
     prepared: torch.Tensor   # [B, N, S] bool
     committed: torch.Tensor  # [B, N, S] bool
     dval: torch.Tensor       # [B, N, S] i32
-    down: torch.Tensor       # [B, N] bool (SPEC §6c; all False here)
+    down: torch.Tensor       # [B, N] bool (SPEC §6c: down at round end)
+
+
+# The leaves a down node holds (SPEC §6c), and the volatile ones of them,
+# which a recovery resets to 0.
+FROZEN = ("view", "timer", "pp_seen", "pp_view", "pp_val", "prepared",
+          "committed", "dval")
+VOLATILE = ("view", "timer")
 
 
 def pbft_init(cfg: Config, seeds: torch.Tensor) -> PbftState:
@@ -159,7 +175,8 @@ def _lane_specs(deliver, n_real, f):
 
 def pbft_view_preprepare_plain(cfg: Config, seed, r: int, deliver, n_real, f,
                                view, timer, pp_seen, pp_view, pp_val,
-                               prepared, committed, want_catch: bool = False):
+                               prepared, committed, want_catch: bool = False,
+                               flags=None):
     """Plain version of KQ, SPEC §6 P0-P3 at every node of each lane.
 
     P0: the round's churn event moves every view up by one. P1: node j
@@ -174,9 +191,15 @@ def pbft_view_preprepare_plain(cfg: Config, seed, r: int, deliver, n_real, f,
     the primary's view is j's view, into each slot it has not seen in
     this view, unless it prepared another value there. Returns new
     (view, timer, reset, pp_seen, pp_view, pp_val) and, with
-    ``want_catch``, the [B, N] bool flags of the nodes P1 moved."""
+    ``want_catch``, the [B, N] bool flags of the nodes P1 moved. With the
+    round's SPEC §6c ``flags`` ([B, N] uint8, KAH), a recovered node's view
+    and timer are 0 before P0 (``consensus_tpu/engines/pbft.py:189-196``)."""
     B, N, S = pp_seen.shape
     dev = view.device
+    if flags is not None:
+        rec = (flags & CRASH_REC) != 0
+        view = torch.where(rec, 0, view)
+        timer = torch.where(rec, 0, timer)
     idx = torch.arange(N, dtype=torch.int32, device=dev)
     real = real_nodes(n_real, N)
     d_h = real_delivery(deliver, n_real)
@@ -227,19 +250,20 @@ def pbft_view_preprepare_plain(cfg: Config, seed, r: int, deliver, n_real, f,
 
 def pbft_view_preprepare(cfg: Config, seed, r: int, deliver, n_real, f, view,
                          timer, pp_seen, pp_view, pp_val, prepared,
-                         committed, want_catch: bool = False):
+                         committed, want_catch: bool = False, flags=None):
     """Kernel KQ: same arguments and result as
     :func:`pbft_view_preprepare_plain`, which it runs for CPU tensors; for
     CUDA tensors it launches ``csrc/pbft_view_preprepare.cu`` (a thread per
     node ranks its view within its lane, a thread per receiver walks its
     lane's senders in that order for P1 and runs P2, then a warp per
     receiver runs P3 over its slots, reading its primary's row as it stood
-    before P3; P1's flags only with ``want_catch``)."""
+    before P3; P1's flags only with ``want_catch``; its CRASH instance
+    with ``flags``)."""
     if view.device.type == "cpu":
         return pbft_view_preprepare_plain(cfg, seed, r, deliver, n_real, f,
                                           view, timer, pp_seen, pp_view,
                                           pp_val, prepared, committed,
-                                          want_catch)
+                                          want_catch, flags)
     from .. import _build
     B, N, S = pp_seen.shape
     dev = view.device
@@ -248,7 +272,8 @@ def pbft_view_preprepare(cfg: Config, seed, r: int, deliver, n_real, f, view,
               *((t, torch.int32, (B, N)) for t in (view, timer)),
               *((t, torch.bool, (B, N, S)) for t in (pp_seen, prepared,
                                                       committed)),
-              *((t, torch.int32, (B, N, S)) for t in (pp_view, pp_val)))
+              *((t, torch.int32, (B, N, S)) for t in (pp_view, pp_val)),
+              *(() if flags is None else ((flags, torch.uint8, (B, N)),)))
     view_out, timer_out = torch.empty_like(view), torch.empty_like(timer)
     reset = torch.empty((B, N), dtype=torch.bool, device=dev)
     seen_out, pview_out = torch.empty_like(pp_seen), torch.empty_like(pp_view)
@@ -262,7 +287,8 @@ def pbft_view_preprepare(cfg: Config, seed, r: int, deliver, n_real, f, view,
                       pp_val, prepared, committed, view_out, timer_out, reset,
                       seen_out, pview_out, pval_out)),
                   None if catch is None else catch.data_ptr(),
-                  order.data_ptr(), B, N, S)
+                  order.data_ptr(), None if flags is None else
+                  flags.data_ptr(), B, N, S)
     pbft_view_preprepare.launches += 1
     out = (view_out, timer_out, reset, seen_out, pview_out, pval_out)
     return (*out, catch) if want_catch else out
@@ -388,10 +414,19 @@ pbft_decide.launches = 0
 
 # --- KAA: the telemetry tail -------------------------------------------------
 
+# KAA's crash modes, bits of its ``crash`` argument: the view terms
+# (view_changes, the view-change waits) count the nodes up at the round's
+# end only, since a down node's view is frozen (both PBFT engines); the
+# commit terms (commit_quorums, the commit latencies) too, since the §6b
+# round masks a down node's commits (consensus_tpu/engines/
+# pbft_bcast.py:355-356), while the dense round counts them.
+CRASH_VIEWS, CRASH_COMMITS = 1, 2
+
+
 def pbft_telemetry_plain(cfg: Config, r: int, n_real, view_in, timer_in, view,
                          catch, down, pp_seen, prepared_in, prepared,
                          committed_in, committed_tally, committed, t, w=None,
-                         lat=None) -> None:
+                         lat=None, crash: int = 0) -> None:
     """Plain version of KAA: the round's PBFT_TELEMETRY counters, per lane,
     added into the [B, K] int32 accumulator ``t`` and, with the flight
     recorder (``w`` [B, n_windows, K] and ``lat`` [B, 2, N_BUCKETS], both
@@ -404,46 +439,61 @@ def pbft_telemetry_plain(cfg: Config, r: int, n_real, view_in, timer_in, view,
     entry, the catch-up flags ``catch`` and ``pp_seen`` after P3,
     ``prepared`` and ``committed_tally`` after P5, ``view`` and
     ``committed`` at the round's end. The SPEC §B tail is taken over the
-    lane's real live nodes (i < ``n_real``, not ``down``); the crash,
-    aggregation and safety tails stay 0. Updates ``t``, ``w`` and ``lat``
-    in place."""
+    lane's real live nodes (i < ``n_real``, not ``down``); the
+    aggregation and safety tails stay 0, and the crash tail is kernel
+    KAH's to add. Under SPEC §6c ``down`` is the mask at the round's end,
+    ``view`` and ``committed`` are the round's values before the freeze,
+    and ``crash`` (CRASH_VIEWS, CRASH_COMMITS) says which terms leave the
+    down nodes out. Updates ``t``, ``w`` and ``lat`` in place."""
     B, N, S = pp_seen.shape
     check_recorder(cfg, w, lat)
 
     def cnt(m):
         return m.sum((1, 2), dtype=torch.int32)
-    sync = sync_counts_plain(view, real_nodes(n_real, N) & ~down, catch)
+    up = ~down
+    moved = (view - view_in).clamp(min=0)          # wraps as the JAX sum's
+    waited = view > view_in
+    newly = committed & ~committed_in
+    commit_now = committed_tally & ~committed_in
+    if crash & CRASH_VIEWS:
+        moved = torch.where(up, moved, 0)
+        waited = waited & up
+    if crash & CRASH_COMMITS:
+        newly = newly & up[:, :, None]
+        commit_now = commit_now & up[:, :, None]
+    sync = sync_counts_plain(view, real_nodes(n_real, N) & up, catch)
     vec = torch.zeros_like(t)
     vec[:, :6] = torch.stack([
         cnt(prepared & ~prepared_in), cnt(pp_seen & ~prepared),
-        cnt(committed_tally & ~committed_in),
-        cnt(prepared & ~committed_tally), cnt(committed & ~committed_tally),
-        (view - view_in).clamp(min=0).sum(1, dtype=torch.int32)], 1)
+        cnt(commit_now), cnt(prepared & ~committed_tally),
+        cnt(committed & ~committed_tally), moved.sum(1, dtype=torch.int32)],
+        1)
     vec[:, -3:] = sync
     hists = ()
     if w is not None:
         age = r - torch.arange(S, dtype=torch.int32, device=t.device)
-        hists = (bucket_counts_plain(timer_in + 1, view > view_in),
+        hists = (bucket_counts_plain(timer_in + 1, waited),
                  bucket_counts_plain(age.expand(B, N, S).reshape(B, -1),
-                                     (committed & ~committed_in).reshape(
-                                         B, -1)))
+                                     newly.reshape(B, -1)))
     add_plain(cfg, r, vec, t, w, lat, hists)
 
 
 def pbft_telemetry(cfg: Config, r: int, n_real, view_in, timer_in, view,
                    catch, down, pp_seen, prepared_in, prepared, committed_in,
-                   committed_tally, committed, t, w=None, lat=None) -> None:
+                   committed_tally, committed, t, w=None, lat=None,
+                   crash: int = 0) -> None:
     """Kernel KAA: same arguments and in-place updates as
     :func:`pbft_telemetry_plain`, which it runs for CPU tensors; for CUDA
     tensors it launches ``csrc/pbft_telemetry.cu`` (a block per 256 nodes
     of a lane: block sums and one integer atomic a block and counter; the
-    lane's view spread by its last block)."""
+    lane's view spread by its last block; its CRASH instance with
+    ``crash``)."""
     check_recorder(cfg, w, lat)
     if t.device.type == "cpu":
         return pbft_telemetry_plain(cfg, r, n_real, view_in, timer_in, view,
                                     catch, down, pp_seen, prepared_in,
                                     prepared, committed_in, committed_tally,
-                                    committed, t, w, lat)
+                                    committed, t, w, lat, crash)
     from .. import _build
     B, N, S = pp_seen.shape
     dev = t.device
@@ -460,7 +510,8 @@ def pbft_telemetry(cfg: Config, r: int, n_real, view_in, timer_in, view,
         n_real, view_in, timer_in, view, catch, down, pp_seen, prepared_in,
         prepared, committed_in, committed_tally, committed, t)),
         *(None if x is None else x.data_ptr() for x in (w, lat)),
-        span.data_ptr(), int(r), B, N, S, t.shape[1], window, n_windows)
+        span.data_ptr(), int(r), B, N, S, t.shape[1], window, n_windows,
+        int(crash))
     pbft_telemetry.launches += 1
 
 
@@ -483,20 +534,32 @@ def pbft_round(cfg: Config, st: PbftState, r: int, n_real, f, *, telem=None,
     (the window ring and latency buckets, a pair of [B, n_windows, K] and
     [B, 2, N_BUCKETS] i32) its flight recorder, as ``flight=True``; KQ
     then also gives P1's catch-up flags, and kernel KAA adds the round's
-    counters into the accumulators in place."""
+    counters into the accumulators in place.
+
+    With ``cfg.crash_on`` (SPEC §6c) the round starts with KAH and ends
+    with KAI, the freeze (see the module's notes)."""
     N = cfg.n_nodes
     seed = st.seed
     if flight is not None and telem is None:
         raise ValueError("the flight recorder rides the telemetry "
                          "accumulator: pass telem with flight")
 
+    # ---- SPEC §6c crash transition (KAH).
+    down, flags = st.down, None
+    if cfg.crash_on:
+        down, flags = crash_step(cfg, seed, r, st.down, PBFT_TELEMETRY,
+                                 telem, flight)
+
     # ---- The round's delivery mask (KL).
     deliver = delivery(seed, r, N, cfg.drop_cutoff, cfg.partition_cutoff,
-                       cfg.max_delay_rounds)
+                       cfg.max_delay_rounds,
+                       *(() if flags is None else (flags,)))
 
     # ---- P0 churn, P1 catch-up, P2 timeout, P3 pre-prepare (KQ), with
     # P1's flags when the telemetry counts them.
     on = () if telem is None else (True,)
+    if flags is not None:
+        on = (telem is not None, flags)
     view, timer, reset, pp_seen, pp_view, pp_val, *catch = \
         pbft_view_preprepare(cfg, seed, r, deliver, n_real, f, st.view,
                              st.timer, st.pp_seen, st.pp_view, st.pp_val,
@@ -513,12 +576,25 @@ def pbft_round(cfg: Config, st: PbftState, r: int, n_real, f, *, telem=None,
     # ---- Telemetry and flight recorder (KAA).
     if telem is not None:
         pbft_telemetry(cfg, r, n_real, st.view, st.timer, view, catch[0],
-                       st.down, pp_seen, st.prepared, prepared, st.committed,
+                       down, pp_seen, st.prepared, prepared, st.committed,
                        tallied, committed, telem,
-                       *(flight if flight is not None else (None, None)))
+                       *(flight if flight is not None else (None, None)),
+                       *(() if flags is None else (CRASH_VIEWS,)))
 
-    return PbftState(seed, view, timer, pp_seen, pp_view, pp_val, prepared,
-                     committed, dval, st.down)
+    new = PbftState(seed, view, timer, pp_seen, pp_view, pp_val, prepared,
+                    committed, dval, down)
+    if flags is not None:
+        freeze(flags, st, new)
+    return new
+
+
+def freeze(flags, st: PbftState, new: PbftState) -> None:
+    """The SPEC §6c freeze of both PBFT engines (KAI), in place on the
+    round's fresh outputs ``new``: each down node's leaves take their
+    values in ``st``, its view and timer the post-reset ones
+    (``consensus_tpu/engines/pbft.py:368-373``, ``pbft_bcast.py:677-684``)."""
+    freeze_down(flags, [(getattr(new, k), getattr(st, k), k in VOLATILE)
+                        for k in FROZEN])
 
 
 def extract(st: PbftState) -> dict[str, torch.Tensor]:

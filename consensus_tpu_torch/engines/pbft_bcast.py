@@ -1,8 +1,9 @@
 """PBFT under the broadcast-atomic fault model (SPEC §6b) in PyTorch.
 
 The port of ``consensus_tpu/engines/pbft_bcast.py`` on its flat path (no
-crash, byzantine, switch or desync gates; with the SPEC §A.2 delayed
-retransmission on the per-sender broadcast key), with its telemetry and
+byzantine, switch or desync gates; with the SPEC §A.2 delayed
+retransmission on the per-sender broadcast key and the SPEC §6c
+crash-recover adversary), with its telemetry and
 flight recorder (kernel KAA, ``engines/pbft.py``
 :func:`~consensus_tpu_torch.engines.pbft.pbft_telemetry`, as the dense
 engine's), and, through the same functions, of
@@ -24,7 +25,8 @@ one set of kernels.
 The round's per-node facts travel as one byte a node (:func:`node_bits`):
 bit 0 is ``honest & bcast`` (a real node whose broadcast goes out this
 round), bit 1 its side, the drawn partition side while the round's
-partition is active and 0 otherwise. A node counts towards, and reads, the
+partition is active and 0 otherwise, and under SPEC §6c bit 2 is set for
+a node down at the round's end, whose broadcast then does not go out. A node counts towards, and reads, the
 aggregate of its own side only: with the partition active that is the
 JAX package's ``side_ok``, and without it both of the JAX package's
 per-side aggregates are the same, so one serves everyone.
@@ -40,6 +42,14 @@ plain PyTorch version (``<name>_plain``), which CPU tensors run:
 * :func:`bcast_decide` — kernel KV (``csrc/bcast_decide.cu``): P6 the
   min-id decide gossip per (slot, side) and P7 the timers.
 
+With ``crash_prob > 0`` the round starts with kernel KAH (``ops/
+adversary.py`` ``crash_transition``) and ends with the freeze of
+``engines/pbft.py`` (kernel KAI), after the telemetry: KT resets a
+recovered node's view and timer and writes bit 2; KU keeps a down node
+from preparing and KV from adopting (``pbft_bcast.py:333-356,
+639-664``); every down node's round is otherwise the JAX round's, which
+the telemetry counts.
+
 The plain versions follow the JAX package's algorithms (P1 by a binary
 search on the view range, P4-P5 by one sort and top-``m`` run tables);
 the kernels compute the same functions without a sort (see each source).
@@ -51,7 +61,8 @@ import torch
 
 from ..core import rng
 from ..core.config import Config
-from ..ops.adversary import churn, open_drop_plain
+from ..ops.adversary import (CRASH_DOWN, CRASH_REC, churn, crash_step,
+                             open_drop_plain)
 from . import pbft
 from .pbft import PbftState, fresh_values, real_nodes, view_bound
 from .raft import check_all
@@ -87,14 +98,19 @@ def table_cap(cfg: Config, rungs=None) -> int:
     return max(table_width(3 * int(f) + 1, int(f)) for f in rungs)
 
 
-def node_bits(cfg: Config, seed, r: int, n_real) -> torch.Tensor:
+# Bit 2 of a node's byte: down at the round's end (SPEC §6c).
+BIT_DOWN = 4
+
+
+def node_bits(cfg: Config, seed, r: int, n_real, flags=None) -> torch.Tensor:
     """[B, N] uint8, each node's byte of round ``r``: bit 0 set for a real
     node whose broadcast goes out (the delivery draw keyed (i, i) at or
     above the drop cutoff, or a broadcast dropped in one of the last
     ``max_delay_rounds`` rounds retransmitted now: SPEC §A.2 on the same
     self-edge key, JAX ``pbft_bcast.py:381-386``), bit 1 its partition
     side (the Threefry draw (r, 1, i) & 1) in a round whose partition is
-    active, else 0."""
+    active, else 0; with the round's SPEC §6c ``flags``, bit 0 clear and
+    bit 2 set for a node down at the round's end."""
     N = cfg.n_nodes
     idx = torch.arange(N, dtype=torch.int64, device=seed.device)
     useed = rng.as_u32(seed)[:, None]
@@ -107,6 +123,9 @@ def node_bits(cfg: Config, seed, r: int, n_real) -> torch.Tensor:
         side = rng.threefry2x32_plain(useed ^ rng.STREAM_PARTITION, r, 1,
                                       idx) & 1
         bits |= ((side == 1) & active).to(torch.uint8) << 1
+    if flags is not None:
+        down = (flags & CRASH_DOWN) != 0
+        bits = torch.where(down, (bits & ~1) | BIT_DOWN, bits)
     return bits
 
 
@@ -141,7 +160,8 @@ def _gather_nodes(x, idx):
 
 def bcast_view_preprepare_plain(cfg: Config, seed, r: int, n_real, f, view,
                                 timer, pp_seen, pp_view, pp_val, prepared,
-                                committed, want_catch: bool = False):
+                                committed, want_catch: bool = False,
+                                flags=None):
     """Plain version of KT, SPEC §6b P0-P3 at every node of each lane.
 
     P0: the round's churn event moves every view up by one. P1: the
@@ -157,12 +177,18 @@ def bcast_view_preprepare_plain(cfg: Config, seed, r: int, n_real, f, view,
     slot it has not seen in this view, unless it prepared another value
     there. Returns new (view, timer, reset, pp_seen, pp_view, pp_val), the
     node bits and, with ``want_catch``, the [B, N] bool flags of the nodes
-    P1 moved."""
+    P1 moved. With the round's SPEC §6c ``flags`` ([B, N] uint8, KAH), a
+    recovered node's view and timer are 0 before P0 (``consensus_tpu/
+    engines/pbft_bcast.py:438-445``) and the bits say who is down."""
     B, N, S = pp_seen.shape
     dev = view.device
     idx = torch.arange(N, dtype=torch.int64, device=dev)
     real = real_nodes(n_real, N)
-    bits = node_bits(cfg, seed, r, n_real)
+    bits = node_bits(cfg, seed, r, n_real, flags)
+    if flags is not None:
+        rec = (flags & CRASH_REC) != 0
+        view = torch.where(rec, 0, view)
+        timer = torch.where(rec, 0, timer)
     hb, side = hb_side(bits)
 
     # ---- P0 churn.
@@ -216,7 +242,7 @@ def bcast_view_preprepare_plain(cfg: Config, seed, r: int, n_real, f, view,
 
 def bcast_view_preprepare(cfg: Config, seed, r: int, n_real, f, view, timer,
                           pp_seen, pp_view, pp_val, prepared, committed,
-                          want_catch: bool = False):
+                          want_catch: bool = False, flags=None):
     """Kernel KT: same arguments and result as
     :func:`bcast_view_preprepare_plain`, which it runs for CPU tensors; for
     CUDA tensors it launches ``csrc/bcast_view_preprepare.cu`` (a thread
@@ -224,11 +250,12 @@ def bcast_view_preprepare(cfg: Config, seed, r: int, n_real, f, view, timer,
     histogram; a thread per receiver reads its side's two statistics off
     the histogram's suffix sums for P1 and runs P2; a thread per (receiver,
     slot) runs P3, reading the rows as they stood before P3; P1's flags
-    only with ``want_catch``)."""
+    only with ``want_catch``; its CRASH instance with ``flags``)."""
     if view.device.type == "cpu":
         return bcast_view_preprepare_plain(cfg, seed, r, n_real, f, view,
                                            timer, pp_seen, pp_view, pp_val,
-                                           prepared, committed, want_catch)
+                                           prepared, committed, want_catch,
+                                           flags)
     from .. import _build
     B, N, S = pp_seen.shape
     dev = view.device
@@ -237,7 +264,8 @@ def bcast_view_preprepare(cfg: Config, seed, r: int, n_real, f, view, timer,
               *((t, torch.int32, (B, N)) for t in (view, timer)),
               *((t, torch.bool, (B, N, S)) for t in (pp_seen, prepared,
                                                       committed)),
-              *((t, torch.int32, (B, N, S)) for t in (pp_view, pp_val)))
+              *((t, torch.int32, (B, N, S)) for t in (pp_view, pp_val)),
+              *(() if flags is None else ((flags, torch.uint8, (B, N)),)))
     vmax = view_bound(cfg)
     view_out, timer_out = torch.empty_like(view), torch.empty_like(timer)
     reset = torch.empty((B, N), dtype=torch.bool, device=dev)
@@ -255,7 +283,8 @@ def bcast_view_preprepare(cfg: Config, seed, r: int, n_real, f, view, timer,
                       n_real, f, view, timer, pp_seen, pp_view, pp_val,
                       prepared, committed, view_out, timer_out, reset,
                       seen_out, pview_out, pval_out, bits, hist, fresh)),
-                  None if catch is None else catch.data_ptr(), B, N, S)
+                  None if catch is None else catch.data_ptr(),
+                  None if flags is None else flags.data_ptr(), B, N, S)
     bcast_view_preprepare.launches += 1
     out = (view_out, timer_out, reset, seen_out, pview_out, pval_out, bits)
     return (*out, catch) if want_catch else out
@@ -267,7 +296,7 @@ bcast_view_preprepare.launches = 0
 # --- KU: P4 prepare tally, P5 commit tally -----------------------------------
 
 def aggregate_tallies_plain(pp_val, pp_seen, prepared, committed, honest,
-                            bcast, Q, m: int, side):
+                            bcast, Q, m: int, side, up=None):
     """The JAX package's ``_aggregate_tallies`` on its flat path, batched
     over lanes: ``pp_val`` [B, N, S] int32; ``pp_seen``, ``prepared``,
     ``committed`` [B, N, S] bool; ``honest``, ``bcast`` [B, N] bool; ``Q``
@@ -340,6 +369,8 @@ def aggregate_tallies_plain(pp_val, pp_seen, prepared, committed, honest,
     t4 = tables_for(to_sorted(pp_seen))
     c4 = counts_nodes(t4) + (selfish & pp_seen).to(torch.int32)
     prep_hit = pp_seen & (c4 >= q)
+    if up is not None:
+        prep_hit = prep_hit & up[:, :, None]
     prepared2 = prepared | prep_hit
     seen_s, selfish_s = to_sorted(pp_seen), to_sorted(honest & ~bcast)
     c4_s = counts_sorted(t4) + (selfish_s & seen_s).to(torch.int32)
@@ -351,19 +382,24 @@ def aggregate_tallies_plain(pp_val, pp_seen, prepared, committed, honest,
 
 
 def bcast_tally_plain(m: int, n_real, f, bits, pp_seen, pp_val, prepared,
-                      committed, dval):
+                      committed, dval, crash: bool = False):
     """Plain version of KU, SPEC §6b P4-P5 at every (node, slot) of each
     lane: :func:`aggregate_tallies_plain` with the quorum 2f + 1, the
     senders and sides of the node bits and table width ``m``. Slot s of
     node j is prepared once 2f + 1 of the senders of j's side that have
     seen s with j's value, and j itself where it sent nothing, agree; it
     is committed, with that value decided, once 2f + 1 such senders have
-    prepared it. Returns new (prepared, committed, dval)."""
+    prepared it. Returns new (prepared, committed, dval). With ``crash``
+    (SPEC §6c), a node of bit 2 prepares nothing (``consensus_tpu/engines/
+    pbft_bcast.py:331-335``); its commits stay in, as the round's own
+    tally reached them, for the telemetry's commit_missed, and the freeze
+    drops them."""
     hb, side = hb_side(bits)
     honest = real_nodes(n_real, bits.shape[1])
+    up = (bits & BIT_DOWN) == 0 if crash else None
     _, prepared2, commit_now, _ = aggregate_tallies_plain(
         pp_val, pp_seen, prepared, committed, honest, hb, 2 * f + 1, m,
-        side)
+        side, up)
     return (prepared2, committed | commit_now,
             torch.where(commit_now, pp_val, dval))
 
@@ -379,16 +415,17 @@ def tally_scratch_ints(B: int, N: int, S: int) -> int:
 
 
 def bcast_tally(m: int, n_real, f, bits, pp_seen, pp_val, prepared,
-                committed, dval):
+                committed, dval, crash: bool = False):
     """Kernel KU: same arguments and result as :func:`bcast_tally_plain`,
     which it runs for CPU tensors; for CUDA tensors it launches
     ``csrc/bcast_tally.cu`` (per phase: a Misra-Gries summary of ``m``
     counters a (slot, side) from each block of senders, merged by the
     lane's last block into at most m candidates, an exact recount of the
-    candidates, and a lookup of each node's value)."""
+    candidates, and a lookup of each node's value; its CRASH instance with
+    ``crash``)."""
     if bits.device.type == "cpu":
         return bcast_tally_plain(m, n_real, f, bits, pp_seen, pp_val,
-                                 prepared, committed, dval)
+                                 prepared, committed, dval, crash)
     from .. import _build
     B, N, S = pp_seen.shape
     dev = bits.device
@@ -405,7 +442,8 @@ def bcast_tally(m: int, n_real, f, bits, pp_seen, pp_val, prepared,
     scratch = torch.empty(words, dtype=torch.int32, device=dev)
     _build.launch("bcast_tally", *(t.data_ptr() for t in (
         n_real, f, bits, pp_seen, pp_val, prepared, committed, dval,
-        prep_out, com_out, dval_out, scratch)), words, m, B, N, S)
+        prep_out, com_out, dval_out, scratch)), words, m, B, N, S,
+        int(crash))
     bcast_tally.launches += 1
     return prep_out, com_out, dval_out
 
@@ -415,14 +453,17 @@ bcast_tally.launches = 0
 
 # --- KV: P6 decide gossip, P7 timers -----------------------------------------
 
-def bcast_decide_plain(bits, committed, dval, committed_start, timer, reset):
+def bcast_decide_plain(bits, committed, dval, committed_start, timer, reset,
+                       crash: bool = False):
     """Plain version of KV, SPEC §6b P6-P7 at every node of each lane. P6:
     per (slot, side), the least-id sender that has committed the slot (as
     P5 left it) is the decider; a node that has not committed the slot
     adopts its side's decider's decided value. P7: a node that committed
     a slot this round (``committed_start`` is the round's entry) sets its
     timer to 0; another whose ``reset`` is set keeps it; the rest count it
-    up. Returns new (committed, dval, timer)."""
+    up. Returns new (committed, dval, timer). With ``crash`` (SPEC §6c), a
+    node of bit 2 adopts nothing (``consensus_tpu/engines/
+    pbft_bcast.py:663-664``)."""
     B, N, S = committed.shape
     hb, side = hb_side(bits)
     idx = torch.arange(N, dtype=torch.int32, device=bits.device)
@@ -432,6 +473,8 @@ def bcast_decide_plain(bits, committed, dval, committed_start, timer, reset):
                         for b in (0, 1)], 1)                  # [B, 2, S]
     imin = _gather_nodes(rows, side)                          # [B, N, S]
     adopt = (imin < N) & ~committed
+    if crash:
+        adopt = adopt & ((bits & BIT_DOWN) == 0)[:, :, None]
     val_rows = dval.gather(1, rows.clamp(max=N - 1).to(torch.int64))
     dval = torch.where(adopt, _gather_nodes(val_rows, side), dval)
     committed = committed | adopt
@@ -441,15 +484,17 @@ def bcast_decide_plain(bits, committed, dval, committed_start, timer, reset):
     return committed, dval, timer
 
 
-def bcast_decide(bits, committed, dval, committed_start, timer, reset):
+def bcast_decide(bits, committed, dval, committed_start, timer, reset,
+                 crash: bool = False):
     """Kernel KV: same arguments and result as :func:`bcast_decide_plain`,
     which it runs for CPU tensors; for CUDA tensors it launches
     ``csrc/bcast_decide.cu`` (the deciders' least ids per (slot, side) by a
     block minimum and one atomicMin a block, then a thread per node adopts
-    and runs P7, writing fresh tensors)."""
+    and runs P7, writing fresh tensors; its CRASH instance with
+    ``crash``)."""
     if bits.device.type == "cpu":
         return bcast_decide_plain(bits, committed, dval, committed_start,
-                                  timer, reset)
+                                  timer, reset, crash)
     from .. import _build
     B, N, S = committed.shape
     dev = bits.device
@@ -463,7 +508,7 @@ def bcast_decide(bits, committed, dval, committed_start, timer, reset):
     imin = torch.empty((B, 2, S), dtype=torch.int32, device=dev)
     _build.launch("bcast_decide", *(t.data_ptr() for t in (
         bits, committed, dval, committed_start, timer, reset, com_out,
-        dval_out, timer_out, imin)), B, N, S)
+        dval_out, timer_out, imin)), B, N, S, int(crash))
     bcast_decide.launches += 1
     return com_out, dval_out, timer_out
 
@@ -482,13 +527,23 @@ def pbft_bcast_round(cfg: Config, st: PbftState, r: int, n_real, f,
     lane, as ``consensus_tpu/engines/pbft_bcast.py`` ``pbft_bcast_round``
     on its flat path: three kernel launches and nothing else, and with
     ``telem`` (and ``flight``, as ``engines/pbft.py`` :func:`pbft_round`
-    takes them) a fourth, kernel KAA, which adds the round's counters."""
+    takes them) a fourth, kernel KAA, which adds the round's counters.
+    With ``cfg.crash_on`` (SPEC §6c) KAH comes first and the freeze, KAI,
+    last."""
     if flight is not None and telem is None:
         raise ValueError("the flight recorder rides the telemetry "
                          "accumulator: pass telem with flight")
     # ---- Node bits, P0 churn, P1 catch-up, P2 timeout, P3 (KT), with P1's
     # flags when the telemetry counts them.
+    # ---- SPEC §6c crash transition (KAH); the CRASH instances' arguments.
+    down, flags = st.down, None
     on = () if telem is None else (True,)
+    crash = ()
+    if cfg.crash_on:
+        down, flags = crash_step(cfg, st.seed, r, st.down,
+                                 pbft.PBFT_TELEMETRY, telem, flight)
+        on = (telem is not None, flags)
+        crash = (True,)
     view, timer, reset, pp_seen, pp_view, pp_val, bits, *catch = \
         bcast_view_preprepare(cfg, st.seed, r, n_real, f, st.view, st.timer,
                               st.pp_seen, st.pp_view, st.pp_val,
@@ -497,19 +552,24 @@ def pbft_bcast_round(cfg: Config, st: PbftState, r: int, n_real, f,
     # ---- P4 prepare tally, P5 commit tally (KU).
     prepared, tallied, dval = bcast_tally(m, n_real, f, bits, pp_seen,
                                           pp_val, st.prepared, st.committed,
-                                          st.dval)
+                                          st.dval, *crash)
 
     # ---- P6 decide gossip, P7 timers (KV).
     committed, dval, timer = bcast_decide(bits, tallied, dval, st.committed,
-                                          timer, reset)
+                                          timer, reset, *crash)
 
     # ---- Telemetry and flight recorder (KAA, the dense engine's; called
     # through its module, so that a stand-in put there sees the call).
     if telem is not None:
         pbft.pbft_telemetry(cfg, r, n_real, st.view, st.timer, view,
-                            catch[0], st.down, pp_seen, st.prepared, prepared,
+                            catch[0], down, pp_seen, st.prepared, prepared,
                             st.committed, tallied, committed, telem,
-                            *(flight if flight is not None else (None, None)))
+                            *(flight if flight is not None else (None, None)),
+                            *((pbft.CRASH_VIEWS | pbft.CRASH_COMMITS,)
+                              if crash else ()))
 
-    return PbftState(st.seed, view, timer, pp_seen, pp_view, pp_val, prepared,
-                     committed, dval, st.down)
+    new = PbftState(st.seed, view, timer, pp_seen, pp_view, pp_val, prepared,
+                    committed, dval, down)
+    if flags is not None:
+        pbft.freeze(flags, st, new)
+    return new

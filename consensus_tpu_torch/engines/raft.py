@@ -1,8 +1,8 @@
 """Dense Raft in PyTorch, and the helpers it shares with the capped engine.
 
-The port of ``consensus_tpu/engines/raft.py`` on its flat path (no crash,
-attack, byzantine or switch gates), with its telemetry and flight
-recorder: SPEC §3 over every node at once, with the [N, N] ``match_idx`` /
+The port of ``consensus_tpu/engines/raft.py`` on its flat path and under
+the SPEC §A.2 delay and the SPEC §6c crash-recover adversary (no attack,
+byzantine or switch gates), with its telemetry and flight recorder: SPEC §3 over every node at once, with the [N, N] ``match_idx`` /
 ``next_idx`` replication state and the full [N, N] delivery mask of each
 round. Sweeps are a leading batch axis B on every tensor.
 ``Config(max_active=0)`` selects it.
@@ -23,7 +23,12 @@ plain PyTorch version (``<name>_plain``), which CPU tensors run:
   round's counters, window ring and latency buckets, with telemetry on.
 
 On the card the round runs nothing but these launches; kernel KA
-(``core/rng.py``) draws the initial timeouts. The logs and the
+(``core/rng.py``) draws the initial timeouts. With ``crash_prob > 0`` the
+round starts with kernel KAH (``ops/adversary.py`` ``crash_transition``),
+whose flags the CRASH instances of KL and KM-KO read: KL cuts a down
+node's edges, KM applies the recovered nodes' reset and holds every down
+node at its post-reset state, KN leaves down leaders out of P3a and KO
+does not count their timers, which is the JAX round's freeze. The logs and the
 replication state are updated in place, where the JAX round returns new
 arrays: a round's state replaces its input state.
 
@@ -39,8 +44,9 @@ import torch
 
 from ..core import rng
 from ..core.config import Config
-from ..ops.adversary import (AGG_TELEMETRY, CRASH_TELEMETRY,
-                             bitcast_i32, churn, delivery)
+from ..ops.adversary import (AGG_TELEMETRY, CRASH_DOWN, CRASH_REC,
+                             CRASH_TELEMETRY, bitcast_i32, churn, crash_step,
+                             delivery)
 from ..ops.flight import (add_plain, bucket_counts_plain, check_recorder,
                           window_of)
 
@@ -150,7 +156,7 @@ class RaftState(NamedTuple):
     timeout: torch.Tensor    # [B, N] i32
     match_idx: torch.Tensor  # [B, N, N] uint8, match_idx[b, l, j]
     next_idx: torch.Tensor   # [B, N, N] uint8
-    down: torch.Tensor       # [B, N] bool (SPEC §6c; all False here)
+    down: torch.Tensor       # [B, N] bool (SPEC §6c: down at round end)
 
 
 def raft_init(cfg: Config, seeds: torch.Tensor) -> RaftState:
@@ -177,7 +183,7 @@ def raft_init(cfg: Config, seeds: torch.Tensor) -> RaftState:
 
 def dense_elect_plain(cfg: Config, seed, r: int, deliver, term, role,
                       voted_for, timer, timeout, log_term, log_len, match_idx,
-                      next_idx, want_win: bool = False):
+                      next_idx, want_win: bool = False, flags=None):
     """Plain version of KM, SPEC §3 P0-P2 at every node of each sweep.
 
     P0: the round's churn event steps leaders down. P1: every non-leader
@@ -193,11 +199,29 @@ def dense_elect_plain(cfg: Config, seed, r: int, deliver, term, role,
     ``next_idx`` (its log length + 1) rows. ``match_idx`` / ``next_idx``
     ([B, N, N] u8) are updated in place; returns new (term, role,
     voted_for, timer, timeout, reset), all [B, N], and with ``want_win``
-    also the winners ([B, N] bool), which the telemetry counts."""
+    also the winners ([B, N] bool), which the telemetry counts.
+
+    With the round's SPEC §6c ``flags`` ([B, N] uint8, KAH; ``deliver``
+    then already cuts down nodes' edges), a recovered node first becomes a
+    follower with its timer at 0 and its ``match_idx`` row 0 and
+    ``next_idx`` row 1 (``consensus_tpu/engines/raft.py:282-285``); every
+    node's round is computed as the JAX round computes it, but a down
+    node's outputs are its post-reset inputs and its rows are not written
+    (the freeze, ``raft.py:527-536``), while ``win`` keeps its in-round
+    value, which the telemetry counts."""
     u32 = rng.random_u32_plain
     N = term.shape[1]
     idx = torch.arange(N, dtype=torch.int32, device=term.device)
     mdt = match_idx.dtype
+    if flags is not None:
+        rec = (flags & CRASH_REC) != 0
+        down = (flags & CRASH_DOWN) != 0
+        role = torch.where(rec, ROLE_F, role)
+        timer = torch.where(rec, 0, timer)
+        rows = rec[:, :, None]
+        match_idx.copy_(torch.where(rows, 0, match_idx))
+        next_idx.copy_(torch.where(rows, 1, next_idx))
+        frozen = (term, role, voted_for, timer, timeout)
 
     # ---- P0 churn, P1 candidacy.
     stepdown = churn(seed, r, cfg.churn_cutoff, u32)[:, None] \
@@ -244,11 +268,15 @@ def dense_elect_plain(cfg: Config, seed, r: int, deliver, term, role,
     timer = torch.where(win, 0, timer)
     reset = reset | win
     eye = torch.eye(N, dtype=torch.bool, device=term.device)
-    w = win[:, :, None]
+    w = win[:, :, None] if flags is None else (win & ~down)[:, :, None]
     match_idx.copy_(torch.where(
         w, torch.where(eye, log_len[:, :, None], 0), match_idx).to(mdt))
     next_idx.copy_(torch.where(w, log_len[:, :, None] + 1,
                                next_idx).to(mdt))
+    if flags is not None:
+        term, role, voted_for, timer, timeout = (
+            torch.where(down, o, n) for o, n in zip(
+                frozen, (term, role, voted_for, timer, timeout)))
     if want_win:
         return term, role, voted_for, timer, timeout, reset, win
     return term, role, voted_for, timer, timeout, reset
@@ -256,18 +284,19 @@ def dense_elect_plain(cfg: Config, seed, r: int, deliver, term, role,
 
 def dense_elect(cfg: Config, seed, r: int, deliver, term, role, voted_for,
                 timer, timeout, log_term, log_len, match_idx, next_idx,
-                want_win: bool = False):
+                want_win: bool = False, flags=None):
     """Kernel KM: same arguments, in-place update and result as
     :func:`dense_elect_plain`, which it runs for CPU tensors; for CUDA
     tensors it launches ``csrc/dense_elect.cu`` (a thread per node for
     P0-P1 that lists the sweep's candidates, a thread per receiver that
     walks that list for P2a-P2b and adds its delivered grant to the
     tally, then a block per sweep for the winners and their rows; the
-    winner flags only with ``want_win``)."""
+    winner flags only with ``want_win``; its CRASH instance with
+    ``flags``)."""
     if term.device.type == "cpu":
         return dense_elect_plain(cfg, seed, r, deliver, term, role,
                                  voted_for, timer, timeout, log_term, log_len,
-                                 match_idx, next_idx, want_win)
+                                 match_idx, next_idx, want_win, flags)
     from .. import _build
     B, N, L = log_term.shape
     dev = term.device
@@ -277,7 +306,8 @@ def dense_elect(cfg: Config, seed, r: int, deliver, term, role, voted_for,
                   term, role, voted_for, timer, timeout, log_len)),
               (log_term, torch.int32, (B, N, L)),
               (match_idx, torch.uint8, (B, N, N)),
-              (next_idx, torch.uint8, (B, N, N)))
+              (next_idx, torch.uint8, (B, N, N)),
+              *(() if flags is None else ((flags, torch.uint8, (B, N)),)))
     out = [torch.empty_like(term) for _ in range(5)]
     reset = torch.empty((B, N), dtype=torch.bool, device=dev)
     win = torch.empty_like(reset) if want_win else None
@@ -290,7 +320,7 @@ def dense_elect(cfg: Config, seed, r: int, deliver, term, role, voted_for,
                       deliver, term, role, voted_for, timer, timeout,
                       log_term, log_len, match_idx, next_idx, *out, reset)),
                   None if win is None else win.data_ptr(), scratch.data_ptr(),
-                  B, N, L)
+                  None if flags is None else flags.data_ptr(), B, N, L)
     dense_elect.launches += 1
     return (*out, reset) if win is None else (*out, reset, win)
 
@@ -302,7 +332,7 @@ dense_elect.launches = 0
 
 def dense_append_plain(cfg: Config, seed, r: int, deliver, term, role,
                        voted_for, timer, timeout, reset, log_term, log_val,
-                       log_len, commit, match_idx, next_idx):
+                       log_len, commit, match_idx, next_idx, flags=None):
     """Plain version of KN, SPEC §3 P3a-P3c at every node of each sweep.
 
     P3a: every leader whose log holds fewer than E entries writes (term,
@@ -321,7 +351,9 @@ def dense_append_plain(cfg: Config, seed, r: int, deliver, term, role,
     returns new (term, role, voted_for, timer, timeout, reset, log_len,
     commit), the sender flags ``was_leader`` and the acks ``ack_to``
     (``ls`` or NONE), ``ack_ok`` (applied) and ``ack_match`` (the new
-    length where applied, else 0), all [B, N]."""
+    length where applied, else 0), all [B, N]. With the round's SPEC §6c
+    ``flags``, a down leader neither appends nor sends (its log and row
+    stay frozen; its heartbeats would be cut anyway)."""
     B, N, L = log_term.shape
     E = min(cfg.max_entries, L)
     dev = term.device
@@ -329,6 +361,8 @@ def dense_append_plain(cfg: Config, seed, r: int, deliver, term, role,
 
     # ---- P3a propose: the one-slot append, in place.
     lead = role == ROLE_L
+    if flags is not None:
+        lead = lead & ((flags & CRASH_DOWN) == 0)
     can_prop = lead & (log_len < E)
     prop_val = bitcast_i32(rng.random_u32_plain(seed, rng.STREAM_VALUE, r, 0,
                                                 idx))
@@ -385,18 +419,19 @@ def dense_append_plain(cfg: Config, seed, r: int, deliver, term, role,
 
 def dense_append(cfg: Config, seed, r: int, deliver, term, role, voted_for,
                  timer, timeout, reset, log_term, log_val, log_len, commit,
-                 match_idx, next_idx):
+                 match_idx, next_idx, flags=None):
     """Kernel KN: same arguments, in-place updates and result as
     :func:`dense_append_plain`, which it runs for CPU tensors; for CUDA
     tensors it launches ``csrc/dense_append.cu`` (a thread per node
     appends and lists the sweep's leaders with their scalars, a block per
     sweep copies the leaders' rows aside, then a lane per receiver walks
-    the list and applies, the warp copying long ranges)."""
+    the list and applies, the warp copying long ranges; its CRASH instance
+    with ``flags``)."""
     if term.device.type == "cpu":
         return dense_append_plain(cfg, seed, r, deliver, term, role,
                                   voted_for, timer, timeout, reset, log_term,
                                   log_val, log_len, commit, match_idx,
-                                  next_idx)
+                                  next_idx, flags)
     from .. import _build
     B, N, L = log_term.shape
     dev = term.device
@@ -408,7 +443,8 @@ def dense_append(cfg: Config, seed, r: int, deliver, term, role, voted_for,
               (log_term, torch.int32, (B, N, L)),
               (log_val, torch.int32, (B, N, L)),
               (match_idx, torch.uint8, (B, N, N)),
-              (next_idx, torch.uint8, (B, N, N)))
+              (next_idx, torch.uint8, (B, N, N)),
+              *(() if flags is None else ((flags, torch.uint8, (B, N)),)))
     out = [torch.empty_like(term) for _ in range(5)]
     reset_out = torch.empty_like(reset)
     new_len, new_commit = torch.empty_like(log_len), torch.empty_like(commit)
@@ -425,6 +461,7 @@ def dense_append(cfg: Config, seed, r: int, deliver, term, role, voted_for,
                       log_term, log_val, log_len, commit, match_idx, next_idx,
                       *out, reset_out, new_len, new_commit, was_leader,
                       ack_to, ack_ok, ack_match, scratch, rows)),
+                  None if flags is None else flags.data_ptr(),
                   B, N, L, min(cfg.max_entries, L))
     dense_append.launches += 1
     return (*out, reset_out, new_len, new_commit, was_leader, ack_to, ack_ok,
@@ -439,7 +476,7 @@ dense_append.launches = 0
 def dense_acks_commit_plain(cfg: Config, seed, deliver, was_leader, ack_to,
                             ack_ok, ack_match, log_term, term, role,
                             voted_for, timeout, commit, match_idx, next_idx,
-                            timer, reset) -> None:
+                            timer, reset, flags=None) -> None:
     """Plain version of KO, SPEC §3 P3d-P4 at every node of each sweep.
 
     P3d: node j's ack to ``ack_to[j]`` travels on ``deliver[j, l]``. A
@@ -451,9 +488,10 @@ def dense_acks_commit_plain(cfg: Config, seed, deliver, was_leader, ack_to,
     the majority-th largest entry of its ``match_idx`` row (at most E)
     where its post-P3c log holds an entry of its own term there. P4:
     leaders hold ``timer`` at 0, and every other node counts it up unless
-    ``reset`` says the round reset it. Updates ``term``, ``role``,
-    ``voted_for``, ``timeout``, ``commit``, ``match_idx``, ``next_idx`` and
-    ``timer`` in place."""
+    ``reset`` says the round reset it; with the round's SPEC §6c
+    ``flags``, a down node's timer stays as it is (the freeze). Updates
+    ``term``, ``role``, ``voted_for``, ``timeout``, ``commit``,
+    ``match_idx``, ``next_idx`` and ``timer`` in place."""
     N = term.shape[1]
     L = log_term.shape[2]
     E = min(cfg.max_entries, L)
@@ -486,13 +524,17 @@ def dense_acks_commit_plain(cfg: Config, seed, deliver, was_leader, ack_to,
     commit.copy_(torch.where(adv, med, commit))
 
     # ---- P4 timers, on the roles the bump above settled.
-    timer.copy_(torch.where(role == ROLE_L, 0,
-                            torch.where(reset, timer, timer + 1)))
+    new_timer = torch.where(role == ROLE_L, 0,
+                            torch.where(reset, timer, timer + 1))
+    if flags is not None:
+        new_timer = torch.where((flags & CRASH_DOWN) != 0, timer, new_timer)
+    timer.copy_(new_timer)
 
 
 def dense_acks_commit(cfg: Config, seed, deliver, was_leader, ack_to, ack_ok,
                       ack_match, log_term, term, role, voted_for, timeout,
-                      commit, match_idx, next_idx, timer, reset) -> None:
+                      commit, match_idx, next_idx, timer, reset,
+                      flags=None) -> None:
     """Kernel KO: same arguments and in-place updates as
     :func:`dense_acks_commit_plain`, which it runs for CPU tensors; for
     CUDA tensors it launches ``csrc/dense_acks_commit.cu`` (a thread per
@@ -500,12 +542,13 @@ def dense_acks_commit(cfg: Config, seed, deliver, was_leader, ack_to, ack_ok,
     thread per leader bumps or lists it as processing, a thread per node
     applies its ack to its leader's row and counts its timer, then a block
     per sweep reads each processing leader's median off a 256-bin
-    histogram of its row)."""
+    histogram of its row; its CRASH instance with ``flags``)."""
     if term.device.type == "cpu":
         return dense_acks_commit_plain(cfg, seed, deliver, was_leader,
                                        ack_to, ack_ok, ack_match, log_term,
                                        term, role, voted_for, timeout, commit,
-                                       match_idx, next_idx, timer, reset)
+                                       match_idx, next_idx, timer, reset,
+                                       flags)
     from .. import _build
     B, N, L = log_term.shape
     dev = term.device
@@ -518,7 +561,8 @@ def dense_acks_commit(cfg: Config, seed, deliver, was_leader, ack_to, ack_ok,
                   timer)),
               (log_term, torch.int32, (B, N, L)),
               (match_idx, torch.uint8, (B, N, N)),
-              (next_idx, torch.uint8, (B, N, N)))
+              (next_idx, torch.uint8, (B, N, N)),
+              *(() if flags is None else ((flags, torch.uint8, (B, N)),)))
     # Ack-term maxima and processing-leader count (zeroed by the kernel),
     # the processing flags and the processing leaders' list.
     scratch = torch.empty(B * (1 + 3 * N), dtype=torch.int32, device=dev)
@@ -527,7 +571,7 @@ def dense_acks_commit(cfg: Config, seed, deliver, was_leader, ack_to, ack_ok,
                       deliver, was_leader, ack_to, ack_ok, ack_match,
                       log_term, term, role, voted_for, timeout, commit,
                       match_idx, next_idx, timer, reset, scratch)),
-                  B, N, L, E)
+                  None if flags is None else flags.data_ptr(), B, N, L, E)
     dense_acks_commit.launches += 1
 
 
@@ -608,7 +652,11 @@ def raft_round(cfg: Config, st: RaftState, r: int, *, telem=None,
     round's telemetry, as the JAX round's ``telem=True``, and ``flight``
     (the window ring and latency buckets, a pair of [B, n_windows, K] and
     [B, 2, N_BUCKETS] i32) its flight recorder, as ``flight=True``; kernel
-    KP adds the round's counters into them in place."""
+    KP adds the round's counters into them in place.
+
+    With ``cfg.crash_on`` (SPEC §6c) the round first launches KAH, which
+    gives the new down mask, the flags the CRASH instances of KL and KM-KO
+    read, and, with telemetry, the crash tail of the counters."""
     N = st.term.shape[1]
     seed = st.seed
     log_term, log_val = st.log_term, st.log_val
@@ -617,37 +665,45 @@ def raft_round(cfg: Config, st: RaftState, r: int, *, telem=None,
         raise ValueError("the flight recorder rides the telemetry "
                          "accumulator: pass telem with flight")
 
+    # ---- SPEC §6c crash transition (KAH). Its flags are the CRASH
+    # instances' last argument, which the flat path's calls do not pass.
+    down, crash = st.down, ()
+    if cfg.crash_on:
+        down, flags = crash_step(cfg, seed, r, st.down, RAFT_TELEMETRY,
+                                 telem, flight)
+        crash = (flags,)
+
     # ---- The round's delivery mask (KL).
     deliver = delivery(seed, r, N, cfg.drop_cutoff, cfg.partition_cutoff,
-                       cfg.max_delay_rounds)
+                       cfg.max_delay_rounds, *crash)
 
     # ---- P0 churn, P1 candidacy, P2 election (KM), with the winners when
     # the telemetry counts them.
     term, role, voted_for, timer, timeout, reset, *win = dense_elect(
         cfg, seed, r, deliver, st.term, st.role, st.voted_for, st.timer,
         st.timeout, log_term, st.log_len, match_idx, next_idx,
-        telem is not None)
+        telem is not None, *crash)
 
     # ---- P3a propose, P3b snapshot, P3c receivers and apply (KN).
     (term, role, voted_for, timer, timeout, reset, log_len, commit,
      was_leader, ack_to, ack_ok, ack_match) = dense_append(
         cfg, seed, r, deliver, term, role, voted_for, timer, timeout, reset,
-        log_term, log_val, st.log_len, st.commit, match_idx, next_idx)
+        log_term, log_val, st.log_len, st.commit, match_idx, next_idx, *crash)
 
     # ---- P3d acks, P3e commit advance, P4 timers (KO), in place.
     dense_acks_commit(cfg, seed, deliver, was_leader, ack_to, ack_ok,
                       ack_match, log_term, term, role, voted_for, timeout,
-                      commit, match_idx, next_idx, timer, reset)
+                      commit, match_idx, next_idx, timer, reset, *crash)
 
     # ---- Telemetry and flight recorder (KP). KN's acks are its apply and
     # reject flags: ack_ok is the apply, ack_to >= 0 a leader heard.
     if telem is not None:
         dense_telemetry(cfg, r, win[0], st.timer, ack_to, ack_ok, st.commit,
-                        commit, role, log_len, st.down, telem,
+                        commit, role, log_len, down, telem,
                         *(flight if flight is not None else (None, None)))
 
     return RaftState(seed, term, role, voted_for, log_term, log_val, log_len,
-                     commit, timer, timeout, match_idx, next_idx, st.down)
+                     commit, timer, timeout, match_idx, next_idx, down)
 
 
 def extract(st: RaftState) -> dict[str, torch.Tensor]:

@@ -1,7 +1,8 @@
 """Large-population Raft under the SPEC §3b active-sender cap, in PyTorch.
 
-The port of ``consensus_tpu/engines/raft_sparse.py`` on its flat path (no
-crash, attack, byzantine or switch gates), with its telemetry and flight
+The port of ``consensus_tpu/engines/raft_sparse.py`` on its flat path and
+under the SPEC §A.2 delay and the SPEC §6c crash-recover adversary (no
+attack, byzantine or switch gates), with its telemetry and flight
 recorder. Per round only the top-A candidates and the top-A leaders by
 (term desc, id asc) send, and leader replication state lives in A tracked
 slots of [A, N] rows, so a round is O(A*N) plus one pass over the rows of
@@ -30,7 +31,15 @@ its plain PyTorch version (``<name>_plain``), which CPU tensors run:
 
 The round's delivery masks come from kernel KB (``ops/adversary.py``); on
 the card the round runs nothing but these launches. Kernel KA
-(``core/rng.py``) draws the initial timeouts.
+(``core/rng.py``) draws the initial timeouts. With ``crash_prob > 0`` the
+round starts with kernel KAH (``ops/adversary.py`` ``crash_transition``),
+whose per-node flags the CRASH instances of KB, KE, KF and KH read: KE
+resets a recovered node's role and timer and holds every down node at
+that post-reset state, KB cuts every edge with a down end, KF leaves down
+leaders out of the leader mask (so KC never tracks them and KI appends
+nothing to their logs) and KH does not count their timers. KC, KG, KI and
+KD then leave a down node's state as it is, which is the JAX round's
+``freeze_down`` (``raft_sparse.py:494-501``).
 
 The [B, N, L] logs are updated in place (P3a's one-slot append and P3c's
 suffix copy), where the JAX round returns new arrays: a round's state
@@ -44,7 +53,8 @@ import torch
 
 from ..core import rng
 from ..core.config import MAX_ACTIVE, Config
-from ..ops.adversary import bitcast_i32, churn, delivery_edges
+from ..ops.adversary import (CRASH_DOWN, CRASH_REC, bitcast_i32, churn,
+                             crash_step, delivery_edges)
 from ..ops.flight import (add_plain, bucket_counts_plain, check_recorder,
                           window_of)
 from .raft import (NONE, RAFT_LATENCY, RAFT_TELEMETRY, ROLE_C, ROLE_F, ROLE_L,
@@ -72,7 +82,7 @@ class RaftSparseState(NamedTuple):
     lead_id: torch.Tensor     # [B, A] i32, NONE when the slot is empty
     lead_match: torch.Tensor  # [B, A, N] uint8
     lead_next: torch.Tensor   # [B, A, N] uint8
-    down: torch.Tensor        # [B, N] bool (SPEC §6c; all False here)
+    down: torch.Tensor        # [B, N] bool (SPEC §6c: down at round end)
 
 
 def raft_sparse_init(cfg: Config, seeds: torch.Tensor) -> RaftSparseState:
@@ -263,16 +273,25 @@ append_entries.launches = 0
 # --- KE: P0 churn and P1 candidacy ---------------------------------------------
 
 def candidacy_plain(cfg: Config, seed, r: int, term, role, voted_for, timer,
-                    timeout, log_term, log_len):
+                    timeout, log_term, log_len, flags=None):
     """Plain version of KE, SPEC §3 P0-P1 at every node of each sweep: the
     round's churn event steps leaders down; every non-leader whose timer
     reached its timeout becomes a candidate of the next term, votes for
     itself and redraws its timeout. Also returns each node's last log term
     (the P2b input, from the logs as they enter the round) and the
-    candidate mask. Updates nothing in place; returns new (term, role,
-    voted_for, timer, timeout, reset, own_lterm, cand_mask), all [B, N]."""
+    candidate mask. With the round's SPEC §6c ``flags`` ([B, N] uint8, KAH),
+    a recovered node first becomes a follower with its timer at 0, and a
+    down node keeps that post-reset state and is no candidate
+    (``consensus_tpu/engines/raft_sparse.py:209-227, 259-260``). Updates
+    nothing in place; returns new (term, role, voted_for, timer, timeout,
+    reset, own_lterm, cand_mask), all [B, N]."""
     u32 = rng.random_u32_plain
     idx = torch.arange(term.shape[1], dtype=torch.int32, device=term.device)
+    if flags is not None:
+        rec = (flags & CRASH_REC) != 0
+        role = torch.where(rec, ROLE_F, role)
+        timer = torch.where(rec, 0, timer)
+        frozen = (term, role, voted_for, timer, timeout)
     stepdown = churn(seed, r, cfg.churn_cutoff, u32)[:, None] \
         & (role == ROLE_L)
     role = torch.where(stepdown, ROLE_F, role)
@@ -288,26 +307,35 @@ def candidacy_plain(cfg: Config, seed, r: int, term, role, voted_for, timer,
         cand_new, draw_timeout(seed, cfg.t_min, cfg.t_max, term, idx, u32),
         timeout)
     own_lterm = last_term(log_term, log_len)
+    cand_mask = role == ROLE_C
+    if flags is not None:
+        down = (flags & CRASH_DOWN) != 0
+        term, role, voted_for, timer, timeout = (
+            torch.where(down, o, n) for o, n in zip(
+                frozen, (term, role, voted_for, timer, timeout)))
+        cand_mask = cand_mask & ~down
     return (term, role, voted_for, timer, timeout, reset, own_lterm,
-            role == ROLE_C)
+            cand_mask)
 
 
 def candidacy(cfg: Config, seed, r: int, term, role, voted_for, timer,
-              timeout, log_term, log_len):
+              timeout, log_term, log_len, flags=None):
     """Kernel KE: same arguments and result as :func:`candidacy_plain`,
     which it runs for CPU tensors; for CUDA tensors it launches
     ``csrc/candidacy.cu`` (a thread per node, the churn and timeout
-    Threefry draws inline). Updates nothing in place."""
+    Threefry draws inline; its CRASH instance with ``flags``). Updates
+    nothing in place."""
     if term.device.type == "cpu":
         return candidacy_plain(cfg, seed, r, term, role, voted_for, timer,
-                               timeout, log_term, log_len)
+                               timeout, log_term, log_len, flags)
     from .. import _build
     B, N, L = log_term.shape
     dev = term.device
     check_all(dev, (seed, torch.uint32, (B,)),
               *((t, torch.int32, (B, N)) for t in (
                   term, role, voted_for, timer, timeout, log_len)),
-              (log_term, torch.int32, (B, N, L)))
+              (log_term, torch.int32, (B, N, L)),
+              *(() if flags is None else ((flags, torch.uint8, (B, N)),)))
     out = [torch.empty_like(term) for _ in range(5)]
     reset = torch.empty((B, N), dtype=torch.bool, device=dev)
     own_lterm = torch.empty_like(term)
@@ -316,7 +344,8 @@ def candidacy(cfg: Config, seed, r: int, term, role, voted_for, timer,
                   cfg.churn_cutoff, cfg.t_min, timeout_span(cfg),
                   *(t.data_ptr() for t in (
                       term, role, voted_for, timer, timeout, log_term,
-                      log_len, *out, reset, own_lterm, cand)), B, N, L)
+                      log_len, *out, reset, own_lterm, cand)),
+                  None if flags is None else flags.data_ptr(), B, N, L)
     candidacy.launches += 1
     return (*out, reset, own_lterm, cand)
 
@@ -327,7 +356,8 @@ candidacy.launches = 0
 # --- KF: P2 election -------------------------------------------------------------
 
 def elect_plain(cfg: Config, seed, cand_ids, del_cj, del_jc, term, role,
-                voted_for, timer, timeout, reset, log_len, own_lterm):
+                voted_for, timer, timeout, reset, log_len, own_lterm,
+                flags=None):
     """Plain version of KF, SPEC §3 P2 over the sweep's active candidates
     ``cand_ids`` ([B, A], NONE-padded) with their request masks ``del_cj``
     ([B, A, N]) and response masks ``del_jc`` ([B, N, A]): P2a term
@@ -336,8 +366,10 @@ def elect_plain(cfg: Config, seed, cand_ids, del_cj, del_jc, term, role,
     The candidates' request fields are read from ``term``, ``log_len`` and
     ``own_lterm`` as they enter. Updates nothing in place; returns new
     (term, role, voted_for, timer, timeout, reset), the leader mask
-    ``role == ROLE_L`` (all [B, N]) and the winner flags ``win`` ([B, A]
-    bool)."""
+    ``role == ROLE_L`` (all [B, N]; with the round's SPEC §6c ``flags``,
+    of the nodes up at the round's end only: a down leader is neither
+    tracked nor appends, ``raft_sparse.py:359-360``) and the winner flags
+    ``win`` ([B, A] bool)."""
     N = term.shape[1]
     majority = N // 2 + 1
     cvalid = cand_ids >= 0
@@ -376,20 +408,24 @@ def elect_plain(cfg: Config, seed, cand_ids, del_cj, del_jc, term, role,
     role = torch.where(won, ROLE_L, role)
     timer = torch.where(won, 0, timer)
     reset = reset | won
-    return term, role, voted_for, timer, timeout, reset, role == ROLE_L, win
+    lead = role == ROLE_L
+    if flags is not None:
+        lead = lead & ((flags & CRASH_DOWN) == 0)
+    return term, role, voted_for, timer, timeout, reset, lead, win
 
 
 def elect(cfg: Config, seed, cand_ids, del_cj, del_jc, term, role, voted_for,
-          timer, timeout, reset, log_len, own_lterm):
+          timer, timeout, reset, log_len, own_lterm, flags=None):
     """Kernel KF: same arguments and result as :func:`elect_plain`, which it
     runs for CPU tensors; for CUDA tensors it launches ``csrc/elect.cu``
     (a thread per node with the candidates' fields in shared memory and
     block-partial vote counts, then a [B, A] winner epilogue that also
-    completes the leader mask). Updates nothing in place."""
+    completes the leader mask; its CRASH instance with ``flags``). Updates
+    nothing in place."""
     if term.device.type == "cpu":
         return elect_plain(cfg, seed, cand_ids, del_cj, del_jc, term, role,
                            voted_for, timer, timeout, reset, log_len,
-                           own_lterm)
+                           own_lterm, flags)
     from .. import _build
     B, N = term.shape
     A = cand_ids.shape[1]
@@ -403,7 +439,8 @@ def elect(cfg: Config, seed, cand_ids, del_cj, del_jc, term, role, voted_for,
               *((t, torch.int32, (B, N)) for t in (
                   term, role, voted_for, timer, timeout, log_len,
                   own_lterm)),
-              (reset, torch.bool, (B, N)))
+              (reset, torch.bool, (B, N)),
+              *(() if flags is None else ((flags, torch.uint8, (B, N)),)))
     out = [torch.empty_like(term) for _ in range(5)]
     reset_out = torch.empty_like(reset)
     lead = torch.empty_like(reset)
@@ -413,7 +450,8 @@ def elect(cfg: Config, seed, cand_ids, del_cj, del_jc, term, role, voted_for,
                   *(t.data_ptr() for t in (
                       cand_ids, del_cj, del_jc, term, role, voted_for, timer,
                       timeout, reset, log_len, own_lterm, *out, reset_out,
-                      lead, win, votes)), B, N, A)
+                      lead, win, votes)),
+                  None if flags is None else flags.data_ptr(), B, N, A)
     elect.launches += 1
     return (*out, reset_out, lead, win)
 
@@ -500,7 +538,7 @@ slots.launches = 0
 def acks_commit_plain(cfg: Config, seed, lead_id, was_lead_k, del_jl, has_l,
                       kstar, apply_, log_len, log_term, term, role, voted_for,
                       timeout, commit, lead_match, lead_next, timer,
-                      reset) -> None:
+                      reset, flags=None) -> None:
     """Plain version of KH, SPEC §3 P3d-P4 for each tracked slot that sent
     heartbeats (``was_lead_k``, [B, A]) and still leads: follower j acks
     slot ``kstar[j]`` where ``has_l[j]`` and ``del_jl[j, kstar[j]]``, with
@@ -509,9 +547,10 @@ def acks_commit_plain(cfg: Config, seed, lead_id, was_lead_k, del_jl, has_l,
     (u8 arithmetic, as JAX), and its commit advances to the majority-th
     largest match when that entry is of its own term. ``log_term`` is the
     post-P3c log. Then P4: leaders hold ``timer`` at 0, and every other
-    node counts it up unless ``reset`` says the round reset it. Updates
-    ``term``, ``role``, ``voted_for``, ``timeout``, ``commit``,
-    ``lead_match``, ``lead_next`` and ``timer`` in place."""
+    node counts it up unless ``reset`` says the round reset it; with the
+    round's SPEC §6c ``flags``, a down node's timer stays as it is (the
+    freeze). Updates ``term``, ``role``, ``voted_for``, ``timeout``,
+    ``commit``, ``lead_match``, ``lead_next`` and ``timer`` in place."""
     B, N = term.shape
     A = lead_id.shape[1]
     E = min(cfg.max_entries, cfg.log_capacity)
@@ -553,27 +592,31 @@ def acks_commit_plain(cfg: Config, seed, lead_id, was_lead_k, del_jl, has_l,
     commit.copy_(_scatter_max(commit, lid, med, adv))
 
     # ---- P4 timers, on the roles the bump above settled.
-    timer.copy_(torch.where(role == ROLE_L, 0,
-                            torch.where(reset, timer, timer + 1)))
+    new_timer = torch.where(role == ROLE_L, 0,
+                            torch.where(reset, timer, timer + 1))
+    if flags is not None:
+        new_timer = torch.where((flags & CRASH_DOWN) != 0, timer, new_timer)
+    timer.copy_(new_timer)
 
 
 def acks_commit(cfg: Config, seed, lead_id, was_lead_k, del_jl, has_l, kstar,
                 apply_, log_len, log_term, term, role, voted_for, timeout,
-                commit, lead_match, lead_next, timer, reset) -> None:
+                commit, lead_match, lead_next, timer, reset,
+                flags=None) -> None:
     """Kernel KH: same arguments and in-place updates as
     :func:`acks_commit_plain`, which it runs for CPU tensors; for CUDA
     tensors it launches ``csrc/acks_commit.cu`` (block-partial ack-term
     maxima, a [B, A] bump epilogue, the match/next update with a per-row
     256-bin histogram of the new matches, a [B, A] commit epilogue
     reading the majority-th largest match off the histogram, and a thread
-    per node for the timers). The tracked
-    ids ``lead_id`` of slots with ``was_lead_k`` must be distinct, as
-    kernel KC gives them."""
+    per node for the timers; its CRASH instance with ``flags``). The
+    tracked ids ``lead_id`` of slots with ``was_lead_k`` must be distinct,
+    as kernel KC gives them."""
     if term.device.type == "cpu":
         return acks_commit_plain(cfg, seed, lead_id, was_lead_k, del_jl,
                                  has_l, kstar, apply_, log_len, log_term,
                                  term, role, voted_for, timeout, commit,
-                                 lead_match, lead_next, timer, reset)
+                                 lead_match, lead_next, timer, reset, flags)
     from .. import _build
     B, N, L = log_term.shape
     A = lead_id.shape[1]
@@ -591,7 +634,8 @@ def acks_commit(cfg: Config, seed, lead_id, was_lead_k, del_jl, has_l, kstar,
               (log_term, torch.int32, (B, N, L)),
               (lead_match, torch.uint8, (B, A, N)),
               (lead_next, torch.uint8, (B, A, N)),
-              (reset, torch.bool, (B, N)))
+              (reset, torch.bool, (B, N)),
+              *(() if flags is None else ((flags, torch.uint8, (B, N)),)))
     t_in3 = torch.empty((B, A), dtype=torch.int32, device=dev)
     proc = torch.empty((B, A), dtype=torch.int32, device=dev)
     hist = torch.empty((B, A, 256), dtype=torch.int32, device=dev)
@@ -601,6 +645,7 @@ def acks_commit(cfg: Config, seed, lead_id, was_lead_k, del_jl, has_l, kstar,
                       log_len, log_term, term, role, voted_for, timeout,
                       commit, lead_match, lead_next, timer, reset, t_in3,
                       proc, hist)),
+                  None if flags is None else flags.data_ptr(),
                   B, N, A, L, min(cfg.max_entries, L))
     acks_commit.launches += 1
 
@@ -696,11 +741,11 @@ def telemetry_plain(cfg: Config, r: int, cand_ids, win, timer_in, has_l,
     or neither), into the window ``r // cfg.telemetry_window`` of ``w``,
     and the round's RAFT_LATENCY histograms into ``lat``: the round-entry
     ``timer_in`` + 1 of each winner of ``win`` (candidate slots of
-    ``cand_ids``), and ``log_len - commit`` of each leader not ``down``.
-    The counters: winners, ``apply_``, ``has_l & ~apply_``, the sum of
-    ``commit - commit_in``, and zeros for the attack, crash and
-    aggregation gates the port rejects. Updates ``t``, ``w`` and ``lat``
-    in place."""
+    ``cand_ids``), and ``log_len - commit`` of each leader not ``down``
+    (the mask at the round's end). The counters: winners, ``apply_``,
+    ``has_l & ~apply_``, the sum of ``commit - commit_in``, and zeros for
+    the attack and aggregation gates the port rejects; the crash tail is
+    kernel KAH's to add. Updates ``t``, ``w`` and ``lat`` in place."""
     N = timer_in.shape[1]
     vec = torch.zeros_like(t)
     vec[:, 0] = win.sum(1, dtype=torch.int32)
@@ -763,7 +808,11 @@ def raft_sparse_round(cfg: Config, st: RaftSparseState, r: int, *,
     round's telemetry, as the JAX round's ``telem=True``, and ``flight``
     (the window ring and latency buckets, a pair of [B, n_windows, K] and
     [B, 2, N_BUCKETS] i32) its flight recorder, as ``flight=True``; kernel
-    KK adds the round's counters into them in place."""
+    KK adds the round's counters into them in place.
+
+    With ``cfg.crash_on`` (SPEC §6c) the round first launches KAH, which
+    gives the new down mask, the flags the CRASH instances of KB, KE, KF
+    and KH read, and, with telemetry, the crash tail of the counters."""
     B, N = st.term.shape
     A = cfg.max_active
     seed = st.seed
@@ -771,17 +820,26 @@ def raft_sparse_round(cfg: Config, st: RaftSparseState, r: int, *,
         raise ValueError("the flight recorder rides the telemetry "
                          "accumulator: pass telem with flight")
 
+    # ---- SPEC §6c crash transition (KAH). Its flags are the CRASH
+    # instances' last argument, which the flat path's calls do not pass.
+    down, crash = st.down, ()
+    if cfg.crash_on:
+        down, flags = crash_step(cfg, seed, r, st.down, RAFT_TELEMETRY,
+                                 telem, flight)
+        crash = (flags,)
+
     def dedge(ids, ids_are_src):
         return delivery_edges(seed, r, ids, N, cfg.drop_cutoff,
                               cfg.partition_cutoff, ids_are_src,
-                              cfg.max_delay_rounds)
+                              cfg.max_delay_rounds, *crash)
 
     log_term, log_val = st.log_term, st.log_val
 
-    # ---- P0 churn, P1 candidacy (KE).
+    # ---- P0 churn, P1 candidacy (KE), after the §6c reset.
     (term, role, voted_for, timer, timeout, reset, own_lterm,
      cand_mask) = candidacy(cfg, seed, r, st.term, st.role, st.voted_for,
-                            st.timer, st.timeout, log_term, st.log_len)
+                            st.timer, st.timeout, log_term, st.log_len,
+                            *crash)
 
     # ---- P2 election over the active candidate set (SPEC §3b; KC, KB, KF),
     # with the leader mask that KC and KI read.
@@ -790,7 +848,7 @@ def raft_sparse_round(cfg: Config, st: RaftSparseState, r: int, *,
     del_jc = dedge(cand_ids, False)                             # [B, N, A]
     term, role, voted_for, timer, timeout, reset, lead, win = elect(
         cfg, seed, cand_ids, del_cj, del_jc, term, role, voted_for, timer,
-        timeout, reset, st.log_len, own_lterm)
+        timeout, reset, st.log_len, own_lterm, *crash)
 
     # ---- Tracked-leader slot lifecycle, with P3a's self-match (KC, KG).
     lead_id = top_active(lead, term, A)                         # [B, A]
@@ -814,17 +872,17 @@ def raft_sparse_round(cfg: Config, st: RaftSparseState, r: int, *,
     del_jl = dedge(hb_ids, False)                               # [B, N, A]
     acks_commit(cfg, seed, lead_id, was_lead_k, del_jl, has_l, kstar, apply_,
                 log_len, log_term, term, role, voted_for, timeout, commit,
-                lead_match, lead_next, timer, reset)
+                lead_match, lead_next, timer, reset, *crash)
 
-    # ---- Telemetry and flight recorder (KK).
+    # ---- Telemetry and flight recorder (KK), on the round's new down mask.
     if telem is not None:
         telemetry(cfg, r, cand_ids, win, st.timer, has_l, apply_, st.commit,
-                  commit, role, log_len, st.down, telem,
+                  commit, role, log_len, down, telem,
                   *(flight if flight is not None else (None, None)))
 
     return RaftSparseState(seed, term, role, voted_for, log_term, log_val,
                            log_len, commit, timer, timeout, lead_id,
-                           lead_match, lead_next, st.down)
+                           lead_match, lead_next, down)
 
 
 def extract(st: RaftSparseState) -> dict[str, torch.Tensor]:

@@ -1,17 +1,21 @@
-"""Adversary draws of the Raft engines, and kernels KB and KL.
+"""Adversary draws of the engines, and kernels KB, KL, KAH and KAI.
 
 The counterparts of ``consensus_tpu/ops/adversary.py``'s ``draw``,
-``cutoff``, ``bitcast_i32``, ``churn``, ``delayed_open``, ``delivery_edges``
-and ``delivery``. Every decision is a pure counter function of (seed,
-round, ids), so an edge's delivery here equals the JAX package's entry for
-the same absolute (round, src, dst) ids, with or without the SPEC §A.2
-delayed retransmission (``max_delay > 0``).
+``cutoff``, ``bitcast_i32``, ``churn``, ``delayed_open``, ``delivery_edges``,
+``delivery``, ``crash_transition``, ``freeze_down`` and ``crash_counts``.
+Every decision is a pure counter function of (seed, round, ids), so an
+edge's delivery here equals the JAX package's entry for the same absolute
+(round, src, dst) ids, with or without the SPEC §A.2 delayed
+retransmission (``max_delay > 0``) and the SPEC §6c down mask.
 
 :func:`delivery_edges` is the wrapper of the hand-written CUDA kernel KB
 (``csrc/delivery_edges.cu``), the capped engine's masks between a few ids
 and all nodes; :func:`delivery` that of kernel KL (``csrc/delivery.cu``),
-the dense engine's full [N, N] mask. On CPU tensors they run
-:func:`delivery_edges_plain` and :func:`delivery_plain`.
+the dense engines' full [N, N] mask; :func:`crash_transition` that of
+kernel KAH (``csrc/crash_transition.cu``), the round's SPEC §6c down mask and flags;
+:func:`freeze_down` that of kernel KAI (``csrc/freeze_down.cu``), the §6c
+freeze of the PBFT engines. On CPU tensors they run their ``_plain``
+versions.
 """
 from __future__ import annotations
 
@@ -35,15 +39,17 @@ def bitcast_i32(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 2**31, x - 2**32, x).to(torch.int32)
 
 
-# The zero tails of every engine's counter vector, copies of the JAX
-# package's names: the §6c crash-recover adversary's
+# The tails of every engine's counter vector, copies of the JAX package's
+# names: the §6c crash-recover adversary's
 # (consensus_tpu/ops/adversary.py:96-98 CRASH_TELEMETRY), the §9 switch
 # layer's (consensus_tpu/ops/aggregate.py:58-60 AGG_TELEMETRY) and the
 # §7c safety invariants' of the BFT engines
-# (consensus_tpu/ops/adversary.py:161-163 SAFETY_TELEMETRY). The port
-# rejects the gates that make them count, so they stay 0, as the JAX
-# package's crash_counts(), agg_counts() and safety_counts() give them
-# on the flat path.
+# (consensus_tpu/ops/adversary.py:161-163 SAFETY_TELEMETRY). The crash tail
+# counts where crash_prob > 0 (kernel KAH adds it, on every engine but
+# HotStuff, which rejects the knob) and is 0 on the flat path; the port
+# rejects the gates that make the other two count, so they stay 0, as the
+# JAX package's agg_counts() and safety_counts() give them on the flat
+# path.
 CRASH_TELEMETRY = ("crashes", "recoveries", "nodes_down")
 AGG_TELEMETRY = ("agg_down_rounds", "stale_serves", "poisoned_serves")
 SAFETY_TELEMETRY = ("forked_qc", "conflict_commits", "safety_violations")
@@ -90,12 +96,14 @@ def open_drop_plain(useed, r: int, i, j, drop_cut: int,
 
 def delivery_edges_plain(seed, r: int, ids, n: int, drop_cut: int,
                          part_cut: int, ids_are_src: bool,
-                         max_delay: int = 0) -> torch.Tensor:
+                         max_delay: int = 0, flags=None) -> torch.Tensor:
     """Plain version of KB: the SPEC §2 delivery mask between the [B, A]
     ids and all ``n`` node ids: [B, A, n] (ids send) when ``ids_are_src``,
     else [B, n, A] (ids receive), with the §A.2 retransmissions of the
     last ``max_delay`` rounds. Negative ids are masked-out lanes and give
-    False."""
+    False. With the round's §6c ``flags`` ([B, n] uint8, from
+    :func:`crash_transition`), an edge with a down end is not delivered
+    (``consensus_tpu/engines/raft_sparse.py:192-195``)."""
     nodes = torch.arange(n, dtype=torch.int32, device=ids.device)[None, :]
     if ids_are_src:
         src, dst = ids[:, :, None], nodes[:, None, :]
@@ -113,27 +121,38 @@ def delivery_edges_plain(seed, r: int, ids, n: int, drop_cut: int,
                                     udst) & 1
     same_side = side_s == side_d
     off_diag = usrc != udst
-    return valid & open_drop & (same_side | ~part_active[:, :, None]) \
+    out = valid & open_drop & (same_side | ~part_active[:, :, None]) \
         & off_diag
+    if flags is not None:
+        up = (flags & CRASH_DOWN) == 0                       # [B, n]
+        bi = torch.arange(ids.shape[0], device=ids.device)[:, None, None]
+        up_s = up[bi, src.clamp(0, n - 1).to(torch.int64)]
+        up_d = up[bi, dst.clamp(0, n - 1).to(torch.int64)]
+        out = out & up_s & up_d
+    return out
 
 
 def delivery_edges(seed, r: int, ids, n: int, drop_cut: int, part_cut: int,
-                   ids_are_src: bool, max_delay: int = 0) -> torch.Tensor:
+                   ids_are_src: bool, max_delay: int = 0,
+                   flags=None) -> torch.Tensor:
     """Kernel KB: same arguments and result as :func:`delivery_edges_plain`,
     which it runs for CPU tensors; for CUDA tensors it launches
-    ``csrc/delivery_edges.cu``."""
+    ``csrc/delivery_edges.cu`` (its CRASH instance with ``flags``)."""
     if ids.device.type == "cpu":
         return delivery_edges_plain(seed, r, ids, n, drop_cut, part_cut,
-                                    ids_are_src, max_delay)
+                                    ids_are_src, max_delay, flags)
     from .. import _build
     B, A = ids.shape
     _build.check(ids, torch.int32, ids.device)
     _build.check(seed, torch.uint32, ids.device, (B,))
+    if flags is not None:
+        _build.check(flags, torch.uint8, ids.device, (B, n))
     shape = (B, A, n) if ids_are_src else (B, n, A)
     out = torch.empty(shape, dtype=torch.bool, device=ids.device)
     _build.launch("delivery_edges", seed.data_ptr(), int(r) & 0xFFFFFFFF,
                   ids.data_ptr(), out.data_ptr(), B, A, n, int(drop_cut),
-                  int(part_cut), int(ids_are_src), int(max_delay))
+                  int(part_cut), int(ids_are_src), int(max_delay),
+                  None if flags is None else flags.data_ptr())
     delivery_edges.launches += 1
     return out
 
@@ -142,14 +161,16 @@ delivery_edges.launches = 0
 
 
 def delivery_plain(seed, r: int, n: int, drop_cut: int, part_cut: int,
-                   max_delay: int = 0) -> torch.Tensor:
+                   max_delay: int = 0, flags=None) -> torch.Tensor:
     """Plain version of KL: the SPEC §2 delivery mask of round ``r`` over
     all ``n`` nodes of each sweep of ``seed`` ([B] uint32): [B, n, n] bool,
     [b, i, j] True iff a message i -> j is delivered. The edge draw with
     the §A.2 retransmissions of the last ``max_delay`` rounds, the round's
     bipartition and the empty diagonal of the JAX package's ``delivery``,
     built from the same mixer and Threefry draws as
-    :func:`delivery_edges_plain`."""
+    :func:`delivery_edges_plain`. With the round's §6c ``flags`` ([B, n]
+    uint8), rows and columns of down nodes are cut (``deliver & up[:, None]
+    & up[None, :]`` of the dense engines)."""
     ids = torch.arange(n, dtype=torch.int64, device=seed.device)
     useed = rng.as_u32(seed)[:, None, None]
     open_drop = open_drop_plain(useed, r, ids[:, None], ids[None, :],
@@ -160,27 +181,200 @@ def delivery_plain(seed, r: int, n: int, drop_cut: int, part_cut: int,
                                   ids) & 1                   # [B, n]
     same_side = side[:, :, None] == side[:, None, :]
     off_diag = ids[:, None] != ids[None, :]
-    return open_drop & (same_side | ~part_active[:, :, None]) & off_diag
+    out = open_drop & (same_side | ~part_active[:, :, None]) & off_diag
+    if flags is not None:
+        up = (flags & CRASH_DOWN) == 0
+        out = out & up[:, :, None] & up[:, None, :]
+    return out
 
 
 def delivery(seed, r: int, n: int, drop_cut: int, part_cut: int,
-             max_delay: int = 0) -> torch.Tensor:
+             max_delay: int = 0, flags=None) -> torch.Tensor:
     """Kernel KL: same arguments and result as :func:`delivery_plain`,
     which it runs for CPU tensors; for CUDA tensors it launches
     ``csrc/delivery.cu`` (with a partition, a thread per node first draws
-    its side; then a thread per four edges of a row)."""
+    its side; then a thread per four edges of a row; its CRASH instance
+    with ``flags``)."""
     if seed.device.type == "cpu":
-        return delivery_plain(seed, r, n, drop_cut, part_cut, max_delay)
+        return delivery_plain(seed, r, n, drop_cut, part_cut, max_delay,
+                              flags)
     from .. import _build
     B = seed.shape[0]
     _build.check(seed, torch.uint32, seed.device, (B,))
+    if flags is not None:
+        _build.check(flags, torch.uint8, seed.device, (B, n))
     out = torch.empty((B, n, n), dtype=torch.bool, device=seed.device)
     side = torch.empty((B, n), dtype=torch.uint8, device=seed.device)
     _build.launch("delivery", seed.data_ptr(), int(r) & 0xFFFFFFFF,
                   out.data_ptr(), side.data_ptr(), B, n, int(drop_cut),
-                  int(part_cut), int(max_delay))
+                  int(part_cut), int(max_delay),
+                  None if flags is None else flags.data_ptr())
     delivery.launches += 1
     return out
 
 
 delivery.launches = 0
+
+
+# --- KAH: the SPEC §6c crash transition ----------------------------------------
+
+# The bits of the per-node flag word KAH writes: down at the round's end
+# (the new mask, applied in the same round), recovered this round, crashed
+# this round. A node may recover and crash again in one round: both bits.
+CRASH_DOWN, CRASH_REC, CRASH_NEW = 1, 2, 4
+
+
+def crash_counts_plain(crashed, rec, down) -> torch.Tensor:
+    """The port's copy of K13 ``crash_counts`` (``consensus_tpu/ops/
+    adversary.py:143-152``): the :data:`CRASH_TELEMETRY` tail of each lane,
+    (crashes, recoveries, nodes_down), [B, 3] int32."""
+    return torch.stack([m.sum(1, dtype=torch.int32)
+                        for m in (crashed, rec, down)], 1)
+
+
+def crash_transition_plain(seed, r: int, down, crash_cut: int,
+                           recover_cut: int, max_crashed: int, t=None,
+                           w=None, col: int = 0, window: int = 0):
+    """Plain version of KAH: the port's copy of K13 ``crash_transition``
+    (``consensus_tpu/ops/adversary.py:101-130``) on each lane of ``seed``
+    ([B] uint32) and ``down`` ([B, N] bool). A down node recovers where its
+    draw (STREAM_CRASH, round r, c0 = 1, node) is below ``recover_cut``; a
+    node up after the recoveries crashes where its draw with c0 = 0 is
+    below ``crash_cut``; with ``max_crashed > 0`` only the would-be
+    crashers whose ascending-id rank, added to the count still down, stays
+    within ``max_crashed`` crash. Returns ``(down', flags)``: the new [B,
+    N] bool mask and the [B, N] uint8 flag word (CRASH_DOWN, CRASH_REC,
+    CRASH_NEW). With the run's counter totals ``t`` ([B, K] int32), adds
+    :func:`crash_counts_plain` into columns ``col .. col + 2`` of it and,
+    with the window ring ``w``, into window ``window`` of ``w``, in
+    place."""
+    N = down.shape[1]
+    idx = torch.arange(N, dtype=torch.int32, device=down.device)
+    rec = down & (rng.random_u32_plain(seed, rng.STREAM_CRASH, r, 1, idx)
+                  < recover_cut)
+    still = down & ~rec
+    crashed = ~still & (rng.random_u32_plain(seed, rng.STREAM_CRASH, r, 0,
+                                             idx) < crash_cut)
+    if max_crashed > 0:
+        base = still.sum(1, keepdim=True, dtype=torch.int64)
+        rank = crashed.to(torch.int64).cumsum(1)
+        crashed = crashed & (base + rank <= max_crashed)
+    new = still | crashed
+    flags = (new.to(torch.uint8) * CRASH_DOWN + rec.to(torch.uint8)
+             * CRASH_REC + crashed.to(torch.uint8) * CRASH_NEW)
+    if t is not None:
+        counts = crash_counts_plain(crashed, rec, new)
+        t[:, col:col + 3] += counts
+        if w is not None:
+            w[:, window, col:col + 3] += counts
+    return new, flags
+
+
+def crash_transition(seed, r: int, down, crash_cut: int, recover_cut: int,
+                     max_crashed: int, t=None, w=None, col: int = 0,
+                     window: int = 0):
+    """Kernel KAH: same arguments, in-place additions and result as
+    :func:`crash_transition_plain`, which it runs for CPU tensors; for CUDA
+    tensors it launches ``csrc/crash_transition.cu`` (a thread per node;
+    with ``max_crashed > 0`` two launches over tiles of 1 024 nodes: the
+    tiles' counts, then each tile's block scan ranks its would-be crashers
+    in ascending id order on top of the tiles before it)."""
+    if down.device.type == "cpu":
+        return crash_transition_plain(seed, r, down, crash_cut, recover_cut,
+                                      max_crashed, t, w, col, window)
+    from .. import _build
+    B, N = down.shape
+    _build.check(seed, torch.uint32, down.device, (B,))
+    _build.check(down, torch.bool, down.device, (B, N))
+    K = 0
+    if t is not None:
+        K = t.shape[1]
+        _build.check(t, torch.int32, down.device, (B, K))
+        if not 0 <= col <= K - 3:
+            raise ValueError(f"crash tail at column {col} of {K}")
+        if w is not None:
+            _build.check(w, torch.int32, down.device, (B, w.shape[1], K))
+            if not 0 <= window < w.shape[1]:
+                raise ValueError(f"window {window} of {w.shape[1]}")
+    new = torch.empty_like(down)
+    flags = torch.empty((B, N), dtype=torch.uint8, device=down.device)
+    tiles = torch.empty((B, 2, -(-N // 1024)), dtype=torch.int32,
+                        device=down.device) if max_crashed > 0 else None
+    _build.launch("crash_transition", seed.data_ptr(), int(r) & 0xFFFFFFFF,
+                  down.data_ptr(), new.data_ptr(), flags.data_ptr(),
+                  int(crash_cut), int(recover_cut), int(max_crashed),
+                  None if t is None else t.data_ptr(),
+                  None if w is None else w.data_ptr(),
+                  None if tiles is None else tiles.data_ptr(), B, N, K,
+                  int(col), int(window), 0 if w is None else w.shape[1])
+    crash_transition.launches += 1
+    return new, flags
+
+
+crash_transition.launches = 0
+
+
+def crash_step(cfg, seed, r: int, down, names, telem=None, flight=None):
+    """The round's KAH launch as an engine calls it: ``cfg``'s cutoffs and
+    cap, the crash tail at ``names.index("crashes")`` of the engine's
+    counter names, with the totals ``telem`` and the recorder ``flight``
+    (window ring, latency buckets) where given."""
+    w = None if flight is None else flight[0]
+    window = 0 if w is None else r // cfg.telemetry_window
+    return crash_transition(seed, r, down, cfg.crash_cutoff,
+                            cfg.recover_cutoff, cfg.max_crashed, telem, w,
+                            names.index("crashes"), window)
+
+
+# --- KAI: the SPEC §6c freeze of the PBFT engines --------------------------------
+
+# The most leaves one freeze_down launch restores.
+MAX_FROZEN = 8
+
+
+def freeze_down_plain(flags, leaves) -> None:
+    """Plain version of KAI, the port's K13 ``freeze_down``
+    (``consensus_tpu/ops/adversary.py:133-140``): for each ``(dst, src,
+    reset)`` of ``leaves``
+    ([B, N, ...] tensors, ``dst`` and ``src`` of one shape and dtype), the
+    rows of the nodes down at the round's end (``flags & CRASH_DOWN``)
+    take ``src``'s, or 0 where ``reset`` and the node recovered this round
+    (its volatile reset), in place: ``where(down, frozen, new)`` with the
+    frozen leaves read off the round's input state."""
+    down = (flags & CRASH_DOWN) != 0
+    rec = (flags & CRASH_REC) != 0
+    for dst, src, reset in leaves:
+        shape = down.shape + (1,) * (dst.dim() - 2)
+        val = torch.where(rec.reshape(shape), torch.zeros_like(src), src) \
+            if reset else src
+        dst.copy_(torch.where(down.reshape(shape), val, dst))
+
+
+def freeze_down(flags, leaves) -> None:
+    """Kernel KAI: same arguments and in-place update as
+    :func:`freeze_down_plain`, which it runs for CPU tensors; for CUDA
+    tensors it launches ``csrc/freeze_down.cu`` (a thread per 16, 8, 4 or
+    1 bytes of each leaf's rows; a down node's threads copy its rows)."""
+    if flags.device.type == "cpu":
+        return freeze_down_plain(flags, leaves)
+    from .. import _build
+    B, N = flags.shape
+    if not 1 <= len(leaves) <= MAX_FROZEN:
+        raise ValueError(f"freeze_down takes 1 to {MAX_FROZEN} leaves")
+    _build.check(flags, torch.uint8, flags.device, (B, N))
+    ptrs, sizes, resets = [], [], 0
+    for k, (dst, src, reset) in enumerate(leaves):
+        _build.check(dst, dst.dtype, flags.device)
+        _build.check(src, dst.dtype, flags.device, tuple(dst.shape))
+        if tuple(dst.shape[:2]) != (B, N):
+            raise ValueError("a frozen leaf is [B, N, ...]")
+        ptrs += [dst.data_ptr(), src.data_ptr()]
+        sizes.append(dst[0, 0].numel() * dst.element_size())
+        resets |= int(bool(reset)) << k
+    pad = MAX_FROZEN - len(leaves)
+    _build.launch("freeze_down", flags.data_ptr(), *ptrs, *([None] * 2 * pad),
+                  *sizes, *([0] * pad), resets, B, N)
+    freeze_down.launches += 1
+
+
+freeze_down.launches = 0

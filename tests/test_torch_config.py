@@ -3,9 +3,12 @@
 Every knob of the JAX package's Config that the port does not implement yet
 raises when set off its default, on the dense engine as on the capped one
 and on the Paxos and DPoS engines, alone and beside a SPEC §A.2 delay
-(which the port runs, in [0, 16]); telemetry on a PBFT f-ladder raises (as
-the JAX package's ladder has none), and the entry points raise without a
-GPU unless the caller asks for the CPU.
+(which the port runs, in [0, 16]) or a SPEC §6c crash (which the port runs
+on every engine but HotStuff, whose gate still raises, and but an
+f-ladder, which raises with the JAX package's message); an out-of-range
+``max_crashed`` raises with the JAX package's message; telemetry on a PBFT
+f-ladder raises (as the JAX package's ladder has none), and the entry
+points raise without a GPU unless the caller asks for the CPU.
 """
 import dataclasses
 
@@ -21,7 +24,6 @@ from consensus_tpu_torch.network import runner, simulator  # noqa: E402
 OK = dict(protocol="raft", n_nodes=9, n_rounds=4, max_active=2)
 
 OFF_DEFAULT = {
-    "crash_prob": 0.1, "recover_prob": 0.1, "max_crashed": 1,
     "attack": "elect", "attack_rate": 0.5,
     "attack_target": 1, "net_model": "switch", "n_aggregators": 2,
     "n_byzantine": 1, "byz_mode": "equivocate", "desync_rate": 0.1,
@@ -205,6 +207,72 @@ def test_hotstuff_gates_raise_beside_a_delay(gate):
     with pytest.raises(ValueError, match="not supported by the port"):
         Config(**{**HOTSTUFF_OK, "max_delay_rounds": 8,
                   **HOTSTUFF_GATES[gate]})
+
+
+# --- SPEC §6c crash-recover --------------------------------------------------
+
+CRASH = dict(crash_prob=0.15, recover_prob=0.3)
+# The six engines that run §6c, each at a small shape.
+CRASH_ENGINES = {
+    "raft-capped": OK, "raft-dense": {**OK, "max_active": 0},
+    "pbft": PBFT_OK, "pbft-bcast": {**PBFT_OK, "fault_model": "bcast"},
+    "paxos": dict(protocol="paxos", n_nodes=7, n_rounds=4, log_capacity=30),
+    "dpos": dict(protocol="dpos", n_nodes=50, n_rounds=30, log_capacity=8),
+}
+
+
+@pytest.mark.parametrize("knob", sorted(tconfig.CRASH_KNOBS))
+@pytest.mark.parametrize("engine", list(CRASH_ENGINES))
+def test_crash_knobs_are_accepted_on_six_engines(engine, knob):
+    value = {"crash_prob": 0.15, "recover_prob": 0.3, "max_crashed": 2}[knob]
+    cfg = Config(**{**CRASH_ENGINES[engine], knob: value})
+    assert cfg.crash_on == (knob == "crash_prob")
+
+
+@pytest.mark.parametrize("ladder", ["dense", "bcast"])
+def test_crash_on_a_ladder_raises_with_the_jax_message(ladder):
+    """Both f-ladders raise at crash_prob > 0 with the JAX package's
+    message (consensus_tpu/engines/pbft_sweep.py:604-610); recover_prob
+    and max_crashed alone do not make a crash."""
+    from consensus_tpu import Config as JConfig
+    from consensus_tpu.engines import pbft_sweep as jsweep
+    from consensus_tpu_torch.engines import pbft_sweep
+    kw = dict(protocol="pbft", f=1, n_nodes=4, n_rounds=4, log_capacity=8,
+              fault_model="edge" if ladder == "dense" else "bcast")
+    with pytest.raises(ValueError) as want:
+        jsweep.pbft_fsweep_run(JConfig(**kw, **CRASH), [1, 2])
+    with pytest.raises(ValueError) as got:
+        pbft_sweep.pbft_fsweep_run(Config(**kw, **CRASH), [1, 2],
+                                   device="cpu")
+    assert str(got.value) == str(want.value)
+    pbft_sweep.pbft_fsweep_run(Config(**kw, recover_prob=0.5, max_crashed=2),
+                               [1, 2], device="cpu")
+
+
+@pytest.mark.parametrize("at", ["-1", "n+1"])
+@pytest.mark.parametrize("engine", list(CRASH_ENGINES))
+def test_max_crashed_out_of_range_raises_with_the_jax_message(engine, at):
+    from consensus_tpu import Config as JConfig
+    kw = CRASH_ENGINES[engine]
+    bad = {**kw, **CRASH,
+           "max_crashed": -1 if at == "-1" else kw["n_nodes"] + 1}
+    with pytest.raises(ValueError) as want:
+        JConfig(**bad)
+    with pytest.raises(ValueError) as got:
+        Config(**bad)
+    assert str(got.value) == str(want.value)
+    Config(**{**bad, "max_crashed": kw["n_nodes"]})
+
+
+@pytest.mark.parametrize("knob", sorted(OFF_DEFAULT))
+@pytest.mark.parametrize("engine", list(CRASH_ENGINES))
+def test_unsupported_knob_raises_beside_a_crash(engine, knob):
+    """A crash, which the port runs on these engines, lets no other gate
+    through."""
+    kw = {**CRASH_ENGINES[engine], **CRASH, "max_crashed": 2}
+    Config(**kw)
+    with pytest.raises(ValueError, match=knob):
+        Config(**{**kw, knob: OFF_DEFAULT[knob]})
 
 
 def test_knobs_of_other_protocols_are_not_fields():
