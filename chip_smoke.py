@@ -222,6 +222,35 @@ Phases, each printing one JSON line:
                dpos-100k with telemetry and 8-round windows against
                JAX-made counter (crash tail included) and recorder
                anchors, replay against eager loop.
+17. desync   — SPEC §B view desync on dense and §6b PBFT, both ladders and
+               HotStuff, and SPEC §6c on HotStuff. Every kernel call of
+               rounds 3 and 20 of hotstuff-100k, pbft-f128 and
+               pbft-100k-bcast under view-desync-storm's overrides
+               (desync 0.15, depth 4, drop 0.25, view timeout 4),
+               hotstuff-100k under phase 16's capped and uncapped crash
+               and "composed" (the crash, the desync and D = 2), and
+               pbft-f128 composed (the crash and the desync), with
+               telemetry and 8-round windows on three of them; KQ on the
+               desync fs = 1..128 ladder's rounds and KT on the desync
+               full-width ladder's; every call of a round from built
+               HotStuff states at N = 13 and 100 000 (the highest view
+               down, every node down, a recovered node tied at view 0,
+               down nodes skewed one short of the timeout): each against
+               its plain version, exact (KAJ ``csrc/hotstuff_prologue.cu``;
+               the DESYNC instances of KQ and KT; the CRASH instances of
+               KAD-KAF; the skew ``ctt::desync_skew`` through their
+               timers). KAJ's and each instance's time on round 20, its
+               plain version's and its bound, each instance also through
+               its flat instance on the same inputs. Then ``simulator.run``
+               of those seven runs and ``pbft_fsweep_timed`` of both
+               ladders under the desync, each replayed as one CUDA graph:
+               JAX-made anchors (the C++ oracle agrees on the standalone
+               ones; HotStuff's final views too) from the replay and the
+               eager loop, the path's kernels launched and no other
+               (counted from 0), node-round-steps per second, replay wall,
+               busy share and device operations a round; and three runs
+               with telemetry and 8-round windows against JAX-made
+               counter and recorder anchors.
 
 Then the card's name and power limit, one ``{"kernels": [...]}`` line, and
 last ``{"ok": true, "device": {...}}``. The kernels line takes each
@@ -230,9 +259,10 @@ raft-100k's, KK from raft-100k's with telemetry, KL-KO from raft-1kx1k's,
 KP from raft-1kx1k's with telemetry, KQ-KS from the dense ladder's, KT-KV
 from pbft-100k-bcast's, KW-KX from dpos-100k's, KY-KZ from
 paxos-10kx10k's, KAA, KAB and KAC from pbft-100k-bcast's, dpos-100k's and
-paxos-10kx10k's with telemetry, KAD-KAG from hotstuff-100k's, and KAH and
-KAI from raft-100k's and pbft-100k-bcast's uncapped crash runs; the other
-runs' counts are in their phases' lines. Any
+paxos-10kx10k's with telemetry, KAD-KAG from hotstuff-100k's, KAH and
+KAI from raft-100k's and pbft-100k-bcast's uncapped crash runs, and KAJ
+from hotstuff-100k's composed run; the other runs' counts are in their
+phases' lines. Any
 failure, or no GPU, exits non-zero without that last line.
 """
 from __future__ import annotations
@@ -1333,12 +1363,14 @@ def check_dense_kernels(dev, gen) -> list[dict]:
 
 PBFT = ("pbft_view_preprepare", "pbft_tally", "pbft_decide")
 # The kernels that no flat run of the capped engine launches (KAH runs only
-# under SPEC §6c, KAI only in a PBFT round under it).
+# under SPEC §6c, KAI only in a PBFT round under it, KAJ only in a HotStuff
+# round under §6c or §B).
 NOT_CAPPED = DENSE + ("dense_telemetry",) + PBFT + (
     "bcast_view_preprepare", "bcast_tally", "bcast_decide", "dpos_schedule",
     "dpos_round", "paxos_promise", "paxos_accept_learn", "pbft_telemetry",
     "dpos_telemetry", "paxos_telemetry", "hotstuff_propose", "hotstuff_vote",
-    "hotstuff_learn", "hotstuff_extract", "crash_transition", "freeze_down")
+    "hotstuff_learn", "hotstuff_extract", "crash_transition", "freeze_down",
+    "hotstuff_prologue")
 PBFT_REPLACES = {
     "pbft_view_preprepare": "consensus_tpu/engines/pbft.py:209 pbft_round "
                             "P0-P3, consensus_tpu/engines/pbft.py:72 "
@@ -2840,7 +2872,8 @@ def hotstuff_bound(name: str, args) -> tuple[float, str]:
     if name == "hotstuff_propose":
         view, lane = args[3], args[5]
         b, n = view.shape
-        behind = int((view < (lane[:, hotstuff.TOP] >> 32)[:, None]).sum())
+        word = hotstuff.KEY if hotstuff.gated(cfg) else hotstuff.TOP
+        behind = int((view < (lane[:, word] >> 32)[:, None]).sum())
         return bound(9 * b * n + 72 * b,
                      EDGE_OPS * behind + THREEFRY_OPS * (3 * b + part * n))
     view1, lane = args[3], args[4]
@@ -4210,8 +4243,7 @@ def flat_work(name: str, args) -> tuple[float, float]:
           **dict.fromkeys(DPOS, dpos_bound),
           **dict.fromkeys(PAXOS, paxos_bound),
           **dict.fromkeys(TELEMETRY, telemetry_bound),
-          "hotstuff_propose": hotstuff_bound,
-          "hotstuff_vote": hotstuff_bound}[name]
+          **dict.fromkeys(HOTSTUFF, hotstuff_bound)}[name]
     saved = bound
     bound = lambda nbytes, ops: (nbytes, ops)   # noqa: E731
     try:
@@ -4850,6 +4882,495 @@ def check_crash_runs(card: str, smi: str) -> dict[str, int]:
             "freeze_down": own["pbft-100k-bcast"]["freeze_down"]}
 
 
+# --- phase 17: SPEC §B view desync, and SPEC §6c on HotStuff -----------------
+
+# consensus_tpu/scenarios/__init__.py view-desync-storm's overrides (lines
+# 198-199). At hotstuff-100k no QC forms under them: of the 66 667 votes a
+# QC needs, about 0.75 x 0.75 x 100 000 reach the leader, so its decided
+# logs stay empty, and the views (VIEWS_SHA256) and the telemetry tell its
+# runs apart.
+DESYNC = dict(desync_rate=0.15, max_skew_rounds=4, drop_rate=0.25,
+              view_timeout=4)
+DESYNC_FLAGSHIPS = {
+    "hotstuff-100k": lambda **kw: protocol_config(HOTSTUFF_FLAGSHIP, **kw),
+    "pbft-f128": lambda **kw: pbft_config(128, **kw),
+    "pbft-100k-bcast": bcast_config,
+}
+# Phase 17's runs, "<flagship>/<setting>": (overrides, anchor). "capped"
+# and "uncapped" are phase 16's CHURN_PARTITION and CRASH; "composed" is
+# CRASH with the desync (and, on HotStuff, max_delay_rounds = 2). The
+# anchors were made by the JAX package on the CPU and again by the C++
+# oracle (engine="cpu"), which agrees on each:
+#
+#   JAX_PLATFORMS=cpu python3 - <<'EOF'
+#   import dataclasses, chip_smoke
+#   from consensus_tpu import Config
+#   from consensus_tpu.network import simulator
+#   for key in chip_smoke.DESYNC_RUNS:
+#       cfg = Config(**dataclasses.asdict(chip_smoke.desync_config(key)))
+#       print(key, simulator.run(cfg, warmup=False).digest,
+#             simulator.run(dataclasses.replace(cfg, engine="cpu"),
+#                           warmup=False).digest)
+#   EOF
+#
+# (the JAX runs took 2.4-197 s each on eight cores: pbft-100k-bcast 197 s;
+# nothing cut).
+DESYNC_RUNS = {
+    "hotstuff-100k/desync": (
+        DESYNC,
+        "f378cec60161f4cc24d5473db85cd828519ebcb5254674eeae90ffd110d00168"),
+    "hotstuff-100k/capped": (
+        CHURN_PARTITION,
+        "1547fd3b473112a9c88fa05f0c19d5d14b54ee7ffdb2706ec83a241e33d5ef61"),
+    "hotstuff-100k/uncapped": (
+        CRASH,
+        "37a8478797a5551cbe5900f9ccfacf4d41a1be8872503db8f7b665131ec3c6db"),
+    "hotstuff-100k/composed": (
+        dict(CRASH, **DESYNC, max_delay_rounds=2),
+        "f378cec60161f4cc24d5473db85cd828519ebcb5254674eeae90ffd110d00168"),
+    "pbft-f128/desync": (
+        DESYNC,
+        "984447806eeb5e0eb3a84b7edd4935f7061abeb23546649d5f546b83c20c51e5"),
+    "pbft-f128/composed": (
+        dict(CRASH, **DESYNC),
+        "0a46d25f9e81c962756c47a1010f211591a73d98df51ce1d1cbc516753bce527"),
+    "pbft-100k-bcast/desync": (
+        DESYNC,
+        "370b7aef4e5a66b62a1327abc37f5b07a3591fb7893c34481be4625a8908932e"),
+}
+# SHA-256 of the HotStuff runs' final views (the extract's "view", [B, N]
+# little-endian int32), made by the JAX package with the anchors above
+# (consensus_tpu.network.runner.run of the same configs).
+VIEWS_SHA256 = {
+    "hotstuff-100k/desync":
+        "2a4762252ef21df66b6d0dac54b9d98f3b6d7b47974a089fa4c83d4a65d80775",
+    "hotstuff-100k/capped":
+        "56b4c4ca10bcd1ca64c87034602e8c3ee15c3e8b213cd9a6afe05609494bd57c",
+    "hotstuff-100k/uncapped":
+        "580edfa4b7767c70090cd09dcadeb8c33d1cb99dfe7853846e3ad9b1b482d5d8",
+    "hotstuff-100k/composed":
+        "2a810c707659d7b9ddf68369cfe29890b24c71619e81ab569b72b7d287284d1f"}
+# The two ladders with DESYNC added to their knobs, (base config, rungs,
+# anchor), made by the JAX package as the bcast ladders' anchors above
+# (pbft_sweep.pbft_fsweep_run; 54 s and 69 s).
+DESYNC_LADDERS = {
+    "dense-ladder": (
+        lambda: pbft_config(1, **DESYNC), LADDER,
+        "5e98d4d4e8a7bcd2e010fe2d7f85f7f7016139c66912fde105dcb68af0e1d83a"),
+    "wide-bcast-ladder": (
+        lambda: wide_base(**DESYNC), WIDE_RUNGS,
+        "606082b0d8b16fdf25d0c5783664ef358e2211b477b0c16e8859695ffc710545"),
+}
+# Runs again with telemetry and 8-round windows: (nonzero counter totals,
+# flight_digest), made by the JAX package on the CPU as BFT_TELEMETRY's
+# were.
+DESYNC_TELEMETRY = {
+    "hotstuff-100k/desync": (
+        {"view_changes": 2414158, "proposals_delivered": 29003540,
+         "votes_counted": 21751758, "view_spread_max": 1762,
+         "desync_rounds": 512, "sync_msgs_delivered": 37087958},
+        "3812a09cc5acf999dba7911ed9c7b0b3d01e05aa7ffc8e72478678e80df651d3"),
+    "hotstuff-100k/uncapped": (
+        {"qc_formed": 15, "blocks_committed": 2, "commits_learned": 200000,
+         "view_changes": 30580, "proposals_delivered": 20983867,
+         "votes_counted": 20774425, "crashes": 5763223,
+         "recoveries": 5465584, "nodes_down": 18524432,
+         "view_spread_max": 1027, "desync_rounds": 362,
+         "sync_msgs_delivered": 4851239},
+        "5295b8bc95b33feffaea87b42232694019874f1e837e1f8fa0954942c891652a"),
+    "pbft-100k-bcast/desync": (
+        {"prepare_quorums": 11925370, "prepare_missed": 66625317,
+         "commit_quorums": 11925370, "commits_adopted": 874630,
+         "view_changes": 12479144, "view_spread_max": 2609,
+         "desync_rounds": 512, "sync_msgs_delivered": 5656890},
+        "c39a4e24d0a75e5d7eaf475a98ac5b1aeba5ee7b8dc49432d7dfee47b6bcf87d"),
+}
+# The rounds phase 17 holds every kernel call of against its plain version.
+DESYNC_ROUNDS = (3, 20)
+# The kernel this slice adds, and the kernels with a DESYNC or (HotStuff) a
+# CRASH instance this slice adds; each instance is picked by the Config
+# (KQ, KT) or by the round's flag word (KAD, KAE: their last positional
+# argument; KAF: its ``crash`` triple).
+DESYNC_OWN = ("hotstuff_prologue",)
+DESYNC_INSTANCES = ("pbft_view_preprepare", "bcast_view_preprepare",
+                    "hotstuff_propose", "hotstuff_vote", "hotstuff_learn")
+DESYNC_REPLACES = {
+    "hotstuff_prologue": "consensus_tpu/engines/hotstuff.py:207 "
+                         "hotstuff_round §6c/§B prologue and P1's key, "
+                         "consensus_tpu/ops/viewsync.py:40 desync_skew"}
+# The kernel of each instance timed, with the run and round it is timed on.
+DESYNC_TIMED = {"pbft_view_preprepare": "pbft-f128/desync",
+                "bcast_view_preprepare": "pbft-100k-bcast/desync",
+                "hotstuff_prologue": "hotstuff-100k/composed",
+                "hotstuff_propose": "hotstuff-100k/uncapped",
+                "hotstuff_vote": "hotstuff-100k/uncapped",
+                "hotstuff_learn": "hotstuff-100k/uncapped"}
+
+
+def desync_config(key: str, **kw):
+    """Phase 17's run ``key`` ("<flagship>/<setting>"), changed by ``kw``."""
+    name = key.split("/")[0]
+    return DESYNC_FLAGSHIPS[name](**DESYNC_RUNS[key][0], **kw)
+
+
+def desync_path(cfg, telemetry: bool = False) -> tuple[str, ...]:
+    """The kernels a run of ``cfg`` launches: its engine's path (with
+    telemetry, its telemetry path), KAH and (PBFT) KAI with a crash, and
+    KAJ on a gated HotStuff run."""
+    from consensus_tpu_torch.engines import hotstuff
+    from consensus_tpu_torch.network import runner
+    eng = runner.engine(cfg).name
+    if cfg.crash_on:
+        base = crash_path(eng, telemetry)
+    else:
+        base = TELEMETRY_PATHS[eng] if telemetry else path_kernels(eng)
+    if eng == "hotstuff" and hotstuff.gated(cfg):
+        base = base + DESYNC_OWN
+    return base
+
+
+def views_sha256(view) -> str:
+    return hashlib.sha256(np.ascontiguousarray(
+        view, dtype="<i4").tobytes()).hexdigest()
+
+
+def desync_flat(name: str, args):
+    """``args`` of kernel ``name`` with its DESYNC or CRASH instance turned
+    off: the Config's desync (KQ, KT), the flag word (KAD, KAE) or the
+    crash triple (KAF)."""
+    if name in ("pbft_view_preprepare", "bcast_view_preprepare"):
+        return (dataclasses.replace(args[0], desync_rate=0.0,
+                                    max_skew_rounds=1), *args[1:])
+    return (*args[:-1], None)
+
+
+def skew_draws(cfg, seed, r: int, n: int) -> int:
+    """The Threefry draws ctt::desync_skew makes for the [B] ``seed`` lanes
+    of ``n`` nodes in round ``r``: each node's activation draw, and its
+    depth draw where that fires; none without a desync."""
+    from consensus_tpu_torch.ops import viewsync
+    if not cfg.desync_on:
+        return 0
+    ids = torch.arange(n, dtype=torch.int64, device=seed.device)
+    fired = int((viewsync.desync_skew_plain(
+        seed, r, ids, cfg.desync_cutoff, cfg.max_skew_rounds) > 0).sum())
+    return seed.shape[0] * n + fired
+
+
+def prologue_bound(args) -> tuple[float, str]:
+    """KAJ's least time on ``args``: each node's view and timer read and
+    written once, its flag byte where a crash is on, and the skew's draws
+    (:func:`skew_draws`)."""
+    cfg, seed, r, view = args[:4]
+    flags = args[6] if len(args) > 6 else None
+    b, n = view.shape
+    nbytes = 16 * b * n + 16 * b + (0 if flags is None else b * n)
+    return bound(nbytes, THREEFRY_OPS * skew_draws(cfg, seed, r, n)
+                 + 8 * b * n)
+
+
+def desync_kernel_bound(name: str, args) -> tuple[float, str]:
+    """The least time of kernel ``name``'s work on a gated round's
+    ``args``: KAJ's own (:func:`prologue_bound`); for KQ and KT their flat
+    bound plus the skew's draws; for KAD-KAF their flat bound plus one
+    flag byte a node where the CRASH instance reads the flags (KAF: and
+    the input view and timer of the down nodes)."""
+    from consensus_tpu_torch.ops import adversary
+    if name == "hotstuff_prologue":
+        return prologue_bound(args)
+    flat = desync_flat(name, args)
+    nbytes, ops = flat_work(name, flat[:12] if name ==
+                            "bcast_view_preprepare" else flat)
+    cfg = args[0]
+    if name in ("pbft_view_preprepare", "bcast_view_preprepare"):
+        view = args[6 if name == "pbft_view_preprepare" else 5]
+        ops += THREEFRY_OPS * skew_draws(cfg, args[1], args[2],
+                                         view.shape[1])
+    crash = args[-1]
+    if isinstance(crash, tuple):
+        flags = crash[0]
+        dn = int(((flags & adversary.CRASH_DOWN) != 0).sum())
+        nbytes += flags.numel() + 8 * dn
+    elif isinstance(crash, torch.Tensor):
+        nbytes += crash.numel()
+    return bound(nbytes, ops)
+
+
+def calls_from(cfg, st, r: int, telemetry: bool, device="cuda"):
+    """{wrapper: [arguments]}: every kernel call of round ``r`` of ``cfg``
+    from state ``st`` on ``device`` (fresh accumulators where asked)."""
+    from consensus_tpu_torch.network import runner
+    eng = runner.engine(cfg)
+    telem, flight = (runner.accumulators(cfg, device) if telemetry
+                     else (None, None))
+    acc = {} if telem is None else dict(telem=telem, flight=flight)
+    got: dict = {}
+    with recording_everywhere(got):
+        eng.round(cfg, st, r, **acc)
+    return got
+
+
+def hotstuff_gate_states(dev) -> list:
+    """(cfg, state, round) of HotStuff states built around their round's
+    crash transition (KAH's plain version on the state's seeds and down
+    mask), at N = 13 (B = 6) and at hotstuff-100k's width (B = 8): a node
+    down at the round's end holds the unique highest view; every node is
+    down (crash 1.0, recover 0: no gossip); a recovered node had the
+    highest view and ties the live nodes at view 0 after its reset; down
+    nodes skewed with their timers one short of the timeout (desync 0.9),
+    so that their frozen timers must drop the skew. tests/
+    test_torch_crash.py holds the same cases to the JAX package."""
+    from consensus_tpu_torch import convert
+    from consensus_tpu_torch.engines import hotstuff
+    from consensus_tpu_torch.ops import adversary
+    gen = np.random.default_rng(17)
+    out = []
+    cases = {"top-down": dict(crash_prob=0.3, recover_prob=0.5),
+             "all-down": dict(crash_prob=1.0, recover_prob=0.0),
+             "rec-tie": dict(crash_prob=0.3, recover_prob=0.5),
+             "skewed-down": dict(crash_prob=0.3, recover_prob=0.5,
+                                 desync_rate=0.9, max_skew_rounds=4)}
+    for f, b, s in ((4, 6, 16), (33_333, B, 64)):
+        n = 3 * f + 1
+        for case, kw in cases.items():
+            cfg = protocol_config(HOTSTUFF_FLAGSHIP, f=f, n_nodes=n,
+                                  n_sweeps=b, log_capacity=s, view_timeout=4,
+                                  **kw)
+            r = 11
+            seeds = np.arange(90, 90 + b, dtype=np.uint32)
+            down = gen.random((b, n)) < 0.4
+            _, flags = adversary.crash_transition_plain(
+                torch.from_numpy(seeds), r, torch.from_numpy(down),
+                cfg.crash_cutoff, cfg.recover_cutoff, cfg.max_crashed)
+            fl = flags.numpy()
+            now_down = (fl & adversary.CRASH_DOWN) != 0
+            rec = (fl & adversary.CRASH_REC) != 0
+            view = gen.integers(2, 9, (b, n)).astype(np.int32)
+            timer = gen.integers(0, 3, (b, n)).astype(np.int32)
+            for k in range(b):
+                if case == "top-down" and now_down[k].any():
+                    view[k, np.flatnonzero(now_down[k])[-1]] = 40
+                if case == "rec-tie" and rec[k].any():
+                    view[k] = np.where(now_down[k], view[k], 0)
+                    view[k, np.flatnonzero(rec[k])[-1]] = 40
+                if case == "skewed-down":
+                    timer[k] = np.where(now_down[k], 3, timer[k])
+            leaves = {
+                "seed": seeds, "b1_v": np.full(b, 3, np.int32),
+                "b1_h": np.full(b, 2, np.int32),
+                "b2_v": np.full(b, 2, np.int32),
+                "b2_h": np.full(b, 1, np.int32),
+                "b3_v": np.full(b, 1, np.int32),
+                "b3_h": np.zeros(b, np.int32),
+                "gcommit": np.ones(b, np.int32),
+                "chain_v": np.where(np.arange(s) < 3, np.arange(s) + 1, -1)
+                .astype(np.int32)[None].repeat(b, 0),
+                "chain_vid": np.zeros((b, s), np.int32),
+                "fvec": np.zeros((b, n), np.int32),
+                "ftab_v": np.full((b, hotstuff.FORK_TABLE), -1, np.int32),
+                "ftab_h": np.full((b, hotstuff.FORK_TABLE), -1, np.int32),
+                "fnum": np.zeros(b, np.int32), "view": view, "timer": timer,
+                "clen": gen.integers(0, 2, (b, n)).astype(np.int32),
+                "down": down}
+            out.append((cfg, convert.state_from_numpy(leaves, dev), r))
+    return out
+
+
+def check_desync_kernels(dev):
+    """Phase 17's kernel rows. Every kernel call of rounds 3 and 20 of each
+    run DESYNC_RUNS (with telemetry and 8-round windows where
+    DESYNC_TELEMETRY has the run), of KQ on the desync fs = 1..128
+    ladder's rounds and of KT on the desync full-width ladder's, and every
+    call of one round from each built state (:func:`hotstuff_gate_states`,
+    with telemetry and the recorder), against the plain versions (the
+    skew, ctt::desync_skew, is held through KQ's, KT's and KAJ's timers).
+    Then KAJ's and each instance's time on round 20 of its DESYNC_TIMED
+    run, its plain version's and its bound, and each instance's time
+    through its flat instance on the same inputs. Yields KAJ's row (with
+    the phase-3 keys) and one row an instance."""
+    from consensus_tpu_torch.engines import pbft_sweep
+    errs = {name: 0.0 for name in DESYNC_OWN + DESYNC_INSTANCES}
+    cases = dict.fromkeys(errs, 0)
+    timed = {}
+
+    def hold(calls, where):
+        for name, arg_list in calls.items():
+            for args in arg_list:
+                e = max_abs_err(run_pair(name, args))
+                require(e == 0.0, f"{name} on {where} disagrees with its "
+                        "plain version")
+                if name in errs:
+                    errs[name] = max(errs[name], e)
+                    cases[name] += 1
+    for key in DESYNC_RUNS:
+        telemetry = key in DESYNC_TELEMETRY
+        cfg = desync_config(key, **(dict(telemetry_window=WINDOW)
+                                    if telemetry else {}))
+        for r in DESYNC_ROUNDS:
+            calls = capture_round_calls(cfg, r, telemetry, dev)
+            hold(calls, f"{key} round {r}")
+            for name, run in DESYNC_TIMED.items():
+                if run == key and r == 20:
+                    timed[name] = max(calls[name], key=lambda a: sum(
+                        t.numel() for t in tensors_of(a)))
+    for name, (make, rungs, _) in DESYNC_LADDERS.items():
+        cfg_pad = pbft_sweep._fsweep_static(make(), rungs)[1]
+        wrapper = "pbft_view_preprepare" if cfg_pad.fault_model == "edge" \
+            else "bcast_view_preprepare"
+        got = capture_calls(cfg_pad, DESYNC_ROUNDS, wrapper, rungs, dev)
+        hold({wrapper: [a for calls in got.values() for a in calls]},
+             f"the desync {name}")
+    for cfg, st, r in hotstuff_gate_states(dev):
+        cfg = dataclasses.replace(cfg, telemetry_window=WINDOW,
+                                  n_rounds=16)
+        hold(calls_from(cfg, st, r, True, dev),
+             f"a built HotStuff state (N = {cfg.n_nodes})")
+    from consensus_tpu_torch.engines import hotstuff
+    for name in DESYNC_OWN + DESYNC_INSTANCES:
+        args = timed[name]
+        mod = kernel_module(name)
+        reps = reps_for(args)
+        row = dict(name=name, max_abs_err=errs[name], cases=cases[name],
+                   timed_on=f"{DESYNC_TIMED[name]} round 20",
+                   ms=graph_ms(getattr(mod, name), args, reps),
+                   plain_ms=event_ms(getattr(mod, name + "_plain"), args,
+                                     min(5, reps)),
+                   bound=desync_kernel_bound(name, args))
+        if name in DESYNC_OWN:
+            launches_on = DESYNC_TIMED[name].split("/")[0] + " composed"
+            row.update(route="cuda",
+                       source=f"consensus_tpu_torch/csrc/{name}.cu",
+                       replaces=DESYNC_REPLACES[name], library_ms=None,
+                       launches_from=launches_on)
+            # Its other instances on their own runs' round 20.
+            for other in ("hotstuff-100k/desync", "hotstuff-100k/uncapped"):
+                a = capture_round_calls(desync_config(other), 20, False,
+                                        dev)[name][0]
+                row[f"ms_{other.split('/')[1]}"] = graph_ms(
+                    hotstuff.hotstuff_prologue, a, reps)
+        else:
+            row["flat_instance_ms"] = graph_ms(
+                getattr(mod, name), desync_flat(name, args), reps)
+            row["flat_instance_bound"] = desync_kernel_bound(
+                name, desync_flat(name, args))
+        yield row
+
+
+def check_desync_runs(card: str, smi: str) -> dict[str, int]:
+    """Phase 17's runs: ``simulator.run`` of each run DESYNC_RUNS and
+    ``pbft_fsweep_timed`` of each ladder DESYNC_LADDERS, replayed as one
+    CUDA graph, with every launch count set to 0 just before each run and
+    read just after it: its anchor from the replay and from the eager
+    loop (HotStuff: its final views too, VIEWS_SHA256), its path's kernels
+    launched and no other (:func:`desync_path`); node-round-steps per
+    second, replay wall, busy share and device operations a round (KAJ's
+    share of the device time on HotStuff). Then DESYNC_TELEMETRY's runs
+    with telemetry and 8-round windows: counters and recorder equal to
+    their JAX anchors and to the eager loop's. Returns KAJ's launches in
+    hotstuff-100k's composed run."""
+    from consensus_tpu_torch.core import serialize
+    from consensus_tpu_torch.engines import pbft_sweep
+    from consensus_tpu_torch.network import runner, simulator
+    rows, own = {}, {}
+    for key, (_, digest) in DESYNC_RUNS.items():
+        cfg = desync_config(key)
+        memory, launches = counted(lambda: memory_use(
+            lambda: simulator.run(cfg)))
+        res = memory.pop("result")
+        replayed = runner.run(cfg)
+        eager = runner.run(cfg, graph=False)
+        eager_digest = serialize.digest(simulator.decided_payload(
+            cfg, eager)[3])
+        prof = replay_ops_per_round(cfg)
+        full = prof["full"]
+        rows[key] = row = dict(
+            digest=res.digest, digest_ok=res.digest == digest,
+            eager_digest=eager_digest, steps_per_sec=res.steps_per_sec,
+            wall_s=res.wall_s, launches=launches, **memory,
+            replay_wall_ms=full["replay_wall_ms"],
+            busy_share=full["busy_share"],
+            unprofiled_busy_share=full["unprofiled_busy_share"],
+            device_ms=full["device_ms"],
+            device_launches=full["device_launches"],
+            ops_per_round=prof["ops_per_round"],
+            hand_kernel_ms={k: v for k, v in full["hand_kernel_ms"].items()
+                            if v})
+        if key in VIEWS_SHA256:
+            row["views_sha256"] = views_sha256(replayed["view"])
+            row["eager_views_sha256"] = views_sha256(eager["view"])
+            row["prologue_share"] = full["hand_kernel_ms"][
+                "hotstuff_prologue"] / full["device_ms"]
+            require(row["views_sha256"] == VIEWS_SHA256[key]
+                    and row["eager_views_sha256"] == VIEWS_SHA256[key],
+                    f"{key}: views {row['views_sha256']} (replay), "
+                    f"{row['eager_views_sha256']} (eager)")
+        emit("desync_run", run=key, **row, card=card, power=smi)
+        require(res.digest == digest, f"{key} digest {res.digest} != "
+                f"{digest}")
+        require(eager_digest == digest,
+                f"{key}: the eager loop's digest {eager_digest}")
+        require_launched(launches, desync_path(cfg), key)
+        if key == "hotstuff-100k/composed":
+            own = launches
+        runner.clear_graphs()
+    for name, (make, rungs, digest) in DESYNC_LADDERS.items():
+        base = make()
+        memory, launches = counted(lambda: memory_use(
+            lambda: pbft_sweep.pbft_fsweep_timed(base, rungs, repeats=3)))
+        out, first_s, best, real_steps = memory.pop("result")
+        got = serialize.digest(pbft_sweep.fsweep_payload(out))
+        eager = serialize.digest(pbft_sweep.fsweep_payload(
+            pbft_sweep.pbft_fsweep_run(base, rungs, graph=False)))
+        cfg_pad = pbft_sweep._fsweep_static(base, rungs)[1]
+        prof = profile_replay(cfg_pad, rungs=rungs)
+        rows[name] = row = dict(
+            digest=got, digest_ok=got == digest, eager_digest=eager,
+            real_steps=real_steps, wall_s=best,
+            real_steps_per_sec=real_steps / best, first_run_s=first_s,
+            launches=launches, **memory,
+            replay_wall_ms=prof["replay_wall_ms"],
+            busy_share=prof["busy_share"],
+            unprofiled_busy_share=prof["unprofiled_busy_share"],
+            device_ms=prof["device_ms"],
+            device_launches=prof["device_launches"])
+        emit("desync_run", run=name, **row, card=card, power=smi)
+        require(got == digest and eager == digest,
+                f"{name}: digests {got} (replay), {eager} (eager) != "
+                f"{digest}")
+        require_launched(launches, desync_path(cfg_pad), name)
+        runner.clear_graphs()
+    for key, (nonzero, flight) in DESYNC_TELEMETRY.items():
+        cfg = desync_config(key, telemetry_window=WINDOW)
+        eng = runner.engine(cfg)
+        res, launches = counted(lambda: simulator.run(cfg, telemetry=True))
+        tel, fl = res.extras["telemetry"], res.extras["flight"]
+        eager = runner.telemetry_stats(cfg, runner.run_device(
+            cfg, telemetry=True, graph=False))
+        want = {k: nonzero.get(k, 0) for k in eng.telemetry_names}
+        row = dict(
+            digest=res.digest, digest_ok=res.digest == DESYNC_RUNS[key][1],
+            totals=tel["totals"], totals_ok=tel["totals"] == want,
+            flight_sha256=flight_digest(fl),
+            flight_ok=flight_digest(fl) == flight,
+            graph_equals_eager=flight_digest(eager["flight"]) ==
+            flight_digest(fl) and all(
+                np.array_equal(eager["telemetry"][k], v)
+                for k, v in tel["per_sweep"].items()),
+            steps_per_sec=res.steps_per_sec, wall_s=res.wall_s,
+            launches=launches)
+        emit("desync_telemetry", run=key, **row, card=card, power=smi)
+        for check in ("digest_ok", "totals_ok", "flight_ok",
+                      "graph_equals_eager"):
+            require(row[check], f"{key} with telemetry: {check} fails")
+        require(min(tel["totals"][k] for k in ("view_spread_max",
+                                                "desync_rounds")) > 0,
+                f"{key}: the desync tail counted nothing")
+        require_launched(launches, desync_path(cfg, telemetry=True),
+                         f"{key} with telemetry")
+        runner.clear_graphs()
+    return {"hotstuff_prologue": own["hotstuff_prologue"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4891,9 +5412,9 @@ def main() -> int:
                *check_dpos_paxos_kernels(dev, gen), *telemetry_rows,
                *check_hotstuff_kernels(dev, gen)]
     torch.cuda.synchronize()
-    # The §6c kernels (KAH, KAI) are phase 16's.
+    # The §6c kernels (KAH, KAI) are phase 16's, KAJ phase 17's.
     require(sorted(k["name"] for k in kernels)
-            == sorted(set(_build.SOURCES) - set(CRASH_OWN)),
+            == sorted(set(_build.SOURCES) - set(CRASH_OWN + DESYNC_OWN)),
             "phase 3 does not check every kernel of csrc")
     # KQ, KT, KX, KY and KZ with their optional outputs, on the telemetry
     # runs' rounds.
@@ -5033,8 +5554,25 @@ def main() -> int:
                     f"{k['name']} disagrees with its plain version")
         emit("crash_kernel", **k, card=card, power=smi)
     launches.update(check_crash_runs(card, smi))
+
+    # 17. SPEC §B view desync (dense and §6b PBFT, both ladders, HotStuff)
+    # and SPEC §6c on HotStuff: every kernel call of rounds 3 and 20 of
+    # the runs, the ladders' KQ and KT and built HotStuff states against
+    # the plain versions, then the runs.
+    for k in check_desync_kernels(dev):
+        k["bound_ms"], k["bound_by"] = k.pop("bound")
+        if "flat_instance_bound" in k:
+            (k["flat_instance_bound_ms"],
+             k["flat_instance_bound_by"]) = k.pop("flat_instance_bound")
+        if k["name"] in DESYNC_OWN:
+            kernels.append(k)
+        emit("desync_kernel", **k, card=card, power=smi)
+        require(k["max_abs_err"] == 0.0,
+                f"{k['name']} under desync or crash disagrees with its "
+                "plain version")
+    launches.update(check_desync_runs(card, smi))
     require(sorted(k["name"] for k in kernels) == sorted(_build.SOURCES),
-            "phases 3 and 16 do not check every kernel of csrc")
+            "phases 3, 16 and 17 do not check every kernel of csrc")
     for k in kernels:
         k["launches"] = launches[k["name"]]
 

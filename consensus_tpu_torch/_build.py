@@ -31,7 +31,7 @@ SOURCES = ("random_u32", "delivery_edges", "top_active", "append_entries",
            "paxos_promise", "paxos_accept_learn", "pbft_telemetry",
            "dpos_telemetry", "paxos_telemetry", "hotstuff_propose",
            "hotstuff_vote", "hotstuff_learn", "hotstuff_extract",
-           "crash_transition", "freeze_down")
+           "crash_transition", "freeze_down", "hotstuff_prologue")
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "build" / \
@@ -109,12 +109,13 @@ SIGNATURES = {
     # commit, role, log_len, down; t, w, lat accumulators (w and lat null
     # with the recorder off); B, N, K, window, n_windows
     "dense_telemetry": (_P,) * 12 + (_I,) * 5,
-    # seed, round, churn_cut, view_timeout, vmax; deliver, n_real, f, view,
-    # timer, pp_seen, pp_view, pp_val, prepared, committed; view, timer,
-    # reset, pp_seen, pp_view, pp_val outputs, catch-up flags (null
-    # without telemetry), order scratch; §6c flags (null on the flat path);
-    # B, N, S
-    "pbft_view_preprepare": (_P, _U, _U, _I, _I) + (_P,) * 19 + (_I,) * 3,
+    # seed, round, churn_cut, view_timeout, vmax, desync_cut, max_skew
+    # (§B; desync_cut 0 off); deliver, n_real, f, view, timer, pp_seen,
+    # pp_view, pp_val, prepared, committed; view, timer, reset, pp_seen,
+    # pp_view, pp_val outputs, catch-up flags (null without telemetry),
+    # order scratch; §6c flags (null on the flat path); B, N, S
+    "pbft_view_preprepare": (_P, _U, _U, _I, _I, _U, _U) + (_P,) * 19
+    + (_I,) * 3,
     # deliver, n_real, f, pp_seen, pp_val, prepared, committed, dval;
     # prepared, committed, dval outputs; B, N, S
     "pbft_tally": (_P,) * 11 + (_I,) * 3,
@@ -122,12 +123,13 @@ SIGNATURES = {
     # reset; committed, dval, timer outputs; B, N, S
     "pbft_decide": (_P,) * 10 + (_I,) * 3,
     # seed, round, churn_cut, drop_cut, part_cut, max_delay, view_timeout,
-    # vmax; n_real, f, view, timer, pp_seen, pp_view, pp_val, prepared,
-    # committed; view, timer, reset, pp_seen, pp_view, pp_val, node bits
-    # outputs, histogram and first-unseen-slot scratch, catch-up flags
-    # (null without telemetry); §6c flags (null on the flat path); B, N, S
-    "bcast_view_preprepare": (_P, _U, _U, _U, _U, _U, _I, _I) + (_P,) * 20
-    + (_I,) * 3,
+    # vmax, desync_cut, max_skew (§B; desync_cut 0 off); n_real, f, view,
+    # timer, pp_seen, pp_view, pp_val, prepared, committed; view, timer,
+    # reset, pp_seen, pp_view, pp_val, node bits outputs, histogram and
+    # first-unseen-slot scratch, catch-up flags (null without telemetry);
+    # §6c flags (null on the flat path); B, N, S
+    "bcast_view_preprepare": (_P, _U, _U, _U, _U, _U, _I, _I, _U, _U)
+    + (_P,) * 20 + (_I,) * 3,
     # n_real, f, node bits, pp_seen, pp_val, prepared, committed, dval;
     # prepared, committed, dval outputs, scratch; scratch words; m, B, N,
     # S, §6c (bit 2 of the node bits read)
@@ -172,19 +174,21 @@ SIGNATURES = {
     # lane stride; round, B, N, S, K, window, n_windows
     "paxos_telemetry": (_P,) * 9 + (_L,) + (_I,) * 7,
     # seed, round; view, b1_h, lane words (in place); view after P1,
-    # catch-up flags outputs; drop_cut, part_cut, churn_cut, max_delay; B,
-    # N, S
-    "hotstuff_propose": (_P, _U) + (_P,) * 5 + (_U,) * 4 + (_I,) * 3,
+    # catch-up flags outputs; §6c flags (null on the flat path); drop_cut,
+    # part_cut, churn_cut, max_delay; the lane word of P1's key; B, N, S
+    "hotstuff_propose": (_P, _U) + (_P,) * 6 + (_U,) * 4 + (_I,) * 4,
     # seed, round; view after P1, lane words (in place), b1_v, b1_h, b2_v,
     # b2_h, b3_v, b3_h, gcommit, chain_v (in place); delivery flags, [7, B]
-    # registers outputs; drop_cut, part_cut, max_delay; Q, B, N, S
-    "hotstuff_vote": (_P, _U) + (_P,) * 12 + (_U,) * 3 + (_I,) * 4,
+    # registers outputs; §6c flags (null on the flat path); drop_cut,
+    # part_cut, max_delay; Q, B, N, S
+    "hotstuff_vote": (_P, _U) + (_P,) * 13 + (_U,) * 3 + (_I,) * 4,
     # view after P1, delivery flags, catch-up flags, timer, clen, lane
     # words (in place), gcommit at round entry, b1_h and gcommit after P4;
     # [3, B, N] view, timer, clen output; t, w, lat accumulators (null
-    # without telemetry; w and lat null without the recorder); Q,
+    # without telemetry; w and lat null without the recorder); §6c flags,
+    # view and timer at round entry (null on the flat path); Q,
     # view_timeout, B, N, window, n_windows
-    "hotstuff_learn": (_P,) * 13 + (_I,) * 6,
+    "hotstuff_learn": (_P,) * 16 + (_I,) * 6,
     # seed, chain_v, chain_vid, clen, fvec, ftab_v, ftab_h, fnum; committed,
     # dval outputs; B, N, S
     "hotstuff_extract": (_P,) * 10 + (_I,) * 3,
@@ -197,6 +201,12 @@ SIGNATURES = {
     # flags; eight (dst, src) leaf pointers (null past the last leaf);
     # eight row sizes in bytes; the reset-where-recovered bits; B, N
     "freeze_down": (_P,) * 17 + (_I,) * 8 + (_U, _I, _I),
+    # seed, round; view, timer, §6c flags (null without a crash), lane
+    # words (in place); [2, B, N] view and timer output; t, w accumulators
+    # (null without telemetry; w null without the recorder); desync_cut,
+    # max_skew; view_timeout, B, N, K, view_changes' column, window,
+    # n_windows
+    "hotstuff_prologue": (_P, _U) + (_P,) * 7 + (_U, _U) + (_I,) * 7,
 }
 
 

@@ -17,14 +17,15 @@ chained HotStuff engine (``engines/hotstuff.py``), whose population is
 The SPEC §A.2 delayed retransmission (``max_delay_rounds`` in [0, 16])
 runs on every engine and both f-ladders. The SPEC §6c crash-recover
 adversary (``crash_prob``, ``recover_prob``, ``max_crashed`` in [0,
-n_nodes]) runs on both Raft engines, both PBFT engines, Paxos and DPoS; it
-raises on HotStuff, and a PBFT f-ladder with ``crash_prob > 0`` raises in
-``pbft_sweep.pbft_fsweep_run`` as in the JAX package. The other knobs of
-the JAX package that this port does not implement yet are fields too, and
-setting one off its default raises ``ValueError``, also beside a delay or
-a crash; the port never ignores a setting silently. For HotStuff those are
-its other gates: crash-recover, view desync, byzantine nodes (silent or
-equivocating) and the switch network.
+n_nodes]) runs on every engine; a PBFT f-ladder with ``crash_prob > 0``
+raises in ``pbft_sweep.pbft_fsweep_run`` as in the JAX package. The SPEC
+§B view desync (``desync_rate``, ``max_skew_rounds`` in [1, 8]) runs on
+both PBFT engines, both f-ladders and HotStuff, and raises with the JAX
+package's message on the other protocols. The other knobs of the JAX
+package that this port does not implement yet are fields too, and setting
+one off its default raises ``ValueError``, also beside a delay, a crash or
+a desync; the port never ignores a setting silently. For HotStuff those
+are byzantine nodes (silent or equivocating) and the switch network.
 """
 from __future__ import annotations
 
@@ -38,14 +39,13 @@ UNSUPPORTED = {
     "attack": "none", "attack_rate": 1.0, "attack_target": 0,
     "net_model": "flat", "n_aggregators": 0,
     "n_byzantine": 0, "byz_mode": "silent",
-    "desync_rate": 0.0,
     "miss_rate": 0.0, "suppress_rate": 0.0, "suppress_window": 16,
     "scan_chunk": 0, "sweep_chunk": 0,
     "mesh_shape": (),
 }
 
 # The SPEC §6c crash-recover knobs and their defaults: supported on every
-# engine but HotStuff, which still rejects them.
+# engine.
 CRASH_KNOBS = {"crash_prob": 0.0, "recover_prob": 0.0, "max_crashed": 0}
 
 # The protocols the port runs: every protocol of the JAX package.
@@ -112,6 +112,7 @@ class Config:
     n_byzantine: int = 0
     byz_mode: str = "silent"
     desync_rate: float = 0.0
+    max_skew_rounds: int = 1
     miss_rate: float = 0.0
     suppress_rate: float = 0.0
     suppress_window: int = 16
@@ -179,10 +180,23 @@ class Config:
         if self.max_crashed < 0 or self.max_crashed > self.n_nodes:
             raise ValueError("max_crashed must be in [0, n_nodes] "
                              "(0 = no cap on simultaneous crashes)")
-        gates = dict(UNSUPPORTED)
-        if self.protocol == "hotstuff":
-            gates.update(CRASH_KNOBS)
-        off = [k for k, d in gates.items() if getattr(self, k) != d]
+        # The JAX package's SPEC §B checks and messages
+        # (consensus_tpu/core/config.py:315-328).
+        if self.desync_rate > 0 and self.protocol not in ("pbft",
+                                                          "hotstuff"):
+            raise ValueError(
+                "desync_rate is the SPEC §B view-synchronizer timer-skew "
+                f"adversary of the per-node BFT pacemakers; {self.protocol} "
+                "has no per-node view timer and would silently ignore it")
+        if not (1 <= self.max_skew_rounds <= 8):
+            raise ValueError("max_skew_rounds must be in [1, 8] (SPEC §B: "
+                             "the skew depth is a bounded jump, like the "
+                             "§9 stale horizon)")
+        if self.max_skew_rounds != 1 and self.desync_rate == 0:
+            raise ValueError(
+                "max_skew_rounds requires desync_rate > 0 (SPEC §B) "
+                "— it would be silently ignored")
+        off = [k for k, d in UNSUPPORTED.items() if getattr(self, k) != d]
         if off:
             raise ValueError(f"{', '.join(off)}: not supported by the port "
                              "yet; it would be silently ignored")
@@ -213,6 +227,16 @@ class Config:
         0`` the round is the flat one, whatever ``recover_prob`` and
         ``max_crashed`` say (consensus_tpu/core/config.py:433-434)."""
         return self.crash_cutoff > 0
+
+    @property
+    def desync_cutoff(self) -> int:
+        return prob_threshold_u32(self.desync_rate)
+
+    @property
+    def desync_on(self) -> bool:
+        """SPEC §B runs only where a skew can fire: with ``desync_rate = 0``
+        the round is the flat one (consensus_tpu/core/config.py:473-476)."""
+        return self.desync_cutoff > 0
 
     @property
     def no_partition(self) -> bool:

@@ -59,6 +59,15 @@
 // dropped, line 402) and bit 2 set, which kernels KU and KV read. A down
 // receiver's round is otherwise the JAX round's (the freeze comes last,
 // kernel KAI), which the telemetry counts.
+// Its DESYNC instances (SPEC §B, picked when desync_cut != 0) add each
+// node's timer skew (K22 desync_skew, consensus_tpu/ops/viewsync.py:40-53,
+// as ctt::desync_skew, keyed by the absolute id, padded ladder nodes
+// included) to the timer launch 2 takes, after the CRASH reset and before
+// P0 (pbft_bcast.py:446-453, pbft_sweep.py:353-360). Launch 2 is the only
+// launch that reads the timer (launch 1 reads the views, launch 3 the
+// post-P2 views), so the skew is drawn once a node. The freeze (KAI)
+// restores a down node's timer from the round's input, so it drops the
+// skew, as the JAX package's frozen capture does.
 #include <climits>
 
 #include <cuda_runtime.h>
@@ -155,10 +164,11 @@ bcast_senders_kernel(const uint32_t* __restrict__ seed, uint32_t r,
 }
 
 // Launch 2.
-template <bool CRASH>
+template <bool CRASH, bool DESYNC>
 __global__ void __launch_bounds__(THREADS)
 bcast_catchup_kernel(const uint32_t* __restrict__ seed, uint32_t r,
                      uint32_t churn_cut, int32_t view_timeout,
+                     uint32_t desync_cut, uint32_t max_skew,
                      const int32_t* __restrict__ f,
                      const int32_t* __restrict__ view,
                      const int32_t* __restrict__ timer,
@@ -207,10 +217,15 @@ bcast_catchup_kernel(const uint32_t* __restrict__ seed, uint32_t r,
   const int j = (blockIdx.x - b * tiles) * THREADS + threadIdx.x;
   if (j >= N) return;
   const long long row = static_cast<long long>(b) * N + j;
-  // P0 churn.
-  const int32_t c = churn_step(seed[b], r, churn_cut);
+  // SPEC §B skew, then P0 churn.
+  const uint32_t sd = seed[b];
+  const int32_t c = churn_step(sd, r, churn_cut);
   int32_t v = wrap_add(entry<CRASH>(view, flags, row), c);
-  int32_t t = c ? 0 : entry<CRASH>(timer, flags, row);
+  int32_t t = entry<CRASH>(timer, flags, row);
+  if (DESYNC)
+    t = wrap_add(t, ctt::desync_skew(sd, r, static_cast<uint32_t>(j),
+                                     desync_cut, max_skew));
+  if (c) t = 0;
   bool reset = c != 0;
   // P1 catch-up.
   const uint8_t bj = bits[row];
@@ -319,7 +334,8 @@ bcast_preprepare_kernel(const uint32_t* __restrict__ seed,
 extern "C" int ctt_bcast_view_preprepare(
     const uint32_t* seed, uint32_t r, uint32_t churn_cut, uint32_t drop_cut,
     uint32_t part_cut, uint32_t max_delay, int32_t view_timeout, int32_t vmax,
-    const int32_t* n_real, const int32_t* f, const int32_t* view,
+    uint32_t desync_cut, uint32_t max_skew, const int32_t* n_real,
+    const int32_t* f, const int32_t* view,
     const int32_t* timer, const bool* pp_seen, const int32_t* pp_view,
     const int32_t* pp_val, const bool* prepared, const bool* committed,
     int32_t* view_out, int32_t* timer_out, bool* reset_out, bool* seen_out,
@@ -347,12 +363,18 @@ extern "C" int ctt_bcast_view_preprepare(
             st>>>(seed, r, churn_cut, drop_cut, part_cut, max_delay, n_real,
                   view, bits_out, hist, flags, N, nb, smem, tiles);
   if ((err = static_cast<int>(cudaGetLastError())) != 0) return err;
+  const bool desync = desync_cut != 0u;
+  if (desync && max_skew == 0u)
+    return static_cast<int>(cudaErrorInvalidValue);
   const auto catchup =
-      crash ? bcast_catchup_kernel<true> : bcast_catchup_kernel<false>;
+      crash ? (desync ? bcast_catchup_kernel<true, true>
+                      : bcast_catchup_kernel<true, false>)
+            : (desync ? bcast_catchup_kernel<false, true>
+                      : bcast_catchup_kernel<false, false>);
   catchup<<<static_cast<unsigned>(blocks), THREADS, 0, st>>>(
-      seed, r, churn_cut, view_timeout, f, view, timer, pp_seen, bits_out,
-      hist, view_out, timer_out, reset_out, fresh, catch_out, flags, N, S, nb,
-      tiles);
+      seed, r, churn_cut, view_timeout, desync_cut, max_skew, f, view, timer,
+      pp_seen, bits_out, hist, view_out, timer_out, reset_out, fresh,
+      catch_out, flags, N, S, nb, tiles);
   if ((err = static_cast<int>(cudaGetLastError())) != 0) return err;
   const long long per_lane = static_cast<long long>(N) * S;
   if (per_lane == 0) return 0;

@@ -1,22 +1,33 @@
-// What the HotStuff round's kernels (KAD hotstuff_propose, KAE hotstuff_vote,
-// KAF hotstuff_learn) share: the words of the state's `lane` leaf, which
-// carry each lane-wide step of the round across a launch, and the SPEC §2
-// broadcast-row delivery test with its SPEC §A.2 retransmissions.
+// What the HotStuff round's kernels (KAJ hotstuff_prologue, KAD
+// hotstuff_propose, KAE hotstuff_vote, KAF hotstuff_learn) share: the words
+// of the state's `lane` leaf, which carry each lane-wide step of the round
+// across a launch, and the SPEC §2 broadcast-row delivery test with its
+// SPEC §A.2 retransmissions.
 //
 // lane is [B, LANE_WORDS] int64 (engines/hotstuff.py), and each word has one
-// writer pattern a round, ordered by the launches (KAD, then KAE, then KAF):
-//   TOP        P1's key of the views at round entry, (view << 32) |
-//              (N - 1 - id) at its largest: KAD reads it; KAE's last block
-//              of the lane empties it (INT64_MIN); KAF's blocks atomicMax
-//              the new views' keys into it for the next round.
+// writer pattern a round, ordered by the launches (KAJ on rounds with a gate
+// on, then KAD, then KAE, then KAF):
+//   TOP        P1's key of the views at round entry on a flat round, (view
+//              << 32) | (N - 1 - id) at its largest: KAD reads it; KAE's
+//              last block of the lane empties it (INT64_MIN); KAF's blocks
+//              atomicMax the new views' keys into it for the next round.
+//              On a crash round (KAF's CRASH instance) only the nodes up at
+//              the round's end go into it, and it serves the view spread
+//              alone: KAD reads KEY on every round of a gated run.
 //   VMAX       KAD's atomicMax of the proposers' views (V*); at rest -1.
 //   VOTES      KAE's atomicAdd of the delivered votes; at rest 0.
 //   DONE_VOTE  KAE's finished blocks of the lane; at rest 0.
 //   VSTAR      V*, written by KAE's last block for KAF.
 //   COUNTED    the vote count, written by KAE's last block for KAF.
-//   VMIN       KAF's atomicMin of the new views (telemetry); at rest
-//              INT64_MAX.
+//   VMIN       KAF's atomicMin of the new views (telemetry; CRASH: of the
+//              nodes up at the round's end); at rest INT64_MAX.
 //   DONE_LEARN KAF's finished blocks of the lane (telemetry); at rest 0.
+//   KEY        P1's key on a round with a SPEC §6c or §B gate on: KAJ's
+//              atomicMax of the keys of the views after its prologue, over
+//              the nodes up this round; KAD reads it; KAE's last block
+//              leaves it at rest, KEY_REST = -1, which reads as vM = -1 and
+//              M = N (no live node: no gossip). TOP cannot serve here: KAF
+//              leaves it full, and the prologue moves views after KAF.
 // A kernel that accumulates into a word leaves it at rest after the last
 // block of its lane has read it, so a round needs no memset: the "fresh
 // outputs against in-round hazards" rule holds because no block reads a word
@@ -38,7 +49,9 @@ constexpr int VSTAR = 4;
 constexpr int COUNTED = 5;
 constexpr int VMIN = 6;
 constexpr int DONE_LEARN = 7;
-constexpr int LANE_WORDS = 8;
+constexpr int KEY = 8;
+constexpr int LANE_WORDS = 9;
+constexpr long long KEY_REST = -1;
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;

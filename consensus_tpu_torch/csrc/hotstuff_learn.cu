@@ -17,10 +17,12 @@
 // P1 of the next round reads it, so the round stays at three launches.
 // Counters, in HOTSTUFF_TELEMETRY order: qc_formed, blocks_committed (new
 // gcommit - old), commits_learned (the sum of the prefixes' growth, int32
-// wrapping), view_changes (the timeouts), proposals_delivered, votes_counted,
-// then the crash, aggregation and safety tails, which stay 0 (the port
-// rejects those gates), and the SPEC §B tail: view_spread_max (max - min of
-// the new views, int32 wrapping; every node is honest and live),
+// wrapping), view_changes (the timeouts; kernel KAJ adds the premature ones
+// of SPEC §B), proposals_delivered, votes_counted,
+// then the crash, aggregation and safety tails, which stay 0 here (kernel KAH
+// adds the crash tail; the port rejects the other gates), and the SPEC §B
+// tail: view_spread_max (max - min of the new views, int32 wrapping, over
+// every node, honest all; in the CRASH instance over the nodes up),
 // desync_rounds (spread > 0) and sync_msgs_delivered (the P1 catch-ups).
 // Histograms: view_change_wait_rounds (timer + 1 of each node whose view
 // moved: a QC learned, a catch-up or a timeout) and chain_commit_lag_rounds
@@ -47,8 +49,21 @@
 // lane's counters (QC, commit, votes, spread, desync) and the lag bucket,
 // and leaves VMIN and DONE_LEARN at rest. So telemetry adds no launch and no
 // memset to the round.
+// The CRASH instance (SPEC §6c, picked where the round's flag word of kernel
+// KAH is given, with the round's input view and timer) computes every
+// node's round as the JAX round does, down nodes included, and counts it so
+// (lines 469-480 and 504-519: a down node's timeouts and waits count, from
+// its in-round timer, which kernel KAJ skewed), then writes a node down at
+// the round's end its frozen view, timer and prefix: its input view and
+// timer, 0 where it recovered this round (both flag bits: 0 too), and its
+// prefix, which no delivery moved (lines 473-480). The frozen values are
+// KAJ's inputs, never its skewed outputs. The new views' keys (into TOP)
+// and minimum (VMIN) are taken over the nodes up at the round's end, so the
+// view spread is theirs (line 504), 0 where none is up; TOP is no P1 key
+// on such a run (KAD reads KEY).
 #include <cuda_runtime.h>
 
+#include "crash.cuh"
 #include "hotstuff.cuh"
 
 namespace {
@@ -78,6 +93,7 @@ __device__ __forceinline__ void add(int* tb, int* wb, int k, int v) {
   if (wb != nullptr) atomicAdd(wb + k, v);
 }
 
+template <bool CRASH>
 __global__ void __launch_bounds__(hs::THREADS)
 hotstuff_learn_kernel(const int32_t* __restrict__ view1,
                       const bool* __restrict__ pdel,
@@ -89,7 +105,10 @@ hotstuff_learn_kernel(const int32_t* __restrict__ view1,
                       const int32_t* __restrict__ b1_h_new,
                       const int32_t* __restrict__ gcommit_new,
                       int32_t* __restrict__ out, int* __restrict__ t,
-                      int* __restrict__ w, int* __restrict__ lat, int Q,
+                      int* __restrict__ w, int* __restrict__ lat,
+                      const unsigned char* __restrict__ flags,
+                      const int32_t* __restrict__ view_in,
+                      const int32_t* __restrict__ timer_in, int Q,
                       int view_timeout, int B, int N, int window,
                       int n_windows, int tiles) {
   __shared__ int32_t s_vstar, s_gold;
@@ -115,6 +134,7 @@ hotstuff_learn_kernel(const int32_t* __restrict__ view1,
   const int i = tile * hs::THREADS + static_cast<int>(threadIdx.x);
   long long key = hs::I64_MIN;
   int32_t vmin = 0x7FFFFFFF;
+  bool up = false;
   int sums[SUMS] = {0, 0, 0, 0};
   int bin = -1;
   if (i < N) {
@@ -128,11 +148,20 @@ hotstuff_learn_kernel(const int32_t* __restrict__ view1,
     const int32_t tick = hs::add_i32(tm, 1);
     const bool to = !progress && tick >= view_timeout;
     v = hs::add_i32(v, to);
-    out[row] = v;
-    out[plane + row] = progress || to ? 0 : tick;
+    const unsigned char fl = CRASH ? flags[row] : 0;
+    const bool down = CRASH && (fl & ctt::CRASH_DOWN);
+    if (down) {
+      const bool rec = fl & ctt::CRASH_REC;
+      out[row] = rec ? 0 : view_in[row];
+      out[plane + row] = rec ? 0 : timer_in[row];
+    } else {
+      out[row] = v;
+      out[plane + row] = progress || to ? 0 : tick;
+      key = hs::view_key(v, i, N);
+      vmin = v;
+      up = true;
+    }
     out[2 * plane + row] = cl2;
-    key = hs::view_key(v, i, N);
-    vmin = v;
     sums[0] = hs::sub_i32(cl2, cl);
     sums[1] = to;
     sums[2] = pd;
@@ -154,7 +183,10 @@ hotstuff_learn_kernel(const int32_t* __restrict__ view1,
         atomicAdd(&s_hist[bin], __popc(peers));
     }
   }
-  __syncthreads();
+  // CRASH: whether a node of the block is up at the round's end (a block
+  // without one adds nothing to VMIN).
+  const bool block_up = CRASH ? __syncthreads_or(up) != 0
+                              : (__syncthreads(), true);
   int* tb = telem ? t + static_cast<long long>(b) * K : nullptr;
   int* wb = w == nullptr ? nullptr
                          : w + (static_cast<long long>(b) * n_windows +
@@ -172,7 +204,7 @@ hotstuff_learn_kernel(const int32_t* __restrict__ view1,
   if (!telem) return;
   int32_t bmin = s_min[0];
   for (int k = 1; k < hs::WARPS; ++k) bmin = min(bmin, s_min[k]);
-  atomicMin(lw + hs::VMIN, static_cast<long long>(bmin));
+  if (block_up) atomicMin(lw + hs::VMIN, static_cast<long long>(bmin));
   unsigned long long* uw = reinterpret_cast<unsigned long long*>(lw);
   __threadfence();
   if (atomicAdd(uw + hs::DONE_LEARN, 1ull) !=
@@ -182,9 +214,11 @@ hotstuff_learn_kernel(const int32_t* __restrict__ view1,
   // The lane's last block: the lane's counters, the spread and the lag.
   const int32_t vmax =
       static_cast<int32_t>(atomicMax(lw + hs::TOP, hs::I64_MIN) >> 32);
-  const int32_t lo =
-      static_cast<int32_t>(atomicMin(lw + hs::VMIN, hs::I64_MAX));
-  const int32_t spread = hs::sub_i32(vmax, lo);
+  const long long lo = atomicMin(lw + hs::VMIN, hs::I64_MAX);
+  // CRASH: no node up at the round's end leaves VMIN at rest: spread 0.
+  const int32_t spread = CRASH && lo == hs::I64_MAX
+                             ? 0
+                             : hs::sub_i32(vmax, static_cast<int32_t>(lo));
   const int32_t gnew = gcommit_new[b];
   add(tb, wb, C_QC, s_qc);
   add(tb, wb, C_COMMITTED, hs::sub_i32(gnew, s_gold));
@@ -203,28 +237,35 @@ hotstuff_learn_kernel(const int32_t* __restrict__ view1,
 }  // namespace
 
 // out is [3, B, N] int32: the new view, timer and clen. lane is the state's
-// [B, 8] int64 lane words (hotstuff.cuh): TOP emptied by KAE and, with
+// [B, 9] int64 lane words (hotstuff.cuh): TOP emptied by KAE and, with
 // telemetry, VMIN and DONE_LEARN at rest. t ([B, 18]), w ([B, n_windows, 18])
 // and lat ([B, 2, 16]) are the int32 accumulators, t null without telemetry,
 // w and lat null without the flight recorder (then window and n_windows are
-// unused).
+// unused). flags is the round's [B, N] flag word of kernel KAH, view_in and
+// timer_in the round's input view and timer ([B, N] int32): all three null
+// without a crash, all three given with one.
 extern "C" int ctt_hotstuff_learn(
     const int32_t* view1, const bool* pdel, const bool* adv,
     const int32_t* timer, const int32_t* clen, long long* lane,
     const int32_t* gcommit, const int32_t* b1_h_new,
     const int32_t* gcommit_new, int32_t* out, int* t, int* w, int* lat,
-    int Q, int view_timeout, int B, int N, int window, int n_windows,
-    cudaStream_t st) {
+    const unsigned char* flags, const int32_t* view_in,
+    const int32_t* timer_in, int Q, int view_timeout, int B, int N,
+    int window, int n_windows, cudaStream_t st) {
   if ((w == nullptr) != (lat == nullptr) || (t == nullptr && w != nullptr) ||
-      (w != nullptr && (window < 0 || window >= n_windows)))
+      (w != nullptr && (window < 0 || window >= n_windows)) ||
+      (flags == nullptr) != (view_in == nullptr) ||
+      (flags == nullptr) != (timer_in == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || N == 0) return 0;
   const int tiles = (N + hs::THREADS - 1) / hs::THREADS;
   const long long blocks = static_cast<long long>(tiles) * B;
   if (blocks > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
-  hotstuff_learn_kernel<<<static_cast<unsigned>(blocks), hs::THREADS, 0,
-                          st>>>(view1, pdel, adv, timer, clen, lane, gcommit,
-                                b1_h_new, gcommit_new, out, t, w, lat, Q,
-                                view_timeout, B, N, window, n_windows, tiles);
+  const auto kernel = flags != nullptr ? hotstuff_learn_kernel<true>
+                                       : hotstuff_learn_kernel<false>;
+  kernel<<<static_cast<unsigned>(blocks), hs::THREADS, 0, st>>>(
+      view1, pdel, adv, timer, clen, lane, gcommit, b1_h_new, gcommit_new, out,
+      t, w, lat, flags, view_in, timer_in, Q, view_timeout, B, N, window,
+      n_windows, tiles);
   return static_cast<int>(cudaGetLastError());
 }

@@ -24,6 +24,12 @@
 // node (19 operations) and a few Threefry draws a block, 0.5 us at
 // 33.5e12 a second. A launch's fixed cost is several microseconds, so the
 // round's three launches set its time.
+// Gates: on a round with a SPEC §6c or §B gate on, the views come from kernel
+// KAJ (hotstuff_prologue.cu) and P1's key from the lane's KEY word, which KAJ
+// built over the nodes up this round (the caller passes the word to read).
+// The CRASH instance (picked where the round's flag word of kernel KAH is
+// given) keeps a node down at the round's end from hearing the gossip and
+// from proposing (lines 271-272 and 294); its view passes through.
 // Design: a thread per (lane, node), the (lane, tile) pairs flattened into
 // gridDim.x (no 65 535-block limit on lanes). Thread 0 of a block computes
 // the lane's scalars once into shared memory: M and vM from TOP, the mixer
@@ -35,20 +41,22 @@
 // the flags go to fresh outputs: no block reads what another block writes.
 #include <cuda_runtime.h>
 
+#include "crash.cuh"
 #include "hotstuff.cuh"
 
 namespace {
 
-template <bool DELAY>
+template <bool DELAY, bool CRASH>
 __global__ void __launch_bounds__(hs::THREADS)
 hotstuff_propose_kernel(const uint32_t* __restrict__ seed, uint32_t r,
                         const int32_t* __restrict__ view,
                         const int32_t* __restrict__ b1_h,
                         long long* __restrict__ lane,
                         int32_t* __restrict__ view1, bool* __restrict__ adv,
+                        const unsigned char* __restrict__ flags,
                         uint32_t drop_cut, uint32_t part_cut,
-                        uint32_t churn_cut, uint32_t max_delay, int N, int S,
-                        int tiles) {
+                        uint32_t churn_cut, uint32_t max_delay, int key_word,
+                        int N, int S, int tiles) {
   __shared__ hs::Row s_row;
   __shared__ int32_t s_vm;
   __shared__ int s_m;
@@ -58,7 +66,7 @@ hotstuff_propose_kernel(const uint32_t* __restrict__ seed, uint32_t r,
   const uint32_t sd = seed[b];
   long long* lw = lane + static_cast<long long>(b) * hs::LANE_WORDS;
   if (threadIdx.x == 0) {
-    const long long top = lw[hs::TOP];
+    const long long top = lw[key_word];
     s_vm = static_cast<int32_t>(top >> 32);
     s_m = N - 1 - static_cast<int>(static_cast<uint32_t>(top));
     const int m = min(max(s_m, 0), N - 1);
@@ -74,14 +82,15 @@ hotstuff_propose_kernel(const uint32_t* __restrict__ seed, uint32_t r,
     const long long row = static_cast<long long>(b) * N + i;
     const int32_t v = view[row];
     const int32_t vm = s_vm;
-    const bool caught = vm >= 0 && i != s_m && v < vm &&
+    const bool up = !(CRASH && (flags[row] & ctt::CRASH_DOWN));
+    const bool caught = up && vm >= 0 && i != s_m && v < vm &&
                         hs::row_open<DELAY>(s_row, sd, r,
                                             static_cast<uint32_t>(i), drop_cut,
                                             max_delay);
     const int32_t v1 = caught ? vm : v;
     view1[row] = v1;
     adv[row] = caught;
-    if (s_can && hs::floor_mod(v1, N) == i && v1 > -1) cand = v1;
+    if (up && s_can && hs::floor_mod(v1, N) == i && v1 > -1) cand = v1;
   }
   const int32_t top = __reduce_max_sync(hs::FULL, cand);
   if ((threadIdx.x & 31) == 0 && top > -1)
@@ -90,22 +99,32 @@ hotstuff_propose_kernel(const uint32_t* __restrict__ seed, uint32_t r,
 
 }  // namespace
 
-// lane is the state's [B, 8] int64 lane words (hotstuff.cuh), VMAX at rest.
+// lane is the state's [B, 9] int64 lane words (hotstuff.cuh), VMAX at rest;
+// key_word is the word P1's key is read from (TOP on a flat round, KEY on a
+// gated one); flags is the round's [B, N] flag word of kernel KAH (null
+// without a crash).
 extern "C" int ctt_hotstuff_propose(const uint32_t* seed, uint32_t r,
                                     const int32_t* view, const int32_t* b1_h,
                                     long long* lane, int32_t* view1,
-                                    bool* adv, uint32_t drop_cut,
-                                    uint32_t part_cut, uint32_t churn_cut,
-                                    uint32_t max_delay, int B, int N, int S,
+                                    bool* adv, const unsigned char* flags,
+                                    uint32_t drop_cut, uint32_t part_cut,
+                                    uint32_t churn_cut, uint32_t max_delay,
+                                    int key_word, int B, int N, int S,
                                     cudaStream_t st) {
+  if (key_word != hs::TOP && key_word != hs::KEY)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || N == 0) return 0;
   const int tiles = (N + hs::THREADS - 1) / hs::THREADS;
   const long long blocks = static_cast<long long>(tiles) * B;
   if (blocks > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
-  const auto kernel = max_delay != 0u ? hotstuff_propose_kernel<true>
-                                       : hotstuff_propose_kernel<false>;
+  const bool delay = max_delay != 0u, crash = flags != nullptr;
+  const auto kernel =
+      crash ? (delay ? hotstuff_propose_kernel<true, true>
+                     : hotstuff_propose_kernel<false, true>)
+            : (delay ? hotstuff_propose_kernel<true, false>
+                     : hotstuff_propose_kernel<false, false>);
   kernel<<<static_cast<unsigned>(blocks), hs::THREADS, 0, st>>>(
-      seed, r, view, b1_h, lane, view1, adv, drop_cut, part_cut, churn_cut,
-      max_delay, N, S, tiles);
+      seed, r, view, b1_h, lane, view1, adv, flags, drop_cut, part_cut,
+      churn_cut, max_delay, key_word, N, S, tiles);
   return static_cast<int>(cudaGetLastError());
 }

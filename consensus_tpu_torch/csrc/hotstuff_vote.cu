@@ -37,9 +37,14 @@
 // writes the registers, chain_v[h_next] (in place: no other block of the
 // round reads chain_v) and the round's V* and count for KAF, and leaves
 // VMAX, VOTES and DONE_VOTE at rest and TOP empty for KAF's reduction: every
-// other block of the lane has read VMAX before it counted itself done.
+// other block of the lane has read VMAX before it counted itself done. It
+// also leaves the KEY word at rest, which KAD read on a gated round.
+// The CRASH instance (picked where the round's flag word of kernel KAH is
+// given) delivers nothing to a node down at the round's end (line 312), so
+// it neither learns nor votes; the leader proposed, so it is up.
 #include <cuda_runtime.h>
 
+#include "crash.cuh"
 #include "hotstuff.cuh"
 
 namespace {
@@ -51,13 +56,15 @@ struct Regs {
   const int32_t* in[REGS];
 };
 
-template <bool DELAY>
+template <bool DELAY, bool CRASH>
 __global__ void __launch_bounds__(hs::THREADS)
 hotstuff_vote_kernel(const uint32_t* __restrict__ seed, uint32_t r,
                      const int32_t* __restrict__ view1,
                      long long* __restrict__ lane, Regs regs,
                      int32_t* __restrict__ chain_v, bool* __restrict__ pdel,
-                     int32_t* __restrict__ regs_out, uint32_t drop_cut,
+                     int32_t* __restrict__ regs_out,
+                     const unsigned char* __restrict__ flags,
+                     uint32_t drop_cut,
                      uint32_t part_cut, uint32_t max_delay, int Q, int B,
                      int N, int S, int tiles) {
   __shared__ hs::Row s_row;
@@ -86,6 +93,7 @@ hotstuff_vote_kernel(const uint32_t* __restrict__ seed, uint32_t r,
     const bool is_l = i == s_l;
     const bool got =
         vstar >= 0 && view1[row] <= vstar &&
+        !(CRASH && (flags[row] & ctt::CRASH_DOWN)) &&
         (is_l || hs::row_open<DELAY>(s_row, sd, r, static_cast<uint32_t>(i),
                                      drop_cut, max_delay));
     pdel[row] = got;
@@ -140,30 +148,35 @@ hotstuff_vote_kernel(const uint32_t* __restrict__ seed, uint32_t r,
   lw[hs::VOTES] = 0;
   lw[hs::DONE_VOTE] = 0;
   lw[hs::TOP] = hs::I64_MIN;
+  lw[hs::KEY] = hs::KEY_REST;
 }
 
 }  // namespace
 
 // regs are the seven [B] int32 registers at round entry (b1_v, b1_h, b2_v,
 // b2_h, b3_v, b3_h, gcommit), regs_out their [7, B] values after P4. lane is
-// the state's [B, 8] int64 lane words (hotstuff.cuh): VOTES and DONE_VOTE at
-// rest.
+// the state's [B, 9] int64 lane words (hotstuff.cuh): VOTES and DONE_VOTE at
+// rest. flags is the round's [B, N] flag word of kernel KAH (null without a
+// crash).
 extern "C" int ctt_hotstuff_vote(
     const uint32_t* seed, uint32_t r, const int32_t* view1, long long* lane,
     const int32_t* b1_v, const int32_t* b1_h, const int32_t* b2_v,
     const int32_t* b2_h, const int32_t* b3_v, const int32_t* b3_h,
     const int32_t* gcommit, int32_t* chain_v, bool* pdel, int32_t* regs_out,
-    uint32_t drop_cut, uint32_t part_cut, uint32_t max_delay, int Q, int B,
-    int N, int S, cudaStream_t st) {
+    const unsigned char* flags, uint32_t drop_cut, uint32_t part_cut,
+    uint32_t max_delay, int Q, int B, int N, int S, cudaStream_t st) {
   if (B == 0 || N == 0) return 0;
   const int tiles = (N + hs::THREADS - 1) / hs::THREADS;
   const long long blocks = static_cast<long long>(tiles) * B;
   if (blocks > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
   Regs regs = {{b1_v, b1_h, b2_v, b2_h, b3_v, b3_h, gcommit}};
-  const auto kernel = max_delay != 0u ? hotstuff_vote_kernel<true>
-                                       : hotstuff_vote_kernel<false>;
+  const bool delay = max_delay != 0u, crash = flags != nullptr;
+  const auto kernel = crash ? (delay ? hotstuff_vote_kernel<true, true>
+                                     : hotstuff_vote_kernel<false, true>)
+                            : (delay ? hotstuff_vote_kernel<true, false>
+                                     : hotstuff_vote_kernel<false, false>);
   kernel<<<static_cast<unsigned>(blocks), hs::THREADS, 0, st>>>(
-      seed, r, view1, lane, regs, chain_v, pdel, regs_out, drop_cut, part_cut,
-      max_delay, Q, B, N, S, tiles);
+      seed, r, view1, lane, regs, chain_v, pdel, regs_out, flags, drop_cut,
+      part_cut, max_delay, Q, B, N, S, tiles);
   return static_cast<int>(cudaGetLastError());
 }

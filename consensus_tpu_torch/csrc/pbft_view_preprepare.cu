@@ -47,6 +47,14 @@
 // in launches 1 and 2 (its volatile reset, pbft.py:189-196); the rest is
 // the round as it was, down nodes included (KL cut their edges; the freeze
 // comes last in the round, kernel KAI).
+// Its DESYNC instances (SPEC §B, picked when desync_cut != 0) add each
+// node's timer skew (K22 desync_skew, consensus_tpu/ops/viewsync.py:40-53,
+// as ctt::desync_skew, keyed by the absolute id, padded ladder nodes
+// included) to the timer launch 2 takes, after the CRASH reset and before
+// P0 (pbft.py:199-207, pbft_sweep.py:175-182): a skewed timer can reach P2's
+// timeout in this round. Launch 1 reads no timer. The freeze (KAI) restores
+// a down node's timer from the round's input, so it drops the skew, as the
+// JAX package's frozen capture does.
 #include <climits>
 
 #include <cuda_runtime.h>
@@ -106,10 +114,11 @@ pbft_rank_kernel(const uint32_t* __restrict__ seed, uint32_t r,
 }
 
 // Launch 2. A thread per (lane, receiver), flattened.
-template <bool CRASH>
+template <bool CRASH, bool DESYNC>
 __global__ void __launch_bounds__(THREADS)
 pbft_catchup_kernel(const uint32_t* __restrict__ seed, uint32_t r,
                     uint32_t churn_cut, int32_t view_timeout, int32_t vmax,
+                    uint32_t desync_cut, uint32_t max_skew,
                     const bool* __restrict__ deliver,
                     const int32_t* __restrict__ n_real,
                     const int32_t* __restrict__ f,
@@ -128,10 +137,15 @@ pbft_catchup_kernel(const uint32_t* __restrict__ seed, uint32_t r,
   const int b = static_cast<int>(row / N);
   const int j = static_cast<int>(row - static_cast<long long>(b) * N);
   const long long nodes = static_cast<long long>(b) * N;
-  // P0 churn.
-  const int32_t c = churn_step(seed[b], r, churn_cut);
+  // SPEC §B skew, then P0 churn.
+  const uint32_t sd = seed[b];
+  const int32_t c = churn_step(sd, r, churn_cut);
   int32_t v = wrap_add(entry<CRASH>(view, flags, row), c);
-  int32_t t = c ? 0 : entry<CRASH>(timer, flags, row);
+  int32_t t = entry<CRASH>(timer, flags, row);
+  if (DESYNC)
+    t = wrap_add(t, ctt::desync_skew(sd, r, static_cast<uint32_t>(j),
+                                     desync_cut, max_skew));
+  if (c) t = 0;
   bool reset = c != 0;
   // P1: the (f+1)-th largest of the counted views; -1 when fewer count
   // (the undelivered senders' -1 entries fill the column), and the top of
@@ -250,7 +264,8 @@ pbft_preprepare_kernel(const uint32_t* __restrict__ seed,
 // the caller does not ask for P1's catch-up flags.
 extern "C" int ctt_pbft_view_preprepare(
     const uint32_t* seed, uint32_t r, uint32_t churn_cut,
-    int32_t view_timeout, int32_t vmax, const bool* deliver,
+    int32_t view_timeout, int32_t vmax, uint32_t desync_cut,
+    uint32_t max_skew, const bool* deliver,
     const int32_t* n_real, const int32_t* f, const int32_t* view,
     const int32_t* timer, const bool* pp_seen, const int32_t* pp_view,
     const int32_t* pp_val, const bool* prepared, const bool* committed,
@@ -266,12 +281,18 @@ extern "C" int ctt_pbft_view_preprepare(
                                    rows);
   int err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
+  const bool desync = desync_cut != 0u;
+  if (desync && max_skew == 0u)
+    return static_cast<int>(cudaErrorInvalidValue);
   const auto catchup =
-      crash ? pbft_catchup_kernel<true> : pbft_catchup_kernel<false>;
+      crash ? (desync ? pbft_catchup_kernel<true, true>
+                      : pbft_catchup_kernel<true, false>)
+            : (desync ? pbft_catchup_kernel<false, true>
+                      : pbft_catchup_kernel<false, false>);
   catchup<<<blocks, THREADS, 0, st>>>(
-      seed, r, churn_cut, view_timeout, vmax, deliver, n_real, f, view,
-      timer, order, view_out, timer_out, reset_out, catch_out, flags, N,
-      rows);
+      seed, r, churn_cut, view_timeout, vmax, desync_cut, max_skew, deliver,
+      n_real, f, view, timer, order, view_out, timer_out, reset_out,
+      catch_out, flags, N, rows);
   if ((err = static_cast<int>(cudaGetLastError())) != 0) return err;
   const unsigned warp_blocks =
       static_cast<unsigned>((rows + WARPS - 1) / WARPS);

@@ -4,8 +4,10 @@
 // SPEC §2 murmur-style delivery mixer (mix_absorb_jnp / mix_fin_jnp /
 // delivery_u32_jnp), with the SPEC §A.2 retransmission draw (delay_u32_jnp)
 // and the delayed-retransmission term of consensus_tpu/ops/adversary.py
-// (delayed_open, K13). All arithmetic is uint32 and wraps, which is the whole
-// contract: the draws equal the JAX package's bit for bit.
+// (delayed_open, K13), and the SPEC §B timer skew of
+// consensus_tpu/ops/viewsync.py (desync_skew, K22). All arithmetic is uint32
+// and wraps, which is the whole contract: the draws equal the JAX package's
+// bit for bit.
 #pragma once
 
 #include <cstdint>
@@ -20,6 +22,7 @@ constexpr uint32_t STREAM_STAKE = 0x165667B1u;
 constexpr uint32_t STREAM_VOTE = 0xD3A2646Cu;
 constexpr uint32_t STREAM_VALUE = 0xFD7046C5u;
 constexpr uint32_t STREAM_DELAY = 0x2545F491u;
+constexpr uint32_t STREAM_DESYNC = 0x5BE0CD19u;
 
 __device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
   return (x << r) | (x >> (32 - r));
@@ -118,6 +121,24 @@ __device__ __forceinline__ bool delayed_open(uint32_t seed, uint32_t r,
       return true;
   }
   return false;
+}
+
+// K22 desync_skew (consensus_tpu/ops/viewsync.py:40-53; the oracle's
+// cpp/oracle.cpp:968-977): the SPEC §B timer skew of node `id` (an absolute
+// id, so a padded ladder lane draws what a standalone run draws) in round r:
+// 0 where the activation draw (seed ^ DESYNC, r, 0, id) is not below
+// desync_cut, else 1 + the depth draw (r, 1, id) mod max_skew, in
+// [1, max_skew]. The depth is drawn only where the activation fires. Only
+// the DESYNC instances of the kernels that take a round's timer (KQ, KT,
+// KAJ) call it, picked at launch where desync_cut != 0: the instances
+// without it are the kernels as they were before the skew existed.
+__device__ __forceinline__ int32_t desync_skew(uint32_t seed, uint32_t r,
+                                               uint32_t id,
+                                               uint32_t desync_cut,
+                                               uint32_t max_skew) {
+  if (random_u32(seed, STREAM_DESYNC, r, 0u, id) >= desync_cut) return 0;
+  return 1 + static_cast<int32_t>(
+                 random_u32(seed, STREAM_DESYNC, r, 1u, id) % max_skew);
 }
 
 }  // namespace ctt

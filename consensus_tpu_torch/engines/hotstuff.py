@@ -1,11 +1,12 @@
 """Chained HotStuff in PyTorch: SPEC §7b, the linear-communication BFT
 engine.
 
-The port of ``consensus_tpu/engines/hotstuff.py`` on its flat path (no
-crash, desync, byzantine or switch gates; with the SPEC §A.2 delayed
-retransmission on the broadcast rows and the votes), with its telemetry and
-flight recorder. Every node keeps its own pacemaker (view, timer) and
-committed prefix; the QC chain (b1, b2, b3), the certified-view map and
+The port of ``consensus_tpu/engines/hotstuff.py`` on its flat path and
+under the SPEC §A.2 delayed retransmission on the broadcast rows and the
+votes, the SPEC §6c crash-recover adversary and the SPEC §B timer skew (no
+byzantine or switch gates), with its telemetry and flight recorder. Every
+node keeps its own pacemaker (view, timer) and committed prefix; the QC
+chain (b1, b2, b3), the certified-view map and
 the global commit are per sweep. A round is three lane-wide steps in a
 row: P1's highest-view gossip needs the highest view and the lowest id
 holding it, P2's proposal the highest proposing view V* after P1, and the
@@ -13,9 +14,13 @@ QC of P3 the vote count at V*'s leader; P4's chain shift, P6's learning
 and P7's pacemaker follow from the QC. Sweeps (lanes) are a leading batch
 axis B on every tensor.
 
-Four functions are wrappers of hand-written CUDA kernels, each beside its
+Five functions are wrappers of hand-written CUDA kernels, each beside its
 plain PyTorch version (``<name>_plain``), which CPU tensors run:
 
+* :func:`hotstuff_prologue` — kernel KAJ (``csrc/hotstuff_prologue.cu``),
+  on a round with a §6c or §B gate on: the recovery reset, the timer skew
+  and its premature timeouts, and P1's key over the nodes up (lane word
+  KEY);
 * :func:`hotstuff_propose` — kernel KAD (``csrc/hotstuff_propose.cu``):
   P0's churn and partition draws, P1's gossip and P2's proposers, whose
   highest view it reduces into the lane word VMAX;
@@ -29,14 +34,27 @@ plain PyTorch version (``<name>_plain``), which CPU tensors run:
 * :func:`hotstuff_extract` — kernel KAG (``csrc/hotstuff_extract.cu``):
   the decided logs (``committed``, ``dval``) from the carry, once a run.
 
-On the card a round is KAD, KAE and KAF and nothing else: no memset and
-no PyTorch op. The lane-wide steps cross launches through ``lane``, a
+On the card a flat round is KAD, KAE and KAF and nothing else: no memset
+and no PyTorch op. The lane-wide steps cross launches through ``lane``, a
 [B, LANE_WORDS] int64 leaf the JAX carry does not have: P1's extremes of
 the views at round entry, which KAF of the round before reduces
 (:func:`p1_key`), and the kernels' accumulators, which each kernel leaves
 at rest for the next (:func:`lane_at_rest`). ``chain_v`` and ``lane`` are
 updated in place; every other tensor a round writes is fresh, so no block
 reads what another block of its launch writes.
+
+The gates break P1's key of the flat round: a §6c recovery resets a view
+at round entry and a down node may not gossip, and a §B premature timeout
+moves a view at round entry, after KAF built TOP. So a round of a run with
+``crash_prob > 0`` or ``desync_rate > 0`` starts with KAJ (after kernel KAH,
+``ops/adversary.py`` ``crash_transition``, where a crash is on), which
+rebuilds the key over the nodes up into the KEY word, and KAD reads KEY: 4
+launches a desync round, 5 a crash round. KAD, KAE and KAF have CRASH
+instances, picked by the round's flag word: a down node neither hears the
+gossip, proposes nor receives the proposal, and KAF counts every node's
+round as the JAX round does, down nodes included, then writes a down node
+its frozen view, timer and prefix (its input after the recovery reset,
+without the skew).
 """
 from __future__ import annotations
 
@@ -46,11 +64,12 @@ import torch
 
 from ..core import rng
 from ..core.config import Config
-from ..ops.adversary import (AGG_TELEMETRY, CRASH_TELEMETRY, SAFETY_TELEMETRY,
-                             bitcast_i32, open_drop_plain)
+from ..ops.adversary import (AGG_TELEMETRY, CRASH_DOWN, CRASH_REC,
+                             CRASH_TELEMETRY, SAFETY_TELEMETRY, bitcast_i32,
+                             crash_step, open_drop_plain)
 from ..ops.flight import (add_plain, bucket_counts_plain, check_recorder,
                           window_of)
-from ..ops.viewsync import SYNC_TELEMETRY, sync_counts_plain
+from ..ops.viewsync import SYNC_TELEMETRY, desync_skew_plain, sync_counts_plain
 from .raft import check_all
 
 # The engine's name, as the JAX package's EngineDef names it.
@@ -65,8 +84,8 @@ FORK_TABLE = 8
 # consensus_tpu/engines/hotstuff.py HOTSTUFF_TELEMETRY (lines 158-169):
 # rounds forming a QC, the global commit's advance, the per-node committed
 # prefixes' advance, per-node timeout view changes, proposal receivers,
-# votes the leader counted; then the crash, aggregation and safety tails
-# (zeros here) and the SPEC §B view-sync tail.
+# votes the leader counted; then the crash tail (kernel KAH's), the
+# aggregation and safety tails (zeros here) and the SPEC §B view-sync tail.
 HOTSTUFF_TELEMETRY = ("qc_formed", "blocks_committed", "commits_learned",
                       "view_changes", "proposals_delivered",
                       "votes_counted") + CRASH_TELEMETRY + AGG_TELEMETRY \
@@ -77,8 +96,11 @@ HOTSTUFF_TELEMETRY = ("qc_formed", "blocks_committed", "commits_learned",
 HOTSTUFF_LATENCY = ("view_change_wait_rounds", "chain_commit_lag_rounds")
 
 # The words of ``lane``, a lane's int64 words between launches, and what
-# each holds between rounds ("at rest"):
-TOP = 0         # P1's key of the views at round entry (see p1_key)
+# each holds between rounds ("at rest"; csrc/hotstuff.cuh says who writes
+# each):
+TOP = 0         # P1's key of the views at round entry (see p1_key); on a
+#                 crash run the key of the nodes up, read for the spread
+#                 only
 VMAX = 1        # KAD's max of the proposers' views; at rest -1
 VOTES = 2       # KAE's vote count; at rest 0
 DONE_VOTE = 3   # KAE's finished blocks; at rest 0
@@ -86,7 +108,10 @@ VSTAR = 4       # the round's V*, which KAE's last block writes for KAF
 COUNTED = 5     # the round's vote count, likewise
 VMIN = 6        # KAF's min of the end-of-round views; at rest I64_MAX
 DONE_LEARN = 7  # KAF's finished blocks (with telemetry); at rest 0
-LANE_WORDS = 8
+KEY = 8         # KAJ's P1 key over the nodes up on a gated round, which
+#                 KAD then reads; at rest KEY_REST
+LANE_WORDS = 9
+KEY_REST = -1   # reads as vM = -1, M = N: no gossip
 I64_MIN = -2**63
 I64_MAX = 2**63 - 1
 # The JAX carry's leaves, in its order (consensus_tpu/engines/hotstuff.py
@@ -123,14 +148,33 @@ def _wrap(x) -> torch.Tensor:
     return bitcast_i32(rng.as_u32(x))
 
 
-def p1_key(view) -> torch.Tensor:
+def _keys(view) -> torch.Tensor:
+    """[B, N] int64: each node's ``(view << 32) | (N - 1 - id)``."""
+    N = view.shape[1]
+    low = N - 1 - torch.arange(N, dtype=torch.int64, device=view.device)
+    return (view.to(torch.int64) << 32) | low
+
+
+def p1_key(view, up=None) -> torch.Tensor:
     """[B] int64: the largest ``(view << 32) | (N - 1 - id)`` over a lane's
     nodes ([B, N] int32 ``view``), whose high word is the highest view and
     low word N - 1 minus the lowest id holding it: P1's gossiper (lines
-    267-268 of the JAX round, every node honest and live)."""
-    N = view.shape[1]
-    low = N - 1 - torch.arange(N, dtype=torch.int64, device=view.device)
-    return ((view.to(torch.int64) << 32) | low).amax(1)
+    267-268 of the JAX round, every node honest and live). With ``up`` ([B,
+    N] bool), over the nodes up only and at least KEY_REST: the KEY word
+    kernel KAJ builds, whose high word is the JAX round's vM where that is
+    >= 0 (the only case in which P1 reads it) and -1 else."""
+    if up is None:
+        return _keys(view).amax(1)
+    return torch.where(up, _keys(view), KEY_REST).amax(1)
+
+
+def gossiper(key, N: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """P1's (vM, M), [B] int32 and int64, of the [B] int64 keys ``key``
+    (:func:`p1_key`) of lanes of N nodes, as kernel KAD decodes them: M is
+    N - 1 minus the low word read as int32, so that KEY_REST gives M = N."""
+    low = key & 0xFFFFFFFF
+    return ((key >> 32).to(torch.int32),
+            N - 1 - torch.where(low >= 2**31, low - 2**32, low))
 
 
 def lane_at_rest(view) -> torch.Tensor:
@@ -142,7 +186,14 @@ def lane_at_rest(view) -> torch.Tensor:
     lane[:, VMAX] = -1
     lane[:, VSTAR] = -1
     lane[:, VMIN] = I64_MAX
+    lane[:, KEY] = KEY_REST
     return lane
+
+
+def gated(cfg: Config) -> bool:
+    """Whether a round of ``cfg`` runs KAJ first and reads P1's key off KEY:
+    a SPEC §6c crash or a SPEC §B skew is on."""
+    return cfg.crash_on or cfg.desync_on
 
 
 def _open_from(cfg: Config, seed, r: int, src, N: int) -> torch.Tensor:
@@ -165,13 +216,104 @@ def _open_from(cfg: Config, seed, r: int, src, N: int) -> torch.Tensor:
     return ok & ((side == side_s) | ~part)
 
 
+# --- KAJ: the gated prologue ---------------------------------------------------
+
+def hotstuff_prologue_plain(cfg: Config, seed, r: int, view, timer, lane,
+                            flags=None, t=None, w=None):
+    """Plain version of KAJ, the JAX round's lines 207-230 and 266-268 on
+    a round with a SPEC §6c crash (``flags``, the round's [B, N] uint8 flag
+    word of kernel KAH) or a SPEC §B skew (``cfg.desync_on``) on: a node
+    that recovered this round rejoins at view 0 and timer 0; then its timer
+    takes its skew (:func:`~consensus_tpu_torch.ops.viewsync.
+    desync_skew_plain`), and where that reaches ``view_timeout`` the node
+    moves to the next view with timer 0. Every node runs it, down nodes
+    too. ``lane[:, KEY]`` takes the max with :func:`p1_key` of the new
+    views over the nodes not down (in place). With the totals ``t`` ([B,
+    K] int32) and the window ring ``w``, the premature timeouts are added
+    into view_changes (of window ``r // cfg.telemetry_window``). Returns
+    (view, timer), fresh [B, N] int32."""
+    N = view.shape[1]
+    if flags is not None:
+        rec = (flags & CRASH_REC) != 0
+        view = torch.where(rec, 0, view)
+        timer = torch.where(rec, 0, timer)
+    if cfg.desync_on:
+        ids = torch.arange(N, dtype=torch.int64, device=view.device)
+        timer = _wrap(timer.to(torch.int64) + desync_skew_plain(
+            seed, r, ids, cfg.desync_cutoff, cfg.max_skew_rounds))
+        pre = timer >= cfg.view_timeout
+        view = _wrap(view.to(torch.int64) + pre.to(torch.int64))
+        timer = torch.where(pre, 0, timer)
+        if t is not None:
+            col = HOTSTUFF_TELEMETRY.index("view_changes")
+            n = pre.sum(1, dtype=torch.int32)
+            t[:, col] += n
+            if w is not None:
+                w[:, r // cfg.telemetry_window, col] += n
+    up = torch.ones_like(view, dtype=torch.bool) if flags is None \
+        else (flags & CRASH_DOWN) == 0
+    lane[:, KEY] = torch.maximum(lane[:, KEY], p1_key(view, up))
+    return view, timer
+
+
+def hotstuff_prologue(cfg: Config, seed, r: int, view, timer, lane,
+                      flags=None, t=None, w=None):
+    """Kernel KAJ: same arguments, results and in-place updates as
+    :func:`hotstuff_prologue_plain`, which it runs for CPU tensors; for
+    CUDA tensors it launches ``csrc/hotstuff_prologue.cu`` (a thread per
+    (lane, node); the key by warp shuffles and one atomic a block; its
+    DESYNC instance with ``cfg.desync_on``, its CRASH instance with
+    ``flags``). Raises unless a gate is on."""
+    if flags is None and not cfg.desync_on:
+        raise ValueError("the prologue runs on gated rounds only: a crash "
+                         "(flags) or a desync")
+    if t is None and w is not None:
+        raise ValueError("the flight recorder rides the telemetry "
+                         "accumulator: pass t with w")
+    if view.device.type == "cpu":
+        return hotstuff_prologue_plain(cfg, seed, r, view, timer, lane,
+                                       flags, t, w)
+    from .. import _build
+    B, N = view.shape
+    dev = view.device
+    view, timer = view.contiguous(), timer.contiguous()
+    K = len(HOTSTUFF_TELEMETRY)
+    check_all(dev, (seed, torch.uint32, (B,)),
+              *((x, torch.int32, (B, N)) for x in (view, timer)),
+              (lane, torch.int64, (B, LANE_WORDS)),
+              *(() if flags is None else ((flags, torch.uint8, (B, N)),)),
+              *(() if t is None else ((t, torch.int32, (B, K)),)))
+    window = n_windows = 0
+    if w is not None:
+        n_windows = w.shape[1]
+        window = r // cfg.telemetry_window
+        check_all(dev, (w, torch.int32, (B, n_windows, K)))
+    out = torch.empty((2, B, N), dtype=torch.int32, device=dev)
+    _build.launch("hotstuff_prologue", seed.data_ptr(), int(r) & 0xFFFFFFFF,
+                  view.data_ptr(), timer.data_ptr(),
+                  None if flags is None else flags.data_ptr(),
+                  lane.data_ptr(), out.data_ptr(),
+                  *(None if x is None else x.data_ptr() for x in (t, w)),
+                  cfg.desync_cutoff, cfg.max_skew_rounds, cfg.view_timeout,
+                  B, N, K, HOTSTUFF_TELEMETRY.index("view_changes"), window,
+                  n_windows)
+    hotstuff_prologue.launches += 1
+    return tuple(out.unbind(0))
+
+
+hotstuff_prologue.launches = 0
+
+
 # --- KAD: P0-P2 ----------------------------------------------------------------
 
-def hotstuff_propose_plain(cfg: Config, seed, r: int, view, b1_h, lane):
-    """Plain version of KAD, the JAX round's lines 232-299 on its flat
-    path. P1: the gossiper M and its view vM are read off ``lane[:,
-    TOP]``; a node j != M whose row from M is open (:func:`_open_from`)
-    and whose view is below vM >= 0 catches up to vM. P2: node i proposes
+def hotstuff_propose_plain(cfg: Config, seed, r: int, view, b1_h, lane,
+                           flags=None):
+    """Plain version of KAD, the JAX round's lines 232-299. P1: the
+    gossiper M and its view vM are read off ``lane[:, TOP]`` (``lane[:,
+    KEY]`` where :func:`gated`); a node j != M whose row from M is open
+    (:func:`_open_from`) and whose view is below vM >= 0 catches up to vM.
+    With the round's SPEC §6c ``flags``, a node down at the round's end
+    neither catches up nor proposes (lines 271-272, 294). P2: node i proposes
     when its view after P1 elects it (view mod N == i, floor modulo),
     the round's churn event does not fire and the log has room (b1_h + 1
     < S). The largest proposing view above -1 is merged into ``lane[:,
@@ -179,17 +321,17 @@ def hotstuff_propose_plain(cfg: Config, seed, r: int, view, b1_h, lane):
     catch-up flags ``adv`` [B, N] bool)."""
     N, S = view.shape[1], cfg.log_capacity
     idx = torch.arange(N, dtype=torch.int64, device=view.device)
-    top = lane[:, TOP]
-    vM = (top >> 32).to(torch.int32)[:, None]
-    M = (N - 1 - (top & 0xFFFFFFFF))[:, None]
+    vM, M = gossiper(lane[:, KEY if gated(cfg) else TOP], N)
+    vM, M = vM[:, None], M[:, None]
     gdel = (vM >= 0) & (idx != M) & _open_from(cfg, seed, r,
                                                 M[:, 0].clamp(0, N - 1), N)
-    adv = gdel & (view < vM)
+    up = torch.ones_like(gdel) if flags is None else (flags & CRASH_DOWN) == 0
+    adv = gdel & (view < vM) & up
     view1 = torch.where(adv, vM, view)
     churn = rng.random_u32_plain(seed, rng.STREAM_CHURN, r, 0, 0) \
         < cfg.churn_cutoff                                       # [B, 1]
-    prop = (view1 % N == idx) & ~churn & (_wrap(b1_h.to(torch.int64) + 1)
-                                          < S)[:, None]
+    prop = (view1 % N == idx) & ~churn & up & (
+        _wrap(b1_h.to(torch.int64) + 1) < S)[:, None]
     cand = torch.where(prop, view1, -1).amax(1).to(torch.int64)
     lane[:, VMAX] = torch.where(cand > -1,
                                 torch.maximum(lane[:, VMAX], cand),
@@ -197,28 +339,32 @@ def hotstuff_propose_plain(cfg: Config, seed, r: int, view, b1_h, lane):
     return view1, adv
 
 
-def hotstuff_propose(cfg: Config, seed, r: int, view, b1_h, lane):
+def hotstuff_propose(cfg: Config, seed, r: int, view, b1_h, lane,
+                     flags=None):
     """Kernel KAD: same arguments, result and in-place update as
     :func:`hotstuff_propose_plain`, which it runs for CPU tensors; for
     CUDA tensors it launches ``csrc/hotstuff_propose.cu`` (a thread per
     (lane, node); a warp's largest proposing view goes into VMAX with one
-    atomic)."""
+    atomic; its CRASH instance with ``flags``)."""
     if view.device.type == "cpu":
-        return hotstuff_propose_plain(cfg, seed, r, view, b1_h, lane)
+        return hotstuff_propose_plain(cfg, seed, r, view, b1_h, lane, flags)
     from .. import _build
     B, N = view.shape
     dev = view.device
     view, b1_h = view.contiguous(), b1_h.contiguous()
     check_all(dev, (seed, torch.uint32, (B,)), (view, torch.int32, (B, N)),
               (b1_h, torch.int32, (B,)),
-              (lane, torch.int64, (B, LANE_WORDS)))
+              (lane, torch.int64, (B, LANE_WORDS)),
+              *(() if flags is None else ((flags, torch.uint8, (B, N)),)))
     view1 = torch.empty((B, N), dtype=torch.int32, device=dev)
     adv = torch.empty((B, N), dtype=torch.bool, device=dev)
     _build.launch("hotstuff_propose", seed.data_ptr(), int(r) & 0xFFFFFFFF,
                   view.data_ptr(), b1_h.data_ptr(), lane.data_ptr(),
-                  view1.data_ptr(), adv.data_ptr(), cfg.drop_cutoff,
-                  cfg.partition_cutoff, cfg.churn_cutoff,
-                  cfg.max_delay_rounds, B, N, cfg.log_capacity)
+                  view1.data_ptr(), adv.data_ptr(),
+                  None if flags is None else flags.data_ptr(),
+                  cfg.drop_cutoff, cfg.partition_cutoff, cfg.churn_cutoff,
+                  cfg.max_delay_rounds, KEY if gated(cfg) else TOP, B, N,
+                  cfg.log_capacity)
     hotstuff_propose.launches += 1
     return view1, adv
 
@@ -229,22 +375,24 @@ hotstuff_propose.launches = 0
 # --- KAE: P2's delivery, P3, P4 ------------------------------------------------
 
 def hotstuff_vote_plain(cfg: Config, seed, r: int, view1, lane, b1_v, b1_h,
-                        b2_v, b2_h, b3_v, b3_h, gcommit, chain_v):
-    """Plain version of KAE, the JAX round's lines 300-433 on its flat
-    path. V* is ``lane[:, VMAX]``; when V* >= 0 its leader L = V* mod N
-    broadcasts, else L = 0 and nobody hears a proposal. Node j receives it
-    (``pdel``) when j == L or L's row to j is open, and its view after P1
-    is not above V*; a receiver's vote reaches L when j == L or the
-    mixer's draw of edge (j, L) is not below the drop cutoff or a vote lost
-    on (j, L) in one of the last ``max_delay_rounds`` rounds arrives now
-    (SPEC §A.2, the JAX round's lines 303-309). The QC forms
+                        b2_v, b2_h, b3_v, b3_h, gcommit, chain_v, flags=None):
+    """Plain version of KAE, the JAX round's lines 300-433 without the
+    byzantine and switch gates. V* is ``lane[:, VMAX]``; when V* >= 0 its
+    leader L = V* mod N broadcasts, else L = 0 and nobody hears a proposal.
+    Node j receives it (``pdel``) when j == L or L's row to j is open, and
+    its view after P1 is not above V*; a receiver's vote reaches L when j ==
+    L or the mixer's draw of edge (j, L) is not below the drop cutoff or a
+    vote lost on (j, L) in one of the last ``max_delay_rounds`` rounds
+    arrives now (SPEC §A.2, the JAX round's lines 303-309). The QC forms
     when the lane's votes, added to ``lane[:, VOTES]``, reach Q = 2f + 1;
-    then b1, b2, b3 shift, ``chain_v[h_next]`` takes V* (in place), and
-    with three consecutive views the global commit becomes max(gcommit,
-    b3_h + 1) of the NEW b3. ``lane`` leaves at rest (in place): VSTAR
-    and COUNTED hold the round's V* and vote count for KAF, TOP is
-    emptied for KAF's reduction. Returns (pdel [B, N] bool, then b1_v,
-    b1_h, b2_v, b2_h, b3_v, b3_h, gcommit after P4, fresh [B] int32)."""
+    then b1, b2, b3 shift, ``chain_v[h_next]`` takes V* (in place), and with
+    three consecutive views the global commit becomes max(gcommit, b3_h + 1)
+    of the NEW b3. With the round's SPEC §6c ``flags``, a node down at the
+    round's end receives nothing (line 312). ``lane`` leaves at rest (in
+    place): VSTAR and COUNTED hold the round's V* and vote count for KAF,
+    TOP is emptied for KAF's reduction, KEY is at rest. Returns (pdel [B, N]
+    bool, then b1_v, b1_h, b2_v, b2_h, b3_v, b3_h, gcommit after P4, fresh
+    [B] int32)."""
     N, S, Q = view1.shape[1], cfg.log_capacity, 2 * cfg.f + 1
     dev = view1.device
     idx = torch.arange(N, dtype=torch.int64, device=dev)
@@ -257,6 +405,8 @@ def hotstuff_vote_plain(cfg: Config, seed, r: int, view1, lane, b1_v, b1_h,
     open_v = open_drop_plain(useed, r, idx, L[:, None], cfg.drop_cutoff,
                              cfg.max_delay_rounds)
     pdel = exists[:, None] & (is_l | open_p) & (view1 <= vstar[:, None])
+    if flags is not None:
+        pdel &= (flags & CRASH_DOWN) == 0
     cnt = lane[:, VOTES] + (pdel & (is_l | open_v)).sum(1)
     qc = exists & (cnt >= Q)
     h_next = _wrap(b1_h.to(torch.int64) + 1)
@@ -276,19 +426,22 @@ def hotstuff_vote_plain(cfg: Config, seed, r: int, view1, lane, b1_v, b1_h,
     lane[:, VOTES] = 0
     lane[:, DONE_VOTE] = 0
     lane[:, TOP] = I64_MIN
+    lane[:, KEY] = KEY_REST
     return pdel, nb1_v, nb1_h, nb2_v, nb2_h, nb3_v, nb3_h, ngc
 
 
 def hotstuff_vote(cfg: Config, seed, r: int, view1, lane, b1_v, b1_h, b2_v,
-                  b2_h, b3_v, b3_h, gcommit, chain_v):
+                  b2_h, b3_v, b3_h, gcommit, chain_v, flags=None):
     """Kernel KAE: same arguments, results and in-place updates as
     :func:`hotstuff_vote_plain`, which it runs for CPU tensors; for CUDA
     tensors it launches ``csrc/hotstuff_vote.cu`` (a thread per (lane,
     node); votes counted by a ballot a warp, a shared atomic a warp and a
-    global one a block; the lane's last block does P4)."""
+    global one a block; the lane's last block does P4; its CRASH instance
+    with ``flags``)."""
     if view1.device.type == "cpu":
         return hotstuff_vote_plain(cfg, seed, r, view1, lane, b1_v, b1_h,
-                                   b2_v, b2_h, b3_v, b3_h, gcommit, chain_v)
+                                   b2_v, b2_h, b3_v, b3_h, gcommit, chain_v,
+                                   flags)
     from .. import _build
     B, N = view1.shape
     S = cfg.log_capacity
@@ -299,13 +452,15 @@ def hotstuff_vote(cfg: Config, seed, r: int, view1, lane, b1_v, b1_h, b2_v,
     check_all(dev, (seed, torch.uint32, (B,)), (view1, torch.int32, (B, N)),
               (lane, torch.int64, (B, LANE_WORDS)),
               *((x, torch.int32, (B,)) for x in regs),
-              (chain_v, torch.int32, (B, S)))
+              (chain_v, torch.int32, (B, S)),
+              *(() if flags is None else ((flags, torch.uint8, (B, N)),)))
     pdel = torch.empty((B, N), dtype=torch.bool, device=dev)
     new = torch.empty((7, B), dtype=torch.int32, device=dev)
     _build.launch("hotstuff_vote", seed.data_ptr(), int(r) & 0xFFFFFFFF,
                   view1.data_ptr(), lane.data_ptr(),
                   *(x.data_ptr() for x in regs), chain_v.data_ptr(),
-                  pdel.data_ptr(), new.data_ptr(), cfg.drop_cutoff,
+                  pdel.data_ptr(), new.data_ptr(),
+                  None if flags is None else flags.data_ptr(), cfg.drop_cutoff,
                   cfg.partition_cutoff, cfg.max_delay_rounds, 2 * cfg.f + 1,
                   B, N, S)
     hotstuff_vote.launches += 1
@@ -319,22 +474,28 @@ hotstuff_vote.launches = 0
 
 def hotstuff_learn_plain(cfg: Config, r: int, view1, pdel, adv, timer, clen,
                          lane, gcommit, b1_h_new, gcommit_new, t=None,
-                         w=None, lat=None):
-    """Plain version of KAF, the JAX round's lines 456-480 on its flat
-    path and, with the accumulator ``t`` ([B, K] int32), its telemetry
-    tail (lines 485-519). With the round's V* and vote count from ``lane``
-    (the QC forms when V* >= 0 and the count reaches 2f + 1): a receiver
-    enters V* + 1 on a QC, else V*, and grows its committed prefix to the
-    OLD ``gcommit`` (the commit as of proposal time); a node with neither
-    a proposal nor a catch-up whose timer + 1 reaches view_timeout moves
-    to the next view, and the timer restarts on progress or timeout.
-    ``lane[:, TOP]`` takes the max with :func:`p1_key` of the new views
-    (in place). With ``t``, the round's counters are added into ``t`` and,
-    with the flight recorder (``w`` [B, n_windows, K] and ``lat`` [B, 2,
-    N_BUCKETS], both or neither), into window ``r // cfg.telemetry_window``
-    of ``w``, and the two histograms into ``lat``: the blocks committed
-    are ``gcommit_new - gcommit``, the pipeline depth ``b1_h_new + 1 -
-    gcommit_new``. Returns (view, timer, clen), fresh [B, N] int32."""
+                         w=None, lat=None, crash=None):
+    """Plain version of KAF, the JAX round's lines 456-480 and, with the
+    accumulator ``t`` ([B, K] int32), its telemetry tail (lines 485-519),
+    without the byzantine and switch gates. With the round's V* and vote
+    count from ``lane`` (the QC forms when V* >= 0 and the count reaches 2f
+    + 1): a receiver enters V* + 1 on a QC, else V*, and grows its committed
+    prefix to the OLD ``gcommit`` (the commit as of proposal time); a node
+    with neither a proposal nor a catch-up whose timer + 1 reaches
+    view_timeout moves to the next view, and the timer restarts on progress
+    or timeout. ``lane[:, TOP]`` takes the max with :func:`p1_key` of the
+    new views (in place). With ``t``, the round's counters are added into
+    ``t`` and, with the flight recorder (``w`` [B, n_windows, K] and ``lat``
+    [B, 2, N_BUCKETS], both or neither), into window ``r //
+    cfg.telemetry_window`` of ``w``, and the two histograms into ``lat``:
+    the blocks committed are ``gcommit_new - gcommit``, the pipeline depth
+    ``b1_h_new + 1 - gcommit_new``. With ``crash`` = (flags, view_in,
+    timer_in), the round's SPEC §6c flag word and its input view and timer
+    ([B, N]), every node's round is counted as above, down nodes included,
+    and then a node down at the round's end takes its frozen view and timer:
+    its input's, 0 where it recovered this round (lines 473-480); ``lane[:,
+    TOP]`` and the view spread take the nodes up only (line 504). Returns
+    (view, timer, clen), fresh [B, N] int32."""
     check_recorder(cfg, w, lat)
     Q = 2 * cfg.f + 1
     vstar = lane[:, VSTAR].to(torch.int32)
@@ -348,11 +509,20 @@ def hotstuff_learn_plain(cfg: Config, r: int, view1, pdel, adv, timer, clen,
     to = ~progress & (tick >= cfg.view_timeout)
     view3 = _wrap(view2.to(torch.int64) + to.to(torch.int64))
     timer2 = torch.where(progress | to, 0, tick)
-    lane[:, TOP] = torch.maximum(lane[:, TOP], p1_key(view3))
+    up = torch.ones_like(pdel)
+    out = (view3, timer2, clen2)
+    if crash is not None:
+        flags, view_in, timer_in = crash
+        up = (flags & CRASH_DOWN) == 0
+        rec = (flags & CRASH_REC) != 0
+        out = (torch.where(up, view3, torch.where(rec, 0, view_in)),
+               torch.where(up, timer2, torch.where(rec, 0, timer_in)), clen2)
+    lane[:, TOP] = torch.maximum(
+        lane[:, TOP], torch.where(up, _keys(view3), I64_MIN).amax(1))
     if t is None:
-        return view3, timer2, clen2
+        return out
     B = view1.shape[0]
-    sync = sync_counts_plain(view3, torch.ones_like(pdel), adv)
+    sync = sync_counts_plain(view3, up, adv)
     vec = torch.zeros_like(t)
     vec[:, :6] = torch.stack([
         qc.to(torch.int32), _wrap(gcommit_new.to(torch.int64) - gcommit),
@@ -368,12 +538,12 @@ def hotstuff_learn_plain(cfg: Config, r: int, view1, pdel, adv, timer, clen,
                  bucket_counts_plain(lag, torch.ones((B, 1), dtype=torch.bool,
                                                      device=lag.device)))
     add_plain(cfg, r, vec, t, w, lat, hists)
-    return view3, timer2, clen2
+    return out
 
 
 def hotstuff_learn(cfg: Config, r: int, view1, pdel, adv, timer, clen, lane,
                    gcommit, b1_h_new, gcommit_new, t=None, w=None,
-                   lat=None):
+                   lat=None, crash=None):
     """Kernel KAF: same arguments, results and in-place updates as
     :func:`hotstuff_learn_plain`, which it runs for CPU tensors; for CUDA
     tensors it launches ``csrc/hotstuff_learn.cu`` (a thread per (lane,
@@ -381,7 +551,8 @@ def hotstuff_learn(cfg: Config, r: int, view1, pdel, adv, timer, clen, lane,
     block; with telemetry, counters by warp sums and one atomic a block
     and counter, and the lane's last block adds the lane's counters, the
     view spread and the pipeline depth). Without ``t`` the kernel gets
-    null accumulator pointers and does no telemetry work."""
+    null accumulator pointers and does no telemetry work; its CRASH
+    instance with ``crash``."""
     check_recorder(cfg, w, lat)
     if t is None and w is not None:
         raise ValueError("the flight recorder rides the telemetry "
@@ -389,7 +560,7 @@ def hotstuff_learn(cfg: Config, r: int, view1, pdel, adv, timer, clen, lane,
     if view1.device.type == "cpu":
         return hotstuff_learn_plain(cfg, r, view1, pdel, adv, timer, clen,
                                     lane, gcommit, b1_h_new, gcommit_new, t,
-                                    w, lat)
+                                    w, lat, crash)
     from .. import _build
     B, N = view1.shape
     dev = view1.device
@@ -400,6 +571,10 @@ def hotstuff_learn(cfg: Config, r: int, view1, pdel, adv, timer, clen, lane,
               *((x, torch.bool, (B, N)) for x in (pdel, adv)),
               (lane, torch.int64, (B, LANE_WORDS)),
               *((x, torch.int32, (B,)) for x in regs))
+    if crash is not None:
+        crash = tuple(x.contiguous() for x in crash)
+        check_all(dev, (crash[0], torch.uint8, (B, N)),
+                  *((x, torch.int32, (B, N)) for x in crash[1:]))
     window = n_windows = 0
     if t is not None:
         window, n_windows = window_of(cfg, r, t, w, lat, len(HOTSTUFF_LATENCY))
@@ -410,6 +585,7 @@ def hotstuff_learn(cfg: Config, r: int, view1, pdel, adv, timer, clen, lane,
     _build.launch("hotstuff_learn", *(x.data_ptr() for x in (
         view1, pdel, adv, timer, clen, lane, *regs, out)),
         *(None if x is None else x.data_ptr() for x in (t, w, lat)),
+        *((None,) * 3 if crash is None else (x.data_ptr() for x in crash)),
         2 * cfg.f + 1, cfg.view_timeout, B, N, window, n_windows)
     hotstuff_learn.launches += 1
     return tuple(out.unbind(0))
@@ -517,8 +693,10 @@ def hotstuff_init(cfg: Config, seeds: torch.Tensor) -> HotstuffState:
 def hotstuff_round(cfg: Config, st: HotstuffState, r: int, *, telem=None,
                    flight=None) -> HotstuffState:
     """One SPEC §7b round, as ``consensus_tpu/engines/hotstuff.py``
-    ``hotstuff_round`` on its flat path: KAD, KAE and KAF, and nothing
-    else. ``chain_v`` and ``lane`` are updated in place, so the round
+    ``hotstuff_round`` without the byzantine and switch gates: KAD, KAE
+    and KAF, and nothing else on a flat round; with a SPEC §B skew KAJ
+    first, and with a SPEC §6c crash KAH and KAJ first (see the module's
+    notes). ``chain_v`` and ``lane`` are updated in place, so the round
     consumes ``st``.
 
     ``telem`` ([B, K] i32, the run's counter totals) switches on the
@@ -529,17 +707,32 @@ def hotstuff_round(cfg: Config, st: HotstuffState, r: int, *, telem=None,
     if flight is not None and telem is None:
         raise ValueError("the flight recorder rides the telemetry "
                          "accumulator: pass telem with flight")
-    view1, adv = hotstuff_propose(cfg, st.seed, r, st.view, st.b1_h, st.lane)
+    w, lat = flight if flight is not None else (None, None)
+
+    # ---- SPEC §6c crash transition (KAH), then the gated prologue (KAJ):
+    # recovery reset, §B skew and premature timeouts, P1's key.
+    down, flags, crash = st.down, None, None
+    if cfg.crash_on:
+        down, flags = crash_step(cfg, st.seed, r, st.down, HOTSTUFF_TELEMETRY,
+                                 telem, flight)
+        crash = (flags, st.view, st.timer)
+    view, timer = st.view, st.timer
+    if gated(cfg):
+        view, timer = hotstuff_prologue(cfg, st.seed, r, view, timer,
+                                        st.lane, flags, telem, w)
+
+    # ---- P0-P2 (KAD), P2's delivery, P3-P4 (KAE), P6-P7 (KAF).
+    view1, adv = hotstuff_propose(cfg, st.seed, r, view, st.b1_h, st.lane,
+                                  flags)
     pdel, b1_v, b1_h, b2_v, b2_h, b3_v, b3_h, gcommit = hotstuff_vote(
         cfg, st.seed, r, view1, st.lane, st.b1_v, st.b1_h, st.b2_v, st.b2_h,
-        st.b3_v, st.b3_h, st.gcommit, st.chain_v)
+        st.b3_v, st.b3_h, st.gcommit, st.chain_v, flags)
     view, timer, clen = hotstuff_learn(
-        cfg, r, view1, pdel, adv, st.timer, st.clen, st.lane, st.gcommit,
-        b1_h, gcommit, telem, *(flight if flight is not None
-                                else (None, None)))
+        cfg, r, view1, pdel, adv, timer, st.clen, st.lane, st.gcommit, b1_h,
+        gcommit, telem, w, lat, crash)
     return st._replace(b1_v=b1_v, b1_h=b1_h, b2_v=b2_v, b2_h=b2_h,
                        b3_v=b3_v, b3_h=b3_h, gcommit=gcommit, view=view,
-                       timer=timer, clen=clen)
+                       timer=timer, clen=clen, down=down)
 
 
 def extract(st: HotstuffState) -> dict[str, torch.Tensor]:

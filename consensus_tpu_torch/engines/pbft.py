@@ -1,8 +1,8 @@
 """Dense PBFT in PyTorch: SPEC §6 with pairwise tallies over every node.
 
 The port of ``consensus_tpu/engines/pbft.py`` on its flat path and under
-the SPEC §A.2 delay and the SPEC §6c crash-recover adversary (no
-byzantine, switch or desync gates), with its telemetry and flight
+the SPEC §A.2 delay, the SPEC §6c crash-recover adversary and the SPEC §B
+timer skew (no byzantine or switch gates), with its telemetry and flight
 recorder, and, through the same functions, of
 ``consensus_tpu/engines/pbft_sweep.py``'s ``pbft_round_padded`` (which
 has no telemetry): every phase takes the per-lane population
@@ -38,7 +38,11 @@ node's round is then the JAX round's, down nodes included, since the
 telemetry counts their in-round slots (a down primary still pre-prepares
 to itself). So the freeze comes last, after KAA: kernel KAI
 (``ops/adversary.py`` ``freeze_down``) gives every down node's leaves
-back their post-reset values. The JAX package's ``_adopt_val`` is a one-hot reduction that only
+back their post-reset values. With ``desync_rate > 0`` KQ's DESYNC
+instance adds each node's SPEC §B timer skew to the timer it enters the
+round with (after the recovery reset, before P0); the freeze reads the
+round's input, so a down node's skew is dropped, as the JAX package drops
+it. The JAX package's ``_adopt_val`` is a one-hot reduction that only
 keeps a gather off the TPU; here it is plain indexing, with the same
 values.
 """
@@ -55,7 +59,7 @@ from ..ops.adversary import (AGG_TELEMETRY, CRASH_REC, CRASH_TELEMETRY,
                              delivery, freeze_down)
 from ..ops.flight import (add_plain, bucket_counts_plain, check_recorder,
                           window_of)
-from ..ops.viewsync import SYNC_TELEMETRY, sync_counts_plain
+from ..ops.viewsync import SYNC_TELEMETRY, desync_skew_plain, sync_counts_plain
 from .raft import check_all
 
 # The engine's name, as the JAX package's EngineDef names it.
@@ -193,7 +197,11 @@ def pbft_view_preprepare_plain(cfg: Config, seed, r: int, deliver, n_real, f,
     (view, timer, reset, pp_seen, pp_view, pp_val) and, with
     ``want_catch``, the [B, N] bool flags of the nodes P1 moved. With the
     round's SPEC §6c ``flags`` ([B, N] uint8, KAH), a recovered node's view
-    and timer are 0 before P0 (``consensus_tpu/engines/pbft.py:189-196``)."""
+    and timer are 0 before P0 (``consensus_tpu/engines/pbft.py:189-196``);
+    with ``cfg.desync_on``, each node's SPEC §B skew
+    (:func:`~consensus_tpu_torch.ops.viewsync.desync_skew_plain`, keyed by
+    its absolute id) is added to its timer after that and before P0
+    (``pbft.py:199-207``, ``pbft_sweep.py:175-182``)."""
     B, N, S = pp_seen.shape
     dev = view.device
     if flags is not None:
@@ -201,6 +209,9 @@ def pbft_view_preprepare_plain(cfg: Config, seed, r: int, deliver, n_real, f,
         view = torch.where(rec, 0, view)
         timer = torch.where(rec, 0, timer)
     idx = torch.arange(N, dtype=torch.int32, device=dev)
+    if cfg.desync_on:
+        timer = timer + desync_skew_plain(seed, r, idx, cfg.desync_cutoff,
+                                          cfg.max_skew_rounds)
     real = real_nodes(n_real, N)
     d_h = real_delivery(deliver, n_real)
     eye = torch.eye(N, dtype=torch.bool, device=dev)
@@ -258,7 +269,7 @@ def pbft_view_preprepare(cfg: Config, seed, r: int, deliver, n_real, f, view,
     lane's senders in that order for P1 and runs P2, then a warp per
     receiver runs P3 over its slots, reading its primary's row as it stood
     before P3; P1's flags only with ``want_catch``; its CRASH instance
-    with ``flags``)."""
+    with ``flags``, its DESYNC instance with ``cfg.desync_on``)."""
     if view.device.type == "cpu":
         return pbft_view_preprepare_plain(cfg, seed, r, deliver, n_real, f,
                                           view, timer, pp_seen, pp_view,
@@ -282,7 +293,8 @@ def pbft_view_preprepare(cfg: Config, seed, r: int, deliver, n_real, f, view,
     order = torch.empty((B, N), dtype=torch.int32, device=dev)
     _build.launch("pbft_view_preprepare", seed.data_ptr(),
                   int(r) & 0xFFFFFFFF, cfg.churn_cutoff, cfg.view_timeout,
-                  view_bound(cfg), *(t.data_ptr() for t in (
+                  view_bound(cfg), cfg.desync_cutoff, cfg.max_skew_rounds,
+                  *(t.data_ptr() for t in (
                       deliver, n_real, f, view, timer, pp_seen, pp_view,
                       pp_val, prepared, committed, view_out, timer_out, reset,
                       seen_out, pview_out, pval_out)),

@@ -1,9 +1,9 @@
 """PBFT under the broadcast-atomic fault model (SPEC §6b) in PyTorch.
 
 The port of ``consensus_tpu/engines/pbft_bcast.py`` on its flat path (no
-byzantine, switch or desync gates; with the SPEC §A.2 delayed
-retransmission on the per-sender broadcast key and the SPEC §6c
-crash-recover adversary), with its telemetry and
+byzantine or switch gates; with the SPEC §A.2 delayed retransmission on
+the per-sender broadcast key, the SPEC §6c crash-recover adversary and
+the SPEC §B timer skew), with its telemetry and
 flight recorder (kernel KAA, ``engines/pbft.py``
 :func:`~consensus_tpu_torch.engines.pbft.pbft_telemetry`, as the dense
 engine's), and, through the same functions, of
@@ -48,7 +48,9 @@ adversary.py`` ``crash_transition``) and ends with the freeze of
 recovered node's view and timer and writes bit 2; KU keeps a down node
 from preparing and KV from adopting (``pbft_bcast.py:333-356,
 639-664``); every down node's round is otherwise the JAX round's, which
-the telemetry counts.
+the telemetry counts. With ``desync_rate > 0`` KT's DESYNC instance adds
+each node's SPEC §B timer skew to the timer it enters the round with; the
+freeze reads the round's input, so a down node's skew is dropped.
 
 The plain versions follow the JAX package's algorithms (P1 by a binary
 search on the view range, P4-P5 by one sort and top-``m`` run tables);
@@ -63,6 +65,7 @@ from ..core import rng
 from ..core.config import Config
 from ..ops.adversary import (CRASH_DOWN, CRASH_REC, churn, crash_step,
                              open_drop_plain)
+from ..ops.viewsync import desync_skew_plain
 from . import pbft
 from .pbft import PbftState, fresh_values, real_nodes, view_bound
 from .raft import check_all
@@ -179,7 +182,10 @@ def bcast_view_preprepare_plain(cfg: Config, seed, r: int, n_real, f, view,
     node bits and, with ``want_catch``, the [B, N] bool flags of the nodes
     P1 moved. With the round's SPEC §6c ``flags`` ([B, N] uint8, KAH), a
     recovered node's view and timer are 0 before P0 (``consensus_tpu/
-    engines/pbft_bcast.py:438-445``) and the bits say who is down."""
+    engines/pbft_bcast.py:438-445``) and the bits say who is down; with
+    ``cfg.desync_on``, each node's SPEC §B skew (keyed by its absolute id)
+    is added to its timer after that and before P0 (``pbft_bcast.py:
+    446-453``, ``pbft_sweep.py:353-360``)."""
     B, N, S = pp_seen.shape
     dev = view.device
     idx = torch.arange(N, dtype=torch.int64, device=dev)
@@ -189,6 +195,9 @@ def bcast_view_preprepare_plain(cfg: Config, seed, r: int, n_real, f, view,
         rec = (flags & CRASH_REC) != 0
         view = torch.where(rec, 0, view)
         timer = torch.where(rec, 0, timer)
+    if cfg.desync_on:
+        timer = timer + desync_skew_plain(seed, r, idx, cfg.desync_cutoff,
+                                          cfg.max_skew_rounds)
     hb, side = hb_side(bits)
 
     # ---- P0 churn.
@@ -250,7 +259,8 @@ def bcast_view_preprepare(cfg: Config, seed, r: int, n_real, f, view, timer,
     histogram; a thread per receiver reads its side's two statistics off
     the histogram's suffix sums for P1 and runs P2; a thread per (receiver,
     slot) runs P3, reading the rows as they stood before P3; P1's flags
-    only with ``want_catch``; its CRASH instance with ``flags``)."""
+    only with ``want_catch``; its CRASH instance with ``flags``, its DESYNC
+    instance with ``cfg.desync_on``)."""
     if view.device.type == "cpu":
         return bcast_view_preprepare_plain(cfg, seed, r, n_real, f, view,
                                            timer, pp_seen, pp_view, pp_val,
@@ -278,8 +288,8 @@ def bcast_view_preprepare(cfg: Config, seed, r: int, n_real, f, view, timer,
     _build.launch("bcast_view_preprepare", seed.data_ptr(),
                   int(r) & 0xFFFFFFFF, cfg.churn_cutoff, cfg.drop_cutoff,
                   cfg.partition_cutoff, cfg.max_delay_rounds,
-                  cfg.view_timeout, vmax,
-                  *(t.data_ptr() for t in (
+                  cfg.view_timeout, vmax, cfg.desync_cutoff,
+                  cfg.max_skew_rounds, *(t.data_ptr() for t in (
                       n_real, f, view, timer, pp_seen, pp_view, pp_val,
                       prepared, committed, view_out, timer_out, reset,
                       seen_out, pview_out, pval_out, bits, hist, fresh)),

@@ -51,7 +51,8 @@ _WRAPPER_MODULES = {"random_u32": rng, "delivery_edges": adversary,
                     "paxos_telemetry": paxos, "hotstuff_propose": hotstuff,
                     "hotstuff_vote": hotstuff, "hotstuff_learn": hotstuff,
                     "hotstuff_extract": hotstuff,
-                    "crash_transition": adversary, "freeze_down": adversary}
+                    "crash_transition": adversary, "freeze_down": adversary,
+                    "hotstuff_prologue": hotstuff}
 KERNELS = tuple((_WRAPPER_MODULES.get(name, raft_sparse), name)
                 for name in _build.SOURCES)
 

@@ -1,15 +1,19 @@
-"""The SPEC §B view-desync telemetry tail of the BFT engines: a copy of
-``consensus_tpu/ops/viewsync.py``'s ``SYNC_TELEMETRY`` and ``sync_counts``
-(lines 40-70) on tensors with a leading lane axis.
+"""SPEC §B per-node view-synchronizer ops of the BFT engines: a copy of
+``consensus_tpu/ops/viewsync.py``'s ``SYNC_TELEMETRY``, ``desync_skew``
+and ``sync_counts`` (lines 30-70) on tensors with a leading lane axis.
 
-Kernel ``pbft_telemetry`` (``engines/pbft.py``) computes the same tail on
-the card; :func:`sync_counts_plain` is what its plain version runs. The
-timer-skew adversary ``desync_skew`` is not ported: the port rejects
-``desync_rate > 0``.
+:func:`desync_skew_plain` is the STREAM_DESYNC timer skew (K22), which the
+plain versions of kernels KQ, KT and KAJ add; on the card those kernels
+draw it inline (``ctt::desync_skew`` in ``csrc/rng.cuh``). Kernels
+``pbft_telemetry`` (``engines/pbft.py``) and ``hotstuff_learn``
+(``engines/hotstuff.py``) compute the telemetry tail on the card;
+:func:`sync_counts_plain` is what their plain versions run.
 """
 from __future__ import annotations
 
 import torch
+
+from ..core import rng
 
 # The tail's counters, after the SAFETY tail of an engine's vector: the
 # round's spread max - min of the honest live views (summed over rounds),
@@ -19,6 +23,24 @@ SYNC_TELEMETRY = ("view_spread_max", "desync_rounds", "sync_msgs_delivered")
 
 I32_MIN = -2**31
 I32_MAX = 2**31 - 1
+
+
+def desync_skew_plain(seed, r: int, ids, desync_cut: int,
+                      max_skew: int) -> torch.Tensor:
+    """SPEC §B timer skew of round ``r``, the port's copy of K22
+    ``desync_skew`` (``consensus_tpu/ops/viewsync.py:40-53``): [B, N]
+    int32, 0 where node id's activation draw (seed ^ STREAM_DESYNC, r, 0,
+    id) is not below ``desync_cut``, else 1 + its depth draw (r, 1, id)
+    mod ``max_skew``. ``seed`` is [B] uint32 and ``ids`` the [N] absolute
+    node ids (a padded ladder lane draws for its padded ids too, as the
+    JAX package's does). The draws are the plain Threefry's, never kernel
+    KA's: the plain versions that call this also run on CUDA tensors when
+    they are held against their kernels."""
+    fire = rng.random_u32_plain(seed, rng.STREAM_DESYNC, r, 0, ids) \
+        < desync_cut
+    depth = 1 + rng.random_u32_plain(seed, rng.STREAM_DESYNC, r, 1, ids) \
+        % max_skew
+    return torch.where(fire, depth, 0).to(torch.int32)
 
 
 def sync_counts_plain(view, mask, delivered) -> torch.Tensor:

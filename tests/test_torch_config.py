@@ -2,12 +2,14 @@
 
 Every knob of the JAX package's Config that the port does not implement yet
 raises when set off its default, on the dense engine as on the capped one
-and on the Paxos and DPoS engines, alone and beside a SPEC §A.2 delay
-(which the port runs, in [0, 16]) or a SPEC §6c crash (which the port runs
-on every engine but HotStuff, whose gate still raises, and but an
-f-ladder, which raises with the JAX package's message); an out-of-range
-``max_crashed`` raises with the JAX package's message; telemetry on a PBFT
-f-ladder raises (as the JAX package's ladder has none), and the entry
+and on the PBFT, Paxos, DPoS and HotStuff engines, alone and beside a SPEC
+§A.2 delay (which the port runs, in [0, 16]), a SPEC §6c crash (which the
+port runs on every engine, but an f-ladder, which raises with the JAX
+package's message) or a SPEC §B desync (which the port runs on both PBFT
+engines, both f-ladders and HotStuff); an out-of-range ``max_crashed``,
+a desync on another protocol and an out-of-range or lone
+``max_skew_rounds`` raise with the JAX package's messages; telemetry on a
+PBFT f-ladder raises (as the JAX package's ladder has none), and the entry
 points raise without a GPU unless the caller asks for the CPU.
 """
 import dataclasses
@@ -26,7 +28,7 @@ OK = dict(protocol="raft", n_nodes=9, n_rounds=4, max_active=2)
 OFF_DEFAULT = {
     "attack": "elect", "attack_rate": 0.5,
     "attack_target": 1, "net_model": "switch", "n_aggregators": 2,
-    "n_byzantine": 1, "byz_mode": "equivocate", "desync_rate": 0.1,
+    "n_byzantine": 1, "byz_mode": "equivocate",
     "miss_rate": 0.1, "suppress_rate": 0.1, "suppress_window": 8,
     "scan_chunk": 4, "sweep_chunk": 1,
     "mesh_shape": (2,),
@@ -176,14 +178,19 @@ def test_unsupported_knob_raises_beside_a_delay(knob):
 HOTSTUFF_OK = dict(protocol="hotstuff", f=2, n_nodes=7, n_rounds=4,
                    view_timeout=4)
 # Each gate of the JAX HotStuff engine (consensus_tpu/engines/hotstuff.py
-# lines 204-230, 326-392, 435-454) that the port does not run yet; the SPEC
-# §A.2 delay (lines 243-256, 303-309) it runs.
+# lines 326-392, 435-454) that the port does not run yet; the SPEC §A.2
+# delay (lines 243-256, 303-309), the SPEC §6c crash and the SPEC §B skew
+# (lines 204-230) it runs.
 HOTSTUFF_GATES = {
-    "crash": dict(crash_prob=0.1), "recover": dict(recover_prob=0.3),
-    "max-crashed": dict(max_crashed=2),
-    "desync": dict(desync_rate=0.1), "byz-silent": dict(n_byzantine=1),
+    "byz-silent": dict(n_byzantine=1),
     "byz-equivocate": dict(n_byzantine=1, byz_mode="equivocate"),
     "switch": dict(net_model="switch", n_aggregators=2),
+}
+HOTSTUFF_RUNS = {
+    "crash": dict(crash_prob=0.1), "recover": dict(recover_prob=0.3),
+    "max-crashed": dict(max_crashed=2),
+    "desync": dict(desync_rate=0.1),
+    "desync-depth": dict(desync_rate=0.1, max_skew_rounds=8),
 }
 
 
@@ -207,6 +214,33 @@ def test_hotstuff_gates_raise_beside_a_delay(gate):
     with pytest.raises(ValueError, match="not supported by the port"):
         Config(**{**HOTSTUFF_OK, "max_delay_rounds": 8,
                   **HOTSTUFF_GATES[gate]})
+
+
+@pytest.mark.parametrize("gate", list(HOTSTUFF_RUNS))
+def test_hotstuff_takes_crash_and_desync(gate):
+    """The SPEC §6c and §B gates run on HotStuff: the config is accepted,
+    its static gates are the JAX package's, and a round runs KAJ first."""
+    from consensus_tpu import Config as JConfig
+    from consensus_tpu_torch.engines import hotstuff
+    kw = {**HOTSTUFF_OK, **HOTSTUFF_RUNS[gate]}
+    cfg, jcfg = Config(**kw), JConfig(**kw)
+    assert (cfg.crash_on, cfg.desync_on) == (jcfg.crash_on, jcfg.desync_on)
+    assert cfg.desync_cutoff == jcfg.desync_cutoff
+    assert hotstuff.gated(cfg) == (cfg.crash_on or cfg.desync_on)
+
+
+@pytest.mark.parametrize("gate", list(HOTSTUFF_RUNS))
+def test_hotstuff_takes_crash_and_desync_beside_a_delay(gate):
+    Config(**{**HOTSTUFF_OK, "max_delay_rounds": 8, **HOTSTUFF_RUNS[gate]})
+
+
+@pytest.mark.parametrize("beside", ["crash", "desync"])
+@pytest.mark.parametrize("gate", list(HOTSTUFF_GATES))
+def test_hotstuff_gates_raise_beside_a_crash_or_a_desync(gate, beside):
+    on = HOTSTUFF_RUNS[beside]
+    Config(**{**HOTSTUFF_OK, **on})
+    with pytest.raises(ValueError, match="not supported by the port"):
+        Config(**{**HOTSTUFF_OK, **on, **HOTSTUFF_GATES[gate]})
 
 
 # --- SPEC §6c crash-recover --------------------------------------------------
@@ -277,7 +311,76 @@ def test_unsupported_knob_raises_beside_a_crash(engine, knob):
 
 def test_knobs_of_other_protocols_are_not_fields():
     with pytest.raises(TypeError):
-        Config(**OK, max_skew_rounds=2)
+        Config(**OK, agg_fail_rate=0.1)
+
+
+# --- SPEC §B view desync -----------------------------------------------------
+
+DESYNC = dict(desync_rate=0.15, max_skew_rounds=4)
+# The engines that run §B, each at a small shape.
+DESYNC_ENGINES = {"pbft": PBFT_OK,
+                  "pbft-bcast": {**PBFT_OK, "fault_model": "bcast"},
+                  "hotstuff": HOTSTUFF_OK}
+
+
+@pytest.mark.parametrize("engine", list(DESYNC_ENGINES))
+def test_desync_knobs_are_accepted(engine):
+    from consensus_tpu import Config as JConfig
+    kw = {**DESYNC_ENGINES[engine], **DESYNC}
+    cfg, jcfg = Config(**kw), JConfig(**kw)
+    assert cfg.desync_on and cfg.desync_cutoff == jcfg.desync_cutoff
+    assert not Config(**DESYNC_ENGINES[engine]).desync_on
+    Config(**{**kw, "max_skew_rounds": 8})
+
+
+# The JAX package's SPEC §B rejections (consensus_tpu/core/config.py:
+# 315-328): a desync on a protocol without per-node view timers, a depth
+# out of [1, 8], a depth without a desync.
+DESYNC_REJECTIONS = {
+    "raft-capped": dict(OK, desync_rate=0.1),
+    "raft-dense": dict(OK, max_active=0, desync_rate=0.1),
+    "paxos": dict(protocol="paxos", n_nodes=7, n_rounds=4, log_capacity=30,
+                  desync_rate=0.1),
+    "dpos": dict(protocol="dpos", n_nodes=50, n_rounds=30, log_capacity=8,
+                 desync_rate=0.1),
+    **{f"{e}-depth-{d}": dict(DESYNC_ENGINES[e], desync_rate=0.1,
+                              max_skew_rounds=d)
+       for e in ("pbft", "hotstuff") for d in (0, 9)},
+    **{f"{e}-depth-alone": dict(DESYNC_ENGINES[e], max_skew_rounds=2)
+       for e in ("pbft", "hotstuff")},
+}
+
+
+@pytest.mark.parametrize("case", list(DESYNC_REJECTIONS))
+def test_desync_rejections_match_jax(case):
+    from consensus_tpu import Config as JConfig
+    with pytest.raises(ValueError) as want:
+        JConfig(**DESYNC_REJECTIONS[case])
+    with pytest.raises(ValueError) as got:
+        Config(**DESYNC_REJECTIONS[case])
+    assert str(got.value) == str(want.value)
+
+
+@pytest.mark.parametrize("knob", sorted(OFF_DEFAULT))
+@pytest.mark.parametrize("engine", list(DESYNC_ENGINES))
+def test_unsupported_knob_raises_beside_a_desync(engine, knob):
+    """A desync, which the port runs on these engines, lets no other gate
+    through."""
+    kw = {**DESYNC_ENGINES[engine], **DESYNC}
+    Config(**kw)
+    with pytest.raises(ValueError, match=knob):
+        Config(**{**kw, knob: OFF_DEFAULT[knob]})
+
+
+@pytest.mark.parametrize("ladder", ["dense", "bcast"])
+def test_desync_on_a_ladder_runs(ladder):
+    """Both f-ladders run SPEC §B (the JAX package's padded rounds skew by
+    absolute ids); tests/test_torch_desync.py holds them to JAX."""
+    from consensus_tpu_torch.engines import pbft_sweep
+    kw = dict(protocol="pbft", f=1, n_nodes=4, n_rounds=4, log_capacity=8,
+              fault_model="edge" if ladder == "dense" else "bcast", **DESYNC)
+    out = pbft_sweep.pbft_fsweep_run(Config(**kw), [1, 2], device="cpu")
+    assert [o["committed"].shape[1] for o in out] == [4, 7]
 
 
 def test_cutoffs_match_the_reference():

@@ -11,11 +11,18 @@ The same seeds go through ``consensus_tpu`` and through the port's plain
 versions; everything must be equal, tolerance 0: the transition (kernel
 KAH's plain version) on random masks, rounds and extreme seeds, caps that
 bind with recoveries in the same round, the crash counts and the freeze
-(KAI's plain version); whole runs of the six engines that run §6c at
+(KAI's plain version); whole runs of the six engines at
 ``tests/test_crash.py``'s shapes, uncapped and capped, against the JAX
 package and the C++ oracle, one of each with telemetry and the flight
 recorder; each with a §A.2 delay; and a config whose ``crash_prob`` is 0
 gives the flat digest whatever ``recover_prob`` and ``max_crashed`` say.
+HotStuff at ``tests/test_hotstuff.py``'s crash cases (capped, with a
+delay) and with an uncapped crash, a SPEC §B skew and a delay together,
+against the JAX package and the oracle; its telemetry with 4-round
+windows under a crash and a skew; ``crash_prob = 0`` runs no KAH or KAJ;
+and P1's key after kernel KAJ's prologue on built states (the highest
+view down, every node down, a recovered node tied at view 0, a node
+skewed and down in one round).
 """
 import dataclasses
 
@@ -31,6 +38,7 @@ from consensus_tpu import Config as JConfig  # noqa: E402
 from consensus_tpu.network import simulator as jsim  # noqa: E402
 from consensus_tpu.ops import adversary as jadv  # noqa: E402
 from consensus_tpu_torch import Config  # noqa: E402
+from consensus_tpu_torch import convert  # noqa: E402
 from consensus_tpu_torch.core import rng  # noqa: E402
 from consensus_tpu_torch.network import runner, simulator  # noqa: E402
 from consensus_tpu_torch.ops import adversary  # noqa: E402
@@ -328,3 +336,218 @@ def test_the_graph_key_holds_the_crash_knobs():
               dataclasses.replace(a, max_crashed=1)):
         assert runner._graph_key(a, dev, False, None) != \
             runner._graph_key(b, dev, False, None)
+
+
+# --- HotStuff ------------------------------------------------------------------
+
+# tests/test_hotstuff.py BASE and its crash cases (lines 22-24, 32-35 and
+# 114), and the three SPEC gates the port runs on HotStuff together.
+HS_BASE = dict(protocol="hotstuff", f=2, n_nodes=7, n_rounds=96, n_sweeps=3,
+               log_capacity=96, seed=3)
+HS_DESYNC = dict(desync_rate=0.15, max_skew_rounds=4, view_timeout=4)
+HS_RUNS = {
+    "crash-delay": {**HS_BASE, "drop_rate": 0.2, "crash_prob": 0.1,
+                    "recover_prob": 0.3, "max_crashed": 2,
+                    "max_delay_rounds": 3, "seed": 2},
+    "n301": {**HS_BASE, "f": 100, "n_nodes": 301, "drop_rate": 0.1,
+             "partition_rate": 0.05, "churn_rate": 0.01, "crash_prob": 0.05,
+             "recover_prob": 0.3, "max_crashed": 10, "max_delay_rounds": 2,
+             "seed": 7},
+    "outage": {**HS_BASE, "crash_prob": 0.3, "recover_prob": 0.5,
+               "max_crashed": 1, "view_timeout": 4, "seed": 9},
+    "crash-desync-delay": {**HS_BASE, **CRASH, **HS_DESYNC,
+                           "drop_rate": 0.2, "max_delay_rounds": 2,
+                           "seed": 5},
+}
+
+
+@pytest.mark.parametrize("name", list(HS_RUNS))
+def test_hotstuff_crash_run_matches_jax_and_the_oracle(name):
+    """Every extract leaf, the digest and the oracle's digest."""
+    from consensus_tpu.network import runner as jrunner
+    kw = HS_RUNS[name]
+    jcfg, cfg = JConfig(**kw), Config(**kw)
+    want = jrunner.run(jcfg, jsim.engine_def(jcfg))
+    got = runner.run(cfg, "cpu")
+    _same(got, want, name)
+    payload = simulator.decided_payload(cfg, got)[3]
+    assert payload == jsim.decided_payload(jcfg, want)[3]
+    cpu = jsim.run(dataclasses.replace(jcfg, engine="cpu"), warmup=False)
+    assert cpu.payload == payload
+    assert want["clen"].max() > 0
+
+
+def test_hotstuff_crash_off_is_flat():
+    """crash_prob = 0 with recover_prob and max_crashed set is HotStuff's
+    flat round: no KAH and no KAJ, and the JAX package's digest."""
+    from consensus_tpu_torch.engines import hotstuff
+    kw = {**HS_BASE, "n_rounds": 24, "recover_prob": 0.5, "max_crashed": 2,
+          "drop_rate": 0.2}
+    cfg = Config(**kw)
+    assert not hotstuff.gated(cfg)
+    calls = []
+    real = (adversary.crash_transition, hotstuff.hotstuff_prologue)
+
+    def counting(*args):
+        calls.append(args)
+    adversary.crash_transition = hotstuff.hotstuff_prologue = counting
+    try:
+        got = _port(cfg, False)[0]
+    finally:
+        adversary.crash_transition, hotstuff.hotstuff_prologue = real
+    assert not calls
+    assert got == jsim.run(JConfig(**kw), warmup=False).payload
+
+
+def test_hotstuff_crash_desync_telemetry_matches_jax():
+    """Counters and recorder (4-round windows) under a crash and a skew:
+    a down node's timeouts, premature ones included, and its waits count
+    from its in-round timer; the spread is over the nodes up."""
+    kw = {**HS_RUNS["crash-desync-delay"], "n_rounds": 40,
+          "telemetry_window": 4}
+    _check_run(kw, True, oracle=False)
+    stats: dict = {}
+    runner.run(Config(**kw), "cpu", telemetry=True, stats=stats)
+    tel = stats["telemetry"]
+    assert tel["view_spread_max"].sum() > 0 and tel["desync_rounds"].sum() > 0
+
+
+def _jax_p1(jcfg, seed, r, down, view, timer):
+    """The JAX round's prologue (consensus_tpu/engines/hotstuff.py:207-230)
+    and P1's (vM, M) over the honest live nodes (lines 266-268), by the
+    JAX package's own functions, on one lane: (vM, M, view, timer)."""
+    from consensus_tpu.ops import viewsync as jviewsync
+    ur = jnp.uint32(r)
+    N = view.shape[0]
+    dn, rec, _ = jadv.crash_transition(jnp.uint32(seed), ur,
+                                       jnp.asarray(down), jcfg.crash_cutoff,
+                                       jcfg.recover_cutoff, jcfg.max_crashed)
+    v = jnp.where(rec, 0, jnp.asarray(view))
+    t = jnp.where(rec, 0, jnp.asarray(timer))
+    if jcfg.desync_on:
+        t = t + jviewsync.desync_skew(jnp.uint32(seed), ur,
+                                      jnp.arange(N, dtype=jnp.uint32),
+                                      jcfg.desync_cutoff,
+                                      jcfg.max_skew_rounds)
+        pre = t >= jcfg.view_timeout
+        v = v + pre.astype(jnp.int32)
+        t = jnp.where(pre, 0, t)
+    idx = jnp.arange(N, dtype=jnp.int32)
+    alive = ~dn
+    vM = jnp.max(jnp.where(alive, v, -1))
+    M = jnp.min(jnp.where(alive & (v == vM), idx, N))
+    return int(vM), int(M), np.asarray(v), np.asarray(t)
+
+
+def _built_states(cfg, B: int, r: int, case: str):
+    """Leaves of a HotStuff state of ``B`` lanes and ``cfg.n_nodes`` nodes
+    built for ``case`` around round ``r``'s crash transition (which the
+    state's down mask and seeds fix): "top-down" gives a node down at the
+    round's end the unique highest view; "rec-tie" resets a recovered node
+    that had the highest view, to tie with live nodes at view 0; "all" is
+    any state (the all-down case is a config that downs every node);
+    "skewed-down" gives the down nodes timers one short of the timeout."""
+    from consensus_tpu_torch.engines import hotstuff as ths
+    g = np.random.default_rng(r + len(case))
+    N, S = cfg.n_nodes, cfg.log_capacity
+    seeds = np.arange(90, 90 + B, dtype=np.uint32)
+    down = g.random((B, N)) < 0.4
+    _, flags = adversary.crash_transition_plain(
+        torch.from_numpy(seeds), r, torch.from_numpy(down), cfg.crash_cutoff,
+        cfg.recover_cutoff, cfg.max_crashed)
+    f = flags.numpy()
+    now_down = (f & adversary.CRASH_DOWN) != 0
+    rec = (f & adversary.CRASH_REC) != 0
+    view = g.integers(2, 9, (B, N)).astype(np.int32)
+    timer = g.integers(0, 3, (B, N)).astype(np.int32)
+    for b in range(B):
+        if case == "top-down" and now_down[b].any():
+            view[b, np.flatnonzero(now_down[b])[0]] = 40
+        if case == "rec-tie" and rec[b].any():
+            view[b] = np.where(now_down[b], view[b], 0)
+            view[b, np.flatnonzero(rec[b])[0]] = 40
+        if case == "skewed-down":
+            timer[b] = np.where(now_down[b], cfg.view_timeout - 1, timer[b])
+    leaves = {"seed": seeds, "b1_v": np.full(B, 3, np.int32),
+              "b1_h": np.full(B, 2, np.int32),
+              "b2_v": np.full(B, 2, np.int32),
+              "b2_h": np.full(B, 1, np.int32),
+              "b3_v": np.full(B, 1, np.int32),
+              "b3_h": np.zeros(B, np.int32),
+              "gcommit": np.ones(B, np.int32),
+              "chain_v": np.where(np.arange(S) < 3, np.arange(S) + 1,
+                                  -1).astype(np.int32)[None].repeat(B, 0),
+              "chain_vid": np.zeros((B, S), np.int32),
+              "fvec": np.zeros((B, N), np.int32),
+              "ftab_v": np.full((B, ths.FORK_TABLE), -1, np.int32),
+              "ftab_h": np.full((B, ths.FORK_TABLE), -1, np.int32),
+              "fnum": np.zeros(B, np.int32), "view": view, "timer": timer,
+              "clen": g.integers(0, 2, (B, N)).astype(np.int32),
+              "down": down}
+    return leaves, flags, now_down, rec
+
+
+P1_CASES = {
+    "top-down": {**HS_BASE, "f": 4, "n_nodes": 13, "log_capacity": 16,
+                 "crash_prob": 0.3, "recover_prob": 0.5, "view_timeout": 4},
+    "rec-tie": {**HS_BASE, "f": 4, "n_nodes": 13, "log_capacity": 16,
+                "crash_prob": 0.3, "recover_prob": 0.5, "view_timeout": 4},
+    "all-down": {**HS_BASE, "f": 4, "n_nodes": 13, "log_capacity": 16,
+                 "crash_prob": 1.0, "recover_prob": 0.0, "view_timeout": 4},
+    "skewed-down": {**HS_BASE, "f": 4, "n_nodes": 13, "log_capacity": 16,
+                    "crash_prob": 0.3, "recover_prob": 0.5,
+                    "desync_rate": 0.9, "max_skew_rounds": 4,
+                    "view_timeout": 4},
+}
+
+
+@pytest.mark.parametrize("case", list(P1_CASES))
+def test_hotstuff_p1_key_matches_jax_on_built_states(case):
+    """KAJ's plain version gives the views, timers and P1 gossiper (vM, and
+    M where vM >= 0) of the JAX round's prologue, and the whole round then
+    JAX's state, on states built so that the highest view is down, every
+    node is down (vM = -1: no gossip), a recovered node ties at view 0, or
+    a node is skewed and down in one round (its frozen timer drops the
+    skew)."""
+    import jax
+    from consensus_tpu.engines import hotstuff as jhs
+    from consensus_tpu_torch.engines import hotstuff as ths
+    kw = P1_CASES[case]
+    jcfg, cfg = JConfig(**kw), Config(**kw)
+    B, r = 6, 11
+    leaves, flags, now_down, rec = _built_states(cfg, B, r, case.replace(
+        "all-down", "all"))
+    st = convert.state_from_numpy(leaves)
+    lane = st.lane.clone()
+    view, timer = ths.hotstuff_prologue_plain(cfg, st.seed, r, st.view,
+                                              st.timer, lane, flags)
+    vM, M = ths.gossiper(lane[:, ths.KEY], cfg.n_nodes)
+    for b in range(B):
+        want = _jax_p1(jcfg, int(leaves["seed"][b]), r, leaves["down"][b],
+                       leaves["view"][b], leaves["timer"][b])
+        assert np.array_equal(view[b].numpy(), want[2])
+        assert np.array_equal(timer[b].numpy(), want[3])
+        assert int(vM[b]) == max(want[0], -1)
+        if want[0] >= 0:
+            assert int(M[b]) == want[1], (case, b)
+    if case == "top-down":
+        assert all(now_down[b].any() and int(vM[b]) < 40 for b in range(B))
+    if case == "all-down":
+        assert now_down.all() and (vM == -1).all() and \
+            (M == cfg.n_nodes).all()
+    if case == "rec-tie":
+        hit = [b for b in range(B) if rec[b].any()]
+        assert hit and all(int(vM[b]) == 0 for b in hit)
+        assert any(int(M[b]) == np.flatnonzero(rec[b])[0] for b in hit)
+    got = convert.state_to_numpy(ths.hotstuff_round(cfg, st, r))
+    one = jax.jit(jax.vmap(lambda s, rr: jhs.hotstuff_round(jcfg, s, rr),
+                           in_axes=(0, None)))
+    want = one(jhs.HotstuffState(**{k: jnp.asarray(v)
+                                    for k, v in leaves.items()}),
+               jnp.int32(r))
+    for name, a in want._asdict().items():
+        assert np.array_equal(got[name], np.asarray(a)), (case, name)
+    if case == "skewed-down":
+        frozen = now_down & ~rec
+        assert frozen.any()
+        assert np.array_equal(got["timer"][frozen], leaves["timer"][frozen])
