@@ -251,6 +251,37 @@ Phases, each printing one JSON line:
                busy share and device operations a round; and three runs
                with telemetry and 8-round windows against JAX-made
                counter and recorder anchors.
+18. byzantine — SPEC §3c/§7c byzantine nodes, silent and equivocating, on
+               both Raft engines, dense PBFT and its ladder and HotStuff.
+               Every kernel call of rounds 3 and 20 of raft-100k and
+               raft-1kx1k at n_byzantine = 2N/5, pbft-f128 at f,
+               hotstuff-100k at 10 000 (silent) and f (equivocating),
+               pbft-f128 and hotstuff-100k equivocating with phase 16's
+               CRASH and phase 17's desync ("composed"), and hotstuff-1k
+               over 1 024 rounds and heights at f (its byzantine leaders
+               certify variant-1 blocks), with telemetry and 8-round
+               windows on the equivocating pbft-f128 and hotstuff-100k;
+               KQ-KS on both byzantine fs = 1..128 ladders' rounds (one
+               byzantine node a lane); KAE and KAF on built equivocating
+               HotStuff lanes (forked and variant-1 QCs, a full fork
+               table, conflicting commits) and KAA on built equivocating
+               PBFT rounds (forked and conflicting slots, with and
+               without down nodes): each against its plain version,
+               exact (the BYZ instances of KE, KF, KI, KH, KM-KO, KQ-KS,
+               KAA, KAD-KAF and KAJ's honest key). Each instance's time
+               on round 20, its plain version's and its bound, and its
+               flat instance's time and bound on the same inputs. Then
+               ``simulator.run`` of those eleven runs and
+               ``pbft_fsweep_timed`` of both ladders, each replayed as one
+               CUDA graph: JAX-made anchors (the C++ oracle agrees on the
+               standalone ones; HotStuff's final views and variant-1
+               heights too) from the replay and the eager loop, the
+               path's kernels launched and no other (counted from 0),
+               node-round-steps per second, replay wall, busy share and
+               device operations a round (3 on a HotStuff round without a
+               crash or a desync); and the two telemetry runs against
+               JAX-made counter (the safety tail among them) and recorder
+               anchors.
 
 Then the card's name and power limit, one ``{"kernels": [...]}`` line, and
 last ``{"ok": true, "device": {...}}``. The kernels line takes each
@@ -5176,6 +5207,20 @@ def hotstuff_gate_states(dev) -> list:
     return out
 
 
+def hold_calls(calls: dict, where: str, errs: dict, cases: dict) -> None:
+    """Every call of ``calls`` ({wrapper: [arguments]}) against its plain
+    version, exact; for each wrapper that ``errs`` names, its largest
+    error into ``errs`` and its count of calls into ``cases``."""
+    for name, arg_list in calls.items():
+        for args in arg_list:
+            e = max_abs_err(run_pair(name, args))
+            require(e == 0.0, f"{name} on {where} disagrees with its plain "
+                    "version")
+            if name in errs:
+                errs[name] = max(errs[name], e)
+                cases[name] += 1
+
+
 def check_desync_kernels(dev):
     """Phase 17's kernel rows. Every kernel call of rounds 3 and 20 of each
     run DESYNC_RUNS (with telemetry and 8-round windows where
@@ -5194,14 +5239,7 @@ def check_desync_kernels(dev):
     timed = {}
 
     def hold(calls, where):
-        for name, arg_list in calls.items():
-            for args in arg_list:
-                e = max_abs_err(run_pair(name, args))
-                require(e == 0.0, f"{name} on {where} disagrees with its "
-                        "plain version")
-                if name in errs:
-                    errs[name] = max(errs[name], e)
-                    cases[name] += 1
+        hold_calls(calls, where, errs, cases)
     for key in DESYNC_RUNS:
         telemetry = key in DESYNC_TELEMETRY
         cfg = desync_config(key, **(dict(telemetry_window=WINDOW)
@@ -5256,45 +5294,127 @@ def check_desync_kernels(dev):
         yield row
 
 
-def check_desync_runs(card: str, smi: str) -> dict[str, int]:
-    """Phase 17's runs: ``simulator.run`` of each run DESYNC_RUNS and
-    ``pbft_fsweep_timed`` of each ladder DESYNC_LADDERS, replayed as one
-    CUDA graph, with every launch count set to 0 just before each run and
-    read just after it: its anchor from the replay and from the eager
-    loop (HotStuff: its final views too, VIEWS_SHA256), its path's kernels
-    launched and no other (:func:`desync_path`); node-round-steps per
-    second, replay wall, busy share and device operations a round (KAJ's
-    share of the device time on HotStuff). Then DESYNC_TELEMETRY's runs
-    with telemetry and 8-round windows: counters and recorder equal to
-    their JAX anchors and to the eager loop's. Returns KAJ's launches in
-    hotstuff-100k's composed run."""
+def anchored_run(cfg, digest: str) -> tuple:
+    """``simulator.run`` of ``cfg`` (phases 17 and 18), replayed as one CUDA
+    graph, with every launch count set to 0 just before it and read just
+    after: its row (its digest and the eager loop's against ``digest``,
+    node-round-steps per second, memory, replay wall, busy share, device
+    operations a round, device ms by kernel), its launches, the replay's
+    and the eager loop's extracts and the full replay's profile. The
+    caller emits the row, then requires the digests (:func:`hold_run`)."""
+    from consensus_tpu_torch.core import serialize
+    from consensus_tpu_torch.network import runner, simulator
+    memory, launches = counted(lambda: memory_use(
+        lambda: simulator.run(cfg)))
+    res = memory.pop("result")
+    replayed = runner.run(cfg)
+    eager = runner.run(cfg, graph=False)
+    eager_digest = serialize.digest(simulator.decided_payload(cfg, eager)[3])
+    prof = replay_ops_per_round(cfg)
+    full = prof["full"]
+    row = dict(
+        digest=res.digest, digest_ok=res.digest == digest,
+        eager_digest=eager_digest, steps_per_sec=res.steps_per_sec,
+        wall_s=res.wall_s, launches=launches, **memory,
+        replay_wall_ms=full["replay_wall_ms"], busy_share=full["busy_share"],
+        unprofiled_busy_share=full["unprofiled_busy_share"],
+        device_ms=full["device_ms"], device_launches=full["device_launches"],
+        ops_per_round=prof["ops_per_round"],
+        hand_kernel_ms={k: v for k, v in full["hand_kernel_ms"].items()
+                        if v})
+    return row, launches, replayed, eager, full
+
+
+def hold_run(key: str, row: dict, digest: str, cfg, launches) -> None:
+    """An anchored run's requirements: its anchor from the replay and the
+    eager loop, its path's kernels launched and no other."""
+    from consensus_tpu_torch.network import runner
+    require(row["digest"] == digest, f"{key} digest {row['digest']} != "
+            f"{digest}")
+    require(row["eager_digest"] == digest,
+            f"{key}: the eager loop's digest {row['eager_digest']}")
+    require_launched(launches, desync_path(cfg), key)
+    runner.clear_graphs()
+
+
+def anchored_ladder(name: str, base, rungs, digest: str, phase: str,
+                    card: str, smi: str) -> None:
+    """``pbft_fsweep_timed`` of the ladder ``rungs`` of ``base`` (phases 17
+    and 18), replayed as one CUDA graph and counted from 0: its anchor
+    ``digest`` from the replay and the eager loop, real steps per second,
+    replay wall, busy share, its path's kernels launched and no other."""
     from consensus_tpu_torch.core import serialize
     from consensus_tpu_torch.engines import pbft_sweep
+    from consensus_tpu_torch.network import runner
+    memory, launches = counted(lambda: memory_use(
+        lambda: pbft_sweep.pbft_fsweep_timed(base, rungs, repeats=3)))
+    out, first_s, best, real_steps = memory.pop("result")
+    got = serialize.digest(pbft_sweep.fsweep_payload(out))
+    eager = serialize.digest(pbft_sweep.fsweep_payload(
+        pbft_sweep.pbft_fsweep_run(base, rungs, graph=False)))
+    cfg_pad = pbft_sweep._fsweep_static(base, rungs)[1]
+    prof = profile_replay(cfg_pad, rungs=rungs)
+    emit(phase, run=name, digest=got, digest_ok=got == digest,
+         eager_digest=eager, real_steps=real_steps, wall_s=best,
+         real_steps_per_sec=real_steps / best, first_run_s=first_s,
+         launches=launches, **memory, replay_wall_ms=prof["replay_wall_ms"],
+         busy_share=prof["busy_share"],
+         unprofiled_busy_share=prof["unprofiled_busy_share"],
+         device_ms=prof["device_ms"],
+         device_launches=prof["device_launches"],
+         elapsed_s=time.perf_counter() - T0, card=card, power=smi)
+    require(got == digest and eager == digest,
+            f"{name}: digests {got} (replay), {eager} (eager) != {digest}")
+    require_launched(launches, desync_path(cfg_pad), name)
+    runner.clear_graphs()
+
+
+def anchored_telemetry(key: str, cfg, digest: str, nonzero: dict,
+                       flight: str, phase: str, card: str, smi: str) -> dict:
+    """``simulator.run`` of ``cfg`` with telemetry (phases 17 and 18),
+    replayed and counted from 0: its digest, counters (those not in
+    ``nonzero`` 0) and recorder (``flight``) against their JAX anchors and
+    the eager loop's, its telemetry path's kernels launched and no other.
+    Returns the counter totals."""
     from consensus_tpu_torch.network import runner, simulator
-    rows, own = {}, {}
+    eng = runner.engine(cfg)
+    res, launches = counted(lambda: simulator.run(cfg, telemetry=True))
+    tel, fl = res.extras["telemetry"], res.extras["flight"]
+    eager = runner.telemetry_stats(cfg, runner.run_device(
+        cfg, telemetry=True, graph=False))
+    want = {k: nonzero.get(k, 0) for k in eng.telemetry_names}
+    row = dict(
+        digest=res.digest, digest_ok=res.digest == digest,
+        totals=tel["totals"], totals_ok=tel["totals"] == want,
+        flight_sha256=flight_digest(fl),
+        flight_ok=flight_digest(fl) == flight,
+        graph_equals_eager=flight_digest(eager["flight"]) ==
+        flight_digest(fl) and all(
+            np.array_equal(eager["telemetry"][k], v)
+            for k, v in tel["per_sweep"].items()),
+        steps_per_sec=res.steps_per_sec, wall_s=res.wall_s,
+        launches=launches, elapsed_s=time.perf_counter() - T0)
+    emit(phase, run=key, **row, card=card, power=smi)
+    for check in ("digest_ok", "totals_ok", "flight_ok",
+                  "graph_equals_eager"):
+        require(row[check], f"{key} with telemetry: {check} fails")
+    require_launched(launches, desync_path(cfg, telemetry=True),
+                     f"{key} with telemetry")
+    runner.clear_graphs()
+    return tel["totals"]
+
+
+def check_desync_runs(card: str, smi: str) -> dict[str, int]:
+    """Phase 17's runs: each run DESYNC_RUNS (:func:`anchored_run`; HotStuff:
+    its final views too, VIEWS_SHA256, and KAJ's share of the device time)
+    and each ladder DESYNC_LADDERS (:func:`anchored_ladder`); then
+    DESYNC_TELEMETRY's runs with telemetry and 8-round windows
+    (:func:`anchored_telemetry`), whose §B tail must count. Returns KAJ's
+    launches in hotstuff-100k's composed run."""
+    own = {}
     for key, (_, digest) in DESYNC_RUNS.items():
         cfg = desync_config(key)
-        memory, launches = counted(lambda: memory_use(
-            lambda: simulator.run(cfg)))
-        res = memory.pop("result")
-        replayed = runner.run(cfg)
-        eager = runner.run(cfg, graph=False)
-        eager_digest = serialize.digest(simulator.decided_payload(
-            cfg, eager)[3])
-        prof = replay_ops_per_round(cfg)
-        full = prof["full"]
-        rows[key] = row = dict(
-            digest=res.digest, digest_ok=res.digest == digest,
-            eager_digest=eager_digest, steps_per_sec=res.steps_per_sec,
-            wall_s=res.wall_s, launches=launches, **memory,
-            replay_wall_ms=full["replay_wall_ms"],
-            busy_share=full["busy_share"],
-            unprofiled_busy_share=full["unprofiled_busy_share"],
-            device_ms=full["device_ms"],
-            device_launches=full["device_launches"],
-            ops_per_round=prof["ops_per_round"],
-            hand_kernel_ms={k: v for k, v in full["hand_kernel_ms"].items()
-                            if v})
+        row, launches, replayed, eager, full = anchored_run(cfg, digest)
         if key in VIEWS_SHA256:
             row["views_sha256"] = views_sha256(replayed["view"])
             row["eager_views_sha256"] = views_sha256(eager["view"])
@@ -5305,70 +5425,417 @@ def check_desync_runs(card: str, smi: str) -> dict[str, int]:
                     f"{key}: views {row['views_sha256']} (replay), "
                     f"{row['eager_views_sha256']} (eager)")
         emit("desync_run", run=key, **row, card=card, power=smi)
-        require(res.digest == digest, f"{key} digest {res.digest} != "
-                f"{digest}")
-        require(eager_digest == digest,
-                f"{key}: the eager loop's digest {eager_digest}")
-        require_launched(launches, desync_path(cfg), key)
+        hold_run(key, row, digest, cfg, launches)
         if key == "hotstuff-100k/composed":
             own = launches
-        runner.clear_graphs()
     for name, (make, rungs, digest) in DESYNC_LADDERS.items():
-        base = make()
-        memory, launches = counted(lambda: memory_use(
-            lambda: pbft_sweep.pbft_fsweep_timed(base, rungs, repeats=3)))
-        out, first_s, best, real_steps = memory.pop("result")
-        got = serialize.digest(pbft_sweep.fsweep_payload(out))
-        eager = serialize.digest(pbft_sweep.fsweep_payload(
-            pbft_sweep.pbft_fsweep_run(base, rungs, graph=False)))
-        cfg_pad = pbft_sweep._fsweep_static(base, rungs)[1]
-        prof = profile_replay(cfg_pad, rungs=rungs)
-        rows[name] = row = dict(
-            digest=got, digest_ok=got == digest, eager_digest=eager,
-            real_steps=real_steps, wall_s=best,
-            real_steps_per_sec=real_steps / best, first_run_s=first_s,
-            launches=launches, **memory,
-            replay_wall_ms=prof["replay_wall_ms"],
-            busy_share=prof["busy_share"],
-            unprofiled_busy_share=prof["unprofiled_busy_share"],
-            device_ms=prof["device_ms"],
-            device_launches=prof["device_launches"])
-        emit("desync_run", run=name, **row, card=card, power=smi)
-        require(got == digest and eager == digest,
-                f"{name}: digests {got} (replay), {eager} (eager) != "
-                f"{digest}")
-        require_launched(launches, desync_path(cfg_pad), name)
-        runner.clear_graphs()
+        anchored_ladder(name, make(), rungs, digest, "desync_run", card, smi)
     for key, (nonzero, flight) in DESYNC_TELEMETRY.items():
-        cfg = desync_config(key, telemetry_window=WINDOW)
-        eng = runner.engine(cfg)
-        res, launches = counted(lambda: simulator.run(cfg, telemetry=True))
-        tel, fl = res.extras["telemetry"], res.extras["flight"]
-        eager = runner.telemetry_stats(cfg, runner.run_device(
-            cfg, telemetry=True, graph=False))
-        want = {k: nonzero.get(k, 0) for k in eng.telemetry_names}
-        row = dict(
-            digest=res.digest, digest_ok=res.digest == DESYNC_RUNS[key][1],
-            totals=tel["totals"], totals_ok=tel["totals"] == want,
-            flight_sha256=flight_digest(fl),
-            flight_ok=flight_digest(fl) == flight,
-            graph_equals_eager=flight_digest(eager["flight"]) ==
-            flight_digest(fl) and all(
-                np.array_equal(eager["telemetry"][k], v)
-                for k, v in tel["per_sweep"].items()),
-            steps_per_sec=res.steps_per_sec, wall_s=res.wall_s,
-            launches=launches)
-        emit("desync_telemetry", run=key, **row, card=card, power=smi)
-        for check in ("digest_ok", "totals_ok", "flight_ok",
-                      "graph_equals_eager"):
-            require(row[check], f"{key} with telemetry: {check} fails")
-        require(min(tel["totals"][k] for k in ("view_spread_max",
-                                                "desync_rounds")) > 0,
+        totals = anchored_telemetry(
+            key, desync_config(key, telemetry_window=WINDOW),
+            DESYNC_RUNS[key][1], nonzero, flight, "desync_telemetry", card,
+            smi)
+        require(min(totals[k] for k in ("view_spread_max",
+                                        "desync_rounds")) > 0,
                 f"{key}: the desync tail counted nothing")
-        require_launched(launches, desync_path(cfg, telemetry=True),
-                         f"{key} with telemetry")
-        runner.clear_graphs()
     return {"hotstuff_prologue": own["hotstuff_prologue"]}
+
+
+# --- phase 18: SPEC §3c/§7c byzantine nodes ----------------------------------
+
+# The flagships under byzantine nodes: (config maker, the byzantine count of
+# each mode). Raft takes the 2-of-5 share of tests/test_raft_byz.py:22
+# (40 000 and 409), pbft-f128 n_byzantine = f, hotstuff-100k 10 000
+# silent and f equivocating. At hotstuff-100k's and hotstuff-1k's shapes
+# the views stay below the first byzantine id, so no byzantine node leads
+# and no variant-1 block forms; "hotstuff-1k-long" is hotstuff-1k with 1 024
+# rounds and 1 024 heights, whose views wrap the population: its byzantine
+# leaders certify variant 1 at 117 heights (chain_vid = 1).
+BYZ_FLAGSHIPS = {
+    "raft-100k": (flagship_config, 40_000, 40_000),
+    "raft-1kx1k": (lambda **kw: dense_config("raft-1kx1k", **kw), 409, 409),
+    "pbft-f128": (lambda **kw: pbft_config(128, **kw), 128, 128),
+    "hotstuff-100k": (lambda **kw: protocol_config(HOTSTUFF_FLAGSHIP, **kw),
+                      10_000, 33_333),
+    "hotstuff-1k-long": (lambda **kw: protocol_config(
+        HOTSTUFF_1K, n_rounds=1024, log_capacity=1024, **kw), 341, 341),
+}
+BYZ_COMPOSED = dict(CRASH, **DESYNC)
+# Phase 18's runs, "<flagship>/<mode>": anchor. "composed" is the
+# equivocating run with phase 16's CRASH and phase 17's desync overrides.
+# The anchors were made by the JAX package on the CPU and again by the C++
+# oracle (engine="cpu"), which agrees on each:
+#
+#   JAX_PLATFORMS=cpu python3 - <<'EOF'
+#   import dataclasses, chip_smoke
+#   from consensus_tpu import Config
+#   from consensus_tpu.network import simulator
+#   for key in chip_smoke.BYZ_RUNS:
+#       cfg = Config(**dataclasses.asdict(chip_smoke.byz_config(key)))
+#       print(key, simulator.run(cfg, warmup=False).digest,
+#             simulator.run(dataclasses.replace(cfg, engine="cpu"),
+#                           warmup=False).digest)
+#   EOF
+#
+# (the JAX runs took 2.7-72 s each on eight cores; nothing cut). Several
+# equal their flat runs' digests: equivocating Raft voters re-elect the
+# same leaders at these drop rates (raft-100k 0e9cc1dd…, raft-1kx1k
+# 8748ac4f…), hotstuff-100k's byzantine nodes never lead and its honest
+# votes reach the quorum without theirs (5bcc22a0…), and under the desync
+# overrides no QC forms (f378cec6…, phase 17's). pbft-f128 with 128 silent
+# nodes leaves 2f + 1 = 257 honest ones, whose quorums the drops break:
+# it commits nothing, as its composed run does (0a46d25f…, phase 17's
+# pbft-f128/composed). The views (BYZ_VIEWS_SHA256) and the telemetry
+# (BYZ_TELEMETRY) tell these runs from the flat ones.
+BYZ_RUNS = {
+    "raft-100k/silent":
+        "2ff2a5faf0ff571aca60b1beb7d1fce68f582588c6084c1bcac49c7b87f41b76",
+    "raft-100k/equivocate":
+        "0e9cc1ddc8b04d96240cdeb5f19877bbd3aad2b23883a585fa1e1c78a961ca5b",
+    "raft-1kx1k/silent":
+        "51e1bcb029feaad5b632b9af443619dbc2df89e82565c3dcf51e21a4bb251576",
+    "raft-1kx1k/equivocate":
+        "8748ac4fce3ad51b006d1d6542aa853f6d2f25839915ead9327bf7ca948f3308",
+    "pbft-f128/silent":
+        "0a46d25f9e81c962756c47a1010f211591a73d98df51ce1d1cbc516753bce527",
+    "pbft-f128/equivocate":
+        "6c763cb1ffab1cbdd82f763bc73732ed00db7b03d523824de7d1f46d1cd3a252",
+    "pbft-f128/composed":
+        "0a46d25f9e81c962756c47a1010f211591a73d98df51ce1d1cbc516753bce527",
+    "hotstuff-100k/silent":
+        "5bcc22a0d6392871185ce0fe9a3a4f8b58821aa8b36f9c19f3b02354c96eda16",
+    "hotstuff-100k/equivocate":
+        "5bcc22a0d6392871185ce0fe9a3a4f8b58821aa8b36f9c19f3b02354c96eda16",
+    "hotstuff-100k/composed":
+        "f378cec60161f4cc24d5473db85cd828519ebcb5254674eeae90ffd110d00168",
+    "hotstuff-1k-long/equivocate":
+        "07deb0a12aa18614c84f3de58459bc37c86c85cb0f619ed4520ad222987dcd4e",
+}
+# SHA-256 of the HotStuff runs' final views (as VIEWS_SHA256), and the
+# variant-1 heights of each run's chain (chain_vid = 1, over its lanes),
+# made by the JAX package with the anchors above.
+BYZ_VIEWS_SHA256 = {
+    "hotstuff-100k/silent":
+        "04fceacf3447a950ca61905bbaffb70e13c1026d456867398e5d76fc37a9e7d7",
+    "hotstuff-100k/equivocate":
+        "04fceacf3447a950ca61905bbaffb70e13c1026d456867398e5d76fc37a9e7d7",
+    "hotstuff-100k/composed":
+        "88b46fabd171fe1d28d79785db8bfabfdd75d9c79f4153bce6953d40f2aabdfe",
+    "hotstuff-1k-long/equivocate":
+        "d1a2111f51499ff7ff9895d6f04c2af206083ed78d10af79e5696413741502a1"}
+BYZ_VARIANT1 = {"hotstuff-100k/silent": 0, "hotstuff-100k/equivocate": 0,
+                "hotstuff-100k/composed": 0,
+                "hotstuff-1k-long/equivocate": 117}
+# The fs = 1..128 dense ladder with one byzantine node a lane (the most that
+# pbft_fsweep_run allows: its smallest rung is f = 1), each mode: (base
+# config, rungs, anchor), made by the JAX package as the ladders' anchors
+# above (pbft_sweep.pbft_fsweep_run; 45 s and 41 s). At these calm knobs one
+# byzantine node a lane moves no decision: both equal LADDER_DIGEST.
+BYZ_LADDERS = {
+    "dense-ladder/silent": (lambda: pbft_config(1, n_byzantine=1), LADDER,
+                            LADDER_DIGEST),
+    "dense-ladder/equivocate": (
+        lambda: pbft_config(1, n_byzantine=1, byz_mode="equivocate"), LADDER,
+        LADDER_DIGEST),
+}
+# The equivocating flagships again with telemetry and 8-round windows:
+# (nonzero counter totals, flight_digest), made by the JAX package on the
+# CPU as BFT_TELEMETRY's were (4.0 s and 18.4 s). The safety tail stays 0:
+# with at most f byzantine nodes no PBFT slot forks, and no flat HotStuff
+# QC can (both variants' quorums would need 4f + 2 votes of at most
+# 4f + 1); phase 18 holds it on built states.
+BYZ_TELEMETRY = {
+    "pbft-f128/equivocate": (
+        {"prepare_quorums": 12187, "commit_quorums": 12187,
+         "commits_adopted": 133},
+        "ffcd8aa056ac535b4bdc03a4eaa9137d8ab066b4702a25b29b6930da8dda24d9"),
+    "hotstuff-100k/equivocate": (
+        {"qc_formed": 512, "blocks_committed": 496,
+         "commits_learned": 48791852, "proposals_delivered": 50687707,
+         "votes_counted": 66906901, "view_spread_max": 541,
+         "desync_rounds": 512, "sync_msgs_delivered": 499181},
+        "b449c03c15856ce9e115f58876529df98cc71a10b60720d4a9a0afff2ab5bb46"),
+}
+# The rounds phase 18 holds every kernel call of against its plain version.
+BYZ_ROUNDS = (3, 20)
+# The kernels with a BYZ instance, each picked by the Config's byzantine
+# mode (KR, KS: their trailing Byz argument) and timed on round 20 of a
+# run; KAJ takes the honest count with no instance of its own.
+BYZ_TIMED = {"candidacy": "raft-100k/silent", "elect": "raft-100k/equivocate",
+             "propose": "raft-100k/silent", "acks_commit": "raft-100k/silent",
+             "dense_elect": "raft-1kx1k/equivocate",
+             "dense_append": "raft-1kx1k/silent",
+             "dense_acks_commit": "raft-1kx1k/silent",
+             "pbft_view_preprepare": "pbft-f128/equivocate",
+             "pbft_tally": "pbft-f128/equivocate",
+             "pbft_decide": "pbft-f128/equivocate",
+             "pbft_telemetry": "pbft-f128/equivocate",
+             "hotstuff_propose": "hotstuff-100k/silent",
+             "hotstuff_vote": "hotstuff-100k/equivocate",
+             "hotstuff_learn": "hotstuff-100k/equivocate",
+             "hotstuff_prologue": "hotstuff-100k/composed"}
+
+
+def byz_config(key: str, **kw):
+    """Phase 18's run ``key`` ("<flagship>/<mode>"), changed by ``kw``."""
+    name, mode = key.split("/")
+    make, silent, equiv = BYZ_FLAGSHIPS[name]
+    if mode == "silent":
+        return make(n_byzantine=silent, **kw)
+    extra = BYZ_COMPOSED if mode == "composed" else {}
+    return make(n_byzantine=equiv, byz_mode="equivocate", **extra, **kw)
+
+
+def byz_flat(name: str, args):
+    """``args`` of kernel ``name`` with its BYZ instance turned off: no
+    byzantine node in its Config, and the arguments that only the BYZ
+    instances take (KR's and KS's Byz, KAA's values, KAE's and KAF's fork
+    state) dropped."""
+    if name in ("pbft_tally", "pbft_decide"):
+        return args[:-1]
+    flat = (dataclasses.replace(args[0], n_byzantine=0, byz_mode="silent"),
+            *args[1:])
+    if name in ("hotstuff_vote", "hotstuff_learn", "pbft_telemetry") \
+            and args[0].byz == 2:
+        return flat[:-1]
+    return flat
+
+
+def byz_kernel_bound(name: str, args) -> tuple[float, str]:
+    """The least time of kernel ``name``'s work on a byzantine round's
+    ``args``: its flat bound on the same inputs, plus what equivocation
+    adds where its instance does it: KR's stance draws (n_byzantine a
+    receiver) and their delivery bytes, KQ's (one a receiver of a
+    byzantine primary, and a value a slot), KAE's (one a receiver of a
+    byzantine leader) and its deceived flags, KAF's deceived flags and
+    fork bits, KAA's three value planes."""
+    from consensus_tpu_torch.engines import hotstuff
+    if name == "hotstuff_prologue":
+        return prologue_bound(args)
+    nbytes, ops = flat_work(name, byz_flat(name, args))
+    cfg = args[0] if name not in ("pbft_tally", "pbft_decide") else None
+    if name == "pbft_tally" and args[-1].mode == 2:
+        deliver, n_real = args[0], args[1]
+        b, n = deliver.shape[:2]
+        nb = args[-1].nb
+        ops += THREEFRY_OPS * nb * int(n_real.sum())
+        nbytes += nb * int(n_real.sum()) + 4 * b * n
+    elif name == "pbft_view_preprepare" and cfg.byz == 2:
+        from consensus_tpu_torch.engines import pbft
+        n_real, s = args[4], args[8].shape[2]
+        view = pbft.pbft_view_preprepare_plain(*clone_args(args))[0]
+        prim = view.remainder(n_real[:, None])
+        byz = int((prim >= (n_real - cfg.n_byzantine)[:, None]).sum())
+        ops += THREEFRY_OPS * byz * (1 + s)
+    elif name == "pbft_telemetry" and cfg.byz == 2:
+        nbytes += 12 * args[-1][0].numel()
+    elif name == "hotstuff_vote" and cfg.byz == 2:
+        view1, lane = args[3], args[4]
+        b, n = view1.shape
+        vstar = lane[:, hotstuff.VMAX]
+        byz_l = (vstar >= 0) & (vstar % n >= cfg.n_honest)
+        ops += THREEFRY_OPS * int(((view1 <= vstar[:, None])
+                                   & byz_l[:, None]).sum())
+        nbytes += b * n + 8 * b * (args[-1][0].shape[1] + 17)
+    elif name == "hotstuff_learn" and cfg.byz == 2:
+        nbytes += 9 * args[2].numel()
+    return bound(nbytes, ops)
+
+
+def hotstuff_fork_cases(dev) -> list:
+    """KAE's arguments on built equivocating lanes at N = 13 (B = 6) and at
+    hotstuff-100k's width (B = 8): preset vote words force a forked QC, a
+    variant-1 QC alone or none whatever the round's votes, one lane's
+    leader is byzantine, one lane's fork table is full; random fork bits,
+    heights and prefixes (tests/test_torch_byz.py holds the same cases'
+    plain versions to a transcription of the JAX round). Each case is
+    (KAE's args, KAF's inputs but those KAE gives)."""
+    from consensus_tpu_torch.engines import hotstuff
+    out = []
+    for f, b, s in ((4, 6, 16), (33_333, B, 64)):
+        n = 3 * f + 1
+        g = np.random.default_rng(f)
+        cfg = protocol_config(HOTSTUFF_FLAGSHIP, f=f, n_nodes=n, n_sweeps=b,
+                              log_capacity=s, drop_rate=0.2, n_byzantine=f,
+                              byz_mode="equivocate", telemetry_window=WINDOW,
+                              n_rounds=16)
+        q = 2 * f + 1
+
+        def ints(lo, hi, shape):
+            return torch.from_numpy(g.integers(lo, hi, shape).astype(
+                np.int32)).to(dev)
+        view1 = ints(8, 14, (b, n))
+        lane = hotstuff.lane_at_rest(view1, cfg.n_honest)
+        vstar = torch.from_numpy(g.integers(9, 14, b)).to(dev)
+        vstar[1] = 2 * n - 1                       # byzantine leader n - 1
+        lane[:, hotstuff.VMAX] = vstar
+        forced = [(q, q), (q, q), (-2 * n, q), (-2 * n, q), (-2 * n, -2 * n)]
+        forced += [(-2 * n, -2 * n)] * (b - len(forced))
+        lane[:, hotstuff.VOTES] = torch.tensor([x for x, _ in forced],
+                                               device=dev)
+        lane[:, hotstuff.VOTES1] = torch.tensor([y for _, y in forced],
+                                                device=dev)
+        regs = [ints(3, 6, b), ints(4, 9, b), ints(2, 3, b), ints(2, 4, b),
+                ints(1, 2, b), ints(0, 2, b), ints(2, 7, b)]
+        fnum = ints(0, 9, b)
+        fnum[0] = 8
+        fork = (ints(0, 2, (b, s)), ints(-1, 12, (b, 8)), ints(0, 9, (b, 8)),
+                fnum)
+        seeds = torch.from_numpy(g.integers(0, 2**32, b)).to(dev).to(
+            torch.uint32)
+        vote = (cfg, seeds, 5, view1, lane, *regs, ints(-1, 9, (b, s)), None,
+                fork)
+        learn = dict(adv=torch.from_numpy(g.random((b, n)) < 0.2).to(dev),
+                     timer=ints(0, 9, (b, n)), clen=ints(0, 6, (b, n)),
+                     fvec=ints(0, 256, (b, n)))
+        out.append((vote, learn))
+    return out
+
+
+def pbft_safety_cases(dev) -> list:
+    """KAA's arguments on built equivocating rounds at N = 10 (4 lanes,
+    n_real 10, 10, 7 and 4) and at pbft-f128's width: random commits and
+    values from four choices, so that slots fork and conflict, with and
+    without down nodes (tests/test_torch_byz.py holds the N = 10 cases'
+    plain version to a transcription of the JAX tail)."""
+    from consensus_tpu_torch.engines import pbft
+    from consensus_tpu_torch.network import runner
+    out = []
+    for f, lanes in ((3, (10, 10, 7, 4)), (128, (385,) * B)):
+        n, b, s = 3 * f + 1, len(lanes), 32
+        g = np.random.default_rng(f)
+        cfg = pbft_config(f, n_sweeps=b, n_byzantine=2 if f == 3 else f,
+                          byz_mode="equivocate", telemetry_window=WINDOW)
+        n_real = torch.tensor(lanes, dtype=torch.int32, device=dev)
+
+        def flags(p, shape=(b, n, s)):
+            return torch.from_numpy(g.random(shape) < p).to(dev)
+
+        def vals():
+            return torch.from_numpy(g.integers(-2, 2, (b, n, s)).astype(
+                np.int32) * 2**30).to(dev)
+        view = torch.from_numpy(g.integers(0, 9, (b, n)).astype(
+            np.int32)).to(dev)
+        committed_in, tallied = flags(0.3), flags(0.6)
+        for crash in (0, pbft.CRASH_VIEWS):
+            down = flags(0.3, (b, n)) if crash else torch.zeros(
+                (b, n), dtype=torch.bool, device=dev)
+            t, (w, lat) = runner.accumulators(cfg, dev)
+            out.append((cfg, 3, n_real, view, view, view + 1,
+                        flags(0.2, (b, n)), down, flags(0.5), flags(0.3),
+                        flags(0.4), committed_in, tallied,
+                        tallied | flags(0.2), t, w, lat, crash,
+                        (vals(), vals(), vals())))
+    return out
+
+
+def check_byz_kernels(dev):
+    """Phase 18's kernel rows. Every kernel call of rounds 3 and 20 of each
+    run BYZ_RUNS (with telemetry and 8-round windows where BYZ_TELEMETRY
+    has the run), of KQ-KS on both byzantine ladders' rounds, of KAE and
+    KAF on built equivocating HotStuff lanes (hotstuff_fork_cases: forked
+    QCs, variant-1 QCs, a full fork table, conflicting commits) and of KAA
+    on built equivocating PBFT rounds (pbft_safety_cases: forked and
+    conflicting slots), against the plain versions, exact. Then each BYZ
+    instance's time on round 20 of its BYZ_TIMED run, its plain version's
+    and its bound, and its flat instance's time and bound on the same
+    inputs. Yields one row an instance."""
+    from consensus_tpu_torch.engines import hotstuff, pbft_sweep
+    from consensus_tpu_torch.network import runner
+    errs = dict.fromkeys(BYZ_TIMED, 0.0)
+    cases = dict.fromkeys(BYZ_TIMED, 0)
+    timed = {}
+
+    def hold(calls, where):
+        hold_calls(calls, where, errs, cases)
+    for key in BYZ_RUNS:
+        telemetry = key in BYZ_TELEMETRY
+        cfg = byz_config(key, **(dict(telemetry_window=WINDOW)
+                                 if telemetry else {}))
+        for r in BYZ_ROUNDS:
+            calls = capture_round_calls(cfg, r, telemetry, dev)
+            hold(calls, f"{key} round {r}")
+            for name, run in BYZ_TIMED.items():
+                if run == key and r == 20:
+                    timed[name] = max(calls[name], key=lambda a: sum(
+                        t.numel() for t in tensors_of(a)))
+    for name, (make, rungs, _) in BYZ_LADDERS.items():
+        cfg_pad = pbft_sweep._fsweep_static(make(), rungs)[1]
+        for wrapper in PBFT:
+            got = capture_calls(cfg_pad, BYZ_ROUNDS, wrapper, rungs, dev)
+            hold({wrapper: [a for calls in got.values() for a in calls]},
+                 f"the {name}")
+    for vote, learn in hotstuff_fork_cases(dev):
+        hold({"hotstuff_vote": [vote]}, "built equivocating HotStuff lanes")
+        args = clone_args(vote)
+        cfg, lane, regs, fork = args[0], args[4], args[5:12], args[-1]
+        pdel, _, b1_h, _, _, _, _, gcommit, deceived = \
+            hotstuff.hotstuff_vote_plain(*args)
+        t, (w, lat) = runner.accumulators(cfg, dev)
+        hold({"hotstuff_learn": [
+            (cfg, 5, args[3], pdel, learn["adv"], learn["timer"],
+             learn["clen"], lane, regs[6], b1_h, gcommit, t, w, lat, None,
+             (deceived, learn["fvec"], fork[2], fork[3]))]},
+             "built equivocating HotStuff lanes")
+    hold({"pbft_telemetry": pbft_safety_cases(dev)},
+         "built equivocating PBFT rounds")
+    for name, run in BYZ_TIMED.items():
+        args = timed[name]
+        mod = kernel_module(name)
+        reps = reps_for(args)
+        flat = byz_flat(name, args)
+        yield dict(name=name, max_abs_err=errs[name], cases=cases[name],
+                   timed_on=f"{run} round 20",
+                   ms=graph_ms(getattr(mod, name), args, reps),
+                   plain_ms=event_ms(getattr(mod, name + "_plain"), args,
+                                     min(5, reps)),
+                   bound=byz_kernel_bound(name, args),
+                   flat_instance_ms=graph_ms(getattr(mod, name), flat, reps),
+                   flat_instance_bound=byz_kernel_bound(name, flat)
+                   if name == "hotstuff_prologue"
+                   else bound(*flat_work(name, flat)))
+
+
+def check_byz_runs(card: str, smi: str) -> None:
+    """Phase 18's runs: each run BYZ_RUNS (:func:`anchored_run`; HotStuff:
+    its final views and variant-1 heights too, and 3 device operations a
+    round without a crash or a desync, as the flat round) and each ladder
+    BYZ_LADDERS (:func:`anchored_ladder`); then BYZ_TELEMETRY's runs with
+    telemetry and 8-round windows (:func:`anchored_telemetry`), the safety
+    tail among their counters."""
+    from consensus_tpu_torch.engines import hotstuff
+    from consensus_tpu_torch.network import runner
+    for key, digest in BYZ_RUNS.items():
+        cfg = byz_config(key)
+        row, launches, replayed, eager, _ = anchored_run(cfg, digest)
+        row["elapsed_s"] = time.perf_counter() - T0
+        if key in BYZ_VIEWS_SHA256:
+            state = runner.run_device(cfg).state
+            row["views_sha256"] = views_sha256(replayed["view"])
+            row["eager_views_sha256"] = views_sha256(eager["view"])
+            row["variant1_heights"] = int((state.chain_vid == 1).sum())
+            require(row["views_sha256"] == BYZ_VIEWS_SHA256[key]
+                    and row["eager_views_sha256"] == BYZ_VIEWS_SHA256[key],
+                    f"{key}: views {row['views_sha256']} (replay), "
+                    f"{row['eager_views_sha256']} (eager)")
+            require(row["variant1_heights"] == BYZ_VARIANT1[key],
+                    f"{key}: {row['variant1_heights']} variant-1 heights")
+            if not hotstuff.gated(cfg):
+                require(row["ops_per_round"] == 3.0,
+                        f"{key}: {row['ops_per_round']} device operations "
+                        "a round")
+        emit("byz_run", run=key, **row, card=card, power=smi)
+        hold_run(key, row, digest, cfg, launches)
+    for name, (make, rungs, digest) in BYZ_LADDERS.items():
+        anchored_ladder(name, make(), rungs, digest, "byz_run", card, smi)
+    for key, (nonzero, flight) in BYZ_TELEMETRY.items():
+        anchored_telemetry(key, byz_config(key, telemetry_window=WINDOW),
+                           BYZ_RUNS[key], nonzero, flight, "byz_telemetry",
+                           card, smi)
+
+
+# The script's start, for each phase-18 row's elapsed time.
+T0 = time.perf_counter()
 
 
 def main() -> int:
@@ -5573,6 +6040,22 @@ def main() -> int:
     launches.update(check_desync_runs(card, smi))
     require(sorted(k["name"] for k in kernels) == sorted(_build.SOURCES),
             "phases 3, 16 and 17 do not check every kernel of csrc")
+
+    # 18. SPEC §3c/§7c byzantine nodes (both Raft engines, dense PBFT and
+    # its ladder, HotStuff): every kernel call of rounds 3 and 20 of the
+    # runs, the ladders' KQ-KS and built forked HotStuff lanes and PBFT
+    # rounds against the plain versions, then the runs.
+    for k in check_byz_kernels(dev):
+        k["bound_ms"], k["bound_by"] = k.pop("bound")
+        (k["flat_instance_bound_ms"],
+         k["flat_instance_bound_by"]) = k.pop("flat_instance_bound")
+        emit("byz_kernel", **k, elapsed_s=time.perf_counter() - T0,
+             card=card, power=smi)
+        require(k["max_abs_err"] == 0.0,
+                f"{k['name']} with byzantine nodes disagrees with its plain "
+                "version")
+    check_byz_runs(card, smi)
+    emit("wall", elapsed_s=time.perf_counter() - T0)
     for k in kernels:
         k["launches"] = launches[k["name"]]
 

@@ -61,25 +61,27 @@ SIGNATURES = {
     # seed, round, churn_cut, t_min, t_span; term, role, voted_for, timer,
     # timeout, log_term, log_len; term, role, voted_for, timer, timeout,
     # reset, own_lterm, cand_mask outputs; §6c flags (null on the flat
-    # path); B, N, L
-    "candidacy": (_P, _U, _U, _I, _U) + (_P,) * 16 + (_I, _I, _I),
+    # path); B, N, L; §3c byz mode, n_byzantine (0, 0 on the flat path)
+    "candidacy": (_P, _U, _U, _I, _U) + (_P,) * 16 + (_I,) * 5,
     # seed, t_min, t_span; cand_ids, del_cj, del_jc, term, role, voted_for,
     # timer, timeout, reset, log_len, own_lterm; term, role, voted_for,
     # timer, timeout, reset, lead, win outputs, votes scratch; §6c flags
-    # (null on the flat path); B, N, A
-    "elect": (_P, _I, _U) + (_P,) * 21 + (_I, _I, _I),
+    # (null on the flat path); B, N, A; byz mode, n_byzantine
+    "elect": (_P, _I, _U) + (_P,) * 21 + (_I,) * 5,
     # new_ids, lead_id, lead_match, lead_next, role, log_len, lead_match
     # and lead_next outputs; B, N, A, E
     "slots": (_P,) * 8 + (_I, _I, _I, _I),
     # seed, t_min, t_span; lead_id, was_lead_k, del_jl, has_l, kstar,
     # apply, log_len, log_term; term, role, voted_for, timeout, commit,
     # lead_match, lead_next, timer (in place), reset; t_in3, proc, hist
-    # scratch; §6c flags (null on the flat path); B, N, A, L, E
-    "acks_commit": (_P, _I, _U) + (_P,) * 21 + (_I,) * 5,
+    # scratch; §6c flags (null on the flat path); B, N, A, L, E; byz mode,
+    # n_byzantine
+    "acks_commit": (_P, _I, _U) + (_P,) * 21 + (_I,) * 7,
     # seed, round, lead, term, log_term, log_val (in place), log_len,
     # commit, lead_id; log_len, was_lead_k, hb_ids, s_term, s_len,
-    # s_commit, s_logt, s_logv outputs; B, N, A, L, E
-    "propose": (_P, _U) + (_P,) * 15 + (_I,) * 5,
+    # s_commit, s_logt, s_logv outputs; B, N, A, L, E; byz mode,
+    # n_byzantine
+    "propose": (_P, _U) + (_P,) * 15 + (_I,) * 7,
     # cand_ids, win, timer at round entry, has_l, apply, commit at round
     # entry, commit, role, log_len, down; t, w, lat accumulators (w and
     # lat null with the recorder off); B, N, A, K, window, n_windows
@@ -91,20 +93,20 @@ SIGNATURES = {
     # voted_for, timer, timeout, log_term, log_len, match_idx and next_idx
     # (in place); term, role, voted_for, timer, timeout, reset outputs,
     # winner flags (null without telemetry), scratch; §6c flags (null on
-    # the flat path); B, N, L
-    "dense_elect": (_P, _U, _U, _I, _U) + (_P,) * 19 + (_I,) * 3,
+    # the flat path); B, N, L; byz mode, n_byzantine
+    "dense_elect": (_P, _U, _U, _I, _U) + (_P,) * 19 + (_I,) * 5,
     # seed, round, t_min, t_span; deliver, term, role, voted_for, timer,
     # timeout, reset, log_term, log_val (in place), log_len, commit,
     # match_idx (in place), next_idx; term, role, voted_for, timer,
     # timeout, reset, log_len, commit, was_leader, ack_to, ack_ok,
     # ack_match outputs; scratch, row scratch; §6c flags (null on the flat
-    # path); B, N, L, E
-    "dense_append": (_P, _U, _I, _U) + (_P,) * 28 + (_I,) * 4,
+    # path); B, N, L, E; byz mode, n_byzantine
+    "dense_append": (_P, _U, _I, _U) + (_P,) * 28 + (_I,) * 6,
     # seed, t_min, t_span; deliver, was_leader, ack_to, ack_ok, ack_match,
     # log_term; term, role, voted_for, timeout, commit, match_idx,
     # next_idx, timer (in place), reset; scratch; §6c flags (null on the
-    # flat path); B, N, L, E
-    "dense_acks_commit": (_P, _I, _U) + (_P,) * 17 + (_I,) * 4,
+    # flat path); B, N, L, E; byz mode, n_byzantine
+    "dense_acks_commit": (_P, _I, _U) + (_P,) * 17 + (_I,) * 6,
     # win, timer at round entry, ack_to, ack_ok, commit at round entry,
     # commit, role, log_len, down; t, w, lat accumulators (w and lat null
     # with the recorder off); B, N, K, window, n_windows
@@ -113,15 +115,18 @@ SIGNATURES = {
     # (§B; desync_cut 0 off); deliver, n_real, f, view, timer, pp_seen,
     # pp_view, pp_val, prepared, committed; view, timer, reset, pp_seen,
     # pp_view, pp_val outputs, catch-up flags (null without telemetry),
-    # order scratch; §6c flags (null on the flat path); B, N, S
+    # order scratch; §6c flags (null on the flat path); B, N, S; byz mode,
+    # n_byzantine
     "pbft_view_preprepare": (_P, _U, _U, _I, _I, _U, _U) + (_P,) * 19
-    + (_I,) * 3,
+    + (_I,) * 5,
     # deliver, n_real, f, pp_seen, pp_val, prepared, committed, dval;
-    # prepared, committed, dval outputs; B, N, S
-    "pbft_tally": (_P,) * 11 + (_I,) * 3,
+    # prepared, committed, dval outputs; B, N, S; byz mode, n_byzantine,
+    # then under equivocation seed, round and the extra-count scratch (null,
+    # 0, null otherwise)
+    "pbft_tally": (_P,) * 11 + (_I,) * 5 + (_P, _U, _P),
     # deliver, n_real, committed, dval, committed at round entry, timer,
-    # reset; committed, dval, timer outputs; B, N, S
-    "pbft_decide": (_P,) * 10 + (_I,) * 3,
+    # reset; committed, dval, timer outputs; B, N, S; byz mode, n_byzantine
+    "pbft_decide": (_P,) * 10 + (_I,) * 5,
     # seed, round, churn_cut, drop_cut, part_cut, max_delay, view_timeout,
     # vmax, desync_cut, max_skew (§B; desync_cut 0 off); n_real, f, view,
     # timer, pp_seen, pp_view, pp_val, prepared, committed; view, timer,
@@ -162,8 +167,10 @@ SIGNATURES = {
     # after the tally, committed; t, w, lat accumulators (w and lat null
     # with the recorder off), span scratch; round, B, N, S, K, window,
     # n_windows
-    # n_windows, §6c mode (engines/pbft.py CRASH_VIEWS, CRASH_COMMITS)
-    "pbft_telemetry": (_P,) * 16 + (_I,) * 8,
+    # n_windows, §6c mode (engines/pbft.py CRASH_VIEWS, CRASH_COMMITS);
+    # byz mode, n_byzantine; pp_val, dval at entry, dval (null but under
+    # equivocation)
+    "pbft_telemetry": (_P,) * 16 + (_I,) * 10 + (_P,) * 3,
     # seed, round; producers, chain_len, KX's append counts; t, w, lat
     # accumulators (w and lat null with the recorder off), span scratch;
     # the round's and the round before's producer indexes, the list's
@@ -175,20 +182,25 @@ SIGNATURES = {
     "paxos_telemetry": (_P,) * 9 + (_L,) + (_I,) * 7,
     # seed, round; view, b1_h, lane words (in place); view after P1,
     # catch-up flags outputs; §6c flags (null on the flat path); drop_cut,
-    # part_cut, churn_cut, max_delay; the lane word of P1's key; B, N, S
-    "hotstuff_propose": (_P, _U) + (_P,) * 6 + (_U,) * 4 + (_I,) * 4,
+    # part_cut, churn_cut, max_delay; the lane word of P1's key; B, N, S;
+    # byz mode, n_byzantine
+    "hotstuff_propose": (_P, _U) + (_P,) * 6 + (_U,) * 4 + (_I,) * 6,
     # seed, round; view after P1, lane words (in place), b1_v, b1_h, b2_v,
     # b2_h, b3_v, b3_h, gcommit, chain_v (in place); delivery flags, [7, B]
     # registers outputs; §6c flags (null on the flat path); drop_cut,
-    # part_cut, max_delay; Q, B, N, S
-    "hotstuff_vote": (_P, _U) + (_P,) * 13 + (_U,) * 3 + (_I,) * 4,
+    # part_cut, max_delay; Q, B, N, S; byz mode, n_byzantine; chain_vid,
+    # ftab_v, ftab_h, fnum (in place), deceived output (null but under
+    # equivocation)
+    "hotstuff_vote": (_P, _U) + (_P,) * 13 + (_U,) * 3 + (_I,) * 6
+    + (_P,) * 5,
     # view after P1, delivery flags, catch-up flags, timer, clen, lane
     # words (in place), gcommit at round entry, b1_h and gcommit after P4;
     # [3, B, N] view, timer, clen output; t, w, lat accumulators (null
     # without telemetry; w and lat null without the recorder); §6c flags,
     # view and timer at round entry (null on the flat path); Q,
-    # view_timeout, B, N, window, n_windows
-    "hotstuff_learn": (_P,) * 16 + (_I,) * 6,
+    # view_timeout, B, N, window, n_windows; byz mode, n_byzantine;
+    # deceived, fvec (in place), ftab_h, fnum (null but under equivocation)
+    "hotstuff_learn": (_P,) * 16 + (_I,) * 8 + (_P,) * 4,
     # seed, chain_v, chain_vid, clen, fvec, ftab_v, ftab_h, fnum; committed,
     # dval outputs; B, N, S
     "hotstuff_extract": (_P,) * 10 + (_I,) * 3,
@@ -205,8 +217,8 @@ SIGNATURES = {
     # words (in place); [2, B, N] view and timer output; t, w accumulators
     # (null without telemetry; w null without the recorder); desync_cut,
     # max_skew; view_timeout, B, N, K, view_changes' column, window,
-    # n_windows
-    "hotstuff_prologue": (_P, _U) + (_P,) * 7 + (_U, _U) + (_I,) * 7,
+    # n_windows, n_byzantine
+    "hotstuff_prologue": (_P, _U) + (_P,) * 7 + (_U, _U) + (_I,) * 8,
 }
 
 

@@ -56,13 +56,17 @@ def _kind(leaves: dict) -> type:
     return RaftSparseState
 
 
-def state_from_numpy(leaves: dict, device="cpu") -> State:
+def state_from_numpy(leaves: dict, device="cpu",
+                     n_byzantine: int = 0) -> State:
     """The port's state from a dict of batched numpy leaves (see
-    :func:`_kind`)."""
+    :func:`_kind`). A HotStuff state without ``lane`` gets its words at
+    rest, P1's key over the honest nodes: the ids below N -
+    ``n_byzantine`` (the run's Config.n_byzantine)."""
     kind = _kind(leaves)
     if kind is HotstuffState and "lane" not in leaves:
-        leaves = {**leaves, "lane": lane_at_rest(torch.from_numpy(
-            np.ascontiguousarray(leaves["view"]))).numpy()}
+        view = torch.from_numpy(np.ascontiguousarray(leaves["view"]))
+        leaves = {**leaves, "lane": lane_at_rest(
+            view, view.shape[1] - n_byzantine).numpy()}
     out = {}
     for name in kind._fields:
         a = np.ascontiguousarray(leaves[name])

@@ -21,11 +21,16 @@ n_nodes]) runs on every engine; a PBFT f-ladder with ``crash_prob > 0``
 raises in ``pbft_sweep.pbft_fsweep_run`` as in the JAX package. The SPEC
 §B view desync (``desync_rate``, ``max_skew_rounds`` in [1, 8]) runs on
 both PBFT engines, both f-ladders and HotStuff, and raises with the JAX
-package's message on the other protocols. The other knobs of the JAX
-package that this port does not implement yet are fields too, and setting
-one off its default raises ``ValueError``, also beside a delay, a crash or
-a desync; the port never ignores a setting silently. For HotStuff those
-are byzantine nodes (silent or equivocating) and the switch network.
+package's message on the other protocols. The SPEC §3c/§7c byzantine nodes
+(``n_byzantine`` in [0, n_nodes], at most f on pbft and hotstuff, the ids
+from N - n_byzantine up; ``byz_mode`` "silent" or "equivocate") run on both
+Raft engines, dense PBFT, its f-ladder and HotStuff, with the JAX
+package's checks and messages; the §6b engine (``fault_model="bcast"``)
+with byzantine nodes raises with the port's own message. The other knobs
+of the JAX package that this port does not implement yet are fields too,
+and setting one off its default raises ``ValueError``, also beside a
+delay, a crash, a desync or byzantine nodes; the port never ignores a
+setting silently.
 """
 from __future__ import annotations
 
@@ -38,7 +43,6 @@ from .rng import prob_threshold_u32
 UNSUPPORTED = {
     "attack": "none", "attack_rate": 1.0, "attack_target": 0,
     "net_model": "flat", "n_aggregators": 0,
-    "n_byzantine": 0, "byz_mode": "silent",
     "miss_rate": 0.0, "suppress_rate": 0.0, "suppress_window": 16,
     "scan_chunk": 0, "sweep_chunk": 0,
     "mesh_shape": (),
@@ -54,6 +58,10 @@ PROTOCOLS = ("raft", "pbft", "paxos", "dpos", "hotstuff")
 # SPEC §A.2: the most rounds a dropped flight may be retransmitted late
 # (consensus_tpu/core/config.py:224-227).
 MAX_DELAY_ROUNDS = 16
+
+# SPEC §3c/§7c byzantine modes as the kernels take them (``Config.byz``):
+# none, silent (withhold every send), equivocate.
+BYZ_NONE, BYZ_SILENT, BYZ_EQUIV = 0, 1, 2
 
 # Raft only. The top-A kernel keeps a sorted list of A keys per thread in
 # registers.
@@ -135,6 +143,20 @@ class Config:
                 raise ValueError(
                     f"{self.protocol} requires n_nodes == 3f+1 == "
                     f"{expect}, got {self.n_nodes}")
+            if self.n_byzantine > self.f:
+                raise ValueError("n_byzantine must be <= f")
+        # The JAX package's SPEC §3c/§7c checks and messages
+        # (consensus_tpu/core/config.py:193-209).
+        if self.n_byzantine < 0 or self.n_byzantine > self.n_nodes:
+            raise ValueError("n_byzantine must be in [0, n_nodes]")
+        if self.n_byzantine > 0 and self.protocol not in ("pbft", "raft",
+                                                          "hotstuff"):
+            raise ValueError(
+                f"n_byzantine is a pbft/raft/hotstuff adversary "
+                f"(SPEC §6/§3c/§7b); {self.protocol} would silently "
+                "ignore it")
+        if self.byz_mode not in ("silent", "equivocate"):
+            raise ValueError(f"unknown byz_mode {self.byz_mode!r}")
         if self.fault_model not in ("edge", "bcast"):
             raise ValueError(f"unknown fault_model {self.fault_model!r}")
         if self.fault_model == "bcast" and self.protocol != "pbft":
@@ -196,6 +218,11 @@ class Config:
             raise ValueError(
                 "max_skew_rounds requires desync_rate > 0 (SPEC §B) "
                 "— it would be silently ignored")
+        if self.fault_model == "bcast" and self.n_byzantine > 0:
+            raise ValueError(
+                "n_byzantine with fault_model='bcast' (SPEC §6b): not "
+                "supported by the port yet (the §6b tally table holds two "
+                "values a slot); it would be silently ignored")
         off = [k for k, d in UNSUPPORTED.items() if getattr(self, k) != d]
         if off:
             raise ValueError(f"{', '.join(off)}: not supported by the port "
@@ -237,6 +264,20 @@ class Config:
         """SPEC §B runs only where a skew can fire: with ``desync_rate = 0``
         the round is the flat one (consensus_tpu/core/config.py:473-476)."""
         return self.desync_cutoff > 0
+
+    @property
+    def byz(self) -> int:
+        """The SPEC §3c/§7c mode the kernels take: BYZ_NONE without
+        byzantine nodes (whatever ``byz_mode`` says: the round is the flat
+        one), else BYZ_SILENT or BYZ_EQUIV."""
+        if self.n_byzantine == 0:
+            return BYZ_NONE
+        return BYZ_SILENT if self.byz_mode == "silent" else BYZ_EQUIV
+
+    @property
+    def n_honest(self) -> int:
+        """The honest nodes: ids below N - n_byzantine."""
+        return self.n_nodes - self.n_byzantine
 
     @property
     def no_partition(self) -> bool:

@@ -45,8 +45,13 @@
 //     it is (the freeze, raft_sparse.py:494-501); launches 1-4 need no
 //     change, since KB cut every ack to or from a down node and the tracked
 //     leaders are up.
+// Its BYZ instance (SPEC §3c, picked with silent byzantine nodes: the ids
+// N - nb and up) leaves their acks out of launches 1 and 3: they never
+// travel (raft_sparse.py:446-447). A silent byzantine leader's slot is not
+// processed at all: kernel KI marked it unsent.
 #include <cuda_runtime.h>
 
+#include "byz.cuh"
 #include "crash.cuh"
 #include "rng.cuh"
 
@@ -60,18 +65,19 @@ constexpr int CHUNK = THREADS * 16;
 constexpr int32_t ROLE_F = 0, ROLE_L = 2, NONE = -1;
 
 // Launch 1. Grid (ceil(N / THREADS), B).
+template <bool WITHHOLD>
 __global__ void __launch_bounds__(THREADS)
 ack_term_kernel(const bool* __restrict__ del_jl,
                 const bool* __restrict__ has_l,
                 const int32_t* __restrict__ kstar,
                 const int32_t* __restrict__ term, int* __restrict__ t_in3,
-                int N, int A) {
+                int N, int A, int n_honest) {
   __shared__ int s_max[MAXA];
   const int b = blockIdx.y;
   if (threadIdx.x < A) s_max[threadIdx.x] = 0;
   __syncthreads();
   const int j = blockIdx.x * THREADS + threadIdx.x;
-  if (j < N) {
+  if (j < N && !(WITHHOLD && j >= n_honest)) {
     const long long row = static_cast<long long>(b) * N + j;
     if (has_l[row]) {
       const int k = kstar[row];
@@ -116,6 +122,7 @@ __global__ void slot_bump_kernel(const uint32_t* __restrict__ seed,
 }
 
 // Launch 3. Grid (ceil(N / CHUNK), B * A).
+template <bool WITHHOLD>
 __global__ void __launch_bounds__(THREADS)
 match_next_kernel(const bool* __restrict__ del_jl,
                   const bool* __restrict__ has_l,
@@ -125,7 +132,8 @@ match_next_kernel(const bool* __restrict__ del_jl,
                   const int* __restrict__ proc,
                   uint8_t* __restrict__ lead_match,
                   uint8_t* __restrict__ lead_next,
-                  unsigned* __restrict__ hist, int N, int A) {
+                  unsigned* __restrict__ hist, int N, int A,
+                  int n_honest) {
   const int slot = blockIdx.y;  // b * A + a
   if (!proc[slot]) return;      // uniform across the block
   __shared__ unsigned s_hist[BINS];
@@ -144,7 +152,8 @@ match_next_kernel(const bool* __restrict__ del_jl,
     if (j < hi) {
       const long long row = nodes + j;
       uint8_t m = m_row[j];
-      if (has_l[row] && kstar[row] == a && del_jl[row * A + a]) {
+      if (!(WITHHOLD && j >= n_honest) && has_l[row] && kstar[row] == a &&
+          del_jl[row * A + a]) {
         uint8_t n;
         if (apply_[row]) {
           const uint8_t acked = static_cast<uint8_t>(log_len[row]);
@@ -224,9 +233,10 @@ extern "C" int ctt_acks_commit(
     int32_t* role, int32_t* voted_for, int32_t* timeout, int32_t* commit,
     uint8_t* lead_match, uint8_t* lead_next, int32_t* timer,
     const bool* reset, int* t_in3, int* proc, unsigned* hist,
-    const unsigned char* flags, int B, int N, int A, int L, int E,
-    cudaStream_t st) {
-  if (A < 1 || A > MAXA || t_span == 0u || E < 0 || E >= BINS)
+    const unsigned char* flags, int B, int N, int A, int L, int E, int byz,
+    int nb, cudaStream_t st) {
+  if (A < 1 || A > MAXA || t_span == 0u || E < 0 || E >= BINS || nb < 0 ||
+      nb > N)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || N == 0) return 0;
   int err = static_cast<int>(
@@ -235,17 +245,22 @@ extern "C" int ctt_acks_commit(
     err = static_cast<int>(cudaMemsetAsync(
         hist, 0, sizeof(unsigned) * BINS * B * A, st));
   if (err != 0) return err;
-  ack_term_kernel<<<dim3((N + THREADS - 1) / THREADS, B), THREADS, 0, st>>>(
-      del_jl, has_l, kstar, term, t_in3, N, A);
+  const bool withhold = byz == ctt::BYZ_SILENT;
+  const auto ack_term = withhold ? ack_term_kernel<true>
+                                 : ack_term_kernel<false>;
+  ack_term<<<dim3((N + THREADS - 1) / THREADS, B), THREADS, 0, st>>>(
+      del_jl, has_l, kstar, term, t_in3, N, A, N - nb);
   if ((err = static_cast<int>(cudaGetLastError())) != 0) return err;
   const int small = (B * A + 127) / 128;
   slot_bump_kernel<<<small, 128, 0, st>>>(seed, t_min, t_span, lead_id,
                                           was_lead_k, t_in3, term, role,
                                           voted_for, timeout, proc, B, N, A);
   if ((err = static_cast<int>(cudaGetLastError())) != 0) return err;
-  match_next_kernel<<<dim3((N + CHUNK - 1) / CHUNK, B * A), THREADS, 0,
-                      st>>>(del_jl, has_l, kstar, apply_, log_len, proc,
-                            lead_match, lead_next, hist, N, A);
+  const auto match_next = withhold ? match_next_kernel<true>
+                                   : match_next_kernel<false>;
+  match_next<<<dim3((N + CHUNK - 1) / CHUNK, B * A), THREADS, 0, st>>>(
+      del_jl, has_l, kstar, apply_, log_len, proc, lead_match, lead_next,
+      hist, N, A, N - nb);
   if ((err = static_cast<int>(cudaGetLastError())) != 0) return err;
   commit_kernel<<<small, 128, 0, st>>>(lead_id, proc, hist, log_term, term,
                                        commit, B, N, A, L, E);

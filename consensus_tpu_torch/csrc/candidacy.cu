@@ -21,8 +21,13 @@
 // round to a follower with its timer at 0 (raft_sparse.py:213-215), then
 // writes a node down at the round's end back at that post-reset state and
 // out of the candidate mask (lines 219-220, 259-260, 494-501).
+// Its BYZ instance (SPEC §3c, picked with silent byzantine nodes) leaves
+// their candidacies out of the mask as well: they never broadcast
+// (raft_sparse.py:257-258), so KC ranks honest candidates only. An
+// equivocating node's candidacy broadcasts as an honest one's does.
 #include <cuda_runtime.h>
 
+#include "byz.cuh"
 #include "crash.cuh"
 #include "rng.cuh"
 
@@ -31,7 +36,7 @@ namespace {
 constexpr int THREADS = 256;
 constexpr int32_t ROLE_F = 0, ROLE_C = 1, ROLE_L = 2;
 
-template <bool CRASH>
+template <bool CRASH, bool WITHHOLD>
 __global__ void __launch_bounds__(THREADS)
 candidacy_kernel(const uint32_t* __restrict__ seed, uint32_t r,
                  uint32_t churn_cut, int32_t t_min, uint32_t t_span,
@@ -50,7 +55,8 @@ candidacy_kernel(const uint32_t* __restrict__ seed, uint32_t r,
                  bool* __restrict__ reset_out,
                  int32_t* __restrict__ own_lterm_out,
                  bool* __restrict__ cand_out,
-                 const unsigned char* __restrict__ flags, int N, int L) {
+                 const unsigned char* __restrict__ flags, int N, int L,
+                 int n_honest) {
   const int j = blockIdx.x * THREADS + threadIdx.x;
   if (j >= N) return;
   const int b = blockIdx.y;
@@ -97,7 +103,7 @@ candidacy_kernel(const uint32_t* __restrict__ seed, uint32_t r,
   timer_out[row] = tmr;
   timeout_out[row] = to;
   reset_out[row] = reset;
-  cand_out[row] = rl == ROLE_C && !down;
+  cand_out[row] = rl == ROLE_C && !down && !(WITHHOLD && j >= n_honest);
 }
 
 }  // namespace
@@ -113,15 +119,20 @@ extern "C" int ctt_candidacy(const uint32_t* seed, uint32_t r,
                              int32_t* timeout_out, bool* reset_out,
                              int32_t* own_lterm_out, bool* cand_out,
                              const unsigned char* flags, int B, int N, int L,
-                             cudaStream_t st) {
-  if (t_span == 0u) return static_cast<int>(cudaErrorInvalidValue);
+                             int byz, int nb, cudaStream_t st) {
+  if (t_span == 0u || nb < 0 || nb > N)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || N == 0) return 0;
   const dim3 grid((N + THREADS - 1) / THREADS, B);
-  const auto kernel = flags != nullptr ? candidacy_kernel<true>
-                                       : candidacy_kernel<false>;
+  const bool crash = flags != nullptr, withhold = byz == ctt::BYZ_SILENT;
+  const auto kernel =
+      crash ? (withhold ? candidacy_kernel<true, true>
+                        : candidacy_kernel<true, false>)
+            : (withhold ? candidacy_kernel<false, true>
+                        : candidacy_kernel<false, false>);
   kernel<<<grid, THREADS, 0, st>>>(
       seed, r, churn_cut, t_min, t_span, term, role, voted_for, timer,
       timeout, log_term, log_len, term_out, role_out, vf_out, timer_out,
-      timeout_out, reset_out, own_lterm_out, cand_out, flags, N, L);
+      timeout_out, reset_out, own_lterm_out, cand_out, flags, N, L, N - nb);
   return static_cast<int>(cudaGetLastError());
 }

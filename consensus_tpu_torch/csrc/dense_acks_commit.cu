@@ -38,8 +38,13 @@
 // KAH is given) changes launch 3 only: a node down at the round's end keeps
 // its timer (the freeze, raft.py:527-536). KL cut every ack to or from a
 // down node and KN listed no down leader, so nothing else reaches it.
+// Its BYZ instance (SPEC §3c, picked with silent byzantine nodes: the ids
+// N - nb and up) leaves their acks out of launches 1 and 3: they never
+// travel (raft.py:483-484); their timers still count in launch 3. KN
+// marked no silent byzantine leader a sender, so none is processed.
 #include <cuda_runtime.h>
 
+#include "byz.cuh"
 #include "crash.cuh"
 #include "rng.cuh"
 
@@ -50,14 +55,16 @@ constexpr int BINS = 256;
 constexpr int32_t ROLE_F = 0, ROLE_L = 2, NONE = -1;
 
 // Launch 1. A thread per (sweep, node), flattened.
+template <bool WITHHOLD>
 __global__ void __launch_bounds__(THREADS)
 dense_ack_term_kernel(const bool* __restrict__ deliver,
                       const int32_t* __restrict__ ack_to,
                       const int32_t* __restrict__ term, int* __restrict__ t_in3,
-                      int N, long long rows) {
+                      int N, long long rows, int n_honest) {
   const long long row =
       static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
   if (row >= rows) return;
+  if (WITHHOLD && static_cast<int>(row % N) >= n_honest) return;
   const int32_t l = ack_to[row];
   if (l < 0 || l >= N || !deliver[row * N + l]) return;
   const int32_t t = term[row];
@@ -97,7 +104,7 @@ dense_bump_kernel(const uint32_t* __restrict__ seed, int32_t t_min,
 }
 
 // Launch 3. A thread per (sweep, node), flattened.
-template <bool CRASH>
+template <bool CRASH, bool WITHHOLD>
 __global__ void __launch_bounds__(THREADS)
 dense_match_timer_kernel(const bool* __restrict__ deliver,
                          const int32_t* __restrict__ ack_to,
@@ -110,14 +117,15 @@ dense_match_timer_kernel(const bool* __restrict__ deliver,
                          uint8_t* __restrict__ next_idx,
                          int32_t* __restrict__ timer,
                          const unsigned char* __restrict__ flags, int N,
-                         long long rows) {
+                         long long rows, int n_honest) {
   const long long row =
       static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
   if (row >= rows) return;
   const long long nodes = row - row % N;
   const int j = static_cast<int>(row - nodes);
   const int32_t l = ack_to[row];
-  if (l >= 0 && l < N && deliver[row * N + l] && proc[nodes + l]) {
+  if (!(WITHHOLD && j >= n_honest) && l >= 0 && l < N &&
+      deliver[row * N + l] && proc[nodes + l]) {
     const long long e = (nodes + l) * N + j;
     if (ack_ok[row]) {
       const uint8_t acked = static_cast<uint8_t>(ack_match[row]);
@@ -193,8 +201,8 @@ extern "C" int ctt_dense_acks_commit(
     int32_t* term, int32_t* role, int32_t* voted_for, int32_t* timeout,
     int32_t* commit, uint8_t* match_idx, uint8_t* next_idx, int32_t* timer,
     const bool* reset, int32_t* scratch, const unsigned char* flags, int B,
-    int N, int L, int E, cudaStream_t st) {
-  if (t_span == 0u || E < 0 || E >= BINS || E > L)
+    int N, int L, int E, int byz, int nb, cudaStream_t st) {
+  if (t_span == 0u || E < 0 || E >= BINS || E > L || nb < 0 || nb > N)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || N == 0) return 0;
   const long long rows = static_cast<long long>(B) * N;
@@ -208,18 +216,25 @@ extern "C" int ctt_dense_acks_commit(
       cudaMemsetAsync(t_in3, 0, sizeof(int) * (rows + B), st));
   if (err != 0) return err;
   const unsigned blocks = static_cast<unsigned>((rows + THREADS - 1) / THREADS);
-  dense_ack_term_kernel<<<blocks, THREADS, 0, st>>>(deliver, ack_to, term,
-                                                    t_in3, N, rows);
+  const bool withhold = byz == ctt::BYZ_SILENT;
+  const auto ack_term = withhold ? dense_ack_term_kernel<true>
+                                 : dense_ack_term_kernel<false>;
+  ack_term<<<blocks, THREADS, 0, st>>>(deliver, ack_to, term, t_in3, N, rows,
+                                       N - nb);
   if ((err = static_cast<int>(cudaGetLastError())) != 0) return err;
   dense_bump_kernel<<<blocks, THREADS, 0, st>>>(
       seed, t_min, t_span, was_leader, t_in3, term, role, voted_for, timeout,
       proc, n_proc, proc_list, N, rows);
   if ((err = static_cast<int>(cudaGetLastError())) != 0) return err;
-  const auto match_timer = flags != nullptr ? dense_match_timer_kernel<true>
-                                            : dense_match_timer_kernel<false>;
+  const bool crash = flags != nullptr;
+  const auto match_timer =
+      crash ? (withhold ? dense_match_timer_kernel<true, true>
+                        : dense_match_timer_kernel<true, false>)
+            : (withhold ? dense_match_timer_kernel<false, true>
+                        : dense_match_timer_kernel<false, false>);
   match_timer<<<blocks, THREADS, 0, st>>>(
       deliver, ack_to, ack_ok, ack_match, proc, role, reset, match_idx,
-      next_idx, timer, flags, N, rows);
+      next_idx, timer, flags, N, rows, N - nb);
   if ((err = static_cast<int>(cudaGetLastError())) != 0) return err;
   dense_commit_kernel<<<B, BINS, 0, st>>>(n_proc, proc_list, match_idx,
                                           log_term, term, commit, N, L, E);

@@ -49,10 +49,15 @@
 // neither appends nor is listed (its log and rows stay frozen, and KL cut
 // its heartbeats); launch 3 then leaves a down node as it is, since KL cut
 // every heartbeat to it.
+// Its BYZ instance (SPEC §3c, picked with silent byzantine nodes: the ids
+// N - nb and up) changes launch 1 only: a silent byzantine leader appends
+// (P3a) but is neither listed nor a was_leader, since its heartbeats never
+// travel (raft.py:435); KO then processes no acks for it.
 #include <climits>
 
 #include <cuda_runtime.h>
 
+#include "byz.cuh"
 #include "crash.cuh"
 #include "rng.cuh"
 
@@ -64,7 +69,7 @@ constexpr int32_t ROLE_F = 0, ROLE_C = 1, ROLE_L = 2, NONE = -1;
 constexpr int LANE_COPY = 4;
 
 // Launch 1. A thread per (sweep, node), flattened.
-template <bool CRASH>
+template <bool CRASH, bool WITHHOLD>
 __global__ void __launch_bounds__(THREADS)
 dense_propose_kernel(const uint32_t* __restrict__ seed, uint32_t r,
                      const int32_t* __restrict__ term,
@@ -78,7 +83,7 @@ dense_propose_kernel(const uint32_t* __restrict__ seed, uint32_t r,
                      bool* __restrict__ was_leader, int4* __restrict__ leaders,
                      int* __restrict__ n_lead,
                      const unsigned char* __restrict__ flags, int N, int L,
-                     int E, long long rows) {
+                     int E, long long rows, int n_honest) {
   const long long row =
       static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
   if (row >= rows) return;
@@ -97,8 +102,9 @@ dense_propose_kernel(const uint32_t* __restrict__ seed, uint32_t r,
     match_idx[row * N + i] = static_cast<uint8_t>(len);
   }
   len_out[row] = len;
-  was_leader[row] = lead;
-  if (lead) {
+  const bool sends = lead && !(WITHHOLD && i >= n_honest);
+  was_leader[row] = sends;
+  if (sends) {
     const int q = atomicAdd(&n_lead[b], 1);
     leaders[static_cast<long long>(b) * N + q] =
         make_int4(i, tm, len, commit[row]);
@@ -274,8 +280,9 @@ extern "C" int ctt_dense_append(
     bool* reset_out, int32_t* len_out, int32_t* commit_out,
     bool* was_leader, int32_t* ack_to, bool* ack_ok, int32_t* ack_match,
     int32_t* scratch, int32_t* snap, const unsigned char* flags, int B,
-    int N, int L, int E, cudaStream_t st) {
-  if (t_span == 0u || E > L) return static_cast<int>(cudaErrorInvalidValue);
+    int N, int L, int E, int byz, int nb, cudaStream_t st) {
+  if (t_span == 0u || E > L || nb < 0 || nb > N)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || N == 0) return 0;
   const long long rows = static_cast<long long>(B) * N;
   // Scratch: the leader tables [B, N] int4 first (16-byte aligned), then
@@ -288,11 +295,15 @@ extern "C" int ctt_dense_append(
   int err = static_cast<int>(cudaMemsetAsync(n_lead, 0, sizeof(int) * B, st));
   if (err != 0) return err;
   const unsigned blocks = static_cast<unsigned>((rows + THREADS - 1) / THREADS);
-  const auto propose = flags != nullptr ? dense_propose_kernel<true>
-                                        : dense_propose_kernel<false>;
+  const bool crash = flags != nullptr, withhold = byz == ctt::BYZ_SILENT;
+  const auto propose =
+      crash ? (withhold ? dense_propose_kernel<true, true>
+                        : dense_propose_kernel<true, false>)
+            : (withhold ? dense_propose_kernel<false, true>
+                        : dense_propose_kernel<false, false>);
   propose<<<blocks, THREADS, 0, st>>>(
       seed, r, term, role, log_term, log_val, log_len, commit, match_idx,
-      len_out, was_leader, leaders, n_lead, flags, N, L, E, rows);
+      len_out, was_leader, leaders, n_lead, flags, N, L, E, rows, N - nb);
   if ((err = static_cast<int>(cudaGetLastError())) != 0) return err;
   dense_snapshot_kernel<<<B, THREADS, 0, st>>>(log_term, log_val, leaders,
                                                n_lead, snap_t, snap_v, N, L);

@@ -53,10 +53,20 @@
 // no launch reads the rows before, and a winner's rows, written after,
 // win), then sets a listed down candidate's winner flag and touches
 // neither its state nor its rows.
+// Its BYZ instances (SPEC §3c, picked with byzantine nodes: the ids N - nb
+// and up) change launch 2 only. Silent: a byzantine candidate stays listed
+// but every receiver's walk skips it (its requests never travel,
+// raft.py:335-337), so no grant reaches it and it wins only where 1 vote is
+// a majority (N = 1), as in the JAX round; a byzantine receiver's grant
+// updates its own state but never travels back (line 404). Equivocate: a
+// byzantine receiver runs P2a-P2b as an honest one, then walks the table
+// again and votes for every candidate c whose request it got and whose way
+// back is open (deliver[c, j] & deliver[j, c], lines 405-410).
 #include <climits>
 
 #include <cuda_runtime.h>
 
+#include "byz.cuh"
 #include "crash.cuh"
 #include "rng.cuh"
 
@@ -143,6 +153,7 @@ dense_candidacy_kernel(const uint32_t* __restrict__ seed, uint32_t r,
 }
 
 // Launch 2. A thread per (sweep, receiver), flattened.
+template <int BYZ>
 __global__ void __launch_bounds__(THREADS)
 dense_grants_kernel(const uint32_t* __restrict__ seed, int32_t t_min,
                     uint32_t t_span, const bool* __restrict__ deliver,
@@ -156,7 +167,7 @@ dense_grants_kernel(const uint32_t* __restrict__ seed, int32_t t_min,
                     int32_t* __restrict__ timer_out,
                     int32_t* __restrict__ timeout_out,
                     bool* __restrict__ reset_out, int* __restrict__ votes,
-                    int N, long long rows) {
+                    int N, long long rows, int n_honest) {
   const long long row =
       static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
   if (row >= rows) return;
@@ -174,6 +185,7 @@ dense_grants_kernel(const uint32_t* __restrict__ seed, int32_t t_min,
   int32_t top = INT_MIN, first = N;
   for (int q = 0; q < nc; ++q) {
     const int4 c = table[q];  // id, term, log length, last log term
+    if (BYZ == ctt::BYZ_SILENT && c.x >= n_honest) continue;
     if (!deliver[(nodes + c.x) * N + j]) continue;
     if (!any || c.y > top) {
       any = true;
@@ -203,12 +215,21 @@ dense_grants_kernel(const uint32_t* __restrict__ seed, int32_t t_min,
   const int32_t grant =
       (vf >= 0 && vf_elig) ? vf : (vf == NONE && first < N ? first : NONE);
   bool rs = reset_out[row];
+  const bool honest = BYZ == ctt::BYZ_NONE || j < n_honest;
   if (grant >= 0) {
     vf = grant;
     tmr = 0;
     rs = true;
     // P2c: the grant travels back on deliver[j, grant].
-    if (deliver[row * N + grant]) atomicAdd(&votes[nodes + grant], 1);
+    if (honest && deliver[row * N + grant])
+      atomicAdd(&votes[nodes + grant], 1);
+  }
+  if (BYZ == ctt::BYZ_EQUIV && !honest) {
+    for (int q = 0; q < nc; ++q) {
+      const int c = table[q].x;
+      if (deliver[(nodes + c) * N + j] && deliver[row * N + c])
+        atomicAdd(&votes[nodes + c], 1);
+    }
   }
   term_out[row] = tm;
   role_out[row] = rl;
@@ -302,8 +323,11 @@ extern "C" int ctt_dense_elect(
     uint8_t* match_idx, uint8_t* next_idx, int32_t* term_out,
     int32_t* role_out, int32_t* vf_out, int32_t* timer_out,
     int32_t* timeout_out, bool* reset_out, bool* win_out, int32_t* scratch,
-    const unsigned char* flags, int B, int N, int L, cudaStream_t st) {
-  if (t_span == 0u) return static_cast<int>(cudaErrorInvalidValue);
+    const unsigned char* flags, int B, int N, int L, int byz, int nb,
+    cudaStream_t st) {
+  if (t_span == 0u || nb < 0 || nb > N || byz < ctt::BYZ_NONE ||
+      byz > ctt::BYZ_EQUIV)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || N == 0) return 0;
   const long long rows = static_cast<long long>(B) * N;
   // Scratch: the candidate tables [B, N] int4 first (16-byte aligned),
@@ -326,9 +350,14 @@ extern "C" int ctt_dense_elect(
       timeout_out, reset_out, win_out, cands, n_cand, lterm, flags, N, L,
       rows);
   if ((err = static_cast<int>(cudaGetLastError())) != 0) return err;
-  dense_grants_kernel<<<blocks, THREADS, 0, st>>>(
+  const auto grants =
+      byz == ctt::BYZ_SILENT  ? dense_grants_kernel<ctt::BYZ_SILENT>
+      : byz == ctt::BYZ_EQUIV ? dense_grants_kernel<ctt::BYZ_EQUIV>
+                              : dense_grants_kernel<ctt::BYZ_NONE>;
+  grants<<<blocks, THREADS, 0, st>>>(
       seed, t_min, t_span, deliver, log_len, cands, n_cand, lterm, term_out,
-      role_out, vf_out, timer_out, timeout_out, reset_out, votes, N, rows);
+      role_out, vf_out, timer_out, timeout_out, reset_out, votes, N, rows,
+      N - nb);
   if ((err = static_cast<int>(cudaGetLastError())) != 0) return err;
   const auto winners = crash ? dense_winners_kernel<true>
                              : dense_winners_kernel<false>;

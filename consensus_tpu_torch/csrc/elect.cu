@@ -32,8 +32,15 @@
 // nothing to their logs. A down node's state passes through unchanged,
 // since KB cut every request and response it would see or send, and the
 // candidates (KC's, from KE's mask) are up.
+// Its BYZ instances (SPEC §3c, picked with byzantine nodes; their ids are
+// N - nb and up) change P2c only: a silent node's vote response never
+// travels (raft_sparse.py:342), and an equivocating node's response reaches
+// every valid candidate whose request it got and whose way back is open
+// (del_cj[a, j] & del_jc[j, a], lines 343-346), whatever it granted. Its
+// own P2a and P2b run as an honest node's.
 #include <cuda_runtime.h>
 
+#include "byz.cuh"
 #include "crash.cuh"
 #include "rng.cuh"
 
@@ -43,7 +50,7 @@ constexpr int THREADS = 256;
 constexpr int MAXA = 16;
 constexpr int32_t ROLE_F = 0, ROLE_C = 1, ROLE_L = 2, NONE = -1;
 
-template <bool CRASH>
+template <bool CRASH, int BYZ>
 __global__ void __launch_bounds__(THREADS)
 elect_nodes_kernel(const uint32_t* __restrict__ seed, int32_t t_min,
                    uint32_t t_span, const int32_t* __restrict__ cand_ids,
@@ -64,7 +71,8 @@ elect_nodes_kernel(const uint32_t* __restrict__ seed, int32_t t_min,
                    int32_t* __restrict__ timeout_out,
                    bool* __restrict__ reset_out,
                    bool* __restrict__ lead_out, int* __restrict__ votes,
-                   const unsigned char* __restrict__ flags, int N, int A) {
+                   const unsigned char* __restrict__ flags, int N, int A,
+                   int n_honest) {
   __shared__ int32_t s_id[MAXA], s_cid[MAXA], s_rterm[MAXA], s_rlidx[MAXA],
       s_rlterm[MAXA];
   __shared__ int s_votes[MAXA];
@@ -126,8 +134,15 @@ elect_nodes_kernel(const uint32_t* __restrict__ seed, int32_t t_min,
     }
     // P2c: a delivered grant is one vote for its candidate.
     const bool* resp = del_jc + row * A;
-    for (int a = 0; a < A; ++a) {
-      if (grant == s_id[a] && resp[a]) atomicAdd(&s_votes[a], 1);
+    if (BYZ == ctt::BYZ_NONE || j < n_honest) {
+      for (int a = 0; a < A; ++a) {
+        if (grant == s_id[a] && resp[a]) atomicAdd(&s_votes[a], 1);
+      }
+    } else if (BYZ == ctt::BYZ_EQUIV) {
+      for (int a = 0; a < A; ++a) {
+        if (s_id[a] >= 0 && ((delivered >> a) & 1u) && resp[a])
+          atomicAdd(&s_votes[a], 1);
+      }
     }
     term_out[row] = tm;
     role_out[row] = rl;
@@ -184,20 +199,30 @@ extern "C" int ctt_elect(const uint32_t* seed, int32_t t_min, uint32_t t_span,
                          int32_t* timer_out, int32_t* timeout_out,
                          bool* reset_out, bool* lead_out, bool* win,
                          int* votes, const unsigned char* flags, int B, int N,
-                         int A, cudaStream_t st) {
-  if (A < 1 || A > MAXA || t_span == 0u)
+                         int A, int byz, int nb, cudaStream_t st) {
+  if (A < 1 || A > MAXA || t_span == 0u || nb < 0 || nb > N ||
+      byz < ctt::BYZ_NONE || byz > ctt::BYZ_EQUIV)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || N == 0) return 0;
   int err = static_cast<int>(
       cudaMemsetAsync(votes, 0, sizeof(int) * B * A, st));
   if (err != 0) return err;
   const dim3 grid((N + THREADS - 1) / THREADS, B);
-  const auto nodes = flags != nullptr ? elect_nodes_kernel<true>
-                                      : elect_nodes_kernel<false>;
+  const bool crash = flags != nullptr;
+  const auto nodes =
+      byz == ctt::BYZ_SILENT
+          ? (crash ? elect_nodes_kernel<true, ctt::BYZ_SILENT>
+                   : elect_nodes_kernel<false, ctt::BYZ_SILENT>)
+      : byz == ctt::BYZ_EQUIV
+          ? (crash ? elect_nodes_kernel<true, ctt::BYZ_EQUIV>
+                   : elect_nodes_kernel<false, ctt::BYZ_EQUIV>)
+          : (crash ? elect_nodes_kernel<true, ctt::BYZ_NONE>
+                   : elect_nodes_kernel<false, ctt::BYZ_NONE>);
   nodes<<<grid, THREADS, 0, st>>>(
       seed, t_min, t_span, cand_ids, del_cj, del_jc, term, role, voted_for,
       timer, timeout, reset, log_len, own_lterm, term_out, role_out, vf_out,
-      timer_out, timeout_out, reset_out, lead_out, votes, flags, N, A);
+      timer_out, timeout_out, reset_out, lead_out, votes, flags, N, A,
+      N - nb);
   err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
   elect_winners_kernel<<<(B * A + 127) / 128, 128, 0, st>>>(

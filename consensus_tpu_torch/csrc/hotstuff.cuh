@@ -28,6 +28,17 @@
 //              leaves it at rest, KEY_REST = -1, which reads as vM = -1 and
 //              M = N (no live node: no gossip). TOP cannot serve here: KAF
 //              leaves it full, and the prologue moves views after KAF.
+//   VOTES1     KAE's atomicAdd of the delivered votes for variant 1 under
+//              SPEC §7c equivocation; at rest 0.
+//   QCF        the round's QC (bit 0) and forked QC (bit 1) under
+//              equivocation, written by KAE's last block for KAF.
+//   FBIT       the fork bit the deceived nodes take (0: no new fork-table
+//              row), written by KAE's last block for KAF.
+//   CONF       KAF's atomicAdd of the conflicting commits under
+//              equivocation (telemetry); at rest 0.
+// With byzantine nodes (SPEC §3c/§7c) every P1 key (TOP, KEY) and the view
+// spread (VMIN, and TOP's high word) take the honest nodes only: the ids
+// below N - nb, fixed for a run.
 // A kernel that accumulates into a word leaves it at rest after the last
 // block of its lane has read it, so a round needs no memset: the "fresh
 // outputs against in-round hazards" rule holds because no block reads a word
@@ -50,7 +61,11 @@ constexpr int COUNTED = 5;
 constexpr int VMIN = 6;
 constexpr int DONE_LEARN = 7;
 constexpr int KEY = 8;
-constexpr int LANE_WORDS = 9;
+constexpr int VOTES1 = 9;
+constexpr int QCF = 10;
+constexpr int FBIT = 11;
+constexpr int CONF = 12;
+constexpr int LANE_WORDS = 13;
 constexpr long long KEY_REST = -1;
 
 constexpr int THREADS = 256;

@@ -61,8 +61,20 @@
 // and minimum (VMIN) are taken over the nodes up at the round's end, so the
 // view spread is theirs (line 504), 0 where none is up; TOP is no P1 key
 // on such a run (KAD reads KEY).
+// Its BYZ instances (SPEC §3c/§7c, picked with byzantine nodes: the ids
+// N - nb and up) take TOP's key and the view spread over the honest nodes
+// only, in both modes (lines 266, 504): P1 of the next round reads an
+// honest gossiper off TOP, so a byzantine round stays at three launches.
+// The equivocate instances read the QC off QCF (KAE's last block: either
+// variant's quorum), set the FBIT word in the fvec of each node that KAE
+// marked deceived (in place; line 451) and, with telemetry, count the
+// conflicting commits: a node whose committed prefix crossed a fork
+// table row's height this round, with that row's bit in its new fvec
+// (lines 494-502), summed into the CONF word; the lane's last block adds
+// forked_qc (QCF's bit 1), conflict_commits and safety_violations.
 #include <cuda_runtime.h>
 
+#include "byz.cuh"
 #include "crash.cuh"
 #include "hotstuff.cuh"
 
@@ -73,7 +85,19 @@ constexpr int HISTS = 2;
 // HOTSTUFF_TELEMETRY's indexes (view_changes and proposals_delivered are 3
 // and 4, after C_LEARNED).
 constexpr int C_QC = 0, C_COMMITTED = 1, C_LEARNED = 2, C_VOTES = 5,
-              C_SPREAD = 15, C_DESYNC = 16, C_SYNC = 17, K = 18;
+              C_FORKED = 12, C_CONFLICT = 13, C_UNSAFE = 14, C_SPREAD = 15,
+              C_DESYNC = 16, C_SYNC = 17, K = 18;
+constexpr int FORK_TABLE = 8;
+
+// The fork state the equivocate instances read: KAE's deceived flags, the
+// fork bits (updated in place), the fork table's heights and row count
+// after KAE's update.
+struct Fork {
+  const bool* deceived;  // [B, N]
+  int32_t* fvec;         // [B, N]
+  const int32_t* ftab_h; // [B, FORK_TABLE]
+  const int32_t* fnum;   // [B]
+};
 // The block's sums: commits_learned, view_changes, proposals_delivered (the
 // counters from C_LEARNED on, in order) and sync_msgs_delivered.
 constexpr int SUMS = 4;
@@ -93,7 +117,7 @@ __device__ __forceinline__ void add(int* tb, int* wb, int k, int v) {
   if (wb != nullptr) atomicAdd(wb + k, v);
 }
 
-template <bool CRASH>
+template <bool CRASH, int BYZ>
 __global__ void __launch_bounds__(hs::THREADS)
 hotstuff_learn_kernel(const int32_t* __restrict__ view1,
                       const bool* __restrict__ pdel,
@@ -110,9 +134,14 @@ hotstuff_learn_kernel(const int32_t* __restrict__ view1,
                       const int32_t* __restrict__ view_in,
                       const int32_t* __restrict__ timer_in, int Q,
                       int view_timeout, int B, int N, int window,
-                      int n_windows, int tiles) {
+                      int n_windows, int tiles, int n_honest, Fork fork) {
+  constexpr bool EQUIV = BYZ == ctt::BYZ_EQUIV;
+  // Whether a node may be left out of TOP and VMIN: down or byzantine.
+  constexpr bool SOME = CRASH || BYZ != ctt::BYZ_NONE;
   __shared__ int32_t s_vstar, s_gold;
   __shared__ bool s_qc;
+  __shared__ int32_t s_fbit, s_fnum, s_fh[FORK_TABLE];
+  __shared__ int s_conf;
   __shared__ long long s_key[hs::WARPS];
   __shared__ int32_t s_min[hs::WARPS];
   __shared__ int s_sum[SUMS];
@@ -124,9 +153,17 @@ hotstuff_learn_kernel(const int32_t* __restrict__ view1,
   long long* lw = lane + static_cast<long long>(b) * hs::LANE_WORDS;
   if (threadIdx.x == 0) {
     s_vstar = static_cast<int32_t>(lw[hs::VSTAR]);
-    s_qc = s_vstar >= 0 && lw[hs::COUNTED] >= Q;
+    s_qc = EQUIV ? (lw[hs::QCF] & 1) != 0
+                 : s_vstar >= 0 && lw[hs::COUNTED] >= Q;
     s_gold = gcommit[b];
+    if (EQUIV) {
+      s_fbit = static_cast<int32_t>(lw[hs::FBIT]);
+      s_fnum = min(fork.fnum[b], FORK_TABLE);
+      s_conf = 0;
+    }
   }
+  if (EQUIV && threadIdx.x < FORK_TABLE)
+    s_fh[threadIdx.x] = fork.ftab_h[b * FORK_TABLE + threadIdx.x];
   if (threadIdx.x < SUMS) s_sum[threadIdx.x] = 0;
   if (threadIdx.x < BUCKETS) s_hist[threadIdx.x] = 0;
   __syncthreads();
@@ -136,7 +173,7 @@ hotstuff_learn_kernel(const int32_t* __restrict__ view1,
   int32_t vmin = 0x7FFFFFFF;
   bool up = false;
   int sums[SUMS] = {0, 0, 0, 0};
-  int bin = -1;
+  int bin = -1, conf = 0;
   if (i < N) {
     const long long row = static_cast<long long>(b) * N + i;
     const bool pd = pdel[row], ad = adv[row];
@@ -157,11 +194,23 @@ hotstuff_learn_kernel(const int32_t* __restrict__ view1,
     } else {
       out[row] = v;
       out[plane + row] = progress || to ? 0 : tick;
-      key = hs::view_key(v, i, N);
-      vmin = v;
-      up = true;
+      if (BYZ == ctt::BYZ_NONE || i < n_honest) {
+        key = hs::view_key(v, i, N);
+        vmin = v;
+        up = true;
+      }
     }
     out[2 * plane + row] = cl2;
+    if (EQUIV) {
+      int32_t fv = fork.fvec[row];
+      if (fork.deceived[row] && s_fbit != 0) {
+        fv |= s_fbit;
+        fork.fvec[row] = fv;
+      }
+      if (telem)
+        for (int k = 0; k < s_fnum; ++k)
+          conf += ((fv >> k) & 1) && s_fh[k] >= cl && s_fh[k] < cl2;
+    }
     sums[0] = hs::sub_i32(cl2, cl);
     sums[1] = to;
     sums[2] = pd;
@@ -182,11 +231,15 @@ hotstuff_learn_kernel(const int32_t* __restrict__ view1,
       if (bin >= 0 && lane_id == __ffs(peers) - 1)
         atomicAdd(&s_hist[bin], __popc(peers));
     }
+    if (EQUIV) {
+      const int c = hs::warp_sum(conf);
+      if (lane_id == 0 && c) atomicAdd(&s_conf, c);
+    }
   }
-  // CRASH: whether a node of the block is up at the round's end (a block
-  // without one adds nothing to VMIN).
-  const bool block_up = CRASH ? __syncthreads_or(up) != 0
-                              : (__syncthreads(), true);
+  // CRASH, BYZ: whether a node of the block is up at the round's end and
+  // honest (a block without one adds nothing to VMIN).
+  const bool block_up = SOME ? __syncthreads_or(up) != 0
+                             : (__syncthreads(), true);
   int* tb = telem ? t + static_cast<long long>(b) * K : nullptr;
   int* wb = w == nullptr ? nullptr
                          : w + (static_cast<long long>(b) * n_windows +
@@ -206,6 +259,8 @@ hotstuff_learn_kernel(const int32_t* __restrict__ view1,
   for (int k = 1; k < hs::WARPS; ++k) bmin = min(bmin, s_min[k]);
   if (block_up) atomicMin(lw + hs::VMIN, static_cast<long long>(bmin));
   unsigned long long* uw = reinterpret_cast<unsigned long long*>(lw);
+  if (EQUIV && s_conf)
+    atomicAdd(uw + hs::CONF, static_cast<unsigned long long>(s_conf));
   __threadfence();
   if (atomicAdd(uw + hs::DONE_LEARN, 1ull) !=
       static_cast<unsigned long long>(tiles - 1))
@@ -215,8 +270,9 @@ hotstuff_learn_kernel(const int32_t* __restrict__ view1,
   const int32_t vmax =
       static_cast<int32_t>(atomicMax(lw + hs::TOP, hs::I64_MIN) >> 32);
   const long long lo = atomicMin(lw + hs::VMIN, hs::I64_MAX);
-  // CRASH: no node up at the round's end leaves VMIN at rest: spread 0.
-  const int32_t spread = CRASH && lo == hs::I64_MAX
+  // CRASH, BYZ: no honest node up at the round's end leaves VMIN at rest:
+  // spread 0.
+  const int32_t spread = SOME && lo == hs::I64_MAX
                              ? 0
                              : hs::sub_i32(vmax, static_cast<int32_t>(lo));
   const int32_t gnew = gcommit_new[b];
@@ -225,6 +281,14 @@ hotstuff_learn_kernel(const int32_t* __restrict__ view1,
   add(tb, wb, C_VOTES, static_cast<int32_t>(lw[hs::COUNTED]));
   add(tb, wb, C_SPREAD, spread);
   add(tb, wb, C_DESYNC, spread > 0);
+  if (EQUIV) {
+    const int conflicts =
+        static_cast<int>(atomicAdd(uw + hs::CONF, 0ull));
+    add(tb, wb, C_FORKED, static_cast<int>((lw[hs::QCF] >> 1) & 1));
+    add(tb, wb, C_CONFLICT, conflicts);
+    add(tb, wb, C_UNSAFE, conflicts > 0);
+    lw[hs::CONF] = 0;
+  }
   if (lat != nullptr)
     atomicAdd(&lat[static_cast<long long>(b) * HISTS * BUCKETS + BUCKETS +
                    lat_bucket(hs::sub_i32(hs::add_i32(b1_h_new[b], 1),
@@ -237,13 +301,15 @@ hotstuff_learn_kernel(const int32_t* __restrict__ view1,
 }  // namespace
 
 // out is [3, B, N] int32: the new view, timer and clen. lane is the state's
-// [B, 9] int64 lane words (hotstuff.cuh): TOP emptied by KAE and, with
+// [B, 13] int64 lane words (hotstuff.cuh): TOP emptied by KAE and, with
 // telemetry, VMIN and DONE_LEARN at rest. t ([B, 18]), w ([B, n_windows, 18])
 // and lat ([B, 2, 16]) are the int32 accumulators, t null without telemetry,
 // w and lat null without the flight recorder (then window and n_windows are
 // unused). flags is the round's [B, N] flag word of kernel KAH, view_in and
 // timer_in the round's input view and timer ([B, N] int32): all three null
-// without a crash, all three given with one.
+// without a crash, all three given with one. deceived ([B, N] bool), fvec
+// ([B, N] int32, in place), ftab_h ([B, 8]) and fnum ([B]) are given
+// exactly with byz = BYZ_EQUIV.
 extern "C" int ctt_hotstuff_learn(
     const int32_t* view1, const bool* pdel, const bool* adv,
     const int32_t* timer, const int32_t* clen, long long* lane,
@@ -251,7 +317,14 @@ extern "C" int ctt_hotstuff_learn(
     const int32_t* gcommit_new, int32_t* out, int* t, int* w, int* lat,
     const unsigned char* flags, const int32_t* view_in,
     const int32_t* timer_in, int Q, int view_timeout, int B, int N,
-    int window, int n_windows, cudaStream_t st) {
+    int window, int n_windows, int byz, int nb, const bool* deceived,
+    int32_t* fvec, const int32_t* ftab_h, const int32_t* fnum,
+    cudaStream_t st) {
+  const bool equiv = byz == ctt::BYZ_EQUIV;
+  if (nb < 0 || nb > N || byz < ctt::BYZ_NONE || byz > ctt::BYZ_EQUIV ||
+      equiv != (deceived != nullptr) || equiv != (fvec != nullptr) ||
+      equiv != (ftab_h != nullptr) || equiv != (fnum != nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   if ((w == nullptr) != (lat == nullptr) || (t == nullptr && w != nullptr) ||
       (w != nullptr && (window < 0 || window >= n_windows)) ||
       (flags == nullptr) != (view_in == nullptr) ||
@@ -261,11 +334,19 @@ extern "C" int ctt_hotstuff_learn(
   const int tiles = (N + hs::THREADS - 1) / hs::THREADS;
   const long long blocks = static_cast<long long>(tiles) * B;
   if (blocks > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
-  const auto kernel = flags != nullptr ? hotstuff_learn_kernel<true>
-                                       : hotstuff_learn_kernel<false>;
+  const Fork fork = {deceived, fvec, ftab_h, fnum};
+  const bool crash = flags != nullptr;
+  const auto kernel =
+      byz == ctt::BYZ_SILENT
+          ? (crash ? hotstuff_learn_kernel<true, ctt::BYZ_SILENT>
+                   : hotstuff_learn_kernel<false, ctt::BYZ_SILENT>)
+      : equiv ? (crash ? hotstuff_learn_kernel<true, ctt::BYZ_EQUIV>
+                       : hotstuff_learn_kernel<false, ctt::BYZ_EQUIV>)
+              : (crash ? hotstuff_learn_kernel<true, ctt::BYZ_NONE>
+                       : hotstuff_learn_kernel<false, ctt::BYZ_NONE>);
   kernel<<<static_cast<unsigned>(blocks), hs::THREADS, 0, st>>>(
       view1, pdel, adv, timer, clen, lane, gcommit, b1_h_new, gcommit_new, out,
       t, w, lat, flags, view_in, timer_in, Q, view_timeout, B, N, window,
-      n_windows, tiles);
+      n_windows, tiles, N - nb, fork);
   return static_cast<int>(cudaGetLastError());
 }

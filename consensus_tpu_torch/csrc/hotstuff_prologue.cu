@@ -13,8 +13,9 @@
 // 225-230). Down nodes run all of it too (the JAX round skews every node;
 // kernel KAF freezes a down node at its input after the reset, so it drops
 // the skew). The views and timers go to fresh outputs. P1's key: the largest
-// (view << 32) | (N - 1 - id) over the nodes up at the round's end (every
-// node is honest in the port), into the lane's KEY word (hotstuff.cuh), at
+// (view << 32) | (N - 1 - id) over the honest nodes up at the round's end
+// (SPEC §3c/§7c: the ids below N - nb, passed as n_honest; every node
+// without byzantine nodes), into the lane's KEY word (hotstuff.cuh), at
 // rest KEY_REST = -1; kernel KAD reads it. Its high word is the JAX round's
 // vM where that is >= 0 (the only case in which P1 gossips), and -1 else
 // (no node up, or no view above -1), with M = N there; its low word gives
@@ -51,7 +52,7 @@ hotstuff_prologue_kernel(const uint32_t* __restrict__ seed, uint32_t r,
                          int* __restrict__ w, uint32_t desync_cut,
                          uint32_t max_skew, int view_timeout, int B, int N,
                          int K, int col, int window, int n_windows,
-                         int tiles) {
+                         int tiles, int n_honest) {
   __shared__ long long s_key[hs::WARPS];
   __shared__ int s_pre;
   const int b = blockIdx.x / tiles;
@@ -79,7 +80,7 @@ hotstuff_prologue_kernel(const uint32_t* __restrict__ seed, uint32_t r,
     }
     out[row] = v;
     out[static_cast<long long>(B) * N + row] = tm;
-    if (!(CRASH && (fl & ctt::CRASH_DOWN)))
+    if (!(CRASH && (fl & ctt::CRASH_DOWN)) && i < n_honest)
       key = max(key, hs::view_key(v, i, N));
   }
   key = hs::warp_max64(key);
@@ -106,11 +107,11 @@ hotstuff_prologue_kernel(const uint32_t* __restrict__ seed, uint32_t r,
 }  // namespace
 
 // out is [2, B, N] int32: the views and timers after the prologue. lane is
-// the state's [B, 9] int64 lane words (hotstuff.cuh), KEY at rest. flags is
+// the state's [B, 13] int64 lane words (hotstuff.cuh), KEY at rest. flags is
 // the round's [B, N] flag word of kernel KAH (null without a crash). t ([B,
 // K]) and w ([B, n_windows, K]) are the int32 telemetry accumulators (null
 // without telemetry; w null without the flight recorder), col the column
-// of view_changes.
+// of view_changes. nb is the run's n_byzantine.
 extern "C" int ctt_hotstuff_prologue(const uint32_t* seed, uint32_t r,
                                      const int32_t* view,
                                      const int32_t* timer,
@@ -119,9 +120,11 @@ extern "C" int ctt_hotstuff_prologue(const uint32_t* seed, uint32_t r,
                                      int* w, uint32_t desync_cut,
                                      uint32_t max_skew, int view_timeout,
                                      int B, int N, int K, int col, int window,
-                                     int n_windows, cudaStream_t st) {
+                                     int n_windows, int nb,
+                                     cudaStream_t st) {
   const bool desync = desync_cut != 0u, crash = flags != nullptr;
-  if ((!desync && !crash) || (desync && max_skew == 0u) ||
+  if ((!desync && !crash) || (desync && max_skew == 0u) || nb < 0 ||
+      nb > N ||
       (t == nullptr && w != nullptr) ||
       (t != nullptr && (col < 0 || col >= K)) ||
       (w != nullptr && (window < 0 || window >= n_windows)))
@@ -136,6 +139,6 @@ extern "C" int ctt_hotstuff_prologue(const uint32_t* seed, uint32_t r,
             : hotstuff_prologue_kernel<true, false>;
   kernel<<<static_cast<unsigned>(blocks), hs::THREADS, 0, st>>>(
       seed, r, view, timer, flags, lane, out, t, w, desync_cut, max_skew,
-      view_timeout, B, N, K, col, window, n_windows, tiles);
+      view_timeout, B, N, K, col, window, n_windows, tiles, N - nb);
   return static_cast<int>(cudaGetLastError());
 }

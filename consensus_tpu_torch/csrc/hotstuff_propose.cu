@@ -39,14 +39,20 @@
 // warp's largest proposing view is one __reduce_max_sync and one 64-bit
 // atomicMax into VMAX, only in warps with a proposer. The view after P1 and
 // the flags go to fresh outputs: no block reads what another block writes.
+// Its BYZ instance (SPEC §7c, picked with silent byzantine nodes: the ids
+// N - nb and up) keeps them from proposing (hotstuff.py:292-293); an
+// equivocating byzantine node proposes as an honest one (its two variants
+// are kernel KAE's), and P1's key, which KAF or KAJ took over the honest
+// nodes, needs no change here.
 #include <cuda_runtime.h>
 
+#include "byz.cuh"
 #include "crash.cuh"
 #include "hotstuff.cuh"
 
 namespace {
 
-template <bool DELAY, bool CRASH>
+template <bool DELAY, bool CRASH, bool WITHHOLD>
 __global__ void __launch_bounds__(hs::THREADS)
 hotstuff_propose_kernel(const uint32_t* __restrict__ seed, uint32_t r,
                         const int32_t* __restrict__ view,
@@ -56,7 +62,7 @@ hotstuff_propose_kernel(const uint32_t* __restrict__ seed, uint32_t r,
                         const unsigned char* __restrict__ flags,
                         uint32_t drop_cut, uint32_t part_cut,
                         uint32_t churn_cut, uint32_t max_delay, int key_word,
-                        int N, int S, int tiles) {
+                        int N, int S, int tiles, int n_honest) {
   __shared__ hs::Row s_row;
   __shared__ int32_t s_vm;
   __shared__ int s_m;
@@ -90,7 +96,9 @@ hotstuff_propose_kernel(const uint32_t* __restrict__ seed, uint32_t r,
     const int32_t v1 = caught ? vm : v;
     view1[row] = v1;
     adv[row] = caught;
-    if (up && s_can && hs::floor_mod(v1, N) == i && v1 > -1) cand = v1;
+    if (up && s_can && hs::floor_mod(v1, N) == i && v1 > -1 &&
+        !(WITHHOLD && i >= n_honest))
+      cand = v1;
   }
   const int32_t top = __reduce_max_sync(hs::FULL, cand);
   if ((threadIdx.x & 31) == 0 && top > -1)
@@ -99,7 +107,7 @@ hotstuff_propose_kernel(const uint32_t* __restrict__ seed, uint32_t r,
 
 }  // namespace
 
-// lane is the state's [B, 9] int64 lane words (hotstuff.cuh), VMAX at rest;
+// lane is the state's [B, 13] int64 lane words (hotstuff.cuh), VMAX at rest;
 // key_word is the word P1's key is read from (TOP on a flat round, KEY on a
 // gated one); flags is the round's [B, N] flag word of kernel KAH (null
 // without a crash).
@@ -110,8 +118,8 @@ extern "C" int ctt_hotstuff_propose(const uint32_t* seed, uint32_t r,
                                     uint32_t drop_cut, uint32_t part_cut,
                                     uint32_t churn_cut, uint32_t max_delay,
                                     int key_word, int B, int N, int S,
-                                    cudaStream_t st) {
-  if (key_word != hs::TOP && key_word != hs::KEY)
+                                    int byz, int nb, cudaStream_t st) {
+  if ((key_word != hs::TOP && key_word != hs::KEY) || nb < 0 || nb > N)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || N == 0) return 0;
   const int tiles = (N + hs::THREADS - 1) / hs::THREADS;
@@ -119,12 +127,17 @@ extern "C" int ctt_hotstuff_propose(const uint32_t* seed, uint32_t r,
   if (blocks > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
   const bool delay = max_delay != 0u, crash = flags != nullptr;
   const auto kernel =
-      crash ? (delay ? hotstuff_propose_kernel<true, true>
-                     : hotstuff_propose_kernel<false, true>)
-            : (delay ? hotstuff_propose_kernel<true, false>
-                     : hotstuff_propose_kernel<false, false>);
+      byz == ctt::BYZ_SILENT
+          ? (crash ? (delay ? hotstuff_propose_kernel<true, true, true>
+                            : hotstuff_propose_kernel<false, true, true>)
+                   : (delay ? hotstuff_propose_kernel<true, false, true>
+                            : hotstuff_propose_kernel<false, false, true>))
+          : (crash ? (delay ? hotstuff_propose_kernel<true, true, false>
+                            : hotstuff_propose_kernel<false, true, false>)
+                   : (delay ? hotstuff_propose_kernel<true, false, false>
+                            : hotstuff_propose_kernel<false, false, false>));
   kernel<<<static_cast<unsigned>(blocks), hs::THREADS, 0, st>>>(
       seed, r, view, b1_h, lane, view1, adv, flags, drop_cut, part_cut,
-      churn_cut, max_delay, key_word, N, S, tiles);
+      churn_cut, max_delay, key_word, N, S, tiles, N - nb);
   return static_cast<int>(cudaGetLastError());
 }

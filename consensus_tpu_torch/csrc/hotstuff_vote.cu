@@ -42,8 +42,23 @@
 // The CRASH instance (picked where the round's flag word of kernel KAH is
 // given) delivers nothing to a node down at the round's end (line 312), so
 // it neither learns nor votes; the leader proposed, so it is up.
+// Its BYZ instances (SPEC §3c/§7c, picked with byzantine nodes: the ids
+// N - nb and up) count honest voters only, in both modes (line 326). The
+// equivocate instances (lines 327-421) draw, where the leader L is
+// byzantine, the variant it shows each receiver (ctt::equiv_stance(r, L,
+// j); an honest leader shows variant 0): an honest receiver votes for its
+// variant, a byzantine one for both, and the votes are counted by two
+// ballots a warp into VOTES and VOTES1. The lane's last block forms a QC
+// where either count reaches Q (variant 0 is canonical where both do: a
+// forked QC), writes chain_vid[h_next] with the certified variant, and on
+// a forked QC the next free row of the fork table (ftab_v, ftab_h, fnum,
+// in place; lines 436-453); it leaves the QC and the fork in QCF and the
+// fork bit the deceived nodes take in FBIT for KAF, both counts' sum in
+// COUNTED, and VOTES1 at rest. Each receiver also writes whether it is
+// deceived: honest, delivered, shown variant 1.
 #include <cuda_runtime.h>
 
+#include "byz.cuh"
 #include "crash.cuh"
 #include "hotstuff.cuh"
 
@@ -56,7 +71,18 @@ struct Regs {
   const int32_t* in[REGS];
 };
 
-template <bool DELAY, bool CRASH>
+// The fork-table leaves the equivocate instances update, in place.
+struct Fork {
+  int32_t* chain_vid;  // [B, S]
+  int32_t* ftab_v;     // [B, FORK_TABLE]
+  int32_t* ftab_h;     // [B, FORK_TABLE]
+  int32_t* fnum;       // [B]
+  bool* deceived;      // [B, N] output
+};
+
+constexpr int FORK_TABLE = 8;
+
+template <bool DELAY, bool CRASH, int BYZ>
 __global__ void __launch_bounds__(hs::THREADS)
 hotstuff_vote_kernel(const uint32_t* __restrict__ seed, uint32_t r,
                      const int32_t* __restrict__ view1,
@@ -66,12 +92,14 @@ hotstuff_vote_kernel(const uint32_t* __restrict__ seed, uint32_t r,
                      const unsigned char* __restrict__ flags,
                      uint32_t drop_cut,
                      uint32_t part_cut, uint32_t max_delay, int Q, int B,
-                     int N, int S, int tiles) {
+                     int N, int S, int tiles, int n_honest, Fork fork) {
+  constexpr bool EQUIV = BYZ == ctt::BYZ_EQUIV;
   __shared__ hs::Row s_row;
   __shared__ uint32_t s_h0;
   __shared__ int32_t s_vstar;
   __shared__ int s_l;
-  __shared__ int s_votes;
+  __shared__ bool s_byzl;
+  __shared__ int s_votes, s_votes1;
   const int b = blockIdx.x / tiles;
   const int tile = blockIdx.x - b * tiles;
   const uint32_t sd = seed[b];
@@ -82,11 +110,13 @@ hotstuff_vote_kernel(const uint32_t* __restrict__ seed, uint32_t r,
     s_l = vstar >= 0 ? vstar % N : 0;
     s_row = hs::row_from(sd, r, static_cast<uint32_t>(s_l), part_cut);
     s_h0 = ctt::mix_absorb(sd ^ ctt::STREAM_DELIVER, r);
+    s_byzl = EQUIV && vstar >= 0 && s_l >= n_honest;
     s_votes = 0;
+    s_votes1 = 0;
   }
   __syncthreads();
   const int i = tile * hs::THREADS + static_cast<int>(threadIdx.x);
-  bool voted = false;
+  bool voted = false, voted1 = false;
   if (i < N) {
     const long long row = static_cast<long long>(b) * N + i;
     const int32_t vstar = s_vstar;
@@ -105,24 +135,50 @@ hotstuff_vote_kernel(const uint32_t* __restrict__ seed, uint32_t r,
                      ctt::delayed_open(sd, r, static_cast<uint32_t>(i),
                                        static_cast<uint32_t>(s_l), drop_cut,
                                        max_delay)));
+    if (BYZ != ctt::BYZ_NONE) {
+      const bool honest = i < n_honest;
+      if (EQUIV) {
+        // The variant this receiver was shown, and its votes for each.
+        const bool ev = s_byzl && got &&
+                        ctt::equiv_stance(sd, r, static_cast<uint32_t>(s_l),
+                                          static_cast<uint32_t>(i));
+        voted1 = voted && (!honest || ev);
+        fork.deceived[row] = got && honest && ev;
+        voted = voted && (!honest || !ev);
+      } else {
+        voted = voted && honest;
+      }
+    }
   }
   const int warp_votes = __popc(__ballot_sync(hs::FULL, voted));
   if ((threadIdx.x & 31) == 0 && warp_votes) atomicAdd(&s_votes, warp_votes);
+  if (EQUIV) {
+    const int warp_votes1 = __popc(__ballot_sync(hs::FULL, voted1));
+    if ((threadIdx.x & 31) == 0 && warp_votes1)
+      atomicAdd(&s_votes1, warp_votes1);
+  }
   __syncthreads();
   if (threadIdx.x != 0) return;
   unsigned long long* uw = reinterpret_cast<unsigned long long*>(lw);
   if (s_votes)
     atomicAdd(uw + hs::VOTES, static_cast<unsigned long long>(s_votes));
+  if (EQUIV && s_votes1)
+    atomicAdd(uw + hs::VOTES1, static_cast<unsigned long long>(s_votes1));
   __threadfence();
   if (atomicAdd(uw + hs::DONE_VOTE, 1ull) !=
       static_cast<unsigned long long>(tiles - 1))
     return;
   __threadfence();
   // The lane's last block: P3's QC and P4.
-  const long long votes =
+  const long long votes0 =
       static_cast<long long>(atomicAdd(uw + hs::VOTES, 0ull));
+  const long long votes1 =
+      EQUIV ? static_cast<long long>(atomicAdd(uw + hs::VOTES1, 0ull)) : 0;
+  const long long votes = votes0 + votes1;
   const int32_t vstar = s_vstar;
-  const bool qc = vstar >= 0 && votes >= Q;
+  const bool qc0 = vstar >= 0 && votes0 >= Q;
+  const bool qc1 = EQUIV && vstar >= 0 && votes1 >= Q;
+  const bool qc = qc0 || qc1;
   int32_t reg[REGS];
   for (int k = 0; k < REGS; ++k) reg[k] = regs.in[k][b];
   const int32_t h_next = hs::add_i32(reg[B1_H], 1);
@@ -133,8 +189,11 @@ hotstuff_vote_kernel(const uint32_t* __restrict__ seed, uint32_t r,
     reg[B2_H] = reg[B1_H];
     reg[B1_V] = vstar;
     reg[B1_H] = h_next;
-    if (h_next >= 0 && h_next < S)
+    if (h_next >= 0 && h_next < S) {
       chain_v[static_cast<long long>(b) * S + h_next] = vstar;
+      if (EQUIV)
+        fork.chain_vid[static_cast<long long>(b) * S + h_next] = qc0 ? 0 : 1;
+    }
     const bool consec = reg[B3_V] >= 0 &&
                         reg[B1_V] == hs::add_i32(reg[B2_V], 1) &&
                         reg[B2_V] == hs::add_i32(reg[B3_V], 1);
@@ -142,6 +201,20 @@ hotstuff_vote_kernel(const uint32_t* __restrict__ seed, uint32_t r,
   }
   for (int k = 0; k < REGS; ++k)
     regs_out[static_cast<long long>(k) * B + b] = reg[k];
+  if (EQUIV) {
+    // A forked QC takes the fork table's next free row.
+    const bool forked = qc0 && qc1;
+    const int32_t fn = fork.fnum[b];
+    const bool can = forked && fn < FORK_TABLE;
+    if (can) {
+      fork.ftab_v[static_cast<long long>(b) * FORK_TABLE + fn] = vstar;
+      fork.ftab_h[static_cast<long long>(b) * FORK_TABLE + fn] = h_next;
+      fork.fnum[b] = fn + 1;
+    }
+    lw[hs::QCF] = static_cast<long long>(qc) | (forked ? 2ll : 0ll);
+    lw[hs::FBIT] = can ? 1ll << min(max(fn, 0), FORK_TABLE - 1) : 0ll;
+    lw[hs::VOTES1] = 0;
+  }
   lw[hs::VSTAR] = vstar;
   lw[hs::COUNTED] = votes;
   lw[hs::VMAX] = -1;
@@ -155,28 +228,51 @@ hotstuff_vote_kernel(const uint32_t* __restrict__ seed, uint32_t r,
 
 // regs are the seven [B] int32 registers at round entry (b1_v, b1_h, b2_v,
 // b2_h, b3_v, b3_h, gcommit), regs_out their [7, B] values after P4. lane is
-// the state's [B, 9] int64 lane words (hotstuff.cuh): VOTES and DONE_VOTE at
-// rest. flags is the round's [B, N] flag word of kernel KAH (null without a
-// crash).
+// the state's [B, 13] int64 lane words (hotstuff.cuh): VOTES, VOTES1 and
+// DONE_VOTE at rest. flags is the round's [B, N] flag word of kernel KAH
+// (null without a crash). chain_vid ([B, S]), ftab_v, ftab_h ([B, 8]), fnum
+// ([B]) and deceived ([B, N] bool output) are given exactly with byz =
+// BYZ_EQUIV.
 extern "C" int ctt_hotstuff_vote(
     const uint32_t* seed, uint32_t r, const int32_t* view1, long long* lane,
     const int32_t* b1_v, const int32_t* b1_h, const int32_t* b2_v,
     const int32_t* b2_h, const int32_t* b3_v, const int32_t* b3_h,
     const int32_t* gcommit, int32_t* chain_v, bool* pdel, int32_t* regs_out,
     const unsigned char* flags, uint32_t drop_cut, uint32_t part_cut,
-    uint32_t max_delay, int Q, int B, int N, int S, cudaStream_t st) {
+    uint32_t max_delay, int Q, int B, int N, int S, int byz, int nb,
+    int32_t* chain_vid, int32_t* ftab_v, int32_t* ftab_h, int32_t* fnum,
+    bool* deceived, cudaStream_t st) {
+  const bool equiv = byz == ctt::BYZ_EQUIV;
+  if (nb < 0 || nb > N || byz < ctt::BYZ_NONE || byz > ctt::BYZ_EQUIV ||
+      equiv != (chain_vid != nullptr) || equiv != (ftab_v != nullptr) ||
+      equiv != (ftab_h != nullptr) || equiv != (fnum != nullptr) ||
+      equiv != (deceived != nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || N == 0) return 0;
   const int tiles = (N + hs::THREADS - 1) / hs::THREADS;
   const long long blocks = static_cast<long long>(tiles) * B;
   if (blocks > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
   Regs regs = {{b1_v, b1_h, b2_v, b2_h, b3_v, b3_h, gcommit}};
+  const Fork fork = {chain_vid, ftab_v, ftab_h, fnum, deceived};
   const bool delay = max_delay != 0u, crash = flags != nullptr;
-  const auto kernel = crash ? (delay ? hotstuff_vote_kernel<true, true>
-                                     : hotstuff_vote_kernel<false, true>)
-                            : (delay ? hotstuff_vote_kernel<true, false>
-                                     : hotstuff_vote_kernel<false, false>);
+  decltype(&hotstuff_vote_kernel<false, false, ctt::BYZ_NONE>) kernel;
+  if (byz == ctt::BYZ_SILENT)
+    kernel = crash ? (delay ? hotstuff_vote_kernel<true, true, 1>
+                            : hotstuff_vote_kernel<false, true, 1>)
+                   : (delay ? hotstuff_vote_kernel<true, false, 1>
+                            : hotstuff_vote_kernel<false, false, 1>);
+  else if (equiv)
+    kernel = crash ? (delay ? hotstuff_vote_kernel<true, true, 2>
+                            : hotstuff_vote_kernel<false, true, 2>)
+                   : (delay ? hotstuff_vote_kernel<true, false, 2>
+                            : hotstuff_vote_kernel<false, false, 2>);
+  else
+    kernel = crash ? (delay ? hotstuff_vote_kernel<true, true, 0>
+                            : hotstuff_vote_kernel<false, true, 0>)
+                   : (delay ? hotstuff_vote_kernel<true, false, 0>
+                            : hotstuff_vote_kernel<false, false, 0>);
   kernel<<<static_cast<unsigned>(blocks), hs::THREADS, 0, st>>>(
       seed, r, view1, lane, regs, chain_v, pdel, regs_out, flags, drop_cut,
-      part_cut, max_delay, Q, B, N, S, tiles);
+      part_cut, max_delay, Q, B, N, S, tiles, N - nb, fork);
   return static_cast<int>(cudaGetLastError());
 }

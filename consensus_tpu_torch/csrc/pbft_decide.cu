@@ -32,9 +32,14 @@
 // is a fresh tensor: an adoption written by one receiver is not read by
 // another in the same round. The slot flags that changed against the
 // round's entry are OR-ed by a ballot for P7.
+// Its BYZ instance (SPEC §3c/§6, picked with byzantine nodes in either
+// mode: node i of a lane is honest when i < n_real - nb) walks the honest
+// senders only: only honest deciders gossip (pbft.py:347-356).
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "byz.cuh"
 
 namespace {
 
@@ -43,6 +48,7 @@ constexpr int WARPS = THREADS / 32;
 constexpr unsigned FULL = 0xFFFFFFFFu;
 
 // A warp per (lane, receiver), flattened.
+template <bool HONEST>
 __global__ void __launch_bounds__(THREADS)
 pbft_decide_kernel(const bool* __restrict__ deliver,
                    const int32_t* __restrict__ n_real,
@@ -53,7 +59,7 @@ pbft_decide_kernel(const bool* __restrict__ deliver,
                    const bool* __restrict__ reset,
                    bool* __restrict__ com_out, int32_t* __restrict__ dval_out,
                    int32_t* __restrict__ timer_out, int N, int S,
-                   long long rows) {
+                   long long rows, int nb) {
   const long long row = static_cast<long long>(blockIdx.x) * WARPS +
                         threadIdx.x / 32;
   const int lane = threadIdx.x & 31;
@@ -62,6 +68,8 @@ pbft_decide_kernel(const bool* __restrict__ deliver,
   const int j = static_cast<int>(row - static_cast<long long>(b) * N);
   const long long nodes = static_cast<long long>(b) * N;
   const int n = n_real[b];
+  // The senders walked: the real ones, the honest ones (HONEST).
+  const int ns = HONEST ? n - nb : n;
   bool changed = false;
   for (int s0 = 0; s0 < S; s0 += 32) {
     const int s = s0 + lane;
@@ -71,7 +79,7 @@ pbft_decide_kernel(const bool* __restrict__ deliver,
     int32_t dv = in ? dval[js] : 0;
     // P6: the least-id delivered real decider of slot s.
     bool search = in && !c && j < n;
-    for (int i = 0; i < n && __any_sync(FULL, search); ++i) {
+    for (int i = 0; i < ns && __any_sync(FULL, search); ++i) {
       const bool d = deliver[(nodes + i) * N + j];
       if (search && d) {
         const long long is = (nodes + i) * S + s;
@@ -108,12 +116,15 @@ extern "C" int ctt_pbft_decide(const bool* deliver, const int32_t* n_real,
                                const int32_t* timer, const bool* reset,
                                bool* com_out, int32_t* dval_out,
                                int32_t* timer_out, int B, int N, int S,
-                               cudaStream_t st) {
+                               int byz, int nb, cudaStream_t st) {
+  if (nb < 0 || nb > N) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || N == 0) return 0;
   const long long rows = static_cast<long long>(B) * N;
   const unsigned blocks = static_cast<unsigned>((rows + WARPS - 1) / WARPS);
-  pbft_decide_kernel<<<blocks, THREADS, 0, st>>>(
+  const auto kernel = byz != ctt::BYZ_NONE ? pbft_decide_kernel<true>
+                                           : pbft_decide_kernel<false>;
+  kernel<<<blocks, THREADS, 0, st>>>(
       deliver, n_real, committed, dval, committed_start, timer, reset,
-      com_out, dval_out, timer_out, N, S, rows);
+      com_out, dval_out, timer_out, N, S, rows, nb);
   return static_cast<int>(cudaGetLastError());
 }

@@ -46,9 +46,23 @@
 // commits a down node never takes, pbft_bcast.py:355-356) its
 // commit_quorums and slot commit latencies are too. The crash tail itself
 // is kernel KAH's.
+// Its BYZ instances (SPEC §3c/§7c, picked with byzantine nodes: node i of a
+// lane is honest when i < n_real - nb) take the view spread over the honest
+// live nodes, in both modes (pbft.py:410). The equivocate instance also
+// counts the safety tail (lines 386-405): per slot, the extremes of pp_val
+// over this round's honest commits by the tally (committed_tally &
+// ~committed_in) and of the decided value over the honest committed nodes
+// as the freeze leaves them (a down node's committed flag and dval at round
+// entry); each block keeps a slot's two extremes' order keys (max key, max
+// complemented key) in dynamic shared memory and merges them into the
+// lane's scratch by atomicMax, and the lane's last block counts forked_qc
+// (slots whose commits hold two values), conflict_commits (likewise for the
+// decided values) and safety_violations (conflict_commits > 0).
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "byz.cuh"
 
 namespace {
 
@@ -58,6 +72,9 @@ constexpr int HISTS = 2;
 constexpr unsigned FULL = 0xFFFFFFFFu;
 // PBFT_TELEMETRY's indexes of the counters this kernel adds.
 constexpr int C_VIEW = 5;      // view_changes; 0-4 are the slot counters
+constexpr int C_FORKED = 12;   // forked_qc
+constexpr int C_CONFLICT = 13; // conflict_commits
+constexpr int C_UNSAFE = 14;   // safety_violations
 constexpr int C_SPREAD = 15;   // view_spread_max
 constexpr int C_DESYNC = 16;   // desync_rounds
 constexpr int C_SYNC = 17;     // sync_msgs_delivered
@@ -65,8 +82,12 @@ constexpr int K_MIN = 18;
 // Per-block sums: the five slot counters, view_changes, sync_msgs.
 constexpr int SUMS = 7;
 // Scratch words a lane: max key, max complemented key, live nodes, blocks
-// done.
+// done; in the equivocate instance then four a slot (the forked values' max
+// key and max complemented key, the decided values' two).
 constexpr int SPAN = 4;
+// The slots the equivocate instance takes: its shared memory holds four
+// words a slot.
+constexpr int MAX_SAFETY_SLOTS = 3072;
 
 __device__ __forceinline__ int lat_bucket(int32_t v) {
   if (v <= 0) return 0;
@@ -83,7 +104,7 @@ __device__ __forceinline__ uint32_t order_key(int32_t v) {
   return static_cast<uint32_t>(v) ^ 0x80000000u;
 }
 
-template <bool CRASH>
+template <bool CRASH, int BYZ>
 __global__ void __launch_bounds__(THREADS)
 pbft_telemetry_kernel(const int32_t* __restrict__ n_real,
                       const int32_t* __restrict__ view_in,
@@ -100,10 +121,15 @@ pbft_telemetry_kernel(const int32_t* __restrict__ n_real,
                       int* __restrict__ t, int* __restrict__ w,
                       int* __restrict__ lat, unsigned* __restrict__ span,
                       int r, int N, int S, int K, int window, int n_windows,
-                      int tiles, bool commits) {
+                      int tiles, bool commits, int nb,
+                      const int32_t* __restrict__ pp_val,
+                      const int32_t* __restrict__ dval_in,
+                      const int32_t* __restrict__ dval) {
+  constexpr bool EQUIV = BYZ == ctt::BYZ_EQUIV;
   __shared__ int s_sum[SUMS];
   __shared__ int s_hist[HISTS][BUCKETS];
   __shared__ unsigned s_span[3];
+  extern __shared__ unsigned s_slot[];  // EQUIV: [4][S]
   const int b = blockIdx.x / tiles;
   const int tile = blockIdx.x - b * tiles;
   const bool flight = lat != nullptr;
@@ -111,8 +137,13 @@ pbft_telemetry_kernel(const int32_t* __restrict__ n_real,
   if (threadIdx.x < SUMS) s_sum[threadIdx.x] = 0;
   if (threadIdx.x < HISTS * BUCKETS) (&s_hist[0][0])[threadIdx.x] = 0;
   if (threadIdx.x < 3) s_span[threadIdx.x] = 0u;
+  if (EQUIV)
+    for (int k = threadIdx.x; k < 4 * S; k += THREADS) s_slot[k] = 0u;
   __syncthreads();
   const long long nodes = static_cast<long long>(b) * N;
+  // The nodes whose views the spread takes (and, EQUIV, whose commits the
+  // safety tail reads): the real ones, the honest ones (BYZ).
+  const int n_hon = n_real[b] - (BYZ != ctt::BYZ_NONE ? nb : 0);
   const int j0 = tile * THREADS;
   const int j1 = min(j0 + THREADS, N);
 
@@ -133,7 +164,7 @@ pbft_telemetry_kernel(const int32_t* __restrict__ n_real,
       atomicAdd(&s_hist[0][lat_bucket(static_cast<int32_t>(
                     static_cast<uint32_t>(timer_in[row]) + 1u))],
                 1);
-    if (j < n_real[b] && !down[row]) {
+    if (j < n_hon && !down[row]) {
       hi = order_key(v);
       lo = ~hi;
       live = 1;
@@ -157,6 +188,20 @@ pbft_telemetry_kernel(const int32_t* __restrict__ n_real,
       sums[4] += c && !ct;
       if (flight && c && !cin && kept)
         key = lat_bucket(r - static_cast<int>(e % S));
+      if (EQUIV && e / S - nodes < n_hon) {
+        const int sl = static_cast<int>(e % S);
+        if (ct && !cin) {
+          const uint32_t k = order_key(pp_val[e]);
+          atomicMax(&s_slot[sl], k);
+          atomicMax(&s_slot[S + sl], ~k);
+        }
+        const bool fz = CRASH && down[e / S];
+        if (fz ? cin : c) {
+          const uint32_t k = order_key(fz ? dval_in[e] : dval[e]);
+          atomicMax(&s_slot[2 * S + sl], k);
+          atomicMax(&s_slot[3 * S + sl], ~k);
+        }
+      }
     }
     if (flight) {
       const unsigned peers = __match_any_sync(FULL, key);
@@ -199,9 +244,18 @@ pbft_telemetry_kernel(const int32_t* __restrict__ n_real,
                 v);
   }
 
+  unsigned* ls =
+      span + static_cast<long long>(b) * (EQUIV ? SPAN + 4 * S : SPAN);
+  if (EQUIV) {
+    __syncthreads();  // every shared extreme of the block is in
+    for (int k = threadIdx.x; k < 4 * S; k += THREADS)
+      if (s_slot[k] != 0u) atomicMax(ls + SPAN + k, s_slot[k]);
+    __threadfence();  // before thread 0 counts the block done
+    __syncthreads();
+  }
+
   // The lane's view spread, by its last block.
   if (threadIdx.x == 0) {
-    unsigned* ls = span + static_cast<long long>(b) * SPAN;
     if (s_span[2]) {
       atomicMax(ls + 0, s_span[0]);
       atomicMax(ls + 1, s_span[1]);
@@ -223,14 +277,43 @@ pbft_telemetry_kernel(const int32_t* __restrict__ n_real,
           if (wb != nullptr) atomicAdd(wb + C_DESYNC, 1);
         }
       }
+      if (EQUIV) {
+        // A slot holds two values where its max key is not its min key;
+        // no entry leaves both words 0 (one entry never does).
+        int forked = 0, conflicts = 0;
+        unsigned* x = ls + SPAN;
+        for (int sl = 0; sl < S; ++sl) {
+          const uint32_t fh = atomicMax(x + sl, 0u);
+          const uint32_t fl = atomicMax(x + S + sl, 0u);
+          const uint32_t ch = atomicMax(x + 2 * S + sl, 0u);
+          const uint32_t cl = atomicMax(x + 3 * S + sl, 0u);
+          forked += (fh | fl) != 0u && fh != ~fl;
+          conflicts += (ch | cl) != 0u && ch != ~cl;
+        }
+        if (forked) {
+          atomicAdd(tb + C_FORKED, forked);
+          if (wb != nullptr) atomicAdd(wb + C_FORKED, forked);
+        }
+        if (conflicts) {
+          atomicAdd(tb + C_CONFLICT, conflicts);
+          atomicAdd(tb + C_UNSAFE, 1);
+          if (wb != nullptr) {
+            atomicAdd(wb + C_CONFLICT, conflicts);
+            atomicAdd(wb + C_UNSAFE, 1);
+          }
+        }
+      }
     }
   }
 }
 
 }  // namespace
 
-// span is scratch, [B, 4] uint32, zeroed here. w and lat are null when the
-// flight recorder is off; then window and n_windows are unused.
+// span is scratch, [B, 4] uint32 ([B, 4 + 4 S] in the equivocate
+// instance), zeroed here. w and lat are null when the flight recorder is
+// off; then window and n_windows are unused. pp_val (after P3), dval_in
+// (at round entry) and dval (at the round's end, before the freeze), each
+// [B, N, S] int32, are given exactly with byz = BYZ_EQUIV.
 extern "C" int ctt_pbft_telemetry(
     const int32_t* n_real, const int32_t* view_in, const int32_t* timer_in,
     const int32_t* view, const bool* caught, const bool* down,
@@ -238,22 +321,43 @@ extern "C" int ctt_pbft_telemetry(
     const bool* committed_in, const bool* committed_tally,
     const bool* committed, int* t, int* w, int* lat, unsigned* span, int r,
     int B, int N, int S, int K, int window, int n_windows, int crash,
-    cudaStream_t st) {
+    int byz, int nb, const int32_t* pp_val, const int32_t* dval_in,
+    const int32_t* dval, cudaStream_t st) {
+  const bool equiv = byz == ctt::BYZ_EQUIV;
   if (K < K_MIN || (w == nullptr) != (lat == nullptr) ||
-      (w != nullptr && (window < 0 || window >= n_windows)))
+      (w != nullptr && (window < 0 || window >= n_windows)) || nb < 0 ||
+      nb > N || byz < ctt::BYZ_NONE || byz > ctt::BYZ_EQUIV ||
+      equiv != (pp_val != nullptr) || equiv != (dval_in != nullptr) ||
+      equiv != (dval != nullptr) || (equiv && S > MAX_SAFETY_SLOTS))
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || N == 0) return 0;
+  const int stride = equiv ? SPAN + 4 * S : SPAN;
   int err = static_cast<int>(cudaMemsetAsync(
-      span, 0, sizeof(unsigned) * SPAN * static_cast<size_t>(B), st));
+      span, 0, sizeof(unsigned) * stride * static_cast<size_t>(B), st));
   if (err != 0) return err;
   const int tiles = (N + THREADS - 1) / THREADS;
   const long long blocks = static_cast<long long>(tiles) * B;
   if (blocks > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
-  const auto kernel = crash != 0 ? pbft_telemetry_kernel<true>
-                                  : pbft_telemetry_kernel<false>;
-  kernel<<<static_cast<unsigned>(blocks), THREADS, 0, st>>>(
+  const bool c = crash != 0;
+  const auto kernel =
+      byz == ctt::BYZ_SILENT
+          ? (c ? pbft_telemetry_kernel<true, ctt::BYZ_SILENT>
+               : pbft_telemetry_kernel<false, ctt::BYZ_SILENT>)
+      : equiv ? (c ? pbft_telemetry_kernel<true, ctt::BYZ_EQUIV>
+                   : pbft_telemetry_kernel<false, ctt::BYZ_EQUIV>)
+              : (c ? pbft_telemetry_kernel<true, ctt::BYZ_NONE>
+                   : pbft_telemetry_kernel<false, ctt::BYZ_NONE>);
+  const size_t smem = equiv ? sizeof(unsigned) * 4 * S : 0;
+  if (smem > 48 * 1024) {
+    err = static_cast<int>(cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem)));
+    if (err != 0) return err;
+  }
+  kernel<<<static_cast<unsigned>(blocks), THREADS, smem, st>>>(
       n_real, view_in, timer_in, view, caught, down, pp_seen, prepared_in,
       prepared, committed_in, committed_tally, committed, t, w, lat, span, r,
-      N, S, K, window, n_windows, tiles, (crash & 2) != 0);
+      N, S, K, window, n_windows, tiles, (crash & 2) != 0, nb, pp_val,
+      dval_in, dval);
   return static_cast<int>(cudaGetLastError());
 }

@@ -55,10 +55,20 @@
 // timeout in this round. Launch 1 reads no timer. The freeze (KAI) restores
 // a down node's timer from the round's input, so it drops the skew, as the
 // JAX package's frozen capture does.
+// Its BYZ instances (SPEC §3c/§6, picked with byzantine nodes: node i of a
+// lane is honest when i < n_real - nb) count the views of honest senders
+// only in P1's walk (a node's own view always counts) and let only an
+// honest primary offer in P3, in both modes (pbft.py:171-175, 213-230). The
+// equivocate instance of launch 3 lets a byzantine primary p offer every
+// slot to each real receiver j it reaches (p == j or deliver[p, j]),
+// whatever the views, with a value drawn from j's view, subdraw 4 where
+// p's stance toward j (ctt::equiv_stance, absolute ids) is set, else 3
+// (lines 244-255).
 #include <climits>
 
 #include <cuda_runtime.h>
 
+#include "byz.cuh"
 #include "crash.cuh"
 #include "rng.cuh"
 
@@ -114,7 +124,7 @@ pbft_rank_kernel(const uint32_t* __restrict__ seed, uint32_t r,
 }
 
 // Launch 2. A thread per (lane, receiver), flattened.
-template <bool CRASH, bool DESYNC>
+template <bool CRASH, bool DESYNC, bool HONEST>
 __global__ void __launch_bounds__(THREADS)
 pbft_catchup_kernel(const uint32_t* __restrict__ seed, uint32_t r,
                     uint32_t churn_cut, int32_t view_timeout, int32_t vmax,
@@ -130,7 +140,7 @@ pbft_catchup_kernel(const uint32_t* __restrict__ seed, uint32_t r,
                     bool* __restrict__ reset_out,
                     bool* __restrict__ catch_out,
                     const unsigned char* __restrict__ flags, int N,
-                    long long rows) {
+                    long long rows, int nb) {
   const long long row =
       static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
   if (row >= rows) return;
@@ -151,6 +161,8 @@ pbft_catchup_kernel(const uint32_t* __restrict__ seed, uint32_t r,
   // (the undelivered senders' -1 entries fill the column), and the top of
   // the search range when f + 1 <= 0 asks for nothing.
   const int n = n_real[b];
+  // The senders whose views count: the real ones, the honest ones (BYZ).
+  const int ns = HONEST ? n - nb : n;
   const int need = f[b] + 1;
   int32_t vth = vmax;
   if (need > 0) {
@@ -160,7 +172,7 @@ pbft_catchup_kernel(const uint32_t* __restrict__ seed, uint32_t r,
     for (int q = 0; q < N; ++q) {
       const int i = ord[q];
       const bool counted =
-          i == j || (i < n && j < n && deliver[(nodes + i) * N + j]);
+          i == j || (i < ns && j < n && deliver[(nodes + i) * N + j]);
       if (counted && ++count == need) {
         vth = min(max(wrap_add(entry<CRASH>(view, flags, nodes + i), c), -1),
                   vmax);
@@ -187,8 +199,9 @@ pbft_catchup_kernel(const uint32_t* __restrict__ seed, uint32_t r,
 }
 
 // Launch 3. A warp per (lane, receiver), flattened; a thread per slot.
+template <int BYZ>
 __global__ void __launch_bounds__(THREADS)
-pbft_preprepare_kernel(const uint32_t* __restrict__ seed,
+pbft_preprepare_kernel(const uint32_t* __restrict__ seed, uint32_t r,
                        const bool* __restrict__ deliver,
                        const int32_t* __restrict__ n_real,
                        const int32_t* __restrict__ view,
@@ -200,7 +213,7 @@ pbft_preprepare_kernel(const uint32_t* __restrict__ seed,
                        bool* __restrict__ seen_out,
                        int32_t* __restrict__ pview_out,
                        int32_t* __restrict__ pval_out, int N, int S,
-                       long long rows) {
+                       long long rows, int nb) {
   const long long row = static_cast<long long>(blockIdx.x) * WARPS +
                         threadIdx.x / 32;
   const int lane = threadIdx.x & 31;
@@ -215,12 +228,20 @@ pbft_preprepare_kernel(const uint32_t* __restrict__ seed,
   const long long prow = nodes + p;
   const int32_t vp = view[prow];
   // The primary's offer reaches j: delivered or j itself, in j's view. A
-  // primary in j's view maps that view to itself, so it leads.
-  const bool ok =
-      j < n && vp == v && (p == j || deliver[prow * N + j]);
+  // primary in j's view maps that view to itself, so it leads. BYZ: only
+  // an honest primary leads; an equivocating one (byzp) offers in any view.
+  bool ok, byzp = false;
+  if (BYZ == ctt::BYZ_NONE) {
+    ok = j < n && vp == v && (p == j || deliver[prow * N + j]);
+  } else {
+    const bool honest_p = p < n - nb;
+    byzp = BYZ == ctt::BYZ_EQUIV && !honest_p;
+    ok = j < n && (honest_p ? vp == v : byzp) &&
+         (p == j || deliver[prow * N + j]);
+  }
   // The primary's first unseen slot (S when it has seen them all).
   int fresh = S;
-  if (ok) {
+  if (ok && !byzp) {
     for (int s0 = 0; s0 < S; s0 += 32) {
       const int s = s0 + lane;
       const unsigned m =
@@ -232,11 +253,27 @@ pbft_preprepare_kernel(const uint32_t* __restrict__ seed,
     }
   }
   const uint32_t sd = seed[b];
+  // An equivocating primary's subdraw toward j: 4 with its stance set.
+  const uint32_t sub =
+      byzp ? (ctt::equiv_stance(sd, r, static_cast<uint32_t>(p),
+                                static_cast<uint32_t>(j))
+                  ? 4u
+                  : 3u)
+           : 0u;
   for (int s = lane; s < S; s += 32) {
     const long long js = row * S + s;
     bool seen = pp_seen[js];
     int32_t pv = pp_view[js], val = pp_val[js];
-    if (ok) {
+    if (byzp) {
+      const int32_t mval = static_cast<int32_t>(
+          ctt::random_u32(sd, ctt::STREAM_VALUE, static_cast<uint32_t>(v),
+                          sub, static_cast<uint32_t>(s)));
+      if ((!seen || pv < v) && (!prepared[js] || mval == val)) {
+        seen = true;
+        pv = v;
+        val = mval;
+      }
+    } else if (ok) {
       const long long ps = prow * S + s;
       const bool pseen = pp_seen[ps];
       if ((pseen && !committed[ps]) || s == fresh) {
@@ -271,7 +308,10 @@ extern "C" int ctt_pbft_view_preprepare(
     const int32_t* pp_val, const bool* prepared, const bool* committed,
     int32_t* view_out, int32_t* timer_out, bool* reset_out, bool* seen_out,
     int32_t* pview_out, int32_t* pval_out, bool* catch_out, int32_t* order,
-    const unsigned char* flags, int B, int N, int S, cudaStream_t st) {
+    const unsigned char* flags, int B, int N, int S, int byz, int nb,
+    cudaStream_t st) {
+  if (nb < 0 || nb > N || byz < ctt::BYZ_NONE || byz > ctt::BYZ_EQUIV)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || N == 0) return 0;
   const long long rows = static_cast<long long>(B) * N;
   const unsigned blocks = static_cast<unsigned>((rows + THREADS - 1) / THREADS);
@@ -285,19 +325,28 @@ extern "C" int ctt_pbft_view_preprepare(
   if (desync && max_skew == 0u)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto catchup =
-      crash ? (desync ? pbft_catchup_kernel<true, true>
-                      : pbft_catchup_kernel<true, false>)
-            : (desync ? pbft_catchup_kernel<false, true>
-                      : pbft_catchup_kernel<false, false>);
+      byz != ctt::BYZ_NONE
+          ? (crash ? (desync ? pbft_catchup_kernel<true, true, true>
+                             : pbft_catchup_kernel<true, false, true>)
+                   : (desync ? pbft_catchup_kernel<false, true, true>
+                             : pbft_catchup_kernel<false, false, true>))
+          : (crash ? (desync ? pbft_catchup_kernel<true, true, false>
+                             : pbft_catchup_kernel<true, false, false>)
+                   : (desync ? pbft_catchup_kernel<false, true, false>
+                             : pbft_catchup_kernel<false, false, false>));
   catchup<<<blocks, THREADS, 0, st>>>(
       seed, r, churn_cut, view_timeout, vmax, desync_cut, max_skew, deliver,
       n_real, f, view, timer, order, view_out, timer_out, reset_out,
-      catch_out, flags, N, rows);
+      catch_out, flags, N, rows, nb);
   if ((err = static_cast<int>(cudaGetLastError())) != 0) return err;
   const unsigned warp_blocks =
       static_cast<unsigned>((rows + WARPS - 1) / WARPS);
-  pbft_preprepare_kernel<<<warp_blocks, THREADS, 0, st>>>(
-      seed, deliver, n_real, view_out, pp_seen, pp_view, pp_val, prepared,
-      committed, seen_out, pview_out, pval_out, N, S, rows);
+  const auto preprepare =
+      byz == ctt::BYZ_SILENT  ? pbft_preprepare_kernel<ctt::BYZ_SILENT>
+      : byz == ctt::BYZ_EQUIV ? pbft_preprepare_kernel<ctt::BYZ_EQUIV>
+                              : pbft_preprepare_kernel<ctt::BYZ_NONE>;
+  preprepare<<<warp_blocks, THREADS, 0, st>>>(
+      seed, r, deliver, n_real, view_out, pp_seen, pp_view, pp_val, prepared,
+      committed, seen_out, pview_out, pval_out, N, S, rows, nb);
   return static_cast<int>(cudaGetLastError());
 }

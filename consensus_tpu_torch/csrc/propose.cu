@@ -21,8 +21,13 @@
 // per (sweep, slot), reads its leader's row after the append (the stream
 // orders the two launches, so no race decides what the snapshot sees):
 // thread 0 writes the slot's scalars and the block copies the two rows.
+// Its BYZ instance (SPEC §3c, picked with silent byzantine nodes) marks a
+// byzantine leader's slot unsent in launch 2 (raft_sparse.py:392-393: its
+// heartbeats never travel): kernel KB then gives its heartbeats and acks no
+// edge, and kernel KH does not process the slot.
 #include <cuda_runtime.h>
 
+#include "byz.cuh"
 #include "rng.cuh"
 
 namespace {
@@ -55,6 +60,7 @@ append_kernel(const uint32_t* __restrict__ seed, uint32_t r,
 }
 
 // Launch 2. A block per (sweep, slot).
+template <bool WITHHOLD>
 __global__ void __launch_bounds__(SNAP_THREADS)
 snapshot_kernel(const bool* __restrict__ lead,
                 const int32_t* __restrict__ term,
@@ -66,14 +72,15 @@ snapshot_kernel(const bool* __restrict__ lead,
                 bool* __restrict__ was_lead_k, int32_t* __restrict__ hb_ids,
                 int32_t* __restrict__ s_term, int32_t* __restrict__ s_len,
                 int32_t* __restrict__ s_commit, int32_t* __restrict__ s_logt,
-                int32_t* __restrict__ s_logv, int N, int A, int L) {
+                int32_t* __restrict__ s_logv, int N, int A, int L,
+                int n_honest) {
   const int slot = blockIdx.x;  // b * A + a
   const int b = slot / A;
   const int32_t id = lead_id[slot];
   const long long node =
       static_cast<long long>(b) * N + min(max(id, 0), N - 1);
   if (threadIdx.x == 0) {
-    const bool wl = id >= 0 && lead[node];
+    const bool wl = id >= 0 && lead[node] && !(WITHHOLD && id >= n_honest);
     was_lead_k[slot] = wl;
     hb_ids[slot] = wl ? id : NONE;
     s_term[slot] = term[node];
@@ -97,15 +104,18 @@ extern "C" int ctt_propose(const uint32_t* seed, uint32_t r, const bool* lead,
                            int32_t* hb_ids, int32_t* s_term, int32_t* s_len,
                            int32_t* s_commit, int32_t* s_logt,
                            int32_t* s_logv, int B, int N, int A, int L, int E,
-                           cudaStream_t st) {
-  if (A < 1 || E > L) return static_cast<int>(cudaErrorInvalidValue);
+                           int byz, int nb, cudaStream_t st) {
+  if (A < 1 || E > L || nb < 0 || nb > N)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || N == 0) return 0;
   append_kernel<<<dim3((N + THREADS - 1) / THREADS, B), THREADS, 0, st>>>(
       seed, r, lead, term, log_term, log_val, log_len, len_out, N, L, E);
   int err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
-  snapshot_kernel<<<B * A, SNAP_THREADS, 0, st>>>(
+  const auto snapshot = byz == ctt::BYZ_SILENT ? snapshot_kernel<true>
+                                               : snapshot_kernel<false>;
+  snapshot<<<B * A, SNAP_THREADS, 0, st>>>(
       lead, term, log_term, log_val, len_out, commit, lead_id, was_lead_k,
-      hb_ids, s_term, s_len, s_commit, s_logt, s_logv, N, A, L);
+      hb_ids, s_term, s_len, s_commit, s_logt, s_logv, N, A, L, N - nb);
   return static_cast<int>(cudaGetLastError());
 }

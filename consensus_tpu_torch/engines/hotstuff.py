@@ -3,8 +3,9 @@ engine.
 
 The port of ``consensus_tpu/engines/hotstuff.py`` on its flat path and
 under the SPEC §A.2 delayed retransmission on the broadcast rows and the
-votes, the SPEC §6c crash-recover adversary and the SPEC §B timer skew (no
-byzantine or switch gates), with its telemetry and flight recorder. Every
+votes, the SPEC §6c crash-recover adversary, the SPEC §B timer skew and
+the SPEC §7c byzantine nodes, silent or equivocating (no switch gates),
+with its telemetry and flight recorder. Every
 node keeps its own pacemaker (view, timer) and committed prefix; the QC
 chain (b1, b2, b3), the certified-view map and
 the global commit are per sweep. A round is three lane-wide steps in a
@@ -55,6 +56,18 @@ gossip, proposes nor receives the proposal, and KAF counts every node's
 round as the JAX round does, down nodes included, then writes a down node
 its frozen view, timer and prefix (its input after the recovery reset,
 without the skew).
+
+Byzantine nodes (the ids from N - n_byzantine up, ``Config.byz``) are
+fixed for a run, so P1's key at round entry is the key over the honest
+nodes, which KAF's BYZ instances build into TOP (KAJ into KEY, over the
+honest live ones): a byzantine round without a crash or a desync stays
+three launches. Only honest receivers vote (KAE), and a silent node never
+proposes (KAD). Under equivocation a byzantine leader shows each receiver
+one of two variants; KAE counts each variant's votes in its own lane word
+(VOTES, VOTES1), forms a QC where either reaches 2f + 1, writes
+``chain_vid`` and, on a forked QC, the fork table in place, and names the
+deceived receivers, whose fork bits KAF sets; with telemetry KAF counts
+the §7c safety tail.
 """
 from __future__ import annotations
 
@@ -63,10 +76,11 @@ from typing import NamedTuple
 import torch
 
 from ..core import rng
-from ..core.config import Config
+from ..core.config import BYZ_EQUIV, BYZ_SILENT, Config
 from ..ops.adversary import (AGG_TELEMETRY, CRASH_DOWN, CRASH_REC,
                              CRASH_TELEMETRY, SAFETY_TELEMETRY, bitcast_i32,
-                             crash_step, open_drop_plain)
+                             crash_step, equiv_stance_plain, open_drop_plain,
+                             safety_counts_plain)
 from ..ops.flight import (add_plain, bucket_counts_plain, check_recorder,
                           window_of)
 from ..ops.viewsync import SYNC_TELEMETRY, desync_skew_plain, sync_counts_plain
@@ -85,7 +99,8 @@ FORK_TABLE = 8
 # rounds forming a QC, the global commit's advance, the per-node committed
 # prefixes' advance, per-node timeout view changes, proposal receivers,
 # votes the leader counted; then the crash tail (kernel KAH's), the
-# aggregation and safety tails (zeros here) and the SPEC §B view-sync tail.
+# aggregation tail (zeros here), the SPEC §7c safety tail (counted under
+# equivocation) and the SPEC §B view-sync tail.
 HOTSTUFF_TELEMETRY = ("qc_formed", "blocks_committed", "commits_learned",
                       "view_changes", "proposals_delivered",
                       "votes_counted") + CRASH_TELEMETRY + AGG_TELEMETRY \
@@ -110,7 +125,12 @@ VMIN = 6        # KAF's min of the end-of-round views; at rest I64_MAX
 DONE_LEARN = 7  # KAF's finished blocks (with telemetry); at rest 0
 KEY = 8         # KAJ's P1 key over the nodes up on a gated round, which
 #                 KAD then reads; at rest KEY_REST
-LANE_WORDS = 9
+VOTES1 = 9      # KAE's vote count for variant 1 (SPEC §7c); at rest 0
+QCF = 10        # the round's QC (bit 0) and forked QC (bit 1) under
+#                 equivocation, which KAE's last block writes for KAF
+FBIT = 11       # the fork bit a deceived node takes, likewise (0: none)
+CONF = 12       # KAF's count of conflicting commits (telemetry); at rest 0
+LANE_WORDS = 13
 KEY_REST = -1   # reads as vM = -1, M = N: no gossip
 I64_MIN = -2**63
 I64_MAX = 2**63 - 1
@@ -159,10 +179,11 @@ def p1_key(view, up=None) -> torch.Tensor:
     """[B] int64: the largest ``(view << 32) | (N - 1 - id)`` over a lane's
     nodes ([B, N] int32 ``view``), whose high word is the highest view and
     low word N - 1 minus the lowest id holding it: P1's gossiper (lines
-    267-268 of the JAX round, every node honest and live). With ``up`` ([B,
-    N] bool), over the nodes up only and at least KEY_REST: the KEY word
-    kernel KAJ builds, whose high word is the JAX round's vM where that is
-    >= 0 (the only case in which P1 reads it) and -1 else."""
+    266-268 of the JAX round, every node honest and live). With ``up`` ([B,
+    N] bool), over those nodes only (the honest live ones) and at least
+    KEY_REST: the KEY word kernel KAJ builds, whose high word is the JAX
+    round's vM where that is >= 0 (the only case in which P1 reads it)
+    and -1 else."""
     if up is None:
         return _keys(view).amax(1)
     return torch.where(up, _keys(view), KEY_REST).amax(1)
@@ -177,12 +198,20 @@ def gossiper(key, N: int) -> tuple[torch.Tensor, torch.Tensor]:
             N - 1 - torch.where(low >= 2**31, low - 2**32, low))
 
 
-def lane_at_rest(view) -> torch.Tensor:
+def lane_at_rest(view, n_honest: int | None = None) -> torch.Tensor:
     """The ``lane`` words of a state whose views are ``view`` ([B, N]
-    int32), at a round's start: P1's key and every accumulator at rest."""
+    int32), at a round's start: P1's key over the honest nodes (ids below
+    ``n_honest``, by default every node; SPEC §3c/§7c, the JAX round's
+    ``alive_h``, line 266), as kernel KAF builds TOP, and every
+    accumulator at rest."""
+    N = view.shape[1]
     lane = torch.zeros((view.shape[0], LANE_WORDS), dtype=torch.int64,
                        device=view.device)
-    lane[:, TOP] = p1_key(view)
+    if n_honest is None or n_honest >= N:
+        lane[:, TOP] = p1_key(view)
+    else:
+        honest = torch.arange(N, device=view.device) < n_honest
+        lane[:, TOP] = torch.where(honest, _keys(view), I64_MIN).amax(1)
     lane[:, VMAX] = -1
     lane[:, VSTAR] = -1
     lane[:, VMIN] = I64_MAX
@@ -228,7 +257,8 @@ def hotstuff_prologue_plain(cfg: Config, seed, r: int, view, timer, lane,
     desync_skew_plain`), and where that reaches ``view_timeout`` the node
     moves to the next view with timer 0. Every node runs it, down nodes
     too. ``lane[:, KEY]`` takes the max with :func:`p1_key` of the new
-    views over the nodes not down (in place). With the totals ``t`` ([B,
+    views over the honest nodes not down (in place; SPEC §3c/§7c: ids
+    below N - n_byzantine). With the totals ``t`` ([B,
     K] int32) and the window ring ``w``, the premature timeouts are added
     into view_changes (of window ``r // cfg.telemetry_window``). Returns
     (view, timer), fresh [B, N] int32."""
@@ -252,6 +282,7 @@ def hotstuff_prologue_plain(cfg: Config, seed, r: int, view, timer, lane,
                 w[:, r // cfg.telemetry_window, col] += n
     up = torch.ones_like(view, dtype=torch.bool) if flags is None \
         else (flags & CRASH_DOWN) == 0
+    up = up & (torch.arange(N, device=view.device) < cfg.n_honest)
     lane[:, KEY] = torch.maximum(lane[:, KEY], p1_key(view, up))
     return view, timer
 
@@ -296,7 +327,7 @@ def hotstuff_prologue(cfg: Config, seed, r: int, view, timer, lane,
                   *(None if x is None else x.data_ptr() for x in (t, w)),
                   cfg.desync_cutoff, cfg.max_skew_rounds, cfg.view_timeout,
                   B, N, K, HOTSTUFF_TELEMETRY.index("view_changes"), window,
-                  n_windows)
+                  n_windows, cfg.n_byzantine)
     hotstuff_prologue.launches += 1
     return tuple(out.unbind(0))
 
@@ -316,9 +347,10 @@ def hotstuff_propose_plain(cfg: Config, seed, r: int, view, b1_h, lane,
     neither catches up nor proposes (lines 271-272, 294). P2: node i proposes
     when its view after P1 elects it (view mod N == i, floor modulo),
     the round's churn event does not fire and the log has room (b1_h + 1
-    < S). The largest proposing view above -1 is merged into ``lane[:,
-    VMAX]`` (in place). Returns (view after P1 [B, N] int32, P1's
-    catch-up flags ``adv`` [B, N] bool)."""
+    < S); a silent byzantine node never proposes (SPEC §7c, line 292-293;
+    an equivocating one does). The largest proposing view above -1 is
+    merged into ``lane[:, VMAX]`` (in place). Returns (view after P1 [B,
+    N] int32, P1's catch-up flags ``adv`` [B, N] bool)."""
     N, S = view.shape[1], cfg.log_capacity
     idx = torch.arange(N, dtype=torch.int64, device=view.device)
     vM, M = gossiper(lane[:, KEY if gated(cfg) else TOP], N)
@@ -332,6 +364,8 @@ def hotstuff_propose_plain(cfg: Config, seed, r: int, view, b1_h, lane,
         < cfg.churn_cutoff                                       # [B, 1]
     prop = (view1 % N == idx) & ~churn & up & (
         _wrap(b1_h.to(torch.int64) + 1) < S)[:, None]
+    if cfg.byz == BYZ_SILENT:
+        prop = prop & (idx < cfg.n_honest)
     cand = torch.where(prop, view1, -1).amax(1).to(torch.int64)
     lane[:, VMAX] = torch.where(cand > -1,
                                 torch.maximum(lane[:, VMAX], cand),
@@ -345,7 +379,8 @@ def hotstuff_propose(cfg: Config, seed, r: int, view, b1_h, lane,
     :func:`hotstuff_propose_plain`, which it runs for CPU tensors; for
     CUDA tensors it launches ``csrc/hotstuff_propose.cu`` (a thread per
     (lane, node); a warp's largest proposing view goes into VMAX with one
-    atomic; its CRASH instance with ``flags``)."""
+    atomic; its CRASH instance with ``flags``, its BYZ instance with
+    silent byzantine nodes)."""
     if view.device.type == "cpu":
         return hotstuff_propose_plain(cfg, seed, r, view, b1_h, lane, flags)
     from .. import _build
@@ -364,7 +399,7 @@ def hotstuff_propose(cfg: Config, seed, r: int, view, b1_h, lane,
                   None if flags is None else flags.data_ptr(),
                   cfg.drop_cutoff, cfg.partition_cutoff, cfg.churn_cutoff,
                   cfg.max_delay_rounds, KEY if gated(cfg) else TOP, B, N,
-                  cfg.log_capacity)
+                  cfg.log_capacity, cfg.byz, cfg.n_byzantine)
     hotstuff_propose.launches += 1
     return view1, adv
 
@@ -375,9 +410,10 @@ hotstuff_propose.launches = 0
 # --- KAE: P2's delivery, P3, P4 ------------------------------------------------
 
 def hotstuff_vote_plain(cfg: Config, seed, r: int, view1, lane, b1_v, b1_h,
-                        b2_v, b2_h, b3_v, b3_h, gcommit, chain_v, flags=None):
-    """Plain version of KAE, the JAX round's lines 300-433 without the
-    byzantine and switch gates. V* is ``lane[:, VMAX]``; when V* >= 0 its
+                        b2_v, b2_h, b3_v, b3_h, gcommit, chain_v, flags=None,
+                        fork=None):
+    """Plain version of KAE, the JAX round's lines 300-454 without the
+    switch gates. V* is ``lane[:, VMAX]``; when V* >= 0 its
     leader L = V* mod N broadcasts, else L = 0 and nobody hears a proposal.
     Node j receives it (``pdel``) when j == L or L's row to j is open, and
     its view after P1 is not above V*; a receiver's vote reaches L when j ==
@@ -392,7 +428,26 @@ def hotstuff_vote_plain(cfg: Config, seed, r: int, view1, lane, b1_v, b1_h,
     place): VSTAR and COUNTED hold the round's V* and vote count for KAF,
     TOP is emptied for KAF's reduction, KEY is at rest. Returns (pdel [B, N]
     bool, then b1_v, b1_h, b2_v, b2_h, b3_v, b3_h, gcommit after P4, fresh
-    [B] int32)."""
+    [B] int32).
+
+    With byzantine nodes (SPEC §3c/§7c, ``cfg.byz``; ids N - n_byzantine
+    and up) only honest receivers vote, in both modes (line 326). Under
+    equivocation (``BYZ_EQUIV``, with ``fork`` = (chain_vid [B, S],
+    ftab_v, ftab_h [B, FORK_TABLE], fnum [B]), all int32 and updated in
+    place) a byzantine leader L shows receiver j the variant of its stance
+    toward j (:func:`~consensus_tpu_torch.ops.adversary.
+    equiv_stance_plain`; an honest leader shows variant 0), an honest
+    receiver votes for the variant it was shown and a byzantine one for
+    both; each variant's count (``lane[:, VOTES]`` and ``lane[:,
+    VOTES1]``) needs its own quorum (lines 334-421). A QC of either
+    variant shifts the chain; ``chain_vid[h_next]`` takes the certified
+    variant (0 where variant 0 has a quorum); a forked QC (both) takes the
+    next free row of the fork table (lines 436-453). ``lane[:, COUNTED]``
+    is then both counts' sum, ``lane[:, QCF]`` the QC (bit 0) and the fork
+    (bit 1), ``lane[:, FBIT]`` the fork bit that KAF sets in the
+    deceived nodes' ``fvec`` (0 without a new table row), and the round
+    also returns ``deceived`` ([B, N] bool): the honest receivers shown
+    variant 1."""
     N, S, Q = view1.shape[1], cfg.log_capacity, 2 * cfg.f + 1
     dev = view1.device
     idx = torch.arange(N, dtype=torch.int64, device=dev)
@@ -407,8 +462,21 @@ def hotstuff_vote_plain(cfg: Config, seed, r: int, view1, lane, b1_v, b1_h,
     pdel = exists[:, None] & (is_l | open_p) & (view1 <= vstar[:, None])
     if flags is not None:
         pdel &= (flags & CRASH_DOWN) == 0
-    cnt = lane[:, VOTES] + (pdel & (is_l | open_v)).sum(1)
-    qc = exists & (cnt >= Q)
+    back = is_l | open_v
+    vote = pdel if not cfg.byz else pdel & (idx < cfg.n_honest)
+    if cfg.byz == BYZ_EQUIV:
+        byz_l = exists & (L >= cfg.n_honest)
+        evid = byz_l[:, None] & equiv_stance_plain(seed, r, L[:, None],
+                                                   idx[None, :])
+        voteb = pdel & (idx >= cfg.n_honest)
+        cnt0 = lane[:, VOTES] + (((vote & ~evid) | voteb) & back).sum(1)
+        cnt1 = lane[:, VOTES1] + (((vote & evid) | voteb) & back).sum(1)
+        qc0, qc1 = exists & (cnt0 >= Q), exists & (cnt1 >= Q)
+        qc, forked = qc0 | qc1, qc0 & qc1
+        cnt = cnt0 + cnt1
+    else:
+        cnt = lane[:, VOTES] + (vote & back).sum(1)
+        qc = exists & (cnt >= Q)
     h_next = _wrap(b1_h.to(torch.int64) + 1)
     nb1_v, nb1_h = torch.where(qc, vstar, b1_v), torch.where(qc, h_next, b1_h)
     nb2_v, nb2_h = torch.where(qc, b1_v, b2_v), torch.where(qc, b1_h, b2_h)
@@ -427,21 +495,42 @@ def hotstuff_vote_plain(cfg: Config, seed, r: int, view1, lane, b1_v, b1_h,
     lane[:, DONE_VOTE] = 0
     lane[:, TOP] = I64_MIN
     lane[:, KEY] = KEY_REST
-    return pdel, nb1_v, nb1_h, nb2_v, nb2_h, nb3_v, nb3_h, ngc
+    out = (pdel, nb1_v, nb1_h, nb2_v, nb2_h, nb3_v, nb3_h, ngc)
+    if cfg.byz != BYZ_EQUIV:
+        return out
+    chain_vid, ftab_v, ftab_h, fnum = fork
+    chain_vid.copy_(torch.where(hot, torch.where(qc0, 0, 1)[:, None],
+                                chain_vid))
+    can = forked & (fnum < FORK_TABLE)
+    row = (torch.arange(FORK_TABLE, device=dev) == fnum[:, None]) \
+        & can[:, None]
+    ftab_v.copy_(torch.where(row, vstar[:, None], ftab_v))
+    ftab_h.copy_(torch.where(row, h_next[:, None], ftab_h))
+    fbit = torch.where(can, 1 << fnum.clamp(max=FORK_TABLE - 1), 0)
+    fnum.copy_(fnum + can.to(torch.int32))
+    lane[:, VOTES1] = 0
+    lane[:, QCF] = qc.to(torch.int64) | (forked.to(torch.int64) << 1)
+    lane[:, FBIT] = fbit.to(torch.int64)
+    return (*out, vote & evid)
 
 
 def hotstuff_vote(cfg: Config, seed, r: int, view1, lane, b1_v, b1_h, b2_v,
-                  b2_h, b3_v, b3_h, gcommit, chain_v, flags=None):
+                  b2_h, b3_v, b3_h, gcommit, chain_v, flags=None, fork=None):
     """Kernel KAE: same arguments, results and in-place updates as
     :func:`hotstuff_vote_plain`, which it runs for CPU tensors; for CUDA
     tensors it launches ``csrc/hotstuff_vote.cu`` (a thread per (lane,
     node); votes counted by a ballot a warp, a shared atomic a warp and a
     global one a block; the lane's last block does P4; its CRASH instance
-    with ``flags``)."""
+    with ``flags``, its BYZ instances with byzantine nodes: under
+    equivocation two ballots a warp, and the last block also writes
+    ``fork``'s rows)."""
+    if (cfg.byz == BYZ_EQUIV) != (fork is not None):
+        raise ValueError("pass fork (chain_vid, ftab_v, ftab_h, fnum) "
+                         "exactly under byzantine equivocation")
     if view1.device.type == "cpu":
         return hotstuff_vote_plain(cfg, seed, r, view1, lane, b1_v, b1_h,
                                    b2_v, b2_h, b3_v, b3_h, gcommit, chain_v,
-                                   flags)
+                                   flags, fork)
     from .. import _build
     B, N = view1.shape
     S = cfg.log_capacity
@@ -453,18 +542,26 @@ def hotstuff_vote(cfg: Config, seed, r: int, view1, lane, b1_v, b1_h, b2_v,
               (lane, torch.int64, (B, LANE_WORDS)),
               *((x, torch.int32, (B,)) for x in regs),
               (chain_v, torch.int32, (B, S)),
-              *(() if flags is None else ((flags, torch.uint8, (B, N)),)))
+              *(() if flags is None else ((flags, torch.uint8, (B, N)),)),
+              *(() if fork is None else (
+                  (fork[0], torch.int32, (B, S)),
+                  *((x, torch.int32, (B, FORK_TABLE)) for x in fork[1:3]),
+                  (fork[3], torch.int32, (B,)))))
     pdel = torch.empty((B, N), dtype=torch.bool, device=dev)
     new = torch.empty((7, B), dtype=torch.int32, device=dev)
+    deceived = None if fork is None else torch.empty_like(pdel)
     _build.launch("hotstuff_vote", seed.data_ptr(), int(r) & 0xFFFFFFFF,
                   view1.data_ptr(), lane.data_ptr(),
                   *(x.data_ptr() for x in regs), chain_v.data_ptr(),
                   pdel.data_ptr(), new.data_ptr(),
                   None if flags is None else flags.data_ptr(), cfg.drop_cutoff,
                   cfg.partition_cutoff, cfg.max_delay_rounds, 2 * cfg.f + 1,
-                  B, N, S)
+                  B, N, S, cfg.byz, cfg.n_byzantine,
+                  *(None if x is None else x.data_ptr() for x in (
+                      (*fork, deceived) if fork is not None else (None,) * 5)))
     hotstuff_vote.launches += 1
-    return (pdel, *new.unbind(0))
+    out = (pdel, *new.unbind(0))
+    return out if deceived is None else (*out, deceived)
 
 
 hotstuff_vote.launches = 0
@@ -474,10 +571,10 @@ hotstuff_vote.launches = 0
 
 def hotstuff_learn_plain(cfg: Config, r: int, view1, pdel, adv, timer, clen,
                          lane, gcommit, b1_h_new, gcommit_new, t=None,
-                         w=None, lat=None, crash=None):
+                         w=None, lat=None, crash=None, fork=None):
     """Plain version of KAF, the JAX round's lines 456-480 and, with the
     accumulator ``t`` ([B, K] int32), its telemetry tail (lines 485-519),
-    without the byzantine and switch gates. With the round's V* and vote
+    without the switch gates. With the round's V* and vote
     count from ``lane`` (the QC forms when V* >= 0 and the count reaches 2f
     + 1): a receiver enters V* + 1 on a QC, else V*, and grows its committed
     prefix to the OLD ``gcommit`` (the commit as of proposal time); a node
@@ -495,12 +592,26 @@ def hotstuff_learn_plain(cfg: Config, r: int, view1, pdel, adv, timer, clen,
     and then a node down at the round's end takes its frozen view and timer:
     its input's, 0 where it recovered this round (lines 473-480); ``lane[:,
     TOP]`` and the view spread take the nodes up only (line 504). Returns
-    (view, timer, clen), fresh [B, N] int32."""
+    (view, timer, clen), fresh [B, N] int32.
+
+    With byzantine nodes (SPEC §3c/§7c, ``cfg.byz``) ``lane[:, TOP]`` and
+    the view spread take the honest nodes only (ids below N -
+    n_byzantine; lines 266, 504), in both modes. Under equivocation
+    (``BYZ_EQUIV``, with ``fork`` = (deceived [B, N] bool from KAE, fvec
+    [B, N], ftab_h [B, FORK_TABLE], fnum [B], the last three after KAE's
+    update)) the QC is ``lane[:, QCF]``'s bit 0; each deceived node's
+    ``fvec`` takes ``lane[:, FBIT]`` (in place; line 451); with ``t`` the
+    safety tail counts the forked QC (bit 1) and conflict_commits, the
+    nodes whose committed prefix crossed a recorded fork height this
+    round with that fork's bit set (lines 494-502), and
+    safety_violations."""
     check_recorder(cfg, w, lat)
     Q = 2 * cfg.f + 1
     vstar = lane[:, VSTAR].to(torch.int32)
     cnt = lane[:, COUNTED]
     qc = (vstar >= 0) & (cnt >= Q)
+    if cfg.byz == BYZ_EQUIV:
+        qc = (lane[:, QCF] & 1) != 0
     vnext = torch.where(qc, _wrap(vstar.to(torch.int64) + 1), vstar)
     view2 = torch.where(pdel, vnext[:, None], view1)
     clen2 = torch.where(pdel, torch.maximum(clen, gcommit[:, None]), clen)
@@ -517,12 +628,27 @@ def hotstuff_learn_plain(cfg: Config, r: int, view1, pdel, adv, timer, clen,
         rec = (flags & CRASH_REC) != 0
         out = (torch.where(up, view3, torch.where(rec, 0, view_in)),
                torch.where(up, timer2, torch.where(rec, 0, timer_in)), clen2)
+    honest = up
+    if cfg.byz:
+        N = view1.shape[1]
+        honest = up & (torch.arange(N, device=up.device) < cfg.n_honest)
     lane[:, TOP] = torch.maximum(
-        lane[:, TOP], torch.where(up, _keys(view3), I64_MIN).amax(1))
+        lane[:, TOP], torch.where(honest, _keys(view3), I64_MIN).amax(1))
+    conf = None
+    if cfg.byz == BYZ_EQUIV:
+        deceived, fvec, ftab_h, fnum = fork
+        fvec.copy_(torch.where(deceived, fvec | lane[:, FBIT:FBIT + 1].to(
+            torch.int32), fvec))
+        k = torch.arange(FORK_TABLE, device=fvec.device)
+        hh = ftab_h[:, None, :]                                  # [B, 1, F]
+        inw = ((k < fnum[:, None])[:, None, :] & (hh >= clen[..., None])
+               & (hh < out[2][..., None]))
+        conf = ((((fvec[..., None] >> k) & 1) != 0) & inw).sum(
+            (1, 2), dtype=torch.int32)
     if t is None:
         return out
     B = view1.shape[0]
-    sync = sync_counts_plain(view3, up, adv)
+    sync = sync_counts_plain(view3, honest, adv)
     vec = torch.zeros_like(t)
     vec[:, :6] = torch.stack([
         qc.to(torch.int32), _wrap(gcommit_new.to(torch.int64) - gcommit),
@@ -530,6 +656,10 @@ def hotstuff_learn_plain(cfg: Config, r: int, view1, pdel, adv, timer, clen,
         to.sum(1, dtype=torch.int32), pdel.sum(1, dtype=torch.int32),
         _wrap(cnt)], 1)
     vec[:, -len(SYNC_TELEMETRY):] = sync
+    if conf is not None:
+        col = HOTSTUFF_TELEMETRY.index("forked_qc")
+        vec[:, col:col + 3] = safety_counts_plain(
+            (lane[:, QCF] >> 1) & 1, conf)
     hists = ()
     if w is not None:
         advn = (pdel & qc[:, None]) | adv | to
@@ -543,7 +673,7 @@ def hotstuff_learn_plain(cfg: Config, r: int, view1, pdel, adv, timer, clen,
 
 def hotstuff_learn(cfg: Config, r: int, view1, pdel, adv, timer, clen, lane,
                    gcommit, b1_h_new, gcommit_new, t=None, w=None,
-                   lat=None, crash=None):
+                   lat=None, crash=None, fork=None):
     """Kernel KAF: same arguments, results and in-place updates as
     :func:`hotstuff_learn_plain`, which it runs for CPU tensors; for CUDA
     tensors it launches ``csrc/hotstuff_learn.cu`` (a thread per (lane,
@@ -552,15 +682,21 @@ def hotstuff_learn(cfg: Config, r: int, view1, pdel, adv, timer, clen, lane,
     and counter, and the lane's last block adds the lane's counters, the
     view spread and the pipeline depth). Without ``t`` the kernel gets
     null accumulator pointers and does no telemetry work; its CRASH
-    instance with ``crash``."""
+    instance with ``crash``, its BYZ instances with byzantine nodes: under
+    equivocation it also sets the deceived nodes' fork bits and, with
+    telemetry, counts the safety tail, the conflicts into the CONF word
+    and the lane's last block the rest)."""
     check_recorder(cfg, w, lat)
     if t is None and w is not None:
         raise ValueError("the flight recorder rides the telemetry "
                          "accumulator: pass t with w and lat")
+    if (cfg.byz == BYZ_EQUIV) != (fork is not None):
+        raise ValueError("pass fork (deceived, fvec, ftab_h, fnum) exactly "
+                         "under byzantine equivocation")
     if view1.device.type == "cpu":
         return hotstuff_learn_plain(cfg, r, view1, pdel, adv, timer, clen,
                                     lane, gcommit, b1_h_new, gcommit_new, t,
-                                    w, lat, crash)
+                                    w, lat, crash, fork)
     from .. import _build
     B, N = view1.shape
     dev = view1.device
@@ -581,12 +717,19 @@ def hotstuff_learn(cfg: Config, r: int, view1, pdel, adv, timer, clen, lane,
         if t.shape[1] != len(HOTSTUFF_TELEMETRY):
             raise ValueError(f"t has {t.shape[1]} counters, the engine "
                              f"{len(HOTSTUFF_TELEMETRY)}")
+    if fork is not None:
+        check_all(dev, (fork[0], torch.bool, (B, N)),
+                  (fork[1], torch.int32, (B, N)),
+                  (fork[2], torch.int32, (B, FORK_TABLE)),
+                  (fork[3], torch.int32, (B,)))
     out = torch.empty((3, B, N), dtype=torch.int32, device=dev)
     _build.launch("hotstuff_learn", *(x.data_ptr() for x in (
         view1, pdel, adv, timer, clen, lane, *regs, out)),
         *(None if x is None else x.data_ptr() for x in (t, w, lat)),
         *((None,) * 3 if crash is None else (x.data_ptr() for x in crash)),
-        2 * cfg.f + 1, cfg.view_timeout, B, N, window, n_windows)
+        2 * cfg.f + 1, cfg.view_timeout, B, N, window, n_windows, cfg.byz,
+        cfg.n_byzantine,
+        *((None,) * 4 if fork is None else (x.data_ptr() for x in fork)))
     hotstuff_learn.launches += 1
     return tuple(out.unbind(0))
 
@@ -670,7 +813,8 @@ hotstuff_extract.launches = 0
 def hotstuff_init(cfg: Config, seeds: torch.Tensor) -> HotstuffState:
     """Fresh state for each sweep seed in ``seeds`` ([B] uint32), as
     ``hotstuff_init`` (lines 522-533): no QC, an empty chain, every view,
-    timer and prefix 0; and ``lane`` at rest."""
+    timer and prefix 0; and ``lane`` at rest, P1's key over the honest
+    nodes."""
     N, S = cfg.n_nodes, cfg.log_capacity
     B, dev = seeds.shape[0], seeds.device
     i32 = dict(dtype=torch.int32, device=dev)
@@ -687,14 +831,14 @@ def hotstuff_init(cfg: Config, seeds: torch.Tensor) -> HotstuffState:
         fnum=torch.zeros((B,), **i32), view=view,
         timer=torch.zeros((B, N), **i32), clen=torch.zeros((B, N), **i32),
         down=torch.zeros((B, N), dtype=torch.bool, device=dev),
-        lane=lane_at_rest(view))
+        lane=lane_at_rest(view, cfg.n_honest))
 
 
 def hotstuff_round(cfg: Config, st: HotstuffState, r: int, *, telem=None,
                    flight=None) -> HotstuffState:
     """One SPEC §7b round, as ``consensus_tpu/engines/hotstuff.py``
-    ``hotstuff_round`` without the byzantine and switch gates: KAD, KAE
-    and KAF, and nothing else on a flat round; with a SPEC §B skew KAJ
+    ``hotstuff_round`` without the switch gates: KAD, KAE and KAF, and
+    nothing else on a flat round or a byzantine one; with a SPEC §B skew KAJ
     first, and with a SPEC §6c crash KAH and KAJ first (see the module's
     notes). ``chain_v`` and ``lane`` are updated in place, so the round
     consumes ``st``.
@@ -722,14 +866,20 @@ def hotstuff_round(cfg: Config, st: HotstuffState, r: int, *, telem=None,
                                         st.lane, flags, telem, w)
 
     # ---- P0-P2 (KAD), P2's delivery, P3-P4 (KAE), P6-P7 (KAF).
+    # Under SPEC §7c equivocation KAE also writes the fork table's rows and
+    # names the deceived receivers, whose fork bits KAF sets.
+    equiv = cfg.byz == BYZ_EQUIV
     view1, adv = hotstuff_propose(cfg, st.seed, r, view, st.b1_h, st.lane,
                                   flags)
-    pdel, b1_v, b1_h, b2_v, b2_h, b3_v, b3_h, gcommit = hotstuff_vote(
-        cfg, st.seed, r, view1, st.lane, st.b1_v, st.b1_h, st.b2_v, st.b2_h,
-        st.b3_v, st.b3_h, st.gcommit, st.chain_v, flags)
+    pdel, b1_v, b1_h, b2_v, b2_h, b3_v, b3_h, gcommit, *deceived = \
+        hotstuff_vote(cfg, st.seed, r, view1, st.lane, st.b1_v, st.b1_h,
+                      st.b2_v, st.b2_h, st.b3_v, st.b3_h, st.gcommit,
+                      st.chain_v, flags, *(() if not equiv else (
+                          (st.chain_vid, st.ftab_v, st.ftab_h, st.fnum),)))
     view, timer, clen = hotstuff_learn(
         cfg, r, view1, pdel, adv, timer, st.clen, st.lane, st.gcommit, b1_h,
-        gcommit, telem, w, lat, crash)
+        gcommit, telem, w, lat, crash, *(() if not equiv else (
+            (deceived[0], st.fvec, st.ftab_h, st.fnum),)))
     return st._replace(b1_v=b1_v, b1_h=b1_h, b2_v=b2_v, b2_h=b2_h,
                        b3_v=b3_v, b3_h=b3_h, gcommit=gcommit, view=view,
                        timer=timer, clen=clen, down=down)

@@ -1,13 +1,14 @@
 """Dense PBFT in PyTorch: SPEC §6 with pairwise tallies over every node.
 
 The port of ``consensus_tpu/engines/pbft.py`` on its flat path and under
-the SPEC §A.2 delay, the SPEC §6c crash-recover adversary and the SPEC §B
-timer skew (no byzantine or switch gates), with its telemetry and flight
-recorder, and, through the same functions, of
+the SPEC §A.2 delay, the SPEC §6c crash-recover adversary, the SPEC §B
+timer skew and the SPEC §3c/§6 byzantine nodes (no switch gates), with its
+telemetry and flight recorder, and, through the same functions, of
 ``consensus_tpu/engines/pbft_sweep.py``'s ``pbft_round_padded`` (which
 has no telemetry): every phase takes the per-lane population
 ``n_real`` and tolerance ``f`` ([B] int32 tensors). Node ``i`` of lane
-``b`` is real (and honest) when ``i < n_real[b]``; padded nodes neither
+``b`` is real when ``i < n_real[b]``, and honest when ``i < n_real[b] -
+n_byzantine`` (every real node without byzantine nodes); padded nodes neither
 send nor receive, never lead and never decide, and the quorum is
 ``2 f[b] + 1`` and the primary ``view mod n_real[b]``. A standalone run is
 the case ``n_real = n_nodes``, ``f = cfg.f`` on every lane, so one set of
@@ -42,7 +43,13 @@ back their post-reset values. With ``desync_rate > 0`` KQ's DESYNC
 instance adds each node's SPEC §B timer skew to the timer it enters the
 round with (after the recovery reset, before P0); the freeze reads the
 round's input, so a down node's skew is dropped, as the JAX package drops
-it. The JAX package's ``_adopt_val`` is a one-hot reduction that only
+it. With byzantine nodes (``Config.byz``) KQ, KR, KS and KAA run BYZ
+instances: in both modes only honest senders count in P1, the tallies and
+the decide gossip, and only an honest primary offers; under equivocation
+KR adds each receiver's ``extra`` (byzantine senders delivered to it whose
+stance toward it is set), a byzantine primary offers every slot with a
+per-receiver value (KQ), and KAA counts the §7c safety tail. The JAX
+package's ``_adopt_val`` is a one-hot reduction that only
 keeps a gather off the TPU; here it is plain indexing, with the same
 values.
 """
@@ -53,10 +60,11 @@ from typing import NamedTuple
 import torch
 
 from ..core import rng
-from ..core.config import Config
+from ..core.config import BYZ_EQUIV, BYZ_SILENT, Config
 from ..ops.adversary import (AGG_TELEMETRY, CRASH_REC, CRASH_TELEMETRY,
-                             SAFETY_TELEMETRY, bitcast_i32, churn, crash_step,
-                             delivery, freeze_down)
+                             SAFETY_TELEMETRY, Byz, bitcast_i32, byz_of,
+                             churn, crash_step, delivery, equiv_stance_plain,
+                             freeze_down, safety_counts_plain)
 from ..ops.flight import (add_plain, bucket_counts_plain, check_recorder,
                           window_of)
 from ..ops.viewsync import SYNC_TELEMETRY, desync_skew_plain, sync_counts_plain
@@ -70,7 +78,8 @@ NAME = "pbft"
 # slot)s newly prepared, seen and not prepared, committed by their own
 # tally, prepared and not committed, committed by the decide gossip, and
 # the sum of each node's view advance; then the crash, aggregation and
-# safety tails (zeros here) and the SPEC §B desync tail.
+# safety tails (the aggregation tail zeros here, the safety tail counted
+# under equivocation) and the SPEC §B desync tail.
 PBFT_TELEMETRY = ("prepare_quorums", "prepare_missed", "commit_quorums",
                   "commit_missed", "commits_adopted", "view_changes") \
     + CRASH_TELEMETRY + AGG_TELEMETRY + SAFETY_TELEMETRY + SYNC_TELEMETRY
@@ -127,6 +136,22 @@ def real_nodes(n_real, N: int) -> torch.Tensor:
     n_real[b]."""
     idx = torch.arange(N, dtype=torch.int32, device=n_real.device)
     return idx < n_real[:, None]
+
+
+def honest_nodes(n_real, nb: int, N: int) -> torch.Tensor:
+    """[B, N] bool: node i of lane b is honest iff i < n_real[b] - nb
+    (SPEC §3c/§6: the byzantine nodes are a lane's top ``nb`` real ids,
+    ``pbft.py:171``, ``pbft_sweep.py:157``)."""
+    return real_nodes(n_real - nb, N)
+
+
+def stances(seed, r: int, N: int) -> torch.Tensor:
+    """[B, N, N] bool: ``sup[b, i, j]``, byzantine sender i's stance toward
+    receiver j in round r (SPEC §6 equivocation, ``pbft.py:180-183``;
+    absolute ids, so a padded ladder lane draws what a standalone run
+    draws)."""
+    ids = torch.arange(N, dtype=torch.int64, device=seed.device)
+    return equiv_stance_plain(seed, r, ids[None, :, None], ids[None, None, :])
 
 
 def real_delivery(deliver, n_real) -> torch.Tensor:
@@ -201,7 +226,15 @@ def pbft_view_preprepare_plain(cfg: Config, seed, r: int, deliver, n_real, f,
     with ``cfg.desync_on``, each node's SPEC §B skew
     (:func:`~consensus_tpu_torch.ops.viewsync.desync_skew_plain`, keyed by
     its absolute id) is added to its timer after that and before P0
-    (``pbft.py:199-207``, ``pbft_sweep.py:175-182``)."""
+    (``pbft.py:199-207``, ``pbft_sweep.py:175-182``).
+
+    With byzantine nodes (SPEC §3c/§6, ``cfg.byz``; node i of lane b is
+    honest when i < n_real[b] - n_byzantine), P1 counts the views of honest
+    senders only and only an honest primary offers, in both modes; an
+    equivocating primary (``BYZ_EQUIV``) offers every slot to each
+    receiver j that it reaches (delivered or j itself), whatever the views,
+    with the value drawn from j's view and subdraw 4 where its stance
+    toward j (:func:`stances`) is set, else 3 (``pbft.py:244-255``)."""
     B, N, S = pp_seen.shape
     dev = view.device
     if flags is not None:
@@ -213,6 +246,7 @@ def pbft_view_preprepare_plain(cfg: Config, seed, r: int, deliver, n_real, f,
         timer = timer + desync_skew_plain(seed, r, idx, cfg.desync_cutoff,
                                           cfg.max_skew_rounds)
     real = real_nodes(n_real, N)
+    honest = honest_nodes(n_real, cfg.n_byzantine, N)
     d_h = real_delivery(deliver, n_real)
     eye = torch.eye(N, dtype=torch.bool, device=dev)
 
@@ -222,8 +256,8 @@ def pbft_view_preprepare_plain(cfg: Config, seed, r: int, deliver, n_real, f,
     timer = torch.where(ch, 0, timer)
     reset = ch.expand(B, N)
 
-    # ---- P1 catch-up: own view and the delivered real senders' views.
-    w = torch.where(d_h, view[:, :, None], -1)
+    # ---- P1 catch-up: own view and the delivered honest senders' views.
+    w = torch.where(d_h & honest[:, :, None], view[:, :, None], -1)
     w = torch.where(eye, view[:, None, :], w)
     vth = vth_select_plain(w, f, view_bound(cfg))
     catch = vth > view
@@ -240,7 +274,7 @@ def pbft_view_preprepare_plain(cfg: Config, seed, r: int, deliver, n_real, f,
     # ---- P3 pre-prepare.
     sarange = torch.arange(S, dtype=torch.int32, device=dev)
     prim = view.remainder(n_real[:, None]).to(torch.int64)     # [B, N]
-    is_primary = real & (prim == idx)
+    is_primary = honest & (prim == idx)
     fresh = torch.where(~pp_seen, sarange, S).amin(2)
     fresh_hot = sarange == fresh[:, :, None]
     ppb = is_primary[:, :, None] & ((pp_seen & ~committed) | fresh_hot)
@@ -250,6 +284,20 @@ def pbft_view_preprepare_plain(cfg: Config, seed, r: int, deliver, n_real, f,
                & (view.gather(1, prim) == view) & real)
     prim_s = prim[:, :, None].expand(B, N, S)
     pm_b, pm_val = ppb.gather(1, prim_s), msg_val.gather(1, prim_s)
+    if cfg.byz == BYZ_EQUIV:
+        prim_byz = (real & ~honest).gather(1, prim)              # [B, N]
+        sup = stances(seed, r, N).gather(1, prim[:, None, :])[:, 0]
+        k0 = (rng.as_u32(seed) ^ rng.STREAM_VALUE)[:, None, None]
+        shape = (B, N, S)
+        bval = bitcast_i32(rng.threefry2x32_plain(
+            k0.expand(shape), rng.as_u32(view)[:, :, None].expand(shape),
+            torch.where(sup, 4, 3).to(torch.int64)[:, :, None].expand(shape),
+            torch.arange(S, dtype=torch.int64, device=dev).expand(shape)))
+        prim_ok = torch.where(
+            prim_byz, del_self.gather(1, prim[:, None, :])[:, 0] & real,
+            prim_ok)
+        pm_b = pm_b | prim_byz[:, :, None]
+        pm_val = torch.where(prim_byz[:, :, None], bval, pm_val)
     accept = (prim_ok[:, :, None] & pm_b
               & (~pp_seen | (pp_view < view[:, :, None]))
               & (~prepared | (pm_val == pp_val)))
@@ -269,7 +317,8 @@ def pbft_view_preprepare(cfg: Config, seed, r: int, deliver, n_real, f, view,
     lane's senders in that order for P1 and runs P2, then a warp per
     receiver runs P3 over its slots, reading its primary's row as it stood
     before P3; P1's flags only with ``want_catch``; its CRASH instance
-    with ``flags``, its DESYNC instance with ``cfg.desync_on``)."""
+    with ``flags``, its DESYNC instance with ``cfg.desync_on``, its BYZ
+    instances with byzantine nodes)."""
     if view.device.type == "cpu":
         return pbft_view_preprepare_plain(cfg, seed, r, deliver, n_real, f,
                                           view, timer, pp_seen, pp_view,
@@ -300,7 +349,7 @@ def pbft_view_preprepare(cfg: Config, seed, r: int, deliver, n_real, f, view,
                       seen_out, pview_out, pval_out)),
                   None if catch is None else catch.data_ptr(),
                   order.data_ptr(), None if flags is None else
-                  flags.data_ptr(), B, N, S)
+                  flags.data_ptr(), B, N, S, cfg.byz, cfg.n_byzantine)
     pbft_view_preprepare.launches += 1
     out = (view_out, timer_out, reset, seen_out, pview_out, pval_out)
     return (*out, catch) if want_catch else out
@@ -312,41 +361,58 @@ pbft_view_preprepare.launches = 0
 # --- KR: P4 prepare tally, P5 commit tally -----------------------------------
 
 def pbft_tally_plain(deliver, n_real, f, pp_seen, pp_val, prepared,
-                     committed, dval):
+                     committed, dval, byz: Byz | None = None):
     """Plain version of KR, SPEC §6 P4-P5 at every (node, slot) of each
     lane. P4: slot s of node j is prepared once 2f + 1 real senders i,
     delivered to j or j itself, have seen s with j's value. P5: it is
     committed, with that value as its decided value, once 2f + 1 such
     senders have prepared s with j's value (their prepared flags after
     P4). Materialises the [B, N, N, S] value match. Returns new
-    (prepared, committed, dval)."""
+    (prepared, committed, dval).
+
+    With the round's byzantine nodes ``byz`` (SPEC §3c/§6,
+    :class:`~consensus_tpu_torch.ops.adversary.Byz`) the senders counted
+    are the honest ones (i < n_real - nb), j itself only when honest, in
+    both modes; under equivocation each count of receiver j also gets
+    ``extra[j]``, the byzantine senders i delivered to j (``deliver[i,
+    j]``, never j itself) whose stance toward j is set, which claim j's
+    value at every slot (``pbft.py:309-339``)."""
     N = deliver.shape[1]
     eye = torch.eye(N, dtype=torch.bool, device=deliver.device)
     real = real_nodes(n_real, N)
-    d_self_h = ((real_delivery(deliver, n_real) | eye)
-                & real[:, :, None])[..., None]                  # [B, i, j, 1]
+    d_real = real_delivery(deliver, n_real)
+    senders = real if byz is None else honest_nodes(n_real, byz.nb, N)
+    d_self_h = ((d_real | eye)
+                & senders[:, :, None])[..., None]               # [B, i, j, 1]
     val_eq = pp_val[:, :, None, :] == pp_val[:, None, :, :]     # [B, i, j, s]
     q = (2 * f + 1)[:, None, None]
+    extra = 0
+    if byz is not None and byz.mode == BYZ_EQUIV:
+        extra = (d_real & (real & ~senders)[:, :, None]
+                 & stances(byz.seed, byz.r, N)).sum(
+                     1, dtype=torch.int32)[:, :, None]          # [B, j, 1]
     pcount = (d_self_h & pp_seen[:, :, None, :] & val_eq).sum(
-        1, dtype=torch.int32)
+        1, dtype=torch.int32) + extra
     prepared = prepared | (pp_seen & (pcount >= q))
     ccount = (d_self_h & prepared[:, :, None, :] & val_eq).sum(
-        1, dtype=torch.int32)
+        1, dtype=torch.int32) + extra
     commit_now = prepared & (ccount >= q) & ~committed
     return (prepared, committed | commit_now,
             torch.where(commit_now, pp_val, dval))
 
 
 def pbft_tally(deliver, n_real, f, pp_seen, pp_val, prepared, committed,
-               dval):
+               dval, byz: Byz | None = None):
     """Kernel KR: same arguments and result as :func:`pbft_tally_plain`,
     which it runs for CPU tensors; for CUDA tensors it launches
     ``csrc/pbft_tally.cu`` twice, P4 then P5 (a block per 8 receivers and
     32 slots counts over the lane's real senders, staged 32 at a time in
-    shared memory, wherever the slot's flag still waits on a quorum)."""
+    shared memory, wherever the slot's flag still waits on a quorum; its
+    BYZ instances with ``byz``: honest senders, and under equivocation a
+    first launch counts each receiver's ``extra``)."""
     if deliver.device.type == "cpu":
         return pbft_tally_plain(deliver, n_real, f, pp_seen, pp_val,
-                                prepared, committed, dval)
+                                prepared, committed, dval, byz)
     from .. import _build
     B, N, S = pp_seen.shape
     dev = deliver.device
@@ -356,9 +422,16 @@ def pbft_tally(deliver, n_real, f, pp_seen, pp_val, prepared, committed,
               *((t, torch.int32, (B, N, S)) for t in (pp_val, dval)))
     prep_out, com_out = torch.empty_like(prepared), torch.empty_like(committed)
     dval_out = torch.empty_like(dval)
+    mode, nb, seed, r = (0, 0, None, 0) if byz is None else byz
+    if seed is not None:
+        check_all(dev, (seed, torch.uint32, (B,)))
+    extra = torch.empty((B, N), dtype=torch.int32, device=dev) \
+        if mode == BYZ_EQUIV else None
     _build.launch("pbft_tally", *(t.data_ptr() for t in (
         deliver, n_real, f, pp_seen, pp_val, prepared, committed, dval,
-        prep_out, com_out, dval_out)), B, N, S)
+        prep_out, com_out, dval_out)), B, N, S, mode, nb,
+        None if extra is None else seed.data_ptr(), int(r) & 0xFFFFFFFF,
+        None if extra is None else extra.data_ptr())
     pbft_tally.launches += 1
     return prep_out, com_out, dval_out
 
@@ -369,7 +442,7 @@ pbft_tally.launches = 0
 # --- KS: P6 decide gossip, P7 timers -----------------------------------------
 
 def pbft_decide_plain(deliver, n_real, committed, dval, committed_start,
-                      timer, reset):
+                      timer, reset, byz: Byz | None = None):
     """Plain version of KS, SPEC §6 P6-P7 at every node of each lane. P6:
     a slot that node j has not committed adopts the decided value of the
     least-id real sender delivered to j that has committed it (as P5 left
@@ -377,10 +450,13 @@ def pbft_decide_plain(deliver, n_real, committed, dval, committed_start,
     node that committed a slot this round (``committed_start`` is the
     round's entry) sets its timer to 0; another whose ``reset`` is set
     keeps it; the rest count it up. Returns new (committed, dval,
-    timer)."""
+    timer). With the round's byzantine nodes ``byz`` only honest deciders
+    gossip (SPEC §3c/§6, ``pbft.py:347-356``), in both modes."""
     N = deliver.shape[1]
     idx = torch.arange(N, dtype=torch.int32, device=deliver.device)
-    dec_b = committed & real_nodes(n_real, N)[:, :, None]
+    senders = real_nodes(n_real, N) if byz is None \
+        else honest_nodes(n_real, byz.nb, N)
+    dec_b = committed & senders[:, :, None]
     sent = real_delivery(deliver, n_real)[..., None] & dec_b[:, :, None, :]
     imin = torch.where(sent, idx[None, :, None, None], N).amin(1)
     adopt = (imin < N) & ~committed
@@ -394,15 +470,16 @@ def pbft_decide_plain(deliver, n_real, committed, dval, committed_start,
 
 
 def pbft_decide(deliver, n_real, committed, dval, committed_start, timer,
-                reset):
+                reset, byz: Byz | None = None):
     """Kernel KS: same arguments and result as :func:`pbft_decide_plain`,
     which it runs for CPU tensors; for CUDA tensors it launches
     ``csrc/pbft_decide.cu`` (a warp per receiver, a lane per slot, walks
     the real senders in id order to the first delivered decider, and
-    writes fresh tensors, so that no adoption is read the same round)."""
+    writes fresh tensors, so that no adoption is read the same round; its
+    BYZ instance with ``byz`` walks the honest senders only)."""
     if deliver.device.type == "cpu":
         return pbft_decide_plain(deliver, n_real, committed, dval,
-                                 committed_start, timer, reset)
+                                 committed_start, timer, reset, byz)
     from .. import _build
     B, N, S = committed.shape
     dev = deliver.device
@@ -416,7 +493,8 @@ def pbft_decide(deliver, n_real, committed, dval, committed_start, timer,
     timer_out = torch.empty_like(timer)
     _build.launch("pbft_decide", *(t.data_ptr() for t in (
         deliver, n_real, committed, dval, committed_start, timer, reset,
-        com_out, dval_out, timer_out)), B, N, S)
+        com_out, dval_out, timer_out)), B, N, S,
+        0 if byz is None else byz.mode, 0 if byz is None else byz.nb)
     pbft_decide.launches += 1
     return com_out, dval_out, timer_out
 
@@ -438,7 +516,7 @@ CRASH_VIEWS, CRASH_COMMITS = 1, 2
 def pbft_telemetry_plain(cfg: Config, r: int, n_real, view_in, timer_in, view,
                          catch, down, pp_seen, prepared_in, prepared,
                          committed_in, committed_tally, committed, t, w=None,
-                         lat=None, crash: int = 0) -> None:
+                         lat=None, crash: int = 0, values=None) -> None:
     """Plain version of KAA: the round's PBFT_TELEMETRY counters, per lane,
     added into the [B, K] int32 accumulator ``t`` and, with the flight
     recorder (``w`` [B, n_windows, K] and ``lat`` [B, 2, N_BUCKETS], both
@@ -473,8 +551,24 @@ def pbft_telemetry_plain(cfg: Config, r: int, n_real, view_in, timer_in, view,
     if crash & CRASH_COMMITS:
         newly = newly & up[:, :, None]
         commit_now = commit_now & up[:, :, None]
-    sync = sync_counts_plain(view, real_nodes(n_real, N) & up, catch)
+    honest = honest_nodes(n_real, cfg.n_byzantine, N)
+    sync = sync_counts_plain(view, honest & up, catch)
     vec = torch.zeros_like(t)
+    if cfg.byz == BYZ_EQUIV:
+        pp_val, dval_in, dval = values
+
+        def split(mask, val):
+            # Per slot: some entry, and a max that differs from the min.
+            lo = torch.where(mask, val, 2**31 - 1).amin(1)
+            hi = torch.where(mask, val, -2**31).amax(1)
+            return mask.any(1) & (hi != lo)
+        forked = split(committed_tally & ~committed_in & honest[:, :, None],
+                       pp_val)
+        frozen = down[:, :, None]
+        cm = torch.where(frozen, committed_in, committed) & honest[:, :, None]
+        conflicts = split(cm, torch.where(frozen, dval_in, dval))
+        col = PBFT_TELEMETRY.index("forked_qc")
+        vec[:, col:col + 3] = safety_counts_plain(forked, conflicts)
     vec[:, :6] = torch.stack([
         cnt(prepared & ~prepared_in), cnt(pp_seen & ~prepared),
         cnt(commit_now), cnt(prepared & ~committed_tally),
@@ -493,19 +587,24 @@ def pbft_telemetry_plain(cfg: Config, r: int, n_real, view_in, timer_in, view,
 def pbft_telemetry(cfg: Config, r: int, n_real, view_in, timer_in, view,
                    catch, down, pp_seen, prepared_in, prepared, committed_in,
                    committed_tally, committed, t, w=None, lat=None,
-                   crash: int = 0) -> None:
+                   crash: int = 0, values=None) -> None:
     """Kernel KAA: same arguments and in-place updates as
     :func:`pbft_telemetry_plain`, which it runs for CPU tensors; for CUDA
     tensors it launches ``csrc/pbft_telemetry.cu`` (a block per 256 nodes
     of a lane: block sums and one integer atomic a block and counter; the
     lane's view spread by its last block; its CRASH instance with
-    ``crash``)."""
+    ``crash``; its BYZ instances with byzantine nodes, under equivocation
+    with per-slot extremes in shared memory and the lane's safety tail by
+    its last block)."""
     check_recorder(cfg, w, lat)
+    if (cfg.byz == BYZ_EQUIV) != (values is not None):
+        raise ValueError("pass values (pp_val, dval at entry, dval) exactly "
+                         "under byzantine equivocation")
     if t.device.type == "cpu":
         return pbft_telemetry_plain(cfg, r, n_real, view_in, timer_in, view,
                                     catch, down, pp_seen, prepared_in,
                                     prepared, committed_in, committed_tally,
-                                    committed, t, w, lat, crash)
+                                    committed, t, w, lat, crash, values)
     from .. import _build
     B, N, S = pp_seen.shape
     dev = t.device
@@ -515,15 +614,22 @@ def pbft_telemetry(cfg: Config, r: int, n_real, view_in, timer_in, view,
               *((x, torch.bool, (B, N, S)) for x in (
                   pp_seen, prepared_in, prepared, committed_in,
                   committed_tally, committed)),
-              (t, torch.int32, (B, len(PBFT_TELEMETRY))))
+              (t, torch.int32, (B, len(PBFT_TELEMETRY))),
+              *(() if values is None else
+                ((x, torch.int32, (B, N, S)) for x in values)))
     window, n_windows = window_of(cfg, r, t, w, lat, len(PBFT_LATENCY))
-    span = torch.empty((B, 4), dtype=torch.int32, device=dev)
+    # Scratch words a lane: the span's four, then under equivocation the
+    # lane's safety counts and, a slot, four extremes' keys.
+    words = 4 + (2 + 4 * S if values is not None else 0)
+    span = torch.empty((B, words), dtype=torch.int32, device=dev)
     _build.launch("pbft_telemetry", *(x.data_ptr() for x in (
         n_real, view_in, timer_in, view, catch, down, pp_seen, prepared_in,
         prepared, committed_in, committed_tally, committed, t)),
         *(None if x is None else x.data_ptr() for x in (w, lat)),
         span.data_ptr(), int(r), B, N, S, t.shape[1], window, n_windows,
-        int(crash))
+        int(crash), cfg.byz, cfg.n_byzantine,
+        *(None if x is None else x.data_ptr() for x in (
+            values if values is not None else (None,) * 3)))
     pbft_telemetry.launches += 1
 
 
@@ -577,13 +683,17 @@ def pbft_round(cfg: Config, st: PbftState, r: int, n_real, f, *, telem=None,
                              st.timer, st.pp_seen, st.pp_view, st.pp_val,
                              st.prepared, st.committed, *on)
 
-    # ---- P4 prepare tally, P5 commit tally (KR).
-    prepared, tallied, dval = pbft_tally(deliver, n_real, f, pp_seen, pp_val,
-                                         st.prepared, st.committed, st.dval)
+    # ---- P4 prepare tally, P5 commit tally (KR), over the honest senders
+    # (and the equivocators' claims) where SPEC §3c/§6 byzantine nodes run.
+    byz = byz_of(cfg, seed, r)
+    prepared, tallied, dval = pbft_tally(
+        deliver, n_real, f, pp_seen, pp_val, st.prepared, st.committed,
+        st.dval, *(() if byz is None else (byz,)))
 
     # ---- P6 decide gossip, P7 timers (KS).
-    committed, dval, timer = pbft_decide(deliver, n_real, tallied, dval,
-                                         st.committed, timer, reset)
+    committed, dval, timer = pbft_decide(
+        deliver, n_real, tallied, dval, st.committed, timer, reset,
+        *(() if byz is None else (byz,)))
 
     # ---- Telemetry and flight recorder (KAA).
     if telem is not None:
@@ -591,7 +701,10 @@ def pbft_round(cfg: Config, st: PbftState, r: int, n_real, f, *, telem=None,
                        down, pp_seen, st.prepared, prepared, st.committed,
                        tallied, committed, telem,
                        *(flight if flight is not None else (None, None)),
-                       *(() if flags is None else (CRASH_VIEWS,)))
+                       *(() if flags is None else (CRASH_VIEWS,)),
+                       *(() if cfg.byz != BYZ_EQUIV else
+                         ((0,) if flags is None else ())
+                         + ((pp_val, st.dval, dval),)))
 
     new = PbftState(seed, view, timer, pp_seen, pp_view, pp_val, prepared,
                     committed, dval, down)

@@ -1,10 +1,12 @@
 """Dense Raft in PyTorch, and the helpers it shares with the capped engine.
 
 The port of ``consensus_tpu/engines/raft.py`` on its flat path and under
-the SPEC §A.2 delay and the SPEC §6c crash-recover adversary (no attack,
-byzantine or switch gates), with its telemetry and flight recorder: SPEC §3 over every node at once, with the [N, N] ``match_idx`` /
-``next_idx`` replication state and the full [N, N] delivery mask of each
-round. Sweeps are a leading batch axis B on every tensor.
+the SPEC §A.2 delay, the SPEC §6c crash-recover adversary and the SPEC §3c
+byzantine nodes (no attack or switch gates), with its telemetry and
+flight recorder: SPEC §3 over every node at once, with the [N, N]
+``match_idx`` / ``next_idx`` replication state and the full [N, N]
+delivery mask of each round. Sweeps are a leading batch axis B on every
+tensor.
 ``Config(max_active=0)`` selects it.
 
 Five functions are wrappers of hand-written CUDA kernels, each beside its
@@ -28,7 +30,11 @@ round starts with kernel KAH (``ops/adversary.py`` ``crash_transition``),
 whose flags the CRASH instances of KL and KM-KO read: KL cuts a down
 node's edges, KM applies the recovered nodes' reset and holds every down
 node at its post-reset state, KN leaves down leaders out of P3a and KO
-does not count their timers, which is the JAX round's freeze. The logs and the
+does not count their timers, which is the JAX round's freeze. With
+byzantine nodes (the ids from N - n_byzantine up; ``Config.byz``) KM-KO
+run BYZ instances: a silent node's candidacy, vote responses (KM),
+heartbeats (KN) and acks (KO) never travel; an equivocating node answers
+every candidate whose request it got (KM). The logs and the
 replication state are updated in place, where the JAX round returns new
 arrays: a round's state replaces its input state.
 
@@ -43,7 +49,7 @@ from typing import NamedTuple
 import torch
 
 from ..core import rng
-from ..core.config import Config
+from ..core.config import BYZ_SILENT, Config
 from ..ops.adversary import (AGG_TELEMETRY, CRASH_DOWN, CRASH_REC,
                              CRASH_TELEMETRY, bitcast_i32, churn, crash_step,
                              delivery)
@@ -208,7 +214,13 @@ def dense_elect_plain(cfg: Config, seed, r: int, deliver, term, role,
     node's round is computed as the JAX round computes it, but a down
     node's outputs are its post-reset inputs and its rows are not written
     (the freeze, ``raft.py:527-536``), while ``win`` keeps its in-round
-    value, which the telemetry counts."""
+    value, which the telemetry counts.
+
+    With byzantine nodes (SPEC §3c, ``cfg.byz``; ids N - n_byzantine and
+    up), a silent one's candidacy broadcasts no request and its vote
+    response never travels, and an equivocating one's response reaches
+    every candidate c whose request it got, over ``deliver[j, c]``,
+    whatever it granted (``raft.py:335-337, 402-410``)."""
     u32 = rng.random_u32_plain
     N = term.shape[1]
     idx = torch.arange(N, dtype=torch.int32, device=term.device)
@@ -239,8 +251,12 @@ def dense_elect_plain(cfg: Config, seed, r: int, deliver, term, role,
         cand_new, draw_timeout(seed, cfg.t_min, cfg.t_max, term, idx, u32),
         timeout)
 
-    # ---- P2 election over the post-P1 requests; [B, c, j] below.
+    # ---- P2 election over the post-P1 requests; [B, c, j] below. Silent
+    # byzantine candidates never broadcast (SPEC §3c).
+    honest = idx < cfg.n_honest
     was_cand = role == ROLE_C
+    if cfg.byz == BYZ_SILENT:
+        was_cand = was_cand & honest
     req_term, req_lidx = term, log_len
     req_lterm = last_term(log_term, log_len)
     sent = was_cand[:, :, None] & deliver
@@ -262,6 +278,11 @@ def dense_elect_plain(cfg: Config, seed, r: int, deliver, term, role,
     timer = torch.where(granted, 0, timer)
     reset = reset | granted
     resp = (grant[:, :, None] == idx) & deliver                 # [B, j, c]
+    if cfg.byz == BYZ_SILENT:
+        resp = resp & honest[:, None]
+    elif cfg.byz:
+        resp = torch.where(honest[:, None], resp, was_cand[:, None, :]
+                           & deliver.transpose(1, 2) & deliver)
     votes = 1 + resp.sum(1, dtype=torch.int32)
     win = (role == ROLE_C) & (votes >= N // 2 + 1)
     role = torch.where(win, ROLE_L, role)
@@ -292,7 +313,7 @@ def dense_elect(cfg: Config, seed, r: int, deliver, term, role, voted_for,
     walks that list for P2a-P2b and adds its delivered grant to the
     tally, then a block per sweep for the winners and their rows; the
     winner flags only with ``want_win``; its CRASH instance with
-    ``flags``)."""
+    ``flags``; its BYZ instances with byzantine nodes)."""
     if term.device.type == "cpu":
         return dense_elect_plain(cfg, seed, r, deliver, term, role,
                                  voted_for, timer, timeout, log_term, log_len,
@@ -320,7 +341,8 @@ def dense_elect(cfg: Config, seed, r: int, deliver, term, role, voted_for,
                       deliver, term, role, voted_for, timer, timeout,
                       log_term, log_len, match_idx, next_idx, *out, reset)),
                   None if win is None else win.data_ptr(), scratch.data_ptr(),
-                  None if flags is None else flags.data_ptr(), B, N, L)
+                  None if flags is None else flags.data_ptr(), B, N, L,
+                  cfg.byz, cfg.n_byzantine)
     dense_elect.launches += 1
     return (*out, reset) if win is None else (*out, reset, win)
 
@@ -353,7 +375,9 @@ def dense_append_plain(cfg: Config, seed, r: int, deliver, term, role,
     (``ls`` or NONE), ``ack_ok`` (applied) and ``ack_match`` (the new
     length where applied, else 0), all [B, N]. With the round's SPEC §6c
     ``flags``, a down leader neither appends nor sends (its log and row
-    stay frozen; its heartbeats would be cut anyway)."""
+    stay frozen; its heartbeats would be cut anyway). A silent byzantine
+    leader (SPEC §3c) appends but sends nothing: it is no sender of P3c
+    and no ``was_leader`` of P3d (``raft.py:435``)."""
     B, N, L = log_term.shape
     E = min(cfg.max_entries, L)
     dev = term.device
@@ -374,8 +398,11 @@ def dense_append_plain(cfg: Config, seed, r: int, deliver, term, role,
     diag = match_idx.diagonal(dim1=1, dim2=2)
     diag.copy_(torch.where(can_prop, log_len.to(match_idx.dtype), diag))
 
-    # ---- P3b snapshot (next_idx is not written before P3d).
+    # ---- P3b snapshot (next_idx is not written before P3d). A silent
+    # byzantine leader sends no heartbeat (SPEC §3c).
     was_leader = lead
+    if cfg.byz == BYZ_SILENT:
+        was_leader = was_leader & (idx < cfg.n_honest)
     s_term, s_len, s_commit = term, log_len, commit
     s_logt, s_logv = log_term.clone(), log_val.clone()
 
@@ -426,7 +453,7 @@ def dense_append(cfg: Config, seed, r: int, deliver, term, role, voted_for,
     appends and lists the sweep's leaders with their scalars, a block per
     sweep copies the leaders' rows aside, then a lane per receiver walks
     the list and applies, the warp copying long ranges; its CRASH instance
-    with ``flags``)."""
+    with ``flags``, its BYZ instance with silent byzantine nodes)."""
     if term.device.type == "cpu":
         return dense_append_plain(cfg, seed, r, deliver, term, role,
                                   voted_for, timer, timeout, reset, log_term,
@@ -462,7 +489,7 @@ def dense_append(cfg: Config, seed, r: int, deliver, term, role, voted_for,
                       *out, reset_out, new_len, new_commit, was_leader,
                       ack_to, ack_ok, ack_match, scratch, rows)),
                   None if flags is None else flags.data_ptr(),
-                  B, N, L, min(cfg.max_entries, L))
+                  B, N, L, min(cfg.max_entries, L), cfg.byz, cfg.n_byzantine)
     dense_append.launches += 1
     return (*out, reset_out, new_len, new_commit, was_leader, ack_to, ack_ok,
             ack_match)
@@ -489,8 +516,9 @@ def dense_acks_commit_plain(cfg: Config, seed, deliver, was_leader, ack_to,
     where its post-P3c log holds an entry of its own term there. P4:
     leaders hold ``timer`` at 0, and every other node counts it up unless
     ``reset`` says the round reset it; with the round's SPEC §6c
-    ``flags``, a down node's timer stays as it is (the freeze). Updates
-    ``term``, ``role``, ``voted_for``, ``timeout``, ``commit``,
+    ``flags``, a down node's timer stays as it is (the freeze). A silent
+    byzantine node's ack never travels (SPEC §3c, ``raft.py:483-484``).
+    Updates ``term``, ``role``, ``voted_for``, ``timeout``, ``commit``,
     ``match_idx``, ``next_idx`` and ``timer`` in place."""
     N = term.shape[1]
     L = log_term.shape[2]
@@ -501,6 +529,8 @@ def dense_acks_commit_plain(cfg: Config, seed, deliver, was_leader, ack_to,
     # ---- P3d leaders process acks; ackm is [B, j, l].
     still_lead = was_leader & (role == ROLE_L)
     ackm = (ack_to[:, :, None] == idx) & deliver
+    if cfg.byz == BYZ_SILENT:
+        ackm = ackm & (idx < cfg.n_honest)[:, None]
     t_in3 = torch.where(ackm, term[:, :, None], 0).amax(1)
     bump3 = still_lead & (t_in3 > term)
     new = bump(cfg, seed, bump3, t_in3, term, role, voted_for, timeout)
@@ -542,7 +572,8 @@ def dense_acks_commit(cfg: Config, seed, deliver, was_leader, ack_to, ack_ok,
     thread per leader bumps or lists it as processing, a thread per node
     applies its ack to its leader's row and counts its timer, then a block
     per sweep reads each processing leader's median off a 256-bin
-    histogram of its row; its CRASH instance with ``flags``)."""
+    histogram of its row; its CRASH instance with ``flags``, its BYZ
+    instance with silent byzantine nodes)."""
     if term.device.type == "cpu":
         return dense_acks_commit_plain(cfg, seed, deliver, was_leader,
                                        ack_to, ack_ok, ack_match, log_term,
@@ -571,7 +602,8 @@ def dense_acks_commit(cfg: Config, seed, deliver, was_leader, ack_to, ack_ok,
                       deliver, was_leader, ack_to, ack_ok, ack_match,
                       log_term, term, role, voted_for, timeout, commit,
                       match_idx, next_idx, timer, reset, scratch)),
-                  None if flags is None else flags.data_ptr(), B, N, L, E)
+                  None if flags is None else flags.data_ptr(), B, N, L, E,
+                  cfg.byz, cfg.n_byzantine)
     dense_acks_commit.launches += 1
 
 

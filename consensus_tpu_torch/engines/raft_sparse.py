@@ -1,13 +1,13 @@
 """Large-population Raft under the SPEC §3b active-sender cap, in PyTorch.
 
 The port of ``consensus_tpu/engines/raft_sparse.py`` on its flat path and
-under the SPEC §A.2 delay and the SPEC §6c crash-recover adversary (no
-attack, byzantine or switch gates), with its telemetry and flight
-recorder. Per round only the top-A candidates and the top-A leaders by
-(term desc, id asc) send, and leader replication state lives in A tracked
-slots of [A, N] rows, so a round is O(A*N) plus one pass over the rows of
-the [N, L] logs that a heartbeat reaches. Sweeps are a leading batch axis B
-on every tensor.
+under the SPEC §A.2 delay, the SPEC §6c crash-recover adversary and the
+SPEC §3c byzantine nodes (no attack or switch gates), with its telemetry
+and flight recorder. Per round only the top-A candidates and the top-A
+leaders by (term desc, id asc) send, and leader replication state lives in
+A tracked slots of [A, N] rows, so a round is O(A*N) plus one pass over
+the rows of the [N, L] logs that a heartbeat reaches. Sweeps are a leading
+batch axis B on every tensor.
 
 Eight functions here are wrappers of hand-written CUDA kernels, each beside
 its plain PyTorch version (``<name>_plain``), which CPU tensors run:
@@ -39,7 +39,13 @@ that post-reset state, KB cuts every edge with a down end, KF leaves down
 leaders out of the leader mask (so KC never tracks them and KI appends
 nothing to their logs) and KH does not count their timers. KC, KG, KI and
 KD then leave a down node's state as it is, which is the JAX round's
-``freeze_down`` (``raft_sparse.py:494-501``).
+``freeze_down`` (``raft_sparse.py:494-501``). With byzantine nodes (the
+ids from N - n_byzantine up; ``Config.byz``) KE, KF, KI and KH run BYZ
+instances: a silent node's candidacy stays out of KC's candidate mask (KE),
+its vote responses (KF) and acks (KH) never travel, and its tracked
+leader slot sends no heartbeat (KI marks it unsent, so KB gives it no
+edge and KH does not process it); an equivocating node's response reaches
+every valid candidate whose request it got (KF).
 
 The [B, N, L] logs are updated in place (P3a's one-slot append and P3c's
 suffix copy), where the JAX round returns new arrays: a round's state
@@ -52,7 +58,7 @@ from typing import NamedTuple
 import torch
 
 from ..core import rng
-from ..core.config import MAX_ACTIVE, Config
+from ..core.config import BYZ_SILENT, MAX_ACTIVE, Config
 from ..ops.adversary import (CRASH_DOWN, CRASH_REC, bitcast_i32, churn,
                              crash_step, delivery_edges)
 from ..ops.flight import (add_plain, bucket_counts_plain, check_recorder,
@@ -282,9 +288,11 @@ def candidacy_plain(cfg: Config, seed, r: int, term, role, voted_for, timer,
     candidate mask. With the round's SPEC §6c ``flags`` ([B, N] uint8, KAH),
     a recovered node first becomes a follower with its timer at 0, and a
     down node keeps that post-reset state and is no candidate
-    (``consensus_tpu/engines/raft_sparse.py:209-227, 259-260``). Updates
-    nothing in place; returns new (term, role, voted_for, timer, timeout,
-    reset, own_lterm, cand_mask), all [B, N]."""
+    (``consensus_tpu/engines/raft_sparse.py:209-227, 259-260``). With
+    silent byzantine nodes (SPEC §3c, ``cfg.byz``) their candidacies stay
+    out of the mask: they never broadcast (line 258). Updates nothing in
+    place; returns new (term, role, voted_for, timer, timeout, reset,
+    own_lterm, cand_mask), all [B, N]."""
     u32 = rng.random_u32_plain
     idx = torch.arange(term.shape[1], dtype=torch.int32, device=term.device)
     if flags is not None:
@@ -308,6 +316,8 @@ def candidacy_plain(cfg: Config, seed, r: int, term, role, voted_for, timer,
         timeout)
     own_lterm = last_term(log_term, log_len)
     cand_mask = role == ROLE_C
+    if cfg.byz == BYZ_SILENT:
+        cand_mask = cand_mask & (idx < cfg.n_honest)
     if flags is not None:
         down = (flags & CRASH_DOWN) != 0
         term, role, voted_for, timer, timeout = (
@@ -323,8 +333,8 @@ def candidacy(cfg: Config, seed, r: int, term, role, voted_for, timer,
     """Kernel KE: same arguments and result as :func:`candidacy_plain`,
     which it runs for CPU tensors; for CUDA tensors it launches
     ``csrc/candidacy.cu`` (a thread per node, the churn and timeout
-    Threefry draws inline; its CRASH instance with ``flags``). Updates
-    nothing in place."""
+    Threefry draws inline; its CRASH instance with ``flags``, its BYZ
+    instance with silent byzantine nodes). Updates nothing in place."""
     if term.device.type == "cpu":
         return candidacy_plain(cfg, seed, r, term, role, voted_for, timer,
                                timeout, log_term, log_len, flags)
@@ -345,7 +355,8 @@ def candidacy(cfg: Config, seed, r: int, term, role, voted_for, timer,
                   *(t.data_ptr() for t in (
                       term, role, voted_for, timer, timeout, log_term,
                       log_len, *out, reset, own_lterm, cand)),
-                  None if flags is None else flags.data_ptr(), B, N, L)
+                  None if flags is None else flags.data_ptr(), B, N, L,
+                  cfg.byz, cfg.n_byzantine)
     candidacy.launches += 1
     return (*out, reset, own_lterm, cand)
 
@@ -369,7 +380,11 @@ def elect_plain(cfg: Config, seed, cand_ids, del_cj, del_jc, term, role,
     ``role == ROLE_L`` (all [B, N]; with the round's SPEC §6c ``flags``,
     of the nodes up at the round's end only: a down leader is neither
     tracked nor appends, ``raft_sparse.py:359-360``) and the winner flags
-    ``win`` ([B, A] bool)."""
+    ``win`` ([B, A] bool). With byzantine nodes (SPEC §3c, ``cfg.byz``) a
+    silent one's vote response never travels, and an equivocating one
+    answers every valid candidate whose request it got and whose way back
+    is open (``del_cj.T & del_jc``), whatever it granted (lines
+    338-346)."""
     N = term.shape[1]
     majority = N // 2 + 1
     cvalid = cand_ids >= 0
@@ -399,8 +414,18 @@ def elect_plain(cfg: Config, seed, cand_ids, del_cj, del_jc, term, role,
     timer = torch.where(granted, 0, timer)
     reset = reset | granted
 
-    # P2c tally per active candidate; winners become leaders.
+    # P2c tally per active candidate; winners become leaders. A silent
+    # byzantine node's response never travels; an equivocating one's
+    # reaches every valid candidate whose request it got.
     resp = (grant[:, :, None] == cand_ids[:, None, :]) & del_jc
+    if cfg.byz:
+        honest = (torch.arange(N, device=term.device) < cfg.n_honest)[
+            None, :, None]
+        if cfg.byz == BYZ_SILENT:
+            resp = resp & honest
+        else:
+            resp = torch.where(honest, resp, cvalid[:, None, :]
+                               & del_cj.transpose(1, 2) & del_jc)
     votes = 1 + resp.sum(1, dtype=torch.int32)                  # [B, A]
     win = cvalid & (role.gather(1, cid) == ROLE_C) & (votes >= majority)
     won = torch.zeros_like(term).scatter_reduce(
@@ -420,8 +445,8 @@ def elect(cfg: Config, seed, cand_ids, del_cj, del_jc, term, role, voted_for,
     runs for CPU tensors; for CUDA tensors it launches ``csrc/elect.cu``
     (a thread per node with the candidates' fields in shared memory and
     block-partial vote counts, then a [B, A] winner epilogue that also
-    completes the leader mask; its CRASH instance with ``flags``). Updates
-    nothing in place."""
+    completes the leader mask; its CRASH instance with ``flags``, its BYZ
+    instances with byzantine nodes). Updates nothing in place."""
     if term.device.type == "cpu":
         return elect_plain(cfg, seed, cand_ids, del_cj, del_jc, term, role,
                            voted_for, timer, timeout, reset, log_len,
@@ -451,7 +476,8 @@ def elect(cfg: Config, seed, cand_ids, del_cj, del_jc, term, role, voted_for,
                       cand_ids, del_cj, del_jc, term, role, voted_for, timer,
                       timeout, reset, log_len, own_lterm, *out, reset_out,
                       lead, win, votes)),
-                  None if flags is None else flags.data_ptr(), B, N, A)
+                  None if flags is None else flags.data_ptr(), B, N, A,
+                  cfg.byz, cfg.n_byzantine)
     elect.launches += 1
     return (*out, reset_out, lead, win)
 
@@ -549,8 +575,10 @@ def acks_commit_plain(cfg: Config, seed, lead_id, was_lead_k, del_jl, has_l,
     post-P3c log. Then P4: leaders hold ``timer`` at 0, and every other
     node counts it up unless ``reset`` says the round reset it; with the
     round's SPEC §6c ``flags``, a down node's timer stays as it is (the
-    freeze). Updates ``term``, ``role``, ``voted_for``, ``timeout``,
-    ``commit``, ``lead_match``, ``lead_next`` and ``timer`` in place."""
+    freeze). A silent byzantine node's ack never travels (SPEC §3c,
+    ``raft_sparse.py:446-447``). Updates ``term``, ``role``,
+    ``voted_for``, ``timeout``, ``commit``, ``lead_match``, ``lead_next``
+    and ``timer`` in place."""
     B, N = term.shape
     A = lead_id.shape[1]
     E = min(cfg.max_entries, cfg.log_capacity)
@@ -565,6 +593,9 @@ def acks_commit_plain(cfg: Config, seed, lead_id, was_lead_k, del_jl, has_l,
     # ---- P3d tracked leaders process acks.
     still_lead_k = was_lead_k & (role.gather(1, lid) == ROLE_L)
     ackm = (ack_slot[:, :, None] == slot_ids) & del_jl          # [B, N, A]
+    if cfg.byz == BYZ_SILENT:
+        ackm = ackm & (torch.arange(N, device=term.device)
+                       < cfg.n_honest)[None, :, None]
     t_in3 = torch.where(ackm, term[:, :, None], 0).amax(1)      # [B, A]
     bump3_k = still_lead_k & (t_in3 > term.gather(1, lid))
     new_t = _scatter_max(term, lid, t_in3, bump3_k)
@@ -609,7 +640,8 @@ def acks_commit(cfg: Config, seed, lead_id, was_lead_k, del_jl, has_l, kstar,
     maxima, a [B, A] bump epilogue, the match/next update with a per-row
     256-bin histogram of the new matches, a [B, A] commit epilogue
     reading the majority-th largest match off the histogram, and a thread
-    per node for the timers; its CRASH instance with ``flags``). The
+    per node for the timers; its CRASH instance with ``flags``, its BYZ
+    instance with silent byzantine nodes). The
     tracked ids ``lead_id`` of slots with ``was_lead_k`` must be distinct,
     as kernel KC gives them."""
     if term.device.type == "cpu":
@@ -646,7 +678,8 @@ def acks_commit(cfg: Config, seed, lead_id, was_lead_k, del_jl, has_l, kstar,
                       commit, lead_match, lead_next, timer, reset, t_in3,
                       proc, hist)),
                   None if flags is None else flags.data_ptr(),
-                  B, N, A, L, min(cfg.max_entries, L))
+                  B, N, A, L, min(cfg.max_entries, L), cfg.byz,
+                  cfg.n_byzantine)
     acks_commit.launches += 1
 
 
@@ -666,7 +699,10 @@ def propose_plain(cfg: Config, seed, r: int, lead, term, log_term, log_val,
     term, new length, commit and post-append log rows. ``log_term`` /
     ``log_val`` ([B, N, L]) are updated in place; returns (log_len [B, N],
     was_lead_k, hb_ids, s_term, s_len, s_commit [B, A], s_logt, s_logv
-    [B, A, L])."""
+    [B, A, L]). A silent byzantine leader (SPEC §3c) sends no heartbeat:
+    its slot's ``was_lead_k`` is False (``raft_sparse.py:392-393``), so
+    kernel KB gives its heartbeats no edge and kernel KH does not process
+    its slot."""
     B, N, L = log_term.shape
     E = min(cfg.max_entries, L)
     dev = term.device
@@ -687,6 +723,8 @@ def propose_plain(cfg: Config, seed, r: int, lead, term, log_term, log_val,
     bi = torch.arange(B, device=dev)[:, None]
     lid = lead_id.clamp(0, N - 1).to(torch.int64)
     was_lead_k = (lead_id >= 0) & lead.gather(1, lid)
+    if cfg.byz == BYZ_SILENT:
+        was_lead_k = was_lead_k & (lead_id < cfg.n_honest)
     hb_ids = torch.where(was_lead_k, lead_id, NONE)
     return (log_len, was_lead_k, hb_ids, term.gather(1, lid),
             log_len.gather(1, lid), commit.gather(1, lid), log_term[bi, lid],
@@ -699,7 +737,8 @@ def propose(cfg: Config, seed, r: int, lead, term, log_term, log_val,
     :func:`propose_plain`, which it runs for CPU tensors; for CUDA tensors
     it launches ``csrc/propose.cu`` (a thread per node appends with the
     value drawn inline, then a block per slot snapshots the leader's row
-    after the append)."""
+    after the append; with silent byzantine nodes the snapshot leaves
+    their slots unsent)."""
     if term.device.type == "cpu":
         return propose_plain(cfg, seed, r, lead, term, log_term, log_val,
                              log_len, commit, lead_id)
@@ -722,7 +761,8 @@ def propose(cfg: Config, seed, r: int, lead, term, log_term, log_val,
                   *(t.data_ptr() for t in (
                       lead, term, log_term, log_val, log_len, commit, lead_id,
                       new_len, was_lead_k, *small, *rows)),
-                  B, N, A, L, min(cfg.max_entries, L))
+                  B, N, A, L, min(cfg.max_entries, L), cfg.byz,
+                  cfg.n_byzantine)
     propose.launches += 1
     return (new_len, was_lead_k, *small, *rows)
 

@@ -19,6 +19,8 @@ versions.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from ..core import rng
@@ -45,14 +47,62 @@ def bitcast_i32(x: torch.Tensor) -> torch.Tensor:
 # layer's (consensus_tpu/ops/aggregate.py:58-60 AGG_TELEMETRY) and the
 # §7c safety invariants' of the BFT engines
 # (consensus_tpu/ops/adversary.py:161-163 SAFETY_TELEMETRY). The crash tail
-# counts where crash_prob > 0 (kernel KAH adds it, on every engine but
-# HotStuff, which rejects the knob) and is 0 on the flat path; the port
-# rejects the gates that make the other two count, so they stay 0, as the
-# JAX package's agg_counts() and safety_counts() give them on the flat
-# path.
+# counts where crash_prob > 0 (kernel KAH adds it) and is 0 on the flat
+# path; the safety tail counts under equivocating byzantine nodes (dense
+# PBFT and HotStuff, :func:`safety_counts_plain`); the port rejects the
+# switch gates that make the aggregation tail count, so it stays 0, as the
+# JAX package's agg_counts() gives it on the flat path.
 CRASH_TELEMETRY = ("crashes", "recoveries", "nodes_down")
 AGG_TELEMETRY = ("agg_down_rounds", "stale_serves", "poisoned_serves")
 SAFETY_TELEMETRY = ("forked_qc", "conflict_commits", "safety_violations")
+
+
+def safety_counts_plain(forked, conflicts) -> torch.Tensor:
+    """The :data:`SAFETY_TELEMETRY` tail of each lane, a copy of
+    ``consensus_tpu/ops/adversary.py:166-175`` ``safety_counts`` with a
+    leading lane axis: [B, 3] int32 from ``forked`` and ``conflicts``
+    ([B, ...] masks or counts, summed over the rest): forked_qc,
+    conflict_commits, and safety_violations = conflict_commits > 0, so the
+    flag never disagrees with the count. Without byzantine equivocation
+    the engines leave the tail at 0, as the JAX package's
+    ``safety_counts()`` gives it."""
+    nf = forked.to(torch.int32).reshape(forked.shape[0], -1).sum(
+        1, dtype=torch.int32)
+    nc = conflicts.to(torch.int32).reshape(conflicts.shape[0], -1).sum(
+        1, dtype=torch.int32)
+    return torch.stack([nf, nc, (nc > 0).to(torch.int32)], 1)
+
+
+class Byz(NamedTuple):
+    """A round's SPEC §3c/§7c byzantine nodes, as the PBFT phase wrappers
+    that take no Config take them: ``mode`` (``core/config.py`` BYZ_SILENT
+    or BYZ_EQUIV), ``nb`` (n_byzantine: node i of a lane of ``n_real``
+    nodes is honest when i < n_real - nb), and the round's ``seed`` ([B]
+    uint32) and ``r``, which key the equivocators' STREAM_EQUIV stances."""
+    mode: int
+    nb: int
+    seed: torch.Tensor
+    r: int
+
+
+def byz_of(cfg, seed, r: int) -> "Byz | None":
+    """The round's :class:`Byz`, None without byzantine nodes (the flat
+    instances)."""
+    return None if cfg.byz == 0 else Byz(cfg.byz, cfg.n_byzantine, seed, r)
+
+
+def equiv_stance_plain(seed, r: int, src, dst) -> torch.Tensor:
+    """SPEC §6/§7c: byzantine node ``src``'s stance toward receiver
+    ``dst`` in round ``r``, ``draw(seed ^ STREAM_EQUIV, r, src, dst) & 1``
+    (``consensus_tpu/engines/pbft.py:180-183``, ``hotstuff.py:329-332``)
+    as bool. ``seed`` ([B] uint32) is shaped [B, 1, ..., 1] to the rank
+    of ``src`` and ``dst``, int tensors that broadcast (a lane axis of 1
+    or B in front)."""
+    src, dst = torch.as_tensor(src), torch.as_tensor(dst)
+    rank = max(src.dim(), dst.dim(), 1)
+    k0 = (rng.as_u32(seed) ^ rng.STREAM_EQUIV).reshape(-1, *(1,) * (rank - 1))
+    return (rng.threefry2x32_plain(k0, int(r) & 0xFFFFFFFF, rng.as_u32(src),
+                                   rng.as_u32(dst)) & 1).to(torch.bool)
 
 
 def churn(seed, r: int, churn_cut: int, u32=rng.random_u32) -> torch.Tensor:

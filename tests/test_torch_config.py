@@ -5,11 +5,14 @@ raises when set off its default, on the dense engine as on the capped one
 and on the PBFT, Paxos, DPoS and HotStuff engines, alone and beside a SPEC
 §A.2 delay (which the port runs, in [0, 16]), a SPEC §6c crash (which the
 port runs on every engine, but an f-ladder, which raises with the JAX
-package's message) or a SPEC §B desync (which the port runs on both PBFT
-engines, both f-ladders and HotStuff); an out-of-range ``max_crashed``,
-a desync on another protocol and an out-of-range or lone
-``max_skew_rounds`` raise with the JAX package's messages; telemetry on a
-PBFT f-ladder raises (as the JAX package's ladder has none), and the entry
+package's message), a SPEC §B desync (which the port runs on both PBFT
+engines, both f-ladders and HotStuff) or SPEC §3c/§7c byzantine nodes
+(which the port runs on both Raft engines, dense PBFT, its f-ladder and
+HotStuff); an out-of-range ``max_crashed``, a desync on another protocol,
+an out-of-range or lone ``max_skew_rounds``, and a byzantine count or mode
+the JAX package refuses raise with the JAX package's messages, and
+byzantine nodes on the §6b engine with the port's own; telemetry on a PBFT
+f-ladder raises (as the JAX package's ladder has none), and the entry
 points raise without a GPU unless the caller asks for the CPU.
 """
 import dataclasses
@@ -28,7 +31,6 @@ OK = dict(protocol="raft", n_nodes=9, n_rounds=4, max_active=2)
 OFF_DEFAULT = {
     "attack": "elect", "attack_rate": 0.5,
     "attack_target": 1, "net_model": "switch", "n_aggregators": 2,
-    "n_byzantine": 1, "byz_mode": "equivocate",
     "miss_rate": 0.1, "suppress_rate": 0.1, "suppress_window": 8,
     "scan_chunk": 4, "sweep_chunk": 1,
     "mesh_shape": (2,),
@@ -178,12 +180,10 @@ def test_unsupported_knob_raises_beside_a_delay(knob):
 HOTSTUFF_OK = dict(protocol="hotstuff", f=2, n_nodes=7, n_rounds=4,
                    view_timeout=4)
 # Each gate of the JAX HotStuff engine (consensus_tpu/engines/hotstuff.py
-# lines 326-392, 435-454) that the port does not run yet; the SPEC §A.2
-# delay (lines 243-256, 303-309), the SPEC §6c crash and the SPEC §B skew
-# (lines 204-230) it runs.
+# lines 339-392) that the port does not run yet; the SPEC §A.2 delay (lines
+# 243-256, 303-309), the SPEC §6c crash, the SPEC §B skew (lines 204-230)
+# and the SPEC §7c byzantine nodes (lines 237-238, 285-453) it runs.
 HOTSTUFF_GATES = {
-    "byz-silent": dict(n_byzantine=1),
-    "byz-equivocate": dict(n_byzantine=1, byz_mode="equivocate"),
     "switch": dict(net_model="switch", n_aggregators=2),
 }
 HOTSTUFF_RUNS = {
@@ -304,6 +304,115 @@ def test_unsupported_knob_raises_beside_a_crash(engine, knob):
     """A crash, which the port runs on these engines, lets no other gate
     through."""
     kw = {**CRASH_ENGINES[engine], **CRASH, "max_crashed": 2}
+    Config(**kw)
+    with pytest.raises(ValueError, match=knob):
+        Config(**{**kw, knob: OFF_DEFAULT[knob]})
+
+
+# --- SPEC §3c/§7c byzantine nodes --------------------------------------------
+
+BYZ = {"silent": dict(n_byzantine=2), "equivocate": dict(
+    n_byzantine=2, byz_mode="equivocate")}
+# The engines that run byzantine nodes, each at a small shape.
+BYZ_ENGINES = {"raft-capped": OK, "raft-dense": {**OK, "max_active": 0},
+               "pbft": PBFT_OK, "hotstuff": HOTSTUFF_OK}
+
+
+@pytest.mark.parametrize("mode", list(BYZ))
+@pytest.mark.parametrize("engine", list(BYZ_ENGINES))
+def test_byzantine_knobs_are_accepted(engine, mode):
+    from consensus_tpu import Config as JConfig
+    kw = {**BYZ_ENGINES[engine], **BYZ[mode]}
+    cfg = Config(**kw)
+    JConfig(**kw)
+    assert cfg.byz == (tconfig.BYZ_SILENT if mode == "silent"
+                       else tconfig.BYZ_EQUIV)
+    assert cfg.n_honest == cfg.n_nodes - 2
+    assert Config(**{**kw, "n_byzantine": 0}).byz == tconfig.BYZ_NONE
+
+
+@pytest.mark.parametrize("beside", ["delay", "crash", "desync"])
+@pytest.mark.parametrize("mode", list(BYZ))
+@pytest.mark.parametrize("engine", list(BYZ_ENGINES))
+def test_byzantine_knobs_are_accepted_beside_the_other_gates(engine, mode,
+                                                             beside):
+    on = {"delay": dict(max_delay_rounds=8), "crash": CRASH,
+          "desync": DESYNC}[beside]
+    kw = {**BYZ_ENGINES[engine], **BYZ[mode], **on}
+    if beside == "desync" and engine.startswith("raft"):
+        with pytest.raises(ValueError, match="desync_rate"):
+            Config(**kw)
+    else:
+        Config(**kw)
+
+
+# The JAX package's SPEC §3c/§7c rejections (consensus_tpu/core/config.py:
+# 193-209): more byzantine nodes than f on pbft and hotstuff, a count out of
+# [0, n_nodes], byzantine nodes on another protocol, an unknown mode.
+BYZ_REJECTIONS = {
+    "pbft-above-f": dict(PBFT_OK, n_byzantine=3),
+    "hotstuff-above-f": dict(HOTSTUFF_OK, n_byzantine=3,
+                             byz_mode="equivocate"),
+    "raft-negative": dict(OK, n_byzantine=-1),
+    "raft-above-n": dict(OK, n_byzantine=10),
+    "paxos": dict(protocol="paxos", n_nodes=7, n_rounds=4, log_capacity=30,
+                  n_byzantine=1),
+    "dpos": dict(protocol="dpos", n_nodes=50, n_rounds=30, log_capacity=8,
+                 n_byzantine=1, byz_mode="equivocate"),
+    "unknown-mode": dict(OK, n_byzantine=1, byz_mode="crash"),
+    "unknown-mode-alone": dict(PBFT_OK, byz_mode="lie"),
+}
+
+
+@pytest.mark.parametrize("case", list(BYZ_REJECTIONS))
+def test_byzantine_rejections_match_jax(case):
+    from consensus_tpu import Config as JConfig
+    with pytest.raises(ValueError) as want:
+        JConfig(**BYZ_REJECTIONS[case])
+    with pytest.raises(ValueError) as got:
+        Config(**BYZ_REJECTIONS[case])
+    assert str(got.value) == str(want.value)
+
+
+def test_byzantine_count_equal_to_f_or_n_is_accepted():
+    Config(**{**PBFT_OK, "n_byzantine": 2})
+    Config(**{**HOTSTUFF_OK, "n_byzantine": 2, "byz_mode": "equivocate"})
+    Config(**{**OK, "n_byzantine": 9})
+
+
+def test_byzantine_ladder_past_its_smallest_rung_raises_as_jax_does():
+    from consensus_tpu import Config as JConfig
+    from consensus_tpu.engines import pbft_sweep as jsweep
+    from consensus_tpu_torch.engines import pbft_sweep
+    kw = dict(protocol="pbft", f=2, n_nodes=7, n_rounds=4, log_capacity=8,
+              n_byzantine=2)
+    with pytest.raises(ValueError) as want:
+        jsweep.pbft_fsweep_run(JConfig(**kw), [1, 2])
+    with pytest.raises(ValueError) as got:
+        pbft_sweep.pbft_fsweep_run(Config(**kw), [1, 2], device="cpu")
+    assert str(got.value) == str(want.value)
+    out = pbft_sweep.pbft_fsweep_run(Config(**{**kw, "n_byzantine": 1}),
+                                     [1, 2], device="cpu")
+    assert [o["committed"].shape[1] for o in out] == [4, 7]
+
+
+@pytest.mark.parametrize("mode", list(BYZ))
+def test_byzantine_nodes_on_the_bcast_engine_raise(mode):
+    """The §6b engine's tally table holds two values a slot; the port
+    refuses byzantine nodes there with its own message."""
+    kw = {**PBFT_OK, "fault_model": "bcast", **BYZ[mode]}
+    with pytest.raises(ValueError, match="fault_model='bcast'.*not "
+                       "supported by the port"):
+        Config(**kw)
+    Config(**{**kw, "n_byzantine": 0})
+
+
+@pytest.mark.parametrize("knob", sorted(OFF_DEFAULT))
+@pytest.mark.parametrize("engine", list(BYZ_ENGINES))
+def test_unsupported_knob_raises_beside_byzantine_nodes(engine, knob):
+    """Byzantine nodes, which the port runs on these engines, let no other
+    gate through."""
+    kw = {**BYZ_ENGINES[engine], **BYZ["equivocate"]}
     Config(**kw)
     with pytest.raises(ValueError, match=knob):
         Config(**{**kw, knob: OFF_DEFAULT[knob]})
