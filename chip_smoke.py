@@ -282,6 +282,38 @@ Phases, each printing one JSON line:
                crash or a desync); and the two telemetry runs against
                JAX-made counter (the safety tail among them) and recorder
                anchors.
+19. byzantine_bcast — SPEC §3c/§7c byzantine nodes, silent and
+               equivocating, on the §6b engine and its bcast ladders.
+               Every kernel call of rounds 3 and 20 of pbft-100k-bcast at
+               n_byzantine = f = 33 333 (silent at its 8 sweeps,
+               equivocating at one, with telemetry and 8-round windows),
+               of its equivocating run with phase 16's CRASH and phase
+               17's desync ("composed"), and KT, KU, KV and KAK on rounds
+               3 and 20 of the fs = 1..128 bcast ladder (one byzantine
+               node a lane), the full-width ladder (n_byzantine = 8 333)
+               and the partitioned hostile ladder fs = 1..32 (one
+               equivocator a lane: byzantine primaries, tables of four);
+               KAA on built equivocating rounds under §6b's crash mode;
+               KU's BYZ instances on tallies at the threshold at table
+               widths 1-4 (four distinct values a slot at f = 1), KT on
+               random states with byzantine primaries, KV, and KAK
+               (``csrc/bcast_equiv_support.cu``, each receiver's
+               equivocating support) on random node bytes: each against
+               its plain version, exact. Each BYZ instance's time on round
+               20, its plain version's and its bound, and its flat
+               instance's time and bound on the same inputs; KAK's time
+               against its bound (operations). Then ``simulator.run`` of
+               the three runs and ``pbft_fsweep_timed`` of the five
+               ladders (both modes of the fs = 1..128 and full-width ones,
+               the hostile equivocating one), each replayed as one CUDA
+               graph: JAX-made anchors (and the runs' final views) from
+               the replay and the eager loop, the path's kernels launched
+               and no other (counted from 0; KAK once a round under
+               equivocation only), node-round-steps per second, replay
+               wall, busy share, device operations a round and KAK's
+               share of the device time; and the equivocating run with
+               telemetry and 8-round windows against JAX-made counter and
+               recorder anchors.
 
 Then the card's name and power limit, one ``{"kernels": [...]}`` line, and
 last ``{"ok": true, "device": {...}}``. The kernels line takes each
@@ -291,8 +323,9 @@ KP from raft-1kx1k's with telemetry, KQ-KS from the dense ladder's, KT-KV
 from pbft-100k-bcast's, KW-KX from dpos-100k's, KY-KZ from
 paxos-10kx10k's, KAA, KAB and KAC from pbft-100k-bcast's, dpos-100k's and
 paxos-10kx10k's with telemetry, KAD-KAG from hotstuff-100k's, KAH and
-KAI from raft-100k's and pbft-100k-bcast's uncapped crash runs, and KAJ
-from hotstuff-100k's composed run; the other runs' counts are in their
+KAI from raft-100k's and pbft-100k-bcast's uncapped crash runs, KAJ
+from hotstuff-100k's composed run, and KAK from pbft-100k-bcast's
+equivocating run; the other runs' counts are in their
 phases' lines. Any
 failure, or no GPU, exits non-zero without that last line.
 """
@@ -324,7 +357,12 @@ WINDOW = 8                      # the telemetry phase's flight-recorder window
 HBM_BYTES_PER_S = 3.35e12
 OPS_PER_S = 33.5e12
 L2_BYTES = 50 * 2**20
-THREEFRY_OPS = 119     # 20 x (add, 3-op rotate, xor) + key schedule
+# One Threefry-2x32 draw of its first word: 20 rounds of an add, a rotate
+# (one funnel shift) and an xor, less the last round's rotate and xor of the
+# word no caller reads, 9 key-injection adds and 3 for the initial adds and
+# the parity key. (119, which counted a rotate as three operations, is above
+# what kernel KAK was measured to take.)
+THREEFRY_OPS = 70
 EDGE_OPS = 23          # one mixer absorb (11) + fmix (8) + 4 tests an edge
 
 
@@ -1401,7 +1439,7 @@ NOT_CAPPED = DENSE + ("dense_telemetry",) + PBFT + (
     "dpos_round", "paxos_promise", "paxos_accept_learn", "pbft_telemetry",
     "dpos_telemetry", "paxos_telemetry", "hotstuff_propose", "hotstuff_vote",
     "hotstuff_learn", "hotstuff_extract", "crash_transition", "freeze_down",
-    "hotstuff_prologue")
+    "hotstuff_prologue", "bcast_equiv_support")
 PBFT_REPLACES = {
     "pbft_view_preprepare": "consensus_tpu/engines/pbft.py:209 pbft_round "
                             "P0-P3, consensus_tpu/engines/pbft.py:72 "
@@ -5046,8 +5084,8 @@ def desync_config(key: str, **kw):
 
 def desync_path(cfg, telemetry: bool = False) -> tuple[str, ...]:
     """The kernels a run of ``cfg`` launches: its engine's path (with
-    telemetry, its telemetry path), KAH and (PBFT) KAI with a crash, and
-    KAJ on a gated HotStuff run."""
+    telemetry, its telemetry path), KAH and (PBFT) KAI with a crash, KAJ
+    on a gated HotStuff run, and KAK on an equivocating §6b run."""
     from consensus_tpu_torch.engines import hotstuff
     from consensus_tpu_torch.network import runner
     eng = runner.engine(cfg).name
@@ -5057,6 +5095,8 @@ def desync_path(cfg, telemetry: bool = False) -> tuple[str, ...]:
         base = TELEMETRY_PATHS[eng] if telemetry else path_kernels(eng)
     if eng == "hotstuff" and hotstuff.gated(cfg):
         base = base + DESYNC_OWN
+    if eng == "pbft-bcast" and cfg.byz == 2:
+        base = base + BYZ_BCAST_OWN
     return base
 
 
@@ -5834,7 +5874,460 @@ def check_byz_runs(card: str, smi: str) -> None:
                            card, smi)
 
 
-# The script's start, for each phase-18 row's elapsed time.
+# --- phase 19: SPEC §3c/§7c byzantine nodes on the §6b engine ----------------
+
+# pbft-100k-bcast with n_byzantine = f = 33 333, each mode: the silent run at
+# its 8 sweeps, the equivocating ones at one. The JAX package builds each
+# equivocating round's [nb, N] stance grid (3.33e9 draws a sweep, about 5
+# bytes each on its CPU backend: 18 GB a sweep, and its runs vmap the
+# sweeps), so its anchor of more than one sweep does not fit the memory of
+# the machine that makes it; N, f and n_byzantine are pbft-100k-bcast's.
+BYZ_BCAST_NB = 33_333
+# Phase 19's runs, "pbft-100k-bcast/<mode>": anchor. "composed" is the
+# equivocating run with phase 16's CRASH and phase 17's desync overrides
+# (BYZ_COMPOSED, as phase 18's). The anchors and BYZ_BCAST_VIEWS_SHA256 were
+# made by the JAX package on the CPU:
+#
+#   JAX_PLATFORMS=cpu python3 - <<'EOF'
+#   import dataclasses, hashlib, numpy as np, chip_smoke
+#   from consensus_tpu import Config
+#   from consensus_tpu.network import runner, simulator
+#   for key in chip_smoke.BYZ_BCAST_RUNS:
+#       cfg = Config(**dataclasses.asdict(chip_smoke.byz_bcast_config(key)))
+#       view = runner.run(cfg, simulator.engine_def(cfg))["view"]
+#       print(key, simulator.run(cfg, warmup=False).digest,
+#             hashlib.sha256(np.ascontiguousarray(
+#                 np.asarray(view), dtype="<i4").tobytes()).hexdigest())
+#   EOF
+#
+# (197 s for the silent run on eight cores, 145 s and 149 s for the
+# equivocating ones, at about 18 GB each). The C++ oracle agrees on the
+# silent run (engine="cpu", 48.5 s) and made neither equivocating anchor:
+# its per-receiver §6b round draws the 3.33e9 stances of a sweep and round
+# one at a time (the full-width ladder's first rung, 1.3e10 draws in all,
+# took it 503 s). The silent run leaves 2f + 1 = 66 667 honest nodes, whose
+# quorums the 1% drops break, so it commits nothing. The equivocating run differs from it
+# only by each receiver's extra (no byzantine node leads at these views):
+# about half of the 33 333 equivocators' stances are set toward each
+# receiver, which makes up for the honest nodes whose broadcast dropped,
+# and it commits what the flat run of one sweep commits (its digest and
+# views are that run's, 70a43bdb… and d19ea3a3…); its telemetry
+# (BYZ_BCAST_TELEMETRY) counts every slot's quorums.
+BYZ_BCAST_RUNS = {
+    "pbft-100k-bcast/silent":
+        "4408ef2ebbc92b99378924d2a70fb3123fbf5e57b0b8c6d3184964118511b5ba",
+    "pbft-100k-bcast/equivocate":
+        "70a43bdba66b9e0d0ac86f7a20fe204ba68541ece618d7002ec2191cff9dada8",
+    "pbft-100k-bcast/composed":
+        "bac7f1cb3b9c497c7f7257fd0431e4c3d53ce68c5737f83e8902f7e0ca7f6d43",
+}
+BYZ_BCAST_VIEWS_SHA256 = {
+    "pbft-100k-bcast/silent":
+        "d4a33cb72e4ca6b1a1f39cafe4860cf8ef3b5b62477edb56a69e4ea01917ddd4",
+    "pbft-100k-bcast/equivocate":
+        "d19ea3a3b3c0a39ad7e31c83715b85378e4f3ec5bddfb50e654b66720f4820b6",
+    "pbft-100k-bcast/composed":
+        "31b0e1d67a683480d1654d7864d73f6a37ef30465b76e81cb4a1d0da0deb70ad",
+}
+# The bcast ladders with byzantine nodes, each mode: (base config, rungs,
+# anchor), made by the JAX package as the ladders' anchors above: the fs =
+# 1..128 ladder with one byzantine node a lane (its smallest rung's f;
+# pbft_sweep.pbft_fsweep_run, 12 s and 16 s), the full-width ladder with
+# n_byzantine = 8 333 (its smallest rung's f) from standalone runs of its
+# rungs (f = fs[k], seed 7 + k, one sweep; 58 s and 110 s: the JAX ladder
+# would draw the padded [N_pad, N_pad] stance grid, 1e10 draws a lane and
+# round), whose payloads the ladder's concatenates, and the partitioned
+# hostile ladder fs = 1..32 (HOSTILE_BCAST_FS) with one equivocator a lane
+# (pbft_sweep.pbft_fsweep_run, 6 s), whose f = 1 lanes lead with their
+# byzantine node and keep tables of four values:
+#
+#   JAX_PLATFORMS=cpu python3 - <<'EOF'
+#   import dataclasses, chip_smoke
+#   from consensus_tpu import Config
+#   from consensus_tpu.core import serialize
+#   from consensus_tpu.engines import pbft_sweep
+#   from consensus_tpu.network import simulator
+#   for name, (make, fs, _) in chip_smoke.BYZ_BCAST_LADDERS.items():
+#       base = Config(**dataclasses.asdict(make()))
+#       if name.startswith("wide"):
+#           payloads = [simulator.run(dataclasses.replace(
+#               base, f=f, n_nodes=3 * f + 1, seed=base.seed + k),
+#               warmup=False).payload for k, f in enumerate(fs)]
+#           print(name, serialize.digest(b"".join(payloads)))
+#       else:
+#           print(name, serialize.digest(pbft_sweep.fsweep_payload(
+#               pbft_sweep.pbft_fsweep_run(base, fs))))
+#   EOF
+#
+# At these knobs one byzantine node a lane moves no decision of the two
+# fs = 1..128 ladders (both equal BCAST_LADDER_DIGEST) nor of the hostile
+# one (HOSTILE_BCAST_DIGEST); the full-width ladder's equivocators give the
+# flat ladder's digest, its silent nodes break the quorums of its first
+# rung (the rung digests 9bf8cd52…, 2e2af0cf…, 181f27e4…). The C++ oracle
+# agrees on every rung of the five ladders (engine="cpu"; the equivocating
+# full-width rungs took it 503, 1 014 and 2 063 s; tests/
+# test_torch_byz_bcast_steps.py holds smaller ladders).
+BYZ_BCAST_LADDERS = {
+    "bcast-ladder/silent": (
+        lambda: pbft_config(1, fault_model="bcast", n_byzantine=1), LADDER,
+        BCAST_LADDER_DIGEST),
+    "bcast-ladder/equivocate": (
+        lambda: pbft_config(1, fault_model="bcast", n_byzantine=1,
+                            byz_mode="equivocate"), LADDER,
+        BCAST_LADDER_DIGEST),
+    "wide-ladder/silent": (
+        lambda: wide_base(f=WIDE_RUNGS[0], n_nodes=3 * WIDE_RUNGS[0] + 1,
+                          n_byzantine=WIDE_RUNGS[0]), WIDE_RUNGS,
+        "280bf80be8db9bce6f97622c615c9ac8673600cabe4063085cc74141eb9fe21e"),
+    "wide-ladder/equivocate": (
+        lambda: wide_base(f=WIDE_RUNGS[0], n_nodes=3 * WIDE_RUNGS[0] + 1,
+                          n_byzantine=WIDE_RUNGS[0], byz_mode="equivocate"),
+        WIDE_RUNGS, WIDE_DIGEST),
+    "hostile-ladder/equivocate": (
+        lambda: pbft_config(1, fault_model="bcast", n_rounds=24,
+                            log_capacity=8, seed=7, n_byzantine=1,
+                            byz_mode="equivocate", **HOSTILE),
+        HOSTILE_BCAST_FS, HOSTILE_BCAST_DIGEST),
+}
+# The equivocating run again with telemetry and 8-round windows: (nonzero
+# counter totals, flight_digest), made by the JAX package on the CPU with
+# its anchor (simulator.run(cfg, telemetry=True), 145 s). Every node
+# prepares and commits each of the 16 slots once; the safety tail stays 0
+# (no slot forks with at most f byzantine nodes), which phase 19 holds on
+# built states (pbft_safety_cases, phase 18's, and §6b's own below).
+BYZ_BCAST_TELEMETRY = {
+    "pbft-100k-bcast/equivocate": (
+        {"prepare_quorums": 1_600_000, "commit_quorums": 1_600_000,
+         "view_changes": 500_000},
+        "7eea944a1a95164bb8b17d785ae2117bc53e851fd86be3940d8266357c4de1eb"),
+}
+# Phase 19's own kernel (KAK), and the rows it times: row name -> (the run
+# whose round 20 it is timed on, the wrapper where the row name is not one).
+BYZ_BCAST_OWN = ("bcast_equiv_support",)
+BYZ_BCAST_REPLACES = {
+    "bcast_equiv_support": "consensus_tpu/engines/pbft_bcast.py:415 "
+                           "pbft_bcast_round eq_extra (:425-433), "
+                           "consensus_tpu/engines/pbft_sweep.py:335 "
+                           "pbft_bcast_round_padded eq_extra (:335-350)"}
+BYZ_BCAST_TIMED = {
+    "bcast_view_preprepare": ("pbft-100k-bcast/equivocate", None),
+    "bcast_tally": ("pbft-100k-bcast/equivocate", None),
+    "bcast_tally m=4": ("bcast-ladder/equivocate", "bcast_tally"),
+    "bcast_decide": ("pbft-100k-bcast/equivocate", None),
+    "bcast_equiv_support": ("pbft-100k-bcast/equivocate", None),
+    "pbft_telemetry": ("pbft-100k-bcast/equivocate", None),
+}
+
+
+def byz_bcast_config(key: str, **kw):
+    """Phase 19's run ``key`` ("pbft-100k-bcast/<mode>"), changed by
+    ``kw``."""
+    mode = key.split("/")[1]
+    if mode == "silent":
+        return bcast_config(n_byzantine=BYZ_BCAST_NB, **kw)
+    extra = BYZ_COMPOSED if mode == "composed" else {}
+    return bcast_config(**{"n_sweeps": 1, **extra,
+                           "n_byzantine": BYZ_BCAST_NB,
+                           "byz_mode": "equivocate", **kw})
+
+
+def bcast_byz_flat(name: str, args):
+    """``args`` of §6b kernel ``name`` with its BYZ instance turned off: no
+    byzantine node in KT's and KAA's Config (KAA without its values), no
+    byz pair for KU (whose flat table width is the lanes' own without
+    equivocators) and KV."""
+    from consensus_tpu_torch.engines import pbft_bcast as pb
+    if name == "bcast_tally":
+        f = args[2]
+        m = max(pb.table_width(3 * x + 1, x) for x in f.tolist())
+        return (m, *args[1:10])
+    if name == "bcast_decide":
+        return args[:7]
+    return byz_flat(name, args)
+
+
+def support_draws(args) -> int:
+    """The stance draws KAK's call ``args`` needs: for each broadcasting
+    byzantine sender, the real receivers of its side (all of them where the
+    partition is off), itself left out."""
+    seed, r, n_real, nb, bits = args
+    b, n = bits.shape
+    bc = (bits & 1).bool()
+    side = ((bits >> 1) & 1).long()
+    idx = torch.arange(n, device=bits.device)
+    real = idx[None, :] < n_real[:, None]
+    byz = real & (idx[None, :] >= (n_real - nb)[:, None])
+    sends = byz & bc
+    per_side = torch.stack([(real & (side == s)).sum(1) for s in (0, 1)], 1)
+    mine = per_side.gather(1, side)                        # [B, N]
+    return int(torch.where(sends, mine - 1, 0).sum())
+
+
+def byz_bcast_bound(name: str, args) -> tuple[float, str]:
+    """The least time of §6b kernel ``name``'s work on a byzantine round's
+    ``args``: KAK's stance draws and its bytes (a node byte read, an int32
+    written, a node); for KT-KV their flat bound on the same inputs, plus
+    what the BYZ instance adds: KT's stance and value draws (one each a
+    (receiver, slot) of an equivocating primary that reaches it), KU's
+    extra read twice; KAA's as phase 18 counts it."""
+    from consensus_tpu_torch.engines import pbft_bcast as pb
+    if name == "bcast_equiv_support":
+        bits = args[4]
+        return bound(5 * bits.numel(), THREEFRY_OPS * support_draws(args))
+    if name == "pbft_telemetry":
+        return byz_kernel_bound(name, args)
+    nbytes, ops = flat_work(name, bcast_byz_flat(name, args)[:12])
+    if name == "bcast_tally" and args[-1] is not None \
+            and args[-1][1] is not None:
+        nbytes += 8 * args[-1][1].numel()
+    elif name == "bcast_view_preprepare" and args[0].byz == 2:
+        cfg, n_real = args[0], args[3]
+        s = args[7].shape[2]
+        got = pb.bcast_view_preprepare_plain(*clone_args(args))
+        view, bits = got[0], got[6]
+        prim = view.remainder(n_real[:, None]).long()
+        idx = torch.arange(view.shape[1], device=view.device)
+        real = idx[None, :] < n_real[:, None]
+        byzp = prim >= (n_real - cfg.n_byzantine)[:, None]
+        pb_ = bits.gather(1, prim)
+        reach = real & ((prim == idx) | (((pb_ & 1) != 0)
+                                         & (((pb_ ^ bits) & 2) == 0)))
+        ops += 2 * THREEFRY_OPS * s * int((byzp & reach).sum())
+    return bound(nbytes, ops)
+
+
+def bcast_byz_edge_inputs(dev, gen) -> dict:
+    """Built inputs of the §6b BYZ instances and KAK: {name: [args]}. KU at
+    the threshold at each table width: lanes whose counting senders (the
+    honest broadcasting nodes of the larger side) hold value 7 in exactly
+    Q - 1 - e - 1 .. Q - 1 - e + 1 of them (e a receiver's extra), on
+    lanes of f = 2..8 with nb = f (m = 3 under equivocation) and nb < f
+    (m = 1), and four-node lanes (f = 1) whose four nodes hold four
+    distinct values in every other slot and values drawn from the same
+    four in the rest (m = 4 under equivocation, 2 in silent mode); KT on
+    random states whose primaries are byzantine for about half the
+    receivers, both modes, with a partition; KV with honest and byzantine
+    deciders; KAK on random node bytes at N = 3 001 (ragged lanes, a
+    partition on some) and at N = 1."""
+    from consensus_tpu_torch.engines import pbft_bcast as pb
+    out = {name: [] for name in BCAST + BYZ_BCAST_OWN}
+
+    def ri(lo, hi, shape, dtype=torch.int32):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev,
+                             dtype=dtype)
+
+    def coin(p, shape):
+        return torch.rand(shape, generator=gen, device=dev) < p
+
+    # KU at the threshold.
+    B, S = 16, 24
+    for fs, nbf, equiv in (((2, 9), lambda f: f, True),
+                           ((2, 9), lambda f: f, False),
+                           ((4, 9), lambda f: 2, True),
+                           ((1, 2), lambda f: 1, True),
+                           ((1, 2), lambda f: 1, False)):
+        f = ri(*fs, (B,))
+        nb = int(nbf(int(f.min())))
+        n_real = 3 * f + 1
+        N = int(n_real.max())
+        idx = torch.arange(N, device=dev)
+        real = idx[None, :] < n_real[:, None]
+        honest = idx[None, :] < (n_real - nb)[:, None]
+        bc = real & coin(0.9, (B, N))
+        big = (torch.arange(B, device=dev) % 2).bool()
+        side = coin(0.95, (B, N)) == big[:, None]
+        bits = (bc.to(torch.uint8) | (side.to(torch.uint8) << 1))
+        extra = torch.where(real, ri(0, nb + 1, (B, N)), 0) if equiv \
+            else torch.zeros((B, N), dtype=torch.int32, device=dev)
+        if int(f.max()) == 1:
+            # Four nodes: four distinct values (7-10) in every other slot,
+            # values drawn from the same four in the rest.
+            turn = 7 + (idx[None, :, None] + ri(0, 4, (B, 1, S))) % 4
+            pp_val = torch.where(torch.arange(S, device=dev) % 2 == 0,
+                                 turn, 7 + ri(0, 4, (B, N, S))
+                                 ).to(torch.int32).contiguous()
+        else:
+            counted = (honest & bc & (side == big[:, None]))[:, :, None] \
+                .expand(B, N, S)
+            rank = torch.rand((B, N, S), generator=gen, device=dev) \
+                .masked_fill(~counted, 2.0).argsort(1).argsort(1)
+            q = 2 * f + 1
+            k = (q - 1 - nb // 2)[:, None] + ri(-1, 2, (B, S))
+            pp_val = torch.where(counted,
+                                 torch.where(rank < k[:, None, :], 7, 8),
+                                 7 + ri(0, 2, (B, N, S))).to(torch.int32)
+        pp_seen = real[:, :, None].expand(B, N, S).contiguous()
+        prepared = pp_seen & coin(0.3, (B, N, S))
+        committed = prepared & coin(0.2, (B, N, S))
+        m = max(pb.table_width(3 * x + 1, x, nb if equiv else 0)
+                for x in f.tolist())
+        ku = (m, n_real, f, bits.contiguous(), pp_seen, pp_val, prepared,
+              committed, ri(0, 9, (B, N, S)), False,
+              (nb, extra if equiv else None))
+        hit = pb.bcast_tally_plain(*clone_args(ku))[0] & ~prepared
+        require(bool(hit.any()) and bool((pp_seen & ~prepared
+                                          & ~hit).any()),
+                "byzantine edge inputs: no prepare at the threshold, or no "
+                "miss")
+        out["bcast_tally"].append(ku)
+        out["bcast_decide"].append((
+            bits.contiguous(), committed | coin(0.2, (B, N, S)),
+            ri(0, 9, (B, N, S)), committed & coin(0.5, (B, N, S)),
+            ri(0, 9, (B, N)), coin(0.3, (B, N)), False, (n_real, nb)))
+    widths = sorted({a[0] for a in out["bcast_tally"]})
+    require(widths == [1, 2, 3, 4],
+            f"byzantine edge inputs: table widths {widths}, not 1-4")
+
+    # KT with byzantine primaries for about half the receivers.
+    B, N, S = 12, 97, 40
+    for mode in ("silent", "equivocate"):
+        cfg = pbft_config(32, fault_model="bcast", log_capacity=S,
+                          view_timeout=4, drop_rate=0.2, partition_rate=0.6,
+                          n_byzantine=4, byz_mode=mode)
+        vmax = 2 * cfg.n_rounds + 2
+        seeds = torch.arange(31, 31 + B, dtype=torch.int64,
+                             device=dev).to(torch.uint32)
+        f = ri(4, 33, (B,))
+        n_real = 3 * f + 1
+        view = ri(0, vmax, (B, N))
+        # Views whose primary is one of the 4 byzantine ids of the lane.
+        byzv = (n_real - 1 - ri(0, 4, (B,)))[:, None] + n_real[:, None] \
+            * ri(0, 2, (B, N))
+        view = torch.where(coin(0.5, (B, N)), byzv, view).to(torch.int32)
+        pp_seen = coin(0.6, (B, N, S))
+        pp_view = torch.where(pp_seen, torch.minimum(
+            ri(-1, vmax, (B, N, S)), view[:, :, None]), 0)
+        pp_val = ri(0, 3, (B, N, S))
+        prepared = (pp_seen | coin(0.05, (B, N, S))) & coin(0.5, (B, N, S))
+        committed = prepared & coin(0.4, (B, N, S))
+        for r in (3, 7):
+            out["bcast_view_preprepare"].append(
+                (cfg, seeds, r, n_real, f, view, ri(0, 6, (B, N)), pp_seen,
+                 pp_view, pp_val, prepared, committed))
+
+    # KAK on random node bytes.
+    for b, n, nb, lanes in ((4, 3001, 333, (3001, 2500, 1999, 1000)),
+                            (2, 1, 1, (1, 1))):
+        n_real = torch.tensor(lanes, dtype=torch.int32, device=dev)
+        seeds = torch.randint(0, 2**32, (b,), generator=gen, device=dev,
+                              dtype=torch.int64).to(torch.uint32)
+        idx = torch.arange(n, device=dev)
+        real = idx[None, :] < n_real[:, None]
+        active = torch.tensor([True, False] * (b // 2), device=dev)
+        side = coin(0.5, (b, n)) & active[:, None]
+        for r in (0, 5):
+            bits = ((real & coin(0.8, (b, n))).to(torch.uint8)
+                    | (side.to(torch.uint8) << 1)).contiguous()
+            out["bcast_equiv_support"].append((seeds, r, n_real, nb, bits))
+    return out
+
+
+def check_byz_bcast_kernels(dev, gen):
+    """Phase 19's kernel rows. Every kernel call of rounds 3 and 20 of each
+    run BYZ_BCAST_RUNS (the equivocating one with telemetry and 8-round
+    windows), of KT, KU, KV and KAK on every ladder BYZ_BCAST_LADDERS'
+    rounds 3 and 20, of KAA on phase 18's built equivocating PBFT rounds
+    under §6b's crash mode, and the built inputs
+    (:func:`bcast_byz_edge_inputs`), against the plain versions, exact.
+    Then each timed instance BYZ_BCAST_TIMED on round 20 of its run: its
+    time, its plain version's and its bound, and its flat instance's time
+    and bound on the same inputs (KAK, which has none, gets the kernels
+    line's keys). Yields one row an instance."""
+    from consensus_tpu_torch.engines import pbft, pbft_sweep
+    errs = dict.fromkeys(BCAST + BYZ_BCAST_OWN + ("pbft_telemetry",), 0.0)
+    cases = dict.fromkeys(errs, 0)
+    timed = {}
+
+    def hold(calls, where):
+        hold_calls(calls, where, errs, cases)
+    for key in BYZ_BCAST_RUNS:
+        telemetry = key in BYZ_BCAST_TELEMETRY
+        cfg = byz_bcast_config(key, **(dict(telemetry_window=WINDOW)
+                                       if telemetry else {}))
+        for r in BYZ_ROUNDS:
+            calls = capture_round_calls(cfg, r, telemetry, dev)
+            hold(calls, f"{key} round {r}")
+            for name, (run, wrapper) in BYZ_BCAST_TIMED.items():
+                if run == key and r == 20:
+                    timed[name] = calls[wrapper or name][0]
+    for name, (make, rungs, _) in BYZ_BCAST_LADDERS.items():
+        cfg_pad = pbft_sweep._fsweep_static(make(), rungs)[1]
+        wrappers = BCAST + (BYZ_BCAST_OWN if cfg_pad.byz == 2 else ())
+        for wrapper in wrappers:
+            got = capture_calls(cfg_pad, BYZ_ROUNDS, wrapper, rungs, dev)
+            hold({wrapper: [a for calls in got.values() for a in calls]},
+                 f"the {name}")
+            for tname, (run, w) in BYZ_BCAST_TIMED.items():
+                if run == name and w == wrapper:
+                    timed[tname] = got[20][0]
+    safety = [(*a[:17], pbft.CRASH_VIEWS | pbft.CRASH_COMMITS, a[18])
+              for a in pbft_safety_cases(dev) if a[17]]
+    hold({"pbft_telemetry": safety}, "built equivocating §6b rounds")
+    hold(bcast_byz_edge_inputs(dev, gen), "built byzantine §6b inputs")
+    for name, (run, wrapper) in BYZ_BCAST_TIMED.items():
+        kernel = wrapper or name
+        args = timed[name]
+        mod = kernel_module(kernel)
+        fn, plain = getattr(mod, kernel), getattr(mod, kernel + "_plain")
+        own = kernel in BYZ_BCAST_OWN
+        reps = 3 if own else reps_for(args)
+        row = dict(name=name, max_abs_err=errs[kernel],
+                   cases=cases[kernel], timed_on=f"{run} round 20",
+                   ms=graph_ms(fn, args, reps),
+                   plain_ms=event_ms(plain, args, 1 if own else 5),
+                   bound=byz_bcast_bound(kernel, args))
+        if own:
+            row.update(route="cuda",
+                       source=f"consensus_tpu_torch/csrc/{kernel}.cu",
+                       replaces=BYZ_BCAST_REPLACES[kernel], library_ms=None)
+        else:
+            flat = bcast_byz_flat(kernel, args)
+            row.update(flat_instance_ms=graph_ms(fn, flat, reps),
+                       flat_instance_bound=bound(*flat_work(
+                           kernel, flat[:12] if kernel in BCAST else flat)))
+        yield row
+
+
+def check_byz_bcast_runs(card: str, smi: str) -> dict[str, int]:
+    """Phase 19's runs: each run BYZ_BCAST_RUNS (:func:`anchored_run`: its
+    anchor and views from the replay and the eager loop, KAK once a round
+    under equivocation and never in silent mode, KAK's share of the
+    replay's device time) and each ladder BYZ_BCAST_LADDERS
+    (:func:`anchored_ladder`); then BYZ_BCAST_TELEMETRY's run with
+    telemetry and 8-round windows (:func:`anchored_telemetry`). Returns
+    KAK's launches in pbft-100k-bcast's equivocating run."""
+    own = {}
+    for key, digest in BYZ_BCAST_RUNS.items():
+        cfg = byz_bcast_config(key)
+        row, launches, replayed, eager, full = anchored_run(cfg, digest)
+        row["elapsed_s"] = time.perf_counter() - T0
+        row["views_sha256"] = views_sha256(replayed["view"])
+        row["eager_views_sha256"] = views_sha256(eager["view"])
+        kak = full["hand_kernel_ms"].get("bcast_equiv_support", 0.0)
+        row["support_share"] = kak / full["device_ms"]
+        emit("byz_bcast_run", run=key, **row, card=card, power=smi)
+        require(row["views_sha256"] == BYZ_BCAST_VIEWS_SHA256[key]
+                and row["eager_views_sha256"] == BYZ_BCAST_VIEWS_SHA256[key],
+                f"{key}: views {row['views_sha256']} (replay), "
+                f"{row['eager_views_sha256']} (eager)")
+        require(launches["bcast_equiv_support"] == (
+            launches["bcast_view_preprepare"] if cfg.byz == 2 else 0),
+            f"{key}: KAK launched {launches['bcast_equiv_support']} times")
+        hold_run(key, row, digest, cfg, launches)
+        if key == "pbft-100k-bcast/equivocate":
+            own = launches
+    for name, (make, rungs, digest) in BYZ_BCAST_LADDERS.items():
+        anchored_ladder(name, make(), rungs, digest, "byz_bcast_run", card,
+                        smi)
+    for key, (nonzero, flight) in BYZ_BCAST_TELEMETRY.items():
+        anchored_telemetry(key, byz_bcast_config(key,
+                                                 telemetry_window=WINDOW),
+                           BYZ_BCAST_RUNS[key], nonzero, flight,
+                           "byz_bcast_telemetry", card, smi)
+    return {name: own[name] for name in BYZ_BCAST_OWN}
+
+
+# The script's start, for each phase-18 and phase-19 row's elapsed time.
 T0 = time.perf_counter()
 
 
@@ -5879,9 +6372,11 @@ def main() -> int:
                *check_dpos_paxos_kernels(dev, gen), *telemetry_rows,
                *check_hotstuff_kernels(dev, gen)]
     torch.cuda.synchronize()
-    # The §6c kernels (KAH, KAI) are phase 16's, KAJ phase 17's.
+    # The §6c kernels (KAH, KAI) are phase 16's, KAJ phase 17's, KAK
+    # phase 19's.
     require(sorted(k["name"] for k in kernels)
-            == sorted(set(_build.SOURCES) - set(CRASH_OWN + DESYNC_OWN)),
+            == sorted(set(_build.SOURCES)
+                      - set(CRASH_OWN + DESYNC_OWN + BYZ_BCAST_OWN)),
             "phase 3 does not check every kernel of csrc")
     # KQ, KT, KX, KY and KZ with their optional outputs, on the telemetry
     # runs' rounds.
@@ -6038,8 +6533,6 @@ def main() -> int:
                 f"{k['name']} under desync or crash disagrees with its "
                 "plain version")
     launches.update(check_desync_runs(card, smi))
-    require(sorted(k["name"] for k in kernels) == sorted(_build.SOURCES),
-            "phases 3, 16 and 17 do not check every kernel of csrc")
 
     # 18. SPEC §3c/§7c byzantine nodes (both Raft engines, dense PBFT and
     # its ladder, HotStuff): every kernel call of rounds 3 and 20 of the
@@ -6055,6 +6548,26 @@ def main() -> int:
                 f"{k['name']} with byzantine nodes disagrees with its plain "
                 "version")
     check_byz_runs(card, smi)
+
+    # 19. SPEC §3c/§7c byzantine nodes on the §6b engine and its bcast
+    # ladders: every kernel call of rounds 3 and 20 of the runs and the
+    # ladders and built inputs against the plain versions (KAK among
+    # them), then the runs.
+    for k in check_byz_bcast_kernels(dev, gen):
+        k["bound_ms"], k["bound_by"] = k.pop("bound")
+        if "flat_instance_bound" in k:
+            (k["flat_instance_bound_ms"],
+             k["flat_instance_bound_by"]) = k.pop("flat_instance_bound")
+        if k["name"] in BYZ_BCAST_OWN:
+            kernels.append(k)
+        emit("byz_bcast_kernel", **k, elapsed_s=time.perf_counter() - T0,
+             card=card, power=smi)
+        require(k["max_abs_err"] == 0.0,
+                f"{k['name']} with byzantine nodes on §6b disagrees with its "
+                "plain version")
+    launches.update(check_byz_bcast_runs(card, smi))
+    require(sorted(k["name"] for k in kernels) == sorted(_build.SOURCES),
+            "phases 3, 16, 17 and 19 do not check every kernel of csrc")
     emit("wall", elapsed_s=time.perf_counter() - T0)
     for k in kernels:
         k["launches"] = launches[k["name"]]

@@ -31,7 +31,8 @@ SOURCES = ("random_u32", "delivery_edges", "top_active", "append_entries",
            "paxos_promise", "paxos_accept_learn", "pbft_telemetry",
            "dpos_telemetry", "paxos_telemetry", "hotstuff_propose",
            "hotstuff_vote", "hotstuff_learn", "hotstuff_extract",
-           "crash_transition", "freeze_down", "hotstuff_prologue")
+           "crash_transition", "freeze_down", "hotstuff_prologue",
+           "bcast_equiv_support")
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "build" / \
@@ -132,17 +133,18 @@ SIGNATURES = {
     # timer, pp_seen, pp_view, pp_val, prepared, committed; view, timer,
     # reset, pp_seen, pp_view, pp_val, node bits outputs, histogram and
     # first-unseen-slot scratch, catch-up flags (null without telemetry);
-    # §6c flags (null on the flat path); B, N, S
+    # §6c flags (null on the flat path); B, N, S; byz mode, n_byzantine
     "bcast_view_preprepare": (_P, _U, _U, _U, _U, _U, _I, _I, _U, _U)
-    + (_P,) * 20 + (_I,) * 3,
+    + (_P,) * 20 + (_I,) * 5,
     # n_real, f, node bits, pp_seen, pp_val, prepared, committed, dval;
     # prepared, committed, dval outputs, scratch; scratch words; m, B, N,
-    # S, §6c (bit 2 of the node bits read)
-    "bcast_tally": (_P,) * 12 + (_L,) + (_I,) * 5,
+    # S, §6c (bit 2 of the node bits read); byz mode, n_byzantine, the
+    # equivocating support (null but under equivocation)
+    "bcast_tally": (_P,) * 12 + (_L,) + (_I,) * 7 + (_P,),
     # node bits, committed, dval, committed at round entry, timer, reset;
     # committed, dval, timer outputs, minima scratch; B, N, S, §6c (bit 2
-    # of the node bits read)
-    "bcast_decide": (_P,) * 10 + (_I,) * 4,
+    # of the node bits read); n_real (null on the flat path), n_byzantine
+    "bcast_decide": (_P,) * 10 + (_I,) * 4 + (_P, _I),
     # seeds; producers, tallies outputs; B, E, V, C, K
     "dpos_schedule": (_P,) * 3 + (_I,) * 5,
     # seed, round, producers; chain_r, chain_p, chain_len (in place),
@@ -219,6 +221,8 @@ SIGNATURES = {
     # max_skew; view_timeout, B, N, K, view_changes' column, window,
     # n_windows, n_byzantine
     "hotstuff_prologue": (_P, _U) + (_P,) * 7 + (_U, _U) + (_I,) * 8,
+    # seed, round, n_real, node bits; support output; n_byzantine, B, N
+    "bcast_equiv_support": (_P, _U, _P, _P, _P, _I, _I, _I),
 }
 
 

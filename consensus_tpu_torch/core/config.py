@@ -24,9 +24,9 @@ both PBFT engines, both f-ladders and HotStuff, and raises with the JAX
 package's message on the other protocols. The SPEC §3c/§7c byzantine nodes
 (``n_byzantine`` in [0, n_nodes], at most f on pbft and hotstuff, the ids
 from N - n_byzantine up; ``byz_mode`` "silent" or "equivocate") run on both
-Raft engines, dense PBFT, its f-ladder and HotStuff, with the JAX
-package's checks and messages; the §6b engine (``fault_model="bcast"``)
-with byzantine nodes raises with the port's own message. The other knobs
+Raft engines, both PBFT engines (``fault_model`` "edge" and "bcast"), their
+f-ladders and HotStuff, with the JAX package's checks and messages. The
+other knobs
 of the JAX package that this port does not implement yet are fields too,
 and setting one off its default raises ``ValueError``, also beside a
 delay, a crash, a desync or byzantine nodes; the port never ignores a
@@ -218,11 +218,6 @@ class Config:
             raise ValueError(
                 "max_skew_rounds requires desync_rate > 0 (SPEC §B) "
                 "— it would be silently ignored")
-        if self.fault_model == "bcast" and self.n_byzantine > 0:
-            raise ValueError(
-                "n_byzantine with fault_model='bcast' (SPEC §6b): not "
-                "supported by the port yet (the §6b tally table holds two "
-                "values a slot); it would be silently ignored")
         off = [k for k, d in UNSUPPORTED.items() if getattr(self, k) != d]
         if off:
             raise ValueError(f"{', '.join(off)}: not supported by the port "

@@ -36,6 +36,11 @@
 // keeps a node of bit 2 (down at the round's end) from adopting
 // (pbft_bcast.py:663-664); such a node is no decider either, since KT
 // cleared its bit 0.
+// Its BYZ instance (SPEC §3c, picked when n_real is given, with byzantine
+// nodes in either mode) takes the honest senders only as deciders (node i
+// of a lane is honest when i < n_real - nb; pbft_bcast.py:650,
+// pbft_sweep.py:461): bit 0 says that a node's broadcast goes out, honest
+// or not.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -49,10 +54,12 @@ constexpr int MAX_SG = 256;  // slots a block
 constexpr int NONE = 0x7F7F7F7F;
 
 // Launch 1. Grid (B * tiles, 1, slot groups), tiles = ceil(N / CHUNK).
+template <bool BYZ>
 __global__ void __launch_bounds__(THREADS)
 decide_min_kernel(const uint8_t* __restrict__ bits,
                   const bool* __restrict__ committed,
-                  int* __restrict__ imin, int N, int S, int tiles) {
+                  int* __restrict__ imin, int N, int S, int tiles,
+                  const int32_t* __restrict__ n_real, int nb) {
   __shared__ int low[MAX_SG][2];
   const int SG = S < MAX_SG ? S : MAX_SG;
   const int P = THREADS / SG;
@@ -67,8 +74,10 @@ decide_min_kernel(const uint8_t* __restrict__ bits,
     const long long nodes = static_cast<long long>(b) * N;
     const int i0 = (blockIdx.x - b * tiles) * CHUNK;
     const int i1 = min(i0 + CHUNK, N);
+    // BYZ: the senders from the first byzantine id up decide nothing.
+    const int top = BYZ ? min(i1, n_real[b] - nb) : i1;
     int first[2] = {NONE, NONE};
-    for (int i = i0 + t / SG; i < i1; i += P) {
+    for (int i = i0 + t / SG; i < top; i += P) {
       const uint8_t bi = bits[nodes + i];
       const int side = (bi >> 1) & 1;
       if ((bi & 1) && first[side] == NONE && committed[(nodes + i) * S + s])
@@ -175,14 +184,17 @@ decide_adopt_kernel(const uint8_t* __restrict__ bits,
 
 }  // namespace
 
-// imin is scratch, [B, 2, S] int32, set here.
+// imin is scratch, [B, 2, S] int32, set here. n_real is null on the flat
+// path; with byzantine nodes it is [B] int32 and nb their count.
 extern "C" int ctt_bcast_decide(const uint8_t* bits, const bool* committed,
                                 const int32_t* dval,
                                 const bool* committed_start,
                                 const int32_t* timer, const bool* reset,
                                 bool* com_out, int32_t* dval_out,
                                 int32_t* timer_out, int* imin, int B, int N,
-                                int S, int crash, cudaStream_t st) {
+                                int S, int crash, const int32_t* n_real,
+                                int nb, cudaStream_t st) {
+  if (nb < 0 || nb > N) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || N == 0) return 0;
   int err = 0;
   if (S > 0) {
@@ -196,8 +208,10 @@ extern "C" int ctt_bcast_decide(const uint8_t* bits, const bool* committed,
       return static_cast<int>(cudaErrorInvalidValue);
     const dim3 grid(static_cast<unsigned>(tiles * B), 1u,
                     static_cast<unsigned>(groups));
-    decide_min_kernel<<<grid, THREADS, 0, st>>>(bits, committed, imin, N, S,
-                                                tiles);
+    const auto minima = n_real != nullptr ? decide_min_kernel<true>
+                                          : decide_min_kernel<false>;
+    minima<<<grid, THREADS, 0, st>>>(bits, committed, imin, N, S, tiles,
+                                     n_real, nb);
     if ((err = static_cast<int>(cudaGetLastError())) != 0) return err;
   }
   int log_g = 0;

@@ -17,15 +17,24 @@
 // committed it.
 //
 // Exactness without the JAX package's sort: a count that can reach Q is at
-// least Tmin = 2f (the self term adds at most one), and the counting set
-// has at most n_real = 3f + 1 senders. With m counters (the table width:
-// 1 at f >= 2, 2 at f = 1, m_cap on a ladder), n_real / (m + 1) < Tmin,
-// so every value that can pass has a count above n / (m + 1) for its
-// counting set of n senders, and a Misra-Gries summary of m counters,
-// built in pieces and merged in any order, keeps it. Each phase therefore
-// recounts its at most m candidates exactly, and every other value counts
-// 0 here, where the JAX package's table may hold its true count below the
-// threshold: the quorum decisions, and so every output, are the same.
+// least Tmin = 2f - eb, where eb is the number of equivocators (0 without
+// them): the self term adds at most one and a receiver's extra (below) at
+// most eb. Config holds eb <= f, so Tmin >= f >= 1 at f >= 1. The counting
+// set has at most n_real = 3f + 1 senders. The table width m is the JAX
+// package's _table_width, max(1, min(n_real, n_real // Tmin)) (lines
+// 130-144), or on a ladder the largest of its rungs' (pbft_sweep.py:629-631):
+// 1 at f >= 2 and 2 at f = 1 without equivocators, 3 at eb = f >= 2, 4 at
+// eb = f = 1, never more than 4. Either m = n_real // Tmin, and then
+// (m + 1) Tmin > n_real, or m = n_real >= n_real / Tmin; so n_real /
+// (m + 1) < Tmin in every case, and a ladder lane's larger m_cap only widens
+// the summary. Every value that can pass therefore has a count above
+// n / (m + 1) for its counting set of n <= n_real senders, and a
+// Misra-Gries summary of m counters, built in pieces and merged in any
+// order, keeps it. Each phase recounts its at most m candidates exactly,
+// and every other value counts 0 here, where the JAX package's table may
+// hold its true count below the threshold: the quorum decisions, and so
+// every output, are the same. At m = n_real (f = eb = 1: four counters for
+// four nodes) the summary keeps every value of the slot outright.
 //
 // Bound: bytes. Each (node, slot) reads pp_seen, pp_val, prepared,
 // committed and dval and writes prepared, committed and dval (17 bytes);
@@ -58,9 +67,20 @@
 // as the round's tally reaches them, which the telemetry's commit_missed
 // reads; kernel KAA leaves them out of the quorums it counts and the
 // freeze (kernel KAI) drops them from the state.
+// Its BYZ instances (SPEC §3c/§7c, picked with byzantine nodes: node i of a
+// lane is honest when i < n_real - nb, byz.cuh) count the honest senders of
+// bit 0 only (bit 0 also marks a byzantine node's broadcast), and the self
+// term only where the receiver is honest (pbft_bcast.py:276-284, 328,
+// 351). Under equivocation each receiver's `extra` (kernel KAK) adds to its
+// P4 count in launch 3 and its P5 count in launch 5 (lines 322-353): launch
+// 3 decides each node's prepared flag with its own extra, which is the JAX
+// package's sorted-space P4 -> P5 chain, and launches 4 and 5 read those
+// flags. Summaries of 3 and 4 counters run only in these instances.
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "byz.cuh"
 
 namespace {
 
@@ -68,7 +88,7 @@ constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr unsigned FULL = 0xFFFFFFFFu;
 constexpr int CHUNK = 1024;  // nodes a block (as engines/pbft_bcast.py)
-constexpr int MAX_M = 2;     // the widest table (as engines/pbft_bcast.py)
+constexpr int MAX_M = 4;     // the widest table (as engines/pbft_bcast.py)
 constexpr int MAX_SG = 256;  // slots a block
 constexpr int UNROLL = 8;    // nodes a thread loads before it uses them
 
@@ -335,9 +355,16 @@ __device__ __forceinline__ int lookup(const Summary<M> (&tb)[2], int side,
   return n;
 }
 
+// The ids below which a lane's nodes are honest: n_real (BYZ: n_real - nb).
+template <bool BYZ>
+__device__ __forceinline__ int honest_top(const int32_t* __restrict__ n_real,
+                                          int b, int nb) {
+  return BYZ ? n_real[b] - nb : n_real[b];
+}
+
 // Launches 1 and 3. LOOKUP4: fold P4's lookup in first (launch 3), else
 // the relevant flags are pp_seen (launch 1).
-template <int M, bool LOOKUP4, bool CRASH>
+template <int M, bool LOOKUP4, bool CRASH, bool BYZ>
 __global__ void __launch_bounds__(THREADS)
 tally_candidates_kernel(const int32_t* __restrict__ n_real,
                         const int32_t* __restrict__ f,
@@ -346,7 +373,8 @@ tally_candidates_kernel(const int32_t* __restrict__ n_real,
                         const int32_t* __restrict__ pp_val,
                         const bool* __restrict__ prepared,
                         bool* __restrict__ prep_out, Scratch sc, int B,
-                        int N, int S) {
+                        int N, int S, int nb,
+                        const int32_t* __restrict__ extra) {
   const Place pl = place(N, S);
   Summary<M> mine[2];
   clear(mine[0]);
@@ -354,12 +382,13 @@ tally_candidates_kernel(const int32_t* __restrict__ n_real,
   Summary<M> tb[2];
   if (LOOKUP4) load_table(pl, 0, B, S, sc, true, tb);
   if (pl.on) {
-    const int n = n_real[pl.b];
+    const int n = honest_top<BYZ>(n_real, pl.b, nb);
     const int q4 = 2 * f[pl.b] + 1;
     const long long nodes = static_cast<long long>(pl.b) * N;
+    const bool ex = LOOKUP4 && BYZ && extra != nullptr;
     for (int i = pl.i0 + pl.sub; i < pl.i1; i += UNROLL * pl.P) {
       uint8_t bu[UNROLL];
-      int32_t xu[UNROLL];
+      int32_t xu[UNROLL], eu[UNROLL];
       bool seen[UNROLL], prep[UNROLL];
 #pragma unroll
       for (int u = 0; u < UNROLL; ++u) {
@@ -370,6 +399,7 @@ tally_candidates_kernel(const int32_t* __restrict__ n_real,
         xu[u] = in ? pp_val[e] : 0;
         seen[u] = in && pp_seen[e];
         prep[u] = LOOKUP4 && in && prepared[e];
+        eu[u] = ex && in ? extra[nodes + iu] : 0;
       }
 #pragma unroll
       for (int u = 0; u < UNROLL; ++u) {
@@ -379,11 +409,11 @@ tally_candidates_kernel(const int32_t* __restrict__ n_real,
         bool rel = seen[u];
         if (LOOKUP4 && iu < pl.i1) {
           const int cnt = lookup(tb, side, xu[u]) +
-                          (iu < n && !(bi & 1) && rel);
+                          (iu < n && !(bi & 1) && rel) + eu[u];
           rel = prep[u] || (rel && cnt >= q4 && !(CRASH && (bi & 4)));
           prep_out[(nodes + iu) * S + pl.s] = rel;
         }
-        if ((bi & 1) && rel) mg_insert(mine[side], xu[u]);
+        if ((bi & 1) && (!BYZ || iu < n) && rel) mg_insert(mine[side], xu[u]);
       }
     }
   }
@@ -391,12 +421,13 @@ tally_candidates_kernel(const int32_t* __restrict__ n_real,
 }
 
 // Launches 2 and 4: exact counts of the phase's candidates.
-template <int M>
+template <int M, bool BYZ>
 __global__ void __launch_bounds__(THREADS)
-tally_recount_kernel(const uint8_t* __restrict__ bits,
+tally_recount_kernel(const int32_t* __restrict__ n_real,
+                     const uint8_t* __restrict__ bits,
                      const bool* __restrict__ relevant,
                      const int32_t* __restrict__ pp_val, Scratch sc,
-                     int phase, int B, int N, int S) {
+                     int phase, int B, int N, int S, int nb) {
   __shared__ int sums[MAX_SG][2][M];
   const Place pl = place(N, S);
   const int SG = S < MAX_SG ? S : MAX_SG;
@@ -409,14 +440,17 @@ tally_recount_kernel(const uint8_t* __restrict__ bits,
   for (int q = 0; q < M; ++q) cnt[0][q] = cnt[1][q] = 0;
   if (pl.on) {
     const long long nodes = static_cast<long long>(pl.b) * N;
-    for (int i = pl.i0 + pl.sub; i < pl.i1; i += UNROLL * pl.P) {
+    // BYZ: the senders from the first byzantine id up count nothing.
+    const int i1 = BYZ ? min(pl.i1, honest_top<true>(n_real, pl.b, nb))
+                       : pl.i1;
+    for (int i = pl.i0 + pl.sub; i < i1; i += UNROLL * pl.P) {
       uint8_t bu[UNROLL];
       int32_t xu[UNROLL];
       bool rel[UNROLL];
 #pragma unroll
       for (int u = 0; u < UNROLL; ++u) {
         const int iu = i + u * pl.P;
-        const bool in = iu < pl.i1;
+        const bool in = iu < i1;
         const long long e = (nodes + iu) * S + pl.s;
         bu[u] = in ? bits[nodes + iu] : 0;
         xu[u] = in ? pp_val[e] : 0;
@@ -457,7 +491,7 @@ tally_recount_kernel(const uint8_t* __restrict__ bits,
 }
 
 // Launch 5: P5's lookup.
-template <int M>
+template <int M, bool BYZ>
 __global__ void __launch_bounds__(THREADS)
 tally_commit_kernel(const int32_t* __restrict__ n_real,
                     const int32_t* __restrict__ f,
@@ -468,17 +502,19 @@ tally_commit_kernel(const int32_t* __restrict__ n_real,
                     const int32_t* __restrict__ dval,
                     bool* __restrict__ com_out,
                     int32_t* __restrict__ dval_out, Scratch sc, int B,
-                    int N, int S) {
+                    int N, int S, int nb,
+                    const int32_t* __restrict__ extra) {
   const Place pl = place(N, S);
   Summary<M> tb[2];
   load_table(pl, 1, B, S, sc, true, tb);
   if (!pl.on) return;
-  const int n = n_real[pl.b];
+  const int n = honest_top<BYZ>(n_real, pl.b, nb);
+  const bool ex = BYZ && extra != nullptr;
   const int q5 = 2 * f[pl.b] + 1;
   const long long nodes = static_cast<long long>(pl.b) * N;
   for (int i = pl.i0 + pl.sub; i < pl.i1; i += UNROLL * pl.P) {
     uint8_t bu[UNROLL];
-    int32_t xu[UNROLL], du[UNROLL];
+    int32_t xu[UNROLL], du[UNROLL], eu[UNROLL];
     bool p2[UNROLL], com[UNROLL];
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
@@ -490,6 +526,7 @@ tally_commit_kernel(const int32_t* __restrict__ n_real,
       du[u] = in ? dval[e] : 0;
       p2[u] = in && prep[e];
       com[u] = in && committed[e];
+      eu[u] = ex && in ? extra[nodes + iu] : 0;
     }
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
@@ -498,7 +535,7 @@ tally_commit_kernel(const int32_t* __restrict__ n_real,
       const long long e = (nodes + iu) * S + pl.s;
       const uint8_t bi = bu[u];
       const int cnt = lookup(tb, (bi >> 1) & 1, xu[u]) +
-                      (iu < n && !(bi & 1) && p2[u]);
+                      (iu < n && !(bi & 1) && p2[u]) + eu[u];
       const bool now = p2[u] && cnt >= q5 && !com[u];
       com_out[e] = com[u] || now;
       dval_out[e] = now ? xu[u] : du[u];
@@ -506,37 +543,58 @@ tally_commit_kernel(const int32_t* __restrict__ n_real,
   }
 }
 
-template <int M, bool CRASH>
+template <int M, bool CRASH, bool BYZ>
 int launch_all(const int32_t* n_real, const int32_t* f, const uint8_t* bits,
                const bool* pp_seen, const int32_t* pp_val,
                const bool* prepared, const bool* committed,
                const int32_t* dval, bool* prep_out, bool* com_out,
                int32_t* dval_out, const Scratch& sc, dim3 grid, int B, int N,
-               int S, cudaStream_t st) {
+               int S, int nb, const int32_t* extra, cudaStream_t st) {
   int err;
-  tally_candidates_kernel<M, false, false><<<grid, THREADS, 0, st>>>(
-      n_real, f, bits, pp_seen, pp_val, prepared, prep_out, sc, B, N, S);
+  tally_candidates_kernel<M, false, false, BYZ><<<grid, THREADS, 0, st>>>(
+      n_real, f, bits, pp_seen, pp_val, prepared, prep_out, sc, B, N, S, nb,
+      extra);
   if ((err = static_cast<int>(cudaGetLastError())) != 0) return err;
-  tally_recount_kernel<M><<<grid, THREADS, 0, st>>>(bits, pp_seen, pp_val,
-                                                    sc, 0, B, N, S);
+  tally_recount_kernel<M, BYZ><<<grid, THREADS, 0, st>>>(
+      n_real, bits, pp_seen, pp_val, sc, 0, B, N, S, nb);
   if ((err = static_cast<int>(cudaGetLastError())) != 0) return err;
-  tally_candidates_kernel<M, true, CRASH><<<grid, THREADS, 0, st>>>(
-      n_real, f, bits, pp_seen, pp_val, prepared, prep_out, sc, B, N, S);
+  tally_candidates_kernel<M, true, CRASH, BYZ><<<grid, THREADS, 0, st>>>(
+      n_real, f, bits, pp_seen, pp_val, prepared, prep_out, sc, B, N, S, nb,
+      extra);
   if ((err = static_cast<int>(cudaGetLastError())) != 0) return err;
-  tally_recount_kernel<M><<<grid, THREADS, 0, st>>>(bits, prep_out, pp_val,
-                                                    sc, 1, B, N, S);
+  tally_recount_kernel<M, BYZ><<<grid, THREADS, 0, st>>>(
+      n_real, bits, prep_out, pp_val, sc, 1, B, N, S, nb);
   if ((err = static_cast<int>(cudaGetLastError())) != 0) return err;
-  tally_commit_kernel<M><<<grid, THREADS, 0, st>>>(
+  tally_commit_kernel<M, BYZ><<<grid, THREADS, 0, st>>>(
       n_real, f, bits, pp_val, prep_out, committed, dval, com_out, dval_out,
-      sc, B, N, S);
+      sc, B, N, S, nb, extra);
   return static_cast<int>(cudaGetLastError());
+}
+
+using LaunchAll = int (*)(const int32_t*, const int32_t*, const uint8_t*,
+                          const bool*, const int32_t*, const bool*,
+                          const bool*, const int32_t*, bool*, bool*,
+                          int32_t*, const Scratch&, dim3, int, int, int, int,
+                          const int32_t*, cudaStream_t);
+
+// The instance of width m: 1 or 2 without byzantine nodes, 1 to 4 with.
+template <bool CRASH, bool BYZ>
+LaunchAll pick(int m) {
+  if (m == 1) return launch_all<1, CRASH, BYZ>;
+  if (m == 2) return launch_all<2, CRASH, BYZ>;
+  if constexpr (BYZ) {
+    if (m == 3) return launch_all<3, CRASH, BYZ>;
+    if (m == 4) return launch_all<4, CRASH, BYZ>;
+  }
+  return nullptr;
 }
 
 }  // namespace
 
 // scratch is `words` int32 words (engines/pbft_bcast.py
 // tally_scratch_ints); its counters are zeroed here. m, the counters a
-// summary keeps, is 1 or 2 (the table width without byzantine nodes).
+// summary keeps, is the table width: 1 or 2 without byzantine nodes, up to
+// 4 with them. extra, [B, N] int32, is given exactly with byz = BYZ_EQUIV.
 extern "C" int ctt_bcast_tally(const int32_t* n_real, const int32_t* f,
                                const uint8_t* bits, const bool* pp_seen,
                                const int32_t* pp_val, const bool* prepared,
@@ -544,9 +602,18 @@ extern "C" int ctt_bcast_tally(const int32_t* n_real, const int32_t* f,
                                bool* prep_out, bool* com_out,
                                int32_t* dval_out, int* scratch,
                                long long words, int m, int B, int N, int S,
-                               int crash, cudaStream_t st) {
+                               int crash, int byz, int nb,
+                               const int32_t* extra, cudaStream_t st) {
+  if (nb < 0 || nb > N || byz < ctt::BYZ_NONE || byz > ctt::BYZ_EQUIV ||
+      (byz == ctt::BYZ_EQUIV) != (extra != nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool hon = byz != ctt::BYZ_NONE;
+  const LaunchAll all = hon ? (crash ? pick<true, true>(m)
+                                     : pick<false, true>(m))
+                            : (crash ? pick<true, false>(m)
+                                     : pick<false, false>(m));
+  if (all == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || N == 0 || S == 0) return 0;
-  if (m < 1 || m > MAX_M) return static_cast<int>(cudaErrorInvalidValue);
   const int nblk = (N + CHUNK - 1) / CHUNK;
   const int SG = S < MAX_SG ? S : MAX_SG;
   const int groups = (S + SG - 1) / SG;
@@ -568,8 +635,6 @@ extern "C" int ctt_bcast_tally(const int32_t* n_real, const int32_t* f,
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(static_cast<unsigned>(nblk * B), 1u,
                   static_cast<unsigned>(groups));
-  const auto all = m == 1 ? (crash ? launch_all<1, true> : launch_all<1, false>)
-                          : (crash ? launch_all<2, true> : launch_all<2, false>);
   return all(n_real, f, bits, pp_seen, pp_val, prepared, committed, dval,
-             prep_out, com_out, dval_out, sc, grid, B, N, S, st);
+             prep_out, com_out, dval_out, sc, grid, B, N, S, nb, extra, st);
 }

@@ -68,10 +68,24 @@
 // post-P2 views), so the skew is drawn once a node. The freeze (KAI)
 // restores a down node's timer from the round's input, so it drops the
 // skew, as the JAX package's frozen capture does.
+// Its BYZ instances (SPEC §3c/§7c, picked with byzantine nodes: node i of a
+// lane is honest when i < n_real - nb, byz.cuh) keep bit 0 as it is (the
+// broadcast goes out, honest or not: a byzantine primary's offer and kernel
+// KAK's senders read it) and count only honest senders in P1: launch 1 adds
+// only their views to the histogram and launch 2 lets only them take a1
+// (pbft_bcast.py:470, 497-498). In launch 3 only an honest primary offers
+// as above (line 511); the equivocate instance lets a byzantine primary p
+// offer every slot to each real receiver j it reaches (p == j, or its bit 0
+// and j's side), whatever the views, the value drawn from j's view and
+// slot with subdraw 4 where p's stance toward j (ctt::equiv_stance,
+// absolute ids) is set, else 3 (lines 519-545; pbft_sweep.py:410-431).
+// That instance draws the stance and a value for each (receiver, slot) of a
+// byzantine primary: the bound counts both.
 #include <climits>
 
 #include <cuda_runtime.h>
 
+#include "byz.cuh"
 #include "crash.cuh"
 #include "rng.cuh"
 
@@ -106,8 +120,9 @@ __device__ __forceinline__ int32_t churn_step(uint32_t sd, uint32_t r,
 
 // Launches 1 and 2 run on B * tiles blocks, tiles = ceil(N / THREADS):
 // block x is lane x / tiles, nodes THREADS (x mod tiles) on, so the lane
-// count has no grid limit of its own; nb = vmax + 2 bins a side.
-template <bool DELAY, bool CRASH>
+// count has no grid limit of its own; nb = vmax + 2 bins a side. BYZ: only
+// honest senders (i < n_real - n_byz) count.
+template <bool DELAY, bool CRASH, bool BYZ>
 __global__ void __launch_bounds__(THREADS)
 bcast_senders_kernel(const uint32_t* __restrict__ seed, uint32_t r,
                      uint32_t churn_cut, uint32_t drop_cut,
@@ -116,7 +131,7 @@ bcast_senders_kernel(const uint32_t* __restrict__ seed, uint32_t r,
                      const int32_t* __restrict__ view,
                      uint8_t* __restrict__ bits_out, int* __restrict__ hist,
                      const unsigned char* __restrict__ flags, int N, int nb,
-                     bool smem, int tiles) {
+                     bool smem, int tiles, int n_byz) {
   extern __shared__ int sh[];
   const int b = blockIdx.x / tiles;
   const int i = (blockIdx.x - b * tiles) * THREADS + threadIdx.x;
@@ -145,7 +160,7 @@ bcast_senders_kernel(const uint32_t* __restrict__ seed, uint32_t r,
         ctt::random_u32(sd, ctt::STREAM_PARTITION, r, 0u, 0u) < part_cut)
       side = ctt::random_u32(sd, ctt::STREAM_PARTITION, r, 1u, ui) & 1u;
     bits_out[row] = static_cast<uint8_t>(hb | (side << 1) | (down << 2));
-    if (hb) {
+    if (hb && (!BYZ || i < n_real[b] - n_byz)) {
       const int32_t vplus = wrap_add(entry<CRASH>(view, flags, row),
                                      churn_step(sd, r, churn_cut) + 1);
       if (vplus >= 1)
@@ -164,7 +179,7 @@ bcast_senders_kernel(const uint32_t* __restrict__ seed, uint32_t r,
 }
 
 // Launch 2.
-template <bool CRASH, bool DESYNC>
+template <bool CRASH, bool DESYNC, bool BYZ>
 __global__ void __launch_bounds__(THREADS)
 bcast_catchup_kernel(const uint32_t* __restrict__ seed, uint32_t r,
                      uint32_t churn_cut, int32_t view_timeout,
@@ -180,8 +195,9 @@ bcast_catchup_kernel(const uint32_t* __restrict__ seed, uint32_t r,
                      bool* __restrict__ reset_out,
                      int32_t* __restrict__ fresh_out,
                      bool* __restrict__ catch_out,
+                     const int32_t* __restrict__ n_real,
                      const unsigned char* __restrict__ flags, int N, int S,
-                     int nb, int tiles) {
+                     int nb, int tiles, int n_byz) {
   __shared__ int32_t stat[4];  // a1 side 0, a1 side 1, a2 side 0, a2 side 1
   const int b = blockIdx.x / tiles;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -231,7 +247,8 @@ bcast_catchup_kernel(const uint32_t* __restrict__ seed, uint32_t r,
   const uint8_t bj = bits[row];
   const int side = (bj >> 1) & 1;
   const int32_t a1 = stat[side], a2 = stat[2 + side];
-  const int32_t vth = (bj & 1) ? a1 : min(max(v, a1), a2);
+  const bool sender = (bj & 1) && (!BYZ || j < n_real[b] - n_byz);
+  const int32_t vth = sender ? a1 : min(max(v, a1), a2);
   const bool caught = vth > v;
   if (caught) {
     v = vth;
@@ -263,8 +280,9 @@ bcast_catchup_kernel(const uint32_t* __restrict__ seed, uint32_t r,
 // block x lane x / tiles: a thread per PER_THREAD (receiver, slot) entries
 // of a lane, THREADS apart, so that each warp access is consecutive and a
 // thread has several in flight.
+template <int BYZ>
 __global__ void __launch_bounds__(THREADS)
-bcast_preprepare_kernel(const uint32_t* __restrict__ seed,
+bcast_preprepare_kernel(const uint32_t* __restrict__ seed, uint32_t r,
                         const int32_t* __restrict__ n_real,
                         const int32_t* __restrict__ view,
                         const uint8_t* __restrict__ bits,
@@ -277,7 +295,7 @@ bcast_preprepare_kernel(const uint32_t* __restrict__ seed,
                         bool* __restrict__ seen_out,
                         int32_t* __restrict__ pview_out,
                         int32_t* __restrict__ pval_out, int N, int S,
-                        int tiles) {
+                        int tiles, int n_byz) {
   const int b = blockIdx.x / tiles;
   const int tile = blockIdx.x - b * tiles;
   const long long nodes = static_cast<long long>(b) * N;
@@ -298,13 +316,31 @@ bcast_preprepare_kernel(const uint32_t* __restrict__ seed,
     const int32_t vp = view[prow];
     // The primary's offer reaches j: j itself, or a sender of j's side,
     // in j's view. A primary in j's view maps that view to itself, so it
-    // leads.
+    // leads. BYZ: only an honest primary leads; an equivocating one (byzp)
+    // offers in any view.
     const uint8_t pb = bits[prow];
-    const bool ok = j < n && vp == v &&
-                    (p == j || ((pb & 1) && ((pb ^ bits[row]) & 2) == 0));
+    const bool reach =
+        j < n && (p == j || ((pb & 1) && ((pb ^ bits[row]) & 2) == 0));
+    const bool honest_p = BYZ == ctt::BYZ_NONE || p < n - n_byz;
+    const bool byzp = BYZ == ctt::BYZ_EQUIV && !honest_p;
+    const bool ok = reach && honest_p && vp == v;
     bool seen = pp_seen[e];
     int32_t pv = pp_view[e], val = pp_val[e];
-    if (ok) {
+    if (byzp && reach) {
+      const uint32_t sub =
+          ctt::equiv_stance(sd, r, static_cast<uint32_t>(p),
+                            static_cast<uint32_t>(j))
+              ? 4u
+              : 3u;
+      const int32_t mval = static_cast<int32_t>(
+          ctt::random_u32(sd, ctt::STREAM_VALUE, static_cast<uint32_t>(v),
+                          sub, static_cast<uint32_t>(s)));
+      if ((!seen || pv < v) && (!prepared[e] || mval == val)) {
+        seen = true;
+        pv = v;
+        val = mval;
+      }
+    } else if (ok) {
       const long long ps = prow * S + s;
       const bool pseen = pp_seen[ps];
       if ((pseen && !committed[ps]) || s == fresh[prow]) {
@@ -341,7 +377,9 @@ extern "C" int ctt_bcast_view_preprepare(
     int32_t* view_out, int32_t* timer_out, bool* reset_out, bool* seen_out,
     int32_t* pview_out, int32_t* pval_out, uint8_t* bits_out, int* hist,
     int32_t* fresh, bool* catch_out, const unsigned char* flags, int B, int N,
-    int S, cudaStream_t st) {
+    int S, int byz, int n_byz, cudaStream_t st) {
+  if (n_byz < 0 || n_byz > N || byz < ctt::BYZ_NONE || byz > ctt::BYZ_EQUIV)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || N == 0) return 0;
   if (vmax < 0) return static_cast<int>(cudaErrorInvalidValue);
   const int nb = vmax + 2;
@@ -354,27 +392,36 @@ extern "C" int ctt_bcast_view_preprepare(
   const long long blocks = static_cast<long long>(tiles) * B;
   if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
   const bool delay = max_delay != 0u, crash = flags != nullptr;
+  const bool hon = byz != ctt::BYZ_NONE;
   const auto senders =
-      crash ? (delay ? bcast_senders_kernel<true, true>
-                     : bcast_senders_kernel<false, true>)
-            : (delay ? bcast_senders_kernel<true, false>
-                     : bcast_senders_kernel<false, false>);
+      hon ? (crash ? (delay ? bcast_senders_kernel<true, true, true>
+                            : bcast_senders_kernel<false, true, true>)
+                   : (delay ? bcast_senders_kernel<true, false, true>
+                            : bcast_senders_kernel<false, false, true>))
+          : (crash ? (delay ? bcast_senders_kernel<true, true, false>
+                            : bcast_senders_kernel<false, true, false>)
+                   : (delay ? bcast_senders_kernel<true, false, false>
+                            : bcast_senders_kernel<false, false, false>));
   senders<<<static_cast<unsigned>(blocks), THREADS, smem ? hist_bytes : 0,
             st>>>(seed, r, churn_cut, drop_cut, part_cut, max_delay, n_real,
-                  view, bits_out, hist, flags, N, nb, smem, tiles);
+                  view, bits_out, hist, flags, N, nb, smem, tiles, n_byz);
   if ((err = static_cast<int>(cudaGetLastError())) != 0) return err;
   const bool desync = desync_cut != 0u;
   if (desync && max_skew == 0u)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto catchup =
-      crash ? (desync ? bcast_catchup_kernel<true, true>
-                      : bcast_catchup_kernel<true, false>)
-            : (desync ? bcast_catchup_kernel<false, true>
-                      : bcast_catchup_kernel<false, false>);
+      hon ? (crash ? (desync ? bcast_catchup_kernel<true, true, true>
+                             : bcast_catchup_kernel<true, false, true>)
+                   : (desync ? bcast_catchup_kernel<false, true, true>
+                             : bcast_catchup_kernel<false, false, true>))
+          : (crash ? (desync ? bcast_catchup_kernel<true, true, false>
+                             : bcast_catchup_kernel<true, false, false>)
+                   : (desync ? bcast_catchup_kernel<false, true, false>
+                             : bcast_catchup_kernel<false, false, false>));
   catchup<<<static_cast<unsigned>(blocks), THREADS, 0, st>>>(
       seed, r, churn_cut, view_timeout, desync_cut, max_skew, f, view, timer,
       pp_seen, bits_out, hist, view_out, timer_out, reset_out, fresh,
-      catch_out, flags, N, S, nb, tiles);
+      catch_out, n_real, flags, N, S, nb, tiles, n_byz);
   if ((err = static_cast<int>(cudaGetLastError())) != 0) return err;
   const long long per_lane = static_cast<long long>(N) * S;
   if (per_lane == 0) return 0;
@@ -382,10 +429,13 @@ extern "C" int ctt_bcast_view_preprepare(
   const long long tile = static_cast<long long>(THREADS) * PER_THREAD;
   const long long tiles3 = (per_lane + tile - 1) / tile;
   if (tiles3 * B > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  bcast_preprepare_kernel<<<static_cast<unsigned>(tiles3 * B), THREADS, 0,
-                            st>>>(
-      seed, n_real, view_out, bits_out, fresh, pp_seen, pp_view, pp_val,
+  const auto preprepare =
+      byz == ctt::BYZ_SILENT  ? bcast_preprepare_kernel<ctt::BYZ_SILENT>
+      : byz == ctt::BYZ_EQUIV ? bcast_preprepare_kernel<ctt::BYZ_EQUIV>
+                              : bcast_preprepare_kernel<ctt::BYZ_NONE>;
+  preprepare<<<static_cast<unsigned>(tiles3 * B), THREADS, 0, st>>>(
+      seed, r, n_real, view_out, bits_out, fresh, pp_seen, pp_view, pp_val,
       prepared, committed, seen_out, pview_out, pval_out, N, S,
-      static_cast<int>(tiles3));
+      static_cast<int>(tiles3), n_byz);
   return static_cast<int>(cudaGetLastError());
 }

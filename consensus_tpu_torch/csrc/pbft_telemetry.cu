@@ -51,7 +51,9 @@
 // live nodes, in both modes (pbft.py:410). The equivocate instance also
 // counts the safety tail (lines 386-405): per slot, the extremes of pp_val
 // over this round's honest commits by the tally (committed_tally &
-// ~committed_in) and of the decided value over the honest committed nodes
+// ~committed_in, without a down node's under CRASH_COMMITS, as the §6b
+// round's commit_now, pbft_bcast.py:354-356, 700) and of the decided value
+// over the honest committed nodes
 // as the freeze leaves them (a down node's committed flag and dval at round
 // entry); each block keeps a slot's two extremes' order keys (max key, max
 // complemented key) in dynamic shared memory and merges them into the
@@ -190,7 +192,7 @@ pbft_telemetry_kernel(const int32_t* __restrict__ n_real,
         key = lat_bucket(r - static_cast<int>(e % S));
       if (EQUIV && e / S - nodes < n_hon) {
         const int sl = static_cast<int>(e % S);
-        if (ct && !cin) {
+        if (ct && !cin && kept) {
           const uint32_t k = order_key(pp_val[e]);
           atomicMax(&s_slot[sl], k);
           atomicMax(&s_slot[S + sl], ~k);

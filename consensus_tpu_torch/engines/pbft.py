@@ -180,17 +180,20 @@ def vth_select_plain(w, f, vmax: int) -> torch.Tensor:
     return lo - 1
 
 
-def fresh_values(seed, view, S: int) -> torch.Tensor:
+def fresh_values(seed, view, S: int, sub=2) -> torch.Tensor:
     """[B, N, S] proposal values: the i32 bit pattern of the Threefry draw
-    (seed ^ STREAM_VALUE, ctx = each node's view, c0 = 2, c1 = slot)."""
+    (seed ^ STREAM_VALUE, ctx = each node's view, c0 = ``sub``, c1 =
+    slot). ``sub`` is 2 for an honest primary's fresh value, or a [B, N]
+    tensor: an equivocating primary's 4 or 3 toward each receiver."""
     k0 = (rng.as_u32(seed) ^ rng.STREAM_VALUE)[:, None, None]
     k1 = rng.as_u32(view)[:, :, None]
     slots = torch.arange(S, dtype=torch.int64, device=view.device)
     shape = (*view.shape, S)
+    c0 = torch.as_tensor(sub, dtype=torch.int64, device=view.device)
+    if c0.dim():
+        c0 = c0[:, :, None]
     d = rng.threefry2x32_plain(k0.expand(shape), k1.expand(shape),
-                               torch.full(shape, 2, dtype=torch.int64,
-                                          device=view.device),
-                               slots.expand(shape))
+                               c0.expand(shape), slots.expand(shape))
     return bitcast_i32(d)
 
 
@@ -287,12 +290,7 @@ def pbft_view_preprepare_plain(cfg: Config, seed, r: int, deliver, n_real, f,
     if cfg.byz == BYZ_EQUIV:
         prim_byz = (real & ~honest).gather(1, prim)              # [B, N]
         sup = stances(seed, r, N).gather(1, prim[:, None, :])[:, 0]
-        k0 = (rng.as_u32(seed) ^ rng.STREAM_VALUE)[:, None, None]
-        shape = (B, N, S)
-        bval = bitcast_i32(rng.threefry2x32_plain(
-            k0.expand(shape), rng.as_u32(view)[:, :, None].expand(shape),
-            torch.where(sup, 4, 3).to(torch.int64)[:, :, None].expand(shape),
-            torch.arange(S, dtype=torch.int64, device=dev).expand(shape)))
+        bval = fresh_values(seed, view, S, torch.where(sup, 4, 3))
         prim_ok = torch.where(
             prim_byz, del_self.gather(1, prim[:, None, :])[:, 0] & real,
             prim_ok)
@@ -529,12 +527,17 @@ def pbft_telemetry_plain(cfg: Config, r: int, n_real, view_in, timer_in, view,
     entry, the catch-up flags ``catch`` and ``pp_seen`` after P3,
     ``prepared`` and ``committed_tally`` after P5, ``view`` and
     ``committed`` at the round's end. The SPEC §B tail is taken over the
-    lane's real live nodes (i < ``n_real``, not ``down``); the
-    aggregation and safety tails stay 0, and the crash tail is kernel
-    KAH's to add. Under SPEC §6c ``down`` is the mask at the round's end,
-    ``view`` and ``committed`` are the round's values before the freeze,
-    and ``crash`` (CRASH_VIEWS, CRASH_COMMITS) says which terms leave the
-    down nodes out. Updates ``t``, ``w`` and ``lat`` in place."""
+    lane's honest live nodes (i < ``n_real`` - n_byzantine, not
+    ``down``); the aggregation tail stays 0, and the crash tail is kernel
+    KAH's to add. Under byzantine equivocation the safety tail counts,
+    over the honest nodes, the slots whose commits by the tally hold two
+    values of ``values[0]`` (pp_val after P3) and those whose decided
+    values at the round's end differ (``values[1]``, ``values[2]``: dval
+    at entry and after the round). Under SPEC §6c ``down`` is the mask at
+    the round's end, ``view`` and ``committed`` are the round's values
+    before the freeze, and ``crash`` (CRASH_VIEWS, CRASH_COMMITS) says
+    which terms leave the down nodes out. Updates ``t``, ``w`` and ``lat``
+    in place."""
     B, N, S = pp_seen.shape
     check_recorder(cfg, w, lat)
 
@@ -562,8 +565,7 @@ def pbft_telemetry_plain(cfg: Config, r: int, n_real, view_in, timer_in, view,
             lo = torch.where(mask, val, 2**31 - 1).amin(1)
             hi = torch.where(mask, val, -2**31).amax(1)
             return mask.any(1) & (hi != lo)
-        forked = split(committed_tally & ~committed_in & honest[:, :, None],
-                       pp_val)
+        forked = split(commit_now & honest[:, :, None], pp_val)
         frozen = down[:, :, None]
         cm = torch.where(frozen, committed_in, committed) & honest[:, :, None]
         conflicts = split(cm, torch.where(frozen, dval_in, dval))

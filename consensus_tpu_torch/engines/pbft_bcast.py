@@ -1,9 +1,9 @@
 """PBFT under the broadcast-atomic fault model (SPEC §6b) in PyTorch.
 
 The port of ``consensus_tpu/engines/pbft_bcast.py`` on its flat path (no
-byzantine or switch gates; with the SPEC §A.2 delayed retransmission on
-the per-sender broadcast key, the SPEC §6c crash-recover adversary and
-the SPEC §B timer skew), with its telemetry and
+switch gates; with the SPEC §A.2 delayed retransmission on the per-sender
+broadcast key, the SPEC §6c crash-recover adversary, the SPEC §B timer
+skew and the SPEC §3c/§7c byzantine nodes), with its telemetry and
 flight recorder (kernel KAA, ``engines/pbft.py``
 :func:`~consensus_tpu_torch.engines.pbft.pbft_telemetry`, as the dense
 engine's), and, through the same functions, of
@@ -16,22 +16,24 @@ runs at N = 100 000.
 
 As in ``engines/pbft.py``, every phase takes the per-lane population
 ``n_real`` and tolerance ``f`` ([B] int32): node ``i`` of lane ``b`` is
-real (and honest) when ``i < n_real[b]``, the quorum is ``2 f[b] + 1``,
+real when ``i < n_real[b]``, and honest when ``i < n_real[b] -
+n_byzantine`` (every real node without byzantine nodes), the quorum is
+``2 f[b] + 1``,
 P1's ranks are ``f[b] + 1`` and ``f[b]``, and the primary is ``view mod
 n_real[b]``. A standalone run is the case ``n_real = n_nodes``, ``f =
 cfg.f`` on every lane, so the standalone engine and the f-ladder share
 one set of kernels.
 
 The round's per-node facts travel as one byte a node (:func:`node_bits`):
-bit 0 is ``honest & bcast`` (a real node whose broadcast goes out this
-round), bit 1 its side, the drawn partition side while the round's
+bit 0 is ``bcast`` (a real node whose broadcast goes out this round,
+honest or not), bit 1 its side, the drawn partition side while the round's
 partition is active and 0 otherwise, and under SPEC §6c bit 2 is set for
 a node down at the round's end, whose broadcast then does not go out. A node counts towards, and reads, the
 aggregate of its own side only: with the partition active that is the
 JAX package's ``side_ok``, and without it both of the JAX package's
 per-side aggregates are the same, so one serves everyone.
 
-Three functions are wrappers of hand-written CUDA kernels, each beside its
+Four functions are wrappers of hand-written CUDA kernels, each beside its
 plain PyTorch version (``<name>_plain``), which CPU tensors run:
 
 * :func:`bcast_view_preprepare` — kernel KT
@@ -40,7 +42,10 @@ plain PyTorch version (``<name>_plain``), which CPU tensors run:
 * :func:`bcast_tally` — kernel KU (``csrc/bcast_tally.cu``): P4 the
   prepare quorum and P5 the commit quorum, counted per (slot, side);
 * :func:`bcast_decide` — kernel KV (``csrc/bcast_decide.cu``): P6 the
-  min-id decide gossip per (slot, side) and P7 the timers.
+  min-id decide gossip per (slot, side) and P7 the timers;
+* :func:`bcast_equiv_support` — kernel KAK (``csrc/bcast_equiv_support.cu``):
+  under byzantine equivocation, each receiver's ``extra``, the byzantine
+  senders whose broadcast reaches it and whose stance toward it is set.
 
 With ``crash_prob > 0`` the round starts with kernel KAH (``ops/
 adversary.py`` ``crash_transition``) and ends with the freeze of
@@ -52,6 +57,16 @@ the telemetry counts. With ``desync_rate > 0`` KT's DESYNC instance adds
 each node's SPEC §B timer skew to the timer it enters the round with; the
 freeze reads the round's input, so a down node's skew is dropped.
 
+With byzantine nodes (``Config.byz``, SPEC §3c/§7c) KT, KU, KV and KAA run
+BYZ instances: in both modes only honest senders count in P1, the tallies
+and the decide gossip, only an honest primary offers, and a node's own
+vote counts only where it is honest. Under equivocation KAK runs between
+KT and KU: KU adds each receiver's ``extra`` to its P4 and P5 counts, KT
+lets a byzantine primary offer every slot to each receiver its broadcast
+reaches, with a value drawn from the receiver's view and its stance toward
+it, and KAA counts the §7c safety tail. The tables KU keeps grow to the
+JAX package's width under equivocation (:func:`table_width`, up to 4).
+
 The plain versions follow the JAX package's algorithms (P1 by a binary
 search on the view range, P4-P5 by one sort and top-``m`` run tables);
 the kernels compute the same functions without a sort (see each source).
@@ -62,12 +77,13 @@ from __future__ import annotations
 import torch
 
 from ..core import rng
-from ..core.config import Config
+from ..core.config import BYZ_EQUIV, BYZ_NONE, BYZ_SILENT, Config
 from ..ops.adversary import (CRASH_DOWN, CRASH_REC, churn, crash_step,
-                             open_drop_plain)
+                             equiv_stance_plain, open_drop_plain)
 from ..ops.viewsync import desync_skew_plain
 from . import pbft
-from .pbft import PbftState, fresh_values, real_nodes, view_bound
+from .pbft import (PbftState, fresh_values, honest_nodes, real_nodes,
+                   view_bound)
 from .raft import check_all
 
 # The engine's name, as the JAX package's EngineDef names it.
@@ -76,29 +92,34 @@ NAME = "pbft-bcast"
 I32_MAX = 2**31 - 1
 I32_MIN = -2**31
 # The widest top-m table kernel KU keeps (as csrc/bcast_tally.cu MAX_M):
-# m is 1 or 2 without byzantine nodes (:func:`table_width`).
-MAX_M = 2
+# m is 1 or 2 without equivocators, up to 4 with them (:func:`table_width`).
+MAX_M = 4
 # Nodes a block of KU's and KV's passes covers (as csrc/bcast_tally.cu
 # CHUNK), which sizes KU's per-block summaries.
 CHUNK = 1024
 
 
-def table_width(n_nodes: int, f: int) -> int:
-    """The JAX package's ``_table_width`` without byzantine nodes: how many
-    values of one (slot, side) can reach a quorum threshold. A value that
-    passes any node's check has at least Tmin = 2f same-value senders
-    among at most ``n_nodes``, so at most ``n_nodes // Tmin`` values
-    qualify; 1 at f >= 2 and 2 at f = 1."""
-    return max(1, min(n_nodes, n_nodes // max(1, 2 * f)))
+def table_width(n_nodes: int, f: int, eb: int = 0) -> int:
+    """The JAX package's ``_table_width`` (``consensus_tpu/engines/
+    pbft_bcast.py:130-144``): how many values of one (slot, side) can reach
+    a quorum threshold, with ``eb`` equivocators. A value that passes any
+    node's check has at least Tmin = 2f - eb same-value senders (the self
+    term adds at most one, a receiver's ``extra`` at most eb) among at
+    most ``n_nodes``, so at most ``n_nodes // Tmin`` values qualify: 1 at
+    f >= 2 and 2 at f = 1 without equivocators, 3 at eb = f >= 2, 4 at
+    f = eb = 1."""
+    return max(1, min(n_nodes, n_nodes // max(1, 2 * f - eb)))
 
 
 def table_cap(cfg: Config, rungs=None) -> int:
     """The table width ``m`` a run's tallies use: ``cfg``'s own, or, for an
     f-ladder (``rungs``), the widest of its rungs', as the JAX package's
-    ``_fsweep_static`` takes ``m_cap``."""
+    ``_fsweep_static`` takes ``m_cap`` (``pbft_sweep.py:629-631``); eb is
+    ``n_byzantine`` under equivocation and 0 otherwise."""
+    eb = cfg.n_byzantine if cfg.byz == BYZ_EQUIV else 0
     if rungs is None:
-        return table_width(cfg.n_nodes, cfg.f)
-    return max(table_width(3 * int(f) + 1, int(f)) for f in rungs)
+        return table_width(cfg.n_nodes, cfg.f, eb)
+    return max(table_width(3 * int(f) + 1, int(f), eb) for f in rungs)
 
 
 # Bit 2 of a node's byte: down at the round's end (SPEC §6c).
@@ -107,7 +128,8 @@ BIT_DOWN = 4
 
 def node_bits(cfg: Config, seed, r: int, n_real, flags=None) -> torch.Tensor:
     """[B, N] uint8, each node's byte of round ``r``: bit 0 set for a real
-    node whose broadcast goes out (the delivery draw keyed (i, i) at or
+    node, honest or not, whose broadcast goes out (the delivery draw keyed
+    (i, i) at or
     above the drop cutoff, or a broadcast dropped in one of the last
     ``max_delay_rounds`` rounds retransmitted now: SPEC §A.2 on the same
     self-edge key, JAX ``pbft_bcast.py:381-386``), bit 1 its partition
@@ -133,7 +155,7 @@ def node_bits(cfg: Config, seed, r: int, n_real, flags=None) -> torch.Tensor:
 
 
 def hb_side(bits):
-    """(honest & bcast as bool, side as int64) of a node byte tensor
+    """(bcast as bool, side as int64) of a node byte tensor
     (:func:`node_bits`)."""
     return (bits & 1).bool(), ((bits >> 1) & 1).to(torch.int64)
 
@@ -185,11 +207,21 @@ def bcast_view_preprepare_plain(cfg: Config, seed, r: int, n_real, f, view,
     engines/pbft_bcast.py:438-445``) and the bits say who is down; with
     ``cfg.desync_on``, each node's SPEC §B skew (keyed by its absolute id)
     is added to its timer after that and before P0 (``pbft_bcast.py:
-    446-453``, ``pbft_sweep.py:353-360``)."""
+    446-453``, ``pbft_sweep.py:353-360``).
+
+    With byzantine nodes (SPEC §3c/§7c, ``cfg.byz``; node i of lane b is
+    honest when i < n_real[b] - n_byzantine) the senders of P1 are the
+    honest ones of bit 0, and only an honest primary offers, in both modes
+    (``pbft_bcast.py:470, 511``); an equivocating primary (``BYZ_EQUIV``)
+    offers every slot to each real receiver j that it reaches (j itself,
+    or its broadcast goes out on j's side), whatever the views, with the
+    value drawn from j's view and subdraw 4 where its stance toward j is
+    set, else 3 (``pbft_bcast.py:519-545``, ``pbft_sweep.py:410-431``)."""
     B, N, S = pp_seen.shape
     dev = view.device
     idx = torch.arange(N, dtype=torch.int64, device=dev)
     real = real_nodes(n_real, N)
+    honest = honest_nodes(n_real, cfg.n_byzantine, N)
     bits = node_bits(cfg, seed, r, n_real, flags)
     if flags is not None:
         rec = (flags & CRASH_REC) != 0
@@ -198,7 +230,8 @@ def bcast_view_preprepare_plain(cfg: Config, seed, r: int, n_real, f, view,
     if cfg.desync_on:
         timer = timer + desync_skew_plain(seed, r, idx, cfg.desync_cutoff,
                                           cfg.max_skew_rounds)
-    hb, side = hb_side(bits)
+    bc, side = hb_side(bits)
+    hb = bc & honest
 
     # ---- P0 churn.
     ch = churn(seed, r, cfg.churn_cutoff, rng.random_u32_plain)[:, None]
@@ -230,16 +263,24 @@ def bcast_view_preprepare_plain(cfg: Config, seed, r: int, n_real, f, view,
     # ---- P3 pre-prepare.
     sarange = torch.arange(S, dtype=torch.int32, device=dev)
     prim = view.remainder(n_real[:, None]).to(torch.int64)     # [B, N]
-    is_primary = real & (prim == idx)
+    is_primary = honest & (prim == idx)
     fresh = torch.where(~pp_seen, sarange, S).amin(2)
     fresh_hot = sarange == fresh[:, :, None]
     ppb = is_primary[:, :, None] & ((pp_seen & ~committed) | fresh_hot)
     msg_val = torch.where(pp_seen, pp_val, fresh_values(seed, view, S))
-    prim_del = (prim == idx) | (hb.gather(1, prim)
-                                & (side.gather(1, prim) == side))
-    prim_ok = prim_del & (view.gather(1, prim) == view) & real
+    prim_del = ((prim == idx) | (bc.gather(1, prim)
+                                 & (side.gather(1, prim) == side))) & real
+    prim_ok = prim_del & (view.gather(1, prim) == view)
     prim_s = prim[:, :, None].expand(B, N, S)
     pm_b, pm_val = ppb.gather(1, prim_s), msg_val.gather(1, prim_s)
+    if cfg.byz == BYZ_EQUIV:
+        prim_byz = (real & ~honest).gather(1, prim)              # [B, N]
+        sup = equiv_stance_plain(seed, r, prim, idx)
+        prim_ok = torch.where(prim_byz, prim_del, prim_ok)
+        pm_b = pm_b | prim_byz[:, :, None]
+        pm_val = torch.where(prim_byz[:, :, None],
+                             fresh_values(seed, view, S,
+                                          torch.where(sup, 4, 3)), pm_val)
     accept = (prim_ok[:, :, None] & pm_b
               & (~pp_seen | (pp_view < view[:, :, None]))
               & (~prepared | (pm_val == pp_val)))
@@ -260,7 +301,8 @@ def bcast_view_preprepare(cfg: Config, seed, r: int, n_real, f, view, timer,
     the histogram's suffix sums for P1 and runs P2; a thread per (receiver,
     slot) runs P3, reading the rows as they stood before P3; P1's flags
     only with ``want_catch``; its CRASH instance with ``flags``, its DESYNC
-    instance with ``cfg.desync_on``)."""
+    instance with ``cfg.desync_on``, its BYZ instances with byzantine
+    nodes)."""
     if view.device.type == "cpu":
         return bcast_view_preprepare_plain(cfg, seed, r, n_real, f, view,
                                            timer, pp_seen, pp_view, pp_val,
@@ -294,7 +336,8 @@ def bcast_view_preprepare(cfg: Config, seed, r: int, n_real, f, view, timer,
                       prepared, committed, view_out, timer_out, reset,
                       seen_out, pview_out, pval_out, bits, hist, fresh)),
                   None if catch is None else catch.data_ptr(),
-                  None if flags is None else flags.data_ptr(), B, N, S)
+                  None if flags is None else flags.data_ptr(), B, N, S,
+                  cfg.byz, cfg.n_byzantine)
     bcast_view_preprepare.launches += 1
     out = (view_out, timer_out, reset, seen_out, pview_out, pval_out, bits)
     return (*out, catch) if want_catch else out
@@ -306,13 +349,18 @@ bcast_view_preprepare.launches = 0
 # --- KU: P4 prepare tally, P5 commit tally -----------------------------------
 
 def aggregate_tallies_plain(pp_val, pp_seen, prepared, committed, honest,
-                            bcast, Q, m: int, side, up=None):
-    """The JAX package's ``_aggregate_tallies`` on its flat path, batched
+                            bcast, Q, m: int, side, up=None, extra=None):
+    """The JAX package's ``_aggregate_tallies`` without the switch, batched
     over lanes: ``pp_val`` [B, N, S] int32; ``pp_seen``, ``prepared``,
     ``committed`` [B, N, S] bool; ``honest``, ``bcast`` [B, N] bool; ``Q``
     [B] the quorum; ``m`` the table width; ``side`` [B, N] int64 the side
     whose aggregate each node counts towards and reads (all 0 where the
-    partition is off: one aggregate, the JAX package's ``side=None``).
+    partition is off: one aggregate, the JAX package's ``side=None``);
+    ``up`` [B, N] bool the nodes up at the round's end (SPEC §6c), None
+    without crashes; ``extra`` [B, N] int32 each receiver's equivocating
+    support (SPEC §7c), added to its P4 and P5 counts in node order and,
+    for P5's senders, in sorted order (``pbft_bcast.py:265-270, 322-353``),
+    None without equivocators.
 
     One sort of each (lane, slot) column of values; per (slot, side) the
     top-``m`` equal-value runs by count of honest broadcasting senders
@@ -376,23 +424,25 @@ def aggregate_tallies_plain(pp_val, pp_seen, prepared, committed, honest,
 
     q = Q[:, None, None]
     selfish = (honest & ~bcast)[:, :, None]
+    extra_n = 0 if extra is None else extra[:, :, None]
+    extra_s = 0 if extra is None else to_sorted(extra)
     t4 = tables_for(to_sorted(pp_seen))
-    c4 = counts_nodes(t4) + (selfish & pp_seen).to(torch.int32)
+    c4 = counts_nodes(t4) + (selfish & pp_seen).to(torch.int32) + extra_n
     prep_hit = pp_seen & (c4 >= q)
     if up is not None:
         prep_hit = prep_hit & up[:, :, None]
     prepared2 = prepared | prep_hit
     seen_s, selfish_s = to_sorted(pp_seen), to_sorted(honest & ~bcast)
-    c4_s = counts_sorted(t4) + (selfish_s & seen_s).to(torch.int32)
+    c4_s = counts_sorted(t4) + (selfish_s & seen_s).to(torch.int32) + extra_s
     prepared2_s = to_sorted(prepared) | (seen_s & (c4_s >= q))
     t5 = tables_for(prepared2_s)
-    c5 = counts_nodes(t5) + (selfish & prepared2).to(torch.int32)
+    c5 = counts_nodes(t5) + (selfish & prepared2).to(torch.int32) + extra_n
     commit_now = prepared2 & (c5 >= q) & ~committed
     return prep_hit, prepared2, commit_now, c5
 
 
 def bcast_tally_plain(m: int, n_real, f, bits, pp_seen, pp_val, prepared,
-                      committed, dval, crash: bool = False):
+                      committed, dval, crash: bool = False, byz=None):
     """Plain version of KU, SPEC §6b P4-P5 at every (node, slot) of each
     lane: :func:`aggregate_tallies_plain` with the quorum 2f + 1, the
     senders and sides of the node bits and table width ``m``. Slot s of
@@ -403,13 +453,21 @@ def bcast_tally_plain(m: int, n_real, f, bits, pp_seen, pp_val, prepared,
     (SPEC §6c), a node of bit 2 prepares nothing (``consensus_tpu/engines/
     pbft_bcast.py:331-335``); its commits stay in, as the round's own
     tally reached them, for the telemetry's commit_missed, and the freeze
-    drops them."""
-    hb, side = hb_side(bits)
-    honest = real_nodes(n_real, bits.shape[1])
+    drops them.
+
+    With byzantine nodes ``byz`` is the pair (n_byzantine, extra): the
+    senders counted are the honest ones (i < n_real - n_byzantine), a
+    node's own vote counts only where it is honest, and under equivocation
+    ``extra`` ([B, N] int32, kernel KAK) adds to each receiver's P4 and P5
+    counts (``pbft_bcast.py:276-284, 322-353``); it is None in silent
+    mode."""
+    bc, side = hb_side(bits)
+    nb, extra = (0, None) if byz is None else byz
+    honest = honest_nodes(n_real, nb, bits.shape[1])
     up = (bits & BIT_DOWN) == 0 if crash else None
     _, prepared2, commit_now, _ = aggregate_tallies_plain(
-        pp_val, pp_seen, prepared, committed, honest, hb, 2 * f + 1, m,
-        side, up)
+        pp_val, pp_seen, prepared, committed, honest, bc, 2 * f + 1, m,
+        side, up, extra)
     return (prepared2, committed | commit_now,
             torch.where(commit_now, pp_val, dval))
 
@@ -425,17 +483,17 @@ def tally_scratch_ints(B: int, N: int, S: int) -> int:
 
 
 def bcast_tally(m: int, n_real, f, bits, pp_seen, pp_val, prepared,
-                committed, dval, crash: bool = False):
+                committed, dval, crash: bool = False, byz=None):
     """Kernel KU: same arguments and result as :func:`bcast_tally_plain`,
     which it runs for CPU tensors; for CUDA tensors it launches
     ``csrc/bcast_tally.cu`` (per phase: a Misra-Gries summary of ``m``
     counters a (slot, side) from each block of senders, merged by the
     lane's last block into at most m candidates, an exact recount of the
     candidates, and a lookup of each node's value; its CRASH instance with
-    ``crash``)."""
+    ``crash``, its BYZ instances with ``byz``)."""
     if bits.device.type == "cpu":
         return bcast_tally_plain(m, n_real, f, bits, pp_seen, pp_val,
-                                 prepared, committed, dval, crash)
+                                 prepared, committed, dval, crash, byz)
     from .. import _build
     B, N, S = pp_seen.shape
     dev = bits.device
@@ -446,6 +504,11 @@ def bcast_tally(m: int, n_real, f, bits, pp_seen, pp_val, prepared,
               *((t, torch.bool, (B, N, S)) for t in (pp_seen, prepared,
                                                       committed)),
               *((t, torch.int32, (B, N, S)) for t in (pp_val, dval)))
+    nb, extra = (0, None) if byz is None else byz
+    if extra is not None:
+        check_all(dev, (extra, torch.int32, (B, N)))
+    mode = BYZ_NONE if byz is None else BYZ_SILENT if extra is None \
+        else BYZ_EQUIV
     prep_out, com_out = torch.empty_like(prepared), torch.empty_like(committed)
     dval_out = torch.empty_like(dval)
     words = tally_scratch_ints(B, N, S)
@@ -453,7 +516,7 @@ def bcast_tally(m: int, n_real, f, bits, pp_seen, pp_val, prepared,
     _build.launch("bcast_tally", *(t.data_ptr() for t in (
         n_real, f, bits, pp_seen, pp_val, prepared, committed, dval,
         prep_out, com_out, dval_out, scratch)), words, m, B, N, S,
-        int(crash))
+        int(crash), mode, nb, None if extra is None else extra.data_ptr())
     bcast_tally.launches += 1
     return prep_out, com_out, dval_out
 
@@ -464,7 +527,7 @@ bcast_tally.launches = 0
 # --- KV: P6 decide gossip, P7 timers -----------------------------------------
 
 def bcast_decide_plain(bits, committed, dval, committed_start, timer, reset,
-                       crash: bool = False):
+                       crash: bool = False, byz=None):
     """Plain version of KV, SPEC §6b P6-P7 at every node of each lane. P6:
     per (slot, side), the least-id sender that has committed the slot (as
     P5 left it) is the decider; a node that has not committed the slot
@@ -473,9 +536,13 @@ def bcast_decide_plain(bits, committed, dval, committed_start, timer, reset,
     timer to 0; another whose ``reset`` is set keeps it; the rest count it
     up. Returns new (committed, dval, timer). With ``crash`` (SPEC §6c), a
     node of bit 2 adopts nothing (``consensus_tpu/engines/
-    pbft_bcast.py:663-664``)."""
+    pbft_bcast.py:663-664``). With byzantine nodes ``byz`` is the pair
+    (n_real, n_byzantine), and the deciders are the honest senders only
+    (``pbft_bcast.py:650``, SPEC §3c)."""
     B, N, S = committed.shape
     hb, side = hb_side(bits)
+    if byz is not None:
+        hb = hb & honest_nodes(byz[0], byz[1], N)
     idx = torch.arange(N, dtype=torch.int32, device=bits.device)
     dec = hb[:, :, None] & committed
     rows = torch.stack([torch.where(dec & (side == b)[:, :, None],
@@ -495,16 +562,16 @@ def bcast_decide_plain(bits, committed, dval, committed_start, timer, reset,
 
 
 def bcast_decide(bits, committed, dval, committed_start, timer, reset,
-                 crash: bool = False):
+                 crash: bool = False, byz=None):
     """Kernel KV: same arguments and result as :func:`bcast_decide_plain`,
     which it runs for CPU tensors; for CUDA tensors it launches
     ``csrc/bcast_decide.cu`` (the deciders' least ids per (slot, side) by a
     block minimum and one atomicMin a block, then a thread per node adopts
     and runs P7, writing fresh tensors; its CRASH instance with
-    ``crash``)."""
+    ``crash``, its BYZ instance with ``byz``)."""
     if bits.device.type == "cpu":
         return bcast_decide_plain(bits, committed, dval, committed_start,
-                                  timer, reset, crash)
+                                  timer, reset, crash, byz)
     from .. import _build
     B, N, S = committed.shape
     dev = bits.device
@@ -513,17 +580,82 @@ def bcast_decide(bits, committed, dval, committed_start, timer, reset,
                                                       committed_start)),
               (dval, torch.int32, (B, N, S)), (timer, torch.int32, (B, N)),
               (reset, torch.bool, (B, N)))
+    n_real, nb = (None, 0) if byz is None else byz
+    if n_real is not None:
+        check_all(dev, (n_real, torch.int32, (B,)))
     com_out, dval_out = torch.empty_like(committed), torch.empty_like(dval)
     timer_out = torch.empty_like(timer)
     imin = torch.empty((B, 2, S), dtype=torch.int32, device=dev)
     _build.launch("bcast_decide", *(t.data_ptr() for t in (
         bits, committed, dval, committed_start, timer, reset, com_out,
-        dval_out, timer_out, imin)), B, N, S, int(crash))
+        dval_out, timer_out, imin)), B, N, S, int(crash),
+        None if n_real is None else n_real.data_ptr(), nb)
     bcast_decide.launches += 1
     return com_out, dval_out, timer_out
 
 
 bcast_decide.launches = 0
+
+
+# --- KAK: each receiver's equivocating support --------------------------------
+
+# Elements of one [B, senders, N] block of stance draws the plain version
+# makes at a time: memory, not the result, depends on it.
+SUPPORT_BLOCK = 1 << 25
+
+
+def bcast_equiv_support_plain(seed, r: int, n_real, nb: int, bits):
+    """Plain version of KAK, SPEC §7c under §6b: [B, N] int32, ``extra[b,
+    j]`` = the byzantine senders i of lane b (n_real[b] - nb <= i <
+    n_real[b]) whose broadcast goes out (bit 0 of the node byte), i != j,
+    on j's side while the round's partition is active (bit 1), and whose
+    stance toward j, ``equiv_stance(seed, r, i, j)`` (absolute ids), is
+    set (``consensus_tpu/engines/pbft_bcast.py:415-433``,
+    ``pbft_sweep.py:335-350``); 0 for a receiver that is not real, whose
+    count nothing reads. Every stance is its own Threefry draw, so it
+    walks the senders in blocks of :data:`SUPPORT_BLOCK` draws."""
+    B, N = bits.shape
+    dev = bits.device
+    bc, side = hb_side(bits)
+    j = torch.arange(N, dtype=torch.int64, device=dev)
+    extra = torch.zeros((B, N), dtype=torch.int32, device=dev)
+    step = max(1, SUPPORT_BLOCK // max(1, B * N))
+    for k0 in range(0, nb, step):
+        k = torch.arange(k0, min(nb, k0 + step), dtype=torch.int64,
+                         device=dev)
+        i = (n_real.to(torch.int64) - nb)[:, None] + k           # [B, C]
+        ok = (bc.gather(1, i)[:, :, None]
+              & (side.gather(1, i)[:, :, None] == side[:, None, :])
+              & (i[:, :, None] != j)
+              & equiv_stance_plain(seed, r, i[:, :, None], j))   # [B, C, N]
+        extra += ok.sum(1, dtype=torch.int32)
+    return torch.where(real_nodes(n_real, N), extra, 0)
+
+
+def bcast_equiv_support(seed, r: int, n_real, nb: int, bits):
+    """Kernel KAK: same arguments and result as
+    :func:`bcast_equiv_support_plain`, which it runs for CPU tensors; for
+    CUDA tensors it launches ``csrc/bcast_equiv_support.cu`` (a block per
+    256 receivers of a lane and chunk of byzantine senders stages the
+    chunk's broadcasting senders in shared memory; each thread draws its
+    receiver's stances from them, keeps its count in a register and adds
+    it with one integer atomic)."""
+    if bits.device.type == "cpu":
+        return bcast_equiv_support_plain(seed, r, n_real, nb, bits)
+    from .. import _build
+    B, N = bits.shape
+    dev = bits.device
+    check_all(dev, (seed, torch.uint32, (B,)), (n_real, torch.int32, (B,)),
+              (bits, torch.uint8, (B, N)))
+    extra = torch.empty((B, N), dtype=torch.int32, device=dev)
+    _build.launch("bcast_equiv_support", seed.data_ptr(),
+                  int(r) & 0xFFFFFFFF, n_real.data_ptr(), bits.data_ptr(),
+                  extra.data_ptr(), nb, B, N)
+    bcast_equiv_support.launches += 1
+    return extra
+
+
+bcast_equiv_support.launches = 0
 
 
 # --- the round ---------------------------------------------------------------
@@ -539,7 +671,8 @@ def pbft_bcast_round(cfg: Config, st: PbftState, r: int, n_real, f,
     ``telem`` (and ``flight``, as ``engines/pbft.py`` :func:`pbft_round`
     takes them) a fourth, kernel KAA, which adds the round's counters.
     With ``cfg.crash_on`` (SPEC §6c) KAH comes first and the freeze, KAI,
-    last."""
+    last. With byzantine nodes (``cfg.byz``) KT, KU, KV and KAA run their
+    BYZ instances, and under equivocation KAK runs between KT and KU."""
     if flight is not None and telem is None:
         raise ValueError("the flight recorder rides the telemetry "
                          "accumulator: pass telem with flight")
@@ -559,14 +692,25 @@ def pbft_bcast_round(cfg: Config, st: PbftState, r: int, n_real, f,
                               st.pp_seen, st.pp_view, st.pp_val,
                               st.prepared, st.committed, *on)
 
+    # ---- SPEC §3c/§7c: the BYZ instances' arguments; under equivocation
+    # each receiver's support (KAK).
+    byz_tally = byz_decide = ()
+    if cfg.byz:
+        nb = cfg.n_byzantine
+        extra = None if cfg.byz != BYZ_EQUIV else bcast_equiv_support(
+            st.seed, r, n_real, nb, bits)
+        byz_tally = (bool(crash), (nb, extra))
+        byz_decide = (bool(crash), (n_real, nb))
+
     # ---- P4 prepare tally, P5 commit tally (KU).
     prepared, tallied, dval = bcast_tally(m, n_real, f, bits, pp_seen,
                                           pp_val, st.prepared, st.committed,
-                                          st.dval, *crash)
+                                          st.dval, *(byz_tally or crash))
 
     # ---- P6 decide gossip, P7 timers (KV).
     committed, dval, timer = bcast_decide(bits, tallied, dval, st.committed,
-                                          timer, reset, *crash)
+                                          timer, reset,
+                                          *(byz_decide or crash))
 
     # ---- Telemetry and flight recorder (KAA, the dense engine's; called
     # through its module, so that a stand-in put there sees the call).
@@ -576,7 +720,10 @@ def pbft_bcast_round(cfg: Config, st: PbftState, r: int, n_real, f,
                             st.committed, tallied, committed, telem,
                             *(flight if flight is not None else (None, None)),
                             *((pbft.CRASH_VIEWS | pbft.CRASH_COMMITS,)
-                              if crash else ()))
+                              if crash else ()),
+                            *(() if cfg.byz != BYZ_EQUIV else
+                              ((0,) if not crash else ())
+                              + ((pp_val, st.dval, dval),)))
 
     new = PbftState(st.seed, view, timer, pp_seen, pp_view, pp_val, prepared,
                     committed, dval, down)

@@ -45,6 +45,7 @@ _WRAPPER_MODULES = {"random_u32": rng, "delivery_edges": adversary,
                     "pbft_tally": pbft, "pbft_decide": pbft,
                     "bcast_view_preprepare": pbft_bcast,
                     "bcast_tally": pbft_bcast, "bcast_decide": pbft_bcast,
+                    "bcast_equiv_support": pbft_bcast,
                     "dpos_schedule": dpos, "dpos_round": dpos,
                     "paxos_promise": paxos, "paxos_accept_learn": paxos,
                     "pbft_telemetry": pbft, "dpos_telemetry": dpos,

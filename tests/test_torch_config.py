@@ -315,7 +315,8 @@ BYZ = {"silent": dict(n_byzantine=2), "equivocate": dict(
     n_byzantine=2, byz_mode="equivocate")}
 # The engines that run byzantine nodes, each at a small shape.
 BYZ_ENGINES = {"raft-capped": OK, "raft-dense": {**OK, "max_active": 0},
-               "pbft": PBFT_OK, "hotstuff": HOTSTUFF_OK}
+               "pbft": PBFT_OK, "pbft-bcast": {**PBFT_OK, "fault_model": "bcast"},
+               "hotstuff": HOTSTUFF_OK}
 
 
 @pytest.mark.parametrize("mode", list(BYZ))
@@ -398,13 +399,19 @@ def test_byzantine_ladder_past_its_smallest_rung_raises_as_jax_does():
 
 @pytest.mark.parametrize("mode", list(BYZ))
 def test_byzantine_nodes_on_the_bcast_engine_raise(mode):
-    """The §6b engine's tally table holds two values a slot; the port
-    refuses byzantine nodes there with its own message."""
+    """The §6b engine runs byzantine nodes (SPEC §3c/§7c) and raises where
+    the JAX package raises, with its message: more than f of them."""
+    from consensus_tpu import Config as JConfig
     kw = {**PBFT_OK, "fault_model": "bcast", **BYZ[mode]}
-    with pytest.raises(ValueError, match="fault_model='bcast'.*not "
-                       "supported by the port"):
-        Config(**kw)
-    Config(**{**kw, "n_byzantine": 0})
+    JConfig(**kw)
+    assert Config(**kw).byz != tconfig.BYZ_NONE
+    over = {**kw, "n_byzantine": 3}
+    with pytest.raises(ValueError) as want:
+        JConfig(**over)
+    with pytest.raises(ValueError, match="n_byzantine must be <= f") as got:
+        Config(**over)
+    assert str(got.value) == str(want.value)
+    runner.run(Config(**kw), device="cpu")
 
 
 @pytest.mark.parametrize("knob", sorted(OFF_DEFAULT))

@@ -691,7 +691,7 @@ def test_engine_record_and_names_match_jax():
     assert runner.engine(dataclasses.replace(cfg, fault_model="edge")) is \
         runner.PBFT
     assert {name for mod, name in runner.KERNELS if mod is tb} == \
-        set(WRAPPERS)
+        set(WRAPPERS) | {"bcast_equiv_support"}
     assert tb.view_bound(cfg) == jbcast.view_bound(JConfig(**kw))
 
 
