@@ -314,7 +314,30 @@ Phases, each printing one JSON line:
                share of the device time; and the equivocating run with
                telemetry and 8-round windows against JAX-made counter and
                recorder anchors.
+20. gates    — SPEC §A.1 slot miss and §A.4 producer suppression on
+               dpos-100k (rolling-producer-outage's overrides; the
+               adversary knobs of tests/test_aggregate.py's SUPPRESS_BASE)
+               and SPEC §A.3 attacks on raft-100k and raft-1kx1k (elect at
+               repeated-election-disruption's overrides; sticky at rate 1
+               on the first leader of the flat run's sweep 0), each with
+               telemetry and 8-round windows: every kernel call of rounds
+               3 and 20 of the six runs against its plain version, exact,
+               and the gate instances (KB, KE, KK, KL, KM, KP, KX, KAB) on
+               built inputs: an old candidacy alone, a down node's new
+               candidacy alone, a live one, a sticky target leading in a
+               churn round, attack words in every other lane, a producer
+               both missed and suppressed. Each instance's time on round
+               20, its plain version's and its bound, and its flat
+               instance's time and bound on the same inputs. Then
+               ``simulator.run`` of the six runs, each replayed as one
+               CUDA graph: JAX-made anchors (digest, counters, recorder;
+               the C++ oracle's digest on DPoS) from the replay and the
+               eager loop, the gate's counter above 0, the path's kernels
+               launched and no other (counted from 0), node-round-steps
+               per second, replay wall, busy share and device operations
+               a round.
 
+Every line carries ``elapsed_s``, the seconds since the script's start.
 Then the card's name and power limit, one ``{"kernels": [...]}`` line, and
 last ``{"ok": true, "device": {...}}``. The kernels line takes each
 kernel's launches from one path's own run, counted from 0: KA-KJ from
@@ -371,6 +394,9 @@ class SmokeError(RuntimeError):
 
 
 def emit(phase: str, **kw) -> None:
+    """One JSON line of ``phase``, with its ``elapsed_s``: the seconds since
+    the script's start."""
+    kw.setdefault("elapsed_s", time.perf_counter() - T0)
     print(json.dumps({"phase": phase, **kw}), flush=True)
 
 
@@ -436,6 +462,17 @@ def device_ms(fn, args, reps: int = 20, warm: int = 3,
         return graph_ms(fn, args, reps) if wrapper else event_ms(fn, args)
     return sum(e.time_range.elapsed_us() for e in device) / 1e3 \
         * launched / len(device) / reps
+
+
+# The calls a plain version's time is taken over (event_ms, host launches
+# included): a plain version's time is written down beside its kernel's,
+# never judged, so it takes no profiled sessions.
+PLAIN_REPS = 3
+
+
+def plain_time(fn, args) -> float:
+    """A plain version's time a call on ``args`` (:func:`event_ms`)."""
+    return event_ms(fn, args, PLAIN_REPS)
 
 
 def graph_ms(fn, args, reps: int = 20) -> float:
@@ -656,7 +693,7 @@ def check_random_u32(dev, gen):
         replaces="consensus_tpu/core/rng.py:232 random_u32_jnp",
         max_abs_err=err,
         ms=device_ms(rng.random_u32, (seeds, *call)),
-        plain_ms=device_ms(rng.random_u32_plain, (seeds, *call)),
+        plain_ms=plain_time(rng.random_u32_plain, (seeds, *call)),
         bound=bound(nbytes, THREEFRY_OPS * B * N), library_ms=None)
 
 
@@ -686,7 +723,7 @@ def check_delivery_edges(dev, gen):
         replaces="consensus_tpu/ops/adversary.py:178 delivery_edges",
         max_abs_err=err,
         ms=device_ms(adversary.delivery_edges, call),
-        plain_ms=device_ms(adversary.delivery_edges_plain, call),
+        plain_ms=plain_time(adversary.delivery_edges_plain, call),
         bound=bound(B * A * N + 4 * B * A + 4 * B, EDGE_OPS * B * A * N),
         library_ms=None)
 
@@ -714,7 +751,7 @@ def check_top_active(dev, gen):
         replaces="consensus_tpu/engines/raft_sparse.py:144 _top_active",
         max_abs_err=err,
         ms=device_ms(rs.top_active, (sparse, term, A)),
-        plain_ms=device_ms(rs.top_active_plain, (sparse, term, A)),
+        plain_ms=plain_time(rs.top_active_plain, (sparse, term, A)),
         bound=bound(B * N * 5 + 4 * B * A, 4 * B * N),
         library_ms=device_ms(
             lambda k: torch.topk(k, A, dim=1, largest=False), (key,)))
@@ -1147,7 +1184,7 @@ def check_phases(dev, gen, cfg) -> list[dict]:
                          source=f"consensus_tpu_torch/csrc/{name}.cu",
                          replaces=REPLACES[name], max_abs_err=err,
                          ms=device_ms(fn, args),
-                         plain_ms=device_ms(plain, args),
+                         plain_ms=plain_time(plain, args),
                          bound=phase_bound(name, args), library_ms=library))
     return rows
 
@@ -1422,8 +1459,8 @@ def check_dense_kernels(dev, gen) -> list[dict]:
                          source=f"consensus_tpu_torch/csrc/{name}.cu",
                          replaces=DENSE_REPLACES[name], max_abs_err=err,
                          ms=device_ms(getattr(mod, name), args),
-                         plain_ms=device_ms(getattr(mod, name + "_plain"),
-                                            args),
+                         plain_ms=plain_time(getattr(mod, name + "_plain"),
+                                             args),
                          bound=dense_bound(name, args), library_ms=library))
     return rows
 
@@ -1797,8 +1834,8 @@ def check_pbft_kernels(dev, gen) -> list[dict]:
                          source=f"consensus_tpu_torch/csrc/{name}.cu",
                          replaces=PBFT_REPLACES[name], max_abs_err=err,
                          ms=device_ms(getattr(pbft, name), args),
-                         plain_ms=device_ms(getattr(pbft, name + "_plain"),
-                                            args),
+                         plain_ms=plain_time(getattr(pbft, name + "_plain"),
+                                             args),
                          bound=pbft_bound(name, args), library_ms=library))
     kp = capture_dense_telemetry_inputs(
         dense_config("raft-1kx1k", telemetry_window=WINDOW),
@@ -1810,7 +1847,7 @@ def check_pbft_kernels(dev, gen) -> list[dict]:
                      replaces=PBFT_REPLACES["dense_telemetry"],
                      max_abs_err=err,
                      ms=device_ms(raft.dense_telemetry, kp[-1]),
-                     plain_ms=device_ms(raft.dense_telemetry_plain, kp[-1]),
+                     plain_ms=plain_time(raft.dense_telemetry_plain, kp[-1]),
                      bound=pbft_bound("dense_telemetry", kp[-1]),
                      library_ms=None))
     return rows
@@ -2123,8 +2160,8 @@ def check_bcast_kernels(dev, gen) -> list[dict]:
                          source=f"consensus_tpu_torch/csrc/{name}.cu",
                          replaces=BCAST_REPLACES[name], max_abs_err=err,
                          ms=device_ms(getattr(pb, name), args),
-                         plain_ms=device_ms(getattr(pb, name + "_plain"),
-                                            args),
+                         plain_ms=plain_time(getattr(pb, name + "_plain"),
+                                             args),
                          bound=bcast_bound(name, args),
                          library_ms=None if lib is None else device_ms(*lib)))
     return rows
@@ -2447,7 +2484,7 @@ def check_dpos_paxos_kernels(dev, gen) -> list[dict]:
             source=f"consensus_tpu_torch/csrc/{name}.cu",
             replaces={**DPOS_REPLACES, **PAXOS_REPLACES}[name],
             max_abs_err=err, ms=device_ms(getattr(mod, name), args),
-            plain_ms=device_ms(getattr(mod, name + "_plain"), args),
+            plain_ms=plain_time(getattr(mod, name + "_plain"), args),
             bound=(dpos_bound if name in DPOS else paxos_bound)(name, args),
             library_ms={"dpos_schedule": argsort, "dpos_round": None}.get(
                 name, segmax)))
@@ -2657,7 +2694,7 @@ def check_telemetry_kernels(dev, gen) -> tuple[list[dict], dict]:
             source=f"consensus_tpu_torch/csrc/{name}.cu",
             replaces=TELEMETRY_REPLACES[name], max_abs_err=err,
             ms=device_ms(getattr(mods[name], name), args),
-            plain_ms=device_ms(getattr(mods[name], name + "_plain"), args),
+            plain_ms=plain_time(getattr(mods[name], name + "_plain"), args),
             bound=telemetry_bound(name, args), library_ms=None))
     return rows, flag_err
 
@@ -2985,7 +3022,7 @@ def check_hotstuff_kernels(dev, gen) -> list[dict]:
             source=f"consensus_tpu_torch/csrc/{name}.cu",
             replaces=HOTSTUFF_REPLACES[name], max_abs_err=err,
             ms=device_ms(getattr(hotstuff, name), args, fresh=True),
-            plain_ms=device_ms(getattr(hotstuff, name + "_plain"), args),
+            plain_ms=plain_time(getattr(hotstuff, name + "_plain"), args),
             bound=hotstuff_bound(name, args), library_ms=None)
         if name == "hotstuff_learn":
             row["ms_telemetry"] = device_ms(hotstuff.hotstuff_learn,
@@ -5334,14 +5371,18 @@ def check_desync_kernels(dev):
         yield row
 
 
-def anchored_run(cfg, digest: str) -> tuple:
-    """``simulator.run`` of ``cfg`` (phases 17 and 18), replayed as one CUDA
+def anchored_run(cfg, digest: str, ops: bool = False) -> tuple:
+    """``simulator.run`` of ``cfg`` (phases 17-19), replayed as one CUDA
     graph, with every launch count set to 0 just before it and read just
     after: its row (its digest and the eager loop's against ``digest``,
     node-round-steps per second, memory, replay wall, busy share, device
-    operations a round, device ms by kernel), its launches, the replay's
-    and the eager loop's extracts and the full replay's profile. The
-    caller emits the row, then requires the digests (:func:`hold_run`)."""
+    operations a replay and a round, device ms by kernel), its launches,
+    the replay's and the eager loop's extracts and the full replay's
+    profile. With ``ops`` the device operations a round are the exact
+    difference of two profiled replays (:func:`replay_ops_per_round`),
+    which a caller checks; without it one profiled replay gives them with
+    init's spread over the rounds (``launches_per_round``). The caller
+    emits the row, then requires the digests (:func:`hold_run`)."""
     from consensus_tpu_torch.core import serialize
     from consensus_tpu_torch.network import runner, simulator
     memory, launches = counted(lambda: memory_use(
@@ -5350,8 +5391,11 @@ def anchored_run(cfg, digest: str) -> tuple:
     replayed = runner.run(cfg)
     eager = runner.run(cfg, graph=False)
     eager_digest = serialize.digest(simulator.decided_payload(cfg, eager)[3])
-    prof = replay_ops_per_round(cfg)
-    full = prof["full"]
+    if ops:
+        prof = replay_ops_per_round(cfg)
+        full, per_round = prof["full"], prof["ops_per_round"]
+    else:
+        full, per_round = profile_replay(cfg), None
     row = dict(
         digest=res.digest, digest_ok=res.digest == digest,
         eager_digest=eager_digest, steps_per_sec=res.steps_per_sec,
@@ -5359,7 +5403,8 @@ def anchored_run(cfg, digest: str) -> tuple:
         replay_wall_ms=full["replay_wall_ms"], busy_share=full["busy_share"],
         unprofiled_busy_share=full["unprofiled_busy_share"],
         device_ms=full["device_ms"], device_launches=full["device_launches"],
-        ops_per_round=prof["ops_per_round"],
+        ops_per_round=per_round,
+        launches_per_round=full["launches_per_round"],
         hand_kernel_ms={k: v for k, v in full["hand_kernel_ms"].items()
                         if v})
     return row, launches, replayed, eager, full
@@ -5402,7 +5447,7 @@ def anchored_ladder(name: str, base, rungs, digest: str, phase: str,
          unprofiled_busy_share=prof["unprofiled_busy_share"],
          device_ms=prof["device_ms"],
          device_launches=prof["device_launches"],
-         elapsed_s=time.perf_counter() - T0, card=card, power=smi)
+         card=card, power=smi)
     require(got == digest and eager == digest,
             f"{name}: digests {got} (replay), {eager} (eager) != {digest}")
     require_launched(launches, desync_path(cfg_pad), name)
@@ -5433,7 +5478,7 @@ def anchored_telemetry(key: str, cfg, digest: str, nonzero: dict,
             np.array_equal(eager["telemetry"][k], v)
             for k, v in tel["per_sweep"].items()),
         steps_per_sec=res.steps_per_sec, wall_s=res.wall_s,
-        launches=launches, elapsed_s=time.perf_counter() - T0)
+        launches=launches)
     emit(phase, run=key, **row, card=card, power=smi)
     for check in ("digest_ok", "totals_ok", "flight_ok",
                   "graph_equals_eager"):
@@ -5847,8 +5892,9 @@ def check_byz_runs(card: str, smi: str) -> None:
     from consensus_tpu_torch.network import runner
     for key, digest in BYZ_RUNS.items():
         cfg = byz_config(key)
-        row, launches, replayed, eager, _ = anchored_run(cfg, digest)
-        row["elapsed_s"] = time.perf_counter() - T0
+        row, launches, replayed, eager, _ = anchored_run(
+            cfg, digest, ops=cfg.protocol == "hotstuff"
+            and not hotstuff.gated(cfg))
         if key in BYZ_VIEWS_SHA256:
             state = runner.run_device(cfg).state
             row["views_sha256"] = views_sha256(replayed["view"])
@@ -6300,7 +6346,6 @@ def check_byz_bcast_runs(card: str, smi: str) -> dict[str, int]:
     for key, digest in BYZ_BCAST_RUNS.items():
         cfg = byz_bcast_config(key)
         row, launches, replayed, eager, full = anchored_run(cfg, digest)
-        row["elapsed_s"] = time.perf_counter() - T0
         row["views_sha256"] = views_sha256(replayed["view"])
         row["eager_views_sha256"] = views_sha256(eager["view"])
         kak = full["hand_kernel_ms"].get("bcast_equiv_support", 0.0)
@@ -6327,7 +6372,357 @@ def check_byz_bcast_runs(card: str, smi: str) -> dict[str, int]:
     return {name: own[name] for name in BYZ_BCAST_OWN}
 
 
-# The script's start, for each phase-18 and phase-19 row's elapsed time.
+# --- phase 20: SPEC §A.1 and §A.4 on DPoS, SPEC §A.3 on both Raft engines ----
+
+# The sticky runs' targets: the first leader of sweep 0 in each flat run,
+# read from the JAX package (node 5 of raft-100k and node 3 of raft-1kx1k,
+# both elected in round 3).
+STICKY_TARGETS = {"raft-100k": 5, "raft-1kx1k": 3}
+GATE_FLAGSHIPS = {
+    "raft-100k": flagship_config,
+    "raft-1kx1k": lambda **kw: dense_config("raft-1kx1k", **kw),
+    "dpos-100k": lambda **kw: protocol_config(DPOS_FLAGSHIP, **kw)}
+# Each gate's overrides: rolling-producer-outage's (consensus_tpu/
+# scenarios/__init__.py:111-125) and the adversary knobs of
+# tests/test_aggregate.py:258-263's SUPPRESS_BASE on dpos-100k;
+# repeated-election-disruption's (scenarios/__init__.py:96-109) and the
+# sticky attack at rate 1 on STICKY_TARGETS on the Raft flagships.
+GATE_SETTINGS = {
+    "rolling-producer-outage": dict(miss_rate=0.35, crash_prob=0.08,
+                                    recover_prob=0.25, drop_rate=0.1),
+    "suppress-base": dict(drop_rate=0.2, churn_rate=0.02, miss_rate=0.1,
+                          max_delay_rounds=2, crash_prob=0.05,
+                          recover_prob=0.3, suppress_rate=0.3,
+                          suppress_window=24),
+    "elect": dict(attack="elect", attack_rate=0.85, drop_rate=0.05),
+    "sticky": dict(attack="sticky", attack_rate=1.0)}
+# Phase 20's runs, each with telemetry and 8-round windows: (digest, the
+# nonzero counter totals, flight_digest, the C++ oracle's digest or None
+# where the oracle does not run the gate, §A.3). The JAX package made each
+# on the CPU, and the oracle the DPoS digests (engine="cpu", telemetry
+# off), which agree (10-64 s a JAX run on eight cores, 8-9 s an oracle
+# run):
+#
+#   JAX_PLATFORMS=cpu python3 - <<'EOF'
+#   import dataclasses, chip_smoke
+#   from consensus_tpu import Config
+#   from consensus_tpu.network import simulator
+#   for key in chip_smoke.GATE_RUNS:
+#       c = chip_smoke.gate_config(key)
+#       cfg = Config(**{k: getattr(c, k) for k in c.__dataclass_fields__})
+#       res = simulator.run(cfg, warmup=False, telemetry=True)
+#       print(key, res.digest, {k: v for k, v in
+#             res.extras["telemetry"]["totals"].items() if v},
+#             chip_smoke.flight_digest(res.extras["flight"]))
+#       if cfg.protocol == "dpos":
+#           print(simulator.run(dataclasses.replace(
+#               cfg, engine="cpu", telemetry_window=0), warmup=False).digest)
+#   EOF
+GATE_RUNS = {
+    "dpos-100k/rolling-producer-outage": (
+        "c9c92c9cf8695d671cb2faf242e7d46ccc64125de15b7d6538f985d0979b5119",
+        {"blocks_appended": 7926786, "missed_appends": 17673214,
+         "producer_rotations": 255, "missed_slots": 93, "crashes": 1657331,
+         "recoveries": 1631483, "nodes_down": 6549198},
+        "6799f096a1c60e3729e40220d92b2a43302f3d8f3c9d86b4dc4f4e81bac1deef",
+        "c9c92c9cf8695d671cb2faf242e7d46ccc64125de15b7d6538f985d0979b5119"),
+    "dpos-100k/suppress-base": (
+        "401df0bd91ac4d03589f4250a738e379e7483a546eeb49e2c05855027ee51ff7",
+        {"blocks_appended": 10682874, "missed_appends": 14917126,
+         "producer_rotations": 255, "churn_slots": 4, "missed_slots": 27,
+         "suppressed_slots": 64, "crashes": 1148612, "recoveries": 1133601,
+         "nodes_down": 3790498},
+        "f08908c97544b201b437f8acc2e0f5e456d9364f3c4c0fb91df996ad347ba2b0",
+        "401df0bd91ac4d03589f4250a738e379e7483a546eeb49e2c05855027ee51ff7"),
+    "raft-100k/elect": (
+        "7421ddae44039627662b82e000dabef31ed9d4cef6b3d721df318348afb90152",
+        {"leader_elections": 28, "append_accepted": 13683160,
+         "append_rejected": 122178, "entries_committed": 13633044,
+         "attack_rounds": 360},
+        "19be1acbb9c7f324676677dc0b6e7ec6c3846f959affe79aff4cd82e6adba1e6",
+        None),
+    "raft-100k/sticky": (
+        "725e3fc6fdfda992cf1015c14bd5c492ccabda5bb0f2a5d7b96d7c59116ddb1b",
+        {"leader_elections": 21, "append_accepted": 44431719,
+         "append_rejected": 21738, "entries_committed": 43984267,
+         "attack_rounds": 164},
+        "b5b59459c9d18925505c95035128c133644a2982fb873adbf40670ee7cd0554f",
+        None),
+    "raft-1kx1k/elect": (
+        "b28f339a54014d143eff5dcd66666645d24ae200f76cc1cd0e9d9129b22c7371",
+        {"leader_elections": 212, "append_accepted": 7678070,
+         "append_rejected": 1071, "entries_committed": 819200,
+         "attack_rounds": 391},
+        "35156ffd81f3962bde3b8a44845c146513fef1cf68bd3aff225c9b9bb6ae039b",
+        None),
+    "raft-1kx1k/sticky": (
+        "56b4a2f21ca5e58cb49998dbd5c6d170c3b2f7fa4fbbd2c5ea9cf3bd4a6e7936",
+        {"leader_elections": 20, "append_accepted": 8249568,
+         "entries_committed": 717824, "attack_rounds": 1020},
+        "402b92669a80fe1e5668983b7e1c681a95cc59aef7dbdf9daa1ccad5ce2d255a",
+        None),
+}
+# The instances phase 20 times, each on round 20 of a run: (wrapper, run).
+GATE_TIMED = {
+    "candidacy/elect": ("candidacy", "raft-100k/elect"),
+    "candidacy/sticky": ("candidacy", "raft-100k/sticky"),
+    "delivery_edges/elect": ("delivery_edges", "raft-100k/elect"),
+    "delivery_edges/sticky": ("delivery_edges", "raft-100k/sticky"),
+    "telemetry/elect": ("telemetry", "raft-100k/elect"),
+    "delivery/sticky": ("delivery", "raft-1kx1k/sticky"),
+    "dense_elect/elect": ("dense_elect", "raft-1kx1k/elect"),
+    "dense_elect/sticky": ("dense_elect", "raft-1kx1k/sticky"),
+    "dense_telemetry/elect": ("dense_telemetry", "raft-1kx1k/elect"),
+    "dpos_round/gates": ("dpos_round", "dpos-100k/suppress-base"),
+    "dpos_telemetry/gates": ("dpos_telemetry", "dpos-100k/suppress-base")}
+GATE_ROUNDS = (3, 20)
+# The wrappers whose last positional argument is the attack operand (the
+# word, or KL's sticky triple), by their arity with it; the others take
+# the gate from the Config.
+ATTACK_ARG = {"delivery_edges": 10, "delivery": 8, "telemetry": 16,
+              "dense_telemetry": 15}
+
+
+def gate_config(key: str, **kw):
+    """Phase 20's run ``key`` ("<flagship>/<setting>"), with telemetry
+    and 8-round windows, changed by ``kw``."""
+    name, setting = key.split("/")
+    extra = dict(GATE_SETTINGS[setting])
+    if setting == "sticky":
+        extra["attack_target"] = STICKY_TARGETS[name]
+    return GATE_FLAGSHIPS[name](**{**extra, "telemetry_window": WINDOW,
+                                   **kw})
+
+
+def gate_instance(name: str, args) -> bool:
+    """Whether this call of wrapper ``name`` runs a gate instance."""
+    if name in ATTACK_ARG:
+        return len(args) == ATTACK_ARG[name] and args[-1] is not None
+    cfg = args[0]
+    return bool(cfg.attack_mode) if name in ("candidacy", "dense_elect") \
+        else cfg.miss_on or cfg.suppress_on
+
+
+def gate_flat(name: str, args):
+    """``args`` of gate-instance call ``name`` with the gate turned off:
+    the attack operand dropped, or the Config's gate knobs at their
+    defaults."""
+    if name in ATTACK_ARG:
+        return args[:-1]
+    if name in ("candidacy", "dense_elect"):
+        off = dict(attack="none", attack_rate=1.0, attack_target=0)
+    else:
+        off = dict(miss_rate=0.0, suppress_rate=0.0, suppress_window=16)
+    return (dataclasses.replace(args[0], **off), *args[1:])
+
+
+def gate_bound(name: str, args) -> tuple[float, str]:
+    """The least time of a gate instance's work on ``args``: its flat bound
+    on the same inputs, plus what the gate adds: one activation draw a
+    lane (KE, KM, KL) or the two §A.1/§A.4 draws of the lane's producer
+    (KX, KAB), and the lane's attack word written or read once."""
+    flat = gate_flat(name, args)
+    nbytes, ops = flat_work(name, flat[:7] if name == "dpos_round" else flat)
+    b = next(tensors_of(args)).shape[0]          # every call's lanes lead
+    draws = {"candidacy": 1, "dense_elect": 1, "delivery": 1,
+             "dpos_round": 2, "dpos_telemetry": 2}.get(name, 0)
+    words = 0 if name.startswith("dpos") else 4
+    return bound(nbytes + words * b, ops + draws * THREEFRY_OPS * b)
+
+
+def gate_built_calls(base: dict, dev) -> dict[str, list]:
+    """Gate-instance calls on built inputs, from round-20 calls of the
+    runs (``base``: {run: {wrapper: [arguments]}}): KE and KM under elect
+    at rate 1 with lane 0 holding only an old candidacy, lane 1 only a new
+    candidacy of a node down at the round's end (its edges cut), lane 2
+    one live new candidacy; KE and KM under sticky with the target and one
+    other node leading in a churn round; KL's sticky column with the
+    target leading in every other lane; KB with attack words set in every
+    other lane, on the target and on every receiver; KX and KAB where each
+    lane's producer is both missed and suppressed. The plain versions'
+    results on them are required to show those cases."""
+    from consensus_tpu_torch.core.config import ATTACK_STICKY
+    from consensus_tpu_torch.engines import dpos, raft
+    from consensus_tpu_torch.ops.adversary import CRASH_DOWN
+    out: dict = {}
+    for name, run in (("candidacy", "raft-100k"), ("dense_elect",
+                                                   "raft-1kx1k")):
+        role_at = 4 if name == "candidacy" else 5
+        fn = kernel_module(name)
+        plain = getattr(fn, name + "_plain")
+        # Elect: an old candidacy alone, a down node's alone, a live one.
+        args = list(clone_args(base[f"{run}/elect"][name][0]))
+        args[0] = dataclasses.replace(args[0], attack_rate=1.0)
+        role, timer, timeout = args[role_at], args[role_at + 2], \
+            args[role_at + 3]
+        role[:3] = torch.where(role[:3] == raft.ROLE_L, raft.ROLE_F,
+                               role[:3])
+        timer[:3] = 0
+        role[0, 1] = raft.ROLE_C
+        timer[1, 2] = timeout[1, 2]
+        timer[2, 3] = timeout[2, 3]
+        flags = torch.zeros(role.shape, dtype=torch.uint8, device=dev)
+        flags[1, 2] = CRASH_DOWN
+        if name == "dense_elect":                # KL cuts a down node
+            args[3][1, 2, :] = False
+            args[3][1, :, 2] = False
+        for call in (tuple(args), (*args, flags)):
+            word = plain(*clone_args(call))[-1]
+            require(word[0] == 0 and word[2] == 1,
+                    f"built {name} (elect): words {word[:3].tolist()}")
+            out.setdefault(name, []).append(call)
+        require(plain(*clone_args((*args, flags)))[-1][1] == 0,
+                f"built {name}: a down node's candidacy jammed")
+        # Sticky: the target and one more node lead in a churn round.
+        args = list(clone_args(base[f"{run}/sticky"][name][0]))
+        cfg = dataclasses.replace(args[0], churn_rate=1.0)
+        require(cfg.attack_mode == ATTACK_STICKY, f"{name}: not sticky")
+        args[0] = cfg
+        tgt, other = cfg.attack_target, cfg.attack_target + 1
+        args[role_at][:, tgt] = raft.ROLE_L
+        args[role_at][:, other] = raft.ROLE_L
+        if name == "dense_elect":                # KL's sticky column
+            args[3][:, :, tgt] = False
+        got = plain(*clone_args(args))
+        require(bool((got[-1] == 1).all())
+                and bool((got[1][:, tgt] == raft.ROLE_L).all())
+                and not bool((got[1][:, other] == raft.ROLE_L).any()),
+                f"built {name} (sticky): the target stepped down")
+        out[name].append(tuple(args))
+    # KL: the target leads in every other lane.
+    args = list(clone_args(base["raft-1kx1k/sticky"]["delivery"][0]))
+    role, tgt, _ = args[-1]
+    role[0::2, tgt] = raft.ROLE_L
+    role[1::2, tgt] = raft.ROLE_F
+    args[-1] = (role, tgt, 0xFFFFFFFF)
+    out["delivery"] = [tuple(args)]
+    # KB: words in every other lane, on the target and on every receiver.
+    for call in base["raft-100k/sticky"]["delivery_edges"][:2]:
+        word = torch.zeros_like(call[-1][0])
+        word[0::2] = 1
+        for dst in (call[-1][1], -1):
+            out.setdefault("delivery_edges", []).append(
+                (*clone_args(call[:-1]), (word, dst)))
+    # KX and KAB: every lane's producer missed and suppressed.
+    both = dict(miss_rate=1.0, suppress_rate=1.0)
+    for name in ("dpos_round", "dpos_telemetry"):
+        args = clone_args(base["dpos-100k/suppress-base"][name][0])
+        args = (dataclasses.replace(args[0], **both), *args[1:])
+        out[name] = [args]
+    t = out["dpos_telemetry"][0][6]
+    before = t.clone()
+    dpos.dpos_telemetry_plain(*clone_args(out["dpos_telemetry"][0][:6]), t,
+                              *out["dpos_telemetry"][0][7:])
+    cols = [dpos.DPOS_TELEMETRY.index(c) for c in ("missed_slots",
+                                                   "suppressed_slots")]
+    require(bool(((t - before)[:, cols] == 1).all()),
+            "built KAB: a lane's producer not counted missed and suppressed")
+    return out
+
+
+def check_gate_kernels(dev):
+    """Phase 20's kernel rows. Every kernel call of rounds 3 and 20 of each
+    run GATE_RUNS (with telemetry and 8-round windows) and of the built
+    cases (:func:`gate_built_calls`) against the plain versions, exact.
+    Then each gate instance's time on round 20 of its GATE_TIMED run (the
+    largest of its gate-instance calls there), its plain version's and its
+    bound, and its flat instance's time and bound on the same inputs.
+    Yields one row an instance."""
+    wrappers = sorted({name for name, _ in GATE_TIMED.values()})
+    errs = dict.fromkeys(wrappers, 0.0)
+    cases = dict.fromkeys(wrappers, 0)
+    base: dict = {}
+    for key in GATE_RUNS:
+        cfg = gate_config(key)
+        for r in GATE_ROUNDS:
+            calls = capture_round_calls(cfg, r, True, dev)
+            hold_calls(calls, f"{key} round {r}", errs, cases)
+            if r == 20:
+                base[key] = calls
+    hold_calls(gate_built_calls(base, dev), "built gate inputs", errs,
+               cases)
+    for row, (name, run) in GATE_TIMED.items():
+        mine = [a for a in base[run][name] if gate_instance(name, a)]
+        require(bool(mine), f"{run}: no gate-instance call of {name}")
+        args = max(mine, key=lambda a: sum(t.numel() for t in tensors_of(a)))
+        mod = kernel_module(name)
+        reps = reps_for(args)
+        flat = gate_flat(name, args)
+        yield dict(name=row, max_abs_err=errs[name], cases=cases[name],
+                   timed_on=f"{run} round 20",
+                   ms=graph_ms(getattr(mod, name), args, reps),
+                   plain_ms=event_ms(getattr(mod, name + "_plain"), args,
+                                     min(3, reps)),
+                   bound=gate_bound(name, args),
+                   flat_instance_ms=graph_ms(getattr(mod, name), flat, reps),
+                   flat_instance_bound=bound(*flat_work(
+                       name, flat[:7] if name == "dpos_round" else flat)))
+
+
+def gate_path(cfg) -> tuple[str, ...]:
+    """The kernels a telemetry run of ``cfg`` launches: its engine's
+    telemetry path, and KAH with a crash."""
+    from consensus_tpu_torch.network import runner
+    path = crash_path(runner.engine(cfg).name, telemetry=True)
+    return path if cfg.crash_on else path[:-1]
+
+
+def check_gate_runs(card: str, smi: str) -> None:
+    """Phase 20's runs: ``simulator.run`` of each run GATE_RUNS with
+    telemetry and 8-round windows, replayed as one CUDA graph and counted
+    from 0: its digest, counter totals (the gate's own among them, above
+    0) and flight recorder against the JAX anchors, from the replay and
+    from the eager loop, the oracle's digest on DPoS, its path's kernels
+    launched and no other; node-round-steps per second, the replay's wall,
+    busy share and device operations a round (one profiled replay)."""
+    from consensus_tpu_torch.core import serialize
+    from consensus_tpu_torch.network import runner, simulator
+    for key, (digest, nonzero, flight, oracle) in GATE_RUNS.items():
+        cfg = gate_config(key)
+        eng = runner.engine(cfg)
+        res, launches = counted(lambda: simulator.run(cfg, telemetry=True))
+        tel, fl = res.extras["telemetry"], res.extras["flight"]
+        stats: dict = {}
+        eager = runner.run(cfg, graph=False, telemetry=True, stats=stats)
+        eager_digest = serialize.digest(
+            simulator.decided_payload(cfg, eager)[3])
+        prof = profile_replay(cfg, telemetry=True)
+        want = {k: nonzero.get(k, 0) for k in eng.telemetry_names}
+        gate = "attack_rounds" if cfg.attack_mode else "missed_slots"
+        row = dict(
+            digest=res.digest, digest_ok=res.digest == digest,
+            eager_digest=eager_digest, oracle_digest=oracle,
+            totals=tel["totals"], totals_ok=tel["totals"] == want,
+            flight_sha256=flight_digest(fl),
+            flight_ok=flight_digest(fl) == flight,
+            eager_equal=flight_digest(stats["flight"]) == flight_digest(fl)
+            and all(np.array_equal(stats["telemetry"][k], v)
+                    for k, v in tel["per_sweep"].items()),
+            steps_per_sec=res.steps_per_sec, wall_s=res.wall_s,
+            launches=launches, replay_wall_ms=prof["replay_wall_ms"],
+            busy_share=prof["busy_share"],
+            unprofiled_busy_share=prof["unprofiled_busy_share"],
+            device_ms=prof["device_ms"],
+            device_launches=prof["device_launches"],
+            device_ops_per_round=prof["launches_per_round"],
+            hand_kernel_ms={k: v for k, v in prof["hand_kernel_ms"].items()
+                            if v})
+        emit("gate_run", run=key, **row, card=card, power=smi)
+        for check in ("digest_ok", "totals_ok", "flight_ok", "eager_equal"):
+            require(row[check], f"{key}: {check} fails")
+        require(eager_digest == digest,
+                f"{key}: the eager loop's digest {eager_digest}")
+        require(oracle is None or oracle == digest,
+                f"{key}: the oracle's digest {oracle} != {digest}")
+        require(tel["totals"][gate] > 0, f"{key}: {gate} counted nothing")
+        if cfg.suppress_on:
+            require(tel["totals"]["suppressed_slots"] > 0,
+                    f"{key}: suppressed_slots counted nothing")
+        require_launched(launches, gate_path(cfg), key)
+        runner.clear_graphs()
+
+
+# The script's start, for each line's elapsed time (emit).
 T0 = time.perf_counter()
 
 
@@ -6542,8 +6937,7 @@ def main() -> int:
         k["bound_ms"], k["bound_by"] = k.pop("bound")
         (k["flat_instance_bound_ms"],
          k["flat_instance_bound_by"]) = k.pop("flat_instance_bound")
-        emit("byz_kernel", **k, elapsed_s=time.perf_counter() - T0,
-             card=card, power=smi)
+        emit("byz_kernel", **k, card=card, power=smi)
         require(k["max_abs_err"] == 0.0,
                 f"{k['name']} with byzantine nodes disagrees with its plain "
                 "version")
@@ -6560,15 +6954,28 @@ def main() -> int:
              k["flat_instance_bound_by"]) = k.pop("flat_instance_bound")
         if k["name"] in BYZ_BCAST_OWN:
             kernels.append(k)
-        emit("byz_bcast_kernel", **k, elapsed_s=time.perf_counter() - T0,
-             card=card, power=smi)
+        emit("byz_bcast_kernel", **k, card=card, power=smi)
         require(k["max_abs_err"] == 0.0,
                 f"{k['name']} with byzantine nodes on §6b disagrees with its "
                 "plain version")
     launches.update(check_byz_bcast_runs(card, smi))
+
+    # 20. SPEC §A.1 slot miss and §A.4 suppression on DPoS, SPEC §A.3
+    # attacks on both Raft engines: every kernel call of rounds 3 and 20 of
+    # the runs and built inputs against the plain versions (the gate
+    # instances of KB, KE, KK, KL, KM, KP, KX and KAB among them), then
+    # the runs.
+    for k in check_gate_kernels(dev):
+        k["bound_ms"], k["bound_by"] = k.pop("bound")
+        (k["flat_instance_bound_ms"],
+         k["flat_instance_bound_by"]) = k.pop("flat_instance_bound")
+        emit("gate_kernel", **k, card=card, power=smi)
+        require(k["max_abs_err"] == 0.0,
+                f"{k['name']} disagrees with its plain version")
+    check_gate_runs(card, smi)
     require(sorted(k["name"] for k in kernels) == sorted(_build.SOURCES),
             "phases 3, 16, 17 and 19 do not check every kernel of csrc")
-    emit("wall", elapsed_s=time.perf_counter() - T0)
+    emit("wall")
     for k in kernels:
         k["launches"] = launches[k["name"]]
 

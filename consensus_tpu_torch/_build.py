@@ -49,8 +49,10 @@ SIGNATURES = {
     # seed, stream, (ctx, c0, c1) x (ptr, scalar, batch stride), out, B, M
     "random_u32": (_P, _U, _P, _U, _L, _P, _U, _L, _P, _U, _L, _P, _I, _L),
     # seed, round, ids, out, B, A, N, drop_cut, part_cut, ids_are_src,
-    # max_delay, §6c flags (null on the flat path)
-    "delivery_edges": (_P, _U, _P, _P, _I, _I, _I, _U, _U, _I, _U, _P),
+    # max_delay, §6c flags (null on the flat path); §A.3 attack word (null
+    # but under an attack) and the jammed receiver (-1: every edge)
+    "delivery_edges": (_P, _U, _P, _P, _I, _I, _I, _U, _U, _I, _U, _P, _P,
+                       _I),
     # mask, term, partial scratch, out, B, N, A, blocks per sweep
     "top_active": (_P, _P, _P, _P, _I, _I, _I, _I),
     # seed, t_min, t_span; del_lj, lead_id, s_term, term, role, voted_for,
@@ -62,8 +64,11 @@ SIGNATURES = {
     # seed, round, churn_cut, t_min, t_span; term, role, voted_for, timer,
     # timeout, log_term, log_len; term, role, voted_for, timer, timeout,
     # reset, own_lterm, cand_mask outputs; §6c flags (null on the flat
-    # path); B, N, L; §3c byz mode, n_byzantine (0, 0 on the flat path)
-    "candidacy": (_P, _U, _U, _I, _U) + (_P,) * 16 + (_I,) * 5,
+    # path); B, N, L; §3c byz mode, n_byzantine (0, 0 on the flat path);
+    # §A.3 attack mode, attack_cut, target, attack word output (0, 0, 0,
+    # null on the flat path)
+    "candidacy": (_P, _U, _U, _I, _U) + (_P,) * 16 + (_I,) * 5
+    + (_I, _U, _I, _P),
     # seed, t_min, t_span; cand_ids, del_cj, del_jc, term, role, voted_for,
     # timer, timeout, reset, log_len, own_lterm; term, role, voted_for,
     # timer, timeout, reset, lead, win outputs, votes scratch; §6c flags
@@ -85,17 +90,22 @@ SIGNATURES = {
     "propose": (_P, _U) + (_P,) * 15 + (_I,) * 7,
     # cand_ids, win, timer at round entry, has_l, apply, commit at round
     # entry, commit, role, log_len, down; t, w, lat accumulators (w and
-    # lat null with the recorder off); B, N, A, K, window, n_windows
-    "telemetry": (_P,) * 13 + (_I,) * 6,
+    # lat null with the recorder off); B, N, A, K, window, n_windows; §A.3
+    # attack word (null but under an attack)
+    "telemetry": (_P,) * 13 + (_I,) * 6 + (_P,),
     # seed, round, out, side scratch, B, N, drop_cut, part_cut, max_delay,
-    # §6c flags (null on the flat path)
-    "delivery": (_P, _U, _P, _P, _I, _I, _U, _U, _U, _P),
+    # §6c flags (null on the flat path); §A.3 sticky: role at round entry
+    # (null but under the sticky attack), target, attack_cut
+    "delivery": (_P, _U, _P, _P, _I, _I, _U, _U, _U, _P, _P, _I, _U),
     # seed, round, churn_cut, t_min, t_span; deliver, term, role,
     # voted_for, timer, timeout, log_term, log_len, match_idx and next_idx
     # (in place); term, role, voted_for, timer, timeout, reset outputs,
     # winner flags (null without telemetry), scratch; §6c flags (null on
-    # the flat path); B, N, L; byz mode, n_byzantine
-    "dense_elect": (_P, _U, _U, _I, _U) + (_P,) * 19 + (_I,) * 5,
+    # the flat path); B, N, L; byz mode, n_byzantine; §A.3 attack mode,
+    # attack_cut, target, attack word output (0, 0, 0, null on the flat
+    # path)
+    "dense_elect": (_P, _U, _U, _I, _U) + (_P,) * 19 + (_I,) * 5
+    + (_I, _U, _I, _P),
     # seed, round, t_min, t_span; deliver, term, role, voted_for, timer,
     # timeout, reset, log_term, log_val (in place), log_len, commit,
     # match_idx (in place), next_idx; term, role, voted_for, timer,
@@ -110,8 +120,9 @@ SIGNATURES = {
     "dense_acks_commit": (_P, _I, _U) + (_P,) * 17 + (_I,) * 6,
     # win, timer at round entry, ack_to, ack_ok, commit at round entry,
     # commit, role, log_len, down; t, w, lat accumulators (w and lat null
-    # with the recorder off); B, N, K, window, n_windows
-    "dense_telemetry": (_P,) * 12 + (_I,) * 5,
+    # with the recorder off); B, N, K, window, n_windows; §A.3 attack word
+    # (null but under an attack)
+    "dense_telemetry": (_P,) * 12 + (_I,) * 5 + (_P,),
     # seed, round, churn_cut, view_timeout, vmax, desync_cut, max_skew
     # (§B; desync_cut 0 off); deliver, n_real, f, view, timer, pp_seen,
     # pp_view, pp_val, prepared, committed; view, timer, reset, pp_seen,
@@ -151,9 +162,11 @@ SIGNATURES = {
     # append counts (null without telemetry); chain_r and chain_p element
     # sizes, the round's producer index within a lane's list and the
     # list's length (E * K), drop_cut, part_cut, churn_cut, max_delay;
-    # §6c flags (null on the flat path); B, V, L
+    # §6c flags (null on the flat path); B, V, L; §A.1 miss_cut, §A.4
+    # suppress_cut and suppress_window (0, 0 and any window on the flat
+    # path)
     "dpos_round": (_P, _U) + (_P,) * 5 + (_I,) * 4 + (_U,) * 4 + (_P,)
-    + (_I,) * 3,
+    + (_I,) * 3 + (_U,) * 3,
     # seed, round; deliver, promised, acc_bal; new_promised, n_prom,
     # best_bal, best_a, prep_del outputs, pair counts (null without
     # telemetry), proposal and key scratch; §6c flags (null on the flat
@@ -176,8 +189,10 @@ SIGNATURES = {
     # seed, round; producers, chain_len, KX's append counts; t, w, lat
     # accumulators (w and lat null with the recorder off), span scratch;
     # the round's and the round before's producer indexes, the list's
-    # length, churn_cut; B, V, K, window, n_windows
-    "dpos_telemetry": (_P, _U) + (_P,) * 7 + (_I,) * 3 + (_U,) + (_I,) * 5,
+    # length, churn_cut; B, V, K, window, n_windows; §A.1 miss_cut, §A.4
+    # suppress_cut and suppress_window (as KX's)
+    "dpos_telemetry": (_P, _U) + (_P,) * 7 + (_I,) * 3 + (_U,) + (_I,) * 5
+    + (_U,) * 3,
     # n_prom, n_pair, n_acc, decided; learned_mask at entry and after; t,
     # w, lat accumulators (w and lat null with the recorder off); decided's
     # lane stride; round, B, N, S, K, window, n_windows

@@ -26,7 +26,11 @@ package's message on the other protocols. The SPEC §3c/§7c byzantine nodes
 from N - n_byzantine up; ``byz_mode`` "silent" or "equivocate") run on both
 Raft engines, both PBFT engines (``fault_model`` "edge" and "bcast"), their
 f-ladders and HotStuff, with the JAX package's checks and messages. The
-other knobs
+SPEC §A.1 slot miss (``miss_rate``) and §A.4 producer suppression
+(``suppress_rate``, ``suppress_window``) run on DPoS, the SPEC §A.3
+targeted attacks (``attack`` "elect" or "sticky", ``attack_rate``,
+``attack_target``) on both Raft engines, each with the JAX package's checks
+and messages on the other protocols. The other knobs
 of the JAX package that this port does not implement yet are fields too,
 and setting one off its default raises ``ValueError``, also beside a
 delay, a crash, a desync or byzantine nodes; the port never ignores a
@@ -41,9 +45,7 @@ from .rng import prob_threshold_u32
 # Knobs of consensus_tpu's Config that the port does not implement yet,
 # with the default each must keep.
 UNSUPPORTED = {
-    "attack": "none", "attack_rate": 1.0, "attack_target": 0,
     "net_model": "flat", "n_aggregators": 0,
-    "miss_rate": 0.0, "suppress_rate": 0.0, "suppress_window": 16,
     "scan_chunk": 0, "sweep_chunk": 0,
     "mesh_shape": (),
 }
@@ -62,6 +64,13 @@ MAX_DELAY_ROUNDS = 16
 # SPEC §3c/§7c byzantine modes as the kernels take them (``Config.byz``):
 # none, silent (withhold every send), equivocate.
 BYZ_NONE, BYZ_SILENT, BYZ_EQUIV = 0, 1, 2
+
+# SPEC §A.3 targeted Raft attacks as the kernels take them
+# (``Config.attack_mode``): none, elect (election traffic jammed in an
+# attacked round with a live new candidacy), sticky (the target's inbound
+# traffic jammed while it leads at the round's start).
+ATTACKS = ("none", "elect", "sticky")
+ATTACK_NONE, ATTACK_ELECT, ATTACK_STICKY = 0, 1, 2
 
 # Raft only. The top-A kernel keeps a sorted list of A keys per thread in
 # registers.
@@ -218,6 +227,45 @@ class Config:
             raise ValueError(
                 "max_skew_rounds requires desync_rate > 0 (SPEC §B) "
                 "— it would be silently ignored")
+        # The JAX package's SPEC §A.1, §A.3 and §A.4 checks and messages
+        # (consensus_tpu/core/config.py:219-223, 229-253, 329-340; its
+        # engine == "cpu" check has no counterpart: the port has no
+        # engine field).
+        if self.miss_rate > 0 and self.protocol != "dpos":
+            raise ValueError(
+                "miss_rate is the SPEC §A.1 per-producer DPoS slot-fault "
+                f"adversary; {self.protocol} has no producer schedule and "
+                "would silently ignore it")
+        if self.attack not in ATTACKS:
+            raise ValueError(f"unknown attack {self.attack!r} (SPEC §A.3: "
+                             "none | elect | sticky)")
+        if self.attack != "none":
+            if self.protocol != "raft":
+                raise ValueError(
+                    "attack != 'none' is a SPEC §A.3 Raft-targeted "
+                    f"adversary; {self.protocol} would silently ignore it")
+            if self.attack == "elect" and self.attack_target != 0:
+                raise ValueError(
+                    "attack_target is read only by attack='sticky' (SPEC "
+                    "§A.3 leader-stickiness); 'elect' jams election "
+                    "traffic population-wide and would silently ignore it")
+            if not (0 <= self.attack_target < self.n_nodes):
+                raise ValueError("attack_target must be in [0, n_nodes)")
+        elif self.attack_rate != 1.0 or self.attack_target != 0:
+            raise ValueError(
+                "attack_rate/attack_target require attack != 'none' "
+                "(SPEC §A.3) — they would be silently ignored")
+        if self.suppress_rate > 0 and self.protocol != "dpos":
+            raise ValueError(
+                "suppress_rate is the SPEC §A.4 correlated DPoS "
+                f"producer-suppression adversary; {self.protocol} has no "
+                "producer schedule and would silently ignore it")
+        if self.suppress_window < 1:
+            raise ValueError("suppress_window must be >= 1")
+        if self.suppress_window != 16 and self.suppress_rate == 0:
+            raise ValueError(
+                "suppress_window requires suppress_rate > 0 (SPEC §A.4) "
+                "— it would be silently ignored")
         off = [k for k, d in UNSUPPORTED.items() if getattr(self, k) != d]
         if off:
             raise ValueError(f"{', '.join(off)}: not supported by the port "
@@ -259,6 +307,38 @@ class Config:
         """SPEC §B runs only where a skew can fire: with ``desync_rate = 0``
         the round is the flat one (consensus_tpu/core/config.py:473-476)."""
         return self.desync_cutoff > 0
+
+    @property
+    def miss_cutoff(self) -> int:
+        return prob_threshold_u32(self.miss_rate)
+
+    @property
+    def miss_on(self) -> bool:
+        """SPEC §A.1 runs only where a slot miss can fire
+        (consensus_tpu/core/config.py:437-439)."""
+        return self.miss_cutoff > 0
+
+    @property
+    def suppress_cutoff(self) -> int:
+        return prob_threshold_u32(self.suppress_rate)
+
+    @property
+    def suppress_on(self) -> bool:
+        """SPEC §A.4 runs only where a suppression can fire
+        (consensus_tpu/core/config.py:467-469)."""
+        return self.suppress_cutoff > 0
+
+    @property
+    def attack_cutoff(self) -> int:
+        return prob_threshold_u32(self.attack_rate)
+
+    @property
+    def attack_mode(self) -> int:
+        """The SPEC §A.3 attack the kernels take: ATTACK_NONE, ATTACK_ELECT
+        or ATTACK_STICKY. As in the JAX package, the gate is the attack's
+        name (``cfg.attack == "elect"``), not its rate: an attack at rate 0
+        runs the attack's round, whose draw never fires."""
+        return ATTACKS.index(self.attack)
 
     @property
     def byz(self) -> int:

@@ -25,8 +25,20 @@
 // their candidacies out of the mask as well: they never broadcast
 // (raft_sparse.py:257-258), so KC ranks honest candidates only. An
 // equivocating node's candidacy broadcasts as an honest one's does.
+// Its ATTACK instances (SPEC §A.3, picked with attack "elect" or "sticky")
+// write the round's attack word of each lane (atk, [B] int32, zeroed
+// here first), which kernel KB's ATTACK instance and kernel KK read
+// (raft_sparse.py:177-199, 236-240, 268-276, 509-514). Sticky: the target's
+// own thread draws the round's activation (ctt::attack_fires) and, where
+// it fires and the target led at the round's start (its role as it enters
+// the round, before the §6c reset), skips the target's churn step-down and
+// writes 1. Elect: each thread whose node stands in P1 and is up at the
+// round's end (a down node's candidacy is a phantom the freeze reverts)
+// draws the activation and, where it fires, writes 1: the lane's jam is
+// the OR over a grid of many blocks, a race-free store of one value.
 #include <cuda_runtime.h>
 
+#include "attack.cuh"
 #include "byz.cuh"
 #include "crash.cuh"
 #include "rng.cuh"
@@ -36,7 +48,7 @@ namespace {
 constexpr int THREADS = 256;
 constexpr int32_t ROLE_F = 0, ROLE_C = 1, ROLE_L = 2;
 
-template <bool CRASH, bool WITHHOLD>
+template <bool CRASH, bool WITHHOLD, int ATTACK>
 __global__ void __launch_bounds__(THREADS)
 candidacy_kernel(const uint32_t* __restrict__ seed, uint32_t r,
                  uint32_t churn_cut, int32_t t_min, uint32_t t_span,
@@ -56,7 +68,8 @@ candidacy_kernel(const uint32_t* __restrict__ seed, uint32_t r,
                  int32_t* __restrict__ own_lterm_out,
                  bool* __restrict__ cand_out,
                  const unsigned char* __restrict__ flags, int N, int L,
-                 int n_honest) {
+                 int n_honest, uint32_t attack_cut, int tgt,
+                 int32_t* __restrict__ atk) {
   const int j = blockIdx.x * THREADS + threadIdx.x;
   if (j >= N) return;
   const int b = blockIdx.y;
@@ -64,6 +77,10 @@ candidacy_kernel(const uint32_t* __restrict__ seed, uint32_t r,
   const uint32_t sd = seed[b];
   int32_t tm = term[row], rl = role[row], vf = voted_for[row];
   int32_t tmr = timer[row], to = timeout[row];
+  // SPEC §A.3 sticky: the target's leadership as it enters the round.
+  const bool sticky = ATTACK == ctt::ATTACK_STICKY && j == tgt &&
+                      rl == ROLE_L && ctt::attack_fires(sd, r, attack_cut);
+  if (sticky) atk[b] = 1;
   bool down = false;
   if (CRASH) {
     const unsigned char fl = flags[row];
@@ -76,7 +93,7 @@ candidacy_kernel(const uint32_t* __restrict__ seed, uint32_t r,
   const int32_t f_tm = tm, f_rl = rl, f_vf = vf, f_tmr = tmr, f_to = to;
   bool reset = false;
   // P0: the sweep's churn event steps its leaders down.
-  if (rl == ROLE_L && churn_cut != 0u &&
+  if (rl == ROLE_L && churn_cut != 0u && !sticky &&
       ctt::random_u32(sd, ctt::STREAM_CHURN, r, 0u, 0u) < churn_cut) {
     rl = ROLE_F;
     tmr = 0;
@@ -90,6 +107,9 @@ candidacy_kernel(const uint32_t* __restrict__ seed, uint32_t r,
     tmr = 0;
     reset = true;
     to = ctt::draw_timeout(sd, tm, j, t_min, t_span);
+    if (ATTACK == ctt::ATTACK_ELECT && !(CRASH && down) &&
+        ctt::attack_fires(sd, r, attack_cut))
+      atk[b] = 1;
   }
   const int32_t len = log_len[row];
   const int k = min(max(len - 1, 0), L - 1);
@@ -106,8 +126,21 @@ candidacy_kernel(const uint32_t* __restrict__ seed, uint32_t r,
   cand_out[row] = rl == ROLE_C && !down && !(WITHHOLD && j >= n_honest);
 }
 
+using CandidacyKernel = decltype(&candidacy_kernel<false, false, 0>);
+
+template <bool CRASH, bool WITHHOLD>
+CandidacyKernel candidacy_instance(int attack) {
+  return attack == ctt::ATTACK_ELECT
+             ? candidacy_kernel<CRASH, WITHHOLD, ctt::ATTACK_ELECT>
+         : attack == ctt::ATTACK_STICKY
+             ? candidacy_kernel<CRASH, WITHHOLD, ctt::ATTACK_STICKY>
+             : candidacy_kernel<CRASH, WITHHOLD, ctt::ATTACK_NONE>;
+}
+
 }  // namespace
 
+// attack is the SPEC §A.3 mode (0 on the flat path, where atk is null and
+// attack_cut and tgt are unused); atk is the [B] attack word, zeroed here.
 extern "C" int ctt_candidacy(const uint32_t* seed, uint32_t r,
                              uint32_t churn_cut, int32_t t_min,
                              uint32_t t_span, const int32_t* term,
@@ -119,20 +152,29 @@ extern "C" int ctt_candidacy(const uint32_t* seed, uint32_t r,
                              int32_t* timeout_out, bool* reset_out,
                              int32_t* own_lterm_out, bool* cand_out,
                              const unsigned char* flags, int B, int N, int L,
-                             int byz, int nb, cudaStream_t st) {
-  if (t_span == 0u || nb < 0 || nb > N)
+                             int byz, int nb, int attack, uint32_t attack_cut,
+                             int tgt, int32_t* atk, cudaStream_t st) {
+  if (t_span == 0u || nb < 0 || nb > N || attack < ctt::ATTACK_NONE ||
+      attack > ctt::ATTACK_STICKY || (attack != 0) != (atk != nullptr) ||
+      (attack == ctt::ATTACK_STICKY && (tgt < 0 || tgt >= N)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || N == 0) return 0;
+  if (atk != nullptr) {
+    const int err = static_cast<int>(
+        cudaMemsetAsync(atk, 0, sizeof(int32_t) * B, st));
+    if (err != 0) return err;
+  }
   const dim3 grid((N + THREADS - 1) / THREADS, B);
   const bool crash = flags != nullptr, withhold = byz == ctt::BYZ_SILENT;
   const auto kernel =
-      crash ? (withhold ? candidacy_kernel<true, true>
-                        : candidacy_kernel<true, false>)
-            : (withhold ? candidacy_kernel<false, true>
-                        : candidacy_kernel<false, false>);
+      crash ? (withhold ? candidacy_instance<true, true>(attack)
+                        : candidacy_instance<true, false>(attack))
+            : (withhold ? candidacy_instance<false, true>(attack)
+                        : candidacy_instance<false, false>(attack));
   kernel<<<grid, THREADS, 0, st>>>(
       seed, r, churn_cut, t_min, t_span, term, role, voted_for, timer,
       timeout, log_term, log_len, term_out, role_out, vf_out, timer_out,
-      timeout_out, reset_out, own_lterm_out, cand_out, flags, N, L, N - nb);
+      timeout_out, reset_out, own_lterm_out, cand_out, flags, N, L, N - nb,
+      attack_cut, tgt, atk);
   return static_cast<int>(cudaGetLastError());
 }

@@ -30,7 +30,12 @@
 // blocks of one warp. Its CRASH instances, which the launch picks when the
 // round's SPEC §6c flag word of kernel KAH is given, cut every edge with an
 // end down at the round's end (the dense engines' deliver & up[:, None] &
-// up[None, :]); a down sender's row is all zeros.
+// up[None, :]); a down sender's row is all zeros. Its STICKY instances
+// (SPEC §A.3 "sticky", picked when the round's input roles are given)
+// clear column tgt, every edge into the target, in a lane whose round
+// activation fires (ctt::attack_fires) while the target led at the round's
+// start (raft.py:241-253): only the thread that writes column tgt of a row
+// reads the target's role and draws.
 #include <cuda_runtime.h>
 
 #include "crash.cuh"
@@ -39,6 +44,7 @@
 namespace {
 
 constexpr int VEC = 4;
+constexpr int32_t ROLE_L = 2;
 
 // Launch 1. A thread per (sweep, node).
 __global__ void delivery_side_kernel(const uint32_t* __restrict__ seed,
@@ -61,12 +67,14 @@ __global__ void delivery_side_kernel(const uint32_t* __restrict__ seed,
 }
 
 // Launch 2. Grid (B * N rows, ceil(N / (VEC * blockDim.x))).
-template <bool DELAY, bool CRASH>
+template <bool DELAY, bool CRASH, bool STICKY>
 __global__ void delivery_kernel(const uint32_t* __restrict__ seed,
                                 uint32_t r, const uint8_t* __restrict__ side,
                                 unsigned char* __restrict__ out, int N,
                                 uint32_t drop_cut, uint32_t max_delay,
-                                const unsigned char* __restrict__ flags) {
+                                const unsigned char* __restrict__ flags,
+                                const int32_t* __restrict__ role, int tgt,
+                                uint32_t attack_cut) {
   const long long row = blockIdx.x;  // b * N + i
   const int b = static_cast<int>(row / N);
   const int i = static_cast<int>(row - static_cast<long long>(b) * N);
@@ -92,6 +100,10 @@ __global__ void delivery_kernel(const uint32_t* __restrict__ seed,
         (!side || side_b[j] == side_i);
     word |= static_cast<uint32_t>(ok) << (8 * v);
   }
+  if (STICKY && tgt >= j0 && tgt < j0 + VEC &&
+      role[static_cast<long long>(b) * N + tgt] == ROLE_L &&
+      ctt::attack_fires(sd, r, attack_cut))
+    word &= ~(0xFFu << (8 * (tgt - j0)));
   unsigned char* o = out + row * N + j0;
   if ((N & (VEC - 1)) == 0) {
     *reinterpret_cast<uint32_t*>(o) = word;
@@ -101,13 +113,24 @@ __global__ void delivery_kernel(const uint32_t* __restrict__ seed,
   }
 }
 
+using DeliveryKernel = decltype(&delivery_kernel<false, false, false>);
+
+template <bool DELAY, bool CRASH>
+DeliveryKernel delivery_instance(bool sticky) {
+  return sticky ? delivery_kernel<DELAY, CRASH, true>
+                : delivery_kernel<DELAY, CRASH, false>;
+}
+
 }  // namespace
 
 extern "C" int ctt_delivery(const uint32_t* seed, uint32_t r,
                             unsigned char* out, uint8_t* side, int B, int N,
                             uint32_t drop_cut, uint32_t part_cut,
                             uint32_t max_delay, const unsigned char* flags,
-                            cudaStream_t st) {
+                            const int32_t* role, int tgt,
+                            uint32_t attack_cut, cudaStream_t st) {
+  if (role != nullptr && (tgt < 0 || tgt >= N))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || N == 0) return 0;
   const long long rows = static_cast<long long>(B) * N;
   if (part_cut != 0u) {
@@ -122,13 +145,14 @@ extern "C" int ctt_delivery(const uint32_t* seed, uint32_t r,
   const int threads = quads >= 256 ? 256 : ((quads + 31) / 32) * 32;
   const dim3 grid(static_cast<unsigned>(rows),
                   static_cast<unsigned>((quads + threads - 1) / threads));
-  const bool delay = max_delay != 0u;
+  const bool delay = max_delay != 0u, sticky = role != nullptr;
   const auto kernel =
       flags != nullptr
-          ? (delay ? delivery_kernel<true, true> : delivery_kernel<false, true>)
-          : (delay ? delivery_kernel<true, false>
-                   : delivery_kernel<false, false>);
+          ? (delay ? delivery_instance<true, true>(sticky)
+                   : delivery_instance<false, true>(sticky))
+          : (delay ? delivery_instance<true, false>(sticky)
+                   : delivery_instance<false, false>(sticky));
   kernel<<<grid, threads, 0, st>>>(seed, r, side, out, N, drop_cut,
-                                   max_delay, flags);
+                                   max_delay, flags, role, tgt, attack_cut);
   return static_cast<int>(cudaGetLastError());
 }

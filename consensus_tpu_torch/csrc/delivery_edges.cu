@@ -17,6 +17,11 @@
 // Under SPEC §6c (the CRASH instances, picked when the round's flag word of
 // kernel KAH is given) an edge with an end down at the round's end is not
 // delivered (consensus_tpu/engines/raft_sparse.py:192-195).
+// Under SPEC §A.3 (the ATTACK instances, picked when the round's attack word
+// of kernel KE is given) an edge is not delivered where the lane's word is
+// set and its receiver is atk_dst, or any receiver when atk_dst is -1: the
+// sticky target's inbound edges on all four calls, every P2 edge under an
+// elect jam (raft_sparse.py:197-199, 276, 338-339).
 //
 // Bound: the [B, A, N] bool output (6.4 MB at the flagship shape) against
 // ~20 integer operations an edge once the (seed, r) and per-row absorbs are
@@ -46,13 +51,15 @@ __device__ __forceinline__ bool same_side(uint32_t seed, uint32_t r,
 }
 
 // out[b, a, j]: ids[b, a] sends to node j. Grid (ceil(N / 256), B * A).
-template <bool DELAY, bool CRASH>
+template <bool DELAY, bool CRASH, bool ATTACK>
 __global__ void edges_src_kernel(const uint32_t* __restrict__ seed,
                                  uint32_t r, const int32_t* __restrict__ ids,
                                  unsigned char* __restrict__ out, int A,
                                  int N, uint32_t drop_cut,
                                  uint32_t part_cut, uint32_t max_delay,
-                                 const unsigned char* __restrict__ flags) {
+                                 const unsigned char* __restrict__ flags,
+                                 const int32_t* __restrict__ atk,
+                                 int atk_dst) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= N) return;
   const int row = blockIdx.y;  // b * A + a
@@ -62,6 +69,7 @@ __global__ void edges_src_kernel(const uint32_t* __restrict__ seed,
   const uint32_t s = static_cast<uint32_t>(id);
   const uint32_t d = static_cast<uint32_t>(j);
   bool ok = id >= 0 && s != d;
+  if (ATTACK && ok && atk[b] != 0) ok = atk_dst >= 0 && j != atk_dst;
   if (CRASH && ok)
     ok = !ctt::crash_down(flags, b, N, id) && !ctt::crash_down(flags, b, N, j);
   if (ok) {
@@ -75,16 +83,19 @@ __global__ void edges_src_kernel(const uint32_t* __restrict__ seed,
 }
 
 // out[b, j, a]: node j sends to ids[b, a]. Grid (ceil(N / 256), B).
-template <bool DELAY, bool CRASH>
+template <bool DELAY, bool CRASH, bool ATTACK>
 __global__ void edges_dst_kernel(const uint32_t* __restrict__ seed,
                                  uint32_t r, const int32_t* __restrict__ ids,
                                  unsigned char* __restrict__ out, int A,
                                  int N, uint32_t drop_cut,
                                  uint32_t part_cut, uint32_t max_delay,
-                                 const unsigned char* __restrict__ flags) {
+                                 const unsigned char* __restrict__ flags,
+                                 const int32_t* __restrict__ atk,
+                                 int atk_dst) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= N) return;
   const int b = blockIdx.y;
+  const bool jammed = ATTACK && atk[b] != 0;
   const bool src_up = !CRASH || !ctt::crash_down(flags, b, N, j);
   const uint32_t sd = seed[b];
   const uint32_t s = static_cast<uint32_t>(j);
@@ -95,6 +106,7 @@ __global__ void edges_dst_kernel(const uint32_t* __restrict__ seed,
     const int32_t id = ids[b * A + a];
     const uint32_t d = static_cast<uint32_t>(id);
     o[a] = id >= 0 && s != d && src_up &&
+           !(ATTACK && jammed && (atk_dst < 0 || id == atk_dst)) &&
            (!CRASH || !ctt::crash_down(flags, b, N, id)) &&
            (ctt::mix_fin(ctt::mix_absorb(h, d)) >= drop_cut ||
             (DELAY &&
@@ -103,36 +115,59 @@ __global__ void edges_dst_kernel(const uint32_t* __restrict__ seed,
   }
 }
 
+using SrcKernel = decltype(&edges_src_kernel<false, false, false>);
+using DstKernel = decltype(&edges_dst_kernel<false, false, false>);
+
+// The instance of each direction for (delay, crash, attack).
+SrcKernel src_instance(bool delay, bool crash, bool attack) {
+  return attack ? (crash ? (delay ? edges_src_kernel<true, true, true>
+                                  : edges_src_kernel<false, true, true>)
+                         : (delay ? edges_src_kernel<true, false, true>
+                                  : edges_src_kernel<false, false, true>))
+                : (crash ? (delay ? edges_src_kernel<true, true, false>
+                                  : edges_src_kernel<false, true, false>)
+                         : (delay ? edges_src_kernel<true, false, false>
+                                  : edges_src_kernel<false, false, false>));
+}
+
+DstKernel dst_instance(bool delay, bool crash, bool attack) {
+  return attack ? (crash ? (delay ? edges_dst_kernel<true, true, true>
+                                  : edges_dst_kernel<false, true, true>)
+                         : (delay ? edges_dst_kernel<true, false, true>
+                                  : edges_dst_kernel<false, false, true>))
+                : (crash ? (delay ? edges_dst_kernel<true, true, false>
+                                  : edges_dst_kernel<false, true, false>)
+                         : (delay ? edges_dst_kernel<true, false, false>
+                                  : edges_dst_kernel<false, false, false>));
+}
+
 }  // namespace
 
+// atk is null on the flat path (atk_dst unused), else the round's [B]
+// attack word of kernel KE with the jammed receiver atk_dst (-1: all).
 extern "C" int ctt_delivery_edges(const uint32_t* seed, uint32_t r,
                                   const int32_t* ids, unsigned char* out,
                                   int B, int A, int N, uint32_t drop_cut,
                                   uint32_t part_cut, int ids_are_src,
                                   uint32_t max_delay,
                                   const unsigned char* flags,
+                                  const int32_t* atk, int atk_dst,
                                   cudaStream_t st) {
   if (B == 0 || A == 0 || N == 0) return 0;
   const int threads = 256;
   const unsigned gx = (N + threads - 1) / threads;
-  const bool delay = max_delay != 0u, crash = flags != nullptr;
+  const bool delay = max_delay != 0u, crash = flags != nullptr,
+             attack = atk != nullptr;
   if (ids_are_src) {
-    const auto kernel =
-        crash ? (delay ? edges_src_kernel<true, true>
-                       : edges_src_kernel<false, true>)
-              : (delay ? edges_src_kernel<true, false>
-                       : edges_src_kernel<false, false>);
+    const auto kernel = src_instance(delay, crash, attack);
     kernel<<<dim3(gx, B * A), threads, 0, st>>>(
-        seed, r, ids, out, A, N, drop_cut, part_cut, max_delay, flags);
+        seed, r, ids, out, A, N, drop_cut, part_cut, max_delay, flags, atk,
+        atk_dst);
   } else {
-    const auto kernel =
-        crash ? (delay ? edges_dst_kernel<true, true>
-                       : edges_dst_kernel<false, true>)
-              : (delay ? edges_dst_kernel<true, false>
-                       : edges_dst_kernel<false, false>);
-    kernel<<<dim3(gx, B), threads, 0, st>>>(seed, r, ids, out, A, N,
-                                            drop_cut, part_cut, max_delay,
-                                            flags);
+    const auto kernel = dst_instance(delay, crash, attack);
+    kernel<<<dim3(gx, B), threads, 0, st>>>(
+        seed, r, ids, out, A, N, drop_cut, part_cut, max_delay, flags, atk,
+        atk_dst);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -62,10 +62,23 @@
 // byzantine receiver runs P2a-P2b as an honest one, then walks the table
 // again and votes for every candidate c whose request it got and whose way
 // back is open (deliver[c, j] & deliver[j, c], lines 405-410).
+// Its ATTACK instances (SPEC §A.3, picked with attack "elect" or "sticky")
+// write the round's attack word of each lane (atk, [B] int32, zeroed
+// here first), which kernel KP counts (raft.py:236-253, 303-304, 320-330,
+// 541-547). Sticky: in launch 1 the target's own thread draws the round's
+// activation (ctt::attack_fires) and, where it fires and the target led as
+// it entered the round (before the §6c reset), skips its churn step-down
+// and writes 1; kernel KL's STICKY instance has already cut the target's
+// inbound column. Elect: in launch 1 each thread whose node stands in P1
+// and is up at the round's end draws the activation and, where it fires,
+// writes 1 (the lane's jam: an OR over the grid's blocks); launch 2 then
+// walks no candidate in a jammed lane, so P2a-P2c see no request and no
+// response (deliver_e = deliver & ~jam), and launch 3 finds no tally.
 #include <climits>
 
 #include <cuda_runtime.h>
 
+#include "attack.cuh"
 #include "byz.cuh"
 #include "crash.cuh"
 #include "rng.cuh"
@@ -76,7 +89,7 @@ constexpr int THREADS = 256;
 constexpr int32_t ROLE_F = 0, ROLE_C = 1, ROLE_L = 2, NONE = -1;
 
 // Launch 1. A thread per (sweep, node), flattened.
-template <bool CRASH>
+template <bool CRASH, int ATTACK>
 __global__ void __launch_bounds__(THREADS)
 dense_candidacy_kernel(const uint32_t* __restrict__ seed, uint32_t r,
                        uint32_t churn_cut, int32_t t_min, uint32_t t_span,
@@ -96,7 +109,8 @@ dense_candidacy_kernel(const uint32_t* __restrict__ seed, uint32_t r,
                        bool* __restrict__ win_out, int4* __restrict__ cands,
                        int* __restrict__ n_cand, int32_t* __restrict__ lterm,
                        const unsigned char* __restrict__ flags, int N, int L,
-                       long long rows) {
+                       long long rows, uint32_t attack_cut, int tgt,
+                       int32_t* __restrict__ atk) {
   const long long row =
       static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
   if (row >= rows) return;
@@ -105,6 +119,10 @@ dense_candidacy_kernel(const uint32_t* __restrict__ seed, uint32_t r,
   const uint32_t sd = seed[b];
   int32_t tm = term[row], rl = role[row], vf = voted_for[row];
   int32_t tmr = timer[row], to = timeout[row];
+  // SPEC §A.3 sticky: the target's leadership as it enters the round.
+  const bool sticky = ATTACK == ctt::ATTACK_STICKY && j == tgt &&
+                      rl == ROLE_L && ctt::attack_fires(sd, r, attack_cut);
+  if (sticky) atk[b] = 1;
   bool down = false;
   if (CRASH) {
     const unsigned char fl = flags[row];
@@ -117,7 +135,7 @@ dense_candidacy_kernel(const uint32_t* __restrict__ seed, uint32_t r,
   const int32_t f_tm = tm, f_rl = rl, f_vf = vf, f_tmr = tmr, f_to = to;
   bool reset = false;
   // P0: the sweep's churn event steps its leaders down.
-  if (rl == ROLE_L && churn_cut != 0u &&
+  if (rl == ROLE_L && churn_cut != 0u && !sticky &&
       ctt::random_u32(sd, ctt::STREAM_CHURN, r, 0u, 0u) < churn_cut) {
     rl = ROLE_F;
     tmr = 0;
@@ -131,6 +149,9 @@ dense_candidacy_kernel(const uint32_t* __restrict__ seed, uint32_t r,
     tmr = 0;
     reset = true;
     to = ctt::draw_timeout(sd, tm, j, t_min, t_span);
+    if (ATTACK == ctt::ATTACK_ELECT && !(CRASH && down) &&
+        ctt::attack_fires(sd, r, attack_cut))
+      atk[b] = 1;
   }
   const int32_t len = log_len[row];
   const int k = min(max(len - 1, 0), L - 1);
@@ -153,7 +174,7 @@ dense_candidacy_kernel(const uint32_t* __restrict__ seed, uint32_t r,
 }
 
 // Launch 2. A thread per (sweep, receiver), flattened.
-template <int BYZ>
+template <int BYZ, bool JAM>
 __global__ void __launch_bounds__(THREADS)
 dense_grants_kernel(const uint32_t* __restrict__ seed, int32_t t_min,
                     uint32_t t_span, const bool* __restrict__ deliver,
@@ -167,7 +188,8 @@ dense_grants_kernel(const uint32_t* __restrict__ seed, int32_t t_min,
                     int32_t* __restrict__ timer_out,
                     int32_t* __restrict__ timeout_out,
                     bool* __restrict__ reset_out, int* __restrict__ votes,
-                    int N, long long rows, int n_honest) {
+                    int N, long long rows, int n_honest,
+                    const int32_t* __restrict__ atk) {
   const long long row =
       static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
   if (row >= rows) return;
@@ -175,7 +197,8 @@ dense_grants_kernel(const uint32_t* __restrict__ seed, int32_t t_min,
   const int j = static_cast<int>(row - static_cast<long long>(b) * N);
   const long long nodes = static_cast<long long>(b) * N;
   const int4* table = cands + nodes;
-  const int nc = n_cand[b];
+  // An elect-jammed lane: no request and no response travels.
+  const int nc = JAM && atk[b] != 0 ? 0 : n_cand[b];
   int32_t tm = term_out[row], vf = vf_out[row];
   const int32_t ol = lterm[row], ll = log_len[row];
   // One pass: the highest delivered request term `top`, and over the
@@ -313,8 +336,29 @@ dense_winners_kernel(const int32_t* __restrict__ log_len,
   }
 }
 
+using CandidacyKernel = decltype(&dense_candidacy_kernel<false, 0>);
+using GrantsKernel = decltype(&dense_grants_kernel<0, false>);
+
+template <bool CRASH>
+CandidacyKernel candidacy_instance(int attack) {
+  return attack == ctt::ATTACK_ELECT
+             ? dense_candidacy_kernel<CRASH, ctt::ATTACK_ELECT>
+         : attack == ctt::ATTACK_STICKY
+             ? dense_candidacy_kernel<CRASH, ctt::ATTACK_STICKY>
+             : dense_candidacy_kernel<CRASH, ctt::ATTACK_NONE>;
+}
+
+template <bool JAM>
+GrantsKernel grants_instance(int byz) {
+  return byz == ctt::BYZ_SILENT  ? dense_grants_kernel<ctt::BYZ_SILENT, JAM>
+         : byz == ctt::BYZ_EQUIV ? dense_grants_kernel<ctt::BYZ_EQUIV, JAM>
+                                 : dense_grants_kernel<ctt::BYZ_NONE, JAM>;
+}
+
 }  // namespace
 
+// attack is the SPEC §A.3 mode (0 on the flat path, where atk is null and
+// attack_cut and tgt are unused); atk is the [B] attack word, zeroed here.
 extern "C" int ctt_dense_elect(
     const uint32_t* seed, uint32_t r, uint32_t churn_cut, int32_t t_min,
     uint32_t t_span, const bool* deliver, const int32_t* term,
@@ -324,9 +368,12 @@ extern "C" int ctt_dense_elect(
     int32_t* role_out, int32_t* vf_out, int32_t* timer_out,
     int32_t* timeout_out, bool* reset_out, bool* win_out, int32_t* scratch,
     const unsigned char* flags, int B, int N, int L, int byz, int nb,
+    int attack, uint32_t attack_cut, int tgt, int32_t* atk,
     cudaStream_t st) {
   if (t_span == 0u || nb < 0 || nb > N || byz < ctt::BYZ_NONE ||
-      byz > ctt::BYZ_EQUIV)
+      byz > ctt::BYZ_EQUIV || attack < ctt::ATTACK_NONE ||
+      attack > ctt::ATTACK_STICKY || (attack != 0) != (atk != nullptr) ||
+      (attack == ctt::ATTACK_STICKY && (tgt < 0 || tgt >= N)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || N == 0) return 0;
   const long long rows = static_cast<long long>(B) * N;
@@ -340,24 +387,26 @@ extern "C" int ctt_dense_elect(
   int err = static_cast<int>(
       cudaMemsetAsync(n_cand, 0, sizeof(int) * (B + rows), st));
   if (err != 0) return err;
+  if (atk != nullptr &&
+      (err = static_cast<int>(
+           cudaMemsetAsync(atk, 0, sizeof(int32_t) * B, st))) != 0)
+    return err;
   const unsigned blocks = static_cast<unsigned>((rows + THREADS - 1) / THREADS);
   const bool crash = flags != nullptr;
-  const auto candidacy = crash ? dense_candidacy_kernel<true>
-                               : dense_candidacy_kernel<false>;
+  const auto candidacy = crash ? candidacy_instance<true>(attack)
+                               : candidacy_instance<false>(attack);
   candidacy<<<blocks, THREADS, 0, st>>>(
       seed, r, churn_cut, t_min, t_span, term, role, voted_for, timer,
       timeout, log_term, log_len, term_out, role_out, vf_out, timer_out,
       timeout_out, reset_out, win_out, cands, n_cand, lterm, flags, N, L,
-      rows);
+      rows, attack_cut, tgt, atk);
   if ((err = static_cast<int>(cudaGetLastError())) != 0) return err;
-  const auto grants =
-      byz == ctt::BYZ_SILENT  ? dense_grants_kernel<ctt::BYZ_SILENT>
-      : byz == ctt::BYZ_EQUIV ? dense_grants_kernel<ctt::BYZ_EQUIV>
-                              : dense_grants_kernel<ctt::BYZ_NONE>;
+  const auto grants = attack == ctt::ATTACK_ELECT ? grants_instance<true>(byz)
+                                                   : grants_instance<false>(byz);
   grants<<<blocks, THREADS, 0, st>>>(
       seed, t_min, t_span, deliver, log_len, cands, n_cand, lterm, term_out,
       role_out, vf_out, timer_out, timeout_out, reset_out, votes, N, rows,
-      N - nb);
+      N - nb, atk);
   if ((err = static_cast<int>(cudaGetLastError())) != 0) return err;
   const auto winners = crash ? dense_winners_kernel<true>
                              : dense_winners_kernel<false>;

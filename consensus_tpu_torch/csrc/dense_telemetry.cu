@@ -11,9 +11,11 @@
 // Counters, in RAFT_TELEMETRY order: leader_elections (the round's
 // winners), append_accepted (applied appends), append_rejected (a leader
 // heard, ack_to >= 0, and not applied), entries_committed (the sum of
-// commit minus commit at round entry), then attack_rounds and the crash
-// and aggregation tails, which stay 0: the port rejects those gates, so
-// nothing is added there. Histograms: election_wait_rounds (round-entry
+// commit minus commit at round entry), then attack_rounds: in the ATTACK
+// instance (SPEC §A.3, picked when the round's attack word of kernel KM is
+// given) the lane's word, the jam (elect) or the sticky activation
+// (raft.py:541-547); the crash tail is kernel KAH's to add, the
+// aggregation tail stays 0 (the port rejects the §9 switch). Histograms: election_wait_rounds (round-entry
 // timer + 1 of each winner) and commit_lag_rounds (log_len - commit of
 // each live leader), bucketed as bucket_counts does: bucket 0 holds values
 // <= 0, bucket i in 1..14 holds [2^(i-1), 2^i), bucket 15 values >= 2^14.
@@ -43,6 +45,8 @@ constexpr int32_t ROLE_L = 2;
 // Counters this kernel adds: leader_elections, append_accepted,
 // append_rejected, entries_committed.
 constexpr int COUNTED = 4;
+// attack_rounds' column.
+constexpr int ATTACK_COL = 4;
 
 __device__ __forceinline__ int lat_bucket(int32_t v) {
   if (v <= 0) return 0;
@@ -54,6 +58,7 @@ __device__ __forceinline__ int warp_total(int v) {
   return v;
 }
 
+template <bool ATTACK>
 __global__ void __launch_bounds__(THREADS)
 dense_telemetry_kernel(const bool* __restrict__ win,
                        const int32_t* __restrict__ timer_in,
@@ -65,7 +70,8 @@ dense_telemetry_kernel(const bool* __restrict__ win,
                        const int32_t* __restrict__ log_len,
                        const bool* __restrict__ down, int* __restrict__ t,
                        int* __restrict__ w, int* __restrict__ lat, int N,
-                       int K, int window, int n_windows, int node_tiles) {
+                       int K, int window, int n_windows, int node_tiles,
+                       const int32_t* __restrict__ atk) {
   __shared__ int s_count[COUNTED];
   __shared__ int s_hist[HISTS][BUCKETS];
   const int b = blockIdx.x / node_tiles;
@@ -113,6 +119,12 @@ dense_telemetry_kernel(const bool* __restrict__ win,
                      threadIdx.x], v);
     }
   }
+  if (ATTACK && tile == 0 && threadIdx.x == 0 && atk[b] != 0) {
+    atomicAdd(&t[b * K + ATTACK_COL], 1);
+    if (w != nullptr)
+      atomicAdd(&w[(static_cast<long long>(b) * n_windows + window) * K +
+                   ATTACK_COL], 1);
+  }
   if (flight && threadIdx.x < HISTS * BUCKETS) {
     const int v = (&s_hist[0][0])[threadIdx.x];
     if (v) atomicAdd(&lat[b * HISTS * BUCKETS + threadIdx.x], v);
@@ -122,7 +134,7 @@ dense_telemetry_kernel(const bool* __restrict__ win,
 }  // namespace
 
 // w and lat are null when the flight recorder is off; then window and
-// n_windows are unused.
+// n_windows are unused. atk is null but under a SPEC §A.3 attack.
 extern "C" int ctt_dense_telemetry(const bool* win, const int32_t* timer_in,
                                    const int32_t* ack_to, const bool* ack_ok,
                                    const int32_t* commit_in,
@@ -131,16 +143,18 @@ extern "C" int ctt_dense_telemetry(const bool* win, const int32_t* timer_in,
                                    const int32_t* log_len, const bool* down,
                                    int* t, int* w, int* lat, int B, int N,
                                    int K, int window, int n_windows,
-                                   cudaStream_t st) {
-  if (K < COUNTED || (w == nullptr) != (lat == nullptr) ||
+                                   const int32_t* atk, cudaStream_t st) {
+  if (K <= ATTACK_COL || (w == nullptr) != (lat == nullptr) ||
       (w != nullptr && (window < 0 || window >= n_windows)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || N == 0) return 0;
   const int node_tiles = (N + THREADS - 1) / THREADS;
   const long long blocks = static_cast<long long>(node_tiles) * B;
   if (blocks > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
-  dense_telemetry_kernel<<<static_cast<unsigned>(blocks), THREADS, 0, st>>>(
+  const auto kernel = atk != nullptr ? dense_telemetry_kernel<true>
+                                     : dense_telemetry_kernel<false>;
+  kernel<<<static_cast<unsigned>(blocks), THREADS, 0, st>>>(
       win, timer_in, ack_to, ack_ok, commit_in, commit, role, log_len, down,
-      t, w, lat, N, K, window, n_windows, node_tiles);
+      t, w, lat, N, K, window, n_windows, node_tiles, atk);
   return static_cast<int>(cudaGetLastError());
 }

@@ -34,6 +34,14 @@
 // Its CRASH instances (SPEC §6c, picked when the round's flag word of kernel
 // KAH is given) append nothing at a validator down at the round's end, nor
 // anywhere in a lane whose round producer is down (dpos.py:171-172).
+// Its GATES instances (picked when miss_cut or suppress_cut is non-zero)
+// append nothing in a lane whose round producer p misses its slot (SPEC
+// §A.1, K13 slot_missed: one draw a (round, producer), dpos.py:139-145)
+// or is suppressed in round r's window (SPEC §A.4: one draw a (r / window,
+// producer), dpos.py:147-163, 166-169): ctt::slot_missed and
+// ctt::suppressed, drawn by each thread after the churn and full-chain
+// tests, like churn's lane draw. A cutoff of 0 never fires, so one
+// instance serves either gate or both.
 #include <cuda_runtime.h>
 
 #include "crash.cuh"
@@ -56,14 +64,15 @@ __device__ __forceinline__ void store(void* base, int size, long long i,
 
 // Validator v of lane b's round: appends (r, p) where the block reaches it,
 // and says whether it did.
-template <bool DELAY, bool CRASH>
+template <bool DELAY, bool CRASH, bool GATES>
 __device__ __forceinline__ bool append(
     const uint32_t* __restrict__ seed, uint32_t r,
     const int32_t* __restrict__ producers, void* chain_r, void* chain_p,
     int32_t* __restrict__ chain_len, int r_size, int p_size, int p_index,
     int list_len, uint32_t drop_cut, uint32_t part_cut, uint32_t churn_cut,
     uint32_t max_delay, const unsigned char* __restrict__ flags, int V,
-    int L, int b, uint32_t v, long long row) {
+    int L, uint32_t miss_cut, uint32_t suppress_cut, uint32_t window, int b,
+    uint32_t v, long long row) {
   const uint32_t sd = seed[b];
   if (ctt::random_u32(sd, ctt::STREAM_CHURN, r, 0u, 0u) < churn_cut)
     return false;
@@ -71,6 +80,9 @@ __device__ __forceinline__ bool append(
   if (len >= L) return false;
   const uint32_t p = static_cast<uint32_t>(
       producers[static_cast<long long>(b) * list_len + p_index]);
+  if (GATES && (ctt::slot_missed(sd, r, p, miss_cut) ||
+                ctt::suppressed(sd, r, window, p, suppress_cut)))
+    return false;
   if (CRASH && (ctt::crash_down(flags, b, V, static_cast<int>(v)) ||
                 ctt::crash_down(flags, b, V, static_cast<int>(p))))
     return false;
@@ -93,7 +105,7 @@ __device__ __forceinline__ bool append(
 }
 
 // A thread per (lane, validator), flattened.
-template <bool DELAY, bool CRASH>
+template <bool DELAY, bool CRASH, bool GATES>
 __global__ void __launch_bounds__(THREADS)
 dpos_round_kernel(const uint32_t* __restrict__ seed, uint32_t r,
                   const int32_t* __restrict__ producers, void* chain_r,
@@ -102,7 +114,8 @@ dpos_round_kernel(const uint32_t* __restrict__ seed, uint32_t r,
                   int p_index, int list_len, uint32_t drop_cut,
                   uint32_t part_cut, uint32_t churn_cut, uint32_t max_delay,
                   const unsigned char* __restrict__ flags, int V, int L,
-                  long long rows) {
+                  long long rows, uint32_t miss_cut, uint32_t suppress_cut,
+                  uint32_t window) {
   __shared__ int s_app[2];
   const long long row =
       static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
@@ -110,11 +123,11 @@ dpos_round_kernel(const uint32_t* __restrict__ seed, uint32_t r,
   bool did = false;
   if (row < rows) {
     b = static_cast<int>(row / V);
-    did = append<DELAY, CRASH>(
+    did = append<DELAY, CRASH, GATES>(
         seed, r, producers, chain_r, chain_p, chain_len, r_size, p_size,
         p_index, list_len, drop_cut, part_cut, churn_cut, max_delay, flags,
-        V, L, b, static_cast<uint32_t>(row - static_cast<long long>(b) * V),
-        row);
+        V, L, miss_cut, suppress_cut, window, b,
+        static_cast<uint32_t>(row - static_cast<long long>(b) * V), row);
   }
   if (n_app == nullptr) return;
   // The appends a lane, for the telemetry.
@@ -135,9 +148,20 @@ dpos_round_kernel(const uint32_t* __restrict__ seed, uint32_t r,
     atomicAdd(n_app + b0 + threadIdx.x, s_app[threadIdx.x]);
 }
 
+using RoundKernel = decltype(&dpos_round_kernel<false, false, false>);
+
+// The instance of a (DELAY, CRASH) pair with or without the gates.
+template <bool DELAY, bool CRASH>
+RoundKernel round_kernel(bool gates) {
+  return gates ? dpos_round_kernel<DELAY, CRASH, true>
+               : dpos_round_kernel<DELAY, CRASH, false>;
+}
+
 }  // namespace
 
-// n_app is null where the caller does not count the appends.
+// n_app is null where the caller does not count the appends. miss_cut and
+// suppress_cut are 0 on the flat path (window >= 1 is read only by the
+// GATES instances).
 extern "C" int ctt_dpos_round(const uint32_t* seed, uint32_t r,
                               const int32_t* producers, void* chain_r,
                               void* chain_p, int32_t* chain_len,
@@ -145,7 +169,10 @@ extern "C" int ctt_dpos_round(const uint32_t* seed, uint32_t r,
                               int p_index, int list_len, uint32_t drop_cut,
                               uint32_t part_cut, uint32_t churn_cut,
                               uint32_t max_delay, const unsigned char* flags,
-                              int B, int V, int L, cudaStream_t st) {
+                              int B, int V, int L, uint32_t miss_cut,
+                              uint32_t suppress_cut, uint32_t window,
+                              cudaStream_t st) {
+  if (window == 0u) return static_cast<int>(cudaErrorInvalidValue);
   if (n_app != nullptr && B > 0) {
     const int err = static_cast<int>(
         cudaMemsetAsync(n_app, 0, sizeof(int32_t) * B, st));
@@ -154,15 +181,17 @@ extern "C" int ctt_dpos_round(const uint32_t* seed, uint32_t r,
   const long long rows = static_cast<long long>(B) * V;
   if (rows == 0) return 0;
   const bool delay = max_delay != 0u;
+  const bool gates = miss_cut != 0u || suppress_cut != 0u;
   const auto kernel =
       flags != nullptr
-          ? (delay ? dpos_round_kernel<true, true>
-                   : dpos_round_kernel<false, true>)
-          : (delay ? dpos_round_kernel<true, false>
-                   : dpos_round_kernel<false, false>);
+          ? (delay ? round_kernel<true, true>(gates)
+                   : round_kernel<false, true>(gates))
+          : (delay ? round_kernel<true, false>(gates)
+                   : round_kernel<false, false>(gates));
   kernel<<<static_cast<unsigned>((rows + THREADS - 1) / THREADS), THREADS, 0,
            st>>>(seed, r, producers, chain_r, chain_p, chain_len, n_app,
                  r_size, p_size, p_index, list_len, drop_cut, part_cut,
-                 churn_cut, max_delay, flags, V, L, rows);
+                 churn_cut, max_delay, flags, V, L, rows, miss_cut,
+                 suppress_cut, window);
   return static_cast<int>(cudaGetLastError());
 }

@@ -7,8 +7,11 @@
 // which kernel KX counts as it appends: n_app), missed_appends (V minus
 // them), producer_rotations (r > 0 and round r's producer differs from
 // round r - 1's), churn_slots (the round's churn event), then
-// missed_slots, suppressed_slots and the crash tail, which stay 0: the
-// port rejects those gates. Histogram chain_lag_rounds: one observation a
+// missed_slots and suppressed_slots: in the GATES instance (picked when
+// miss_cut or suppress_cut is non-zero) the lane's raw SPEC §A.1 and §A.4
+// draws of round r's producer (ctt::slot_missed, ctt::suppressed;
+// dpos.py:186-189), counted whether or not the slot had anything left to
+// skip, else 0. The crash tail is kernel KAH's to add. Histogram chain_lag_rounds: one observation a
 // round, max(chain_len) - min(chain_len) over the lane's validators after
 // the append, bucketed as bucket_counts does (bucket 0 holds values <= 0,
 // bucket i in 1..14 holds [2^(i-1), 2^i), bucket 15 values >= 2^14).
@@ -54,6 +57,7 @@ __device__ __forceinline__ void add(int* tb, int* wb, int k, int v) {
   if (wb != nullptr) atomicAdd(wb + k, v);
 }
 
+template <bool GATES>
 __global__ void __launch_bounds__(THREADS)
 dpos_telemetry_kernel(const uint32_t* __restrict__ seed, uint32_t r,
                       const int32_t* __restrict__ producers,
@@ -62,7 +66,9 @@ dpos_telemetry_kernel(const uint32_t* __restrict__ seed, uint32_t r,
                       int* __restrict__ w, int* __restrict__ lat,
                       unsigned* __restrict__ span, int p_index,
                       int prev_index, int list_len, uint32_t churn_cut,
-                      int V, int K, int window, int n_windows, int tiles) {
+                      int V, int K, int window, int n_windows, int tiles,
+                      uint32_t miss_cut, uint32_t suppress_cut,
+                      uint32_t suppress_window) {
   __shared__ unsigned s_span[2];
   const int b = blockIdx.x / tiles;
   const int tile = blockIdx.x - b * tiles;
@@ -105,6 +111,12 @@ dpos_telemetry_kernel(const uint32_t* __restrict__ seed, uint32_t r,
   add(tb, wb, 2, r > 0u && plist[p_index] != plist[prev_index]);
   add(tb, wb, 3, ctt::random_u32(seed[b], ctt::STREAM_CHURN, r, 0u, 0u) <
                      churn_cut);
+  if (GATES) {
+    const uint32_t p = static_cast<uint32_t>(plist[p_index]);
+    add(tb, wb, 4, ctt::slot_missed(seed[b], r, p, miss_cut));
+    add(tb, wb, 5, ctt::suppressed(seed[b], r, suppress_window, p,
+                                   suppress_cut));
+  }
   if (lat != nullptr) {
     const uint32_t kmax = atomicMax(ls + 0, 0u);
     const uint32_t kmin = ~atomicMax(ls + 1, 0u);
@@ -120,7 +132,7 @@ dpos_telemetry_kernel(const uint32_t* __restrict__ seed, uint32_t r,
 // of the round's appends. p_index and prev_index are the entries of a
 // lane's producer list (E * K long) of rounds r and max(r - 1, 0). w and
 // lat are null when the flight recorder is off; then window and n_windows
-// are unused.
+// are unused. miss_cut and suppress_cut are 0 on the flat path.
 extern "C" int ctt_dpos_telemetry(const uint32_t* seed, uint32_t r,
                                   const int32_t* producers,
                                   const int32_t* chain_len,
@@ -129,11 +141,13 @@ extern "C" int ctt_dpos_telemetry(const uint32_t* seed, uint32_t r,
                                   int prev_index, int list_len,
                                   uint32_t churn_cut, int B, int V, int K,
                                   int window, int n_windows,
+                                  uint32_t miss_cut, uint32_t suppress_cut,
+                                  uint32_t suppress_window,
                                   cudaStream_t st) {
   if (K < K_MIN || (w == nullptr) != (lat == nullptr) ||
       (w != nullptr && (window < 0 || window >= n_windows)) ||
       p_index < 0 || p_index >= list_len || prev_index < 0 ||
-      prev_index >= list_len)
+      prev_index >= list_len || suppress_window == 0u)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || V == 0) return 0;
   int err = static_cast<int>(cudaMemsetAsync(
@@ -142,8 +156,12 @@ extern "C" int ctt_dpos_telemetry(const uint32_t* seed, uint32_t r,
   const int tiles = (V + TILE - 1) / TILE;
   const long long blocks = static_cast<long long>(tiles) * B;
   if (blocks > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
-  dpos_telemetry_kernel<<<static_cast<unsigned>(blocks), THREADS, 0, st>>>(
+  const auto kernel = miss_cut != 0u || suppress_cut != 0u
+                          ? dpos_telemetry_kernel<true>
+                          : dpos_telemetry_kernel<false>;
+  kernel<<<static_cast<unsigned>(blocks), THREADS, 0, st>>>(
       seed, r, producers, chain_len, n_app, t, w, lat, span, p_index,
-      prev_index, list_len, churn_cut, V, K, window, n_windows, tiles);
+      prev_index, list_len, churn_cut, V, K, window, n_windows, tiles,
+      miss_cut, suppress_cut, suppress_window);
   return static_cast<int>(cudaGetLastError());
 }

@@ -5,7 +5,9 @@
 // delivery_u32_jnp), with the SPEC §A.2 retransmission draw (delay_u32_jnp)
 // and the delayed-retransmission term of consensus_tpu/ops/adversary.py
 // (delayed_open, K13), and the SPEC §B timer skew of
-// consensus_tpu/ops/viewsync.py (desync_skew, K22). All arithmetic is uint32
+// consensus_tpu/ops/viewsync.py (desync_skew, K22), and the one-engine gate
+// draws of K13 and K20: the SPEC §A.1 slot miss, the §A.3 attack activation
+// and the §A.4 window-keyed suppression. All arithmetic is uint32
 // and wraps, which is the whole contract: the draws equal the JAX package's
 // bit for bit.
 #pragma once
@@ -23,6 +25,9 @@ constexpr uint32_t STREAM_VOTE = 0xD3A2646Cu;
 constexpr uint32_t STREAM_VALUE = 0xFD7046C5u;
 constexpr uint32_t STREAM_DELAY = 0x2545F491u;
 constexpr uint32_t STREAM_DESYNC = 0x5BE0CD19u;
+constexpr uint32_t STREAM_SLOTMISS = 0x7F4A7C15u;
+constexpr uint32_t STREAM_ATTACK = 0xBB67AE85u;
+constexpr uint32_t STREAM_SUPPRESS = 0x1F83D9ABu;
 
 __device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
   return (x << r) | (x >> (32 - r));
@@ -139,6 +144,31 @@ __device__ __forceinline__ int32_t desync_skew(uint32_t seed, uint32_t r,
   if (random_u32(seed, STREAM_DESYNC, r, 0u, id) >= desync_cut) return 0;
   return 1 + static_cast<int32_t>(
                  random_u32(seed, STREAM_DESYNC, r, 1u, id) % max_skew);
+}
+
+// K13 slot_missed (consensus_tpu/ops/adversary.py:206-213): whether round
+// r's scheduled producer p misses its slot under SPEC §A.1, one draw a
+// (round, producer). Cutoffs are strict u32 compares: a cutoff of 0 never
+// fires, 0xFFFFFFFF (a rate of 1) fires on every draw but 0xFFFFFFFF.
+__device__ __forceinline__ bool slot_missed(uint32_t seed, uint32_t r,
+                                            uint32_t p, uint32_t miss_cut) {
+  return random_u32(seed, STREAM_SLOTMISS, r, 0u, p) < miss_cut;
+}
+
+// K13 attack_fires (consensus_tpu/ops/adversary.py:216-219): the SPEC §A.3
+// per-round activation of the targeted Raft attacks.
+__device__ __forceinline__ bool attack_fires(uint32_t seed, uint32_t r,
+                                             uint32_t attack_cut) {
+  return random_u32(seed, STREAM_ATTACK, r, 0u, 0u) < attack_cut;
+}
+
+// K20's SPEC §A.4 draw (consensus_tpu/engines/dpos.py:157-163): whether
+// producer p is suppressed in round r's window, one draw a (r / window,
+// producer), so a suppressed producer misses every slot of the window.
+__device__ __forceinline__ bool suppressed(uint32_t seed, uint32_t r,
+                                           uint32_t window, uint32_t p,
+                                           uint32_t suppress_cut) {
+  return random_u32(seed, STREAM_SUPPRESS, r / window, 0u, p) < suppress_cut;
 }
 
 }  // namespace ctt

@@ -11,8 +11,11 @@
 // Counters, in RAFT_TELEMETRY order: leader_elections (winners of the
 // round), append_accepted, append_rejected (has_l and not applied),
 // entries_committed (the sum of commit minus commit at round entry),
-// then attack_rounds and the crash and aggregation tails, which stay 0:
-// the port rejects those gates, so nothing is added there. Histograms:
+// then attack_rounds: in the ATTACK instance (SPEC §A.3, picked when the
+// round's attack word of kernel KE is given) the lane's word, the jam
+// (elect) or the sticky activation (raft_sparse.py:509-514); the crash tail
+// is kernel KAH's to add, the aggregation tail stays 0 (the port rejects
+// the §9 switch). Histograms:
 // election_wait_rounds (round-entry timer + 1 of each winner) and
 // commit_lag_rounds (log_len - commit of each live leader), bucketed as
 // bucket_counts does: bucket 0 holds values <= 0, bucket i in 1..14 holds
@@ -42,6 +45,8 @@ constexpr int32_t ROLE_L = 2;
 // Counters this kernel adds: leader_elections, append_accepted,
 // append_rejected, entries_committed.
 constexpr int COUNTED = 4;
+// attack_rounds' column.
+constexpr int ATTACK_COL = 4;
 
 __device__ __forceinline__ int bucket(int32_t v) {
   if (v <= 0) return 0;
@@ -53,6 +58,7 @@ __device__ __forceinline__ int warp_sum(int v) {
   return v;
 }
 
+template <bool ATTACK>
 __global__ void __launch_bounds__(THREADS)
 telemetry_kernel(const int32_t* __restrict__ cand_ids,
                  const bool* __restrict__ win,
@@ -65,7 +71,8 @@ telemetry_kernel(const int32_t* __restrict__ cand_ids,
                  const int32_t* __restrict__ log_len,
                  const bool* __restrict__ down, int* __restrict__ t,
                  int* __restrict__ w, int* __restrict__ lat, int N, int A,
-                 int K, int window, int n_windows) {
+                 int K, int window, int n_windows,
+                 const int32_t* __restrict__ atk) {
   __shared__ int s_count[COUNTED];
   __shared__ int s_hist[HISTS][BUCKETS];
   const int b = blockIdx.y;
@@ -115,6 +122,12 @@ telemetry_kernel(const int32_t* __restrict__ cand_ids,
                      threadIdx.x], v);
     }
   }
+  if (ATTACK && blockIdx.x == 0 && threadIdx.x == 0 && atk[b] != 0) {
+    atomicAdd(&t[b * K + ATTACK_COL], 1);
+    if (w != nullptr)
+      atomicAdd(&w[(static_cast<long long>(b) * n_windows + window) * K +
+                   ATTACK_COL], 1);
+  }
   if (flight && threadIdx.x < HISTS * BUCKETS) {
     const int v = (&s_hist[0][0])[threadIdx.x];
     if (v) atomicAdd(&lat[b * HISTS * BUCKETS + threadIdx.x], v);
@@ -124,7 +137,7 @@ telemetry_kernel(const int32_t* __restrict__ cand_ids,
 }  // namespace
 
 // w and lat are null when the flight recorder is off; then window and
-// n_windows are unused.
+// n_windows are unused. atk is null but under a SPEC §A.3 attack.
 extern "C" int ctt_telemetry(const int32_t* cand_ids, const bool* win,
                              const int32_t* timer_in, const bool* has_l,
                              const bool* apply_, const int32_t* commit_in,
@@ -132,16 +145,17 @@ extern "C" int ctt_telemetry(const int32_t* cand_ids, const bool* win,
                              const int32_t* log_len, const bool* down,
                              int* t, int* w, int* lat, int B, int N, int A,
                              int K, int window, int n_windows,
-                             cudaStream_t st) {
-  if (A < 1 || A > THREADS || K < COUNTED ||
+                             const int32_t* atk, cudaStream_t st) {
+  if (A < 1 || A > THREADS || K <= ATTACK_COL ||
       (w == nullptr) != (lat == nullptr) ||
       (w != nullptr && (window < 0 || window >= n_windows)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || N == 0) return 0;
   const dim3 grid((N + THREADS - 1) / THREADS, B);
-  telemetry_kernel<<<grid, THREADS, 0, st>>>(cand_ids, win, timer_in, has_l,
-                                             apply_, commit_in, commit, role,
-                                             log_len, down, t, w, lat, N, A,
-                                             K, window, n_windows);
+  const auto kernel = atk != nullptr ? telemetry_kernel<true>
+                                     : telemetry_kernel<false>;
+  kernel<<<grid, THREADS, 0, st>>>(cand_ids, win, timer_in, has_l, apply_,
+                                   commit_in, commit, role, log_len, down, t,
+                                   w, lat, N, A, K, window, n_windows, atk);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,10 +1,11 @@
 """DPoS in PyTorch: SPEC §7, a stake-weighted producer schedule and one
 block a round.
 
-The port of ``consensus_tpu/engines/dpos.py`` on its flat path (no
-slot-miss or suppression gates; with the SPEC §A.2 delayed retransmission
-on the producer's edges and the SPEC §6c crash-recover adversary), with
-its telemetry and flight recorder.
+The port of ``consensus_tpu/engines/dpos.py`` on its flat path and under
+its gates: the SPEC §A.2 delayed retransmission on the producer's edges,
+the SPEC §6c crash-recover adversary, the SPEC §A.1 slot miss and the SPEC
+§A.4 window-keyed producer suppression, with its telemetry and flight
+recorder.
 Each epoch's producers are the top K candidates of a stake-weighted vote
 tally over every validator, computed once from the seed at init; round
 r's producer is entry ``(r mod epoch_len) mod K`` of epoch
@@ -29,7 +30,10 @@ with telemetry), and nothing else; with ``crash_prob > 0`` kernel KAH
 (``ops/adversary.py`` ``crash_transition``) comes first in each round,
 and KX's CRASH instance appends nothing at a down validator and nothing
 at all in a round whose producer is down (``consensus_tpu/engines/
-dpos.py:171-172``). DPoS has no volatile state: no reset, no freeze. The
+dpos.py:171-172``). With ``miss_rate`` or ``suppress_rate`` set, KX's
+and KAB's GATES instances run: no validator appends in a round whose
+producer misses its slot or is suppressed in the round's window, and KAB
+counts the raw draws. DPoS has no volatile state: no reset, no freeze. The
 chains are updated in place, where the JAX round returns new arrays: a
 round's state replaces its input state. They are stored as the JAX
 package stores them, ``chain_r`` in the narrowest unsigned type that holds
@@ -46,7 +50,8 @@ import torch
 from ..core import rng
 from ..core.config import Config
 from ..ops.adversary import (CRASH_DOWN, CRASH_TELEMETRY, bitcast_i32,
-                             crash_step, open_drop_plain)
+                             crash_step, open_drop_plain, slot_missed,
+                             suppressed)
 from ..ops.flight import (add_plain, bucket_counts_plain, check_recorder,
                           window_of)
 from .raft import check_all
@@ -58,7 +63,7 @@ NAME = "dpos"
 # consensus_tpu/engines/dpos.py DPOS_TELEMETRY (lines 100-106): the
 # round's chain extensions, the validators not extended, whether the
 # producer changed from the round before, whether churn skipped the slot,
-# the §A.1 and §A.4 skipped slots and the crash tail (zeros here).
+# the §A.1 and §A.4 draws of the round's producer and the crash tail.
 DPOS_TELEMETRY = ("blocks_appended", "missed_appends", "producer_rotations",
                   "churn_slots", "missed_slots", "suppressed_slots") \
     + CRASH_TELEMETRY
@@ -170,6 +175,24 @@ def round_producer(cfg: Config, producers, r: int) -> torch.Tensor:
         :, producer_index(cfg, r)]
 
 
+def gated(cfg: Config) -> bool:
+    """Whether the round runs the SPEC §A.1 or §A.4 gate: KX's and KAB's
+    GATES instances."""
+    return cfg.miss_on or cfg.suppress_on
+
+
+def gate_draws(cfg: Config, seed, r: int, producers) -> tuple:
+    """The SPEC §A.1 and §A.4 draws of round r's producer in each lane, as
+    ``consensus_tpu/engines/dpos.py:139-163`` draws them: ([B] bool slot
+    missed, [B] bool suppressed in the round's window); a gate that is off
+    never fires (its cutoff is 0)."""
+    p = round_producer(cfg, producers, r)
+    u32 = rng.random_u32_plain
+    return (slot_missed(seed, r, p, cfg.miss_cutoff, u32),
+            suppressed(seed, r, cfg.suppress_window, p, cfg.suppress_cutoff,
+                       u32))
+
+
 def dpos_round_plain(cfg: Config, seed, r: int, producers, chain_r, chain_p,
                      chain_len, count: bool = False, flags=None):
     """Plain version of KX, one SPEC §7 round at every validator v of each
@@ -185,7 +208,9 @@ def dpos_round_plain(cfg: Config, seed, r: int, producers, chain_r, chain_p,
     [B] int32 number of the round's appends in each lane. With the round's
     SPEC §6c ``flags`` ([B, V] uint8, KAH), a validator down at the
     round's end appends nothing, nor does any in a round whose producer is
-    down."""
+    down. With ``cfg.miss_on`` or ``cfg.suppress_on`` none appends in a
+    round whose producer misses its slot (SPEC §A.1) or is suppressed in
+    the round's window (SPEC §A.4; :func:`gate_draws`)."""
     V, L = chain_len.shape[1], chain_r.shape[2]
     dev = chain_len.device
     useed = rng.as_u32(seed)[:, None]
@@ -203,6 +228,9 @@ def dpos_round_plain(cfg: Config, seed, r: int, producers, chain_r, chain_p,
     churn = rng.random_u32_plain(seed, rng.STREAM_CHURN, r, 0, 0) \
         < cfg.churn_cutoff                                           # [B, 1]
     append = (ok | (v == p)) & ~churn & (chain_len < L)
+    if gated(cfg):
+        miss, supp = gate_draws(cfg, seed, r, producers)
+        append = append & ~(miss | supp)[:, None]
     if flags is not None:
         down = (flags & CRASH_DOWN) != 0
         append = append & ~down & ~down.gather(1, p)
@@ -224,7 +252,8 @@ def dpos_round(cfg: Config, seed, r: int, producers, chain_r, chain_p,
     ``csrc/dpos_round.cu`` (a thread per (lane, validator) reads its
     lane's producer, draws the edge, and appends in place; with ``count``
     a ballot a warp and an atomic a block and lane count the appends; its
-    CRASH instance with ``flags``)."""
+    CRASH instance with ``flags``, its GATES instance with a §A.1 or §A.4
+    cutoff)."""
     if chain_len.device.type == "cpu":
         return dpos_round_plain(cfg, seed, r, producers, chain_r, chain_p,
                                 chain_len, count, flags)
@@ -249,7 +278,8 @@ def dpos_round(cfg: Config, seed, r: int, producers, chain_r, chain_p,
                   producer_index(cfg, r), n_epochs(cfg) * cfg.n_producers,
                   cfg.drop_cutoff, cfg.partition_cutoff, cfg.churn_cutoff,
                   cfg.max_delay_rounds,
-                  None if flags is None else flags.data_ptr(), B, V, L)
+                  None if flags is None else flags.data_ptr(), B, V, L,
+                  cfg.miss_cutoff, cfg.suppress_cutoff, cfg.suppress_window)
     dpos_round.launches += 1
     if count:
         return chain_r, chain_p, chain_len, n_app
@@ -271,9 +301,11 @@ def dpos_telemetry_plain(cfg: Config, r: int, seed, producers, chain_len,
     ``consensus_tpu/engines/dpos.py`` dpos_round's tail (lines 183-198)
     on its flat path: ``n_app`` ([B] int32, KX's count) appends, V minus
     them missed, a rotation where round r > 0's producer is not round r -
-    1's, the round's churn event, zeros for the gates the port rejects;
-    the lag max - min of ``chain_len`` after the append. Updates ``t``,
-    ``w`` and ``lat`` in place."""
+    1's, the round's churn event, the §A.1 and §A.4 draws of the round's
+    producer (:func:`gate_draws`, whether or not its slot had anything
+    left to skip; 0 with the gates off), 0 for the crash tail (KAH adds
+    it); the lag max - min of ``chain_len`` after the append. Updates
+    ``t``, ``w`` and ``lat`` in place."""
     check_recorder(cfg, w, lat)
     V = chain_len.shape[1]
     rotated = (round_producer(cfg, producers, r)
@@ -284,6 +316,9 @@ def dpos_telemetry_plain(cfg: Config, r: int, seed, producers, chain_len,
     vec = torch.zeros_like(t)
     vec[:, :4] = torch.stack([n_app, V - n_app, rotated.to(torch.int32),
                               churn.to(torch.int32)], 1)
+    if gated(cfg):
+        vec[:, 4:6] = torch.stack(gate_draws(cfg, seed, r, producers),
+                                  1).to(torch.int32)
     hists = ()
     if w is not None:
         lag = (chain_len.amax(1) - chain_len.amin(1))[:, None]
@@ -297,7 +332,8 @@ def dpos_telemetry(cfg: Config, r: int, seed, producers, chain_len, n_app,
     :func:`dpos_telemetry_plain`, which it runs for CPU tensors; for CUDA
     tensors it launches ``csrc/dpos_telemetry.cu`` (a block per 1 024
     validators of a lane takes its lengths' max and min; the lane's last
-    block adds the counters and the bucket)."""
+    block adds the counters and the bucket; its GATES instance with a §A.1
+    or §A.4 cutoff)."""
     check_recorder(cfg, w, lat)
     if t.device.type == "cpu":
         return dpos_telemetry_plain(cfg, r, seed, producers, chain_len, n_app,
@@ -317,7 +353,8 @@ def dpos_telemetry(cfg: Config, r: int, seed, producers, chain_len, n_app,
                   span.data_ptr(), producer_index(cfg, r),
                   producer_index(cfg, max(int(r) - 1, 0)),
                   n_epochs(cfg) * cfg.n_producers, cfg.churn_cutoff, B, V,
-                  t.shape[1], window, n_windows)
+                  t.shape[1], window, n_windows, cfg.miss_cutoff,
+                  cfg.suppress_cutoff, cfg.suppress_window)
     dpos_telemetry.launches += 1
 
 
@@ -348,7 +385,8 @@ def dpos_step(cfg: Config, st: DposState, r: int, *, telem=None,
               flight=None) -> DposState:
     """One SPEC §7 round, as ``consensus_tpu/engines/dpos.py``
     ``dpos_round``: one launch of KX, which updates the chains in place,
-    after KAH with ``cfg.crash_on`` (SPEC §6c).
+    after KAH with ``cfg.crash_on`` (SPEC §6c); KX and KAB run their GATES
+    instances under the SPEC §A.1 and §A.4 gates.
 
     ``telem`` ([B, K] i32, the run's counter totals) switches on the
     round's telemetry and ``flight`` (the window ring and latency buckets,

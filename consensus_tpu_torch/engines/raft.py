@@ -1,8 +1,9 @@
 """Dense Raft in PyTorch, and the helpers it shares with the capped engine.
 
 The port of ``consensus_tpu/engines/raft.py`` on its flat path and under
-the SPEC §A.2 delay, the SPEC §6c crash-recover adversary and the SPEC §3c
-byzantine nodes (no attack or switch gates), with its telemetry and
+the SPEC §A.2 delay, the SPEC §6c crash-recover adversary, the SPEC §3c
+byzantine nodes and the SPEC §A.3 targeted attacks (no switch gate), with
+its telemetry and
 flight recorder: SPEC §3 over every node at once, with the [N, N]
 ``match_idx`` / ``next_idx`` replication state and the full [N, N]
 delivery mask of each round. Sweeps are a leading batch axis B on every
@@ -34,7 +35,12 @@ does not count their timers, which is the JAX round's freeze. With
 byzantine nodes (the ids from N - n_byzantine up; ``Config.byz``) KM-KO
 run BYZ instances: a silent node's candidacy, vote responses (KM),
 heartbeats (KN) and acks (KO) never travel; an equivocating node answers
-every candidate whose request it got (KM). The logs and the
+every candidate whose request it got (KM). Under a SPEC §A.3 attack KL's
+STICKY instance cuts the sticky target's inbound column, and KM's ATTACK
+instances write each lane's attack word (the sticky activation, which
+also skips the target's churn step-down, or the elect jam, under which
+KM's P2 sees no request and no response), which KP counts as
+attack_rounds. The logs and the
 replication state are updated in place, where the JAX round returns new
 arrays: a round's state replaces its input state.
 
@@ -49,10 +55,10 @@ from typing import NamedTuple
 import torch
 
 from ..core import rng
-from ..core.config import BYZ_SILENT, Config
+from ..core.config import ATTACK_ELECT, ATTACK_STICKY, BYZ_SILENT, Config
 from ..ops.adversary import (AGG_TELEMETRY, CRASH_DOWN, CRASH_REC,
-                             CRASH_TELEMETRY, bitcast_i32, churn, crash_step,
-                             delivery)
+                             CRASH_TELEMETRY, attack_fires, bitcast_i32,
+                             churn, crash_step, delivery)
 from ..ops.flight import (add_plain, bucket_counts_plain, check_recorder,
                           window_of)
 
@@ -64,8 +70,8 @@ NAME = "raft"
 
 # The Raft engines' telemetry counters, in order: a copy of
 # consensus_tpu/engines/raft.py RAFT_TELEMETRY with its tails
-# CRASH_TELEMETRY and AGG_TELEMETRY (zeros here: the port rejects the
-# crash and switch gates).
+# CRASH_TELEMETRY (kernel KAH's) and AGG_TELEMETRY (zeros: the port
+# rejects the §9 switch).
 RAFT_TELEMETRY = ("leader_elections", "append_accepted", "append_rejected",
                   "entries_committed", "attack_rounds") + CRASH_TELEMETRY \
     + AGG_TELEMETRY
@@ -111,6 +117,22 @@ def bump(cfg: Config, seed, cond, new_term, term, role, voted_for, timeout):
             torch.where(cond, draw_timeout(seed, cfg.t_min, cfg.t_max, term,
                                            idx, rng.random_u32_plain),
                         timeout))
+
+
+def attack_word(cfg: Config, seed, r: int, role_in):
+    """The SPEC §A.3 attack word a Raft round starts from, [B] int32, or
+    None without an attack: the round's activation (K13 ``attack_fires``),
+    and under "sticky" only where the target led as the round began
+    (``role_in``, the round's input roles, before the §6c reset;
+    ``consensus_tpu/engines/raft.py:236-250``, ``raft_sparse.py:182-189``).
+    Under "elect" the round then keeps it only where a live candidacy
+    stood in P1 (the jam)."""
+    if not cfg.attack_mode:
+        return None
+    fires = attack_fires(seed, r, cfg.attack_cutoff, rng.random_u32_plain)
+    if cfg.attack_mode == ATTACK_STICKY:
+        fires = fires & (role_in[:, cfg.attack_target] == ROLE_L)
+    return fires.to(torch.int32)
 
 
 def commit_median_plain(match, majority: int, E: int) -> torch.Tensor:
@@ -220,11 +242,19 @@ def dense_elect_plain(cfg: Config, seed, r: int, deliver, term, role,
     up), a silent one's candidacy broadcasts no request and its vote
     response never travels, and an equivocating one's response reaches
     every candidate c whose request it got, over ``deliver[j, c]``,
-    whatever it granted (``raft.py:335-337, 402-410``)."""
+    whatever it granted (``raft.py:335-337, 402-410``).
+
+    Under a SPEC §A.3 attack (``cfg.attack_mode``) it also returns the
+    round's attack word (:func:`attack_word`, [B] int32) last:
+    "sticky" skips the target's churn step-down where it fires (``deliver``
+    then already lacks the target's inbound column, KL's STICKY
+    instance); "elect" keeps it where a live candidacy stood in P1, and
+    then P2 runs on ``deliver & ~jam`` (``raft.py:303-304, 320-330``)."""
     u32 = rng.random_u32_plain
     N = term.shape[1]
     idx = torch.arange(N, dtype=torch.int32, device=term.device)
     mdt = match_idx.dtype
+    atk = attack_word(cfg, seed, r, role)
     if flags is not None:
         rec = (flags & CRASH_REC) != 0
         down = (flags & CRASH_DOWN) != 0
@@ -238,6 +268,9 @@ def dense_elect_plain(cfg: Config, seed, r: int, deliver, term, role,
     # ---- P0 churn, P1 candidacy.
     stepdown = churn(seed, r, cfg.churn_cutoff, u32)[:, None] \
         & (role == ROLE_L)
+    if cfg.attack_mode == ATTACK_STICKY:
+        stepdown = stepdown & ~((atk != 0)[:, None]
+                                & (idx == cfg.attack_target))
     role = torch.where(stepdown, ROLE_F, role)
     timer = torch.where(stepdown, 0, timer)
     reset = stepdown
@@ -250,6 +283,10 @@ def dense_elect_plain(cfg: Config, seed, r: int, deliver, term, role,
     timeout = torch.where(
         cand_new, draw_timeout(seed, cfg.t_min, cfg.t_max, term, idx, u32),
         timeout)
+    if cfg.attack_mode == ATTACK_ELECT:
+        live = cand_new if flags is None else cand_new & ~down
+        atk = atk * live.any(1)
+        deliver = deliver & (atk == 0)[:, None, None]
 
     # ---- P2 election over the post-P1 requests; [B, c, j] below. Silent
     # byzantine candidates never broadcast (SPEC §3c).
@@ -298,9 +335,9 @@ def dense_elect_plain(cfg: Config, seed, r: int, deliver, term, role,
         term, role, voted_for, timer, timeout = (
             torch.where(down, o, n) for o, n in zip(
                 frozen, (term, role, voted_for, timer, timeout)))
-    if want_win:
-        return term, role, voted_for, timer, timeout, reset, win
-    return term, role, voted_for, timer, timeout, reset
+    out = (term, role, voted_for, timer, timeout, reset) \
+        + ((win,) if want_win else ())
+    return out if atk is None else (*out, atk)
 
 
 def dense_elect(cfg: Config, seed, r: int, deliver, term, role, voted_for,
@@ -313,7 +350,8 @@ def dense_elect(cfg: Config, seed, r: int, deliver, term, role, voted_for,
     walks that list for P2a-P2b and adds its delivered grant to the
     tally, then a block per sweep for the winners and their rows; the
     winner flags only with ``want_win``; its CRASH instance with
-    ``flags``; its BYZ instances with byzantine nodes)."""
+    ``flags``; its BYZ instances with byzantine nodes; its ATTACK
+    instances under an attack)."""
     if term.device.type == "cpu":
         return dense_elect_plain(cfg, seed, r, deliver, term, role,
                                  voted_for, timer, timeout, log_term, log_len,
@@ -335,6 +373,8 @@ def dense_elect(cfg: Config, seed, r: int, deliver, term, role, voted_for,
     # Candidate count and tally (zeroed by the kernel), the candidates'
     # request table (4 words each) and each node's last log term.
     scratch = torch.empty(B * (1 + 6 * N), dtype=torch.int32, device=dev)
+    atk = torch.empty(B, dtype=torch.int32, device=dev) \
+        if cfg.attack_mode else None
     _build.launch("dense_elect", seed.data_ptr(), int(r) & 0xFFFFFFFF,
                   cfg.churn_cutoff, cfg.t_min, timeout_span(cfg),
                   *(t.data_ptr() for t in (
@@ -342,9 +382,12 @@ def dense_elect(cfg: Config, seed, r: int, deliver, term, role, voted_for,
                       log_term, log_len, match_idx, next_idx, *out, reset)),
                   None if win is None else win.data_ptr(), scratch.data_ptr(),
                   None if flags is None else flags.data_ptr(), B, N, L,
-                  cfg.byz, cfg.n_byzantine)
+                  cfg.byz, cfg.n_byzantine, cfg.attack_mode,
+                  cfg.attack_cutoff, cfg.attack_target,
+                  None if atk is None else atk.data_ptr())
     dense_elect.launches += 1
-    return (*out, reset) if win is None else (*out, reset, win)
+    out = (*out, reset) + (() if win is None else (win,))
+    return out if atk is None else (*out, atk)
 
 
 dense_elect.launches = 0
@@ -614,7 +657,7 @@ dense_acks_commit.launches = 0
 
 def dense_telemetry_plain(cfg: Config, r: int, win, timer_in, ack_to, ack_ok,
                           commit_in, commit, role, log_len, down, t, w=None,
-                          lat=None) -> None:
+                          lat=None, atk=None) -> None:
     """Plain version of KP: the round's RAFT_TELEMETRY counters, per sweep,
     added into the [B, K] i32 accumulator ``t`` and, with the flight
     recorder (``w`` [B, n_windows, K] and ``lat`` [B, 2, N_BUCKETS], both
@@ -623,14 +666,17 @@ def dense_telemetry_plain(cfg: Config, r: int, win, timer_in, ack_to, ack_ok,
     ``timer_in`` + 1 of each winner of ``win``, and ``log_len - commit`` of
     each leader not ``down``. The counters: winners, ``ack_ok`` (the
     applied appends), a leader heard (``ack_to >= 0``) and not applied,
-    the sum of ``commit - commit_in``, and zeros for the attack, crash and
-    aggregation gates the port rejects. Updates ``t``, ``w`` and ``lat``
-    in place."""
+    the sum of ``commit - commit_in``, attack_rounds from the round's SPEC
+    §A.3 attack word ``atk`` ([B] int32, KM's; 0 without an attack), 0 for
+    the aggregation tail (the port rejects the §9 switch); the crash tail
+    is KAH's to add. Updates ``t``, ``w`` and ``lat`` in place."""
     vec = torch.zeros_like(t)
     vec[:, 0] = win.sum(1, dtype=torch.int32)
     vec[:, 1] = ack_ok.sum(1, dtype=torch.int32)
     vec[:, 2] = ((ack_to >= 0) & ~ack_ok).sum(1, dtype=torch.int32)
     vec[:, 3] = (commit - commit_in).sum(1, dtype=torch.int32)
+    if atk is not None:
+        vec[:, 4] = (atk != 0).to(torch.int32)
     hists = ()
     if w is not None:
         hists = (bucket_counts_plain(timer_in + 1, win),
@@ -641,17 +687,17 @@ def dense_telemetry_plain(cfg: Config, r: int, win, timer_in, ack_to, ack_ok,
 
 def dense_telemetry(cfg: Config, r: int, win, timer_in, ack_to, ack_ok,
                     commit_in, commit, role, log_len, down, t, w=None,
-                    lat=None) -> None:
+                    lat=None, atk=None) -> None:
     """Kernel KP: same arguments and in-place updates as
     :func:`dense_telemetry_plain`, which it runs for CPU tensors; for CUDA
     tensors it launches ``csrc/dense_telemetry.cu`` (a thread per node,
     warp and block partial counts, then integer atomics into the
-    accumulators)."""
+    accumulators; its ATTACK instance with ``atk``)."""
     check_recorder(cfg, w, lat)
     if t.device.type == "cpu":
         return dense_telemetry_plain(cfg, r, win, timer_in, ack_to, ack_ok,
                                      commit_in, commit, role, log_len, down,
-                                     t, w, lat)
+                                     t, w, lat, atk)
     from .. import _build
     B, N = timer_in.shape
     K = len(RAFT_TELEMETRY)
@@ -659,12 +705,13 @@ def dense_telemetry(cfg: Config, r: int, win, timer_in, ack_to, ack_ok,
     check_all(dev, *((x, torch.bool, (B, N)) for x in (win, ack_ok, down)),
               *((x, torch.int32, (B, N)) for x in (
                   timer_in, ack_to, commit_in, commit, role, log_len)),
-              (t, torch.int32, (B, K)))
+              (t, torch.int32, (B, K)),
+              *(() if atk is None else ((atk, torch.int32, (B,)),)))
     window, n_windows = window_of(cfg, r, t, w, lat, len(RAFT_LATENCY))
     _build.launch("dense_telemetry", *(x.data_ptr() for x in (
         win, timer_in, ack_to, ack_ok, commit_in, commit, role, log_len,
         down, t)), *(None if x is None else x.data_ptr() for x in (w, lat)),
-        B, N, K, window, n_windows)
+        B, N, K, window, n_windows, None if atk is None else atk.data_ptr())
     dense_telemetry.launches += 1
 
 
@@ -688,7 +735,9 @@ def raft_round(cfg: Config, st: RaftState, r: int, *, telem=None,
 
     With ``cfg.crash_on`` (SPEC §6c) the round first launches KAH, which
     gives the new down mask, the flags the CRASH instances of KL and KM-KO
-    read, and, with telemetry, the crash tail of the counters."""
+    read, and, with telemetry, the crash tail of the counters. Under a
+    SPEC §A.3 attack KL (sticky) and KM run their ATTACK instances, and KM
+    gives the round's attack word, which KP counts."""
     N = st.term.shape[1]
     seed = st.seed
     log_term, log_val = st.log_term, st.log_val
@@ -705,16 +754,21 @@ def raft_round(cfg: Config, st: RaftState, r: int, *, telem=None,
                                  telem, flight)
         crash = (flags,)
 
-    # ---- The round's delivery mask (KL).
+    # ---- The round's delivery mask (KL); under the sticky attack without
+    # the target's inbound column where its activation fires.
+    sticky = ((crash or (None,)) + ((st.role, cfg.attack_target,
+                                     cfg.attack_cutoff),)
+              if cfg.attack_mode == ATTACK_STICKY else crash)
     deliver = delivery(seed, r, N, cfg.drop_cutoff, cfg.partition_cutoff,
-                       cfg.max_delay_rounds, *crash)
+                       cfg.max_delay_rounds, *sticky)
 
     # ---- P0 churn, P1 candidacy, P2 election (KM), with the winners when
-    # the telemetry counts them.
-    term, role, voted_for, timer, timeout, reset, *win = dense_elect(
+    # the telemetry counts them and the attack word under an attack.
+    term, role, voted_for, timer, timeout, reset, *extra = dense_elect(
         cfg, seed, r, deliver, st.term, st.role, st.voted_for, st.timer,
         st.timeout, log_term, st.log_len, match_idx, next_idx,
         telem is not None, *crash)
+    atk = extra[-1:] if cfg.attack_mode else []
 
     # ---- P3a propose, P3b snapshot, P3c receivers and apply (KN).
     (term, role, voted_for, timer, timeout, reset, log_len, commit,
@@ -730,9 +784,10 @@ def raft_round(cfg: Config, st: RaftState, r: int, *, telem=None,
     # ---- Telemetry and flight recorder (KP). KN's acks are its apply and
     # reject flags: ack_ok is the apply, ack_to >= 0 a leader heard.
     if telem is not None:
-        dense_telemetry(cfg, r, win[0], st.timer, ack_to, ack_ok, st.commit,
-                        commit, role, log_len, down, telem,
-                        *(flight if flight is not None else (None, None)))
+        dense_telemetry(cfg, r, extra[0], st.timer, ack_to, ack_ok,
+                        st.commit, commit, role, log_len, down, telem,
+                        *(flight if flight is not None else (None, None)),
+                        *atk)
 
     return RaftState(seed, term, role, voted_for, log_term, log_val, log_len,
                      commit, timer, timeout, match_idx, next_idx, down)

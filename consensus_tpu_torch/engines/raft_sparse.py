@@ -1,8 +1,9 @@
 """Large-population Raft under the SPEC §3b active-sender cap, in PyTorch.
 
 The port of ``consensus_tpu/engines/raft_sparse.py`` on its flat path and
-under the SPEC §A.2 delay, the SPEC §6c crash-recover adversary and the
-SPEC §3c byzantine nodes (no attack or switch gates), with its telemetry
+under the SPEC §A.2 delay, the SPEC §6c crash-recover adversary, the
+SPEC §3c byzantine nodes and the SPEC §A.3 targeted attacks (no switch
+gate), with its telemetry
 and flight recorder. Per round only the top-A candidates and the top-A
 leaders by (term desc, id asc) send, and leader replication state lives in
 A tracked slots of [A, N] rows, so a round is O(A*N) plus one pass over
@@ -45,7 +46,12 @@ instances: a silent node's candidacy stays out of KC's candidate mask (KE),
 its vote responses (KF) and acks (KH) never travel, and its tracked
 leader slot sends no heartbeat (KI marks it unsent, so KB gives it no
 edge and KH does not process it); an equivocating node's response reaches
-every valid candidate whose request it got (KF).
+every valid candidate whose request it got (KF). Under a SPEC §A.3 attack
+KE's ATTACK instance writes each lane's attack word (the elect jam, or
+the sticky target's activation, which also skips its churn step-down),
+which KB's ATTACK instance reads (every edge of P2's two calls under a
+jam, every edge into the sticky target on all four calls) and KK counts
+as attack_rounds.
 
 The [B, N, L] logs are updated in place (P3a's one-slot append and P3c's
 suffix copy), where the JAX round returns new arrays: a round's state
@@ -58,14 +64,15 @@ from typing import NamedTuple
 import torch
 
 from ..core import rng
-from ..core.config import BYZ_SILENT, MAX_ACTIVE, Config
+from ..core.config import (ATTACK_ELECT, ATTACK_STICKY, BYZ_SILENT,
+                           MAX_ACTIVE, Config)
 from ..ops.adversary import (CRASH_DOWN, CRASH_REC, bitcast_i32, churn,
                              crash_step, delivery_edges)
 from ..ops.flight import (add_plain, bucket_counts_plain, check_recorder,
                           window_of)
 from .raft import (NONE, RAFT_LATENCY, RAFT_TELEMETRY, ROLE_C, ROLE_F, ROLE_L,
-                   bump, check_all, commit_median_plain, draw_timeout,
-                   last_term, match_dtype, timeout_span)
+                   attack_word, bump, check_all, commit_median_plain,
+                   draw_timeout, last_term, match_dtype, timeout_span)
 
 # The engine's name, as the JAX package's EngineDef names it.
 NAME = "raft-sparse"
@@ -292,9 +299,12 @@ def candidacy_plain(cfg: Config, seed, r: int, term, role, voted_for, timer,
     silent byzantine nodes (SPEC §3c, ``cfg.byz``) their candidacies stay
     out of the mask: they never broadcast (line 258). Updates nothing in
     place; returns new (term, role, voted_for, timer, timeout, reset,
-    own_lterm, cand_mask), all [B, N]."""
+    own_lterm, cand_mask), all [B, N], and under a SPEC §A.3 attack
+    (``cfg.attack_mode``) also the round's attack word
+    (``raft.attack_word``)."""
     u32 = rng.random_u32_plain
     idx = torch.arange(term.shape[1], dtype=torch.int32, device=term.device)
+    atk = attack_word(cfg, seed, r, role)
     if flags is not None:
         rec = (flags & CRASH_REC) != 0
         role = torch.where(rec, ROLE_F, role)
@@ -302,10 +312,17 @@ def candidacy_plain(cfg: Config, seed, r: int, term, role, voted_for, timer,
         frozen = (term, role, voted_for, timer, timeout)
     stepdown = churn(seed, r, cfg.churn_cutoff, u32)[:, None] \
         & (role == ROLE_L)
+    if cfg.attack_mode == ATTACK_STICKY:
+        stepdown = stepdown & ~((atk != 0)[:, None]
+                                & (idx == cfg.attack_target))
     role = torch.where(stepdown, ROLE_F, role)
     timer = torch.where(stepdown, 0, timer)
     reset = stepdown
     cand_new = (role != ROLE_L) & (timer >= timeout)
+    if cfg.attack_mode == ATTACK_ELECT:
+        live = cand_new if flags is None \
+            else cand_new & ((flags & CRASH_DOWN) == 0)
+        atk = atk * live.any(1)
     term = term + cand_new.to(torch.int32)
     role = torch.where(cand_new, ROLE_C, role)
     voted_for = torch.where(cand_new, idx, voted_for)
@@ -324,8 +341,9 @@ def candidacy_plain(cfg: Config, seed, r: int, term, role, voted_for, timer,
             torch.where(down, o, n) for o, n in zip(
                 frozen, (term, role, voted_for, timer, timeout)))
         cand_mask = cand_mask & ~down
-    return (term, role, voted_for, timer, timeout, reset, own_lterm,
-            cand_mask)
+    out = (term, role, voted_for, timer, timeout, reset, own_lterm,
+           cand_mask)
+    return out if atk is None else (*out, atk)
 
 
 def candidacy(cfg: Config, seed, r: int, term, role, voted_for, timer,
@@ -334,7 +352,8 @@ def candidacy(cfg: Config, seed, r: int, term, role, voted_for, timer,
     which it runs for CPU tensors; for CUDA tensors it launches
     ``csrc/candidacy.cu`` (a thread per node, the churn and timeout
     Threefry draws inline; its CRASH instance with ``flags``, its BYZ
-    instance with silent byzantine nodes). Updates nothing in place."""
+    instance with silent byzantine nodes, its ATTACK instances under an
+    attack). Updates nothing in place."""
     if term.device.type == "cpu":
         return candidacy_plain(cfg, seed, r, term, role, voted_for, timer,
                                timeout, log_term, log_len, flags)
@@ -350,15 +369,20 @@ def candidacy(cfg: Config, seed, r: int, term, role, voted_for, timer,
     reset = torch.empty((B, N), dtype=torch.bool, device=dev)
     own_lterm = torch.empty_like(term)
     cand = torch.empty((B, N), dtype=torch.bool, device=dev)
+    atk = torch.empty(B, dtype=torch.int32, device=dev) \
+        if cfg.attack_mode else None
     _build.launch("candidacy", seed.data_ptr(), int(r) & 0xFFFFFFFF,
                   cfg.churn_cutoff, cfg.t_min, timeout_span(cfg),
                   *(t.data_ptr() for t in (
                       term, role, voted_for, timer, timeout, log_term,
                       log_len, *out, reset, own_lterm, cand)),
                   None if flags is None else flags.data_ptr(), B, N, L,
-                  cfg.byz, cfg.n_byzantine)
+                  cfg.byz, cfg.n_byzantine, cfg.attack_mode,
+                  cfg.attack_cutoff, cfg.attack_target,
+                  None if atk is None else atk.data_ptr())
     candidacy.launches += 1
-    return (*out, reset, own_lterm, cand)
+    out = (*out, reset, own_lterm, cand)
+    return out if atk is None else (*out, atk)
 
 
 candidacy.launches = 0
@@ -774,7 +798,7 @@ propose.launches = 0
 
 def telemetry_plain(cfg: Config, r: int, cand_ids, win, timer_in, has_l,
                     apply_, commit_in, commit, role, log_len, down, t,
-                    w=None, lat=None) -> None:
+                    w=None, lat=None, atk=None) -> None:
     """Plain version of KK: the round's RAFT_TELEMETRY counters, per sweep,
     added into the [B, K] i32 accumulator ``t`` and, with the flight
     recorder (``w`` [B, n_windows, K] and ``lat`` [B, 2, N_BUCKETS], both
@@ -783,15 +807,19 @@ def telemetry_plain(cfg: Config, r: int, cand_ids, win, timer_in, has_l,
     ``timer_in`` + 1 of each winner of ``win`` (candidate slots of
     ``cand_ids``), and ``log_len - commit`` of each leader not ``down``
     (the mask at the round's end). The counters: winners, ``apply_``,
-    ``has_l & ~apply_``, the sum of ``commit - commit_in``, and zeros for
-    the attack and aggregation gates the port rejects; the crash tail is
-    kernel KAH's to add. Updates ``t``, ``w`` and ``lat`` in place."""
+    ``has_l & ~apply_``, the sum of ``commit - commit_in``, attack_rounds
+    from the round's SPEC §A.3 attack word ``atk`` ([B] int32, KE's; 0
+    without an attack), and 0 for the aggregation tail (the port rejects
+    the §9 switch); the crash tail is kernel KAH's to add. Updates ``t``,
+    ``w`` and ``lat`` in place."""
     N = timer_in.shape[1]
     vec = torch.zeros_like(t)
     vec[:, 0] = win.sum(1, dtype=torch.int32)
     vec[:, 1] = apply_.sum(1, dtype=torch.int32)
     vec[:, 2] = (has_l & ~apply_).sum(1, dtype=torch.int32)
     vec[:, 3] = (commit - commit_in).sum(1, dtype=torch.int32)
+    if atk is not None:
+        vec[:, 4] = (atk != 0).to(torch.int32)
     hists = ()
     if w is not None:
         cid = cand_ids.clamp(0, N - 1).to(torch.int64)
@@ -803,16 +831,17 @@ def telemetry_plain(cfg: Config, r: int, cand_ids, win, timer_in, has_l,
 
 def telemetry(cfg: Config, r: int, cand_ids, win, timer_in, has_l, apply_,
               commit_in, commit, role, log_len, down, t, w=None,
-              lat=None) -> None:
+              lat=None, atk=None) -> None:
     """Kernel KK: same arguments and in-place updates as
     :func:`telemetry_plain`, which it runs for CPU tensors; for CUDA
     tensors it launches ``csrc/telemetry.cu`` (a thread per node, warp and
-    block partial counts, then integer atomics into the accumulators)."""
+    block partial counts, then integer atomics into the accumulators; its
+    ATTACK instance with ``atk``)."""
     check_recorder(cfg, w, lat)
     if t.device.type == "cpu":
         return telemetry_plain(cfg, r, cand_ids, win, timer_in, has_l,
                                apply_, commit_in, commit, role, log_len, down,
-                               t, w, lat)
+                               t, w, lat, atk)
     from .. import _build
     B, N = timer_in.shape
     A = cand_ids.shape[1]
@@ -822,13 +851,15 @@ def telemetry(cfg: Config, r: int, cand_ids, win, timer_in, has_l, apply_,
               *((x, torch.int32, (B, N)) for x in (
                   timer_in, commit_in, commit, role, log_len)),
               *((x, torch.bool, (B, N)) for x in (has_l, apply_, down)),
-              (t, torch.int32, (B, K)))
+              (t, torch.int32, (B, K)),
+              *(() if atk is None else ((atk, torch.int32, (B,)),)))
     window, n_windows = window_of(cfg, r, t, w, lat, len(RAFT_LATENCY))
     _build.launch("telemetry", *(x.data_ptr() for x in (
         cand_ids, win, timer_in, has_l, apply_, commit_in, commit, role,
         log_len, down, t)), *(None if x is None else x.data_ptr()
                               for x in (w, lat)),
-        B, N, A, K, window, n_windows)
+        B, N, A, K, window, n_windows,
+        None if atk is None else atk.data_ptr())
     telemetry.launches += 1
 
 
@@ -852,7 +883,9 @@ def raft_sparse_round(cfg: Config, st: RaftSparseState, r: int, *,
 
     With ``cfg.crash_on`` (SPEC §6c) the round first launches KAH, which
     gives the new down mask, the flags the CRASH instances of KB, KE, KF
-    and KH read, and, with telemetry, the crash tail of the counters."""
+    and KH read, and, with telemetry, the crash tail of the counters.
+    Under a SPEC §A.3 attack KE also gives the round's attack word, which
+    KB's and KK's ATTACK instances read."""
     B, N = st.term.shape
     A = cfg.max_active
     seed = st.seed
@@ -868,24 +901,31 @@ def raft_sparse_round(cfg: Config, st: RaftSparseState, r: int, *,
                                  telem, flight)
         crash = (flags,)
 
-    def dedge(ids, ids_are_src):
-        return delivery_edges(seed, r, ids, N, cfg.drop_cutoff,
-                              cfg.partition_cutoff, ids_are_src,
-                              cfg.max_delay_rounds, *crash)
-
     log_term, log_val = st.log_term, st.log_val
 
-    # ---- P0 churn, P1 candidacy (KE), after the §6c reset.
+    # ---- P0 churn, P1 candidacy (KE), after the §6c reset; under a SPEC
+    # §A.3 attack also the round's attack word.
     (term, role, voted_for, timer, timeout, reset, own_lterm,
-     cand_mask) = candidacy(cfg, seed, r, st.term, st.role, st.voted_for,
-                            st.timer, st.timeout, log_term, st.log_len,
-                            *crash)
+     cand_mask, *atk) = candidacy(cfg, seed, r, st.term, st.role,
+                                  st.voted_for, st.timer, st.timeout,
+                                  log_term, st.log_len, *crash)
+    # KB's ATTACK instance: the sticky target's inbound edges on every call,
+    # every edge of P2's two calls under an elect jam.
+    sticky = (atk[0], cfg.attack_target) \
+        if cfg.attack_mode == ATTACK_STICKY else None
+    jam = (atk[0], -1) if cfg.attack_mode == ATTACK_ELECT else sticky
+
+    def dedge(ids, ids_are_src, attack=None):
+        flags = crash if attack is None else (crash or (None,)) + (attack,)
+        return delivery_edges(seed, r, ids, N, cfg.drop_cutoff,
+                              cfg.partition_cutoff, ids_are_src,
+                              cfg.max_delay_rounds, *flags)
 
     # ---- P2 election over the active candidate set (SPEC §3b; KC, KB, KF),
     # with the leader mask that KC and KI read.
     cand_ids = top_active(cand_mask, term, A)                   # [B, A]
-    del_cj = dedge(cand_ids, True)                              # [B, A, N]
-    del_jc = dedge(cand_ids, False)                             # [B, N, A]
+    del_cj = dedge(cand_ids, True, jam)                         # [B, A, N]
+    del_jc = dedge(cand_ids, False, jam)                        # [B, N, A]
     term, role, voted_for, timer, timeout, reset, lead, win = elect(
         cfg, seed, cand_ids, del_cj, del_jc, term, role, voted_for, timer,
         timeout, reset, st.log_len, own_lterm, *crash)
@@ -901,7 +941,7 @@ def raft_sparse_round(cfg: Config, st: RaftSparseState, r: int, *,
                        st.log_len, st.commit, lead_id)
 
     # ---- P3c receivers and apply (KB, KD).
-    del_lj = dedge(hb_ids, True)                                # [B, A, N]
+    del_lj = dedge(hb_ids, True, sticky)                        # [B, A, N]
     (term, role, voted_for, timer, timeout, reset, kstar, has_l, apply_,
      log_len, commit) = append_entries(
         cfg, seed, del_lj, lead_id, s_term, term, role, voted_for, timer,
@@ -909,7 +949,7 @@ def raft_sparse_round(cfg: Config, st: RaftSparseState, r: int, *,
         s_len, s_commit, s_logt, s_logv)
 
     # ---- P3d acks, P3e commit advance, P4 timers (KB, KH), in place.
-    del_jl = dedge(hb_ids, False)                               # [B, N, A]
+    del_jl = dedge(hb_ids, False, sticky)                       # [B, N, A]
     acks_commit(cfg, seed, lead_id, was_lead_k, del_jl, has_l, kstar, apply_,
                 log_len, log_term, term, role, voted_for, timeout, commit,
                 lead_match, lead_next, timer, reset, *crash)
@@ -918,7 +958,7 @@ def raft_sparse_round(cfg: Config, st: RaftSparseState, r: int, *,
     if telem is not None:
         telemetry(cfg, r, cand_ids, win, st.timer, has_l, apply_, st.commit,
                   commit, role, log_len, down, telem,
-                  *(flight if flight is not None else (None, None)))
+                  *(flight if flight is not None else (None, None)), *atk)
 
     return RaftSparseState(seed, term, role, voted_for, log_term, log_val,
                            log_len, commit, timer, timeout, lead_id,

@@ -1,7 +1,8 @@
 """Adversary draws of the engines, and kernels KB, KL, KAH and KAI.
 
 The counterparts of ``consensus_tpu/ops/adversary.py``'s ``draw``,
-``cutoff``, ``bitcast_i32``, ``churn``, ``delayed_open``, ``delivery_edges``,
+``cutoff``, ``bitcast_i32``, ``churn``, ``slot_missed``, ``attack_fires``
+(and ``engines/dpos.py``'s §A.4 draw), ``delayed_open``, ``delivery_edges``,
 ``delivery``, ``crash_transition``, ``freeze_down`` and ``crash_counts``.
 Every decision is a pure counter function of (seed, round, ids), so an
 edge's delivery here equals the JAX package's entry for the same absolute
@@ -112,6 +113,35 @@ def churn(seed, r: int, churn_cut: int, u32=rng.random_u32) -> torch.Tensor:
     return u32(seed, rng.STREAM_CHURN, r, 0, 0)[:, 0] < cutoff(churn_cut)
 
 
+def slot_missed(seed, r: int, p, miss_cut: int,
+                u32=rng.random_u32) -> torch.Tensor:
+    """K13 ``slot_missed`` (``consensus_tpu/ops/adversary.py:206-213``),
+    SPEC §A.1: [B] bool, True where round r's scheduled producer ``p`` ([B]
+    int ids) misses its slot, one draw a (round, producer). ``u32`` as in
+    :func:`churn`; the kernels draw it as ``ctt::slot_missed``
+    (``csrc/rng.cuh``)."""
+    return u32(seed, rng.STREAM_SLOTMISS, r, 0,
+               p.to(torch.int64)[:, None])[:, 0] < cutoff(miss_cut)
+
+
+def suppressed(seed, r: int, window: int, p, suppress_cut: int,
+               u32=rng.random_u32) -> torch.Tensor:
+    """The SPEC §A.4 draw of ``consensus_tpu/engines/dpos.py:157-163``:
+    [B] bool, True where producer ``p`` ([B] int ids) is suppressed in the
+    window of round r, one draw a (r // ``window``, producer). ``u32`` as in
+    :func:`churn`; the kernels draw it as ``ctt::suppressed``."""
+    return u32(seed, rng.STREAM_SUPPRESS, int(r) // int(window), 0,
+               p.to(torch.int64)[:, None])[:, 0] < cutoff(suppress_cut)
+
+
+def attack_fires(seed, r: int, attack_cut: int,
+                 u32=rng.random_u32) -> torch.Tensor:
+    """K13 ``attack_fires`` (``consensus_tpu/ops/adversary.py:216-219``),
+    SPEC §A.3: [B] bool, the round's targeted-attack activation. ``u32`` as
+    in :func:`churn`; the kernels draw it as ``ctt::attack_fires``."""
+    return u32(seed, rng.STREAM_ATTACK, r, 0, 0)[:, 0] < cutoff(attack_cut)
+
+
 def delayed_open_plain(useed, r: int, i, j, drop_cut: int,
                        max_delay: int) -> torch.Tensor:
     """Plain version of K13 ``delayed_open`` (``consensus_tpu/ops/
@@ -146,14 +176,20 @@ def open_drop_plain(useed, r: int, i, j, drop_cut: int,
 
 def delivery_edges_plain(seed, r: int, ids, n: int, drop_cut: int,
                          part_cut: int, ids_are_src: bool,
-                         max_delay: int = 0, flags=None) -> torch.Tensor:
+                         max_delay: int = 0, flags=None,
+                         attack=None) -> torch.Tensor:
     """Plain version of KB: the SPEC §2 delivery mask between the [B, A]
     ids and all ``n`` node ids: [B, A, n] (ids send) when ``ids_are_src``,
     else [B, n, A] (ids receive), with the §A.2 retransmissions of the
     last ``max_delay`` rounds. Negative ids are masked-out lanes and give
     False. With the round's §6c ``flags`` ([B, n] uint8, from
     :func:`crash_transition`), an edge with a down end is not delivered
-    (``consensus_tpu/engines/raft_sparse.py:192-195``)."""
+    (``consensus_tpu/engines/raft_sparse.py:192-195``). With a SPEC §A.3
+    ``attack`` = (word, dst), the round's [B] int32 attack word of kernel
+    KE and a receiver id, an edge is not delivered where the lane's word
+    is set and its receiver is ``dst``, or any receiver when ``dst`` is -1
+    (the sticky target's inbound edges; every P2 edge under an elect jam,
+    ``raft_sparse.py:197-199, 276, 338-339``)."""
     nodes = torch.arange(n, dtype=torch.int32, device=ids.device)[None, :]
     if ids_are_src:
         src, dst = ids[:, :, None], nodes[:, None, :]
@@ -179,30 +215,39 @@ def delivery_edges_plain(seed, r: int, ids, n: int, drop_cut: int,
         up_s = up[bi, src.clamp(0, n - 1).to(torch.int64)]
         up_d = up[bi, dst.clamp(0, n - 1).to(torch.int64)]
         out = out & up_s & up_d
+    if attack is not None:
+        word, dst_id = attack
+        hit = dst.expand(out.shape) == dst_id if dst_id >= 0 else True
+        out = out & ~((word != 0)[:, None, None] & hit)
     return out
 
 
 def delivery_edges(seed, r: int, ids, n: int, drop_cut: int, part_cut: int,
-                   ids_are_src: bool, max_delay: int = 0,
-                   flags=None) -> torch.Tensor:
+                   ids_are_src: bool, max_delay: int = 0, flags=None,
+                   attack=None) -> torch.Tensor:
     """Kernel KB: same arguments and result as :func:`delivery_edges_plain`,
     which it runs for CPU tensors; for CUDA tensors it launches
-    ``csrc/delivery_edges.cu`` (its CRASH instance with ``flags``)."""
+    ``csrc/delivery_edges.cu`` (its CRASH instance with ``flags``, its
+    ATTACK instance with ``attack``)."""
     if ids.device.type == "cpu":
         return delivery_edges_plain(seed, r, ids, n, drop_cut, part_cut,
-                                    ids_are_src, max_delay, flags)
+                                    ids_are_src, max_delay, flags, attack)
     from .. import _build
     B, A = ids.shape
     _build.check(ids, torch.int32, ids.device)
     _build.check(seed, torch.uint32, ids.device, (B,))
     if flags is not None:
         _build.check(flags, torch.uint8, ids.device, (B, n))
+    if attack is not None:
+        _build.check(attack[0], torch.int32, ids.device, (B,))
     shape = (B, A, n) if ids_are_src else (B, n, A)
     out = torch.empty(shape, dtype=torch.bool, device=ids.device)
     _build.launch("delivery_edges", seed.data_ptr(), int(r) & 0xFFFFFFFF,
                   ids.data_ptr(), out.data_ptr(), B, A, n, int(drop_cut),
                   int(part_cut), int(ids_are_src), int(max_delay),
-                  None if flags is None else flags.data_ptr())
+                  None if flags is None else flags.data_ptr(),
+                  None if attack is None else attack[0].data_ptr(),
+                  -1 if attack is None else int(attack[1]))
     delivery_edges.launches += 1
     return out
 
@@ -210,8 +255,14 @@ def delivery_edges(seed, r: int, ids, n: int, drop_cut: int, part_cut: int,
 delivery_edges.launches = 0
 
 
+# The Raft engines' leader role (engines/raft.py ROLE_L), which the SPEC
+# §A.3 sticky cut reads.
+RAFT_LEADER = 2
+
+
 def delivery_plain(seed, r: int, n: int, drop_cut: int, part_cut: int,
-                   max_delay: int = 0, flags=None) -> torch.Tensor:
+                   max_delay: int = 0, flags=None,
+                   sticky=None) -> torch.Tensor:
     """Plain version of KL: the SPEC §2 delivery mask of round ``r`` over
     all ``n`` nodes of each sweep of ``seed`` ([B] uint32): [B, n, n] bool,
     [b, i, j] True iff a message i -> j is delivered. The edge draw with
@@ -220,7 +271,11 @@ def delivery_plain(seed, r: int, n: int, drop_cut: int, part_cut: int,
     built from the same mixer and Threefry draws as
     :func:`delivery_edges_plain`. With the round's §6c ``flags`` ([B, n]
     uint8), rows and columns of down nodes are cut (``deliver & up[:, None]
-    & up[None, :]`` of the dense engines)."""
+    & up[None, :]`` of the dense engines). With the SPEC §A.3 ``sticky`` =
+    (role, target, attack_cut), the round's input roles ([B, n] int32) of
+    dense Raft, column ``target`` is cut in a lane whose round activation
+    (:func:`attack_fires`) fires while the target leads
+    (``consensus_tpu/engines/raft.py:241-253``)."""
     ids = torch.arange(n, dtype=torch.int64, device=seed.device)
     useed = rng.as_u32(seed)[:, None, None]
     open_drop = open_drop_plain(useed, r, ids[:, None], ids[None, :],
@@ -235,30 +290,39 @@ def delivery_plain(seed, r: int, n: int, drop_cut: int, part_cut: int,
     if flags is not None:
         up = (flags & CRASH_DOWN) == 0
         out = out & up[:, :, None] & up[:, None, :]
+    if sticky is not None:
+        role, tgt, attack_cut = sticky
+        act = attack_fires(seed, r, attack_cut, rng.random_u32_plain) \
+            & (role[:, tgt] == RAFT_LEADER)
+        out[:, :, tgt] &= ~act[:, None]
     return out
 
 
 def delivery(seed, r: int, n: int, drop_cut: int, part_cut: int,
-             max_delay: int = 0, flags=None) -> torch.Tensor:
+             max_delay: int = 0, flags=None, sticky=None) -> torch.Tensor:
     """Kernel KL: same arguments and result as :func:`delivery_plain`,
     which it runs for CPU tensors; for CUDA tensors it launches
     ``csrc/delivery.cu`` (with a partition, a thread per node first draws
     its side; then a thread per four edges of a row; its CRASH instance
-    with ``flags``)."""
+    with ``flags``, its STICKY instance with ``sticky``)."""
     if seed.device.type == "cpu":
         return delivery_plain(seed, r, n, drop_cut, part_cut, max_delay,
-                              flags)
+                              flags, sticky)
     from .. import _build
     B = seed.shape[0]
     _build.check(seed, torch.uint32, seed.device, (B,))
     if flags is not None:
         _build.check(flags, torch.uint8, seed.device, (B, n))
+    if sticky is not None:
+        _build.check(sticky[0], torch.int32, seed.device, (B, n))
     out = torch.empty((B, n, n), dtype=torch.bool, device=seed.device)
     side = torch.empty((B, n), dtype=torch.uint8, device=seed.device)
     _build.launch("delivery", seed.data_ptr(), int(r) & 0xFFFFFFFF,
                   out.data_ptr(), side.data_ptr(), B, n, int(drop_cut),
                   int(part_cut), int(max_delay),
-                  None if flags is None else flags.data_ptr())
+                  None if flags is None else flags.data_ptr(),
+                  *((None, 0, 0) if sticky is None else (
+                      sticky[0].data_ptr(), int(sticky[1]), int(sticky[2]))))
     delivery.launches += 1
     return out
 

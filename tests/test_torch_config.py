@@ -9,8 +9,13 @@ package's message), a SPEC §B desync (which the port runs on both PBFT
 engines, both f-ladders and HotStuff) or SPEC §3c/§7c byzantine nodes
 (which the port runs on both Raft engines, dense PBFT, its f-ladder and
 HotStuff); an out-of-range ``max_crashed``, a desync on another protocol,
-an out-of-range or lone ``max_skew_rounds``, and a byzantine count or mode
-the JAX package refuses raise with the JAX package's messages, and
+an out-of-range or lone ``max_skew_rounds``, a byzantine count or mode, a
+SPEC §A.1 or §A.4 knob off DPoS, a lone or out-of-range
+``suppress_window`` and a SPEC §A.3 attack, rate or target that the JAX
+package refuses raise with the JAX package's messages (alone, beside a
+delay and beside a crash), while the gates the port runs (§A.1 and §A.4
+on DPoS, §A.3 on both Raft engines) are accepted with the JAX package's
+cutoffs, and
 byzantine nodes on the §6b engine with the port's own; telemetry on a PBFT
 f-ladder raises (as the JAX package's ladder has none), and the entry
 points raise without a GPU unless the caller asks for the CPU.
@@ -29,9 +34,7 @@ from consensus_tpu_torch.network import runner, simulator  # noqa: E402
 OK = dict(protocol="raft", n_nodes=9, n_rounds=4, max_active=2)
 
 OFF_DEFAULT = {
-    "attack": "elect", "attack_rate": 0.5,
-    "attack_target": 1, "net_model": "switch", "n_aggregators": 2,
-    "miss_rate": 0.1, "suppress_rate": 0.1, "suppress_window": 8,
+    "net_model": "switch", "n_aggregators": 2,
     "scan_chunk": 4, "sweep_chunk": 1,
     "mesh_shape": (2,),
 }
@@ -613,3 +616,110 @@ def test_paxos_and_dpos_select_their_engines(kw):
     res = simulator.run(cfg, device="cpu", telemetry=True)
     assert res.extras["telemetry"]["names"] == list(eng.telemetry_names)
     assert runner.lane_inputs(cfg).keys() == {"seed"}
+
+
+# --- SPEC §A.1, §A.3 and §A.4: the one-engine gates --------------------------
+
+# Every engine at a small shape (n_nodes 9 on both Raft engines).
+GATE_ENGINES = {"raft-capped": OK, "raft-dense": {**OK, "max_active": 0},
+                "pbft": PBFT_OK,
+                "pbft-bcast": {**PBFT_OK, "fault_model": "bcast"},
+                "paxos": PAXOS_OK, "dpos": DPOS_OK, "hotstuff": HOTSTUFF_OK}
+RAFT_ENGINES = ("raft-capped", "raft-dense")
+# The settings the port runs, each where the JAX package runs it.
+GATE_RUNS = {
+    **{f"{e}/{name}": (e, kw) for e in RAFT_ENGINES for name, kw in (
+        ("elect", dict(attack="elect")),
+        ("elect-rate", dict(attack="elect", attack_rate=0.85)),
+        ("sticky", dict(attack="sticky")),
+        ("sticky-target", dict(attack="sticky", attack_rate=0.5,
+                               attack_target=8)))},
+    "dpos/miss": ("dpos", dict(miss_rate=0.35)),
+    "dpos/suppress": ("dpos", dict(suppress_rate=0.3)),
+    "dpos/suppress-window": ("dpos", dict(suppress_rate=0.3,
+                                          suppress_window=1)),
+    "dpos/all": ("dpos", dict(miss_rate=0.1, suppress_rate=0.3,
+                              suppress_window=24)),
+}
+# The other gates a gate is composed with, on every engine of GATE_RUNS.
+BESIDE = {"alone": {}, "delay": dict(max_delay_rounds=2),
+          "crash": dict(crash_prob=0.05, recover_prob=0.3, max_crashed=2)}
+
+
+@pytest.mark.parametrize("beside", list(BESIDE))
+@pytest.mark.parametrize("case", list(GATE_RUNS))
+def test_gate_knobs_are_accepted_with_the_jax_cutoffs(case, beside):
+    from consensus_tpu import Config as JConfig
+    engine, gate = GATE_RUNS[case]
+    kw = {**GATE_ENGINES[engine], **gate, **BESIDE[beside]}
+    cfg, jcfg = Config(**kw), JConfig(**kw)
+    for cut in ("miss_cutoff", "attack_cutoff", "suppress_cutoff"):
+        assert getattr(cfg, cut) == getattr(jcfg, cut)
+    assert (cfg.miss_on, cfg.suppress_on) == (jcfg.miss_on, jcfg.suppress_on)
+    assert cfg.attack_mode == tconfig.ATTACKS.index(jcfg.attack)
+
+
+@pytest.mark.parametrize("mode", list(BYZ))
+@pytest.mark.parametrize("case", [c for c in GATE_RUNS if c[:4] == "raft"])
+def test_attacks_are_accepted_beside_byzantine_nodes(case, mode):
+    from consensus_tpu import Config as JConfig
+    engine, gate = GATE_RUNS[case]
+    kw = {**GATE_ENGINES[engine], **gate, **BYZ[mode]}
+    assert Config(**kw).attack_cutoff == JConfig(**kw).attack_cutoff
+
+
+def test_attack_rate_one_is_the_largest_strict_cutoff():
+    """attack_rate's default 1.0 gives 0xFFFFFFFF, not 2**32: the kernels'
+    u32 compare draw < cut, so a draw of 0xFFFFFFFF does not fire
+    (consensus_tpu/core/rng.py:359-363)."""
+    cfg = Config(**{**OK, "attack": "elect"})
+    assert cfg.attack_cutoff == 0xFFFFFFFF
+    assert Config(**OK).attack_mode == tconfig.ATTACK_NONE
+    assert not Config(**DPOS_OK).miss_on and not Config(**DPOS_OK).suppress_on
+
+
+def _gate_rejections() -> dict:
+    """Each setting the JAX package's Config refuses for a gate of this
+    slice (consensus_tpu/core/config.py:219-223, 229-253, 329-340), by
+    name: one violation each."""
+    out = {}
+    for e, base in GATE_ENGINES.items():
+        n = base["n_nodes"]
+        if e != "dpos":
+            out[f"{e}/miss"] = dict(base, miss_rate=0.1)
+            out[f"{e}/suppress"] = dict(base, suppress_rate=0.1)
+        out[f"{e}/window-alone"] = dict(base, suppress_window=8)
+        out[f"{e}/unknown-attack"] = dict(base, attack="flood")
+        out[f"{e}/rate-alone"] = dict(base, attack_rate=0.5)
+        out[f"{e}/target-alone"] = dict(base, attack_target=1)
+        if e in RAFT_ENGINES:
+            out[f"{e}/elect-target"] = dict(base, attack="elect",
+                                            attack_target=1)
+            for at in (-1, n):
+                out[f"{e}/sticky-target-{at}"] = dict(
+                    base, attack="sticky", attack_target=at)
+        else:
+            for attack in ("elect", "sticky"):
+                out[f"{e}/{attack}"] = dict(base, attack=attack)
+    for window in (0, -1):
+        out[f"dpos/window-{window}"] = dict(DPOS_OK, suppress_rate=0.1,
+                                            suppress_window=window)
+    return out
+
+
+GATE_REJECTIONS = _gate_rejections()
+
+
+@pytest.mark.parametrize("beside", list(BESIDE))
+@pytest.mark.parametrize("case", list(GATE_REJECTIONS))
+def test_gate_rejections_match_jax(case, beside):
+    """The port raises what the JAX package raises, with its message, also
+    beside a delay and a crash, which the port runs on every engine."""
+    from consensus_tpu import Config as JConfig
+    kw = {**GATE_REJECTIONS[case], **BESIDE[beside]}
+    with pytest.raises(ValueError) as want:
+        JConfig(**kw)
+    with pytest.raises(ValueError) as got:
+        Config(**kw)
+    assert str(got.value) == str(want.value)
+
