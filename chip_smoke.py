@@ -336,6 +336,29 @@ Phases, each printing one JSON line:
                launched and no other (counted from 0), node-round-steps
                per second, replay wall, busy share and device operations
                a round.
+21. switch   — SPEC §9 switch delivery (K = 8, fail and stale 0.01,
+               depth 4) on raft-100k, raft-1kx1k, raft-100k under the
+               parity grid's composed adversary, paxos-10kx10k and
+               hotstuff-100k, §9b on hotstuff-100k (n_byzantine = f,
+               discovered-silent-qc-fork's knobs) and that scenario at its
+               tuned shape at seeds 11, 23 and 37, each with telemetry:
+               every kernel call of rounds 3 and 20 (paxos-10kx10k: 15) of
+               the nine runs against its plain version, exact (KAL and the
+               SWITCH instances of KB, KM, KY, KZ and KAE among them), and
+               of round 20 of six built runs: K = 1, K = N, an empty
+               trailing aggregator, every aggregator stale at depth
+               agg_max_stale, poisoned aggregators that are dead, lying
+               byzantine nodes that are down. KAL's and each instance's
+               time on round 20, its plain version's and its bound, and the
+               flat instance's time and bound on the same inputs. Then
+               ``simulator.run`` of the nine runs, each replayed as one
+               CUDA graph: JAX-made anchors (digest, counters, recorder;
+               the C++ oracle's digest) from the replay and the eager loop,
+               the path's kernels launched and no other and each SWITCH
+               instance launched (counted from 0), node-round-steps per
+               second, replay wall, busy share and device operations a
+               round; the scenario's runs fork QCs, commit conflicting
+               values, flag safety violations and keep availability 0.7.
 
 Every line carries ``elapsed_s``, the seconds since the script's start.
 Then the card's name and power limit, one ``{"kernels": [...]}`` line, and
@@ -347,8 +370,10 @@ from pbft-100k-bcast's, KW-KX from dpos-100k's, KY-KZ from
 paxos-10kx10k's, KAA, KAB and KAC from pbft-100k-bcast's, dpos-100k's and
 paxos-10kx10k's with telemetry, KAD-KAG from hotstuff-100k's, KAH and
 KAI from raft-100k's and pbft-100k-bcast's uncapped crash runs, KAJ
-from hotstuff-100k's composed run, and KAK from pbft-100k-bcast's
-equivocating run; the other runs' counts are in their
+from hotstuff-100k's composed run, KAK from pbft-100k-bcast's
+equivocating run, KAL from hotstuff-100k's §9b run, and each SWITCH
+instance (a row of its own: KB's, KM's, KY's, KZ's, KAE's and KAE's under
+§9b) from its phase-21 run; the other runs' counts are in their
 phases' lines. Any
 failure, or no GPU, exits non-zero without that last line.
 """
@@ -405,8 +430,7 @@ def require(cond: bool, what: str) -> None:
         raise SmokeError(what)
 
 
-def device_ms(fn, args, reps: int = 20, warm: int = 3,
-              fresh: bool = False) -> float:
+def device_ms(fn, args, reps: int = 20, warm: int = 3) -> float:
     """Mean device time of one call of ``fn(*args)``: the summed durations
     of the kernels it launched, from torch.profiler. (CUDA events around
     calls this short would time the host's launch cost, not the device.)
@@ -415,10 +439,9 @@ def device_ms(fn, args, reps: int = 20, warm: int = 3,
     call before it. The profiler records from its second step on: it can
     miss the first launches of its first.
 
-    ``fresh`` is for a wrapper that launches one kernel a call and updates
-    its inputs in place, so that a second call on the same inputs would do
-    other work: every call of every session gets a clone of its own, all
-    made before the first session. A session may lack MAX_LOST of the
+    A wrapper that updates its inputs in place (KAD-KAF) is timed by
+    :func:`graph_ms` instead, each call on a clone of its own. A session
+    may lack MAX_LOST of the
     device operations it launched (on the H100 late in a run of this
     script, single launches of KAD or KAE went unrecorded in every
     session, one of 20 each time, while the same sessions in a process of
@@ -434,12 +457,10 @@ def device_ms(fn, args, reps: int = 20, warm: int = 3,
     copies = [clone_args(args) for _ in range(n_copies)]
     for i in range(warm):
         fn(*copies[i % len(copies)])
-    pools = iter([[clone_args(args) for _ in range(reps + 1)]
-                  for _ in range(PROFILER_SESSIONS)] if fresh else [])
     torch.cuda.synchronize()
 
     def session():
-        calls = next(pools) if fresh else copies
+        calls = copies
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                      schedule=schedule(wait=0, warmup=1, active=1)) as prof:
             fn(*calls[-1])
@@ -814,12 +835,12 @@ def standing_in(module, names, make):
     """Replace each wrapper ``names`` of the round's ``module`` by
     ``make(name, wrapper)`` while the block runs. A wrapper counts its
     launches on the module attribute it is called by, so each stand-in
-    carries a ``launches`` of its own."""
+    carries a ``launches`` (and ``switch_launches``) of its own."""
     originals = {name: getattr(module, name) for name in names}
     try:
         for name, fn in originals.items():
             stand_in = make(name, fn)
-            stand_in.launches = 0
+            stand_in.launches = stand_in.switch_launches = 0
             setattr(module, name, stand_in)
         yield
     finally:
@@ -1476,7 +1497,7 @@ NOT_CAPPED = DENSE + ("dense_telemetry",) + PBFT + (
     "dpos_round", "paxos_promise", "paxos_accept_learn", "pbft_telemetry",
     "dpos_telemetry", "paxos_telemetry", "hotstuff_propose", "hotstuff_vote",
     "hotstuff_learn", "hotstuff_extract", "crash_transition", "freeze_down",
-    "hotstuff_prologue", "bcast_equiv_support")
+    "hotstuff_prologue", "bcast_equiv_support", "agg_round")
 PBFT_REPLACES = {
     "pbft_view_preprepare": "consensus_tpu/engines/pbft.py:209 pbft_round "
                             "P0-P3, consensus_tpu/engines/pbft.py:72 "
@@ -2993,7 +3014,9 @@ def check_hotstuff_kernels(dev, gen) -> list[dict]:
     """KAD-KAG against their plain versions on hotstuff-100k's rounds
     HOTSTUFF_ROUNDS (telemetry off, and round 20 again with telemetry and
     the recorder), hotstuff-1k's, the hostile run's and the edge inputs,
-    KAG on hotstuff-100k's end state. Times and bounds of KAD-KAF on
+    KAG on hotstuff-100k's end state. Times (:func:`graph_ms`: CUDA
+    events over a graph of 20 calls, each on a clone of its own, which the
+    profiler lost records of in every session) and bounds of KAD-KAF on
     hotstuff-100k's round 20 as its main path calls them (telemetry off;
     KAF also with the recorder, ``ms_telemetry``), KAG on its end state."""
     from consensus_tpu_torch.engines import hotstuff
@@ -3021,12 +3044,12 @@ def check_hotstuff_kernels(dev, gen) -> list[dict]:
             name=name, route="cuda",
             source=f"consensus_tpu_torch/csrc/{name}.cu",
             replaces=HOTSTUFF_REPLACES[name], max_abs_err=err,
-            ms=device_ms(getattr(hotstuff, name), args, fresh=True),
+            ms=graph_ms(getattr(hotstuff, name), args),
             plain_ms=plain_time(getattr(hotstuff, name + "_plain"), args),
             bound=hotstuff_bound(name, args), library_ms=None)
         if name == "hotstuff_learn":
-            row["ms_telemetry"] = device_ms(hotstuff.hotstuff_learn,
-                                            with_telem[name], fresh=True)
+            row["ms_telemetry"] = graph_ms(hotstuff.hotstuff_learn,
+                                           with_telem[name])
         rows.append(row)
     return rows
 
@@ -3296,6 +3319,24 @@ def counted(run) -> tuple:
     return result, runner.launch_counts()
 
 
+def eager_digest(cfg, res, eager=None) -> str:
+    """The digest of ``cfg``'s eager loop (``graph=False``; ``eager`` is its
+    extract where the caller ran it): the extract held leaf by leaf against
+    ``res.extract``, the extract of the replay whose digest ``res.digest``
+    is held to its anchor, and packed and hashed on the host only where a
+    leaf differs. Packing a 100 000-node run's logs again took seconds a
+    run (PERF.md §4)."""
+    from consensus_tpu_torch.core import serialize
+    from consensus_tpu_torch.network import runner, simulator
+    if eager is None:
+        eager = runner.run(cfg, graph=False)
+    replayed = res.extract
+    if set(eager) == set(replayed) and all(
+            np.array_equal(eager[k], replayed[k]) for k in eager):
+        return res.digest
+    return serialize.digest(simulator.decided_payload(cfg, eager)[3])
+
+
 def require_launched(launches: dict[str, int], kernels, path: str) -> None:
     """Fails unless exactly the kernels ``kernels`` launched on ``path``."""
     for kernel, n in launches.items():
@@ -3307,13 +3348,12 @@ def check_seed_sharing(cfg, anchor: str) -> None:
     """A run of ``cfg`` with another seed replays the captured graph with
     its own seeds and equals the eager loop's run; ``cfg``'s own seed then
     gives its digest ``anchor`` again."""
-    from consensus_tpu_torch.core import serialize
     from consensus_tpu_torch.network import runner, simulator
     other = dataclasses.replace(cfg, seed=cfg.seed + 1)
     captured = runner.captures
-    replayed = simulator.run(other).digest
-    eager = serialize.digest(simulator.decided_payload(
-        other, runner.run(other, graph=False))[3])
+    res = simulator.run(other)
+    replayed = res.digest
+    eager = eager_digest(other, res)
     again = simulator.run(cfg).digest
     emit("seed_sharing", n_nodes=cfg.n_nodes, seed=other.seed,
          digest=replayed, eager_digest=eager,
@@ -4018,7 +4058,6 @@ def check_hotstuff_path(card: str, smi: str) -> dict[str, int]:
     replay without and with telemetry against its half-length replay:
     three device operations a round, each a KAD, KAE or KAF launch (no
     memset, no PyTorch op). Returns hotstuff-100k's launches."""
-    from consensus_tpu_torch.core import serialize
     from consensus_tpu_torch.network import runner, simulator
     runs = {"hotstuff-100k": (HOTSTUFF_FLAGSHIP, HOTSTUFF_DIGEST),
             "hotstuff-1k": (HOTSTUFF_1K, HOTSTUFF_1K_DIGEST),
@@ -4029,8 +4068,7 @@ def check_hotstuff_path(card: str, smi: str) -> dict[str, int]:
         memory, launches = counted(lambda: memory_use(
             lambda: simulator.run(cfg)))
         res = memory.pop("result")
-        eager = serialize.digest(simulator.decided_payload(
-            cfg, runner.run(cfg, graph=False))[3])
+        eager = eager_digest(cfg, res)
         prof = profile_replay(cfg)
         rows[name] = dict(
             digest=res.digest, digest_ok=res.digest == digest,
@@ -4482,8 +4520,7 @@ def check_storm_runs(card: str, smi: str) -> None:
         memory, launches = counted(lambda: memory_use(
             lambda: simulator.run(cfg)))
         res = memory.pop("result")
-        eager = serialize.digest(simulator.decided_payload(
-            cfg, runner.run(cfg, graph=False))[3])
+        eager = eager_digest(cfg, res)
         prof = profile_replay(cfg)
         rows[name] = row = dict(
             digest=res.digest, digest_ok=res.digest == digest,
@@ -4723,7 +4760,7 @@ def recording_everywhere(got):
                 def record(*args, fn=fn, name=name):
                     got.setdefault(name, []).append(clone_args(args))
                     return fn(*args)
-                record.launches = 0
+                record.launches = record.switch_launches = 0
                 setattr(mod, name, record)
                 swapped.append((mod, name, fn))
     try:
@@ -4915,7 +4952,6 @@ def check_crash_runs(card: str, smi: str) -> dict[str, int]:
     and 8-round windows: counters (crash tail included) and recorder equal
     to their JAX anchors and to the eager loop's. Returns KAH's and KAI's
     launches in raft-100k's and pbft-100k-bcast's uncapped runs."""
-    from consensus_tpu_torch.core import serialize
     from consensus_tpu_torch.network import runner, simulator
     rows, own = {}, {}
     for key, digest in CRASH_RUNS.items():
@@ -4923,8 +4959,7 @@ def check_crash_runs(card: str, smi: str) -> dict[str, int]:
         memory, launches = counted(lambda: memory_use(
             lambda: simulator.run(cfg)))
         res = memory.pop("result")
-        eager = serialize.digest(simulator.decided_payload(
-            cfg, runner.run(cfg, graph=False))[3])
+        eager = eager_digest(cfg, res)
         prof = profile_replay(cfg)
         rows[key] = dict(
             digest=res.digest, digest_ok=res.digest == digest,
@@ -5383,14 +5418,13 @@ def anchored_run(cfg, digest: str, ops: bool = False) -> tuple:
     which a caller checks; without it one profiled replay gives them with
     init's spread over the rounds (``launches_per_round``). The caller
     emits the row, then requires the digests (:func:`hold_run`)."""
-    from consensus_tpu_torch.core import serialize
     from consensus_tpu_torch.network import runner, simulator
     memory, launches = counted(lambda: memory_use(
         lambda: simulator.run(cfg)))
     res = memory.pop("result")
     replayed = runner.run(cfg)
     eager = runner.run(cfg, graph=False)
-    eager_digest = serialize.digest(simulator.decided_payload(cfg, eager)[3])
+    eager_sha = eager_digest(cfg, res, eager)
     if ops:
         prof = replay_ops_per_round(cfg)
         full, per_round = prof["full"], prof["ops_per_round"]
@@ -5398,7 +5432,7 @@ def anchored_run(cfg, digest: str, ops: bool = False) -> tuple:
         full, per_round = profile_replay(cfg), None
     row = dict(
         digest=res.digest, digest_ok=res.digest == digest,
-        eager_digest=eager_digest, steps_per_sec=res.steps_per_sec,
+        eager_digest=eager_sha, steps_per_sec=res.steps_per_sec,
         wall_s=res.wall_s, launches=launches, **memory,
         replay_wall_ms=full["replay_wall_ms"], busy_share=full["busy_share"],
         unprofiled_busy_share=full["unprofiled_busy_share"],
@@ -6675,7 +6709,6 @@ def check_gate_runs(card: str, smi: str) -> None:
     from the eager loop, the oracle's digest on DPoS, its path's kernels
     launched and no other; node-round-steps per second, the replay's wall,
     busy share and device operations a round (one profiled replay)."""
-    from consensus_tpu_torch.core import serialize
     from consensus_tpu_torch.network import runner, simulator
     for key, (digest, nonzero, flight, oracle) in GATE_RUNS.items():
         cfg = gate_config(key)
@@ -6684,14 +6717,13 @@ def check_gate_runs(card: str, smi: str) -> None:
         tel, fl = res.extras["telemetry"], res.extras["flight"]
         stats: dict = {}
         eager = runner.run(cfg, graph=False, telemetry=True, stats=stats)
-        eager_digest = serialize.digest(
-            simulator.decided_payload(cfg, eager)[3])
+        eager_sha = eager_digest(cfg, res, eager)
         prof = profile_replay(cfg, telemetry=True)
         want = {k: nonzero.get(k, 0) for k in eng.telemetry_names}
         gate = "attack_rounds" if cfg.attack_mode else "missed_slots"
         row = dict(
             digest=res.digest, digest_ok=res.digest == digest,
-            eager_digest=eager_digest, oracle_digest=oracle,
+            eager_digest=eager_sha, oracle_digest=oracle,
             totals=tel["totals"], totals_ok=tel["totals"] == want,
             flight_sha256=flight_digest(fl),
             flight_ok=flight_digest(fl) == flight,
@@ -6710,8 +6742,8 @@ def check_gate_runs(card: str, smi: str) -> None:
         emit("gate_run", run=key, **row, card=card, power=smi)
         for check in ("digest_ok", "totals_ok", "flight_ok", "eager_equal"):
             require(row[check], f"{key}: {check} fails")
-        require(eager_digest == digest,
-                f"{key}: the eager loop's digest {eager_digest}")
+        require(eager_sha == digest,
+                f"{key}: the eager loop's digest {eager_sha}")
         require(oracle is None or oracle == digest,
                 f"{key}: the oracle's digest {oracle} != {digest}")
         require(tel["totals"][gate] > 0, f"{key}: {gate} counted nothing")
@@ -6720,6 +6752,606 @@ def check_gate_runs(card: str, smi: str) -> None:
                     f"{key}: suppressed_slots counted nothing")
         require_launched(launches, gate_path(cfg), key)
         runner.clear_graphs()
+
+
+# --- phase 21: SPEC §9 switch delivery, and §9b on HotStuff ------------------
+
+# The switch knobs of the JAX package's §9 flagships (tools/hlocheck/
+# registry.py:130-133, 164-171): K = 8 aggregators, 1% fail and stale
+# draws, stale depth up to 4.
+SWITCH_KNOBS = dict(net_model="switch", n_aggregators=8, agg_fail_rate=0.01,
+                    agg_stale_rate=0.01, agg_max_stale=4)
+# The parity grid's adversary (tests/test_aggregate.py:36-37) and the cap
+# of its capped case (:53).
+SWITCH_COMPOSED = dict(drop_rate=0.2, partition_rate=0.1, churn_rate=0.03,
+                       max_delay_rounds=2, crash_prob=0.08, recover_prob=0.3,
+                       max_crashed=5)
+# discovered-silent-qc-fork (consensus_tpu/scenarios/discovered.json): its
+# overrides, its tuned shape (N = 7, f = 2, 96 rounds, L = 96, view
+# timeout 4), 2 sweeps and its 4-round window; the §9b knobs also go on
+# hotstuff-100k with n_byzantine = f.
+FORK_9B = dict(n_byzantine=2, byz_mode="equivocate", agg_byz=1,
+               agg_poison_rate=0.8923, byz_uplink_rate=0.4391)
+FORK_SCENARIO = dict(protocol="hotstuff", f=2, n_nodes=7, n_rounds=96,
+                     log_capacity=96, view_timeout=4, n_sweeps=2,
+                     net_model="switch", n_aggregators=2, drop_rate=0.0159,
+                     telemetry_window=4, **FORK_9B)
+FORK_SEEDS = (11, 23, 37)
+# The scenario's bounds (min_counters, min_availability).
+FORK_MIN = ("forked_qc", "conflict_commits", "safety_violations")
+FORK_AVAILABILITY = 0.7
+SWITCH_FLAGSHIPS = {
+    "raft-100k": flagship_config,
+    "raft-1kx1k": lambda **kw: dense_config("raft-1kx1k", **kw),
+    "paxos-10kx10k": lambda **kw: protocol_config(PAXOS_FLAGSHIP, **kw),
+    "hotstuff-100k": lambda **kw: protocol_config(HOTSTUFF_FLAGSHIP, **kw),
+    "fork": lambda **kw: protocol_config(FORK_SCENARIO, **kw)}
+SWITCH_SETTINGS = {
+    "switch": dict(SWITCH_KNOBS, telemetry_window=WINDOW),
+    "composed": dict(SWITCH_KNOBS, **SWITCH_COMPOSED,
+                     telemetry_window=WINDOW),
+    "9b": dict(SWITCH_KNOBS, **{**FORK_9B, "n_byzantine": 33_333},
+               telemetry_window=WINDOW),
+    **{str(s): dict(seed=s) for s in FORK_SEEDS}}
+# Phase 21's runs, each with telemetry (8-round windows, the fork
+# scenario's 4): (digest, the nonzero counter totals, flight_digest, the
+# C++ oracle's digest). The JAX package made each on the CPU (sweep_chunk 1
+# on the 100k runs; 2-6 s a fork run, 1-2 min a 100k one, 18 min
+# paxos-10kx10k on 8 cores), the oracle each digest (engine="cpu",
+# telemetry off; at most 71 s); they agree:
+#
+#   JAX_PLATFORMS=cpu python3 - <<'EOF'
+#   import dataclasses, chip_smoke
+#   from consensus_tpu import Config
+#   from consensus_tpu.network import simulator
+#   for key in chip_smoke.SWITCH_RUNS:
+#       c = chip_smoke.switch_config(key)
+#       cfg = Config(**{k: getattr(c, k) for k in c.__dataclass_fields__})
+#       res = simulator.run(dataclasses.replace(cfg, sweep_chunk=int(
+#           cfg.n_nodes >= 100_000)), warmup=False, telemetry=True)
+#       print(key, res.digest, {k: v for k, v in
+#             res.extras["telemetry"]["totals"].items() if v},
+#             chip_smoke.flight_digest(res.extras["flight"]))
+#       print(simulator.run(dataclasses.replace(
+#           cfg, engine="cpu", telemetry_window=0), warmup=False).digest)
+#   EOF
+SWITCH_RUNS = {
+    "raft-100k/switch": (
+        "0e9cc1ddc8b04d96240cdeb5f19877bbd3aad2b23883a585fa1e1c78a961ca5b",
+        {"leader_elections": 18, "append_accepted": 45331391,
+         "append_rejected": 10257, "entries_committed": 44992046,
+         "agg_down_rounds": 50, "stale_serves": 40},
+        "14d60fd63ed3e98479617197ae86a5f0629d46a73f3b652b4e8ff415acfc3641",
+        "0e9cc1ddc8b04d96240cdeb5f19877bbd3aad2b23883a585fa1e1c78a961ca5b"),
+    "raft-1kx1k/switch": (
+        "8748ac4fce3ad51b006d1d6542aa853f6d2f25839915ead9327bf7ca948f3308",
+        {"leader_elections": 20, "append_accepted": 8247477,
+         "entries_committed": 819200, "agg_down_rounds": 653,
+         "stale_serves": 689},
+        "7f2cba94457607f24807dad459f8013c4f4e17fc97273abfa757b74bbafd418b",
+        "8748ac4fce3ad51b006d1d6542aa853f6d2f25839915ead9327bf7ca948f3308"),
+    "raft-100k/composed": (
+        "5144090760df03c324462bc084f36afc8c798fa4dac02a3d46a7b1195cfeb892",
+        {"leader_elections": 63, "append_accepted": 15992853,
+         "append_rejected": 2697178, "entries_committed": 19460662,
+         "crashes": 749, "recoveries": 709, "nodes_down": 2560,
+         "agg_down_rounds": 50, "stale_serves": 40},
+        "e8088ab43c4e9ac6c667b2064c40a71aab74f286648f467ae013bdbdb094ef08",
+        "5144090760df03c324462bc084f36afc8c798fa4dac02a3d46a7b1195cfeb892"),
+    "paxos-10kx10k/switch": (
+        "4d64c2179c317a36b5330e5da3fe95842afbdde0a7af25714aedc6f27a2b41fa",
+        {"promises": 976101511, "nacks": 601661807, "accepts": 972262964,
+         "proposals_decided": 101004, "values_learned": 99999998,
+         "agg_down_rounds": 1, "stale_serves": 1},
+        "b00ef51beacdc4b817b7c29f9933252350d60e158009104fea64ad29a24f9ab3",
+        "4d64c2179c317a36b5330e5da3fe95842afbdde0a7af25714aedc6f27a2b41fa"),
+    "hotstuff-100k/switch": (
+        "f35df9edc21282a4ff56022a58c6b983c80aa25de3a124e15229a9d3e9567824",
+        {"qc_formed": 511, "blocks_committed": 495,
+         "commits_learned": 48691840, "proposals_delivered": 50688245,
+         "votes_counted": 49249286, "agg_down_rounds": 42,
+         "stale_serves": 40, "view_spread_max": 550, "desync_rounds": 511,
+         "sync_msgs_delivered": 497673},
+        "40575ec5f51cd4fe7ae86082a3b16f3f91aa521187c1b3ccbf2b3ea02c266af2",
+        "f35df9edc21282a4ff56022a58c6b983c80aa25de3a124e15229a9d3e9567824"),
+    "hotstuff-100k/9b": (
+        "f35df9edc21282a4ff56022a58c6b983c80aa25de3a124e15229a9d3e9567824",
+        {"qc_formed": 511, "blocks_committed": 495,
+         "commits_learned": 48691840, "proposals_delivered": 50688245,
+         "votes_counted": 65942935, "agg_down_rounds": 42,
+         "stale_serves": 40, "poisoned_serves": 450, "view_spread_max": 540,
+         "desync_rounds": 511, "sync_msgs_delivered": 497673},
+        "221f7f52dee90721e79a565160560e9ca9a91812dc56ccc0a547c04a1211518c",
+        "f35df9edc21282a4ff56022a58c6b983c80aa25de3a124e15229a9d3e9567824"),
+    "fork/11": (
+        "740fd38be51fa567e678e79737ed579edcd2d1a5c8098d739e37a34a3a151ed9",
+        {"qc_formed": 185, "blocks_committed": 181, "commits_learned": 1253,
+         "proposals_delivered": 1319, "votes_counted": 1854,
+         "poisoned_serves": 171, "forked_qc": 15, "conflict_commits": 36,
+         "safety_violations": 14, "view_spread_max": 14, "desync_rounds": 14,
+         "sync_msgs_delivered": 23},
+        "2d8e644540244b727921bd1051ef8e74a66763d62efbd16a7048ccb7652e0dc6",
+        "740fd38be51fa567e678e79737ed579edcd2d1a5c8098d739e37a34a3a151ed9"),
+    "fork/23": (
+        "0aecef84eccd4059b95280384be4397b397c4f4d97b4854c74bf5312867390eb",
+        {"qc_formed": 187, "blocks_committed": 183, "commits_learned": 1267,
+         "proposals_delivered": 1328, "votes_counted": 1859,
+         "poisoned_serves": 173, "forked_qc": 13, "conflict_commits": 30,
+         "safety_violations": 12, "view_spread_max": 9, "desync_rounds": 9,
+         "sync_msgs_delivered": 15},
+        "bf66562fe538998fd82fd366ac0bfb307762427e4f7393a4f0e616e3bd2047f4",
+        "0aecef84eccd4059b95280384be4397b397c4f4d97b4854c74bf5312867390eb"),
+    "fork/37": (
+        "62c83483c6637c03a221c415126a05a3f38feccd9dd89c2ba405a9fad6ca8e38",
+        {"qc_formed": 186, "blocks_committed": 182, "commits_learned": 1260,
+         "proposals_delivered": 1330, "votes_counted": 1843,
+         "poisoned_serves": 160, "forked_qc": 17, "conflict_commits": 33,
+         "safety_violations": 13, "view_spread_max": 9, "desync_rounds": 9,
+         "sync_msgs_delivered": 13},
+        "f5e164a1f1539d77c2f4362ceac5ad1b46cdec32d40d1eecb0e3ef9c97c6ce44",
+        "62c83483c6637c03a221c415126a05a3f38feccd9dd89c2ba405a9fad6ca8e38"),
+}
+# The wrapper timed for each SWITCH instance and KAL, each on round 20 of a
+# run: (wrapper, run).
+SWITCH_TIMED = {
+    "delivery_edges (switch)": ("delivery_edges", "raft-100k/switch"),
+    "dense_elect (switch)": ("dense_elect", "raft-1kx1k/switch"),
+    "paxos_promise (switch)": ("paxos_promise", "paxos-10kx10k/switch"),
+    "paxos_accept_learn (switch)": ("paxos_accept_learn",
+                                    "paxos-10kx10k/switch"),
+    "hotstuff_vote (switch)": ("hotstuff_vote", "hotstuff-100k/switch"),
+    "hotstuff_vote (switch, 9b)": ("hotstuff_vote", "hotstuff-100k/9b"),
+    "agg_round": ("agg_round", "hotstuff-100k/9b")}
+SWITCH_ROUNDS = (3, 20)
+# paxos-10kx10k runs 16 rounds: its later round is its last.
+SWITCH_LAST = {"paxos-10kx10k": 15}
+SWITCH_OWN = ("agg_round",)
+SWITCH_REPLACES = {
+    "agg_round": "consensus_tpu/ops/aggregate.py:93 agg_round, :119 "
+                 "agg_counts, :132 agg_poison, :190 poison_count, :280 "
+                 "uplink_edge",
+    "delivery_edges (switch)": "consensus_tpu/engines/raft_sparse.py:301 "
+                               "raft_sparse_round P2c §9 branch",
+    "dense_elect (switch)": "consensus_tpu/engines/raft.py:367 raft_round "
+                            "P2c §9 branch",
+    "paxos_promise (switch)": "consensus_tpu/engines/paxos.py:153 "
+                              "paxos_round promises §9 branch",
+    "paxos_accept_learn (switch)": "consensus_tpu/engines/paxos.py:209 "
+                                   "paxos_round accepts §9 branch",
+    "hotstuff_vote (switch)": "consensus_tpu/engines/hotstuff.py:340 "
+                              "hotstuff_round votes §9 branch",
+    "hotstuff_vote (switch, 9b)": "consensus_tpu/engines/hotstuff.py:351 "
+                                  "hotstuff_round votes §9b branch"}
+
+
+def switch_config(key: str, **kw):
+    """Phase 21's run ``key`` ("<flagship>/<setting>"), changed by
+    ``kw``."""
+    name, setting = key.split("/")
+    return SWITCH_FLAGSHIPS[name](**{**SWITCH_SETTINGS[setting], **kw})
+
+
+def switch_instance(name: str, args) -> bool:
+    """Whether this call of wrapper ``name`` runs a SWITCH instance: its
+    last positional argument is KAL's tables (KB: the pair of its phase-0
+    uplinks and table)."""
+    from consensus_tpu_torch.ops.aggregate import AggTables
+    last = args[-1]
+    if name == "delivery_edges":
+        return len(args) == 11 and last is not None
+    return isinstance(last, AggTables)
+
+
+# The switch knobs at their flat defaults.
+SWITCH_OFF = dict(net_model="flat", n_aggregators=0, agg_fail_rate=0.0,
+                  agg_stale_rate=0.0, agg_max_stale=1, agg_byz=0,
+                  agg_poison_rate=0.0, byz_uplink_rate=0.0)
+
+
+def switch_flat(name: str, args):
+    """``args`` of SWITCH-instance call ``name`` with the switch turned
+    off: KAL's tables dropped and, where the wrapper takes a Config, its
+    switch knobs at their defaults (the same inputs through the flat
+    instance)."""
+    flat = args[:-1]
+    if name == "delivery_edges":
+        return flat
+    return (dataclasses.replace(flat[0], **SWITCH_OFF), *flat[1:])
+
+
+def switch_bound(name: str, args) -> tuple[float, str]:
+    """The least time of a SWITCH instance's work on ``args``: its flat
+    instance's bytes on the same inputs, less the response bytes the switch
+    does not read (KM's granted pairs), plus KAL's tables read once, and
+    the operations of :func:`switch_ops`; KAL's own: its [B, K] words and
+    rounds and [B, phases, N] uplinks written, the flags read, and the
+    draws of :func:`agg_round_ops`."""
+    if name == "agg_round":
+        cfg, seed = args[0], args[1]
+        b, n, k = seed.shape[0], cfg.n_nodes, cfg.n_aggregators
+        from consensus_tpu_torch.ops.aggregate import n_phases
+        p = n_phases(cfg)
+        flags = args[3] if len(args) > 3 else None
+        nbytes = 8 * b * k + b * p * n + (0 if flags is None else b * n)
+        return bound(nbytes, agg_round_ops(cfg, seed, args[2], flags))
+    flat = switch_flat(name, args)
+    nbytes, ops = flat_work(name, flat)
+    last = args[-1]
+    tabs = last if name == "delivery_edges" else (last.tab, last.up)
+    if name == "dense_elect":
+        nbytes -= dense_granted(flat)
+    return bound(nbytes + sum(t.nbytes for t in tabs),
+                 switch_ops(name, args, ops))
+
+
+def dense_granted(args) -> int:
+    """The (voter, candidate) grants of KM's flat instance on ``args``,
+    each a response byte it reads off the mask (:func:`dense_bound`)."""
+    from consensus_tpu_torch.engines import raft
+    term = args[4]
+    got = raft.dense_elect_plain(*clone_args(args))
+    idx = torch.arange(term.shape[1], device=term.device)
+    return int(((got[2] >= 0) & (got[2] != idx) & got[5]).sum())
+
+
+def switch_ops(name: str, args, flat_ops: float) -> float:
+    """32-bit operations of SWITCH instance ``name`` on ``args``: its flat
+    instance's, with the response draws that the two-hop replaces taken
+    out (all of KB's; KAE's vote draw a node at or below V*; KM, KY and KZ
+    read their flat responses off a mask and draw none), and the downlinks
+    of :func:`downlink_ops` added, to KB's candidates, KM's candidates,
+    KY's proposers, KZ's proposers that proceed (a majority of promises)
+    and KAE's leader, with KAE's §9b lie draws, one a byzantine node."""
+    from consensus_tpu_torch.engines import hotstuff, paxos
+    last = args[-1]
+    if name == "delivery_edges":
+        seed, r, ids, n, drop, part, _, delay, flags, attack = args[:10]
+        up, tab = last
+        dst = ids.to(torch.int64)
+        if flags is not None:
+            from consensus_tpu_torch.ops.adversary import CRASH_DOWN
+            down = ((flags & CRASH_DOWN) != 0).gather(1, dst.clamp(0, n - 1))
+            dst = torch.where(down, -1, dst)
+        if attack is not None:
+            word, hit = attack
+            cut = (word != 0)[:, None] & ((dst == hit) if hit >= 0 else True)
+            dst = torch.where(cut, -1, dst)
+        return downlink_ops(seed, r, tab, n, 0, dst, drop, part, delay)
+    cfg, seed, r = args[0], args[1], args[2]
+    n, b = cfg.n_nodes, seed.shape[0]
+    ids = torch.arange(n, device=seed.device)[None, :].expand(b, n)
+
+    def down(phase, dst):
+        return downlink_ops(seed, r, last.tab, n, phase, dst,
+                            cfg.drop_cutoff, cfg.partition_cutoff,
+                            cfg.max_delay_rounds)
+
+    if name == "dense_elect":
+        role, timer, timeout = args[5], args[7], args[8]
+        cand = (role == 1) | ((role != 2) & (timer >= timeout))
+        return flat_ops + down(0, torch.where(cand, ids, -1))
+    if name in ("paxos_promise", "paxos_accept_learn"):
+        is_prop = paxos.proposals(cfg, seed, r, n, n)[0]
+        if name == "paxos_promise":
+            return flat_ops + down(0, torch.where(is_prop, ids, -1))
+        proceed = is_prop & (args[6] >= n // 2 + 1)
+        return flat_ops + down(1, torch.where(proceed, ids, -1))
+    view1, lane = args[3], args[4]
+    vmax = lane[:, hotstuff.VMAX][:, None]
+    eligible = int((view1 <= vmax).sum())
+    leader = torch.where(vmax >= 0, vmax % n, 0)
+    lies = b * cfg.n_byzantine if cfg.uplink_lies_on else 0
+    return (flat_ops - EDGE_OPS * eligible + THREEFRY_OPS * lies
+            + down(0, leader))
+
+
+def downlink_ops(seed, r: int, tab, n: int, phase: int, dst, drop: int,
+                 part: int, delay: int) -> float:
+    """32-bit operations of the downlinks a SWITCH instance needs at round
+    r: the §2 draw of each live aggregator (KAL's words ``tab``) to each
+    receiver of ``dst`` ([B, R] ids, negative: none) with the §A.2
+    retransmissions its drop needs (:func:`loop_draws`), and, with
+    partitions, each lane's activity and the receivers' sides where it is
+    active (an aggregator's side is in its word)."""
+    from consensus_tpu_torch.core import rng
+    from consensus_tpu_torch.ops import aggregate
+    k = tab.shape[1]
+    alive = (tab & aggregate.AGG_ALIVE) != 0                  # [B, K]
+    recv = dst >= 0                                           # [B, R]
+    need = alive[:, :, None] & recv[:, None, :]
+    g = n + phase * k + torch.arange(k, device=seed.device)[None, :, None]
+    draws = int(need.sum()) + loop_draws(
+        rng.as_u32(seed)[:, None, None], r, rng.as_u32(g),
+        rng.as_u32(dst.clamp(min=0))[:, None, :], need, drop, delay)
+    sides = 0
+    if part:
+        active = rng.random_u32_plain(seed, rng.STREAM_PARTITION, r, 0,
+                                      0) < part                 # [B]
+        sides = seed.shape[0] + int((active & recv).sum())
+    return EDGE_OPS * draws + THREEFRY_OPS * sides
+
+
+def loop_draws_at(useed, q, i, j, need, drop: int, delay: int) -> int:
+    """:func:`loop_draws` at per-edge rounds ``q`` (a tensor that
+    broadcasts with ``need``): each edge's loop stops at round 0."""
+    from consensus_tpu_torch.core import rng
+    alive = need & (rng.delivery_u32_plain(useed, q, i, j) < drop)
+    draws = 0
+    for d in range(1, delay + 1):
+        alive = alive & (q >= d)
+        qd = (q - d).clamp(min=0)
+        draws += int(alive.sum())
+        lost = alive & (rng.delivery_u32_plain(useed, qd, i, j) < drop)
+        draws += int(lost.sum())
+        alive = alive & ~(lost & (rng.delay_u32_plain(useed, qd, d, i, j)
+                                  >= drop))
+    return draws
+
+
+def agg_round_ops(cfg, seed, r: int, flags=None) -> float:
+    """32-bit operations of the draws KAL's function needs on these inputs:
+    per (lane, aggregator) its fail draw, its stale draw and, where that
+    fires, its depth, its poison draw of each phase (the last agg_byz
+    ones), its side at r, and, with partitions, the partition's activity
+    at its round q and the side of N + a there where that is active; per
+    (lane, phase, node up at the round's end) the uplink's mixer draw with
+    the §A.2 retransmissions its drop needs (:func:`loop_draws_at`); per
+    (lane, node) its own side at q where the partition is active then and
+    an uplink is open. A node's aggregator state is drawn once an
+    aggregator, not once a member."""
+    from consensus_tpu_torch.core import rng
+    from consensus_tpu_torch.ops import aggregate
+    from consensus_tpu_torch.ops.adversary import CRASH_DOWN
+    k, n = cfg.n_aggregators, cfg.n_nodes
+    b, dev = seed.shape[0], seed.device
+    p = aggregate.n_phases(cfg)
+    ua = torch.arange(k, dtype=torch.int64, device=dev)
+    st = aggregate.agg_draws_plain(cfg, seed, r)
+    threefry = b * k * (cfg.agg_fail_on + cfg.agg_stale_on)
+    if cfg.agg_stale_on:
+        threefry += int((rng.random_u32_plain(seed, rng.STREAM_AGG, r, 1, ua)
+                         < cfg.agg_stale_cutoff).sum())
+    if cfg.agg_poison_on:
+        threefry += b * p * cfg.agg_byz
+    sids = aggregate.agg_ids(n, k, dev)
+    q = st.q[:, sids]                                         # [B, N]
+    need = torch.ones((b, n), dtype=torch.bool, device=dev)
+    if flags is not None:
+        need = (flags & CRASH_DOWN) == 0
+    useed = rng.as_u32(seed)[:, None]
+    ui = torch.arange(n, dtype=torch.int64, device=dev)
+    mixer = 0
+    opened = torch.zeros_like(need)
+    for ph in range(p):
+        mixer += int(need.sum()) + loop_draws_at(
+            useed, q, ui, n + ph * k + sids, need, cfg.drop_cutoff,
+            cfg.max_delay_rounds)
+        opened |= need & aggregate._open_edge_plain(cfg, seed, q, ui,
+                                                    n + ph * k + sids)
+    if cfg.partition_cutoff:
+        active = rng.random_u32_plain(seed, rng.STREAM_PARTITION, st.q, 0,
+                                      0) < cfg.partition_cutoff  # [B, K]
+        threefry += 2 * b * k + int(active.sum()) \
+            + int((opened & active[:, sids]).sum())
+    return THREEFRY_OPS * threefry + EDGE_OPS * mixer
+
+
+def switch_built_cases(dev) -> list:
+    """Small runs whose round 20 holds the rare switch states: K = 1 on
+    the capped engine under the composed adversary, K = N on the dense
+    engine (N = 9), an empty trailing aggregator (Paxos, N = 9, K = 6:
+    segments of 2), every aggregator stale at depth agg_max_stale (stale
+    rate 1, depth 1), every aggregator poisoned and dead (fail and poison
+    rates 1, agg_byz = K), and lying byzantine nodes that are down (uplink
+    lies at rate 1, crash 0.6). The plain versions' results are required
+    to show each case."""
+    from consensus_tpu_torch.core.config import Config
+    hs = dict(protocol="hotstuff", f=33, n_nodes=100, n_rounds=24,
+              n_sweeps=3, log_capacity=32, seed=3, drop_rate=0.05,
+              telemetry_window=WINDOW, net_model="switch")
+    return [
+        ("K = 1", Config(protocol="raft", n_nodes=1000, max_active=8,
+                         n_rounds=24, n_sweeps=4, log_capacity=32,
+                         max_entries=24, seed=11, net_model="switch",
+                         n_aggregators=1, agg_fail_rate=0.2,
+                         agg_stale_rate=0.5, agg_max_stale=4,
+                         telemetry_window=WINDOW, **SWITCH_COMPOSED)),
+        ("K = N", Config(protocol="raft", n_nodes=9, n_rounds=24,
+                         n_sweeps=4, log_capacity=32, max_entries=24,
+                         seed=5, net_model="switch", n_aggregators=9,
+                         agg_fail_rate=0.2, agg_stale_rate=0.3,
+                         agg_max_stale=3, telemetry_window=WINDOW,
+                         **SWITCH_COMPOSED)),
+        ("an empty trailing aggregator",
+         Config(protocol="paxos", n_nodes=9, n_rounds=24, n_sweeps=4,
+                log_capacity=12, seed=4, net_model="switch",
+                n_aggregators=6, agg_fail_rate=0.1, agg_stale_rate=0.3,
+                agg_max_stale=2, telemetry_window=WINDOW,
+                **SWITCH_COMPOSED)),
+        ("every aggregator stale at depth agg_max_stale",
+         Config(**hs, n_aggregators=5, agg_stale_rate=1.0)),
+        ("poisoned aggregators that are dead",
+         Config(**hs, n_aggregators=4, agg_fail_rate=1.0, agg_byz=4,
+                agg_poison_rate=1.0, n_byzantine=33,
+                byz_mode="equivocate")),
+        ("lying byzantine nodes that are down",
+         Config(**hs, n_aggregators=6, n_byzantine=33, byz_uplink_rate=1.0,
+                crash_prob=0.6, recover_prob=0.3))]
+
+
+def check_built_case(what: str, cfg, calls) -> None:
+    """The case a built run's round 20 must show, read off KAL's plain
+    version on the recorded call."""
+    from consensus_tpu_torch.ops import aggregate
+    from consensus_tpu_torch.ops.adversary import CRASH_DOWN
+    args = calls["agg_round"][0]
+    tabs = aggregate.agg_round_plain(*clone_args(args))
+    r = args[2]
+    if what == "every aggregator stale at depth agg_max_stale":
+        require(bool((tabs.q == r - cfg.agg_max_stale).all()),
+                f"built {what}: q {tabs.q.tolist()} at round {r}")
+    elif what == "poisoned aggregators that are dead":
+        require(bool((tabs.tab == aggregate.AGG_POISON0).all()),
+                f"built {what}: words {tabs.tab.tolist()}")
+    elif what == "lying byzantine nodes that are down":
+        seed, flags = args[1], args[3]
+        byz = torch.arange(cfg.n_nodes, device=seed.device) >= cfg.n_honest
+        lie, _ = aggregate.uplink_lies_plain(cfg, seed, r, byz)
+        down = (flags & CRASH_DOWN) != 0
+        require(bool((lie & down).any()),
+                f"built {what}: no lying byzantine node is down")
+    elif what == "an empty trailing aggregator":
+        require(aggregate.n_segments(cfg.n_nodes, cfg.n_aggregators)
+                * (cfg.n_aggregators - 1) >= cfg.n_nodes,
+                f"built {what}: the last aggregator has members")
+
+
+def check_switch_kernels(dev):
+    """Phase 21's kernel rows. Every kernel call of rounds 3 and 20 of each
+    run SWITCH_RUNS (with telemetry) and of round 20 of each built run
+    (:func:`switch_built_cases`) against the plain versions, exact. Then
+    KAL's and each SWITCH instance's time on round 20 of its SWITCH_TIMED
+    run (the largest of its instance's calls there), its plain version's
+    and its bound, and the flat instance's time and bound on the same
+    inputs. Yields KAL's row (with the phase-3 keys) and one row an
+    instance."""
+    wrappers = sorted({name for name, _ in SWITCH_TIMED.values()})
+    errs = dict.fromkeys(wrappers, 0.0)
+    cases = dict.fromkeys(wrappers, 0)
+    base: dict = {}
+    for key in SWITCH_RUNS:
+        cfg = switch_config(key)
+        last = SWITCH_LAST.get(key.split("/")[0], SWITCH_ROUNDS[-1])
+        for r in (*SWITCH_ROUNDS[:-1], last):
+            calls = capture_round_calls(cfg, r, True, dev)
+            hold_calls(calls, f"{key} round {r}", errs, cases)
+            if r == last:
+                base[key] = calls
+    for what, cfg in switch_built_cases(dev):
+        calls = capture_round_calls(cfg, 20, True, dev)
+        check_built_case(what, cfg, calls)
+        hold_calls(calls, f"built: {what}", errs, cases)
+    for row, (name, run) in SWITCH_TIMED.items():
+        mine = [a for a in base[run][name]
+                if name == "agg_round" or switch_instance(name, a)]
+        require(bool(mine), f"{run}: no SWITCH-instance call of {name}")
+        args = max(mine, key=lambda a: sum(t.numel() for t in tensors_of(a)))
+        mod = kernel_module(name)
+        reps = reps_for(args)
+        out = dict(name=row, route="cuda",
+                   source=f"consensus_tpu_torch/csrc/{name}.cu",
+                   replaces=SWITCH_REPLACES[row], max_abs_err=errs[name],
+                   cases=cases[name], timed_on=f"{run} round "
+                   f"{SWITCH_LAST.get(run.split('/')[0], 20)}",
+                   ms=graph_ms(getattr(mod, name), args, reps),
+                   plain_ms=event_ms(getattr(mod, name + "_plain"), args,
+                                     min(3, reps)),
+                   bound=switch_bound(name, args), library_ms=None,
+                   launches_from=run)
+        if name != "agg_round":
+            flat = switch_flat(name, args)
+            out["flat_instance_ms"] = graph_ms(getattr(mod, name), flat,
+                                               reps)
+            out["flat_instance_bound"] = bound(*flat_work(name, flat))
+        yield out
+
+
+def switch_path(cfg) -> tuple[str, ...]:
+    """The kernels a telemetry run of ``cfg`` launches: its engine's
+    telemetry path, KAL, KAH with a crash, KAJ where HotStuff's round is
+    gated."""
+    from consensus_tpu_torch.engines import hotstuff
+    path = gate_path(cfg) + SWITCH_OWN
+    if cfg.protocol == "hotstuff" and hotstuff.gated(cfg):
+        path += ("hotstuff_prologue",)
+    return path
+
+
+def availability(windows) -> float:
+    """The scenario's availability (consensus_tpu/obs/timeline.py:199-202,
+    mean over sweeps): the share of windows with commit progress."""
+    stall = np.asarray(windows) == 0
+    return float((1.0 - stall.mean(axis=1)).mean())
+
+
+def check_switch_runs(card: str, smi: str) -> tuple[dict, dict]:
+    """Phase 21's runs: ``simulator.run`` of each run SWITCH_RUNS with
+    telemetry, replayed as one CUDA graph and counted from 0 (the SWITCH
+    instances apart): its digest, counter totals and flight recorder
+    against the JAX anchors, from the replay and from the eager loop, the
+    oracle's digest where it was run, its path's kernels launched and no
+    other, the SWITCH instances launched; node-round-steps per second, the
+    replay's wall, busy share and device operations a round (one profiled
+    replay). The fork scenario's runs
+    must count each of FORK_MIN and keep its availability. Returns KAL's
+    and each SWITCH instance's launches, each from its SWITCH_TIMED
+    run."""
+    from consensus_tpu_torch.network import runner, simulator
+    own: dict = {}
+    for key, (digest, nonzero, flight, oracle) in SWITCH_RUNS.items():
+        cfg = switch_config(key)
+        eng = runner.engine(cfg)
+        for mod, name in runner.SWITCH_KERNELS:
+            getattr(mod, name).switch_launches = 0
+        res, launches = counted(lambda: simulator.run(cfg, telemetry=True))
+        inst = runner.switch_launch_counts()
+        tel, fl = res.extras["telemetry"], res.extras["flight"]
+        stats: dict = {}
+        eager = runner.run(cfg, graph=False, telemetry=True, stats=stats)
+        eager_sha = eager_digest(cfg, res, eager)
+        fork = key.startswith("fork/")
+        prof = profile_replay(cfg, telemetry=True)
+        want = {k: nonzero.get(k, 0) for k in eng.telemetry_names}
+        row = dict(
+            digest=res.digest, digest_ok=res.digest == digest,
+            eager_digest=eager_sha, oracle_digest=oracle,
+            totals=tel["totals"], totals_ok=tel["totals"] == want,
+            flight_sha256=flight_digest(fl),
+            flight_ok=flight_digest(fl) == flight,
+            eager_equal=flight_digest(stats["flight"]) == flight_digest(fl)
+            and all(np.array_equal(stats["telemetry"][k], v)
+                    for k, v in tel["per_sweep"].items()),
+            steps_per_sec=res.steps_per_sec, wall_s=res.wall_s,
+            launches=launches, switch_instance_launches=inst,
+            **{k: prof[k] for k in (
+                "replay_wall_ms", "busy_share", "unprofiled_busy_share",
+                "device_ms", "device_launches")},
+            device_ops_per_round=prof["launches_per_round"],
+            hand_kernel_ms={k: v for k, v in prof["hand_kernel_ms"].items()
+                            if v})
+        if fork:
+            row["availability"] = availability(
+                fl["windows"]["commits_learned"])
+        emit("switch_run", run=key, **row, card=card, power=smi)
+        for check in ("digest_ok", "totals_ok", "flight_ok", "eager_equal"):
+            require(row[check], f"{key}: {check} fails")
+        require(eager_sha == digest,
+                f"{key}: the eager loop's digest {eager_sha}")
+        require(oracle is None or oracle == digest,
+                f"{key}: the oracle's digest {oracle} != {digest}")
+        require(tel["totals"]["agg_down_rounds"]
+                + tel["totals"]["stale_serves"]
+                + tel["totals"]["poisoned_serves"] > 0 or fork,
+                f"{key}: the aggregation tail counted nothing")
+        if fork:
+            for name in FORK_MIN:
+                require(tel["totals"][name] >= 1,
+                        f"{key}: {name} {tel['totals'][name]} < 1")
+            require(row["availability"] >= FORK_AVAILABILITY,
+                    f"{key}: availability {row['availability']}")
+        require_launched(launches, switch_path(cfg), key)
+        on_path = {name for name in inst if launches.get(name)}
+        require(all(inst[name] > 0 for name in on_path
+                    if name in ("delivery_edges", "dense_elect",
+                                "paxos_promise", "paxos_accept_learn",
+                                "hotstuff_vote")),
+                f"{key}: a SWITCH instance never launched: {inst}")
+        for row_name, (name, run) in SWITCH_TIMED.items():
+            if run == key:
+                own[row_name] = launches[name] if name == "agg_round" \
+                    else inst[name]
+        runner.clear_graphs()
+    return own
 
 
 # The script's start, for each line's elapsed time (emit).
@@ -6768,10 +7400,11 @@ def main() -> int:
                *check_hotstuff_kernels(dev, gen)]
     torch.cuda.synchronize()
     # The §6c kernels (KAH, KAI) are phase 16's, KAJ phase 17's, KAK
-    # phase 19's.
+    # phase 19's, KAL phase 21's.
     require(sorted(k["name"] for k in kernels)
             == sorted(set(_build.SOURCES)
-                      - set(CRASH_OWN + DESYNC_OWN + BYZ_BCAST_OWN)),
+                      - set(CRASH_OWN + DESYNC_OWN + BYZ_BCAST_OWN
+                            + SWITCH_OWN)),
             "phase 3 does not check every kernel of csrc")
     # KQ, KT, KX, KY and KZ with their optional outputs, on the telemetry
     # runs' rounds.
@@ -6973,11 +7606,32 @@ def main() -> int:
         require(k["max_abs_err"] == 0.0,
                 f"{k['name']} disagrees with its plain version")
     check_gate_runs(card, smi)
+
+    # 21. SPEC §9 switch delivery on both Raft engines, Paxos and HotStuff,
+    # and §9b on HotStuff: every kernel call of rounds 3 and 20 of the runs
+    # and of built runs against the plain versions (KAL and the SWITCH
+    # instances of KB, KM, KY, KZ and KAE among them), then the runs.
+    switch_rows = []
+    for k in check_switch_kernels(dev):
+        k["bound_ms"], k["bound_by"] = k.pop("bound")
+        if "flat_instance_bound" in k:
+            (k["flat_instance_bound_ms"],
+             k["flat_instance_bound_by"]) = k.pop("flat_instance_bound")
+        emit("switch_kernel", **k, card=card, power=smi)
+        require(k["max_abs_err"] == 0.0,
+                f"{k['name']} disagrees with its plain version")
+        (kernels if k["name"] in SWITCH_OWN else switch_rows).append(k)
+    switch_launches = check_switch_runs(card, smi)
+    launches.update({name: switch_launches[name] for name in SWITCH_OWN})
     require(sorted(k["name"] for k in kernels) == sorted(_build.SOURCES),
-            "phases 3, 16, 17 and 19 do not check every kernel of csrc")
+            "phases 3, 16, 17, 19 and 21 do not check every kernel of csrc")
     emit("wall")
     for k in kernels:
         k["launches"] = launches[k["name"]]
+    for k in switch_rows:
+        k["launches"] = switch_launches[k["name"]]
+        require(k["launches"] > 0, f"{k['name']}: no launch on its run")
+    kernels += switch_rows
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

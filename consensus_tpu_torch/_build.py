@@ -32,7 +32,7 @@ SOURCES = ("random_u32", "delivery_edges", "top_active", "append_entries",
            "dpos_telemetry", "paxos_telemetry", "hotstuff_propose",
            "hotstuff_vote", "hotstuff_learn", "hotstuff_extract",
            "crash_transition", "freeze_down", "hotstuff_prologue",
-           "bcast_equiv_support")
+           "bcast_equiv_support", "agg_round")
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "build" / \
@@ -44,15 +44,29 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _U, _I, _L = ctypes.c_void_p, ctypes.c_uint32, ctypes.c_int, \
     ctypes.c_longlong
 
+# The trailing arguments of KM's, KY's and KZ's SWITCH instances
+# (ops/aggregate.py switch_args): KAL's uplinks and table, K, drop_cut,
+# part_cut, max_delay (null, null, 0, 0, 0, 0 but on a switch round).
+_SW = (_P, _P, _I, _U, _U, _U)
+
 # Argument types of each ctt_<name>, without the trailing stream pointer.
 SIGNATURES = {
+    # seed, round, §6c flags (null without a crash); tab, q, up outputs; t,
+    # w accumulators (null without telemetry; w null without the
+    # recorder); B, N, K, phases; fail_cut, stale_cut, max_stale,
+    # poison_cut (0: §9b off), agg_byz; drop_cut, part_cut, max_delay; C,
+    # col, window, n_windows
+    "agg_round": (_P, _U) + (_P,) * 6 + (_I,) * 4 + (_U,) * 4 + (_I,)
+    + (_U,) * 3 + (_I,) * 4,
     # seed, stream, (ctx, c0, c1) x (ptr, scalar, batch stride), out, B, M
     "random_u32": (_P, _U, _P, _U, _L, _P, _U, _L, _P, _U, _L, _P, _I, _L),
     # seed, round, ids, out, B, A, N, drop_cut, part_cut, ids_are_src,
     # max_delay, §6c flags (null on the flat path); §A.3 attack word (null
-    # but under an attack) and the jammed receiver (-1: every edge)
+    # but under an attack) and the jammed receiver (-1: every edge); §9
+    # phase-0 uplinks, aggregator table, K, the uplinks' lane stride (null,
+    # null, 0, 0 but on a switch round)
     "delivery_edges": (_P, _U, _P, _P, _I, _I, _I, _U, _U, _I, _U, _P, _P,
-                       _I),
+                       _I, _P, _P, _I, _L),
     # mask, term, partial scratch, out, B, N, A, blocks per sweep
     "top_active": (_P, _P, _P, _P, _I, _I, _I, _I),
     # seed, t_min, t_span; del_lj, lead_id, s_term, term, role, voted_for,
@@ -104,8 +118,10 @@ SIGNATURES = {
     # the flat path); B, N, L; byz mode, n_byzantine; §A.3 attack mode,
     # attack_cut, target, attack word output (0, 0, 0, null on the flat
     # path)
+    # §9 switch (ops/aggregate.py switch_args) and the sticky target (-1
+    # but on a switch round under the sticky attack)
     "dense_elect": (_P, _U, _U, _I, _U) + (_P,) * 19 + (_I,) * 5
-    + (_I, _U, _I, _P),
+    + (_I, _U, _I, _P) + _SW + (_I,),
     # seed, round, t_min, t_span; deliver, term, role, voted_for, timer,
     # timeout, reset, log_term, log_val (in place), log_len, commit,
     # match_idx (in place), next_idx; term, role, voted_for, timer,
@@ -170,13 +186,16 @@ SIGNATURES = {
     # seed, round; deliver, promised, acc_bal; new_promised, n_prom,
     # best_bal, best_a, prep_del outputs, pair counts (null without
     # telemetry), proposal and key scratch; §6c flags (null on the flat
-    # path); P, churn_cut, B, N, S
-    "paxos_promise": (_P, _U) + (_P,) * 12 + (_I, _U, _I, _I, _I),
+    # path); P, churn_cut, B, N, S; §9 switch (ops/aggregate.py
+    # switch_args)
+    "paxos_promise": (_P, _U) + (_P,) * 12 + (_I, _U, _I, _I, _I) + _SW,
     # seed, round; deliver, prep_del, new_promised, n_prom, best_bal,
     # best_a, acc_bal, acc_val, learned_val, learned_mask; promised,
     # acc_bal, acc_val, learned_val, learned_mask outputs, proposal, count
-    # and bit scratch; P, churn_cut, B, N, S
-    "paxos_accept_learn": (_P, _U) + (_P,) * 18 + (_I, _U, _I, _I, _I),
+    # and bit scratch; P, churn_cut, B, N, S; §9 switch (ops/aggregate.py
+    # switch_args)
+    "paxos_accept_learn": (_P, _U) + (_P,) * 18 + (_I, _U, _I, _I, _I)
+    + _SW,
     # n_real; view and timer at round entry, view, catch-up flags, down;
     # pp_seen, prepared at entry, prepared, committed at entry, committed
     # after the tally, committed; t, w, lat accumulators (w and lat null
@@ -207,9 +226,11 @@ SIGNATURES = {
     # registers outputs; §6c flags (null on the flat path); drop_cut,
     # part_cut, max_delay; Q, B, N, S; byz mode, n_byzantine; chain_vid,
     # ftab_v, ftab_h, fnum (in place), deceived output (null but under
-    # equivocation)
+    # equivocation); §9 switch: KAL's uplinks and table, K (null, null, 0
+    # but on a switch round; ops/aggregate.py switch_tables), and the §9b
+    # uplink-lie cutoff (0 without lies)
     "hotstuff_vote": (_P, _U) + (_P,) * 13 + (_U,) * 3 + (_I,) * 6
-    + (_P,) * 5,
+    + (_P,) * 5 + (_P, _P, _I, _U),
     # view after P1, delivery flags, catch-up flags, timer, clen, lane
     # words (in place), gcommit at round entry, b1_h and gcommit after P4;
     # [3, B, N] view, timer, clen output; t, w, lat accumulators (null

@@ -30,7 +30,13 @@ SPEC §A.1 slot miss (``miss_rate``) and §A.4 producer suppression
 (``suppress_rate``, ``suppress_window``) run on DPoS, the SPEC §A.3
 targeted attacks (``attack`` "elect" or "sticky", ``attack_rate``,
 ``attack_target``) on both Raft engines, each with the JAX package's checks
-and messages on the other protocols. The other knobs
+and messages on the other protocols. The SPEC §9 switch (``net_model``
+"switch" with ``n_aggregators`` K in [1, n_nodes], ``agg_fail_rate``,
+``agg_stale_rate``, ``agg_max_stale`` in [1, 8]) runs on both Raft engines,
+Paxos and HotStuff, and its SPEC §9b knobs (``agg_byz``,
+``agg_poison_rate``, ``byz_uplink_rate``) on HotStuff, with the JAX
+package's checks and messages; on pbft (both fault models) the switch
+raises until its value-matched tallies are ported. The other knobs
 of the JAX package that this port does not implement yet are fields too,
 and setting one off its default raises ``ValueError``, also beside a
 delay, a crash, a desync or byzantine nodes; the port never ignores a
@@ -45,7 +51,6 @@ from .rng import prob_threshold_u32
 # Knobs of consensus_tpu's Config that the port does not implement yet,
 # with the default each must keep.
 UNSUPPORTED = {
-    "net_model": "flat", "n_aggregators": 0,
     "scan_chunk": 0, "sweep_chunk": 0,
     "mesh_shape": (),
 }
@@ -124,8 +129,16 @@ class Config:
     attack: str = "none"
     attack_rate: float = 1.0
     attack_target: int = 0
+    # SPEC §9 switch delivery and its §9b byzantine axes
+    # (consensus_tpu/core/config.py:90-118).
     net_model: str = "flat"
     n_aggregators: int = 0
+    agg_fail_rate: float = 0.0
+    agg_stale_rate: float = 0.0
+    agg_max_stale: int = 1
+    agg_byz: int = 0
+    agg_poison_rate: float = 0.0
+    byz_uplink_rate: float = 0.0
     n_byzantine: int = 0
     byz_mode: str = "silent"
     desync_rate: float = 0.0
@@ -266,10 +279,122 @@ class Config:
             raise ValueError(
                 "suppress_window requires suppress_rate > 0 (SPEC §A.4) "
                 "— it would be silently ignored")
+        self._check_switch()
         off = [k for k, d in UNSUPPORTED.items() if getattr(self, k) != d]
         if off:
             raise ValueError(f"{', '.join(off)}: not supported by the port "
                              "yet; it would be silently ignored")
+
+    def _check_switch(self) -> None:
+        """The JAX package's SPEC §9/§9b checks and messages
+        (consensus_tpu/core/config.py:254-315), then the port's own: the
+        switch on pbft waits for its value-matched tallies."""
+        if self.net_model not in ("flat", "switch"):
+            raise ValueError(f"unknown net_model {self.net_model!r} "
+                             "(SPEC §9: flat | switch)")
+        if self.net_model == "switch":
+            if self.protocol == "dpos":
+                raise ValueError(
+                    "net_model='switch' aggregates vote/quorum responses "
+                    "(SPEC §9); dpos's producer row doesn't vote — there "
+                    "is nothing to aggregate, so the model would be a "
+                    "silent no-op")
+            if not (1 <= self.n_aggregators <= self.n_nodes):
+                raise ValueError(
+                    "net_model='switch' requires 1 <= n_aggregators <= "
+                    f"n_nodes, got K={self.n_aggregators} N={self.n_nodes}")
+            if not (0 <= self.agg_byz <= self.n_aggregators):
+                raise ValueError(
+                    "agg_byz must be in [0, n_aggregators] (SPEC §9b: "
+                    "the byzantine aggregators are the last agg_byz "
+                    f"vertex ids), got {self.agg_byz} with "
+                    f"K={self.n_aggregators}")
+            if self.agg_poison_rate > 0:
+                if self.agg_byz == 0:
+                    raise ValueError(
+                        "agg_poison_rate > 0 requires agg_byz > 0 (SPEC "
+                        "§9b: only a byzantine aggregator serves forged "
+                        "combines) — it would be silently ignored")
+                if self.protocol not in ("pbft", "hotstuff"):
+                    raise ValueError(
+                        "agg_poison_rate is the SPEC §9b forged-combine "
+                        "axis of the BFT vote engines (pbft, hotstuff); "
+                        f"{self.protocol} would silently ignore it")
+            if self.byz_uplink_rate > 0:
+                if self.protocol not in ("pbft", "hotstuff"):
+                    raise ValueError(
+                        "byz_uplink_rate is the SPEC §9b byzantine-"
+                        "uplink axis of the BFT vote engines (pbft, "
+                        f"hotstuff); {self.protocol} would silently "
+                        "ignore it")
+                if self.n_byzantine == 0:
+                    raise ValueError(
+                        "byz_uplink_rate > 0 requires n_byzantine > 0 "
+                        "(SPEC §9b: only a byzantine replica lies to "
+                        "its switch vertex) — it would be silently "
+                        "ignored")
+        else:
+            bad = [n for n, v, d in (
+                ("n_aggregators", self.n_aggregators, 0),
+                ("agg_fail_rate", self.agg_fail_rate, 0.0),
+                ("agg_stale_rate", self.agg_stale_rate, 0.0),
+                ("agg_max_stale", self.agg_max_stale, 1),
+                ("agg_byz", self.agg_byz, 0),
+                ("agg_poison_rate", self.agg_poison_rate, 0.0),
+                ("byz_uplink_rate", self.byz_uplink_rate, 0.0)) if v != d]
+            if bad:
+                raise ValueError(
+                    f"{', '.join(bad)} require net_model='switch' "
+                    "(SPEC §9) — they would be silently ignored")
+        if not (1 <= self.agg_max_stale <= 8):
+            raise ValueError("agg_max_stale must be in [1, 8] (SPEC §9: "
+                             "the stale re-draw is a bounded shift, like "
+                             "the §A.2 delay horizon)")
+        if self.net_model == "switch" and self.protocol == "pbft":
+            raise ValueError(
+                "net_model='switch' on pbft: not supported by the port "
+                "yet (its value-matched switch tallies are not ported); "
+                "it would be silently ignored")
+
+    @property
+    def switch_on(self) -> bool:
+        """SPEC §9 gate: the flat round runs unless ``net_model`` is
+        "switch" (consensus_tpu/core/config.py:443-447)."""
+        return self.net_model == "switch"
+
+    @property
+    def agg_fail_cutoff(self) -> int:
+        return prob_threshold_u32(self.agg_fail_rate)
+
+    @property
+    def agg_stale_cutoff(self) -> int:
+        return prob_threshold_u32(self.agg_stale_rate)
+
+    @property
+    def agg_poison_cutoff(self) -> int:
+        return prob_threshold_u32(self.agg_poison_rate)
+
+    @property
+    def byz_uplink_cutoff(self) -> int:
+        return prob_threshold_u32(self.byz_uplink_rate)
+
+    @property
+    def agg_fail_on(self) -> bool:
+        return self.agg_fail_cutoff > 0
+
+    @property
+    def agg_stale_on(self) -> bool:
+        return self.agg_stale_cutoff > 0
+
+    @property
+    def agg_poison_on(self) -> bool:
+        """SPEC §9b forged combines can fire
+        (consensus_tpu/core/config.py:455-459)."""
+        return self.agg_byz > 0 and self.agg_poison_cutoff > 0
+
+    @property
+    def uplink_lies_on(self) -> bool:
+        return self.n_byzantine > 0 and self.byz_uplink_cutoff > 0
 
     @property
     def drop_cutoff(self) -> int:

@@ -23,6 +23,18 @@
 // sticky target's inbound edges on all four calls, every P2 edge under an
 // elect jam (raft_sparse.py:197-199, 276, 338-339).
 //
+// Its SWITCH instances (SPEC §9, picked when kernel KAL's uplink masks and
+// aggregator table are given; ids receive only) write the responses' mask of
+// a switch round instead (consensus_tpu/engines/raft_sparse.py:301-334): node
+// j reaches ids[a] when j != ids[a], j's uplink is open (KAL's mask, a down
+// sender already cut) and its aggregator's downlink to ids[a] is open
+// (ctt::agg_downlink, csrc/agg.cuh), with the crash and attack cuts above at
+// the receiver. The JAX round sums up0[j] & down0[a(j), c] per candidate;
+// kernel KF sums this mask, which is the same count. Their bound is bytes
+// (the mask and KAL's uplinks, 7.2 MB at raft-100k): a downlink depends on
+// (aggregator, candidate) only, so B*K*A draws would do, but each node's
+// thread draws its aggregator's downlink to every candidate again.
+//
 // Bound: the [B, A, N] bool output (6.4 MB at the flagship shape) against
 // ~20 integer operations an edge once the (seed, r) and per-row absorbs are
 // hoisted; both are a few microseconds at 3.35 TB/s and the card's integer
@@ -32,6 +44,7 @@
 // skipped entirely when part_cut is 0, as on the flagship path.
 #include <cuda_runtime.h>
 
+#include "agg.cuh"
 #include "crash.cuh"
 #include "rng.cuh"
 
@@ -115,6 +128,46 @@ __global__ void edges_dst_kernel(const uint32_t* __restrict__ seed,
   }
 }
 
+// out[b, j, a]: node j's response reaches ids[b, a] over the switch. Grid
+// (ceil(N / 256), B).
+template <bool DELAY, bool CRASH, bool ATTACK>
+__global__ void edges_switch_kernel(const uint32_t* __restrict__ seed,
+                                    uint32_t r,
+                                    const int32_t* __restrict__ ids,
+                                    unsigned char* __restrict__ out, int A,
+                                    int N, uint32_t drop_cut,
+                                    uint32_t part_cut, uint32_t max_delay,
+                                    const unsigned char* __restrict__ flags,
+                                    const int32_t* __restrict__ atk,
+                                    int atk_dst,
+                                    const bool* __restrict__ up,
+                                    const int32_t* __restrict__ tab, int K,
+                                    long long up_stride) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= N) return;
+  const int b = blockIdx.y;
+  const bool jammed = ATTACK && atk[b] != 0;
+  const uint32_t sd = seed[b];
+  const bool sends = up[b * up_stride + j];
+  const int ag = j / ctt::agg_seg(N, K);
+  const int32_t word = tab[static_cast<long long>(b) * K + ag];
+  const bool part = sends && ctt::part_on(sd, r, part_cut);
+  // Phase 0's vertex of j's aggregator, and the mixer's prefix for it.
+  const uint32_t g = static_cast<uint32_t>(N) + static_cast<uint32_t>(ag);
+  const uint32_t hg = ctt::downlink_prefix(sd, r, g);
+  unsigned char* o = out + (static_cast<long long>(b) * N + j) * A;
+  for (int a = 0; a < A; ++a) {
+    const int32_t id = ids[b * A + a];
+    const uint32_t d = static_cast<uint32_t>(id);
+    o[a] = sends && id >= 0 && id != j &&
+           !(ATTACK && jammed && (atk_dst < 0 || id == atk_dst)) &&
+           (!CRASH || !ctt::crash_down(flags, b, N, id)) &&
+           ctt::agg_downlink(sd, r, hg, g, d, word, drop_cut,
+                               DELAY ? max_delay : 0u, part,
+                               part ? ctt::part_side(sd, r, d) : 0u);
+  }
+}
+
 using SrcKernel = decltype(&edges_src_kernel<false, false, false>);
 using DstKernel = decltype(&edges_dst_kernel<false, false, false>);
 
@@ -144,7 +197,9 @@ DstKernel dst_instance(bool delay, bool crash, bool attack) {
 }  // namespace
 
 // atk is null on the flat path (atk_dst unused), else the round's [B]
-// attack word of kernel KE with the jammed receiver atk_dst (-1: all).
+// attack word of kernel KE with the jammed receiver atk_dst (-1: all). up
+// and tab are null but on a switch round: then kernel KAL's phase-0 uplink
+// masks (lane stride up_stride) and [B, K] aggregator table.
 extern "C" int ctt_delivery_edges(const uint32_t* seed, uint32_t r,
                                   const int32_t* ids, unsigned char* out,
                                   int B, int A, int N, uint32_t drop_cut,
@@ -152,13 +207,30 @@ extern "C" int ctt_delivery_edges(const uint32_t* seed, uint32_t r,
                                   uint32_t max_delay,
                                   const unsigned char* flags,
                                   const int32_t* atk, int atk_dst,
-                                  cudaStream_t st) {
+                                  const bool* up, const int32_t* tab, int K,
+                                  long long up_stride, cudaStream_t st) {
+  if ((up == nullptr) != (tab == nullptr) ||
+      (up != nullptr && (ids_are_src || K < 1 || K > N)))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || A == 0 || N == 0) return 0;
   const int threads = 256;
   const unsigned gx = (N + threads - 1) / threads;
   const bool delay = max_delay != 0u, crash = flags != nullptr,
              attack = atk != nullptr;
-  if (ids_are_src) {
+  if (up != nullptr) {
+    const auto kernel =
+        delay ? (attack ? (crash ? edges_switch_kernel<true, true, true>
+                                 : edges_switch_kernel<true, false, true>)
+                        : (crash ? edges_switch_kernel<true, true, false>
+                                 : edges_switch_kernel<true, false, false>))
+              : (attack ? (crash ? edges_switch_kernel<false, true, true>
+                                 : edges_switch_kernel<false, false, true>)
+                        : (crash ? edges_switch_kernel<false, true, false>
+                                 : edges_switch_kernel<false, false, false>));
+    kernel<<<dim3(gx, B), threads, 0, st>>>(
+        seed, r, ids, out, A, N, drop_cut, part_cut, max_delay, flags, atk,
+        atk_dst, up, tab, K, up_stride);
+  } else if (ids_are_src) {
     const auto kernel = src_instance(delay, crash, attack);
     kernel<<<dim3(gx, B * A), threads, 0, st>>>(
         seed, r, ids, out, A, N, drop_cut, part_cut, max_delay, flags, atk,

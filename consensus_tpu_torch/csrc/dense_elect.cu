@@ -74,10 +74,20 @@
 // writes 1 (the lane's jam: an OR over the grid's blocks); launch 2 then
 // walks no candidate in a jammed lane, so P2a-P2c see no request and no
 // response (deliver_e = deliver & ~jam), and launch 3 finds no tally.
+// Its SWITCH instances (SPEC §9, picked when kernel KAL's uplink masks and
+// aggregator table are given; raft.py:367-400) change launch 2's responses
+// only: a grant (and an equivocator's vote) reaches candidate c when the
+// granter j != c, j's phase-0 uplink is open (KAL's mask, a down sender
+// already cut) and its aggregator's downlink to c is open
+// (ctt::agg_downlink, drawn here), and, under the sticky attack, c is not
+// the target while the lane's attack word is set (the JAX round zeroes the
+// target's votes_in). Listed candidates are up (N > 1), so the JAX round's
+// receiver fold (down0 &= up) cuts nothing here.
 #include <climits>
 
 #include <cuda_runtime.h>
 
+#include "agg.cuh"
 #include "attack.cuh"
 #include "byz.cuh"
 #include "crash.cuh"
@@ -87,6 +97,13 @@ namespace {
 
 constexpr int THREADS = 256;
 constexpr int32_t ROLE_F = 0, ROLE_C = 1, ROLE_L = 2, NONE = -1;
+
+// A switch round's response path (SWITCH instances only).
+struct Sw {
+  ctt::SwitchArgs a;
+  uint32_t r;
+  int tgt;  // the sticky target, -1 without
+};
 
 // Launch 1. A thread per (sweep, node), flattened.
 template <bool CRASH, int ATTACK>
@@ -174,7 +191,7 @@ dense_candidacy_kernel(const uint32_t* __restrict__ seed, uint32_t r,
 }
 
 // Launch 2. A thread per (sweep, receiver), flattened.
-template <int BYZ, bool JAM>
+template <int BYZ, bool JAM, bool SWITCH>
 __global__ void __launch_bounds__(THREADS)
 dense_grants_kernel(const uint32_t* __restrict__ seed, int32_t t_min,
                     uint32_t t_span, const bool* __restrict__ deliver,
@@ -189,13 +206,23 @@ dense_grants_kernel(const uint32_t* __restrict__ seed, int32_t t_min,
                     int32_t* __restrict__ timeout_out,
                     bool* __restrict__ reset_out, int* __restrict__ votes,
                     int N, long long rows, int n_honest,
-                    const int32_t* __restrict__ atk) {
+                    const int32_t* __restrict__ atk, Sw sw) {
   const long long row =
       static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
   if (row >= rows) return;
   const int b = static_cast<int>(row / N);
   const int j = static_cast<int>(row - static_cast<long long>(b) * N);
   const long long nodes = static_cast<long long>(b) * N;
+  // Whether j's response reaches candidate c: deliver[j, c], or over the
+  // switch.
+  auto back = [&](int c) -> bool {
+    if (!SWITCH) return deliver[row * N + c];
+    if (c == j || (sw.tgt >= 0 && atk[b] != 0 && c == sw.tgt) ||
+        !sw.a.g.up[static_cast<long long>(b) * sw.a.g.phases * N + j])
+      return false;
+    const ctt::SwitchLane sl = ctt::switch_lane(sw.a, seed[b], sw.r, c);
+    return ctt::switch_down(sw.a, sl, b, N, 0, j / sw.a.g.seg);
+  };
   const int4* table = cands + nodes;
   // An elect-jammed lane: no request and no response travels.
   const int nc = JAM && atk[b] != 0 ? 0 : n_cand[b];
@@ -244,13 +271,12 @@ dense_grants_kernel(const uint32_t* __restrict__ seed, int32_t t_min,
     tmr = 0;
     rs = true;
     // P2c: the grant travels back on deliver[j, grant].
-    if (honest && deliver[row * N + grant])
-      atomicAdd(&votes[nodes + grant], 1);
+    if (honest && back(grant)) atomicAdd(&votes[nodes + grant], 1);
   }
   if (BYZ == ctt::BYZ_EQUIV && !honest) {
     for (int q = 0; q < nc; ++q) {
       const int c = table[q].x;
-      if (deliver[(nodes + c) * N + j] && deliver[row * N + c])
+      if (deliver[(nodes + c) * N + j] && back(c))
         atomicAdd(&votes[nodes + c], 1);
     }
   }
@@ -337,7 +363,7 @@ dense_winners_kernel(const int32_t* __restrict__ log_len,
 }
 
 using CandidacyKernel = decltype(&dense_candidacy_kernel<false, 0>);
-using GrantsKernel = decltype(&dense_grants_kernel<0, false>);
+using GrantsKernel = decltype(&dense_grants_kernel<0, false, false>);
 
 template <bool CRASH>
 CandidacyKernel candidacy_instance(int attack) {
@@ -348,17 +374,23 @@ CandidacyKernel candidacy_instance(int attack) {
              : dense_candidacy_kernel<CRASH, ctt::ATTACK_NONE>;
 }
 
-template <bool JAM>
+template <bool JAM, bool SWITCH>
 GrantsKernel grants_instance(int byz) {
-  return byz == ctt::BYZ_SILENT  ? dense_grants_kernel<ctt::BYZ_SILENT, JAM>
-         : byz == ctt::BYZ_EQUIV ? dense_grants_kernel<ctt::BYZ_EQUIV, JAM>
-                                 : dense_grants_kernel<ctt::BYZ_NONE, JAM>;
+  return byz == ctt::BYZ_SILENT
+             ? dense_grants_kernel<ctt::BYZ_SILENT, JAM, SWITCH>
+         : byz == ctt::BYZ_EQUIV
+             ? dense_grants_kernel<ctt::BYZ_EQUIV, JAM, SWITCH>
+             : dense_grants_kernel<ctt::BYZ_NONE, JAM, SWITCH>;
 }
 
 }  // namespace
 
 // attack is the SPEC §A.3 mode (0 on the flat path, where atk is null and
 // attack_cut and tgt are unused); atk is the [B] attack word, zeroed here.
+// up and tab are null but on a SPEC §9 switch round: then kernel KAL's
+// [B, 1, N] uplink masks and [B, K] table, with the drop, partition and
+// delay settings and the sticky target sw_tgt (-1 without the sticky
+// attack).
 extern "C" int ctt_dense_elect(
     const uint32_t* seed, uint32_t r, uint32_t churn_cut, int32_t t_min,
     uint32_t t_span, const bool* deliver, const int32_t* term,
@@ -369,7 +401,12 @@ extern "C" int ctt_dense_elect(
     int32_t* timeout_out, bool* reset_out, bool* win_out, int32_t* scratch,
     const unsigned char* flags, int B, int N, int L, int byz, int nb,
     int attack, uint32_t attack_cut, int tgt, int32_t* atk,
-    cudaStream_t st) {
+    const unsigned char* up, const int32_t* tab, int K, uint32_t drop_cut,
+    uint32_t part_cut, uint32_t max_delay, int sw_tgt, cudaStream_t st) {
+  if ((up == nullptr) != (tab == nullptr) ||
+      (up != nullptr && (K < 1 || K > N)) ||
+      (sw_tgt >= 0 && (atk == nullptr || sw_tgt >= N)))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (t_span == 0u || nb < 0 || nb > N || byz < ctt::BYZ_NONE ||
       byz > ctt::BYZ_EQUIV || attack < ctt::ATTACK_NONE ||
       attack > ctt::ATTACK_STICKY || (attack != 0) != (atk != nullptr) ||
@@ -401,12 +438,19 @@ extern "C" int ctt_dense_elect(
       timeout_out, reset_out, win_out, cands, n_cand, lterm, flags, N, L,
       rows, attack_cut, tgt, atk);
   if ((err = static_cast<int>(cudaGetLastError())) != 0) return err;
-  const auto grants = attack == ctt::ATTACK_ELECT ? grants_instance<true>(byz)
-                                                   : grants_instance<false>(byz);
+  const bool jam = attack == ctt::ATTACK_ELECT, sw_on = up != nullptr;
+  const auto grants =
+      jam ? (sw_on ? grants_instance<true, true>(byz)
+                   : grants_instance<true, false>(byz))
+          : (sw_on ? grants_instance<false, true>(byz)
+                   : grants_instance<false, false>(byz));
+  const Sw sw = {ctt::switch_args(up, tab, K, 1, N, drop_cut, part_cut,
+                                  max_delay),
+                 r, sw_tgt};
   grants<<<blocks, THREADS, 0, st>>>(
       seed, t_min, t_span, deliver, log_len, cands, n_cand, lterm, term_out,
       role_out, vf_out, timer_out, timeout_out, reset_out, votes, N, rows,
-      N - nb, atk);
+      N - nb, atk, sw);
   if ((err = static_cast<int>(cudaGetLastError())) != 0) return err;
   const auto winners = crash ? dense_winners_kernel<true>
                              : dense_winners_kernel<false>;

@@ -56,8 +56,24 @@
 // fork bit the deceived nodes take in FBIT for KAF, both counts' sum in
 // COUNTED, and VOTES1 at rest. Each receiver also writes whether it is
 // deceived: honest, delivered, shown variant 1.
+// Its SWITCH instances (SPEC §9, picked when kernel KAL's uplink masks and
+// aggregator table are given; lines 340-392) count the votes over the switch
+// instead of the reverse edges: a supporter j != L counts where its phase-0
+// uplink is open (KAL's mask, a down node already cut) and its aggregator's
+// downlink to L is open (ctt::agg_downlink, drawn a thread), and L counts its
+// own support locally. SPEC §9b: an aggregator poisoned in phase 0 (its table
+// bit) whose downlink to L is open counts one for each member of its
+// segment, the leader included, whose local support then drops; a
+// byzantine node's uplink lie (ctt::uplink_lie, where uplink_cut != 0) is a
+// claimed vote that needs no proposal, and under equivocation it counts,
+// like a byzantine receiver's vote, for both variants. Summed per sender
+// this is the JAX round's self vote plus its delivered segment sums, so the
+// ballots, the QC, the fork table and the counts above stay as they are;
+// the count runs whether or not a proposal exists (poisoned serves and lies
+// count either way, as the JAX round's telemetry counts them).
 #include <cuda_runtime.h>
 
+#include "agg.cuh"
 #include "byz.cuh"
 #include "crash.cuh"
 #include "hotstuff.cuh"
@@ -82,7 +98,13 @@ struct Fork {
 
 constexpr int FORK_TABLE = 8;
 
-template <bool DELAY, bool CRASH, int BYZ>
+// A switch round's vote path (SWITCH instances only).
+struct Sw {
+  ctt::SwitchArgs a;
+  uint32_t uplink_cut;  // §9b lies, 0 without
+};
+
+template <bool DELAY, bool CRASH, int BYZ, bool SWITCH>
 __global__ void __launch_bounds__(hs::THREADS)
 hotstuff_vote_kernel(const uint32_t* __restrict__ seed, uint32_t r,
                      const int32_t* __restrict__ view1,
@@ -92,8 +114,10 @@ hotstuff_vote_kernel(const uint32_t* __restrict__ seed, uint32_t r,
                      const unsigned char* __restrict__ flags,
                      uint32_t drop_cut,
                      uint32_t part_cut, uint32_t max_delay, int Q, int B,
-                     int N, int S, int tiles, int n_honest, Fork fork) {
+                     int N, int S, int tiles, int n_honest, Fork fork,
+                     Sw sw) {
   constexpr bool EQUIV = BYZ == ctt::BYZ_EQUIV;
+  __shared__ ctt::SwitchLane s_sl;
   __shared__ hs::Row s_row;
   __shared__ uint32_t s_h0;
   __shared__ int32_t s_vstar;
@@ -113,6 +137,7 @@ hotstuff_vote_kernel(const uint32_t* __restrict__ seed, uint32_t r,
     s_byzl = EQUIV && vstar >= 0 && s_l >= n_honest;
     s_votes = 0;
     s_votes1 = 0;
+    if (SWITCH) s_sl = ctt::switch_lane(sw.a, sd, r, s_l);
   }
   __syncthreads();
   const int i = tile * hs::THREADS + static_cast<int>(threadIdx.x);
@@ -127,6 +152,35 @@ hotstuff_vote_kernel(const uint32_t* __restrict__ seed, uint32_t r,
         (is_l || hs::row_open<DELAY>(s_row, sd, r, static_cast<uint32_t>(i),
                                      drop_cut, max_delay));
     pdel[row] = got;
+    if (SWITCH) {
+      // The two-hop of this sender, a poisoned serve of its segment, its
+      // lie, and its support: vote (honest receivers), claim (a byzantine
+      // receiver's vote under equivocation, or a lie).
+      const int ag = i / sw.a.g.seg;
+      const bool down = ctt::switch_down(sw.a, s_sl, b, N, 0, ag);
+      const bool pzd =
+          down && (sw.a.g.tab[static_cast<long long>(b) * sw.a.g.K + ag] &
+                   ctt::AGG_POISON0);
+      const bool honest = BYZ == ctt::BYZ_NONE || i < n_honest;
+      const bool lie = !honest && sw.uplink_cut != 0u &&
+                       ctt::uplink_lie(sd, r, static_cast<uint32_t>(i),
+                                       sw.uplink_cut);
+      const bool up0 =
+          sw.a.g.up[static_cast<long long>(b) * sw.a.g.phases * N + i];
+      const bool vote = got && honest;
+      const bool ev =
+          EQUIV && s_byzl && got &&
+          ctt::equiv_stance(sd, r, static_cast<uint32_t>(s_l),
+                            static_cast<uint32_t>(i));
+      const bool claim = (EQUIV && got && !honest) || lie;
+      const bool sup0 = EQUIV ? (vote && !ev) || claim : vote || lie;
+      const bool sup1 = (vote && ev) || claim;
+      // L's local support: its vote, or under equivocation its support.
+      const bool self0 = EQUIV ? sup0 : vote;
+      voted = pzd || (is_l ? self0 : sup0 && up0 && down);
+      voted1 = EQUIV && (pzd || (is_l ? sup1 : sup1 && up0 && down));
+      if (EQUIV) fork.deceived[row] = got && honest && ev;
+    } else {
     voted = got && (is_l ||
                     ctt::mix_fin(ctt::mix_absorb(
                         ctt::mix_absorb(s_h0, static_cast<uint32_t>(i)),
@@ -148,6 +202,7 @@ hotstuff_vote_kernel(const uint32_t* __restrict__ seed, uint32_t r,
       } else {
         voted = voted && honest;
       }
+    }
     }
   }
   const int warp_votes = __popc(__ballot_sync(hs::FULL, voted));
@@ -224,6 +279,27 @@ hotstuff_vote_kernel(const uint32_t* __restrict__ seed, uint32_t r,
   lw[hs::KEY] = hs::KEY_REST;
 }
 
+using Kernel = decltype(&hotstuff_vote_kernel<false, false, 0, false>);
+
+// The instance for (delay, crash, byz) with or without the switch.
+template <bool SWITCH>
+Kernel instance(bool delay, bool crash, int byz) {
+  if (byz == ctt::BYZ_SILENT)
+    return crash ? (delay ? hotstuff_vote_kernel<true, true, 1, SWITCH>
+                          : hotstuff_vote_kernel<false, true, 1, SWITCH>)
+                 : (delay ? hotstuff_vote_kernel<true, false, 1, SWITCH>
+                          : hotstuff_vote_kernel<false, false, 1, SWITCH>);
+  if (byz == ctt::BYZ_EQUIV)
+    return crash ? (delay ? hotstuff_vote_kernel<true, true, 2, SWITCH>
+                          : hotstuff_vote_kernel<false, true, 2, SWITCH>)
+                 : (delay ? hotstuff_vote_kernel<true, false, 2, SWITCH>
+                          : hotstuff_vote_kernel<false, false, 2, SWITCH>);
+  return crash ? (delay ? hotstuff_vote_kernel<true, true, 0, SWITCH>
+                        : hotstuff_vote_kernel<false, true, 0, SWITCH>)
+               : (delay ? hotstuff_vote_kernel<true, false, 0, SWITCH>
+                        : hotstuff_vote_kernel<false, false, 0, SWITCH>);
+}
+
 }  // namespace
 
 // regs are the seven [B] int32 registers at round entry (b1_v, b1_h, b2_v,
@@ -232,7 +308,10 @@ hotstuff_vote_kernel(const uint32_t* __restrict__ seed, uint32_t r,
 // DONE_VOTE at rest. flags is the round's [B, N] flag word of kernel KAH
 // (null without a crash). chain_vid ([B, S]), ftab_v, ftab_h ([B, 8]), fnum
 // ([B]) and deceived ([B, N] bool output) are given exactly with byz =
-// BYZ_EQUIV.
+// BYZ_EQUIV. up and tab are null but on a SPEC §9 switch round: then kernel
+// KAL's [B, 1, N] uplink masks and [B, K] table (the downlinks are drawn with
+// drop_cut, part_cut and max_delay), and uplink_cut the §9b lies' cutoff (0:
+// none).
 extern "C" int ctt_hotstuff_vote(
     const uint32_t* seed, uint32_t r, const int32_t* view1, long long* lane,
     const int32_t* b1_v, const int32_t* b1_h, const int32_t* b2_v,
@@ -241,8 +320,13 @@ extern "C" int ctt_hotstuff_vote(
     const unsigned char* flags, uint32_t drop_cut, uint32_t part_cut,
     uint32_t max_delay, int Q, int B, int N, int S, int byz, int nb,
     int32_t* chain_vid, int32_t* ftab_v, int32_t* ftab_h, int32_t* fnum,
-    bool* deceived, cudaStream_t st) {
+    bool* deceived, const unsigned char* up, const int32_t* tab, int K,
+    uint32_t uplink_cut, cudaStream_t st) {
   const bool equiv = byz == ctt::BYZ_EQUIV;
+  if ((up == nullptr) != (tab == nullptr) ||
+      (up != nullptr && (K < 1 || K > N)) ||
+      (up == nullptr && uplink_cut != 0u))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (nb < 0 || nb > N || byz < ctt::BYZ_NONE || byz > ctt::BYZ_EQUIV ||
       equiv != (chain_vid != nullptr) || equiv != (ftab_v != nullptr) ||
       equiv != (ftab_h != nullptr) || equiv != (fnum != nullptr) ||
@@ -255,24 +339,15 @@ extern "C" int ctt_hotstuff_vote(
   Regs regs = {{b1_v, b1_h, b2_v, b2_h, b3_v, b3_h, gcommit}};
   const Fork fork = {chain_vid, ftab_v, ftab_h, fnum, deceived};
   const bool delay = max_delay != 0u, crash = flags != nullptr;
-  decltype(&hotstuff_vote_kernel<false, false, ctt::BYZ_NONE>) kernel;
-  if (byz == ctt::BYZ_SILENT)
-    kernel = crash ? (delay ? hotstuff_vote_kernel<true, true, 1>
-                            : hotstuff_vote_kernel<false, true, 1>)
-                   : (delay ? hotstuff_vote_kernel<true, false, 1>
-                            : hotstuff_vote_kernel<false, false, 1>);
-  else if (equiv)
-    kernel = crash ? (delay ? hotstuff_vote_kernel<true, true, 2>
-                            : hotstuff_vote_kernel<false, true, 2>)
-                   : (delay ? hotstuff_vote_kernel<true, false, 2>
-                            : hotstuff_vote_kernel<false, false, 2>);
-  else
-    kernel = crash ? (delay ? hotstuff_vote_kernel<true, true, 0>
-                            : hotstuff_vote_kernel<false, true, 0>)
-                   : (delay ? hotstuff_vote_kernel<true, false, 0>
-                            : hotstuff_vote_kernel<false, false, 0>);
+  const auto kernel =
+      up != nullptr
+          ? instance<true>(delay, crash, byz)
+          : instance<false>(delay, crash, byz);
+  const Sw sw = {ctt::switch_args(up, tab, K, 1, N, drop_cut, part_cut,
+                                  max_delay),
+                 uplink_cut};
   kernel<<<static_cast<unsigned>(blocks), hs::THREADS, 0, st>>>(
       seed, r, view1, lane, regs, chain_v, pdel, regs_out, flags, drop_cut,
-      part_cut, max_delay, Q, B, N, S, tiles, N - nb, fork);
+      part_cut, max_delay, Q, B, N, S, tiles, N - nb, fork, sw);
   return static_cast<int>(cudaGetLastError());
 }

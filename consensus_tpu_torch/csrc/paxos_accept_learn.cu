@@ -37,8 +37,15 @@
 // decider of each slot with shared-memory atomicMin and learns. When S
 // slots do not fit in shared memory, a row block keeps its per-slot values
 // in its own output rows instead, which it finishes last.
+// Its SWITCH instance (SPEC §9, picked when kernel KAL's uplink masks and
+// aggregator table are given; paxos.py:209-218) changes launch 2 only: an
+// accepted response travels over the switch in phase 1 instead of
+// deliver[a, p], when a's phase-1 uplink is open (KAL's mask, a down
+// acceptor already cut) and its aggregator's downlink to p is open
+// (ctt::agg_downlink, drawn only for a winning accept).
 #include <cuda_runtime.h>
 
+#include "agg.cuh"
 #include "paxos.cuh"
 
 namespace {
@@ -72,8 +79,10 @@ paxos_gate_kernel(const uint32_t* __restrict__ seed, uint32_t r,
 }
 
 // Launch 2. A block per (lane, acceptor row).
+template <bool SWITCH>
 __global__ void __launch_bounds__(THREADS)
-paxos_accept_kernel(const uint8_t* __restrict__ deliver,
+paxos_accept_kernel(const uint32_t* __restrict__ seed, uint32_t r,
+                    ctt::SwitchArgs sw, const uint8_t* __restrict__ deliver,
                     const uint8_t* __restrict__ prep_del,
                     const int32_t* __restrict__ props,
                     const int32_t* __restrict__ new_promised,
@@ -113,7 +122,15 @@ paxos_accept_kernel(const uint8_t* __restrict__ deliver,
       const int32_t s = slot_p[p];
       if (ballot[p] >= new_promised[cell + s] && ballot[p] == amax[s]) {
         val[s] = chosen[p];
-        accd = d[p];
+        if (!SWITCH) {
+          accd = d[p];
+        } else {
+          const int a = static_cast<int>(row - static_cast<long long>(b) * N);
+          if (sw.g.up[(static_cast<long long>(b) * sw.g.phases + 1) * N + a]) {
+            const ctt::SwitchLane sl = ctt::switch_lane(sw, seed[b], r, p);
+            accd = ctt::switch_down(sw, sl, b, N, 1, a / sw.g.seg);
+          }
+        }
       }
     }
     const uint32_t word = __ballot_sync(FULL, accd);
@@ -207,13 +224,22 @@ extern "C" int ctt_paxos_accept_learn(
     const int32_t* learned_val, const bool* learned_mask, int32_t* promised2,
     int32_t* acc_bal2, int32_t* acc_val2, int32_t* learned_val2,
     bool* learned_mask2, int32_t* props, int32_t* n_acc, uint32_t* bits,
-    int P, uint32_t churn_cut, int B, int N, int S, cudaStream_t st) {
+    int P, uint32_t churn_cut, int B, int N, int S, const unsigned char* up,
+    const int32_t* tab, int K, uint32_t drop_cut, uint32_t part_cut,
+    uint32_t max_delay, cudaStream_t st) {
+  if ((up == nullptr) != (tab == nullptr) ||
+      (up != nullptr && (K < 1 || K > N)))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || N == 0) return 0;
   static bool configured = false;
   if (!configured) {
     int err = static_cast<int>(cudaFuncSetAttribute(
-        paxos_accept_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        ctt::ROW_SMEM_MAX));
+        paxos_accept_kernel<false>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, ctt::ROW_SMEM_MAX));
+    if (err == 0)
+      err = static_cast<int>(cudaFuncSetAttribute(
+          paxos_accept_kernel<true>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, ctt::ROW_SMEM_MAX));
     if (err == 0)
       err = static_cast<int>(cudaFuncSetAttribute(
           paxos_learn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -234,10 +260,14 @@ extern "C" int ctt_paxos_accept_learn(
       rows);
   const long long slot_bytes = static_cast<long long>(S) * sizeof(int32_t);
   const bool accept_smem = 2 * slot_bytes <= ctt::ROW_SMEM_MAX;
-  paxos_accept_kernel<<<static_cast<unsigned>(rows), THREADS,
-                        accept_smem ? 2 * slot_bytes : 0, st>>>(
-      deliver, prep_del, props, new_promised, acc_bal, acc_val, promised2,
-      acc_bal2, acc_val2, bits, n_prop, N, S, words, accept_smem);
+  const auto accept = up != nullptr ? paxos_accept_kernel<true>
+                                    : paxos_accept_kernel<false>;
+  const ctt::SwitchArgs sw =
+      ctt::switch_args(up, tab, K, 2, N, drop_cut, part_cut, max_delay);
+  accept<<<static_cast<unsigned>(rows), THREADS,
+           accept_smem ? 2 * slot_bytes : 0, st>>>(
+      seed, r, sw, deliver, prep_del, props, new_promised, acc_bal, acc_val,
+      promised2, acc_bal2, acc_val2, bits, n_prop, N, S, words, accept_smem);
   paxos_count_kernel<<<ctt::tile_blocks(B, N), THREADS, 0, st>>>(
       bits, n_acc, N, words);
   paxos_decide_kernel<<<row_blocks, THREADS, 0, st>>>(n_acc, props, N, rows);

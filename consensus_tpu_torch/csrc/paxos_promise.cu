@@ -41,8 +41,18 @@
 // KAH is given) read the promised row of an acceptor recovered this round
 // as 0 in launches 3 and 4 (its volatile reset, paxos.py:118-122); KL has
 // already cut every flight of a down node.
+// Its SWITCH instances (SPEC §9, picked when kernel KAL's uplink masks and
+// aggregator table are given; paxos.py:153-176) change launch 4 only: a
+// promise travels back over the switch instead of deliver[a, p], when a's
+// phase-0 uplink is open (KAL's mask, a down acceptor already cut) and its
+// aggregator's downlink to p is open (ctt::agg_downlink, drawn here once a
+// thread for each segment its tile crosses); n_pair then counts the
+// promises and, beside them, the acceptors with both flat flights
+// delivered that did not promise (the nacks, paxos.py:256, still read the
+// flat mask).
 #include <cuda_runtime.h>
 
+#include "agg.cuh"
 #include "crash.cuh"
 #include "paxos.cuh"
 
@@ -133,9 +143,11 @@ paxos_prepare_kernel(const uint8_t* __restrict__ prep_del,
 
 // Launch 4. A block per (proposer chunk, acceptor tile, lane), flattened
 // in that order.
-template <bool CRASH>
+template <bool CRASH, bool SWITCH>
 __global__ void __launch_bounds__(THREADS)
-paxos_promise_tile_kernel(const uint8_t* __restrict__ deliver,
+paxos_promise_tile_kernel(const uint32_t* __restrict__ seed, uint32_t r,
+                          ctt::SwitchArgs sw,
+                          const uint8_t* __restrict__ deliver,
                           const uint8_t* __restrict__ prep_del,
                           const int32_t* __restrict__ props,
                           const int32_t* __restrict__ promised,
@@ -158,6 +170,37 @@ paxos_promise_tile_kernel(const uint8_t* __restrict__ deliver,
   const int a1 = min(a0 + ctt::TILE_ROWS, N);
   int count = 0, pairs = 0;
   unsigned long long best = 0ull;
+  if (SWITCH) {
+    const ctt::SwitchLane sl = ctt::switch_lane(sw, seed[b], r, p);
+    int seg = -1;
+    bool down = false;
+    for (int a = a0; a < a1; ++a) {
+      const long long row = static_cast<long long>(b) * N + a;
+      int32_t rep = 0;
+      if (is_prop && prep_del[row * N + p]) {
+        const long long c = row * S + slot;
+        const int32_t held =
+            CRASH && (flags[row] & ctt::CRASH_REC) ? 0 : promised[c];
+        bool prom = false;
+        if (ballot > held && ballot == new_promised[c] &&
+            sw.g.up[(static_cast<long long>(b) * sw.g.phases) * N + a]) {
+          const int ag = a / sw.g.seg;
+          if (ag != seg) {
+            seg = ag;
+            down = ctt::switch_down(sw, sl, b, N, 0, ag);
+          }
+          prom = down;
+        }
+        if (prom) {
+          ++count;
+          rep = acc_bal[c];
+        }
+        pairs += prom || deliver[row * N + p];
+      }
+      const unsigned long long key = pack(rep, a);
+      best = key > best ? key : best;
+    }
+  } else {
   for (int a = a0; a < a1; ++a) {
     const long long row = static_cast<long long>(b) * N + a;
     int32_t rep = 0;
@@ -173,6 +216,7 @@ paxos_promise_tile_kernel(const uint8_t* __restrict__ deliver,
     }
     const unsigned long long key = pack(rep, a);
     best = key > best ? key : best;
+  }
   }
   const long long i = static_cast<long long>(b) * N + p;
   if (count) atomicAdd(n_prom + i, count);
@@ -203,7 +247,12 @@ extern "C" int ctt_paxos_promise(
     int32_t* n_prom, int32_t* best_bal, int32_t* best_a, uint8_t* prep_del,
     int32_t* n_pair, int32_t* props, unsigned long long* keys,
     const unsigned char* flags, int P, uint32_t churn_cut, int B, int N,
-    int S, cudaStream_t st) {
+    int S, const unsigned char* up, const int32_t* tab, int K,
+    uint32_t drop_cut, uint32_t part_cut, uint32_t max_delay,
+    cudaStream_t st) {
+  if ((up == nullptr) != (tab == nullptr) ||
+      (up != nullptr && (K < 1 || K > N)))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || N == 0) return 0;
   static bool configured = false;
   if (!configured) {
@@ -244,11 +293,17 @@ extern "C" int ctt_paxos_promise(
             in_smem ? S * sizeof(int32_t) : 0, st>>>(
       prep_del, props, promised, new_promised, flags, P < N ? P : N, N, S,
       in_smem);
-  const auto promise = crash ? paxos_promise_tile_kernel<true>
-                             : paxos_promise_tile_kernel<false>;
+  const bool sw_on = up != nullptr;
+  const auto promise =
+      crash ? (sw_on ? paxos_promise_tile_kernel<true, true>
+                     : paxos_promise_tile_kernel<true, false>)
+            : (sw_on ? paxos_promise_tile_kernel<false, true>
+                     : paxos_promise_tile_kernel<false, false>);
+  const ctt::SwitchArgs sw =
+      ctt::switch_args(up, tab, K, 2, N, drop_cut, part_cut, max_delay);
   promise<<<ctt::tile_blocks(B, N), THREADS, 0, st>>>(
-      deliver, prep_del, props, promised, new_promised, acc_bal, n_prom,
-      n_pair, keys, flags, N, S);
+      seed, r, sw, deliver, prep_del, props, promised, new_promised, acc_bal,
+      n_prom, n_pair, keys, flags, N, S);
   paxos_unpack_kernel<<<row_blocks, THREADS, 0, st>>>(keys, best_bal, best_a,
                                                        rows);
   return static_cast<int>(cudaGetLastError());

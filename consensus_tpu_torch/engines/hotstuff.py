@@ -4,7 +4,8 @@ engine.
 The port of ``consensus_tpu/engines/hotstuff.py`` on its flat path and
 under the SPEC §A.2 delayed retransmission on the broadcast rows and the
 votes, the SPEC §6c crash-recover adversary, the SPEC §B timer skew and
-the SPEC §7c byzantine nodes, silent or equivocating (no switch gates),
+the SPEC §7c byzantine nodes, silent or equivocating, and the SPEC §9
+switch with its §9b poisoned combines and uplink lies,
 with its telemetry and flight recorder. Every
 node keeps its own pacemaker (view, timer) and committed prefix; the QC
 chain (b1, b2, b3), the certified-view map and
@@ -68,6 +69,15 @@ one of two variants; KAE counts each variant's votes in its own lane word
 ``chain_vid`` and, on a forked QC, the fork table in place, and names the
 deceived receivers, whose fork bits KAF sets; with telemetry KAF counts
 the §7c safety tail.
+
+On a SPEC §9 switch round kernel KAL (``ops/aggregate.py`` ``agg_round``)
+runs first (after KAH) and writes the round's aggregator table and
+uplinks; KAE's SWITCH instance counts each supporter whose uplink and
+whose aggregator's downlink to the leader are open, the leader's own
+support locally, and under §9b each poisoned aggregator that reaches the
+leader as its whole segment (the leader's local vote then dropped) and
+each byzantine node's uplink lie as a vote: a switch round is four
+launches (KAL, KAD, KAE, KAF).
 """
 from __future__ import annotations
 
@@ -81,6 +91,8 @@ from ..ops.adversary import (AGG_TELEMETRY, CRASH_DOWN, CRASH_REC,
                              CRASH_TELEMETRY, SAFETY_TELEMETRY, bitcast_i32,
                              crash_step, equiv_stance_plain, open_drop_plain,
                              safety_counts_plain)
+from ..ops.aggregate import (AGG_POISON0, agg_downlink_plain, agg_ids,
+                             agg_step, switch_tables, uplink_lies_plain)
 from ..ops.flight import (add_plain, bucket_counts_plain, check_recorder,
                           window_of)
 from ..ops.viewsync import SYNC_TELEMETRY, desync_skew_plain, sync_counts_plain
@@ -99,7 +111,8 @@ FORK_TABLE = 8
 # rounds forming a QC, the global commit's advance, the per-node committed
 # prefixes' advance, per-node timeout view changes, proposal receivers,
 # votes the leader counted; then the crash tail (kernel KAH's), the
-# aggregation tail (zeros here), the SPEC §7c safety tail (counted under
+# aggregation tail (kernel KAL's, on a §9 switch round), the SPEC §7c
+# safety tail (counted under
 # equivocation) and the SPEC §B view-sync tail.
 HOTSTUFF_TELEMETRY = ("qc_formed", "blocks_committed", "commits_learned",
                       "view_changes", "proposals_delivered",
@@ -411,10 +424,10 @@ hotstuff_propose.launches = 0
 
 def hotstuff_vote_plain(cfg: Config, seed, r: int, view1, lane, b1_v, b1_h,
                         b2_v, b2_h, b3_v, b3_h, gcommit, chain_v, flags=None,
-                        fork=None):
-    """Plain version of KAE, the JAX round's lines 300-454 without the
-    switch gates. V* is ``lane[:, VMAX]``; when V* >= 0 its
-    leader L = V* mod N broadcasts, else L = 0 and nobody hears a proposal.
+                        fork=None, agg=None):
+    """Plain version of KAE, the JAX round's lines 300-454. V* is
+    ``lane[:, VMAX]``; when V* >= 0 its leader L = V* mod N broadcasts,
+    else L = 0 and nobody hears a proposal.
     Node j receives it (``pdel``) when j == L or L's row to j is open, and
     its view after P1 is not above V*; a receiver's vote reaches L when j ==
     L or the mixer's draw of edge (j, L) is not below the drop cutoff or a
@@ -447,7 +460,18 @@ def hotstuff_vote_plain(cfg: Config, seed, r: int, view1, lane, b1_v, b1_h,
     (bit 1), ``lane[:, FBIT]`` the fork bit that KAF sets in the
     deceived nodes' ``fvec`` (0 without a new table row), and the round
     also returns ``deceived`` ([B, N] bool): the honest receivers shown
-    variant 1."""
+    variant 1.
+
+    On a SPEC §9 switch round (``agg``, kernel KAL's tables) the votes
+    travel over the switch (lines 340-392): a supporter j != L counts where
+    its phase-0 uplink and its aggregator's downlink to L are open, and L
+    counts its own support locally. Under §9b a poisoned aggregator whose
+    downlink to L is open counts one for each member of its segment
+    instead (the leader too, whose local vote then drops), and a byzantine
+    node's uplink lie is a claimed vote that needs no proposal; under
+    equivocation a byzantine receiver's vote and a lie count for both
+    variants. Summed per sender, this is the JAX round's self vote plus its
+    delivered segment sums."""
     N, S, Q = view1.shape[1], cfg.log_capacity, 2 * cfg.f + 1
     dev = view1.device
     idx = torch.arange(N, dtype=torch.int64, device=dev)
@@ -464,18 +488,23 @@ def hotstuff_vote_plain(cfg: Config, seed, r: int, view1, lane, b1_v, b1_h,
         pdel &= (flags & CRASH_DOWN) == 0
     back = is_l | open_v
     vote = pdel if not cfg.byz else pdel & (idx < cfg.n_honest)
+    counted = (lambda sup, self_sup: (sup & back).sum(1))
+    lie = torch.zeros_like(pdel)
+    if agg is not None:
+        counted, lie = _switch_count(cfg, seed, r, agg, L, is_l)
     if cfg.byz == BYZ_EQUIV:
         byz_l = exists & (L >= cfg.n_honest)
         evid = byz_l[:, None] & equiv_stance_plain(seed, r, L[:, None],
                                                    idx[None, :])
-        voteb = pdel & (idx >= cfg.n_honest)
-        cnt0 = lane[:, VOTES] + (((vote & ~evid) | voteb) & back).sum(1)
-        cnt1 = lane[:, VOTES1] + (((vote & evid) | voteb) & back).sum(1)
+        claim = (pdel & (idx >= cfg.n_honest)) | lie
+        sup0, sup1 = (vote & ~evid) | claim, (vote & evid) | claim
+        cnt0 = lane[:, VOTES] + counted(sup0, sup0)
+        cnt1 = lane[:, VOTES1] + counted(sup1, sup1)
         qc0, qc1 = exists & (cnt0 >= Q), exists & (cnt1 >= Q)
         qc, forked = qc0 | qc1, qc0 & qc1
         cnt = cnt0 + cnt1
     else:
-        cnt = lane[:, VOTES] + (vote & back).sum(1)
+        cnt = lane[:, VOTES] + counted(vote | lie, vote)
         qc = exists & (cnt >= Q)
     h_next = _wrap(b1_h.to(torch.int64) + 1)
     nb1_v, nb1_h = torch.where(qc, vstar, b1_v), torch.where(qc, h_next, b1_h)
@@ -514,8 +543,36 @@ def hotstuff_vote_plain(cfg: Config, seed, r: int, view1, lane, b1_v, b1_h,
     return (*out, vote & evid)
 
 
+def _switch_count(cfg: Config, seed, r: int, agg, L, is_l):
+    """The SPEC §9/§9b vote count of a switch round (the JAX round's lines
+    340-392) as a sum over senders: ``(counted, lie)``, where
+    ``counted(sup, self_sup)`` is [B] int64, the count of the [B, N]
+    supporters ``sup`` with the leader's local support read off
+    ``self_sup`` at L, and ``lie`` the round's uplink lies ([B, N] bool)."""
+    N, K = cfg.n_nodes, cfg.n_aggregators
+    B, dev = seed.shape[0], seed.device
+    sids = agg_ids(N, K, dev)
+    ak = torch.arange(K, device=dev)[None, :].expand(B, K)
+    d0 = agg_downlink_plain(cfg, seed, r, agg.tab, 0, ak,
+                            L[:, None].expand(B, K))            # [B, K]
+    pz = ((agg.tab & AGG_POISON0) != 0) & d0                    # delivered
+    d0j, pzj = d0[:, sids], pz[:, sids]                         # [B, N]
+    up0 = agg.up[:, 0]
+    lie, _ = uplink_lies_plain(cfg, seed, r,
+                               torch.arange(N, device=dev) >= cfg.n_honest)
+    if lie is None:
+        lie = torch.zeros_like(up0)
+
+    def counted(sup, self_sup):
+        pred = torch.where(is_l, pzj | self_sup,
+                           pzj | (sup & up0 & d0j))
+        return pred.sum(1)
+    return counted, lie
+
+
 def hotstuff_vote(cfg: Config, seed, r: int, view1, lane, b1_v, b1_h, b2_v,
-                  b2_h, b3_v, b3_h, gcommit, chain_v, flags=None, fork=None):
+                  b2_h, b3_v, b3_h, gcommit, chain_v, flags=None, fork=None,
+                  agg=None):
     """Kernel KAE: same arguments, results and in-place updates as
     :func:`hotstuff_vote_plain`, which it runs for CPU tensors; for CUDA
     tensors it launches ``csrc/hotstuff_vote.cu`` (a thread per (lane,
@@ -523,14 +580,15 @@ def hotstuff_vote(cfg: Config, seed, r: int, view1, lane, b1_v, b1_h, b2_v,
     global one a block; the lane's last block does P4; its CRASH instance
     with ``flags``, its BYZ instances with byzantine nodes: under
     equivocation two ballots a warp, and the last block also writes
-    ``fork``'s rows)."""
+    ``fork``'s rows; its SWITCH instances with ``agg``, where each voter
+    draws its aggregator's downlink to L and, under §9b, its lie)."""
     if (cfg.byz == BYZ_EQUIV) != (fork is not None):
         raise ValueError("pass fork (chain_vid, ftab_v, ftab_h, fnum) "
                          "exactly under byzantine equivocation")
     if view1.device.type == "cpu":
         return hotstuff_vote_plain(cfg, seed, r, view1, lane, b1_v, b1_h,
                                    b2_v, b2_h, b3_v, b3_h, gcommit, chain_v,
-                                   flags, fork)
+                                   flags, fork, agg)
     from .. import _build
     B, N = view1.shape
     S = cfg.log_capacity
@@ -546,7 +604,10 @@ def hotstuff_vote(cfg: Config, seed, r: int, view1, lane, b1_v, b1_h, b2_v,
               *(() if fork is None else (
                   (fork[0], torch.int32, (B, S)),
                   *((x, torch.int32, (B, FORK_TABLE)) for x in fork[1:3]),
-                  (fork[3], torch.int32, (B,)))))
+                  (fork[3], torch.int32, (B,)))),
+              *(() if agg is None else (
+                  (agg.up, torch.bool, (B, 1, N)),
+                  (agg.tab, torch.int32, (B, cfg.n_aggregators)))))
     pdel = torch.empty((B, N), dtype=torch.bool, device=dev)
     new = torch.empty((7, B), dtype=torch.int32, device=dev)
     deceived = None if fork is None else torch.empty_like(pdel)
@@ -558,13 +619,18 @@ def hotstuff_vote(cfg: Config, seed, r: int, view1, lane, b1_v, b1_h, b2_v,
                   cfg.partition_cutoff, cfg.max_delay_rounds, 2 * cfg.f + 1,
                   B, N, S, cfg.byz, cfg.n_byzantine,
                   *(None if x is None else x.data_ptr() for x in (
-                      (*fork, deceived) if fork is not None else (None,) * 5)))
+                      (*fork, deceived) if fork is not None else (None,) * 5)),
+                  *switch_tables(agg),
+                  cfg.byz_uplink_cutoff if cfg.uplink_lies_on else 0)
     hotstuff_vote.launches += 1
+    hotstuff_vote.switch_launches += agg is not None
     out = (pdel, *new.unbind(0))
     return out if deceived is None else (*out, deceived)
 
 
 hotstuff_vote.launches = 0
+# Launches of its SWITCH instances (SPEC §9), also counted in ``launches``.
+hotstuff_vote.switch_launches = 0
 
 
 # --- KAF: P6, P7 and the telemetry tail ----------------------------------------
@@ -573,8 +639,8 @@ def hotstuff_learn_plain(cfg: Config, r: int, view1, pdel, adv, timer, clen,
                          lane, gcommit, b1_h_new, gcommit_new, t=None,
                          w=None, lat=None, crash=None, fork=None):
     """Plain version of KAF, the JAX round's lines 456-480 and, with the
-    accumulator ``t`` ([B, K] int32), its telemetry tail (lines 485-519),
-    without the switch gates. With the round's V* and vote
+    accumulator ``t`` ([B, K] int32), its telemetry tail (lines 485-519;
+    the aggregation tail is kernel KAL's). With the round's V* and vote
     count from ``lane`` (the QC forms when V* >= 0 and the count reaches 2f
     + 1): a receiver enters V* + 1 on a QC, else V*, and grows its committed
     prefix to the OLD ``gcommit`` (the commit as of proposal time); a node
@@ -837,11 +903,11 @@ def hotstuff_init(cfg: Config, seeds: torch.Tensor) -> HotstuffState:
 def hotstuff_round(cfg: Config, st: HotstuffState, r: int, *, telem=None,
                    flight=None) -> HotstuffState:
     """One SPEC §7b round, as ``consensus_tpu/engines/hotstuff.py``
-    ``hotstuff_round`` without the switch gates: KAD, KAE and KAF, and
-    nothing else on a flat round or a byzantine one; with a SPEC §B skew KAJ
-    first, and with a SPEC §6c crash KAH and KAJ first (see the module's
-    notes). ``chain_v`` and ``lane`` are updated in place, so the round
-    consumes ``st``.
+    ``hotstuff_round``: KAD, KAE and KAF, and nothing else on a flat
+    round or a byzantine one; with a SPEC §B skew KAJ first, and with a
+    SPEC §6c crash KAH and KAJ first (see the module's notes); on a SPEC §9
+    switch round KAL (after KAH) and KAE's SWITCH instance. ``chain_v``
+    and ``lane`` are updated in place, so the round consumes ``st``.
 
     ``telem`` ([B, K] i32, the run's counter totals) switches on the
     round's telemetry and ``flight`` (the window ring and latency buckets,
@@ -860,6 +926,12 @@ def hotstuff_round(cfg: Config, st: HotstuffState, r: int, *, telem=None,
         down, flags = crash_step(cfg, st.seed, r, st.down, HOTSTUFF_TELEMETRY,
                                  telem, flight)
         crash = (flags, st.view, st.timer)
+    # ---- SPEC §9 switch (KAL): the round's aggregator table and uplinks,
+    # which KAE's SWITCH instance reads for P3's votes.
+    agg = None
+    if cfg.switch_on:
+        agg = agg_step(cfg, st.seed, r, flags, HOTSTUFF_TELEMETRY, telem,
+                       flight)
     view, timer = st.view, st.timer
     if gated(cfg):
         view, timer = hotstuff_prologue(cfg, st.seed, r, view, timer,
@@ -875,7 +947,9 @@ def hotstuff_round(cfg: Config, st: HotstuffState, r: int, *, telem=None,
         hotstuff_vote(cfg, st.seed, r, view1, st.lane, st.b1_v, st.b1_h,
                       st.b2_v, st.b2_h, st.b3_v, st.b3_h, st.gcommit,
                       st.chain_v, flags, *(() if not equiv else (
-                          (st.chain_vid, st.ftab_v, st.ftab_h, st.fnum),)))
+                          (st.chain_vid, st.ftab_v, st.ftab_h, st.fnum),)),
+                      *(() if agg is None else ((None,) * (not equiv)
+                                                + (agg,))))
     view, timer, clen = hotstuff_learn(
         cfg, r, view1, pdel, adv, timer, st.clen, st.lane, st.gcommit, b1_h,
         gcommit, telem, w, lat, crash, *(() if not equiv else (

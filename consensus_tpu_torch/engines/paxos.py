@@ -2,8 +2,8 @@
 grid.
 
 The port of ``consensus_tpu/engines/paxos.py`` on its flat path and under
-the SPEC §A.2 delay and the SPEC §6c crash-recover adversary (no switch
-gate), with its telemetry and flight recorder. In round r each
+the SPEC §A.2 delay, the SPEC §6c crash-recover adversary and the SPEC §9
+switch, with its telemetry and flight recorder. In round r each
 of the first P = ``n_proposers or n_nodes`` nodes proposes ballot
 r·N + p + 1 on one slot it draws; prepares, promises, accepts, accepted
 responses and the decide broadcast all ride the round's [N, N] delivery
@@ -34,7 +34,12 @@ reads a recovered acceptor's promises as 0 (its volatile reset). A down
 node then neither promises, accepts, decides nor learns, since every
 flight to or from it is cut and a proposer needs delivered promises, so
 its state leaves KY and KZ as it entered: the JAX round's freeze
-(``paxos.py:241-248``) holds without a write. No input is
+(``paxos.py:241-248``) holds without a write. On a SPEC §9 switch round
+kernel KAL (``ops/aggregate.py`` ``agg_round``) runs after KAH, and the
+SWITCH instances of KY and KZ carry the promises (phase 0) and accepted
+responses (phase 1) over the two-hop ``up[a] & down(a(a), p)`` instead
+of ``deliver[a, p]`` (``paxos.py:153-218``); the nacks still read the
+flat mask. No input is
 changed: each phase writes fresh tensors, and the round returns a new
 state. The JAX package's equality-mask reductions (phase 4's winning value,
 phase 6's learned value) only keep gathers off the TPU; here they are
@@ -50,6 +55,7 @@ from ..core import rng
 from ..core.config import Config
 from ..ops.adversary import (AGG_TELEMETRY, CRASH_REC, CRASH_TELEMETRY,
                              bitcast_i32, crash_step, delivery)
+from ..ops.aggregate import agg_step, switch_args, switch_resp_plain
 from ..ops.flight import (add_plain, bucket_counts_plain, check_recorder,
                           window_of)
 from .raft import check_all
@@ -61,7 +67,8 @@ NAME = "paxos"
 # consensus_tpu/engines/paxos.py PAXOS_TELEMETRY (lines 74-81): delivered
 # promises, delivered prepares outbid (both flights delivered, no
 # promise), delivered accepted responses, proposers that decided, (node,
-# slot)s newly learned; then the crash and aggregation tails (zeros here).
+# slot)s newly learned; then the crash and aggregation tails (kernels KAH's
+# and KAL's).
 PAXOS_TELEMETRY = ("promises", "nacks", "accepts", "proposals_decided",
                    "values_learned") + CRASH_TELEMETRY + AGG_TELEMETRY
 # The flight recorder's latency histogram (engines/paxos.py PAXOS_LATENCY,
@@ -136,7 +143,8 @@ def _seg(values, slot_p, S: int, reduce: str, fill: int) -> torch.Tensor:
 # --- KY: phases 1-2 ----------------------------------------------------------
 
 def paxos_promise_plain(cfg: Config, seed, r: int, deliver, promised,
-                        acc_bal, want_pairs: bool = False, flags=None):
+                        acc_bal, want_pairs: bool = False, flags=None,
+                        agg=None):
     """Plain version of KY, SPEC §5 phases 1-2 of round r at every acceptor
     a and proposer p of each lane. ``prep_del[a, p]`` is ``deliver[p,
     a]``: p's prepare (and later accept) reached a; ``deliver[a, p]`` is
@@ -150,11 +158,17 @@ def paxos_promise_plain(cfg: Config, seed, r: int, deliver, promised,
     ``best_a[p]`` the lowest acceptor that holds it. Returns
     (new_promised [B, N, S], n_prom, best_bal, best_a [B, N], prep_del
     [B, N, N]): int32, and prep_del bool; with ``want_pairs`` also
-    ``n_pair`` [B, N] int32, for each proposing p the acceptors with both
-    flights delivered (the telemetry's nacks are ``n_pair - n_prom``).
+    ``n_pair`` [B, N] int32: ``n_prom`` plus, for each proposing p, the
+    acceptors with both flights delivered that did not promise (the
+    telemetry's nacks are ``n_pair - n_prom``; on a flat round these are
+    the acceptors with both flights delivered).
     With the round's SPEC §6c ``flags`` ([B, N] uint8, KAH), a recovered
     acceptor's ``promised`` row is read as 0 (``consensus_tpu/engines/
-    paxos.py:118-122``)."""
+    paxos.py:118-122``). On a SPEC §9 switch round (``agg``, kernel KAL's
+    tables) a promise travels back over the switch instead of ``deliver[a,
+    p]``: a's phase-0 uplink and its aggregator's downlink to p
+    (``paxos.py:153-176``); the nacks still read the flat ``deliver``
+    (``paxos.py:256``)."""
     N, S = deliver.shape[1], promised.shape[2]
     if flags is not None:
         promised = torch.where(((flags & CRASH_REC) != 0)[:, :, None], 0,
@@ -166,7 +180,8 @@ def paxos_promise_plain(cfg: Config, seed, r: int, deliver, promised,
                  "amax", 0)
     new_promised = torch.maximum(promised, p_max)
     bal = ballot[:, None, :]
-    prom = (sent & deliver & (bal > _at_slot(promised, slot_p))
+    back = deliver if agg is None else _switch_back(cfg, seed, r, agg, 0)
+    prom = (sent & back & (bal > _at_slot(promised, slot_p))
             & (bal == _at_slot(new_promised, slot_p)))
     n_prom = prom.sum(1, dtype=torch.int32)
     rep_bal = torch.where(prom, _at_slot(acc_bal, slot_p), 0)
@@ -176,12 +191,23 @@ def paxos_promise_plain(cfg: Config, seed, r: int, deliver, promised,
                          N).amin(1)
     out = (new_promised, n_prom, best_bal, best_a, prep_del)
     if want_pairs:
-        return (*out, (sent & deliver).sum(1, dtype=torch.int32))
+        return (*out, n_prom + (sent & deliver & ~prom).sum(
+            1, dtype=torch.int32))
     return out
 
 
+def _switch_back(cfg: Config, seed, r: int, agg, phase: int):
+    """[B, a, p] bool: a's response reaches p over the switch in
+    ``phase`` (SPEC §9; :func:`~consensus_tpu_torch.ops.aggregate.
+    switch_resp_plain` at every proposer)."""
+    N = cfg.n_nodes
+    idx = torch.arange(N, device=seed.device)
+    return switch_resp_plain(cfg, seed, r, agg, phase,
+                             idx[None, :].expand(seed.shape[0], N))
+
+
 def paxos_promise(cfg: Config, seed, r: int, deliver, promised, acc_bal,
-                  want_pairs: bool = False, flags=None):
+                  want_pairs: bool = False, flags=None, agg=None):
     """Kernel KY: same arguments and result as
     :func:`paxos_promise_plain`, which it runs for CPU tensors; for CUDA
     tensors it launches ``csrc/paxos_promise.cu`` (each proposer's ballot
@@ -190,17 +216,19 @@ def paxos_promise(cfg: Config, seed, r: int, deliver, promised, acc_bal,
     count the promises and keep the best accepted ballot per proposer,
     merged across tiles by integer atomics on packed keys; the pair counts
     only with ``want_pairs``, merged like the promises; its CRASH
-    instance with ``flags``)."""
+    instance with ``flags``; its SWITCH instances with ``agg``, whose
+    tiles draw each promise's downlink inline)."""
     if deliver.device.type == "cpu":
         return paxos_promise_plain(cfg, seed, r, deliver, promised, acc_bal,
-                                   want_pairs, flags)
+                                   want_pairs, flags, agg)
     from .. import _build
     B, N, S = promised.shape
     dev = deliver.device
     check_all(dev, (seed, torch.uint32, (B,)),
               (deliver, torch.bool, (B, N, N)),
               *((t, torch.int32, (B, N, S)) for t in (promised, acc_bal)),
-              *(() if flags is None else ((flags, torch.uint8, (B, N)),)))
+              *(() if flags is None else ((flags, torch.uint8, (B, N)),)),
+              *_agg_checks(cfg, agg, B))
     new_promised = torch.empty_like(promised)
     n_prom, best_bal, best_a = (torch.empty((B, N), dtype=torch.int32,
                                             device=dev) for _ in range(3))
@@ -215,13 +243,25 @@ def paxos_promise(cfg: Config, seed, r: int, deliver, promised, acc_bal,
                   None if n_pair is None else n_pair.data_ptr(),
                   props.data_ptr(), keys.data_ptr(),
                   None if flags is None else flags.data_ptr(),
-                  cfg.n_proposers or N, cfg.churn_cutoff, B, N, S)
+                  cfg.n_proposers or N, cfg.churn_cutoff, B, N, S,
+                  *switch_args(cfg, agg))
     paxos_promise.launches += 1
+    paxos_promise.switch_launches += agg is not None
     out = (new_promised, n_prom, best_bal, best_a, prep_del)
     return (*out, n_pair) if want_pairs else out
 
 
 paxos_promise.launches = 0
+# Launches of its SWITCH instances (SPEC §9), also counted in ``launches``.
+paxos_promise.switch_launches = 0
+
+
+def _agg_checks(cfg: Config, agg, B: int) -> tuple:
+    """check_all entries of KAL's tables on a switch round (none without)."""
+    if agg is None:
+        return ()
+    return ((agg.up, torch.bool, (B, 2, cfg.n_nodes)),
+            (agg.tab, torch.int32, (B, cfg.n_aggregators)))
 
 
 # --- KZ: phases 3-6 ----------------------------------------------------------
@@ -229,7 +269,7 @@ paxos_promise.launches = 0
 def paxos_accept_learn_plain(cfg: Config, seed, r: int, deliver, prep_del,
                              new_promised, n_prom, best_bal, best_a,
                              acc_bal, acc_val, learned_val, learned_mask,
-                             want_counts: bool = False):
+                             want_counts: bool = False, agg=None):
     """Plain version of KZ, SPEC §5 phases 3-6 of round r. Phase 3: p
     proceeds when it proposes and holds a majority (N // 2 + 1) of
     promises; its value is ``acc_val[best_a, slot_p]`` when ``best_bal >
@@ -245,7 +285,10 @@ def paxos_accept_learn_plain(cfg: Config, seed, r: int, deliver, prep_del,
     such a decider reached. Returns (promised, acc_bal, acc_val,
     learned_val [B, N, S] int32, learned_mask [B, N, S] bool) and, with
     ``want_counts``, phase 5's ``n_acc`` (the delivered accepted responses
-    of each proposer) and decided flags (0 or 1), both [B, N] int32."""
+    of each proposer) and decided flags (0 or 1), both [B, N] int32. On a
+    SPEC §9 switch round (``agg``, kernel KAL's tables) an accepted
+    response travels over the switch in phase 1 instead of ``deliver[a,
+    p]`` (``paxos.py:209-218``)."""
     N, S = deliver.shape[1], new_promised.shape[2]
     majority = N // 2 + 1
     dev = deliver.device
@@ -268,7 +311,8 @@ def paxos_accept_learn_plain(cfg: Config, seed, r: int, deliver, prep_del,
     acc_val2 = torch.where(has_acc, val_w, acc_val)
     promised2 = torch.where(has_acc, a_max, new_promised)
     # Phase 5.
-    n_acc = (win & deliver).sum(1, dtype=torch.int32)
+    back = deliver if agg is None else _switch_back(cfg, seed, r, agg, 1)
+    n_acc = (win & back).sum(1, dtype=torch.int32)
     decided = proceed & (n_acc >= majority)
     # Phase 6.
     idx = torch.arange(N, dtype=torch.int32, device=dev)
@@ -289,7 +333,7 @@ def paxos_accept_learn_plain(cfg: Config, seed, r: int, deliver, prep_del,
 def paxos_accept_learn(cfg: Config, seed, r: int, deliver, prep_del,
                        new_promised, n_prom, best_bal, best_a, acc_bal,
                        acc_val, learned_val, learned_mask,
-                       want_counts: bool = False):
+                       want_counts: bool = False, agg=None):
     """Kernel KZ: same arguments and result as
     :func:`paxos_accept_learn_plain`, which it runs for CPU tensors; for
     CUDA tensors it launches ``csrc/paxos_accept_learn.cu`` (each
@@ -299,13 +343,15 @@ def paxos_accept_learn(cfg: Config, seed, r: int, deliver, prep_del,
     rows count those bits per proposer; a block per receiver row takes
     the lowest decider of each slot and learns). With ``want_counts`` it
     also returns its count of accepted responses and its decided flags,
-    which it keeps in a row of its proposer scratch (a strided view)."""
+    which it keeps in a row of its proposer scratch (a strided view). Its
+    SWITCH instance, with ``agg``, draws each accepted response's
+    downlink inline."""
     if deliver.device.type == "cpu":
         return paxos_accept_learn_plain(cfg, seed, r, deliver, prep_del,
                                         new_promised, n_prom, best_bal,
                                         best_a, acc_bal, acc_val,
                                         learned_val, learned_mask,
-                                        want_counts)
+                                        want_counts, agg)
     from .. import _build
     B, N, S = new_promised.shape
     dev = deliver.device
@@ -314,7 +360,8 @@ def paxos_accept_learn(cfg: Config, seed, r: int, deliver, prep_del,
               *((t, torch.int32, (B, N)) for t in (n_prom, best_bal, best_a)),
               *((t, torch.int32, (B, N, S)) for t in (
                   new_promised, acc_bal, acc_val, learned_val)),
-              (learned_mask, torch.bool, (B, N, S)))
+              (learned_mask, torch.bool, (B, N, S)),
+              *_agg_checks(cfg, agg, B))
     promised2, acc_bal2, acc_val2, learned_val2 = (
         torch.empty_like(new_promised) for _ in range(4))
     learned_mask2 = torch.empty_like(learned_mask)
@@ -327,13 +374,17 @@ def paxos_accept_learn(cfg: Config, seed, r: int, deliver, prep_del,
                       best_a, acc_bal, acc_val, learned_val, learned_mask,
                       promised2, acc_bal2, acc_val2, learned_val2,
                       learned_mask2, props, n_acc, bits)),
-                  cfg.n_proposers or N, cfg.churn_cutoff, B, N, S)
+                  cfg.n_proposers or N, cfg.churn_cutoff, B, N, S,
+                  *switch_args(cfg, agg))
     paxos_accept_learn.launches += 1
+    paxos_accept_learn.switch_launches += agg is not None
     out = (promised2, acc_bal2, acc_val2, learned_val2, learned_mask2)
     return (*out, n_acc, props[:, PROP_FLAG]) if want_counts else out
 
 
 paxos_accept_learn.launches = 0
+# Launches of its SWITCH instance (SPEC §9), also counted in ``launches``.
+paxos_accept_learn.switch_launches = 0
 
 
 # --- KAC: the telemetry tail --------------------------------------------------
@@ -350,7 +401,8 @@ def paxos_telemetry_plain(cfg: Config, r: int, n_prom, n_pair, n_acc,
     on its flat path: the sums of KY's ``n_prom``, of ``n_pair - n_prom``
     and of KZ's ``n_acc`` and ``decided`` ([B, N] int32), and the (node,
     slot)s of ``learned`` not in ``learned_in`` ([B, N, S] bool), each
-    observed at r + 1; zeros for the gates the port rejects. Updates
+    observed at r + 1; zeros for the crash and aggregation tails (KAH's
+    and KAL's to add). Updates
     ``t``, ``w`` and ``lat`` in place."""
     check_recorder(cfg, w, lat)
     B = learned.shape[0]
@@ -433,14 +485,20 @@ def paxos_round(cfg: Config, st: PaxosState, r: int, *, telem=None,
         down, flags = crash_step(cfg, seed, r, st.down, PAXOS_TELEMETRY,
                                  telem, flight)
 
+    # ---- SPEC §9 switch (KAL): the round's aggregator table and uplinks
+    # of both phases, which KY's and KZ's SWITCH instances read.
+    agg = None
+    if cfg.switch_on:
+        agg = agg_step(cfg, seed, r, flags, PAXOS_TELEMETRY, telem, flight)
+
     # ---- The round's delivery mask (KL).
     deliver = delivery(seed, r, N, cfg.drop_cutoff, cfg.partition_cutoff,
                        cfg.max_delay_rounds,
                        *(() if flags is None else (flags,)))
 
     # ---- Phases 1-2: prepares and promises (KY), after the §6c reset.
-    if flags is not None:
-        on = (telem is not None, flags)
+    if flags is not None or agg is not None:
+        on = (telem is not None, flags) + (() if agg is None else (agg,))
     new_promised, n_prom, best_bal, best_a, prep_del, *pairs = paxos_promise(
         cfg, seed, r, deliver, st.promised, st.acc_bal, *on)
 
@@ -448,7 +506,8 @@ def paxos_round(cfg: Config, st: PaxosState, r: int, *, telem=None,
     promised, acc_bal, acc_val, learned_val, learned_mask, *counts = \
         paxos_accept_learn(cfg, seed, r, deliver, prep_del, new_promised,
                            n_prom, best_bal, best_a, st.acc_bal, st.acc_val,
-                           st.learned_val, st.learned_mask, *on[:1])
+                           st.learned_val, st.learned_mask, *on[:1],
+                           *(() if agg is None else (agg,)))
 
     # ---- Telemetry and flight recorder (KAC).
     if telem is not None:

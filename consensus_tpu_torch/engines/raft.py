@@ -59,6 +59,8 @@ from ..core.config import ATTACK_ELECT, ATTACK_STICKY, BYZ_SILENT, Config
 from ..ops.adversary import (AGG_TELEMETRY, CRASH_DOWN, CRASH_REC,
                              CRASH_TELEMETRY, attack_fires, bitcast_i32,
                              churn, crash_step, delivery)
+from ..ops.aggregate import (agg_step, sticky_target, switch_args,
+                             switch_resp_plain)
 from ..ops.flight import (add_plain, bucket_counts_plain, check_recorder,
                           window_of)
 
@@ -211,7 +213,8 @@ def raft_init(cfg: Config, seeds: torch.Tensor) -> RaftState:
 
 def dense_elect_plain(cfg: Config, seed, r: int, deliver, term, role,
                       voted_for, timer, timeout, log_term, log_len, match_idx,
-                      next_idx, want_win: bool = False, flags=None):
+                      next_idx, want_win: bool = False, flags=None,
+                      agg=None):
     """Plain version of KM, SPEC §3 P0-P2 at every node of each sweep.
 
     P0: the round's churn event steps leaders down. P1: every non-leader
@@ -249,7 +252,15 @@ def dense_elect_plain(cfg: Config, seed, r: int, deliver, term, role,
     "sticky" skips the target's churn step-down where it fires (``deliver``
     then already lacks the target's inbound column, KL's STICKY
     instance); "elect" keeps it where a live candidacy stood in P1, and
-    then P2 runs on ``deliver & ~jam`` (``raft.py:303-304, 320-330``)."""
+    then P2 runs on ``deliver & ~jam`` (``raft.py:303-304, 320-330``).
+
+    On a SPEC §9 switch round (``agg``, kernel KAL's :class:`~consensus_tpu_
+    torch.ops.aggregate.AggTables`) P2c's grants travel back over the
+    switch instead of ``deliver[j, c]``: j's phase-0 uplink and its
+    aggregator's downlink to c, j != c, c up at the round's end; the
+    sticky target's column is cut where the attack word is set (the JAX
+    round zeroes its ``votes_in``), and an elect jam leaves no grant
+    (``raft.py:367-400``)."""
     u32 = rng.random_u32_plain
     N = term.shape[1]
     idx = torch.arange(N, dtype=torch.int32, device=term.device)
@@ -314,12 +325,22 @@ def dense_elect_plain(cfg: Config, seed, r: int, deliver, term, role,
     voted_for = torch.where(granted, grant, voted_for)
     timer = torch.where(granted, 0, timer)
     reset = reset | granted
-    resp = (grant[:, :, None] == idx) & deliver                 # [B, j, c]
+    back = deliver                                              # [B, j, c]
+    if agg is not None:
+        back = switch_resp_plain(cfg, seed, r, agg, 0,
+                                 idx[None, :].expand(term.shape[0], N))
+        back = back & (idx[:, None] != idx[None, :])
+        if flags is not None:
+            back = back & ~down[:, None, :]
+        if cfg.attack_mode == ATTACK_STICKY:
+            back = back & ~((atk != 0)[:, None, None]
+                            & (idx == cfg.attack_target))
+    resp = (grant[:, :, None] == idx) & back
     if cfg.byz == BYZ_SILENT:
         resp = resp & honest[:, None]
     elif cfg.byz:
         resp = torch.where(honest[:, None], resp, was_cand[:, None, :]
-                           & deliver.transpose(1, 2) & deliver)
+                           & deliver.transpose(1, 2) & back)
     votes = 1 + resp.sum(1, dtype=torch.int32)
     win = (role == ROLE_C) & (votes >= N // 2 + 1)
     role = torch.where(win, ROLE_L, role)
@@ -342,7 +363,7 @@ def dense_elect_plain(cfg: Config, seed, r: int, deliver, term, role,
 
 def dense_elect(cfg: Config, seed, r: int, deliver, term, role, voted_for,
                 timer, timeout, log_term, log_len, match_idx, next_idx,
-                want_win: bool = False, flags=None):
+                want_win: bool = False, flags=None, agg=None):
     """Kernel KM: same arguments, in-place update and result as
     :func:`dense_elect_plain`, which it runs for CPU tensors; for CUDA
     tensors it launches ``csrc/dense_elect.cu`` (a thread per node for
@@ -351,11 +372,12 @@ def dense_elect(cfg: Config, seed, r: int, deliver, term, role, voted_for,
     tally, then a block per sweep for the winners and their rows; the
     winner flags only with ``want_win``; its CRASH instance with
     ``flags``; its BYZ instances with byzantine nodes; its ATTACK
-    instances under an attack)."""
+    instances under an attack; its SWITCH instances with ``agg``, whose
+    receivers draw each grant's downlink inline)."""
     if term.device.type == "cpu":
         return dense_elect_plain(cfg, seed, r, deliver, term, role,
                                  voted_for, timer, timeout, log_term, log_len,
-                                 match_idx, next_idx, want_win, flags)
+                                 match_idx, next_idx, want_win, flags, agg)
     from .. import _build
     B, N, L = log_term.shape
     dev = term.device
@@ -366,7 +388,10 @@ def dense_elect(cfg: Config, seed, r: int, deliver, term, role, voted_for,
               (log_term, torch.int32, (B, N, L)),
               (match_idx, torch.uint8, (B, N, N)),
               (next_idx, torch.uint8, (B, N, N)),
-              *(() if flags is None else ((flags, torch.uint8, (B, N)),)))
+              *(() if flags is None else ((flags, torch.uint8, (B, N)),)),
+              *(() if agg is None else ((agg.up, torch.bool, (B, 1, N)),
+                                        (agg.tab, torch.int32,
+                                         (B, cfg.n_aggregators)))))
     out = [torch.empty_like(term) for _ in range(5)]
     reset = torch.empty((B, N), dtype=torch.bool, device=dev)
     win = torch.empty_like(reset) if want_win else None
@@ -384,13 +409,17 @@ def dense_elect(cfg: Config, seed, r: int, deliver, term, role, voted_for,
                   None if flags is None else flags.data_ptr(), B, N, L,
                   cfg.byz, cfg.n_byzantine, cfg.attack_mode,
                   cfg.attack_cutoff, cfg.attack_target,
-                  None if atk is None else atk.data_ptr())
+                  None if atk is None else atk.data_ptr(),
+                  *switch_args(cfg, agg), sticky_target(cfg, agg))
     dense_elect.launches += 1
+    dense_elect.switch_launches += agg is not None
     out = (*out, reset) + (() if win is None else (win,))
     return out if atk is None else (*out, atk)
 
 
 dense_elect.launches = 0
+# Launches of its SWITCH instances (SPEC §9), also counted in ``launches``.
+dense_elect.switch_launches = 0
 
 
 # --- KN: P3a propose, P3b snapshot, P3c receivers ----------------------------
@@ -668,8 +697,8 @@ def dense_telemetry_plain(cfg: Config, r: int, win, timer_in, ack_to, ack_ok,
     applied appends), a leader heard (``ack_to >= 0``) and not applied,
     the sum of ``commit - commit_in``, attack_rounds from the round's SPEC
     §A.3 attack word ``atk`` ([B] int32, KM's; 0 without an attack), 0 for
-    the aggregation tail (the port rejects the §9 switch); the crash tail
-    is KAH's to add. Updates ``t``, ``w`` and ``lat`` in place."""
+    the aggregation tail (kernel KAL adds it on a §9 switch round); the
+    crash tail is KAH's to add. Updates ``t``, ``w`` and ``lat`` in place."""
     vec = torch.zeros_like(t)
     vec[:, 0] = win.sum(1, dtype=torch.int32)
     vec[:, 1] = ack_ok.sum(1, dtype=torch.int32)
@@ -754,6 +783,13 @@ def raft_round(cfg: Config, st: RaftState, r: int, *, telem=None,
                                  telem, flight)
         crash = (flags,)
 
+    # ---- SPEC §9 switch (KAL): the round's aggregator table and uplinks,
+    # which KM's SWITCH instance reads for P2c's grants.
+    agg = None
+    if cfg.switch_on:
+        agg = agg_step(cfg, seed, r, crash[0] if crash else None,
+                       RAFT_TELEMETRY, telem, flight)
+
     # ---- The round's delivery mask (KL); under the sticky attack without
     # the target's inbound column where its activation fires.
     sticky = ((crash or (None,)) + ((st.role, cfg.attack_target,
@@ -767,7 +803,8 @@ def raft_round(cfg: Config, st: RaftState, r: int, *, telem=None,
     term, role, voted_for, timer, timeout, reset, *extra = dense_elect(
         cfg, seed, r, deliver, st.term, st.role, st.voted_for, st.timer,
         st.timeout, log_term, st.log_len, match_idx, next_idx,
-        telem is not None, *crash)
+        telem is not None, *(crash if agg is None else (
+            (crash or (None,)) + (agg,))))
     atk = extra[-1:] if cfg.attack_mode else []
 
     # ---- P3a propose, P3b snapshot, P3c receivers and apply (KN).

@@ -2,8 +2,8 @@
 
 The port of ``consensus_tpu/engines/raft_sparse.py`` on its flat path and
 under the SPEC §A.2 delay, the SPEC §6c crash-recover adversary, the
-SPEC §3c byzantine nodes and the SPEC §A.3 targeted attacks (no switch
-gate), with its telemetry
+SPEC §3c byzantine nodes, the SPEC §A.3 targeted attacks and the SPEC §9
+switch, with its telemetry
 and flight recorder. Per round only the top-A candidates and the top-A
 leaders by (term desc, id asc) send, and leader replication state lives in
 A tracked slots of [A, N] rows, so a round is O(A*N) plus one pass over
@@ -51,7 +51,13 @@ KE's ATTACK instance writes each lane's attack word (the elect jam, or
 the sticky target's activation, which also skips its churn step-down),
 which KB's ATTACK instance reads (every edge of P2's two calls under a
 jam, every edge into the sticky target on all four calls) and KK counts
-as attack_rounds.
+as attack_rounds. On a SPEC §9 switch round (``net_model="switch"``) kernel
+KAL (``ops/aggregate.py`` ``agg_round``) runs after KAH and writes the
+round's aggregator table and uplinks (and, with telemetry, the aggregation
+tail of the counters); KB's SWITCH instance then gives P2c's responses
+``del_jc`` as the two-hop ``up0[j] & down0[a(j), c]``, with the elect jam
+and the sticky cut as the JAX round zeroes ``votes_in``
+(``raft_sparse.py:301-334``), and KF counts them as before.
 
 The [B, N, L] logs are updated in place (P3a's one-slot append and P3c's
 suffix copy), where the JAX round returns new arrays: a round's state
@@ -68,6 +74,7 @@ from ..core.config import (ATTACK_ELECT, ATTACK_STICKY, BYZ_SILENT,
                            MAX_ACTIVE, Config)
 from ..ops.adversary import (CRASH_DOWN, CRASH_REC, bitcast_i32, churn,
                              crash_step, delivery_edges)
+from ..ops.aggregate import agg_step
 from ..ops.flight import (add_plain, bucket_counts_plain, check_recorder,
                           window_of)
 from .raft import (NONE, RAFT_LATENCY, RAFT_TELEMETRY, ROLE_C, ROLE_F, ROLE_L,
@@ -809,9 +816,9 @@ def telemetry_plain(cfg: Config, r: int, cand_ids, win, timer_in, has_l,
     (the mask at the round's end). The counters: winners, ``apply_``,
     ``has_l & ~apply_``, the sum of ``commit - commit_in``, attack_rounds
     from the round's SPEC §A.3 attack word ``atk`` ([B] int32, KE's; 0
-    without an attack), and 0 for the aggregation tail (the port rejects
-    the §9 switch); the crash tail is kernel KAH's to add. Updates ``t``,
-    ``w`` and ``lat`` in place."""
+    without an attack), and 0 for the aggregation tail (kernel KAL adds it
+    on a §9 switch round); the crash tail is kernel KAH's to add. Updates
+    ``t``, ``w`` and ``lat`` in place."""
     N = timer_in.shape[1]
     vec = torch.zeros_like(t)
     vec[:, 0] = win.sum(1, dtype=torch.int32)
@@ -903,6 +910,14 @@ def raft_sparse_round(cfg: Config, st: RaftSparseState, r: int, *,
 
     log_term, log_val = st.log_term, st.log_val
 
+    # ---- SPEC §9 switch (KAL): the round's aggregator table and uplinks,
+    # which KB's SWITCH instance reads for P2c's responses.
+    switch = None
+    if cfg.switch_on:
+        agg = agg_step(cfg, seed, r, crash[0] if crash else None,
+                       RAFT_TELEMETRY, telem, flight)
+        switch = (agg.up[:, 0], agg.tab)
+
     # ---- P0 churn, P1 candidacy (KE), after the §6c reset; under a SPEC
     # §A.3 attack also the round's attack word.
     (term, role, voted_for, timer, timeout, reset, own_lterm,
@@ -915,8 +930,10 @@ def raft_sparse_round(cfg: Config, st: RaftSparseState, r: int, *,
         if cfg.attack_mode == ATTACK_STICKY else None
     jam = (atk[0], -1) if cfg.attack_mode == ATTACK_ELECT else sticky
 
-    def dedge(ids, ids_are_src, attack=None):
+    def dedge(ids, ids_are_src, attack=None, sw=None):
         flags = crash if attack is None else (crash or (None,)) + (attack,)
+        if sw is not None:
+            flags = (crash or (None,)) + (attack, sw)
         return delivery_edges(seed, r, ids, N, cfg.drop_cutoff,
                               cfg.partition_cutoff, ids_are_src,
                               cfg.max_delay_rounds, *flags)
@@ -925,7 +942,7 @@ def raft_sparse_round(cfg: Config, st: RaftSparseState, r: int, *,
     # with the leader mask that KC and KI read.
     cand_ids = top_active(cand_mask, term, A)                   # [B, A]
     del_cj = dedge(cand_ids, True, jam)                         # [B, A, N]
-    del_jc = dedge(cand_ids, False, jam)                        # [B, N, A]
+    del_jc = dedge(cand_ids, False, jam, switch)                # [B, N, A]
     term, role, voted_for, timer, timeout, reset, lead, win = elect(
         cfg, seed, cand_ids, del_cj, del_jc, term, role, voted_for, timer,
         timeout, reset, st.log_len, own_lterm, *crash)

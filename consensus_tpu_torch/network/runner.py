@@ -32,7 +32,7 @@ from ..core.config import Config
 from ..engines import (dpos, hotstuff, paxos, pbft, pbft_bcast, pbft_sweep,
                        raft, raft_sparse)
 from ..engines.raft import RAFT_LATENCY, RAFT_TELEMETRY
-from ..ops import adversary
+from ..ops import adversary, aggregate
 from ..ops.flight import BUCKET_LO, N_BUCKETS
 
 # The kernel wrappers the runs launch, one for each source that
@@ -53,9 +53,14 @@ _WRAPPER_MODULES = {"random_u32": rng, "delivery_edges": adversary,
                     "hotstuff_vote": hotstuff, "hotstuff_learn": hotstuff,
                     "hotstuff_extract": hotstuff,
                     "crash_transition": adversary, "freeze_down": adversary,
-                    "hotstuff_prologue": hotstuff}
+                    "hotstuff_prologue": hotstuff, "agg_round": aggregate}
 KERNELS = tuple((_WRAPPER_MODULES.get(name, raft_sparse), name)
                 for name in _build.SOURCES)
+# The wrappers with SPEC §9 SWITCH instances, whose launches of those are
+# counted apart on the wrapper's ``switch_launches`` (and in ``launches``).
+SWITCH_KERNELS = tuple((_WRAPPER_MODULES[name], name) for name in (
+    "delivery_edges", "dense_elect", "paxos_promise", "paxos_accept_learn",
+    "hotstuff_vote"))
 
 
 class Engine(NamedTuple):
@@ -122,9 +127,23 @@ def launch_counts() -> dict[str, int]:
     return {name: getattr(mod, name).launches for mod, name in KERNELS}
 
 
-def _add_launches(counts: dict[str, int]) -> None:
-    for mod, name in KERNELS:
-        getattr(mod, name).launches += counts[name]
+def switch_launch_counts() -> dict[str, int]:
+    """Each SWITCH instance's launch count, by wrapper name."""
+    return {name: getattr(mod, name).switch_launches
+            for mod, name in SWITCH_KERNELS}
+
+
+def _all_counts() -> dict[tuple, int]:
+    return {**{(n, "launches"): v for n, v in launch_counts().items()},
+            **{(n, "switch_launches"): v
+               for n, v in switch_launch_counts().items()}}
+
+
+def _add_launches(counts: dict[tuple, int]) -> None:
+    wrappers = {name: mod for mod, name in KERNELS}
+    for (name, attr), n in counts.items():
+        fn = getattr(wrappers[name], name)
+        setattr(fn, attr, getattr(fn, attr) + n)
 
 
 class RunOutput(NamedTuple):
@@ -240,7 +259,8 @@ class _Captured(NamedTuple):
     graph: torch.cuda.CUDAGraph
     lanes: dict[str, torch.Tensor]  # the graph's static inputs
     out: RunOutput               # the graph's static outputs
-    launches: dict[str, int]     # kernel launches of one replay
+    launches: dict[tuple, int]   # launches of one replay, by (wrapper,
+    #                              counter)
 
 
 # The most recently captured runs, by :func:`_graph_key`, oldest first.
@@ -280,11 +300,11 @@ def _capture(cfg: Config, dev: torch.device, telemetry: bool,
     lanes = device_lanes(cfg, rungs, dev)
     _rounds(cfg, lanes, 1, telemetry, rungs)
     torch.cuda.synchronize(dev)
-    before = launch_counts()
+    before = _all_counts()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         out = _rounds(cfg, lanes, cfg.n_rounds, telemetry, rungs)
-    recorded = {k: v - before[k] for k, v in launch_counts().items()}
+    recorded = {k: v - before[k] for k, v in _all_counts().items()}
     _add_launches({k: -v for k, v in recorded.items()})
     captures += 1
     return _Captured(graph, lanes, out, recorded)

@@ -44,6 +44,8 @@ class RunResult:
     # windows and latency buckets) of a run with telemetry=True; for dpos
     # "lib", the last-irreversible index of each chain ([B, V] int64).
     extras: dict = dataclasses.field(default_factory=dict)
+    # The timed run's extract dict (numpy), which ``payload`` packs.
+    extract: dict = dataclasses.field(default_factory=dict)
 
     @property
     def steps_per_sec(self) -> float:
@@ -120,4 +122,5 @@ def run(cfg: Config, device=None, telemetry: bool = False) -> RunResult:
                      digest=serialize.digest(payload), wall_s=wall,
                      node_round_steps=cfg.n_sweeps * cfg.n_nodes
                      * cfg.n_rounds,
-                     counts=counts, rec_a=rec_a, rec_b=rec_b, extras=extras)
+                     counts=counts, rec_a=rec_a, rec_b=rec_b, extras=extras,
+                     extract=host)

@@ -50,9 +50,9 @@ def bitcast_i32(x: torch.Tensor) -> torch.Tensor:
 # (consensus_tpu/ops/adversary.py:161-163 SAFETY_TELEMETRY). The crash tail
 # counts where crash_prob > 0 (kernel KAH adds it) and is 0 on the flat
 # path; the safety tail counts under equivocating byzantine nodes (dense
-# PBFT and HotStuff, :func:`safety_counts_plain`); the port rejects the
-# switch gates that make the aggregation tail count, so it stays 0, as the
-# JAX package's agg_counts() gives it on the flat path.
+# PBFT and HotStuff, :func:`safety_counts_plain`); the aggregation tail
+# counts on a §9 switch round (kernel KAL adds it, ``ops/aggregate.py``)
+# and is 0 on the flat path, as the JAX package's agg_counts() gives it.
 CRASH_TELEMETRY = ("crashes", "recoveries", "nodes_down")
 AGG_TELEMETRY = ("agg_down_rounds", "stale_serves", "poisoned_serves")
 SAFETY_TELEMETRY = ("forked_qc", "conflict_commits", "safety_violations")
@@ -177,7 +177,7 @@ def open_drop_plain(useed, r: int, i, j, drop_cut: int,
 def delivery_edges_plain(seed, r: int, ids, n: int, drop_cut: int,
                          part_cut: int, ids_are_src: bool,
                          max_delay: int = 0, flags=None,
-                         attack=None) -> torch.Tensor:
+                         attack=None, switch=None) -> torch.Tensor:
     """Plain version of KB: the SPEC §2 delivery mask between the [B, A]
     ids and all ``n`` node ids: [B, A, n] (ids send) when ``ids_are_src``,
     else [B, n, A] (ids receive), with the §A.2 retransmissions of the
@@ -189,7 +189,33 @@ def delivery_edges_plain(seed, r: int, ids, n: int, drop_cut: int,
     KE and a receiver id, an edge is not delivered where the lane's word
     is set and its receiver is ``dst``, or any receiver when ``dst`` is -1
     (the sticky target's inbound edges; every P2 edge under an elect jam,
-    ``raft_sparse.py:197-199, 276, 338-339``)."""
+    ``raft_sparse.py:197-199, 276, 338-339``).
+
+    With ``switch`` = (up, tab), kernel KAL's phase-0 uplink row ([B, n]
+    bool, a down sender already cut) and [B, K] aggregator table (SPEC §9,
+    ``ops/aggregate.py``), the mask is the responses' (ids receive only):
+    node j reaches ids[k] when j != ids[k], j's uplink is open and its
+    aggregator's downlink to ids[k] is open (``raft_sparse.py:301-334``:
+    the two-hop ``up0[j] & down0[a(j), c]`` that the JAX round sums per
+    candidate), with the crash and attack cuts above at the receiver."""
+    if switch is not None:
+        from .aggregate import resp_plain
+        if ids_are_src:
+            raise ValueError("the switch carries responses: ids receive")
+        up, tab = switch
+        out = resp_plain(seed, r, up, tab, n, 0, ids, drop_cut, part_cut,
+                         max_delay)
+        nodes = torch.arange(n, device=ids.device)[None, :, None]
+        out = out & (nodes != ids[:, None, :])
+        if flags is not None:
+            upc = (flags & CRASH_DOWN) == 0
+            out = out & upc.gather(1, ids.clamp(0, n - 1).to(torch.int64)
+                                   )[:, None, :]
+        if attack is not None:
+            word, dst_id = attack
+            hit = (ids == dst_id)[:, None, :] if dst_id >= 0 else True
+            out = out & ~((word != 0)[:, None, None] & hit)
+        return out
     nodes = torch.arange(n, dtype=torch.int32, device=ids.device)[None, :]
     if ids_are_src:
         src, dst = ids[:, :, None], nodes[:, None, :]
@@ -224,14 +250,18 @@ def delivery_edges_plain(seed, r: int, ids, n: int, drop_cut: int,
 
 def delivery_edges(seed, r: int, ids, n: int, drop_cut: int, part_cut: int,
                    ids_are_src: bool, max_delay: int = 0, flags=None,
-                   attack=None) -> torch.Tensor:
+                   attack=None, switch=None) -> torch.Tensor:
     """Kernel KB: same arguments and result as :func:`delivery_edges_plain`,
     which it runs for CPU tensors; for CUDA tensors it launches
     ``csrc/delivery_edges.cu`` (its CRASH instance with ``flags``, its
-    ATTACK instance with ``attack``)."""
+    ATTACK instance with ``attack``, its SWITCH instance with
+    ``switch``)."""
     if ids.device.type == "cpu":
         return delivery_edges_plain(seed, r, ids, n, drop_cut, part_cut,
-                                    ids_are_src, max_delay, flags, attack)
+                                    ids_are_src, max_delay, flags, attack,
+                                    switch)
+    if switch is not None and ids_are_src:
+        raise ValueError("the switch carries responses: ids receive")
     from .. import _build
     B, A = ids.shape
     _build.check(ids, torch.int32, ids.device)
@@ -240,6 +270,14 @@ def delivery_edges(seed, r: int, ids, n: int, drop_cut: int, part_cut: int,
         _build.check(flags, torch.uint8, ids.device, (B, n))
     if attack is not None:
         _build.check(attack[0], torch.int32, ids.device, (B,))
+    if switch is not None:
+        _build.check(switch[0], torch.bool, ids.device, (B, n))
+        _build.check(switch[1], torch.int32, ids.device)
+        if switch[1].dim() != 2 or switch[1].shape[0] != B \
+                or switch[0].stride(1) != 1 \
+                or not 1 <= switch[1].shape[1] <= n:
+            raise ValueError("switch = (up [B, n] with adjacent nodes, "
+                             "tab [B, K]), 1 <= K <= n")
     shape = (B, A, n) if ids_are_src else (B, n, A)
     out = torch.empty(shape, dtype=torch.bool, device=ids.device)
     _build.launch("delivery_edges", seed.data_ptr(), int(r) & 0xFFFFFFFF,
@@ -247,12 +285,18 @@ def delivery_edges(seed, r: int, ids, n: int, drop_cut: int, part_cut: int,
                   int(part_cut), int(ids_are_src), int(max_delay),
                   None if flags is None else flags.data_ptr(),
                   None if attack is None else attack[0].data_ptr(),
-                  -1 if attack is None else int(attack[1]))
+                  -1 if attack is None else int(attack[1]),
+                  *((None, None, 0, 0) if switch is None else (
+                      switch[0].data_ptr(), switch[1].data_ptr(),
+                      switch[1].shape[1], switch[0].stride(0))))
     delivery_edges.launches += 1
+    delivery_edges.switch_launches += switch is not None
     return out
 
 
 delivery_edges.launches = 0
+# Launches of its SWITCH instance (SPEC §9), also counted in ``launches``.
+delivery_edges.switch_launches = 0
 
 
 # The Raft engines' leader role (engines/raft.py ROLE_L), which the SPEC

@@ -34,7 +34,6 @@ from consensus_tpu_torch.network import runner, simulator  # noqa: E402
 OK = dict(protocol="raft", n_nodes=9, n_rounds=4, max_active=2)
 
 OFF_DEFAULT = {
-    "net_model": "switch", "n_aggregators": 2,
     "scan_chunk": 4, "sweep_chunk": 1,
     "mesh_shape": (2,),
 }
@@ -182,13 +181,16 @@ def test_unsupported_knob_raises_beside_a_delay(knob):
 
 HOTSTUFF_OK = dict(protocol="hotstuff", f=2, n_nodes=7, n_rounds=4,
                    view_timeout=4)
-# Each gate of the JAX HotStuff engine (consensus_tpu/engines/hotstuff.py
-# lines 339-392) that the port does not run yet; the SPEC §A.2 delay (lines
-# 243-256, 303-309), the SPEC §6c crash, the SPEC §B skew (lines 204-230)
-# and the SPEC §7c byzantine nodes (lines 237-238, 285-453) it runs.
+# Each gate of the JAX HotStuff engine that the port runs, the SPEC §9
+# switch (consensus_tpu/engines/hotstuff.py lines 339-392), at a setting
+# the JAX package refuses (K > n_nodes), which raises with its message;
+# the SPEC §A.2 delay (lines 243-256, 303-309), the SPEC §6c crash, the
+# SPEC §B skew (lines 204-230) and the SPEC §7c byzantine nodes (lines
+# 237-238, 285-453) it runs too.
 HOTSTUFF_GATES = {
-    "switch": dict(net_model="switch", n_aggregators=2),
+    "switch": dict(net_model="switch", n_aggregators=8),
 }
+HOTSTUFF_GATE_MESSAGE = "requires 1 <= n_aggregators <= n_nodes"
 HOTSTUFF_RUNS = {
     "crash": dict(crash_prob=0.1), "recover": dict(recover_prob=0.3),
     "max-crashed": dict(max_crashed=2),
@@ -207,14 +209,14 @@ def test_hotstuff_is_a_protocol_of_the_port():
 
 @pytest.mark.parametrize("gate", list(HOTSTUFF_GATES))
 def test_hotstuff_gates_raise(gate):
-    with pytest.raises(ValueError, match="not supported by the port"):
+    with pytest.raises(ValueError, match=HOTSTUFF_GATE_MESSAGE):
         Config(**{**HOTSTUFF_OK, **HOTSTUFF_GATES[gate]})
 
 
 @pytest.mark.parametrize("gate", list(HOTSTUFF_GATES))
 def test_hotstuff_gates_raise_beside_a_delay(gate):
     Config(**{**HOTSTUFF_OK, "max_delay_rounds": 8})
-    with pytest.raises(ValueError, match="not supported by the port"):
+    with pytest.raises(ValueError, match=HOTSTUFF_GATE_MESSAGE):
         Config(**{**HOTSTUFF_OK, "max_delay_rounds": 8,
                   **HOTSTUFF_GATES[gate]})
 
@@ -242,7 +244,7 @@ def test_hotstuff_takes_crash_and_desync_beside_a_delay(gate):
 def test_hotstuff_gates_raise_beside_a_crash_or_a_desync(gate, beside):
     on = HOTSTUFF_RUNS[beside]
     Config(**{**HOTSTUFF_OK, **on})
-    with pytest.raises(ValueError, match="not supported by the port"):
+    with pytest.raises(ValueError, match=HOTSTUFF_GATE_MESSAGE):
         Config(**{**HOTSTUFF_OK, **on, **HOTSTUFF_GATES[gate]})
 
 
@@ -430,7 +432,7 @@ def test_unsupported_knob_raises_beside_byzantine_nodes(engine, knob):
 
 def test_knobs_of_other_protocols_are_not_fields():
     with pytest.raises(TypeError):
-        Config(**OK, agg_fail_rate=0.1)
+        Config(**OK, engine="cpu")
 
 
 # --- SPEC §B view desync -----------------------------------------------------
@@ -723,3 +725,144 @@ def test_gate_rejections_match_jax(case, beside):
         Config(**kw)
     assert str(got.value) == str(want.value)
 
+
+
+# --- SPEC §9 switch and §9b --------------------------------------------------
+
+SWITCH = dict(net_model="switch", n_aggregators=3, agg_fail_rate=0.1,
+              agg_stale_rate=0.2, agg_max_stale=4)
+# The engines that run the switch, each at a small shape.
+SWITCH_ENGINES = {
+    "raft-capped": OK, "raft-dense": {**OK, "max_active": 0},
+    "paxos": PAXOS_OK, "hotstuff": HOTSTUFF_OK,
+}
+# Beside each gate the port composes the switch with.
+SWITCH_BESIDE = {"none": {}, "delay": dict(max_delay_rounds=3),
+                 "crash": dict(crash_prob=0.1, recover_prob=0.3),
+                 "partition": dict(partition_rate=0.2)}
+# SPEC §9b on HotStuff: each axis alone and both.
+SWITCH_9B = {
+    "poison": dict(agg_byz=1, agg_poison_rate=0.5),
+    "lies": dict(n_byzantine=2, byz_uplink_rate=0.4),
+    "both": dict(agg_byz=2, agg_poison_rate=0.9, n_byzantine=2,
+                 byz_mode="equivocate", byz_uplink_rate=0.4),
+}
+# Every SPEC §9/§9b check of the JAX package
+# (consensus_tpu/core/config.py:254-315), on a config of each engine:
+# (settings, a piece of the JAX package's message).
+SWITCH_REJECTIONS = {
+    "unknown-model": (dict(net_model="mesh"), "unknown net_model"),
+    "k-zero": (dict(net_model="switch", n_aggregators=0),
+               "requires 1 <= n_aggregators"),
+    "k-above-n": (dict(net_model="switch", n_aggregators=100),
+                  "requires 1 <= n_aggregators"),
+    "agg-byz-above-k": (dict(SWITCH, agg_byz=4), "agg_byz must be in"),
+    "agg-byz-negative": (dict(SWITCH, agg_byz=-1), "agg_byz must be in"),
+    "poison-without-byz": (dict(SWITCH, agg_poison_rate=0.3),
+                           "requires agg_byz > 0"),
+    "k-on-flat": (dict(n_aggregators=2), "require net_model='switch'"),
+    "fail-on-flat": (dict(agg_fail_rate=0.1), "require net_model='switch'"),
+    "stale-on-flat": (dict(agg_stale_rate=0.1),
+                      "require net_model='switch'"),
+    "depth-on-flat": (dict(agg_max_stale=2), "require net_model='switch'"),
+    "agg-byz-on-flat": (dict(agg_byz=1), "require net_model='switch'"),
+    "poison-on-flat": (dict(agg_poison_rate=0.1),
+                       "require net_model='switch'"),
+    "lies-on-flat": (dict(byz_uplink_rate=0.1),
+                     "require net_model='switch'"),
+    "depth-zero": (dict(SWITCH, agg_max_stale=0), "agg_max_stale must be"),
+    "depth-nine": (dict(SWITCH, agg_max_stale=9), "agg_max_stale must be"),
+}
+
+
+def _jax_message(kw):
+    from consensus_tpu import Config as JConfig
+    with pytest.raises(ValueError) as err:
+        JConfig(**kw)
+    return str(err.value)
+
+
+@pytest.mark.parametrize("beside", list(SWITCH_BESIDE))
+@pytest.mark.parametrize("engine", list(SWITCH_ENGINES))
+def test_switch_is_accepted_with_the_jax_gates(engine, beside):
+    from consensus_tpu import Config as JConfig
+    kw = {**SWITCH_ENGINES[engine], **SWITCH_BESIDE[beside], **SWITCH}
+    cfg, jcfg = Config(**kw), JConfig(**kw)
+    for gate in ("switch_on", "agg_fail_on", "agg_stale_on",
+                 "agg_poison_on", "uplink_lies_on", "agg_fail_cutoff",
+                 "agg_stale_cutoff", "agg_poison_cutoff",
+                 "byz_uplink_cutoff"):
+        assert getattr(cfg, gate) == getattr(jcfg, gate), gate
+    assert cfg.switch_on
+
+
+@pytest.mark.parametrize("case", list(SWITCH_9B))
+def test_switch_9b_is_accepted_on_hotstuff(case):
+    from consensus_tpu import Config as JConfig
+    kw = {**HOTSTUFF_OK, **SWITCH, **SWITCH_9B[case]}
+    cfg, jcfg = Config(**kw), JConfig(**kw)
+    assert (cfg.agg_poison_on, cfg.uplink_lies_on) == \
+        (jcfg.agg_poison_on, jcfg.uplink_lies_on)
+    assert (cfg.agg_poison_cutoff, cfg.byz_uplink_cutoff) == \
+        (jcfg.agg_poison_cutoff, jcfg.byz_uplink_cutoff)
+
+
+@pytest.mark.parametrize("case", list(SWITCH_REJECTIONS))
+@pytest.mark.parametrize("engine", list(SWITCH_ENGINES))
+def test_switch_rejections_match_jax(engine, case):
+    kw, piece = SWITCH_REJECTIONS[case]
+    kw = {**SWITCH_ENGINES[engine], **kw}
+    msg = _jax_message(kw)
+    assert piece in msg
+    with pytest.raises(ValueError) as err:
+        Config(**kw)
+    assert str(err.value) == msg
+
+
+@pytest.mark.parametrize("case", list(SWITCH_9B))
+@pytest.mark.parametrize("engine", ["raft-capped", "raft-dense", "paxos"])
+def test_switch_9b_off_the_bft_engines_raises_with_the_jax_message(engine,
+                                                                   case):
+    kw = {**SWITCH_ENGINES[engine], **SWITCH, **SWITCH_9B[case]}
+    if engine == "paxos":
+        kw.pop("n_byzantine", None), kw.pop("byz_mode", None)
+    msg = _jax_message(kw)
+    with pytest.raises(ValueError) as err:
+        Config(**kw)
+    assert str(err.value) == msg
+
+
+def test_uplink_lies_without_byzantine_nodes_raise_with_the_jax_message():
+    kw = {**HOTSTUFF_OK, **SWITCH, "byz_uplink_rate": 0.3}
+    msg = _jax_message(kw)
+    assert "requires n_byzantine > 0" in msg
+    with pytest.raises(ValueError) as err:
+        Config(**kw)
+    assert str(err.value) == msg
+
+
+def test_switch_on_dpos_raises_with_the_jax_message():
+    kw = {**DPOS_OK, **SWITCH}
+    msg = _jax_message(kw)
+    with pytest.raises(ValueError) as err:
+        Config(**kw)
+    assert str(err.value) == msg
+
+
+@pytest.mark.parametrize("kw", [{}, SWITCH_9B["poison"], SWITCH_9B["both"]],
+                         ids=["switch", "poison", "both"])
+@pytest.mark.parametrize("model", ["edge", "bcast"])
+def test_switch_on_pbft_still_raises(model, kw):
+    """The switch on pbft (both fault models, and so both ladders) waits
+    for its value-matched tallies; the JAX package accepts it."""
+    from consensus_tpu import Config as JConfig
+    cfg = {**PBFT_OK, "fault_model": model, **SWITCH, **kw}
+    JConfig(**cfg)
+    with pytest.raises(ValueError, match="net_model='switch' on pbft"):
+        Config(**cfg)
+
+
+@pytest.mark.parametrize("k", [1, 5, 9])
+def test_switch_takes_any_k_from_one_to_n(k):
+    for base in (OK, {**OK, "max_active": 0}):
+        assert Config(**{**base, **SWITCH, "n_aggregators": k}).switch_on
