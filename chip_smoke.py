@@ -1491,13 +1491,15 @@ def check_dense_kernels(dev, gen) -> list[dict]:
 PBFT = ("pbft_view_preprepare", "pbft_tally", "pbft_decide")
 # The kernels that no flat run of the capped engine launches (KAH runs only
 # under SPEC §6c, KAI only in a PBFT round under it, KAJ only in a HotStuff
-# round under §6c or §B).
+# round under §6c or §B, KAL only under the §9 switch, KAM and KAN only in
+# a PBFT round under it).
 NOT_CAPPED = DENSE + ("dense_telemetry",) + PBFT + (
     "bcast_view_preprepare", "bcast_tally", "bcast_decide", "dpos_schedule",
     "dpos_round", "paxos_promise", "paxos_accept_learn", "pbft_telemetry",
     "dpos_telemetry", "paxos_telemetry", "hotstuff_propose", "hotstuff_vote",
     "hotstuff_learn", "hotstuff_extract", "crash_transition", "freeze_down",
-    "hotstuff_prologue", "bcast_equiv_support", "agg_round")
+    "hotstuff_prologue", "bcast_equiv_support", "agg_round",
+    "switch_combine", "switch_receive")
 PBFT_REPLACES = {
     "pbft_view_preprepare": "consensus_tpu/engines/pbft.py:209 pbft_round "
                             "P0-P3, consensus_tpu/engines/pbft.py:72 "
@@ -7088,23 +7090,24 @@ def loop_draws_at(useed, q, i, j, need, drop: int, delay: int) -> int:
     return draws
 
 
-def agg_round_ops(cfg, seed, r: int, flags=None) -> float:
+def agg_round_ops(cfg, seed, r: int, flags=None, n_real=None) -> float:
     """32-bit operations of the draws KAL's function needs on these inputs:
     per (lane, aggregator) its fail draw, its stale draw and, where that
-    fires, its depth, its poison draw of each phase (the last agg_byz
-    ones), its side at r, and, with partitions, the partition's activity
-    at its round q and the side of N + a there where that is active; per
-    (lane, phase, node up at the round's end) the uplink's mixer draw with
+    fires, its depth, its poison draw of each poisonable phase (the last
+    agg_byz ones), its side at r, and, with partitions, the partition's
+    activity at its round q and the side of N + a there where that is
+    active; per (lane, uplink row, node up at the round's end) the
+    uplink's mixer draw (the phase's vertex, or the §6b key (i, i)) with
     the §A.2 retransmissions its drop needs (:func:`loop_draws_at`); per
     (lane, node) its own side at q where the partition is active then and
     an uplink is open. A node's aggregator state is drawn once an
-    aggregator, not once a member."""
+    aggregator, not once a member. ``n_real`` (PBFT) is each lane's vertex
+    base and segmentation."""
     from consensus_tpu_torch.core import rng
     from consensus_tpu_torch.ops import aggregate
     from consensus_tpu_torch.ops.adversary import CRASH_DOWN
     k, n = cfg.n_aggregators, cfg.n_nodes
     b, dev = seed.shape[0], seed.device
-    p = aggregate.n_phases(cfg)
     ua = torch.arange(k, dtype=torch.int64, device=dev)
     st = aggregate.agg_draws_plain(cfg, seed, r)
     threefry = b * k * (cfg.agg_fail_on + cfg.agg_stale_on)
@@ -7112,9 +7115,10 @@ def agg_round_ops(cfg, seed, r: int, flags=None) -> float:
         threefry += int((rng.random_u32_plain(seed, rng.STREAM_AGG, r, 1, ua)
                          < cfg.agg_stale_cutoff).sum())
     if cfg.agg_poison_on:
-        threefry += b * p * cfg.agg_byz
-    sids = aggregate.agg_ids(n, k, dev)
-    q = st.q[:, sids]                                         # [B, N]
+        threefry += b * aggregate.poison_phases(cfg) * cfg.agg_byz
+    sids = aggregate.lane_ids(n, k, n_real, dev)
+    base = aggregate.vertex_base(cfg, seed, n_real)           # [B, 1]
+    q = aggregate.take_seg_plain(st.q, sids, k)               # [B, N]
     need = torch.ones((b, n), dtype=torch.bool, device=dev)
     if flags is not None:
         need = (flags & CRASH_DOWN) == 0
@@ -7122,17 +7126,17 @@ def agg_round_ops(cfg, seed, r: int, flags=None) -> float:
     ui = torch.arange(n, dtype=torch.int64, device=dev)
     mixer = 0
     opened = torch.zeros_like(need)
-    for ph in range(p):
+    for ph in range(aggregate.n_phases(cfg)):
+        dst = ui if aggregate.bcast_uplink(cfg) else base + ph * k + sids
         mixer += int(need.sum()) + loop_draws_at(
-            useed, q, ui, n + ph * k + sids, need, cfg.drop_cutoff,
-            cfg.max_delay_rounds)
-        opened |= need & aggregate._open_edge_plain(cfg, seed, q, ui,
-                                                    n + ph * k + sids)
+            useed, q, ui, dst, need, cfg.drop_cutoff, cfg.max_delay_rounds)
+        opened |= need & aggregate._open_edge_plain(cfg, seed, q, ui, dst)
     if cfg.partition_cutoff:
         active = rng.random_u32_plain(seed, rng.STREAM_PARTITION, st.q, 0,
                                       0) < cfg.partition_cutoff  # [B, K]
         threefry += 2 * b * k + int(active.sum()) \
-            + int((opened & active[:, sids]).sum())
+            + int((opened & aggregate.take_seg_plain(active, sids,
+                                                     k)).sum())
     return THREEFRY_OPS * threefry + EDGE_OPS * mixer
 
 
@@ -7354,6 +7358,480 @@ def check_switch_runs(card: str, smi: str) -> tuple[dict, dict]:
     return own
 
 
+# --- phase 22: SPEC §9 switch tallies and §9b on PBFT ------------------------
+
+PBFT_SWITCH_OWN = ("switch_combine", "switch_receive")
+PBFT_SWITCH_REPLACES = {
+    "switch_combine": "consensus_tpu/ops/aggregate.py:375 value_votes "
+                      "(combine :415-435), :472 min_id_votes (:472-486), "
+                      ":216-255 seg_sum/seg_max/seg_min, :154 uplink_lies; "
+                      "engines/pbft_sweep.py:61 _padded_switch_phases",
+    "switch_receive": "consensus_tpu/ops/aggregate.py:326 downlink, :348 "
+                      "downlink_self, :375 value_votes (receivers :436-469), "
+                      ":472 min_id_votes (:487-504); engines/pbft.py:264-366, "
+                      "pbft_bcast.py:553-675"}
+# pbft-100k-bcast's §9b run: n_byzantine = f equivocating, two of the K = 8
+# aggregators byzantine, forged combines at 5%, lies at 10%. No stance grid
+# is drawn under the switch, so all 8 sweeps run (phase 19 cut its
+# equivocating run to one).
+PBFT_9B = dict(n_byzantine=33_333, byz_mode="equivocate", agg_byz=2,
+               agg_poison_rate=0.05, byz_uplink_rate=0.1)
+# The base of the JAX package's pbft-cert-poison search space
+# (tools/advsearch/search.py:217-221 with its _ADV, :117), at seeds 0-2.
+CERT_POISON = dict(protocol="pbft", f=2, n_nodes=7, log_capacity=96,
+                   net_model="switch", n_aggregators=2, agg_byz=1,
+                   n_byzantine=2, byz_mode="equivocate",
+                   agg_poison_rate=0.3, byz_uplink_rate=0.2, drop_rate=0.1,
+                   n_rounds=96, telemetry_window=4)
+CERT_SEEDS = (0, 1, 2)
+PBFT_SWITCH_CONFIGS = {
+    "pbft-f128/switch": lambda **kw: pbft_config(
+        128, **SWITCH_KNOBS, telemetry_window=WINDOW, **kw),
+    "pbft-100k-bcast/switch": lambda **kw: bcast_config(
+        **SWITCH_KNOBS, telemetry_window=WINDOW, **kw),
+    "pbft-100k-bcast/9b": lambda **kw: bcast_config(
+        **SWITCH_KNOBS, **PBFT_9B, telemetry_window=WINDOW, **kw),
+    **{f"pbft-cert-poison/{s}": (lambda s: lambda **kw: protocol_config(
+        CERT_POISON, seed=s, **kw))(s) for s in CERT_SEEDS}}
+# Phase 22's runs, each with telemetry: (digest, the nonzero counter
+# totals, flight_digest, the C++ oracle's digest or None where it was not
+# run). The JAX package made each on the CPU (sweep_chunk 1 on the 100k
+# runs, 1.9-2.1 min each; 4-8 s the others), the oracle the small ones'
+# digests (engine="cpu", telemetry off); they agree:
+#
+#   JAX_PLATFORMS=cpu python3 - <<'EOF'
+#   import dataclasses, chip_smoke
+#   from consensus_tpu import Config
+#   from consensus_tpu.network import simulator
+#   for key in chip_smoke.PBFT_SWITCH_RUNS:
+#       c = chip_smoke.PBFT_SWITCH_CONFIGS[key]()
+#       cfg = Config(**{k: getattr(c, k) for k in c.__dataclass_fields__})
+#       res = simulator.run(dataclasses.replace(cfg, sweep_chunk=int(
+#           cfg.n_nodes >= 100_000)), warmup=False, telemetry=True)
+#       print(key, res.digest, {k: v for k, v in
+#             res.extras["telemetry"]["totals"].items() if v},
+#             chip_smoke.flight_digest(res.extras["flight"]))
+#       print(simulator.run(dataclasses.replace(
+#           cfg, engine="cpu", telemetry_window=0), warmup=False).digest)
+#   EOF
+#
+# At the calm flagship knobs pbft-f128 and pbft-100k-bcast decide what
+# their flat runs decide (PBFT_DIGESTS[128], BCAST_DIGEST); their counters
+# and recorders are the switch's own.
+PBFT_SWITCH_RUNS = {
+    "pbft-f128/switch": (
+        PBFT_DIGESTS[128],
+        {"prepare_quorums": 12187, "commit_quorums": 12185,
+         "commit_missed": 2, "commits_adopted": 135, "agg_down_rounds": 1,
+         "stale_serves": 1},
+        "6e58768a665e4c00fa6b8463c51aa7606e2d078546abb6b83f9a7c7d57c3255a",
+        PBFT_DIGESTS[128]),
+    "pbft-100k-bcast/switch": (
+        BCAST_DIGEST,
+        {"prepare_quorums": 12800000, "prepare_missed": 7425,
+         "commit_quorums": 12785337, "commit_missed": 7240,
+         "commits_adopted": 14663, "view_changes": 4000000,
+         "agg_down_rounds": 42, "stale_serves": 38},
+        "f6db1c4a9c07d4e5a6208d5de161dfe4faae707fd5dbd7aa90a096459cbd3e0e",
+        None),
+    "pbft-100k-bcast/9b": (
+        "6704c6765744b76d2338668418060a95ff225ae2201571074af1c4b7351bb691",
+        {"prepare_quorums": 12797011, "prepare_missed": 93439040,
+         "commit_quorums": 11776719, "commit_missed": 157061724,
+         "commits_adopted": 1023281, "view_changes": 4800000,
+         "agg_down_rounds": 42, "stale_serves": 38,
+         "poisoned_serves": 109},
+        "4c705e629f1a19aac248f70ba1b68b5814b92bd96676bb7b3ad0009d1a0602f0",
+        None),
+    "pbft-cert-poison/0": (
+        "5385a8a1cdce15a79fabac01e93890719ad72a227b825077a98485b0599223bb",
+        {"prepare_quorums": 647, "prepare_missed": 491,
+         "commit_quorums": 418, "commit_missed": 376,
+         "commits_adopted": 254, "poisoned_serves": 56},
+        "7db4f26f7f514038c4ca248745a45e706d465ac25631bdfd4e095a27ba7e836a",
+        "5385a8a1cdce15a79fabac01e93890719ad72a227b825077a98485b0599223bb"),
+    "pbft-cert-poison/1": (
+        "b6971c0bf7c228647bb39bf20cd7ebcd3a5e1b14562eeab5254bd285e8d2be51",
+        {"prepare_quorums": 655, "prepare_missed": 498,
+         "commit_quorums": 426, "commit_missed": 450,
+         "commits_adopted": 218, "poisoned_serves": 55},
+        "835e532e18bdc7e1f2a7d7a8d7ea0be513a6a5dec430baecdd68068afcd23fcf",
+        "b6971c0bf7c228647bb39bf20cd7ebcd3a5e1b14562eeab5254bd285e8d2be51"),
+    "pbft-cert-poison/2": (
+        "88ec405ca7a1bdbf55bd89e7859201db570a90d9f7a9b53c63233938c453d862",
+        {"prepare_quorums": 650, "prepare_missed": 690,
+         "commit_quorums": 460, "commit_missed": 480,
+         "commits_adopted": 205, "poisoned_serves": 62},
+        "5c364e1683b03a02963c9e1cbb089b73c8e6650e330d58e5e45a9d45e9bc6b51",
+        "88ec405ca7a1bdbf55bd89e7859201db570a90d9f7a9b53c63233938c453d862"),
+}
+# The two ladders under the switch, made by the JAX package on the CPU
+# (pbft_sweep.pbft_fsweep_run, 39 s and 3 min): the dense fs = 1..128
+# ladder at K = 4 (K <= 3 min(fs) + 1) on BASELINE config 3's knobs, and
+# the full-width bcast ladder (N_pad = 100 000) at K = 8, whose base
+# config is its first rung's (K <= n_nodes). At these calm knobs each
+# decides what its flat ladder decides (LADDER_DIGEST, WIDE_DIGEST).
+PBFT_SWITCH_LADDERS = {
+    "ladder/switch": (lambda: pbft_config(1, **{**SWITCH_KNOBS,
+                                                "n_aggregators": 4}),
+                      LADDER, LADDER_DIGEST),
+    "bcast-ladder/switch": (lambda: wide_base(
+        f=WIDE_RUNGS[0], n_nodes=3 * WIDE_RUNGS[0] + 1, **SWITCH_KNOBS),
+        WIDE_RUNGS, WIDE_DIGEST)}
+PBFT_SWITCH_ROUNDS = (3, 20)
+# The run whose round 20 times KAM and KAN and whose run gives their
+# launches (the kernels line), and the flat run timed beside it.
+PBFT_SWITCH_MAIN = "pbft-100k-bcast/switch"
+# The flat kernels a switch round does without.
+PBFT_FLAT_ONLY = ("pbft_tally", "pbft_decide", "bcast_tally",
+                  "bcast_decide", "bcast_equiv_support")
+
+
+def pbft_switch_path(cfg, telemetry: bool = True) -> tuple[str, ...]:
+    """The kernels a PBFT switch run of ``cfg`` launches: KL and KQ
+    (dense) or KT (§6b), KAL, KAM, KAN, with telemetry KAA, and KAH and
+    KAI with a crash."""
+    dense = cfg.fault_model != "bcast"
+    path = (("delivery", "pbft_view_preprepare") if dense
+            else ("bcast_view_preprepare",)) + ("agg_round",) \
+        + PBFT_SWITCH_OWN + (("pbft_telemetry",) if telemetry else ())
+    if cfg.crash_on:
+        path += ("crash_transition", "freeze_down")
+    return path
+
+
+def capture_ladder_calls(cfg_pad, rungs, r: int, device="cuda") -> dict:
+    """{wrapper: [arguments]}: every kernel call of round ``r`` of the
+    ladder ``rungs`` on its padded config's eager run."""
+    from consensus_tpu_torch.network import runner
+    eng = runner.engine(cfg_pad)
+    lanes = runner.device_lanes(cfg_pad, rungs, device)
+    seeds = lanes.pop("seed")
+    statics = eng.statics(cfg_pad, rungs) if eng.statics else {}
+    st = runner.advance(cfg_pad, eng.init(cfg_pad, seeds), 0, r,
+                        lanes=lanes, rungs=rungs)
+    got: dict = {}
+    with recording_everywhere(got):
+        eng.round(cfg_pad, st, r, **lanes, **statics)
+    return got
+
+
+def pbft_switch_built_cases() -> list:
+    """Small runs whose round 20 holds the rare states of PBFT's switch
+    tallies: K = 1 and K = N, an empty trailing aggregator (N = 7, K = 6:
+    segments of 2), one liar among honest senders beside an all-liar
+    segment (N = 10, K = 4: segment 2 is {6, 7, 8} with byzantine 7 and 8,
+    segment 3 is {9}; lies at rate 1), and poisoned own segments (every
+    aggregator byzantine, poison rate 1, beside equivocation and §6c)."""
+    from consensus_tpu_torch.core.config import Config
+    base = dict(protocol="pbft", f=3, n_nodes=10, n_rounds=24, n_sweeps=4,
+                log_capacity=8, seed=5, drop_rate=0.1, partition_rate=0.2,
+                telemetry_window=WINDOW, net_model="switch",
+                agg_fail_rate=0.2, agg_stale_rate=0.3, agg_max_stale=2)
+    return [
+        ("K = 1", Config(**base, n_aggregators=1)),
+        ("K = N", Config(**base, fault_model="bcast", n_aggregators=10)),
+        ("an empty trailing aggregator",
+         Config(**{**base, "f": 2, "n_nodes": 7}, n_aggregators=6)),
+        ("one liar among honest senders, an all-liar segment",
+         Config(**base, fault_model="bcast", n_aggregators=4, n_byzantine=3,
+                byz_uplink_rate=1.0)),
+        ("poisoned own segments",
+         Config(**base, n_aggregators=4, agg_byz=4, agg_poison_rate=1.0,
+                n_byzantine=3, byz_mode="equivocate", crash_prob=0.2,
+                recover_prob=0.3))]
+
+
+def check_pbft_built_case(what: str, cfg, calls) -> None:
+    """The state a built run's round 20 must show, read off KAL's plain
+    version on the recorded call."""
+    from consensus_tpu_torch.ops import aggregate
+    args = calls["agg_round"][0]
+    tabs = aggregate.agg_round_plain(*clone_args(args))
+    seed, r = args[1], args[2]
+    if what.startswith("one liar"):
+        byz = torch.arange(cfg.n_nodes, device=seed.device) >= cfg.n_honest
+        lie, _ = aggregate.uplink_lies_plain(cfg, seed, r, byz)
+        told = lie & tabs.up[:, 0]
+        require(bool(told[:, 7:9].any()) and bool(told[:, 9].any()),
+                f"built {what}: no delivered lie in segments 2 and 3")
+    elif what == "poisoned own segments":
+        require(bool(((tabs.tab & aggregate.AGG_POISON0) != 0).all()),
+                f"built {what}: words {tabs.tab.tolist()}")
+    elif what == "an empty trailing aggregator":
+        require(aggregate.n_segments(cfg.n_nodes, cfg.n_aggregators)
+                * (cfg.n_aggregators - 1) >= cfg.n_nodes,
+                f"built {what}: the last aggregator has members")
+
+
+def pbft_switch_bound(name: str, args) -> tuple[float, str]:
+    """The least time of KAL's PBFT modes, KAM and KAN on ``args``, counting
+    what the function needs. KAL: its [B, K] words and rounds and its
+    uplink rows written, the flags read, :func:`agg_round_ops`. KAM, a
+    vote phase: each honest sender's flag and pp_val (5 bytes a slot) and
+    uplink byte, the tables written; the byzantine members' lie, forged
+    value and stance draws as these inputs need them. KAM, the decide
+    phase: each (aggregator, slot)'s flags up to its least live sender,
+    the uplink bytes, the table written. KAN: a vote phase's flag, pp_val,
+    base and result (and P5's dval in and out) a (node, slot), the tables
+    read; the decide phase's committed, committed at entry, dval in and
+    out, a winner's dval a adoption, the timers; the downlinks of
+    :func:`downlink_ops` to every receiver and, under equivocation, a
+    stance draw a byzantine receiver."""
+    from consensus_tpu_torch.ops import aggregate, switch_tally
+    if name == "agg_round":
+        cfg, seed, r = args[0], args[1], args[2]
+        flags, n_real = args[3], args[7]
+        b, n, k = seed.shape[0], cfg.n_nodes, cfg.n_aggregators
+        nbytes = 8 * b * k + b * aggregate.n_phases(cfg) * n \
+            + (0 if flags is None else b * n) + 4 * b
+        return bound(nbytes, agg_round_ops(cfg, seed, r, flags, n_real))
+    cfg, seed, r, phase, agg, n_real = args[:6]
+    b, k = seed.shape[0], cfg.n_aggregators
+    nb = cfg.n_byzantine
+    if name == "switch_combine":
+        flag = args[6]
+        n, s = flag.shape[1], flag.shape[2]
+        n_hon = int((n_real - nb).sum())
+        if phase != switch_tally.DECIDE:
+            nbytes = n_hon * s * 5 + b * n + 2 * b * k * s * 4
+            byz = switch_tally._byzantine(n_real, nb, n) \
+                & agg.up[:, switch_tally.uplink_row(cfg, phase)]
+            draws = int(byz.sum()) * (cfg.uplink_lies_on
+                                      + (cfg.byz == 2))
+            if cfg.uplink_lies_on:
+                lie, _ = aggregate.uplink_lies_plain(cfg, seed, r, byz)
+                draws += int(lie.sum())
+            return bound(nbytes, THREEFRY_OPS * draws)
+        (mid,) = switch_tally.switch_combine_plain(*clone_args(args))
+        seg = (n_real.to(torch.int64) + k - 1) // k
+        lo = torch.arange(k, device=seed.device)[None, :] * seg[:, None]
+        hi = torch.minimum(lo + seg[:, None],
+                           (n_real.to(torch.int64) - nb)[:, None])
+        span = torch.where(mid < n, mid - lo[:, :, None] + 1,
+                           (hi - lo).clamp(min=0)[:, :, None])
+        return bound(int(span.sum()) + b * n + b * k * s * 4, 0.0)
+    table, base = args[7], args[10]
+    n, s = base.shape[1], base.shape[2]
+    cells = b * n * s
+    tables = sum(t.nbytes for t in table) + agg.tab.nbytes
+    dst = torch.arange(n, device=seed.device)[None, :].expand(b, n)
+    ops = downlink_ops(seed, r, agg.tab, cfg.n_nodes, phase, dst,
+                       cfg.drop_cutoff, cfg.partition_cutoff,
+                       cfg.max_delay_rounds)
+    if phase == switch_tally.DECIDE:
+        got = switch_tally.switch_receive_plain(*clone_args(args))
+        adopted = int((got[0] & ~base).sum())
+        nbytes = cells * 11 + 4 * adopted + b * n * 9 + tables
+        return bound(nbytes, ops)
+    if cfg.byz == 2:
+        ops += THREEFRY_OPS * b * nb
+    dval = args[11]
+    nbytes = cells * (7 + (8 if dval is not None else 0)) + tables
+    return bound(nbytes, ops)
+
+
+def flat_tally_calls(cfg, calls) -> dict:
+    """The flat round's P4-P7 kernels on a recorded switch round's own
+    inputs: KR and KS on KL's mask and KQ's outputs (dense), KU and KV on
+    KT's node bits and outputs (§6b), each wrapper's arguments by name."""
+    from consensus_tpu_torch.engines import pbft, pbft_bcast
+    from consensus_tpu_torch.ops import adversary
+    _, _, _, _, _, _, _, _, _, _, _, dval, *_ = calls["switch_receive"][1]
+    if cfg.fault_model == "bcast":
+        kt = clone_args(calls["bcast_view_preprepare"][0])
+        n_real, f, prepared, committed = kt[3], kt[4], kt[10], kt[11]
+        _, timer, reset, pp_seen, _, pp_val, bits, *_ = \
+            pbft_bcast.bcast_view_preprepare(*kt)
+        ku = (pbft_bcast.table_cap(cfg), n_real, f, bits, pp_seen, pp_val,
+              prepared, committed, dval)
+        _, tallied, dval2 = pbft_bcast.bcast_tally(*clone_args(ku))
+        return {"bcast_tally": ku, "bcast_decide": (
+            bits, tallied, dval2, committed, timer, reset)}
+    deliver = adversary.delivery(*clone_args(calls["delivery"][0]))
+    kq = clone_args(calls["pbft_view_preprepare"][0])
+    n_real, f, prepared, committed = kq[4], kq[5], kq[11], kq[12]
+    _, timer, reset, pp_seen, _, pp_val, *_ = pbft.pbft_view_preprepare(*kq)
+    kr = (deliver, n_real, f, pp_seen, pp_val, prepared, committed, dval)
+    _, tallied, dval2 = pbft.pbft_tally(*clone_args(kr))
+    return {"pbft_tally": kr, "pbft_decide": (
+        deliver, n_real, tallied, dval2, committed, timer, reset)}
+
+
+def check_pbft_switch_kernels(dev):
+    """Phase 22's kernel rows. Every kernel call of rounds 3 and 20 of
+    pbft-f128/switch, pbft-100k-bcast/switch and its §9b run (with
+    telemetry), of both ladders' rounds 3 and 20, and of round 20 of each
+    built run (:func:`pbft_switch_built_cases`) against the plain versions,
+    exact; none of PBFT_FLAT_ONLY is called. Then, on round 20 of
+    PBFT_SWITCH_MAIN and of pbft-f128/switch, KAL's, KAM's and KAN's time
+    a call (each phase's call), plain time and bound, and the round's
+    switch kernels against the flat round's tallies (KU and KV, KR and KS)
+    on the same round's inputs (:func:`flat_tally_calls`). Yields one row
+    a kernel, the phase-3 keys and each phase's numbers."""
+    from consensus_tpu_torch import _build
+    from consensus_tpu_torch.engines import pbft_sweep
+    names = ("agg_round",) + PBFT_SWITCH_OWN
+    errs = dict.fromkeys(names, 0.0)
+    cases = dict.fromkeys(names, 0)
+    base: dict = {}
+
+    def hold(calls, where):
+        for flat in PBFT_FLAT_ONLY:
+            require(flat not in calls, f"{where}: {flat} called")
+        for name in names:
+            require(name in calls, f"{where}: no call of {name}")
+        hold_calls(calls, where, errs, cases)
+    for key in ("pbft-f128/switch", PBFT_SWITCH_MAIN, "pbft-100k-bcast/9b"):
+        cfg = PBFT_SWITCH_CONFIGS[key]()
+        for r in PBFT_SWITCH_ROUNDS:
+            calls = capture_round_calls(cfg, r, True, dev)
+            hold(calls, f"{key} round {r}")
+            base[key] = calls
+    for key, (make, rungs, _) in PBFT_SWITCH_LADDERS.items():
+        rungs, cfg_pad = pbft_sweep._fsweep_static(make(), rungs)
+        for r in PBFT_SWITCH_ROUNDS:
+            hold(capture_ladder_calls(cfg_pad, rungs, r, dev),
+                 f"{key} round {r}")
+    for what, cfg in pbft_switch_built_cases():
+        calls = capture_round_calls(cfg, 20, True, dev)
+        check_pbft_built_case(what, cfg, calls)
+        hold(calls, f"built: {what}")
+    # The flat round's tallies on the switch round's own inputs.
+    flat_ms = {}
+    for key in ("pbft-f128/switch", PBFT_SWITCH_MAIN):
+        flat_ms[key] = {name: graph_ms(getattr(kernel_module(name), name),
+                                       args, reps_for(args))
+                        for name, args in flat_tally_calls(
+                            PBFT_SWITCH_CONFIGS[key](), base[key]).items()}
+    rows = {}
+    for key in ("pbft-f128/switch", PBFT_SWITCH_MAIN):
+        for name in names:
+            per_call = []
+            for args in base[key][name]:
+                mod = kernel_module(name)
+                reps = reps_for(args)
+                per_call.append(dict(
+                    ms=graph_ms(getattr(mod, name), args, reps),
+                    plain_ms=event_ms(getattr(mod, name + "_plain"), args,
+                                      min(3, reps)),
+                    bound=pbft_switch_bound(name, args)))
+            rows[(key, name)] = per_call
+    for key in ("pbft-f128/switch", PBFT_SWITCH_MAIN):
+        switch_round = sum(c["ms"] for name in names
+                           for c in rows[(key, name)])
+        emit("pbft_switch_round", run=key, round=20,
+             switch_kernels_ms=switch_round,
+             flat_tallies_ms=sum(flat_ms[key].values()),
+             flat_ms=flat_ms[key],
+             per_call={name: [dict(c, bound_ms=c["bound"][0],
+                                   bound_by=c["bound"][1])
+                              for c in rows[(key, name)]]
+                       for name in names})
+    for name in PBFT_SWITCH_OWN:
+        calls = rows[(PBFT_SWITCH_MAIN, name)]
+        mean = lambda k: sum(c[k] for c in calls) / len(calls)  # noqa: E731
+        bounds = [c["bound"] for c in calls]
+        yield dict(name=name, route="cuda",
+                   source=f"consensus_tpu_torch/csrc/{name}.cu",
+                   replaces=PBFT_SWITCH_REPLACES[name],
+                   max_abs_err=errs[name], cases=cases[name],
+                   timed_on=f"{PBFT_SWITCH_MAIN} round 20, mean of its "
+                            f"{len(calls)} calls (P4, P5, P6)",
+                   ms=mean("ms"), plain_ms=mean("plain_ms"),
+                   bound=(sum(b[0] for b in bounds) / len(bounds),
+                          max(bounds, key=lambda b: b[0])[1]),
+                   library_ms=None)
+    kal = rows[(PBFT_SWITCH_MAIN, "agg_round")][0]
+    yield dict(name="agg_round (pbft modes)", route="cuda",
+               source="consensus_tpu_torch/csrc/agg_round.cu",
+               replaces=SWITCH_REPLACES["agg_round"]
+               + ", :313 uplink_bcast", max_abs_err=errs["agg_round"],
+               cases=cases["agg_round"],
+               timed_on=f"{PBFT_SWITCH_MAIN} round 20 (§6b uplink); "
+                        "pbft-f128/switch's "
+                        f"{rows[('pbft-f128/switch', 'agg_round')][0]['ms']}",
+               ms=kal["ms"], plain_ms=kal["plain_ms"], bound=kal["bound"],
+               library_ms=None)
+
+
+def check_pbft_switch_runs(card: str, smi: str) -> dict[str, int]:
+    """Phase 22's runs: ``simulator.run`` of each run PBFT_SWITCH_RUNS with
+    telemetry, replayed as one CUDA graph and counted from 0: its digest,
+    counter totals and flight recorder against the JAX anchors, from the
+    replay and the eager loop, the oracle's digest where it was run, its
+    path's kernels launched and no other (KU, KV, KAK, KR, KS not), KAM
+    and KAN launched; no PBFT fork. The 100 000-node runs also profile a
+    replay (wall, busy share, device ms by kernel). Then both ladders
+    (:func:`anchored_ladder`'s checks, KAM and KAN launched). Returns KAM's
+    and KAN's launches on PBFT_SWITCH_MAIN."""
+    from consensus_tpu_torch.core import serialize
+    from consensus_tpu_torch.engines import pbft_sweep
+    from consensus_tpu_torch.network import runner, simulator
+    own: dict = {}
+    for key, (digest, nonzero, flight, oracle) in PBFT_SWITCH_RUNS.items():
+        cfg = PBFT_SWITCH_CONFIGS[key]()
+        eng = runner.engine(cfg)
+        res, launches = counted(lambda: simulator.run(cfg, telemetry=True))
+        tel, fl = res.extras["telemetry"], res.extras["flight"]
+        stats: dict = {}
+        eager = runner.run(cfg, graph=False, telemetry=True, stats=stats)
+        eager_sha = eager_digest(cfg, res, eager)
+        want = {k: nonzero.get(k, 0) for k in eng.telemetry_names}
+        row = dict(
+            digest=res.digest, digest_ok=res.digest == digest,
+            eager_digest=eager_sha, oracle_digest=oracle,
+            totals=tel["totals"], totals_ok=tel["totals"] == want,
+            flight_sha256=flight_digest(fl),
+            flight_ok=flight_digest(fl) == flight,
+            eager_equal=flight_digest(stats["flight"]) == flight_digest(fl)
+            and all(np.array_equal(stats["telemetry"][k], v)
+                    for k, v in tel["per_sweep"].items()),
+            steps_per_sec=res.steps_per_sec, wall_s=res.wall_s,
+            launches=launches)
+        if cfg.n_nodes >= 100_000:
+            prof = profile_replay(cfg, telemetry=True)
+            row.update({k: prof[k] for k in (
+                "replay_wall_ms", "busy_share", "unprofiled_busy_share",
+                "device_ms", "device_launches")},
+                device_ops_per_round=prof["launches_per_round"],
+                hand_kernel_ms={k: v for k, v in
+                                prof["hand_kernel_ms"].items() if v})
+        emit("pbft_switch_run", run=key, **row, card=card, power=smi)
+        for check in ("digest_ok", "totals_ok", "flight_ok", "eager_equal"):
+            require(row[check], f"{key}: {check} fails")
+        require(eager_sha == digest,
+                f"{key}: the eager loop's digest {eager_sha}")
+        require(oracle is None or oracle == digest,
+                f"{key}: the oracle's digest {oracle} != {digest}")
+        for name in ("forked_qc", "conflict_commits", "safety_violations"):
+            require(tel["totals"][name] == 0, f"{key}: {name} counted")
+        require_launched(launches, pbft_switch_path(cfg), key)
+        if key == PBFT_SWITCH_MAIN:
+            own = {name: launches[name] for name in PBFT_SWITCH_OWN}
+        runner.clear_graphs()
+    for key, (make, rungs, digest) in PBFT_SWITCH_LADDERS.items():
+        base = make()
+        memory, launches = counted(lambda: memory_use(
+            lambda: pbft_sweep.pbft_fsweep_timed(base, rungs, repeats=3)))
+        out, first_s, best, real_steps = memory.pop("result")
+        got = serialize.digest(pbft_sweep.fsweep_payload(out))
+        eager = serialize.digest(pbft_sweep.fsweep_payload(
+            pbft_sweep.pbft_fsweep_run(base, rungs, graph=False)))
+        cfg_pad = pbft_sweep._fsweep_static(base, rungs)[1]
+        emit("pbft_switch_ladder", run=key, digest=got,
+             digest_ok=got == digest, eager_digest=eager,
+             real_steps=real_steps, wall_s=best,
+             real_steps_per_sec=real_steps / best, first_run_s=first_s,
+             launches=launches, **memory, card=card, power=smi)
+        require(got == digest and eager == digest,
+                f"{key}: digests {got} (replay), {eager} (eager) != "
+                f"{digest}")
+        require_launched(launches, pbft_switch_path(cfg_pad, False), key)
+        runner.clear_graphs()
+    return own
+
+
 # The script's start, for each line's elapsed time (emit).
 T0 = time.perf_counter()
 
@@ -7400,11 +7878,11 @@ def main() -> int:
                *check_hotstuff_kernels(dev, gen)]
     torch.cuda.synchronize()
     # The §6c kernels (KAH, KAI) are phase 16's, KAJ phase 17's, KAK
-    # phase 19's, KAL phase 21's.
+    # phase 19's, KAL phase 21's, KAM and KAN phase 22's.
     require(sorted(k["name"] for k in kernels)
             == sorted(set(_build.SOURCES)
                       - set(CRASH_OWN + DESYNC_OWN + BYZ_BCAST_OWN
-                            + SWITCH_OWN)),
+                            + SWITCH_OWN + PBFT_SWITCH_OWN)),
             "phase 3 does not check every kernel of csrc")
     # KQ, KT, KX, KY and KZ with their optional outputs, on the telemetry
     # runs' rounds.
@@ -7623,8 +8101,22 @@ def main() -> int:
         (kernels if k["name"] in SWITCH_OWN else switch_rows).append(k)
     switch_launches = check_switch_runs(card, smi)
     launches.update({name: switch_launches[name] for name in SWITCH_OWN})
+
+    # 22. SPEC §9 switch tallies and §9b on PBFT (dense, §6b, both
+    # ladders): every kernel call of rounds 3 and 20 of the runs, the
+    # ladders and built runs against the plain versions (KAL's PBFT modes,
+    # KAM and KAN among them), then the runs.
+    for k in check_pbft_switch_kernels(dev):
+        k["bound_ms"], k["bound_by"] = k.pop("bound")
+        emit("pbft_switch_kernel", **k, card=card, power=smi)
+        require(k["max_abs_err"] == 0.0,
+                f"{k['name']} disagrees with its plain version")
+        if k["name"] in PBFT_SWITCH_OWN:
+            kernels.append(k)
+    launches.update(check_pbft_switch_runs(card, smi))
     require(sorted(k["name"] for k in kernels) == sorted(_build.SOURCES),
-            "phases 3, 16, 17, 19 and 21 do not check every kernel of csrc")
+            "phases 3, 16, 17, 19, 21 and 22 do not check every kernel of "
+            "csrc")
     emit("wall")
     for k in kernels:
         k["launches"] = launches[k["name"]]

@@ -32,7 +32,8 @@ SOURCES = ("random_u32", "delivery_edges", "top_active", "append_entries",
            "dpos_telemetry", "paxos_telemetry", "hotstuff_propose",
            "hotstuff_vote", "hotstuff_learn", "hotstuff_extract",
            "crash_transition", "freeze_down", "hotstuff_prologue",
-           "bcast_equiv_support", "agg_round")
+           "bcast_equiv_support", "agg_round", "switch_combine",
+           "switch_receive")
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "build" / \
@@ -55,9 +56,24 @@ SIGNATURES = {
     # w accumulators (null without telemetry; w null without the
     # recorder); B, N, K, phases; fail_cut, stale_cut, max_stale,
     # poison_cut (0: §9b off), agg_byz; drop_cut, part_cut, max_delay; C,
-    # col, window, n_windows
+    # col, window, n_windows; the poisonable phases, the §6b uplink, n_real
+    # (null but on a PBFT round)
     "agg_round": (_P, _U) + (_P,) * 6 + (_I,) * 4 + (_U,) * 4 + (_I,)
-    + (_U,) * 3 + (_I,) * 4,
+    + (_U,) * 3 + (_I,) * 4 + (_I, _I, _P),
+    # seed, round, n_real, the phase's flags, pp_val (null in the decide
+    # phase), KAL's uplinks; the tot (or least-id) and value (null in the
+    # decide phase) tables outputs, scratch; the uplinks' rows a lane, the
+    # phase's row, B, N, S, K, decide, n_byzantine, equivocation; the §9b
+    # lie cutoff (0 without lies)
+    "switch_combine": (_P, _U) + (_P,) * 7 + (_I,) * 9 + (_U,),
+    # seed, round, n_real, f, KAL's table, KAM's two tables, flags, values,
+    # KAL's uplinks, their rows a lane, the phase's row; base, dval in and
+    # out, out, committed at round entry, timer, reset, timer out, the
+    # §6c flag word (null but where a down receiver takes nothing), the
+    # downlink-mask scratch; B, N, S, K, phase, n_byzantine, equivocation,
+    # §9b poison; drop_cut, part_cut, max_delay
+    "switch_receive": (_P, _U) + (_P,) * 8 + (_I, _I) + (_P,) * 10
+    + (_I,) * 8 + (_U,) * 3,
     # seed, stream, (ctx, c0, c1) x (ptr, scalar, batch stride), out, B, M
     "random_u32": (_P, _U, _P, _U, _L, _P, _U, _L, _P, _U, _L, _P, _I, _L),
     # seed, round, ids, out, B, A, N, drop_cut, part_cut, ids_are_src,

@@ -33,10 +33,10 @@ targeted attacks (``attack`` "elect" or "sticky", ``attack_rate``,
 and messages on the other protocols. The SPEC §9 switch (``net_model``
 "switch" with ``n_aggregators`` K in [1, n_nodes], ``agg_fail_rate``,
 ``agg_stale_rate``, ``agg_max_stale`` in [1, 8]) runs on both Raft engines,
-Paxos and HotStuff, and its SPEC §9b knobs (``agg_byz``,
-``agg_poison_rate``, ``byz_uplink_rate``) on HotStuff, with the JAX
-package's checks and messages; on pbft (both fault models) the switch
-raises until its value-matched tallies are ported. The other knobs
+Paxos, HotStuff and both PBFT engines (``fault_model`` "edge" and "bcast")
+and their f-ladders, and its SPEC §9b knobs (``agg_byz``,
+``agg_poison_rate``, ``byz_uplink_rate``) on HotStuff and PBFT, with the
+JAX package's checks and messages. The other knobs
 of the JAX package that this port does not implement yet are fields too,
 and setting one off its default raises ``ValueError``, also beside a
 delay, a crash, a desync or byzantine nodes; the port never ignores a
@@ -287,8 +287,7 @@ class Config:
 
     def _check_switch(self) -> None:
         """The JAX package's SPEC §9/§9b checks and messages
-        (consensus_tpu/core/config.py:254-315), then the port's own: the
-        switch on pbft waits for its value-matched tallies."""
+        (consensus_tpu/core/config.py:254-315)."""
         if self.net_model not in ("flat", "switch"):
             raise ValueError(f"unknown net_model {self.net_model!r} "
                              "(SPEC §9: flat | switch)")
@@ -350,11 +349,6 @@ class Config:
             raise ValueError("agg_max_stale must be in [1, 8] (SPEC §9: "
                              "the stale re-draw is a bounded shift, like "
                              "the §A.2 delay horizon)")
-        if self.net_model == "switch" and self.protocol == "pbft":
-            raise ValueError(
-                "net_model='switch' on pbft: not supported by the port "
-                "yet (its value-matched switch tallies are not ported); "
-                "it would be silently ignored")
 
     @property
     def switch_on(self) -> bool:

@@ -92,6 +92,19 @@ __device__ __forceinline__ bool agg_uplink(uint32_t sd, uint32_t q,
          part_side(sd, q, i) == part_side(sd, q, N + a);
 }
 
+// The §6b uplink of node i (aggregate.py:313-323): its one broadcast draw,
+// key (q, i, i), at its aggregator a's round q, with the partition against
+// vertex N + a (N: the lane's vertex base).
+__device__ __forceinline__ bool agg_uplink_bcast(uint32_t sd, uint32_t q,
+                                                 uint32_t N, uint32_t a,
+                                                 uint32_t i, uint32_t drop_cut,
+                                                 uint32_t part_cut,
+                                                 uint32_t max_delay) {
+  if (!edge_open(sd, q, i, i, drop_cut, max_delay)) return false;
+  return !part_on(sd, q, part_cut) ||
+         part_side(sd, q, i) == part_side(sd, q, N + a);
+}
+
 // The mixer's prefix of the SPEC §2 draw of (r, g, dst) for an aggregator
 // vertex g = N + ph*K + a, hoisted out of a loop over receivers: the draw is
 // fmix(absorb(downlink_prefix(seed, r, g), dst)).

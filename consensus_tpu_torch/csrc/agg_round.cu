@@ -15,7 +15,15 @@
 // side of vertex N + a at round r, and the poison bit of each phase. Node
 // i's uplink in phase ph is ctt::agg_uplink at its aggregator's q, cut where
 // the node is down at the round's end (the round's flag word of kernel KAH,
-// where given: the engines' `up0 &= up`). With the run's counter totals t
+// where given: the engines' `up0 &= up`). Its PBFT modes
+// (engines/pbft.py:277-351, pbft_bcast.py:565-595, pbft_sweep.py:61-109):
+// only the first PZ phases draw poison (PBFT's two vote phases; its decide
+// gossip is not poisonable), the §6b engine's uplink is one mask for every
+// phase, its broadcast key (q, i, i) with the partition against vertex
+// N + a (aggregate.py:313-323), and with n_real ([B] int32) each lane's
+// population is the vertex base N and segments a(i) = min(i / ceil(n_real
+// / K), K - 1) (the f-ladder's traced segmentation, pbft_sweep.py:80,
+// 99-109). With the run's counter totals t
 // ([B, C] int32) it adds, at columns col .. col + 2, the failed aggregators,
 // the live stale ones and the live poisoned serves over the phases (and
 // the same into window `window` of the ring w, where given).
@@ -57,14 +65,17 @@ agg_round_kernel(const uint32_t* __restrict__ seed, uint32_t r,
                  bool* __restrict__ up, int32_t* __restrict__ t,
                  int32_t* __restrict__ w, int B, int N, int K, int P,
                  Cuts c, int tiles, int C, int col, int window,
-                 int n_windows) {
+                 int n_windows, int PZ, bool bcast,
+                 const int32_t* __restrict__ n_real) {
   const int lp = blockIdx.x / tiles;  // lane * P + phase
   const int tile = blockIdx.x - lp * tiles;
   const int b = lp / P;
   const int ph = lp - b * P;
   const int i = tile * THREADS + static_cast<int>(threadIdx.x);
   const uint32_t sd = seed[b];
-  const uint32_t uN = static_cast<uint32_t>(N), uK = static_cast<uint32_t>(K);
+  // The lane's vertex base and segment width.
+  const int nr = n_real != nullptr ? n_real[b] : N;
+  const uint32_t uN = static_cast<uint32_t>(nr), uK = static_cast<uint32_t>(K);
   bool dead = false, stale = false, poisoned = false;
   if (ph == 0 && i < K) {
     const uint32_t a = static_cast<uint32_t>(i);
@@ -76,7 +87,7 @@ agg_round_kernel(const uint32_t* __restrict__ seed, uint32_t r,
       word |= ctt::part_side(sd, r, uN + a) ? ctt::AGG_SIDE : 0;
     int n_pz = 0;
     if (c.poison != 0u && i >= K - c.agg_byz) {
-      for (int p = 0; p < P; ++p) {
+      for (int p = 0; p < PZ; ++p) {
         if (ctt::random_u32(sd, ctt::STREAM_POISON, r, 0u,
                             static_cast<uint32_t>(p) * uK + a) < c.poison) {
           word |= ctt::AGG_POISON0 << p;
@@ -101,11 +112,14 @@ agg_round_kernel(const uint32_t* __restrict__ seed, uint32_t r,
     }
   }
   if (i < N) {
-    const uint32_t a = static_cast<uint32_t>(i / ctt::agg_seg(N, K));
+    const uint32_t a =
+        static_cast<uint32_t>(min(i / ctt::agg_seg(nr, K), K - 1));
     const uint32_t q = ctt::agg_q(sd, r, a, c.stale, c.max_stale);
-    bool ok = ctt::agg_uplink(sd, q, uN, uK, static_cast<uint32_t>(ph), a,
-                              static_cast<uint32_t>(i), c.drop, c.part,
-                              c.max_delay);
+    const uint32_t ui = static_cast<uint32_t>(i);
+    bool ok = bcast ? ctt::agg_uplink_bcast(sd, q, uN, a, ui, c.drop, c.part,
+                                            c.max_delay)
+                    : ctt::agg_uplink(sd, q, uN, uK, static_cast<uint32_t>(ph),
+                                      a, ui, c.drop, c.part, c.max_delay);
     if (flags != nullptr && ctt::crash_down(flags, b, N, i)) ok = false;
     up[(static_cast<long long>(b) * P + ph) * N + i] = ok;
   }
@@ -133,7 +147,8 @@ agg_round_kernel(const uint32_t* __restrict__ seed, uint32_t r,
 // crash). tab and q are [B, K] int32 outputs, up [B, P, N] bool. t ([B, C])
 // and w ([B, n_windows, C]) are the run's counter totals and window ring
 // (null without telemetry; w null without the recorder). poison_cut is 0
-// with the §9b knob off.
+// with the §9b knob off. PZ (<= 2) is the count of poisonable phases, bcast
+// picks the §6b uplink (P = 1), n_real is null but on a PBFT round.
 extern "C" int ctt_agg_round(const uint32_t* seed, uint32_t r,
                              const unsigned char* flags, int32_t* tab,
                              int32_t* q, bool* up, int32_t* t, int32_t* w,
@@ -142,8 +157,10 @@ extern "C" int ctt_agg_round(const uint32_t* seed, uint32_t r,
                              uint32_t poison_cut, int agg_byz,
                              uint32_t drop_cut, uint32_t part_cut,
                              uint32_t max_delay, int C, int col, int window,
-                             int n_windows, cudaStream_t st) {
-  if (K < 1 || K > N || P < 1 || P > 2 || max_stale < 1u ||
+                             int n_windows, int PZ, int bcast,
+                             const int32_t* n_real, cudaStream_t st) {
+  if (K < 1 || K > N || P < 1 || P > 3 || PZ < 0 || PZ > 2 ||
+      (bcast != 0 && P != 1) || max_stale < 1u ||
       agg_byz < 0 || agg_byz > K ||
       (t != nullptr && (col < 0 || col > C - 3)) ||
       (w != nullptr && (window < 0 || window >= n_windows)))
@@ -156,6 +173,6 @@ extern "C" int ctt_agg_round(const uint32_t* seed, uint32_t r,
                   drop_cut, part_cut, max_delay, agg_byz};
   agg_round_kernel<<<static_cast<unsigned>(blocks), THREADS, 0, st>>>(
       seed, r, flags, tab, q, up, t, w, B, N, K, P, c, tiles, C, col, window,
-      n_windows);
+      n_windows, PZ, bcast != 0, n_real);
   return static_cast<int>(cudaGetLastError());
 }

@@ -2,8 +2,9 @@
 
 The port of ``consensus_tpu/engines/pbft.py`` on its flat path and under
 the SPEC §A.2 delay, the SPEC §6c crash-recover adversary, the SPEC §B
-timer skew and the SPEC §3c/§6 byzantine nodes (no switch gates), with its
-telemetry and flight recorder, and, through the same functions, of
+timer skew, the SPEC §3c/§6 byzantine nodes and the SPEC §9 switch with its
+§9b poisoned combines and uplink lies, with its telemetry and flight
+recorder, and, through the same functions, of
 ``consensus_tpu/engines/pbft_sweep.py``'s ``pbft_round_padded`` (which
 has no telemetry): every phase takes the per-lane population
 ``n_real`` and tolerance ``f`` ([B] int32 tensors). Node ``i`` of lane
@@ -52,6 +53,15 @@ per-receiver value (KQ), and KAA counts the §7c safety tail. The JAX
 package's ``_adopt_val`` is a one-hot reduction that only
 keeps a gather off the TPU; here it is plain indexing, with the same
 values.
+
+With ``net_model="switch"`` (SPEC §9) the round launches KAL
+(``ops/aggregate.py`` ``agg_round``) after KL and KQ, and kernels KAM and
+KAN (``ops/switch_tally.py`` :func:`~consensus_tpu_torch.ops.switch_tally.
+switch_phases`) take the place of KR and KS: the prepare votes, the commit
+votes and the decide gossip each go through the K aggregators' combines,
+as ``_padded_switch_phases`` and ``pbft_round``'s switch branch run them
+(the dense round masks no receiver by §6c; the freeze does). The §7c safety
+tail is counted wherever the JAX round counts it (:func:`safety_mode`).
 """
 from __future__ import annotations
 
@@ -65,8 +75,10 @@ from ..ops.adversary import (AGG_TELEMETRY, CRASH_REC, CRASH_TELEMETRY,
                              SAFETY_TELEMETRY, Byz, bitcast_i32, byz_of,
                              churn, crash_step, delivery, equiv_stance_plain,
                              freeze_down, safety_counts_plain)
+from ..ops.aggregate import agg_step
 from ..ops.flight import (add_plain, bucket_counts_plain, check_recorder,
                           window_of)
+from ..ops.switch_tally import switch_phases
 from ..ops.viewsync import SYNC_TELEMETRY, desync_skew_plain, sync_counts_plain
 from .raft import check_all
 
@@ -78,8 +90,8 @@ NAME = "pbft"
 # slot)s newly prepared, seen and not prepared, committed by their own
 # tally, prepared and not committed, committed by the decide gossip, and
 # the sum of each node's view advance; then the crash, aggregation and
-# safety tails (the aggregation tail zeros here, the safety tail counted
-# under equivocation) and the SPEC §B desync tail.
+# safety tails (the aggregation tail counted under the switch, the safety
+# tail under equivocation or §9b) and the SPEC §B desync tail.
 PBFT_TELEMETRY = ("prepare_quorums", "prepare_missed", "commit_quorums",
                   "commit_missed", "commits_adopted", "view_changes") \
     + CRASH_TELEMETRY + AGG_TELEMETRY + SAFETY_TELEMETRY + SYNC_TELEMETRY
@@ -502,6 +514,17 @@ pbft_decide.launches = 0
 
 # --- KAA: the telemetry tail -------------------------------------------------
 
+def safety_mode(cfg: Config) -> int:
+    """The byzantine mode KAA runs: BYZ_EQUIV, whose instance counts the
+    §7c safety tail, wherever the JAX round counts it (equivocation, or the
+    switch's §9b poisoned combines or uplink lies: ``pbft.py:393``,
+    ``pbft_bcast.py:698``), else ``cfg.byz``. Honesty is i < n_real -
+    n_byzantine in every mode."""
+    if cfg.switch_on and (cfg.agg_poison_on or cfg.uplink_lies_on):
+        return BYZ_EQUIV
+    return cfg.byz
+
+
 # KAA's crash modes, bits of its ``crash`` argument: the view terms
 # (view_changes, the view-change waits) count the nodes up at the round's
 # end only, since a down node's view is frozen (both PBFT engines); the
@@ -528,8 +551,9 @@ def pbft_telemetry_plain(cfg: Config, r: int, n_real, view_in, timer_in, view,
     ``prepared`` and ``committed_tally`` after P5, ``view`` and
     ``committed`` at the round's end. The SPEC §B tail is taken over the
     lane's honest live nodes (i < ``n_real`` - n_byzantine, not
-    ``down``); the aggregation tail stays 0, and the crash tail is kernel
-    KAH's to add. Under byzantine equivocation the safety tail counts,
+    ``down``); the aggregation tail is kernel KAL's to add, and the crash
+    tail kernel KAH's. Where :func:`safety_mode` is BYZ_EQUIV (byzantine
+    equivocation, or §9b under the switch) the safety tail counts,
     over the honest nodes, the slots whose commits by the tally hold two
     values of ``values[0]`` (pp_val after P3) and those whose decided
     values at the round's end differ (``values[1]``, ``values[2]``: dval
@@ -557,7 +581,7 @@ def pbft_telemetry_plain(cfg: Config, r: int, n_real, view_in, timer_in, view,
     honest = honest_nodes(n_real, cfg.n_byzantine, N)
     sync = sync_counts_plain(view, honest & up, catch)
     vec = torch.zeros_like(t)
-    if cfg.byz == BYZ_EQUIV:
+    if safety_mode(cfg) == BYZ_EQUIV:
         pp_val, dval_in, dval = values
 
         def split(mask, val):
@@ -599,9 +623,9 @@ def pbft_telemetry(cfg: Config, r: int, n_real, view_in, timer_in, view,
     with per-slot extremes in shared memory and the lane's safety tail by
     its last block)."""
     check_recorder(cfg, w, lat)
-    if (cfg.byz == BYZ_EQUIV) != (values is not None):
+    if (safety_mode(cfg) == BYZ_EQUIV) != (values is not None):
         raise ValueError("pass values (pp_val, dval at entry, dval) exactly "
-                         "under byzantine equivocation")
+                         "where the safety tail counts (safety_mode)")
     if t.device.type == "cpu":
         return pbft_telemetry_plain(cfg, r, n_real, view_in, timer_in, view,
                                     catch, down, pp_seen, prepared_in,
@@ -629,7 +653,7 @@ def pbft_telemetry(cfg: Config, r: int, n_real, view_in, timer_in, view,
         prepared, committed_in, committed_tally, committed, t)),
         *(None if x is None else x.data_ptr() for x in (w, lat)),
         span.data_ptr(), int(r), B, N, S, t.shape[1], window, n_windows,
-        int(crash), cfg.byz, cfg.n_byzantine,
+        int(crash), safety_mode(cfg), cfg.n_byzantine,
         *(None if x is None else x.data_ptr() for x in (
             values if values is not None else (None,) * 3)))
     pbft_telemetry.launches += 1
@@ -685,17 +709,27 @@ def pbft_round(cfg: Config, st: PbftState, r: int, n_real, f, *, telem=None,
                              st.timer, st.pp_seen, st.pp_view, st.pp_val,
                              st.prepared, st.committed, *on)
 
-    # ---- P4 prepare tally, P5 commit tally (KR), over the honest senders
-    # (and the equivocators' claims) where SPEC §3c/§6 byzantine nodes run.
-    byz = byz_of(cfg, seed, r)
-    prepared, tallied, dval = pbft_tally(
-        deliver, n_real, f, pp_seen, pp_val, st.prepared, st.committed,
-        st.dval, *(() if byz is None else (byz,)))
+    if cfg.switch_on:
+        # ---- SPEC §9: the aggregators' round (KAL), then P4-P7 through
+        # their combines (KAM, KAN).
+        agg = agg_step(cfg, seed, r, flags, PBFT_TELEMETRY, telem, flight,
+                       n_real)
+        prepared, tallied, committed, dval, timer = switch_phases(
+            cfg, seed, r, agg, n_real, f, pp_seen, pp_val, st.prepared,
+            st.committed, st.dval, timer, reset)
+    else:
+        # ---- P4 prepare tally, P5 commit tally (KR), over the honest
+        # senders (and the equivocators' claims) where SPEC §3c/§6
+        # byzantine nodes run.
+        byz = byz_of(cfg, seed, r)
+        prepared, tallied, dval = pbft_tally(
+            deliver, n_real, f, pp_seen, pp_val, st.prepared, st.committed,
+            st.dval, *(() if byz is None else (byz,)))
 
-    # ---- P6 decide gossip, P7 timers (KS).
-    committed, dval, timer = pbft_decide(
-        deliver, n_real, tallied, dval, st.committed, timer, reset,
-        *(() if byz is None else (byz,)))
+        # ---- P6 decide gossip, P7 timers (KS).
+        committed, dval, timer = pbft_decide(
+            deliver, n_real, tallied, dval, st.committed, timer, reset,
+            *(() if byz is None else (byz,)))
 
     # ---- Telemetry and flight recorder (KAA).
     if telem is not None:
@@ -704,7 +738,7 @@ def pbft_round(cfg: Config, st: PbftState, r: int, n_real, f, *, telem=None,
                        tallied, committed, telem,
                        *(flight if flight is not None else (None, None)),
                        *(() if flags is None else (CRASH_VIEWS,)),
-                       *(() if cfg.byz != BYZ_EQUIV else
+                       *(() if safety_mode(cfg) != BYZ_EQUIV else
                          ((0,) if flags is None else ())
                          + ((pp_val, st.dval, dval),)))
 

@@ -1,9 +1,9 @@
 """PBFT under the broadcast-atomic fault model (SPEC §6b) in PyTorch.
 
-The port of ``consensus_tpu/engines/pbft_bcast.py`` on its flat path (no
-switch gates; with the SPEC §A.2 delayed retransmission on the per-sender
-broadcast key, the SPEC §6c crash-recover adversary, the SPEC §B timer
-skew and the SPEC §3c/§7c byzantine nodes), with its telemetry and
+The port of ``consensus_tpu/engines/pbft_bcast.py`` (with the SPEC §A.2
+delayed retransmission on the per-sender broadcast key, the SPEC §6c
+crash-recover adversary, the SPEC §B timer skew, the SPEC §3c/§7c byzantine
+nodes and the SPEC §9 switch with its §9b axes), with its telemetry and
 flight recorder (kernel KAA, ``engines/pbft.py``
 :func:`~consensus_tpu_torch.engines.pbft.pbft_telemetry`, as the dense
 engine's), and, through the same functions, of
@@ -71,6 +71,14 @@ The plain versions follow the JAX package's algorithms (P1 by a binary
 search on the view range, P4-P5 by one sort and top-``m`` run tables);
 the kernels compute the same functions without a sort (see each source).
 No input is changed: each phase writes fresh tensors.
+
+With ``net_model="switch"`` (SPEC §9) KAL (``ops/aggregate.py``
+``agg_round``, its §6b uplink: the round's one broadcast key lands on the
+sender's aggregator) follows KT, and kernels KAM and KAN
+(``ops/switch_tally.py``) take the place of KAK, KU and KV: the vote and
+decide phases go through the K aggregators' combines
+(``pbft_bcast.py:564-642``). Under §6c a receiver down at the round's end
+neither prepares nor adopts, as there.
 """
 from __future__ import annotations
 
@@ -80,6 +88,8 @@ from ..core import rng
 from ..core.config import BYZ_EQUIV, BYZ_NONE, BYZ_SILENT, Config
 from ..ops.adversary import (CRASH_DOWN, CRASH_REC, churn, crash_step,
                              equiv_stance_plain, open_drop_plain)
+from ..ops.aggregate import agg_step
+from ..ops.switch_tally import switch_phases
 from ..ops.viewsync import desync_skew_plain
 from . import pbft
 from .pbft import (PbftState, fresh_values, honest_nodes, real_nodes,
@@ -672,7 +682,9 @@ def pbft_bcast_round(cfg: Config, st: PbftState, r: int, n_real, f,
     takes them) a fourth, kernel KAA, which adds the round's counters.
     With ``cfg.crash_on`` (SPEC §6c) KAH comes first and the freeze, KAI,
     last. With byzantine nodes (``cfg.byz``) KT, KU, KV and KAA run their
-    BYZ instances, and under equivocation KAK runs between KT and KU."""
+    BYZ instances, and under equivocation KAK runs between KT and KU. Under
+    the switch (``cfg.switch_on``) KAL, then KAM and KAN three times each,
+    take the place of KAK, KU and KV."""
     if flight is not None and telem is None:
         raise ValueError("the flight recorder rides the telemetry "
                          "accumulator: pass telem with flight")
@@ -692,25 +704,34 @@ def pbft_bcast_round(cfg: Config, st: PbftState, r: int, n_real, f,
                               st.pp_seen, st.pp_view, st.pp_val,
                               st.prepared, st.committed, *on)
 
-    # ---- SPEC §3c/§7c: the BYZ instances' arguments; under equivocation
-    # each receiver's support (KAK).
-    byz_tally = byz_decide = ()
-    if cfg.byz:
-        nb = cfg.n_byzantine
-        extra = None if cfg.byz != BYZ_EQUIV else bcast_equiv_support(
-            st.seed, r, n_real, nb, bits)
-        byz_tally = (bool(crash), (nb, extra))
-        byz_decide = (bool(crash), (n_real, nb))
+    if cfg.switch_on:
+        # ---- SPEC §9: the aggregators' round (KAL), then P4-P7 through
+        # their combines (KAM, KAN); no KAK, KU or KV.
+        agg = agg_step(cfg, st.seed, r, flags, pbft.PBFT_TELEMETRY, telem,
+                       flight, n_real)
+        prepared, tallied, committed, dval, timer = switch_phases(
+            cfg, st.seed, r, agg, n_real, f, pp_seen, pp_val, st.prepared,
+            st.committed, st.dval, timer, reset, flags)
+    else:
+        # ---- SPEC §3c/§7c: the BYZ instances' arguments; under
+        # equivocation each receiver's support (KAK).
+        byz_tally = byz_decide = ()
+        if cfg.byz:
+            nb = cfg.n_byzantine
+            extra = None if cfg.byz != BYZ_EQUIV else bcast_equiv_support(
+                st.seed, r, n_real, nb, bits)
+            byz_tally = (bool(crash), (nb, extra))
+            byz_decide = (bool(crash), (n_real, nb))
 
-    # ---- P4 prepare tally, P5 commit tally (KU).
-    prepared, tallied, dval = bcast_tally(m, n_real, f, bits, pp_seen,
-                                          pp_val, st.prepared, st.committed,
-                                          st.dval, *(byz_tally or crash))
+        # ---- P4 prepare tally, P5 commit tally (KU).
+        prepared, tallied, dval = bcast_tally(
+            m, n_real, f, bits, pp_seen, pp_val, st.prepared, st.committed,
+            st.dval, *(byz_tally or crash))
 
-    # ---- P6 decide gossip, P7 timers (KV).
-    committed, dval, timer = bcast_decide(bits, tallied, dval, st.committed,
-                                          timer, reset,
-                                          *(byz_decide or crash))
+        # ---- P6 decide gossip, P7 timers (KV).
+        committed, dval, timer = bcast_decide(bits, tallied, dval,
+                                              st.committed, timer, reset,
+                                              *(byz_decide or crash))
 
     # ---- Telemetry and flight recorder (KAA, the dense engine's; called
     # through its module, so that a stand-in put there sees the call).
@@ -721,7 +742,7 @@ def pbft_bcast_round(cfg: Config, st: PbftState, r: int, n_real, f,
                             *(flight if flight is not None else (None, None)),
                             *((pbft.CRASH_VIEWS | pbft.CRASH_COMMITS,)
                               if crash else ()),
-                            *(() if cfg.byz != BYZ_EQUIV else
+                            *(() if pbft.safety_mode(cfg) != BYZ_EQUIV else
                               ((0,) if not crash else ())
                               + ((pp_val, st.dval, dval),)))
 

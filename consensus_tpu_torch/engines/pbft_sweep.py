@@ -37,11 +37,11 @@ def _fsweep_static(cfg: Config, fs):
     rung. Returns ``(fs, cfg_pad)``; the JAX package's third value, the
     §6b tallies' ``m_cap``, is
     :func:`~consensus_tpu_torch.engines.pbft_bcast.table_cap` of the two,
-    which the runner takes. A ladder with ``crash_prob > 0``, or with more
-    byzantine nodes than its smallest rung tolerates, raises with the JAX
-    package's message (``consensus_tpu/engines/pbft_sweep.py:604-617``);
-    the switch gates that the JAX package checks here cannot be set on the
-    port's Config."""
+    which the runner takes. A ladder with ``crash_prob > 0``, with more
+    byzantine nodes than its smallest rung tolerates, or under the SPEC §9
+    switch with more aggregators than its smallest rung has nodes, raises
+    with the JAX package's message (``consensus_tpu/engines/
+    pbft_sweep.py:604-624``)."""
     fs = [int(f) for f in fs]
     if not fs or min(fs) < 1:
         raise ValueError(f"f-sweep rungs must be >= 1, got {fs!r}")
@@ -53,6 +53,11 @@ def _fsweep_static(cfg: Config, fs):
         raise ValueError(f"n_byzantine={cfg.n_byzantine} exceeds the "
                          f"smallest rung f={min(fs)}; every rung must "
                          f"satisfy the pbft n_byzantine <= f invariant")
+    if cfg.switch_on and cfg.n_aggregators > 3 * min(fs) + 1:
+        raise ValueError(
+            f"n_aggregators={cfg.n_aggregators} exceeds the smallest "
+            f"rung's population 3*{min(fs)}+1 (SPEC §9: K <= n_nodes "
+            "must hold for every rung's standalone twin)")
     n_pad = 3 * max(fs) + 1
     cfg_pad = dataclasses.replace(cfg, protocol="pbft", f=max(fs),
                                   n_nodes=n_pad,

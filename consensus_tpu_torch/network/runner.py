@@ -32,7 +32,7 @@ from ..core.config import Config
 from ..engines import (dpos, hotstuff, paxos, pbft, pbft_bcast, pbft_sweep,
                        raft, raft_sparse)
 from ..engines.raft import RAFT_LATENCY, RAFT_TELEMETRY
-from ..ops import adversary, aggregate
+from ..ops import adversary, aggregate, switch_tally
 from ..ops.flight import BUCKET_LO, N_BUCKETS
 
 # The kernel wrappers the runs launch, one for each source that
@@ -53,14 +53,17 @@ _WRAPPER_MODULES = {"random_u32": rng, "delivery_edges": adversary,
                     "hotstuff_vote": hotstuff, "hotstuff_learn": hotstuff,
                     "hotstuff_extract": hotstuff,
                     "crash_transition": adversary, "freeze_down": adversary,
-                    "hotstuff_prologue": hotstuff, "agg_round": aggregate}
+                    "hotstuff_prologue": hotstuff, "agg_round": aggregate,
+                    "switch_combine": switch_tally,
+                    "switch_receive": switch_tally}
 KERNELS = tuple((_WRAPPER_MODULES.get(name, raft_sparse), name)
                 for name in _build.SOURCES)
 # The wrappers with SPEC §9 SWITCH instances, whose launches of those are
-# counted apart on the wrapper's ``switch_launches`` (and in ``launches``).
+# counted apart on the wrapper's ``switch_launches`` (and in ``launches``),
+# and PBFT's switch kernels KAM and KAN, all of whose launches are.
 SWITCH_KERNELS = tuple((_WRAPPER_MODULES[name], name) for name in (
     "delivery_edges", "dense_elect", "paxos_promise", "paxos_accept_learn",
-    "hotstuff_vote"))
+    "hotstuff_vote", "switch_combine", "switch_receive"))
 
 
 class Engine(NamedTuple):

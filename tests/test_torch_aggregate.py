@@ -336,3 +336,382 @@ def test_switch_at_rate_zero_runs_kal(name):
     assert calls == list(range(24))
     assert tel["agg_down_rounds"].sum() == 0
     assert tel["stale_serves"].sum() == 0
+
+
+# --- PBFT's value-matched tallies (KAL's PBFT modes, KAM, KAN) -------------
+
+# (name, config): PBFT switch configs with partitions, the §A.2 delay,
+# stale aggregators and the §9b axes; an empty trailing aggregator (N = 7,
+# K = 6) and K = N.
+PBFT_CASES = {
+    "edge-9b": dict(protocol="pbft", f=3, n_nodes=10, log_capacity=6,
+                    net_model="switch", n_aggregators=3, drop_rate=0.3,
+                    partition_rate=0.4, max_delay_rounds=2,
+                    agg_fail_rate=0.3, agg_stale_rate=0.6, agg_max_stale=4,
+                    n_byzantine=3, byz_mode="equivocate", agg_byz=2,
+                    agg_poison_rate=0.6, byz_uplink_rate=0.5),
+    "bcast-9b": dict(protocol="pbft", fault_model="bcast", f=3, n_nodes=10,
+                     log_capacity=6, net_model="switch", n_aggregators=4,
+                     drop_rate=0.3, partition_rate=0.4, max_delay_rounds=2,
+                     agg_fail_rate=0.3, agg_stale_rate=0.6, agg_max_stale=4,
+                     n_byzantine=2, agg_byz=1, agg_poison_rate=0.7,
+                     byz_uplink_rate=0.6),
+    "empty-tail": dict(protocol="pbft", f=2, n_nodes=7, log_capacity=5,
+                       net_model="switch", n_aggregators=6, drop_rate=0.2,
+                       partition_rate=0.5, agg_fail_rate=0.2,
+                       agg_stale_rate=0.5, agg_max_stale=2),
+    "k-eq-n": dict(protocol="pbft", fault_model="bcast", f=2, n_nodes=7,
+                   log_capacity=5, net_model="switch", n_aggregators=7,
+                   drop_rate=0.25, agg_fail_rate=0.2, agg_stale_rate=0.4,
+                   agg_max_stale=3, n_byzantine=2, byz_mode="equivocate",
+                   agg_byz=3, agg_poison_rate=0.5, byz_uplink_rate=0.5),
+}
+# Per-lane populations of padded f-ladder lanes (N_pad = 13, at least every
+# case's K): rungs f = 2, 3, 4 and a second full lane.
+N_REALS = (7, 10, 13, 13)
+
+
+def _pbft_cfgs(name):
+    kw = PBFT_CASES[name]
+    return Config(**kw), JConfig(**kw)
+
+
+def _n_real(cfg, ladder: bool):
+    if not ladder:
+        return torch.full((len(SEEDS),), cfg.n_nodes, dtype=torch.int32)
+    return torch.tensor(N_REALS, dtype=torch.int32)
+
+
+def _ladder_cfg(cfg, ladder: bool):
+    """The padded config (N_pad = 13, f = 4) of a ladder lane set, or
+    ``cfg`` itself."""
+    if not ladder:
+        return cfg
+    return dataclasses.replace(cfg, f=4, n_nodes=13)
+
+
+def _jax_sids(N, K, n_real):
+    idx = jnp.arange(N, dtype=jnp.int32)
+    return jnp.minimum(idx // ((n_real + K - 1) // K), K - 1)
+
+
+@pytest.mark.parametrize("traced", [False, True])
+def test_seg_extremes_match_jax(traced):
+    """seg_max and seg_min (static, and traced with padding and empty
+    segments normalised to the identity) with int32 extremes among the
+    values."""
+    gen = np.random.default_rng(5 + traced)
+    N, K = 13, 5
+    x = gen.integers(-2**31, 2**31, (len(SEEDS), N, 3), dtype=np.int64)
+    x[:, 0, 0], x[:, 1, 1] = -2**31, 2**31 - 1
+    x = x.astype(np.int32)
+    for b, nr in enumerate(N_REALS if traced else (N,) * len(SEEDS)):
+        sids = _jax_sids(N, K, nr) if traced else jagg.agg_ids(N, K)
+        for kind, ident in (("max", -2**31), ("min", 2**31 - 1)):
+            fn = getattr(aggregate, f"seg_{kind}_plain")
+            got = fn(torch.from_numpy(x[b:b + 1]),
+                     torch.from_numpy(np.asarray(sids)).to(torch.int64), K,
+                     ident)[0]
+            want = getattr(jagg, f"seg_{kind}")(
+                jnp.asarray(x[b]), sids, K, jnp.int32(ident), traced=traced)
+            np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def _votes_inputs(gen, N, S, K, case):
+    """Built value_votes inputs of one lane: few values (so segments are
+    often uniform), every extreme of the int32 range among them."""
+    vals = gen.choice(np.array([-2**31, 2**31 - 1, 0, 7], np.int32), (N, S))
+    if case == "uniform":
+        vals[:] = 7
+    contrib = gen.random((N, S)) < 0.7
+    up = gen.random(N) < 0.8
+    down = gen.random((K, N)) < 0.7
+    down_own = gen.random(N) < 0.7
+    return vals, contrib, up, down, down_own
+
+
+VOTE_CASES = ("plain", "uniform", "one-liar", "all-liars", "poisoned-own",
+              "support", "everything")
+
+
+@pytest.mark.parametrize("traced", [False, True])
+@pytest.mark.parametrize("case", VOTE_CASES)
+def test_value_votes_matches_jax(case, traced):
+    """value_votes_plain against value_votes on built inputs: value-uniform
+    segments, one liar among honest senders, an all-liar segment, a
+    poisoned own segment, equivocating support, all of them at once; the
+    static and the ladder's traced segmentation (padded ids)."""
+    gen = np.random.default_rng(VOTE_CASES.index(case) * 2 + traced)
+    N, S, K = 13, 4, 4
+    lanes = [_votes_inputs(gen, N, S, K, case) for _ in SEEDS]
+    n_reals = N_REALS if traced else (N,) * len(SEEDS)
+    extra = {}
+    if case in ("one-liar", "all-liars", "everything"):
+        lie = np.zeros((len(SEEDS), N), bool)
+        for b, nr in enumerate(n_reals):
+            seg = -(-nr // K)
+            if case == "all-liars":
+                lie[b, :seg] = True                   # segment 0 all liars
+            else:
+                lie[b, seg + 1] = True                # one liar in segment 1
+        lie_val = gen.integers(-2**31, 2**31, (len(SEEDS), N)).astype(
+            np.int32)
+        lie_val[:, 0] = 7
+        extra.update(lie=lie, lie_val=lie_val)
+    if case in ("poisoned-own", "everything"):
+        poison = np.zeros((len(SEEDS), K), bool)
+        poison[:, 0] = True
+        extra["poison"] = poison
+    if case in ("support", "everything"):
+        extra["eq_up"] = gen.random((len(SEEDS), N)) < 0.4
+    stack = [np.stack(x) for x in zip(*lanes)]
+    sids_l = [np.asarray(_jax_sids(N, K, nr) if traced else jagg.agg_ids(N, K))
+              for nr in n_reals]
+    sids_t = torch.from_numpy(np.stack(sids_l)).to(torch.int64)
+    real = np.arange(N)[None, :] < np.asarray(n_reals)[:, None]
+    t = {k: torch.from_numpy(v) for k, v in extra.items()}
+    if "poison" in extra:
+        t["widths"] = aggregate.seg_widths_plain(torch.from_numpy(real),
+                                                 sids_t, K)
+    got = aggregate.value_votes_plain(
+        *(torch.from_numpy(x) for x in stack), sids_t, K, **t)
+    for b in range(len(SEEDS)):
+        kw = {k: jnp.asarray(v[b]) for k, v in extra.items()}
+        if "poison" in extra:
+            kw["widths"] = jagg.seg_widths(jnp.asarray(real[b]),
+                                           jnp.asarray(sids_l[b]), K,
+                                           traced=traced)
+        want = jagg.value_votes(*(jnp.asarray(x[b]) for x in stack),
+                                jnp.asarray(sids_l[b]), K, traced=traced,
+                                **kw)
+        np.testing.assert_array_equal(got[b].numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("traced", [False, True])
+def test_min_id_votes_matches_jax(traced):
+    """min_id_votes_plain against min_id_votes: deciders anywhere, no
+    decider in a segment, padded receivers (which adopt too)."""
+    gen = np.random.default_rng(11 + traced)
+    N, S, K = 13, 5, 4
+    n_reals = N_REALS if traced else (N,) * len(SEEDS)
+    dec = gen.random((len(SEEDS), N, S)) < 0.3
+    dec[:, :, 0] = False                                   # no decider
+    dval = gen.integers(-2**31, 2**31, (len(SEEDS), N, S)).astype(np.int32)
+    up = gen.random((len(SEEDS), N)) < 0.8
+    down = gen.random((len(SEEDS), K, N)) < 0.6
+    sids_l = [np.asarray(_jax_sids(N, K, nr) if traced else jagg.agg_ids(N, K))
+              for nr in n_reals]
+    imin, vad = aggregate.min_id_votes_plain(
+        *(torch.from_numpy(x) for x in (dec, dval, up, down)),
+        torch.from_numpy(np.stack(sids_l)).to(torch.int64), K, N)
+    for b in range(len(SEEDS)):
+        wi, wv = jagg.min_id_votes(*(jnp.asarray(x[b]) for x in (
+            dec, dval, up, down)), jnp.asarray(sids_l[b]), K, N,
+            traced=traced)
+        np.testing.assert_array_equal(imin[b].numpy(), np.asarray(wi))
+        np.testing.assert_array_equal(vad[b].numpy(), np.asarray(wv))
+
+
+@pytest.mark.parametrize("ladder", [False, True])
+@pytest.mark.parametrize("r", (0, 3, 200))
+@pytest.mark.parametrize("name", list(PBFT_CASES))
+def test_pbft_uplinks_and_downlinks_match_jax(name, r, ladder):
+    """uplink_edge (each phase), uplink_bcast, downlink and downlink_self
+    with the standalone vertex base and each ladder lane's n_real."""
+    cfg, jcfg = _pbft_cfgs(name)
+    cfg = _ladder_cfg(cfg, ladder)
+    if ladder:
+        jcfg = dataclasses.replace(jcfg, f=4, n_nodes=13)
+    seed, N, K = _seed(), cfg.n_nodes, cfg.n_aggregators
+    n_real = _n_real(cfg, ladder) if ladder else None
+    st = aggregate.agg_draws_plain(cfg, seed, r)
+    ub = aggregate.uplink_bcast_plain(cfg, seed, st, n_real)
+    for b, s in enumerate(SEEDS):
+        j = jagg.agg_round(jcfg, jnp.uint32(s), jnp.uint32(r))
+        kw = {}
+        if ladder:
+            kw = dict(seg_ids=_jax_sids(N, K, N_REALS[b]),
+                      n_vert=jnp.int32(N_REALS[b]))
+        np.testing.assert_array_equal(ub[b].numpy(), np.asarray(
+            jagg.uplink_bcast(jcfg, jnp.uint32(s), j, traced=ladder, **kw)))
+        for ph in range(3):
+            ue = aggregate.uplink_edge_plain(cfg, seed, st, ph, n_real)
+            np.testing.assert_array_equal(ue[b].numpy(), np.asarray(
+                jagg.uplink_edge(jcfg, jnp.uint32(s), j, ph, traced=ladder,
+                                 **kw)))
+            dn = aggregate.downlink_plain(cfg, seed, r, st, ph,
+                                          np.arange(N), n_real)
+            np.testing.assert_array_equal(dn[b].numpy(), np.asarray(
+                jagg.downlink(jcfg, jnp.uint32(s), jnp.uint32(r), j, ph,
+                              jnp.arange(N), n_vert=kw.get("n_vert"))))
+            ds = aggregate.downlink_self_plain(cfg, seed, r, st, ph, n_real)
+            np.testing.assert_array_equal(ds[b].numpy(), np.asarray(
+                jagg.downlink_self(jcfg, jnp.uint32(s), jnp.uint32(r), j,
+                                   ph, **kw)))
+
+
+@pytest.mark.parametrize("ladder", [False, True])
+@pytest.mark.parametrize("r", (0, 3, 200))
+@pytest.mark.parametrize("name", list(PBFT_CASES))
+def test_kal_pbft_modes_match_jax(name, r, ladder):
+    """KAL's plain version on PBFT: the poison bits of phases 0 and 1 only,
+    the aggregators' sides at vertex n_real + a, and the uplinks (three on
+    the edge model, the one §6b mask), cut at down nodes."""
+    from consensus_tpu.core import rng as jrng
+    from consensus_tpu.ops.adversary import draw as jdraw
+    cfg, jcfg = _pbft_cfgs(name)
+    cfg = _ladder_cfg(cfg, ladder)
+    seed, N, K = _seed(), cfg.n_nodes, cfg.n_aggregators
+    n_real = _n_real(cfg, True)
+    flags = torch.from_numpy(
+        (np.random.default_rng(r).random((len(SEEDS), N)) < 0.3)
+        .astype(np.uint8) * CRASH_DOWN)
+    got = aggregate.agg_round_plain(cfg, seed, r, flags, n_real=n_real)
+    bcast = cfg.fault_model == "bcast"
+    assert got.up.shape == (len(SEEDS), 1 if bcast else 3, N)
+    for b, s in enumerate(SEEDS):
+        nr = int(n_real[b])
+        j = jagg.agg_round(jcfg, jnp.uint32(s), jnp.uint32(r))
+        word = np.where(np.asarray(j.alive), 1, 0) if j.alive is not None \
+            else np.ones(K, np.int64)
+        if cfg.partition_cutoff:
+            side = np.asarray(jdraw(jnp.uint32(s), jrng.STREAM_PARTITION,
+                                    jnp.uint32(r), 1,
+                                    jnp.uint32(nr) + jnp.arange(
+                                        K, dtype=jnp.uint32))) & 1
+            word = word | side * aggregate.AGG_SIDE
+        for ph in (0, 1):
+            pz = jagg.agg_poison(jcfg, jnp.uint32(s), jnp.uint32(r), ph)
+            if pz is not None:
+                word = word | np.asarray(pz) * (aggregate.AGG_POISON0 << ph)
+        np.testing.assert_array_equal(got.tab[b].numpy(), word)
+        kw = dict(seg_ids=_jax_sids(N, K, nr), n_vert=jnp.int32(nr),
+                  traced=True)
+        ups = [jagg.uplink_bcast(jcfg, jnp.uint32(s), j, **kw)] if bcast \
+            else [jagg.uplink_edge(jcfg, jnp.uint32(s), j, ph, **kw)
+                  for ph in range(3)]
+        alive = (flags[b] & CRASH_DOWN).numpy() == 0
+        for row, u in enumerate(ups):
+            np.testing.assert_array_equal(got.up[b, row].numpy(),
+                                          np.asarray(u) & alive)
+
+
+@pytest.mark.parametrize("ladder", [False, True])
+@pytest.mark.parametrize("r", (1, 3, 200))
+@pytest.mark.parametrize("name", list(PBFT_CASES))
+def test_kam_kan_plain_match_jax(name, r, ladder):
+    """KAM's and KAN's plain versions, composed, against the JAX package's
+    P4, P5 and P6 on built states (value_votes, min_id_votes and the
+    rounds' thresholds, ``pbft_sweep.py:110-134``), with the standalone
+    vertex base and each ladder lane's n_real; prepared, committed, dval
+    and the timers of every id, padded ones included."""
+    from consensus_tpu.core import rng as jrng
+    from consensus_tpu.ops.adversary import draw as jdraw
+    from consensus_tpu_torch.ops import switch_tally
+    cfg, jcfg = _pbft_cfgs(name)
+    cfg = _ladder_cfg(cfg, ladder)
+    if ladder:
+        jcfg = dataclasses.replace(jcfg, f=4, n_nodes=13)
+    seed, N, K, S = _seed(), cfg.n_nodes, cfg.n_aggregators, cfg.log_capacity
+    B = len(SEEDS)
+    n_real = _n_real(cfg, ladder)
+    f = (n_real - 1) // 3
+    gen = np.random.default_rng(r * 7 + ladder)
+    pp_seen = gen.random((B, N, S)) < 0.8
+    pp_val = gen.choice(np.array([3, -2**31, 2**31 - 1], np.int32), (B, N, S),
+                        p=[0.8, 0.1, 0.1])
+    prepared = pp_seen & (gen.random((B, N, S)) < 0.3)
+    committed = prepared & (gen.random((B, N, S)) < 0.3)
+    dval = gen.integers(-9, 9, (B, N, S)).astype(np.int32)
+    timer = gen.integers(0, 5, (B, N)).astype(np.int32)
+    reset = gen.random((B, N)) < 0.3
+    real = np.arange(N)[None, :] < n_real.numpy()[:, None]
+    for x in (pp_seen, prepared, committed):
+        x &= real[:, :, None]
+    agg = aggregate.agg_round_plain(cfg, seed, r, n_real=n_real)
+    t = {k: torch.from_numpy(v) for k, v in dict(
+        pp_seen=pp_seen, pp_val=pp_val, prepared=prepared,
+        committed=committed, dval=dval, timer=timer, reset=reset).items()}
+    got = switch_tally.switch_phases(cfg, seed, r, agg, n_real, f,
+                                     t["pp_seen"], t["pp_val"], t["prepared"],
+                                     t["committed"], t["dval"], t["timer"],
+                                     t["reset"])
+    nb = cfg.n_byzantine
+    bcast = cfg.fault_model == "bcast"
+    for b, s in enumerate(SEEDS):
+        nr = int(n_real[b])
+        honest = jnp.arange(N) < nr - nb
+        byz = (jnp.arange(N) < nr) & ~honest
+        js = jnp.uint32(s)
+        if ladder:
+            # The JAX package's ladder phases (K17), per lane.
+            wp, wc, wd = _padded_switch_phases_lane(
+                jcfg, js, r, nr, honest, pp_seen[b], pp_val[b], prepared[b],
+                committed[b], dval[b], 2 * int(f[b]) + 1, byz, bcast)
+        else:
+            wp, wc, wd = _engine_switch_phases_lane(
+                jcfg, js, r, honest, byz, pp_seen[b], pp_val[b],
+                prepared[b], committed[b], dval[b], 2 * int(f[b]) + 1, bcast)
+        np.testing.assert_array_equal(got[0][b].numpy(), np.asarray(wp))
+        np.testing.assert_array_equal(got[2][b].numpy(), np.asarray(wc))
+        np.testing.assert_array_equal(got[3][b].numpy(), np.asarray(wd))
+        new = np.asarray(wc & ~committed[b]).any(1)
+        want_t = np.where(reset[b] | new, np.where(new, 0, timer[b]),
+                          timer[b] + 1)
+        np.testing.assert_array_equal(got[4][b].numpy(), want_t)
+
+
+def _padded_switch_phases_lane(jcfg, seed, r, nr, honest, pp_seen, pp_val,
+                               prepared, committed, dval, Q, byz, bcast):
+    from consensus_tpu.engines.pbft_sweep import _padded_switch_phases
+    equiv = jcfg.byz_mode == "equivocate" and jcfg.n_byzantine > 0
+    return _padded_switch_phases(
+        jcfg, seed, jnp.uint32(r), jnp.int32(nr), honest,
+        jnp.asarray(pp_seen), jnp.asarray(pp_val), jnp.asarray(prepared),
+        jnp.asarray(committed), jnp.asarray(dval), jnp.int32(Q),
+        byz=byz if equiv else None, bcast_uplink=bcast)
+
+
+def _engine_switch_phases_lane(jcfg, seed, r, honest, byz, pp_seen, pp_val,
+                               prepared, committed, dval, Q, bcast):
+    """The standalone engines' switch P4-P6 (``pbft.py:271-361``,
+    ``pbft_bcast.py:564-642`` without a crash), transcribed from the JAX
+    package's own functions."""
+    from consensus_tpu.core import rng as jrng
+    from consensus_tpu.ops.adversary import draw as jdraw
+    N, K = jcfg.n_nodes, jcfg.n_aggregators
+    ur = jnp.uint32(r)
+    idx = jnp.arange(N, dtype=jnp.int32)
+    aggst = jagg.agg_round(jcfg, seed, ur)
+    sids = jagg.agg_ids(N, K)
+    pz4 = jagg.agg_poison(jcfg, seed, ur, 0)
+    pz5 = jagg.agg_poison(jcfg, seed, ur, 1)
+    wid = jagg.seg_widths(jnp.ones(N, bool), sids, K) \
+        if pz4 is not None else None
+    lie, fval = jagg.uplink_lies(jcfg, seed, ur, ~honest)
+    equiv = jcfg.byz_mode == "equivocate" and jcfg.n_byzantine > 0
+    stance = (jdraw(seed, jrng.STREAM_EQUIV, ur, idx.astype(jnp.uint32),
+                    jnp.uint32(0x80000000)) & jnp.uint32(1)).astype(bool)
+    ups = [jagg.uplink_bcast(jcfg, seed, aggst)] * 3 if bcast else \
+        [jagg.uplink_edge(jcfg, seed, aggst, ph) for ph in range(3)]
+    pp_seen, pp_val = jnp.asarray(pp_seen), jnp.asarray(pp_val)
+    prepared, committed = jnp.asarray(prepared), jnp.asarray(committed)
+    dval = jnp.asarray(dval)
+
+    def votes(ph, flag, pz):
+        return jagg.value_votes(
+            pp_val, honest[:, None] & flag, ups[ph],
+            jagg.downlink(jcfg, seed, ur, aggst, ph, idx),
+            jagg.downlink_self(jcfg, seed, ur, aggst, ph), sids, K,
+            eq_up=(byz & stance & ups[ph]) if equiv else None, lie=lie,
+            lie_val=fval, poison=pz, widths=wid) \
+            + (honest[:, None] & flag).astype(jnp.int32)
+    prepared = prepared | (pp_seen & (votes(0, pp_seen, pz4) >= Q))
+    commit_now = prepared & (votes(1, prepared, pz5) >= Q) & ~committed
+    dval = jnp.where(commit_now, pp_val, dval)
+    committed = committed | commit_now
+    imin, vad = jagg.min_id_votes(
+        honest[:, None] & committed, dval, ups[2],
+        jagg.downlink(jcfg, seed, ur, aggst, 2, idx), sids, K, N)
+    adopt = (imin < N) & ~committed
+    return prepared, committed | adopt, jnp.where(adopt, vad, dval)

@@ -734,13 +734,14 @@ SWITCH = dict(net_model="switch", n_aggregators=3, agg_fail_rate=0.1,
 # The engines that run the switch, each at a small shape.
 SWITCH_ENGINES = {
     "raft-capped": OK, "raft-dense": {**OK, "max_active": 0},
-    "paxos": PAXOS_OK, "hotstuff": HOTSTUFF_OK,
+    "paxos": PAXOS_OK, "hotstuff": HOTSTUFF_OK, "pbft-edge": PBFT_OK,
+    "pbft-bcast": {**PBFT_OK, "fault_model": "bcast"},
 }
 # Beside each gate the port composes the switch with.
 SWITCH_BESIDE = {"none": {}, "delay": dict(max_delay_rounds=3),
                  "crash": dict(crash_prob=0.1, recover_prob=0.3),
                  "partition": dict(partition_rate=0.2)}
-# SPEC §9b on HotStuff: each axis alone and both.
+# SPEC §9b on HotStuff and PBFT: each axis alone and both.
 SWITCH_9B = {
     "poison": dict(agg_byz=1, agg_poison_rate=0.5),
     "lies": dict(n_byzantine=2, byz_uplink_rate=0.4),
@@ -849,17 +850,39 @@ def test_switch_on_dpos_raises_with_the_jax_message():
     assert str(err.value) == msg
 
 
-@pytest.mark.parametrize("kw", [{}, SWITCH_9B["poison"], SWITCH_9B["both"]],
-                         ids=["switch", "poison", "both"])
+@pytest.mark.parametrize("case", list(SWITCH_9B))
 @pytest.mark.parametrize("model", ["edge", "bcast"])
-def test_switch_on_pbft_still_raises(model, kw):
-    """The switch on pbft (both fault models, and so both ladders) waits
-    for its value-matched tallies; the JAX package accepts it."""
+def test_switch_9b_is_accepted_on_pbft(model, case):
+    """SPEC §9b on both PBFT fault models (and so both ladders), each axis
+    alone and both, with the JAX package's gates and cutoffs."""
     from consensus_tpu import Config as JConfig
-    cfg = {**PBFT_OK, "fault_model": model, **SWITCH, **kw}
-    JConfig(**cfg)
-    with pytest.raises(ValueError, match="net_model='switch' on pbft"):
-        Config(**cfg)
+    kw = {**PBFT_OK, "fault_model": model, **SWITCH, **SWITCH_9B[case]}
+    cfg, jcfg = Config(**kw), JConfig(**kw)
+    for gate in ("switch_on", "agg_poison_on", "uplink_lies_on",
+                 "agg_poison_cutoff", "byz_uplink_cutoff"):
+        assert getattr(cfg, gate) == getattr(jcfg, gate), gate
+    assert cfg.switch_on
+
+
+@pytest.mark.parametrize("model", ["edge", "bcast"])
+def test_ladder_rejects_more_aggregators_than_its_least_rung(model):
+    """``_fsweep_static``'s K <= 3 min(fs) + 1 with the JAX package's
+    message (consensus_tpu/engines/pbft_sweep.py:618-624); K at the bound
+    is accepted."""
+    from consensus_tpu import Config as JConfig
+    from consensus_tpu.engines import pbft_sweep as jsweep
+    from consensus_tpu_torch.engines import pbft_sweep
+    kw = dict(protocol="pbft", fault_model=model, f=5, n_nodes=16,
+              n_rounds=4, log_capacity=8, net_model="switch",
+              n_aggregators=8)
+    with pytest.raises(ValueError) as want:
+        jsweep._fsweep_static(JConfig(**kw), [1, 3])
+    with pytest.raises(ValueError) as got:
+        pbft_sweep._fsweep_static(Config(**kw), [1, 3])
+    assert str(got.value) == str(want.value)
+    assert "n_aggregators=8" in str(got.value)
+    at = {**kw, "n_aggregators": 4}
+    assert pbft_sweep._fsweep_static(Config(**at), [1, 3])[1].switch_on
 
 
 @pytest.mark.parametrize("k", [1, 5, 9])
