@@ -359,6 +359,40 @@ Phases, each printing one JSON line:
                second, replay wall, busy share and device operations a
                round; the scenario's runs fork QCs, commit conflicting
                values, flag safety violations and keep availability 0.7.
+22. pbft_switch — SPEC §9 switch tallies and §9b on PBFT (dense, §6b and
+               both f-ladders): every kernel call of rounds 3 and 20 of the
+               runs, the ladders and built runs against the plain versions
+               (KAL's PBFT modes, KAM ``csrc/switch_combine.cu`` and KAN
+               ``csrc/switch_receive.cu`` among them), the switch round
+               timed against the flat round's tallies on the same inputs,
+               then the runs against JAX-made anchors.
+23. knobs    — the knob batch (K23, ``runner.run_knob_batch``): a
+               generation of adversary-search candidates as the lanes of
+               one CUDA graph, each lane reading its own row of cutoffs.
+               Every kernel call of rounds 3 and 20 of generation 0 of
+               hotstuff-forked-qc-1k, of a HotStuff batch at
+               hotstuff-100k's shape (partitions and the §B desync on, 8
+               rows, one the base's, one with the partition zeroed) and of
+               a pbft-100k-bcast batch under phase 16's capped crash (8
+               rows), and of round 20 of each with every row the base's,
+               against the plain versions, exact (the KNOBS instances of
+               KAJ, KAD, KAE flat and SWITCH, KAL, KAH and KT among them;
+               with every row the base's each KNOBS instance also equals its
+               flat instance). Each instance's time on round 20, its plain
+               version's and its bound, and on the all-base round its time
+               and its flat instance's time and bound. Then three
+               generations each of hotstuff-forked-qc-1k and
+               pbft-quorum-1k (population 16, 96 rounds, 4-round windows;
+               seeds and rows from the search, written in below): every
+               lane's digest of its extract and flight recorder equal to
+               the JAX package's ``run_knob_batch``, one capture for the
+               three, the path's kernels and each KNOBS instance on it
+               launched (counted from 0), two lanes of each generation
+               equal to production runs of their own configs; and the two
+               full-width batches as one replay each: their lanes' JAX
+               anchors, the path's kernels and KNOBS instances launched,
+               node-round-steps per second, replay wall, busy share and
+               device operations a round.
 
 Every line carries ``elapsed_s``, the seconds since the script's start.
 Then the card's name and power limit, one ``{"kernels": [...]}`` line, and
@@ -373,8 +407,12 @@ KAI from raft-100k's and pbft-100k-bcast's uncapped crash runs, KAJ
 from hotstuff-100k's composed run, KAK from pbft-100k-bcast's
 equivocating run, KAL from hotstuff-100k's §9b run, and each SWITCH
 instance (a row of its own: KB's, KM's, KY's, KZ's, KAE's and KAE's under
-§9b) from its phase-21 run; the other runs' counts are in their
-phases' lines. Any
+§9b) from its phase-21 run, KAM and KAN from pbft-100k-bcast's switch run,
+and each KNOBS instance (a row of its own: KAJ's, KAD's and KAE's from the
+HotStuff 100k batch, KAE's SWITCH instance and KAL's from the three
+generations of hotstuff-forked-qc-1k, KAH's and KT's from the
+pbft-100k-bcast batch) from its phase-23 run, counting its KNOBS launches;
+the other runs' counts are in their phases' lines. Any
 failure, or no GPU, exits non-zero without that last line.
 """
 from __future__ import annotations
@@ -835,12 +873,14 @@ def standing_in(module, names, make):
     """Replace each wrapper ``names`` of the round's ``module`` by
     ``make(name, wrapper)`` while the block runs. A wrapper counts its
     launches on the module attribute it is called by, so each stand-in
-    carries a ``launches`` (and ``switch_launches``) of its own."""
+    carries a ``launches`` (and ``switch_launches`` and ``knob_launches``)
+    of its own."""
     originals = {name: getattr(module, name) for name in names}
     try:
         for name, fn in originals.items():
             stand_in = make(name, fn)
             stand_in.launches = stand_in.switch_launches = 0
+            stand_in.knob_launches = 0
             setattr(module, name, stand_in)
         yield
     finally:
@@ -3232,7 +3272,7 @@ def plain_ops_by_phase(cfg, device="cuda", telemetry=False,
     return out
 
 
-def profile_replay(cfg, rungs=None, telemetry=False) -> dict:
+def profile_replay(cfg, rungs=None, telemetry=False, run=None) -> dict:
     """The flagship's graph replay: wall time of one replay up to the
     device's end (host clock, best of five), and one more replay under
     torch.profiler (after a warm-up step of the profiler, which misses the
@@ -3242,13 +3282,17 @@ def profile_replay(cfg, rungs=None, telemetry=False) -> dict:
     operations, and its busy share, device time over the same replay's
     wall. The profiler slows the host's side of a replay by a cost per
     device operation, so ``unprofiled_busy_share`` also divides that
-    device time by the best unprofiled replay's wall."""
+    device time by the best unprofiled replay's wall. ``run``, where
+    given, is the replay (a knob batch's) in place of ``cfg``'s run."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     from consensus_tpu_torch.network import runner
 
     def replay():
-        runner.run_device(cfg, rungs=rungs, telemetry=telemetry)
+        if run is not None:
+            run()
+        else:
+            runner.run_device(cfg, rungs=rungs, telemetry=telemetry)
     replay()                                    # the graph is captured
     walls = []
     for _ in range(5):
@@ -4763,6 +4807,7 @@ def recording_everywhere(got):
                     got.setdefault(name, []).append(clone_args(args))
                     return fn(*args)
                 record.launches = record.switch_launches = 0
+                record.knob_launches = 0
                 setattr(mod, name, record)
                 swapped.append((mod, name, fn))
     try:
@@ -7836,6 +7881,709 @@ def check_pbft_switch_runs(card: str, smi: str) -> dict[str, int]:
 T0 = time.perf_counter()
 
 
+# --- phase 23: the knob batch (K23) on HotStuff and §6b PBFT ----------------
+
+# The wrappers with KNOBS instances (no new source: a knob batch's lanes read
+# their cutoffs from the view's table, core/knobs.py).
+KNOB_INSTANCES = ("hotstuff_prologue", "hotstuff_propose", "hotstuff_vote",
+                  "agg_round", "crash_transition", "bcast_view_preprepare")
+KNOB_REPLACES = {
+    "hotstuff_prologue (knobs)": "consensus_tpu/network/runner.py:1019 "
+    "_knob_batch_jit; engines/hotstuff.py:207 prologue under a KnobView",
+    "hotstuff_propose (knobs)": "consensus_tpu/network/runner.py:1019 "
+    "_knob_batch_jit; engines/hotstuff.py:232 P0-P2 under a KnobView",
+    "hotstuff_vote (knobs)": "consensus_tpu/network/runner.py:1019 "
+    "_knob_batch_jit; engines/hotstuff.py:300 P2-P4 under a KnobView",
+    "hotstuff_vote (knobs, switch)": "consensus_tpu/network/runner.py:1019 "
+    "_knob_batch_jit; engines/hotstuff.py:340 votes §9 branch under a "
+    "KnobView",
+    "agg_round (knobs)": "consensus_tpu/network/runner.py:1019 "
+    "_knob_batch_jit; ops/aggregate.py:93 agg_round under a KnobView",
+    "crash_transition (knobs)": "consensus_tpu/network/runner.py:1019 "
+    "_knob_batch_jit; ops/adversary.py:101 crash_transition under a "
+    "KnobView",
+    "bcast_view_preprepare (knobs)": "consensus_tpu/network/runner.py:1019 "
+    "_knob_batch_jit; engines/pbft_bcast.py:360 under a KnobView"}
+# The row of each KNOBS instance: its wrapper, whether it is KAE's SWITCH
+# instance, and the run whose round-20 call is timed and whose run counts
+# its launches.
+KNOB_TIMED = {
+    "hotstuff_prologue (knobs)": ("hotstuff_prologue", False,
+                                  "hotstuff-100k/knobs"),
+    "hotstuff_propose (knobs)": ("hotstuff_propose", False,
+                                 "hotstuff-100k/knobs"),
+    "hotstuff_vote (knobs)": ("hotstuff_vote", False, "hotstuff-100k/knobs"),
+    "hotstuff_vote (knobs, switch)": ("hotstuff_vote", True,
+                                      "hotstuff-forked-qc-1k"),
+    "agg_round (knobs)": ("agg_round", True, "hotstuff-forked-qc-1k"),
+    "crash_transition (knobs)": ("crash_transition", False,
+                                 "pbft-100k-bcast/knobs"),
+    "bcast_view_preprepare (knobs)": ("bcast_view_preprepare", False,
+                                      "pbft-100k-bcast/knobs")}
+KNOB_ROUNDS = (3, 20)
+# The bases of tools/advsearch/search.py's spaces hotstuff-forked-qc-1k and
+# pbft-quorum-1k (lines 262-297, with _ADV: window 4, 96 rounds, seed 0), at
+# the CLI's default population of 16 (tools/advsearch/__main__.py:318), and
+# the knobs each space searches, in its order.
+KNOB_POPULATION = 16
+KNOB_SPACES = {
+    "hotstuff-forked-qc-1k": (dict(
+        protocol="hotstuff", f=341, n_nodes=1024, log_capacity=96,
+        view_timeout=4, net_model="switch", n_aggregators=16, agg_byz=1,
+        n_byzantine=341, byz_mode="equivocate", agg_poison_rate=0.3,
+        byz_uplink_rate=0.2, drop_rate=0.1, telemetry_window=4, n_rounds=96,
+        seed=0), ("agg_poison_rate", "byz_uplink_rate", "drop_rate")),
+    "pbft-quorum-1k": (dict(
+        protocol="pbft", f=341, n_nodes=1024, fault_model="bcast",
+        log_capacity=96, drop_rate=0.3, partition_rate=0.1, churn_rate=0.02,
+        crash_prob=0.1, recover_prob=0.3, max_crashed=64, max_delay_rounds=2,
+        telemetry_window=4, n_rounds=96, seed=0),
+        ("drop_rate", "partition_rate", "churn_rate", "crash_prob",
+         "recover_prob")),
+}
+KNOB_SEARCH_SEED = 11
+# Two lanes of each generation also run as production runs of their own
+# configs.
+KNOB_PRODUCTION_LANES = (0, 9)
+# The two knob batches at full width: hotstuff-100k with partitions and the
+# §B desync on (drop and churn are its own), and pbft-100k-bcast under phase
+# 16's capped crash (CHURN_PARTITION), each with 8-round windows and 8
+# lanes, each lane a row of its own: lane 0 the base's, lane 1 the base with
+# the partition (a gated-on knob) zeroed.
+KNOB_BATCHES = {
+    "hotstuff-100k/knobs": (
+        dict(HOTSTUFF_FLAGSHIP, partition_rate=0.05, desync_rate=0.1,
+             max_skew_rounds=4, telemetry_window=WINDOW),
+        ({}, dict(partition_rate=0.0), dict(drop_rate=0.05),
+         dict(drop_rate=0.2, churn_rate=0.01),
+         dict(partition_rate=0.3, desync_rate=0.3),
+         dict(desync_rate=0.02, churn_rate=0.0),
+         dict(drop_rate=0.35, partition_rate=0.15, desync_rate=0.2),
+         dict(churn_rate=0.05, desync_rate=0.45))),
+    "pbft-100k-bcast/knobs": (
+        dict(BCAST_FLAGSHIP, **CHURN_PARTITION, telemetry_window=WINDOW),
+        ({}, dict(partition_rate=0.0), dict(crash_prob=0.3,
+                                            recover_prob=0.1),
+         dict(drop_rate=0.2), dict(churn_rate=0.0, crash_prob=0.02),
+         dict(partition_rate=0.5, recover_prob=0.9),
+         dict(drop_rate=0.01, churn_rate=0.15),
+         dict(crash_prob=0.6, recover_prob=0.6, drop_rate=0.1))),
+}
+KNOB_BATCH_SEEDS = (8, 0xFFFFFFFF, 3, 77, 1 << 31, 12345, 9, 2024)
+# The three generations of each space: each lane's seed and knob values, in
+# KNOB_SPACES' order, as tools/advsearch's run_search at KNOB_SEARCH_SEED
+# gave them (search.eval_seed, search.next_population); and each lane's
+# digest (knob_lane_digests) from the JAX package's run_knob_batch; then the
+# two knob batches' lane digests, likewise. Made on the CPU by
+#
+#   JAX_PLATFORMS=cpu python3 - <<'EOF'
+#   import dataclasses, json, numpy as np, chip_smoke
+#   from consensus_tpu import Config
+#   from consensus_tpu.network import runner, simulator
+#   from tools.advsearch import search
+#   gens = {}
+#   for name, (base, fields) in chip_smoke.KNOB_SPACES.items():
+#       space, got, pops = search.SPACES[name], [], []
+#       real_pop, real_dispatch = search.next_population, search._dispatch
+#       def pop(*a, **k):
+#           pops.append(real_pop(*a, **k))
+#           return pops[-1]
+#       def dispatch(cfg, eng, seeds, kmat, **k):
+#           out, flight = real_dispatch(cfg, eng, seeds, kmat, **k)
+#           got.append((seeds.tolist(),
+#                       chip_smoke.knob_lane_digests(out, flight)))
+#           return out, flight
+#       search.next_population, search._dispatch = pop, dispatch
+#       search.run_search(space, search_seed=chip_smoke.KNOB_SEARCH_SEED,
+#                         generations=3, population=16, confirm=False)
+#       search.next_population, search._dispatch = real_pop, real_dispatch
+#       gens[name] = [(s, [[p[f] for f in fields] for p in ps], d)
+#                     for (s, d), ps in zip(got, pops)]
+#   batches = {}
+#   for key in chip_smoke.KNOB_BATCHES:
+#       base, cfgs, seeds, kmat = chip_smoke.knob_batch(key)
+#       jbase = Config(**dataclasses.asdict(base))
+#       out, flight = runner.run_knob_batch(
+#           jbase, simulator.engine_def(jbase), seeds, kmat)
+#       batches[key] = chip_smoke.knob_lane_digests(out, flight)
+#   print(json.dumps([gens, batches]))
+#   EOF
+#
+# (the JAX package took 6 s and 109 s for the two spaces' three generations
+# and 7 s and 238 s for the two batches, on 8 CPU cores.)
+KNOB_GENERATIONS = {
+ 'hotstuff-forked-qc-1k': [((1679678445, 1534475689, 278192867, 2354117381,
+                             3694801633, 2145619974, 4279672098, 3017178572,
+                             3508595031, 3622200387, 3816601057, 886418844,
+                             3209889851, 2172454415, 658177925, 3890115422),
+                            ((0.4729, 0.9241, 0.3965),
+                             (0.6478, 0.8193, 0.1525),
+                             (0.0767, 0.2644, 0.1134), (0.7987, 0.589, 0.0011),
+                             (0.3099, 0.2162, 0.2987),
+                             (0.6419, 0.3845, 0.3159),
+                             (0.1398, 0.8967, 0.1075),
+                             (0.6643, 0.3077, 0.3969),
+                             (0.6674, 0.4911, 0.1165),
+                             (0.6013, 0.5136, 0.1372),
+                             (0.5725, 0.7901, 0.1425),
+                             (0.3793, 0.2035, 0.3928), (0.8547, 0.2926, 0.094),
+                             (0.1983, 0.4136, 0.076), (0.0577, 0.48, 0.0644),
+                             (0.3492, 0.5186, 0.0723)),
+                            ('149f48e485a50d5f29d9d969',
+                             'cb80b064813619619b55359a',
+                             '2ce3f1bfb2ddb67d4fe0c71d',
+                             '7830f68bcda9eeac4c02d99b',
+                             'db5db62bea5778fbe22e101c',
+                             'dccfd2c39c025a8cfbfb6d29',
+                             '77c193cbb235894ff54461ba',
+                             '9775e6ca1c1df47a9b40563b',
+                             'e4cdd2a7617438406e3aeaf5',
+                             '03e6d563b3651df368ce5396',
+                             'fe23ffc956950f01580ad8b2',
+                             'c592a6a7ed3738f63d5b7c95',
+                             '5a3a6de7e4af81c1e4bcf83c',
+                             'd254e1677d991ef1c3adec37',
+                             '992c3640eb0a4a822de7aa9b',
+                             'fb2b87ae42b0547389e5275c')),
+                           ((1677358738, 640328353, 2651076246, 1109509310,
+                             1159399247, 476842274, 2262828114, 622629121,
+                             1677510738, 3621436798, 4171883027, 3288336079,
+                             3911128341, 24712174, 2819732854, 1186635878),
+                            ((0.3099, 0.2162, 0.2987),
+                             (0.3793, 0.2035, 0.3928),
+                             (0.6419, 0.3845, 0.3159),
+                             (0.6643, 0.3077, 0.3969),
+                             (0.4729, 0.9241, 0.3965),
+                             (0.6478, 0.8193, 0.1525),
+                             (0.5725, 0.7901, 0.1425),
+                             (0.6643, 0.3077, 0.3988),
+                             (0.6546, 0.8523, 0.0686),
+                             (0.6419, 0.2748, 0.3159),
+                             (0.7589, 0.3077, 0.3969),
+                             (0.5776, 0.9241, 0.3965),
+                             (0.4729, 0.9241, 0.3207), (0.9433, 0.9126, 0.265),
+                             (0.7754, 0.399, 0.1958),
+                             (0.1611, 0.4265, 0.3687)),
+                            ('66065c244e9b1bd4d54428af',
+                             '32ae9f60e2e0a0f9b6f00497',
+                             '42f15d02f0e6ee8d2a0c0893',
+                             '37350739841857486bc0810b',
+                             '37fc868b1190fc32918d34f3',
+                             '16439f5bbd6fa8a46820ecf3',
+                             '6cabb6063db05d3da1837292',
+                             'bfdc3215dd8bcec7b5d43b5b',
+                             '4ffcae2a3f749ca217808228',
+                             '8d04ea789944f51deb3d4e85',
+                             '335cc7a56f7a832d4f834822',
+                             '613387e50d6bda519eb6ab01',
+                             '7ba6d10206d6fcdd64e8038b',
+                             '249dfccfbb5839696c8dee49',
+                             'd0e08a204d4854f2face6192',
+                             'aff35fb5689537f375371dbe')),
+                           ((430660201, 192764186, 599153662, 1963827441,
+                             2079243083, 1794281481, 2766141373, 1029018697,
+                             2633830214, 4249387551, 3527526455, 183813833,
+                             1809896444, 2067659070, 589257308, 701979083),
+                            ((0.3099, 0.2162, 0.2987),
+                             (0.1611, 0.4265, 0.3687),
+                             (0.3793, 0.2035, 0.3928), (0.7754, 0.399, 0.1958),
+                             (0.6478, 0.8193, 0.1525),
+                             (0.5346, 0.2162, 0.2987),
+                             (0.3533, 0.4265, 0.3687),
+                             (0.1611, 0.6089, 0.3687),
+                             (0.3881, 0.2035, 0.3928), (0.3793, 0.2035, 0.292),
+                             (0.5497, 0.2162, 0.2987),
+                             (0.4944, 0.8193, 0.1525), (0.5082, 0.399, 0.1958),
+                             (0.3793, 0.05, 0.3928), (0.1776, 0.1357, 0.1305),
+                             (0.7754, 0.399, 0.1107)),
+                            ('77abd0e22df39878d5cd4316',
+                             '4a0730ef51704ad4bde81209',
+                             '8cffcf37578a5d291288567c',
+                             '2c760d4662f996791211cffd',
+                             '689f2cb62ff63c6e3a3b1577',
+                             'a38a6d72bc146531484ae594',
+                             '0380b1957cf07accf89d0d6f',
+                             '6cec6e807537433a713e7c02',
+                             'a7c913b36a00e346b36f2157',
+                             'd0f56cb2fe857adc93eaff7e',
+                             '02c1fe3b11039b976fa35615',
+                             'f16e0552e3a0426e30fbf27e',
+                             '81351572ff34b9c0beeb8a30',
+                             'bae09332b66875459b3b2ecf',
+                             'ec7de9ca9f022e42df5bbf7f',
+                             '9a06e6d120e611a0e396009f'))],
+ 'pbft-quorum-1k': [((1679678445, 1534475689, 278192867, 2354117381,
+                      3694801633, 2145619974, 4279672098, 3017178572,
+                      3508595031, 3622200387, 3816601057, 886418844,
+                      3209889851, 2172454415, 658177925, 3890115422),
+                     ((0.3085, 0.3885, 0.1487, 0.1453, 0.1959),
+                      (0.4154, 0.3419, 0.0572, 0.2887, 0.131),
+                      (0.0663, 0.0953, 0.0425, 0.1357, 0.2308),
+                      (0.5076, 0.2395, 0.0004, 0.0856, 0.4032),
+                      (0.2088, 0.0738, 0.112, 0.21, 0.2568),
+                      (0.4117, 0.1487, 0.1185, 0.0517, 0.0868),
+                      (0.1049, 0.3763, 0.0403, 0.0013, 0.2198),
+                      (0.4254, 0.1145, 0.1489, 0.0805, 0.0833),
+                      (0.4273, 0.196, 0.0437, 0.0369, 0.1776),
+                      (0.3869, 0.206, 0.0515, 0.0213, 0.074),
+                      (0.3693, 0.3289, 0.0534, 0.1448, 0.1145),
+                      (0.2512, 0.0682, 0.1473, 0.0935, 0.0712),
+                      (0.5418, 0.1078, 0.0352, 0.1221, 0.3129),
+                      (0.1406, 0.1616, 0.0285, 0.1068, 0.2708),
+                      (0.0547, 0.1911, 0.0242, 0.0022, 0.1726),
+                      (0.2329, 0.2083, 0.0271, 0.1079, 0.1151)),
+                     ('8c42a48e4c471d9e4ec1e37a', '73e2033739f9e9455f79e40e',
+                      'a67ffc18a3c437add496d3aa', '274b103b6b75f04c9caa5f6a',
+                      '9f0f9550b32a4e4d8eeb3aa3', '2f91b9f39b20b04d9015f2ea',
+                      '451242e4222db9d16bc0d4ac', 'b44a1dd93245b8b8a00048f0',
+                      '286c1d566da33fa5347bca8f', '58a1271bf88b482f7ed92753',
+                      '784b8bd3bff296a57ca87903', 'a34141e934b7c9c4ed3fd375',
+                      '3f26e8948d1f3df4b1e97baa', 'c3ab98546e5d6c6b60150436',
+                      '84c3362a9f695a0acf024ab1',
+                      'e618f29f4b75ba140895e7c3')),
+                    ((1677358738, 640328353, 2651076246, 1109509310,
+                      1159399247, 476842274, 2262828114, 622629121, 1677510738,
+                      3621436798, 4171883027, 3288336079, 3911128341, 24712174,
+                      2819732854, 1186635878),
+                     ((0.5418, 0.1078, 0.0352, 0.1221, 0.3129),
+                      (0.3085, 0.3885, 0.1487, 0.1453, 0.1959),
+                      (0.2088, 0.0738, 0.112, 0.21, 0.2568),
+                      (0.4117, 0.1487, 0.1185, 0.0517, 0.0868),
+                      (0.4154, 0.3419, 0.0572, 0.2887, 0.131),
+                      (0.4117, 0.1744, 0.1185, 0.0517, 0.0868),
+                      (0.2088, 0.0738, 0.112, 0.21, 0.3009),
+                      (0.2088, 0.0738, 0.112, 0.2804, 0.2568),
+                      (0.4195, 0.3566, 0.0257, 0.2319, 0.4432),
+                      (0.2088, 0.0738, 0.0962, 0.21, 0.2568),
+                      (0.2088, 0.0972, 0.112, 0.21, 0.2568),
+                      (0.2728, 0.0738, 0.112, 0.21, 0.2568),
+                      (0.4117, 0.1487, 0.1185, 0.0827, 0.0868),
+                      (0.5959, 0.3834, 0.0994, 0.2195, 0.1942),
+                      (0.4933, 0.1551, 0.0734, 0.2728, 0.2205),
+                      (0.1179, 0.1673, 0.1383, 0.0305, 0.1384)),
+                     ('478254203e9d5e0d82fb69d9', '18ef61c926f008e1f060ce6a',
+                      '2824b8b3217fc1ef13641c26', '7353eece78e0f7cc84db9672',
+                      'a7721604954b19baa3c86735', '00c55fa4b9a5ac53e8b268b7',
+                      'ea6b7bbc9a87958c6772e2ae', 'd64b89becd8997aa5ea22e5f',
+                      'dc123f3a7208b4bc2aa02490', 'bd8c19f50d6666a9e1a781c8',
+                      'e9b07fcaf8dd19c42d4ba5f1', 'bdaffdea5dccb96df35c4cf1',
+                      '2bc54ba7b9b345ecf8fbbe22', '37beb21eadbf789019a58862',
+                      '8aa7825a38d3204c56bf8bf9',
+                      'ae8a81200564a7e5f2545c47')),
+                    ((430660201, 192764186, 599153662, 1963827441, 2079243083,
+                      1794281481, 2766141373, 1029018697, 2633830214,
+                      4249387551, 3527526455, 183813833, 1809896444,
+                      2067659070, 589257308, 701979083),
+                     ((0.5959, 0.3834, 0.0994, 0.2195, 0.1942),
+                      (0.4933, 0.1551, 0.0734, 0.2728, 0.2205),
+                      (0.5418, 0.1078, 0.0352, 0.1221, 0.3129),
+                      (0.4154, 0.3419, 0.0572, 0.2887, 0.131),
+                      (0.5959, 0.3641, 0.0994, 0.2195, 0.1942),
+                      (0.5959, 0.4, 0.0994, 0.2195, 0.1942),
+                      (0.4933, 0.1353, 0.0734, 0.2728, 0.2205),
+                      (0.4933, 0.1551, 0.1047, 0.2728, 0.2205),
+                      (0.5418, 0.1928, 0.0352, 0.1221, 0.3129),
+                      (0.5418, 0.1078, 0.0352, 0.1221, 0.2154),
+                      (0.6, 0.3834, 0.0994, 0.2195, 0.1942),
+                      (0.3216, 0.3419, 0.0572, 0.2887, 0.131),
+                      (0.5418, 0.213, 0.0352, 0.1221, 0.3129),
+                      (0.5418, 0.0, 0.0352, 0.1221, 0.3129),
+                      (0.128, 0.0381, 0.0489, 0.138, 0.4748),
+                      (0.4154, 0.3419, 0.0572, 0.2887, 0.2296)),
+                     ('883e2296a6656bbd7d1626f9', '75dc8cea2a32baceccc99f11',
+                      '327ca75088e3f5b3a4ce5caa', '79e72b9584a1261a7145f627',
+                      'dc5648715aaafdfc59e32333', 'aab4297a668683c30800f345',
+                      '916805d83dc06dec99ef72e9', '849a4539a4c17589c7693ba9',
+                      'e031b9c0a12b2e96c4e1ba16', '3913cee654877cb0d83333ec',
+                      '882e3579339208c548d60af9', '526e8fd345dfc0cee9ca85d1',
+                      'aab04a1adf84fc5da5aca23b', '108492859737d5ed706d7e5b',
+                      '4c609a27fb540406fe751383',
+                      '4ca8e3dd4f179b9f8542c4ad'))]}
+KNOB_BATCH_ANCHORS = {
+    'hotstuff-100k/knobs': (
+        '595d66fb1d39570993b90b8e',
+        '9ec2aa899251f64bce868996',
+        'fbcf3436094021b87f9575f6',
+        '08425b570cf6fc39f8bfe370',
+        'e5b3fe24892c5bee5d475dff',
+        '141dbc028c81ff4b87ab12ab',
+        '75703eece627ca6229ca9a99',
+        '58b7a7b31e14da010d9aa79b',
+    ),
+    'pbft-100k-bcast/knobs': (
+        '4b486a9dedf2d2fcb9f0bbaa',
+        'ef4be30f7b6abdf2fde6eb64',
+        '5499cb2b23da5addf395027a',
+        '2584d1725dcb8a74ccc76698',
+        '34bf4877845bccb90072be5a',
+        '2cc031d604d2b9f365181acb',
+        '6872a50b697869f4416bb0c9',
+        'db4414c9ec65ea7c6ec4e4e9',
+    ),
+}
+
+
+def knob_lane_digests(out, flight) -> list[str]:
+    """Each lane's digest of a knob batch: the first 24 hex digits of the
+    SHA-256 of its extract leaves (by sorted name, each its dtype's name
+    and little-endian bytes) and its window and latency series (by name,
+    as little-endian int64)."""
+    digests = []
+    lanes = len(next(iter(out.values())))
+    for b in range(lanes):
+        h = hashlib.sha256()
+        for name in sorted(out):
+            a = np.asarray(out[name])[b]
+            h.update(name.encode())
+            h.update(a.dtype.name.encode())
+            h.update(np.ascontiguousarray(
+                a, dtype=a.dtype.newbyteorder("<")).tobytes())
+        for part in ("windows", "latency"):
+            for name, a in flight[part].items():
+                h.update(name.encode())
+                h.update(np.ascontiguousarray(a[b], dtype="<i8").tobytes())
+        digests.append(h.hexdigest()[:24])
+    return digests
+
+
+def differing(got, want) -> list[int]:
+    """The lanes whose digests differ."""
+    return [b for b, (x, y) in enumerate(zip(got, want)) if x != y]
+
+
+def knob_rows(cfgs) -> np.ndarray:
+    """The [C, 12] u32 knob matrix of the lanes' configs."""
+    from consensus_tpu_torch.core import knobs
+    return np.array([knobs.base_row(c) for c in cfgs], np.uint32)
+
+
+def knob_generation(name: str, g: int):
+    """Generation ``g`` of space ``name``: (base, the lanes' configs,
+    seeds, kmat)."""
+    from consensus_tpu_torch.core.config import Config
+    base_kw, fields = KNOB_SPACES[name]
+    base = Config(**base_kw, n_sweeps=KNOB_POPULATION)
+    seeds, values, _ = KNOB_GENERATIONS[name][g]
+    cfgs = [dataclasses.replace(base, **dict(zip(fields, v)))
+            for v in values]
+    return base, cfgs, np.array(seeds, np.uint32), knob_rows(cfgs)
+
+
+def knob_batch(key: str):
+    """The full-width knob batch ``key``: (base, the lanes' configs, seeds,
+    kmat)."""
+    from consensus_tpu_torch.core.config import Config
+    base_kw, lanes = KNOB_BATCHES[key]
+    base = Config(**base_kw)
+    cfgs = [dataclasses.replace(base, **o) for o in lanes]
+    return base, cfgs, np.array(KNOB_BATCH_SEEDS, np.uint32), knob_rows(cfgs)
+
+
+def knob_run(key: str):
+    """A run of phase 23's kernel checks: generation 0 of a space, or a
+    full-width batch."""
+    if key in KNOB_SPACES:
+        return knob_generation(key, 0)
+    return knob_batch(key)
+
+
+def capture_knob_round_calls(base, seeds, kmat, r: int, device="cuda"):
+    """{wrapper: [arguments]}: every kernel call of round ``r`` of the knob
+    batch (``base``, ``seeds``, ``kmat``) run eagerly on ``device`` with
+    telemetry and the recorder, cloned as it arrives."""
+    from consensus_tpu_torch.core import knobs
+    from consensus_tpu_torch.network import runner
+    eng = runner.engine(base)
+    lanes = {k: torch.from_numpy(v).to(device)
+             for k, v in {**runner.lane_inputs(base), "seed": seeds}.items()}
+    table = knobs.lane_table(kmat, device)
+    out = runner._rounds(base, {**lanes, "knobs": table}, r, True)
+    view = knobs.KnobView(base, table)
+    rest = {k: v for k, v in lanes.items() if k != "seed"}
+    statics = eng.statics(base, None) if eng.statics else {}
+    got: dict = {}
+    with recording_everywhere(got):
+        eng.round(view, out.state, r, telem=out.telem,
+                  flight=(out.win, out.lat), **rest, **statics)
+    return got
+
+
+def knob_instance(name: str, args) -> bool:
+    """Whether this call of wrapper ``name`` runs its KNOBS instance: KAH's
+    last argument is the table, the others' Config is a KnobView."""
+    from consensus_tpu_torch.core import knobs
+    if name == "crash_transition":
+        return len(args) > 10 and args[10] is not None
+    return isinstance(args[0], knobs.KnobView)
+
+
+def knob_flat(name: str, args, cfg):
+    """``args`` of a KNOBS-instance call through the flat instance with
+    ``cfg``'s cutoffs: ``cfg`` for the view, and for KAH its scalar
+    cutoffs and no table."""
+    one = list(args)
+    if name == "crash_transition":
+        one[3], one[4], one[10] = cfg.crash_cutoff, cfg.recover_cutoff, None
+    else:
+        one[0] = cfg
+    return tuple(one)
+
+
+def lane_slice(a, b: int, lanes: int):
+    """Lane ``b``'s slice of an argument: each tensor led by the lane axis,
+    also inside tuples (KAL's tables, KAE's fork leaves)."""
+    if isinstance(a, torch.Tensor):
+        return a[b:b + 1] if a.dim() and a.shape[0] == lanes else a
+    if isinstance(a, tuple) and hasattr(a, "_fields"):
+        return type(a)(*(lane_slice(x, b, lanes) for x in a))
+    if type(a) in (list, tuple):
+        return type(a)(lane_slice(x, b, lanes) for x in a)
+    return a
+
+
+def knob_flat_work(name: str, switch: bool, args) -> tuple[float, float]:
+    """(bytes, operations) of the flat instance's work on a flat call
+    ``args``: its phase's bound function (KAJ phase 17's, KAH and a KT
+    call under a crash phase 16's, KAL and KAE's SWITCH instance phase
+    21's, else phase 3's), with ``bound`` swapped for the pair."""
+    global bound
+    saved = bound
+    bound = lambda nbytes, ops: (nbytes, ops)   # noqa: E731
+    try:
+        if name == "hotstuff_prologue":
+            return desync_kernel_bound(name, args)
+        if name == "crash_transition" or (
+                name == "bcast_view_preprepare"
+                and isinstance(args[-1], torch.Tensor)):
+            return crash_kernel_bound(name, args)
+        if switch:
+            return switch_bound(name, args)
+        return flat_work(name, args)
+    finally:
+        bound = saved
+
+
+def knob_bound(name: str, switch: bool, args, cfgs) -> tuple[float, str]:
+    """The least time of a KNOBS instance's work on ``args``: each lane's
+    flat work on its slice with its own config (``cfgs``), which is what
+    the lane's row makes it do, summed, plus the [B, 12] table read
+    once."""
+    nbytes = ops = 0.0
+    for b, cfg in enumerate(cfgs):
+        one = lane_slice(knob_flat(name, args, cfg), b, len(cfgs))
+        nb, op = knob_flat_work(name, switch, one)
+        nbytes, ops = nbytes + nb, ops + op
+    return bound(nbytes + 8 * 12 * len(cfgs), ops)
+
+
+def check_knob_kernels(dev):
+    """Phase 23's kernel rows. Every kernel call of rounds 3 and 20 of the
+    knob runs (generation 0 of hotstuff-forked-qc-1k, the two full-width
+    batches; with telemetry and the recorder) and of round 20 of each run
+    with every row the base's, against the plain versions, exact; there
+    the KNOBS instance also equals the flat instance. Then each KNOBS
+    instance's time on round 20 of its KNOB_TIMED run, its plain version's
+    and its bound (:func:`knob_bound`), and on the all-base round its time,
+    the flat instance's time and bound. One row an instance."""
+    from consensus_tpu_torch.network import runner
+    errs = dict.fromkeys(KNOB_INSTANCES, 0.0)
+    cases = dict.fromkeys(KNOB_INSTANCES, 0)
+    timed, on_base = {}, {}
+    for key in dict.fromkeys(run for _, _, run in KNOB_TIMED.values()):
+        base, cfgs, seeds, kmat = knob_run(key)
+        for r in KNOB_ROUNDS:
+            calls = capture_knob_round_calls(base, seeds, kmat, r, dev)
+            hold_calls(calls, f"{key} round {r}", errs, cases)
+            timed[key] = (calls, cfgs)
+        flat_kmat = knob_rows([base] * len(seeds))
+        calls = capture_knob_round_calls(base, seeds, flat_kmat, 20, dev)
+        hold_calls(calls, f"{key} round 20, every row the base's", errs,
+                   cases)
+        on_base[key] = calls
+    rows = []
+    for row, (name, switch, key) in KNOB_TIMED.items():
+        calls, cfgs = timed[key]
+        mine = [a for a in calls[name] if knob_instance(name, a)
+                and (name not in ("hotstuff_vote",)
+                     or switch_instance(name, a) == switch)]
+        require(bool(mine), f"{key}: no KNOBS-instance call of {name}")
+        args = mine[0]
+        same = [a for a in on_base[key][name] if knob_instance(name, a)
+                and (name != "hotstuff_vote"
+                     or switch_instance(name, a) == switch)][0]
+        base = knob_run(key)[0]
+        flat = knob_flat(name, same, base)
+        require(max_abs_err(zip(
+            run_wrapper(name, same, lambda a: knob_flat(name, a, base)),
+            run_wrapper(name, flat))) == 0.0,
+                f"{key}: {name}'s KNOBS instance with every row the base's "
+                "disagrees with its flat instance")
+        mod = kernel_module(name)
+        reps = reps_for(args)
+        rows.append(dict(
+            name=row, route="cuda",
+            source=f"consensus_tpu_torch/csrc/{name}.cu",
+            replaces=KNOB_REPLACES[row], max_abs_err=errs[name],
+            cases=cases[name], timed_on=f"{key} round 20",
+            ms=graph_ms(getattr(mod, name), args, reps),
+            plain_ms=event_ms(getattr(mod, name + "_plain"), args,
+                              min(3, reps)),
+            bound=knob_bound(name, switch, args, cfgs), library_ms=None,
+            launches_from=key,
+            knobs_on_base_ms=graph_ms(getattr(mod, name), same, reps),
+            flat_instance_ms=graph_ms(getattr(mod, name), flat, reps),
+            flat_instance_bound=bound(*knob_flat_work(name, switch, flat))))
+    return rows
+
+
+def run_wrapper(name: str, args, inputs=lambda a: a) -> list:
+    """Kernel wrapper ``name`` on a clone of ``args``: its results and every
+    tensor of ``inputs(arguments)`` afterwards (the arguments that a flat
+    call also takes, for a KNOBS call)."""
+    a = clone_args(args)
+    got = getattr(kernel_module(name), name)(*a)
+    if isinstance(got, torch.Tensor):
+        got = (got,)
+    return [*(got or ()), *tensors_of(inputs(a))]
+
+
+def knob_path(cfg) -> tuple[str, ...]:
+    """The kernels a knob batch of base ``cfg`` launches: its engine's
+    telemetry path with KAH, KAJ and KAL where its gates call them
+    (:func:`switch_path`'s and :func:`gate_path`'s)."""
+    from consensus_tpu_torch.engines import hotstuff
+    path = gate_path(cfg)
+    if cfg.switch_on:
+        path += SWITCH_OWN
+    if cfg.protocol == "hotstuff" and hotstuff.gated(cfg):
+        path += ("hotstuff_prologue",)
+    return path
+
+
+def zero_counts() -> None:
+    """Every launch count of every wrapper set to 0."""
+    from consensus_tpu_torch.network import runner
+    for mod, name in runner.KERNELS:
+        fn = getattr(mod, name)
+        fn.launches = 0
+        for attr in ("switch_launches", "knob_launches"):
+            if hasattr(fn, attr):
+                setattr(fn, attr, 0)
+
+
+def check_knob_generations(card: str, smi: str) -> dict[str, int]:
+    """Phase 23's generations: three generations of each space of
+    KNOB_SPACES as ``run_knob_batch`` replays, counted from 0: every lane's
+    digest against the JAX anchor, one capture for the three, the path's
+    kernels launched and no other and each KNOBS instance on it launched;
+    then lanes KNOB_PRODUCTION_LANES of each generation as production runs
+    (``runner.run`` of the lane's own config, one sweep at the lane's
+    seed) against the lane's extract and flight recorder. Returns the
+    KNOBS launches of hotstuff-forked-qc-1k's generations, by wrapper."""
+    from consensus_tpu_torch.network import runner
+    own: dict = {}
+    for name in KNOB_SPACES:
+        zero_counts()
+        captured = runner.captures
+        results, walls = [], []
+        for g, (_, _, anchors) in enumerate(KNOB_GENERATIONS[name]):
+            base, cfgs, seeds, kmat = knob_generation(name, g)
+            t0 = time.perf_counter()
+            out, flight = runner.run_knob_batch(base, seeds, kmat,
+                                                generation=g)
+            walls.append(time.perf_counter() - t0)
+            digests = knob_lane_digests(out, flight)
+            require(digests == list(anchors),
+                    f"{name} generation {g}: lanes "
+                    f"{differing(digests, anchors)} differ from the JAX "
+                    "anchors")
+            results.append((cfgs, seeds, out, flight))
+        captures = runner.captures - captured
+        launches = runner.launch_counts()
+        knob = runner.knob_launch_counts()
+        require(captures == 1,
+                f"{name}: three generations took {captures} captures")
+        require_launched(launches, knob_path(base), name)
+        for kernel in KNOB_INSTANCES:
+            require((knob[kernel] > 0) == (launches[kernel] > 0),
+                    f"{name}: {kernel}'s KNOBS instance launched "
+                    f"{knob[kernel]} of {launches[kernel]} times")
+        production = []
+        for g, (cfgs, seeds, out, flight) in enumerate(results):
+            for lane in KNOB_PRODUCTION_LANES:
+                cfg = dataclasses.replace(cfgs[lane], n_sweeps=1,
+                                          seed=int(seeds[lane]))
+                stats: dict = {}
+                ref = runner.run(cfg, telemetry=True, stats=stats)
+                same = all(np.array_equal(out[k][lane], v[0])
+                           for k, v in ref.items()) and all(
+                    np.array_equal(flight[part][k][lane], v[0])
+                    for part in ("windows", "latency")
+                    for k, v in stats["flight"][part].items())
+                production.append(dict(generation=g, lane=lane,
+                                       equal=same))
+                require(same, f"{name} generation {g} lane {lane}: the "
+                        "production run of its config differs")
+        emit("knob_generations", space=name, population=KNOB_POPULATION,
+             generations=len(results), wall_s=walls, captures=captures,
+             launches=launches, knob_launches=knob, production=production,
+             card=card, power=smi)
+        for row, (kernel, _, run) in KNOB_TIMED.items():
+            if run == name:
+                own[row] = knob[kernel]
+        runner.clear_graphs()
+    return own
+
+
+def check_knob_batches(card: str, smi: str) -> dict[str, int]:
+    """Phase 23's full-width batches: each KNOB_BATCHES batch as one
+    ``run_knob_batch`` replay, counted from 0: its lanes' digests against
+    the JAX anchors, the path's kernels launched and no other and each
+    KNOBS instance on it launched; node-round-steps per second, the
+    replay's wall, busy share and device operations a round (one profiled
+    replay). Returns each KNOBS instance's launches from its KNOB_TIMED
+    batch."""
+    from consensus_tpu_torch.network import runner
+    own: dict = {}
+    for key in KNOB_BATCHES:
+        base, cfgs, seeds, kmat = knob_batch(key)
+        zero_counts()
+        t0 = time.perf_counter()
+        out, flight = runner.run_knob_batch(base, seeds, kmat)
+        wall = time.perf_counter() - t0
+        launches = runner.launch_counts()
+        knob = runner.knob_launch_counts()
+        digests = knob_lane_digests(out, flight)
+        prof = profile_replay(base, run=lambda: runner.knob_batch_device(
+            base, seeds, kmat))
+        steps = base.n_sweeps * base.n_nodes * base.n_rounds
+        row = dict(
+            digests=digests, digests_ok=digests == list(
+                KNOB_BATCH_ANCHORS[key]),
+            wall_s=wall, launches=launches, knob_launches=knob,
+            steps_per_sec=steps / (min(prof["replay_wall_ms"]) / 1e3),
+            **{k: prof[k] for k in (
+                "replay_wall_ms", "busy_share", "unprofiled_busy_share",
+                "device_ms", "device_launches")},
+            device_ops_per_round=prof["launches_per_round"],
+            hand_kernel_ms={k: v for k, v in prof["hand_kernel_ms"].items()
+                            if v})
+        emit("knob_batch", run=key, **row, card=card, power=smi)
+        require(row["digests_ok"],
+                f"{key}: lanes {differing(digests, KNOB_BATCH_ANCHORS[key])} "
+                "differ from the JAX anchors")
+        require_launched(launches, knob_path(base), key)
+        for kernel in KNOB_INSTANCES:
+            require((knob[kernel] > 0) == (launches[kernel] > 0),
+                    f"{key}: {kernel}'s KNOBS instance launched "
+                    f"{knob[kernel]} of {launches[kernel]} times")
+        for row_name, (name, _, run) in KNOB_TIMED.items():
+            if run == key:
+                own[row_name] = knob[name]
+        runner.clear_graphs()
+    return own
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -8117,13 +8865,32 @@ def main() -> int:
     require(sorted(k["name"] for k in kernels) == sorted(_build.SOURCES),
             "phases 3, 16, 17, 19, 21 and 22 do not check every kernel of "
             "csrc")
+
+    # 23. The knob batch (K23) on HotStuff and §6b PBFT: every kernel call
+    # of rounds 3 and 20 of the knob runs against the plain versions (the
+    # KNOBS instances of KAJ, KAD, KAE, KAL, KAH and KT among them), then
+    # three generations of each 1k space and the two full-width batches.
+    knob_rows = []
+    for k in check_knob_kernels(dev):
+        k["bound_ms"], k["bound_by"] = k.pop("bound")
+        (k["flat_instance_bound_ms"],
+         k["flat_instance_bound_by"]) = k.pop("flat_instance_bound")
+        emit("knob_kernel", **k, card=card, power=smi)
+        require(k["max_abs_err"] == 0.0,
+                f"{k['name']} disagrees with its plain version")
+        knob_rows.append(k)
+    knob_launches = {**check_knob_generations(card, smi),
+                     **check_knob_batches(card, smi)}
     emit("wall")
     for k in kernels:
         k["launches"] = launches[k["name"]]
     for k in switch_rows:
         k["launches"] = switch_launches[k["name"]]
         require(k["launches"] > 0, f"{k['name']}: no launch on its run")
-    kernels += switch_rows
+    for k in knob_rows:
+        k["launches"] = knob_launches[k["name"]]
+        require(k["launches"] > 0, f"{k['name']}: no launch on its run")
+    kernels += switch_rows + knob_rows
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

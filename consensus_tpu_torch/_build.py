@@ -58,8 +58,9 @@ SIGNATURES = {
     # poison_cut (0: §9b off), agg_byz; drop_cut, part_cut, max_delay; C,
     # col, window, n_windows; the poisonable phases, the §6b uplink, n_real
     # (null but on a PBFT round)
+    # and last the knob table (null but in a knob batch)
     "agg_round": (_P, _U) + (_P,) * 6 + (_I,) * 4 + (_U,) * 4 + (_I,)
-    + (_U,) * 3 + (_I,) * 4 + (_I, _I, _P),
+    + (_U,) * 3 + (_I,) * 4 + (_I, _I, _P, _P),
     # seed, round, n_real, the phase's flags, pp_val (null in the decide
     # phase), KAL's uplinks; the tot (or least-id) and value (null in the
     # decide phase) tables outputs, scratch; the uplinks' rows a lane, the
@@ -177,8 +178,9 @@ SIGNATURES = {
     # reset, pp_seen, pp_view, pp_val, node bits outputs, histogram and
     # first-unseen-slot scratch, catch-up flags (null without telemetry);
     # §6c flags (null on the flat path); B, N, S; byz mode, n_byzantine
+    # and last the knob table (null but in a knob batch)
     "bcast_view_preprepare": (_P, _U, _U, _U, _U, _U, _I, _I, _U, _U)
-    + (_P,) * 20 + (_I,) * 5,
+    + (_P,) * 20 + (_I,) * 5 + (_P,),
     # n_real, f, node bits, pp_seen, pp_val, prepared, committed, dval;
     # prepared, committed, dval outputs, scratch; scratch words; m, B, N,
     # S, §6c (bit 2 of the node bits read); byz mode, n_byzantine, the
@@ -236,7 +238,9 @@ SIGNATURES = {
     # catch-up flags outputs; §6c flags (null on the flat path); drop_cut,
     # part_cut, churn_cut, max_delay; the lane word of P1's key; B, N, S;
     # byz mode, n_byzantine
-    "hotstuff_propose": (_P, _U) + (_P,) * 6 + (_U,) * 4 + (_I,) * 6,
+    # and last the knob table (null but in a knob batch)
+    "hotstuff_propose": (_P, _U) + (_P,) * 6 + (_U,) * 4 + (_I,) * 6
+    + (_P,),
     # seed, round; view after P1, lane words (in place), b1_v, b1_h, b2_v,
     # b2_h, b3_v, b3_h, gcommit, chain_v (in place); delivery flags, [7, B]
     # registers outputs; §6c flags (null on the flat path); drop_cut,
@@ -245,8 +249,9 @@ SIGNATURES = {
     # equivocation); §9 switch: KAL's uplinks and table, K (null, null, 0
     # but on a switch round; ops/aggregate.py switch_tables), and the §9b
     # uplink-lie cutoff (0 without lies)
+    # and last the knob table (null but in a knob batch)
     "hotstuff_vote": (_P, _U) + (_P,) * 13 + (_U,) * 3 + (_I,) * 6
-    + (_P,) * 5 + (_P, _P, _I, _U),
+    + (_P,) * 5 + (_P, _P, _I, _U, _P),
     # view after P1, delivery flags, catch-up flags, timer, clen, lane
     # words (in place), gcommit at round entry, b1_h and gcommit after P4;
     # [3, B, N] view, timer, clen output; t, w, lat accumulators (null
@@ -262,8 +267,9 @@ SIGNATURES = {
     # max_crashed; t, w accumulators (null without telemetry; w null
     # without the recorder); tile-count scratch (null without a cap); B,
     # N, K, the crash tail's column, window, n_windows
+    # and last the knob table (null but in a knob batch)
     "crash_transition": (_P, _U, _P, _P, _P, _U, _U, _I, _P, _P, _P)
-    + (_I,) * 6,
+    + (_I,) * 6 + (_P,),
     # flags; eight (dst, src) leaf pointers (null past the last leaf);
     # eight row sizes in bytes; the reset-where-recovered bits; B, N
     "freeze_down": (_P,) * 17 + (_I,) * 8 + (_U, _I, _I),
@@ -272,7 +278,9 @@ SIGNATURES = {
     # (null without telemetry; w null without the recorder); desync_cut,
     # max_skew; view_timeout, B, N, K, view_changes' column, window,
     # n_windows, n_byzantine
-    "hotstuff_prologue": (_P, _U) + (_P,) * 7 + (_U, _U) + (_I,) * 8,
+    # and last the knob table (null but in a knob batch)
+    "hotstuff_prologue": (_P, _U) + (_P,) * 7 + (_U, _U) + (_I,) * 8
+    + (_P,),
     # seed, round, n_real, node bits; support output; n_byzantine, B, N
     "bcast_equiv_support": (_P, _U, _P, _P, _P, _I, _I, _I),
 }

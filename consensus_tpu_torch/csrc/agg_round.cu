@@ -43,10 +43,16 @@
 // same draws and writes its uplink. No thread reads what another writes, so
 // any K from 1 to N runs without shared memory. The counters are summed by
 // warp ballots and one integer atomic a warp and counter.
+// Its KNOBS instance (a knob batch: the table pointer is not null,
+// knobs.cuh) reads each lane's drop and partition cutoffs, and under the
+// §9b poison gate (poison_cut != 0) its cutoff, from the lane's row of the
+// table in place of the arguments; the fail and stale cutoffs are no
+// knobs.
 #include <cuda_runtime.h>
 
 #include "agg.cuh"
 #include "crash.cuh"
+#include "knobs.cuh"
 
 namespace {
 
@@ -58,6 +64,7 @@ struct Cuts {
   int agg_byz;
 };
 
+template <bool KNOBS>
 __global__ void __launch_bounds__(THREADS)
 agg_round_kernel(const uint32_t* __restrict__ seed, uint32_t r,
                  const unsigned char* __restrict__ flags,
@@ -66,11 +73,17 @@ agg_round_kernel(const uint32_t* __restrict__ seed, uint32_t r,
                  int32_t* __restrict__ w, int B, int N, int K, int P,
                  Cuts c, int tiles, int C, int col, int window,
                  int n_windows, int PZ, bool bcast,
-                 const int32_t* __restrict__ n_real) {
+                 const int32_t* __restrict__ n_real,
+                 const long long* __restrict__ knobs) {
   const int lp = blockIdx.x / tiles;  // lane * P + phase
   const int tile = blockIdx.x - lp * tiles;
   const int b = lp / P;
   const int ph = lp - b * P;
+  if (KNOBS) {
+    c.drop = ctt::knob(knobs, b, ctt::KNOB_DROP);
+    c.part = ctt::knob(knobs, b, ctt::KNOB_PARTITION);
+    if (c.poison != 0u) c.poison = ctt::knob(knobs, b, ctt::KNOB_AGG_POISON);
+  }
   const int i = tile * THREADS + static_cast<int>(threadIdx.x);
   const uint32_t sd = seed[b];
   // The lane's vertex base and segment width.
@@ -148,7 +161,8 @@ agg_round_kernel(const uint32_t* __restrict__ seed, uint32_t r,
 // and w ([B, n_windows, C]) are the run's counter totals and window ring
 // (null without telemetry; w null without the recorder). poison_cut is 0
 // with the §9b knob off. PZ (<= 2) is the count of poisonable phases, bcast
-// picks the §6b uplink (P = 1), n_real is null but on a PBFT round.
+// picks the §6b uplink (P = 1), n_real is null but on a PBFT round. knobs is
+// a knob batch's [B, 12] table (knobs.cuh; null but in a knob batch).
 extern "C" int ctt_agg_round(const uint32_t* seed, uint32_t r,
                              const unsigned char* flags, int32_t* tab,
                              int32_t* q, bool* up, int32_t* t, int32_t* w,
@@ -158,7 +172,8 @@ extern "C" int ctt_agg_round(const uint32_t* seed, uint32_t r,
                              uint32_t drop_cut, uint32_t part_cut,
                              uint32_t max_delay, int C, int col, int window,
                              int n_windows, int PZ, int bcast,
-                             const int32_t* n_real, cudaStream_t st) {
+                             const int32_t* n_real, const long long* knobs,
+                             cudaStream_t st) {
   if (K < 1 || K > N || P < 1 || P > 3 || PZ < 0 || PZ > 2 ||
       (bcast != 0 && P != 1) || max_stale < 1u ||
       agg_byz < 0 || agg_byz > K ||
@@ -171,8 +186,10 @@ extern "C" int ctt_agg_round(const uint32_t* seed, uint32_t r,
   if (blocks > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
   const Cuts c = {fail_cut, stale_cut, max_stale, poison_cut,
                   drop_cut, part_cut, max_delay, agg_byz};
-  agg_round_kernel<<<static_cast<unsigned>(blocks), THREADS, 0, st>>>(
+  const auto kernel =
+      knobs != nullptr ? agg_round_kernel<true> : agg_round_kernel<false>;
+  kernel<<<static_cast<unsigned>(blocks), THREADS, 0, st>>>(
       seed, r, flags, tab, q, up, t, w, B, N, K, P, c, tiles, C, col, window,
-      n_windows, PZ, bcast != 0, n_real);
+      n_windows, PZ, bcast != 0, n_real, knobs);
   return static_cast<int>(cudaGetLastError());
 }

@@ -81,12 +81,18 @@
 // absolute ids) is set, else 3 (lines 519-545; pbft_sweep.py:410-431).
 // That instance draws the stance and a value for each (receiver, slot) of a
 // byzantine primary: the bound counts both.
+// Its KNOBS instances (a knob batch: the table pointer is not null,
+// knobs.cuh) read each lane's churn, drop and partition cutoffs (launch 1)
+// and its churn and, in a DESYNC instance, desync cutoffs (launch 2) from
+// the lane's row of the table in place of the arguments; launch 3 reads no
+// cutoff.
 #include <climits>
 
 #include <cuda_runtime.h>
 
 #include "byz.cuh"
 #include "crash.cuh"
+#include "knobs.cuh"
 #include "rng.cuh"
 
 namespace {
@@ -122,7 +128,7 @@ __device__ __forceinline__ int32_t churn_step(uint32_t sd, uint32_t r,
 // block x is lane x / tiles, nodes THREADS (x mod tiles) on, so the lane
 // count has no grid limit of its own; nb = vmax + 2 bins a side. BYZ: only
 // honest senders (i < n_real - n_byz) count.
-template <bool DELAY, bool CRASH, bool BYZ>
+template <bool DELAY, bool CRASH, bool BYZ, bool KNOBS>
 __global__ void __launch_bounds__(THREADS)
 bcast_senders_kernel(const uint32_t* __restrict__ seed, uint32_t r,
                      uint32_t churn_cut, uint32_t drop_cut,
@@ -131,9 +137,15 @@ bcast_senders_kernel(const uint32_t* __restrict__ seed, uint32_t r,
                      const int32_t* __restrict__ view,
                      uint8_t* __restrict__ bits_out, int* __restrict__ hist,
                      const unsigned char* __restrict__ flags, int N, int nb,
-                     bool smem, int tiles, int n_byz) {
+                     bool smem, int tiles, int n_byz,
+                     const long long* __restrict__ knobs) {
   extern __shared__ int sh[];
   const int b = blockIdx.x / tiles;
+  if (KNOBS) {
+    churn_cut = ctt::knob(knobs, b, ctt::KNOB_CHURN);
+    drop_cut = ctt::knob(knobs, b, ctt::KNOB_DROP);
+    part_cut = ctt::knob(knobs, b, ctt::KNOB_PARTITION);
+  }
   const int i = (blockIdx.x - b * tiles) * THREADS + threadIdx.x;
   int* lane_hist = hist + static_cast<long long>(b) * 2 * nb;
   int* h = smem ? sh : lane_hist;
@@ -179,7 +191,7 @@ bcast_senders_kernel(const uint32_t* __restrict__ seed, uint32_t r,
 }
 
 // Launch 2.
-template <bool CRASH, bool DESYNC, bool BYZ>
+template <bool CRASH, bool DESYNC, bool BYZ, bool KNOBS>
 __global__ void __launch_bounds__(THREADS)
 bcast_catchup_kernel(const uint32_t* __restrict__ seed, uint32_t r,
                      uint32_t churn_cut, int32_t view_timeout,
@@ -197,9 +209,14 @@ bcast_catchup_kernel(const uint32_t* __restrict__ seed, uint32_t r,
                      bool* __restrict__ catch_out,
                      const int32_t* __restrict__ n_real,
                      const unsigned char* __restrict__ flags, int N, int S,
-                     int nb, int tiles, int n_byz) {
+                     int nb, int tiles, int n_byz,
+                     const long long* __restrict__ knobs) {
   __shared__ int32_t stat[4];  // a1 side 0, a1 side 1, a2 side 0, a2 side 1
   const int b = blockIdx.x / tiles;
+  if (KNOBS) {
+    churn_cut = ctt::knob(knobs, b, ctt::KNOB_CHURN);
+    if (DESYNC) desync_cut = ctt::knob(knobs, b, ctt::KNOB_DESYNC);
+  }
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   if (warp < 4) {
     const int side = warp & 1;
@@ -362,11 +379,42 @@ bcast_preprepare_kernel(const uint32_t* __restrict__ seed, uint32_t r,
   }
 }
 
+// Launch 1's instance for (delay, crash, byz) with or without the knob
+// table, and launch 2's for (crash, desync, byz).
+template <bool KNOBS>
+decltype(&bcast_senders_kernel<false, false, false, false>) senders_instance(
+    bool delay, bool crash, bool hon) {
+  if (hon)
+    return crash ? (delay ? bcast_senders_kernel<true, true, true, KNOBS>
+                          : bcast_senders_kernel<false, true, true, KNOBS>)
+                 : (delay ? bcast_senders_kernel<true, false, true, KNOBS>
+                          : bcast_senders_kernel<false, false, true, KNOBS>);
+  return crash ? (delay ? bcast_senders_kernel<true, true, false, KNOBS>
+                        : bcast_senders_kernel<false, true, false, KNOBS>)
+               : (delay ? bcast_senders_kernel<true, false, false, KNOBS>
+                        : bcast_senders_kernel<false, false, false, KNOBS>);
+}
+
+template <bool KNOBS>
+decltype(&bcast_catchup_kernel<false, false, false, false>) catchup_instance(
+    bool crash, bool desync, bool hon) {
+  if (hon)
+    return crash ? (desync ? bcast_catchup_kernel<true, true, true, KNOBS>
+                           : bcast_catchup_kernel<true, false, true, KNOBS>)
+                 : (desync ? bcast_catchup_kernel<false, true, true, KNOBS>
+                           : bcast_catchup_kernel<false, false, true, KNOBS>);
+  return crash ? (desync ? bcast_catchup_kernel<true, true, false, KNOBS>
+                         : bcast_catchup_kernel<true, false, false, KNOBS>)
+               : (desync ? bcast_catchup_kernel<false, true, false, KNOBS>
+                         : bcast_catchup_kernel<false, false, false, KNOBS>);
+}
+
 }  // namespace
 
 // hist is scratch, [B, 2, vmax + 2] int32, zeroed here; fresh is scratch,
 // [B, N] int32; catch_out, [B, N] bool, is null where the caller does not
-// ask for P1's catch-up flags.
+// ask for P1's catch-up flags. knobs is a knob batch's [B, 12] table
+// (knobs.cuh; null but in a knob batch).
 extern "C" int ctt_bcast_view_preprepare(
     const uint32_t* seed, uint32_t r, uint32_t churn_cut, uint32_t drop_cut,
     uint32_t part_cut, uint32_t max_delay, int32_t view_timeout, int32_t vmax,
@@ -377,7 +425,7 @@ extern "C" int ctt_bcast_view_preprepare(
     int32_t* view_out, int32_t* timer_out, bool* reset_out, bool* seen_out,
     int32_t* pview_out, int32_t* pval_out, uint8_t* bits_out, int* hist,
     int32_t* fresh, bool* catch_out, const unsigned char* flags, int B, int N,
-    int S, int byz, int n_byz, cudaStream_t st) {
+    int S, int byz, int n_byz, const long long* knobs, cudaStream_t st) {
   if (n_byz < 0 || n_byz > N || byz < ctt::BYZ_NONE || byz > ctt::BYZ_EQUIV)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || N == 0) return 0;
@@ -393,35 +441,25 @@ extern "C" int ctt_bcast_view_preprepare(
   if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
   const bool delay = max_delay != 0u, crash = flags != nullptr;
   const bool hon = byz != ctt::BYZ_NONE;
+  const bool kn = knobs != nullptr;
   const auto senders =
-      hon ? (crash ? (delay ? bcast_senders_kernel<true, true, true>
-                            : bcast_senders_kernel<false, true, true>)
-                   : (delay ? bcast_senders_kernel<true, false, true>
-                            : bcast_senders_kernel<false, false, true>))
-          : (crash ? (delay ? bcast_senders_kernel<true, true, false>
-                            : bcast_senders_kernel<false, true, false>)
-                   : (delay ? bcast_senders_kernel<true, false, false>
-                            : bcast_senders_kernel<false, false, false>));
+      kn ? senders_instance<true>(delay, crash, hon)
+         : senders_instance<false>(delay, crash, hon);
   senders<<<static_cast<unsigned>(blocks), THREADS, smem ? hist_bytes : 0,
             st>>>(seed, r, churn_cut, drop_cut, part_cut, max_delay, n_real,
-                  view, bits_out, hist, flags, N, nb, smem, tiles, n_byz);
+                  view, bits_out, hist, flags, N, nb, smem, tiles, n_byz,
+                  knobs);
   if ((err = static_cast<int>(cudaGetLastError())) != 0) return err;
   const bool desync = desync_cut != 0u;
   if (desync && max_skew == 0u)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto catchup =
-      hon ? (crash ? (desync ? bcast_catchup_kernel<true, true, true>
-                             : bcast_catchup_kernel<true, false, true>)
-                   : (desync ? bcast_catchup_kernel<false, true, true>
-                             : bcast_catchup_kernel<false, false, true>))
-          : (crash ? (desync ? bcast_catchup_kernel<true, true, false>
-                             : bcast_catchup_kernel<true, false, false>)
-                   : (desync ? bcast_catchup_kernel<false, true, false>
-                             : bcast_catchup_kernel<false, false, false>));
+      kn ? catchup_instance<true>(crash, desync, hon)
+         : catchup_instance<false>(crash, desync, hon);
   catchup<<<static_cast<unsigned>(blocks), THREADS, 0, st>>>(
       seed, r, churn_cut, view_timeout, desync_cut, max_skew, f, view, timer,
       pp_seen, bits_out, hist, view_out, timer_out, reset_out, fresh,
-      catch_out, n_real, flags, N, S, nb, tiles, n_byz);
+      catch_out, n_real, flags, N, S, nb, tiles, n_byz, knobs);
   if ((err = static_cast<int>(cudaGetLastError())) != 0) return err;
   const long long per_lane = static_cast<long long>(N) * S;
   if (per_lane == 0) return 0;

@@ -27,9 +27,13 @@
 // second draws them again rather than keep them. (One block a lane
 // walking the tiles in turn took 218 us a call at B = 8, N = 100 000 on
 // the H100, 97% of a capped dpos-100k replay.)
+// KNOBS instances (a knob batch: the table pointer is not null,
+// knobs.cuh): each launch reads its lane's crash and recover cutoffs from
+// the lane's row of the table in place of the arguments.
 #include <cuda_runtime.h>
 
 #include "crash.cuh"
+#include "knobs.cuh"
 #include "rng.cuh"
 
 namespace {
@@ -75,15 +79,21 @@ __device__ __forceinline__ void add_counts(int* t, int* w, long long b,
 }
 
 // Grid (ceil(N / kThreads), B): no cap.
+template <bool KNOBS>
 __global__ void crash_kernel(const uint32_t* __restrict__ seed, uint32_t r,
                              const bool* __restrict__ down,
                              bool* __restrict__ down_out,
                              unsigned char* __restrict__ flags, int N,
                              uint32_t crash_cut, uint32_t recover_cut,
                              int* t, int* w, int K, int col, int window,
-                             int n_windows) {
+                             int n_windows,
+                             const long long* __restrict__ knobs) {
   __shared__ int red[32];
   const long long b = blockIdx.y;
+  if (KNOBS) {
+    crash_cut = ctt::knob(knobs, b, ctt::KNOB_CRASH);
+    recover_cut = ctt::knob(knobs, b, ctt::KNOB_RECOVER);
+  }
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   int c[3] = {0, 0, 0};
   if (i < N) {
@@ -122,14 +132,20 @@ __device__ __forceinline__ Step step(uint32_t sd, uint32_t r, bool was,
 
 // Cap, launch 1. Grid (tiles, B), kScanThreads threads: each tile's count
 // still down and its would-be crashers, into scratch [B, 2, tiles].
+template <bool KNOBS>
 __global__ void crash_tile_count_kernel(const uint32_t* __restrict__ seed,
                                         uint32_t r,
                                         const bool* __restrict__ down,
                                         int* __restrict__ tile_counts, int N,
                                         uint32_t crash_cut,
-                                        uint32_t recover_cut) {
+                                        uint32_t recover_cut,
+                                        const long long* __restrict__ knobs) {
   __shared__ int red[32];
   const long long b = blockIdx.y;
+  if (KNOBS) {
+    crash_cut = ctt::knob(knobs, b, ctt::KNOB_CRASH);
+    recover_cut = ctt::knob(knobs, b, ctt::KNOB_RECOVER);
+  }
   const int tiles = gridDim.x;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   int still = 0, want = 0;
@@ -148,6 +164,7 @@ __global__ void crash_tile_count_kernel(const uint32_t* __restrict__ seed,
 
 // Cap, launch 2. Grid (tiles, B), kScanThreads threads: the tile's would-be
 // crashers ranked in ascending id order on top of the tiles before it.
+template <bool KNOBS>
 __global__ void crash_cap_kernel(const uint32_t* __restrict__ seed,
                                  uint32_t r, const bool* __restrict__ down,
                                  const int* __restrict__ tile_counts,
@@ -155,7 +172,8 @@ __global__ void crash_cap_kernel(const uint32_t* __restrict__ seed,
                                  unsigned char* __restrict__ flags, int N,
                                  uint32_t crash_cut, uint32_t recover_cut,
                                  long long max_crashed, int* t, int* w, int K,
-                                 int col, int window, int n_windows) {
+                                 int col, int window, int n_windows,
+                                 const long long* __restrict__ knobs) {
   __shared__ int red[32];
   __shared__ int warp_sums[32];
   const long long b = blockIdx.y;
@@ -173,6 +191,13 @@ __global__ void crash_cap_kernel(const uint32_t* __restrict__ seed,
 
   const int i = tile * blockDim.x + threadIdx.x;
   const bool was = i < N && down[b * N + i];
+  // The row is read here, after the sums, so that the cutoffs take no
+  // register across them (at 34 registers a 1024-thread block fills half
+  // an SM, where the flat instance's 32 fit two).
+  if (KNOBS) {
+    crash_cut = ctt::knob(knobs, b, ctt::KNOB_CRASH);
+    recover_cut = ctt::knob(knobs, b, ctt::KNOB_RECOVER);
+  }
   Step s = {false, false, false};
   if (i < N) s = step(seed[b], r, was, i, crash_cut, recover_cut);
   const unsigned ballot = __ballot_sync(0xffffffffu, s.want);
@@ -200,29 +225,36 @@ __global__ void crash_cap_kernel(const uint32_t* __restrict__ seed,
 }  // namespace
 
 // tile_counts is scratch, [B, 2, ceil(N / 1024)] int32, written by the
-// first launch of the capped path (unused without a cap).
+// first launch of the capped path (unused without a cap). knobs is a knob
+// batch's [B, 12] table (knobs.cuh; null but in a knob batch).
 extern "C" int ctt_crash_transition(const uint32_t* seed, uint32_t r,
                                     const bool* down, bool* down_out,
                                     unsigned char* flags, uint32_t crash_cut,
                                     uint32_t recover_cut, int max_crashed,
                                     int* t, int* w, int* tile_counts, int B,
                                     int N, int K, int col, int window,
-                                    int n_windows, cudaStream_t st) {
+                                    int n_windows, const long long* knobs,
+                                    cudaStream_t st) {
   if (B == 0 || N == 0) return 0;
+  const bool kn = knobs != nullptr;
   if (max_crashed > 0) {
     const dim3 grid((N + kScanThreads - 1) / kScanThreads, B);
-    crash_tile_count_kernel<<<grid, kScanThreads, 0, st>>>(
-        seed, r, down, tile_counts, N, crash_cut, recover_cut);
+    const auto count =
+        kn ? crash_tile_count_kernel<true> : crash_tile_count_kernel<false>;
+    count<<<grid, kScanThreads, 0, st>>>(seed, r, down, tile_counts, N,
+                                         crash_cut, recover_cut, knobs);
     const int err = static_cast<int>(cudaGetLastError());
     if (err != 0) return err;
-    crash_cap_kernel<<<grid, kScanThreads, 0, st>>>(
+    const auto cap = kn ? crash_cap_kernel<true> : crash_cap_kernel<false>;
+    cap<<<grid, kScanThreads, 0, st>>>(
         seed, r, down, tile_counts, down_out, flags, N, crash_cut,
-        recover_cut, max_crashed, t, w, K, col, window, n_windows);
+        recover_cut, max_crashed, t, w, K, col, window, n_windows, knobs);
   } else {
     const dim3 grid((N + kThreads - 1) / kThreads, B);
-    crash_kernel<<<grid, kThreads, 0, st>>>(seed, r, down, down_out, flags,
-                                            N, crash_cut, recover_cut, t, w,
-                                            K, col, window, n_windows);
+    const auto one = kn ? crash_kernel<true> : crash_kernel<false>;
+    one<<<grid, kThreads, 0, st>>>(seed, r, down, down_out, flags, N,
+                                   crash_cut, recover_cut, t, w, K, col,
+                                   window, n_windows, knobs);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -34,14 +34,18 @@
 // is up with a view above -1); the premature timeouts are a warp sum and
 // one atomic a block. The DESYNC and CRASH instances are picked at launch
 // (desync_cut != 0, flags given); a run takes the same instance every round.
+// Its KNOBS instances (a knob batch: the table pointer is not null,
+// knobs.cuh) read each lane's desync cutoff from the lane's row of the
+// table in place of the argument, whose base value still picks DESYNC.
 #include <cuda_runtime.h>
 
 #include "crash.cuh"
 #include "hotstuff.cuh"
+#include "knobs.cuh"
 
 namespace {
 
-template <bool DESYNC, bool CRASH>
+template <bool DESYNC, bool CRASH, bool KNOBS>
 __global__ void __launch_bounds__(hs::THREADS)
 hotstuff_prologue_kernel(const uint32_t* __restrict__ seed, uint32_t r,
                          const int32_t* __restrict__ view,
@@ -52,11 +56,13 @@ hotstuff_prologue_kernel(const uint32_t* __restrict__ seed, uint32_t r,
                          int* __restrict__ w, uint32_t desync_cut,
                          uint32_t max_skew, int view_timeout, int B, int N,
                          int K, int col, int window, int n_windows,
-                         int tiles, int n_honest) {
+                         int tiles, int n_honest,
+                         const long long* __restrict__ knobs) {
   __shared__ long long s_key[hs::WARPS];
   __shared__ int s_pre;
   const int b = blockIdx.x / tiles;
   const int tile = blockIdx.x - b * tiles;
+  if (KNOBS) desync_cut = ctt::knob(knobs, b, ctt::KNOB_DESYNC);
   const int warp = threadIdx.x >> 5, lane_id = threadIdx.x & 31;
   if (threadIdx.x == 0) s_pre = 0;
   __syncthreads();
@@ -111,7 +117,8 @@ hotstuff_prologue_kernel(const uint32_t* __restrict__ seed, uint32_t r,
 // the round's [B, N] flag word of kernel KAH (null without a crash). t ([B,
 // K]) and w ([B, n_windows, K]) are the int32 telemetry accumulators (null
 // without telemetry; w null without the flight recorder), col the column
-// of view_changes. nb is the run's n_byzantine.
+// of view_changes. nb is the run's n_byzantine. knobs is a knob batch's
+// [B, 12] table (knobs.cuh; null but in a knob batch).
 extern "C" int ctt_hotstuff_prologue(const uint32_t* seed, uint32_t r,
                                      const int32_t* view,
                                      const int32_t* timer,
@@ -121,6 +128,7 @@ extern "C" int ctt_hotstuff_prologue(const uint32_t* seed, uint32_t r,
                                      uint32_t max_skew, int view_timeout,
                                      int B, int N, int K, int col, int window,
                                      int n_windows, int nb,
+                                     const long long* knobs,
                                      cudaStream_t st) {
   const bool desync = desync_cut != 0u, crash = flags != nullptr;
   if ((!desync && !crash) || (desync && max_skew == 0u) || nb < 0 ||
@@ -134,11 +142,15 @@ extern "C" int ctt_hotstuff_prologue(const uint32_t* seed, uint32_t r,
   const long long blocks = static_cast<long long>(tiles) * B;
   if (blocks > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
   const auto kernel =
-      crash ? (desync ? hotstuff_prologue_kernel<true, true>
-                      : hotstuff_prologue_kernel<false, true>)
-            : hotstuff_prologue_kernel<true, false>;
+      knobs != nullptr
+          ? (crash ? (desync ? hotstuff_prologue_kernel<true, true, true>
+                             : hotstuff_prologue_kernel<false, true, true>)
+                   : hotstuff_prologue_kernel<true, false, true>)
+          : (crash ? (desync ? hotstuff_prologue_kernel<true, true, false>
+                             : hotstuff_prologue_kernel<false, true, false>)
+                   : hotstuff_prologue_kernel<true, false, false>);
   kernel<<<static_cast<unsigned>(blocks), hs::THREADS, 0, st>>>(
       seed, r, view, timer, flags, lane, out, t, w, desync_cut, max_skew,
-      view_timeout, B, N, K, col, window, n_windows, tiles, N - nb);
+      view_timeout, B, N, K, col, window, n_windows, tiles, N - nb, knobs);
   return static_cast<int>(cudaGetLastError());
 }

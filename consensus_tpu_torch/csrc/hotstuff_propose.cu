@@ -44,15 +44,19 @@
 // equivocating byzantine node proposes as an honest one (its two variants
 // are kernel KAE's), and P1's key, which KAF or KAJ took over the honest
 // nodes, needs no change here.
+// Its KNOBS instance (a knob batch: the table pointer is not null, knobs.cuh)
+// reads its lane's drop, partition and churn cutoffs from the lane's row of
+// the table in place of the arguments; nothing else moves.
 #include <cuda_runtime.h>
 
 #include "byz.cuh"
 #include "crash.cuh"
 #include "hotstuff.cuh"
+#include "knobs.cuh"
 
 namespace {
 
-template <bool DELAY, bool CRASH, bool WITHHOLD>
+template <bool DELAY, bool CRASH, bool WITHHOLD, bool KNOBS>
 __global__ void __launch_bounds__(hs::THREADS)
 hotstuff_propose_kernel(const uint32_t* __restrict__ seed, uint32_t r,
                         const int32_t* __restrict__ view,
@@ -62,7 +66,8 @@ hotstuff_propose_kernel(const uint32_t* __restrict__ seed, uint32_t r,
                         const unsigned char* __restrict__ flags,
                         uint32_t drop_cut, uint32_t part_cut,
                         uint32_t churn_cut, uint32_t max_delay, int key_word,
-                        int N, int S, int tiles, int n_honest) {
+                        int N, int S, int tiles, int n_honest,
+                        const long long* __restrict__ knobs) {
   __shared__ hs::Row s_row;
   __shared__ int32_t s_vm;
   __shared__ int s_m;
@@ -70,6 +75,11 @@ hotstuff_propose_kernel(const uint32_t* __restrict__ seed, uint32_t r,
   const int b = blockIdx.x / tiles;
   const int tile = blockIdx.x - b * tiles;
   const uint32_t sd = seed[b];
+  if (KNOBS) {
+    drop_cut = ctt::knob(knobs, b, ctt::KNOB_DROP);
+    part_cut = ctt::knob(knobs, b, ctt::KNOB_PARTITION);
+    churn_cut = ctt::knob(knobs, b, ctt::KNOB_CHURN);
+  }
   long long* lw = lane + static_cast<long long>(b) * hs::LANE_WORDS;
   if (threadIdx.x == 0) {
     const long long top = lw[key_word];
@@ -105,12 +115,29 @@ hotstuff_propose_kernel(const uint32_t* __restrict__ seed, uint32_t r,
     atomicMax(lw + hs::VMAX, static_cast<long long>(top));
 }
 
+using Kernel = decltype(&hotstuff_propose_kernel<false, false, false, false>);
+
+// The instance for (delay, crash, withhold) with or without the knob table.
+template <bool KNOBS>
+Kernel instance(bool delay, bool crash, bool withhold) {
+  if (withhold)
+    return crash ? (delay ? hotstuff_propose_kernel<true, true, true, KNOBS>
+                          : hotstuff_propose_kernel<false, true, true, KNOBS>)
+                 : (delay ? hotstuff_propose_kernel<true, false, true, KNOBS>
+                          : hotstuff_propose_kernel<false, false, true, KNOBS>);
+  return crash ? (delay ? hotstuff_propose_kernel<true, true, false, KNOBS>
+                        : hotstuff_propose_kernel<false, true, false, KNOBS>)
+               : (delay ? hotstuff_propose_kernel<true, false, false, KNOBS>
+                        : hotstuff_propose_kernel<false, false, false, KNOBS>);
+}
+
 }  // namespace
 
 // lane is the state's [B, 13] int64 lane words (hotstuff.cuh), VMAX at rest;
 // key_word is the word P1's key is read from (TOP on a flat round, KEY on a
 // gated one); flags is the round's [B, N] flag word of kernel KAH (null
-// without a crash).
+// without a crash); knobs is a knob batch's [B, 12] table (knobs.cuh; null
+// but in a knob batch).
 extern "C" int ctt_hotstuff_propose(const uint32_t* seed, uint32_t r,
                                     const int32_t* view, const int32_t* b1_h,
                                     long long* lane, int32_t* view1,
@@ -118,7 +145,8 @@ extern "C" int ctt_hotstuff_propose(const uint32_t* seed, uint32_t r,
                                     uint32_t drop_cut, uint32_t part_cut,
                                     uint32_t churn_cut, uint32_t max_delay,
                                     int key_word, int B, int N, int S,
-                                    int byz, int nb, cudaStream_t st) {
+                                    int byz, int nb, const long long* knobs,
+                                    cudaStream_t st) {
   if ((key_word != hs::TOP && key_word != hs::KEY) || nb < 0 || nb > N)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || N == 0) return 0;
@@ -126,18 +154,12 @@ extern "C" int ctt_hotstuff_propose(const uint32_t* seed, uint32_t r,
   const long long blocks = static_cast<long long>(tiles) * B;
   if (blocks > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
   const bool delay = max_delay != 0u, crash = flags != nullptr;
-  const auto kernel =
-      byz == ctt::BYZ_SILENT
-          ? (crash ? (delay ? hotstuff_propose_kernel<true, true, true>
-                            : hotstuff_propose_kernel<false, true, true>)
-                   : (delay ? hotstuff_propose_kernel<true, false, true>
-                            : hotstuff_propose_kernel<false, false, true>))
-          : (crash ? (delay ? hotstuff_propose_kernel<true, true, false>
-                            : hotstuff_propose_kernel<false, true, false>)
-                   : (delay ? hotstuff_propose_kernel<true, false, false>
-                            : hotstuff_propose_kernel<false, false, false>));
+  const bool withhold = byz == ctt::BYZ_SILENT;
+  const auto kernel = knobs != nullptr
+                          ? instance<true>(delay, crash, withhold)
+                          : instance<false>(delay, crash, withhold);
   kernel<<<static_cast<unsigned>(blocks), hs::THREADS, 0, st>>>(
       seed, r, view, b1_h, lane, view1, adv, flags, drop_cut, part_cut,
-      churn_cut, max_delay, key_word, N, S, tiles, N - nb);
+      churn_cut, max_delay, key_word, N, S, tiles, N - nb, knobs);
   return static_cast<int>(cudaGetLastError());
 }

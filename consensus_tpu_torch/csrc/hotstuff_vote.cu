@@ -71,12 +71,17 @@
 // ballots, the QC, the fork table and the counts above stay as they are;
 // the count runs whether or not a proposal exists (poisoned serves and lies
 // count either way, as the JAX round's telemetry counts them).
+// Its KNOBS instances (a knob batch: the table pointer is not null,
+// knobs.cuh) read each lane's drop and partition cutoffs, and under the
+// §9b lies' gate (uplink_cut != 0) their cutoff, from the lane's row of the
+// table in place of the arguments, the switch's downlink draws included.
 #include <cuda_runtime.h>
 
 #include "agg.cuh"
 #include "byz.cuh"
 #include "crash.cuh"
 #include "hotstuff.cuh"
+#include "knobs.cuh"
 
 namespace {
 
@@ -104,7 +109,7 @@ struct Sw {
   uint32_t uplink_cut;  // §9b lies, 0 without
 };
 
-template <bool DELAY, bool CRASH, int BYZ, bool SWITCH>
+template <bool DELAY, bool CRASH, int BYZ, bool SWITCH, bool KNOBS>
 __global__ void __launch_bounds__(hs::THREADS)
 hotstuff_vote_kernel(const uint32_t* __restrict__ seed, uint32_t r,
                      const int32_t* __restrict__ view1,
@@ -115,7 +120,7 @@ hotstuff_vote_kernel(const uint32_t* __restrict__ seed, uint32_t r,
                      uint32_t drop_cut,
                      uint32_t part_cut, uint32_t max_delay, int Q, int B,
                      int N, int S, int tiles, int n_honest, Fork fork,
-                     Sw sw) {
+                     Sw sw, const long long* __restrict__ knobs) {
   constexpr bool EQUIV = BYZ == ctt::BYZ_EQUIV;
   __shared__ ctt::SwitchLane s_sl;
   __shared__ hs::Row s_row;
@@ -127,6 +132,16 @@ hotstuff_vote_kernel(const uint32_t* __restrict__ seed, uint32_t r,
   const int b = blockIdx.x / tiles;
   const int tile = blockIdx.x - b * tiles;
   const uint32_t sd = seed[b];
+  if (KNOBS) {
+    drop_cut = ctt::knob(knobs, b, ctt::KNOB_DROP);
+    part_cut = ctt::knob(knobs, b, ctt::KNOB_PARTITION);
+    if (SWITCH) {
+      sw.a.drop_cut = drop_cut;
+      sw.a.part_cut = part_cut;
+      if (sw.uplink_cut != 0u)
+        sw.uplink_cut = ctt::knob(knobs, b, ctt::KNOB_BYZ_UPLINK);
+    }
+  }
   long long* lw = lane + static_cast<long long>(b) * hs::LANE_WORDS;
   if (threadIdx.x == 0) {
     const int32_t vstar = static_cast<int32_t>(lw[hs::VMAX]);
@@ -279,25 +294,29 @@ hotstuff_vote_kernel(const uint32_t* __restrict__ seed, uint32_t r,
   lw[hs::KEY] = hs::KEY_REST;
 }
 
-using Kernel = decltype(&hotstuff_vote_kernel<false, false, 0, false>);
+using Kernel =
+    decltype(&hotstuff_vote_kernel<false, false, 0, false, false>);
 
-// The instance for (delay, crash, byz) with or without the switch.
-template <bool SWITCH>
+// The instance for (delay, crash, byz) with or without the switch and the
+// knob table.
+template <bool SWITCH, bool KNOBS>
 Kernel instance(bool delay, bool crash, int byz) {
   if (byz == ctt::BYZ_SILENT)
-    return crash ? (delay ? hotstuff_vote_kernel<true, true, 1, SWITCH>
-                          : hotstuff_vote_kernel<false, true, 1, SWITCH>)
-                 : (delay ? hotstuff_vote_kernel<true, false, 1, SWITCH>
-                          : hotstuff_vote_kernel<false, false, 1, SWITCH>);
+    return crash ? (delay ? hotstuff_vote_kernel<true, true, 1, SWITCH, KNOBS>
+                          : hotstuff_vote_kernel<false, true, 1, SWITCH, KNOBS>)
+                 : (delay ? hotstuff_vote_kernel<true, false, 1, SWITCH, KNOBS>
+                          : hotstuff_vote_kernel<false, false, 1, SWITCH,
+                                                 KNOBS>);
   if (byz == ctt::BYZ_EQUIV)
-    return crash ? (delay ? hotstuff_vote_kernel<true, true, 2, SWITCH>
-                          : hotstuff_vote_kernel<false, true, 2, SWITCH>)
-                 : (delay ? hotstuff_vote_kernel<true, false, 2, SWITCH>
-                          : hotstuff_vote_kernel<false, false, 2, SWITCH>);
-  return crash ? (delay ? hotstuff_vote_kernel<true, true, 0, SWITCH>
-                        : hotstuff_vote_kernel<false, true, 0, SWITCH>)
-               : (delay ? hotstuff_vote_kernel<true, false, 0, SWITCH>
-                        : hotstuff_vote_kernel<false, false, 0, SWITCH>);
+    return crash ? (delay ? hotstuff_vote_kernel<true, true, 2, SWITCH, KNOBS>
+                          : hotstuff_vote_kernel<false, true, 2, SWITCH, KNOBS>)
+                 : (delay ? hotstuff_vote_kernel<true, false, 2, SWITCH, KNOBS>
+                          : hotstuff_vote_kernel<false, false, 2, SWITCH,
+                                                 KNOBS>);
+  return crash ? (delay ? hotstuff_vote_kernel<true, true, 0, SWITCH, KNOBS>
+                        : hotstuff_vote_kernel<false, true, 0, SWITCH, KNOBS>)
+               : (delay ? hotstuff_vote_kernel<true, false, 0, SWITCH, KNOBS>
+                        : hotstuff_vote_kernel<false, false, 0, SWITCH, KNOBS>);
 }
 
 }  // namespace
@@ -311,7 +330,8 @@ Kernel instance(bool delay, bool crash, int byz) {
 // BYZ_EQUIV. up and tab are null but on a SPEC §9 switch round: then kernel
 // KAL's [B, 1, N] uplink masks and [B, K] table (the downlinks are drawn with
 // drop_cut, part_cut and max_delay), and uplink_cut the §9b lies' cutoff (0:
-// none).
+// none). knobs is a knob batch's [B, 12] table (knobs.cuh; null but in a
+// knob batch).
 extern "C" int ctt_hotstuff_vote(
     const uint32_t* seed, uint32_t r, const int32_t* view1, long long* lane,
     const int32_t* b1_v, const int32_t* b1_h, const int32_t* b2_v,
@@ -321,7 +341,7 @@ extern "C" int ctt_hotstuff_vote(
     uint32_t max_delay, int Q, int B, int N, int S, int byz, int nb,
     int32_t* chain_vid, int32_t* ftab_v, int32_t* ftab_h, int32_t* fnum,
     bool* deceived, const unsigned char* up, const int32_t* tab, int K,
-    uint32_t uplink_cut, cudaStream_t st) {
+    uint32_t uplink_cut, const long long* knobs, cudaStream_t st) {
   const bool equiv = byz == ctt::BYZ_EQUIV;
   if ((up == nullptr) != (tab == nullptr) ||
       (up != nullptr && (K < 1 || K > N)) ||
@@ -339,15 +359,17 @@ extern "C" int ctt_hotstuff_vote(
   Regs regs = {{b1_v, b1_h, b2_v, b2_h, b3_v, b3_h, gcommit}};
   const Fork fork = {chain_vid, ftab_v, ftab_h, fnum, deceived};
   const bool delay = max_delay != 0u, crash = flags != nullptr;
+  const bool sw_on = up != nullptr, kn = knobs != nullptr;
   const auto kernel =
-      up != nullptr
-          ? instance<true>(delay, crash, byz)
-          : instance<false>(delay, crash, byz);
+      sw_on ? (kn ? instance<true, true>(delay, crash, byz)
+                  : instance<true, false>(delay, crash, byz))
+            : (kn ? instance<false, true>(delay, crash, byz)
+                  : instance<false, false>(delay, crash, byz));
   const Sw sw = {ctt::switch_args(up, tab, K, 1, N, drop_cut, part_cut,
                                   max_delay),
                  uplink_cut};
   kernel<<<static_cast<unsigned>(blocks), hs::THREADS, 0, st>>>(
       seed, r, view1, lane, regs, chain_v, pdel, regs_out, flags, drop_cut,
-      part_cut, max_delay, Q, B, N, S, tiles, N - nb, fork, sw);
+      part_cut, max_delay, Q, B, N, S, tiles, N - nb, fork, sw, knobs);
   return static_cast<int>(cudaGetLastError());
 }

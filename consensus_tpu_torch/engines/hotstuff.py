@@ -78,6 +78,13 @@ support locally, and under §9b each poisoned aggregator that reaches the
 leader as its whole segment (the leader's local vote then dropped) and
 each byzantine node's uplink lie as a vote: a switch round is four
 launches (KAL, KAD, KAE, KAF).
+
+In a knob batch (``network/runner.py`` ``run_knob_batch``, K23) the round
+takes a :class:`~consensus_tpu_torch.core.knobs.KnobView` for ``cfg``: the
+gates (``gated``, ``crash_on``, ``switch_on``, §9b's) are its base's, each
+cutoff a [B, 1] column of the lane's own value for the plain versions, and
+KAJ, KAD, KAE, KAL and KAH run their KNOBS instances, which read each
+lane's row of the view's [B, 12] table.
 """
 from __future__ import annotations
 
@@ -85,7 +92,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..core import rng
+from ..core import knobs, rng
 from ..core.config import BYZ_EQUIV, BYZ_SILENT, Config
 from ..ops.adversary import (AGG_TELEMETRY, CRASH_DOWN, CRASH_REC,
                              CRASH_TELEMETRY, SAFETY_TELEMETRY, bitcast_i32,
@@ -307,7 +314,8 @@ def hotstuff_prologue(cfg: Config, seed, r: int, view, timer, lane,
     CUDA tensors it launches ``csrc/hotstuff_prologue.cu`` (a thread per
     (lane, node); the key by warp shuffles and one atomic a block; its
     DESYNC instance with ``cfg.desync_on``, its CRASH instance with
-    ``flags``). Raises unless a gate is on."""
+    ``flags``, its KNOBS instances with a knob batch's view: each lane's
+    desync cutoff from the view's table). Raises unless a gate is on."""
     if flags is None and not cfg.desync_on:
         raise ValueError("the prologue runs on gated rounds only: a crash "
                          "(flags) or a desync")
@@ -333,19 +341,24 @@ def hotstuff_prologue(cfg: Config, seed, r: int, view, timer, lane,
         window = r // cfg.telemetry_window
         check_all(dev, (w, torch.int32, (B, n_windows, K)))
     out = torch.empty((2, B, N), dtype=torch.int32, device=dev)
+    base, table = knobs.static(cfg), knobs.table_ptr(cfg, dev, B)
     _build.launch("hotstuff_prologue", seed.data_ptr(), int(r) & 0xFFFFFFFF,
                   view.data_ptr(), timer.data_ptr(),
                   None if flags is None else flags.data_ptr(),
                   lane.data_ptr(), out.data_ptr(),
                   *(None if x is None else x.data_ptr() for x in (t, w)),
-                  cfg.desync_cutoff, cfg.max_skew_rounds, cfg.view_timeout,
+                  base.desync_cutoff, cfg.max_skew_rounds, cfg.view_timeout,
                   B, N, K, HOTSTUFF_TELEMETRY.index("view_changes"), window,
-                  n_windows, cfg.n_byzantine)
+                  n_windows, cfg.n_byzantine, table)
     hotstuff_prologue.launches += 1
+    hotstuff_prologue.knob_launches += table is not None
     return tuple(out.unbind(0))
 
 
 hotstuff_prologue.launches = 0
+# Launches of its KNOBS instance (a knob batch), also counted in
+# ``launches``.
+hotstuff_prologue.knob_launches = 0
 
 
 # --- KAD: P0-P2 ----------------------------------------------------------------
@@ -393,7 +406,9 @@ def hotstuff_propose(cfg: Config, seed, r: int, view, b1_h, lane,
     CUDA tensors it launches ``csrc/hotstuff_propose.cu`` (a thread per
     (lane, node); a warp's largest proposing view goes into VMAX with one
     atomic; its CRASH instance with ``flags``, its BYZ instance with
-    silent byzantine nodes)."""
+    silent byzantine nodes, its KNOBS instances with a knob batch's view:
+    each lane's drop, partition and churn cutoffs from the view's
+    table)."""
     if view.device.type == "cpu":
         return hotstuff_propose_plain(cfg, seed, r, view, b1_h, lane, flags)
     from .. import _build
@@ -406,18 +421,23 @@ def hotstuff_propose(cfg: Config, seed, r: int, view, b1_h, lane,
               *(() if flags is None else ((flags, torch.uint8, (B, N)),)))
     view1 = torch.empty((B, N), dtype=torch.int32, device=dev)
     adv = torch.empty((B, N), dtype=torch.bool, device=dev)
+    base, table = knobs.static(cfg), knobs.table_ptr(cfg, dev, B)
     _build.launch("hotstuff_propose", seed.data_ptr(), int(r) & 0xFFFFFFFF,
                   view.data_ptr(), b1_h.data_ptr(), lane.data_ptr(),
                   view1.data_ptr(), adv.data_ptr(),
                   None if flags is None else flags.data_ptr(),
-                  cfg.drop_cutoff, cfg.partition_cutoff, cfg.churn_cutoff,
+                  base.drop_cutoff, base.partition_cutoff, base.churn_cutoff,
                   cfg.max_delay_rounds, KEY if gated(cfg) else TOP, B, N,
-                  cfg.log_capacity, cfg.byz, cfg.n_byzantine)
+                  cfg.log_capacity, cfg.byz, cfg.n_byzantine, table)
     hotstuff_propose.launches += 1
+    hotstuff_propose.knob_launches += table is not None
     return view1, adv
 
 
 hotstuff_propose.launches = 0
+# Launches of its KNOBS instance (a knob batch), also counted in
+# ``launches``.
+hotstuff_propose.knob_launches = 0
 
 
 # --- KAE: P2's delivery, P3, P4 ------------------------------------------------
@@ -581,7 +601,9 @@ def hotstuff_vote(cfg: Config, seed, r: int, view1, lane, b1_v, b1_h, b2_v,
     with ``flags``, its BYZ instances with byzantine nodes: under
     equivocation two ballots a warp, and the last block also writes
     ``fork``'s rows; its SWITCH instances with ``agg``, where each voter
-    draws its aggregator's downlink to L and, under §9b, its lie)."""
+    draws its aggregator's downlink to L and, under §9b, its lie; its
+    KNOBS instances with a knob batch's view: each lane's drop, partition
+    and lie cutoffs from the view's table)."""
     if (cfg.byz == BYZ_EQUIV) != (fork is not None):
         raise ValueError("pass fork (chain_vid, ftab_v, ftab_h, fnum) "
                          "exactly under byzantine equivocation")
@@ -611,26 +633,31 @@ def hotstuff_vote(cfg: Config, seed, r: int, view1, lane, b1_v, b1_h, b2_v,
     pdel = torch.empty((B, N), dtype=torch.bool, device=dev)
     new = torch.empty((7, B), dtype=torch.int32, device=dev)
     deceived = None if fork is None else torch.empty_like(pdel)
+    base, table = knobs.static(cfg), knobs.table_ptr(cfg, dev, B)
     _build.launch("hotstuff_vote", seed.data_ptr(), int(r) & 0xFFFFFFFF,
                   view1.data_ptr(), lane.data_ptr(),
                   *(x.data_ptr() for x in regs), chain_v.data_ptr(),
                   pdel.data_ptr(), new.data_ptr(),
-                  None if flags is None else flags.data_ptr(), cfg.drop_cutoff,
-                  cfg.partition_cutoff, cfg.max_delay_rounds, 2 * cfg.f + 1,
-                  B, N, S, cfg.byz, cfg.n_byzantine,
+                  None if flags is None else flags.data_ptr(),
+                  base.drop_cutoff, base.partition_cutoff,
+                  cfg.max_delay_rounds, 2 * cfg.f + 1, B, N, S, cfg.byz,
+                  cfg.n_byzantine,
                   *(None if x is None else x.data_ptr() for x in (
                       (*fork, deceived) if fork is not None else (None,) * 5)),
                   *switch_tables(agg),
-                  cfg.byz_uplink_cutoff if cfg.uplink_lies_on else 0)
+                  base.byz_uplink_cutoff if base.uplink_lies_on else 0, table)
     hotstuff_vote.launches += 1
     hotstuff_vote.switch_launches += agg is not None
+    hotstuff_vote.knob_launches += table is not None
     out = (pdel, *new.unbind(0))
     return out if deceived is None else (*out, deceived)
 
 
 hotstuff_vote.launches = 0
-# Launches of its SWITCH instances (SPEC §9), also counted in ``launches``.
+# Launches of its SWITCH instances (SPEC §9) and of its KNOBS instances (a
+# knob batch), each also counted in ``launches``.
 hotstuff_vote.switch_launches = 0
+hotstuff_vote.knob_launches = 0
 
 
 # --- KAF: P6, P7 and the telemetry tail ----------------------------------------

@@ -84,7 +84,7 @@ from __future__ import annotations
 
 import torch
 
-from ..core import rng
+from ..core import knobs, rng
 from ..core.config import BYZ_EQUIV, BYZ_NONE, BYZ_SILENT, Config
 from ..ops.adversary import (CRASH_DOWN, CRASH_REC, churn, crash_step,
                              equiv_stance_plain, open_drop_plain)
@@ -312,7 +312,9 @@ def bcast_view_preprepare(cfg: Config, seed, r: int, n_real, f, view, timer,
     slot) runs P3, reading the rows as they stood before P3; P1's flags
     only with ``want_catch``; its CRASH instance with ``flags``, its DESYNC
     instance with ``cfg.desync_on``, its BYZ instances with byzantine
-    nodes)."""
+    nodes; its KNOBS instances with a knob batch's view, whose lanes read
+    their churn, drop, partition and desync cutoffs from the view's table,
+    ``core/knobs.py``)."""
     if view.device.type == "cpu":
         return bcast_view_preprepare_plain(cfg, seed, r, n_real, f, view,
                                            timer, pp_seen, pp_view, pp_val,
@@ -337,23 +339,28 @@ def bcast_view_preprepare(cfg: Config, seed, r: int, n_real, f, view, timer,
     hist = torch.empty((B, 2, vmax + 2), dtype=torch.int32, device=dev)
     fresh = torch.empty((B, N), dtype=torch.int32, device=dev)
     catch = torch.empty_like(reset) if want_catch else None
+    base, table = knobs.static(cfg), knobs.table_ptr(cfg, dev, B)
     _build.launch("bcast_view_preprepare", seed.data_ptr(),
-                  int(r) & 0xFFFFFFFF, cfg.churn_cutoff, cfg.drop_cutoff,
-                  cfg.partition_cutoff, cfg.max_delay_rounds,
-                  cfg.view_timeout, vmax, cfg.desync_cutoff,
+                  int(r) & 0xFFFFFFFF, base.churn_cutoff, base.drop_cutoff,
+                  base.partition_cutoff, cfg.max_delay_rounds,
+                  cfg.view_timeout, vmax, base.desync_cutoff,
                   cfg.max_skew_rounds, *(t.data_ptr() for t in (
                       n_real, f, view, timer, pp_seen, pp_view, pp_val,
                       prepared, committed, view_out, timer_out, reset,
                       seen_out, pview_out, pval_out, bits, hist, fresh)),
                   None if catch is None else catch.data_ptr(),
                   None if flags is None else flags.data_ptr(), B, N, S,
-                  cfg.byz, cfg.n_byzantine)
+                  cfg.byz, cfg.n_byzantine, table)
     bcast_view_preprepare.launches += 1
+    bcast_view_preprepare.knob_launches += table is not None
     out = (view_out, timer_out, reset, seen_out, pview_out, pval_out, bits)
     return (*out, catch) if want_catch else out
 
 
 bcast_view_preprepare.launches = 0
+# Launches of its KNOBS instance (a knob batch), also counted in
+# ``launches``.
+bcast_view_preprepare.knob_launches = 0
 
 
 # --- KU: P4 prepare tally, P5 commit tally -----------------------------------

@@ -4,7 +4,11 @@ plain path (``EngineDef``, ``make_seeds``, ``_init_jit``, the scan of
 the dense and the capped Raft engine, the dense and the §6b broadcast
 PBFT engine, the Paxos, the DPoS and the HotStuff engine alike, and of
 ``consensus_tpu/engines/pbft_sweep.py``'s ``_fsweep_jit``: a PBFT f-ladder
-is one run whose lanes carry their own population and tolerance.
+is one run whose lanes carry their own population and tolerance. And of
+the JAX runner's ``run_knob_batch`` (``_knob_batch_jit``, K23) on the
+HotStuff and the §6b PBFT engine: a generation of adversary-search
+candidates as the lanes of one run, each lane with its own row of
+adversary cutoffs (``core/knobs.py``).
 
 Sweeps (lanes) are the leading batch axis of every state tensor. A run's
 per-lane inputs are its seeds and, for PBFT, each lane's ``n_real`` and
@@ -27,7 +31,7 @@ import numpy as np
 import torch
 
 from .. import _build
-from ..core import rng
+from ..core import knobs, rng
 from ..core.config import Config
 from ..engines import (dpos, hotstuff, paxos, pbft, pbft_bcast, pbft_sweep,
                        raft, raft_sparse)
@@ -64,6 +68,12 @@ KERNELS = tuple((_WRAPPER_MODULES.get(name, raft_sparse), name)
 SWITCH_KERNELS = tuple((_WRAPPER_MODULES[name], name) for name in (
     "delivery_edges", "dense_elect", "paxos_promise", "paxos_accept_learn",
     "hotstuff_vote", "switch_combine", "switch_receive"))
+# The wrappers with KNOBS instances (a knob batch's lanes read their own
+# cutoffs), whose launches of those are counted apart on the wrapper's
+# ``knob_launches`` (and in ``launches``).
+KNOB_KERNELS = tuple((_WRAPPER_MODULES[name], name) for name in (
+    "hotstuff_prologue", "hotstuff_propose", "hotstuff_vote", "agg_round",
+    "crash_transition", "bcast_view_preprepare"))
 
 
 class Engine(NamedTuple):
@@ -136,10 +146,18 @@ def switch_launch_counts() -> dict[str, int]:
             for mod, name in SWITCH_KERNELS}
 
 
+def knob_launch_counts() -> dict[str, int]:
+    """Each KNOBS instance's launch count, by wrapper name."""
+    return {name: getattr(mod, name).knob_launches
+            for mod, name in KNOB_KERNELS}
+
+
 def _all_counts() -> dict[tuple, int]:
     return {**{(n, "launches"): v for n, v in launch_counts().items()},
             **{(n, "switch_launches"): v
-               for n, v in switch_launch_counts().items()}}
+               for n, v in switch_launch_counts().items()},
+            **{(n, "knob_launches"): v
+               for n, v in knob_launch_counts().items()}}
 
 
 def _add_launches(counts: dict[tuple, int]) -> None:
@@ -247,13 +265,18 @@ def _rounds(cfg: Config, lanes: dict[str, torch.Tensor], n_rounds: int,
     """Init from the [B] u32 ``lanes["seed"]`` tensor, zeroed
     accumulators, then rounds 0 .. n_rounds - 1 with the other lane
     tensors: everything on the device, nothing from the host, so that it
-    can be captured as a graph."""
+    can be captured as a graph. A knob batch's ``lanes["knobs"]`` ([B, 12]
+    int64) runs the rounds on a :class:`~consensus_tpu_torch.core.knobs.
+    KnobView` of ``cfg`` over that table."""
     seeds = lanes["seed"]
+    view = cfg if "knobs" not in lanes else knobs.KnobView(cfg,
+                                                            lanes["knobs"])
     telem, flight = (accumulators(cfg, seeds.device) if telemetry
                      else (None, None))
-    st = advance(cfg, engine(cfg).init(cfg, seeds), 0, n_rounds,
+    st = advance(view, engine(cfg).init(view, seeds), 0, n_rounds,
                  telem=telem, flight=flight,
-                 lanes={k: v for k, v in lanes.items() if k != "seed"},
+                 lanes={k: v for k, v in lanes.items()
+                        if k not in ("seed", "knobs")},
                  rungs=rungs)
     return RunOutput(st, telem, *(flight or (None, None)))
 
@@ -292,15 +315,15 @@ def clear_graphs() -> None:
 
 
 def _capture(cfg: Config, dev: torch.device, telemetry: bool,
-             rungs) -> _Captured:
-    """Capture ``cfg``'s whole run on ``dev`` as one CUDA graph. One eager
-    round first builds and loads every kernel, so that nothing is loaded
-    and no host data is copied while the stream is captured. A capture
-    records no launch on the device, so the counts its wrappers took are
-    taken back and added at each replay instead. A failed capture
-    raises."""
+             rungs, inputs: dict[str, np.ndarray]) -> _Captured:
+    """Capture ``cfg``'s whole run on ``dev`` as one CUDA graph, with the
+    per-lane ``inputs`` as its static input tensors. One eager round first
+    builds and loads every kernel, so that nothing is loaded and no host
+    data is copied while the stream is captured. A capture records no
+    launch on the device, so the counts its wrappers took are taken back
+    and added at each replay instead. A failed capture raises."""
     global captures
-    lanes = device_lanes(cfg, rungs, dev)
+    lanes = {k: torch.from_numpy(v).to(dev) for k, v in inputs.items()}
     _rounds(cfg, lanes, 1, telemetry, rungs)
     torch.cuda.synchronize(dev)
     before = _all_counts()
@@ -340,10 +363,22 @@ def run_device(cfg: Config, device=None, *, telemetry: bool = False,
         raise ValueError(
             "telemetry_window > 0 without telemetry=True: the window ring "
             "is the telemetry counter series, windowed")
+    return _execute(cfg, dev, telemetry, graph, rungs,
+                    lane_inputs(cfg, rungs),
+                    lambda d: _graph_key(cfg, d, telemetry, rungs))
+
+
+def _execute(cfg: Config, dev: torch.device, telemetry: bool, graph,
+             rungs, inputs: dict[str, np.ndarray], key) -> RunOutput:
+    """:func:`run_device`'s run of ``cfg`` with the per-lane ``inputs``:
+    eager, or as the replay of the CUDA graph cached under ``key(dev)``,
+    captured where it is not, after ``inputs`` are copied into its static
+    input tensors."""
     if graph is None:
         graph = dev.type == "cuda"
     if not graph:
-        out = _rounds(cfg, device_lanes(cfg, rungs, dev), cfg.n_rounds,
+        out = _rounds(cfg, {k: torch.from_numpy(v).to(dev)
+                            for k, v in inputs.items()}, cfg.n_rounds,
                       telemetry, rungs)
     elif dev.type != "cuda":
         raise ValueError("graph=True replays a CUDA graph: it needs a cuda "
@@ -351,15 +386,15 @@ def run_device(cfg: Config, device=None, *, telemetry: bool = False,
     else:
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
-        key = _graph_key(cfg, dev, telemetry, rungs)
+        k = key(dev)
         with torch.cuda.device(dev):
-            if key not in _GRAPHS:
+            if k not in _GRAPHS:
                 while len(_GRAPHS) >= GRAPH_CACHE_SIZE:
                     _GRAPHS.popitem(last=False)
-                _GRAPHS[key] = _capture(cfg, dev, telemetry, rungs)
-            _GRAPHS.move_to_end(key)
-            cap = _GRAPHS[key]
-            for name, a in lane_inputs(cfg, rungs).items():
+                _GRAPHS[k] = _capture(cfg, dev, telemetry, rungs, inputs)
+            _GRAPHS.move_to_end(k)
+            cap = _GRAPHS[k]
+            for name, a in inputs.items():
                 cap.lanes[name].copy_(torch.from_numpy(a))
             cap.graph.replay()
         _add_launches(cap.launches)
@@ -414,3 +449,116 @@ def run(cfg: Config, device=None, *, telemetry: bool = False,
         stats.update(start_round=0, executed_rounds=cfg.n_rounds,
                      **telemetry_stats(cfg, out))
     return result
+
+
+# --- K23: a generation of adversary-search candidates as one run --------------
+
+# The engines a knob batch runs (the others raise rather than capture a run
+# a lane).
+KNOB_ENGINES = (hotstuff.NAME, pbft_bcast.NAME)
+
+
+def _knob_graph_key(cfg: Config, dev: torch.device) -> tuple:
+    """The cache key of a knob batch of base ``cfg``: marked as a knob
+    batch, so that neither it nor a production run of the same config
+    replays the other's graph, and without the seed or any knob value (the
+    config fields the knob columns derive from), which reach the graph
+    only through its static input tensors. The base's gates, which pick
+    the kernels and their instances, stay in."""
+    skip = {"seed", *knobs.KNOB_FIELDS.values()}
+    fields = tuple((f.name, getattr(cfg, f.name))
+                   for f in dataclasses.fields(cfg) if f.name not in skip)
+    gates = tuple(sorted(knobs.gates(cfg).items())) + (
+        ("desync_on", cfg.desync_on),)
+    return ("knob_batch", fields, gates, dev)
+
+
+def knob_batch_device(cfg: Config, seeds, kmat, device=None) -> RunOutput:
+    """:func:`run_knob_batch`'s run, with its checks: the final state and
+    accumulators on the device, after the device has finished (on
+    ``cuda`` the static outputs of the generation's graph, which its next
+    replay overwrites, as :func:`run_device`'s)."""
+    if cfg.telemetry_window <= 0:
+        raise ValueError("run_knob_batch needs telemetry_window > 0: "
+                         "candidate fitness is read off the flight "
+                         "recorder series (obs/timeline)")
+    eng = engine(cfg)
+    bcast_switch = eng.name == pbft_bcast.NAME and cfg.switch_on
+    if eng.name not in KNOB_ENGINES or bcast_switch:
+        raise ValueError(
+            f"run_knob_batch runs the {' and '.join(KNOB_ENGINES)} engines "
+            f"only (the latter without the switch); the {eng.name} engine"
+            f"{' under the switch' if bcast_switch else ''} is not ported "
+            "yet")
+    seeds = np.asarray(seeds, dtype=np.uint32)
+    kmat = np.asarray(kmat, dtype=np.uint32)
+    if seeds.ndim != 1 or kmat.shape != (seeds.shape[0], knobs.N_KNOBS):
+        raise ValueError(
+            f"seeds {seeds.shape} / kmat {kmat.shape}: expected [C] and "
+            f"[C, {knobs.N_KNOBS}] (KNOB_COLUMNS order)")
+    if seeds.shape[0] != cfg.n_sweeps:
+        raise ValueError(
+            f"{seeds.shape[0]} candidate lanes but cfg.n_sweeps = "
+            f"{cfg.n_sweeps} — the lane axis IS the sweep axis; size "
+            "the base config to the generation's lane count")
+    gates = knobs.gates(cfg)
+    for i, name in enumerate(knobs.KNOB_COLUMNS):
+        if not gates.get(name, True) \
+                and (kmat[:, i] != np.uint32(getattr(cfg, name))).any():
+            raise ValueError(
+                f"kmat column {name!r} varies from the base value but "
+                "the base config gates that adversary OFF — its "
+                "machinery is untraced and the lane values would be "
+                "silently ignored; make the base gate-representative "
+                "(core/knobs.KnobView)")
+    dev = resolve_device(device)
+    inputs = {**lane_inputs(cfg), "seed": seeds,
+              "knobs": kmat.astype(np.int64)}
+    return _execute(cfg, dev, True, None, None, inputs,
+                    lambda d: _knob_graph_key(cfg, d))
+
+
+def run_knob_batch(cfg: Config, seeds, kmat, *, device=None,
+                   generation: int = 0):
+    """Run ``len(seeds)`` adversary-knob candidates as the lanes of one run
+    and return ``(out, flight)``: the port of the JAX runner's
+    ``run_knob_batch`` (``consensus_tpu/network/runner.py:1057-1152``).
+
+    ``cfg`` is the static base: shapes, the engine and the adversary gates,
+    which must be representative for the knobs the lanes vary (a column
+    that differs from the base's value where the base gates that adversary
+    off raises, as in the JAX package). ``seeds`` is the [C] u32 seed
+    vector, one a lane; ``kmat[c]`` is lane c's row of u32 cutoffs in
+    :data:`~consensus_tpu_torch.core.knobs.KNOB_COLUMNS` order, and C must
+    be ``cfg.n_sweeps``. A lane whose row is a config's cutoffs reproduces
+    that config's run from the lane's seed bit for bit. The engines are
+    HotStuff (with the switch too) and §6b PBFT without the switch; any
+    other raises. On ``cuda`` a generation is the replay of one CUDA graph
+    (:func:`knob_batch_device`), whose static inputs are the seeds, the
+    knob table and, for PBFT, each lane's full ``n_real`` and ``f``;
+    generations of one base share its capture; the CPU runs the rounds
+    eagerly. ``generation`` is the JAX signature's label of the dispatch
+    (its trace span), not read here.
+
+    ``out`` is the engine's extract as numpy arrays batched over lanes;
+    ``flight`` holds ``engine``, ``window_rounds``, ``n_windows``,
+    ``n_rounds``, ``bucket_lo``, ``windows`` ([C, n_windows] int64 a
+    counter) and ``latency`` ([C, N_BUCKETS] int64 a histogram). The run
+    also keeps the counter totals, which it does not return."""
+    res = knob_batch_device(cfg, seeds, kmat, device)
+    eng = engine(cfg)
+    out = {k: v.cpu().numpy() for k, v in eng.extract(res.state).items()}
+    warr = res.win.cpu().numpy().astype(np.int64)
+    larr = res.lat.cpu().numpy().astype(np.int64)
+    flight = {
+        "engine": eng.name,
+        "window_rounds": cfg.telemetry_window,
+        "n_windows": n_windows(cfg),
+        "n_rounds": cfg.n_rounds,
+        "bucket_lo": list(BUCKET_LO),
+        "windows": {name: warr[:, :, k]
+                    for k, name in enumerate(eng.telemetry_names)},
+        "latency": {name: larr[:, h, :]
+                    for h, name in enumerate(eng.latency_names)},
+    }
+    return out, flight

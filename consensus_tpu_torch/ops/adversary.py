@@ -4,6 +4,8 @@ The counterparts of ``consensus_tpu/ops/adversary.py``'s ``draw``,
 ``cutoff``, ``bitcast_i32``, ``churn``, ``slot_missed``, ``attack_fires``
 (and ``engines/dpos.py``'s §A.4 draw), ``delayed_open``, ``delivery_edges``,
 ``delivery``, ``crash_transition``, ``freeze_down`` and ``crash_counts``.
+The cutoffs are ints, or in a knob batch (``core/knobs.py``) each lane's
+[B, 1] column, which the plain versions broadcast against their draws.
 Every decision is a pure counter function of (seed, round, ids), so an
 edge's delivery here equals the JAX package's entry for the same absolute
 (round, src, dst) ids, with or without the SPEC §A.2 delayed
@@ -24,7 +26,8 @@ from typing import NamedTuple
 
 import torch
 
-from ..core import rng
+from ..core import knobs, rng
+from ..core.knobs import N_KNOBS
 
 
 def draw(seed, stream: int, ctx, c0, c1) -> torch.Tensor:
@@ -32,9 +35,11 @@ def draw(seed, stream: int, ctx, c0, c1) -> torch.Tensor:
     return rng.random_u32(seed, stream, ctx, c0, c1)
 
 
-def cutoff(cut: int) -> int:
-    """u32 probability cutoff (draw < cutoff <=> the event fires)."""
-    return int(cut)
+def cutoff(cut):
+    """u32 probability cutoff (draw < cutoff <=> the event fires): an int,
+    or a knob batch's per-lane [B, 1] column (``core/knobs.py``) as it
+    is."""
+    return cut if isinstance(cut, torch.Tensor) else int(cut)
 
 
 def bitcast_i32(x: torch.Tensor) -> torch.Tensor:
@@ -107,10 +112,10 @@ def equiv_stance_plain(seed, r: int, src, dst) -> torch.Tensor:
 
 
 def churn(seed, r: int, churn_cut: int, u32=rng.random_u32) -> torch.Tensor:
-    """SPEC §2: [B] bool, True where the round's leader-churn event fires.
-    ``u32`` draws the words (kernel KA unless a plain version says
-    otherwise)."""
-    return u32(seed, rng.STREAM_CHURN, r, 0, 0)[:, 0] < cutoff(churn_cut)
+    """SPEC §2: [B] bool, True where the round's leader-churn event fires
+    (``churn_cut`` an int or a per-lane [B, 1] column). ``u32`` draws the
+    words (kernel KA unless a plain version says otherwise)."""
+    return (u32(seed, rng.STREAM_CHURN, r, 0, 0) < cutoff(churn_cut))[:, 0]
 
 
 def slot_missed(seed, r: int, p, miss_cut: int,
@@ -392,7 +397,8 @@ def crash_counts_plain(crashed, rec, down) -> torch.Tensor:
 
 def crash_transition_plain(seed, r: int, down, crash_cut: int,
                            recover_cut: int, max_crashed: int, t=None,
-                           w=None, col: int = 0, window: int = 0):
+                           w=None, col: int = 0, window: int = 0,
+                           knobs=None):
     """Plain version of KAH: the port's copy of K13 ``crash_transition``
     (``consensus_tpu/ops/adversary.py:101-130``) on each lane of ``seed``
     ([B] uint32) and ``down`` ([B, N] bool). A down node recovers where its
@@ -405,7 +411,9 @@ def crash_transition_plain(seed, r: int, down, crash_cut: int,
     CRASH_NEW). With the run's counter totals ``t`` ([B, K] int32), adds
     :func:`crash_counts_plain` into columns ``col .. col + 2`` of it and,
     with the window ring ``w``, into window ``window`` of ``w``, in
-    place."""
+    place. In a knob batch the cutoffs are each lane's [B, 1] columns
+    (``core/knobs.py``); ``knobs``, the [B, 12] table the kernel's KNOBS
+    instance reads instead, is not read here."""
     N = down.shape[1]
     idx = torch.arange(N, dtype=torch.int32, device=down.device)
     rec = down & (rng.random_u32_plain(seed, rng.STREAM_CRASH, r, 1, idx)
@@ -430,16 +438,19 @@ def crash_transition_plain(seed, r: int, down, crash_cut: int,
 
 def crash_transition(seed, r: int, down, crash_cut: int, recover_cut: int,
                      max_crashed: int, t=None, w=None, col: int = 0,
-                     window: int = 0):
+                     window: int = 0, knobs=None):
     """Kernel KAH: same arguments, in-place additions and result as
     :func:`crash_transition_plain`, which it runs for CPU tensors; for CUDA
     tensors it launches ``csrc/crash_transition.cu`` (a thread per node;
     with ``max_crashed > 0`` two launches over tiles of 1 024 nodes: the
     tiles' counts, then each tile's block scan ranks its would-be crashers
-    in ascending id order on top of the tiles before it)."""
+    in ascending id order on top of the tiles before it). With ``knobs``,
+    a knob batch's [B, 12] int64 table (``core/knobs.py``), its KNOBS
+    instance reads each lane's cutoffs from the table's row and the
+    cutoff arguments are not read."""
     if down.device.type == "cpu":
         return crash_transition_plain(seed, r, down, crash_cut, recover_cut,
-                                      max_crashed, t, w, col, window)
+                                      max_crashed, t, w, col, window, knobs)
     from .. import _build
     B, N = down.shape
     _build.check(seed, torch.uint32, down.device, (B,))
@@ -458,30 +469,43 @@ def crash_transition(seed, r: int, down, crash_cut: int, recover_cut: int,
     flags = torch.empty((B, N), dtype=torch.uint8, device=down.device)
     tiles = torch.empty((B, 2, -(-N // 1024)), dtype=torch.int32,
                         device=down.device) if max_crashed > 0 else None
+    cuts = (0, 0)
+    if knobs is None:
+        cuts = (int(crash_cut), int(recover_cut))
+    else:
+        _build.check(knobs, torch.int64, down.device, (B, N_KNOBS))
     _build.launch("crash_transition", seed.data_ptr(), int(r) & 0xFFFFFFFF,
                   down.data_ptr(), new.data_ptr(), flags.data_ptr(),
-                  int(crash_cut), int(recover_cut), int(max_crashed),
+                  *cuts, int(max_crashed),
                   None if t is None else t.data_ptr(),
                   None if w is None else w.data_ptr(),
                   None if tiles is None else tiles.data_ptr(), B, N, K,
-                  int(col), int(window), 0 if w is None else w.shape[1])
+                  int(col), int(window), 0 if w is None else w.shape[1],
+                  None if knobs is None else knobs.data_ptr())
     crash_transition.launches += 1
+    crash_transition.knob_launches += knobs is not None
     return new, flags
 
 
 crash_transition.launches = 0
+# Launches of its KNOBS instance (a knob batch), also counted in
+# ``launches``.
+crash_transition.knob_launches = 0
 
 
 def crash_step(cfg, seed, r: int, down, names, telem=None, flight=None):
     """The round's KAH launch as an engine calls it: ``cfg``'s cutoffs and
     cap, the crash tail at ``names.index("crashes")`` of the engine's
     counter names, with the totals ``telem`` and the recorder ``flight``
-    (window ring, latency buckets) where given."""
+    (window ring, latency buckets) where given; with a knob batch's view
+    (``core/knobs.py``), each lane's cutoffs and the view's table."""
     w = None if flight is None else flight[0]
     window = 0 if w is None else r // cfg.telemetry_window
     return crash_transition(seed, r, down, cfg.crash_cutoff,
                             cfg.recover_cutoff, cfg.max_crashed, telem, w,
-                            names.index("crashes"), window)
+                            names.index("crashes"), window,
+                            *(() if knobs.static(cfg) is cfg
+                              else (cfg.table,)))
 
 
 # --- KAI: the SPEC §6c freeze of the PBFT engines --------------------------------

@@ -37,6 +37,10 @@ and [B, phases, N] uplink masks and adds the
 kernels KB, KM, KY, KZ and KAE read them and draw each downlink inline
 (``ctt::agg_downlink``, ``csrc/agg.cuh``), as :func:`agg_downlink_plain`
 does here. On CPU tensors :func:`agg_round` runs its plain version.
+In a knob batch (``core/knobs.py``) ``cfg`` is a view: the gates
+(``no_partition``, ``agg_poison_on``, ``uplink_lies_on``) are its base's,
+the drop, partition, poison and lie cutoffs each lane's [B, 1] column, and
+KAL runs its KNOBS instance.
 """
 from __future__ import annotations
 
@@ -44,7 +48,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..core import rng
+from ..core import knobs, rng
 from ..core.config import ATTACK_STICKY
 from .adversary import AGG_TELEMETRY, CRASH_DOWN, bitcast_i32
 
@@ -236,7 +240,7 @@ def _open_edge_plain(cfg, seed, q, src, dst) -> torch.Tensor:
         torch.as_tensor(src).dim(), torch.as_tensor(dst).dim(),
         torch.as_tensor(q).dim()) - 1))
     q = torch.as_tensor(q, dtype=torch.int64, device=seed.device)
-    cut = cfg.drop_cutoff
+    cut = knobs.at(cfg.drop_cutoff, useed.dim())
     ok = rng.delivery_u32_plain(useed, q, src, dst) >= cut
     for d in range(1, cfg.max_delay_rounds + 1):
         qd = (q - d).clamp(min=0)
@@ -271,7 +275,7 @@ def _uplink_plain(cfg, seed, agg: AggRound, phase: int, bcast: bool,
     q = take_seg_plain(agg.q, sids, K)                           # [B, N]
     dst = ui if bcast else base + phase * K + sids
     open_ = _open_edge_plain(cfg, seed, q, ui, dst)
-    if cfg.partition_cutoff:
+    if not cfg.no_partition:
         open_ = open_ & _part_pair_ok_plain(cfg, seed, q, ui, base + sids)
     return open_
 
@@ -306,7 +310,7 @@ def downlink_plain(cfg, seed, r: int, agg: AggRound, phase: int,
     base = vertex_base(cfg, seed, n_real)[:, :, None]            # [B, 1, 1]
     ua = torch.arange(K, dtype=torch.int64, device=dev)[None, :, None]
     open_ = _open_edge_plain(cfg, seed, r, base + phase * K + ua, udst)
-    if cfg.partition_cutoff:
+    if not cfg.no_partition:
         active = _draw(seed, rng.STREAM_PARTITION, r, 0, 0) \
             < cfg.partition_cutoff                               # [B, 1]
         side_a = _draw(seed, rng.STREAM_PARTITION, r, 1,
@@ -333,7 +337,7 @@ def downlink_self_plain(cfg, seed, r: int, agg: AggRound, phase: int,
     base = vertex_base(cfg, seed, n_real)
     uj = torch.arange(N, dtype=torch.int64, device=dev)
     open_ = _open_edge_plain(cfg, seed, r, base + phase * K + sids, uj)
-    if cfg.partition_cutoff:
+    if not cfg.no_partition:
         open_ = open_ & _part_pair_ok_plain(cfg, seed, r, base + sids, uj)
     if agg.alive is not None:
         open_ = open_ & take_seg_plain(agg.alive, sids, K)
@@ -490,7 +494,7 @@ def agg_round_plain(cfg, seed, r: int, flags=None, t=None, w=None,
     B = seed.shape[0]
     tab = torch.zeros((B, K), dtype=torch.int32, device=seed.device)
     tab |= AGG_ALIVE if agg.alive is None else agg.alive.to(torch.int32)
-    if cfg.partition_cutoff:
+    if not cfg.no_partition:
         ua = torch.arange(K, dtype=torch.int64, device=seed.device)
         side = _draw(seed, rng.STREAM_PARTITION, r, 1,
                      vertex_base(cfg, seed, n_real) + ua) & 1
@@ -525,7 +529,9 @@ def agg_round(cfg, seed, r: int, flags=None, t=None, w=None,
     id) over ids below max(N, K): id a < K draws aggregator a's word and
     q, id i < N its uplink; the counters by warp ballots and integer
     atomics; its PBFT modes with the §6b uplink, two poisoned phases and
-    ``n_real``). Raises unless ``cfg.switch_on``."""
+    ``n_real``; its KNOBS instance with a knob batch's view, which reads
+    each lane's drop, partition and §9b poison cutoffs from the view's
+    table, ``core/knobs.py``). Raises unless ``cfg.switch_on``."""
     if not cfg.switch_on:
         raise ValueError("KAL runs on switch rounds only "
                          "(net_model='switch')")
@@ -555,23 +561,28 @@ def agg_round(cfg, seed, r: int, flags=None, t=None, w=None,
     tab = torch.empty((B, K), dtype=torch.int32, device=dev)
     q = torch.empty((B, K), dtype=torch.int32, device=dev)
     up = torch.empty((B, ph_n, N), dtype=torch.bool, device=dev)
+    base, table = knobs.static(cfg), knobs.table_ptr(cfg, dev, B)
     _build.launch("agg_round", seed.data_ptr(), int(r) & 0xFFFFFFFF,
                   None if flags is None else flags.data_ptr(),
                   tab.data_ptr(), q.data_ptr(), up.data_ptr(),
                   None if t is None else t.data_ptr(),
                   None if w is None else w.data_ptr(),
-                  B, N, K, ph_n, cfg.agg_fail_cutoff, cfg.agg_stale_cutoff,
-                  cfg.agg_max_stale,
-                  cfg.agg_poison_cutoff if cfg.agg_poison_on else 0,
-                  cfg.agg_byz, cfg.drop_cutoff, cfg.partition_cutoff,
-                  cfg.max_delay_rounds, C, col, window, n_win,
+                  B, N, K, ph_n, base.agg_fail_cutoff, base.agg_stale_cutoff,
+                  base.agg_max_stale,
+                  base.agg_poison_cutoff if base.agg_poison_on else 0,
+                  base.agg_byz, base.drop_cutoff, base.partition_cutoff,
+                  base.max_delay_rounds, C, col, window, n_win,
                   poison_phases(cfg), int(bcast_uplink(cfg)),
-                  None if n_real is None else n_real.data_ptr())
+                  None if n_real is None else n_real.data_ptr(), table)
     agg_round.launches += 1
+    agg_round.knob_launches += table is not None
     return AggTables(tab, q, up)
 
 
 agg_round.launches = 0
+# Launches of its KNOBS instance (a knob batch), also counted in
+# ``launches``.
+agg_round.knob_launches = 0
 
 
 def switch_tables(agg: AggTables | None) -> tuple:
@@ -635,13 +646,14 @@ def downlink_at_plain(seed, r: int, tab, N: int, phase: int, a, dst,
     word = tab.to(torch.int64).gather(1, a.reshape(a.shape[0], -1)) \
         .reshape(a.shape)
     useed = rng.as_u32(seed).reshape(lead)
+    drop_cut = knobs.at(drop_cut, a.dim())
     g = N + phase * K + a
     ok = rng.delivery_u32_plain(useed, r, g, dst) >= drop_cut
     if max_delay > 0:
         from .adversary import delayed_open_plain
         ok = ok | delayed_open_plain(useed, r, g, dst, drop_cut, max_delay)
     ok = ok & ((word & AGG_ALIVE) != 0)
-    if part_cut:
+    if knobs.may_fire(part_cut):
         active = (_draw(seed, rng.STREAM_PARTITION, r, 0, 0)
                   < part_cut).reshape(lead)
         side_d = rng.threefry2x32_plain(useed ^ rng.STREAM_PARTITION, r, 1,

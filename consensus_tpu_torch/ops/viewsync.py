@@ -31,7 +31,8 @@ def desync_skew_plain(seed, r: int, ids, desync_cut: int,
     ``desync_skew`` (``consensus_tpu/ops/viewsync.py:40-53``): [B, N]
     int32, 0 where node id's activation draw (seed ^ STREAM_DESYNC, r, 0,
     id) is not below ``desync_cut``, else 1 + its depth draw (r, 1, id)
-    mod ``max_skew``. ``seed`` is [B] uint32 and ``ids`` the [N] absolute
+    mod ``max_skew``. ``seed`` is [B] uint32, ``desync_cut`` an int or, in
+    a knob batch, each lane's [B, 1] column, and ``ids`` the [N] absolute
     node ids (a padded ladder lane draws for its padded ids too, as the
     JAX package's does). The draws are the plain Threefry's, never kernel
     KA's: the plain versions that call this also run on CUDA tensors when
