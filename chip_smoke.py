@@ -393,6 +393,37 @@ Phases, each printing one JSON line:
                anchors, the path's kernels and KNOBS instances launched,
                node-round-steps per second, replay wall, busy share and
                device operations a round.
+24. knobs_count — the knob batch (K23) on the count engines: dense PBFT
+               (flat, and under the §9 switch with §9b), §6b PBFT under
+               the switch, dense Raft (flat and under the §A.3 sticky
+               attack), Paxos and DPoS. Every kernel call of rounds 3 and
+               20 (paxos-10kx10k: 15) of generation 0 of the six advsearch
+               spaces on these engines (dpos-delivery, raft-elections,
+               pbft-quorum, paxos-slots, pbft-cert-poison,
+               raft-attack-elect) and of seven full-width batches
+               (raft-1kx1k with raft-elections' gates and under the
+               sticky attack with per-lane targets, N + 3 and 0xFFFFFFFD
+               among them; pbft-f128 with pbft-quorum's gates and under
+               the switch with pbft-cert-poison's §9b; pbft-quorum-1k's
+               shape under the switch with §9b; paxos-10kx10k at 2 lanes;
+               dpos-100k with dpos-delivery's gates), and of that round
+               with every row the base's, against the plain versions,
+               exact (the KNOBS instances of KL, KQ, KAM, KAN, KM, KY,
+               KZ, KX and KAB among them; with every row the base's each
+               KNOBS call also equals its flat instance). Each instance's
+               time on round 20, its plain version's and its bound, and on
+               the all-base round its time and its flat instance's time
+               and bound. Then three generations of each space
+               (population 16, 96 rounds, 4-round windows; seeds and rows
+               from the search, written in below): every lane's digest
+               equal to the JAX package's ``run_knob_batch``, one capture
+               for the three, the path's kernels and each KNOBS instance
+               on it launched (counted from 0), two lanes of each
+               generation equal to production runs of their configs; and
+               the seven batches as one replay each: their lanes' JAX
+               anchors, the path's kernels and KNOBS instances launched,
+               node-round-steps per second, replay wall, busy share and
+               device operations a round.
 
 Every line carries ``elapsed_s``, the seconds since the script's start.
 Then the card's name and power limit, one ``{"kernels": [...]}`` line, and
@@ -411,8 +442,12 @@ instance (a row of its own: KB's, KM's, KY's, KZ's, KAE's and KAE's under
 and each KNOBS instance (a row of its own: KAJ's, KAD's and KAE's from the
 HotStuff 100k batch, KAE's SWITCH instance and KAL's from the three
 generations of hotstuff-forked-qc-1k, KAH's and KT's from the
-pbft-100k-bcast batch) from its phase-23 run, counting its KNOBS launches;
-the other runs' counts are in their phases' lines. Any
+pbft-100k-bcast batch) from its phase-23 run, and each of phase 24 (KL's
+and KM's from the raft-1kx1k batch, their STICKY and ATTACK instances'
+from the sticky batch, KQ's from the pbft-f128 batch, KAM's and KAN's
+from its switch batch, KY's and KZ's from the paxos-10kx10k batch, KX's
+and KAB's from the dpos-100k batch) from its phase-24 batch, counting its
+KNOBS launches; the other runs' counts are in their phases' lines. Any
 failure, or no GPU, exits non-zero without that last line.
 """
 from __future__ import annotations
@@ -8310,20 +8345,34 @@ def capture_knob_round_calls(base, seeds, kmat, r: int, device="cuda"):
 
 def knob_instance(name: str, args) -> bool:
     """Whether this call of wrapper ``name`` runs its KNOBS instance: KAH's
-    last argument is the table, the others' Config is a KnobView."""
+    and KL's last argument is the table, KAM's decide phase reads no
+    cutoff, the others' Config is a KnobView."""
     from consensus_tpu_torch.core import knobs
+    from consensus_tpu_torch.ops import switch_tally
     if name == "crash_transition":
         return len(args) > 10 and args[10] is not None
+    if name == "delivery":
+        return len(args) > 8 and args[8] is not None
+    if name == "switch_combine" and args[3] == switch_tally.DECIDE:
+        return False
     return isinstance(args[0], knobs.KnobView)
 
 
 def knob_flat(name: str, args, cfg):
     """``args`` of a KNOBS-instance call through the flat instance with
-    ``cfg``'s cutoffs: ``cfg`` for the view, and for KAH its scalar
-    cutoffs and no table."""
+    ``cfg``'s cutoffs: for KAH its scalar cutoffs and no table, for KL its
+    cutoffs, sticky target and attack cutoff and no table, for the others
+    ``cfg`` in place of the view."""
     one = list(args)
     if name == "crash_transition":
         one[3], one[4], one[10] = cfg.crash_cutoff, cfg.recover_cutoff, None
+    elif name == "delivery":
+        one[3], one[4] = cfg.drop_cutoff, cfg.partition_cutoff
+        if len(one) > 7 and one[7] is not None:
+            one[7] = (one[7][0], cfg.attack_target, cfg.attack_cutoff)
+        one = one[:8]
+        while len(one) > 6 and one[-1] is None:
+            one.pop()
     else:
         one[0] = cfg
     return tuple(one)
@@ -8578,6 +8627,1075 @@ def check_knob_batches(card: str, smi: str) -> dict[str, int]:
                     f"{key}: {kernel}'s KNOBS instance launched "
                     f"{knob[kernel]} of {launches[kernel]} times")
         for row_name, (name, _, run) in KNOB_TIMED.items():
+            if run == key:
+                own[row_name] = knob[name]
+        runner.clear_graphs()
+    return own
+
+
+# --- phase 24: the knob batch (K23) on the count engines -------------------
+
+# The wrappers whose KNOBS instances this phase adds, and their sources.
+KNOB_COUNT_INSTANCES = ("delivery", "pbft_view_preprepare", "switch_combine",
+                        "switch_receive", "dense_elect", "paxos_promise",
+                        "paxos_accept_learn", "dpos_round", "dpos_telemetry")
+KNOB_COUNT_REPLACES = {
+    "delivery (knobs)": "consensus_tpu/network/runner.py:1019 "
+    "_knob_batch_jit; ops/adversary.py:61 delivery under a KnobView "
+    "(engines/raft.py:232, pbft.py:158, paxos.py:103)",
+    "delivery (knobs, sticky)": "consensus_tpu/network/runner.py:1019 "
+    "_knob_batch_jit; engines/raft.py:242-253 the sticky jam under a "
+    "KnobView",
+    "pbft_view_preprepare (knobs)": "consensus_tpu/network/runner.py:1019 "
+    "_knob_batch_jit; engines/pbft.py:170-207 P0-P3 under a KnobView",
+    "switch_combine (knobs)": "consensus_tpu/network/runner.py:1019 "
+    "_knob_batch_jit; ops/aggregate.py:132-178 uplink lies under a KnobView",
+    "switch_receive (knobs)": "consensus_tpu/network/runner.py:1019 "
+    "_knob_batch_jit; ops/aggregate.py:260-277 downlinks under a KnobView",
+    "dense_elect (knobs)": "consensus_tpu/network/runner.py:1019 "
+    "_knob_batch_jit; engines/raft.py:232-330 P0-P2 under a KnobView",
+    "dense_elect (knobs, attack)": "consensus_tpu/network/runner.py:1019 "
+    "_knob_batch_jit; engines/raft.py:242-253, 303-304 sticky under a "
+    "KnobView",
+    "paxos_promise (knobs)": "consensus_tpu/network/runner.py:1019 "
+    "_knob_batch_jit; engines/paxos.py:103-117 under a KnobView",
+    "paxos_accept_learn (knobs)": "consensus_tpu/network/runner.py:1019 "
+    "_knob_batch_jit; engines/paxos.py:117 under a KnobView",
+    "dpos_round (knobs)": "consensus_tpu/network/runner.py:1019 "
+    "_knob_batch_jit; engines/dpos.py:82-169 under a KnobView",
+    "dpos_telemetry (knobs)": "consensus_tpu/network/runner.py:1019 "
+    "_knob_batch_jit; engines/dpos.py:183-198 under a KnobView"}
+# The row of each KNOBS instance: its wrapper, whether it is the ATTACK
+# instance (KM's, or KL's STICKY one, under the sticky attack), and the run
+# whose round-20 call is timed and whose run counts its launches.
+KNOB_COUNT_TIMED = {
+    "delivery (knobs)": ("delivery", False, "raft-1kx1k/knobs"),
+    "delivery (knobs, sticky)": ("delivery", True, "raft-1kx1k/sticky"),
+    "pbft_view_preprepare (knobs)": ("pbft_view_preprepare", False,
+                                     "pbft-f128/knobs"),
+    "switch_combine (knobs)": ("switch_combine", False, "pbft-f128/switch"),
+    "switch_receive (knobs)": ("switch_receive", False, "pbft-f128/switch"),
+    "dense_elect (knobs)": ("dense_elect", False, "raft-1kx1k/knobs"),
+    "dense_elect (knobs, attack)": ("dense_elect", True, "raft-1kx1k/sticky"),
+    "paxos_promise (knobs)": ("paxos_promise", False, "paxos-10kx10k/knobs"),
+    "paxos_accept_learn (knobs)": ("paxos_accept_learn", False,
+                                   "paxos-10kx10k/knobs"),
+    "dpos_round (knobs)": ("dpos_round", False, "dpos-100k/knobs"),
+    "dpos_telemetry (knobs)": ("dpos_telemetry", False, "dpos-100k/knobs")}
+# The bases of tools/advsearch/search.py's six spaces on these engines
+# (lines 119-224 and 302-313, with _ADV: window 4, 96 rounds, seed 0) and
+# the knobs each space searches, in its order.
+KNOB_ADV = dict(telemetry_window=4, n_rounds=96, seed=0)
+KNOB_COUNT_SPACES = {
+    "dpos-delivery": (dict(
+        protocol="dpos", n_nodes=24, log_capacity=96, n_candidates=12,
+        n_producers=3, epoch_len=48, drop_rate=0.3, miss_rate=0.1,
+        max_delay_rounds=4, churn_rate=0.01, suppress_rate=0.1,
+        suppress_window=48, **KNOB_ADV),
+        ("miss_rate", "drop_rate", "churn_rate", "suppress_rate")),
+    "raft-elections": (dict(
+        protocol="raft", n_nodes=7, log_capacity=128, max_entries=96,
+        drop_rate=0.3, partition_rate=0.1, churn_rate=0.02, crash_prob=0.1,
+        recover_prob=0.3, max_crashed=3, max_delay_rounds=4, **KNOB_ADV),
+        ("drop_rate", "partition_rate", "churn_rate", "crash_prob",
+         "recover_prob")),
+    "pbft-quorum": (dict(
+        protocol="pbft", f=2, n_nodes=7, log_capacity=96, drop_rate=0.3,
+        partition_rate=0.1, churn_rate=0.02, crash_prob=0.1,
+        recover_prob=0.3, max_crashed=2, max_delay_rounds=4, **KNOB_ADV),
+        ("drop_rate", "partition_rate", "churn_rate", "crash_prob",
+         "recover_prob")),
+    "paxos-slots": (dict(
+        protocol="paxos", n_nodes=9, log_capacity=96, drop_rate=0.3,
+        partition_rate=0.1, churn_rate=0.02, crash_prob=0.1,
+        recover_prob=0.3, max_crashed=3, max_delay_rounds=4, **KNOB_ADV),
+        ("drop_rate", "partition_rate", "churn_rate", "crash_prob",
+         "recover_prob")),
+    "pbft-cert-poison": (dict(
+        protocol="pbft", f=2, n_nodes=7, log_capacity=96,
+        net_model="switch", n_aggregators=2, agg_byz=1, n_byzantine=2,
+        byz_mode="equivocate", agg_poison_rate=0.3, byz_uplink_rate=0.2,
+        drop_rate=0.1, **KNOB_ADV),
+        ("agg_poison_rate", "byz_uplink_rate", "drop_rate")),
+    "raft-attack-elect": (dict(
+        protocol="raft", n_nodes=7, log_capacity=128, max_entries=96,
+        drop_rate=0.05, attack="elect", attack_rate=0.9, **KNOB_ADV),
+        ("attack_rate", "drop_rate")),
+}
+# The gates of raft-elections, pbft-quorum and paxos-slots (the same
+# knobs) with a cap of 64 for the full-width shapes, and dpos-delivery's.
+COUNT_GATES = dict(drop_rate=0.3, partition_rate=0.1, churn_rate=0.02,
+                   crash_prob=0.1, recover_prob=0.3, max_crashed=64,
+                   max_delay_rounds=4)
+DPOS_DELIVERY_GATES = dict(drop_rate=0.3, miss_rate=0.1, max_delay_rounds=4,
+                           churn_rate=0.01, suppress_rate=0.1,
+                           suppress_window=48)
+# pbft-cert-poison's §9b over phase 22's switch (K = 8), equivocators at f.
+CERT_POISON_9B = dict(SWITCH_KNOBS, agg_byz=1, byz_mode="equivocate",
+                      agg_poison_rate=0.3, byz_uplink_rate=0.2, drop_rate=0.1)
+# The seven full-width knob batches: each base at its flagship's shape
+# (raft-1kx1k cut to 128 rounds: PERF.md §4), and each lane's overrides,
+# 8 distinct rows (paxos-10kx10k: 2): lane 0 the base's, lane 1 the base
+# with a gated-on knob zeroed. The sticky batch's lanes also set their
+# target column as it stands (KNOB_COUNT_TARGETS; N + 3 and 0xFFFFFFFD
+# are out of range and jam nothing).
+STICKY_BASE = dict(attack="sticky", attack_rate=0.9, attack_target=3)
+KNOB_COUNT_BATCHES = {
+    "raft-1kx1k/knobs": (
+        dict(protocol="raft", log_capacity=L, max_entries=100,
+             **DENSE_CONFIGS["raft-1kx1k"], **COUNT_GATES,
+             telemetry_window=WINDOW) | dict(n_rounds=128),
+        ({}, dict(partition_rate=0.0), dict(drop_rate=0.05),
+         dict(crash_prob=0.3, recover_prob=0.1), dict(churn_rate=0.1),
+         dict(drop_rate=0.5, partition_rate=0.3),
+         dict(crash_prob=0.0, churn_rate=0.0),
+         dict(recover_prob=0.9, drop_rate=0.15))),
+    "raft-1kx1k/sticky": (
+        dict(protocol="raft", log_capacity=L, max_entries=100,
+             drop_rate=0.01, churn_rate=0.001,
+             **DENSE_CONFIGS["raft-1kx1k"], **STICKY_BASE,
+             telemetry_window=WINDOW) | dict(n_rounds=128),
+        ({}, dict(attack_rate=0.0), dict(attack_rate=1.0),
+         dict(attack_rate=0.5), dict(drop_rate=0.05), dict(churn_rate=0.01),
+         dict(attack_rate=1.0), dict(attack_rate=0.7, drop_rate=0.02))),
+    "pbft-f128/knobs": (
+        dict(PBFT_ADV, f=128, n_nodes=385, **COUNT_GATES, n_sweeps=8,
+             telemetry_window=WINDOW),
+        ({}, dict(partition_rate=0.0), dict(drop_rate=0.05),
+         dict(crash_prob=0.3, recover_prob=0.1), dict(churn_rate=0.1),
+         dict(drop_rate=0.5, partition_rate=0.3),
+         dict(crash_prob=0.0, churn_rate=0.0),
+         dict(recover_prob=0.9, drop_rate=0.15))),
+    "pbft-f128/switch": (
+        dict(PBFT_ADV, f=128, n_nodes=385, **CERT_POISON_9B,
+             n_byzantine=128, n_sweeps=8, telemetry_window=WINDOW),
+        ({}, dict(agg_poison_rate=0.0), dict(byz_uplink_rate=0.0),
+         dict(agg_poison_rate=0.9, byz_uplink_rate=0.7),
+         dict(drop_rate=0.35), dict(drop_rate=0.0, agg_poison_rate=0.6),
+         dict(byz_uplink_rate=0.95), dict(agg_poison_rate=0.05,
+                                          drop_rate=0.2))),
+    "pbft-quorum-1k/switch": (
+        dict(protocol="pbft", f=341, n_nodes=1024, fault_model="bcast",
+             log_capacity=96, **COUNT_GATES | dict(max_delay_rounds=2),
+             net_model="switch", n_aggregators=16, agg_byz=1,
+             n_byzantine=341, byz_mode="equivocate", agg_poison_rate=0.3,
+             byz_uplink_rate=0.2, n_sweeps=8, **KNOB_ADV),
+        ({}, dict(partition_rate=0.0), dict(agg_poison_rate=0.0),
+         dict(byz_uplink_rate=0.9, drop_rate=0.1),
+         dict(crash_prob=0.3, recover_prob=0.1),
+         dict(churn_rate=0.1, agg_poison_rate=0.8),
+         dict(drop_rate=0.5, partition_rate=0.3),
+         dict(crash_prob=0.0, byz_uplink_rate=0.05))),
+    "paxos-10kx10k/knobs": (
+        dict(PAXOS_FLAGSHIP, **COUNT_GATES, n_sweeps=2,
+             telemetry_window=WINDOW),
+        ({}, dict(partition_rate=0.0))),
+    "dpos-100k/knobs": (
+        dict(DPOS_FLAGSHIP, **DPOS_DELIVERY_GATES, n_sweeps=8,
+             telemetry_window=WINDOW),
+        ({}, dict(miss_rate=0.0), dict(suppress_rate=0.0, suppress_window=16),
+         dict(drop_rate=0.05, miss_rate=0.3), dict(churn_rate=0.05),
+         dict(suppress_rate=0.5, drop_rate=0.5),
+         dict(miss_rate=0.02, churn_rate=0.0),
+         dict(drop_rate=0.15, suppress_rate=0.3))),
+}
+# The sticky batch's targets, by lane (the base's is 3).
+KNOB_COUNT_TARGETS = {"raft-1kx1k/sticky": (3, 3, 5, 0, 1024 + 3, 0xFFFFFFFD,
+                                            1023, 7)}
+KNOB_COUNT_SEEDS = (8, 0xFFFFFFFF, 3, 77, 1 << 31, 12345, 9, 2024)
+# Rounds checked beside 3 and 20: those of pbft-cert-poison's generation 0
+# where an equivocating primary's offer misses a receiver (lanes 6 and 4),
+# which KQ's equivocate instance once took as delivered.
+KNOB_COUNT_EXTRA_ROUNDS = {"pbft-cert-poison": (54, 70)}
+# The search seed of each space: 11, as phase 23's, but dpos-delivery's
+# (the JAX package's search at 11 mutates a candidate to suppress_rate 0,
+# which its Config rejects beside suppress_window 48).
+KNOB_COUNT_SEARCH_SEEDS = {'dpos-delivery': 12, 'raft-elections': 11, 'pbft-quorum': 11, 'paxos-slots': 11, 'pbft-cert-poison': 11, 'raft-attack-elect': 11}
+# The three generations of each space, as phase 23's KNOB_GENERATIONS
+# (each lane's seed, its knob values in KNOB_COUNT_SPACES' order and its
+# digest from the JAX package's run_knob_batch), and each full-width
+# batch's lane digests: from the JAX package's run_knob_batch where a lane
+# has no Config of its own (the sticky batch), else from each lane's plain
+# JAX run, which equals the lane (the vmapped batch of a PBFT switch base
+# at N = 385 compiled for over 20 min on the CPU). Made on the CPU by
+# phase 23's recipe over KNOB_COUNT_SPACES at KNOB_COUNT_SEARCH_SEEDS (the
+# spaces took 4-11 s each on 8 cores), and for the batches (39-148 s
+# each, the two paxos-10kx10k lanes 1 322 s)
+#
+#   JAX_PLATFORMS=cpu python3 - <<'EOF'
+#   import dataclasses, json, chip_smoke
+#   from consensus_tpu import Config
+#   from consensus_tpu.network import runner, simulator
+#   batches = {}
+#   for key in chip_smoke.KNOB_COUNT_BATCHES:
+#       base, cfgs, seeds, kmat = chip_smoke.knob_count_batch(key)
+#       jbase = Config(**dataclasses.asdict(base))
+#       if None not in cfgs:
+#           batches[key] = []
+#           for b, cfg in enumerate(cfgs):
+#               one = Config(**dataclasses.asdict(dataclasses.replace(
+#                   cfg, n_sweeps=1, seed=int(seeds[b]))))
+#               stats = {}
+#               o = runner.run(one, simulator.engine_def(one), stats=stats,
+#                              telemetry=True)
+#               batches[key] += chip_smoke.knob_lane_digests(
+#                   o, stats["flight"])
+#       else:
+#           o, flight = runner.run_knob_batch(
+#               jbase, simulator.engine_def(jbase), seeds, kmat)
+#           batches[key] = chip_smoke.knob_lane_digests(o, flight)
+#   print(json.dumps(batches))
+#   EOF
+#
+KNOB_COUNT_GENERATIONS = {'dpos-delivery': [((3843491933, 2369200544, 3574829531, 3977897957,
+                     2591970087, 3584097430, 1481469059, 148777289,
+                     3646914035, 821820368, 2202185592, 1374627298, 57939623,
+                     1088739177, 194327849, 4267743359),
+                    ((0.1466, 0.34, 0.0755, 0.4673),
+                     (0.3978, 0.2111, 0.0692, 0.3766),
+                     (0.1408, 0.5117, 0.0589, 0.1503),
+                     (0.4592, 0.1998, 0.0147, 0.0669),
+                     (0.1756, 0.1616, 0.052, 0.4901),
+                     (0.21, 0.0863, 0.0033, 0.2588),
+                     (0.3388, 0.3913, 0.0442, 0.5473),
+                     (0.3477, 0.444, 0.0655, 0.0773),
+                     (0.1208, 0.5059, 0.0736, 0.2798),
+                     (0.3108, 0.1935, 0.0768, 0.1578),
+                     (0.2012, 0.2082, 0.0459, 0.3246),
+                     (0.3914, 0.1928, 0.0358, 0.1958),
+                     (0.4926, 0.5344, 0.0296, 0.1526),
+                     (0.4941, 0.4931, 0.027, 0.3402),
+                     (0.4918, 0.3658, 0.0353, 0.3178),
+                     (0.2741, 0.2714, 0.0502, 0.4133)),
+                    ('842271376e23a9c21cff6065', '96fc9b1d2fee0e21b6edaea6',
+                     '54208e31ffe6a8a997545e25', 'c909d1d7d4b06b00db5ccded',
+                     '11d123987c4cf2aa70974f28', '00979f5f7f183a6249ca6082',
+                     '83507c5c71ee3d4205c0d8f5', '06ba31818dd21b22d452852b',
+                     'e08fdc2c1de922e8eccc1c81', 'bb4dcb9a387db7143de2a0cf',
+                     '258db2136245ce32c075e158', '49ef5c60c84bd3d2527e6832',
+                     'd63f9af97b05215f82d1c8ba', 'be1beef5296797464f30ae5e',
+                     '9da32a2f52676335fa1e0acd',
+                     '5c7f714c664960d8232c56e3')),
+                   ((2459637998, 503090497, 2891285824, 781264411, 1289316517,
+                     3685272579, 138108530, 2205056419, 3339321368, 97262511,
+                     2492468729, 411429781, 3190225400, 2973966078,
+                     3394793697, 2199952249),
+                    ((0.1466, 0.34, 0.0755, 0.4673),
+                     (0.3978, 0.2111, 0.0692, 0.3766),
+                     (0.4918, 0.3658, 0.0353, 0.3178),
+                     (0.1756, 0.1616, 0.052, 0.4901),
+                     (0.1408, 0.5117, 0.0589, 0.1503),
+                     (0.4592, 0.1998, 0.0147, 0.0669),
+                     (0.3388, 0.3913, 0.0442, 0.5473),
+                     (0.1208, 0.5059, 0.0736, 0.2798),
+                     (0.0974, 0.0736, 0.0938, 0.4627),
+                     (0.4918, 0.2576, 0.0353, 0.3178),
+                     (0.4592, 0.1998, 0.0427, 0.0669),
+                     (0.3855, 0.3913, 0.0442, 0.5473),
+                     (0.3388, 0.3913, 0.0189, 0.5473),
+                     (0.3084, 0.3655, 0.0721, 0.0515),
+                     (0.4592, 0.1797, 0.0147, 0.0669),
+                     (0.1208, 0.5059, 0.0736, 0.1162)),
+                    ('480b867a3188f6168bf695d1', 'b406a2702bceabd449105738',
+                     '6e3e14e87edf142d2e68d5ec', '328b3813eab38758c103f797',
+                     '300368c64d797d4707b62b36', 'f0ba5f51c8b63ff6b512e90c',
+                     'bb9fd231894ac8aa87ed53bf', 'efcdae389ce933ced2eac1d0',
+                     '63348939d6d22435b6e43e19', '5488a713f79485ab8d3e7416',
+                     'f9cc7edba152b5348aecc5e9', '5f5ce118b2dacad39189c77e',
+                     '1e242668c3e93de4f6ccf891', 'a3acf5b6922c26921ec9f876',
+                     '72787f589f3b5009724689ea',
+                     'da7253d4da5ebe717f2741d2')),
+                   ((2319601644, 4109850741, 1843753126, 3893014969,
+                     1432102663, 914561973, 2720305378, 809345629, 1400160813,
+                     3122274524, 2936318656, 2222509327, 938026839,
+                     1269055843, 2292088751, 2488763026),
+                    ((0.3388, 0.3913, 0.0442, 0.5473),
+                     (0.1756, 0.1616, 0.052, 0.4901),
+                     (0.0974, 0.0736, 0.0938, 0.4627),
+                     (0.3855, 0.3913, 0.0442, 0.5473),
+                     (0.4918, 0.2576, 0.0353, 0.3178),
+                     (0.3388, 0.3913, 0.0442, 0.6),
+                     (0.1756, 0.2666, 0.052, 0.4901),
+                     (0.1756, 0.1616, 0.0294, 0.4901),
+                     (0.0538, 0.3429, 0.086, 0.025),
+                     (0.4918, 0.3653, 0.0353, 0.3178),
+                     (0.3118, 0.5191, 0.0079, 0.175),
+                     (0.0959, 0.0736, 0.0938, 0.4627),
+                     (0.4146, 0.3913, 0.0442, 0.5473),
+                     (0.0974, 0.2017, 0.0938, 0.4627),
+                     (0.3388, 0.3913, 0.0254, 0.5473),
+                     (0.1756, 0.1616, 0.052, 0.4912)),
+                    ('a0f33dee02c2cc3ce9b48b13', '5f2421292a6b948b01675a58',
+                     'b8400e422fb692932f7c5bab', '24da1c4a65c397624d9c32da',
+                     '840e7627e615fbd497cfe5b0', '2c33749d5307f4e99da81c89',
+                     '4932a5c2ae958296c5423356', '6feb28a89f7ef166fe1cf609',
+                     '6ef407467d2261538955e466', 'd7476549ea7173e691ab8d7a',
+                     '93371d8b03c1936d4885cf70', 'ab4526032a182c92b50ff5fd',
+                     '12236cf1cca58a35cb34c992', '866a4e22072ab884992de1b8',
+                     'c2ea07b4e7d705e883f414a4',
+                     'bd9c7da59c5f4ffb7d6adeed'))],
+ 'paxos-slots': [((1679678445, 1534475689, 278192867, 2354117381, 3694801633,
+                   2145619974, 4279672098, 3017178572, 3508595031, 3622200387,
+                   3816601057, 886418844, 3209889851, 2172454415, 658177925,
+                   3890115422),
+                  ((0.3085, 0.3885, 0.1487, 0.1453, 0.1959),
+                   (0.4154, 0.3419, 0.0572, 0.2887, 0.131),
+                   (0.0663, 0.0953, 0.0425, 0.1357, 0.2308),
+                   (0.5076, 0.2395, 0.0004, 0.0856, 0.4032),
+                   (0.2088, 0.0738, 0.112, 0.21, 0.2568),
+                   (0.4117, 0.1487, 0.1185, 0.0517, 0.0868),
+                   (0.1049, 0.3763, 0.0403, 0.0013, 0.2198),
+                   (0.4254, 0.1145, 0.1489, 0.0805, 0.0833),
+                   (0.4273, 0.196, 0.0437, 0.0369, 0.1776),
+                   (0.3869, 0.206, 0.0515, 0.0213, 0.074),
+                   (0.3693, 0.3289, 0.0534, 0.1448, 0.1145),
+                   (0.2512, 0.0682, 0.1473, 0.0935, 0.0712),
+                   (0.5418, 0.1078, 0.0352, 0.1221, 0.3129),
+                   (0.1406, 0.1616, 0.0285, 0.1068, 0.2708),
+                   (0.0547, 0.1911, 0.0242, 0.0022, 0.1726),
+                   (0.2329, 0.2083, 0.0271, 0.1079, 0.1151)),
+                  ('6aaaf57214184f5509ea37aa', '6200e30adfaa6d89e64f7aa5',
+                   '9fec481b7bf58fb3144015c1', '14988eb947a123b204407d2d',
+                   'c166717f899c8880a2e8d19e', 'ad35ebe379001ecd12bef950',
+                   '0a41fac62318d682224cc0b0', 'c9e2974dfd6129b95b3d689b',
+                   '982d9acb366e7f5e32be4481', '9a058dcbf057fec9c783c1c5',
+                   '6e640f2e4b62ae258f7c91de', '364c98381621c630d611e659',
+                   '0077e2bf33b5b0a10089e1ed', 'dc186115a4c4bb9dde6a77bc',
+                   '6ddfd0f826c837c122170d10', '0c287c0d61f554c4b04a256d')),
+                 ((1677358738, 640328353, 2651076246, 1109509310, 1159399247,
+                   476842274, 2262828114, 622629121, 1677510738, 3621436798,
+                   4171883027, 3288336079, 3911128341, 24712174, 2819732854,
+                   1186635878),
+                  ((0.0547, 0.1911, 0.0242, 0.0022, 0.1726),
+                   (0.4154, 0.3419, 0.0572, 0.2887, 0.131),
+                   (0.1049, 0.3763, 0.0403, 0.0013, 0.2198),
+                   (0.4117, 0.1487, 0.1185, 0.0517, 0.0868),
+                   (0.3085, 0.3885, 0.1487, 0.1453, 0.1959),
+                   (0.4117, 0.1744, 0.1185, 0.0517, 0.0868),
+                   (0.1049, 0.3763, 0.0403, 0.0013, 0.2639),
+                   (0.1049, 0.3763, 0.0403, 0.0717, 0.2198),
+                   (0.4195, 0.3566, 0.0257, 0.2319, 0.4432),
+                   (0.1049, 0.3763, 0.0245, 0.0013, 0.2198),
+                   (0.1049, 0.3997, 0.0403, 0.0013, 0.2198),
+                   (0.1689, 0.3763, 0.0403, 0.0013, 0.2198),
+                   (0.4117, 0.1487, 0.1185, 0.0827, 0.0868),
+                   (0.5959, 0.3834, 0.0994, 0.2195, 0.1942),
+                   (0.4933, 0.1551, 0.0734, 0.2728, 0.2205),
+                   (0.1179, 0.1673, 0.1383, 0.0305, 0.1384)),
+                  ('e4417948fa00a7ae6f705b12', 'c3757f5a1e17a82a783a87e8',
+                   '69a6a89cf40439c53aae71b2', '805b3c8831d30fbc5531dffb',
+                   '72e7f430bb59aeb785b1c4d4', 'ab267bc6642b8b80173fcbe7',
+                   '458d84a9fda054c3ff24c2b1', '76d8bbf44d0ab52697e1ccc6',
+                   '92ffb68b71aacbc1efb78f72', '2df6cdd111e9dbd215a80264',
+                   '99d1981cda50b2b5bedffca9', 'a414f5d299bb157926834536',
+                   'f817506599aa402845181b46', '850b3a39822ac782b5a4cfda',
+                   '5d87ec2bef56c9eb3999b844', '588b03a6f6e21527040e4eb6')),
+                 ((430660201, 192764186, 599153662, 1963827441, 2079243083,
+                   1794281481, 2766141373, 1029018697, 2633830214, 4249387551,
+                   3527526455, 183813833, 1809896444, 2067659070, 589257308,
+                   701979083),
+                  ((0.0547, 0.1911, 0.0242, 0.0022, 0.1726),
+                   (0.1049, 0.3997, 0.0403, 0.0013, 0.2198),
+                   (0.1049, 0.3763, 0.0403, 0.0013, 0.2639),
+                   (0.1049, 0.3763, 0.0403, 0.0013, 0.2198),
+                   (0.0547, 0.1718, 0.0242, 0.0022, 0.1726),
+                   (0.0547, 0.2559, 0.0242, 0.0022, 0.1726),
+                   (0.1049, 0.3799, 0.0403, 0.0013, 0.2198),
+                   (0.1049, 0.3997, 0.0716, 0.0013, 0.2198),
+                   (0.1049, 0.4, 0.0403, 0.0013, 0.2639),
+                   (0.1049, 0.3763, 0.0403, 0.0013, 0.1664),
+                   (0.2012, 0.1911, 0.0242, 0.0022, 0.1726),
+                   (0.05, 0.3763, 0.0403, 0.0013, 0.2198),
+                   (0.1049, 0.4, 0.0403, 0.0013, 0.2639),
+                   (0.1049, 0.2676, 0.0403, 0.0013, 0.2639),
+                   (0.128, 0.0381, 0.0489, 0.138, 0.4748),
+                   (0.1049, 0.3763, 0.0403, 0.0013, 0.3184)),
+                  ('c707f0234486f21588493ef9', 'f2f7f6442c714911cadb25e2',
+                   'f0477ebf7f7825242761ea1a', 'a6612b3e421050565c0afe3c',
+                   '48b338fbbb7aa1ec60b0f89c', '1720ba4e35ed3494f7d24777',
+                   'bdc6daef45ed8b789333d359', '41b5fba7ede3f977b70ce0ac',
+                   '139c1100aa90b5d3bb6627c1', '4a0fc91848278ed1cde1dddf',
+                   'a1116b41272fc5941d8f97e6', '0122aa6713eeccc3f9eefc6b',
+                   '8eab9f569753f778ef209ab7', 'e54006d1cd3d28051fb2433a',
+                   '3bf5fbbd0d421ebd1d6df052', '304a5d517d7f49211ea8f958'))],
+ 'pbft-cert-poison': [((1679678445, 1534475689, 278192867, 2354117381,
+                        3694801633, 2145619974, 4279672098, 3017178572,
+                        3508595031, 3622200387, 3816601057, 886418844,
+                        3209889851, 2172454415, 658177925, 3890115422),
+                       ((0.4729, 0.9241, 0.3965), (0.6478, 0.8193, 0.1525),
+                        (0.0767, 0.2644, 0.1134), (0.7987, 0.589, 0.0011),
+                        (0.3099, 0.2162, 0.2987), (0.6419, 0.3845, 0.3159),
+                        (0.1398, 0.8967, 0.1075), (0.6643, 0.3077, 0.3969),
+                        (0.6674, 0.4911, 0.1165), (0.6013, 0.5136, 0.1372),
+                        (0.5725, 0.7901, 0.1425), (0.3793, 0.2035, 0.3928),
+                        (0.8547, 0.2926, 0.094), (0.1983, 0.4136, 0.076),
+                        (0.0577, 0.48, 0.0644), (0.3492, 0.5186, 0.0723)),
+                       ('1c927b29cb2de0f3cd50a79a',
+                        '739d8f06332fc2f16100e49c',
+                        '8a166cc1b1a47dd594f5e314',
+                        '2f151902c6a69a5bd0112a83',
+                        '369b5a6dea206905ac68187f',
+                        'f9c0d1f4a21024ca7cd7161c',
+                        'aa9c67e53bde4728fc30c8cd',
+                        '7ad18cd093d7896875dc2435',
+                        '9db029ad41f2a9ffcfc5516c',
+                        'fcf55879b08691a3e0c3e65d',
+                        '7664a374dcdc8829515e793c',
+                        '4322ccd8db8b12a83986d971',
+                        'ba50c47f7ec9f9db67dd12b6',
+                        '36b7d3beacedf97fa717585a',
+                        '166b0d02efb3ee268f003abd',
+                        '99ec8b4fee3eb132402a2046')),
+                      ((1677358738, 640328353, 2651076246, 1109509310,
+                        1159399247, 476842274, 2262828114, 622629121,
+                        1677510738, 3621436798, 4171883027, 3288336079,
+                        3911128341, 24712174, 2819732854, 1186635878),
+                       ((0.1398, 0.8967, 0.1075), (0.3099, 0.2162, 0.2987),
+                        (0.0577, 0.48, 0.0644), (0.0767, 0.2644, 0.1134),
+                        (0.4729, 0.9241, 0.3965), (0.6478, 0.8193, 0.1525),
+                        (0.7987, 0.589, 0.0011), (0.0767, 0.2644, 0.1153),
+                        (0.6546, 0.8523, 0.0686), (0.0577, 0.3703, 0.0644),
+                        (0.1713, 0.2644, 0.1134), (0.5776, 0.9241, 0.3965),
+                        (0.4729, 0.9241, 0.3207), (0.9433, 0.9126, 0.265),
+                        (0.7754, 0.399, 0.1958), (0.1611, 0.4265, 0.3687)),
+                       ('e8ae47048b37d1dd0307f568',
+                        '4c249199b6233010e061834d',
+                        '3cc4caac47594644ba468b34',
+                        '6517967f851ba1fc8b2bb123',
+                        '8aee227a1504ce08474cd58c',
+                        'dbab7ddc2371c2bb78b9209e',
+                        '94ca2ea273787d6247aaa0ca',
+                        '8514281f2a44d87fb7b70159',
+                        'f3c16ba9faebc7ba456c29ef',
+                        '8bd38ad9ea7541ea9ddde0cf',
+                        'a9da54763367ac40b4719dda',
+                        'c942083ec7e7ffd5982ddc6d',
+                        '4493149d9b38df83dcff974a',
+                        'dab67b462ca1894daa32fc54',
+                        'a4977790e39fd063aba9148f',
+                        'aa441e258e0c938c64ee2ab1')),
+                      ((430660201, 192764186, 599153662, 1963827441,
+                        2079243083, 1794281481, 2766141373, 1029018697,
+                        2633830214, 4249387551, 3527526455, 183813833,
+                        1809896444, 2067659070, 589257308, 701979083),
+                       ((0.1611, 0.4265, 0.3687), (0.1398, 0.8967, 0.1075),
+                        (0.3099, 0.2162, 0.2987), (0.0577, 0.48, 0.0644),
+                        (0.3031, 0.4265, 0.3687), (0.3858, 0.4265, 0.3687),
+                        (0.332, 0.8967, 0.1075), (0.1398, 0.95, 0.1075),
+                        (0.3187, 0.2162, 0.2987), (0.3099, 0.2162, 0.1979),
+                        (0.4009, 0.4265, 0.3687), (0.05, 0.48, 0.0644),
+                        (0.05, 0.2162, 0.2987), (0.3099, 0.05, 0.2987),
+                        (0.1776, 0.1357, 0.1305), (0.0577, 0.48, 0.0)),
+                       ('94742123fabb38b7995faf44',
+                        '27d26ca08ff490066b86d57a',
+                        '5274df4714ddd8b8211b890a',
+                        '5c0fe2cfc51c445e5feb418d',
+                        'eccc81aa5d9c3e81c9fbbede',
+                        'f835087f229a3d8efad572af',
+                        '9a9ed95671c628b46a28c029',
+                        '0877644b24a6977486f6b9a5',
+                        '2cfb40fd4b40920fa48a06c3',
+                        '429d78c023b44e9ebfcd217d',
+                        'ba5601070385902a2ea832bb',
+                        '4e86116e9799bda32151aec6',
+                        'f6b026cf904ae661dbee2911',
+                        '267380c9f5f7f1ab631cbea7',
+                        '8a5c012bd045fe2bd4f152c7',
+                        '8847b1ff323719fdf5d2fe79'))],
+ 'pbft-quorum': [((1679678445, 1534475689, 278192867, 2354117381, 3694801633,
+                   2145619974, 4279672098, 3017178572, 3508595031, 3622200387,
+                   3816601057, 886418844, 3209889851, 2172454415, 658177925,
+                   3890115422),
+                  ((0.3085, 0.3885, 0.1487, 0.1453, 0.1959),
+                   (0.4154, 0.3419, 0.0572, 0.2887, 0.131),
+                   (0.0663, 0.0953, 0.0425, 0.1357, 0.2308),
+                   (0.5076, 0.2395, 0.0004, 0.0856, 0.4032),
+                   (0.2088, 0.0738, 0.112, 0.21, 0.2568),
+                   (0.4117, 0.1487, 0.1185, 0.0517, 0.0868),
+                   (0.1049, 0.3763, 0.0403, 0.0013, 0.2198),
+                   (0.4254, 0.1145, 0.1489, 0.0805, 0.0833),
+                   (0.4273, 0.196, 0.0437, 0.0369, 0.1776),
+                   (0.3869, 0.206, 0.0515, 0.0213, 0.074),
+                   (0.3693, 0.3289, 0.0534, 0.1448, 0.1145),
+                   (0.2512, 0.0682, 0.1473, 0.0935, 0.0712),
+                   (0.5418, 0.1078, 0.0352, 0.1221, 0.3129),
+                   (0.1406, 0.1616, 0.0285, 0.1068, 0.2708),
+                   (0.0547, 0.1911, 0.0242, 0.0022, 0.1726),
+                   (0.2329, 0.2083, 0.0271, 0.1079, 0.1151)),
+                  ('faedb55cf2e5025b92a36747', '60ba9ad5a81a6f2254795ee5',
+                   '8d8b0b82881be9ecbff12df1', 'b5bc318b18b2dce6a8fba3dd',
+                   '64a3e479afe374d43ab7a5f2', 'cf30a681edb5a6fb12332702',
+                   '9c6b1626e9e0e955ddf78950', 'fb482112f595dff756556cfd',
+                   '500a43f8d6aa9d20bbc0db89', 'd6c31df9996a768f56e1a52e',
+                   'cacb83e48e545383e132e545', '46c87b22ac067c59135831cb',
+                   '887f1fb9133022ac2970dd8b', 'b77313ea7c60d0ac84e6a9ba',
+                   '97d9f8f75ff0a1ca762b2e56', '78dfa24ea589fc31c6b5121c')),
+                 ((1677358738, 640328353, 2651076246, 1109509310, 1159399247,
+                   476842274, 2262828114, 622629121, 1677510738, 3621436798,
+                   4171883027, 3288336079, 3911128341, 24712174, 2819732854,
+                   1186635878),
+                  ((0.4154, 0.3419, 0.0572, 0.2887, 0.131),
+                   (0.2512, 0.0682, 0.1473, 0.0935, 0.0712),
+                   (0.1406, 0.1616, 0.0285, 0.1068, 0.2708),
+                   (0.4117, 0.1487, 0.1185, 0.0517, 0.0868),
+                   (0.3085, 0.3885, 0.1487, 0.1453, 0.1959),
+                   (0.0663, 0.0953, 0.0425, 0.1357, 0.2308),
+                   (0.5076, 0.2395, 0.0004, 0.0856, 0.4032),
+                   (0.4117, 0.1487, 0.1185, 0.1221, 0.0868),
+                   (0.4195, 0.3566, 0.0257, 0.2319, 0.4432),
+                   (0.1406, 0.1616, 0.0127, 0.1068, 0.2708),
+                   (0.4117, 0.1721, 0.1185, 0.0517, 0.0868),
+                   (0.3725, 0.3885, 0.1487, 0.1453, 0.1959),
+                   (0.3085, 0.3885, 0.1487, 0.1763, 0.1959),
+                   (0.5959, 0.3834, 0.0994, 0.2195, 0.1942),
+                   (0.4933, 0.1551, 0.0734, 0.2728, 0.2205),
+                   (0.1179, 0.1673, 0.1383, 0.0305, 0.1384)),
+                  ('819b5a2a10d47e73ba564d52', '12479dac8c0cd3bbb8239278',
+                   '8f5b784182815478fb57562c', '4c191a779bee0083902c648e',
+                   '56911e953fd3eb041ee908cd', '74e0a5a79c00caf59be40028',
+                   'ab8af6a38fbb16bbd4beb55a', '0d09f2380a0c99299cb7a842',
+                   '445918bfcc5e880f7486722f', 'a233ba6de97b3f07ccf102ee',
+                   '9b188a42ac76dd84f6146f08', 'e5be119acceb971ca3a6623e',
+                   '88c61d869616c03a905f5e43', 'b6799875d00a1cb31197f387',
+                   '616645e2ead8b0fce5932d1e', '98a5c12346c235d44dbf39e4')),
+                 ((430660201, 192764186, 599153662, 1963827441, 2079243083,
+                   1794281481, 2766141373, 1029018697, 2633830214, 4249387551,
+                   3527526455, 183813833, 1809896444, 2067659070, 589257308,
+                   701979083),
+                  ((0.5959, 0.3834, 0.0994, 0.2195, 0.1942),
+                   (0.0663, 0.0953, 0.0425, 0.1357, 0.2308),
+                   (0.5076, 0.2395, 0.0004, 0.0856, 0.4032),
+                   (0.1406, 0.1616, 0.0127, 0.1068, 0.2708),
+                   (0.4154, 0.3419, 0.0572, 0.2887, 0.131),
+                   (0.5959, 0.4, 0.0994, 0.2195, 0.1942),
+                   (0.0663, 0.0755, 0.0425, 0.1357, 0.2308),
+                   (0.0663, 0.0953, 0.0738, 0.1357, 0.2308),
+                   (0.5076, 0.3245, 0.0004, 0.0856, 0.4032),
+                   (0.5076, 0.2395, 0.0004, 0.0856, 0.3057),
+                   (0.6, 0.3834, 0.0994, 0.2195, 0.1942),
+                   (0.3216, 0.3419, 0.0572, 0.2887, 0.131),
+                   (0.1406, 0.2668, 0.0127, 0.1068, 0.2708),
+                   (0.5076, 0.1308, 0.0004, 0.0856, 0.4032),
+                   (0.128, 0.0381, 0.0489, 0.138, 0.4748),
+                   (0.1406, 0.1616, 0.0127, 0.1068, 0.3694)),
+                  ('c9f1fc82eab79bd4c8e02a32', '9fc8d7fba64d4ee0bc4d4c51',
+                   'c7cf0bfd8323e7c667b827a9', '94e9cb88d4238ce704090ce5',
+                   '6f2890c44c067ffee7c8ce03', '09560180fab6cc48e99bf320',
+                   'bde8ee78b1d75a2c88079ef3', '07e44ff7a88d3554cb435231',
+                   'da5b90e7cd247d6299b1e129', '3a450506a44fa1947df9507d',
+                   '7e600de693be0ac367ad7bf7', '131915ceedb25cd7ae199bea',
+                   'bcb4a2730cef37cdd9edc8be', '76c43c35e0c23e4bf96d41e4',
+                   '2a99dc0905a74fde84adda3a', 'e0b629152653d43a197dc4b6'))],
+ 'raft-attack-elect': [((1679678445, 1534475689, 278192867, 2354117381,
+                         3694801633, 2145619974, 4279672098, 3017178572,
+                         3508595031, 3622200387, 3816601057, 886418844,
+                         3209889851, 2172454415, 658177925, 3890115422),
+                        ((0.5759, 0.2914), (0.7314, 0.2564), (0.2238, 0.0715),
+                         (0.8655, 0.1797), (0.431, 0.0554), (0.7262, 0.1115),
+                         (0.2798, 0.2822), (0.7461, 0.0859), (0.7488, 0.147),
+                         (0.69, 0.1545), (0.6645, 0.2467), (0.4927, 0.0512),
+                         (0.9153, 0.0809), (0.3318, 0.1212), (0.2069, 0.1433),
+                         (0.466, 0.1562)),
+                        ('a6229bd4e3ecd0f8fd84865e',
+                         '85261d627e5b94e93233edc7',
+                         '1dcaa148b961fa4a8b4d1809',
+                         '630155a43b9a7b40811e661a',
+                         '12d2dafdb6138e816319a0ef',
+                         '77f0288c9c7d26f5619b1c07',
+                         '6f3e9137eabeb68fbfc891d3',
+                         '0061c05ad069dba8e975b75b',
+                         'bd09344a5bfdb2a174c108f3',
+                         '7d1ac541696b4b94894affb1',
+                         'b64e15f810cb9d3c72f11957',
+                         'eb20fbca2355cd0d27698043',
+                         '24b0f95294387d6a63df0968',
+                         'cbf2f6ed9fc7cfcb9045daab',
+                         '8ba9109944bed189b61971e0',
+                         '2dc305e13f6de17e0a873c96')),
+                       ((1677358738, 640328353, 2651076246, 1109509310,
+                         1159399247, 476842274, 2262828114, 622629121,
+                         1677510738, 3621436798, 4171883027, 3288336079,
+                         3911128341, 24712174, 2819732854, 1186635878),
+                        ((0.6645, 0.2467), (0.2238, 0.0715), (0.9153, 0.0809),
+                         (0.2069, 0.1433), (0.5759, 0.2914), (0.7314, 0.2564),
+                         (0.9153, 0.0552), (0.9153, 0.089), (0.7374, 0.2674),
+                         (0.9153, 0.0443), (0.291, 0.1433), (0.2999, 0.1433),
+                         (0.5759, 0.3), (0.994, 0.2875), (0.8448, 0.1163),
+                         (0.2988, 0.1255)),
+                        ('bfce4ffff32c852df3f841b1',
+                         'fe8598f83066ca1b0dff2167',
+                         'ec488d90a97b35fc5c1ee1e9',
+                         '3e31722b48dfc26e53545069',
+                         '896e208026dcf6871f629fd9',
+                         '302bcbaa2e099189924c7609',
+                         '4eca6838e8411be345d773e9',
+                         '51fcc96246a5af0fcc74d7a6',
+                         '5f13a6208187751c992fe82e',
+                         '952fdf9fa462e999a964f2d9',
+                         '9eae45534dd9e3a4ec9b36b2',
+                         'e4f733f3a11a4a68c5a5f084',
+                         'ebe13d823fc89b030d48f263',
+                         '9ecbe4c3fa55b2bf35b4fd22',
+                         'ea09e756cc192d02cd929e0c',
+                         '63b3946850038adfec42a0d8')),
+                       ((430660201, 192764186, 599153662, 1963827441,
+                         2079243083, 1794281481, 2766141373, 1029018697,
+                         2633830214, 4249387551, 3527526455, 183813833,
+                         1809896444, 2067659070, 589257308, 701979083),
+                        ((0.994, 0.2875), (0.7374, 0.2674), (0.2999, 0.1433),
+                         (0.9153, 0.089), (1.0, 0.2875), (1.0, 0.2875),
+                         (0.9082, 0.2674), (0.7374, 0.3), (0.3078, 0.1433),
+                         (0.2999, 0.169), (1.0, 0.2875), (0.7789, 0.089),
+                         (0.2, 0.1433), (0.2, 0.1433), (0.3134, 0.0286),
+                         (0.9153, 0.0039)),
+                        ('79b0e5ed68a70e63e5cef8fb',
+                         'bd80950a4146147d30e78156',
+                         'b7d45176449264daaad9402e',
+                         '11ef069ca0da1f0fed39facb',
+                         '787e5b27da0934ec7e8e5472',
+                         '2021e84107e05a6088f552f7',
+                         '74694e37d274b86ef1f80750',
+                         '3445e1ec7b1bc9143f28fbe8',
+                         '0eb004780a6ee30e2a00028c',
+                         'dc58b23e17b4ddad6b8fc745',
+                         '0b09f34824ba23ad8adafa36',
+                         'ce7dbe056c8406f5192dd523',
+                         '15911a138fcc1f04251a8648',
+                         '77a714880cfd220345aa0fce',
+                         '9db338921ea776ff17b6517f',
+                         '055a358a809433b2e3f0934b'))],
+ 'raft-elections': [((1679678445, 1534475689, 278192867, 2354117381,
+                      3694801633, 2145619974, 4279672098, 3017178572,
+                      3508595031, 3622200387, 3816601057, 886418844,
+                      3209889851, 2172454415, 658177925, 3890115422),
+                     ((0.3085, 0.3885, 0.1487, 0.1453, 0.1959),
+                      (0.4154, 0.3419, 0.0572, 0.2887, 0.131),
+                      (0.0663, 0.0953, 0.0425, 0.1357, 0.2308),
+                      (0.5076, 0.2395, 0.0004, 0.0856, 0.4032),
+                      (0.2088, 0.0738, 0.112, 0.21, 0.2568),
+                      (0.4117, 0.1487, 0.1185, 0.0517, 0.0868),
+                      (0.1049, 0.3763, 0.0403, 0.0013, 0.2198),
+                      (0.4254, 0.1145, 0.1489, 0.0805, 0.0833),
+                      (0.4273, 0.196, 0.0437, 0.0369, 0.1776),
+                      (0.3869, 0.206, 0.0515, 0.0213, 0.074),
+                      (0.3693, 0.3289, 0.0534, 0.1448, 0.1145),
+                      (0.2512, 0.0682, 0.1473, 0.0935, 0.0712),
+                      (0.5418, 0.1078, 0.0352, 0.1221, 0.3129),
+                      (0.1406, 0.1616, 0.0285, 0.1068, 0.2708),
+                      (0.0547, 0.1911, 0.0242, 0.0022, 0.1726),
+                      (0.2329, 0.2083, 0.0271, 0.1079, 0.1151)),
+                     ('bdcc0ea89a87ea78de406524', '70ecc81850a6454394fb1db4',
+                      'ab5a2b46b8771b75754c597f', '3f5df8080fefdc8ebccd3ee7',
+                      '213b0c2ef5db67c6fa394269', '2df5524c8e2260a60eeccdd5',
+                      '92f930272c34b3b464cddc37', '33c59038081c1e55eb4195f5',
+                      '61df4564d981d2c2611acc80', 'db0281c2c1e172b7488fb92b',
+                      'a72f7db9ea91286e8f2f9ec7', '4f549f753fb2a7440b7d97ac',
+                      'b634a76c4cfb3c19b7fce30a', '3a8897f6fe149a583663948d',
+                      '7a1ce03de1a67298fc63239a',
+                      'f24502c41663d4cc1b285068')),
+                    ((1677358738, 640328353, 2651076246, 1109509310,
+                      1159399247, 476842274, 2262828114, 622629121,
+                      1677510738, 3621436798, 4171883027, 3288336079,
+                      3911128341, 24712174, 2819732854, 1186635878),
+                     ((0.5418, 0.1078, 0.0352, 0.1221, 0.3129),
+                      (0.2329, 0.2083, 0.0271, 0.1079, 0.1151),
+                      (0.4254, 0.1145, 0.1489, 0.0805, 0.0833),
+                      (0.2512, 0.0682, 0.1473, 0.0935, 0.0712),
+                      (0.3085, 0.3885, 0.1487, 0.1453, 0.1959),
+                      (0.4154, 0.3419, 0.0572, 0.2887, 0.131),
+                      (0.0663, 0.0953, 0.0425, 0.1357, 0.2308),
+                      (0.2088, 0.0738, 0.112, 0.21, 0.2568),
+                      (0.4195, 0.3566, 0.0257, 0.2319, 0.4432),
+                      (0.2512, 0.0682, 0.1315, 0.0935, 0.0712),
+                      (0.3085, 0.4, 0.1487, 0.1453, 0.1959),
+                      (0.3725, 0.3885, 0.1487, 0.1453, 0.1959),
+                      (0.4154, 0.3419, 0.0572, 0.3, 0.131),
+                      (0.5959, 0.3834, 0.0994, 0.2195, 0.1942),
+                      (0.4933, 0.1551, 0.0734, 0.2728, 0.2205),
+                      (0.1179, 0.1673, 0.1383, 0.0305, 0.1384)),
+                     ('1c3528aadecb33abfb307e88', 'fa782430ef5decf3b470c838',
+                      'faca19122e6209698a657a75', 'e5eb8ce300384c4486b14346',
+                      'a5d46afd613069582a13ec22', 'f84f585a598df1f0afd5ab5f',
+                      '169b7a00de0457dd85354e4a', 'b6f886e45aa224371f96bfca',
+                      '41b477ab3fabfedf1c35ab42', 'f3b2783fe3a91b36c2c79307',
+                      '0cc2a474cb3c2c96ffbe9809', '5391777beedfc756b92929f4',
+                      'e541953986e397752eef08f4', '8c039a8a2f2b0d3771eb3da2',
+                      'adc8b4de64c1943326d8adc5',
+                      '42fec827079085050300cb63')),
+                    ((430660201, 192764186, 599153662, 1963827441, 2079243083,
+                      1794281481, 2766141373, 1029018697, 2633830214,
+                      4249387551, 3527526455, 183813833, 1809896444,
+                      2067659070, 589257308, 701979083),
+                     ((0.4154, 0.3419, 0.0572, 0.2887, 0.131),
+                      (0.2088, 0.0738, 0.112, 0.21, 0.2568),
+                      (0.5959, 0.3834, 0.0994, 0.2195, 0.1942),
+                      (0.4195, 0.3566, 0.0257, 0.2319, 0.4432),
+                      (0.4154, 0.3226, 0.0572, 0.2887, 0.131),
+                      (0.4154, 0.4, 0.0572, 0.2887, 0.131),
+                      (0.2088, 0.054, 0.112, 0.21, 0.2568),
+                      (0.2088, 0.0738, 0.1433, 0.21, 0.2568),
+                      (0.5959, 0.4, 0.0994, 0.2195, 0.1942),
+                      (0.5959, 0.3834, 0.0994, 0.2195, 0.0967),
+                      (0.5619, 0.3419, 0.0572, 0.2887, 0.131),
+                      (0.3257, 0.3566, 0.0257, 0.2319, 0.4432),
+                      (0.5959, 0.4, 0.0994, 0.2195, 0.1942),
+                      (0.5959, 0.2747, 0.0994, 0.2195, 0.1942),
+                      (0.128, 0.0381, 0.0489, 0.138, 0.4748),
+                      (0.4195, 0.3566, 0.0257, 0.2319, 0.5)),
+                     ('2cdb47dd64bbdff0b1f197a9', '095c7074a6e14d218fce111a',
+                      '3f071694bfa9216ddb4224af', 'e181317cb0ddd43d017bc256',
+                      '5d8f3704af1774d1514385ac', 'f29dee45e2ac4326d14e692e',
+                      'beb305d4c2dcac3e188b1397', 'd478d6f409fd839fb0853407',
+                      'de474e0e212eb501e3b4f716', 'e5ce33ae93b92f5d0fa0cf99',
+                      'ec3167d8323fbde06fc89a72', '236397e57d237494c0943986',
+                      '2605b92935e35eaaafb9133b', '6618eafbb687e12968d92a8f',
+                      '74367e0458892be428446849',
+                      '72ad733235d74aea5e60c4d8'))]}
+
+KNOB_COUNT_ANCHORS = {
+    'raft-1kx1k/knobs': (
+        '88359a2a797bf31eac196f84',
+        '9c83af57f255334a01e51f7a',
+        'a4b5b968d63a679a034c26b3',
+        '3cc6c6f5582e974082c453cf',
+        '8a42b91b16f3e29a68a002a1',
+        '6adb55d1e5c816841e75f6a6',
+        '2b43c55ac69c0b245c03a9c0',
+        '91eefc5fb2bbfa6946a24327',
+    ),
+    'raft-1kx1k/sticky': (
+        'f709e87421b7e9f275040df9',
+        '9dacccf5cdb79b11370173d9',
+        '1f1b29eace6613a6faa305ae',
+        '51ed82af5a2e6d2c871c09f0',
+        '568d4493398661a8e042436b',
+        'aae9150da02ad9599e8e5191',
+        'e0bd53ed3cd695c6db21b43f',
+        '332a3fbada04632ca49ff284',
+    ),
+    'pbft-f128/knobs': (
+        '67e43c1f80f37cc2846d089f',
+        '89fe4be0f0ac8833033f0d42',
+        'ab1c5cab4caca11a4dea0779',
+        '21beba6790a02ea81f5ae1e6',
+        '699c236a171150a5d28b0298',
+        'ab865471f2ce31dcf8ec11ce',
+        'e9fdd43d22f98a671f0df1f8',
+        'c5824b2cb20d10ba48e2ade5',
+    ),
+    'pbft-f128/switch': (
+        '2ceca99a95a714e3553896d2',
+        'fa0cb0219ee065aae8f8b260',
+        'e1aeb5304b141f3d6874e9c3',
+        'ed843385807684be65802cb1',
+        'b7a1435a61f98129c27fc96e',
+        '750a30ee07a90245da4ffb3f',
+        'ba09acf69eee2fa73af3759f',
+        'b057b3633910451d212bee38',
+    ),
+    'pbft-quorum-1k/switch': (
+        '2ad7c1705021e598f73db6ef',
+        '6f15b9e297221fe3ba364314',
+        '1eafb52b024be22aba49eafe',
+        '3155ba0b2d14fb2b8261d228',
+        'f9b8d0e17745e3674dd65d4b',
+        '6d9296777f4decc532c3d2e5',
+        '8cc5ac92a74b202fe4d749fe',
+        'a39e0f0e41eb17b97d96cd68',
+    ),
+    'paxos-10kx10k/knobs': (
+        'f949c81cb7adffb051877d0e',
+        'd08026cc8a18d71867caa22b',
+    ),
+    'dpos-100k/knobs': (
+        '59abd18e0715471d2f5ad97d',
+        '2ceb020227ce3b535063f9f6',
+        'ea90c0df72e4aacfe7f5150b',
+        '94fa225fed097e6582b1228e',
+        'bd5212b764e1f82fd967ddbe',
+        'fe57baed8b5d0173473b2871',
+        '101827b77772e8c2d3465568',
+        'f39d3154c8d9230ee15eca3d',
+    ),
+}
+
+
+def knob_count_batch(key: str):
+    """The full-width batch ``key`` of phase 24: (base, the lanes' configs
+    where a lane has one, else None, seeds, kmat)."""
+    from consensus_tpu_torch.core import knobs
+    from consensus_tpu_torch.core.config import Config
+    base_kw, lanes = KNOB_COUNT_BATCHES[key]
+    base = Config(**base_kw)
+    cfgs = [dataclasses.replace(base, **o) for o in lanes]
+    kmat = knob_rows(cfgs)
+    for b, t in enumerate(KNOB_COUNT_TARGETS.get(key, ())):
+        kmat[b, knobs.KNOB_COLUMNS.index("attack_target")] = t
+        # No Config has an out-of-range target.
+        cfgs[b] = dataclasses.replace(cfgs[b], attack_target=t) \
+            if t < base.n_nodes else None
+    return (base, cfgs, np.array(KNOB_COUNT_SEEDS[:len(lanes)], np.uint32),
+            kmat)
+
+
+def knob_count_generation(name: str, g: int):
+    """Generation ``g`` of space ``name`` of phase 24: (base, the lanes'
+    configs, seeds, kmat)."""
+    from consensus_tpu_torch.core.config import Config
+    base_kw, fields = KNOB_COUNT_SPACES[name]
+    base = Config(**base_kw, n_sweeps=KNOB_POPULATION)
+    seeds, values, _ = KNOB_COUNT_GENERATIONS[name][g]
+    cfgs = [dataclasses.replace(base, **dict(zip(fields, v)))
+            for v in values]
+    return base, cfgs, np.array(seeds, np.uint32), knob_rows(cfgs)
+
+
+def knob_count_run(key: str):
+    """A run of phase 24's kernel checks: generation 0 of a space, or a
+    full-width batch. Lanes without a Config of their own (out-of-range
+    targets) take the base's where a lane's work is counted."""
+    if key in KNOB_COUNT_SPACES:
+        return knob_count_generation(key, 0)
+    base, cfgs, seeds, kmat = knob_count_batch(key)
+    return base, [c or base for c in cfgs], seeds, kmat
+
+
+def knob_count_last(key: str) -> int:
+    """The later of the two rounds phase 24 checks of run ``key``: 20, or
+    the last round of a run that has fewer (paxos-10kx10k: 15)."""
+    base = knob_count_run(key)[0]
+    return min(KNOB_ROUNDS[-1], base.n_rounds - 1)
+
+
+def count_flat_work(name: str, attack: bool, args) -> tuple[float, float]:
+    """(bytes, operations) of the flat instance's work on a flat call
+    ``args``: phase 22's bound of KAM and KAN, phase 20's of a gate or an
+    attack instance (KX, KAB, KM's ATTACK and KL's STICKY instance), else
+    phase 16's (a CRASH instance's or the flat one), with ``bound`` swapped
+    for the pair."""
+    global bound
+    saved = bound
+    bound = lambda nbytes, ops: (nbytes, ops)   # noqa: E731
+    try:
+        if name in PBFT_SWITCH_OWN:
+            return pbft_switch_bound(name, args)
+        sticky = name == "delivery" and len(args) == 8
+        if attack or sticky or name in ("dpos_round", "dpos_telemetry"):
+            return gate_bound(name, args)
+        return crash_kernel_bound(name, args)
+    finally:
+        bound = saved
+
+
+def count_knob_bound(name: str, attack: bool, args, cfgs):
+    """The least time of a KNOBS instance's work on ``args``: each lane's
+    flat work on its slice with its own config, summed, plus the [B, 12]
+    table read once."""
+    nbytes = ops = 0.0
+    for b, cfg in enumerate(cfgs):
+        one = lane_slice(knob_flat(name, args, cfg), b, len(cfgs))
+        nb, op = count_flat_work(name, attack, one)
+        nbytes, ops = nbytes + nb, ops + op
+    return bound(nbytes + 8 * 12 * len(cfgs), ops)
+
+
+def attack_call(name: str, args) -> bool:
+    """Whether a KNOBS call runs an ATTACK (KM) or STICKY (KL) instance."""
+    if name == "delivery":
+        return args[7] is not None
+    return name == "dense_elect" and bool(args[0].attack_mode)
+
+
+def check_knob_count_kernels(dev):
+    """Phase 24's kernel rows. Every kernel call of rounds 3 and 20 (or
+    the last) of generation 0 of each space of KNOB_COUNT_SPACES and of
+    each full-width batch (with telemetry and the recorder), and of that
+    round with every row the base's, against the plain versions, exact;
+    with every row the base's each KNOBS-instance call also through its
+    flat instance, exact. Then each KNOB_COUNT_TIMED instance's time on
+    its run's later round, its plain version's and its bound, and on the
+    all-base round its time and its flat instance's time and bound."""
+    errs = dict.fromkeys(KNOB_COUNT_INSTANCES, 0.0)
+    cases = dict.fromkeys(KNOB_COUNT_INSTANCES, 0)
+    flat_cases = dict.fromkeys(KNOB_COUNT_INSTANCES, 0)
+    timed_keys = {run for _, _, run in KNOB_COUNT_TIMED.values()}
+    timed, on_base = {}, {}
+    for key in (*KNOB_COUNT_SPACES, *KNOB_COUNT_BATCHES):
+        base, cfgs, seeds, kmat = knob_count_run(key)
+        last = knob_count_last(key)
+        for r in (KNOB_ROUNDS[0], last, *KNOB_COUNT_EXTRA_ROUNDS.get(key, ())):
+            calls = capture_knob_round_calls(base, seeds, kmat, r, dev)
+            hold_calls(calls, f"{key} round {r}", errs, cases)
+            if r == last and key in timed_keys:
+                timed[key] = (calls, cfgs)
+        calls = capture_knob_round_calls(
+            base, seeds, knob_rows([base] * len(seeds)), last, dev)
+        hold_calls(calls, f"{key} round {last}, every row the base's", errs,
+                   cases)
+        for name in KNOB_COUNT_INSTANCES:
+            for args in calls.get(name, ()):
+                if not knob_instance(name, args):
+                    continue
+                flat = knob_flat(name, args, base)
+                require(max_abs_err(zip(run_wrapper(
+                    name, args, lambda a: knob_flat(name, a, base)),
+                    run_wrapper(name, flat))) == 0.0,
+                    f"{key}: {name}'s KNOBS instance with every row the "
+                    "base's disagrees with its flat instance")
+                flat_cases[name] += 1
+        if key in timed_keys:
+            on_base[key] = calls
+        torch.cuda.empty_cache()
+    for name in KNOB_COUNT_INSTANCES:
+        require(cases[name] > 0 and flat_cases[name] > 0,
+                f"{name}: no KNOBS-instance call checked")
+    rows = []
+    for row, (name, attack, key) in KNOB_COUNT_TIMED.items():
+        calls, cfgs = timed[key]
+
+        def mine(found, name=name, attack=attack):
+            return [a for a in found.get(name, ())
+                    if knob_instance(name, a)
+                    and attack_call(name, a) == attack]
+        got = mine(calls)
+        require(bool(got), f"{key}: no KNOBS-instance call of {name}")
+        args, same = got[0], mine(on_base[key])[0]
+        base = knob_count_run(key)[0]
+        flat = knob_flat(name, same, base)
+        mod = kernel_module(name)
+        reps = reps_for(args)
+        rows.append(dict(
+            name=row, route="cuda",
+            source=f"consensus_tpu_torch/csrc/{name}.cu",
+            replaces=KNOB_COUNT_REPLACES[row], max_abs_err=errs[name],
+            cases=cases[name], flat_cases=flat_cases[name],
+            timed_on=f"{key} round {knob_count_last(key)}",
+            ms=graph_ms(getattr(mod, name), args, reps),
+            plain_ms=event_ms(getattr(mod, name + "_plain"), args,
+                              min(3, reps)),
+            bound=count_knob_bound(name, attack, args, cfgs),
+            library_ms=None, launches_from=key,
+            knobs_on_base_ms=graph_ms(getattr(mod, name), same, reps),
+            flat_instance_ms=graph_ms(getattr(mod, name), flat, reps),
+            flat_instance_bound=bound(*count_flat_work(name, attack,
+                                                       flat))))
+    return rows
+
+
+def knob_count_path(cfg) -> tuple[str, ...]:
+    """The kernels a knob batch of base ``cfg`` on a count engine
+    launches: a PBFT switch run's path (phase 22's), else its engine's
+    telemetry path with KAH (and the PBFT freeze KAI) under a crash."""
+    from consensus_tpu_torch.network import runner
+    if cfg.protocol == "pbft" and cfg.switch_on:
+        return pbft_switch_path(cfg)
+    name = runner.engine(cfg).name
+    path = crash_path(name, telemetry=True)
+    if cfg.crash_on:
+        return path
+    return path[:-2] if name in ("pbft", "pbft-bcast") else path[:-1]
+
+
+def require_knob_launches(launches: dict, knob: dict, where: str) -> None:
+    """Every wrapper with a KNOBS instance that the run launched ran it,
+    and none that it did not launch."""
+    for kernel, n in knob.items():
+        require((n > 0) == (launches[kernel] > 0),
+                f"{where}: {kernel}'s KNOBS instance launched {n} of "
+                f"{launches[kernel]} times")
+
+
+def check_knob_count_generations(card: str, smi: str) -> dict[str, int]:
+    """Phase 24's generations: three generations of each space of
+    KNOB_COUNT_SPACES as ``run_knob_batch`` replays, counted from 0, as
+    phase 23's (:func:`check_knob_generations`). Returns nothing the
+    kernels line reads (its rows count the full-width batches)."""
+    from consensus_tpu_torch.network import runner
+    for name in KNOB_COUNT_SPACES:
+        zero_counts()
+        captured = runner.captures
+        results, walls = [], []
+        for g, (_, _, anchors) in enumerate(KNOB_COUNT_GENERATIONS[name]):
+            base, cfgs, seeds, kmat = knob_count_generation(name, g)
+            t0 = time.perf_counter()
+            out, flight = runner.run_knob_batch(base, seeds, kmat,
+                                                generation=g)
+            walls.append(time.perf_counter() - t0)
+            digests = knob_lane_digests(out, flight)
+            require(digests == list(anchors),
+                    f"{name} generation {g}: lanes "
+                    f"{differing(digests, anchors)} differ from the JAX "
+                    "anchors")
+            results.append((cfgs, seeds, out, flight))
+        captures = runner.captures - captured
+        launches = runner.launch_counts()
+        knob = runner.knob_launch_counts()
+        require(captures == 1,
+                f"{name}: three generations took {captures} captures")
+        require_launched(launches, knob_count_path(base), name)
+        require_knob_launches(launches, knob, name)
+        production = []
+        for g, (cfgs, seeds, out, flight) in enumerate(results):
+            for lane in KNOB_PRODUCTION_LANES:
+                cfg = dataclasses.replace(cfgs[lane], n_sweeps=1,
+                                          seed=int(seeds[lane]))
+                stats: dict = {}
+                ref = runner.run(cfg, telemetry=True, stats=stats)
+                same = all(np.array_equal(out[k][lane], v[0])
+                           for k, v in ref.items()) and all(
+                    np.array_equal(flight[part][k][lane], v[0])
+                    for part in ("windows", "latency")
+                    for k, v in stats["flight"][part].items())
+                production.append(dict(generation=g, lane=lane,
+                                       equal=same))
+                require(same, f"{name} generation {g} lane {lane}: the "
+                        "production run of its config differs")
+        emit("knob_count_generations", space=name,
+             population=KNOB_POPULATION, generations=len(results),
+             wall_s=walls, captures=captures, launches=launches,
+             knob_launches=knob, production=production, card=card,
+             power=smi)
+        runner.clear_graphs()
+
+
+def check_knob_count_batches(card: str, smi: str) -> dict[str, int]:
+    """Phase 24's full-width batches: each KNOB_COUNT_BATCHES batch as one
+    ``run_knob_batch`` replay, counted from 0, as phase 23's
+    (:func:`check_knob_batches`). Returns each KNOBS row's launches from
+    its KNOB_COUNT_TIMED batch."""
+    from consensus_tpu_torch.network import runner
+    own: dict = {}
+    for key in KNOB_COUNT_BATCHES:
+        base, cfgs, seeds, kmat = knob_count_batch(key)
+        zero_counts()
+        t0 = time.perf_counter()
+        out, flight = runner.run_knob_batch(base, seeds, kmat)
+        wall = time.perf_counter() - t0
+        launches = runner.launch_counts()
+        knob = runner.knob_launch_counts()
+        digests = knob_lane_digests(out, flight)
+        prof = profile_replay(base, run=lambda: runner.knob_batch_device(
+            base, seeds, kmat))
+        steps = base.n_sweeps * base.n_nodes * base.n_rounds
+        row = dict(
+            digests=digests, digests_ok=digests == list(
+                KNOB_COUNT_ANCHORS[key]),
+            wall_s=wall, launches=launches, knob_launches=knob,
+            steps_per_sec=steps / (min(prof["replay_wall_ms"]) / 1e3),
+            **{k: prof[k] for k in (
+                "replay_wall_ms", "busy_share", "unprofiled_busy_share",
+                "device_ms", "device_launches")},
+            device_ops_per_round=prof["launches_per_round"],
+            hand_kernel_ms={k: v for k, v in prof["hand_kernel_ms"].items()
+                            if v})
+        emit("knob_count_batch", run=key, **row, card=card, power=smi)
+        require(row["digests_ok"],
+                f"{key}: lanes "
+                f"{differing(digests, KNOB_COUNT_ANCHORS[key])} differ "
+                "from the JAX anchors")
+        require_launched(launches, knob_count_path(base), key)
+        require_knob_launches(launches, knob, key)
+        for row_name, (name, _, run) in KNOB_COUNT_TIMED.items():
             if run == key:
                 own[row_name] = knob[name]
         runner.clear_graphs()
@@ -8881,6 +9999,23 @@ def main() -> int:
         knob_rows.append(k)
     knob_launches = {**check_knob_generations(card, smi),
                      **check_knob_batches(card, smi)}
+
+    # 24. The knob batch (K23) on the count engines (dense PBFT flat and
+    # under the switch, §6b under the switch, dense Raft, Paxos, DPoS):
+    # every kernel call of rounds 3 and 20 of the knob runs against the
+    # plain versions (the KNOBS instances of KL, KQ, KAM, KAN, KM, KY, KZ,
+    # KX and KAB among them), then three generations of each of the six
+    # spaces and the seven full-width batches.
+    for k in check_knob_count_kernels(dev):
+        k["bound_ms"], k["bound_by"] = k.pop("bound")
+        (k["flat_instance_bound_ms"],
+         k["flat_instance_bound_by"]) = k.pop("flat_instance_bound")
+        emit("knob_count_kernel", **k, card=card, power=smi)
+        require(k["max_abs_err"] == 0.0,
+                f"{k['name']} disagrees with its plain version")
+        knob_rows.append(k)
+    check_knob_count_generations(card, smi)
+    knob_launches.update(check_knob_count_batches(card, smi))
     emit("wall")
     for k in kernels:
         k["launches"] = launches[k["name"]]

@@ -65,16 +65,18 @@ SIGNATURES = {
     # phase), KAL's uplinks; the tot (or least-id) and value (null in the
     # decide phase) tables outputs, scratch; the uplinks' rows a lane, the
     # phase's row, B, N, S, K, decide, n_byzantine, equivocation; the §9b
-    # lie cutoff (0 without lies)
-    "switch_combine": (_P, _U) + (_P,) * 7 + (_I,) * 9 + (_U,),
+    # lie cutoff (0 without lies); and last the knob table (null but in a
+    # knob batch)
+    "switch_combine": (_P, _U) + (_P,) * 7 + (_I,) * 9 + (_U, _P),
     # seed, round, n_real, f, KAL's table, KAM's two tables, flags, values,
     # KAL's uplinks, their rows a lane, the phase's row; base, dval in and
     # out, out, committed at round entry, timer, reset, timer out, the
     # §6c flag word (null but where a down receiver takes nothing), the
     # downlink-mask scratch; B, N, S, K, phase, n_byzantine, equivocation,
-    # §9b poison; drop_cut, part_cut, max_delay
+    # §9b poison; drop_cut, part_cut, max_delay; and last the knob table
+    # (null but in a knob batch)
     "switch_receive": (_P, _U) + (_P,) * 8 + (_I, _I) + (_P,) * 10
-    + (_I,) * 8 + (_U,) * 3,
+    + (_I,) * 8 + (_U,) * 3 + (_P,),
     # seed, stream, (ctx, c0, c1) x (ptr, scalar, batch stride), out, B, M
     "random_u32": (_P, _U, _P, _U, _L, _P, _U, _L, _P, _U, _L, _P, _I, _L),
     # seed, round, ids, out, B, A, N, drop_cut, part_cut, ids_are_src,
@@ -126,8 +128,9 @@ SIGNATURES = {
     "telemetry": (_P,) * 13 + (_I,) * 6 + (_P,),
     # seed, round, out, side scratch, B, N, drop_cut, part_cut, max_delay,
     # §6c flags (null on the flat path); §A.3 sticky: role at round entry
-    # (null but under the sticky attack), target, attack_cut
-    "delivery": (_P, _U, _P, _P, _I, _I, _U, _U, _U, _P, _P, _I, _U),
+    # (null but under the sticky attack), target, attack_cut; and last the
+    # knob table (null but in a knob batch)
+    "delivery": (_P, _U, _P, _P, _I, _I, _U, _U, _U, _P, _P, _I, _U, _P),
     # seed, round, churn_cut, t_min, t_span; deliver, term, role,
     # voted_for, timer, timeout, log_term, log_len, match_idx and next_idx
     # (in place); term, role, voted_for, timer, timeout, reset outputs,
@@ -136,9 +139,10 @@ SIGNATURES = {
     # attack_cut, target, attack word output (0, 0, 0, null on the flat
     # path)
     # §9 switch (ops/aggregate.py switch_args) and the sticky target (-1
-    # but on a switch round under the sticky attack)
+    # but on a switch round under the sticky attack); and last the knob
+    # table (null but in a knob batch)
     "dense_elect": (_P, _U, _U, _I, _U) + (_P,) * 19 + (_I,) * 5
-    + (_I, _U, _I, _P) + _SW + (_I,),
+    + (_I, _U, _I, _P) + _SW + (_I, _P),
     # seed, round, t_min, t_span; deliver, term, role, voted_for, timer,
     # timeout, reset, log_term, log_val (in place), log_len, commit,
     # match_idx (in place), next_idx; term, role, voted_for, timer,
@@ -161,9 +165,9 @@ SIGNATURES = {
     # pp_view, pp_val, prepared, committed; view, timer, reset, pp_seen,
     # pp_view, pp_val outputs, catch-up flags (null without telemetry),
     # order scratch; §6c flags (null on the flat path); B, N, S; byz mode,
-    # n_byzantine
+    # n_byzantine; and last the knob table (null but in a knob batch)
     "pbft_view_preprepare": (_P, _U, _U, _I, _I, _U, _U) + (_P,) * 19
-    + (_I,) * 5,
+    + (_I,) * 5 + (_P,),
     # deliver, n_real, f, pp_seen, pp_val, prepared, committed, dval;
     # prepared, committed, dval outputs; B, N, S; byz mode, n_byzantine,
     # then under equivocation seed, round and the extra-count scratch (null,
@@ -198,22 +202,23 @@ SIGNATURES = {
     # list's length (E * K), drop_cut, part_cut, churn_cut, max_delay;
     # §6c flags (null on the flat path); B, V, L; §A.1 miss_cut, §A.4
     # suppress_cut and suppress_window (0, 0 and any window on the flat
-    # path)
+    # path); and last the knob table (null but in a knob batch)
     "dpos_round": (_P, _U) + (_P,) * 5 + (_I,) * 4 + (_U,) * 4 + (_P,)
-    + (_I,) * 3 + (_U,) * 3,
+    + (_I,) * 3 + (_U,) * 3 + (_P,),
     # seed, round; deliver, promised, acc_bal; new_promised, n_prom,
     # best_bal, best_a, prep_del outputs, pair counts (null without
     # telemetry), proposal and key scratch; §6c flags (null on the flat
     # path); P, churn_cut, B, N, S; §9 switch (ops/aggregate.py
-    # switch_args)
-    "paxos_promise": (_P, _U) + (_P,) * 12 + (_I, _U, _I, _I, _I) + _SW,
+    # switch_args); and last the knob table (null but in a knob batch)
+    "paxos_promise": (_P, _U) + (_P,) * 12 + (_I, _U, _I, _I, _I) + _SW
+    + (_P,),
     # seed, round; deliver, prep_del, new_promised, n_prom, best_bal,
     # best_a, acc_bal, acc_val, learned_val, learned_mask; promised,
     # acc_bal, acc_val, learned_val, learned_mask outputs, proposal, count
     # and bit scratch; P, churn_cut, B, N, S; §9 switch (ops/aggregate.py
-    # switch_args)
+    # switch_args); and last the knob table (null but in a knob batch)
     "paxos_accept_learn": (_P, _U) + (_P,) * 18 + (_I, _U, _I, _I, _I)
-    + _SW,
+    + _SW + (_P,),
     # n_real; view and timer at round entry, view, catch-up flags, down;
     # pp_seen, prepared at entry, prepared, committed at entry, committed
     # after the tally, committed; t, w, lat accumulators (w and lat null
@@ -227,9 +232,10 @@ SIGNATURES = {
     # accumulators (w and lat null with the recorder off), span scratch;
     # the round's and the round before's producer indexes, the list's
     # length, churn_cut; B, V, K, window, n_windows; §A.1 miss_cut, §A.4
-    # suppress_cut and suppress_window (as KX's)
+    # suppress_cut and suppress_window (as KX's); and last the knob table
+    # (null but in a knob batch)
     "dpos_telemetry": (_P, _U) + (_P,) * 7 + (_I,) * 3 + (_U,) + (_I,) * 5
-    + (_U,) * 3,
+    + (_U,) * 3 + (_P,),
     # n_prom, n_pair, n_acc, decided; learned_mask at entry and after; t,
     # w, lat accumulators (w and lat null with the recorder off); decided's
     # lane stride; round, B, N, S, K, window, n_windows

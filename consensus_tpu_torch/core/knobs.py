@@ -122,6 +122,13 @@ def static(cfg):
     return cfg.base if isinstance(cfg, KnobView) else cfg
 
 
+def table_of(cfg) -> torch.Tensor | None:
+    """The [B, 12] table of a view, None for a ``Config``: what a wrapper
+    whose cutoffs come as arguments (:func:`static`'s) takes as ``knobs``
+    to run its KNOBS instance."""
+    return cfg.table if isinstance(cfg, KnobView) else None
+
+
 def table_ptr(cfg, device: torch.device, B: int):
     """The kernels' knob-table argument of ``cfg``: null for a ``Config``,
     else the view's [B, 12] int64 table on ``device``, checked. A view
@@ -154,6 +161,36 @@ def may_fire(cut) -> bool:
     is exact). Functions that take no Config branch on this where the
     others test the gate."""
     return isinstance(cut, torch.Tensor) or cut != 0
+
+
+def column(table: torch.Tensor, name: str) -> torch.Tensor:
+    """Column ``name`` of a [B, 12] knob table: each lane's value, [B, 1]."""
+    i = KNOB_COLUMNS.index(name)
+    return table[:, i:i + 1]
+
+
+def signed_target(t):
+    """The SPEC §A.3 target as a lane compares it with node ids: an int as
+    it is, a per-lane column of u32 values as int32 (the JAX package's
+    ``astype(jnp.int32)`` of the column, ``consensus_tpu/network/runner.py:
+    1029-1031``), so 0xFFFFFFFD is -3 and matches no node."""
+    if isinstance(t, torch.Tensor):
+        return torch.where(t >= 1 << 31, t - (1 << 32), t)
+    return t
+
+
+def target_role(role: torch.Tensor, t) -> torch.Tensor:
+    """[B]: the role the SPEC §A.3 sticky attack reads of target ``t`` in
+    each lane of ``role`` ([B, N]). An int in [0, N) is read as it is; a
+    per-lane column (:func:`signed_target`'s) as the JAX package's gather
+    reads a traced int32 index: a negative one counts from the end, then
+    it is clamped to [0, N - 1] (target N + 3 reads node N - 1, -3 node
+    N - 3), while the jam compares node ids with ``t`` as it is."""
+    if not isinstance(t, torch.Tensor):
+        return role[:, t]
+    N = role.shape[1]
+    i = torch.where(t < 0, t + N, t).clamp(0, N - 1)
+    return role.gather(1, i.to(torch.int64))[:, 0]
 
 
 def lane_table(kmat, device) -> torch.Tensor:

@@ -47,7 +47,8 @@
 // knobs.cuh) reads each lane's drop and partition cutoffs, and under the
 // §9b poison gate (poison_cut != 0) its cutoff, from the lane's row of the
 // table in place of the arguments; the fail and stale cutoffs are no
-// knobs.
+// knobs. The table word's side bit follows the base's partition gate, so
+// a lane whose partition cutoff is 0 still carries it (never read there).
 #include <cuda_runtime.h>
 
 #include "agg.cuh"
@@ -79,6 +80,10 @@ agg_round_kernel(const uint32_t* __restrict__ seed, uint32_t r,
   const int tile = blockIdx.x - lp * tiles;
   const int b = lp / P;
   const int ph = lp - b * P;
+  // The base's partition gate: a table word carries the side wherever
+  // partitions are on, also in a knob batch's lane whose cutoff is 0 (as
+  // the plain version packs it).
+  const bool sides = c.part != 0u;
   if (KNOBS) {
     c.drop = ctt::knob(knobs, b, ctt::KNOB_DROP);
     c.part = ctt::knob(knobs, b, ctt::KNOB_PARTITION);
@@ -96,8 +101,7 @@ agg_round_kernel(const uint32_t* __restrict__ seed, uint32_t r,
         c.fail == 0u ||
         ctt::random_u32(sd, ctt::STREAM_AGG, r, 0u, a) >= c.fail;
     int32_t word = alive ? ctt::AGG_ALIVE : 0;
-    if (c.part != 0u)
-      word |= ctt::part_side(sd, r, uN + a) ? ctt::AGG_SIDE : 0;
+    if (sides) word |= ctt::part_side(sd, r, uN + a) ? ctt::AGG_SIDE : 0;
     int n_pz = 0;
     if (c.poison != 0u && i >= K - c.agg_byz) {
       for (int p = 0; p < PZ; ++p) {

@@ -36,9 +36,21 @@
 // activation fires (ctt::attack_fires) while the target led at the round's
 // start (raft.py:241-253): only the thread that writes column tgt of a row
 // reads the target's role and draws.
+// Its KNOBS instances (a knob batch: the table pointer is not null,
+// knobs.cuh) read each lane's partition cutoff (launch 1) and its drop
+// cutoff, and in a STICKY instance its attack cutoff and target (launch 2),
+// from the lane's row of the table in place of the arguments. The base's
+// partition cutoff still decides whether launch 1 runs, so a lane whose
+// partition cutoff is 0 under a base with partitions draws sides that
+// never count. A lane's target is the int32 of its u32 column, as the JAX
+// package's traced index (consensus_tpu/network/runner.py:1029-1031): the
+// role is read at the index as its gather reads it (a negative one counts
+// from the end, then clamped to [0, N - 1]), while the jam compares column
+// ids with the target as it is, so an out-of-range target jams nothing.
 #include <cuda_runtime.h>
 
 #include "crash.cuh"
+#include "knobs.cuh"
 #include "rng.cuh"
 
 namespace {
@@ -47,14 +59,17 @@ constexpr int VEC = 4;
 constexpr int32_t ROLE_L = 2;
 
 // Launch 1. A thread per (sweep, node).
+template <bool KNOBS>
 __global__ void delivery_side_kernel(const uint32_t* __restrict__ seed,
                                      uint32_t r, uint32_t part_cut,
                                      uint8_t* __restrict__ side,
-                                     int N, long long rows) {
+                                     int N, long long rows,
+                                     const long long* __restrict__ knobs) {
   const long long row =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (row >= rows) return;
   const int b = static_cast<int>(row / N);
+  if (KNOBS) part_cut = ctt::knob(knobs, b, ctt::KNOB_PARTITION);
   const uint32_t node =
       static_cast<uint32_t>(row - static_cast<long long>(b) * N);
   const uint32_t sd = seed[b];
@@ -67,19 +82,32 @@ __global__ void delivery_side_kernel(const uint32_t* __restrict__ seed,
 }
 
 // Launch 2. Grid (B * N rows, ceil(N / (VEC * blockDim.x))).
-template <bool DELAY, bool CRASH, bool STICKY>
+template <bool DELAY, bool CRASH, bool STICKY, bool KNOBS>
 __global__ void delivery_kernel(const uint32_t* __restrict__ seed,
                                 uint32_t r, const uint8_t* __restrict__ side,
                                 unsigned char* __restrict__ out, int N,
                                 uint32_t drop_cut, uint32_t max_delay,
                                 const unsigned char* __restrict__ flags,
                                 const int32_t* __restrict__ role, int tgt,
-                                uint32_t attack_cut) {
+                                uint32_t attack_cut,
+                                const long long* __restrict__ knobs) {
   const long long row = blockIdx.x;  // b * N + i
   const int b = static_cast<int>(row / N);
   const int i = static_cast<int>(row - static_cast<long long>(b) * N);
   const int j0 = (blockIdx.y * blockDim.x + threadIdx.x) * VEC;
   if (j0 >= N) return;
+  // The node whose role the sticky attack reads (tgt itself on the flat
+  // path, where it is in range).
+  int tread = tgt;
+  if (KNOBS) {
+    drop_cut = ctt::knob(knobs, b, ctt::KNOB_DROP);
+    if (STICKY) {
+      attack_cut = ctt::knob(knobs, b, ctt::KNOB_ATTACK);
+      tgt = static_cast<int32_t>(ctt::knob(knobs, b, ctt::KNOB_ATTACK_TARGET));
+      tread = tgt < 0 ? tgt + N : tgt;
+      tread = tread < 0 ? 0 : (tread >= N ? N - 1 : tread);
+    }
+  }
   const uint32_t sd = seed[b];
   const uint32_t h = ctt::mix_absorb(
       ctt::mix_absorb(sd ^ ctt::STREAM_DELIVER, r), static_cast<uint32_t>(i));
@@ -101,7 +129,7 @@ __global__ void delivery_kernel(const uint32_t* __restrict__ seed,
     word |= static_cast<uint32_t>(ok) << (8 * v);
   }
   if (STICKY && tgt >= j0 && tgt < j0 + VEC &&
-      role[static_cast<long long>(b) * N + tgt] == ROLE_L &&
+      role[static_cast<long long>(b) * N + tread] == ROLE_L &&
       ctt::attack_fires(sd, r, attack_cut))
     word &= ~(0xFFu << (8 * (tgt - j0)));
   unsigned char* o = out + row * N + j0;
@@ -113,29 +141,43 @@ __global__ void delivery_kernel(const uint32_t* __restrict__ seed,
   }
 }
 
-using DeliveryKernel = decltype(&delivery_kernel<false, false, false>);
+using DeliveryKernel = decltype(&delivery_kernel<false, false, false, false>);
 
-template <bool DELAY, bool CRASH>
-DeliveryKernel delivery_instance(bool sticky) {
-  return sticky ? delivery_kernel<DELAY, CRASH, true>
-                : delivery_kernel<DELAY, CRASH, false>;
+template <bool KNOBS>
+DeliveryKernel delivery_instance(bool delay, bool crash, bool sticky) {
+  if (crash)
+    return delay ? (sticky ? delivery_kernel<true, true, true, KNOBS>
+                           : delivery_kernel<true, true, false, KNOBS>)
+                 : (sticky ? delivery_kernel<false, true, true, KNOBS>
+                           : delivery_kernel<false, true, false, KNOBS>);
+  return delay ? (sticky ? delivery_kernel<true, false, true, KNOBS>
+                         : delivery_kernel<true, false, false, KNOBS>)
+               : (sticky ? delivery_kernel<false, false, true, KNOBS>
+                         : delivery_kernel<false, false, false, KNOBS>);
 }
 
 }  // namespace
 
+// knobs is a knob batch's [B, 12] table (knobs.cuh; null but in a knob
+// batch): the cutoff and target arguments are then the base's, which pick
+// the launches, and each lane reads its own from its row.
 extern "C" int ctt_delivery(const uint32_t* seed, uint32_t r,
                             unsigned char* out, uint8_t* side, int B, int N,
                             uint32_t drop_cut, uint32_t part_cut,
                             uint32_t max_delay, const unsigned char* flags,
                             const int32_t* role, int tgt,
-                            uint32_t attack_cut, cudaStream_t st) {
-  if (role != nullptr && (tgt < 0 || tgt >= N))
+                            uint32_t attack_cut, const long long* knobs,
+                            cudaStream_t st) {
+  const bool kn = knobs != nullptr;
+  if (role != nullptr && !kn && (tgt < 0 || tgt >= N))
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || N == 0) return 0;
   const long long rows = static_cast<long long>(B) * N;
   if (part_cut != 0u) {
-    delivery_side_kernel<<<static_cast<unsigned>((rows + 255) / 256), 256, 0,
-                           st>>>(seed, r, part_cut, side, N, rows);
+    const auto sides =
+        kn ? delivery_side_kernel<true> : delivery_side_kernel<false>;
+    sides<<<static_cast<unsigned>((rows + 255) / 256), 256, 0, st>>>(
+        seed, r, part_cut, side, N, rows, knobs);
     const int err = static_cast<int>(cudaGetLastError());
     if (err != 0) return err;
   } else {
@@ -146,13 +188,11 @@ extern "C" int ctt_delivery(const uint32_t* seed, uint32_t r,
   const dim3 grid(static_cast<unsigned>(rows),
                   static_cast<unsigned>((quads + threads - 1) / threads));
   const bool delay = max_delay != 0u, sticky = role != nullptr;
-  const auto kernel =
-      flags != nullptr
-          ? (delay ? delivery_instance<true, true>(sticky)
-                   : delivery_instance<false, true>(sticky))
-          : (delay ? delivery_instance<true, false>(sticky)
-                   : delivery_instance<false, false>(sticky));
+  const bool crash = flags != nullptr;
+  const auto kernel = kn ? delivery_instance<true>(delay, crash, sticky)
+                         : delivery_instance<false>(delay, crash, sticky);
   kernel<<<grid, threads, 0, st>>>(seed, r, side, out, N, drop_cut,
-                                   max_delay, flags, role, tgt, attack_cut);
+                                   max_delay, flags, role, tgt, attack_cut,
+                                   knobs);
   return static_cast<int>(cudaGetLastError());
 }

@@ -74,6 +74,16 @@
 // writes 1 (the lane's jam: an OR over the grid's blocks); launch 2 then
 // walks no candidate in a jammed lane, so P2a-P2c see no request and no
 // response (deliver_e = deliver & ~jam), and launch 3 finds no tally.
+// Its KNOBS instances (a knob batch: the table pointer is not null,
+// knobs.cuh) read each lane's churn cutoff and, in an ATTACK instance, its
+// attack cutoff and target from the lane's row of the table in place of
+// the arguments (launch 1; launches 2 and 3 read no cutoff). A lane's
+// target is the int32 of its u32 column, as the JAX package's traced index
+// (consensus_tpu/network/runner.py:1029-1031): the thread of the node the
+// gather reads (a negative target counts from the end, then clamped to
+// [0, N - 1]) draws the activation and writes the attack word, while the
+// step-down skip compares node ids with the target as it is, so an
+// out-of-range target's attack counts its rounds and shields no leader.
 // Its SWITCH instances (SPEC §9, picked when kernel KAL's uplink masks and
 // aggregator table are given; raft.py:367-400) change launch 2's responses
 // only: a grant (and an equivocator's vote) reaches candidate c when the
@@ -91,6 +101,7 @@
 #include "attack.cuh"
 #include "byz.cuh"
 #include "crash.cuh"
+#include "knobs.cuh"
 #include "rng.cuh"
 
 namespace {
@@ -106,7 +117,7 @@ struct Sw {
 };
 
 // Launch 1. A thread per (sweep, node), flattened.
-template <bool CRASH, int ATTACK>
+template <bool CRASH, int ATTACK, bool KNOBS>
 __global__ void __launch_bounds__(THREADS)
 dense_candidacy_kernel(const uint32_t* __restrict__ seed, uint32_t r,
                        uint32_t churn_cut, int32_t t_min, uint32_t t_span,
@@ -127,19 +138,34 @@ dense_candidacy_kernel(const uint32_t* __restrict__ seed, uint32_t r,
                        int* __restrict__ n_cand, int32_t* __restrict__ lterm,
                        const unsigned char* __restrict__ flags, int N, int L,
                        long long rows, uint32_t attack_cut, int tgt,
-                       int32_t* __restrict__ atk) {
+                       int32_t* __restrict__ atk,
+                       const long long* __restrict__ knobs) {
   const long long row =
       static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
   if (row >= rows) return;
   const int b = static_cast<int>(row / N);
   const int j = static_cast<int>(row - static_cast<long long>(b) * N);
+  // The node whose role the sticky attack reads (tgt itself on the flat
+  // path, where it is in range).
+  int tread = tgt;
+  if (KNOBS) {
+    churn_cut = ctt::knob(knobs, b, ctt::KNOB_CHURN);
+    if (ATTACK != ctt::ATTACK_NONE)
+      attack_cut = ctt::knob(knobs, b, ctt::KNOB_ATTACK);
+    if (ATTACK == ctt::ATTACK_STICKY) {
+      tgt = static_cast<int32_t>(ctt::knob(knobs, b, ctt::KNOB_ATTACK_TARGET));
+      tread = tgt < 0 ? tgt + N : tgt;
+      tread = tread < 0 ? 0 : (tread >= N ? N - 1 : tread);
+    }
+  }
   const uint32_t sd = seed[b];
   int32_t tm = term[row], rl = role[row], vf = voted_for[row];
   int32_t tmr = timer[row], to = timeout[row];
   // SPEC §A.3 sticky: the target's leadership as it enters the round.
-  const bool sticky = ATTACK == ctt::ATTACK_STICKY && j == tgt &&
-                      rl == ROLE_L && ctt::attack_fires(sd, r, attack_cut);
-  if (sticky) atk[b] = 1;
+  const bool act = ATTACK == ctt::ATTACK_STICKY && j == tread &&
+                   rl == ROLE_L && ctt::attack_fires(sd, r, attack_cut);
+  if (act) atk[b] = 1;
+  const bool sticky = act && j == tgt;
   bool down = false;
   if (CRASH) {
     const unsigned char fl = flags[row];
@@ -362,16 +388,16 @@ dense_winners_kernel(const int32_t* __restrict__ log_len,
   }
 }
 
-using CandidacyKernel = decltype(&dense_candidacy_kernel<false, 0>);
+using CandidacyKernel = decltype(&dense_candidacy_kernel<false, 0, false>);
 using GrantsKernel = decltype(&dense_grants_kernel<0, false, false>);
 
-template <bool CRASH>
+template <bool CRASH, bool KNOBS>
 CandidacyKernel candidacy_instance(int attack) {
   return attack == ctt::ATTACK_ELECT
-             ? dense_candidacy_kernel<CRASH, ctt::ATTACK_ELECT>
+             ? dense_candidacy_kernel<CRASH, ctt::ATTACK_ELECT, KNOBS>
          : attack == ctt::ATTACK_STICKY
-             ? dense_candidacy_kernel<CRASH, ctt::ATTACK_STICKY>
-             : dense_candidacy_kernel<CRASH, ctt::ATTACK_NONE>;
+             ? dense_candidacy_kernel<CRASH, ctt::ATTACK_STICKY, KNOBS>
+             : dense_candidacy_kernel<CRASH, ctt::ATTACK_NONE, KNOBS>;
 }
 
 template <bool JAM, bool SWITCH>
@@ -390,7 +416,9 @@ GrantsKernel grants_instance(int byz) {
 // up and tab are null but on a SPEC §9 switch round: then kernel KAL's
 // [B, 1, N] uplink masks and [B, K] table, with the drop, partition and
 // delay settings and the sticky target sw_tgt (-1 without the sticky
-// attack).
+// attack). knobs is a knob batch's [B, 12] table (knobs.cuh; null but in a
+// knob batch, which has no switch round): the churn, attack cutoff and
+// target arguments are then the base's and each lane reads its own.
 extern "C" int ctt_dense_elect(
     const uint32_t* seed, uint32_t r, uint32_t churn_cut, int32_t t_min,
     uint32_t t_span, const bool* deliver, const int32_t* term,
@@ -402,8 +430,10 @@ extern "C" int ctt_dense_elect(
     const unsigned char* flags, int B, int N, int L, int byz, int nb,
     int attack, uint32_t attack_cut, int tgt, int32_t* atk,
     const unsigned char* up, const int32_t* tab, int K, uint32_t drop_cut,
-    uint32_t part_cut, uint32_t max_delay, int sw_tgt, cudaStream_t st) {
+    uint32_t part_cut, uint32_t max_delay, int sw_tgt, const long long* knobs,
+    cudaStream_t st) {
   if ((up == nullptr) != (tab == nullptr) ||
+      (knobs != nullptr && up != nullptr) ||
       (up != nullptr && (K < 1 || K > N)) ||
       (sw_tgt >= 0 && (atk == nullptr || sw_tgt >= N)))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -430,13 +460,17 @@ extern "C" int ctt_dense_elect(
     return err;
   const unsigned blocks = static_cast<unsigned>((rows + THREADS - 1) / THREADS);
   const bool crash = flags != nullptr;
-  const auto candidacy = crash ? candidacy_instance<true>(attack)
-                               : candidacy_instance<false>(attack);
+  const auto candidacy =
+      knobs != nullptr
+          ? (crash ? candidacy_instance<true, true>(attack)
+                   : candidacy_instance<false, true>(attack))
+          : (crash ? candidacy_instance<true, false>(attack)
+                   : candidacy_instance<false, false>(attack));
   candidacy<<<blocks, THREADS, 0, st>>>(
       seed, r, churn_cut, t_min, t_span, term, role, voted_for, timer,
       timeout, log_term, log_len, term_out, role_out, vf_out, timer_out,
       timeout_out, reset_out, win_out, cands, n_cand, lterm, flags, N, L,
-      rows, attack_cut, tgt, atk);
+      rows, attack_cut, tgt, atk, knobs);
   if ((err = static_cast<int>(cudaGetLastError())) != 0) return err;
   const bool jam = attack == ctt::ATTACK_ELECT, sw_on = up != nullptr;
   const auto grants =

@@ -42,9 +42,15 @@
 // ctt::suppressed, drawn by each thread after the churn and full-chain
 // tests, like churn's lane draw. A cutoff of 0 never fires, so one
 // instance serves either gate or both.
+// Its KNOBS instances (a knob batch: the table pointer is not null,
+// knobs.cuh) read each lane's drop, partition and churn cutoffs and, in a
+// GATES instance, its miss and suppress cutoffs from the lane's row of the
+// table in place of the arguments. The base's miss and suppress cutoffs
+// still pick the GATES instance (dpos.py gated is the base's).
 #include <cuda_runtime.h>
 
 #include "crash.cuh"
+#include "knobs.cuh"
 #include "rng.cuh"
 
 namespace {
@@ -64,7 +70,7 @@ __device__ __forceinline__ void store(void* base, int size, long long i,
 
 // Validator v of lane b's round: appends (r, p) where the block reaches it,
 // and says whether it did.
-template <bool DELAY, bool CRASH, bool GATES>
+template <bool DELAY, bool CRASH, bool GATES, bool KNOBS>
 __device__ __forceinline__ bool append(
     const uint32_t* __restrict__ seed, uint32_t r,
     const int32_t* __restrict__ producers, void* chain_r, void* chain_p,
@@ -72,7 +78,16 @@ __device__ __forceinline__ bool append(
     int list_len, uint32_t drop_cut, uint32_t part_cut, uint32_t churn_cut,
     uint32_t max_delay, const unsigned char* __restrict__ flags, int V,
     int L, uint32_t miss_cut, uint32_t suppress_cut, uint32_t window, int b,
-    uint32_t v, long long row) {
+    uint32_t v, long long row, const long long* __restrict__ knobs) {
+  if (KNOBS) {
+    drop_cut = ctt::knob(knobs, b, ctt::KNOB_DROP);
+    part_cut = ctt::knob(knobs, b, ctt::KNOB_PARTITION);
+    churn_cut = ctt::knob(knobs, b, ctt::KNOB_CHURN);
+    if (GATES) {
+      miss_cut = ctt::knob(knobs, b, ctt::KNOB_MISS);
+      suppress_cut = ctt::knob(knobs, b, ctt::KNOB_SUPPRESS);
+    }
+  }
   const uint32_t sd = seed[b];
   if (ctt::random_u32(sd, ctt::STREAM_CHURN, r, 0u, 0u) < churn_cut)
     return false;
@@ -105,7 +120,7 @@ __device__ __forceinline__ bool append(
 }
 
 // A thread per (lane, validator), flattened.
-template <bool DELAY, bool CRASH, bool GATES>
+template <bool DELAY, bool CRASH, bool GATES, bool KNOBS>
 __global__ void __launch_bounds__(THREADS)
 dpos_round_kernel(const uint32_t* __restrict__ seed, uint32_t r,
                   const int32_t* __restrict__ producers, void* chain_r,
@@ -115,7 +130,7 @@ dpos_round_kernel(const uint32_t* __restrict__ seed, uint32_t r,
                   uint32_t part_cut, uint32_t churn_cut, uint32_t max_delay,
                   const unsigned char* __restrict__ flags, int V, int L,
                   long long rows, uint32_t miss_cut, uint32_t suppress_cut,
-                  uint32_t window) {
+                  uint32_t window, const long long* __restrict__ knobs) {
   __shared__ int s_app[2];
   const long long row =
       static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
@@ -123,11 +138,12 @@ dpos_round_kernel(const uint32_t* __restrict__ seed, uint32_t r,
   bool did = false;
   if (row < rows) {
     b = static_cast<int>(row / V);
-    did = append<DELAY, CRASH, GATES>(
+    did = append<DELAY, CRASH, GATES, KNOBS>(
         seed, r, producers, chain_r, chain_p, chain_len, r_size, p_size,
         p_index, list_len, drop_cut, part_cut, churn_cut, max_delay, flags,
         V, L, miss_cut, suppress_cut, window, b,
-        static_cast<uint32_t>(row - static_cast<long long>(b) * V), row);
+        static_cast<uint32_t>(row - static_cast<long long>(b) * V), row,
+        knobs);
   }
   if (n_app == nullptr) return;
   // The appends a lane, for the telemetry.
@@ -148,20 +164,25 @@ dpos_round_kernel(const uint32_t* __restrict__ seed, uint32_t r,
     atomicAdd(n_app + b0 + threadIdx.x, s_app[threadIdx.x]);
 }
 
-using RoundKernel = decltype(&dpos_round_kernel<false, false, false>);
+using RoundKernel = decltype(&dpos_round_kernel<false, false, false, false>);
 
-// The instance of a (DELAY, CRASH) pair with or without the gates.
+// The instance of a (DELAY, CRASH) pair with or without the gates and the
+// knob table.
 template <bool DELAY, bool CRASH>
-RoundKernel round_kernel(bool gates) {
-  return gates ? dpos_round_kernel<DELAY, CRASH, true>
-               : dpos_round_kernel<DELAY, CRASH, false>;
+RoundKernel round_kernel(bool gates, bool kn) {
+  return gates ? (kn ? dpos_round_kernel<DELAY, CRASH, true, true>
+                     : dpos_round_kernel<DELAY, CRASH, true, false>)
+               : (kn ? dpos_round_kernel<DELAY, CRASH, false, true>
+                     : dpos_round_kernel<DELAY, CRASH, false, false>);
 }
 
 }  // namespace
 
 // n_app is null where the caller does not count the appends. miss_cut and
 // suppress_cut are 0 on the flat path (window >= 1 is read only by the
-// GATES instances).
+// GATES instances). knobs is a knob batch's [B, 12] table (knobs.cuh; null
+// but in a knob batch): the cutoff arguments are then the base's, which
+// pick the instance, and each lane reads its own from its row.
 extern "C" int ctt_dpos_round(const uint32_t* seed, uint32_t r,
                               const int32_t* producers, void* chain_r,
                               void* chain_p, int32_t* chain_len,
@@ -171,7 +192,7 @@ extern "C" int ctt_dpos_round(const uint32_t* seed, uint32_t r,
                               uint32_t max_delay, const unsigned char* flags,
                               int B, int V, int L, uint32_t miss_cut,
                               uint32_t suppress_cut, uint32_t window,
-                              cudaStream_t st) {
+                              const long long* knobs, cudaStream_t st) {
   if (window == 0u) return static_cast<int>(cudaErrorInvalidValue);
   if (n_app != nullptr && B > 0) {
     const int err = static_cast<int>(
@@ -182,16 +203,17 @@ extern "C" int ctt_dpos_round(const uint32_t* seed, uint32_t r,
   if (rows == 0) return 0;
   const bool delay = max_delay != 0u;
   const bool gates = miss_cut != 0u || suppress_cut != 0u;
+  const bool kn = knobs != nullptr;
   const auto kernel =
       flags != nullptr
-          ? (delay ? round_kernel<true, true>(gates)
-                   : round_kernel<false, true>(gates))
-          : (delay ? round_kernel<true, false>(gates)
-                   : round_kernel<false, false>(gates));
+          ? (delay ? round_kernel<true, true>(gates, kn)
+                   : round_kernel<false, true>(gates, kn))
+          : (delay ? round_kernel<true, false>(gates, kn)
+                   : round_kernel<false, false>(gates, kn));
   kernel<<<static_cast<unsigned>((rows + THREADS - 1) / THREADS), THREADS, 0,
            st>>>(seed, r, producers, chain_r, chain_p, chain_len, n_app,
                  r_size, p_size, p_index, list_len, drop_cut, part_cut,
                  churn_cut, max_delay, flags, V, L, rows, miss_cut,
-                 suppress_cut, window);
+                 suppress_cut, window, knobs);
   return static_cast<int>(cudaGetLastError());
 }

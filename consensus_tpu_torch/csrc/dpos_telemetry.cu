@@ -29,10 +29,16 @@
 // lane's counters, window and bucket. The counters need only the lane's
 // scalars (n_app, two producer ids, the churn draw), which that block's
 // thread 0 reads.
+// Its KNOBS instances (a knob batch: the table pointer is not null,
+// knobs.cuh) read each lane's churn cutoff and, in the GATES instance, its
+// miss and suppress cutoffs from the lane's row of the table in place of
+// the arguments, in the lane's last block; the base's miss and suppress
+// cutoffs pick the GATES instance.
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "knobs.cuh"
 #include "rng.cuh"
 
 namespace {
@@ -57,7 +63,7 @@ __device__ __forceinline__ void add(int* tb, int* wb, int k, int v) {
   if (wb != nullptr) atomicAdd(wb + k, v);
 }
 
-template <bool GATES>
+template <bool GATES, bool KNOBS>
 __global__ void __launch_bounds__(THREADS)
 dpos_telemetry_kernel(const uint32_t* __restrict__ seed, uint32_t r,
                       const int32_t* __restrict__ producers,
@@ -68,7 +74,8 @@ dpos_telemetry_kernel(const uint32_t* __restrict__ seed, uint32_t r,
                       int prev_index, int list_len, uint32_t churn_cut,
                       int V, int K, int window, int n_windows, int tiles,
                       uint32_t miss_cut, uint32_t suppress_cut,
-                      uint32_t suppress_window) {
+                      uint32_t suppress_window,
+                      const long long* __restrict__ knobs) {
   __shared__ unsigned s_span[2];
   const int b = blockIdx.x / tiles;
   const int tile = blockIdx.x - b * tiles;
@@ -99,7 +106,15 @@ dpos_telemetry_kernel(const uint32_t* __restrict__ seed, uint32_t r,
   __threadfence();
   if (atomicAdd(ls + 2, 1u) != static_cast<unsigned>(tiles - 1)) return;
   __threadfence();
-  // The lane's last block: its counters, window and bucket.
+  // The lane's last block: its counters, window and bucket. A knob
+  // batch's lane reads its cutoffs here, after the reduction.
+  if (KNOBS) {
+    churn_cut = ctt::knob(knobs, b, ctt::KNOB_CHURN);
+    if (GATES) {
+      miss_cut = ctt::knob(knobs, b, ctt::KNOB_MISS);
+      suppress_cut = ctt::knob(knobs, b, ctt::KNOB_SUPPRESS);
+    }
+  }
   int* tb = t + static_cast<long long>(b) * K;
   int* wb = w == nullptr
                 ? nullptr
@@ -132,7 +147,10 @@ dpos_telemetry_kernel(const uint32_t* __restrict__ seed, uint32_t r,
 // of the round's appends. p_index and prev_index are the entries of a
 // lane's producer list (E * K long) of rounds r and max(r - 1, 0). w and
 // lat are null when the flight recorder is off; then window and n_windows
-// are unused. miss_cut and suppress_cut are 0 on the flat path.
+// are unused. miss_cut and suppress_cut are 0 on the flat path. knobs is a
+// knob batch's [B, 12] table (knobs.cuh; null but in a knob batch): the
+// cutoff arguments are then the base's, which pick the instance, and each
+// lane reads its own from its row.
 extern "C" int ctt_dpos_telemetry(const uint32_t* seed, uint32_t r,
                                   const int32_t* producers,
                                   const int32_t* chain_len,
@@ -143,7 +161,7 @@ extern "C" int ctt_dpos_telemetry(const uint32_t* seed, uint32_t r,
                                   int window, int n_windows,
                                   uint32_t miss_cut, uint32_t suppress_cut,
                                   uint32_t suppress_window,
-                                  cudaStream_t st) {
+                                  const long long* knobs, cudaStream_t st) {
   if (K < K_MIN || (w == nullptr) != (lat == nullptr) ||
       (w != nullptr && (window < 0 || window >= n_windows)) ||
       p_index < 0 || p_index >= list_len || prev_index < 0 ||
@@ -156,12 +174,16 @@ extern "C" int ctt_dpos_telemetry(const uint32_t* seed, uint32_t r,
   const int tiles = (V + TILE - 1) / TILE;
   const long long blocks = static_cast<long long>(tiles) * B;
   if (blocks > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
-  const auto kernel = miss_cut != 0u || suppress_cut != 0u
-                          ? dpos_telemetry_kernel<true>
-                          : dpos_telemetry_kernel<false>;
+  const bool gates = miss_cut != 0u || suppress_cut != 0u;
+  const auto kernel =
+      knobs != nullptr
+          ? (gates ? dpos_telemetry_kernel<true, true>
+                   : dpos_telemetry_kernel<false, true>)
+          : (gates ? dpos_telemetry_kernel<true, false>
+                   : dpos_telemetry_kernel<false, false>);
   kernel<<<static_cast<unsigned>(blocks), THREADS, 0, st>>>(
       seed, r, producers, chain_len, n_app, t, w, lat, span, p_index,
       prev_index, list_len, churn_cut, V, K, window, n_windows, tiles,
-      miss_cut, suppress_cut, suppress_window);
+      miss_cut, suppress_cut, suppress_window, knobs);
   return static_cast<int>(cudaGetLastError());
 }

@@ -43,9 +43,14 @@
 // deliver[a, p], when a's phase-1 uplink is open (KAL's mask, a down
 // acceptor already cut) and its aggregator's downlink to p is open
 // (ctt::agg_downlink, drawn only for a winning accept).
+// Its KNOBS instance (a knob batch: the table pointer is not null,
+// knobs.cuh) reads each lane's churn cutoff from the lane's row of the
+// table in place of the argument (launch 1; the other launches read no
+// cutoff).
 #include <cuda_runtime.h>
 
 #include "agg.cuh"
+#include "knobs.cuh"
 #include "paxos.cuh"
 
 namespace {
@@ -54,6 +59,7 @@ using ctt::THREADS;
 constexpr unsigned FULL = 0xFFFFFFFFu;
 
 // Launch 1. A thread per (lane, proposer).
+template <bool KNOBS>
 __global__ void __launch_bounds__(THREADS)
 paxos_gate_kernel(const uint32_t* __restrict__ seed, uint32_t r,
                   const int32_t* __restrict__ n_prom,
@@ -61,12 +67,14 @@ paxos_gate_kernel(const uint32_t* __restrict__ seed, uint32_t r,
                   const int32_t* __restrict__ best_a,
                   const int32_t* __restrict__ acc_val,
                   int32_t* __restrict__ props, int P, uint32_t churn_cut,
-                  int N, int S, long long rows) {
+                  int N, int S, long long rows,
+                  const long long* __restrict__ knobs) {
   const long long row =
       static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
   if (row >= rows) return;
   const int b = static_cast<int>(row / N);
   const int p = static_cast<int>(row - static_cast<long long>(b) * N);
+  if (KNOBS) churn_cut = ctt::knob(knobs, b, ctt::KNOB_CHURN);
   const ctt::Proposal pr = ctt::proposal(seed[b], r, p, P, churn_cut, N, S);
   const long long best = static_cast<long long>(b) * N + best_a[row];
   const int32_t value = best_bal[row] > 0 ? acc_val[best * S + pr.slot]
@@ -216,6 +224,8 @@ paxos_learn_kernel(const uint8_t* __restrict__ prep_del,
 
 }  // namespace
 
+// knobs is a knob batch's [B, 12] table (knobs.cuh; null but in a knob
+// batch): churn_cut is then the base's and each lane reads its own.
 extern "C" int ctt_paxos_accept_learn(
     const uint32_t* seed, uint32_t r, const uint8_t* deliver,
     const uint8_t* prep_del, const int32_t* new_promised,
@@ -226,9 +236,10 @@ extern "C" int ctt_paxos_accept_learn(
     bool* learned_mask2, int32_t* props, int32_t* n_acc, uint32_t* bits,
     int P, uint32_t churn_cut, int B, int N, int S, const unsigned char* up,
     const int32_t* tab, int K, uint32_t drop_cut, uint32_t part_cut,
-    uint32_t max_delay, cudaStream_t st) {
+    uint32_t max_delay, const long long* knobs, cudaStream_t st) {
   if ((up == nullptr) != (tab == nullptr) ||
-      (up != nullptr && (K < 1 || K > N)))
+      (up != nullptr && (K < 1 || K > N)) ||
+      (knobs != nullptr && up != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || N == 0) return 0;
   static bool configured = false;
@@ -255,9 +266,11 @@ extern "C" int ctt_paxos_accept_learn(
   const int words = (N + 31) / 32;
   const unsigned row_blocks = static_cast<unsigned>((rows + THREADS - 1) /
                                                     THREADS);
-  paxos_gate_kernel<<<row_blocks, THREADS, 0, st>>>(
-      seed, r, n_prom, best_bal, best_a, acc_val, props, P, churn_cut, N, S,
-      rows);
+  const auto gate =
+      knobs != nullptr ? paxos_gate_kernel<true> : paxos_gate_kernel<false>;
+  gate<<<row_blocks, THREADS, 0, st>>>(seed, r, n_prom, best_bal, best_a,
+                                       acc_val, props, P, churn_cut, N, S,
+                                       rows, knobs);
   const long long slot_bytes = static_cast<long long>(S) * sizeof(int32_t);
   const bool accept_smem = 2 * slot_bytes <= ctt::ROW_SMEM_MAX;
   const auto accept = up != nullptr ? paxos_accept_kernel<true>

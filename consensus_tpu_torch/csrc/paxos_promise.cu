@@ -50,10 +50,15 @@
 // promises and, beside them, the acceptors with both flat flights
 // delivered that did not promise (the nacks, paxos.py:256, still read the
 // flat mask).
+// Its KNOBS instance (a knob batch: the table pointer is not null,
+// knobs.cuh) reads each lane's churn cutoff from the lane's row of the
+// table in place of the argument (launch 1; the other launches read no
+// cutoff).
 #include <cuda_runtime.h>
 
 #include "agg.cuh"
 #include "crash.cuh"
+#include "knobs.cuh"
 #include "paxos.cuh"
 
 namespace {
@@ -69,15 +74,18 @@ __device__ __forceinline__ unsigned long long pack(int32_t bal, int a) {
 }
 
 // Launch 1. A thread per (lane, proposer).
+template <bool KNOBS>
 __global__ void __launch_bounds__(THREADS)
 paxos_propose_kernel(const uint32_t* __restrict__ seed, uint32_t r,
                      int32_t* __restrict__ props, int P, uint32_t churn_cut,
-                     int N, int S, long long rows) {
+                     int N, int S, long long rows,
+                     const long long* __restrict__ knobs) {
   const long long row =
       static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
   if (row >= rows) return;
   const int b = static_cast<int>(row / N);
   const int p = static_cast<int>(row - static_cast<long long>(b) * N);
+  if (KNOBS) churn_cut = ctt::knob(knobs, b, ctt::KNOB_CHURN);
   const ctt::Proposal pr = ctt::proposal(seed[b], r, p, P, churn_cut, N, S);
   int32_t* lane = props + static_cast<long long>(b) * 4 * N;
   lane[ctt::PROP_SLOT * N + p] = pr.slot;
@@ -241,6 +249,8 @@ paxos_unpack_kernel(const unsigned long long* __restrict__ keys,
 
 }  // namespace
 
+// knobs is a knob batch's [B, 12] table (knobs.cuh; null but in a knob
+// batch): churn_cut is then the base's and each lane reads its own.
 extern "C" int ctt_paxos_promise(
     const uint32_t* seed, uint32_t r, const uint8_t* deliver,
     const int32_t* promised, const int32_t* acc_bal, int32_t* new_promised,
@@ -249,9 +259,10 @@ extern "C" int ctt_paxos_promise(
     const unsigned char* flags, int P, uint32_t churn_cut, int B, int N,
     int S, const unsigned char* up, const int32_t* tab, int K,
     uint32_t drop_cut, uint32_t part_cut, uint32_t max_delay,
-    cudaStream_t st) {
+    const long long* knobs, cudaStream_t st) {
   if ((up == nullptr) != (tab == nullptr) ||
-      (up != nullptr && (K < 1 || K > N)))
+      (up != nullptr && (K < 1 || K > N)) ||
+      (knobs != nullptr && up != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || N == 0) return 0;
   static bool configured = false;
@@ -279,8 +290,10 @@ extern "C" int ctt_paxos_promise(
   if (err != 0) return err;
   const unsigned row_blocks = static_cast<unsigned>((rows + THREADS - 1) /
                                                     THREADS);
-  paxos_propose_kernel<<<row_blocks, THREADS, 0, st>>>(seed, r, props, P,
-                                                        churn_cut, N, S, rows);
+  const auto propose = knobs != nullptr ? paxos_propose_kernel<true>
+                                         : paxos_propose_kernel<false>;
+  propose<<<row_blocks, THREADS, 0, st>>>(seed, r, props, P, churn_cut, N, S,
+                                          rows, knobs);
   const int tiles = (N + 31) / 32;
   paxos_transpose_kernel<<<static_cast<unsigned>(static_cast<long long>(tiles) *
                                                  tiles * B),

@@ -55,6 +55,13 @@
 // timeout in this round. Launch 1 reads no timer. The freeze (KAI) restores
 // a down node's timer from the round's input, so it drops the skew, as the
 // JAX package's frozen capture does.
+// Its KNOBS instances (a knob batch: the table pointer is not null,
+// knobs.cuh) read each lane's churn cutoff (launches 1 and 2) and, in a
+// DESYNC instance, desync cutoff (launch 2) from the lane's row of the
+// table in place of the arguments; launch 3 reads no cutoff. The base's
+// desync cutoff picks the DESYNC instance, so under a base with the desync
+// off a lane's desync value is not read (as consensus_tpu/engines/pbft.py
+// :205 gates it).
 // Its BYZ instances (SPEC §3c/§6, picked with byzantine nodes: node i of a
 // lane is honest when i < n_real - nb) count the views of honest senders
 // only in P1's walk (a node's own view always counts) and let only an
@@ -70,6 +77,7 @@
 
 #include "byz.cuh"
 #include "crash.cuh"
+#include "knobs.cuh"
 #include "rng.cuh"
 
 namespace {
@@ -100,18 +108,19 @@ __device__ __forceinline__ int32_t churn_step(uint32_t sd, uint32_t r,
 }
 
 // Launch 1. A thread per (lane, node), flattened.
-template <bool CRASH>
+template <bool CRASH, bool KNOBS>
 __global__ void __launch_bounds__(THREADS)
 pbft_rank_kernel(const uint32_t* __restrict__ seed, uint32_t r,
                  uint32_t churn_cut, const int32_t* __restrict__ view,
                  int32_t* __restrict__ order,
                  const unsigned char* __restrict__ flags, int N,
-                 long long rows) {
+                 long long rows, const long long* __restrict__ knobs) {
   const long long row =
       static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
   if (row >= rows) return;
   const int b = static_cast<int>(row / N);
   const int i = static_cast<int>(row - static_cast<long long>(b) * N);
+  if (KNOBS) churn_cut = ctt::knob(knobs, b, ctt::KNOB_CHURN);
   const int32_t c = churn_step(seed[b], r, churn_cut);
   const long long nodes = static_cast<long long>(b) * N;
   const int32_t vi = wrap_add(entry<CRASH>(view, flags, nodes + i), c);
@@ -124,7 +133,7 @@ pbft_rank_kernel(const uint32_t* __restrict__ seed, uint32_t r,
 }
 
 // Launch 2. A thread per (lane, receiver), flattened.
-template <bool CRASH, bool DESYNC, bool HONEST>
+template <bool CRASH, bool DESYNC, bool HONEST, bool KNOBS>
 __global__ void __launch_bounds__(THREADS)
 pbft_catchup_kernel(const uint32_t* __restrict__ seed, uint32_t r,
                     uint32_t churn_cut, int32_t view_timeout, int32_t vmax,
@@ -140,12 +149,17 @@ pbft_catchup_kernel(const uint32_t* __restrict__ seed, uint32_t r,
                     bool* __restrict__ reset_out,
                     bool* __restrict__ catch_out,
                     const unsigned char* __restrict__ flags, int N,
-                    long long rows, int nb) {
+                    long long rows, int nb,
+                    const long long* __restrict__ knobs) {
   const long long row =
       static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
   if (row >= rows) return;
   const int b = static_cast<int>(row / N);
   const int j = static_cast<int>(row - static_cast<long long>(b) * N);
+  if (KNOBS) {
+    churn_cut = ctt::knob(knobs, b, ctt::KNOB_CHURN);
+    if (DESYNC) desync_cut = ctt::knob(knobs, b, ctt::KNOB_DESYNC);
+  }
   const long long nodes = static_cast<long long>(b) * N;
   // SPEC §B skew, then P0 churn.
   const uint32_t sd = seed[b];
@@ -265,10 +279,11 @@ pbft_preprepare_kernel(const uint32_t* __restrict__ seed, uint32_t r,
     bool seen = pp_seen[js];
     int32_t pv = pp_view[js], val = pp_val[js];
     if (byzp) {
+      // Only where the equivocating primary's offer reaches j (ok).
       const int32_t mval = static_cast<int32_t>(
           ctt::random_u32(sd, ctt::STREAM_VALUE, static_cast<uint32_t>(v),
                           sub, static_cast<uint32_t>(s)));
-      if ((!seen || pv < v) && (!prepared[js] || mval == val)) {
+      if (ok && (!seen || pv < v) && (!prepared[js] || mval == val)) {
         seen = true;
         pv = v;
         val = mval;
@@ -295,10 +310,34 @@ pbft_preprepare_kernel(const uint32_t* __restrict__ seed, uint32_t r,
   }
 }
 
+// Launch 1's instance for crash with or without the knob table, and launch
+// 2's for (crash, desync, byz).
+template <bool KNOBS>
+decltype(&pbft_rank_kernel<false, false>) rank_instance(bool crash) {
+  return crash ? pbft_rank_kernel<true, KNOBS> : pbft_rank_kernel<false, KNOBS>;
+}
+
+template <bool KNOBS>
+decltype(&pbft_catchup_kernel<false, false, false, false>) catchup_instance(
+    bool crash, bool desync, bool hon) {
+  if (hon)
+    return crash ? (desync ? pbft_catchup_kernel<true, true, true, KNOBS>
+                           : pbft_catchup_kernel<true, false, true, KNOBS>)
+                 : (desync ? pbft_catchup_kernel<false, true, true, KNOBS>
+                           : pbft_catchup_kernel<false, false, true, KNOBS>);
+  return crash ? (desync ? pbft_catchup_kernel<true, true, false, KNOBS>
+                         : pbft_catchup_kernel<true, false, false, KNOBS>)
+               : (desync ? pbft_catchup_kernel<false, true, false, KNOBS>
+                         : pbft_catchup_kernel<false, false, false, KNOBS>);
+}
+
 }  // namespace
 
 // order is scratch: [B, N] int32; catch_out, [B, N] bool, is null where
-// the caller does not ask for P1's catch-up flags.
+// the caller does not ask for P1's catch-up flags. knobs is a knob batch's
+// [B, 12] table (knobs.cuh; null but in a knob batch): the cutoff
+// arguments are then the base's, which pick the instances (desync_cut != 0
+// the DESYNC one), and each lane reads its own from its row.
 extern "C" int ctt_pbft_view_preprepare(
     const uint32_t* seed, uint32_t r, uint32_t churn_cut,
     int32_t view_timeout, int32_t vmax, uint32_t desync_cut,
@@ -309,35 +348,29 @@ extern "C" int ctt_pbft_view_preprepare(
     int32_t* view_out, int32_t* timer_out, bool* reset_out, bool* seen_out,
     int32_t* pview_out, int32_t* pval_out, bool* catch_out, int32_t* order,
     const unsigned char* flags, int B, int N, int S, int byz, int nb,
-    cudaStream_t st) {
+    const long long* knobs, cudaStream_t st) {
   if (nb < 0 || nb > N || byz < ctt::BYZ_NONE || byz > ctt::BYZ_EQUIV)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || N == 0) return 0;
   const long long rows = static_cast<long long>(B) * N;
   const unsigned blocks = static_cast<unsigned>((rows + THREADS - 1) / THREADS);
-  const bool crash = flags != nullptr;
-  const auto rank = crash ? pbft_rank_kernel<true> : pbft_rank_kernel<false>;
+  const bool crash = flags != nullptr, kn = knobs != nullptr;
+  const auto rank =
+      kn ? rank_instance<true>(crash) : rank_instance<false>(crash);
   rank<<<blocks, THREADS, 0, st>>>(seed, r, churn_cut, view, order, flags, N,
-                                   rows);
+                                   rows, knobs);
   int err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
   const bool desync = desync_cut != 0u;
   if (desync && max_skew == 0u)
     return static_cast<int>(cudaErrorInvalidValue);
-  const auto catchup =
-      byz != ctt::BYZ_NONE
-          ? (crash ? (desync ? pbft_catchup_kernel<true, true, true>
-                             : pbft_catchup_kernel<true, false, true>)
-                   : (desync ? pbft_catchup_kernel<false, true, true>
-                             : pbft_catchup_kernel<false, false, true>))
-          : (crash ? (desync ? pbft_catchup_kernel<true, true, false>
-                             : pbft_catchup_kernel<true, false, false>)
-                   : (desync ? pbft_catchup_kernel<false, true, false>
-                             : pbft_catchup_kernel<false, false, false>));
+  const bool hon = byz != ctt::BYZ_NONE;
+  const auto catchup = kn ? catchup_instance<true>(crash, desync, hon)
+                          : catchup_instance<false>(crash, desync, hon);
   catchup<<<blocks, THREADS, 0, st>>>(
       seed, r, churn_cut, view_timeout, vmax, desync_cut, max_skew, deliver,
       n_real, f, view, timer, order, view_out, timer_out, reset_out,
-      catch_out, flags, N, rows, nb);
+      catch_out, flags, N, rows, nb, knobs);
   if ((err = static_cast<int>(cudaGetLastError())) != 0) return err;
   const unsigned warp_blocks =
       static_cast<unsigned>((rows + WARPS - 1) / WARPS);

@@ -39,12 +39,17 @@
 // The second: a thread per (lane, aggregator, slot) folds the chunks'
 // partials and writes the served table. No atomics; every partial cell is
 // written, so nothing is zeroed.
+// Its KNOBS instance (a knob batch: the table pointer is not null,
+// knobs.cuh) reads each lane's §9b uplink-lie cutoff from the lane's row of
+// the table in place of the argument, where the base lies at all (the
+// prepare and commit phases; the decide phase draws no lie).
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "agg.cuh"
 #include "byz.cuh"
+#include "knobs.cuh"
 
 namespace {
 
@@ -76,7 +81,7 @@ Geo geometry(int N, int S, int K) {
   return g;
 }
 
-template <bool DECIDE>
+template <bool DECIDE, bool KNOBS>
 __global__ void __launch_bounds__(THREADS)
 switch_combine_rows(const uint32_t* __restrict__ seed, uint32_t r,
                     const int32_t* __restrict__ n_real,
@@ -84,7 +89,8 @@ switch_combine_rows(const uint32_t* __restrict__ seed, uint32_t r,
                     const int32_t* __restrict__ vals,
                     const bool* __restrict__ up, int up_rows, int up_row,
                     int32_t* __restrict__ part, int32_t* __restrict__ node_part,
-                    Geo g, int nb, bool equiv, uint32_t lie_cut) {
+                    Geo g, int nb, bool equiv, uint32_t lie_cut,
+                    const long long* __restrict__ knobs) {
   __shared__ int32_t sh[NODE_WORDS][THREADS];
   const int c = blockIdx.x % g.chunks;
   const int ba = blockIdx.x / g.chunks;  // lane * K + aggregator
@@ -154,7 +160,11 @@ switch_combine_rows(const uint32_t* __restrict__ seed, uint32_t r,
     }
   }
   if (DECIDE || blockIdx.y != 0) return;
-  // The chunk's byzantine members: their lies and equivocating support.
+  // The chunk's byzantine members: their lies and equivocating support. A
+  // knob batch's lane reads its lie cutoff here, after the slot sums,
+  // where the base lies at all.
+  if (KNOBS && lie_cut != 0u)
+    lie_cut = ctt::knob(knobs, b, ctt::KNOB_BYZ_UPLINK);
   int lies = 0, support = 0;
   int32_t lmax = I32_MIN, lmin = I32_MAX;
   const uint32_t sd = seed[b];
@@ -229,7 +239,10 @@ switch_combine_fold(const int32_t* __restrict__ part,
 // [B, up_rows, N] bool (KAL's uplinks; row up_row is the phase's). Outputs
 // [B, K, S] int32: out (tot, or the least live id) and out_val (val; null
 // in the decide phase). scratch is int32 words, as ops/switch_tally.py
-// combine_scratch_ints counts them. lie_cut is 0 without §9b lies.
+// combine_scratch_ints counts them. lie_cut is 0 without §9b lies. knobs
+// is a knob batch's [B, 12] table (knobs.cuh; null but in a knob batch):
+// lie_cut is then the base's, 0 where the base lies not, and each lane
+// reads its own from its row.
 extern "C" int ctt_switch_combine(const uint32_t* seed, uint32_t r,
                                   const int32_t* n_real, const bool* flag,
                                   const int32_t* vals, const bool* up,
@@ -237,7 +250,7 @@ extern "C" int ctt_switch_combine(const uint32_t* seed, uint32_t r,
                                   int32_t* scratch, int up_rows, int up_row,
                                   int B, int N, int S, int K, int decide,
                                   int nb, int equiv, uint32_t lie_cut,
-                                  cudaStream_t st) {
+                                  const long long* knobs, cudaStream_t st) {
   if (K < 1 || K > N || S < 1 || nb < 0 || nb > N || up_rows < 1 ||
       up_row < 0 || up_row >= up_rows || (decide == 0) != (vals != nullptr) ||
       (decide == 0) != (out_val != nullptr))
@@ -253,16 +266,18 @@ extern "C" int ctt_switch_combine(const uint32_t* seed, uint32_t r,
                   static_cast<unsigned>(g.groups));
   const unsigned fold = static_cast<unsigned>((cells + THREADS - 1) / THREADS);
   if (decide != 0) {
-    switch_combine_rows<true><<<grid, THREADS, 0, st>>>(
+    switch_combine_rows<true, false><<<grid, THREADS, 0, st>>>(
         seed, r, n_real, flag, vals, up, up_rows, up_row, scratch, nullptr, g,
-        nb, false, 0u);
+        nb, false, 0u, nullptr);
     switch_combine_fold<true><<<fold, THREADS, 0, st>>>(
         scratch, nullptr, out, nullptr, g, cells);
   } else {
     int32_t* node_part = scratch + blocks * S * SLOT_WORDS;
-    switch_combine_rows<false><<<grid, THREADS, 0, st>>>(
-        seed, r, n_real, flag, vals, up, up_rows, up_row, scratch, node_part,
-        g, nb, equiv != 0, lie_cut);
+    const auto rows = knobs != nullptr ? switch_combine_rows<false, true>
+                                       : switch_combine_rows<false, false>;
+    rows<<<grid, THREADS, 0, st>>>(seed, r, n_real, flag, vals, up, up_rows,
+                                   up_row, scratch, node_part, g, nb,
+                                   equiv != 0, lie_cut, knobs);
     switch_combine_fold<false><<<fold, THREADS, 0, st>>>(
         scratch, node_part, out, out_val, g, cells);
   }

@@ -48,6 +48,10 @@
 // thread a cell, the tables read from global memory a cell and
 // aggregator) took 303, 320, 231 us at pbft-100k-bcast on an H100 80GB
 // HBM3 at 700 W, this one 118, 130, 96 (PERF.md).
+// Its KNOBS instance (a knob batch: the table pointer is not null,
+// knobs.cuh) reads each lane's drop and partition cutoffs from the lane's
+// row of the table in place of the arguments (launch 1, the downlink mask;
+// launch 2 reads no cutoff).
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -55,18 +59,21 @@
 #include "agg.cuh"
 #include "byz.cuh"
 #include "crash.cuh"
+#include "knobs.cuh"
 
 namespace {
 
 constexpr int THREADS = 256;
 
+template <bool KNOBS>
 __global__ void __launch_bounds__(THREADS)
 switch_downlink_mask(const uint32_t* __restrict__ seed, uint32_t r,
                      const int32_t* __restrict__ n_real,
                      const int32_t* __restrict__ tab,
                      uint32_t* __restrict__ mask,
                      int N, int K, int W, int ph, uint32_t drop_cut,
-                     uint32_t part_cut, uint32_t max_delay, long long words) {
+                     uint32_t part_cut, uint32_t max_delay, long long words,
+                     const long long* __restrict__ knobs) {
   const long long x =
       static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
   if (x >= words) return;
@@ -74,6 +81,10 @@ switch_downlink_mask(const uint32_t* __restrict__ seed, uint32_t r,
   const long long bj = x / W;
   const int j = static_cast<int>(bj % N);
   const long long b = bj / N;
+  if (KNOBS) {
+    drop_cut = ctt::knob(knobs, b, ctt::KNOB_DROP);
+    part_cut = ctt::knob(knobs, b, ctt::KNOB_PARTITION);
+  }
   const uint32_t sd = seed[b];
   const uint32_t base = static_cast<uint32_t>(n_real[b]);
   const bool part = ctt::part_on(sd, r, part_cut);
@@ -318,7 +329,10 @@ switch_receive_kernel(const uint32_t* __restrict__ seed, uint32_t r, Recv p) {
 // given (P5), dval_out; the decide phase (2) reads base (committed after
 // P5), dval_in, committed_start, timer and reset and writes out, dval_out
 // and timer_out. flags (the §6c word) is null but where a down receiver
-// takes nothing. mask is [B, N, ceil(K / 32)] uint32 scratch.
+// takes nothing. mask is [B, N, ceil(K / 32)] uint32 scratch. knobs is a
+// knob batch's [B, 12] table (knobs.cuh; null but in a knob batch): the
+// drop and partition cutoffs are then the base's and each lane reads its
+// own from its row.
 extern "C" int ctt_switch_receive(
     const uint32_t* seed, uint32_t r, const int32_t* n_real, const int32_t* f,
     const int32_t* tab, const int32_t* tot, const int32_t* val,
@@ -328,7 +342,7 @@ extern "C" int ctt_switch_receive(
     const bool* reset, int32_t* timer_out, const unsigned char* flags,
     uint32_t* mask, int B, int N, int S, int K, int phase, int nb, int equiv,
     int poison, uint32_t drop_cut, uint32_t part_cut, uint32_t max_delay,
-    cudaStream_t st) {
+    const long long* knobs, cudaStream_t st) {
   const bool decide = phase == 2;
   if (K < 1 || K > N || S < 1 || phase < 0 || phase > 2 || nb < 0 ||
       nb > N || (!decide && (val == nullptr || flag == nullptr ||
@@ -351,9 +365,11 @@ extern "C" int ctt_switch_receive(
     return static_cast<int>(cudaErrorInvalidValue);
   const unsigned mask_grid =
       static_cast<unsigned>((mask_words + THREADS - 1) / THREADS);
-  switch_downlink_mask<<<mask_grid, THREADS, 0, st>>>(
-      seed, r, n_real, tab, mask, N, K, W, phase, drop_cut, part_cut,
-      max_delay, mask_words);
+  const auto downlinks = knobs != nullptr ? switch_downlink_mask<true>
+                                           : switch_downlink_mask<false>;
+  downlinks<<<mask_grid, THREADS, 0, st>>>(seed, r, n_real, tab, mask, N, K,
+                                           W, phase, drop_cut, part_cut,
+                                           max_delay, mask_words, knobs);
   Recv p;
   p.n_real = n_real;
   p.f = f;

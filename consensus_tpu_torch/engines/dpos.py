@@ -47,7 +47,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..core import rng
+from ..core import knobs, rng
 from ..core.config import Config
 from ..ops.adversary import (CRASH_DOWN, CRASH_TELEMETRY, bitcast_i32,
                              crash_step, open_drop_plain, slot_missed,
@@ -253,7 +253,9 @@ def dpos_round(cfg: Config, seed, r: int, producers, chain_r, chain_p,
     lane's producer, draws the edge, and appends in place; with ``count``
     a ballot a warp and an atomic a block and lane count the appends; its
     CRASH instance with ``flags``, its GATES instance with a §A.1 or §A.4
-    cutoff)."""
+    cutoff; its KNOBS instances with a knob batch's view, whose lanes read
+    their drop, partition, churn, miss and suppress cutoffs from the view's
+    table, ``core/knobs.py``)."""
     if chain_len.device.type == "cpu":
         return dpos_round_plain(cfg, seed, r, producers, chain_r, chain_p,
                                 chain_len, count, flags)
@@ -270,23 +272,30 @@ def dpos_round(cfg: Config, seed, r: int, producers, chain_r, chain_p,
               *(() if flags is None else ((flags, torch.uint8, (B, V)),)))
     n_app = torch.empty(B, dtype=torch.int32, device=chain_len.device) \
         if count else None
+    base = knobs.static(cfg)
+    table = knobs.table_ptr(cfg, chain_len.device, B)
     _build.launch("dpos_round", seed.data_ptr(), int(r) & 0xFFFFFFFF,
                   producers.data_ptr(), chain_r.data_ptr(),
                   chain_p.data_ptr(), chain_len.data_ptr(),
                   None if n_app is None else n_app.data_ptr(),
                   chain_r.element_size(), chain_p.element_size(),
                   producer_index(cfg, r), n_epochs(cfg) * cfg.n_producers,
-                  cfg.drop_cutoff, cfg.partition_cutoff, cfg.churn_cutoff,
+                  base.drop_cutoff, base.partition_cutoff, base.churn_cutoff,
                   cfg.max_delay_rounds,
                   None if flags is None else flags.data_ptr(), B, V, L,
-                  cfg.miss_cutoff, cfg.suppress_cutoff, cfg.suppress_window)
+                  base.miss_cutoff, base.suppress_cutoff, cfg.suppress_window,
+                  table)
     dpos_round.launches += 1
+    dpos_round.knob_launches += table is not None
     if count:
         return chain_r, chain_p, chain_len, n_app
     return chain_r, chain_p, chain_len
 
 
 dpos_round.launches = 0
+# Launches of its KNOBS instances (a knob batch), also counted in
+# ``launches``.
+dpos_round.knob_launches = 0
 
 
 # --- KAB: the telemetry tail --------------------------------------------------
@@ -311,8 +320,8 @@ def dpos_telemetry_plain(cfg: Config, r: int, seed, producers, chain_len,
     rotated = (round_producer(cfg, producers, r)
                != round_producer(cfg, producers, max(int(r) - 1, 0))) \
         & (int(r) > 0)
-    churn = rng.random_u32_plain(seed, rng.STREAM_CHURN, r, 0, 0)[:, 0] \
-        < cfg.churn_cutoff
+    churn = (rng.random_u32_plain(seed, rng.STREAM_CHURN, r, 0, 0)
+             < cfg.churn_cutoff)[:, 0]
     vec = torch.zeros_like(t)
     vec[:, :4] = torch.stack([n_app, V - n_app, rotated.to(torch.int32),
                               churn.to(torch.int32)], 1)
@@ -347,18 +356,23 @@ def dpos_telemetry(cfg: Config, r: int, seed, producers, chain_len, n_app,
               (t, torch.int32, (B, len(DPOS_TELEMETRY))))
     window, n_windows = window_of(cfg, r, t, w, lat, len(DPOS_LATENCY))
     span = torch.empty((B, 4), dtype=torch.int32, device=dev)
+    base, table = knobs.static(cfg), knobs.table_ptr(cfg, dev, B)
     _build.launch("dpos_telemetry", seed.data_ptr(), int(r) & 0xFFFFFFFF,
                   *(x.data_ptr() for x in (producers, chain_len, n_app, t)),
                   *(None if x is None else x.data_ptr() for x in (w, lat)),
                   span.data_ptr(), producer_index(cfg, r),
                   producer_index(cfg, max(int(r) - 1, 0)),
-                  n_epochs(cfg) * cfg.n_producers, cfg.churn_cutoff, B, V,
-                  t.shape[1], window, n_windows, cfg.miss_cutoff,
-                  cfg.suppress_cutoff, cfg.suppress_window)
+                  n_epochs(cfg) * cfg.n_producers, base.churn_cutoff, B, V,
+                  t.shape[1], window, n_windows, base.miss_cutoff,
+                  base.suppress_cutoff, cfg.suppress_window, table)
     dpos_telemetry.launches += 1
+    dpos_telemetry.knob_launches += table is not None
 
 
 dpos_telemetry.launches = 0
+# Launches of its KNOBS instances (a knob batch), also counted in
+# ``launches``.
+dpos_telemetry.knob_launches = 0
 
 
 # --- the engine --------------------------------------------------------------

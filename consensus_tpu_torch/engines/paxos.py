@@ -51,10 +51,11 @@ from typing import NamedTuple
 
 import torch
 
-from ..core import rng
+from ..core import knobs, rng
 from ..core.config import Config
 from ..ops.adversary import (AGG_TELEMETRY, CRASH_REC, CRASH_TELEMETRY,
-                             bitcast_i32, crash_step, delivery)
+                             bitcast_i32, crash_step, delivery,
+                             delivery_args)
 from ..ops.aggregate import agg_step, switch_args, switch_resp_plain
 from ..ops.flight import (add_plain, bucket_counts_plain, check_recorder,
                           window_of)
@@ -236,6 +237,7 @@ def paxos_promise(cfg: Config, seed, r: int, deliver, promised, acc_bal,
     n_pair = torch.empty_like(n_prom) if want_pairs else None
     props = torch.empty((B, 4, N), dtype=torch.int32, device=dev)
     keys = torch.empty((B, N), dtype=torch.int64, device=dev)
+    base, table = knobs.static(cfg), knobs.table_ptr(cfg, dev, B)
     _build.launch("paxos_promise", seed.data_ptr(), int(r) & 0xFFFFFFFF,
                   *(t.data_ptr() for t in (
                       deliver, promised, acc_bal, new_promised, n_prom,
@@ -243,10 +245,11 @@ def paxos_promise(cfg: Config, seed, r: int, deliver, promised, acc_bal,
                   None if n_pair is None else n_pair.data_ptr(),
                   props.data_ptr(), keys.data_ptr(),
                   None if flags is None else flags.data_ptr(),
-                  cfg.n_proposers or N, cfg.churn_cutoff, B, N, S,
-                  *switch_args(cfg, agg))
+                  cfg.n_proposers or N, base.churn_cutoff, B, N, S,
+                  *switch_args(base, agg), table)
     paxos_promise.launches += 1
     paxos_promise.switch_launches += agg is not None
+    paxos_promise.knob_launches += table is not None
     out = (new_promised, n_prom, best_bal, best_a, prep_del)
     return (*out, n_pair) if want_pairs else out
 
@@ -254,6 +257,9 @@ def paxos_promise(cfg: Config, seed, r: int, deliver, promised, acc_bal,
 paxos_promise.launches = 0
 # Launches of its SWITCH instances (SPEC §9), also counted in ``launches``.
 paxos_promise.switch_launches = 0
+# Launches of its KNOBS instance (a knob batch), also counted in
+# ``launches``.
+paxos_promise.knob_launches = 0
 
 
 def _agg_checks(cfg: Config, agg, B: int) -> tuple:
@@ -368,16 +374,18 @@ def paxos_accept_learn(cfg: Config, seed, r: int, deliver, prep_del,
     props = torch.empty((B, 4, N), dtype=torch.int32, device=dev)
     n_acc = torch.empty((B, N), dtype=torch.int32, device=dev)
     bits = torch.empty((B, N, -(-N // 32)), dtype=torch.int32, device=dev)
+    base, table = knobs.static(cfg), knobs.table_ptr(cfg, dev, B)
     _build.launch("paxos_accept_learn", seed.data_ptr(), int(r) & 0xFFFFFFFF,
                   *(t.data_ptr() for t in (
                       deliver, prep_del, new_promised, n_prom, best_bal,
                       best_a, acc_bal, acc_val, learned_val, learned_mask,
                       promised2, acc_bal2, acc_val2, learned_val2,
                       learned_mask2, props, n_acc, bits)),
-                  cfg.n_proposers or N, cfg.churn_cutoff, B, N, S,
-                  *switch_args(cfg, agg))
+                  cfg.n_proposers or N, base.churn_cutoff, B, N, S,
+                  *switch_args(base, agg), table)
     paxos_accept_learn.launches += 1
     paxos_accept_learn.switch_launches += agg is not None
+    paxos_accept_learn.knob_launches += table is not None
     out = (promised2, acc_bal2, acc_val2, learned_val2, learned_mask2)
     return (*out, n_acc, props[:, PROP_FLAG]) if want_counts else out
 
@@ -385,6 +393,9 @@ def paxos_accept_learn(cfg: Config, seed, r: int, deliver, prep_del,
 paxos_accept_learn.launches = 0
 # Launches of its SWITCH instance (SPEC §9), also counted in ``launches``.
 paxos_accept_learn.switch_launches = 0
+# Launches of its KNOBS instance (a knob batch), also counted in
+# ``launches``.
+paxos_accept_learn.knob_launches = 0
 
 
 # --- KAC: the telemetry tail --------------------------------------------------
@@ -492,9 +503,7 @@ def paxos_round(cfg: Config, st: PaxosState, r: int, *, telem=None,
         agg = agg_step(cfg, seed, r, flags, PAXOS_TELEMETRY, telem, flight)
 
     # ---- The round's delivery mask (KL).
-    deliver = delivery(seed, r, N, cfg.drop_cutoff, cfg.partition_cutoff,
-                       cfg.max_delay_rounds,
-                       *(() if flags is None else (flags,)))
+    deliver = delivery(seed, r, N, *delivery_args(cfg, flags))
 
     # ---- Phases 1-2: prepares and promises (KY), after the §6c reset.
     if flags is not None or agg is not None:

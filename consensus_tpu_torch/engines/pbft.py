@@ -69,12 +69,13 @@ from typing import NamedTuple
 
 import torch
 
-from ..core import rng
+from ..core import knobs, rng
 from ..core.config import BYZ_EQUIV, BYZ_SILENT, Config
 from ..ops.adversary import (AGG_TELEMETRY, CRASH_REC, CRASH_TELEMETRY,
                              SAFETY_TELEMETRY, Byz, bitcast_i32, byz_of,
-                             churn, crash_step, delivery, equiv_stance_plain,
-                             freeze_down, safety_counts_plain)
+                             churn, crash_step, delivery, delivery_args,
+                             equiv_stance_plain, freeze_down,
+                             safety_counts_plain)
 from ..ops.aggregate import agg_step
 from ..ops.flight import (add_plain, bucket_counts_plain, check_recorder,
                           window_of)
@@ -328,7 +329,9 @@ def pbft_view_preprepare(cfg: Config, seed, r: int, deliver, n_real, f, view,
     receiver runs P3 over its slots, reading its primary's row as it stood
     before P3; P1's flags only with ``want_catch``; its CRASH instance
     with ``flags``, its DESYNC instance with ``cfg.desync_on``, its BYZ
-    instances with byzantine nodes)."""
+    instances with byzantine nodes; its KNOBS instances with a knob batch's
+    view, whose lanes read their churn and desync cutoffs from the view's
+    table, ``core/knobs.py``)."""
     if view.device.type == "cpu":
         return pbft_view_preprepare_plain(cfg, seed, r, deliver, n_real, f,
                                           view, timer, pp_seen, pp_view,
@@ -350,22 +353,27 @@ def pbft_view_preprepare(cfg: Config, seed, r: int, deliver, n_real, f, view,
     pval_out = torch.empty_like(pp_val)
     catch = torch.empty_like(reset) if want_catch else None
     order = torch.empty((B, N), dtype=torch.int32, device=dev)
+    base, table = knobs.static(cfg), knobs.table_ptr(cfg, dev, B)
     _build.launch("pbft_view_preprepare", seed.data_ptr(),
-                  int(r) & 0xFFFFFFFF, cfg.churn_cutoff, cfg.view_timeout,
-                  view_bound(cfg), cfg.desync_cutoff, cfg.max_skew_rounds,
+                  int(r) & 0xFFFFFFFF, base.churn_cutoff, cfg.view_timeout,
+                  view_bound(cfg), base.desync_cutoff, cfg.max_skew_rounds,
                   *(t.data_ptr() for t in (
                       deliver, n_real, f, view, timer, pp_seen, pp_view,
                       pp_val, prepared, committed, view_out, timer_out, reset,
                       seen_out, pview_out, pval_out)),
                   None if catch is None else catch.data_ptr(),
                   order.data_ptr(), None if flags is None else
-                  flags.data_ptr(), B, N, S, cfg.byz, cfg.n_byzantine)
+                  flags.data_ptr(), B, N, S, cfg.byz, cfg.n_byzantine, table)
     pbft_view_preprepare.launches += 1
+    pbft_view_preprepare.knob_launches += table is not None
     out = (view_out, timer_out, reset, seen_out, pview_out, pval_out)
     return (*out, catch) if want_catch else out
 
 
 pbft_view_preprepare.launches = 0
+# Launches of its KNOBS instances (a knob batch), also counted in
+# ``launches``.
+pbft_view_preprepare.knob_launches = 0
 
 
 # --- KR: P4 prepare tally, P5 commit tally -----------------------------------
@@ -695,9 +703,7 @@ def pbft_round(cfg: Config, st: PbftState, r: int, n_real, f, *, telem=None,
                                  telem, flight)
 
     # ---- The round's delivery mask (KL).
-    deliver = delivery(seed, r, N, cfg.drop_cutoff, cfg.partition_cutoff,
-                       cfg.max_delay_rounds,
-                       *(() if flags is None else (flags,)))
+    deliver = delivery(seed, r, N, *delivery_args(cfg, flags))
 
     # ---- P0 churn, P1 catch-up, P2 timeout, P3 pre-prepare (KQ), with
     # P1's flags when the telemetry counts them.

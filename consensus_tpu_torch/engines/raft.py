@@ -54,11 +54,11 @@ from typing import NamedTuple
 
 import torch
 
-from ..core import rng
+from ..core import knobs, rng
 from ..core.config import ATTACK_ELECT, ATTACK_STICKY, BYZ_SILENT, Config
 from ..ops.adversary import (AGG_TELEMETRY, CRASH_DOWN, CRASH_REC,
                              CRASH_TELEMETRY, attack_fires, bitcast_i32,
-                             churn, crash_step, delivery)
+                             churn, crash_step, delivery, delivery_args)
 from ..ops.aggregate import (agg_step, sticky_target, switch_args,
                              switch_resp_plain)
 from ..ops.flight import (add_plain, bucket_counts_plain, check_recorder,
@@ -128,13 +128,23 @@ def attack_word(cfg: Config, seed, r: int, role_in):
     (``role_in``, the round's input roles, before the §6c reset;
     ``consensus_tpu/engines/raft.py:236-250``, ``raft_sparse.py:182-189``).
     Under "elect" the round then keeps it only where a live candidacy
-    stood in P1 (the jam)."""
+    stood in P1 (the jam). In a knob batch each lane reads its own cutoff
+    and target (``core/knobs.py`` :func:`~consensus_tpu_torch.core.knobs.
+    target_role`)."""
     if not cfg.attack_mode:
         return None
     fires = attack_fires(seed, r, cfg.attack_cutoff, rng.random_u32_plain)
     if cfg.attack_mode == ATTACK_STICKY:
-        fires = fires & (role_in[:, cfg.attack_target] == ROLE_L)
+        fires = fires & (knobs.target_role(
+            role_in, knobs.signed_target(cfg.attack_target)) == ROLE_L)
     return fires.to(torch.int32)
+
+
+def target_ids(cfg, idx) -> torch.Tensor:
+    """[N] or, in a knob batch, [B, N] bool: where the node ids ``idx``
+    ([N]) are the SPEC §A.3 sticky target (a lane's out-of-range target
+    matches none, as in the JAX package)."""
+    return idx == knobs.at(knobs.signed_target(cfg.attack_target), 2)
 
 
 def commit_median_plain(match, majority: int, E: int) -> torch.Tensor:
@@ -280,8 +290,7 @@ def dense_elect_plain(cfg: Config, seed, r: int, deliver, term, role,
     stepdown = churn(seed, r, cfg.churn_cutoff, u32)[:, None] \
         & (role == ROLE_L)
     if cfg.attack_mode == ATTACK_STICKY:
-        stepdown = stepdown & ~((atk != 0)[:, None]
-                                & (idx == cfg.attack_target))
+        stepdown = stepdown & ~((atk != 0)[:, None] & target_ids(cfg, idx))
     role = torch.where(stepdown, ROLE_F, role)
     timer = torch.where(stepdown, 0, timer)
     reset = stepdown
@@ -334,7 +343,7 @@ def dense_elect_plain(cfg: Config, seed, r: int, deliver, term, role,
             back = back & ~down[:, None, :]
         if cfg.attack_mode == ATTACK_STICKY:
             back = back & ~((atk != 0)[:, None, None]
-                            & (idx == cfg.attack_target))
+                            & target_ids(cfg, idx).unsqueeze(-2))
     resp = (grant[:, :, None] == idx) & back
     if cfg.byz == BYZ_SILENT:
         resp = resp & honest[:, None]
@@ -373,7 +382,9 @@ def dense_elect(cfg: Config, seed, r: int, deliver, term, role, voted_for,
     winner flags only with ``want_win``; its CRASH instance with
     ``flags``; its BYZ instances with byzantine nodes; its ATTACK
     instances under an attack; its SWITCH instances with ``agg``, whose
-    receivers draw each grant's downlink inline)."""
+    receivers draw each grant's downlink inline; its KNOBS instances with
+    a knob batch's view, whose lanes read their churn and attack cutoffs
+    and target from the view's table, ``core/knobs.py``)."""
     if term.device.type == "cpu":
         return dense_elect_plain(cfg, seed, r, deliver, term, role,
                                  voted_for, timer, timeout, log_term, log_len,
@@ -400,19 +411,21 @@ def dense_elect(cfg: Config, seed, r: int, deliver, term, role, voted_for,
     scratch = torch.empty(B * (1 + 6 * N), dtype=torch.int32, device=dev)
     atk = torch.empty(B, dtype=torch.int32, device=dev) \
         if cfg.attack_mode else None
+    base, table = knobs.static(cfg), knobs.table_ptr(cfg, dev, B)
     _build.launch("dense_elect", seed.data_ptr(), int(r) & 0xFFFFFFFF,
-                  cfg.churn_cutoff, cfg.t_min, timeout_span(cfg),
+                  base.churn_cutoff, cfg.t_min, timeout_span(cfg),
                   *(t.data_ptr() for t in (
                       deliver, term, role, voted_for, timer, timeout,
                       log_term, log_len, match_idx, next_idx, *out, reset)),
                   None if win is None else win.data_ptr(), scratch.data_ptr(),
                   None if flags is None else flags.data_ptr(), B, N, L,
                   cfg.byz, cfg.n_byzantine, cfg.attack_mode,
-                  cfg.attack_cutoff, cfg.attack_target,
+                  base.attack_cutoff, base.attack_target,
                   None if atk is None else atk.data_ptr(),
-                  *switch_args(cfg, agg), sticky_target(cfg, agg))
+                  *switch_args(base, agg), sticky_target(base, agg), table)
     dense_elect.launches += 1
     dense_elect.switch_launches += agg is not None
+    dense_elect.knob_launches += table is not None
     out = (*out, reset) + (() if win is None else (win,))
     return out if atk is None else (*out, atk)
 
@@ -420,6 +433,9 @@ def dense_elect(cfg: Config, seed, r: int, deliver, term, role, voted_for,
 dense_elect.launches = 0
 # Launches of its SWITCH instances (SPEC §9), also counted in ``launches``.
 dense_elect.switch_launches = 0
+# Launches of its KNOBS instances (a knob batch), also counted in
+# ``launches``.
+dense_elect.knob_launches = 0
 
 
 # --- KN: P3a propose, P3b snapshot, P3c receivers ----------------------------
@@ -792,11 +808,12 @@ def raft_round(cfg: Config, st: RaftState, r: int, *, telem=None,
 
     # ---- The round's delivery mask (KL); under the sticky attack without
     # the target's inbound column where its activation fires.
-    sticky = ((crash or (None,)) + ((st.role, cfg.attack_target,
-                                     cfg.attack_cutoff),)
-              if cfg.attack_mode == ATTACK_STICKY else crash)
-    deliver = delivery(seed, r, N, cfg.drop_cutoff, cfg.partition_cutoff,
-                       cfg.max_delay_rounds, *sticky)
+    sticky = None
+    if cfg.attack_mode == ATTACK_STICKY:
+        base = knobs.static(cfg)
+        sticky = (st.role, base.attack_target, base.attack_cutoff)
+    deliver = delivery(seed, r, N, *delivery_args(
+        cfg, crash[0] if crash else None, sticky))
 
     # ---- P0 churn, P1 candidacy, P2 election (KM), with the winners when
     # the telemetry counts them and the attack word under an attack.

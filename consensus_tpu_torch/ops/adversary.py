@@ -27,7 +27,9 @@ from typing import NamedTuple
 import torch
 
 from ..core import knobs, rng
-from ..core.knobs import N_KNOBS
+from ..core.knobs import N_KNOBS, signed_target, target_role
+from ..core.knobs import at as knobs_at
+from ..core.knobs import column as knob_column
 
 
 def draw(seed, stream: int, ctx, c0, c1) -> torch.Tensor:
@@ -125,8 +127,8 @@ def slot_missed(seed, r: int, p, miss_cut: int,
     int ids) misses its slot, one draw a (round, producer). ``u32`` as in
     :func:`churn`; the kernels draw it as ``ctt::slot_missed``
     (``csrc/rng.cuh``)."""
-    return u32(seed, rng.STREAM_SLOTMISS, r, 0,
-               p.to(torch.int64)[:, None])[:, 0] < cutoff(miss_cut)
+    return (u32(seed, rng.STREAM_SLOTMISS, r, 0, p.to(torch.int64)[:, None])
+            < cutoff(miss_cut))[:, 0]
 
 
 def suppressed(seed, r: int, window: int, p, suppress_cut: int,
@@ -135,8 +137,8 @@ def suppressed(seed, r: int, window: int, p, suppress_cut: int,
     [B] bool, True where producer ``p`` ([B] int ids) is suppressed in the
     window of round r, one draw a (r // ``window``, producer). ``u32`` as in
     :func:`churn`; the kernels draw it as ``ctt::suppressed``."""
-    return u32(seed, rng.STREAM_SUPPRESS, int(r) // int(window), 0,
-               p.to(torch.int64)[:, None])[:, 0] < cutoff(suppress_cut)
+    return (u32(seed, rng.STREAM_SUPPRESS, int(r) // int(window), 0,
+                p.to(torch.int64)[:, None]) < cutoff(suppress_cut))[:, 0]
 
 
 def attack_fires(seed, r: int, attack_cut: int,
@@ -144,7 +146,7 @@ def attack_fires(seed, r: int, attack_cut: int,
     """K13 ``attack_fires`` (``consensus_tpu/ops/adversary.py:216-219``),
     SPEC §A.3: [B] bool, the round's targeted-attack activation. ``u32`` as
     in :func:`churn`; the kernels draw it as ``ctt::attack_fires``."""
-    return u32(seed, rng.STREAM_ATTACK, r, 0, 0)[:, 0] < cutoff(attack_cut)
+    return (u32(seed, rng.STREAM_ATTACK, r, 0, 0) < cutoff(attack_cut))[:, 0]
 
 
 def delayed_open_plain(useed, r: int, i, j, drop_cut: int,
@@ -157,13 +159,16 @@ def delayed_open_plain(useed, r: int, i, j, drop_cut: int,
     cutoff. Rounds d > r do not exist (the JAX package's ``r >= d``
     guard). ``useed``, ``i`` and ``j`` are int64 tensors of u32 values
     that broadcast; every draw is made, as in the JAX package (the CUDA
-    twin, ``ctt::delayed_open`` in ``csrc/rng.cuh``, stops early)."""
+    twin, ``ctt::delayed_open`` in ``csrc/rng.cuh``, stops early). In a
+    knob batch ``drop_cut`` is each lane's [B, 1] column, compared at the
+    draws' rank (``useed`` leads with the lane axis)."""
     shape = torch.broadcast_shapes(useed.shape, i.shape, j.shape)
     out = torch.zeros(shape, dtype=torch.bool, device=useed.device)
+    cut = knobs.at(drop_cut, len(shape))
     for d in range(1, min(max_delay, r) + 1):
         q = r - d
-        out |= (rng.delivery_u32_plain(useed, q, i, j) < drop_cut) \
-            & (rng.delay_u32_plain(useed, q, d, i, j) >= drop_cut)
+        out |= (rng.delivery_u32_plain(useed, q, i, j) < cut) \
+            & (rng.delay_u32_plain(useed, q, d, i, j) >= cut)
     return out
 
 
@@ -173,7 +178,8 @@ def open_drop_plain(useed, r: int, i, j, drop_cut: int,
     i -> j in round r is not below ``drop_cut``, or a dropped flight of the
     last ``max_delay`` rounds arrives now (:func:`delayed_open_plain`).
     Arguments as there."""
-    ok = rng.delivery_u32_plain(useed, r, i, j) >= drop_cut
+    ok = rng.delivery_u32_plain(useed, r, i, j) >= knobs.at(
+        drop_cut, max(useed.dim(), i.dim(), j.dim()))
     if max_delay > 0:
         ok = ok | delayed_open_plain(useed, r, i, j, drop_cut, max_delay)
     return ok
@@ -310,8 +316,8 @@ RAFT_LEADER = 2
 
 
 def delivery_plain(seed, r: int, n: int, drop_cut: int, part_cut: int,
-                   max_delay: int = 0, flags=None,
-                   sticky=None) -> torch.Tensor:
+                   max_delay: int = 0, flags=None, sticky=None,
+                   knobs=None) -> torch.Tensor:
     """Plain version of KL: the SPEC §2 delivery mask of round ``r`` over
     all ``n`` nodes of each sweep of ``seed`` ([B] uint32): [B, n, n] bool,
     [b, i, j] True iff a message i -> j is delivered. The edge draw with
@@ -324,7 +330,17 @@ def delivery_plain(seed, r: int, n: int, drop_cut: int, part_cut: int,
     (role, target, attack_cut), the round's input roles ([B, n] int32) of
     dense Raft, column ``target`` is cut in a lane whose round activation
     (:func:`attack_fires`) fires while the target leads
-    (``consensus_tpu/engines/raft.py:241-253``)."""
+    (``consensus_tpu/engines/raft.py:241-253``). With ``knobs``, a knob
+    batch's [B, 12] int64 table (``core/knobs.py``), each lane reads its
+    drop, partition, attack cutoffs and target from its row in place of
+    the arguments, as the kernel's KNOBS instances do (the target as
+    :func:`~consensus_tpu_torch.core.knobs.target_role` reads it)."""
+    if knobs is not None:
+        drop_cut = knob_column(knobs, "drop_cutoff")
+        part_cut = knob_column(knobs, "partition_cutoff")
+        if sticky is not None:
+            sticky = (sticky[0], signed_target(knob_column(
+                knobs, "attack_target")), knob_column(knobs, "attack_cutoff"))
     ids = torch.arange(n, dtype=torch.int64, device=seed.device)
     useed = rng.as_u32(seed)[:, None, None]
     open_drop = open_drop_plain(useed, r, ids[:, None], ids[None, :],
@@ -342,21 +358,41 @@ def delivery_plain(seed, r: int, n: int, drop_cut: int, part_cut: int,
     if sticky is not None:
         role, tgt, attack_cut = sticky
         act = attack_fires(seed, r, attack_cut, rng.random_u32_plain) \
-            & (role[:, tgt] == RAFT_LEADER)
-        out[:, :, tgt] &= ~act[:, None]
+            & (target_role(role, tgt) == RAFT_LEADER)
+        col = (ids == knobs_at(tgt, 2)).reshape(-1, 1, n)    # [B | 1, 1, n]
+        out = out & ~(act[:, None, None] & col)
     return out
 
 
+def delivery_args(cfg, flags=None, sticky=None) -> tuple:
+    """The arguments of the round's KL launch after (seed, r, n), as an
+    engine passes them: the static cutoffs of ``cfg`` (its base's in a knob
+    batch, ``core/knobs.py``), its delay depth, then the round's §6c
+    ``flags``, §A.3 ``sticky`` triple and a view's knob table where given,
+    by position and without trailing unset ones, as the flat path always
+    called it."""
+    base = knobs.static(cfg)
+    extra = [flags, sticky, knobs.table_of(cfg)]
+    while extra and extra[-1] is None:
+        extra.pop()
+    return (base.drop_cutoff, base.partition_cutoff, cfg.max_delay_rounds,
+            *extra)
+
+
 def delivery(seed, r: int, n: int, drop_cut: int, part_cut: int,
-             max_delay: int = 0, flags=None, sticky=None) -> torch.Tensor:
+             max_delay: int = 0, flags=None, sticky=None,
+             knobs=None) -> torch.Tensor:
     """Kernel KL: same arguments and result as :func:`delivery_plain`,
     which it runs for CPU tensors; for CUDA tensors it launches
     ``csrc/delivery.cu`` (with a partition, a thread per node first draws
     its side; then a thread per four edges of a row; its CRASH instance
-    with ``flags``, its STICKY instance with ``sticky``)."""
+    with ``flags``, its STICKY instance with ``sticky``, its KNOBS
+    instances with ``knobs``, where the cutoff and target arguments are the
+    base's, which pick the launches, and each lane reads its own from the
+    table)."""
     if seed.device.type == "cpu":
         return delivery_plain(seed, r, n, drop_cut, part_cut, max_delay,
-                              flags, sticky)
+                              flags, sticky, knobs)
     from .. import _build
     B = seed.shape[0]
     _build.check(seed, torch.uint32, seed.device, (B,))
@@ -364,6 +400,8 @@ def delivery(seed, r: int, n: int, drop_cut: int, part_cut: int,
         _build.check(flags, torch.uint8, seed.device, (B, n))
     if sticky is not None:
         _build.check(sticky[0], torch.int32, seed.device, (B, n))
+    if knobs is not None:
+        _build.check(knobs, torch.int64, seed.device, (B, N_KNOBS))
     out = torch.empty((B, n, n), dtype=torch.bool, device=seed.device)
     side = torch.empty((B, n), dtype=torch.uint8, device=seed.device)
     _build.launch("delivery", seed.data_ptr(), int(r) & 0xFFFFFFFF,
@@ -371,12 +409,17 @@ def delivery(seed, r: int, n: int, drop_cut: int, part_cut: int,
                   int(part_cut), int(max_delay),
                   None if flags is None else flags.data_ptr(),
                   *((None, 0, 0) if sticky is None else (
-                      sticky[0].data_ptr(), int(sticky[1]), int(sticky[2]))))
+                      sticky[0].data_ptr(), int(sticky[1]), int(sticky[2]))),
+                  None if knobs is None else knobs.data_ptr())
     delivery.launches += 1
+    delivery.knob_launches += knobs is not None
     return out
 
 
 delivery.launches = 0
+# Launches of its KNOBS instances (a knob batch), also counted in
+# ``launches``.
+delivery.knob_launches = 0
 
 
 # --- KAH: the SPEC §6c crash transition ----------------------------------------
@@ -504,8 +547,7 @@ def crash_step(cfg, seed, r: int, down, names, telem=None, flight=None):
     return crash_transition(seed, r, down, cfg.crash_cutoff,
                             cfg.recover_cutoff, cfg.max_crashed, telem, w,
                             names.index("crashes"), window,
-                            *(() if knobs.static(cfg) is cfg
-                              else (cfg.table,)))
+                            knobs.table_of(cfg))
 
 
 # --- KAI: the SPEC §6c freeze of the PBFT engines --------------------------------

@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import torch
 
+from ..core import knobs
 from ..core.config import BYZ_EQUIV, Config
 from . import aggregate
 from .adversary import CRASH_DOWN, equiv_stance_plain
@@ -166,20 +167,27 @@ def switch_combine(cfg: Config, seed, r: int, phase: int,
     out_val = None if decide else torch.empty_like(out)
     scratch = torch.empty(combine_scratch_ints(B, N, S, K, decide),
                           dtype=torch.int32, device=dev)
+    base = knobs.static(cfg)
+    knob_table = None if decide else knobs.table_ptr(cfg, dev, B)
     _build.launch("switch_combine", seed.data_ptr(), int(r) & 0xFFFFFFFF,
                   n_real.data_ptr(), flag.data_ptr(),
                   None if decide else vals.data_ptr(), agg.up.data_ptr(),
                   out.data_ptr(), None if decide else out_val.data_ptr(),
                   scratch.data_ptr(), P, uplink_row(cfg, phase), B, N, S, K,
                   int(decide), cfg.n_byzantine, int(cfg.byz == BYZ_EQUIV),
-                  cfg.byz_uplink_cutoff if cfg.uplink_lies_on else 0)
+                  base.byz_uplink_cutoff if base.uplink_lies_on else 0,
+                  knob_table)
     switch_combine.launches += 1
     switch_combine.switch_launches += 1
+    switch_combine.knob_launches += knob_table is not None
     return (out,) if decide else (out, out_val)
 
 
 switch_combine.launches = 0
 switch_combine.switch_launches = 0
+# Launches of its KNOBS instance (a knob batch; the decide phase, which
+# reads no cutoff, runs the flat one), also counted in ``launches``.
+switch_combine.knob_launches = 0
 
 
 # --- KAN: the receivers ----------------------------------------------------------
@@ -322,6 +330,7 @@ def switch_receive(cfg: Config, seed, r: int, phase: int,
 
     def ptr(t):
         return None if t is None else t.data_ptr()
+    base_cfg, knob_table = knobs.static(cfg), knobs.table_ptr(cfg, dev, B)
     _build.launch("switch_receive", seed.data_ptr(), int(r) & 0xFFFFFFFF,
                   n_real.data_ptr(), f.data_ptr(), agg.tab.data_ptr(),
                   table[0].data_ptr(), ptr(None if decide else table[1]),
@@ -331,10 +340,11 @@ def switch_receive(cfg: Config, seed, r: int, phase: int,
                   ptr(timer), ptr(reset), ptr(timer_out), ptr(flags),
                   mask.data_ptr(), B, N, S, K, phase, cfg.n_byzantine,
                   int(cfg.byz == BYZ_EQUIV), int(cfg.agg_poison_on),
-                  cfg.drop_cutoff, cfg.partition_cutoff,
-                  cfg.max_delay_rounds)
+                  base_cfg.drop_cutoff, base_cfg.partition_cutoff,
+                  cfg.max_delay_rounds, knob_table)
     switch_receive.launches += 1
     switch_receive.switch_launches += 1
+    switch_receive.knob_launches += knob_table is not None
     if decide:
         return out, dval_out, timer_out
     return out if dval is None else (out, dval_out)
@@ -342,6 +352,9 @@ def switch_receive(cfg: Config, seed, r: int, phase: int,
 
 switch_receive.launches = 0
 switch_receive.switch_launches = 0
+# Launches of its KNOBS instance (a knob batch), also counted in
+# ``launches``.
+switch_receive.knob_launches = 0
 
 
 # --- the three phases of a round --------------------------------------------------

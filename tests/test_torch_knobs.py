@@ -177,29 +177,27 @@ def _jax_gates(cfg):
 
 
 UNCOVERED = {
-    "raft": dict(protocol="raft", n_nodes=7, log_capacity=32,
-                 max_entries=24),
     "raft-capped": dict(protocol="raft", n_nodes=16, max_active=4,
                         log_capacity=32, max_entries=24),
-    "pbft": dict(protocol="pbft", f=2, n_nodes=7, log_capacity=32),
-    "paxos": dict(protocol="paxos", n_nodes=9, log_capacity=32),
-    "dpos": dict(protocol="dpos", n_nodes=24, log_capacity=96,
-                 n_candidates=12, n_producers=6),
-    "pbft-bcast-switch": dict(protocol="pbft", f=2, n_nodes=7,
-                              fault_model="bcast", log_capacity=32,
-                              net_model="switch", n_aggregators=2),
+    "raft-switch": dict(protocol="raft", n_nodes=7, log_capacity=32,
+                        max_entries=24, net_model="switch", n_aggregators=2),
+    "paxos-switch": dict(protocol="paxos", n_nodes=9, log_capacity=32,
+                         net_model="switch", n_aggregators=2),
 }
 
 
 @pytest.mark.parametrize("name", sorted(UNCOVERED))
 def test_knob_batch_raises_on_engines_not_covered(name):
     """Every engine this port's knob batch does not run yet raises,
-    naming the engine; none falls back to a run a lane."""
+    naming the engine (and the switch where only that is missing); none
+    falls back to a run a lane."""
     cfg = Config(n_rounds=8, n_sweeps=2, seed=1, telemetry_window=4,
                  **UNCOVERED[name])
     kmat = np.array([knobs.base_row(cfg)] * 2, np.uint32)
+    where = " under the switch" if cfg.switch_on else ""
     with pytest.raises(ValueError,
-                       match=f"the {runner.engine(cfg).name} engine"):
+                       match=f"the {runner.engine(cfg).name} engine{where} "
+                       "is not ported"):
         runner.run_knob_batch(cfg, runner.make_seeds(cfg), kmat,
                               device="cpu")
 
