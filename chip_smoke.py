@@ -424,6 +424,30 @@ Phases, each printing one JSON line:
                anchors, the path's kernels and KNOBS instances launched,
                node-round-steps per second, replay wall, busy share and
                device operations a round.
+25. knobs_capped — the knob batch (K23) on capped Raft, and on dense
+               Raft and Paxos under the §9 switch. Every kernel call of
+               rounds 3 and 20 (paxos-10kx10k: 15) of six batches (8
+               lanes; paxos 2): raft-100k as it stands (every row the
+               base's), with raft-elections' gates (8 rows), under the
+               §A.3 sticky attack with per-lane targets (3, 0, N - 1, and
+               N + 3, 0xFFFFFFFD and 0xFFFFFFFF out of range) and under
+               the switch (K = 8) with partitions and the elect attack;
+               raft-1kx1k under the switch and the sticky attack (128
+               rounds); paxos-10kx10k under the switch with
+               raft-elections' gates; and of that round with every row
+               the base's, against the plain versions, exact (the KNOBS
+               instances of KE ``csrc/candidacy.cu`` and KB
+               ``csrc/delivery_edges.cu`` and of the SWITCH instances of
+               KM, KY and KZ among them; with every row the base's each
+               KNOBS call also equals its flat instance). Each instance's
+               time on the later round, its plain version's and its bound,
+               and on the all-base round its time and its flat instance's
+               time and bound. Then the six batches as one replay each:
+               the first's decided logs on the flagship's digest, the
+               others' lanes on JAX anchors, the path's kernels and KNOBS
+               instances launched (counted from 0), node-round-steps per
+               second, replay wall, busy share and device operations a
+               round.
 
 Every line carries ``elapsed_s``, the seconds since the script's start.
 Then the card's name and power limit, one ``{"kernels": [...]}`` line, and
@@ -446,8 +470,11 @@ pbft-100k-bcast batch) from its phase-23 run, and each of phase 24 (KL's
 and KM's from the raft-1kx1k batch, their STICKY and ATTACK instances'
 from the sticky batch, KQ's from the pbft-f128 batch, KAM's and KAN's
 from its switch batch, KY's and KZ's from the paxos-10kx10k batch, KX's
-and KAB's from the dpos-100k batch) from its phase-24 batch, counting its
-KNOBS launches; the other runs' counts are in their phases' lines. Any
+and KAB's from the dpos-100k batch) from its phase-24 batch, and each of
+phase 25 (KE's four and KB's five from the raft-100k batches, KM's from
+the raft-1kx1k batch, KY's and KZ's from the paxos-10kx10k batch) from
+its phase-25 batch, counting its KNOBS launches; the other runs' counts
+are in their phases' lines. Any
 failure, or no GPU, exits non-zero without that last line.
 """
 from __future__ import annotations
@@ -1315,6 +1342,19 @@ def dense_config(name: str, **kw):
     return Config(**{**dict(protocol="raft", log_capacity=L, max_entries=100,
                             drop_rate=0.01, churn_rate=0.001),
                      **DENSE_CONFIGS[name], **kw})
+
+
+# The gate runs of phases 15, 16, 18, 20 and 21 on raft-1kx1k's shape run
+# 256 of its 1 024 rounds (cut to keep the full run within its wall
+# budget; PERF.md §4), with JAX anchors made at that depth.
+GATE_1KX1K_ROUNDS = 256
+
+
+def gate_1kx1k(**kw):
+    """raft-1kx1k's shape as the gate runs take it: GATE_1KX1K_ROUNDS
+    rounds, changed by ``kw``."""
+    return dense_config("raft-1kx1k", **{"n_rounds": GATE_1KX1K_ROUNDS,
+                                         **kw})
 
 
 def capture_dense_inputs(cfg, rounds, device="cuda") -> dict:
@@ -4209,10 +4249,11 @@ DELAYS = (1, 8, 16)
 # Rounds 0, 3 and 7 lie under D = 8 and 16 (the r >= d guard), 20 above.
 DELAY_ROUNDS = (0, 3, 7, 20)
 # The storm runs: (config maker, its overrides, anchor): each flagship at
-# its own shape with delay-storm's overrides, and raft-100k at its own drop
-# 0.01 with the deepest delay, D = 16. The anchors were made by the JAX
-# package on the CPU and again by the C++ oracle (engine="cpu"), which
-# agrees on each:
+# its own shape with delay-storm's overrides (raft-1kx1k at
+# GATE_1KX1K_ROUNDS rounds, a cut that leaves its digest), and raft-100k at
+# its own drop 0.01 with the deepest delay, D = 16. The anchors were made by
+# the JAX package on the CPU and again by the C++ oracle (engine="cpu"),
+# which agrees on each:
 #
 #   JAX_PLATFORMS=cpu python3 - <<'EOF'
 #   import dataclasses, chip_smoke
@@ -4239,7 +4280,7 @@ STORM_RUNS = {
         flagship_config, dict(max_delay_rounds=16),
         "6937cffb484ee7afdf696a57b84657bea53cbd2c7b0836b398036c09887462c2"),
     "raft-1kx1k": (
-        lambda **kw: dense_config("raft-1kx1k", **kw), STORM,
+        gate_1kx1k, STORM,
         "1819fb537edbe769ebd9c562f592fc09df6b0b8e69a3b57175179e88ecdd127d"),
     "pbft-f128": (lambda **kw: pbft_config(128, **kw), STORM,
                   PBFT_DIGESTS[128]),
@@ -4697,7 +4738,7 @@ CRASH = dict(crash_prob=0.15, recover_prob=0.3)
 # The six flagships of the engines that run §6c, at their own shapes.
 CRASH_FLAGSHIPS = {
     "raft-100k": flagship_config,
-    "raft-1kx1k": lambda **kw: dense_config("raft-1kx1k", **kw),
+    "raft-1kx1k": gate_1kx1k,
     "pbft-f128": lambda **kw: pbft_config(128, **kw),
     "pbft-100k-bcast": bcast_config,
     "paxos-10kx10k": lambda **kw: protocol_config(PAXOS_FLAGSHIP, **kw),
@@ -4719,8 +4760,9 @@ CRASH_SETTINGS = {"capped": CHURN_PARTITION, "uncapped": CRASH,
 #                           warmup=False).digest)
 #   EOF
 #
-# (the JAX runs took 2.5-524 s each on eight cores: raft-1kx1k capped
-# 524 s, paxos-10kx10k uncapped 389 s; nothing cut). "composed" is
+# (the JAX runs took 2.5-389 s each on eight cores: paxos-10kx10k
+# uncapped 389 s; the raft-1kx1k runs at GATE_1KX1K_ROUNDS rounds 21 and
+# 206 s, 524 s at all 1 024 rounds, a cut). "composed" is
 # raft-100k with the uncapped crash and max_delay_rounds = 6, as
 # chained-commit-stall composes a crash with a delay.
 CRASH_RUNS = {
@@ -4731,9 +4773,9 @@ CRASH_RUNS = {
     "raft-100k/composed":
         "9fe2192dbc06dd922e54221eef2b8ceb9008bab3ad48f46388ff6648f944c00a",
     "raft-1kx1k/capped":
-        "75bb923135ff35b31068c9684effc0979c61c7fb2576fea51c952ff5ed8151a5",
+        "d634824c20e23ba0bdf3498ab73ccb1e8af6fcee69accac9f17887bf370dfad6",
     "raft-1kx1k/uncapped":
-        "dc56c01682c1d4d5aa257e83648e582d41d5618bf6f569ef4031b6d5facc3a15",
+        "5699c500d312f14555232f30f362aeb3469225b9a395241da4c90f26bc30cf04",
     "pbft-f128/capped":
         "0a5e5c1646063c5bd1b6bda99f73d28075aebcc98e017735f53a90903c37e683",
     "pbft-f128/uncapped":
@@ -5654,7 +5696,7 @@ def check_desync_runs(card: str, smi: str) -> dict[str, int]:
 # leaders certify variant 1 at 117 heights (chain_vid = 1).
 BYZ_FLAGSHIPS = {
     "raft-100k": (flagship_config, 40_000, 40_000),
-    "raft-1kx1k": (lambda **kw: dense_config("raft-1kx1k", **kw), 409, 409),
+    "raft-1kx1k": (gate_1kx1k, 409, 409),
     "pbft-f128": (lambda **kw: pbft_config(128, **kw), 128, 128),
     "hotstuff-100k": (lambda **kw: protocol_config(HOTSTUFF_FLAGSHIP, **kw),
                       10_000, 33_333),
@@ -5678,7 +5720,8 @@ BYZ_COMPOSED = dict(CRASH, **DESYNC)
 #                           warmup=False).digest)
 #   EOF
 #
-# (the JAX runs took 2.7-72 s each on eight cores; nothing cut). Several
+# (the JAX runs took 2.7-72 s each on eight cores; raft-1kx1k's at
+# GATE_1KX1K_ROUNDS rounds, a cut, which leaves their digests). Several
 # equal their flat runs' digests: equivocating Raft voters re-elect the
 # same leaders at these drop rates (raft-100k 0e9cc1dd…, raft-1kx1k
 # 8748ac4f…), hotstuff-100k's byzantine nodes never lead and its honest
@@ -6496,7 +6539,7 @@ def check_byz_bcast_runs(card: str, smi: str) -> dict[str, int]:
 STICKY_TARGETS = {"raft-100k": 5, "raft-1kx1k": 3}
 GATE_FLAGSHIPS = {
     "raft-100k": flagship_config,
-    "raft-1kx1k": lambda **kw: dense_config("raft-1kx1k", **kw),
+    "raft-1kx1k": gate_1kx1k,
     "dpos-100k": lambda **kw: protocol_config(DPOS_FLAGSHIP, **kw)}
 # Each gate's overrides: rolling-producer-outage's (consensus_tpu/
 # scenarios/__init__.py:111-125) and the adversary knobs of
@@ -6512,7 +6555,8 @@ GATE_SETTINGS = {
                           suppress_window=24),
     "elect": dict(attack="elect", attack_rate=0.85, drop_rate=0.05),
     "sticky": dict(attack="sticky", attack_rate=1.0)}
-# Phase 20's runs, each with telemetry and 8-round windows: (digest, the
+# Phase 20's runs, each with telemetry and 8-round windows (raft-1kx1k's at
+# GATE_1KX1K_ROUNDS rounds, a cut): (digest, the
 # nonzero counter totals, flight_digest, the C++ oracle's digest or None
 # where the oracle does not run the gate, §A.3). The JAX package made each
 # on the CPU, and the oracle the DPoS digests (engine="cpu", telemetry
@@ -6566,16 +6610,16 @@ GATE_RUNS = {
         None),
     "raft-1kx1k/elect": (
         "b28f339a54014d143eff5dcd66666645d24ae200f76cc1cd0e9d9129b22c7371",
-        {"leader_elections": 212, "append_accepted": 7678070,
+        {"leader_elections": 57, "append_accepted": 1783922,
          "append_rejected": 1071, "entries_committed": 819200,
-         "attack_rounds": 391},
-        "35156ffd81f3962bde3b8a44845c146513fef1cf68bd3aff225c9b9bb6ae039b",
+         "attack_rounds": 188},
+        "da39acbc0e6b74e2e664fae3268b5c37afc10c0c4dba120573b446a69f587b87",
         None),
     "raft-1kx1k/sticky": (
         "56b4a2f21ca5e58cb49998dbd5c6d170c3b2f7fa4fbbd2c5ea9cf3bd4a6e7936",
-        {"leader_elections": 20, "append_accepted": 8249568,
-         "entries_committed": 717824, "attack_rounds": 1020},
-        "402b92669a80fe1e5668983b7e1c681a95cc59aef7dbdf9daa1ccad5ce2d255a",
+        {"leader_elections": 9, "append_accepted": 2048023,
+         "entries_committed": 717824, "attack_rounds": 252},
+        "a564c553f318f4befdf9bfc748645073a071f49b2cfdf1acfdb7d9b50a028c03",
         None),
 }
 # The instances phase 20 times, each on round 20 of a run: (wrapper, run).
@@ -6864,7 +6908,7 @@ FORK_MIN = ("forked_qc", "conflict_commits", "safety_violations")
 FORK_AVAILABILITY = 0.7
 SWITCH_FLAGSHIPS = {
     "raft-100k": flagship_config,
-    "raft-1kx1k": lambda **kw: dense_config("raft-1kx1k", **kw),
+    "raft-1kx1k": gate_1kx1k,
     "paxos-10kx10k": lambda **kw: protocol_config(PAXOS_FLAGSHIP, **kw),
     "hotstuff-100k": lambda **kw: protocol_config(HOTSTUFF_FLAGSHIP, **kw),
     "fork": lambda **kw: protocol_config(FORK_SCENARIO, **kw)}
@@ -6876,7 +6920,8 @@ SWITCH_SETTINGS = {
                telemetry_window=WINDOW),
     **{str(s): dict(seed=s) for s in FORK_SEEDS}}
 # Phase 21's runs, each with telemetry (8-round windows, the fork
-# scenario's 4): (digest, the nonzero counter totals, flight_digest, the
+# scenario's 4; raft-1kx1k at GATE_1KX1K_ROUNDS rounds, a cut): (digest,
+# the nonzero counter totals, flight_digest, the
 # C++ oracle's digest). The JAX package made each on the CPU (sweep_chunk 1
 # on the 100k runs; 2-6 s a fork run, 1-2 min a 100k one, 18 min
 # paxos-10kx10k on 8 cores), the oracle each digest (engine="cpu",
@@ -6907,10 +6952,10 @@ SWITCH_RUNS = {
         "0e9cc1ddc8b04d96240cdeb5f19877bbd3aad2b23883a585fa1e1c78a961ca5b"),
     "raft-1kx1k/switch": (
         "8748ac4fce3ad51b006d1d6542aa853f6d2f25839915ead9327bf7ca948f3308",
-        {"leader_elections": 20, "append_accepted": 8247477,
-         "entries_committed": 819200, "agg_down_rounds": 653,
-         "stale_serves": 689},
-        "7f2cba94457607f24807dad459f8013c4f4e17fc97273abfa757b74bbafd418b",
+        {"leader_elections": 10, "append_accepted": 2045993,
+         "entries_committed": 819200, "agg_down_rounds": 166,
+         "stale_serves": 176},
+        "0f3044a0551e2d750db9e4d895bcb2c73c968c77856b9bae901648a4731eabd8",
         "8748ac4fce3ad51b006d1d6542aa853f6d2f25839915ead9327bf7ca948f3308"),
     "raft-100k/composed": (
         "5144090760df03c324462bc084f36afc8c798fa4dac02a3d46a7b1195cfeb892",
@@ -9702,6 +9747,483 @@ def check_knob_count_batches(card: str, smi: str) -> dict[str, int]:
     return own
 
 
+# --- phase 25: the knob batch (K23) on capped Raft, and on dense Raft and
+# Paxos under the switch ---------------------------------------------------
+
+# The wrappers whose KNOBS instances this phase adds, and their sources.
+KNOB_CAPPED_INSTANCES = ("candidacy", "delivery_edges", "dense_elect",
+                         "paxos_promise", "paxos_accept_learn")
+KNOB_CAPPED_REPLACES = {
+    "candidacy (knobs)": "consensus_tpu/network/runner.py:1019 "
+    "_knob_batch_jit; engines/raft_sparse.py:202, 236-253 P0-P1 under a "
+    "KnobView",
+    "candidacy (knobs, crash)": "consensus_tpu/network/runner.py:1019 "
+    "_knob_batch_jit; engines/raft_sparse.py:209-227 §6c P0-P1 under a "
+    "KnobView",
+    "candidacy (knobs, elect)": "consensus_tpu/network/runner.py:1019 "
+    "_knob_batch_jit; engines/raft_sparse.py:186, 268-276 the elect jam's "
+    "word under a KnobView",
+    "candidacy (knobs, sticky)": "consensus_tpu/network/runner.py:1019 "
+    "_knob_batch_jit; engines/raft_sparse.py:186-189, 238-239 the sticky "
+    "activation under a KnobView",
+    "delivery_edges (knobs, src)": "consensus_tpu/network/runner.py:1019 "
+    "_knob_batch_jit; engines/raft_sparse.py:191-192 dedge under a KnobView",
+    "delivery_edges (knobs, dst)": "consensus_tpu/network/runner.py:1019 "
+    "_knob_batch_jit; engines/raft_sparse.py:191-192 dedge under a KnobView",
+    "delivery_edges (knobs, delay, crash)": "consensus_tpu/network/"
+    "runner.py:1019 _knob_batch_jit; engines/raft_sparse.py:191-195 dedge "
+    "with §A.2 and §6c under a KnobView",
+    "delivery_edges (knobs, attack)": "consensus_tpu/network/runner.py:1019 "
+    "_knob_batch_jit; engines/raft_sparse.py:197-199 the sticky jam under a "
+    "KnobView",
+    "delivery_edges (knobs, switch)": "consensus_tpu/network/runner.py:1019 "
+    "_knob_batch_jit; engines/raft_sparse.py:301-335 the switch's responses "
+    "under a KnobView",
+    "dense_elect (knobs, switch)": "consensus_tpu/network/runner.py:1019 "
+    "_knob_batch_jit; engines/raft.py:367-400 P2c over the switch under a "
+    "KnobView",
+    "paxos_promise (knobs, switch)": "consensus_tpu/network/runner.py:1019 "
+    "_knob_batch_jit; engines/paxos.py:153-176 promises over the switch "
+    "under a KnobView",
+    "paxos_accept_learn (knobs, switch)": "consensus_tpu/network/"
+    "runner.py:1019 _knob_batch_jit; engines/paxos.py:153-176 accepts over "
+    "the switch under a KnobView"}
+# The row of each KNOBS instance: its wrapper, the batch whose later round's
+# call is timed and whose run counts its launches, and which of the round's
+# calls (KB: a src, dst or switch call; the others have one).
+KNOB_CAPPED_TIMED = {
+    "candidacy (knobs)": ("candidacy", "raft-100k/base", "any"),
+    "candidacy (knobs, crash)": ("candidacy", "raft-100k/elections", "any"),
+    "candidacy (knobs, elect)": ("candidacy", "raft-100k/switch", "any"),
+    "candidacy (knobs, sticky)": ("candidacy", "raft-100k/sticky", "any"),
+    "delivery_edges (knobs, src)": ("delivery_edges", "raft-100k/base",
+                                    "src"),
+    "delivery_edges (knobs, dst)": ("delivery_edges", "raft-100k/base",
+                                    "dst"),
+    "delivery_edges (knobs, delay, crash)": ("delivery_edges",
+                                             "raft-100k/elections", "src"),
+    "delivery_edges (knobs, attack)": ("delivery_edges", "raft-100k/sticky",
+                                       "src"),
+    "delivery_edges (knobs, switch)": ("delivery_edges", "raft-100k/switch",
+                                       "switch"),
+    "dense_elect (knobs, switch)": ("dense_elect", "raft-1kx1k/switch",
+                                    "switch"),
+    "paxos_promise (knobs, switch)": ("paxos_promise",
+                                      "paxos-10kx10k/switch", "switch"),
+    "paxos_accept_learn (knobs, switch)": ("paxos_accept_learn",
+                                           "paxos-10kx10k/switch", "switch")}
+# The six batches: raft-100k's flagship as it stands (every row the base's,
+# its own seeds: its lanes are the flagship's sweeps), under raft-elections'
+# gates (COUNT_GATES), under the sticky attack on node 3 and, with the elect
+# attack and partitions, under the switch (K = 8); raft-1kx1k under the
+# switch and the sticky attack (cut to 128 rounds, as phase 24's); and
+# paxos-10kx10k under the switch with COUNT_GATES at 2 lanes (phase 24's
+# cut: 2 GB a lane). Each with 8-round windows and its lanes' overrides:
+# lane 0 the base's, and 8 distinct rows but in the first batch.
+KNOB_CAPPED_BATCHES = {
+    "raft-100k/base": (
+        dict(protocol="raft", n_nodes=N, n_rounds=64, n_sweeps=B,
+             log_capacity=L, max_entries=100, max_active=A, seed=6,
+             drop_rate=0.01, churn_rate=0.001, telemetry_window=WINDOW),
+        ({},) * B),
+    "raft-100k/elections": (
+        dict(protocol="raft", n_nodes=N, n_rounds=64, n_sweeps=B,
+             log_capacity=L, max_entries=100, max_active=A, seed=6,
+             **COUNT_GATES, telemetry_window=WINDOW),
+        ({}, dict(partition_rate=0.0), dict(drop_rate=0.05),
+         dict(crash_prob=0.3, recover_prob=0.1), dict(churn_rate=0.1),
+         dict(drop_rate=0.5, partition_rate=0.3),
+         dict(crash_prob=0.0, churn_rate=0.0),
+         dict(recover_prob=0.9, drop_rate=0.15))),
+    "raft-100k/sticky": (
+        dict(protocol="raft", n_nodes=N, n_rounds=64, n_sweeps=B,
+             log_capacity=L, max_entries=100, max_active=A, seed=6,
+             drop_rate=0.01, churn_rate=0.001, **STICKY_BASE,
+             telemetry_window=WINDOW),
+        ({}, dict(attack_rate=1.0), dict(attack_rate=0.5),
+         dict(drop_rate=0.05), dict(churn_rate=0.01),
+         dict(attack_rate=0.7, drop_rate=0.02), dict(attack_rate=0.0),
+         dict(attack_rate=1.0, churn_rate=0.05))),
+    "raft-100k/switch": (
+        dict(protocol="raft", n_nodes=N, n_rounds=64, n_sweeps=B,
+             log_capacity=L, max_entries=100, max_active=A, seed=6,
+             drop_rate=0.01, churn_rate=0.001, partition_rate=0.05,
+             attack="elect", attack_rate=0.3, **SWITCH_KNOBS,
+             telemetry_window=WINDOW),
+        ({}, dict(attack_rate=0.0), dict(drop_rate=0.1),
+         dict(partition_rate=0.0), dict(attack_rate=0.9),
+         dict(drop_rate=0.3, partition_rate=0.2),
+         dict(attack_rate=0.05, drop_rate=0.02), dict(partition_rate=0.3))),
+    "raft-1kx1k/switch": (
+        dict(protocol="raft", log_capacity=L, max_entries=100,
+             drop_rate=0.01, churn_rate=0.001,
+             **DENSE_CONFIGS["raft-1kx1k"], **STICKY_BASE, **SWITCH_KNOBS,
+             telemetry_window=WINDOW) | dict(n_rounds=128),
+        ({}, dict(attack_rate=0.0), dict(attack_rate=1.0),
+         dict(attack_rate=0.5), dict(drop_rate=0.05), dict(churn_rate=0.01),
+         dict(attack_rate=1.0, drop_rate=0.1),
+         dict(attack_rate=0.7, drop_rate=0.02))),
+    "paxos-10kx10k/switch": (
+        dict(PAXOS_FLAGSHIP, **COUNT_GATES, **SWITCH_KNOBS, n_sweeps=2,
+             telemetry_window=WINDOW),
+        ({}, dict(drop_rate=0.1, partition_rate=0.0))),
+}
+# The sticky batches' targets, by lane (the base's is 3): in range, N - 1,
+# and N + 3, 0xFFFFFFFD and 0xFFFFFFFF out of range (no Config has them).
+KNOB_CAPPED_TARGETS = {
+    "raft-100k/sticky": (3, 0, N - 1, N + 3, 0xFFFFFFFD, 0xFFFFFFFF, 3, 0),
+    "raft-1kx1k/switch": (3, 0, 1023, 1024 + 3, 0xFFFFFFFD, 0xFFFFFFFF, 5,
+                          3)}
+# The lanes' seeds: the flagship's own (make_seeds: 6 to 13) in the first
+# batch, KNOB_COUNT_SEEDS in the others, but in the sticky batches, where
+# the lanes whose target is node 3 or 0 take seeds under which that node
+# draws the least initial timeout of its lane, and is the lowest id to, so
+# that it stands first and wins (raft-1kx1k's lane 1 runs no attack).
+KNOB_CAPPED_SEEDS = {"raft-100k/base": tuple(range(6, 6 + B)),
+                     "raft-100k/sticky": (2, 8, 3, 77, 1 << 31, 12345, 15,
+                                          9),
+                     "raft-1kx1k/switch": (2, 8, 3, 77, 1 << 31, 12345, 9,
+                                           15)}
+# Each batch's lane digests (knob_lane_digests): raft-100k/base is held to
+# the flagship's digest instead (FLAGSHIP_DIGEST, of the decided logs of
+# all 8 lanes, as simulator.run packs them). The others from the JAX
+# package's run_knob_batch, run one lane at a time (a one-lane base and the
+# lane's seed and row: the lanes of a batch are independent, and one lane
+# of the raft-100k shape holds 100 MB of logs where eight would hold 800),
+# made on the CPU (6-17 s a raft-100k lane, 8-25 s a raft-1kx1k one, 2 456
+# and 2 320 s the two paxos-10kx10k lanes, on 8 cores) by
+#
+#   JAX_PLATFORMS=cpu python3 - <<'EOF'
+#   import dataclasses, json, chip_smoke
+#   from consensus_tpu import Config
+#   from consensus_tpu.network import runner, simulator
+#   anchors = {}
+#   for key in chip_smoke.KNOB_CAPPED_BATCHES:
+#       if key == "raft-100k/base":
+#           continue
+#       base, _, seeds, kmat = chip_smoke.knob_capped_batch(key)
+#       one = Config(**dataclasses.asdict(dataclasses.replace(
+#           base, n_sweeps=1)))
+#       anchors[key] = []
+#       for b in range(len(seeds)):
+#           out, flight = runner.run_knob_batch(
+#               one, simulator.engine_def(one), seeds[b:b + 1],
+#               kmat[b:b + 1])
+#           anchors[key] += chip_smoke.knob_lane_digests(out, flight)
+#   print(json.dumps(anchors))
+#   EOF
+#
+KNOB_CAPPED_ANCHORS = {
+    'raft-100k/elections': (
+        'cb9e18caa7a40e29845d60cf',
+        'c9f26e42fd512bf2ecd7f56d',
+        '0a7f2272807c42f1e075e5fe',
+        '16047e61a3a12d54b3f21ac5',
+        'fae46d0b0264488674d6ff89',
+        '12fa50edc82823297eafc2f7',
+        'bd59ce799d3eee24b60f5117',
+        '5e366562cb5e13d61bdfd903',
+    ),
+    'raft-100k/sticky': (
+        '53e25821eaf138577c75cae4',
+        'a392f66d0979a3d5a61f4b65',
+        '08c0ef3da6a6111204dbeb0d',
+        '070d0059bbdda581df028546',
+        '978d0b71156414b6ae037205',
+        'fc37eae33563953a31416e0f',
+        'abb656a9c33042788f559ec3',
+        '4076a56f09a057ebb56834b6',
+    ),
+    'raft-100k/switch': (
+        'f2a958ad59c8b9d118259ed7',
+        '301971c1fd28cb2b77904ca4',
+        '4b235b4b7474b0beb78c13a8',
+        'e3316fc7e98e1e4af2d8c85f',
+        'e88c7a0cd180cbfae0e66649',
+        '19811484db51cd6001b8356a',
+        '187864c04f5689fc59e98712',
+        'fff653f99b3e2b192710885c',
+    ),
+    'raft-1kx1k/switch': (
+        '185f5a51eb7a0ac0bb525735',
+        '4b1c54cfb7569f3020c2625f',
+        '5fc54d71d000e7e50c374d09',
+        '3dd7c5af48f337c0e690e3e0',
+        '6d59d59f46f5cddb14827e44',
+        'a226f0dec7a7796cf34a6183',
+        'a62daa294bbf29a9bfb43718',
+        'b04a4d54e070c0c04e410a4a',
+    ),
+    'paxos-10kx10k/switch': (
+        '56759673829e2fc01ab9162b',
+        'fdef88978124737ac9a99519',
+    ),
+}
+
+
+def knob_capped_batch(key: str):
+    """Phase 25's batch ``key``: (base, the lanes' configs where a lane has
+    one, else None, seeds, kmat)."""
+    from consensus_tpu_torch.core import knobs
+    from consensus_tpu_torch.core.config import Config
+    base_kw, lanes = KNOB_CAPPED_BATCHES[key]
+    base = Config(**base_kw)
+    cfgs = [dataclasses.replace(base, **o) for o in lanes]
+    kmat = knob_rows(cfgs)
+    for b, t in enumerate(KNOB_CAPPED_TARGETS.get(key, ())):
+        kmat[b, knobs.KNOB_COLUMNS.index("attack_target")] = t
+        # No Config has an out-of-range target.
+        cfgs[b] = dataclasses.replace(cfgs[b], attack_target=t) \
+            if t < base.n_nodes else None
+    seeds = KNOB_CAPPED_SEEDS.get(key, KNOB_COUNT_SEEDS)[:len(lanes)]
+    return base, cfgs, np.array(seeds, np.uint32), kmat
+
+
+def knob_capped_last(key: str) -> int:
+    """The later of the two rounds phase 25 checks of batch ``key``: 20,
+    or the last round of a run that has fewer (paxos-10kx10k: 15)."""
+    return min(KNOB_ROUNDS[-1], knob_capped_batch(key)[0].n_rounds - 1)
+
+
+def capped_knob_instance(name: str, args) -> bool:
+    """Whether this call of wrapper ``name`` runs its KNOBS instance: KB's
+    12th argument is the table, the others' Config is a KnobView."""
+    from consensus_tpu_torch.core import knobs
+    if name == "delivery_edges":
+        return len(args) > 11 and args[11] is not None
+    return isinstance(args[0], knobs.KnobView)
+
+
+def capped_flat(name: str, args, cfg):
+    """``args`` of a KNOBS-instance call through the flat instance with
+    ``cfg``'s cutoffs: for KB its drop and partition cutoffs, a sticky
+    attack's target (an elect jam keeps its -1) and no table, for the
+    others ``cfg`` in place of the view."""
+    one = list(args)
+    if name == "delivery_edges":
+        one[4], one[5] = cfg.drop_cutoff, cfg.partition_cutoff
+        if len(one) > 9 and one[9] is not None and one[9][1] >= 0:
+            one[9] = (one[9][0], cfg.attack_target)
+        one = one[:11]
+        while len(one) > 8 and one[-1] is None:
+            one.pop()
+    else:
+        one[0] = cfg
+    return tuple(one)
+
+
+def capped_pick(name: str, args, pick: str) -> bool:
+    """Whether a call of wrapper ``name`` is the one a row times: KB's src,
+    dst (not over the switch) or switch call, any other call."""
+    if pick == "any":
+        return True
+    sw = name != "delivery_edges" or (len(args) > 10
+                                      and args[10] is not None)
+    if pick == "switch":
+        return sw
+    return not sw and bool(args[6]) == (pick == "src")
+
+
+def candidacy_work(args) -> tuple[float, float]:
+    """(bytes, operations) of KE on ``args``: phase 3's count (54 bytes and
+    20 operations a node, and a Threefry draw for each node whose timer
+    the round resets) on the call's own shape, plus the flag byte a node of
+    a CRASH instance and, under an attack, each lane's activation draw and
+    its word written."""
+    from consensus_tpu_torch.engines import raft_sparse as rs
+    cfg, term = args[0], args[3]
+    b, n = term.shape
+    moved = int(rs.candidacy_plain(*clone_args(args))[5].sum())
+    flags = args[10] if len(args) > 10 else None
+    attack = b if cfg.attack_mode else 0
+    return (54 * b * n + (0 if flags is None else b * n) + 4 * attack,
+            20 * b * n + THREEFRY_OPS * (moved + attack))
+
+
+def capped_flat_work(name: str, args) -> tuple[float, float]:
+    """(bytes, operations) of the flat instance's work on a flat call
+    ``args``: KE's :func:`candidacy_work`; a SWITCH instance's phase-21
+    bound (:func:`switch_bound`); KB's phase-3 count with the flag byte a
+    node of a CRASH instance, the attack word of an ATTACK one and the
+    draws of the §A.2 loop these inputs need; with ``bound`` swapped for
+    the pair."""
+    global bound
+    if name == "candidacy":
+        return candidacy_work(args)
+    saved = bound
+    bound = lambda nbytes, ops: (nbytes, ops)   # noqa: E731
+    try:
+        if name != "delivery_edges" or (len(args) > 10
+                                        and args[10] is not None):
+            return switch_bound(name, args)
+        nbytes, ops = flat_work(name, args)
+        if len(args) > 8 and args[8] is not None:
+            nbytes += args[8].numel()
+        if len(args) > 9 and args[9] is not None:
+            nbytes += 4 * args[2].shape[0]
+        if args[7]:
+            ops += EDGE_OPS * delay_draws(name, args)
+        return nbytes, ops
+    finally:
+        bound = saved
+
+
+def capped_knob_bound(name: str, args, cfgs) -> tuple[float, str]:
+    """The least time of a KNOBS instance's work on ``args``: each lane's
+    flat work on its slice with its own config (``cfgs``; a lane without
+    one, an out-of-range target's, takes the base's), summed, plus the
+    [B, 12] table read once; for KE the KNOBS call's own count, whose
+    plain version reads each lane's cutoffs."""
+    if name == "candidacy":
+        nbytes, ops = candidacy_work(args)
+        return bound(nbytes + 8 * 12 * len(cfgs), ops)
+    nbytes = ops = 0.0
+    for b, cfg in enumerate(cfgs):
+        one = lane_slice(capped_flat(name, args, cfg), b, len(cfgs))
+        nb, op = capped_flat_work(name, one)
+        nbytes, ops = nbytes + nb, ops + op
+    return bound(nbytes + 8 * 12 * len(cfgs), ops)
+
+
+def check_knob_capped_kernels(dev):
+    """Phase 25's kernel rows. Every kernel call of rounds 3 and 20 (or
+    the last) of each KNOB_CAPPED_BATCHES batch (with telemetry and the
+    recorder), and of that round with every row the base's, against the
+    plain versions, exact; with every row the base's each KNOBS-instance
+    call also through its flat instance, exact. Then each
+    KNOB_CAPPED_TIMED row's time on its batch's later round, its plain
+    version's and its bound, and on the all-base round its time and its
+    flat instance's time and bound."""
+    errs = dict.fromkeys(KNOB_CAPPED_INSTANCES, 0.0)
+    cases = dict.fromkeys(KNOB_CAPPED_INSTANCES, 0)
+    flat_cases = dict.fromkeys(KNOB_CAPPED_INSTANCES, 0)
+    rows = []
+    for key in KNOB_CAPPED_BATCHES:
+        base, cfgs, seeds, kmat = knob_capped_batch(key)
+        cfgs = [c or base for c in cfgs]
+        last = knob_capped_last(key)
+        for r in (KNOB_ROUNDS[0], last):
+            calls = capture_knob_round_calls(base, seeds, kmat, r, dev)
+            hold_calls(calls, f"{key} round {r}", errs, cases)
+        on_base = capture_knob_round_calls(
+            base, seeds, knob_rows([base] * len(seeds)), last, dev)
+        hold_calls(on_base, f"{key} round {last}, every row the base's",
+                   errs, cases)
+        for name in KNOB_CAPPED_INSTANCES:
+            for args in on_base.get(name, ()):
+                if not capped_knob_instance(name, args):
+                    continue
+                flat = capped_flat(name, args, base)
+                require(max_abs_err(zip(run_wrapper(
+                    name, args, lambda a: capped_flat(name, a, base)),
+                    run_wrapper(name, flat))) == 0.0,
+                    f"{key}: {name}'s KNOBS instance with every row the "
+                    "base's disagrees with its flat instance")
+                flat_cases[name] += 1
+        for row, (name, run, pick) in KNOB_CAPPED_TIMED.items():
+            if run != key:
+                continue
+
+            def mine(found, name=name, pick=pick):
+                return [a for a in found.get(name, ())
+                        if capped_knob_instance(name, a)
+                        and capped_pick(name, a, pick)]
+            got = mine(calls)
+            require(bool(got), f"{key}: no KNOBS-instance call of {name} "
+                    f"({pick})")
+            args, same = got[0], mine(on_base)[0]
+            flat = capped_flat(name, same, base)
+            mod = kernel_module(name)
+            reps = reps_for(args)
+            rows.append(dict(
+                name=row, route="cuda",
+                source=f"consensus_tpu_torch/csrc/{name}.cu",
+                replaces=KNOB_CAPPED_REPLACES[row], timed_on=f"{key} round "
+                f"{last}", ms=graph_ms(getattr(mod, name), args, reps),
+                plain_ms=event_ms(getattr(mod, name + "_plain"), args,
+                                  min(3, reps)),
+                bound=capped_knob_bound(name, args, cfgs), library_ms=None,
+                launches_from=key,
+                knobs_on_base_ms=graph_ms(getattr(mod, name), same, reps),
+                flat_instance_ms=graph_ms(getattr(mod, name), flat, reps),
+                flat_instance_bound=bound(*capped_flat_work(name, flat))))
+        del calls, on_base
+        torch.cuda.empty_cache()
+    for name in KNOB_CAPPED_INSTANCES:
+        require(cases[name] > 0 and flat_cases[name] > 0,
+                f"{name}: no KNOBS-instance call checked")
+    for k in rows:
+        name = KNOB_CAPPED_TIMED[k["name"]][0]
+        k.update(max_abs_err=errs[name], cases=cases[name],
+                 flat_cases=flat_cases[name])
+    return rows
+
+
+def knob_capped_path(cfg) -> tuple[str, ...]:
+    """The kernels a knob batch of base ``cfg`` launches: a switch run's
+    path (phase 21's) with KAH under a crash, else phase 20's gate path
+    (the capped engine's telemetry path, with KAH under a crash)."""
+    path = gate_path(cfg)
+    if cfg.switch_on:
+        path += SWITCH_OWN
+    return path
+
+
+def check_knob_capped_batches(card: str, smi: str) -> dict[str, int]:
+    """Phase 25's batches: each KNOB_CAPPED_BATCHES batch as one
+    ``run_knob_batch`` replay, counted from 0: the first's decided logs
+    against the flagship's digest, every other lane's digest against its
+    JAX anchor, the path's kernels launched and each KNOBS instance on it;
+    with each replay's wall, busy share and device operations a round
+    (:func:`profile_replay`). Returns each KNOBS row's launches from its
+    batch."""
+    from consensus_tpu_torch.core import serialize
+    from consensus_tpu_torch.network import runner, simulator
+    own: dict = {}
+    for key in KNOB_CAPPED_BATCHES:
+        base, cfgs, seeds, kmat = knob_capped_batch(key)
+        zero_counts()
+        t0 = time.perf_counter()
+        out, flight = runner.run_knob_batch(base, seeds, kmat)
+        wall = time.perf_counter() - t0
+        launches = runner.launch_counts()
+        knob = runner.knob_launch_counts()
+        digests = knob_lane_digests(out, flight)
+        if key == "raft-100k/base":
+            got = serialize.digest(simulator.decided_payload(base, out)[3])
+            ok, want = got == FLAGSHIP_DIGEST, FLAGSHIP_DIGEST
+        else:
+            ok, want = digests == list(KNOB_CAPPED_ANCHORS[key]), None
+        prof = profile_replay(base, run=lambda: runner.knob_batch_device(
+            base, seeds, kmat))
+        steps = base.n_sweeps * base.n_nodes * base.n_rounds
+        row = dict(
+            digests=digests, digests_ok=ok,
+            **({} if want is None else dict(digest=got)),
+            attack_rounds=flight["windows"]["attack_rounds"].sum(1).tolist()
+            if "attack_rounds" in flight["windows"] else None,
+            wall_s=wall, launches=launches, knob_launches=knob,
+            steps_per_sec=steps / (min(prof["replay_wall_ms"]) / 1e3),
+            **{k: prof[k] for k in (
+                "replay_wall_ms", "busy_share", "unprofiled_busy_share",
+                "device_ms", "device_launches")},
+            device_ops_per_round=prof["launches_per_round"],
+            hand_kernel_ms={k: v for k, v in prof["hand_kernel_ms"].items()
+                            if v})
+        emit("knob_capped_batch", run=key, **row, card=card, power=smi)
+        require(ok, f"{key}: the flagship digest differs" if want else
+                f"{key}: lanes "
+                f"{differing(digests, KNOB_CAPPED_ANCHORS[key])} differ "
+                "from the JAX anchors")
+        require_launched(launches, knob_capped_path(base), key)
+        require_knob_launches(launches, knob, key)
+        for row_name, (name, run, _) in KNOB_CAPPED_TIMED.items():
+            if run == key:
+                own[row_name] = knob[name]
+        runner.clear_graphs()
+    return own
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -9726,7 +10248,10 @@ def main() -> int:
     for name in _build.SOURCES:
         log = _build.library_path(name).with_suffix(".log")
         print(f"--- nvcc {name}\n{log.read_text()}", file=sys.stderr)
-    emit("build", wall_s=time.perf_counter() - t0, seconds=seconds)
+    # KB's 48 instances make delivery_edges.cu one of the longest builds.
+    emit("build", wall_s=time.perf_counter() - t0, seconds=seconds,
+         delivery_edges_s=seconds["delivery_edges"],
+         longest=max(seconds, key=seconds.get))
 
     # 3. kernels
     dev = torch.device("cuda")
@@ -10016,6 +10541,21 @@ def main() -> int:
         knob_rows.append(k)
     check_knob_count_generations(card, smi)
     knob_launches.update(check_knob_count_batches(card, smi))
+
+    # 25. The knob batch (K23) on capped Raft, and on dense Raft and Paxos
+    # under the switch: every kernel call of rounds 3 and 20 of the six
+    # batches against the plain versions (the KNOBS instances of KE, KB
+    # and the SWITCH instances of KM, KY and KZ among them), then the
+    # batches.
+    for k in check_knob_capped_kernels(dev):
+        k["bound_ms"], k["bound_by"] = k.pop("bound")
+        (k["flat_instance_bound_ms"],
+         k["flat_instance_bound_by"]) = k.pop("flat_instance_bound")
+        emit("knob_capped_kernel", **k, card=card, power=smi)
+        require(k["max_abs_err"] == 0.0,
+                f"{k['name']} disagrees with its plain version")
+        knob_rows.append(k)
+    knob_launches.update(check_knob_capped_batches(card, smi))
     emit("wall")
     for k in kernels:
         k["launches"] = launches[k["name"]]

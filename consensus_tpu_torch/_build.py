@@ -83,9 +83,10 @@ SIGNATURES = {
     # max_delay, §6c flags (null on the flat path); §A.3 attack word (null
     # but under an attack) and the jammed receiver (-1: every edge); §9
     # phase-0 uplinks, aggregator table, K, the uplinks' lane stride (null,
-    # null, 0, 0 but on a switch round)
+    # null, 0, 0 but on a switch round); and last the knob table (null but
+    # in a knob batch)
     "delivery_edges": (_P, _U, _P, _P, _I, _I, _I, _U, _U, _I, _U, _P, _P,
-                       _I, _P, _P, _I, _L),
+                       _I, _P, _P, _I, _L, _P),
     # mask, term, partial scratch, out, B, N, A, blocks per sweep
     "top_active": (_P, _P, _P, _P, _I, _I, _I, _I),
     # seed, t_min, t_span; del_lj, lead_id, s_term, term, role, voted_for,
@@ -99,9 +100,10 @@ SIGNATURES = {
     # reset, own_lterm, cand_mask outputs; §6c flags (null on the flat
     # path); B, N, L; §3c byz mode, n_byzantine (0, 0 on the flat path);
     # §A.3 attack mode, attack_cut, target, attack word output (0, 0, 0,
-    # null on the flat path)
+    # null on the flat path); and last the knob table (null but in a knob
+    # batch)
     "candidacy": (_P, _U, _U, _I, _U) + (_P,) * 16 + (_I,) * 5
-    + (_I, _U, _I, _P),
+    + (_I, _U, _I, _P, _P),
     # seed, t_min, t_span; cand_ids, del_cj, del_jc, term, role, voted_for,
     # timer, timeout, reset, log_len, own_lterm; term, role, voted_for,
     # timer, timeout, reset, lead, win outputs, votes scratch; §6c flags

@@ -10,7 +10,9 @@ instances a round launches. The knob values, the u32 cutoffs of
 one run may carry its own. :class:`KnobView` is a ``Config`` stand-in whose
 knob values are such per-lane values while every other attribute, the gates
 among them, is the base's. ``network/runner.py`` ``run_knob_batch`` runs a
-generation of adversary-search candidates so, as lanes of one CUDA graph.
+generation of adversary-search candidates so, as lanes of one CUDA graph,
+on every engine of the port: the capped Raft one, and dense Raft and Paxos
+under the SPEC §9 switch, among them.
 
 On the CPU the plain versions read a knob as a [B, 1] int64 column of u32
 values, which broadcasts against their [B, ...] draws (:func:`at` reshapes

@@ -36,11 +36,24 @@
 // round's end (a down node's candidacy is a phantom the freeze reverts)
 // draws the activation and, where it fires, writes 1: the lane's jam is
 // the OR over a grid of many blocks, a race-free store of one value.
+// Its KNOBS instances (a knob batch: the table pointer is not null,
+// knobs.cuh; consensus_tpu/engines/raft_sparse.py:186-202 under a KnobView)
+// read each lane's churn cutoff and, in an ATTACK instance, its attack
+// cutoff and target from the lane's row of the table in place of the
+// arguments. A lane's target is the int32 of its u32 column, as the JAX
+// package's traced index (consensus_tpu/network/runner.py:1029-1031): the
+// thread of the node the gather st.role[tgt] reads (a negative target
+// counts from the end, then clamped to [0, N - 1]) draws the activation
+// and writes the attack word, while the step-down skip compares node ids
+// with the target as it is, so an out-of-range target's attack counts its
+// rounds and shields no leader (and kernel KB's KNOBS instance jams no
+// receiver for it).
 #include <cuda_runtime.h>
 
 #include "attack.cuh"
 #include "byz.cuh"
 #include "crash.cuh"
+#include "knobs.cuh"
 #include "rng.cuh"
 
 namespace {
@@ -48,7 +61,7 @@ namespace {
 constexpr int THREADS = 256;
 constexpr int32_t ROLE_F = 0, ROLE_C = 1, ROLE_L = 2;
 
-template <bool CRASH, bool WITHHOLD, int ATTACK>
+template <bool CRASH, bool WITHHOLD, int ATTACK, bool KNOBS>
 __global__ void __launch_bounds__(THREADS)
 candidacy_kernel(const uint32_t* __restrict__ seed, uint32_t r,
                  uint32_t churn_cut, int32_t t_min, uint32_t t_span,
@@ -69,18 +82,33 @@ candidacy_kernel(const uint32_t* __restrict__ seed, uint32_t r,
                  bool* __restrict__ cand_out,
                  const unsigned char* __restrict__ flags, int N, int L,
                  int n_honest, uint32_t attack_cut, int tgt,
-                 int32_t* __restrict__ atk) {
+                 int32_t* __restrict__ atk,
+                 const long long* __restrict__ knobs) {
   const int j = blockIdx.x * THREADS + threadIdx.x;
   if (j >= N) return;
   const int b = blockIdx.y;
   const long long row = static_cast<long long>(b) * N + j;
+  // The node whose role the sticky attack reads (tgt itself on the flat
+  // path, where it is in range).
+  int tread = tgt;
+  if (KNOBS) {
+    churn_cut = ctt::knob(knobs, b, ctt::KNOB_CHURN);
+    if (ATTACK != ctt::ATTACK_NONE)
+      attack_cut = ctt::knob(knobs, b, ctt::KNOB_ATTACK);
+    if (ATTACK == ctt::ATTACK_STICKY) {
+      tgt = static_cast<int32_t>(ctt::knob(knobs, b, ctt::KNOB_ATTACK_TARGET));
+      tread = tgt < 0 ? tgt + N : tgt;
+      tread = tread < 0 ? 0 : (tread >= N ? N - 1 : tread);
+    }
+  }
   const uint32_t sd = seed[b];
   int32_t tm = term[row], rl = role[row], vf = voted_for[row];
   int32_t tmr = timer[row], to = timeout[row];
   // SPEC §A.3 sticky: the target's leadership as it enters the round.
-  const bool sticky = ATTACK == ctt::ATTACK_STICKY && j == tgt &&
-                      rl == ROLE_L && ctt::attack_fires(sd, r, attack_cut);
-  if (sticky) atk[b] = 1;
+  const bool act = ATTACK == ctt::ATTACK_STICKY && j == tread &&
+                   rl == ROLE_L && ctt::attack_fires(sd, r, attack_cut);
+  if (act) atk[b] = 1;
+  const bool sticky = act && j == tgt;
   bool down = false;
   if (CRASH) {
     const unsigned char fl = flags[row];
@@ -126,21 +154,32 @@ candidacy_kernel(const uint32_t* __restrict__ seed, uint32_t r,
   cand_out[row] = rl == ROLE_C && !down && !(WITHHOLD && j >= n_honest);
 }
 
-using CandidacyKernel = decltype(&candidacy_kernel<false, false, 0>);
+using CandidacyKernel = decltype(&candidacy_kernel<false, false, 0, false>);
 
-template <bool CRASH, bool WITHHOLD>
+template <bool CRASH, bool WITHHOLD, bool KNOBS>
 CandidacyKernel candidacy_instance(int attack) {
   return attack == ctt::ATTACK_ELECT
-             ? candidacy_kernel<CRASH, WITHHOLD, ctt::ATTACK_ELECT>
+             ? candidacy_kernel<CRASH, WITHHOLD, ctt::ATTACK_ELECT, KNOBS>
          : attack == ctt::ATTACK_STICKY
-             ? candidacy_kernel<CRASH, WITHHOLD, ctt::ATTACK_STICKY>
-             : candidacy_kernel<CRASH, WITHHOLD, ctt::ATTACK_NONE>;
+             ? candidacy_kernel<CRASH, WITHHOLD, ctt::ATTACK_STICKY, KNOBS>
+             : candidacy_kernel<CRASH, WITHHOLD, ctt::ATTACK_NONE, KNOBS>;
+}
+
+template <bool KNOBS>
+CandidacyKernel candidacy_pick(bool crash, bool withhold, int attack) {
+  return crash ? (withhold ? candidacy_instance<true, true, KNOBS>(attack)
+                           : candidacy_instance<true, false, KNOBS>(attack))
+               : (withhold ? candidacy_instance<false, true, KNOBS>(attack)
+                           : candidacy_instance<false, false, KNOBS>(attack));
 }
 
 }  // namespace
 
 // attack is the SPEC §A.3 mode (0 on the flat path, where atk is null and
 // attack_cut and tgt are unused); atk is the [B] attack word, zeroed here.
+// knobs is a knob batch's [B, 12] table (knobs.cuh; null but in a knob
+// batch): the churn, attack cutoff and target arguments are then the
+// base's, which pick the instance, and each lane reads its own.
 extern "C" int ctt_candidacy(const uint32_t* seed, uint32_t r,
                              uint32_t churn_cut, int32_t t_min,
                              uint32_t t_span, const int32_t* term,
@@ -153,7 +192,8 @@ extern "C" int ctt_candidacy(const uint32_t* seed, uint32_t r,
                              int32_t* own_lterm_out, bool* cand_out,
                              const unsigned char* flags, int B, int N, int L,
                              int byz, int nb, int attack, uint32_t attack_cut,
-                             int tgt, int32_t* atk, cudaStream_t st) {
+                             int tgt, int32_t* atk, const long long* knobs,
+                             cudaStream_t st) {
   if (t_span == 0u || nb < 0 || nb > N || attack < ctt::ATTACK_NONE ||
       attack > ctt::ATTACK_STICKY || (attack != 0) != (atk != nullptr) ||
       (attack == ctt::ATTACK_STICKY && (tgt < 0 || tgt >= N)))
@@ -167,14 +207,12 @@ extern "C" int ctt_candidacy(const uint32_t* seed, uint32_t r,
   const dim3 grid((N + THREADS - 1) / THREADS, B);
   const bool crash = flags != nullptr, withhold = byz == ctt::BYZ_SILENT;
   const auto kernel =
-      crash ? (withhold ? candidacy_instance<true, true>(attack)
-                        : candidacy_instance<true, false>(attack))
-            : (withhold ? candidacy_instance<false, true>(attack)
-                        : candidacy_instance<false, false>(attack));
+      knobs != nullptr ? candidacy_pick<true>(crash, withhold, attack)
+                       : candidacy_pick<false>(crash, withhold, attack);
   kernel<<<grid, THREADS, 0, st>>>(
       seed, r, churn_cut, t_min, t_span, term, role, voted_for, timer,
       timeout, log_term, log_len, term_out, role_out, vf_out, timer_out,
       timeout_out, reset_out, own_lterm_out, cand_out, flags, N, L, N - nb,
-      attack_cut, tgt, atk);
+      attack_cut, tgt, atk, knobs);
   return static_cast<int>(cudaGetLastError());
 }

@@ -93,6 +93,13 @@
 // the target while the lane's attack word is set (the JAX round zeroes the
 // target's votes_in). Listed candidates are up (N > 1), so the JAX round's
 // receiver fold (down0 &= up) cuts nothing here.
+// Their KNOBS instances (a knob batch under the switch: raft.py:367-400
+// under a KnobView) also read, in launch 2, each lane's drop and partition
+// cutoffs for the downlink draws and, under the sticky attack (which the
+// base's sw_tgt >= 0 says), its target for the cut on votes_in, from the
+// lane's row of the table. A lane's target is the int32 of its column: one
+// outside [0, N) cuts no candidate's votes, while launch 1 still writes
+// the attack word from the clamped role read.
 #include <climits>
 
 #include <cuda_runtime.h>
@@ -217,7 +224,7 @@ dense_candidacy_kernel(const uint32_t* __restrict__ seed, uint32_t r,
 }
 
 // Launch 2. A thread per (sweep, receiver), flattened.
-template <int BYZ, bool JAM, bool SWITCH>
+template <int BYZ, bool JAM, bool SWITCH, bool KNOBS>
 __global__ void __launch_bounds__(THREADS)
 dense_grants_kernel(const uint32_t* __restrict__ seed, int32_t t_min,
                     uint32_t t_span, const bool* __restrict__ deliver,
@@ -232,18 +239,28 @@ dense_grants_kernel(const uint32_t* __restrict__ seed, int32_t t_min,
                     int32_t* __restrict__ timeout_out,
                     bool* __restrict__ reset_out, int* __restrict__ votes,
                     int N, long long rows, int n_honest,
-                    const int32_t* __restrict__ atk, Sw sw) {
+                    const int32_t* __restrict__ atk, Sw sw,
+                    const long long* __restrict__ knobs) {
   const long long row =
       static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
   if (row >= rows) return;
   const int b = static_cast<int>(row / N);
   const int j = static_cast<int>(row - static_cast<long long>(b) * N);
   const long long nodes = static_cast<long long>(b) * N;
+  // The sticky cut's target: the base's (in range), or the lane's as it is.
+  int cut_tgt = sw.tgt;
+  if (KNOBS) {
+    sw.a.drop_cut = ctt::knob(knobs, b, ctt::KNOB_DROP);
+    sw.a.part_cut = ctt::knob(knobs, b, ctt::KNOB_PARTITION);
+    if (sw.tgt >= 0)
+      cut_tgt =
+          static_cast<int32_t>(ctt::knob(knobs, b, ctt::KNOB_ATTACK_TARGET));
+  }
   // Whether j's response reaches candidate c: deliver[j, c], or over the
   // switch.
   auto back = [&](int c) -> bool {
     if (!SWITCH) return deliver[row * N + c];
-    if (c == j || (sw.tgt >= 0 && atk[b] != 0 && c == sw.tgt) ||
+    if (c == j || (sw.tgt >= 0 && atk[b] != 0 && c == cut_tgt) ||
         !sw.a.g.up[static_cast<long long>(b) * sw.a.g.phases * N + j])
       return false;
     const ctt::SwitchLane sl = ctt::switch_lane(sw.a, seed[b], sw.r, c);
@@ -389,7 +406,7 @@ dense_winners_kernel(const int32_t* __restrict__ log_len,
 }
 
 using CandidacyKernel = decltype(&dense_candidacy_kernel<false, 0, false>);
-using GrantsKernel = decltype(&dense_grants_kernel<0, false, false>);
+using GrantsKernel = decltype(&dense_grants_kernel<0, false, false, false>);
 
 template <bool CRASH, bool KNOBS>
 CandidacyKernel candidacy_instance(int attack) {
@@ -400,13 +417,25 @@ CandidacyKernel candidacy_instance(int attack) {
              : dense_candidacy_kernel<CRASH, ctt::ATTACK_NONE, KNOBS>;
 }
 
-template <bool JAM, bool SWITCH>
+template <bool JAM, bool SWITCH, bool KNOBS>
 GrantsKernel grants_instance(int byz) {
   return byz == ctt::BYZ_SILENT
-             ? dense_grants_kernel<ctt::BYZ_SILENT, JAM, SWITCH>
+             ? dense_grants_kernel<ctt::BYZ_SILENT, JAM, SWITCH, KNOBS>
          : byz == ctt::BYZ_EQUIV
-             ? dense_grants_kernel<ctt::BYZ_EQUIV, JAM, SWITCH>
-             : dense_grants_kernel<ctt::BYZ_NONE, JAM, SWITCH>;
+             ? dense_grants_kernel<ctt::BYZ_EQUIV, JAM, SWITCH, KNOBS>
+             : dense_grants_kernel<ctt::BYZ_NONE, JAM, SWITCH, KNOBS>;
+}
+
+// Launch 2's instance: the flat path reads no cutoff, so only a switch
+// round has KNOBS instances.
+GrantsKernel grants_pick(bool jam, bool sw_on, bool kn, int byz) {
+  if (sw_on && kn)
+    return jam ? grants_instance<true, true, true>(byz)
+               : grants_instance<false, true, true>(byz);
+  return jam ? (sw_on ? grants_instance<true, true, false>(byz)
+                      : grants_instance<true, false, false>(byz))
+             : (sw_on ? grants_instance<false, true, false>(byz)
+                      : grants_instance<false, false, false>(byz));
 }
 
 }  // namespace
@@ -417,8 +446,8 @@ GrantsKernel grants_instance(int byz) {
 // [B, 1, N] uplink masks and [B, K] table, with the drop, partition and
 // delay settings and the sticky target sw_tgt (-1 without the sticky
 // attack). knobs is a knob batch's [B, 12] table (knobs.cuh; null but in a
-// knob batch, which has no switch round): the churn, attack cutoff and
-// target arguments are then the base's and each lane reads its own.
+// knob batch): the churn, attack cutoff, target, drop, partition and sw_tgt
+// arguments are then the base's and each lane reads its own.
 extern "C" int ctt_dense_elect(
     const uint32_t* seed, uint32_t r, uint32_t churn_cut, int32_t t_min,
     uint32_t t_span, const bool* deliver, const int32_t* term,
@@ -433,7 +462,6 @@ extern "C" int ctt_dense_elect(
     uint32_t part_cut, uint32_t max_delay, int sw_tgt, const long long* knobs,
     cudaStream_t st) {
   if ((up == nullptr) != (tab == nullptr) ||
-      (knobs != nullptr && up != nullptr) ||
       (up != nullptr && (K < 1 || K > N)) ||
       (sw_tgt >= 0 && (atk == nullptr || sw_tgt >= N)))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -473,18 +501,14 @@ extern "C" int ctt_dense_elect(
       rows, attack_cut, tgt, atk, knobs);
   if ((err = static_cast<int>(cudaGetLastError())) != 0) return err;
   const bool jam = attack == ctt::ATTACK_ELECT, sw_on = up != nullptr;
-  const auto grants =
-      jam ? (sw_on ? grants_instance<true, true>(byz)
-                   : grants_instance<true, false>(byz))
-          : (sw_on ? grants_instance<false, true>(byz)
-                   : grants_instance<false, false>(byz));
+  const auto grants = grants_pick(jam, sw_on, knobs != nullptr, byz);
   const Sw sw = {ctt::switch_args(up, tab, K, 1, N, drop_cut, part_cut,
                                   max_delay),
                  r, sw_tgt};
   grants<<<blocks, THREADS, 0, st>>>(
       seed, t_min, t_span, deliver, log_len, cands, n_cand, lterm, term_out,
       role_out, vf_out, timer_out, timeout_out, reset_out, votes, N, rows,
-      N - nb, atk, sw);
+      N - nb, atk, sw, knobs);
   if ((err = static_cast<int>(cudaGetLastError())) != 0) return err;
   const auto winners = crash ? dense_winners_kernel<true>
                              : dense_winners_kernel<false>;

@@ -43,10 +43,12 @@
 // deliver[a, p], when a's phase-1 uplink is open (KAL's mask, a down
 // acceptor already cut) and its aggregator's downlink to p is open
 // (ctt::agg_downlink, drawn only for a winning accept).
-// Its KNOBS instance (a knob batch: the table pointer is not null,
-// knobs.cuh) reads each lane's churn cutoff from the lane's row of the
-// table in place of the argument (launch 1; the other launches read no
-// cutoff).
+// Its KNOBS instances (a knob batch: the table pointer is not null,
+// knobs.cuh) read each lane's churn cutoff from the lane's row of the
+// table in place of the argument (launch 1), and on a switch round
+// (paxos.py:153-176 under a KnobView) its drop and partition cutoffs for
+// the downlink draws (launch 2's SWITCH instance); the other launches read
+// no cutoff.
 #include <cuda_runtime.h>
 
 #include "agg.cuh"
@@ -87,7 +89,7 @@ paxos_gate_kernel(const uint32_t* __restrict__ seed, uint32_t r,
 }
 
 // Launch 2. A block per (lane, acceptor row).
-template <bool SWITCH>
+template <bool SWITCH, bool KNOBS>
 __global__ void __launch_bounds__(THREADS)
 paxos_accept_kernel(const uint32_t* __restrict__ seed, uint32_t r,
                     ctt::SwitchArgs sw, const uint8_t* __restrict__ deliver,
@@ -100,10 +102,15 @@ paxos_accept_kernel(const uint32_t* __restrict__ seed, uint32_t r,
                     int32_t* __restrict__ acc_bal2,
                     int32_t* __restrict__ acc_val2,
                     uint32_t* __restrict__ bits, int n_prop, int N, int S,
-                    int words, bool in_smem) {
+                    int words, bool in_smem,
+                    const long long* __restrict__ knobs) {
   extern __shared__ int32_t smem[];
   const long long row = blockIdx.x;
   const int b = static_cast<int>(row / N);
+  if (KNOBS) {
+    sw.drop_cut = ctt::knob(knobs, b, ctt::KNOB_DROP);
+    sw.part_cut = ctt::knob(knobs, b, ctt::KNOB_PARTITION);
+  }
   const int32_t* lane = props + static_cast<long long>(b) * 4 * N;
   const int32_t* slot_p = lane + ctt::PROP_SLOT * N;
   const int32_t* ballot = lane + ctt::PROP_BALLOT * N;
@@ -225,7 +232,8 @@ paxos_learn_kernel(const uint8_t* __restrict__ prep_del,
 }  // namespace
 
 // knobs is a knob batch's [B, 12] table (knobs.cuh; null but in a knob
-// batch): churn_cut is then the base's and each lane reads its own.
+// batch): churn_cut, drop_cut and part_cut are then the base's and each
+// lane reads its own.
 extern "C" int ctt_paxos_accept_learn(
     const uint32_t* seed, uint32_t r, const uint8_t* deliver,
     const uint8_t* prep_del, const int32_t* new_promised,
@@ -238,18 +246,21 @@ extern "C" int ctt_paxos_accept_learn(
     const int32_t* tab, int K, uint32_t drop_cut, uint32_t part_cut,
     uint32_t max_delay, const long long* knobs, cudaStream_t st) {
   if ((up == nullptr) != (tab == nullptr) ||
-      (up != nullptr && (K < 1 || K > N)) ||
-      (knobs != nullptr && up != nullptr))
+      (up != nullptr && (K < 1 || K > N)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || N == 0) return 0;
   static bool configured = false;
   if (!configured) {
     int err = static_cast<int>(cudaFuncSetAttribute(
-        paxos_accept_kernel<false>,
+        paxos_accept_kernel<false, false>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, ctt::ROW_SMEM_MAX));
     if (err == 0)
       err = static_cast<int>(cudaFuncSetAttribute(
-          paxos_accept_kernel<true>,
+          paxos_accept_kernel<true, false>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, ctt::ROW_SMEM_MAX));
+    if (err == 0)
+      err = static_cast<int>(cudaFuncSetAttribute(
+          paxos_accept_kernel<true, true>,
           cudaFuncAttributeMaxDynamicSharedMemorySize, ctt::ROW_SMEM_MAX));
     if (err == 0)
       err = static_cast<int>(cudaFuncSetAttribute(
@@ -273,14 +284,18 @@ extern "C" int ctt_paxos_accept_learn(
                                        rows, knobs);
   const long long slot_bytes = static_cast<long long>(S) * sizeof(int32_t);
   const bool accept_smem = 2 * slot_bytes <= ctt::ROW_SMEM_MAX;
-  const auto accept = up != nullptr ? paxos_accept_kernel<true>
-                                    : paxos_accept_kernel<false>;
+  // Only a switch round's accepts read a cutoff, so only they have a KNOBS
+  // instance.
+  const auto accept = up == nullptr      ? paxos_accept_kernel<false, false>
+                      : knobs != nullptr ? paxos_accept_kernel<true, true>
+                                         : paxos_accept_kernel<true, false>;
   const ctt::SwitchArgs sw =
       ctt::switch_args(up, tab, K, 2, N, drop_cut, part_cut, max_delay);
   accept<<<static_cast<unsigned>(rows), THREADS,
            accept_smem ? 2 * slot_bytes : 0, st>>>(
       seed, r, sw, deliver, prep_del, props, new_promised, acc_bal, acc_val,
-      promised2, acc_bal2, acc_val2, bits, n_prop, N, S, words, accept_smem);
+      promised2, acc_bal2, acc_val2, bits, n_prop, N, S, words, accept_smem,
+      knobs);
   paxos_count_kernel<<<ctt::tile_blocks(B, N), THREADS, 0, st>>>(
       bits, n_acc, N, words);
   paxos_decide_kernel<<<row_blocks, THREADS, 0, st>>>(n_acc, props, N, rows);

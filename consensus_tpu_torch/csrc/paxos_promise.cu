@@ -50,10 +50,12 @@
 // promises and, beside them, the acceptors with both flat flights
 // delivered that did not promise (the nacks, paxos.py:256, still read the
 // flat mask).
-// Its KNOBS instance (a knob batch: the table pointer is not null,
-// knobs.cuh) reads each lane's churn cutoff from the lane's row of the
-// table in place of the argument (launch 1; the other launches read no
-// cutoff).
+// Its KNOBS instances (a knob batch: the table pointer is not null,
+// knobs.cuh) read each lane's churn cutoff from the lane's row of the
+// table in place of the argument (launch 1), and on a switch round
+// (paxos.py:153-176 under a KnobView) its drop and partition cutoffs for
+// the downlink draws (launch 4's SWITCH instances); the other launches
+// read no cutoff.
 #include <cuda_runtime.h>
 
 #include "agg.cuh"
@@ -151,7 +153,7 @@ paxos_prepare_kernel(const uint8_t* __restrict__ prep_del,
 
 // Launch 4. A block per (proposer chunk, acceptor tile, lane), flattened
 // in that order.
-template <bool CRASH, bool SWITCH>
+template <bool CRASH, bool SWITCH, bool KNOBS>
 __global__ void __launch_bounds__(THREADS)
 paxos_promise_tile_kernel(const uint32_t* __restrict__ seed, uint32_t r,
                           ctt::SwitchArgs sw,
@@ -165,11 +167,15 @@ paxos_promise_tile_kernel(const uint32_t* __restrict__ seed, uint32_t r,
                           int32_t* __restrict__ n_pair,
                           unsigned long long* __restrict__ keys,
                           const unsigned char* __restrict__ flags, int N,
-                          int S) {
+                          int S, const long long* __restrict__ knobs) {
   const ctt::TileBlock tb = ctt::tile_block(N);
   const int p = tb.p;
   if (p >= N) return;
   const int b = tb.b;
+  if (KNOBS) {
+    sw.drop_cut = ctt::knob(knobs, b, ctt::KNOB_DROP);
+    sw.part_cut = ctt::knob(knobs, b, ctt::KNOB_PARTITION);
+  }
   const int32_t* lane = props + static_cast<long long>(b) * 4 * N;
   const bool is_prop = lane[ctt::PROP_FLAG * N + p];
   const int32_t slot = lane[ctt::PROP_SLOT * N + p];
@@ -250,7 +256,8 @@ paxos_unpack_kernel(const unsigned long long* __restrict__ keys,
 }  // namespace
 
 // knobs is a knob batch's [B, 12] table (knobs.cuh; null but in a knob
-// batch): churn_cut is then the base's and each lane reads its own.
+// batch): churn_cut, drop_cut and part_cut are then the base's and each
+// lane reads its own.
 extern "C" int ctt_paxos_promise(
     const uint32_t* seed, uint32_t r, const uint8_t* deliver,
     const int32_t* promised, const int32_t* acc_bal, int32_t* new_promised,
@@ -261,8 +268,7 @@ extern "C" int ctt_paxos_promise(
     uint32_t drop_cut, uint32_t part_cut, uint32_t max_delay,
     const long long* knobs, cudaStream_t st) {
   if ((up == nullptr) != (tab == nullptr) ||
-      (up != nullptr && (K < 1 || K > N)) ||
-      (knobs != nullptr && up != nullptr))
+      (up != nullptr && (K < 1 || K > N)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || N == 0) return 0;
   static bool configured = false;
@@ -307,16 +313,21 @@ extern "C" int ctt_paxos_promise(
       prep_del, props, promised, new_promised, flags, P < N ? P : N, N, S,
       in_smem);
   const bool sw_on = up != nullptr;
+  // Only a switch round's tiles read a cutoff, so only they have KNOBS
+  // instances.
   const auto promise =
-      crash ? (sw_on ? paxos_promise_tile_kernel<true, true>
-                     : paxos_promise_tile_kernel<true, false>)
-            : (sw_on ? paxos_promise_tile_kernel<false, true>
-                     : paxos_promise_tile_kernel<false, false>);
+      sw_on && knobs != nullptr
+          ? (crash ? paxos_promise_tile_kernel<true, true, true>
+                   : paxos_promise_tile_kernel<false, true, true>)
+      : crash ? (sw_on ? paxos_promise_tile_kernel<true, true, false>
+                       : paxos_promise_tile_kernel<true, false, false>)
+              : (sw_on ? paxos_promise_tile_kernel<false, true, false>
+                       : paxos_promise_tile_kernel<false, false, false>);
   const ctt::SwitchArgs sw =
       ctt::switch_args(up, tab, K, 2, N, drop_cut, part_cut, max_delay);
   promise<<<ctt::tile_blocks(B, N), THREADS, 0, st>>>(
       seed, r, sw, deliver, prep_del, props, promised, new_promised, acc_bal,
-      n_prom, n_pair, keys, flags, N, S);
+      n_prom, n_pair, keys, flags, N, S, knobs);
   paxos_unpack_kernel<<<row_blocks, THREADS, 0, st>>>(keys, best_bal, best_a,
                                                        rows);
   return static_cast<int>(cudaGetLastError());

@@ -69,7 +69,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..core import rng
+from ..core import knobs, rng
 from ..core.config import (ATTACK_ELECT, ATTACK_STICKY, BYZ_SILENT,
                            MAX_ACTIVE, Config)
 from ..ops.adversary import (CRASH_DOWN, CRASH_REC, bitcast_i32, churn,
@@ -79,7 +79,8 @@ from ..ops.flight import (add_plain, bucket_counts_plain, check_recorder,
                           window_of)
 from .raft import (NONE, RAFT_LATENCY, RAFT_TELEMETRY, ROLE_C, ROLE_F, ROLE_L,
                    attack_word, bump, check_all, commit_median_plain,
-                   draw_timeout, last_term, match_dtype, timeout_span)
+                   draw_timeout, last_term, match_dtype, target_ids,
+                   timeout_span)
 
 # The engine's name, as the JAX package's EngineDef names it.
 NAME = "raft-sparse"
@@ -308,7 +309,11 @@ def candidacy_plain(cfg: Config, seed, r: int, term, role, voted_for, timer,
     place; returns new (term, role, voted_for, timer, timeout, reset,
     own_lterm, cand_mask), all [B, N], and under a SPEC §A.3 attack
     (``cfg.attack_mode``) also the round's attack word
-    (``raft.attack_word``)."""
+    (``raft.attack_word``). In a knob batch (``cfg`` a view,
+    ``core/knobs.py``) each lane reads its churn and attack cutoffs and
+    its target as [B, 1] columns; a lane's target outside [0, N) shields
+    no leader from the churn but its activation reads the clamped role
+    (``raft.target_ids``, ``knobs.target_role``)."""
     u32 = rng.random_u32_plain
     idx = torch.arange(term.shape[1], dtype=torch.int32, device=term.device)
     atk = attack_word(cfg, seed, r, role)
@@ -320,8 +325,7 @@ def candidacy_plain(cfg: Config, seed, r: int, term, role, voted_for, timer,
     stepdown = churn(seed, r, cfg.churn_cutoff, u32)[:, None] \
         & (role == ROLE_L)
     if cfg.attack_mode == ATTACK_STICKY:
-        stepdown = stepdown & ~((atk != 0)[:, None]
-                                & (idx == cfg.attack_target))
+        stepdown = stepdown & ~((atk != 0)[:, None] & target_ids(cfg, idx))
     role = torch.where(stepdown, ROLE_F, role)
     timer = torch.where(stepdown, 0, timer)
     reset = stepdown
@@ -360,7 +364,9 @@ def candidacy(cfg: Config, seed, r: int, term, role, voted_for, timer,
     ``csrc/candidacy.cu`` (a thread per node, the churn and timeout
     Threefry draws inline; its CRASH instance with ``flags``, its BYZ
     instance with silent byzantine nodes, its ATTACK instances under an
-    attack). Updates nothing in place."""
+    attack, its KNOBS instances with a knob batch's view, whose lanes read
+    their churn and attack cutoffs and target from the view's table,
+    ``core/knobs.py``). Updates nothing in place."""
     if term.device.type == "cpu":
         return candidacy_plain(cfg, seed, r, term, role, voted_for, timer,
                                timeout, log_term, log_len, flags)
@@ -378,21 +384,26 @@ def candidacy(cfg: Config, seed, r: int, term, role, voted_for, timer,
     cand = torch.empty((B, N), dtype=torch.bool, device=dev)
     atk = torch.empty(B, dtype=torch.int32, device=dev) \
         if cfg.attack_mode else None
+    base, table = knobs.static(cfg), knobs.table_ptr(cfg, dev, B)
     _build.launch("candidacy", seed.data_ptr(), int(r) & 0xFFFFFFFF,
-                  cfg.churn_cutoff, cfg.t_min, timeout_span(cfg),
+                  base.churn_cutoff, cfg.t_min, timeout_span(cfg),
                   *(t.data_ptr() for t in (
                       term, role, voted_for, timer, timeout, log_term,
                       log_len, *out, reset, own_lterm, cand)),
                   None if flags is None else flags.data_ptr(), B, N, L,
                   cfg.byz, cfg.n_byzantine, cfg.attack_mode,
-                  cfg.attack_cutoff, cfg.attack_target,
-                  None if atk is None else atk.data_ptr())
+                  base.attack_cutoff, base.attack_target,
+                  None if atk is None else atk.data_ptr(), table)
     candidacy.launches += 1
+    candidacy.knob_launches += table is not None
     out = (*out, reset, own_lterm, cand)
     return out if atk is None else (*out, atk)
 
 
 candidacy.launches = 0
+# Launches of its KNOBS instances (a knob batch), also counted in
+# ``launches``.
+candidacy.knob_launches = 0
 
 
 # --- KF: P2 election -------------------------------------------------------------
@@ -892,7 +903,13 @@ def raft_sparse_round(cfg: Config, st: RaftSparseState, r: int, *,
     gives the new down mask, the flags the CRASH instances of KB, KE, KF
     and KH read, and, with telemetry, the crash tail of the counters.
     Under a SPEC §A.3 attack KE also gives the round's attack word, which
-    KB's and KK's ATTACK instances read."""
+    KB's and KK's ATTACK instances read.
+
+    In a knob batch ``cfg`` is a view (``core/knobs.py``): the wrappers
+    pass the base's cutoffs and the view's table, and the KNOBS instances
+    of KAH, KAL, KE and KB read each lane's drop, partition, churn, crash,
+    recover and attack cutoffs and its target; KC, KF, KG, KI, KD and KH
+    read no knob, and KK only KE's attack word."""
     B, N = st.term.shape
     A = cfg.max_active
     seed = st.seed
@@ -925,18 +942,24 @@ def raft_sparse_round(cfg: Config, st: RaftSparseState, r: int, *,
                                   st.voted_for, st.timer, st.timeout,
                                   log_term, st.log_len, *crash)
     # KB's ATTACK instance: the sticky target's inbound edges on every call,
-    # every edge of P2's two calls under an elect jam.
-    sticky = (atk[0], cfg.attack_target) \
+    # every edge of P2's two calls under an elect jam. In a knob batch the
+    # cutoffs and the sticky target passed are the base's, and KB's KNOBS
+    # instances read each lane's from the view's table.
+    base = knobs.static(cfg)
+    sticky = (atk[0], base.attack_target) \
         if cfg.attack_mode == ATTACK_STICKY else None
     jam = (atk[0], -1) if cfg.attack_mode == ATTACK_ELECT else sticky
 
     def dedge(ids, ids_are_src, attack=None, sw=None):
-        flags = crash if attack is None else (crash or (None,)) + (attack,)
-        if sw is not None:
-            flags = (crash or (None,)) + (attack, sw)
-        return delivery_edges(seed, r, ids, N, cfg.drop_cutoff,
-                              cfg.partition_cutoff, ids_are_src,
-                              cfg.max_delay_rounds, *flags)
+        # The optional arguments by position, without trailing unset ones,
+        # as the flat path always called KB.
+        extra = [crash[0] if crash else None, attack, sw,
+                 knobs.table_of(cfg)]
+        while extra and extra[-1] is None:
+            extra.pop()
+        return delivery_edges(seed, r, ids, N, base.drop_cutoff,
+                              base.partition_cutoff, ids_are_src,
+                              cfg.max_delay_rounds, *extra)
 
     # ---- P2 election over the active candidate set (SPEC §3b; KC, KB, KF),
     # with the leader mask that KC and KI read.

@@ -6,9 +6,9 @@ PBFT engine, the Paxos, the DPoS and the HotStuff engine alike, and of
 ``consensus_tpu/engines/pbft_sweep.py``'s ``_fsweep_jit``: a PBFT f-ladder
 is one run whose lanes carry their own population and tolerance. And of
 the JAX runner's ``run_knob_batch`` (``_knob_batch_jit``, K23) on every
-engine but the capped Raft one (dense Raft and Paxos without the switch):
-a generation of adversary-search candidates as the lanes of one run, each
-lane with its own row of adversary cutoffs (``core/knobs.py``).
+engine, with the switch too: a generation of adversary-search candidates
+as the lanes of one run, each lane with its own row of adversary cutoffs
+(``core/knobs.py``).
 
 Sweeps (lanes) are the leading batch axis of every state tensor. A run's
 per-lane inputs are its seeds and, for PBFT, each lane's ``n_real`` and
@@ -71,12 +71,13 @@ SWITCH_KERNELS = tuple((_WRAPPER_MODULES[name], name) for name in (
 # The wrappers with KNOBS instances (a knob batch's lanes read their own
 # cutoffs), whose launches of those are counted apart on the wrapper's
 # ``knob_launches`` (and in ``launches``).
-KNOB_KERNELS = tuple((_WRAPPER_MODULES[name], name) for name in (
+KNOB_KERNELS = tuple((_WRAPPER_MODULES.get(name, raft_sparse), name)
+                     for name in (
     "hotstuff_prologue", "hotstuff_propose", "hotstuff_vote", "agg_round",
     "crash_transition", "bcast_view_preprepare", "delivery",
     "pbft_view_preprepare", "switch_combine", "switch_receive",
     "dense_elect", "paxos_promise", "paxos_accept_learn", "dpos_round",
-    "dpos_telemetry"))
+    "dpos_telemetry", "candidacy", "delivery_edges"))
 
 
 class Engine(NamedTuple):
@@ -456,12 +457,10 @@ def run(cfg: Config, device=None, *, telemetry: bool = False,
 
 # --- K23: a generation of adversary-search candidates as one run --------------
 
-# The engines a knob batch runs (the others raise rather than capture a run
-# a lane): all but the capped Raft engine; dense Raft and Paxos only without
-# the switch.
+# The engines a knob batch runs: all seven, each with the switch too, as the
+# JAX package's run_knob_batch.
 KNOB_ENGINES = (hotstuff.NAME, pbft.NAME, pbft_bcast.NAME, raft.NAME,
-                paxos.NAME, dpos.NAME)
-KNOB_FLAT_ONLY = (raft.NAME, paxos.NAME)
+                raft_sparse.NAME, paxos.NAME, dpos.NAME)
 
 
 def _knob_graph_key(cfg: Config, dev: torch.device) -> tuple:
@@ -488,14 +487,6 @@ def knob_batch_device(cfg: Config, seeds, kmat, device=None) -> RunOutput:
         raise ValueError("run_knob_batch needs telemetry_window > 0: "
                          "candidate fitness is read off the flight "
                          "recorder series (obs/timeline)")
-    eng = engine(cfg)
-    flat_only = eng.name in KNOB_FLAT_ONLY and cfg.switch_on
-    if eng.name not in KNOB_ENGINES or flat_only:
-        raise ValueError(
-            f"run_knob_batch runs the {', '.join(KNOB_ENGINES)} engines "
-            f"only ({' and '.join(KNOB_FLAT_ONLY)} without the switch); the "
-            f"{eng.name} engine{' under the switch' if flat_only else ''} "
-            "is not ported yet")
     seeds = np.asarray(seeds, dtype=np.uint32)
     kmat = np.asarray(kmat, dtype=np.uint32)
     if seeds.ndim != 1 or kmat.shape != (seeds.shape[0], knobs.N_KNOBS):
@@ -537,13 +528,13 @@ def run_knob_batch(cfg: Config, seeds, kmat, *, device=None,
     vector, one a lane; ``kmat[c]`` is lane c's row of u32 cutoffs in
     :data:`~consensus_tpu_torch.core.knobs.KNOB_COLUMNS` order, and C must
     be ``cfg.n_sweeps``. A lane whose row is a config's cutoffs reproduces
-    that config's run from the lane's seed bit for bit. The engines are
-    HotStuff, dense and §6b PBFT (each with the switch too), dense Raft
-    (with the §A.3 attacks; a lane's attack target is the int32 of its
-    column, read as the JAX package's traced index reads it, so an
-    out-of-range one jams nothing), Paxos and DPoS; the capped Raft engine,
-    and dense Raft and Paxos under the switch, raise. On ``cuda`` a
-    generation is the replay of one CUDA graph
+    that config's run from the lane's seed bit for bit. Every engine runs
+    one: HotStuff, dense and §6b PBFT, dense and capped Raft (with the
+    §A.3 attacks; a lane's attack target is the int32 of its column, read
+    as the JAX package's traced index reads it, so an out-of-range one
+    jams nothing but its rounds still count), Paxos and DPoS, each with
+    the switch too. On ``cuda`` a generation is the replay of one CUDA
+    graph
     (:func:`knob_batch_device`), whose static inputs are the seeds, the
     knob table and, for PBFT, each lane's full ``n_real`` and ``f``;
     generations of one base share its capture; the CPU runs the rounds

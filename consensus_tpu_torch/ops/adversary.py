@@ -188,7 +188,8 @@ def open_drop_plain(useed, r: int, i, j, drop_cut: int,
 def delivery_edges_plain(seed, r: int, ids, n: int, drop_cut: int,
                          part_cut: int, ids_are_src: bool,
                          max_delay: int = 0, flags=None,
-                         attack=None, switch=None) -> torch.Tensor:
+                         attack=None, switch=None,
+                         knobs=None) -> torch.Tensor:
     """Plain version of KB: the SPEC §2 delivery mask between the [B, A]
     ids and all ``n`` node ids: [B, A, n] (ids send) when ``ids_are_src``,
     else [B, n, A] (ids receive), with the §A.2 retransmissions of the
@@ -208,7 +209,21 @@ def delivery_edges_plain(seed, r: int, ids, n: int, drop_cut: int,
     node j reaches ids[k] when j != ids[k], j's uplink is open and its
     aggregator's downlink to ids[k] is open (``raft_sparse.py:301-334``:
     the two-hop ``up0[j] & down0[a(j), c]`` that the JAX round sums per
-    candidate), with the crash and attack cuts above at the receiver."""
+    candidate), with the crash and attack cuts above at the receiver.
+
+    With ``knobs``, a knob batch's [B, 12] int64 table (``core/knobs.py``),
+    each lane reads its drop and partition cutoffs and, under the sticky
+    attack (``dst`` >= 0: the base's target), its target from its row in
+    place of the arguments, as the kernel's KNOBS instances do. A lane's
+    target is the int32 of its column (:func:`~consensus_tpu_torch.core.
+    knobs.signed_target`), so one outside [0, n) jams no receiver; ``dst``
+    = -1 stays the elect jam of every receiver."""
+    if knobs is not None:
+        drop_cut = knob_column(knobs, "drop_cutoff")
+        part_cut = knob_column(knobs, "partition_cutoff")
+        if attack is not None and attack[1] >= 0:
+            attack = (attack[0], signed_target(knob_column(
+                knobs, "attack_target")))
     if switch is not None:
         from .aggregate import resp_plain
         if ids_are_src:
@@ -223,9 +238,8 @@ def delivery_edges_plain(seed, r: int, ids, n: int, drop_cut: int,
             out = out & upc.gather(1, ids.clamp(0, n - 1).to(torch.int64)
                                    )[:, None, :]
         if attack is not None:
-            word, dst_id = attack
-            hit = (ids == dst_id)[:, None, :] if dst_id >= 0 else True
-            out = out & ~((word != 0)[:, None, None] & hit)
+            out = out & ~((attack[0] != 0)[:, None, None]
+                          & _jammed(ids[:, None, :], attack[1]))
         return out
     nodes = torch.arange(n, dtype=torch.int32, device=ids.device)[None, :]
     if ids_are_src:
@@ -253,24 +267,37 @@ def delivery_edges_plain(seed, r: int, ids, n: int, drop_cut: int,
         up_d = up[bi, dst.clamp(0, n - 1).to(torch.int64)]
         out = out & up_s & up_d
     if attack is not None:
-        word, dst_id = attack
-        hit = dst.expand(out.shape) == dst_id if dst_id >= 0 else True
-        out = out & ~((word != 0)[:, None, None] & hit)
+        out = out & ~((attack[0] != 0)[:, None, None]
+                      & _jammed(dst, attack[1]))
     return out
+
+
+def _jammed(dst, dst_id):
+    """Where an attack word cuts an edge into receiver ``dst`` (ids
+    of rank 3 led by the lane axis, or broadcasting to it): every receiver
+    for ``dst_id`` -1 (the elect jam), else the receiver ``dst_id``, an int
+    or a knob batch's [B, 1] column of signed targets."""
+    if isinstance(dst_id, torch.Tensor):
+        return dst == dst_id.reshape(-1, 1, 1)
+    if dst_id >= 0:
+        return dst == dst_id
+    return torch.ones_like(dst, dtype=torch.bool)
 
 
 def delivery_edges(seed, r: int, ids, n: int, drop_cut: int, part_cut: int,
                    ids_are_src: bool, max_delay: int = 0, flags=None,
-                   attack=None, switch=None) -> torch.Tensor:
+                   attack=None, switch=None, knobs=None) -> torch.Tensor:
     """Kernel KB: same arguments and result as :func:`delivery_edges_plain`,
     which it runs for CPU tensors; for CUDA tensors it launches
     ``csrc/delivery_edges.cu`` (its CRASH instance with ``flags``, its
-    ATTACK instance with ``attack``, its SWITCH instance with
-    ``switch``)."""
+    ATTACK instance with ``attack``, its SWITCH instance with ``switch``,
+    its KNOBS instances with ``knobs``, where the cutoff arguments and a
+    sticky ``attack``'s target are the base's, which pick the instance and
+    the attack, and each lane reads its own from the table)."""
     if ids.device.type == "cpu":
         return delivery_edges_plain(seed, r, ids, n, drop_cut, part_cut,
                                     ids_are_src, max_delay, flags, attack,
-                                    switch)
+                                    switch, knobs)
     if switch is not None and ids_are_src:
         raise ValueError("the switch carries responses: ids receive")
     from .. import _build
@@ -289,6 +316,8 @@ def delivery_edges(seed, r: int, ids, n: int, drop_cut: int, part_cut: int,
                 or not 1 <= switch[1].shape[1] <= n:
             raise ValueError("switch = (up [B, n] with adjacent nodes, "
                              "tab [B, K]), 1 <= K <= n")
+    if knobs is not None:
+        _build.check(knobs, torch.int64, ids.device, (B, N_KNOBS))
     shape = (B, A, n) if ids_are_src else (B, n, A)
     out = torch.empty(shape, dtype=torch.bool, device=ids.device)
     _build.launch("delivery_edges", seed.data_ptr(), int(r) & 0xFFFFFFFF,
@@ -299,15 +328,20 @@ def delivery_edges(seed, r: int, ids, n: int, drop_cut: int, part_cut: int,
                   -1 if attack is None else int(attack[1]),
                   *((None, None, 0, 0) if switch is None else (
                       switch[0].data_ptr(), switch[1].data_ptr(),
-                      switch[1].shape[1], switch[0].stride(0))))
+                      switch[1].shape[1], switch[0].stride(0))),
+                  None if knobs is None else knobs.data_ptr())
     delivery_edges.launches += 1
     delivery_edges.switch_launches += switch is not None
+    delivery_edges.knob_launches += knobs is not None
     return out
 
 
 delivery_edges.launches = 0
 # Launches of its SWITCH instance (SPEC §9), also counted in ``launches``.
 delivery_edges.switch_launches = 0
+# Launches of its KNOBS instances (a knob batch), also counted in
+# ``launches``.
+delivery_edges.knob_launches = 0
 
 
 # The Raft engines' leader role (engines/raft.py ROLE_L), which the SPEC

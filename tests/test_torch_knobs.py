@@ -12,9 +12,10 @@ hotstuff-forked-qc-1k's at N = 1024 cut to 16 rounds and 2 lanes. Each
 generation's rows come from ``search.knob_row``, with one row equal to the
 base and one that zeroes a gated-on knob; those two lanes also equal port
 production runs of their own configs. Then the usage errors of
-tests/test_advsearch.py:111-137 with the JAX package's messages, the
-engines not covered yet, the view itself and the graph key. Tolerance:
-exact.
+tests/test_advsearch.py:111-137 with the JAX package's messages, small
+bases of the capped Raft engine and of dense Raft and Paxos under the
+switch against the JAX package's batch, the view itself and the graph key.
+Tolerance: exact.
 """
 import dataclasses
 
@@ -24,10 +25,10 @@ import pytest
 torch = pytest.importorskip("torch")
 import torch_threads  # noqa: E402,F401  (bounds torch's CPU threads)
 
+from consensus_tpu import Config as JConfig  # noqa: E402
 from consensus_tpu.core import knobs as jknobs  # noqa: E402
 from consensus_tpu.network import runner as jrunner  # noqa: E402
 from consensus_tpu.network import simulator as jsim  # noqa: E402
-from consensus_tpu_torch import Config  # noqa: E402
 from consensus_tpu_torch.core import knobs  # noqa: E402
 from consensus_tpu_torch.network import runner  # noqa: E402
 from tools.advsearch import search  # noqa: E402
@@ -176,7 +177,9 @@ def _jax_gates(cfg):
             "byz_uplink_cutoff": cfg.uplink_lies_on}
 
 
-UNCOVERED = {
+# Three small bases of the capped Raft engine, and of dense Raft and Paxos
+# under the SPEC §9 switch.
+CAPPED_AND_SWITCH = {
     "raft-capped": dict(protocol="raft", n_nodes=16, max_active=4,
                         log_capacity=32, max_entries=24),
     "raft-switch": dict(protocol="raft", n_nodes=7, log_capacity=32,
@@ -186,20 +189,29 @@ UNCOVERED = {
 }
 
 
-@pytest.mark.parametrize("name", sorted(UNCOVERED))
-def test_knob_batch_raises_on_engines_not_covered(name):
-    """Every engine this port's knob batch does not run yet raises,
-    naming the engine (and the switch where only that is missing); none
-    falls back to a run a lane."""
-    cfg = Config(n_rounds=8, n_sweeps=2, seed=1, telemetry_window=4,
-                 **UNCOVERED[name])
-    kmat = np.array([knobs.base_row(cfg)] * 2, np.uint32)
-    where = " under the switch" if cfg.switch_on else ""
-    with pytest.raises(ValueError,
-                       match=f"the {runner.engine(cfg).name} engine{where} "
-                       "is not ported"):
-        runner.run_knob_batch(cfg, runner.make_seeds(cfg), kmat,
-                              device="cpu")
+@pytest.mark.parametrize("name", sorted(CAPPED_AND_SWITCH))
+def test_knob_batch_capped_and_switch_engines_equal_jax(name):
+    """The capped Raft engine, and dense Raft and Paxos under the switch,
+    run a knob batch as the JAX package's does: no engine raises, and two
+    lanes (the base's row and one with another drop) equal JAX's batch."""
+    jcfg = JConfig(n_rounds=8, n_sweeps=2, seed=1, telemetry_window=4,
+                   **CAPPED_AND_SWITCH[name])
+    cfg = port(jcfg)
+    assert runner.engine(cfg).name in runner.KNOB_ENGINES
+    kmat = np.array([knobs.base_row(cfg),
+                     knobs.base_row(dataclasses.replace(cfg,
+                                                        drop_rate=0.4))],
+                    np.uint32)
+    seeds = runner.make_seeds(cfg)
+    out, flight = runner.run_knob_batch(cfg, seeds, kmat, device="cpu")
+    jout, jflight = jrunner.run_knob_batch(jcfg, jsim.engine_def(jcfg),
+                                           seeds, kmat)
+    assert set(out) == set(jout), name
+    for k, v in jout.items():
+        np.testing.assert_array_equal(out[k], np.asarray(v),
+                                      err_msg=f"{name} {k}")
+        assert out[k].dtype == np.asarray(v).dtype, (name, k)
+    _same_flight(flight, jflight, name)
 
 
 def test_knob_view_rejects_unknown_knob():
