@@ -16,7 +16,9 @@ Phases, each printing one JSON line:
                engine) on rounds 3 (the first election) and 20 or 100 (a
                leader in every sweep) of raft-1kx1k and raft-5node, on
                rounds of hostile runs, on random states and on built ones
-               (a re-grant, two leaders of different terms in one P3c); KP
+               (a re-grant, two leaders of different terms in one P3c; KO
+               at E = 0 and E = L, its CRASH and silent BYZ instances, and
+               one sweep of N = 29 100 for its GLOBAL instance); KP
                (its telemetry) on raft-1kx1k's rounds 3 and 20 and on edge
                inputs. KQ-KS (dense PBFT) on rounds 3 and 20 of the
                fs = 1..128 ladder (B = 128 lanes of 385 nodes, 32 slots)
@@ -34,7 +36,8 @@ Phases, each printing one JSON line:
                full), on the hostile DPoS run's seeds and rounds (uint16
                chains, full from round 128), on zero tallies tied across
                candidates, one candidate, C = 70 000, 72 000 (lane,
-               epoch) pairs, and random states with int32 chain_p and
+               epoch) pairs, all-equal tallies, V = C = K = 2 000 and
+               V = 4 099, and random states with int32 chain_p and
                full chains. KY-KZ (Paxos) on
                paxos-10kx10k's rounds 0, 1 and 15, on the hostile Paxos
                run's rounds, on random states whose accepted ballots tie
@@ -1475,7 +1478,8 @@ def dense_edge_inputs(dev, gen) -> dict:
             "edge inputs: no P3c reject")
     out["dense_append"].append(kn)
 
-    # KO on random acks: bump3, decrements, matches above E.
+    # KO on random acks: bump3, decrements, matches above E, several
+    # processing leaders in a sweep.
     ko = (cfg, seeds, deliver, coin(0.3, (B, n)), ri(-1, n, (B, n)),
           coin(0.5, (B, n)), ri(0, L + 1, (B, n)), logt, term, role, vf,
           timeout, commit, match, nxt, timer, reset)
@@ -1484,8 +1488,57 @@ def dense_edge_inputs(dev, gen) -> dict:
     require(int((after[14] < nxt).sum()) > 0, "edge inputs: no decrement")
     require(int((ko[3] & (role == 2) & (after[9] == 0)).sum()) > 0,
             "edge inputs: no bump3")
+    require(int(dense_ack_work(ko)["proc"].sum(1).max()) >= 2,
+            "edge inputs: no sweep with several processing leaders")
     out["dense_acks_commit"].append(ko)
+    # The same state at E = 0 and E = L, under its CRASH instance (down
+    # nodes keep their timers) and under its BYZ instance (the acks of
+    # nodes 924 and up withheld).
+    for kw in (dict(max_entries=0), dict(max_entries=L),
+               dict(n_byzantine=100, byz_mode="silent")):
+        out["dense_acks_commit"].append(
+            (dense_config("raft-1kx1k", **kw), *ko[1:]))
+    out["dense_acks_commit"].append(
+        (*ko, ri(0, 8, (B, n), torch.uint8)))
+    out["dense_acks_commit"].append(global_ko_state(dev, gen))
     return out
+
+
+def global_ko_state(dev, gen):
+    """KO's arguments for one sweep of N = 29 100 nodes, whose ack-term
+    maxima, flags and list (4 (2N + 1) bytes) exceed a block's shared
+    memory and so select its GLOBAL instance: 40 leaders of terms 1-3,
+    most nodes acking one of them, match rows over 0..255."""
+    from consensus_tpu_torch.engines import raft
+    n = 29_100
+    cfg = dense_config("raft-1kx1k", n_nodes=n, n_sweeps=1)
+
+    def ri(lo, hi, shape, dtype=torch.int32):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev,
+                             dtype=dtype)
+    leaders = torch.randperm(n, generator=gen, device=dev)[:40]
+    ack_to = leaders[ri(0, 40, (1, n)).to(torch.int64)].to(torch.int32)
+    ack_to[ri(0, 5, (1, n)) == 0] = -1
+    term, role = ri(1, 4, (1, n)), ri(0, 2, (1, n))
+    was_leader = torch.zeros((1, n), dtype=torch.bool, device=dev)
+    role[0, leaders], was_leader[0, leaders] = 2, True
+    deliver = torch.rand((1, n, n), generator=gen, device=dev) < 0.9
+    ko = (cfg, torch.tensor([77], dtype=torch.uint32, device=dev), deliver,
+          was_leader, ack_to, ri(0, 4, (1, n)) > 0, ri(0, L + 1, (1, n)),
+          ri(1, 4, (1, n, L)), term, role, ri(-1, n, (1, n)),
+          ri(1, 9, (1, n)), ri(0, 50, (1, n)),
+          ri(0, 256, (1, n, n), torch.uint8),
+          ri(0, 256, (1, n, n), torch.uint8), ri(0, 9, (1, n)),
+          ri(0, 3, (1, n)) == 0)
+    proc = dense_ack_work(ko)["proc"]
+    require(4 * (2 * n + 1) > 232_448 and 2 <= int(proc.sum()) < 40,
+            "edge inputs: no GLOBAL state with several processing and "
+            "bumped leaders")
+    after = clone_args(ko)
+    raft.dense_acks_commit_plain(*after)
+    require(bool((after[12] != ko[12]).any()), "edge inputs: the GLOBAL "
+            "state advances no commit")
+    return ko
 
 
 def dense_ack_work(args) -> dict:
@@ -2408,12 +2461,23 @@ def schedule_args(cfg, device="cuda"):
     return (cfg, runner.device_lanes(cfg, None, device)["seed"])
 
 
+# A DPoS shape whose lane 1 has two epochs (1 and 7) of all-equal
+# tallies, 1 053 each: ties to the lower id (found by search over seeds).
+DPOS_EQUAL = dict(n_nodes=4, n_candidates=2, n_producers=2, epoch_len=1,
+                  n_rounds=8, n_sweeps=2, seed=24)
+
+
 def dpos_edge_inputs(dev, gen) -> dict:
     """Inputs on which KW's and KX's rare paths fire: {name: [args]}. KW
-    on the hostile run's seeds, on V = C = 20 with K = C (candidates
-    without a vote, zero tallies tied), on one candidate, and on C =
-    70 000 (K = 5), and on 9 000 lanes of 8 epochs each (72 000 (lane,
-    epoch) pairs, past the 65 535 blocks of a grid's y or z); KX on rounds of the hostile run (partitions, churn,
+    on the hostile run's seeds (3 lanes, V = 20 000), on V = C = 20 with
+    K = C (candidates without a vote, zero tallies tied; one block a
+    lane), on one candidate, on C = 70 000 (K = 5; past the clusters'
+    shared memory: the RANKS instance), on 9 000 lanes of 8 epochs each
+    (72 000 (lane, epoch) pairs, past the 65 535 blocks of a grid's y or
+    z), on DPOS_EQUAL (all-equal tallies), on V = C = K = 2 000 (C not a
+    multiple of 32, C = K: every key in the union), and on V = 4 099
+    (chunks that do not divide V), C = 45; KX on rounds of the hostile
+    run (partitions, churn,
     uint16 chains, every chain full from round 128 on) and on random
     states of int32 chain_p (C = 70 000), a third of the chains full."""
     from consensus_tpu_torch.engines import dpos
@@ -2429,10 +2493,18 @@ def dpos_edge_inputs(dev, gen) -> dict:
                         n_producers=1),
         protocol_config(DPOS_HOSTILE, n_nodes=6, n_candidates=4,
                         n_producers=2, epoch_len=1, n_rounds=8,
-                        n_sweeps=9_000))]}
+                        n_sweeps=9_000),
+        protocol_config(DPOS_HOSTILE, **DPOS_EQUAL),
+        protocol_config(DPOS_HOSTILE, n_nodes=2_000, n_candidates=2_000,
+                        n_producers=2_000),
+        protocol_config(DPOS_HOSTILE, n_nodes=4_099, n_candidates=45,
+                        n_producers=21))]}
     zero = dpos.dpos_schedule_plain(*out["dpos_schedule"][2])[1]
     require(bool((zero == 0).sum(2).ge(2).any()),
             "edge inputs: no zero tallies tied")
+    equal = dpos.dpos_schedule_plain(*out["dpos_schedule"][5])[1]
+    require(bool(((equal == equal[..., :1]) & (equal > 0)).all(2).any()),
+            "edge inputs: no epoch whose tallies are all equal")
     kx = [got["dpos_round"] for got in capture_round_inputs(
         hostile, (5, 150, 299), ("dpos_round",), dev).values()]
     require(bool((kx[-1][6] == hostile.log_capacity).all()),

@@ -196,8 +196,9 @@ SIGNATURES = {
     # committed, dval, timer outputs, minima scratch; B, N, S, §6c (bit 2
     # of the node bits read); n_real (null on the flat path), n_byzantine
     "bcast_decide": (_P,) * 10 + (_I,) * 4 + (_P, _I),
-    # seeds; producers, tallies outputs; B, E, V, C, K
-    "dpos_schedule": (_P,) * 3 + (_I,) * 5,
+    # seeds; producers, tallies outputs; partials scratch (null: the RANKS
+    # instance); B, E, V, C, K, partials a lane
+    "dpos_schedule": (_P,) * 4 + (_I,) * 6,
     # seed, round, producers; chain_r, chain_p, chain_len (in place),
     # append counts (null without telemetry); chain_r and chain_p element
     # sizes, the round's producer index within a lane's list and the

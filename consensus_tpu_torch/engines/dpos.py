@@ -97,6 +97,11 @@ def n_epochs(cfg: Config) -> int:
 
 # --- KW: the epoch schedule --------------------------------------------------
 
+# The most candidates whose keys kernel KW ranks in its clusters' shared
+# memory (csrc/dpos_schedule.cu KEYS_MAX_C); past it the RANKS instance.
+KEYS_MAX_C = 16_384
+
+
 def dpos_schedule_plain(cfg: Config, seeds) -> tuple:
     """Plain version of KW, SPEC §7's schedule for each seed of ``seeds``
     ([B] uint32). Validator v's stake is ``draw(STAKE, 0, 0, v) mod 1000 +
@@ -136,11 +141,20 @@ def top_producers_plain(tallies, K: int) -> torch.Tensor:
 def dpos_schedule(cfg: Config, seeds) -> tuple:
     """Kernel KW: same arguments and result as :func:`dpos_schedule_plain`,
     which it runs for CPU tensors; for CUDA tensors it launches
-    ``csrc/dpos_schedule.cu`` (a thread per (lane, validator) draws its
-    stake once and adds it into its vote's tally of every epoch with an
-    integer atomic, then a
-    thread per (lane, epoch, candidate) counts the candidates ranked before
-    it and, when that rank is below K, writes its id there)."""
+    ``csrc/dpos_schedule.cu``: G blocks a lane (G the card's SMs over the
+    lanes, at most one a 256 validators) draw each validator's stake and
+    votes once, into an [E, C] histogram in shared memory stored as the
+    lane's partial g; then a thread block cluster a (lane, epoch) sums the
+    partials in slices of candidates, packs each tally as a u64 key (the
+    negated tally's order word high, the id low), ranks the keys by
+    counting within each slice and then, for the first min(K, slice) of
+    every slice, within their union in the first block, and writes the
+    first K ids at their ranks. Two launches, no memset, no global atomic:
+    ascending keys are the plain version's stable order, and modular sums
+    and distinct keys make the result independent of order. Past C =
+    KEYS_MAX_C its RANKS instance
+    runs (global atomics into the zeroed tallies, then a thread per
+    candidate counts the candidates ranked before it)."""
     if seeds.device.type == "cpu":
         return dpos_schedule_plain(cfg, seeds)
     from .. import _build
@@ -150,8 +164,15 @@ def dpos_schedule(cfg: Config, seeds) -> tuple:
     _build.check(seeds, torch.uint32, dev, (B,))
     producers = torch.empty((B, E, K), dtype=torch.int32, device=dev)
     tallies = torch.empty((B, E, C), dtype=torch.int32, device=dev)
+    G, partials = 0, None
+    if C <= KEYS_MAX_C:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        G = max(1, min(-(-V // 256), -(-sms // max(B, 1))))
+        partials = torch.empty((B, G, E, C), dtype=torch.int32, device=dev)
     _build.launch("dpos_schedule", seeds.data_ptr(), producers.data_ptr(),
-                  tallies.data_ptr(), B, E, V, C, K)
+                  tallies.data_ptr(),
+                  None if partials is None else partials.data_ptr(),
+                  B, E, V, C, K, G)
     dpos_schedule.launches += 1
     return producers, tallies
 

@@ -655,13 +655,20 @@ def dense_acks_commit(cfg: Config, seed, deliver, was_leader, ack_to, ack_ok,
                       flags=None) -> None:
     """Kernel KO: same arguments and in-place updates as
     :func:`dense_acks_commit_plain`, which it runs for CPU tensors; for
-    CUDA tensors it launches ``csrc/dense_acks_commit.cu`` (a thread per
-    node takes its delivered ack's term into its leader's maximum, a
-    thread per leader bumps or lists it as processing, a thread per node
-    applies its ack to its leader's row and counts its timer, then a block
-    per sweep reads each processing leader's median off a 256-bin
-    histogram of its row; its CRASH instance with ``flags``, its BYZ
-    instance with silent byzantine nodes)."""
+    CUDA tensors it launches ``csrc/dense_acks_commit.cu``: one launch, a
+    block a sweep, whose threads hold their nodes' fields (read in two
+    waves), take their delivered acks' terms into their leaders' maxima
+    (shared atomics), bump or list each leader as processing and count the
+    timers, and apply the acks to the processing leaders' rows. The
+    sweep's first node that still leads has its median taken off a
+    histogram of its row as the acks leave it, from entries read before
+    them; every other processing leader takes a warp and the JAX round's
+    binary search over its finished row. The maxima, flags and list live
+    in shared memory, or past N = 29 055 in ``scratch`` (its GLOBAL
+    instance); its CRASH instance runs with ``flags``, its BYZ instance
+    with silent byzantine nodes. A max, one writer an entry and each
+    median over its own row make the result independent of thread and
+    leader order."""
     if term.device.type == "cpu":
         return dense_acks_commit_plain(cfg, seed, deliver, was_leader,
                                        ack_to, ack_ok, ack_match, log_term,
@@ -682,9 +689,10 @@ def dense_acks_commit(cfg: Config, seed, deliver, was_leader, ack_to, ack_ok,
               (match_idx, torch.uint8, (B, N, N)),
               (next_idx, torch.uint8, (B, N, N)),
               *(() if flags is None else ((flags, torch.uint8, (B, N)),)))
-    # Ack-term maxima and processing-leader count (zeroed by the kernel),
-    # the processing flags and the processing leaders' list.
-    scratch = torch.empty(B * (1 + 3 * N), dtype=torch.int32, device=dev)
+    # Each sweep's ack-term maxima (then processing flags), processing
+    # list and count, where they do not fit in shared memory (zeroed by
+    # the kernel's block).
+    scratch = torch.empty(B * (2 * N + 1), dtype=torch.int32, device=dev)
     _build.launch("dense_acks_commit", seed.data_ptr(), cfg.t_min,
                   timeout_span(cfg), *(t.data_ptr() for t in (
                       deliver, was_leader, ack_to, ack_ok, ack_match,

@@ -7,9 +7,11 @@ equal, tolerance 0: whole runs (digest, every extract leaf, the
 last-irreversible index ``lib``) at ``tests/test_dpos.py``'s configs and at
 dpos-100k's knobs cut to V = 2 000, one round from a converted JAX carry
 and from random states (full chains among them), the epoch schedule
-(producers and tallies, zero tallies tied across candidates), a numpy model
-of kernel KW's rank count on adversarial tallies, and chip_smoke.py's
-hostile DPoS anchor made again by the JAX package.
+(producers and tallies, zero tallies tied across candidates), numpy models
+of kernel KW on adversarial tallies (its RANKS instance's rank count, its
+packed u64 keys and its clusters' counted ranks) and of its partial
+tallies, and chip_smoke.py's hostile DPoS anchor made again by the JAX
+package.
 """
 import dataclasses
 import importlib.util
@@ -25,6 +27,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from consensus_tpu import Config as JConfig  # noqa: E402
+from consensus_tpu.core import rng as jrng  # noqa: E402
 from consensus_tpu.engines import dpos as jdpos  # noqa: E402
 from consensus_tpu.engines.raft import _store_dtype  # noqa: E402
 from consensus_tpu.network import runner as jrunner  # noqa: E402
@@ -135,7 +138,8 @@ def test_schedule_matches_jax(kw):
 
 
 def rank_model(tallies: np.ndarray, K: int) -> np.ndarray:
-    """A numpy model of kernel KW's launch 2: each candidate i of an epoch
+    """A numpy model of kernel KW's RANKS instance (C > 16 384), its
+    second launch: each candidate i of an epoch
     counts the candidates j ranked before it, by the wrapped negated tally
     (key_j < key_i, or key_j == key_i and j < i), and is written at that
     rank when it is below K."""
@@ -168,6 +172,121 @@ def test_rank_model_matches_the_plain_order(C, K):
     jax_order = np.asarray(jnp.argsort(-jnp.asarray(t), axis=-1,
                                        stable=True))[:, :K]
     assert np.array_equal(want, jax_order)
+
+
+def packed_keys(tallies: np.ndarray) -> np.ndarray:
+    """Kernel KW's u64 keys of [..., C] int32 tallies: high word the
+    wrapped negated tally as u32 xor 0x80000000, low word the id."""
+    neg = (-tallies.astype(np.int64)).astype(np.uint32)
+    hi = (neg ^ np.uint32(0x80000000)).astype(np.uint64)
+    ids = np.arange(tallies.shape[-1], dtype=np.uint64)
+    return (hi << np.uint64(32)) | ids
+
+
+@pytest.mark.parametrize("C,K", [(1, 1), (7, 7), (33, 33), (40, 21),
+                                 (300, 21), (1024, 21), (1500, 100)])
+def test_packed_key_order_matches_the_plain_order(C, K):
+    """KW's packed u64 keys, in ascending order, give the plain version's
+    stable order (and JAX's argsort of the negated tallies) on tallies full
+    of ties, zeros and the int32 extremes whose negation wraps; C not a
+    multiple of 32 and C = K among them."""
+    g = np.random.default_rng(C + 7 * K)
+    t = g.choice(np.array([0, 1, 5, 5, 7, -3, 2**31 - 1, -2**31], np.int32),
+                 size=(6, C))
+    t[0] = 0
+    t[1] = g.integers(-2**31, 2**31, C, dtype=np.int64).astype(np.int32)
+    want = dpos.top_producers_plain(torch.from_numpy(t), K).numpy()
+    for e in range(len(t)):
+        got = np.sort(packed_keys(t[e]))
+        assert len(np.unique(got)) == C
+        assert np.array_equal((got[:K] & np.uint64(0xFFFFFFFF))
+                              .astype(np.int32), want[e])
+    jax_order = np.asarray(jnp.argsort(-jnp.asarray(t), axis=-1,
+                                       stable=True))[:, :K]
+    assert np.array_equal(want, jax_order)
+
+
+def top_k_model(tally: np.ndarray, K: int, g) -> np.ndarray:
+    """KW's second launch on one epoch's tallies: the cluster's blocks
+    (CLUSTER_SLICE = 128 candidates a block at least, up to 8) each count,
+    for each key of their slice, the slice's keys below it, and put the
+    keys that count below kk = min(K, slice) into the first block's union
+    (in a shuffled order); the first block counts, for each key of the
+    union, the union's keys below it, and writes the ids that count below
+    K at that count. Returns the [K] ids."""
+    C = len(tally)
+    cs = 1
+    while cs < 8 and cs * 128 < C:
+        cs *= 2
+    slice_ = -(-C // cs)
+    kk = min(K, slice_)
+    keys = packed_keys(tally)
+    pool = []
+    for r in range(cs):
+        sk = keys[r * slice_:(r + 1) * slice_]
+        below = (sk[None, :] < sk[:, None]).sum(1)
+        pool.extend(sk[below < kk])
+    pool = np.array(pool, np.uint64)[g.permutation(len(pool))]
+    out = np.full(K, -1, np.int64)
+    for x, n in zip(pool, (pool[None, :] < pool[:, None]).sum(1)):
+        if n < K:
+            assert out[n] == -1
+            out[n] = int(x & np.uint64(0xFFFFFFFF))
+    return out.astype(np.int32)
+
+
+@pytest.mark.parametrize("V,C,G,eg", [(1000, 40, 7, 3), (37, 7, 8, 8),
+                                      (5, 3, 16, 2), (2000, 300, 1, 8),
+                                      (4099, 1024, 132, 8)])
+def test_partial_sums_equal_the_plain_tally(V, C, G, eg):
+    """KW's two launches: G blocks a lane each draw the stakes and votes of
+    a chunk of ceil(V / G) validators (chunks that do not divide V, and
+    empty blocks) into u32 histograms, ``eg`` epochs at a time; then the
+    cluster of a (lane, epoch) sums slices of the candidates over the G
+    partials, and its blocks' sorted runs give the first K ids
+    (:func:`top_k_model`). The tallies equal the plain version's, and so do
+    the producers."""
+    cfg = Config(protocol="dpos", n_nodes=V, n_candidates=C,
+                 n_producers=min(C, 21), epoch_len=4, n_rounds=30, seed=3)
+    seeds = np.array([3, 0xFFFFFFFF], np.uint32)
+    want_p, want_t = dpos.dpos_schedule_plain(cfg, torch.from_numpy(seeds))
+    E, K = dpos.n_epochs(cfg), cfg.n_producers
+    ch = -(-V // G)
+    for b, sd in enumerate(seeds):
+        partials = np.zeros((G, E, C), np.uint32)
+        for g in range(G):
+            v = np.arange(g * ch, min(V, (g + 1) * ch), dtype=np.uint32)
+            for e0 in range(0, E, eg):
+                stake = jrng.random_u32_np(int(sd), jrng.STREAM_STAKE, 0, 0,
+                                           v) % np.uint32(1000) + np.uint32(1)
+                for e in range(e0, min(E, e0 + eg)):
+                    vote = jrng.random_u32_np(int(sd), jrng.STREAM_VOTE,
+                                              np.uint32(e), 0, v) % np.uint32(C)
+                    np.add.at(partials[g, e], vote, stake)
+        for e in range(E):
+            tally = np.zeros(C, np.uint32)
+            for g in np.random.default_rng(e).permutation(G):
+                tally += partials[g, e]
+            tally = tally.view(np.int32)
+            assert np.array_equal(tally, want_t[b, e].numpy())
+            assert np.array_equal(top_k_model(tally, K, np.random.default_rng(
+                e)), want_p[b, e].numpy())
+
+
+@pytest.mark.parametrize("C,K", [(1, 1), (33, 33), (300, 21), (1024, 21),
+                                 (1024, 200), (2000, 2000)])
+def test_top_k_model_matches_the_plain_order(C, K):
+    """KW's second launch (:func:`top_k_model`: counted ranks in each
+    slice, then in the union of each slice's first min(K, slice)) gives
+    the plain version's first K on tallies full of ties, zeros and the
+    int32 extremes, with K below, at and above a slice."""
+    g = np.random.default_rng(3 * C + K)
+    t = g.choice(np.array([0, 1, 5, 5, 7, -3, 2**31 - 1, -2**31], np.int32),
+                 size=(3, C))
+    t[0] = 0
+    want = dpos.top_producers_plain(torch.from_numpy(t), K).numpy()
+    for e in range(len(t)):
+        assert np.array_equal(top_k_model(t[e], K, g), want[e])
 
 
 # --- one round from a converted JAX carry ------------------------------------

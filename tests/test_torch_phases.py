@@ -1,7 +1,7 @@
 """The capped-Raft round's phase kernels KD-KK, on the CPU.
 
-* The rule kernels KH and KO (the dense engine's) use for the P3e median:
-  a 256-bin histogram of each [N] row of match bytes, then the largest m <= E whose suffix count
+* The rule kernel KH uses for the P3e median: a 256-bin histogram of
+  each [N] row of match bytes, then the largest m <= E whose suffix count
   reaches the majority. A numpy model of it must equal the plain version's
   fixed-depth binary search (the JAX round's), tolerance 0.
 * Each phase wrapper, called on CPU tensors, equals its ``_plain`` twin
@@ -62,7 +62,7 @@ def _rows(n: int, rng: np.random.Generator) -> np.ndarray:
 
 
 # 999 and 1000: the capped engine's rows; 5 and 1024: the dense engine's
-# (raft-5node, raft-1kx1k), whose kernel KO uses the same rule.
+# widths (raft-5node, raft-1kx1k).
 @pytest.mark.parametrize("n", [999, 1000, 5, 1024])
 @pytest.mark.parametrize("E", [1, 100, L])
 def test_histogram_rule_equals_binary_search(E, n):

@@ -10,7 +10,9 @@ one round stepped from a converted JAX carry equals JAX's next carry, the
 full delivery mask equals JAX's, each wrapper equals its plain version on
 the CPU and raises off it, and the one-pass rules kernels KM and KN use
 for the grants and the choice of leader, modelled in numpy, equal the
-plain versions.
+plain versions, and so does kernel KO's one block a sweep (phases A-D in
+shuffled orders, each median by its warp's binary search, held to the
+JAX round's).
 """
 import numpy as np
 import pytest
@@ -334,3 +336,195 @@ def test_one_pass_rules_equal_plain(seed):
             assert int(got[9][b, j]) == (min(valid) if valid else -1)
             stale += role[b, j] == 2 and t_in2 > term[b, j]
     assert stale > 0
+
+
+# --- kernel KO's one-block pass, modelled in numpy ----------------------------
+
+def _jax_median(row: np.ndarray, majority: int, E: int) -> int:
+    """The JAX round's P3e binary search (consensus_tpu/engines/raft.py:
+    509-518) on one u8 match row."""
+    m = jnp.asarray(row)[None, :]
+    lo, hi = jnp.zeros(1, jnp.int32), jnp.full(1, E + 1, jnp.int32)
+    for _ in range((E + 1).bit_length()):
+        mid = (lo + hi) // 2
+        cnt = jnp.sum((m >= mid[:, None].astype(m.dtype)).astype(jnp.int32),
+                      axis=1)
+        ok = cnt >= majority
+        lo, hi = jnp.where(ok, mid, lo), jnp.where(ok, hi, mid)
+    return int(lo[0])
+
+
+def _warp_count_ge(row: np.ndarray, mid: int, g) -> int:
+    """Phase D's count: 32 lanes, each over the row's 4-byte words k = lane
+    + 32 i (bytes where N is not a multiple of 4), the per-byte compares
+    summed in a shuffled lane order (the warp's reduction)."""
+    n = row.shape[0]
+    if n % 4 == 0:
+        words = row.view("<u4")
+        lane_sums = [sum(int(w) >> s & 0xFF >= mid for w in words[lane::32]
+                         for s in (0, 8, 16, 24)) for lane in range(32)]
+    else:
+        lane_sums = [int((row[lane::32] >= mid).sum()) for lane in range(32)]
+    return sum(lane_sums[i] for i in g.permutation(32))
+
+
+def _ko_model(cfg, st: dict, g) -> dict:
+    """Kernel KO's one block a sweep on numpy copies of ``st``: phases A-D
+    with the nodes taken in a shuffled order in each phase, the processing
+    list shuffled (the order the shared atomics give), each leader's median
+    by phase D's binary search over word counts, checked against the JAX
+    round's binary search. The block's first node that still leads (the
+    candidate), when it processes, takes its row as it was before C with
+    each node's successful ack to it applied, as phase D reads it, and its
+    median off the suffix sums of a histogram, also held to JAX's."""
+    st = {k: None if v is None else v.copy() for k, v in st.items()}
+    B, N = st["term"].shape
+    L = st["log_term"].shape[2]
+    E, majority = min(cfg.max_entries, L), N // 2 + 1
+    honest = N - cfg.n_byzantine if cfg.byz == trd.BYZ_SILENT else N
+    span = cfg.t_max - cfg.t_min
+    for b in range(B):
+        term, role = st["term"][b], st["role"][b]
+        deliver, ack_to = st["deliver"][b], st["ack_to"][b]
+        tin = np.zeros(N, np.int64)
+        for j in g.permutation(N):                                  # A
+            l = ack_to[j]
+            if j < honest and 0 <= l < N and deliver[j, l] and term[j] > 0:
+                tin[l] = max(tin[l], term[j])
+        proc, listed = np.zeros(N, bool), []
+        for l in g.permutation(N):                                  # B
+            still = st["was_leader"][b, l] and role[l] == 2
+            if still and tin[l] > term[l]:
+                term[l], role[l], st["voted_for"][b, l] = tin[l], 0, -1
+                d = jrng.random_u32_np(int(st["seed"][b]),
+                                       jrng.STREAM_TIMEOUT, np.uint32(tin[l]),
+                                       0, np.uint32(l))
+                st["timeout"][b, l] = np.int32(
+                    np.uint32(cfg.t_min) + np.uint32(int(d) % span))
+            elif still:
+                proc[l] = True
+                listed.append(l)
+            if st["flags"] is not None and st["flags"][b, l] & tadv.CRASH_DOWN:
+                continue
+            if role[l] == 2:
+                st["timer"][b, l] = 0
+            elif not st["reset"][b, l]:
+                st["timer"][b, l] = np.int32(
+                    np.uint32(st["timer"][b, l]) + np.uint32(1))
+        match, nxt = st["match_idx"][b], st["next_idx"][b]
+        before = match.copy()
+        still = st["was_leader"][b] & (st["role"][b] == 2)
+        fast = set(np.flatnonzero(still)[:1].tolist())
+        for j in g.permutation(N):                                  # C
+            l = ack_to[j]
+            if j >= honest or not (0 <= l < N) or not deliver[j, l] \
+                    or not proc[l]:
+                continue
+            if st["ack_ok"][b, j]:
+                match[l, j] = max(match[l, j], np.uint8(st["ack_match"][b, j]
+                                                        & 0xFF))
+                nxt[l, j] = np.uint8((int(match[l, j]) + 1) & 0xFF)
+            else:
+                nxt[l, j] = max((int(nxt[l, j]) - 1) & 0xFF, 1)
+        for l in g.permutation(listed):                             # D
+            row = match[l]
+            if l in fast:
+                row = before[l].copy()
+                for j in range(N):
+                    if j < honest and ack_to[j] == l and deliver[j, l] \
+                            and st["ack_ok"][b, j]:
+                        row[j] = max(row[j], st["ack_match"][b, j] & 0xFF)
+                assert np.array_equal(row, match[l])
+                # The candidate's suffix histogram (entries above E count
+                # as E), its bins added in a shuffled order.
+                hist = np.zeros(256, np.int64)
+                for j in g.permutation(N):
+                    hist[min(int(row[j]), E)] += 1
+                suffix = np.cumsum(hist[::-1])[::-1]
+                hist_med = max(m for m in range(E + 1)
+                               if suffix[m] >= majority)
+                assert hist_med == _jax_median(row, majority, E)
+            lo, hi = 0, E + 1
+            for _ in range((E + 1).bit_length()):
+                mid = (lo + hi) // 2
+                if _warp_count_ge(row, mid, g) >= majority:
+                    lo = mid
+                else:
+                    hi = mid
+            assert lo == _jax_median(match[l], majority, E)
+            kmed = min(max(lo - 1, 0), L - 1)
+            if lo > 0 and lo > st["commit"][b, l] \
+                    and st["log_term"][b, l, kmed] == term[l]:
+                st["commit"][b, l] = lo
+    return st
+
+
+KO_CASES = {
+    "E-L": dict(n=24, E=8),
+    "E-0": dict(n=24, E=0),
+    "bytes": dict(n=37, E=8),            # N not a multiple of 4
+    "crash": dict(n=24, E=8, crash=True),
+    "silent": dict(n=24, E=8, nb=5),
+}
+KO_STATE = ("deliver", "was_leader", "ack_to", "ack_ok", "ack_match",
+            "log_term", "term", "role", "voted_for", "timeout", "commit",
+            "match_idx", "next_idx", "timer", "reset")
+
+
+@pytest.mark.parametrize("case", list(KO_CASES))
+def test_one_block_pass_equals_plain(case):
+    """KO's one-block pass (phases A-D, shuffled node, list and lane
+    orders, three shuffles a state) equals ``dense_acks_commit_plain`` on
+    random states with several processing leaders a sweep, leaders bumped
+    by a higher acked term, match entries above E, next entries at 0 and
+    1, timers at the int32 edge, E in {0, L}; the medians equal the JAX
+    round's binary search."""
+    kw = KO_CASES[case]
+    n, E = kw["n"], kw["E"]
+    g = np.random.default_rng(n + 31 * E + len(case))
+    B, Lc = 6, 8
+    cfg = Config(protocol="raft", n_nodes=n, log_capacity=Lc, max_entries=E,
+                 t_min=3, t_max=9, n_byzantine=kw.get("nb", 0),
+                 byz_mode="silent")
+    st = dict(
+        seed=g.integers(0, 2**32, B).astype(np.uint32),
+        deliver=g.random((B, n, n)) < 0.8,
+        was_leader=g.random((B, n)) < 0.5,
+        ack_to=g.integers(-1, n, (B, n)).astype(np.int32),
+        ack_ok=g.random((B, n)) < 0.6,
+        ack_match=g.integers(0, Lc + 1, (B, n)).astype(np.int32),
+        log_term=g.integers(0, 3, (B, n, Lc)).astype(np.int32),
+        term=g.integers(0, 4, (B, n)).astype(np.int32),
+        role=g.choice(3, (B, n), p=[0.4, 0.1, 0.5]).astype(np.int32),
+        voted_for=g.integers(-1, n, (B, n)).astype(np.int32),
+        timeout=g.integers(3, 9, (B, n)).astype(np.int32),
+        commit=g.integers(0, 3, (B, n)).astype(np.int32),
+        match_idx=g.choice(np.array([0, 1, 2, 5, 8, 9, 200], np.uint8),
+                           (B, n, n)),
+        next_idx=g.choice(np.array([0, 1, 2, 7, 255], np.uint8), (B, n, n)),
+        timer=g.choice(np.array([0, 3, 2**31 - 1], np.int32), (B, n)),
+        reset=g.random((B, n)) < 0.3,
+        flags=(g.integers(0, 8, (B, n)).astype(np.uint8)
+               if kw.get("crash") else None))
+    # Many acks to a few leaders, so that medians move and commits advance.
+    st["ack_to"] = np.where(g.random((B, n)) < 0.7,
+                            g.integers(0, 3, (B, n)), st["ack_to"]
+                            ).astype(np.int32)
+    st["ack_match"][:, : n // 2] = E
+    t = lambda a: torch.from_numpy(a.copy())  # noqa: E731
+    args = [t(st[k]) for k in KO_STATE]
+    trd.dense_acks_commit_plain(cfg, t(st["seed"]), *args,
+                                None if st["flags"] is None
+                                else t(st["flags"]))
+    want = dict(zip(KO_STATE, (a.numpy() for a in args)))
+    for _ in range(3):
+        got = _ko_model(cfg, st, g)
+        for k in KO_STATE:
+            assert np.array_equal(got[k], want[k]), (case, k)
+    proc = (st["was_leader"] & (st["role"] == 2)
+            & (want["term"] == st["term"]))
+    assert proc.sum(1).max() >= 2                  # several leaders a sweep
+    assert (st["was_leader"] & (st["role"] == 2)
+            & (want["term"] > st["term"])).any()   # a bumped leader
+    if E > 0:
+        assert (want["commit"] > st["commit"]).any()
