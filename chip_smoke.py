@@ -2167,7 +2167,11 @@ def bcast_edge_inputs(dev, gen) -> dict:
     f = 1 lanes among them (m = 2), views past the search's top and below
     0, where catch-ups fire; tally inputs where one value of each (lane,
     slot) has 2f - 1 to 2f + 1 senders of a side, the sides unbalanced so
-    that either side can reach a quorum; and N = 1 (f = 0)."""
+    that either side can reach a quorum; and N = 1 (f = 0); and KV's
+    inputs over four of its search tiles (the last ragged) with sparse
+    commits, slots no node committed, a side whose only decider is its
+    last honest node, S = 16 and 24, CRASH and BYZ; and S = 6 160, past
+    the shared memory of its adopt launch."""
     from consensus_tpu_torch.engines import pbft_bcast as pb
     out = {name: [] for name in BCAST}
 
@@ -2268,6 +2272,50 @@ def bcast_edge_inputs(dev, gen) -> dict:
     got = pb.bcast_view_preprepare_plain(*clone_args(kt1))
     out["bcast_tally"].append((1, one, one * 0, got[6], got[3], got[5],
                                kt1[10], kt1[11], ri(0, 3, (4, 1, 8))))
+
+    # P6-P7 (KV) over four of its search tiles, the last ragged: sparse
+    # commits (deciders deep in a lane), slots no node committed, lane 0's
+    # side 1 with one broadcasting node, its last honest one, that commits
+    # every slot; S = 16 and 24 (not a multiple of 16), flat, CRASH (bit
+    # 2) and BYZ (per-lane n_real, 5 byzantine nodes).
+    n2 = 3 * pb.DECIDE_TILE + 5
+    for s2, crash, nb in ((16, False, 0), (24, True, 0), (16, True, 5),
+                          (24, False, 5)):
+        last = n2 - 1 - nb
+        bits = (coin(0.7, (4, n2)).to(torch.uint8)
+                | (coin(0.4, (4, n2)).to(torch.uint8) << 1)
+                | (coin(0.2, (4, n2)).to(torch.uint8) << 2))
+        side1 = (bits[0] & 2) != 0
+        bits[0] = torch.where(side1, bits[0] & 0xFE, bits[0])
+        bits[0, last] = 3
+        committed = coin(0.002, (4, n2, s2))
+        committed[:, :, s2 // 2:] = False
+        committed[0, last] = True
+        n_real = ri(n2 // 2, n2 + 1, (4,))
+        n_real[0] = n2
+        kv = (bits, committed, ri(-5, 5, (4, n2, s2)),
+              committed & coin(0.7, (4, n2, s2)),
+              ri(-2**31, 2**31 - 1, (4, n2)), coin(0.3, (4, n2)), crash,
+              (n_real, nb) if nb else None)
+        got = pb.bcast_decide_plain(*clone_args(kv))
+        takes = side1 & ~(crash & ((bits[0] & 4) != 0))
+        require(bool(got[0][0][takes].all()) and bool(
+            (got[1][0][takes & ~committed[0, :, 0]][:, 0]
+             == kv[2][0, last, 0]).all()),
+                "edge inputs: lane 0's side 1 did not adopt its last node's")
+        require(not bool(got[0][:, :, s2 // 2:].all()),
+                "edge inputs: every slot found a decider")
+        out["bcast_decide"].append(kv)
+    # S = 6 160: the lane minima no longer fit launch 2's shared memory and
+    # are read from the tiles' table at each use (BYZ, 16-byte rows).
+    n3, s3 = 40, 6_160
+    committed = coin(0.3, (2, n3, s3))
+    out["bcast_decide"].append((
+        (coin(0.8, (2, n3)).to(torch.uint8)
+         | (coin(0.5, (2, n3)).to(torch.uint8) << 1)), committed,
+        ri(-5, 5, (2, n3, s3)), committed & coin(0.5, (2, n3, s3)),
+        ri(0, 9, (2, n3)), coin(0.3, (2, n3)), False,
+        (torch.tensor([n3, 31], dtype=torch.int32, device=dev), 3)))
     return out
 
 
@@ -2525,16 +2573,17 @@ def dpos_edge_inputs(dev, gen) -> dict:
     return out
 
 
-def paxos_state(gen, dev, B, N, S, r):
+def paxos_state(gen, dev, B, N, S, r, hi=None):
     """A random batched PaxosState on ``dev``: accepted ballots from a small
-    set (ties across acceptors), promises around round r's ballots (some
-    outbid them), half the slots learned."""
+    set (ties across acceptors), promises around round r's ballots (below
+    ``hi``, by default the round's last ballot + 1: some outbid them), half
+    the slots learned."""
     from consensus_tpu_torch.engines import paxos
 
     def ri(lo, hi, shape):
         return torch.randint(lo, hi, shape, generator=gen, device=dev,
                              dtype=torch.int32)
-    hi = (r + 1) * N + 1
+    hi = (r + 1) * N + 1 if hi is None else hi
     pick = torch.tensor([0, 3, 5, hi], dtype=torch.int32, device=dev)
     return paxos.PaxosState(
         torch.arange(70, 70 + B, device=dev).to(torch.uint32),
@@ -2565,9 +2614,14 @@ def paxos_edge_inputs(dev, gen) -> dict:
     churn); random states whose accepted ballots tie across acceptors, on
     two or three slots that every proposer contends for; and rounds of a
     run with S = 60 000 slots, more than a row block's shared memory holds
-    (its per-slot values then live in its output rows); and random states
-    of 70 000 lanes at N = 7, S = 16, past the 65 535 blocks of a grid's y
-    or z."""
+    (its per-slot values then live in its output rows; KZ's bucket starts
+    in device memory); and random states of 70 000 lanes at N = 7, S = 16,
+    past the 65 535 blocks of a grid's y or z. For KZ also: a full-width
+    round (N = S = 10 000) at r = (2^31 - 1) // N, whose ballots pass 2^31
+    within the round; KZ inputs of one slot (N = 2 000, and N = 301 with
+    100 proposers) whose promise counts are raised to a majority at
+    random, so that one bucket holds every proceeding proposer, each
+    row's walk the whole of it; and N = 40 976, past KZ's shared memory."""
     out = {name: [] for name in PAXOS}
     for cfg, rounds in ((protocol_config(PAXOS_HOSTILE), (2, 17, 31)),
                         (protocol_config(PAXOS_FLAGSHIP, n_nodes=48,
@@ -2595,6 +2649,42 @@ def paxos_edge_inputs(dev, gen) -> dict:
             gen, dev, lanes.n_sweeps, lanes.n_nodes, lanes.log_capacity, r), r)
         for name in PAXOS:
             out[name].append(args[name])
+    kz = "paxos_accept_learn"
+    wide = protocol_config(PAXOS_FLAGSHIP)
+    n = wide.n_nodes
+    r = (2**31 - 1) // n
+    out[kz].append(paxos_round_args(wide, paxos_state(
+        gen, dev, 1, n, wide.log_capacity, r, hi=r * n), r)[kz])
+    require(int(out[kz][-1][6].ge(n // 2 + 1).sum()) > 0,
+            "edge inputs: no proposer proceeds at the wrapping round")
+    for kw in (dict(n_nodes=2_000, log_capacity=1),
+               dict(n_nodes=301, log_capacity=1, n_proposers=100,
+                    drop_rate=0.2)):
+        cfg = protocol_config(PAXOS_FLAGSHIP, **kw)
+        args = list(paxos_round_args(cfg, paxos_state(
+            gen, dev, 2, cfg.n_nodes, 1, 5), 5)[kz])
+        args[6] = torch.where(
+            torch.rand(args[6].shape, generator=gen, device=dev) < 0.6,
+            cfg.n_nodes // 2 + 1, args[6])
+        out[kz].append(tuple(args))
+    # N = 40 976: a row's mask bytes and the list's counts no longer fit in
+    # KZ's shared memory, so its launches read the rows and count in device
+    # memory. Made directly (KY's plain version would need [N, N] ints):
+    # 0.5% of the proposers hold a majority of promises.
+    big = protocol_config(PAXOS_FLAGSHIP, n_nodes=40_976, log_capacity=4)
+    n = big.n_nodes
+    deliver = torch.randint(0, 10, (1, n, n), generator=gen, device=dev,
+                            dtype=torch.uint8) < 9
+    st = paxos_state(gen, dev, 1, n, 4, 5)
+    n_prom = torch.where(
+        torch.rand((1, n), generator=gen, device=dev) < 0.005, n // 2 + 1,
+        0).to(torch.int32)
+    pick = torch.randint(0, n, (1, n), generator=gen, device=dev,
+                         dtype=torch.int32)
+    out[kz].append((big, st.seed, 5, deliver,
+                    deliver.transpose(1, 2).contiguous(), st.promised,
+                    n_prom, pick % 3, pick, st.acc_bal, st.acc_val,
+                    st.learned_val, st.learned_mask))
     return out
 
 

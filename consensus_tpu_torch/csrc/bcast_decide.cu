@@ -18,20 +18,24 @@
 // deciders' search reads committed down to the first decider of each
 // (slot, side) at most, already counted. At pbft-100k-bcast (B = 8, N =
 // 100 000, S = 16) that is about 149 MB a round, 44 us at 3.35 TB/s.
-// Design: two launches on the stream, after a memset of the minima.
-// Lanes and node tiles share the grid's x (lane x / tiles), so the lane
-// count has no grid limit of its own.
-//  1. A block per 1024 nodes of a lane and group of up to 256 slots; each
-//     thread owns a slot and walks the block's nodes in id order at a
-//     stride, stopping at its first decider of each side; the block's
-//     minima meet in shared memory and leave by one atomicMin a (slot,
-//     side). The minima start at 0x7F7F7F7F (the memset's byte), above
-//     every node id.
-//  2. A group of threads per node (as many as its slots, up to a warp;
-//     four nodes in turn) reads its side's decider of each slot and the
-//     decider's value (a few rows a lane, cached), writes fresh outputs,
-//     so no adoption is read the same round, and runs P7 off a ballot of
-//     the group.
+// Design: two launches, no memset and no atomics on device memory. Lanes
+// and node tiles share the grid's x (lane x / tiles), so the lane count
+// has no grid limit of its own.
+//  1. A block per TILE nodes of a lane writes the tile's least decider of
+//     each (side, slot), or NONE, with plain stores. Each thread reads the
+//     bytes of 16 consecutive nodes at once (one 16-byte load), then the
+//     committed rows of its eligible nodes in id order, four at a time,
+//     only while its own nodes have not yet shown every slot of that side
+//     (four at a time measured faster than two, eight or sixteen); a
+//     warp's first holders of each newly seen slot come from one ballot a
+//     slot, and the block's warps meet in shared memory.
+//  2. A thread a node: its block first takes the lane's minima over the
+//     tiles (the lane's [tiles, 2, S] table, one coalesced pass) and the
+//     deciders' values (dval[imin, s], at most 2 S a lane) into shared
+//     memory; each node then moves its rows with 16-byte loads and stores
+//     (where S is a multiple of 16; byte by byte otherwise), adopts, and
+//     runs P7 on its own slots. Outputs are fresh tensors, so no adoption
+//     is read the same round.
 // Its CRASH instance (SPEC §6c, picked by the launch's `crash` argument)
 // keeps a node of bit 2 (down at the round's end) from adopting
 // (pbft_bcast.py:663-664); such a node is no decider either, since KT
@@ -47,62 +51,170 @@
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int PER_THREAD = 4;  // launch 2's nodes a thread group
-constexpr int CHUNK = 1024;  // nodes a block
-constexpr int MAX_SG = 256;  // slots a block
-constexpr int NONE = 0x7F7F7F7F;
+constexpr unsigned FULL = 0xFFFFFFFFu;
+constexpr int MIN_THREADS = 256;
+constexpr int WARPS = MIN_THREADS / 32;
+constexpr int PER_THREAD = 16;                 // launch 1's nodes a thread
+constexpr int TILE = MIN_THREADS * PER_THREAD;  // launch 1's nodes a block
+constexpr int BATCH = 4;                        // rows read at a time
+constexpr int CHUNK = 32;                       // slots a pass of launch 1
+constexpr int ADOPT_THREADS = 512;
+constexpr int NONE = 0x7FFFFFFF;
+// Launch 2's shared table of lane minima and values: 2 S pairs of int32
+// each, where it fits; beyond it the minima are read from the tiles' table.
+constexpr int SMEM_MAX = 96 * 1024;
 
-// Launch 1. Grid (B * tiles, 1, slot groups), tiles = ceil(N / CHUNK).
-template <bool BYZ>
-__global__ void __launch_bounds__(THREADS)
+// Bytes of bool (0 or 1) to bits: four bytes of w to bits 0-3.
+__device__ __forceinline__ uint32_t pack4(uint32_t w) {
+  return (w | (w >> 7) | (w >> 14) | (w >> 21)) & 0xFu;
+}
+
+__device__ __forceinline__ uint32_t pack16(uint4 v) {
+  return pack4(v.x) | (pack4(v.y) << 4) | (pack4(v.z) << 8) |
+         (pack4(v.w) << 12);
+}
+
+// Slots [c0, c0 + W) of node row `row` of committed as bits.
+template <bool VEC>
+__device__ __forceinline__ uint32_t row_bits(const bool* __restrict__ com,
+                                             long long row, int S, int c0,
+                                             int W) {
+  const uint8_t* p = reinterpret_cast<const uint8_t*>(com) + row * S + c0;
+  if (VEC) {
+    const uint4* v = reinterpret_cast<const uint4*>(p);
+    uint32_t m = pack16(__ldg(v));
+    if (W > 16) m |= pack16(__ldg(v + 1)) << 16;
+    return m;
+  }
+  uint32_t m = 0;
+  for (int q = 0; q < W; ++q) m |= static_cast<uint32_t>(p[q] != 0) << q;
+  return m;
+}
+
+// Launch 1. Grid B * tiles, tiles = ceil(N / TILE). Writes imin[b, tile,
+// side, s]: the least decider of the tile, or NONE.
+template <bool BYZ, bool VEC>
+__global__ void __launch_bounds__(MIN_THREADS)
 decide_min_kernel(const uint8_t* __restrict__ bits,
                   const bool* __restrict__ committed,
                   int* __restrict__ imin, int N, int S, int tiles,
                   const int32_t* __restrict__ n_real, int nb) {
-  __shared__ int low[MAX_SG][2];
-  const int SG = S < MAX_SG ? S : MAX_SG;
-  const int P = THREADS / SG;
-  const int t = threadIdx.x;
+  __shared__ int low[WARPS][2][CHUNK];
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   const int b = blockIdx.x / tiles;
-  const int sl = t % SG;
-  const int s = blockIdx.z * SG + sl;
-  const bool on = t < P * SG && s < S;
-  for (int k = t; k < SG * 2; k += THREADS) (&low[0][0])[k] = NONE;
-  __syncthreads();
-  if (on) {
-    const long long nodes = static_cast<long long>(b) * N;
-    const int i0 = (blockIdx.x - b * tiles) * CHUNK;
-    const int i1 = min(i0 + CHUNK, N);
-    // BYZ: the senders from the first byzantine id up decide nothing.
-    const int top = BYZ ? min(i1, n_real[b] - nb) : i1;
-    int first[2] = {NONE, NONE};
-    for (int i = i0 + t / SG; i < top; i += P) {
-      const uint8_t bi = bits[nodes + i];
-      const int side = (bi >> 1) & 1;
-      if ((bi & 1) && first[side] == NONE && committed[(nodes + i) * S + s])
-        first[side] = i;
-      if (first[0] != NONE && first[1] != NONE) break;
+  const int tile = blockIdx.x - b * tiles;
+  const long long nodes = static_cast<long long>(b) * N;
+  const int first = tile * TILE + t * PER_THREAD;  // this thread's nodes
+  // BYZ: the senders from the first byzantine id up decide nothing.
+  const int top = BYZ ? min(N, n_real[b] - nb) : N;
+  uint32_t elig = 0, side = 0;  // bit u: node first + u
+  if (VEC && first + PER_THREAD <= N) {
+    const uint4 v = __ldg(reinterpret_cast<const uint4*>(bits + nodes +
+                                                         first));
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int u = 0; u < PER_THREAD; ++u) {
+      const uint32_t by = (w[u >> 2] >> (8 * (u & 3))) & 0xFFu;
+      elig |= static_cast<uint32_t>((by & 1u) && first + u < top) << u;
+      side |= ((by >> 1) & 1u) << u;
     }
-    if (first[0] != NONE) atomicMin(&low[sl][0], first[0]);
-    if (first[1] != NONE) atomicMin(&low[sl][1], first[1]);
+  } else {
+    for (int u = 0; u < PER_THREAD && first + u < N; ++u) {
+      const uint32_t by = bits[nodes + first + u];
+      elig |= static_cast<uint32_t>((by & 1u) && first + u < top) << u;
+      side |= ((by >> 1) & 1u) << u;
+    }
   }
-  __syncthreads();
-  for (int k = t; k < SG * 2; k += THREADS) {
-    const int ss = blockIdx.z * SG + k / 2;
-    const int v = (&low[0][0])[k];
-    if (ss < S && v != NONE)
-      atomicMin(&imin[(static_cast<long long>(b) * 2 + (k & 1)) * S + ss], v);
+  for (int c0 = 0; c0 < S; c0 += CHUNK) {
+    const int W = min(CHUNK, S - c0);
+    const uint32_t full = W == 32 ? FULL : (1u << W) - 1u;
+    for (int k = lane; k < 2 * CHUNK; k += 32) (&low[warp][0][0])[k] = NONE;
+    __syncwarp();
+    uint32_t have0 = 0u, have1 = 0u;  // slots its nodes showed, by side
+    for (int u0 = 0; u0 < PER_THREAD; u0 += BATCH) {
+      // The batch's rows, read together, where the thread still needs them.
+      uint32_t m[BATCH];
+#pragma unroll
+      for (int v = 0; v < BATCH; ++v) {
+        const int u = u0 + v;
+        const int sd = (side >> u) & 1;
+        m[v] = ((elig >> u) & 1) && (sd ? have1 : have0) != full
+                   ? row_bits<VEC>(committed, nodes + first + u, S, c0, W)
+                   : 0u;
+      }
+#pragma unroll
+      for (int v = 0; v < BATCH; ++v) {
+        const int u = u0 + v;
+        const int sd = (side >> u) & 1;
+        const uint32_t fresh = m[v] & ~(sd ? have1 : have0);
+        if (sd)
+          have1 |= fresh;
+        else
+          have0 |= fresh;
+        // The warp's lowest lane that first shows slot q of side x at u
+        // holds the warp's least decider among its nodes u.
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {
+          const uint32_t mine = sd == x ? fresh : 0u;
+          uint32_t any = __reduce_or_sync(FULL, mine);
+          while (any != 0u) {
+            const int q = __ffs(any) - 1;
+            any &= any - 1u;
+            const uint32_t who = __ballot_sync(FULL, (mine >> q) & 1u);
+            const int id = tile * TILE + (warp * 32 + __ffs(who) - 1) *
+                                             PER_THREAD + u;
+            if (lane == 0 && id < low[warp][x][q]) low[warp][x][q] = id;
+          }
+        }
+      }
+    }
+    __syncthreads();
+    for (int k = t; k < 2 * W; k += MIN_THREADS) {
+      const int x = k / W, q = k - x * W;
+      int v = NONE;
+#pragma unroll
+      for (int w = 0; w < WARPS; ++w) v = min(v, low[w][x][q]);
+      imin[((static_cast<long long>(b) * tiles + tile) * 2 + x) * S + c0 + q] =
+          v;
+    }
+    __syncthreads();
   }
 }
 
-// Launch 2. Grid B * tiles, tiles = ceil(N * G / (THREADS * PER_THREAD)).
-// A group of G
-// threads per node: G is the least power of two >= S, at most 32, so a
-// warp holds 32 / G nodes and a group's threads read consecutive slots; a
-// thread takes slots sl, sl + G, ... of PER_THREAD nodes in turn.
-template <bool CRASH>
-__global__ void __launch_bounds__(THREADS)
+// The lane's least decider of pair q = side * S + s over its tiles.
+__device__ __forceinline__ int lane_low(const int* __restrict__ imin,
+                                        long long b, int tiles, int S,
+                                        int q) {
+  int v = NONE;
+  for (int t = 0; t < tiles; ++t)
+    v = min(v, __ldg(imin + (b * tiles + t) * 2 * S + q));
+  return v;
+}
+
+// Sixteen slots of a node: committed, the entry's committed and dval.
+struct Row16 {
+  uint4 c, s;
+  int4 d[4];
+};
+
+__device__ __forceinline__ Row16 load16(const bool* committed,
+                                        const bool* committed_start,
+                                        const int32_t* dval, long long cell,
+                                        int c) {
+  Row16 r;
+  r.c = __ldcs(reinterpret_cast<const uint4*>(committed + cell) + c);
+  r.s = __ldcs(reinterpret_cast<const uint4*>(committed_start + cell) + c);
+  const int4* dp = reinterpret_cast<const int4*>(dval + cell) + 4 * c;
+#pragma unroll
+  for (int w = 0; w < 4; ++w) r.d[w] = __ldcs(dp + w);
+  return r;
+}
+
+// Launch 2. Grid B * blocks, blocks = ceil(N / ADOPT_THREADS): a thread a
+// node. In shared memory (in_smem): low[2 S], then val[2 S]. A node's byte,
+// timer and reset flag are loaded before the block takes the lane's minima.
+template <bool CRASH, bool VEC>
+__global__ void __launch_bounds__(ADOPT_THREADS)
 decide_adopt_kernel(const uint8_t* __restrict__ bits,
                     const bool* __restrict__ committed,
                     const int32_t* __restrict__ dval,
@@ -112,80 +224,108 @@ decide_adopt_kernel(const uint8_t* __restrict__ bits,
                     const int* __restrict__ imin,
                     bool* __restrict__ com_out,
                     int32_t* __restrict__ dval_out,
-                    int32_t* __restrict__ timer_out, int N, int S,
-                    int log_g, int tiles) {
-  const int G = 1 << log_g;
-  const int groups = THREADS >> log_g;  // nodes a block takes at a time
-  const int sl = threadIdx.x & (G - 1);
-  const int first = (threadIdx.x & 31) & ~(G - 1);
-  const unsigned group = G == 32 ? 0xFFFFFFFFu : ((1u << G) - 1u) << first;
-  const int b = blockIdx.x / tiles;
-  const int tile = blockIdx.x - b * tiles;
+                    int32_t* __restrict__ timer_out, int N, int S, int tiles,
+                    int blocks, bool in_smem) {
+  extern __shared__ int table[];
+  const int b = blockIdx.x / blocks;
+  const int i = (blockIdx.x - b * blocks) * blockDim.x + threadIdx.x;
   const long long nodes = static_cast<long long>(b) * N;
-  // Every node's first slot (sl), timer and reset flag are loaded before
-  // any is used; further slots (S > 32) are walked after.
-  int j[PER_THREAD];
-  bool c[PER_THREAD], cs[PER_THREAD], rs[PER_THREAD];
-  int32_t dv[PER_THREAD], tm[PER_THREAD];
-  uint8_t bj[PER_THREAD];
-#pragma unroll
-  for (int u = 0; u < PER_THREAD; ++u) {
-    j[u] = (tile * PER_THREAD + u) * groups + (threadIdx.x >> log_g);
-    const bool in = j[u] < N && sl < S;
-    const long long e = (nodes + j[u]) * S + sl;
-    bj[u] = j[u] < N ? bits[nodes + j[u]] : 0;
-    c[u] = in && committed[e];
-    cs[u] = in && committed_start[e];
-    dv[u] = in ? dval[e] : 0;
-    const bool lead = j[u] < N && sl == 0;
-    tm[u] = lead ? timer[nodes + j[u]] : 0;
-    rs[u] = lead && reset[nodes + j[u]];
+  const bool live = i < N;
+  const long long row = nodes + (live ? i : 0);
+  const long long cell = row * S;
+  uint8_t by = 0;
+  int32_t tm = 0;
+  bool rs = false;
+  if (live) {
+    by = bits[row];
+    tm = timer[row];
+    rs = reset[row];
   }
+  int* low = table;
+  int* val = table + 2 * S;
+  if (in_smem) {
+    for (int q = threadIdx.x; q < 2 * S; q += blockDim.x) low[q] = NONE;
+    __syncthreads();
+    const int* lane_tab = imin + static_cast<long long>(b) * tiles * 2 * S;
+    for (int k = threadIdx.x; k < tiles * 2 * S; k += blockDim.x) {
+      const int v = __ldg(lane_tab + k);
+      if (v != NONE) atomicMin(low + k % (2 * S), v);
+    }
+    __syncthreads();
+    for (int q = threadIdx.x; q < 2 * S; q += blockDim.x) {
+      const int lo = low[q];
+      val[q] = lo < N ? __ldg(dval + (nodes + lo) * S + q % S) : 0;
+    }
+    __syncthreads();
+  }
+  if (!live) return;
+  const int base = ((by >> 1) & 1) * S;  // the node's side's pairs
+  const bool takes = !(CRASH && (by & 4));
+  bool changed = false;
+  if (VEC) {
+    for (int c = 0; c < S / 16; ++c) {
+      Row16 r = load16(committed, committed_start, dval, cell, c);
+      uint32_t cw[4] = {r.c.x, r.c.y, r.c.z, r.c.w};
+      const uint32_t sw[4] = {r.s.x, r.s.y, r.s.z, r.s.w};
 #pragma unroll
-  for (int u = 0; u < PER_THREAD; ++u) {
-    const bool live = j[u] < N;  // every thread takes part in the ballot
-    const long long row = nodes + j[u];
-    bool changed = false;
-    if (live) {
-      const int* low =
-          imin + (static_cast<long long>(b) * 2 + ((bj[u] >> 1) & 1)) * S;
-      for (int s = sl; s < S; s += G) {
-        const long long e = row * S + s;
-        bool cc = c[u];
-        int32_t d = dv[u];
-        bool start = cs[u];
-        if (s != sl) {
-          cc = committed[e];
-          d = dval[e];
-          start = committed_start[e];
-        }
-        if (!cc && !(CRASH && (bj[u] & 4))) {
-          const int i = low[s];
-          if (i < N) {
-            cc = true;
-            d = dval[(nodes + i) * S + s];
+      for (int w = 0; w < 4; ++w) {
+        int* dw = reinterpret_cast<int*>(&r.d[w]);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const uint32_t sh = 8 * k;
+          if (takes && !((cw[w] >> sh) & 1u)) {
+            const int q = base + 16 * c + 4 * w + k;
+            const int lo = in_smem ? low[q] : lane_low(imin, b, tiles, S, q);
+            if (lo < N) {
+              cw[w] |= 1u << sh;
+              dw[k] = in_smem ? val[q]
+                              : __ldg(dval + (nodes + lo) * S + q - base);
+            }
           }
         }
-        com_out[e] = cc;
-        dval_out[e] = d;
-        changed |= cc && !start;
+        changed |= (cw[w] & ~sw[w]) != 0u;
       }
+      __stcs(reinterpret_cast<uint4*>(com_out + cell) + c,
+             make_uint4(cw[0], cw[1], cw[2], cw[3]));
+      int4* op = reinterpret_cast<int4*>(dval_out + cell) + 4 * c;
+#pragma unroll
+      for (int w = 0; w < 4; ++w) __stcs(op + w, r.d[w]);
     }
-    // P7 timers: a slot of the node changed in any thread of its group.
-    const unsigned all = __ballot_sync(0xFFFFFFFFu, changed);
-    if (live && sl == 0)
-      timer_out[row] = (all & group) ? 0
-                       : rs[u]
-                           ? tm[u]
-                           : static_cast<int32_t>(
-                                 static_cast<uint32_t>(tm[u]) + 1u);
+  } else {
+    const uint8_t* cp = reinterpret_cast<const uint8_t*>(committed) + cell;
+    const uint8_t* sp = reinterpret_cast<const uint8_t*>(committed_start) +
+                        cell;
+    for (int s = 0; s < S; ++s) {
+      bool cc = cp[s] != 0;
+      int32_t d = dval[cell + s];
+      if (takes && !cc) {
+        const int q = base + s;
+        const int lo = in_smem ? low[q] : lane_low(imin, b, tiles, S, q);
+        if (lo < N) {
+          cc = true;
+          d = in_smem ? val[q] : dval[(nodes + lo) * S + s];
+        }
+      }
+      com_out[cell + s] = cc;
+      dval_out[cell + s] = d;
+      changed |= cc && !sp[s];
+    }
   }
+  timer_out[row] =
+      changed ? 0
+      : rs    ? tm
+              : static_cast<int32_t>(static_cast<uint32_t>(tm) + 1u);
+}
+
+bool aligned(const void* p, size_t to) {
+  return reinterpret_cast<uintptr_t>(p) % to == 0;
 }
 
 }  // namespace
 
-// imin is scratch, [B, 2, S] int32, set here. n_real is null on the flat
-// path; with byzantine nodes it is [B] int32 and nb their count.
+// imin is scratch, [B, ceil(N / 4096), 2, S] int32, set here. n_real is
+// null on the flat path; with byzantine nodes it is [B] int32 and nb their
+// count.
 extern "C" int ctt_bcast_decide(const uint8_t* bits, const bool* committed,
                                 const int32_t* dval,
                                 const bool* committed_start,
@@ -196,34 +336,43 @@ extern "C" int ctt_bcast_decide(const uint8_t* bits, const bool* committed,
                                 int nb, cudaStream_t st) {
   if (nb < 0 || nb > N) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || N == 0) return 0;
+  const int tiles = (N + TILE - 1) / TILE;
+  const long long blocks = (N + ADOPT_THREADS - 1) / ADOPT_THREADS;
+  if (static_cast<long long>(tiles) * B > 0x7FFFFFFFLL ||
+      blocks * B > 0x7FFFFFFFLL)
+    return static_cast<int>(cudaErrorInvalidValue);
   int err = 0;
+  // 16-byte rows where every row starts on 16 bytes.
+  const bool vec = S % 16 == 0 && aligned(committed, 16) &&
+                   aligned(committed_start, 16) && aligned(dval, 16) &&
+                   aligned(com_out, 16) && aligned(dval_out, 16);
   if (S > 0) {
-    err = static_cast<int>(cudaMemsetAsync(
-        imin, 0x7F, sizeof(int) * 2 * static_cast<size_t>(B) * S, st));
-    if (err != 0) return err;
-    const int SG = S < MAX_SG ? S : MAX_SG;
-    const int tiles = (N + CHUNK - 1) / CHUNK;
-    const int groups = (S + SG - 1) / SG;
-    if (static_cast<long long>(tiles) * B > 0x7FFFFFFFLL || groups > 65535)
-      return static_cast<int>(cudaErrorInvalidValue);
-    const dim3 grid(static_cast<unsigned>(tiles * B), 1u,
-                    static_cast<unsigned>(groups));
-    const auto minima = n_real != nullptr ? decide_min_kernel<true>
-                                          : decide_min_kernel<false>;
-    minima<<<grid, THREADS, 0, st>>>(bits, committed, imin, N, S, tiles,
-                                     n_real, nb);
+    const bool vec_bits = N % 16 == 0 && aligned(bits, 16);
+    const auto minima =
+        n_real != nullptr
+            ? (vec ? (vec_bits ? decide_min_kernel<true, true>
+                               : decide_min_kernel<true, false>)
+                   : decide_min_kernel<true, false>)
+            : (vec ? (vec_bits ? decide_min_kernel<false, true>
+                               : decide_min_kernel<false, false>)
+                   : decide_min_kernel<false, false>);
+    minima<<<static_cast<unsigned>(tiles * B), MIN_THREADS, 0, st>>>(
+        bits, committed, imin, N, S, tiles, n_real, nb);
     if ((err = static_cast<int>(cudaGetLastError())) != 0) return err;
   }
-  int log_g = 0;
-  while ((1 << log_g) < S && log_g < 5) ++log_g;
-  const long long threads = static_cast<long long>(N) << log_g;
-  const long long tile = static_cast<long long>(THREADS) * PER_THREAD;
-  const long long tiles = (threads + tile - 1) / tile;
-  if (tiles * B > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
-  const auto adopt =
-      crash ? decide_adopt_kernel<true> : decide_adopt_kernel<false>;
-  adopt<<<static_cast<unsigned>(tiles * B), THREADS, 0, st>>>(
+  const long long table = 16LL * S;
+  const bool in_smem = table <= SMEM_MAX;
+  const size_t dyn = in_smem ? static_cast<size_t>(table) : 0;
+  const auto adopt = crash ? (vec ? decide_adopt_kernel<true, true>
+                                  : decide_adopt_kernel<true, false>)
+                           : (vec ? decide_adopt_kernel<false, true>
+                                  : decide_adopt_kernel<false, false>);
+  err = static_cast<int>(cudaFuncSetAttribute(
+      adopt, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(dyn)));
+  if (err != 0) return err;
+  adopt<<<static_cast<unsigned>(blocks * B), ADOPT_THREADS, dyn, st>>>(
       bits, committed, dval, committed_start, timer, reset, imin, com_out,
-      dval_out, timer_out, N, S, log_g, static_cast<int>(tiles));
+      dval_out, timer_out, N, S, tiles, static_cast<int>(blocks), in_smem);
   return static_cast<int>(cudaGetLastError());
 }

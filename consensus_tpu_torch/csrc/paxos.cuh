@@ -1,7 +1,8 @@
 // What the Paxos kernels (paxos_promise.cu, paxos_accept_learn.cu) share: a
 // proposer's round values, the layout of their per-proposer scratch, and
-// the launch shapes. A row block keeps its per-slot values in shared memory
-// when they fit in ROW_SMEM_MAX, else in a row of an output it writes last.
+// the launch shapes. A row block of KY keeps its per-slot values in shared
+// memory when they fit in ROW_SMEM_MAX, else in a row of an output it
+// writes last; KZ's launches take their shared memory under the same cap.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -12,11 +13,12 @@
 
 namespace ctt {
 
-// Rows of the [B, 4, N] int32 per-proposer scratch.
+// Rows of KY's [B, 4, N] int32 per-proposer scratch; KZ's keeps its flags
+// in the same row (paxos_accept_learn.cu lays out the others).
 constexpr int PROP_SLOT = 0;    // slot_p: draw(VALUE, r, 1, p) mod S
 constexpr int PROP_BALLOT = 1;  // r * N + p + 1, wrapping
 constexpr int PROP_FLAG = 2;    // is_prop (KY); proceed, then decided (KZ)
-constexpr int PROP_VALUE = 3;   // v_own (KY); v_chosen (KZ)
+constexpr int PROP_VALUE = 3;   // v_own (KY)
 
 // Dynamic shared memory a row block may take (the H100 allows 227 KB).
 constexpr int ROW_SMEM_MAX = 200 * 1024;

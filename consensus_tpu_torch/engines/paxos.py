@@ -75,8 +75,10 @@ PAXOS_TELEMETRY = ("promises", "nacks", "accepts", "proposals_decided",
 # The flight recorder's latency histogram (engines/paxos.py PAXOS_LATENCY,
 # line 90): r + 1 at each (node, slot) newly learned in round r.
 PAXOS_LATENCY = ("rounds_to_learn",)
-# KZ's per-proposer scratch row that holds the decided flags after its
-# launch 4 (csrc/paxos.cuh PROP_FLAG).
+# KZ's [B, KZ_ROWS, N] scratch (csrc/paxos_accept_learn.cu ROWS) and its
+# row that holds the decided flags after the call (csrc/paxos.cuh
+# PROP_FLAG).
+KZ_ROWS = 6
 PROP_FLAG = 2
 
 I32_MIN = -2**31
@@ -342,16 +344,16 @@ def paxos_accept_learn(cfg: Config, seed, r: int, deliver, prep_del,
                        want_counts: bool = False, agg=None):
     """Kernel KZ: same arguments and result as
     :func:`paxos_accept_learn_plain`, which it runs for CPU tensors; for
-    CUDA tensors it launches ``csrc/paxos_accept_learn.cu`` (each
-    proposer's gate and value once; a block per acceptor row takes its
-    accepts' slot maxima and winners in shared memory and writes the
-    row's new state and a bit per delivered accepted response; tiles of
-    rows count those bits per proposer; a block per receiver row takes
-    the lowest decider of each slot and learns). With ``want_counts`` it
-    also returns its count of accepted responses and its decided flags,
-    which it keeps in a row of its proposer scratch (a strided view). Its
-    SWITCH instance, with ``agg``, draws each accepted response's
-    downlink inline."""
+    CUDA tensors it launches ``csrc/paxos_accept_learn.cu`` (a block per
+    lane gates each proposer and buckets the proceeding ones by slot;
+    blocks over acceptor rows stage a row's mask bytes in shared memory,
+    walk each (row, slot)'s bucket for the accept maximum and its winner
+    with 16-byte rows, and count the winners' delivered responses; blocks
+    over receiver rows walk the buckets for the lowest decider and learn).
+    With ``want_counts`` it also returns its count of accepted responses
+    and its decided flags, which it keeps in a row of its proposer scratch
+    (a strided view). Its SWITCH instance, with ``agg``, draws each
+    accepted response's downlink inline."""
     if deliver.device.type == "cpu":
         return paxos_accept_learn_plain(cfg, seed, r, deliver, prep_del,
                                         new_promised, n_prom, best_bal,
@@ -371,16 +373,16 @@ def paxos_accept_learn(cfg: Config, seed, r: int, deliver, prep_del,
     promised2, acc_bal2, acc_val2, learned_val2 = (
         torch.empty_like(new_promised) for _ in range(4))
     learned_mask2 = torch.empty_like(learned_mask)
-    props = torch.empty((B, 4, N), dtype=torch.int32, device=dev)
+    props = torch.empty((B, KZ_ROWS, N), dtype=torch.int32, device=dev)
     n_acc = torch.empty((B, N), dtype=torch.int32, device=dev)
-    bits = torch.empty((B, N, -(-N // 32)), dtype=torch.int32, device=dev)
+    starts = torch.empty((B, S + 1), dtype=torch.int32, device=dev)
     base, table = knobs.static(cfg), knobs.table_ptr(cfg, dev, B)
     _build.launch("paxos_accept_learn", seed.data_ptr(), int(r) & 0xFFFFFFFF,
                   *(t.data_ptr() for t in (
                       deliver, prep_del, new_promised, n_prom, best_bal,
                       best_a, acc_bal, acc_val, learned_val, learned_mask,
                       promised2, acc_bal2, acc_val2, learned_val2,
-                      learned_mask2, props, n_acc, bits)),
+                      learned_mask2, props, n_acc, starts)),
                   cfg.n_proposers or N, base.churn_cutoff, B, N, S,
                   *switch_args(base, agg), table)
     paxos_accept_learn.launches += 1

@@ -582,10 +582,11 @@ def bcast_decide(bits, committed, dval, committed_start, timer, reset,
                  crash: bool = False, byz=None):
     """Kernel KV: same arguments and result as :func:`bcast_decide_plain`,
     which it runs for CPU tensors; for CUDA tensors it launches
-    ``csrc/bcast_decide.cu`` (the deciders' least ids per (slot, side) by a
-    block minimum and one atomicMin a block, then a thread per node adopts
-    and runs P7, writing fresh tensors; its CRASH instance with
-    ``crash``, its BYZ instance with ``byz``)."""
+    ``csrc/bcast_decide.cu`` (each tile of :data:`DECIDE_TILE` nodes'
+    least decider per (side, slot), stored plainly; then a thread per node
+    takes its lane's minima over the tiles, adopts with 16-byte rows and
+    runs P7, writing fresh tensors; its CRASH instance with ``crash``, its
+    BYZ instance with ``byz``)."""
     if bits.device.type == "cpu":
         return bcast_decide_plain(bits, committed, dval, committed_start,
                                   timer, reset, crash, byz)
@@ -602,7 +603,8 @@ def bcast_decide(bits, committed, dval, committed_start, timer, reset,
         check_all(dev, (n_real, torch.int32, (B,)))
     com_out, dval_out = torch.empty_like(committed), torch.empty_like(dval)
     timer_out = torch.empty_like(timer)
-    imin = torch.empty((B, 2, S), dtype=torch.int32, device=dev)
+    imin = torch.empty((B, -(-N // DECIDE_TILE), 2, S), dtype=torch.int32,
+                       device=dev)
     _build.launch("bcast_decide", *(t.data_ptr() for t in (
         bits, committed, dval, committed_start, timer, reset, com_out,
         dval_out, timer_out, imin)), B, N, S, int(crash),
@@ -612,6 +614,10 @@ def bcast_decide(bits, committed, dval, committed_start, timer, reset,
 
 
 bcast_decide.launches = 0
+# Nodes a block of KV's first launch searches for deciders
+# (csrc/bcast_decide.cu TILE): the tiles' minima table is [B, ceil(N /
+# DECIDE_TILE), 2, S].
+DECIDE_TILE = 4096
 
 
 # --- KAK: each receiver's equivocating support --------------------------------

@@ -8,9 +8,11 @@ equal, tolerance 0: whole runs (digest and every extract leaf) at
 = 256, one round from a converted JAX carry and from random states
 (accepted ballots tied across acceptors, slots several proposers pick,
 outbid promises), numpy models of kernels KY and KZ (the packed
-(ballot, -acceptor) key merged over row tiles, the per-row accept maxima
-and winners, the bit-packed accepted responses, the lowest decider) held
-against the plain versions with their work taken in shuffled orders, and
+(ballot, -acceptor) key merged over row tiles; the proceeding proposers'
+slot buckets, each (row, slot)'s walk of its bucket for the accept maximum
+and the lowest decider, the blocks' counts) held against the plain
+versions with their work taken in shuffled orders, also at a round whose
+ballots pass 2^31, and
 chip_smoke.py's hostile Paxos anchor made again by the JAX package.
 """
 import importlib.util
@@ -123,12 +125,12 @@ def test_one_round_from_jax_state(jax_steps, k):
 
 # --- one round from random states --------------------------------------------
 
-def random_state(g, B, N, S, r):
+def random_state(g, B, N, S, r, hi=None):
     """A batched PaxosState as numpy leaves: accepted ballots from a small
-    set (ties across acceptors), promises around round r's ballots (some
-    outbid them), accepted values from a small set, half the slots
-    learned."""
-    hi = (r + 1) * N + 1
+    set (ties across acceptors), promises around round r's ballots (below
+    ``hi``, by default the round's last ballot + 1: some outbid them),
+    accepted values from a small set, half the slots learned."""
+    hi = (r + 1) * N + 1 if hi is None else hi
     return {"seed": np.arange(70, 70 + B, dtype=np.uint32),
             "promised": g.integers(0, hi, (B, N, S)).astype(np.int32),
             "acc_bal": g.choice(np.array([0, 3, 5, hi], np.int32),
@@ -232,55 +234,68 @@ def promise_model(cfg, seed, r, D, promised, acc_bal, g):
 
 def accept_learn_model(cfg, seed, r, D, new_promised, n_prom, best_bal,
                        best_a, acc_bal, acc_val, learned_val, learned_mask,
-                       g):
-    """KZ on one lane: the gate; per acceptor row the accept maxima, then
-    the winners' values written by whichever proposer holds the maximum
-    (taken in a shuffled order) and the delivered accepted responses packed
-    32 to a word; tile counts of those bits; decisions; per receiver row
-    the lowest decider of each slot."""
+                       g, blocks=3):
+    """KZ on one lane, launch by launch. Launch 1: the gate, and the
+    proceeding proposers' counting sort by slot, scattered in a shuffled
+    order (the order inside a bucket is free). Launch 2: ``blocks`` blocks
+    take acceptor rows j, j + blocks, ...; per (row, slot) the bucket's
+    walk keeps the largest eligible ballot from 0 and its holder, and a
+    winner's delivered response counts at its list position; the blocks'
+    counts merge into n_acc in a shuffled order. Launch 3: the decided
+    proposers by list position, then per (row, slot) the walk for the
+    lowest decider that reached the row or is it. Returns the five leaves
+    and (n_acc, decided)."""
     N, S = new_promised.shape
     maj = N // 2 + 1
     is_prop, slot, ballot, v_own = _props(cfg, seed, r, N, S)
     prep = D.T
-    proceed = is_prop & (n_prom >= maj)
-    chosen = np.where(best_bal > 0, acc_val[best_a, slot], v_own)
+    go = is_prop & (n_prom >= maj)
+    value = np.where(best_bal > 0, acc_val[best_a, slot], v_own)
+    starts = np.concatenate([[0], np.cumsum(np.bincount(slot[go],
+                                                        minlength=S))])
+    cursor = starts[:-1].copy()
+    ids = np.empty(starts[-1], np.int64)
+    for p in g.permutation(np.flatnonzero(go)):
+        ids[cursor[slot[p]]] = p
+        cursor[slot[p]] += 1
+    bal_k, val_k = ballot[ids], value[ids]
     out = [np.empty_like(new_promised) for _ in range(3)]
-    words = -(-N // 32)
-    bits = np.zeros((N, words), np.uint32)
-    for a in range(N):
-        amax = np.zeros(S, np.int32)
-        val = np.full(S, 12345, np.int32)
-        cond = proceed & prep[a] & (ballot >= new_promised[a, slot])
-        for p in g.permutation(N):
-            if cond[p]:
-                amax[slot[p]] = max(amax[slot[p]], ballot[p])
-        for p in g.permutation(N):
-            if cond[p] and ballot[p] == amax[slot[p]]:
-                val[slot[p]] = chosen[p]
-                if D[a, p]:
-                    bits[a, p >> 5] |= np.uint32(1 << (p & 31))
-        has = amax > 0
-        out[0][a] = np.where(has, amax, new_promised[a])
-        out[1][a] = np.where(has, amax, acc_bal[a])
-        out[2][a] = np.where(has, val, acc_val[a])
+    cnt = np.zeros((blocks, len(ids)), np.int32)
+    for j in range(blocks):
+        for a in range(j, N, blocks):
+            for s in range(S):
+                amax, best = 0, -1
+                for k in range(starts[s], starts[s + 1]):
+                    bal = bal_k[k]
+                    if bal < new_promised[a, s] or bal < amax or (
+                            bal == amax and best >= 0):
+                        continue
+                    if prep[a, ids[k]]:
+                        amax, best = bal, k
+                if best >= 0 and D[a, ids[best]]:
+                    cnt[j, best] += 1
+                has = amax > 0
+                out[0][a, s] = amax if has else new_promised[a, s]
+                out[1][a, s] = amax if has else acc_bal[a, s]
+                out[2][a, s] = val_k[best] if has else acc_val[a, s]
     n_acc = np.zeros(N, np.int32)
-    p_idx = np.arange(N)
-    for a0 in g.permutation(np.arange(0, N, TILE_ROWS)):
-        rows = bits[a0:a0 + TILE_ROWS, p_idx >> 5]
-        n_acc += ((rows >> (p_idx & 31).astype(np.uint32)) & 1).sum(
-            0, dtype=np.int32)
-    decided = proceed & (n_acc >= maj)
+    for j in g.permutation(blocks):
+        np.add.at(n_acc, ids, cnt[j])
+    dec = np.where(n_acc[ids] >= maj, ids, -1)
     lv, lm = learned_val.copy(), learned_mask.copy()
     for n in range(N):
-        pmin = np.full(S, N)
-        for p in g.permutation(N):
-            if decided[p] and (prep[n, p] or p == n):
-                pmin[slot[p]] = min(pmin[slot[p]], p)
-        found = pmin < N
-        new = found & ~learned_mask[n]
-        lv[n] = np.where(new, chosen[np.minimum(pmin, N - 1)], lv[n])
-        lm[n] = learned_mask[n] | found
-    return (*out, lv, lm)
+        for s in range(S):
+            low, at = N, -1
+            for k in range(starts[s], starts[s + 1]):
+                p = dec[k]
+                if 0 <= p < low and (p == n or prep[n, p]):
+                    low, at = p, k
+            if at >= 0:
+                lm[n, s] = True
+                if not learned_mask[n, s]:
+                    lv[n, s] = val_k[at]
+    decided = (go & (n_acc >= maj)).astype(np.int32)
+    return (*out, lv, lm), (n_acc, decided)
 
 
 @pytest.mark.parametrize("name,N,S,r", [
@@ -299,7 +314,7 @@ def test_kernel_models_match_the_plain_versions(name, N, S, r):
                              st.acc_bal)
     kz = paxos.paxos_accept_learn(cfg, st.seed, r, deliver, ky[4], *ky[:4],
                                   st.acc_bal, st.acc_val, st.learned_val,
-                                  st.learned_mask)
+                                  st.learned_mask, True)
     ties = 0
     for b in range(2):
         D = deliver[b].numpy()
@@ -309,14 +324,50 @@ def test_kernel_models_match_the_plain_versions(name, N, S, r):
         for got, w in zip(ky[:4], want):
             assert np.array_equal(got[b].numpy(), w)
         assert np.array_equal(ky[4][b].numpy(), D.T)
-        want = accept_learn_model(
+        want, counts = accept_learn_model(
             cfg, seed, r, D, *(t[b].numpy() for t in ky[:4]),
             *(leaves[k][b] for k in ("acc_bal", "acc_val", "learned_val",
                                      "learned_mask")), g)
-        for got, w in zip(kz, want):
+        for got, w in zip(kz, want + counts):
             assert np.array_equal(got[b].numpy(), w)
         ties += int((ky[2][b] > 0).sum())
     assert ties > 0 and bool(kz[4].any())
+
+
+def test_kernel_model_at_a_wrapping_round():
+    """At round r = 2^31 // N the ballots r·N + p + 1 pass 2^31 within the
+    round, so the largest ids hold the least (negative) ballots: the model
+    of KZ equals the plain version, and the plain round equals JAX's
+    paxos_round, every leaf."""
+    kw = dict(protocol="paxos", n_nodes=70, log_capacity=5, drop_rate=0.1)
+    cfg, jcfg = Config(**kw), JConfig(**kw)
+    N, S, r = 70, 5, 2**31 // 70
+    g = np.random.default_rng(31)
+    leaves = random_state(g, 2, N, S, r, hi=r * N)
+    st = convert.state_from_numpy(leaves)
+    _, _, ballot, _ = paxos.proposals(cfg, st.seed, r, N, S)
+    assert int(ballot[0, 0]) > 0 > int(ballot[0, -1])
+    deliver = delivery(st.seed, r, N, cfg.drop_cutoff, cfg.partition_cutoff)
+    ky = paxos.paxos_promise(cfg, st.seed, r, deliver, st.promised,
+                             st.acc_bal)
+    kz = paxos.paxos_accept_learn(cfg, st.seed, r, deliver, ky[4], *ky[:4],
+                                  st.acc_bal, st.acc_val, st.learned_val,
+                                  st.learned_mask, True)
+    for b in range(2):
+        want, counts = accept_learn_model(
+            cfg, int(leaves["seed"][b]), r, deliver[b].numpy(),
+            *(t[b].numpy() for t in ky[:4]),
+            *(leaves[k][b] for k in ("acc_bal", "acc_val", "learned_val",
+                                     "learned_mask")), g)
+        for got, w in zip(kz, want + counts):
+            assert np.array_equal(got[b].numpy(), w)
+    assert bool((kz[1] != st.acc_bal).any()) and int(kz[6].sum()) > 0
+    got = convert.state_to_numpy(paxos.paxos_round(cfg, st, r))
+    want = _jax_round(jcfg)(jpaxos.PaxosState(
+        **{k: jnp.asarray(v) for k, v in leaves.items()}), jnp.int32(r))
+    for k, a in want._asdict().items():
+        a = np.asarray(a)
+        assert got[k].dtype == a.dtype and np.array_equal(got[k], a), k
 
 
 def test_packed_key_breaks_ties_to_the_lowest_acceptor():

@@ -15,11 +15,12 @@ the ladder rung by rung against JAX and against standalone runs;
 ``chip_smoke.py``'s bcast ladder anchors against the JAX package's
 ladders; one round at the pbft-100k-bcast knobs with N = 1 999.
 
-Kernels KT and KU compute what the plain versions compute in another way
-(a per-side histogram for P1, Misra-Gries candidates and an exact recount
-for P4-P5); numpy models of those algorithms are held against the plain
-versions here on adversarial inputs, tolerance 0: the only check of the
-kernels' logic before the card.
+Kernels KT, KU and KV compute what the plain versions compute in another
+way (a per-side histogram for P1, Misra-Gries candidates and an exact
+recount for P4-P5, per-tile deciders found by warp ballots for P6); numpy
+models of those algorithms are held against the plain versions here on
+adversarial inputs, tolerance 0: the only check of the kernels' logic
+before the card.
 """
 import dataclasses
 import functools
@@ -521,6 +522,142 @@ def test_self_vote_decides_at_the_threshold(f):
                          bcast[0], np.zeros(n, np.int64), 2 * f + 1,
                          tb.table_width(n, f))
     assert np.array_equal(p2, hit)
+
+
+# --- a numpy model of kernel KV ------------------------------------------------
+
+NONE = 0x7FFFFFFF
+
+
+def kernel_decide(bits, committed, dval, committed_start, timer, reset,
+                  crash, byz, g, threads=256, warp=32, per_thread=16,
+                  batch=4, chunk=32):
+    """KV on numpy arrays, launch by launch. Launch 1: tiles of ``threads
+    * per_thread`` nodes (blocks in a shuffled order); each thread holds
+    ``per_thread`` consecutive nodes, reads the rows of its eligible ones
+    ``batch`` at a time where its own nodes have not yet shown every slot
+    of the side (``chunk`` slots a pass), keeps the slots newly shown, and
+    the lowest lane of the warp that newly shows a slot at node u gives the
+    warp's candidate; the warps' least is the tile's. Launch 2: the lane's
+    least over its tiles, then a thread a node adopts and runs P7."""
+    B, N, S = committed.shape
+    tile = threads * per_thread
+    tiles = -(-N // tile)
+    imin = np.full((B, tiles, 2, S), NONE, np.int64)
+    for b in range(B):
+        top = N if byz is None else min(N, int(byz[0][b]) - byz[1])
+        for t in g.permutation(tiles):
+            first = t * tile + np.arange(threads) * per_thread
+            for c0 in range(0, S, chunk):
+                W = min(chunk, S - c0)
+                low = np.full((threads // warp, 2, W), NONE, np.int64)
+                have = np.zeros((threads, 2, W), bool)
+                for u0 in range(0, per_thread, batch):
+                    m = np.zeros((threads, batch, W), bool)
+                    for th in range(threads):
+                        for v in range(batch):
+                            i = first[th] + u0 + v
+                            if i >= N or not bits[b, i] & 1 or i >= top:
+                                continue
+                            sd = (bits[b, i] >> 1) & 1
+                            if not have[th, sd].all():
+                                m[th, v] = committed[b, i, c0:c0 + W]
+                    for v in range(batch):
+                        u = u0 + v
+                        fresh = np.zeros((threads, 2, W), bool)
+                        for th in range(threads):
+                            i = first[th] + u
+                            sd = (bits[b, i] >> 1) & 1 if i < N else 0
+                            fresh[th, sd] = m[th, v] & ~have[th, sd]
+                            have[th, sd] |= fresh[th, sd]
+                        for w in range(threads // warp):
+                            lanes = fresh[w * warp:(w + 1) * warp]
+                            for x in range(2):
+                                for q in np.flatnonzero(lanes[:, x].any(0)):
+                                    lane = int(np.argmax(lanes[:, x, q]))
+                                    who = t * tile + (w * warp + lane) * \
+                                        per_thread + u
+                                    low[w, x, q] = min(low[w, x, q], who)
+                imin[b, t, :, c0:c0 + W] = low.min(0)
+    lows = imin.min(1)                                        # [B, 2, S]
+    com, dv, tm = committed.copy(), dval.copy(), timer.copy()
+    for b in range(B):
+        for i in range(N):
+            side = (bits[b, i] >> 1) & 1
+            takes = not (crash and bits[b, i] & 4)
+            for s in range(S):
+                lo = lows[b, side, s]
+                if takes and not committed[b, i, s] and lo < N:
+                    com[b, i, s] = True
+                    dv[b, i, s] = dval[b, lo, s]
+            changed = (com[b, i] & ~committed_start[b, i]).any()
+            up = (timer[b, i:i + 1].view(np.uint32) + np.uint32(1)).view(
+                np.int32)[0]                                  # wraps
+            tm[b, i] = 0 if changed else timer[b, i] if reset[b, i] else up
+    return com, dv, tm
+
+
+def decide_inputs(g, B, N, S, nb):
+    """Random P6-P7 inputs: node bytes with both sides (bit 2 marks down
+    nodes), sparse commits with some slots committed by no node of a side;
+    lane 0's side 1 has one node that broadcasts, its last honest one, and
+    it commits every slot. With ``nb`` byzantine nodes, per-lane n_real
+    (else None) and lane 0's last honest node."""
+    n_real = None
+    last = N - 1
+    if nb:
+        n_real = g.integers(N // 2, N + 1, B).astype(np.int32)
+        n_real[0] = N
+        last = N - 1 - nb
+    bits = (g.random((B, N)) < 0.7).astype(np.uint8)
+    bits |= (g.random((B, N)) < 0.4).astype(np.uint8) << 1
+    bits |= (g.random((B, N)) < 0.2).astype(np.uint8) << 2
+    side1 = (bits[0] >> 1) & 1 == 1
+    bits[0, side1] &= ~np.uint8(1)
+    bits[0, last] = 3
+    committed = g.random((B, N, S)) < 0.08
+    committed[:, :, S // 2:] &= g.random((B, 1, S - S // 2)) < 0.5
+    committed[0, last] = True
+    dval = g.integers(-5, 5, (B, N, S)).astype(np.int32)
+    start = committed & (g.random((B, N, S)) < 0.7)
+    timer = g.integers(-2, 9, (B, N)).astype(np.int32)
+    timer[:, 0] = np.iinfo(np.int32).max
+    reset = g.random((B, N)) < 0.3
+    return bits, committed, dval, start, timer, reset, n_real, last
+
+
+@pytest.mark.parametrize("S,N,crash,byz,threads,warp", [
+    (16, 97, False, False, 256, 32), (16, 203, True, False, 4, 2),
+    (40, 97, False, True, 2, 2), (40, 61, True, True, 256, 32),
+    (1, 131, False, False, 4, 2), (1, 29, True, True, 2, 1)])
+def test_kernel_decide_model_equals_plain(S, N, crash, byz, threads, warp):
+    """KV's two launches (numpy) on random states: ragged N over tiles of
+    the real width and of a few nodes, S of 1, 16 and 40 (one pass, two
+    with a short last), slots without a decider, a side whose only
+    decider is the lane's last node, CRASH and BYZ (per-lane n_real), each
+    against bcast_decide_plain, tolerance 0."""
+    g = np.random.default_rng(N * 100 + S)
+    B = 3
+    nb = 3 if byz else 0
+    bits, committed, dval, start, timer, reset, n_real, last = \
+        decide_inputs(g, B, N, S, nb)
+    byz_np = (n_real, nb) if byz else None
+    T = torch.from_numpy
+    want = tb.bcast_decide_plain(
+        T(bits), T(committed), T(dval), T(start), T(timer), T(reset), crash,
+        (T(n_real), nb) if byz else None)
+    got = kernel_decide(bits, committed, dval, start, timer, reset, crash,
+                        byz_np, g, threads=threads, warp=warp)
+    for a, w in zip(got, want):
+        assert np.array_equal(a, w.numpy())
+    adopted = got[0] & ~committed
+    assert adopted.any() and not got[0].all()
+    # Lane 0's side 1 adopts from its last honest node alone.
+    side1 = ((bits[0] >> 1) & 1 == 1) & ~(crash & (bits[0] & 4 != 0))
+    take = side1[:, None] & ~committed[0]
+    assert got[0][0][side1].all() and take.any()
+    assert np.array_equal(got[1][0][take],
+                          np.broadcast_to(dval[0, last], (N, S))[take])
 
 
 # --- the f-ladder -------------------------------------------------------------
